@@ -1,0 +1,102 @@
+"""Carry the JAX package's weights and optimizer state into the port.
+
+The inverse of the transposes in ``tpu_ddp/checkpoint/import_foreign.py``:
+``from_jax`` takes the Flax ``params`` and ``batch_stats`` trees and,
+optionally, the optax ``opt_state``, all with numpy leaves, and returns the
+port's ``state_dict`` and ``OptState``. The port's module names follow the
+Flax tree, so each leaf maps by path:
+
+* conv ``kernel`` ``(kh, kw, in, out)`` -> ``weight`` ``(out, in, kh, kw)``;
+* dense ``kernel`` ``(in, out)`` -> ``weight`` ``(out, in)`` (the port
+  flattens channels-last, so ``fc1`` needs no row permutation);
+* BatchNorm ``scale``/``bias`` -> ``weight``/``bias``; ``batch_stats``
+  ``mean``/``var`` -> ``running_mean``/``running_var``.
+
+Every param-shaped optimizer slot (SGD trace, AdamW mu/nu, EMA) maps the
+same way; the optax state is read by its field names (``trace``, ``mu``,
+``nu``, ``count``, ``ema``), not by importing optax. Used by tests; reads
+nothing from the network.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from tpu_ddp_torch.train.optim import OptState
+
+_RENAME = {"kernel": "weight", "scale": "weight", "bias": "bias",
+           "mean": "running_mean", "var": "running_var"}
+
+
+def _leaf(path: str, x) -> tuple:
+    head, _, last = path.rpartition(".")
+    x = np.asarray(x)
+    if last == "kernel":
+        x = x.transpose(3, 2, 0, 1) if x.ndim == 4 else x.T
+    return f"{head}.{_RENAME[last]}", torch.tensor(np.ascontiguousarray(x))
+
+
+def convert_tree(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Nested Flax dict -> flat ``{torch_name: tensor}``."""
+    out = {}
+    for key, value in tree.items():
+        path = f"{prefix}.{key}" if prefix else str(key)
+        if isinstance(value, dict) or hasattr(value, "items"):
+            out.update(convert_tree(value, path))
+        else:
+            name, t = _leaf(path, value)
+            out[name] = t
+    return out
+
+
+def _walk_opt_state(node, state: OptState) -> None:
+    fields = getattr(node, "_fields", None)
+    if fields is not None:
+        if "trace" in fields:
+            state.trace = convert_tree(node.trace)
+        if "mu" in fields:
+            state.mu, state.nu = convert_tree(node.mu), convert_tree(node.nu)
+            state.count = torch.tensor(np.asarray(node.count), dtype=torch.int32)
+        elif fields == ("count",):             # ScaleByScheduleState
+            state.sched_count = torch.tensor(np.asarray(node.count),
+                                             dtype=torch.int32)
+        if "ema" in fields:
+            state.ema = convert_tree(node.ema)
+        children = [getattr(node, f) for f in fields
+                    if f not in ("trace", "mu", "nu", "ema", "count")]
+    elif isinstance(node, (tuple, list)):
+        children = list(node)
+    else:
+        return
+    for child in children:
+        _walk_opt_state(child, state)
+
+
+def from_jax(params, batch_stats, opt_state=None) -> dict:
+    """``{"model": state_dict, "opt_state": OptState or None}``, on the CPU."""
+    model = convert_tree(params)
+    model.update(convert_tree(batch_stats))
+    converted = None
+    if opt_state is not None:
+        converted = OptState()
+        _walk_opt_state(opt_state, converted)
+    return {"model": model, "opt_state": converted}
+
+
+def load_into(state, converted: dict) -> None:
+    """Copy ``from_jax``'s result into a port ``TrainState`` in place."""
+    state.model.load_state_dict(converted["model"])
+    src: Optional[OptState] = converted["opt_state"]
+    if src is None:
+        return
+    dst = state.opt_state
+    for slot in ("trace", "mu", "nu", "ema"):
+        if getattr(src, slot) is not None:
+            for name, t in getattr(src, slot).items():
+                getattr(dst, slot)[name].copy_(t)
+    for slot in ("count", "sched_count"):
+        if getattr(src, slot) is not None:
+            getattr(dst, slot).copy_(getattr(src, slot))

@@ -1,0 +1,91 @@
+"""``python -m tpu_ddp_torch.cli.train`` — the port's training CLI.
+
+Counterpart of ``tpu_ddp/cli/train.py`` (``build_parser``, ``main`` :609,
+``_run_and_report`` :635) for this slice's flags, with the JAX CLI's names
+and defaults. It trains on the GPU unless ``--device cpu`` is given, and
+refuses to start without one otherwise.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from tpu_ddp_torch.runtime import DEVICES
+from tpu_ddp_torch.train.trainer import TrainConfig, Trainer
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="tpu_ddp_torch trainer")
+    p.add_argument("--device", choices=DEVICES, default="cuda",
+                   help="cuda (default) demands a GPU; cpu runs on the CPU")
+    p.add_argument("--data-dir", default="data/CIFAR-10")
+    p.add_argument("--synthetic-data", action="store_true",
+                   help="class-conditional synthetic CIFAR (no dataset needed)")
+    p.add_argument("--synthetic-size", type=int, default=2048)
+    p.add_argument("--epochs", type=int, default=99)
+    p.add_argument("--batch-size", type=int, default=32,
+                   help="per-device batch (the reference's per-process 32)")
+    p.add_argument("--lr", type=float, default=1e-2)
+    p.add_argument("--optimizer", choices=["sgd", "adamw"], default="sgd")
+    p.add_argument("--momentum", type=float, default=0.0)
+    p.add_argument("--weight-decay", type=float, default=0.0)
+    p.add_argument("--schedule", choices=["constant", "cosine"], default="constant")
+    p.add_argument("--warmup-steps", type=int, default=0)
+    p.add_argument("--grad-clip-norm", type=float, default=0.0,
+                   help="clip the global gradient norm before the update (0 = off)")
+    p.add_argument("--ema-decay", type=float, default=0.0,
+                   help="exponential moving average of the params (0 = off); "
+                        "eval uses the averaged weights")
+    p.add_argument("--kernels", action="store_true",
+                   help="send the optimizer update through the fused CUDA "
+                        "kernel (ops/csrc/fused_update.cu), one pass per leaf")
+    p.add_argument("--model", choices=["netresdeep"], default="netresdeep")
+    p.add_argument("--n-chans1", type=int, default=32, help="NetResDeep width")
+    p.add_argument("--n-blocks", type=int, default=10, help="NetResDeep depth")
+    p.add_argument("--untied-blocks", action="store_true",
+                   help="independent ResBlocks (the reference ties them)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--eval-each-epoch", action="store_true")
+    p.add_argument("--log-every-epochs", type=int, default=10)
+    return p
+
+
+def config_from_args(args) -> TrainConfig:
+    return TrainConfig(
+        device=args.device,
+        data_dir=args.data_dir,
+        synthetic_data=args.synthetic_data,
+        synthetic_size=args.synthetic_size,
+        epochs=args.epochs,
+        per_shard_batch=args.batch_size,
+        lr=args.lr,
+        optimizer=args.optimizer,
+        momentum=args.momentum,
+        weight_decay=args.weight_decay,
+        schedule=None if args.schedule == "constant" else args.schedule,
+        warmup_steps=args.warmup_steps,
+        grad_clip_norm=args.grad_clip_norm,
+        ema_decay=args.ema_decay,
+        kernels=args.kernels,
+        model=args.model,
+        n_chans1=args.n_chans1,
+        n_blocks=args.n_blocks,
+        tied_blocks=not args.untied_blocks,
+        seed=args.seed,
+        eval_each_epoch=args.eval_each_epoch,
+        log_every_epochs=args.log_every_epochs,
+    )
+
+
+def main(argv=None) -> dict:
+    args = build_parser().parse_args(argv)
+    trainer = Trainer(config_from_args(args))
+    metrics = trainer.run()
+    acc, loss = trainer.evaluate()
+    trainer.logger.log_text(f"final test accuracy: {acc:.4f}, test loss: {loss:.4f}")
+    metrics.update(test_accuracy=acc, test_loss=loss)
+    return metrics
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,119 @@
+"""NetResDeep — the reference's flagship model as ``torch.nn`` modules.
+
+Counterpart of ``tpu_ddp/models/resnet.py`` (``ResBlock`` :39,
+``NetResDeep`` :78). Module and parameter names follow the Flax tree
+(``conv1``, ``resblock`` or ``resblock_<i>``, ``conv``, ``batch_norm``,
+``fc1``, ``fc2``) so the converter maps one to the other by path.
+
+* **Layout.** The public input is NHWC ``(N, 32, 32, 3)``, as the JAX
+  model's. ``conv1`` gets it as an NCHW view (``permute``), whose memory
+  stays channels-last, so cuDNN picks its channels-last kernels.
+* **Flatten.** The JAX model flattens NHWC, in ``(h, w, c)`` order
+  (``resnet.py:131``). This port flattens channels-last too, so ``fc1``'s
+  weight is the Flax kernel transposed, with no row permutation.
+* **BatchNorm.** Flax normalises with, and stores as its running variance,
+  the *biased* batch variance in fast form ``E[x²] − E[x]²`` clipped at 0;
+  ``torch.nn.BatchNorm2d`` stores the unbiased one. ``BatchNorm`` below is
+  therefore written out in plain torch ops: running value
+  ``0.9 * running + (1 - 0.9) * batch`` (torch momentum 0.1), eps 1e-5.
+* **Tied blocks.** With ``tied=True`` one ``ResBlock`` is applied
+  ``n_blocks`` times (the reference's list-repeat quirk): 76,074 params, and
+  the shared BatchNorm's running stats move ``n_blocks`` times per forward.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tpu_ddp_torch.models.initializers import kaiming_normal_relu_, torch_default_uniform_
+
+
+class BatchNorm(nn.Module):
+    """Flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over NCHW input,
+    with Flax's biased fast-form variance in both the normalisation and the
+    running buffer."""
+
+    def __init__(self, n_chans: int, momentum: float = 0.9, eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.full((n_chans,), 0.5))   # scale init 0.5
+        self.bias = nn.Parameter(torch.zeros(n_chans))
+        self.register_buffer("running_mean", torch.zeros(n_chans))
+        self.register_buffer("running_var", torch.ones(n_chans))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            mean = x.mean(dim=(0, 2, 3))
+            mean2 = (x * x).mean(dim=(0, 2, 3))
+            var = torch.clamp_min(mean2 - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x - mean[:, None, None]) * mul[:, None, None]
+        return y + self.bias[:, None, None]
+
+
+class ResBlock(nn.Module):
+    """conv3x3 (no bias) -> BN -> relu -> (+x); kaiming-normal(relu) conv."""
+
+    def __init__(self, n_chans: int, generator: torch.Generator):
+        super().__init__()
+        self.conv = nn.Conv2d(n_chans, n_chans, 3, padding=1, bias=False)
+        self.batch_norm = BatchNorm(n_chans)
+        kaiming_normal_relu_(self.conv.weight, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.batch_norm(self.conv(x))) + x
+
+
+class NetResDeep(nn.Module):
+    """conv3->C k3p1, relu, maxpool2, n_blocks x ResBlock, maxpool2,
+    flatten (h, w, c), fc->32, relu, fc->num_classes."""
+
+    def __init__(self, n_chans1: int = 32, n_blocks: int = 10,
+                 num_classes: int = 10, tied: bool = True,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.n_chans1, self.n_blocks, self.tied = n_chans1, n_blocks, tied
+        self.conv1 = nn.Conv2d(3, n_chans1, 3, padding=1)
+        torch_default_uniform_(self.conv1.weight, 3 * 3 * 3, generator)
+        torch_default_uniform_(self.conv1.bias, 3 * 3 * 3, generator)
+        if tied:
+            self.resblock = ResBlock(n_chans1, generator)
+            self.blocks = [self.resblock] * n_blocks
+        else:
+            self.blocks = []
+            for i in range(n_blocks):
+                block = ResBlock(n_chans1, generator)
+                self.add_module(f"resblock_{i}", block)
+                self.blocks.append(block)
+        flat = 8 * 8 * n_chans1
+        self.fc1 = nn.Linear(flat, 32)
+        torch_default_uniform_(self.fc1.weight, flat, generator)
+        torch_default_uniform_(self.fc1.bias, flat, generator)
+        self.fc2 = nn.Linear(32, num_classes)
+        torch_default_uniform_(self.fc2.weight, 32, generator)
+        torch_default_uniform_(self.fc2.bias, 32, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # x: (N, 32, 32, 3) NHWC, as the JAX model takes it
+        out = self.conv1(x.permute(0, 3, 1, 2))
+        out = F.max_pool2d(F.relu(out), 2)            # 32x32 -> 16x16
+        for block in self.blocks:
+            out = block(out)
+        out = F.max_pool2d(out, 2)                    # 16x16 -> 8x8
+        out = out.permute(0, 2, 3, 1).reshape(out.shape[0], -1)  # (h, w, c)
+        out = F.relu(self.fc1(out))
+        return self.fc2(out).float()
+
+
+def param_count(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())

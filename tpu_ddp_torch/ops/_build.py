@@ -1,0 +1,121 @@
+"""Build and load the port's CUDA kernels: ``nvcc`` into a shared library
+with a plain C interface, loaded with ``ctypes``.
+
+Each source under ``csrc/`` becomes ``build/tpu_ddp_torch/lib<name>-<hash>.so``
+at the root of the checkout (a directory ``.gitignore`` lists) at first use;
+the hash covers the source and the flags, so an edited source is rebuilt.
+``build`` starts one ``nvcc`` per missing library, all at once, and waits for
+them. Nothing is built when a module is imported, and nothing here falls
+back: a failed build raises with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpu_ddp_torch"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+
+#: library name -> (source file, {C function: (restype, argtypes)})
+LIBRARIES = {
+    "fused_update": ("fused_update.cu", {
+        "tpu_ddp_fused_update": (
+            _I, [_P] * 7 + [_LL] + [_I] * 6 + [_F] * 11 + [_P]),
+        "tpu_ddp_cuda_error_string": (ctypes.c_char_p, [_I]),
+    }),
+}
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else []
+    candidates += ["/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""]
+    for c in candidates:
+        if c and os.path.isfile(c):
+            return c
+    raise FileNotFoundError(
+        "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
+        "PATH): the port's CUDA kernels are built from source at first use"
+    )
+
+
+def library_path(name: str) -> Path:
+    source, _ = LIBRARIES[name]
+    digest = hashlib.sha256(
+        (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Compile every named library that is not built yet, all in parallel.
+    Returns seconds per library compiled (empty when all were built)."""
+    names = list(LIBRARIES if names is None else names)
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    compiler = nvcc()
+    procs = {}
+    for name in todo:
+        out = library_path(name)
+        tmp = out.with_suffix(f".tmp{os.getpid()}")
+        log = open(out.with_suffix(".log"), "w")
+        cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / LIBRARIES[name][0])]
+        procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
+                       tmp, out, log, time.perf_counter())
+    seconds, failed = {}, []
+    for name, (proc, tmp, out, log, t0) in procs.items():
+        rc = proc.wait()
+        log.close()
+        seconds[name] = time.perf_counter() - t0
+        if rc == 0:
+            os.replace(tmp, out)
+        else:
+            failed.append(f"{name} (nvcc exit {rc}):\n"
+                          + out.with_suffix(".log").read_text()[-4000:])
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+    return seconds
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (ptxas register and spill report) for ``name``."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        for fn, (restype, argtypes) in LIBRARIES[name][1].items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
+        _loaded[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if rc != 0:
+        msg = lib.tpu_ddp_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

@@ -1,0 +1,44 @@
+"""Masked cross-entropy and accuracy.
+
+Counterpart of ``tpu_ddp/train/losses.py`` (``cross_entropy_loss`` :20,
+``masked_accuracy`` :63): the reference's ``nn.CrossEntropyLoss()`` with an
+optional validity mask, so the wrap-padded rows of a static-shape batch do
+not count.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None, *,
+                       label_smoothing: float = 0.0) -> torch.Tensor:
+    log_probs = F.log_softmax(logits, dim=-1)
+    true_lp = torch.gather(log_probs, -1, labels.long()[:, None])[:, 0]
+    if label_smoothing:
+        # soft target: (1-s) on the true class, s/K spread over all classes
+        n = logits.shape[-1]
+        nll = -((1.0 - label_smoothing) * true_lp
+                + (label_smoothing / n) * log_probs.sum(dim=-1))
+    else:
+        nll = -true_lp
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(nll.dtype)
+    return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+def masked_accuracy(logits: torch.Tensor, labels: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None):
+    """(correct_count, valid_count) as float32 tensors — summable across
+    batches without a host sync."""
+    correct = (logits.argmax(dim=-1) == labels).to(torch.float32)
+    if mask is None:
+        return correct.sum(), torch.tensor(float(correct.numel()),
+                                           device=correct.device)
+    mask = mask.to(torch.float32)
+    return (correct * mask).sum(), mask.sum()

@@ -1,0 +1,214 @@
+"""Optimizer factory: the optax chains of the JAX package, in torch.
+
+Counterpart of ``tpu_ddp/train/optim.py`` (``params_ema`` :28,
+``_decay_mask`` :75, ``make_optimizer`` :85, and ``apply_optimizer`` :226,
+which is ``Optimizer.apply`` here) for the parts this slice runs: SGD with
+or without momentum (optax ``trace``), coupled weight decay under the
+``ndim >= 2`` mask, global-norm clipping, AdamW with decoupled masked
+decay, constant and warmup-cosine schedules, and the EMA of the params.
+
+``Optimizer.apply`` runs the plain chain: stage by stage over all leaves, in
+the optax chain's order, with the same arithmetic. With ``kernels=True`` it
+sends the update through K1 instead (``ops/fused_update.py``). Both update
+the params and the optimizer state in place.
+
+Not ported yet (they raise ``NotImplementedError``): ``lamb``, freeze masks
+and ``zero1_axis`` (the DP-family slice).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, Optional
+
+import torch
+
+from tpu_ddp_torch.ops.fused_update import (
+    B1,
+    B2,
+    EPS,
+    FusedUpdate,
+    UpdateRecipe,
+    global_norm,
+)
+
+Params = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass
+class OptState:
+    """Optimizer state, one tensor per param name where a slot exists.
+    ``count`` is AdamW's step count, ``sched_count`` the schedule's (both
+    int32 device scalars, as optax keeps them)."""
+
+    count: Optional[torch.Tensor] = None
+    sched_count: Optional[torch.Tensor] = None
+    trace: Optional[Params] = None
+    mu: Optional[Params] = None
+    nu: Optional[Params] = None
+    ema: Optional[Params] = None
+
+
+def decay_mask(params: Params) -> Dict[str, bool]:
+    """Kernels only (``ndim >= 2``): no decay on BatchNorm scales/offsets
+    and biases."""
+    return {name: p.ndim >= 2 for name, p in params.items()}
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
+                                 warmup_steps: int, decay_steps: int) -> Callable:
+    """``optax.warmup_cosine_decay_schedule(init, peak, warmup, decay_steps)``
+    with ``end_value=0`` and ``exponent=1``, as float32 torch ops on the
+    count's device: a linear warmup joined to a cosine decay."""
+    cos_steps = decay_steps - warmup_steps
+    if cos_steps <= 0:
+        raise ValueError(f"cosine schedule needs decay steps > warmup "
+                         f"({decay_steps} <= {warmup_steps})")
+
+    def schedule(count: torch.Tensor) -> torch.Tensor:
+        if warmup_steps > 0:
+            c = torch.clamp(count, 0, warmup_steps)
+            frac = 1 - c.to(torch.float32) / warmup_steps
+            warm = (init_value - peak_value) * frac + peak_value
+        else:
+            warm = torch.full((), float(init_value), device=count.device)
+        cc = torch.clamp_max((count - warmup_steps).to(torch.float32),
+                             float(cos_steps))
+        cosine = 0.5 * (1 + torch.cos(math.pi * cc / float(cos_steps)))
+        decayed = peak_value * ((1 - 0.0) * cosine + 0.0)
+        return torch.where(count < warmup_steps, warm, decayed)
+
+    return schedule
+
+
+class Optimizer:
+    """``init(params) -> OptState`` and ``apply(grads, state, params) ->
+    updates`` (params and state updated in place). ``fused`` is the
+    ``FusedUpdate`` that runs K1, when built with ``kernels=True``."""
+
+    def __init__(self, recipe: UpdateRecipe, kernels: bool = False):
+        self.recipe = recipe
+        self.fused = FusedUpdate(recipe) if kernels else None
+
+    def init(self, params: Params) -> OptState:
+        r = self.recipe
+        dev = next(iter(params.values())).device
+        zeros = lambda: {n: torch.zeros_like(p) for n, p in params.items()}  # noqa: E731
+        count = lambda: torch.zeros((), dtype=torch.int32, device=dev)  # noqa: E731
+        state = OptState()
+        if r.optimizer == "adamw":
+            state.count, state.mu, state.nu = count(), zeros(), zeros()
+        elif r.momentum > 0:
+            state.trace = zeros()
+        if callable(r.lr):
+            state.sched_count = count()
+        if r.ema_decay:
+            state.ema = {n: p.detach().clone() for n, p in params.items()}
+        return state
+
+    @torch.no_grad()
+    def apply(self, grads: Params, state: OptState, params: Params) -> Params:
+        mask = decay_mask(params)
+        if self.fused is not None:
+            return self.fused.apply(grads, state, params, mask)
+        return self._chain(grads, state, params, mask)
+
+    def _chain(self, grads: Params, state: OptState, params: Params,
+               mask: Dict[str, bool]) -> Params:
+        """The plain chain, one stage at a time over all leaves, in the
+        order ``make_optimizer`` chains the optax transforms."""
+        r = self.recipe
+        wd = r.weight_decay
+        u = dict(grads)
+        if r.grad_clip_norm > 0:                    # clip_by_global_norm
+            g_norm = global_norm(u.values())
+            u = {n: torch.where(g_norm < r.grad_clip_norm, g,
+                                (g / g_norm) * r.grad_clip_norm)
+                 for n, g in u.items()}
+        if r.optimizer == "adamw":                  # scale_by_adam
+            mu = {n: (1 - B1) * g + B1 * state.mu[n] for n, g in u.items()}
+            nu = {n: (1 - B2) * (g * g) + B2 * state.nu[n] for n, g in u.items()}
+            count_inc = state.count + 1
+            bc1 = 1 - B1 ** count_inc.to(torch.float32)
+            bc2 = 1 - B2 ** count_inc.to(torch.float32)
+            u = {n: (mu[n] / bc1) / (torch.sqrt(nu[n] / bc2 + 0.0) + EPS)
+                 for n in u}
+            if wd > 0:                              # add_decayed_weights
+                u = {n: x + wd * params[n] if mask[n] else x
+                     for n, x in u.items()}
+            for n in u:
+                state.mu[n].copy_(mu[n])
+                state.nu[n].copy_(nu[n])
+            state.count.copy_(count_inc)
+        else:
+            if wd > 0:                              # masked add_decayed_weights
+                u = {n: x + wd * params[n] if mask[n] else x
+                     for n, x in u.items()}
+            if r.momentum > 0:                      # trace
+                u = {n: x + r.momentum * state.trace[n] for n, x in u.items()}
+                for n, x in u.items():
+                    state.trace[n].copy_(x)
+        if callable(r.lr):                          # scale_by_schedule
+            step = -1 * r.lr(state.sched_count)
+            u = {n: step * x for n, x in u.items()}
+            state.sched_count += 1
+        else:                                       # scale(-lr)
+            u = {n: (-1 * r.lr) * x for n, x in u.items()}
+        if r.ema_decay:                             # params_ema
+            d = r.ema_decay
+            for n, x in u.items():
+                state.ema[n].copy_(d * state.ema[n] + (1.0 - d) * (params[n] + x))
+        for n, x in u.items():                      # apply_updates
+            params[n].copy_(params[n] + x)
+        return u
+
+
+def make_optimizer(
+    lr: float = 1e-2,
+    momentum: float = 0.0,
+    weight_decay: float = 0.0,
+    schedule: Optional[str] = None,
+    total_steps: Optional[int] = None,
+    warmup_steps: int = 0,
+    grad_clip_norm: float = 0.0,
+    freeze_predicate: Optional[Callable] = None,
+    optimizer: str = "sgd",
+    ema_decay: float = 0.0,
+    zero1_axis: Optional[str] = None,
+    kernels: bool = False,
+) -> Optimizer:
+    """The JAX ``make_optimizer``'s signature and semantics for this slice.
+    ``kernels=True`` sends every update through K1."""
+    if grad_clip_norm < 0:
+        raise ValueError(f"grad_clip_norm must be >= 0, got {grad_clip_norm}")
+    if optimizer == "lamb":
+        raise NotImplementedError(
+            "--optimizer lamb is not ported yet (later slice: model zoo)")
+    if freeze_predicate is not None:
+        raise NotImplementedError(
+            "freeze masks are not ported yet (later slice: fine-tuning)")
+    if zero1_axis is not None:
+        raise NotImplementedError(
+            "zero1_axis is not ported yet (later slice: DP family, --zero1)")
+    if optimizer not in ("sgd", "adamw"):
+        raise ValueError(f"unknown optimizer {optimizer!r}")
+    if optimizer == "adamw" and momentum > 0:
+        raise ValueError("--momentum is an SGD knob; adamw has its own "
+                         "moment estimates (b1=0.9)")
+    if ema_decay and not 0.0 < ema_decay < 1.0:
+        raise ValueError(f"ema decay must be in (0, 1), got {ema_decay}")
+    if schedule == "cosine":
+        if not total_steps:
+            raise ValueError("cosine schedule needs total_steps")
+        lr_sched = warmup_cosine_decay_schedule(0.0, lr, warmup_steps, total_steps)
+    elif schedule in (None, "constant"):
+        lr_sched = lr
+    else:
+        raise ValueError(f"unknown schedule {schedule!r}")
+    recipe = UpdateRecipe(
+        optimizer=optimizer, lr=lr_sched, momentum=momentum,
+        weight_decay=weight_decay, grad_clip_norm=grad_clip_norm,
+        ema_decay=ema_decay,
+    )
+    return Optimizer(recipe, kernels=kernels)

@@ -1,0 +1,39 @@
+"""Train state: step, model (params and BatchNorm buffers) and optimizer
+state, travelling together.
+
+Counterpart of ``tpu_ddp/train/state.py`` (``TrainState`` :24,
+``create_train_state`` :52). JAX's state is an immutable pytree; here the
+model's tensors and the optimizer state are updated in place by the step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import torch
+from torch import nn
+
+from tpu_ddp_torch.train.optim import OptState, Optimizer
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: torch.Tensor          # int64 scalar on the model's device
+    model: nn.Module
+    opt_state: OptState
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        return dict(self.model.named_parameters())
+
+
+def create_train_state(model: nn.Module, tx: Optimizer,
+                       device: torch.device) -> TrainState:
+    """Move ``model`` (initialised from its own seeded generator) to
+    ``device`` and build the optimizer state for its params."""
+    model = model.to(device)
+    return TrainState(
+        step=torch.zeros((), dtype=torch.int64, device=device),
+        model=model,
+        opt_state=tx.init(dict(model.named_parameters())),
+    )

@@ -1,0 +1,166 @@
+"""Trainer: data, model, optimizer and the epoch loop on one device.
+
+Counterpart of ``tpu_ddp/train/trainer.py`` (``TrainConfig`` :61,
+``build_model`` :546, ``load_dataset`` :582, the epoch loop in
+``_run_loop`` :1964, ``evaluate`` :2642) for this slice. Per-step losses
+stay on the device during an epoch and are fetched once at its end. The log
+lines are the reference's: ``Epoch N, Training loss X`` and
+``training time: ... seconds``.
+
+Not ported yet: checkpointing and resume, telemetry, health, preemption,
+multi-device strategies.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from tpu_ddp_torch.data.cifar10 import load_cifar10, synthetic_cifar10
+from tpu_ddp_torch.data.loader import ShardedBatchLoader
+from tpu_ddp_torch.metrics.logging import MetricLogger
+from tpu_ddp_torch.metrics.timing import Throughput
+from tpu_ddp_torch.models.resnet import NetResDeep
+from tpu_ddp_torch.runtime import resolve_device, set_float32_precision
+from tpu_ddp_torch.train.optim import make_optimizer
+from tpu_ddp_torch.train.state import create_train_state
+from tpu_ddp_torch.train.steps import batch_to_device, make_eval_step, make_train_step
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """The fields the port's CLI flags set (names and defaults as in the
+    JAX ``TrainConfig``)."""
+
+    device: str = "cuda"
+    data_dir: str = "data/CIFAR-10"
+    synthetic_data: bool = False
+    synthetic_size: int = 2048
+    epochs: int = 99
+    per_shard_batch: int = 32
+    lr: float = 1e-2
+    optimizer: str = "sgd"
+    momentum: float = 0.0
+    weight_decay: float = 0.0
+    schedule: Optional[str] = None
+    warmup_steps: int = 0
+    grad_clip_norm: float = 0.0
+    ema_decay: float = 0.0
+    kernels: bool = False
+    model: str = "netresdeep"
+    n_chans1: int = 32
+    n_blocks: int = 10
+    tied_blocks: bool = True
+    seed: int = 0
+    eval_each_epoch: bool = False
+    log_every_epochs: int = 10
+
+
+NUM_CLASSES = 10  # CIFAR-10
+
+
+def build_model(c: TrainConfig) -> NetResDeep:
+    if c.model.lower() != "netresdeep":
+        raise NotImplementedError(
+            f"model {c.model!r} is not ported yet (later slice: model zoo)")
+    return NetResDeep(n_chans1=c.n_chans1, n_blocks=c.n_blocks,
+                      num_classes=NUM_CLASSES, tied=c.tied_blocks,
+                      generator=torch.Generator().manual_seed(c.seed))
+
+
+def load_dataset(c: TrainConfig):
+    """(train, test) ``(images, labels)`` tuples, as the JAX trainer's."""
+    if c.synthetic_data:
+        test_size = max(c.synthetic_size // 5, 64)
+        return (synthetic_cifar10(c.synthetic_size, NUM_CLASSES, c.seed),
+                synthetic_cifar10(test_size, NUM_CLASSES, c.seed + 1))
+    return load_cifar10(c.data_dir, train=True), load_cifar10(c.data_dir, train=False)
+
+
+class Trainer:
+    def __init__(self, config: TrainConfig):
+        c = self.config = config
+        self.device = resolve_device(c.device)
+        set_float32_precision()
+        self.logger = MetricLogger()
+        train_data, test_data = load_dataset(c)
+        self.train_loader = ShardedBatchLoader(
+            *train_data, world_size=1, per_shard_batch=c.per_shard_batch,
+            seed=c.seed)
+        self.test_loader = ShardedBatchLoader(
+            *test_data, world_size=1, per_shard_batch=c.per_shard_batch,
+            shuffle=False, exclude_sampler_pad=True)
+        self.tx = make_optimizer(
+            lr=c.lr, optimizer=c.optimizer, momentum=c.momentum,
+            weight_decay=c.weight_decay, schedule=c.schedule,
+            total_steps=self.train_loader.steps_per_epoch * c.epochs,
+            warmup_steps=c.warmup_steps, grad_clip_norm=c.grad_clip_norm,
+            ema_decay=c.ema_decay, kernels=c.kernels,
+        )
+        self.state = create_train_state(build_model(c), self.tx, self.device)
+        self.train_step = make_train_step(self.tx)
+        self.eval_step = make_eval_step()
+        self.history = {"train_loss": [], "step_loss": []}
+
+    def to_device(self, batch: dict):
+        return batch_to_device(batch, self.device)
+
+    def run(self) -> dict:
+        c = self.config
+        start = time.time()
+        # steady state: every epoch after the first (which pays the kernel
+        # build and cuDNN's first-call setup); a 1-epoch run times it all
+        throughput = Throughput(self.device)
+        metrics = {}
+        for epoch in range(1, c.epochs + 1):
+            timed = epoch >= 2 or c.epochs == 1
+            if timed:
+                throughput.start()
+            self.train_loader.set_epoch(epoch)
+            step_losses = []
+            for batch in self.train_loader.epoch_batches():
+                self.state, metrics = self.train_step(self.state, self.to_device(batch))
+                step_losses.append(metrics["loss"])
+                if timed:
+                    throughput.add(int(batch["mask"].sum()))
+            losses = torch.stack(step_losses).cpu().numpy()  # one sync an epoch
+            if timed:
+                throughput.stop()
+            mean_loss = float(np.mean(losses))
+            self.history["train_loss"].append(mean_loss)
+            self.history["step_loss"].extend(float(x) for x in losses)
+            if epoch == 1 or epoch % c.log_every_epochs == 0:
+                self.logger.log_text(f"Epoch {epoch}, Training loss {mean_loss}")
+                self.logger.log(int(self.state.step), epoch=epoch,
+                                train_loss=mean_loss,
+                                train_accuracy=float(metrics["accuracy"]))
+            if c.eval_each_epoch:
+                acc, loss = self.evaluate()
+                self.logger.log(int(self.state.step), test_accuracy=acc,
+                                test_loss=loss)
+        total = time.time() - start
+        self.logger.log_text(f"training time: {total:.3f} seconds")
+        ips = throughput.images_per_sec_per_chip
+        self.logger.log_text(
+            f"steady-state images/sec/chip: {ips:.1f} "
+            f"({throughput.images} images in {throughput.seconds:.3f} s)")
+        return {"total_seconds": total, "steps": int(self.state.step),
+                "images_per_sec_per_chip": ips,
+                "train_loss": self.history["train_loss"][-1]
+                if self.history["train_loss"] else float("nan"),
+                "step_losses": list(self.history["step_loss"])}
+
+    def evaluate(self) -> tuple:
+        """(accuracy, loss) over the test set; the EMA weights when
+        ``ema_decay`` is on. One host sync for the whole pass."""
+        ema = self.state.opt_state.ema if self.config.ema_decay else None
+        outs = [self.eval_step(self.state, self.to_device(b), ema)
+                for b in self.test_loader.epoch_batches(epoch=0)]
+        sums = {k: float(torch.stack([o[k] for o in outs]).sum())
+                for k in ("correct", "count", "loss_sum")}
+        n = max(sums["count"], 1.0)
+        return sums["correct"] / n, sums["loss_sum"] / n
