@@ -32,10 +32,42 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ``torch._fused_sgd_`` / ``torch._fused_adamw_`` as a yardstick (never
    called by the port, and with other semantics: no EMA, no clip in the
    pass, torch's AdamW decay), at the main path's shapes and at the large
-   leaf, beside the least time the card could take (the bound).
+   leaf, beside the least time the card could take (the bound). CUDA events
+   around back-to-back calls measure what the caller waits for, which at
+   small shapes is the host's launch rate; each row also carries the device
+   time alone (``device_ms``, ``plain_device_ms``, ``library_device_ms``:
+   the kernels' own times under ``torch.profiler``).
+7. Flash attention, kernel vs plain: K4 (``flash_forward``: out and row
+   log-sum-exp), K5 (``flash_dq``) and K6 (``flash_dkv``) against
+   ``forward_plain``/``dq_plain``/``dkv_plain`` on the same inputs (K5 and
+   K6 get the plain forward's lse and ``di``), at the ViT-S/4 path's
+   (32, 64, 3, 64) as views of one qkv product, ViT-B/16's 196 tokens
+   (8, 196, 12, 64), D=48, a prime T=67, causal at (4, 512, 4, 64), causal
+   with a key mask that leaves rows with no visible key (their output and dq
+   must be exactly 0), and the long regime (4, 2048, 8, 128). Tolerances
+   (``|got - want| <= atol + rtol * |want|``) are those of
+   ``tests/test_ops.py`` everywhere: forward and lse ``atol=2e-5``,
+   gradients ``atol=5e-5``, ``rtol=1e-4``.
+8. The ViT main path: ``tpu_ddp_torch.cli.train.main`` with ``--device cuda
+   --synthetic-data --model vit_s4 --attention flash --kernels --optimizer
+   adamw --lr 1e-3`` (full width: patch 4, hidden 192, depth 6, 3 heads of
+   64, 64 tokens), batch 32, 2 epochs of 100 steps with eval each epoch and
+   at the end. Losses finite and falling; launches exact: K4 6 x (train
+   steps + eval batches), K5 = K6 = 6 x train steps, K1 79 x train steps.
+   Then the same run with ``--attention full``: no flash launch, K1 as
+   before, and its first 5 per-step losses within ``rtol=1e-5`` of the flash
+   run's (the two attentions sum in other orders; AdamW's normalised update
+   carries the difference on). Steady-state images/sec/chip of both.
+9. Flash timing: K4, K5 and K6 at the main path's shape and at
+   (4, 2048, 8, 128), each in turns with its plain version, beside its bound
+   (bytes over 3.35 TB/s against float32 operations over 67 TFLOP/s) and
+   ``torch.nn.functional.scaled_dot_product_attention`` as the yardstick
+   (forward for K4, its backward, which gives dq, dk and dv at once, for K5
+   and for K6; never called by the port).
 
-The line before the last is one JSON object ``{"kernels": [...]}``; the last
-line is ``{"ok": true, "device": {...}}``.
+The NetResDeep phases keep their sizes; the whole run takes one to two
+minutes on the card, the build included. The line before the last is one JSON object
+``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -68,6 +100,24 @@ MAIN_STEPS_PER_EPOCH = 200
 PLAIN_STEPS = 30
 PLAIN_STEPS_RTOL = 5
 
+VIT_STEPS_PER_EPOCH = 100
+VIT_DEPTH = 6
+VIT_LEAVES = 79
+FULL_STEPS_RTOL = 1e-5
+FWD_TOL = dict(atol=2e-5, rtol=0.0)
+GRAD_TOL = dict(atol=5e-5, rtol=1e-4)
+#: name -> (B, T, H, D, causal, key mask kind, q/k/v as views of one qkv)
+FLASH_CASES = {
+    "vit_s4": (32, 64, 3, 64, False, None, True),
+    "vit_b16_t196": (8, 196, 12, 64, False, None, False),
+    "d48": (8, 128, 4, 48, False, None, False),
+    "t67": (8, 67, 3, 64, False, None, False),
+    "causal_t512": (4, 512, 4, 64, True, None, False),
+    "causal_dead_rows": (4, 256, 4, 64, True, "dead", False),
+    "t2048_d128": (4, 2048, 8, 128, False, None, False),
+}
+FLASH_TIMED = {"vit_s4": 200, "t2048_d128": 20}   # case -> timed iterations
+
 
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
@@ -96,6 +146,31 @@ def time_ms(fn, iters, warmup=10):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters):
+    """Mean device milliseconds per call of ``fn``: the sum of the times of
+    the kernels (and copies) it ran, from ``torch.profiler``, without the
+    host time between them. At small shapes the host's launch rate, not the
+    device, sets ``time_ms``; this is the device's share. A profile that
+    recorded no device event at all is taken again, up to three times, and
+    then reported as None."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / iters * 1e-3
+    return None
 
 
 def leaf_config(variant, schedule, wd_apply):
@@ -298,7 +373,9 @@ def time_group(variant, shapes, iters):
     p2 = time_ms(plain, iters)
     k2 = time_ms(kernel, iters)
     b_ms, b_by = bound([(lf.cfg, lf.n) for lf in leaves])
-    return (k1 + k2) / 2, (p1 + p2) / 2, lib_ms, b_ms, b_by
+    dev = {"device_ms": device_ms(kernel, 20), "plain_device_ms": device_ms(plain, 20),
+           "library_device_ms": device_ms(lib, 20)}
+    return (k1 + k2) / 2, (p1 + p2) / 2, lib_ms, b_ms, b_by, dev
 
 
 def phase_timing(results, main_launches):
@@ -313,7 +390,7 @@ def phase_timing(results, main_launches):
     print("phase 6: K1 timing (CUDA events; ms per step of the listed leaves)",
           flush=True)
     for name, variant, shapes, group, iters in cases:
-        k_ms, p_ms, l_ms, b_ms, b_by = time_group(variant, shapes, iters)
+        k_ms, p_ms, l_ms, b_ms, b_by, dev = time_group(variant, shapes, iters)
         err = max(results[(variant, s, group)][0] for s in ("constant", "cosine"))
         rows.append({
             "name": name, "route": entry["route"], "source": entry["source"],
@@ -321,10 +398,12 @@ def phase_timing(results, main_launches):
             "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
             "shapes": "netresdeep 9 leaves (76,074)" if group == "netresdeep"
-            else "one leaf of 2^24", "recipe": variant,
+            else "one leaf of 2^24", "recipe": variant, **dev,
         })
         print(f"  {name:36s} kernel {k_ms:.5f} ms  plain {p_ms:.5f} ms  "
-              f"library {l_ms:.5f} ms  bound {b_ms:.5f} ms ({b_by})", flush=True)
+              f"library {l_ms:.5f} ms  bound {b_ms:.5f} ms ({b_by}); device "
+              f"only: kernel {dev['device_ms']}, plain {dev['plain_device_ms']}, "
+              f"library {dev['library_device_ms']} ms", flush=True)
     return rows
 
 
@@ -353,6 +432,8 @@ def phase_main_path():
           f"{metrics['test_accuracy']:.4f}", flush=True)
     if steps != 2 * MAIN_STEPS_PER_EPOCH:
         fail(f"main path ran {steps} steps, expected {2 * MAIN_STEPS_PER_EPOCH}")
+    if any(n for name, n in counts.items() if name != "fused_update"):
+        fail(f"the NetResDeep path launched attention kernels: {counts}")
     if counts["fused_update"] != 9 * steps:
         fail(f"K1 launched {counts['fused_update']} times in {steps} steps, "
              f"expected {9 * steps}")
@@ -428,6 +509,221 @@ def phase_plain_same_steps(args, metrics):
         fail("K1 run and plain-update run differ under deterministic cuDNN")
 
 
+def close(got, want, atol, rtol):
+    """(max |got - want|, all within atol + rtol * |want|)."""
+    diff = (got - want).abs()
+    return float(diff.max()), bool((diff <= atol + rtol * want.abs()).all())
+
+
+def flash_inputs(case, seed=0):
+    """q, k, v, do and the key mask of ``FLASH_CASES[case]`` on the card."""
+    import torch
+
+    B, T, H, D, causal, mask_kind, views = FLASH_CASES[case]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if views:
+        qkv = torch.randn((B, T, 3 * H * D), generator=gen, device="cuda")
+        q, k, v = (x.reshape(B, T, H, D) for x in qkv.split(H * D, dim=-1))
+    else:
+        q, k, v = (torch.randn((B, T, H, D), generator=gen, device="cuda")
+                   for _ in range(3))
+    do = torch.randn((B, T, H, D), generator=gen, device="cuda")
+    mask = None
+    if mask_kind == "dead":
+        # batch 0 hides its last quarter of keys; batch 1 its first quarter,
+        # so under causal its first T/4 queries see no key at all
+        mask = torch.ones((B, T), device="cuda")
+        mask[0, 3 * T // 4:] = 0
+        mask[1, :T // 4] = 0
+    return q, k, v, do, mask, causal
+
+
+def phase_flash_vs_plain():
+    import torch
+
+    from tpu_ddp_torch.ops import flash_attention as fa
+
+    print("phase 7: K4/K5/K6 vs plain versions (max |diff|)", flush=True)
+    results, failed = {}, []
+    for case in FLASH_CASES:
+        q, k, v, do, mask, causal = flash_inputs(case)
+        want_out, want_lse = fa.forward_plain(q, k, v, mask, causal)
+        di = fa.row_dot(do, want_out)
+        want_dq = fa.dq_plain(q, k, v, do, want_lse, di, mask, causal)
+        want_dk, want_dv = fa.dkv_plain(q, k, v, do, want_lse, di, mask, causal)
+        out, lse = fa.flash_forward(q, k, v, mask, causal)
+        dq = fa.flash_dq(q, k, v, do, want_lse, di, mask, causal)
+        dk, dv = fa.flash_dkv(q, k, v, do, want_lse, di, mask, causal)
+        torch.cuda.synchronize()
+        errs, size = {}, {}
+        for name, got, want, tol in (
+                ("out", out, want_out, FWD_TOL), ("lse", lse, want_lse, FWD_TOL),
+                ("dq", dq, want_dq, GRAD_TOL), ("dk", dk, want_dk, GRAD_TOL),
+                ("dv", dv, want_dv, GRAD_TOL)):
+            err, ok = close(got, want, **tol)
+            errs[name], size[name] = err, float(want.abs().max())
+            if not ok or not bool(torch.isfinite(got).all()):
+                failed.append(f"{case} {name} (max |diff| {err:.3g})")
+        if mask is not None:
+            T = q.shape[1]
+            dead = (bool((out[1, :T // 4] == 0).all())
+                    and bool((dq[1, :T // 4] == 0).all())
+                    and bool((lse[1, :, :T // 4] == fa.NEG).all()))
+            if not dead:
+                failed.append(f"{case}: rows with no visible key are not exactly 0")
+        results[case] = errs
+        print(f"  {case:18s} {tuple(q.shape)} causal={causal} mask={mask is not None} "
+              + " ".join(f"{n}={e:.3g} (of {size[n]:.3g})" for n, e in errs.items()),
+              flush=True)
+        del q, k, v, do, want_out, want_lse, want_dq, want_dk, want_dv
+    if failed:
+        fail("flash kernels disagree with their plain versions: " + "; ".join(failed))
+    return results
+
+
+def vit_args(attention):
+    return ["--device", "cuda", "--synthetic-data", "--synthetic-size",
+            str(32 * VIT_STEPS_PER_EPOCH), "--epochs", "2", "--model", "vit_s4",
+            "--attention", attention, "--kernels", "--optimizer", "adamw",
+            "--lr", "1e-3", "--batch-size", "32", "--eval-each-epoch",
+            "--log-every-epochs", "1"]
+
+
+def phase_vit_main_path():
+    import torch
+
+    from tpu_ddp_torch import ops
+    from tpu_ddp_torch.cli import train as cli
+
+    runs = {}
+    for attention in ("flash", "full"):
+        args = vit_args(attention)
+        print(f"phase 8: ViT main path: tpu_ddp_torch.cli.train {' '.join(args)}",
+              flush=True)
+        ops.reset_launch_counts()
+        metrics = cli.main(args)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        steps, evals = metrics["steps"], metrics["eval_batches"]
+        losses = metrics["step_losses"]
+        print(f"  steps {steps}, eval batches {evals}, launches {counts}, "
+              f"images/sec/chip {metrics['images_per_sec_per_chip']:.1f}, "
+              f"training time {metrics['total_seconds']:.3f} s, final test "
+              f"accuracy {metrics['test_accuracy']:.4f}", flush=True)
+        if steps != 2 * VIT_STEPS_PER_EPOCH:
+            fail(f"ViT path ran {steps} steps, expected {2 * VIT_STEPS_PER_EPOCH}")
+        flash = attention == "flash"
+        want = {"fused_update": VIT_LEAVES * steps,
+                "flash_attention_fwd": VIT_DEPTH * (steps + evals) if flash else 0,
+                "flash_attention_dq": VIT_DEPTH * steps if flash else 0,
+                "flash_attention_dkv": VIT_DEPTH * steps if flash else 0}
+        if counts != want:
+            fail(f"ViT --attention {attention}: launches {counts}, expected {want}")
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"ViT --attention {attention} produced a non-finite loss")
+        first, last = sum(losses[:20]) / 20, sum(losses[-20:]) / 20
+        print(f"  mean loss of the first 20 steps {first:.4f}, last 20 {last:.4f}",
+              flush=True)
+        if not last < first:
+            fail(f"ViT --attention {attention} losses did not fall")
+        if not math.isfinite(metrics["test_loss"]) or metrics["test_accuracy"] < 0.2:
+            fail(f"ViT final eval out of range: {metrics['test_accuracy']}, "
+                 f"{metrics['test_loss']}")
+        runs[attention] = (metrics, counts)
+    got = runs["full"][0]["step_losses"][:PLAIN_STEPS_RTOL]
+    want = runs["flash"][0]["step_losses"][:PLAIN_STEPS_RTOL]
+    rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    print(f"  --attention full vs flash, relative loss difference per step: "
+          f"{' '.join(f'{r:.2g}' for r in rel)} (limit {FULL_STEPS_RTOL})", flush=True)
+    if not max(rel) <= FULL_STEPS_RTOL:
+        fail("--attention full and flash losses disagree over the first steps")
+    return runs
+
+
+def attention_bound(kind, B, T, H, D):
+    """(bound_ms, bound_by) of one non-causal, unmasked call: bytes (each
+    input read once, each output written once) over the HBM rate against
+    float32 operations (two per multiply-add of the products, and the
+    per-score softmax work) over the float32 rate."""
+    n, rows, pairs = B * T * H * D, B * H * T, B * H * T * T
+    if kind == "fwd":        # read q, k, v; write out, lse
+        nbytes, ops_ = 4 * (4 * n + rows), 4 * pairs * D + 5 * pairs
+    elif kind == "dq":       # read q, k, v, dO, lse, di; write dq
+        nbytes, ops_ = 4 * (5 * n + 2 * rows), 6 * pairs * D + 6 * pairs
+    else:                    # read q, k, v, dO, lse, di; write dk, dv
+        nbytes, ops_ = 4 * (6 * n + 2 * rows), 8 * pairs * D + 6 * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_ / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_flash_timing(results, counts):
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_ddp_torch import ops
+    from tpu_ddp_torch.ops import flash_attention as fa
+
+    print("phase 9: flash timing (CUDA events; ms per call)", flush=True)
+    rows = []
+    for case, iters in FLASH_TIMED.items():
+        q, k, v, do, _, _ = flash_inputs(case, seed=1)
+        B, T, H, D = q.shape
+        out, lse = fa.forward_plain(q, k, v)
+        di = fa.row_dot(do, out)
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        sdpa_out = F.scaled_dot_product_attention(*(x.transpose(1, 2) for x in leaves))
+        sdpa_do = do.transpose(1, 2)
+        library = {
+            "fwd": lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
+            "bwd": lambda: torch.autograd.grad(sdpa_out, leaves, sdpa_do,
+                                               retain_graph=True),
+        }
+        lib_ms = {key: time_ms(fn, iters) for key, fn in library.items()}
+        lib_dev = {key: device_ms(fn, iters) for key, fn in library.items()}
+        timed = {
+            "flash_attention_fwd": ("fwd", lambda: fa.flash_forward(q, k, v),
+                                    lambda: fa.forward_plain(q, k, v), ("out", "lse")),
+            "flash_attention_dq": ("dq", lambda: fa.flash_dq(q, k, v, do, lse, di),
+                                   lambda: fa.dq_plain(q, k, v, do, lse, di), ("dq",)),
+            "flash_attention_dkv": ("dkv", lambda: fa.flash_dkv(q, k, v, do, lse, di),
+                                    lambda: fa.dkv_plain(q, k, v, do, lse, di),
+                                    ("dk", "dv")),
+        }
+        for name, (kind, kernel, plain, outputs) in timed.items():
+            entry = ops.KERNELS[name]
+            k1 = time_ms(kernel, iters)
+            p1 = time_ms(plain, iters)
+            p2 = time_ms(plain, iters)
+            k2 = time_ms(kernel, iters)
+            b_ms, b_by = attention_bound(kind, B, T, H, D)
+            lib_key = "fwd" if kind == "fwd" else "bwd"
+            l_ms = lib_ms[lib_key]
+            dev = {"device_ms": device_ms(kernel, iters),
+                   "plain_device_ms": device_ms(plain, iters),
+                   "library_device_ms": lib_dev[lib_key]}
+            rows.append({
+                "name": f"{name}[{case}]", "route": entry["route"],
+                "source": entry["source"], "replaces": entry["replaces"],
+                "launches": counts[name],
+                "max_abs_err": max(results[case][o] for o in outputs),
+                "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
+                "shapes": f"(B, T, H, D) = {(B, T, H, D)}",
+                "library": "scaled_dot_product_attention "
+                           + ("forward" if kind == "fwd" else "backward (dq, dk, dv)"),
+                **dev,
+            })
+            print(f"  {name + '[' + case + ']':36s} kernel {(k1 + k2) / 2:.5f} ms  "
+                  f"plain {(p1 + p2) / 2:.5f} ms  library {l_ms:.5f} ms  "
+                  f"bound {b_ms:.5f} ms ({b_by}); device only: kernel "
+                  f"{dev['device_ms']}, plain {dev['plain_device_ms']}, "
+                  f"library {dev['library_device_ms']} ms", flush=True)
+        del q, k, v, do, out, lse, di, leaves, sdpa_out
+    return rows
+
+
 def main():
     import torch
 
@@ -459,6 +755,12 @@ def main():
     args, metrics, launches = phase_main_path()
     phase_plain_same_steps(args, metrics)
     rows = phase_timing(results, launches)
+    flash_results = phase_flash_vs_plain()
+    vit_runs = phase_vit_main_path()
+    rows += phase_flash_timing(flash_results, vit_runs["flash"][1])
+    for attention, (m, _) in vit_runs.items():
+        print(f"ViT-S/4 --attention {attention}: steady-state images/sec/chip "
+              f"{m['images_per_sec_per_chip']:.1f}", flush=True)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

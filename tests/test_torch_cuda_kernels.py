@@ -1,10 +1,13 @@
-"""K1 on the card: the CUDA kernel against its plain PyTorch version, and a
-train step that goes through it. These need an NVIDIA GPU and nvcc and skip
-without them; run them on a GPU machine with
+"""The port's kernels on the card: K1 and the flash-attention kernels K4-K6
+against their plain PyTorch versions, and train steps that go through them.
+These need an NVIDIA GPU and nvcc and skip without them; run them on a GPU
+machine with
 
-    python -m pytest -m cuda tests/test_torch_cuda_kernels.py -q
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
-(``chip_smoke.py`` holds the kernel to the same comparison at every size.)"""
+(``chip_smoke.py`` holds the kernels to the same comparisons at the main
+path's sizes.) K4-K6 are held to the tolerances of ``tests/test_ops.py``:
+forward ``atol=2e-5``, gradients ``atol=5e-5``, ``rtol=1e-4``."""
 
 import numpy as np
 import pytest
@@ -66,4 +69,109 @@ def test_train_step_launches_k1_per_leaf(cuda):
     state, metrics = step(state, batch)
     torch.cuda.synchronize()
     assert ops.launch_counts()["fused_update"] == 9
+    assert torch.isfinite(metrics["loss"])
+
+
+#: (B, T, H, D, causal, kv mask kind, qkv as views of one product)
+FLASH_CASES = {
+    "vit_s4": (4, 64, 3, 64, False, None, True),
+    "t196": (2, 196, 2, 64, False, None, False),
+    "d48": (2, 128, 2, 48, False, None, False),
+    "t67_causal_tail": (1, 67, 2, 32, True, "tail", False),
+    "causal_dead_rows": (2, 256, 2, 64, True, "dead", False),
+    "d128_t130": (1, 130, 2, 128, False, None, False),
+    "t1": (1, 1, 1, 8, False, None, False),
+}
+
+
+def _flash_inputs(case, device):
+    from tpu_ddp_torch.ops import flash_attention as fa
+
+    B, T, H, D, causal, mask_kind, views = FLASH_CASES[case]
+    gen = torch.Generator(device=device).manual_seed(T * D)
+    if views:
+        qkv = torch.randn((B, T, 3 * H * D), generator=gen, device=device)
+        q, k, v = (x.reshape(B, T, H, D) for x in qkv.split(H * D, dim=-1))
+    else:
+        q, k, v = (torch.randn((B, T, H, D), generator=gen, device=device)
+                   for _ in range(3))
+    do = torch.randn((B, T, H, D), generator=gen, device=device)
+    mask = None
+    if mask_kind is not None:
+        mask = torch.ones((B, T), device=device)
+        mask[0, 3 * T // 4:] = 0
+        if mask_kind == "dead" and B > 1:
+            mask[1, :T // 4] = 0
+    return fa, q, k, v, do, mask, causal
+
+
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_kernels_match_plain(cuda, case):
+    fa, q, k, v, do, mask, causal = _flash_inputs(case, cuda)
+    ops.reset_launch_counts()
+    out, lse = fa.flash_forward(q, k, v, mask, causal)
+    want_out, want_lse = fa.forward_plain(q, k, v, mask, causal)
+    di = fa.row_dot(do, want_out)
+    dq = fa.flash_dq(q, k, v, do, want_lse, di, mask, causal)
+    dk, dv = fa.flash_dkv(q, k, v, do, want_lse, di, mask, causal)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"fused_update": 0, fa.FWD: 1, fa.DQ: 1, fa.DKV: 1}
+    torch.testing.assert_close(out, want_out, atol=2e-5, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=0)
+    want_dq = fa.dq_plain(q, k, v, do, want_lse, di, mask, causal)
+    want_dk, want_dv = fa.dkv_plain(q, k, v, do, want_lse, di, mask, causal)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, atol=5e-5, rtol=1e-4)
+    if case == "causal_dead_rows":
+        T = q.shape[1]
+        assert torch.all(out[1, :T // 4] == 0) and torch.all(dq[1, :T // 4] == 0)
+        assert torch.all(lse[1, :, :T // 4] == fa.NEG)
+
+
+def test_flash_attention_autograd_matches_reference(cuda):
+    fa, q, k, v, do, mask, causal = _flash_inputs("causal_dead_rows", cuda)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    ref_leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*leaves, causal=True, kv_mask=mask)
+    want = fa.reference(*ref_leaves, causal=True, kv_mask=mask)
+    torch.testing.assert_close(out, want, atol=2e-5, rtol=0)
+    grads = torch.autograd.grad(out, leaves, do)
+    want_grads = torch.autograd.grad(want, ref_leaves, do)
+    for got, w in zip(grads, want_grads):
+        torch.testing.assert_close(got, w, atol=5e-5, rtol=1e-4)
+
+
+def test_flash_limits_raise_on_cuda(cuda):
+    from tpu_ddp_torch.ops import flash_attention as fa
+
+    q = torch.zeros((1, 8, 1, 160), device=cuda)
+    with pytest.raises(ValueError, match="limit of 128"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 1, 16), device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 only"):
+        fa.flash_attention(q, q, q)
+
+
+def test_vit_train_step_launches_flash_kernels(cuda):
+    from tpu_ddp_torch.data.cifar10 import synthetic_cifar10
+    from tpu_ddp_torch.models import MODEL_REGISTRY
+    from tpu_ddp_torch.ops.flash_attention import flash_attention
+    from tpu_ddp_torch.train.optim import make_optimizer
+    from tpu_ddp_torch.train.state import create_train_state
+    from tpu_ddp_torch.train.steps import batch_to_device, make_eval_step, make_train_step
+
+    model = MODEL_REGISTRY["vit_s4"]()
+    model.attention_impl = flash_attention
+    tx = make_optimizer(lr=1e-3, optimizer="adamw", kernels=True)
+    state = create_train_state(model, tx, cuda)
+    images, labels = synthetic_cifar10(32, 10, 0)
+    batch = batch_to_device({"image": images, "label": labels,
+                             "mask": np.ones(32, bool)}, cuda)
+    ops.reset_launch_counts()
+    state, metrics = make_train_step(tx)(state, batch)
+    make_eval_step()(state, batch)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"fused_update": 79, "flash_attention_fwd": 12,
+                                   "flash_attention_dq": 6, "flash_attention_dkv": 6}
     assert torch.isfinite(metrics["loss"])

@@ -9,8 +9,11 @@ Flax tree, so each leaf maps by path:
 * conv ``kernel`` ``(kh, kw, in, out)`` -> ``weight`` ``(out, in, kh, kw)``;
 * dense ``kernel`` ``(in, out)`` -> ``weight`` ``(out, in)`` (the port
   flattens channels-last, so ``fc1`` needs no row permutation);
-* BatchNorm ``scale``/``bias`` -> ``weight``/``bias``; ``batch_stats``
-  ``mean``/``var`` -> ``running_mean``/``running_var``.
+* BatchNorm and LayerNorm ``scale``/``bias`` -> ``weight``/``bias``;
+  ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``;
+* a raw param (the ViT's ``pos_embed``) is carried as it is, under its own
+  name; an empty ``batch_stats`` tree (the ViT has no BatchNorm) gives no
+  entries.
 
 Every param-shaped optimizer slot (SGD trace, AdamW mu/nu, EMA) maps the
 same way; the optax state is read by its field names (``trace``, ``mu``,
@@ -29,11 +32,17 @@ from tpu_ddp_torch.train.optim import OptState
 
 _RENAME = {"kernel": "weight", "scale": "weight", "bias": "bias",
            "mean": "running_mean", "var": "running_var"}
+#: params that are tensors of the module itself, not of a layer
+_RAW = ("pos_embed",)
 
 
 def _leaf(path: str, x) -> tuple:
     head, _, last = path.rpartition(".")
     x = np.asarray(x)
+    if last in _RAW:
+        return path, torch.tensor(np.ascontiguousarray(x))
+    if last not in _RENAME:
+        raise KeyError(f"no rule to carry the Flax leaf {path!r} across")
     if last == "kernel":
         x = x.transpose(3, 2, 0, 1) if x.ndim == 4 else x.T
     return f"{head}.{_RENAME[last]}", torch.tensor(np.ascontiguousarray(x))

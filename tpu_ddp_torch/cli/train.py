@@ -39,7 +39,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kernels", action="store_true",
                    help="send the optimizer update through the fused CUDA "
                         "kernel (ops/csrc/fused_update.cu), one pass per leaf")
-    p.add_argument("--model", choices=["netresdeep"], default="netresdeep")
+    p.add_argument("--model", choices=["netresdeep", "vit_s4", "vit_b16"],
+                   default="netresdeep")
+    p.add_argument("--attention", choices=["full", "flash"], default="full",
+                   help="flash = the CUDA flash-attention kernels "
+                        "(ops/csrc/flash_attention.cu, forward and backward), "
+                        "ViT-family models")
     p.add_argument("--n-chans1", type=int, default=32, help="NetResDeep width")
     p.add_argument("--n-blocks", type=int, default=10, help="NetResDeep depth")
     p.add_argument("--untied-blocks", action="store_true",
@@ -68,6 +73,7 @@ def config_from_args(args) -> TrainConfig:
         ema_decay=args.ema_decay,
         kernels=args.kernels,
         model=args.model,
+        attention=args.attention,
         n_chans1=args.n_chans1,
         n_blocks=args.n_blocks,
         tied_blocks=not args.untied_blocks,
@@ -83,7 +89,8 @@ def main(argv=None) -> dict:
     metrics = trainer.run()
     acc, loss = trainer.evaluate()
     trainer.logger.log_text(f"final test accuracy: {acc:.4f}, test loss: {loss:.4f}")
-    metrics.update(test_accuracy=acc, test_loss=loss)
+    metrics.update(test_accuracy=acc, test_loss=loss,
+                   eval_batches=trainer.eval_batches)
     return metrics
 
 

@@ -3,10 +3,12 @@
 Counterpart of ``tpu_ddp/models/initializers.py``: kaiming-normal(relu) for
 the ResBlock conv, torch's default ``Conv2d``/``Linear`` init (uniform in
 ``±1/sqrt(fan_in)`` for weight and bias) for ``conv1``/``fc1``/``fc2``, and
-BatchNorm scale 0.5, bias 0. Every draw comes from the ``torch.Generator``
-passed in, so a seed fixes the weights. The bits differ from the JAX
-package's (another generator), so tests carry weights across instead
-(``tpu_ddp_torch/checkpoint/convert.py``).
+BatchNorm scale 0.5, bias 0. For the ViT, Flax's defaults: ``lecun_normal``
+for Dense and Conv kernels, zero biases, ``normal(0.02)`` for ``pos_embed``
+(LayerNorm keeps torch's scale 1, bias 0, which are Flax's too). Every draw
+comes from the ``torch.Generator`` passed in, so a seed fixes the weights.
+The bits differ from the JAX package's (another generator), so tests carry
+weights across instead (``tpu_ddp_torch/checkpoint/convert.py``).
 """
 
 from __future__ import annotations
@@ -35,3 +37,21 @@ def torch_default_uniform_(t: torch.Tensor, fan: int, generator: torch.Generator
     bound = 1.0 / math.sqrt(fan)
     return t.uniform_(-bound, bound, generator=generator)
 
+
+
+# Flax's defaults, for the ViT (``flax.linen`` ``Dense``/``Conv``,
+# ``LayerNorm`` and the ``pos_embed`` param of ``tpu_ddp/models/vit.py``).
+
+#: stddev of a standard normal truncated to [-2, 2]: Flax's
+#: ``variance_scaling(..., "truncated_normal")`` divides by it so the
+#: truncated draw keeps the requested variance
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator):
+    """``flax.linen.initializers.lecun_normal()``: a normal of variance
+    ``1 / fan_in``, truncated at two stddevs and rescaled for the cut."""
+    std = math.sqrt(1.0 / fan_in(weight)) / _TRUNC_STD
+    return torch.nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                       generator=generator)

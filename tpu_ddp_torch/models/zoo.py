@@ -1,0 +1,20 @@
+"""Model registry: ``register(name)`` puts a factory into
+``MODEL_REGISTRY``.
+
+Counterpart of ``tpu_ddp/models/zoo.py``. A factory takes ``num_classes``
+and a ``torch.Generator`` that fixes its weights. NetResDeep is built by the
+trainer itself (its constructor carries the tied-blocks flag), as in the
+JAX package.
+"""
+
+from __future__ import annotations
+
+MODEL_REGISTRY: dict = {}
+
+
+def register(name: str):
+    def deco(factory):
+        MODEL_REGISTRY[name] = factory
+        return factory
+
+    return deco

@@ -2,8 +2,8 @@
 
 Counterpart of ``tpu_ddp/ops/__init__.py`` (``KERNELS`` :52,
 ``kernel_available`` :95). ``KERNELS`` maps a name to its wrapper, its plain
-PyTorch version, its source, the TPU kernel it replaces and the strategies
-whose step runs it; the callables are dotted ``module:attr`` strings that
+PyTorch version, its source and the ``_build`` library built from it, the
+TPU kernel it replaces and the strategies whose step runs it; the callables are dotted ``module:attr`` strings that
 ``resolve`` imports on demand.
 
 There is no fail-closed switch here: a wrapper given CUDA tensors launches
@@ -26,7 +26,36 @@ KERNELS = {
         "plain": "tpu_ddp_torch.ops.fused_update:update_math",
         "route": "cuda",
         "source": "tpu_ddp_torch/ops/csrc/fused_update.cu",
+        "library": "fused_update",
         "replaces": "tpu_ddp/ops/fused_update.py:165",
+        "strategies": ("dp",),
+    },
+    # the three kernels of flash attention (tpu_ddp/ops/flash_attention.py)
+    "flash_attention_fwd": {
+        "wrapper": "tpu_ddp_torch.ops.flash_attention:flash_forward",
+        "plain": "tpu_ddp_torch.ops.flash_attention:forward_plain",
+        "route": "cuda",
+        "source": "tpu_ddp_torch/ops/csrc/flash_attention.cu",
+        "library": "flash_attention",
+        "replaces": "tpu_ddp/ops/flash_attention.py:108",
+        "strategies": ("dp",),
+    },
+    "flash_attention_dq": {
+        "wrapper": "tpu_ddp_torch.ops.flash_attention:flash_dq",
+        "plain": "tpu_ddp_torch.ops.flash_attention:dq_plain",
+        "route": "cuda",
+        "source": "tpu_ddp_torch/ops/csrc/flash_attention.cu",
+        "library": "flash_attention",
+        "replaces": "tpu_ddp/ops/flash_attention.py:327",
+        "strategies": ("dp",),
+    },
+    "flash_attention_dkv": {
+        "wrapper": "tpu_ddp_torch.ops.flash_attention:flash_dkv",
+        "plain": "tpu_ddp_torch.ops.flash_attention:dkv_plain",
+        "route": "cuda",
+        "source": "tpu_ddp_torch/ops/csrc/flash_attention.cu",
+        "library": "flash_attention",
+        "replaces": "tpu_ddp/ops/flash_attention.py:366",
         "strategies": ("dp",),
     },
 }
@@ -51,7 +80,7 @@ def kernel_available(name: str) -> bool:
     if not torch.cuda.is_available():
         return False
     try:
-        _build.load(name)
+        _build.load(KERNELS[name]["library"])
     except (OSError, RuntimeError):
         return False
     return True

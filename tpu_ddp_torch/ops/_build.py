@@ -3,10 +3,11 @@ with a plain C interface, loaded with ``ctypes``.
 
 Each source under ``csrc/`` becomes ``build/tpu_ddp_torch/lib<name>-<hash>.so``
 at the root of the checkout (a directory ``.gitignore`` lists) at first use;
-the hash covers the source and the flags, so an edited source is rebuilt.
-``build`` starts one ``nvcc`` per missing library, all at once, and waits for
-them. Nothing is built when a module is imported, and nothing here falls
-back: a failed build raises with the compiler's output.
+the hash covers the source and the flags that library is built with, so an
+edited source or a changed flag is rebuilt. ``build`` starts one ``nvcc``
+per missing library, all at once, and waits for them. Nothing is built when
+a module is imported, and nothing here falls back: a failed build raises
+with the compiler's output.
 """
 
 from __future__ import annotations
@@ -25,17 +26,29 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpu_ddp_torch"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_ERR = {"tpu_ddp_cuda_error_string": (ctypes.c_char_p, [_I])}
 
-#: library name -> (source file, {C function: (restype, argtypes)})
+#: library name -> (source file, extra nvcc flags,
+#:                  {C function: (restype, argtypes)})
 LIBRARIES = {
-    "fused_update": ("fused_update.cu", {
+    # -fmad=false: K1 rounds every product as its plain version does
+    "fused_update": ("fused_update.cu", ("-fmad=false",), {
         "tpu_ddp_fused_update": (
             _I, [_P] * 7 + [_LL] + [_I] * 6 + [_F] * 11 + [_P]),
-        "tpu_ddp_cuda_error_string": (ctypes.c_char_p, [_I]),
+        **_ERR,
+    }),
+    # held to a tolerance, not to bits: nvcc's default contraction into
+    # FMAs. Without -maxrregcount ptxas holds K4 and K5 to 128 registers a
+    # thread, and at D = 128 K4 then takes about twice as long.
+    "flash_attention": ("flash_attention.cu", ("-maxrregcount=255",), {
+        "tpu_ddp_flash_fwd": (_I, [_P] * 7 + [_I] * 5 + [_P]),
+        "tpu_ddp_flash_dq": (_I, [_P] * 9 + [_I] * 5 + [_P]),
+        "tpu_ddp_flash_dkv": (_I, [_P] * 10 + [_I] * 5 + [_P]),
+        **_ERR,
     }),
 }
 
@@ -55,10 +68,15 @@ def nvcc() -> str:
     )
 
 
+def flags(name: str) -> tuple:
+    """The nvcc flags ``name`` is built with."""
+    return NVCC_FLAGS + LIBRARIES[name][1]
+
+
 def library_path(name: str) -> Path:
-    source, _ = LIBRARIES[name]
+    source = LIBRARIES[name][0]
     digest = hashlib.sha256(
-        (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+        (CSRC / source).read_bytes() + " ".join(flags(name)).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -77,7 +95,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         out = library_path(name)
         tmp = out.with_suffix(f".tmp{os.getpid()}")
         log = open(out.with_suffix(".log"), "w")
-        cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / LIBRARIES[name][0])]
+        cmd = [compiler, *flags(name), "-o", str(tmp), str(CSRC / LIBRARIES[name][0])]
         procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
                        tmp, out, log, time.perf_counter())
     seconds, failed = {}, []
@@ -107,7 +125,7 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(library_path(name)))
-        for fn, (restype, argtypes) in LIBRARIES[name][1].items():
+        for fn, (restype, argtypes) in LIBRARIES[name][2].items():
             getattr(lib, fn).restype = restype
             getattr(lib, fn).argtypes = argtypes
         _loaded[name] = lib

@@ -24,7 +24,7 @@ from tpu_ddp_torch.data.cifar10 import load_cifar10, synthetic_cifar10
 from tpu_ddp_torch.data.loader import ShardedBatchLoader
 from tpu_ddp_torch.metrics.logging import MetricLogger
 from tpu_ddp_torch.metrics.timing import Throughput
-from tpu_ddp_torch.models.resnet import NetResDeep
+from tpu_ddp_torch.models import MODEL_REGISTRY, NetResDeep
 from tpu_ddp_torch.runtime import resolve_device, set_float32_precision
 from tpu_ddp_torch.train.optim import make_optimizer
 from tpu_ddp_torch.train.state import create_train_state
@@ -52,6 +52,7 @@ class TrainConfig:
     ema_decay: float = 0.0
     kernels: bool = False
     model: str = "netresdeep"
+    attention: str = "full"               # full | flash (CUDA kernels K4-K6)
     n_chans1: int = 32
     n_blocks: int = 10
     tied_blocks: bool = True
@@ -63,13 +64,34 @@ class TrainConfig:
 NUM_CLASSES = 10  # CIFAR-10
 
 
-def build_model(c: TrainConfig) -> NetResDeep:
-    if c.model.lower() != "netresdeep":
-        raise NotImplementedError(
-            f"model {c.model!r} is not ported yet (later slice: model zoo)")
-    return NetResDeep(n_chans1=c.n_chans1, n_blocks=c.n_blocks,
-                      num_classes=NUM_CLASSES, tied=c.tied_blocks,
-                      generator=torch.Generator().manual_seed(c.seed))
+def build_model(c: TrainConfig) -> torch.nn.Module:
+    """NetResDeep, or a registry model (``models/zoo.py``), with weights
+    from ``c.seed``. ``attention == "flash"`` binds the port's
+    ``flash_attention`` into the model's ``attention_impl`` (the JAX
+    ``build_model`` :564-578); on a model without one, NetResDeep included,
+    it raises (the JAX package builds NetResDeep before it reads the flag
+    and ignores it there)."""
+    generator = torch.Generator().manual_seed(c.seed)
+    name = c.model.lower()
+    if name == "netresdeep":
+        model = NetResDeep(n_chans1=c.n_chans1, n_blocks=c.n_blocks,
+                           num_classes=NUM_CLASSES, tied=c.tied_blocks,
+                           generator=generator)
+    elif name in MODEL_REGISTRY:
+        model = MODEL_REGISTRY[name](num_classes=NUM_CLASSES, generator=generator)
+    else:
+        raise ValueError(f"unknown model {c.model!r}")
+    if c.attention == "flash":
+        if not hasattr(model, "attention_impl"):
+            raise ValueError(
+                f"--attention flash needs an attention model (ViT "
+                f"family); {c.model!r} has none")
+        from tpu_ddp_torch.ops.flash_attention import flash_attention
+
+        model.attention_impl = flash_attention
+    elif c.attention != "full":
+        raise ValueError(f"unknown attention {c.attention!r}")
+    return model
 
 
 def load_dataset(c: TrainConfig):
@@ -105,6 +127,7 @@ class Trainer:
         self.train_step = make_train_step(self.tx)
         self.eval_step = make_eval_step()
         self.history = {"train_loss": [], "step_loss": []}
+        self.eval_batches = 0  # eval steps run so far (every evaluate call)
 
     def to_device(self, batch: dict):
         return batch_to_device(batch, self.device)
@@ -160,6 +183,7 @@ class Trainer:
         ema = self.state.opt_state.ema if self.config.ema_decay else None
         outs = [self.eval_step(self.state, self.to_device(b), ema)
                 for b in self.test_loader.epoch_batches(epoch=0)]
+        self.eval_batches += len(outs)
         sums = {k: float(torch.stack([o[k] for o in outs]).sum())
                 for k in ("correct", "count", "loss_sum")}
         n = max(sums["count"], 1.0)
