@@ -12,11 +12,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 2. Build: every CUDA kernel of the port from the sources in the checkout
    (``tpu_ddp_torch/ops/csrc``, one ``nvcc`` per source, all in parallel).
 3. Kernel vs plain: K1 (``fused_update``) against its plain PyTorch version
-   on the card, for SGD, SGD+momentum+decay+clip+EMA and AdamW+decay+clip+
-   EMA, each under a constant and a cosine schedule, at NetResDeep's nine
+   on the card, for SGD, SGD+momentum+decay+clip+EMA, AdamW+decay+clip+EMA
+   and the ViT path's AdamW (no decay, clip or EMA), each under a constant
+   and a cosine schedule, at NetResDeep's nine leaf shapes, at ViT-S/4's 79
    leaf shapes, at ragged sizes (1, 127, 1,000,003, and 1,000,003 at an
    unaligned address) and at one large leaf (2**24 elements). Expected:
-   bitwise equal; a difference above 2 ulp fails.
+   bitwise equal; a difference above 2 ulp fails, and so does any
+   difference at all for the ViT path's recipe at its leaf shapes.
 4. Main path: ``tpu_ddp_torch.cli.train.main`` with ``--device cuda
    --synthetic-data --kernels`` at NetResDeep's full width (n_chans1=32,
    n_blocks=10, tied), batch 32, SGD lr 1e-2, 2 epochs of 200 steps. The
@@ -58,9 +60,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    before, and its first 5 per-step losses within ``rtol=1e-5`` of the flash
    run's (the two attentions sum in other orders; AdamW's normalised update
    carries the difference on). Steady-state images/sec/chip of both.
-9. Flash timing: K4, K5 and K6 at the main path's shape and at
-   (4, 2048, 8, 128), each in turns with its plain version, beside its bound
-   (bytes over 3.35 TB/s against float32 operations over 67 TFLOP/s) and
+9. Timing on the ViT path: K1 at ViT-S/4's 79 leaves under the path's
+   recipe, as in phase 6, with phase 8's flash run's launches. K4, K5 and
+   K6 at the main path's shape and at (4, 2048, 8, 128), each in turns with
+   its plain version, beside its bound (bytes over 3.35 TB/s against
+   float32 operations over 67 TFLOP/s) and
    ``torch.nn.functional.scaled_dot_product_attention`` as the yardstick
    (forward for K4, its backward, which gives dq, dk and dv at once, for K5
    and for K6; never called by the port).
@@ -95,7 +99,10 @@ VARIANTS = {
                                 max_norm=1.0, ema=0.99),
     "adamw_wd_clip_ema": dict(kind="adamw", momentum=0.0, wd=0.05,
                               max_norm=1.0, ema=0.99),
+    # the ViT path's recipe (phase 8): --optimizer adamw and nothing else
+    "adamw": dict(kind="adamw", momentum=0.0, wd=0.0, max_norm=0.0, ema=0.0),
 }
+VIT_RECIPE = "adamw"
 MAIN_STEPS_PER_EPOCH = 200
 PLAIN_STEPS = 30
 PLAIN_STEPS_RTOL = 5
@@ -288,10 +295,22 @@ def compare(leaves, scalars):
     return worst_abs, worst_ulp
 
 
+def vit_leaf_shapes():
+    """ViT-S/4's parameter shapes, in the model's order."""
+    from tpu_ddp_torch.models import MODEL_REGISTRY
+
+    shapes = [tuple(p.shape) for _, p in
+              MODEL_REGISTRY["vit_s4"]().named_parameters()]
+    if len(shapes) != VIT_LEAVES:
+        fail(f"vit_s4 has {len(shapes)} parameter leaves, expected {VIT_LEAVES}")
+    return shapes
+
+
 def phase_kernel_vs_plain():
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    vit_shapes = vit_leaf_shapes()
     results = {}
     print("phase 3: K1 vs plain version (max |diff|, max ulp)", flush=True)
     for variant in VARIANTS:
@@ -299,6 +318,8 @@ def phase_kernel_vs_plain():
             groups = {
                 "netresdeep": [Leaf(s, leaf_config(variant, schedule, len(s) >= 2), gen)
                                for s in NETRESDEEP_LEAVES],
+                "vit_s4": [Leaf(s, leaf_config(variant, schedule, len(s) >= 2), gen)
+                           for s in vit_shapes],
                 "ragged": [Leaf(s, leaf_config(variant, schedule, True), gen)
                            for s in RAGGED],
                 "unaligned": [Leaf((1_000_003,), leaf_config(variant, schedule, True),
@@ -315,6 +336,9 @@ def phase_kernel_vs_plain():
                 if ulp > 2:
                     fail(f"K1 {variant}/{schedule}/{group}: {ulp} ulp from the "
                          "plain version (limit 2)")
+                if variant == VIT_RECIPE and group == "vit_s4" and ulp:
+                    fail(f"K1 on the ViT path's recipe and leaves ({schedule}): "
+                         f"{ulp} ulp from the plain version (must be bitwise)")
             del groups
     bitwise = all(ulp == 0 for _, ulp in results.values())
     print(f"  K1 bitwise equal to its plain version everywhere: {bitwise}",
@@ -378,32 +402,34 @@ def time_group(variant, shapes, iters):
     return (k1 + k2) / 2, (p1 + p2) / 2, lib_ms, b_ms, b_by, dev
 
 
-def phase_timing(results, main_launches):
+def k1_row(name, variant, shapes, group, iters, launches, results, label):
+    """One ``kernels`` row of K1 over ``shapes`` under ``variant``."""
     from tpu_ddp_torch import ops
 
     entry = ops.KERNELS["fused_update"]
-    rows = []
-    cases = [("fused_update", "sgd", NETRESDEEP_LEAVES, "netresdeep", 500)]
-    for variant in VARIANTS:
-        cases.append((f"fused_update[{variant},2^24]", variant, [(LARGE,)],
-                      "large", 50))
+    k_ms, p_ms, l_ms, b_ms, b_by, dev = time_group(variant, shapes, iters)
+    err = max(results[(variant, s, group)][0] for s in ("constant", "cosine"))
+    print(f"  {name:36s} kernel {k_ms:.5f} ms  plain {p_ms:.5f} ms  "
+          f"library {l_ms:.5f} ms  bound {b_ms:.5f} ms ({b_by}); device "
+          f"only: kernel {dev['device_ms']}, plain {dev['plain_device_ms']}, "
+          f"library {dev['library_device_ms']} ms", flush=True)
+    return {
+        "name": name, "route": entry["route"], "source": entry["source"],
+        "replaces": entry["replaces"], "launches": launches,
+        "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
+        "shapes": label, "recipe": variant, **dev,
+    }
+
+
+def phase_timing(results, main_launches):
     print("phase 6: K1 timing (CUDA events; ms per step of the listed leaves)",
           flush=True)
-    for name, variant, shapes, group, iters in cases:
-        k_ms, p_ms, l_ms, b_ms, b_by, dev = time_group(variant, shapes, iters)
-        err = max(results[(variant, s, group)][0] for s in ("constant", "cosine"))
-        rows.append({
-            "name": name, "route": entry["route"], "source": entry["source"],
-            "replaces": entry["replaces"], "launches": main_launches,
-            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
-            "shapes": "netresdeep 9 leaves (76,074)" if group == "netresdeep"
-            else "one leaf of 2^24", "recipe": variant, **dev,
-        })
-        print(f"  {name:36s} kernel {k_ms:.5f} ms  plain {p_ms:.5f} ms  "
-              f"library {l_ms:.5f} ms  bound {b_ms:.5f} ms ({b_by}); device "
-              f"only: kernel {dev['device_ms']}, plain {dev['plain_device_ms']}, "
-              f"library {dev['library_device_ms']} ms", flush=True)
+    rows = [k1_row("fused_update", "sgd", NETRESDEEP_LEAVES, "netresdeep", 500,
+                   main_launches, results, "netresdeep 9 leaves (76,074)")]
+    for variant in VARIANTS:
+        rows.append(k1_row(f"fused_update[{variant},2^24]", variant, [(LARGE,)],
+                           "large", 50, main_launches, results, "one leaf of 2^24"))
     return rows
 
 
@@ -664,8 +690,10 @@ def phase_flash_timing(results, counts):
     from tpu_ddp_torch import ops
     from tpu_ddp_torch.ops import flash_attention as fa
 
-    print("phase 9: flash timing (CUDA events; ms per call)", flush=True)
-    rows = []
+    print("phase 9: timing on the ViT path (CUDA events; ms per call)", flush=True)
+    rows = [k1_row("fused_update[vit_s4]", VIT_RECIPE, vit_leaf_shapes(), "vit_s4",
+                   100, counts["fused_update"], results["k1"],
+                   f"vit_s4 {VIT_LEAVES} leaves (2,693,194)")]
     for case, iters in FLASH_TIMED.items():
         q, k, v, do, _, _ = flash_inputs(case, seed=1)
         B, T, H, D = q.shape
@@ -707,7 +735,7 @@ def phase_flash_timing(results, counts):
                 "name": f"{name}[{case}]", "route": entry["route"],
                 "source": entry["source"], "replaces": entry["replaces"],
                 "launches": counts[name],
-                "max_abs_err": max(results[case][o] for o in outputs),
+                "max_abs_err": max(results["flash"][case][o] for o in outputs),
                 "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
                 "shapes": f"(B, T, H, D) = {(B, T, H, D)}",
@@ -757,7 +785,8 @@ def main():
     rows = phase_timing(results, launches)
     flash_results = phase_flash_vs_plain()
     vit_runs = phase_vit_main_path()
-    rows += phase_flash_timing(flash_results, vit_runs["flash"][1])
+    rows += phase_flash_timing({"k1": results, "flash": flash_results},
+                               vit_runs["flash"][1])
     for attention, (m, _) in vit_runs.items():
         print(f"ViT-S/4 --attention {attention}: steady-state images/sec/chip "
               f"{m['images_per_sec_per_chip']:.1f}", flush=True)

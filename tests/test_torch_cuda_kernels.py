@@ -26,15 +26,18 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("kind,momentum,ema,step_const", [
-    ("sgd", 0.0, 0.0, -0.01), ("sgd", 0.9, 0.99, None),
-    ("adamw", 0.0, 0.99, -0.001)])
+@pytest.mark.parametrize("kind,momentum,ema,step_const,wd,clip", [
+    ("sgd", 0.0, 0.0, -0.01, 5e-4, True), ("sgd", 0.9, 0.99, None, 5e-4, True),
+    ("adamw", 0.0, 0.99, -0.001, 5e-4, True),
+    # the ViT path's recipe: AdamW, no decay, no clip, no EMA, constant lr
+    ("adamw", 0.0, 0.0, -0.001, 0.0, False)])
 @pytest.mark.parametrize("n,offset", [(1, 0), (127, 0), (65536, 0), (1003, 1)])
 def test_kernel_bitwise_equal_to_plain(cuda, kind, momentum, ema, step_const,
-                                       n, offset):
-    cfg = LeafConfig(kind=kind, momentum=momentum, wd=5e-4, wd_apply=True,
-                     has_clip=True, max_norm=1.0, step_const=step_const,
-                     ema_decay=ema, b1=0.9, b2=0.999, eps=1e-8)
+                                       wd, clip, n, offset):
+    cfg = LeafConfig(kind=kind, momentum=momentum, wd=wd, wd_apply=wd > 0,
+                     has_clip=clip, max_norm=1.0 if clip else 0.0,
+                     step_const=step_const, ema_decay=ema, b1=0.9, b2=0.999,
+                     eps=1e-8)
     gen = torch.Generator(device=cuda).manual_seed(n)
     t = lambda: torch.randn(n + offset, generator=gen, device=cuda)[offset:]  # noqa: E731
     g, p, m, v, e = t(), t(), t(), t().abs(), t()

@@ -1,10 +1,11 @@
 """Flash attention in the PyTorch port against the JAX package, on the same
 numpy inputs.
 
-On the CPU the port's ``flash_attention`` is its plain ``reference``, and
-the ``FlashAttention`` autograd function runs the plain versions of its
+On the CPU the port's ``flash_attention`` goes through the
+``FlashAttention`` autograd function, which runs the plain versions of its
 three kernels (``forward_plain``, ``dq_plain``, ``dkv_plain``: the CUDA
-kernels' arithmetic on whole score matrices). Each is held against the JAX
+kernels' arithmetic on whole score matrices); ``reference`` is the plain
+attention with autograd through it. Each is held against the JAX
 ``flash_attention`` run as ``tests/test_ops.py`` runs it on the CPU (Pallas
 in interpret mode, blocks of 64; a prime T takes the JAX package's jnp
 path) and against its ``_reference``, forward and q/k/v gradients under a

@@ -14,9 +14,10 @@ whole: ViT training with ``--attention flash``.
   JAX step, which runs under shard_map, the JAX ``flash_attention`` takes
   its jnp ``_reference`` on the CPU (``tpu_ddp/ops/flash_attention.py:260``:
   interpret-mode Pallas does not trace under shard_map). That is the JAX
-  package's own behaviour there; the port's CPU path is its ``reference``
-  too, so the step compares the model, loss, gradients and update around
-  the attention. One slice is left out of the AdamW comparison: the key
+  package's own behaviour there; the port's CPU path runs the plain
+  versions of its three kernels, the same function on whole score
+  matrices, so the step compares the model, loss, gradients and update
+  around the attention. One slice is left out of the AdamW comparison: the key
   third of each ``qkv`` bias. Adding a constant to every key adds the same
   number to a query's scores, which the softmax ignores, so the loss does
   not depend on that bias and its gradient is rounding noise (1e-9), which

@@ -218,8 +218,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
   float* Ps = Vs + L::kFloats;
   float* kvis = Ps + kTile * kLdP;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const int q0 = blockIdx.x * kTile;
+  const int tiles = (a.T + kTile - 1) / kTile;
+  const int bh = blockIdx.x / tiles, b = bh / a.H, h = bh % a.H;
+  const int q0 = blockIdx.x % tiles * kTile;
   const int d_end = (a.D + 3) & ~3;
 
   load_tile<kD>(Qs, a.q, a.vq, b, h, q0, a.T, a.D);
@@ -298,8 +299,9 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
   float* lse_s = kvis + kTile;
   float* di_s = lse_s + kTile;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const int q0 = blockIdx.x * kTile;
+  const int tiles = (a.T + kTile - 1) / kTile;
+  const int bh = blockIdx.x / tiles, b = bh / a.H, h = bh % a.H;
+  const int q0 = blockIdx.x % tiles * kTile;
   const int d_end = (a.D + 3) & ~3;
 
   load_tile<kD>(Qs, a.q, a.vq, b, h, q0, a.T, a.D);
@@ -355,8 +357,9 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   float* lse_s = kvis + kTile;
   float* di_s = lse_s + kTile;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const int k0 = blockIdx.x * kTile;
+  const int tiles = (a.T + kTile - 1) / kTile;
+  const int bh = blockIdx.x / tiles, b = bh / a.H, h = bh % a.H;
+  const int k0 = blockIdx.x % tiles * kTile;
   const int d_end = (a.D + 3) & ~3;
 
   load_tile<kD>(Ks, a.k, a.vk, b, h, k0, a.T, a.D);
@@ -421,8 +424,10 @@ cudaError_t launch(Kernel kernel, size_t smem, const Args& a, cudaStream_t strea
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.T + kTile - 1) / kTile, a.B * a.H);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  // one block per (b*h, tile), tiles of one (b, h) adjacent, so blocks that
+  // read the same K/V (or Q/dO) tiles run together and share them in L2
+  const unsigned blocks = a.B * a.H * ((a.T + kTile - 1) / kTile);
+  kernel<<<blocks, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -439,7 +444,7 @@ cudaError_t dispatch_width(Which w, const Args& a, cudaStream_t stream) {
 
 int run(Which w, Args& a, const long long* strides, int n_views, View* const* views,
         int B, int T, int H, int D, int causal, void* stream) {
-  if (D < 1 || D > 128 || B < 1 || H < 1 || B * H > 65535)
+  if (D < 1 || D > 128 || B < 1 || H < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (T < 1) return 0;
   for (int i = 0; i < n_views; ++i)

@@ -7,8 +7,8 @@ float32, as in the JAX package.
 * ``reference`` is the plain PyTorch attention (``_reference`` :72), with
   autograd through it: scale ``1/sqrt(D)``, invisible scores set to the
   finite ``NEG``, softmax, then the multiplicative mask, so a row with no
-  visible key outputs exactly 0. ``flash_attention`` takes it for CPU
-  tensors.
+  visible key outputs exactly 0. It is the tests' oracle; no path of the
+  port calls it.
 * Three kernels in ``csrc/flash_attention.cu``, each with its wrapper (CUDA
   tensors launch the kernel and add one to ``LAUNCHES``; CPU tensors take the
   plain version; anything else raises) and its plain version, which repeats
@@ -54,8 +54,6 @@ FWD, DQ, DKV = "flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv
 NEG = -1e30
 #: the largest head dim the kernels take (their shared-memory tiles)
 MAX_HEAD_DIM = 128
-#: grid dimension y holds B*H
-MAX_BATCH_HEADS = 65535
 
 
 # --------------------------------------------------------------------------
@@ -174,8 +172,6 @@ def _check(q, k, v, kv_mask, what: str, *more):
                                 or not kv_mask.is_contiguous()):
         raise ValueError(f"{what}: kv_mask must be contiguous float32 (B, T) "
                          f"= {(B, T)} on {q.device}")
-    if B * H > MAX_BATCH_HEADS:
-        raise ValueError(f"{what}: B*H = {B * H} is above {MAX_BATCH_HEADS}")
 
 
 def _rows(t: torch.Tensor, B: int, H: int, T: int, what: str) -> None:
@@ -285,8 +281,9 @@ class FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, *, causal: bool = False, kv_mask=None) -> torch.Tensor:
-    """(B, T, H, D) float32 attention: CUDA tensors go through K4 forward
-    and K5/K6 backward; CPU tensors take ``reference``. ``causal`` hides
+    """(B, T, H, D) float32 attention through ``FlashAttention``: K4
+    forward and K5/K6 backward on CUDA tensors, their plain versions on CPU
+    tensors. ``causal`` hides
     col > row; ``kv_mask`` ``(B, T)``, nonzero = attend; rows with no visible
     key output exactly 0, with zero gradients.
 
@@ -297,7 +294,4 @@ def flash_attention(q, k, v, *, causal: bool = False, kv_mask=None) -> torch.Ten
     if kv_mask is not None:
         kv_mask = kv_mask.to(device=q.device, dtype=torch.float32).contiguous()
     q, k, v = _unit_last(q), _unit_last(k), _unit_last(v)
-    _check(q, k, v, kv_mask, "flash_attention")
-    if q.device.type == "cpu":
-        return reference(q, k, v, causal=causal, kv_mask=kv_mask)
     return FlashAttention.apply(q, k, v, kv_mask, causal)

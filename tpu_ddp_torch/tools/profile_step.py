@@ -4,9 +4,9 @@
     python -m tpu_ddp_torch.tools.profile_step --model vit_s4   # ViT-S/4
 
 NetResDeep (full width, synthetic CIFAR, batch 32, SGD lr 1e-2) is built
-twice, with the plain update and with ``--kernels`` (K1). A ViT (batch 32,
-AdamW lr 1e-3, ``--kernels``) is built once per ``--attention`` named (by
-default ``full`` and ``flash``, K4-K6). On one GPU, for each variant:
+twice, with the plain update and with ``--kernels`` (K1). ViT-S/4 (batch
+32, AdamW lr 1e-3, ``--kernels``) is built twice, with ``--attention full``
+and with ``--attention flash`` (K4-K6). On one GPU, for each variant:
 
 1. 100 train steps in turns (A, B, B, A, three times over), host clock
    between ``torch.cuda.synchronize()`` calls, after a warm-up;
@@ -43,13 +43,13 @@ ROUNDS, UPDATE_CALLS, ATTENTION_REPS = 3, 200, 50
 FLASH_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
 
 
-def variants(model: str, attentions) -> dict:
+def variants(model: str) -> dict:
     """variant name -> extra CLI arguments."""
     base = ["--model", model]
     if model == "netresdeep":
         return {"plain": base, "kernels": base + ["--kernels"]}
     base += ["--kernels", "--optimizer", "adamw", "--lr", "1e-3"]
-    return {a: base + ["--attention", a] for a in attentions}
+    return {a: base + ["--attention", a] for a in ("full", "flash")}
 
 
 def _trainer(extra) -> Trainer:
@@ -160,14 +160,9 @@ def _attention_ms(trainer: Trainer, batch_size: int) -> float:
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--model", choices=["netresdeep", "vit_s4", "vit_b16"],
-                   default="netresdeep")
-    p.add_argument("--attention", choices=["full", "flash"], action="append",
-                   help="ViT attention variants to compare (default: both)")
+    p.add_argument("--model", choices=["netresdeep", "vit_s4"], default="netresdeep")
     args = p.parse_args(argv)
-    if args.model == "netresdeep" and args.attention:
-        p.error("--attention needs a ViT model")
-    specs = variants(args.model, args.attention or ["full", "flash"])
+    specs = variants(args.model)
     names = list(specs)
     turns = (names + names[::-1]) * ROUNDS
     trainers = {name: _trainer(extra) for name, extra in specs.items()}
