@@ -69,8 +69,42 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (forward for K4, its backward, which gives dq, dk and dv at once, for K5
    and for K6; never called by the port).
 
-The NetResDeep phases keep their sizes; the whole run takes one to two
-minutes on the card, the build included. The line before the last is one JSON object
+10. K2/K3 against plain on the card: ``fused_quant`` and ``fused_dequant``
+    (bare and with ``add_to``) against ``quantize_chunk`` and
+    ``dequantize_chunk`` at NetResDeep's 9 ring chunks at 2 ranks, ViT-S/4's
+    79 leaves halved, sizes 1, 255, 257, 1,000,003 (also from an unaligned
+    address) and 2**24 at block 256, blocks 1, 64, 256, 1,000 and 4,096, and
+    blocks holding NaN, +Inf, -Inf and only zeros. Bitwise, except the int8
+    bytes of a block whose scale is not finite: there the scales must agree
+    (NaN with NaN, +-Inf equal) and the block must dequantize non-finite.
+11. The ring on the card: two ranks on ``cuda:0`` over gloo (spawned) run
+    ``ring_all_reduce`` int8 with ``with_error`` at NetResDeep's 9 leaves and
+    one 2**22 leaf, through K2/K3 and through the plain versions on the same
+    inputs: outputs and errors bitwise equal on each rank, outputs identical
+    across ranks. Then one step's ring over the 9 leaves (error feedback,
+    K2/K3) timed by the host clock, and its device time split by
+    ``torch.profiler`` into K2/K3, host-device copies and other kernels.
+12. The main path on two ranks: ``python -m tpu_ddp_torch.cli.launch
+    --nproc-per-node 2 -- python -m tpu_ddp_torch.cli.train --device cuda
+    --dist-backend gloo --synthetic-data --kernels --grad-compress int8
+    --grad-compress-error-feedback --eval-each-epoch``, NetResDeep at full
+    width, batch 32 a rank, SGD lr 1e-2, 2 epochs of 100 steps, both ranks
+    sharing the card. Losses finite and falling; launches exact on each rank
+    (K1 9, K2 18 and K3 45 a step, nothing else); params bitwise equal on
+    both ranks at the end. The same run without ``--grad-compress`` (plain
+    DP over gloo) keeps its first 5 step losses within 0.05 of the int8
+    run's. Steady-state step time per rank of both.
+13. Timing of K2, K3 and K3 with ``add_to``: one main-path step's calls on
+    one rank (each of the 9 chunks twice through K2, four times through K3
+    and once through K3 with ``add_to``) and one 2**24 chunk, each in turns
+    with its plain version, beside the bound (bytes over 3.35 TB/s). No
+    single PyTorch call quantizes or dequantizes block-scaled int8, so these
+    rows have no library time.
+
+The NetResDeep phases keep their sizes; the whole run takes two to three
+minutes on the card, the build included. ``python3 chip_smoke.py --nccl N``,
+on a machine with N cards, runs phase 12 alone at N ranks, one card each,
+over NCCL. The line before the last is one JSON object
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -642,7 +676,8 @@ def phase_vit_main_path():
         want = {"fused_update": VIT_LEAVES * steps,
                 "flash_attention_fwd": VIT_DEPTH * (steps + evals) if flash else 0,
                 "flash_attention_dq": VIT_DEPTH * steps if flash else 0,
-                "flash_attention_dkv": VIT_DEPTH * steps if flash else 0}
+                "flash_attention_dkv": VIT_DEPTH * steps if flash else 0,
+                "fused_quant": 0, "fused_dequant": 0}
         if counts != want:
             fail(f"ViT --attention {attention}: launches {counts}, expected {want}")
         if not all(math.isfinite(x) for x in losses):
@@ -752,7 +787,411 @@ def phase_flash_timing(results, counts):
     return rows
 
 
+# ---- phases 10-13: the compressed gradient ring on two ranks (K2, K3) ----
+
+#: NetResDeep's leaves flattened, padded to 2 ranks and halved: the ring's
+#: chunk sizes at n = 2, one K2 / K3 call each per hop
+NETRESDEEP_CHUNKS = [432, 16, 4608, 16, 16, 32768, 16, 160, 5]
+QUANT_BLOCK = 256                      # --grad-compress-block default
+QUANT_SIZES = [1, 255, 257, 1_000_003, LARGE]
+QUANT_BLOCKS = [1, 64, 256, 1000, 4096]   # 4096: one thread block a scale block
+RING_LEAVES = [math.prod(s) for s in NETRESDEEP_LEAVES] + [1 << 22]
+DP_STEPS_PER_EPOCH = 100
+DP_LOSS_ATOL = 0.05
+
+
+def quant_case(x, block, gen, failed, label):
+    """K2 and K3 (bare and accumulating) against their plain versions on
+    ``x``. Bitwise, except the int8 bytes of a block whose scale is not
+    finite: there the scales must agree (NaN with NaN, +-Inf equal) and
+    every dequantized element must be non-finite. Returns max |diff|."""
+    import torch
+
+    from tpu_ddp_torch.ops.fused_quant import fused_dequant, fused_quant
+    from tpu_ddp_torch.parallel.compression import dequantize_chunk, quantize_chunk
+
+    size = x.numel()
+    want = quantize_chunk(x, "int8", block)
+    got = fused_quant(x, block)
+    s_k, s_p = got["scale"], want["scale"]
+    finite = torch.isfinite(s_p)
+    same_scale = bool((torch.isnan(s_k) == torch.isnan(s_p)).all()) and bool(
+        (s_k[~torch.isnan(s_p)] == s_p[~torch.isnan(s_p)]).all())
+    rows = finite.repeat_interleave(block)
+    same_q = torch.equal(got["q"][rows], want["q"][rows])
+    acc = torch.randn(size, generator=gen, device="cuda")
+    worst = 0.0
+    for add in (None, acc):
+        d_k = fused_dequant(got, block, size, add_to=add)
+        d_p = dequantize_chunk(got, "int8", block, size)
+        d_p = d_p if add is None else add + d_p
+        fin = torch.isfinite(d_p)
+        bad_block = ~finite.repeat_interleave(block)[:size]
+        if not torch.equal(fin, torch.isfinite(d_k)) or bool(fin[bad_block].any()):
+            failed.append(f"{label}: K3 non-finite pattern")
+        if not torch.equal(d_k[fin].view(torch.int32), d_p[fin].view(torch.int32)):
+            failed.append(f"{label}: K3{' +add_to' if add is not None else ''} "
+                          "differs from its plain version")
+        if size:
+            worst = max(worst, float((d_k[fin] - d_p[fin]).abs().max()))
+    if not (same_scale and same_q):
+        failed.append(f"{label}: K2 scale equal {same_scale}, q equal {same_q}")
+    return worst
+
+
+def phase_quant_vs_plain():
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    failed, worst = [], {}
+
+    def run(label, x, block):
+        err = quant_case(x, block, gen, failed, label)
+        torch.cuda.synchronize()
+        worst[label] = err
+
+    print("phase 10: K2/K3 vs plain versions (bitwise; non-finite blocks by "
+          "the sentinel contract)", flush=True)
+    for i, n in enumerate(NETRESDEEP_CHUNKS):
+        run(f"netresdeep chunk {i} ({n})", torch.randn(n, generator=gen, device="cuda"),
+            QUANT_BLOCK)
+    for i, shape in enumerate(vit_leaf_shapes()):
+        n = math.prod(shape)
+        run(f"vit_s4 chunk {i} ({(n + n % 2) // 2})",
+            torch.randn((n + n % 2) // 2, generator=gen, device="cuda") * 0.02, QUANT_BLOCK)
+    for n in QUANT_SIZES:
+        run(f"size {n}", torch.randn(n, generator=gen, device="cuda") * 3, QUANT_BLOCK)
+    buf = torch.randn(1_000_004, generator=gen, device="cuda")
+    run("size 1000003 unaligned", buf[1:], QUANT_BLOCK)
+    for block in QUANT_BLOCKS:
+        run(f"block {block} (size 100003)",
+            torch.randn(100_003, generator=gen, device="cuda"), block)
+    x = torch.randn(8 * 256, generator=gen, device="cuda")
+    x[3], x[300], x[600], x[1024:1280] = float("nan"), float("inf"), -float("inf"), 0.0
+    x[1300], x[1301] = float("inf"), float("nan")
+    run("nan, +inf, -inf and all-zero blocks", x, QUANT_BLOCK)
+    run("nan, +inf, -inf and all-zero blocks, block 64", x, 64)
+    print(f"  {len(worst)} cases, max |diff| over finite values "
+          f"{max(worst.values()):.3g}", flush=True)
+    if failed:
+        fail("K2/K3 disagree with their plain versions: " + "; ".join(failed[:10]))
+    return max(worst.values())
+
+
+def ring_rank(rank, world, out_dir):
+    """Phase 11 on one rank (spawned; both ranks on cuda:0 over gloo)."""
+    import torch
+
+    from tpu_ddp_torch.parallel.collectives import ring_all_reduce
+    from tpu_ddp_torch.parallel.compression import GradCompression, GradCompressor
+
+    torch.cuda.set_device(0)
+    gen = torch.Generator(device="cuda").manual_seed(100 + rank)
+    result = {"equal": True}
+    outs = []
+    for n in RING_LEAVES:
+        x = torch.randn(n + n % 2, generator=gen, device="cuda")
+        k_out, k_err = ring_all_reduce(x, mode="int8", block=QUANT_BLOCK,
+                                       with_error=True, kernels=True)
+        p_out, p_err = ring_all_reduce(x, mode="int8", block=QUANT_BLOCK,
+                                       with_error=True, kernels=False)
+        result["equal"] &= torch.equal(k_out, p_out) and torch.equal(k_err, p_err)
+        outs.append(k_out.cpu())
+    torch.save(outs, f"{out_dir}/ring{rank}.pt")
+    # one step's ring over NetResDeep's 9 leaves, as the train step runs it
+    params = {f"leaf{i}": torch.randn(s, generator=gen, device="cuda")
+              for i, s in enumerate(NETRESDEEP_LEAVES)}
+    comp = GradCompressor(GradCompression(mode="int8", block=QUANT_BLOCK,
+                                          error_feedback=True, kernels=True),
+                          params, world)
+    residual = comp.init_residual("cuda")
+
+    def step():
+        nonlocal residual
+        _, residual = comp.all_reduce_mean(params, residual, with_error=True)
+
+    for _ in range(10):
+        step()
+    torch.cuda.synchronize()
+    iters = 100
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step()
+    torch.cuda.synchronize()
+    result["ring_step_ms"] = (time.perf_counter() - t0) / iters * 1e3
+    result["ring_device"] = profile_split(step, 20)
+    with open(f"{out_dir}/ring{rank}.json", "w") as f:
+        json.dump(result, f)
+
+
+def profile_split(fn, iters):
+    """Device ms per call of ``fn`` under ``torch.profiler``, split into
+    K2/K3, host<->device copies and other kernels; None without device
+    events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    split = {"quant_kernels": 0.0, "memcpy": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        key = ("quant_kernels" if "tpu_ddp_quant" in e.key or "tpu_ddp_dequant" in e.key
+               else "memcpy" if "memcpy" in e.key.lower() else "other")
+        split[key] += e.self_device_time_total / iters * 1e-3
+    return split if any(split.values()) else None
+
+
+def phase_ring_on_card(tmp):
+    from tpu_ddp_torch.parallel.runtime import spawn
+
+    import torch
+
+    print("phase 11: ring_all_reduce int8 + error feedback on two ranks on "
+          "cuda:0 over gloo, K2/K3 vs plain versions", flush=True)
+    out = os.path.join(tmp, "ring")
+    os.makedirs(out)
+    spawn(ring_rank, 2, out, init_file=os.path.join(out, "rdzv"), timeout=300)
+    res = []
+    for r in range(2):
+        with open(os.path.join(out, f"ring{r}.json")) as f:
+            res.append(json.load(f))
+    outs = [torch.load(os.path.join(out, f"ring{r}.pt")) for r in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(*outs))
+    print(f"  leaves {RING_LEAVES}: kernels == plain on rank 0 {res[0]['equal']}, "
+          f"rank 1 {res[1]['equal']}; outputs identical across ranks {same}", flush=True)
+    for r in range(2):
+        print(f"  rank {r}: one step's ring over NetResDeep's 9 leaves "
+              f"{res[r]['ring_step_ms']:.4f} ms (host clock); device ms a step by "
+              f"kind: {res[r]['ring_device']}", flush=True)
+    if not (res[0]["equal"] and res[1]["equal"] and same):
+        fail("the ring with K2/K3 differs from the ring with plain versions, "
+             "or across ranks")
+    return res
+
+
+def dp_args(compress, nproc=2, backend="gloo"):
+    args = ["--device", "cuda", "--dist-backend", backend, "--synthetic-data",
+            "--synthetic-size", str(nproc * 32 * DP_STEPS_PER_EPOCH), "--epochs", "2",
+            "--kernels", "--eval-each-epoch", "--log-every-epochs", "1",
+            "--n-chans1", "32", "--n-blocks", "10", "--batch-size", "32",
+            "--lr", "1e-2", "--optimizer", "sgd"]
+    if compress:
+        args += ["--grad-compress", "int8", "--grad-compress-error-feedback"]
+    return args
+
+
+def dp_launches(nproc):
+    """K1, K2 and K3 launches a step a rank at ``nproc`` ranks with error
+    feedback, over NetResDeep's 9 leaves: K2 n a leaf (n-1 hops and the
+    gather phase's quantize), K3 (n-1)(1+ef) + ef + n a leaf
+    (tpu_ddp/parallel/collectives.py:245-268, :289-303)."""
+    return {"fused_update": 9, "fused_quant": 9 * nproc,
+            "fused_dequant": 9 * ((nproc - 1) * 2 + 1 + nproc)}
+
+
+def rank_child(out_dir, args):
+    """One rank of phase 12, started by the launcher: the train CLI's
+    ``run`` with the launch counts zeroed just before; writes the counts,
+    the metrics and the final weights to ``out_dir``."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from tpu_ddp_torch import ops
+    from tpu_ddp_torch.cli import train as cli
+
+    rank = int(os.environ["RANK"])
+    ops.reset_launch_counts()
+    trainer, metrics = cli.run(args)
+    torch.cuda.synchronize()
+    metrics["launches"] = ops.launch_counts()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(metrics, f)
+    torch.save({k: v.cpu() for k, v in trainer.state.model.state_dict().items()},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def launch_dp(tmp, name, args, nproc):
+    import torch
+
+    from tpu_ddp_torch.cli.launch import run_job
+
+    out = os.path.join(tmp, name)
+    os.makedirs(out)
+    print(f"phase 12: python -m tpu_ddp_torch.cli.launch --nproc-per-node {nproc} "
+          f"-- python -m tpu_ddp_torch.cli.train {' '.join(args)}", flush=True)
+    rc = run_job([sys.executable, os.path.abspath(__file__), "--rank-child", out,
+                  *args], nproc_per_node=nproc)
+    if rc:
+        fail(f"the {nproc}-rank run exited with {rc}")
+    metrics = []
+    for r in range(nproc):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            metrics.append(json.load(f))
+    weights = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(nproc)]
+    same = all(torch.equal(weights[0][k], w[k]) for w in weights[1:] for k in w)
+    return metrics, same
+
+
+def phase_dp_main_path(tmp, nproc=2, backend="gloo"):
+    runs = {}
+    for compress in (True, False):
+        metrics, same = launch_dp(tmp, "int8" if compress else "plain",
+                                  dp_args(compress, nproc, backend), nproc)
+        m = metrics[0]
+        steps, losses = m["steps"], m["step_losses"]
+        first, last = sum(losses[:20]) / 20, sum(losses[-20:]) / 20
+        print(f"  steps {steps}; launches on rank 0 {m['launches']}; params "
+              f"bitwise equal on all {nproc} ranks {same}", flush=True)
+        step_ms = " / ".join(f"{x['steady_step_ms']:.4f}" for x in metrics)
+        print(f"  mean loss of the first 20 steps {first:.4f}, last 20 {last:.4f}; "
+              f"final test accuracy {m['test_accuracy']:.4f}; steady-state step "
+              f"time per rank: {step_ms} ms", flush=True)
+        if steps != 2 * DP_STEPS_PER_EPOCH:
+            fail(f"the {nproc}-rank run took {steps} steps, expected "
+                 f"{2 * DP_STEPS_PER_EPOCH}")
+        if not all(math.isfinite(x) for x in losses) or not last < first:
+            fail(f"the {nproc}-rank run's losses are not finite and falling")
+        if not same:
+            fail(f"the {nproc} ranks end with different params")
+        want = {name: 0 for name in m["launches"]}
+        want["fused_update"] = 9 * steps
+        if compress:
+            want.update({k: v * steps for k, v in dp_launches(nproc).items()})
+        for r in range(nproc):
+            if metrics[r]["launches"] != want:
+                fail(f"rank {r} launched {metrics[r]['launches']}, expected {want}")
+        runs["int8" if compress else "plain"] = metrics
+    got = runs["plain"][0]["step_losses"][:PLAIN_STEPS_RTOL]
+    want = runs["int8"][0]["step_losses"][:PLAIN_STEPS_RTOL]
+    diff = max(abs(g - w) for g, w in zip(got, want))
+    print(f"  plain DP vs int8 + error feedback, first {PLAIN_STEPS_RTOL} step losses: "
+          f"max |diff| {diff:.4g} (limit {DP_LOSS_ATOL})", flush=True)
+    if not diff <= DP_LOSS_ATOL:
+        fail("plain DP and the int8 ring disagree over the first steps")
+    return runs
+
+
+def quant_bound(sizes, block, kind):
+    """(bound_ms, "bytes"): bytes each call must move over the HBM rate.
+    K2 reads 4 bytes an element and writes nb * block int8 plus 4 bytes a
+    block; K3 reads 1 byte an element (5 with add_to) plus 4 a block and
+    writes 4 an element. Their few operations an element are far below the
+    bytes' time."""
+    total = 0
+    for n in sizes:
+        nb = -(-n // block)
+        if kind == "quant":
+            total += 4 * n + nb * block + 4 * nb
+        else:
+            total += n + 4 * nb + 4 * n + (4 * n if kind == "dequant_add" else 0)
+    return total / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def phase_quant_timing(quant_err, runs):
+    import torch
+
+    from tpu_ddp_torch import ops
+    from tpu_ddp_torch.ops.fused_quant import fused_dequant, fused_quant
+    from tpu_ddp_torch.parallel.compression import dequantize_chunk, quantize_chunk
+
+    print("phase 13: K2/K3 timing (CUDA events, ms per step of the listed calls; "
+          "no single PyTorch call computes either function, so no library time)",
+          flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    launches = runs["int8"][0]["launches"]
+    groups = {
+        # one step of the main path on one rank: each chunk twice through K2,
+        # four times through bare K3 and once through K3 with add_to
+        "netresdeep step": (NETRESDEEP_CHUNKS, {"quant": 2, "dequant": 4,
+                                                "dequant_add": 1}, 500),
+        "2^24": ([LARGE], {"quant": 1, "dequant": 1, "dequant_add": 1}, 50),
+    }
+    rows = []
+    for group, (sizes, reps, iters) in groups.items():
+        xs = [torch.randn(n, generator=gen, device="cuda") for n in sizes]
+        accs = [torch.randn(n, generator=gen, device="cuda") for n in sizes]
+        payloads = [fused_quant(x, QUANT_BLOCK) for x in xs]
+        calls = {
+            "quant": (lambda: [fused_quant(x, QUANT_BLOCK) for x in xs],
+                      lambda: [quantize_chunk(x, "int8", QUANT_BLOCK) for x in xs]),
+            "dequant": (lambda: [fused_dequant(p, QUANT_BLOCK, x.numel())
+                                 for p, x in zip(payloads, xs)],
+                        lambda: [dequantize_chunk(p, "int8", QUANT_BLOCK, x.numel())
+                                 for p, x in zip(payloads, xs)]),
+            "dequant_add": (lambda: [fused_dequant(p, QUANT_BLOCK, x.numel(), add_to=a)
+                                     for p, x, a in zip(payloads, xs, accs)],
+                            lambda: [a + dequantize_chunk(p, "int8", QUANT_BLOCK, x.numel())
+                                     for p, x, a in zip(payloads, xs, accs)]),
+        }
+        for kind, (kernel, plain) in calls.items():
+            n_rep = reps[kind]
+            k1, p1 = time_ms(kernel, iters), time_ms(plain, iters)
+            p2, k2 = time_ms(plain, iters), time_ms(kernel, iters)
+            dev_k, dev_p = device_ms(kernel, 20), device_ms(plain, 20)
+            b_ms, b_by = quant_bound(sizes, QUANT_BLOCK, kind)
+            name = "fused_quant" if kind == "quant" else "fused_dequant"
+            entry = ops.KERNELS[name]
+            scale = lambda v: None if v is None else v * n_rep  # noqa: E731
+            row = {
+                "name": name + {"quant": "", "dequant": "",
+                                "dequant_add": "[add_to]"}[kind]
+                + ("" if group == "netresdeep step" else "[2^24]"),
+                "route": entry["route"], "source": entry["source"],
+                "replaces": entry["replaces"], "launches": launches[name],
+                "max_abs_err": quant_err, "ms": (k1 + k2) / 2 * n_rep,
+                "plain_ms": (p1 + p2) / 2 * n_rep, "bound_ms": b_ms * n_rep,
+                "bound_by": b_by, "library_ms": None,
+                "library": "none: no single PyTorch call quantizes or dequantizes "
+                           "block-scaled int8",
+                "shapes": f"{group}: chunks {sizes} x {n_rep}, block {QUANT_BLOCK}",
+                "device_ms": scale(dev_k), "plain_device_ms": scale(dev_p),
+            }
+            rows.append(row)
+            print(f"  {row['name']:28s} {group:16s} x{n_rep}: kernel {row['ms']:.5f} ms  "
+                  f"plain {row['plain_ms']:.5f} ms  bound {row['bound_ms']:.6f} ms "
+                  f"(bytes); device only: kernel {row['device_ms']}, plain "
+                  f"{row['plain_device_ms']} ms", flush=True)
+        del xs, accs, payloads
+    return rows
+
+
+def nccl_main(nproc):
+    """``python3 chip_smoke.py --nccl N`` on a machine with N cards: phase 12
+    at N ranks, one card each, over NCCL (the default backend on cuda)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    if torch.cuda.device_count() < nproc:
+        fail(f"--nccl {nproc} needs {nproc} cards, {torch.cuda.device_count()} visible")
+    sys.path.insert(0, ROOT)
+    from tpu_ddp_torch.ops import _build
+
+    print(nvidia_smi(), flush=True)
+    _build.build()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
+    try:
+        phase_dp_main_path(tmp, nproc, "nccl")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"chip_smoke --nccl {nproc}: ok", flush=True)
+
+
 def main():
+    if sys.argv[1:2] == ["--rank-child"]:
+        return rank_child(sys.argv[2], sys.argv[3:])
+    if sys.argv[1:2] == ["--nccl"]:
+        return nccl_main(int(sys.argv[2]))
+    import shutil
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -790,6 +1229,19 @@ def main():
     for attention, (m, _) in vit_runs.items():
         print(f"ViT-S/4 --attention {attention}: steady-state images/sec/chip "
               f"{m['images_per_sec_per_chip']:.1f}", flush=True)
+    quant_err = phase_quant_vs_plain()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
+    try:
+        phase_ring_on_card(tmp)
+        dp_runs = phase_dp_main_path(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rows += phase_quant_timing(quant_err, dp_runs)
+    for name, ms in (("int8 ring", dp_runs["int8"]), ("plain DP", dp_runs["plain"])):
+        print(f"NetResDeep on two ranks, {name}: steady-state step time per rank "
+              f"{ms[0]['steady_step_ms']:.4f} / {ms[1]['steady_step_ms']:.4f} ms",
+              flush=True)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -1,15 +1,26 @@
 """The port's CLI: a short CPU run prints the reference's log lines with
 finite losses, and without ``--device cpu`` it refuses to run where there
-is no GPU."""
+is no GPU. The launcher runs it on two CPU ranks, ends the job with a
+failing rank's code, and imports neither torch nor jax; the compression
+flags are validated with the JAX package's messages."""
 
 import math
+import os
 import re
+import subprocess
+import sys
+from pathlib import Path
 
 import pytest
 import torch
 
+from tpu_ddp_torch.cli import launch
 from tpu_ddp_torch.cli.train import build_parser, main
+from tpu_ddp_torch.parallel import runtime as dist_runtime
 from tpu_ddp_torch.runtime import resolve_device
+from tpu_ddp_torch.train.trainer import TrainConfig
+
+ROOT = Path(__file__).resolve().parents[1]
 
 SMALL = ["--device", "cpu", "--synthetic-data", "--synthetic-size", "256",
          "--epochs", "2", "--n-chans1", "8", "--n-blocks", "2",
@@ -37,8 +48,9 @@ def test_cli_defaults_match_jax_cli():
     port = vars(build_parser().parse_args([]))
     ref = vars(jax_build_parser().parse_args([]))
     for key, value in port.items():
-        if key != "device":
+        if key not in ("device", "dist_backend"):   # the port's own flags
             assert ref[key] == value, key
+    assert port["dist_backend"] is None
     assert port["device"] == "cuda"
 
 
@@ -51,3 +63,91 @@ def test_cuda_is_the_default_and_missing_cuda_raises(monkeypatch):
     with pytest.raises(ValueError, match="unknown device"):
         resolve_device("auto")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _launch(args, timeout=240):
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    return subprocess.run(
+        [sys.executable, "-m", "tpu_ddp_torch.cli.launch", *args],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=timeout)
+
+
+def test_launcher_two_cpu_ranks_int8_ring():
+    proc = _launch(["--nproc-per-node", "2", "--", sys.executable, "-m",
+                    "tpu_ddp_torch.cli.train", "--device", "cpu",
+                    "--synthetic-data", "--synthetic-size", "128", "--epochs", "1",
+                    "--n-chans1", "8", "--n-blocks", "2", "--kernels",
+                    "--grad-compress", "int8", "--grad-compress-error-feedback"])
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    epochs = re.findall(r"^Epoch 1, Training loss (\S+)$", proc.stdout, re.M)
+    assert len(epochs) == 1 and math.isfinite(float(epochs[0]))   # rank 0 alone
+    assert len(re.findall(r"^final test accuracy", proc.stdout, re.M)) == 1
+    assert "images/sec/rank" in proc.stdout
+
+
+def test_launcher_ends_the_job_with_a_failing_rank_code():
+    child = ("import os, sys, time\n"
+             "sys.exit(3) if os.environ['RANK'] == '1' else time.sleep(60)")
+    proc = _launch(["--nproc-per-node", "2", "--", sys.executable, "-c", child],
+                   timeout=60)
+    assert proc.returncode == 3
+
+
+def test_launcher_plans_ranks_and_env_like_the_jax_launcher():
+    from tpu_ddp.cli import launch as jax_launch
+
+    for args in ((1, 2, 0), (2, 4, 1)):
+        assert launch.plan_ranks(*args) == jax_launch.plan_ranks(*args)
+    env = launch.child_env({}, master="127.0.0.1:1234", world_size=4, rank=3,
+                           local_rank=1, nproc_per_node=2)
+    assert env == {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": "1234",
+                   "WORLD_SIZE": "4", "RANK": "3", "LOCAL_RANK": "1",
+                   "LOCAL_WORLD_SIZE": "2"}
+    assert launch.wants_kernel_build(["python", "x", "--kernels"])
+    assert not launch.wants_kernel_build(["python", "x", "--kernels", "--device", "cpu"])
+    assert not launch.wants_kernel_build(["python", "x"])
+
+
+def test_launcher_imports_neither_torch_nor_jax():
+    code = ("import sys, tpu_ddp_torch.cli.launch, tpu_ddp_torch.ops._build; "
+            "print(sorted(m for m in ('torch', 'jax') if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,
+                         capture_output=True, timeout=60,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    assert out.stdout.strip() == "[]", out.stderr
+
+
+@pytest.mark.parametrize("kw", [
+    dict(grad_compress_error_feedback=True),
+    dict(grad_compress="int8", grad_compress_block=0),
+    dict(grad_compress="fp8"),
+])
+def test_compression_flags_validated_with_jax_messages(kw):
+    from tpu_ddp.train.trainer import TrainConfig as JaxTrainConfig
+
+    with pytest.raises(ValueError) as want:
+        JaxTrainConfig(**kw).validate()
+    with pytest.raises(ValueError) as got:
+        TrainConfig(**kw)
+    assert str(got.value) == str(want.value)
+
+
+def test_single_rank_needs_no_process_group(monkeypatch):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    assert dist_runtime.initialize_distributed("cpu") is False
+    assert dist_runtime.world_size() == 1 and dist_runtime.is_primary_process()
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    with pytest.raises(RuntimeError, match="partial launcher environment"):
+        dist_runtime.initialize_distributed("cpu")
+
+
+def test_nccl_rank_without_its_own_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    with pytest.raises(RuntimeError, match="--dist-backend gloo"):
+        dist_runtime.rank_device("cuda", "nccl")
+    assert dist_runtime.rank_device("cuda", "gloo") == torch.device("cuda", 0)
+    assert dist_runtime.rank_device("cpu", "gloo") == torch.device("cpu")
+    assert dist_runtime.default_backend("cuda") == "nccl"
+    assert dist_runtime.default_backend("cpu") == "gloo"

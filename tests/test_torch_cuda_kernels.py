@@ -1,12 +1,15 @@
-"""The port's kernels on the card: K1 and the flash-attention kernels K4-K6
-against their plain PyTorch versions, and train steps that go through them.
+"""The port's kernels on the card: K1, the int8 quantize and dequantize K2
+and K3, and the flash-attention kernels K4-K6 against their plain PyTorch
+versions, and train steps that go through them.
 These need an NVIDIA GPU and nvcc and skip without them; run them on a GPU
 machine with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
 (``chip_smoke.py`` holds the kernels to the same comparisons at the main
-path's sizes.) K4-K6 are held to the tolerances of ``tests/test_ops.py``:
+path's sizes.) K1, K2 and K3 are held bitwise (K2's int8 bytes of a block
+whose scale is not finite excepted: there the scales agree and the block
+dequantizes non-finite); K4-K6 are held to the tolerances of ``tests/test_ops.py``:
 forward ``atol=2e-5``, gradients ``atol=5e-5``, ``rtol=1e-4``."""
 
 import numpy as np
@@ -118,7 +121,8 @@ def test_flash_kernels_match_plain(cuda, case):
     dq = fa.flash_dq(q, k, v, do, want_lse, di, mask, causal)
     dk, dv = fa.flash_dkv(q, k, v, do, want_lse, di, mask, causal)
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"fused_update": 0, fa.FWD: 1, fa.DQ: 1, fa.DKV: 1}
+    assert ops.launch_counts() == {"fused_update": 0, fa.FWD: 1, fa.DQ: 1, fa.DKV: 1,
+                                   "fused_quant": 0, "fused_dequant": 0}
     torch.testing.assert_close(out, want_out, atol=2e-5, rtol=0)
     torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=0)
     want_dq = fa.dq_plain(q, k, v, do, want_lse, di, mask, causal)
@@ -176,5 +180,40 @@ def test_vit_train_step_launches_flash_kernels(cuda):
     make_eval_step()(state, batch)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"fused_update": 79, "flash_attention_fwd": 12,
-                                   "flash_attention_dq": 6, "flash_attention_dkv": 6}
+                                   "flash_attention_dq": 6, "flash_attention_dkv": 6,
+                                   "fused_quant": 0, "fused_dequant": 0}
     assert torch.isfinite(metrics["loss"])
+
+
+@pytest.mark.parametrize("size,block,offset", [
+    (5, 256, 0), (432, 256, 0), (32768, 256, 0), (1000003, 256, 1),
+    (100003, 1, 0), (100003, 64, 0), (100003, 1000, 0), (100003, 4096, 0)])
+def test_quant_kernels_bitwise_equal_to_plain(cuda, size, block, offset):
+    from tpu_ddp_torch.ops.fused_quant import fused_dequant, fused_quant
+    from tpu_ddp_torch.parallel.compression import dequantize_chunk, quantize_chunk
+
+    gen = torch.Generator(device=cuda).manual_seed(size + block)
+    x = torch.randn(size + offset, generator=gen, device=cuda)[offset:] * 3
+    x[size // 3] = 0.0
+    if size > 3 * block:
+        x[block:2 * block] = 0.0                    # an all-zero block
+        x[2 * block + 1] = float("nan")             # a NaN block
+    acc = torch.randn(size, generator=gen, device=cuda)
+    ops.reset_launch_counts()
+    got = fused_quant(x, block)
+    want = quantize_chunk(x, "int8", block)
+    finite = torch.isfinite(want["scale"])
+    assert torch.equal(torch.isnan(got["scale"]), torch.isnan(want["scale"]))
+    assert torch.equal(got["scale"][finite], want["scale"][finite])
+    rows = finite.repeat_interleave(block)
+    assert torch.equal(got["q"][rows], want["q"][rows])
+    for add in (None, acc):
+        d = fused_dequant(got, block, size, add_to=add)
+        ref = dequantize_chunk(got, "int8", block, size)
+        ref = ref if add is None else add + ref
+        fin = torch.isfinite(ref)
+        assert torch.equal(fin, torch.isfinite(d))
+        assert torch.equal(d[fin], ref[fin])
+        assert not fin[~finite.repeat_interleave(block)[:size]].any()
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_quant"] == 1 and ops.LAUNCHES["fused_dequant"] == 2

@@ -3,13 +3,17 @@
 Counterpart of ``tpu_ddp/cli/train.py`` (``build_parser``, ``main`` :609,
 ``_run_and_report`` :635) for this slice's flags, with the JAX CLI's names
 and defaults. It trains on the GPU unless ``--device cpu`` is given, and
-refuses to start without one otherwise.
+refuses to start without one otherwise. Started by
+``python -m tpu_ddp_torch.cli.launch``, it joins the launcher's process
+group first and trains data-parallel over the ranks (``--dist-backend``,
+a flag the JAX CLI does not need: one JAX process drives every device).
 """
 
 from __future__ import annotations
 
 import argparse
 
+from tpu_ddp_torch.parallel.runtime import BACKENDS, initialize_distributed, shutdown
 from tpu_ddp_torch.runtime import DEVICES
 from tpu_ddp_torch.train.trainer import TrainConfig, Trainer
 
@@ -38,7 +42,30 @@ def build_parser() -> argparse.ArgumentParser:
                         "eval uses the averaged weights")
     p.add_argument("--kernels", action="store_true",
                    help="send the optimizer update through the fused CUDA "
-                        "kernel (ops/csrc/fused_update.cu), one pass per leaf")
+                        "kernel (ops/csrc/fused_update.cu), one pass per "
+                        "leaf, and the int8 ring's quantize and "
+                        "dequantize(-accumulate) through the CUDA kernels "
+                        "of ops/csrc/fused_quant.cu")
+    p.add_argument("--grad-compress", choices=["none", "bf16", "int8"],
+                   default="none",
+                   help="quantize the gradient sync's wire payloads: the "
+                        "all-reduce becomes a ring whose hops carry "
+                        "block-scaled int8 (~4x fewer bytes) or bf16 (2x) "
+                        "while accumulation stays f32 on the device")
+    p.add_argument("--grad-compress-block", type=int, default=256,
+                   metavar="N",
+                   help="int8 mode: elements sharing one f32 max-abs "
+                        "scale (smaller = tighter error, more scale "
+                        "bytes on the wire)")
+    p.add_argument("--grad-compress-error-feedback", action="store_true",
+                   help="carry each rank's quantization error and add it "
+                        "back into the next step's gradient (keeps "
+                        "long-run convergence unbiased)")
+    p.add_argument("--dist-backend", choices=BACKENDS, default=None,
+                   help="process-group backend under the launcher: nccl "
+                        "(default on cuda; one card a rank) or gloo "
+                        "(default on cpu; on cuda ranks may share a card "
+                        "and the ring's wire bytes go through host memory)")
     p.add_argument("--model", choices=["netresdeep", "vit_s4", "vit_b16"],
                    default="netresdeep")
     p.add_argument("--attention", choices=["full", "flash"], default="full",
@@ -72,6 +99,10 @@ def config_from_args(args) -> TrainConfig:
         grad_clip_norm=args.grad_clip_norm,
         ema_decay=args.ema_decay,
         kernels=args.kernels,
+        grad_compress=args.grad_compress,
+        grad_compress_block=args.grad_compress_block,
+        grad_compress_error_feedback=args.grad_compress_error_feedback,
+        dist_backend=args.dist_backend,
         model=args.model,
         attention=args.attention,
         n_chans1=args.n_chans1,
@@ -83,15 +114,26 @@ def config_from_args(args) -> TrainConfig:
     )
 
 
-def main(argv=None) -> dict:
+def run(argv=None) -> tuple:
+    """``main``, returning ``(trainer, metrics)``."""
     args = build_parser().parse_args(argv)
-    trainer = Trainer(config_from_args(args))
-    metrics = trainer.run()
-    acc, loss = trainer.evaluate()
-    trainer.logger.log_text(f"final test accuracy: {acc:.4f}, test loss: {loss:.4f}")
+    config = config_from_args(args)
+    initialize_distributed(config.device, config.dist_backend)
+    try:
+        trainer = Trainer(config)
+        metrics = trainer.run()
+        acc, loss = trainer.evaluate()
+        trainer.logger.log_text(
+            f"final test accuracy: {acc:.4f}, test loss: {loss:.4f}")
+    finally:
+        shutdown()
     metrics.update(test_accuracy=acc, test_loss=loss,
                    eval_batches=trainer.eval_batches)
-    return metrics
+    return trainer, metrics
+
+
+def main(argv=None) -> dict:
+    return run(argv)[1]
 
 
 if __name__ == "__main__":

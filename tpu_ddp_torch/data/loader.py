@@ -92,8 +92,15 @@ class ShardedBatchLoader:
                 mask[:, :valid] &= real
             yield chunk.reshape(-1), mask.reshape(-1)
 
-    def epoch_batches(self, epoch: Optional[int] = None) -> Iterator[Dict[str, np.ndarray]]:
+    def epoch_batches(self, epoch: Optional[int] = None,
+                      shard: Optional[int] = None) -> Iterator[Dict[str, np.ndarray]]:
+        """The global batches or, with ``shard``, that shard's
+        ``per_shard_batch`` rows of each (the batch is shard-major)."""
+        bs = self.per_shard_batch
         for idx, mask in self.epoch_index_batches(epoch):
+            if shard is not None:
+                idx = idx[shard * bs:(shard + 1) * bs]
+                mask = mask[shard * bs:(shard + 1) * bs]
             yield {
                 "image": np.ascontiguousarray(self.images[idx]),
                 "label": np.ascontiguousarray(self.labels[idx]),

@@ -58,6 +58,26 @@ KERNELS = {
         "replaces": "tpu_ddp/ops/flash_attention.py:366",
         "strategies": ("dp",),
     },
+    # the int8 quantize and dequantize of the compressed gradient ring
+    # (tpu_ddp/ops/fused_quant.py)
+    "fused_quant": {
+        "wrapper": "tpu_ddp_torch.ops.fused_quant:fused_quant",
+        "plain": "tpu_ddp_torch.parallel.compression:quantize_chunk",
+        "route": "cuda",
+        "source": "tpu_ddp_torch/ops/csrc/fused_quant.cu",
+        "library": "fused_quant",
+        "replaces": "tpu_ddp/ops/fused_quant.py:58",
+        "strategies": ("dp",),
+    },
+    "fused_dequant": {
+        "wrapper": "tpu_ddp_torch.ops.fused_quant:fused_dequant",
+        "plain": "tpu_ddp_torch.parallel.compression:dequantize_chunk",
+        "route": "cuda",
+        "source": "tpu_ddp_torch/ops/csrc/fused_quant.cu",
+        "library": "fused_quant",
+        "replaces": "tpu_ddp/ops/fused_quant.py:104",
+        "strategies": ("dp",),
+    },
 }
 
 

@@ -5,7 +5,10 @@ Each source under ``csrc/`` becomes ``build/tpu_ddp_torch/lib<name>-<hash>.so``
 at the root of the checkout (a directory ``.gitignore`` lists) at first use;
 the hash covers the source and the flags that library is built with, so an
 edited source or a changed flag is rebuilt. ``build`` starts one ``nvcc``
-per missing library, all at once, and waits for them. Nothing is built when
+per missing library, all at once, and waits for them. It holds a lock file
+in the build directory while it does, so that processes started together
+(the ranks of one job) build each library once and never write the same
+file at once. Nothing is built when
 a module is imported, and nothing here falls back: a failed build raises
 with the compiler's output.
 """
@@ -13,6 +16,7 @@ with the compiler's output.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -50,6 +54,13 @@ LIBRARIES = {
         "tpu_ddp_flash_dkv": (_I, [_P] * 10 + [_I] * 5 + [_P]),
         **_ERR,
     }),
+    # -fmad=false: K3 rounds q * scale and the sum with add_to apart, as
+    # its plain version does
+    "fused_quant": ("fused_quant.cu", ("-fmad=false",), {
+        "tpu_ddp_fused_quant": (_I, [_P] * 3 + [_LL, _LL, _P]),
+        "tpu_ddp_fused_dequant": (_I, [_P] * 4 + [_LL, _LL, _P]),
+        **_ERR,
+    }),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -82,13 +93,22 @@ def library_path(name: str) -> Path:
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
-    """Compile every named library that is not built yet, all in parallel.
-    Returns seconds per library compiled (empty when all were built)."""
+    """Compile every named library that is not built yet, all in parallel,
+    under the build directory's lock. Returns seconds per library compiled
+    (empty when all were built)."""
     names = list(LIBRARIES if names is None else names)
-    todo = [n for n in names if not library_path(n).exists()]
-    if not todo:
+    if all(library_path(n).exists() for n in names):
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        # another process may have built them while this one waited
+        return _compile([n for n in names if not library_path(n).exists()])
+
+
+def _compile(todo) -> Dict[str, float]:
+    if not todo:
+        return {}
     compiler = nvcc()
     procs = {}
     for name in todo:

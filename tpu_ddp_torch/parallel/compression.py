@@ -1,0 +1,321 @@
+"""Quantized gradient collectives: block-scaled wire compression for the
+data-parallel gradient sync (``--grad-compress``).
+
+Counterpart of ``tpu_ddp/parallel/compression.py``. Only the WIRE is
+compressed:
+
+- **block-scaled int8**: each ``block`` consecutive elements share one f32
+  scale (max-abs / 127); the payload is 1 byte an element plus 4 bytes a
+  block;
+- **bf16**: a cast, 2 bytes an element, no scales;
+- **f32**: the identity payload, the parity anchor of the ring schedule.
+
+Accumulation stays f32 on the device in every mode (each ring hop
+dequantizes before it adds), so compression error enters only where bytes
+cross the wire, once a hop.
+
+Error feedback (``--grad-compress-error-feedback``): every rank keeps a
+residual holding the quantization error IT introduced, and adds it back
+into its local gradient the next step, so the error telescopes instead of
+accumulating. The residual is one f32 ``(padded,)`` tensor per leaf on each
+rank: that rank's row of the JAX package's ``(n_shards, padded)`` layout.
+
+Non-finite sentinels survive compression by construction: a NaN or Inf in
+a block drives the block's max-abs scale non-finite, and dequantization
+multiplies by the raw scale, so the whole block dequantizes non-finite.
+
+``quantize_chunk`` and ``dequantize_chunk`` in int8 mode are the plain
+versions of the CUDA kernels K2 and K3 (``ops/fused_quant.py``). Both divide
+by a 0-dim tensor on the data's device and never by a Python scalar:
+PyTorch's CUDA division by a Python scalar multiplies by its reciprocal,
+while XLA and the kernels divide.
+
+Not ported yet: the residual's checkpoint layouts (``deshard_residual``,
+``shard_residual``, the mesh form of ``init_residual``) and ``varying``, a
+jax-version shim (the port differentiates the local loss and syncs
+explicitly).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+
+#: Wire modes the config surface accepts ("none" = feature off).
+MODES = ("none", "bf16", "int8")
+
+#: Modes the compressor itself implements ("f32" is the test/parity
+#: anchor: same ring schedule, identity payload).
+RING_MODES = ("f32", "bf16", "int8")
+
+
+@dataclasses.dataclass(frozen=True)
+class GradCompression:
+    """Static wire-compression configuration.
+
+    ``mode``: ring payload dtype ("int8" block-scaled / "bf16" cast / "f32"
+    identity). ``block``: elements per int8 scale block. ``error_feedback``:
+    carry the per-rank residual and add it back next step. ``kernels``:
+    send the int8 payload ops through the CUDA kernels K2 and K3
+    (``ops/fused_quant.py``, bit-identical wire bytes and residuals)."""
+
+    mode: str = "int8"
+    block: int = 256
+    error_feedback: bool = False
+    kernels: bool = False
+
+    def __post_init__(self):
+        if self.mode not in RING_MODES:
+            raise ValueError(
+                f"unknown grad-compress mode {self.mode!r}; valid ring "
+                f"modes: {', '.join(RING_MODES)}"
+            )
+        if self.block < 1:
+            raise ValueError(
+                f"grad_compress_block must be >= 1, got {self.block}"
+            )
+
+
+# ---- block-scaled payloads -----------------------------------------------
+
+
+def _n_blocks(size: int, block: int) -> int:
+    return -(-size // block)
+
+
+def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """``value`` as a 0-dim f32 tensor on ``like``'s device (module
+    docstring: true division on the card)."""
+    return torch.full((), value, dtype=torch.float32, device=like.device)
+
+
+def quantize_chunk(x: torch.Tensor, mode: str, block: int) -> dict:
+    """1-D f32 chunk -> wire payload dict. int8 payloads are padded up to
+    a whole number of blocks (the pad quantizes to exact zeros); ``scale``
+    holds one f32 per block. NaN/Inf inputs drive the block scale
+    non-finite on purpose (module docstring)."""
+    if mode == "f32":
+        return {"q": x}
+    if mode == "bf16":
+        return {"q": x.to(torch.bfloat16)}
+    size = x.shape[0]
+    nb = _n_blocks(size, block)
+    pad = nb * block - size
+    if pad:
+        x = torch.cat([x, x.new_zeros(pad)])
+    xb = x.reshape(nb, block)
+    scale = torch.amax(torch.abs(xb), dim=1) / _scalar(127.0, x)
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.clamp(torch.round(xb / safe[:, None]), -127, 127).to(torch.int8)
+    return {"q": q.reshape(-1), "scale": scale}
+
+
+def dequantize_chunk(payload: dict, mode: str, block: int,
+                     size: int) -> torch.Tensor:
+    """Inverse of ``quantize_chunk``: payload -> f32 ``(size,)``. Multiplies
+    by the RAW scale (not the zero-guarded one) so non-finite blocks
+    dequantize non-finite."""
+    if mode == "f32":
+        return payload["q"]
+    if mode == "bf16":
+        return payload["q"].to(torch.float32)
+    nb = _n_blocks(size, block)
+    xb = payload["q"].reshape(nb, block).to(torch.float32)
+    return (xb * payload["scale"][:, None]).reshape(-1)[:size]
+
+
+def chunk_wire_bytes(size: int, mode: str, block: int) -> int:
+    """Static bytes-on-wire for one chunk payload (q + scales)."""
+    if mode == "f32":
+        return size * 4
+    if mode == "bf16":
+        return size * 2
+    nb = _n_blocks(size, block)
+    return nb * block * 1 + nb * 4
+
+
+# ---- flat update space ---------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class _Slot:
+    shape: tuple
+    size: int
+    padded: int
+
+
+def _leaf_slot(leaf, n_shards: int) -> _Slot:
+    shape = tuple(leaf.shape)
+    size = 1
+    for d in shape:
+        size *= d
+    return _Slot(shape=shape, size=size, padded=size + ((-size) % n_shards))
+
+
+def _flat_leaf(x: torch.Tensor, slot: _Slot) -> torch.Tensor:
+    x = x.reshape(-1)
+    if slot.padded != slot.size:
+        x = torch.cat([x, x.new_zeros(slot.padded - slot.size)])
+    return x
+
+
+def _unflat_leaf(x: torch.Tensor, slot: _Slot) -> torch.Tensor:
+    return x[: slot.size].reshape(slot.shape)
+
+
+Tree = Dict[str, torch.Tensor]
+
+
+class GradCompressor:
+    """Static layout and entry points for one model over the ranks.
+
+    Each param leaf flattens to 1-D, zero-padded to a multiple of
+    ``n_shards``; the ring collectives then cut each leaf into ``n_shards``
+    chunks and quantize every hop's payload. ``params_template`` maps leaf
+    names to anything with a ``shape``; ``n_shards`` is the number of
+    ranks."""
+
+    def __init__(self, config: GradCompression, params_template,
+                 n_shards: int):
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        self.config = config
+        self.n_shards = n_shards
+        self.kernels = bool(config.kernels)
+        self.slots = {name: _leaf_slot(leaf, n_shards)
+                      for name, leaf in params_template.items()}
+
+    # ---- flat update space ----------------------------------------------
+
+    def flatten(self, tree: Tree) -> Tree:
+        return {n: _flat_leaf(x, self.slots[n]) for n, x in tree.items()}
+
+    def unflatten(self, flat_tree: Tree) -> Tree:
+        return {n: _unflat_leaf(x, self.slots[n]) for n, x in flat_tree.items()}
+
+    def init_residual(self, device) -> Tree:
+        """This rank's all-zero residual, one f32 ``(padded,)`` per leaf."""
+        return {n: torch.zeros(s.padded, dtype=torch.float32, device=device)
+                for n, s in self.slots.items()}
+
+    # ---- collectives ----------------------------------------------------
+
+    def _with_residual(self, flat: Tree, residual: Optional[Tree]) -> Tree:
+        if residual is None:
+            return flat
+        return {n: x + residual[n] for n, x in flat.items()}
+
+    def all_reduce_mean(self, grads: Tree, residual: Optional[Tree] = None,
+                        with_error: bool = False):
+        """Local grads -> grads AVERAGED over the ranks, through the
+        compressed ring all-reduce. Returns ``(grads, err_state)``;
+        ``err_state`` (when ``with_error``) is this rank's new residual,
+        one ``(padded,)`` leaf per param; pass it back as ``residual`` next
+        step for error feedback."""
+        from tpu_ddp_torch.parallel.collectives import ring_all_reduce
+
+        flat = self._with_residual(self.flatten(grads), residual)
+        outs, errs = {}, {}
+        for name, x in flat.items():
+            out, err = ring_all_reduce(
+                x, mode=self.config.mode,
+                block=self.config.block, with_error=with_error,
+                kernels=self.kernels,
+            )
+            outs[name] = out / _scalar(self.n_shards, out)
+            errs[name] = err
+        return self.unflatten(outs), (errs if with_error else None)
+
+    def reduce_scatter_mean_flat(self, flat: Tree,
+                                 residual: Optional[Tree] = None,
+                                 with_error: bool = False):
+        """Already-flattened (padded 1-D) leaves -> this rank's 1/N slice
+        of the averaged gradient, through the compressed ring."""
+        from tpu_ddp_torch.parallel.collectives import ring_reduce_scatter
+
+        flat = self._with_residual(flat, residual)
+        outs, errs = {}, {}
+        for name, x in flat.items():
+            out, err = ring_reduce_scatter(
+                x, mode=self.config.mode,
+                block=self.config.block, with_error=with_error,
+                kernels=self.kernels,
+            )
+            outs[name] = out / _scalar(self.n_shards, out)
+            errs[name] = err
+        return outs, (errs if with_error else None)
+
+    def error_sq(self, err_state: Tree) -> torch.Tensor:
+        """Sum of squares of the freshly introduced quantization error,
+        summed over the ranks (every rank gets the same number)."""
+        from tpu_ddp_torch.parallel.collectives import all_reduce_sum_
+
+        leaves = list(err_state.values())
+        total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        for leaf in leaves:
+            total = total + torch.sum(torch.square(leaf.to(torch.float32)))
+        all_reduce_sum_([total])
+        return total
+
+    # ---- accounting -----------------------------------------------------
+
+    def accounting(self) -> dict:
+        """Static per-step per-rank wire bytes: what the ring moves in this
+        mode against the same ring in f32. ``all_reduce`` covers the
+        plain-DP sync (reduce-scatter and all-gather phases);
+        ``reduce_scatter`` the ZeRO-1 composition."""
+        n = self.n_shards
+        mode, block = self.config.mode, self.config.block
+        rs_wire = rs_base = ag_wire = ag_base = 0
+        for slot in self.slots.values():
+            chunk = slot.padded // n
+            # RS phase: n-1 hops, one chunk payload a hop a rank; AG phase
+            # (all-reduce only): n-1 chunk payloads a rank.
+            rs_wire += (n - 1) * chunk_wire_bytes(chunk, mode, block)
+            rs_base += (n - 1) * chunk * 4
+            ag_wire += (n - 1) * chunk_wire_bytes(chunk, mode, block)
+            ag_base += (n - 1) * chunk * 4
+        return {
+            "mode": mode,
+            "block": block,
+            "n_shards": n,
+            "error_feedback": self.config.error_feedback,
+            "all_reduce_bytes_on_wire_per_device": int(rs_wire + ag_wire),
+            "all_reduce_bytes_f32_per_device": int(rs_base + ag_base),
+            "reduce_scatter_bytes_on_wire_per_device": int(rs_wire),
+            "reduce_scatter_bytes_f32_per_device": int(rs_base),
+            "compression_ratio": (
+                round((rs_base + ag_base) / (rs_wire + ag_wire), 2)
+                if rs_wire + ag_wire else None
+            ),
+        }
+
+
+def wire_bytes_table(params_template, n_shards: int, *,
+                     block: int = 256) -> dict:
+    """Static per-step wire-bytes table across every mode x {plain DP,
+    ZeRO-1 reduce-scatter}. Pure accounting; no devices."""
+    table: dict = {"n_shards": n_shards, "block": block, "modes": {}}
+    for mode in RING_MODES:
+        comp = GradCompressor(
+            GradCompression(mode=mode, block=block),
+            params_template, n_shards,
+        )
+        acct = comp.accounting()
+        table["modes"][mode] = {
+            "dp_all_reduce_bytes_per_device": (
+                acct["all_reduce_bytes_on_wire_per_device"]),
+            "zero1_reduce_scatter_bytes_per_device": (
+                acct["reduce_scatter_bytes_on_wire_per_device"]),
+        }
+    f32 = table["modes"]["f32"]
+    for mode, row in table["modes"].items():
+        row["dp_ratio_vs_f32"] = round(
+            f32["dp_all_reduce_bytes_per_device"]
+            / row["dp_all_reduce_bytes_per_device"], 2)
+        row["zero1_ratio_vs_f32"] = round(
+            f32["zero1_reduce_scatter_bytes_per_device"]
+            / row["zero1_reduce_scatter_bytes_per_device"], 2)
+    return table

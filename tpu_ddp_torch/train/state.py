@@ -4,12 +4,15 @@ state, travelling together.
 Counterpart of ``tpu_ddp/train/state.py`` (``TrainState`` :24,
 ``create_train_state`` :52). JAX's state is an immutable pytree; here the
 model's tensors and the optimizer state are updated in place by the step.
+``grad_residual`` is this rank's error-feedback residual of the compressed
+gradient ring (``parallel/compression.py``): one f32 ``(padded,)`` tensor
+per param, or ``None`` without error feedback.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -22,6 +25,7 @@ class TrainState:
     step: torch.Tensor          # int64 scalar on the model's device
     model: nn.Module
     opt_state: OptState
+    grad_residual: Optional[Dict[str, torch.Tensor]] = None
 
     def params(self) -> Dict[str, torch.Tensor]:
         return dict(self.model.named_parameters())

@@ -1,14 +1,27 @@
-"""Single-device train and eval steps.
+"""Data-parallel train and eval steps, one rank per process.
 
 Counterpart of ``tpu_ddp/train/steps.py`` (``_make_shard_step`` :114,
-``make_train_step`` :335, ``make_eval_step`` :659) on one device: forward in
-train mode (which moves the BatchNorm running stats), masked cross-entropy,
-backward, the optimizer update (``Optimizer.apply``). One device's
-``pmean`` is the identity, so there is no collective. The metrics stay on
-the device; the caller fetches them when it needs them.
+``make_train_step`` :335, ``make_eval_step`` :659). Each rank runs the
+forward in train mode on its own rows (which moves the BatchNorm running
+stats), its local masked cross-entropy and the backward. Then:
 
-Not ported yet: augment, mixup, the health recorder, ZeRO and gradient
-compression (later slices).
+* the BatchNorm running stats are averaged over the ranks (the JAX step's
+  ``pmean`` of ``batch_stats`` :252; not DDP's broadcast from rank 0);
+* the gradients are averaged over the ranks, by ``sync_gradients`` (an
+  all-reduce) or, with a ``GradCompressor``, by its compressed ring
+  (:272-277), with this rank's error-feedback residual in
+  ``state.grad_residual`` when error feedback is on;
+* the optimizer update (``Optimizer.apply``) runs on every rank on the same
+  averaged gradients, so the replicas stay equal;
+* ``loss`` is averaged over the ranks, ``accuracy`` is the summed correct
+  count over the summed count (:318-329).
+
+With one rank nothing of this runs a collective: the step is the
+single-device step. The metrics stay on the device; the caller fetches
+them when it needs them.
+
+Not ported yet: zero1 and zero3, the health recorder, augment, mixup and
+auxiliary losses, and the scanned and accumulating steps.
 """
 
 from __future__ import annotations
@@ -18,6 +31,12 @@ from typing import Callable, Dict, Optional
 import torch
 from torch.func import functional_call
 
+from tpu_ddp_torch.parallel.collectives import (
+    all_reduce_mean_,
+    all_reduce_sum_,
+    sync_gradients,
+)
+from tpu_ddp_torch.parallel.runtime import world_size
 from tpu_ddp_torch.train.losses import cross_entropy_loss, masked_accuracy
 from tpu_ddp_torch.train.optim import Optimizer
 from tpu_ddp_torch.train.state import TrainState
@@ -31,23 +50,44 @@ def batch_to_device(batch: dict, device: torch.device) -> Batch:
             for k, v in batch.items()}
 
 
-def make_train_step(tx: Optimizer) -> Callable[[TrainState, Batch], tuple]:
+def make_train_step(tx: Optimizer, *,
+                    compress=None) -> Callable[[TrainState, Batch], tuple]:
     """``step(state, batch) -> (state, {"loss", "accuracy"})``; ``state`` is
-    updated in place and returned."""
+    updated in place and returned. ``batch`` holds this rank's rows.
+    ``compress`` (a ``parallel.compression.GradCompressor``) replaces the
+    gradient all-reduce with its compressed ring."""
+    ef = compress is not None and compress.config.error_feedback
 
     def train_step(state: TrainState, batch: Batch):
+        n = world_size()
         model = state.model
         model.train()
         params = state.params()
         logits = model(batch["image"])
         loss = cross_entropy_loss(logits, batch["label"], batch.get("mask"))
-        grads = torch.autograd.grad(loss, list(params.values()))
-        tx.apply(dict(zip(params, grads)), state.opt_state, params)
+        if n > 1:
+            all_reduce_mean_([b for _, b in model.named_buffers()])
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        if compress is not None:
+            residual = state.grad_residual if ef else None
+            grads, err_state = compress.all_reduce_mean(grads, residual,
+                                                        with_error=ef)
+            if ef:
+                state.grad_residual = err_state
+        elif n > 1:
+            grads = sync_gradients(grads)
+        tx.apply(grads, state.opt_state, params)
         state.step += 1
         with torch.no_grad():
             correct, count = masked_accuracy(logits, batch["label"],
                                              batch.get("mask"))
-            metrics = {"loss": loss.detach(),
+            loss = loss.detach()
+            if n > 1:
+                sums = torch.stack([loss, correct, count])
+                all_reduce_sum_([sums])
+                loss = sums[0] / torch.full_like(sums[0], n)
+                correct, count = sums[1], sums[2]
+            metrics = {"loss": loss,
                        "accuracy": correct / torch.clamp_min(count, 1.0)}
         return state, metrics
 
@@ -55,9 +95,11 @@ def make_train_step(tx: Optimizer) -> Callable[[TrainState, Batch], tuple]:
 
 
 def make_eval_step() -> Callable[..., dict]:
-    """``eval(state, batch, params=None) -> {correct, count, loss_sum}``:
-    running-stats BatchNorm; ``params`` (the EMA shadow) replaces the
-    model's params when given."""
+    """``eval(state, batch, params=None) -> {correct, count, loss_sum}``,
+    each summed over the ranks: running-stats BatchNorm; ``params`` (the
+    EMA shadow) replaces the model's params when given. ``loss_sum`` is
+    each rank's masked-mean loss times ITS OWN count before the sum, so the
+    eval loss is exact across shards with unequal real counts."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch,
@@ -70,6 +112,11 @@ def make_eval_step() -> Callable[..., dict]:
         mask = batch.get("mask")
         loss = cross_entropy_loss(logits, batch["label"], mask)
         correct, count = masked_accuracy(logits, batch["label"], mask)
-        return {"correct": correct, "count": count, "loss_sum": loss * count}
+        out = {"correct": correct, "count": count, "loss_sum": loss * count}
+        if world_size() > 1:
+            sums = torch.stack(list(out.values()))
+            all_reduce_sum_([sums])
+            out = dict(zip(out, sums))
+        return out
 
     return eval_step

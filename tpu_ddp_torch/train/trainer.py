@@ -1,14 +1,21 @@
-"""Trainer: data, model, optimizer and the epoch loop on one device.
+"""Trainer: data, model, optimizer and the epoch loop, on one rank or
+data-parallel over several.
 
 Counterpart of ``tpu_ddp/train/trainer.py`` (``TrainConfig`` :61,
-``build_model`` :546, ``load_dataset`` :582, the epoch loop in
-``_run_loop`` :1964, ``evaluate`` :2642) for this slice. Per-step losses
-stay on the device during an epoch and are fetched once at its end. The log
-lines are the reference's: ``Epoch N, Training loss X`` and
-``training time: ... seconds``.
+``build_model`` :546, ``load_dataset`` :582, ``_build_compressor`` :1099,
+the epoch loop in ``_run_loop`` :1964, ``evaluate`` :2642) for this slice.
+Per-step losses stay on the device during an epoch and are fetched once at
+its end. The log lines are the reference's: ``Epoch N, Training loss X``
+and ``training time: ... seconds``, printed by rank 0 alone.
+
+With ``n`` ranks (a process group joined by ``parallel/runtime.py``), the
+loaders shard over ``n``: each rank takes its own ``per_shard_batch`` rows
+of the shard-major global batch, and the step averages the gradients over
+the ranks (``train/steps.py``). Steady-state images/sec counts this rank's
+images.
 
 Not ported yet: checkpointing and resume, telemetry, health, preemption,
-multi-device strategies.
+the strategies other than data parallelism (zero1, zero3, fsdp, tp, pp).
 """
 
 from __future__ import annotations
@@ -25,6 +32,9 @@ from tpu_ddp_torch.data.loader import ShardedBatchLoader
 from tpu_ddp_torch.metrics.logging import MetricLogger
 from tpu_ddp_torch.metrics.timing import Throughput
 from tpu_ddp_torch.models import MODEL_REGISTRY, NetResDeep
+from tpu_ddp_torch.parallel.compression import MODES as COMPRESS_MODES
+from tpu_ddp_torch.parallel.compression import GradCompression, GradCompressor
+from tpu_ddp_torch.parallel.runtime import rank, world_size
 from tpu_ddp_torch.runtime import resolve_device, set_float32_precision
 from tpu_ddp_torch.train.optim import make_optimizer
 from tpu_ddp_torch.train.state import create_train_state
@@ -51,6 +61,10 @@ class TrainConfig:
     grad_clip_norm: float = 0.0
     ema_decay: float = 0.0
     kernels: bool = False
+    grad_compress: str = "none"           # none | bf16 | int8 (the ring)
+    grad_compress_block: int = 256
+    grad_compress_error_feedback: bool = False
+    dist_backend: Optional[str] = None    # None: nccl on cuda, gloo on cpu
     model: str = "netresdeep"
     attention: str = "full"               # full | flash (CUDA kernels K4-K6)
     n_chans1: int = 32
@@ -59,6 +73,24 @@ class TrainConfig:
     seed: int = 0
     eval_each_epoch: bool = False
     log_every_epochs: int = 10
+
+    def __post_init__(self):
+        if self.grad_compress not in COMPRESS_MODES:
+            raise ValueError(
+                f"unknown grad-compress mode {self.grad_compress!r}; "
+                f"valid modes: {', '.join(COMPRESS_MODES)}"
+            )
+        if self.grad_compress_block < 1:
+            raise ValueError(
+                "grad_compress_block must be >= 1, got "
+                f"{self.grad_compress_block}"
+            )
+        if self.grad_compress_error_feedback and self.grad_compress == "none":
+            raise ValueError(
+                "--grad-compress-error-feedback needs --grad-compress "
+                "bf16 or int8 (there is no quantization error to feed "
+                "back without compression)"
+            )
 
 
 NUM_CLASSES = 10  # CIFAR-10
@@ -109,13 +141,15 @@ class Trainer:
         self.device = resolve_device(c.device)
         set_float32_precision()
         self.logger = MetricLogger()
+        self.rank, self.world_size = rank(), world_size()
         train_data, test_data = load_dataset(c)
         self.train_loader = ShardedBatchLoader(
-            *train_data, world_size=1, per_shard_batch=c.per_shard_batch,
-            seed=c.seed)
+            *train_data, world_size=self.world_size,
+            per_shard_batch=c.per_shard_batch, seed=c.seed)
         self.test_loader = ShardedBatchLoader(
-            *test_data, world_size=1, per_shard_batch=c.per_shard_batch,
-            shuffle=False, exclude_sampler_pad=True)
+            *test_data, world_size=self.world_size,
+            per_shard_batch=c.per_shard_batch, shuffle=False,
+            exclude_sampler_pad=True)
         self.tx = make_optimizer(
             lr=c.lr, optimizer=c.optimizer, momentum=c.momentum,
             weight_decay=c.weight_decay, schedule=c.schedule,
@@ -124,10 +158,30 @@ class Trainer:
             ema_decay=c.ema_decay, kernels=c.kernels,
         )
         self.state = create_train_state(build_model(c), self.tx, self.device)
-        self.train_step = make_train_step(self.tx)
+        self.compress = self._build_compressor()
+        if self.compress is not None and c.grad_compress_error_feedback:
+            self.state.grad_residual = self.compress.init_residual(self.device)
+        self.train_step = make_train_step(self.tx, compress=self.compress)
         self.eval_step = make_eval_step()
         self.history = {"train_loss": [], "step_loss": []}
         self.eval_batches = 0  # eval steps run so far (every evaluate call)
+
+    def _build_compressor(self) -> Optional[GradCompressor]:
+        """The ``GradCompressor`` of this run's ``--grad-compress`` knobs over
+        the ranks, or None without compression. ``kernels`` reaches it as in
+        the JAX trainer: K2 and K3 run the int8 payloads."""
+        c = self.config
+        if c.grad_compress == "none":
+            return None
+        return GradCompressor(
+            GradCompression(
+                mode=c.grad_compress,
+                block=c.grad_compress_block,
+                error_feedback=c.grad_compress_error_feedback,
+                kernels=c.kernels,
+            ),
+            self.state.params(), self.world_size,
+        )
 
     def to_device(self, batch: dict):
         return batch_to_device(batch, self.device)
@@ -138,6 +192,7 @@ class Trainer:
         # steady state: every epoch after the first (which pays the kernel
         # build and cuDNN's first-call setup); a 1-epoch run times it all
         throughput = Throughput(self.device)
+        timed_steps = 0
         metrics = {}
         for epoch in range(1, c.epochs + 1):
             timed = epoch >= 2 or c.epochs == 1
@@ -145,11 +200,12 @@ class Trainer:
                 throughput.start()
             self.train_loader.set_epoch(epoch)
             step_losses = []
-            for batch in self.train_loader.epoch_batches():
+            for batch in self.train_loader.epoch_batches(shard=self.rank):
                 self.state, metrics = self.train_step(self.state, self.to_device(batch))
                 step_losses.append(metrics["loss"])
                 if timed:
                     throughput.add(int(batch["mask"].sum()))
+                    timed_steps += 1
             losses = torch.stack(step_losses).cpu().numpy()  # one sync an epoch
             if timed:
                 throughput.stop()
@@ -168,11 +224,13 @@ class Trainer:
         total = time.time() - start
         self.logger.log_text(f"training time: {total:.3f} seconds")
         ips = throughput.images_per_sec_per_chip
+        per = "chip" if self.world_size == 1 else "rank"
         self.logger.log_text(
-            f"steady-state images/sec/chip: {ips:.1f} "
+            f"steady-state images/sec/{per}: {ips:.1f} "
             f"({throughput.images} images in {throughput.seconds:.3f} s)")
         return {"total_seconds": total, "steps": int(self.state.step),
                 "images_per_sec_per_chip": ips,
+                "steady_step_ms": throughput.seconds / max(timed_steps, 1) * 1e3,
                 "train_loss": self.history["train_loss"][-1]
                 if self.history["train_loss"] else float("nan"),
                 "step_losses": list(self.history["step_loss"])}
@@ -182,7 +240,7 @@ class Trainer:
         ``ema_decay`` is on. One host sync for the whole pass."""
         ema = self.state.opt_state.ema if self.config.ema_decay else None
         outs = [self.eval_step(self.state, self.to_device(b), ema)
-                for b in self.test_loader.epoch_batches(epoch=0)]
+                for b in self.test_loader.epoch_batches(epoch=0, shard=self.rank)]
         self.eval_batches += len(outs)
         sums = {k: float(torch.stack([o[k] for o in outs]).sum())
                 for k in ("correct", "count", "loss_sum")}
