@@ -16,14 +16,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    and the ViT path's AdamW (no decay, clip or EMA), each under a constant
    and a cosine schedule, at NetResDeep's nine leaf shapes, at ViT-S/4's 79
    leaf shapes, at ragged sizes (1, 127, 1,000,003, and 1,000,003 at an
-   unaligned address) and at one large leaf (2**24 elements). Expected:
-   bitwise equal; a difference above 2 ulp fails, and so does any
-   difference at all for the ViT path's recipe at its leaf shapes.
+   unaligned address), at one large leaf (2**24 elements) and at a mixed
+   group (aligned and unaligned leaves, decayed and not, leaves spanning
+   several blocks' chunks). Each group goes through one multi-tensor
+   launch. Expected: bitwise equal, every leaf, and exactly one launch a
+   group.
 4. Main path: ``tpu_ddp_torch.cli.train.main`` with ``--device cuda
    --synthetic-data --kernels`` at NetResDeep's full width (n_chans1=32,
    n_blocks=10, tied), batch 32, SGD lr 1e-2, 2 epochs of 200 steps. The
-   losses must be finite and falling, and K1 must have launched 9 times a
-   step (one per parameter leaf).
+   losses must be finite and falling, and K1 must have launched once a
+   step (all nine parameter leaves in one launch).
 5. Same steps, plain update: the first steps again without ``--kernels``;
    the per-step losses agree with phase 4 within ``rtol=1e-5`` over the
    first 5 steps (cuDNN's default backward sums in a run-dependent order,
@@ -55,7 +57,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    adamw --lr 1e-3`` (full width: patch 4, hidden 192, depth 6, 3 heads of
    64, 64 tokens), batch 32, 2 epochs of 100 steps with eval each epoch and
    at the end. Losses finite and falling; launches exact: K4 6 x (train
-   steps + eval batches), K5 = K6 = 6 x train steps, K1 79 x train steps.
+   steps + eval batches), K5 = K6 = 6 x train steps, K1 once a train step.
    Then the same run with ``--attention full``: no flash launch, K1 as
    before, and its first 5 per-step losses within ``rtol=1e-5`` of the flash
    run's (the two attentions sum in other orders; AdamW's normalised update
@@ -64,7 +66,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    recipe, as in phase 6, with phase 8's flash run's launches. K4, K5 and
    K6 at the main path's shape and at (4, 2048, 8, 128), each in turns with
    its plain version, beside its bound (bytes over 3.35 TB/s against
-   float32 operations over 67 TFLOP/s) and
+   float32 operations over 67 TFLOP/s; for K4 also ``bound_tc_ms``, the
+   same bytes against its products in 3xTF32, three TF32 products each, over
+   the tensor cores' 495 TFLOP/s, and K4's launch: tile rows, registers,
+   shared memory and blocks an SM) and
    ``torch.nn.functional.scaled_dot_product_attention`` as the yardstick
    (forward for K4, its backward, which gives dq, dk and dv at once, for K5
    and for K6; never called by the port).
@@ -90,7 +95,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     --grad-compress-error-feedback --eval-each-epoch``, NetResDeep at full
     width, batch 32 a rank, SGD lr 1e-2, 2 epochs of 100 steps, both ranks
     sharing the card. Losses finite and falling; launches exact on each rank
-    (K1 9, K2 18 and K3 45 a step, nothing else); params bitwise equal on
+    (K1 1, K2 18 and K3 45 a step, nothing else); params bitwise equal on
     both ranks at the end. The same run without ``--grad-compress`` (plain
     DP over gloo) keeps its first 5 step losses within 0.05 of the int8
     run's. Steady-state step time per rank of both.
@@ -122,11 +127,19 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # tensor cores, the rate K1's element-wise float32 work runs at.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# dense TF32 on the tensor cores, K4's products (3xTF32: three TF32 products
+# for each float32 one)
+TF32_OPS_PER_S = 495e12
 
 LARGE = 1 << 24
 NETRESDEEP_LEAVES = [(32, 3, 3, 3), (32,), (32, 32, 3, 3), (32,), (32,),
                      (32, 2048), (32,), (10, 32), (10,)]
 RAGGED = [(1,), (127,), (1_000_003,)]
+#: (shape, offset in floats from a 16-byte boundary, decayed): aligned and
+#: unaligned leaves, decayed and not, small and spanning several chunks
+MIXED = [((4096,), 0, True), ((333,), 0, False), ((1000,), 1, True),
+         ((100_003,), 1, False), ((65_541,), 0, True), ((7,), 3, False),
+         ((16_384,), 2, True), ((16_385,), 0, False), ((64, 3, 3, 3), 0, True)]
 VARIANTS = {
     "sgd": dict(kind="sgd", momentum=0.0, wd=0.0, max_norm=0.0, ema=0.0),
     "sgd_mom_wd_clip_ema": dict(kind="sgd", momentum=0.9, wd=5e-4,
@@ -305,18 +318,31 @@ def ulp_diff(a, b):
     return int((ia - ib).abs().max()) if a.numel() else 0
 
 
-def compare(leaves, scalars):
-    """Run K1 and the plain version on copies; (max_abs_err, max_ulp)."""
-    from tpu_ddp_torch import ops
+def leaf_batch(leaves):
+    """K1's multi-tensor wrapper over ``leaves`` (their step's flags, each
+    leaf's decay flag)."""
+    from tpu_ddp_torch.ops.fused_update import LeafBatch
 
-    entry = ops.resolve("fused_update")
-    fused_update_, update_math = entry["wrapper"], entry["plain"]
+    return LeafBatch([lf.p for lf in leaves], [lf.m for lf in leaves],
+                     [lf.v for lf in leaves], [lf.e for lf in leaves],
+                     leaves[0].cfg, [lf.cfg.wd_apply for lf in leaves],
+                     us=[lf.u for lf in leaves])
+
+
+def compare(leaves, scalars):
+    """K1 over all of ``leaves`` in one multi-tensor call and the plain
+    version leaf by leaf, on copies; (max_abs_err, max_ulp, launches)."""
+    from tpu_ddp_torch import ops
+    from tpu_ddp_torch.ops.fused_update import update_math
+
+    refs, krns = [lf.clone() for lf in leaves], [lf.clone() for lf in leaves]
+    before = ops.LAUNCHES["fused_update"]
+    leaf_batch(krns).run([k.g for k in krns], scalars)
+    launches = ops.LAUNCHES["fused_update"] - before
     worst_abs, worst_ulp = 0.0, 0
-    for lf in leaves:
-        ref, krn = lf.clone(), lf.clone()
-        u, m, v, e = update_math(ref.g, ref.p, ref.m, ref.v, ref.e, scalars, lf.cfg)
+    for ref, krn in zip(refs, krns):
+        u, m, v, e = update_math(ref.g, ref.p, ref.m, ref.v, ref.e, scalars, ref.cfg)
         want = {"u": u, "p": ref.p + u, "m": m, "v": v, "e": e}
-        fused_update_(krn.g, krn.p, krn.m, krn.v, krn.e, krn.u, scalars, lf.cfg)
         for k, w in want.items():
             if w is None:
                 continue
@@ -326,7 +352,7 @@ def compare(leaves, scalars):
             worst_abs = max(worst_abs, float((got - w).abs().nan_to_num().max())
                             if got.numel() else 0.0)
             worst_ulp = max(worst_ulp, ulp_diff(got, w))
-    return worst_abs, worst_ulp
+    return worst_abs, worst_ulp, launches
 
 
 def vit_leaf_shapes():
@@ -346,7 +372,8 @@ def phase_kernel_vs_plain():
     gen = torch.Generator(device="cuda").manual_seed(0)
     vit_shapes = vit_leaf_shapes()
     results = {}
-    print("phase 3: K1 vs plain version (max |diff|, max ulp)", flush=True)
+    print("phase 3: K1 vs plain version, one launch a group (max |diff|, max ulp, "
+          "launches)", flush=True)
     for variant in VARIANTS:
         for schedule in ("constant", "cosine"):
             groups = {
@@ -359,20 +386,23 @@ def phase_kernel_vs_plain():
                 "unaligned": [Leaf((1_000_003,), leaf_config(variant, schedule, True),
                                    gen, offset=1)],
                 "large": [Leaf((LARGE,), leaf_config(variant, schedule, True), gen)],
+                "mixed": [Leaf(s, leaf_config(variant, schedule, wd), gen, offset=off)
+                          for s, off, wd in MIXED],
             }
             for group, leaves in groups.items():
                 scalars = scalars_for(leaves, leaves[0].cfg, schedule)
-                err, ulp = compare(leaves, scalars)
+                err, ulp, launches = compare(leaves, scalars)
                 torch.cuda.synchronize()
                 results[(variant, schedule, group)] = (err, ulp)
                 print(f"  {variant:20s} {schedule:8s} {group:10s} "
-                      f"max|diff|={err:.3g} max_ulp={ulp}", flush=True)
-                if ulp > 2:
+                      f"max|diff|={err:.3g} max_ulp={ulp} launches={launches}",
+                      flush=True)
+                if ulp:
                     fail(f"K1 {variant}/{schedule}/{group}: {ulp} ulp from the "
-                         "plain version (limit 2)")
-                if variant == VIT_RECIPE and group == "vit_s4" and ulp:
-                    fail(f"K1 on the ViT path's recipe and leaves ({schedule}): "
-                         f"{ulp} ulp from the plain version (must be bitwise)")
+                         "plain version (must be bitwise)")
+                if launches != 1:
+                    fail(f"K1 {variant}/{schedule}/{group}: {launches} launches "
+                         f"for {len(leaves)} leaves, expected 1")
             del groups
     bitwise = all(ulp == 0 for _, ulp in results.values())
     print(f"  K1 bitwise equal to its plain version everywhere: {bitwise}",
@@ -402,21 +432,23 @@ def library_call(variant, leaves):
 
 def time_group(variant, shapes, iters):
     """(kernel_ms, plain_ms, library_ms, bound_ms, bound_by) for one step's
-    worth of K1 over ``shapes`` (constant schedule)."""
+    worth of K1 over ``shapes`` (constant schedule): one multi-tensor call
+    against the plain version leaf by leaf."""
     import torch
 
     from tpu_ddp_torch import ops
 
-    entry = ops.resolve("fused_update")
-    fused_update_, update_math = entry["wrapper"], entry["plain"]
+    update_math = ops.resolve("fused_update")["plain"]
     gen = torch.Generator(device="cuda").manual_seed(1)
     leaves = [Leaf(s, leaf_config(variant, "constant", len(s) >= 2), gen)
               for s in shapes]
     scalars = scalars_for(leaves, leaves[0].cfg, "constant")
+    batch, grads = leaf_batch(leaves), [lf.g for lf in leaves]
 
     def kernel():
-        for lf in leaves:
-            fused_update_(lf.g, lf.p, lf.m, lf.v, lf.e, lf.u, scalars, lf.cfg)
+        # what FusedUpdate.apply runs a step after its prologue: the grads'
+        # check and one launch
+        batch.run(grads, scalars)
 
     def plain():
         for lf in leaves:
@@ -486,7 +518,7 @@ def phase_main_path():
     steps = metrics["steps"]
     losses = metrics["step_losses"]
     print(f"  steps {steps}, K1 launches {counts['fused_update']} "
-          f"(9 x steps = {9 * steps}), images/sec/chip "
+          f"(one a step: {steps}), images/sec/chip "
           f"{metrics['images_per_sec_per_chip']:.1f}, training time "
           f"{metrics['total_seconds']:.3f} s, final test accuracy "
           f"{metrics['test_accuracy']:.4f}", flush=True)
@@ -494,9 +526,9 @@ def phase_main_path():
         fail(f"main path ran {steps} steps, expected {2 * MAIN_STEPS_PER_EPOCH}")
     if any(n for name, n in counts.items() if name != "fused_update"):
         fail(f"the NetResDeep path launched attention kernels: {counts}")
-    if counts["fused_update"] != 9 * steps:
+    if counts["fused_update"] != steps:
         fail(f"K1 launched {counts['fused_update']} times in {steps} steps, "
-             f"expected {9 * steps}")
+             f"expected {steps}")
     if not all(math.isfinite(x) for x in losses):
         fail("main path produced a non-finite loss")
     first, last = sum(losses[:20]) / 20, sum(losses[-20:]) / 20
@@ -673,7 +705,7 @@ def phase_vit_main_path():
         if steps != 2 * VIT_STEPS_PER_EPOCH:
             fail(f"ViT path ran {steps} steps, expected {2 * VIT_STEPS_PER_EPOCH}")
         flash = attention == "flash"
-        want = {"fused_update": VIT_LEAVES * steps,
+        want = {"fused_update": steps,
                 "flash_attention_fwd": VIT_DEPTH * (steps + evals) if flash else 0,
                 "flash_attention_dq": VIT_DEPTH * steps if flash else 0,
                 "flash_attention_dkv": VIT_DEPTH * steps if flash else 0,
@@ -715,6 +747,16 @@ def attention_bound(kind, B, T, H, D):
         nbytes, ops_ = 4 * (6 * n + 2 * rows), 8 * pairs * D + 6 * pairs
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops_ / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_bound_tc(B, T, H, D):
+    """(bound_ms, bound_by) of K4's call in 3xTF32: the forward's bytes
+    against its two products as three TF32 products each (2 * 3 operations
+    a multiply-add) over the tensor cores' rate."""
+    n, rows, pairs = B * T * H * D, B * H * T, B * H * T * T
+    t_bytes = 4 * (4 * n + rows) / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * 4 * pairs * D / TF32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -766,6 +808,12 @@ def phase_flash_timing(results, counts):
             dev = {"device_ms": device_ms(kernel, iters),
                    "plain_device_ms": device_ms(plain, iters),
                    "library_device_ms": lib_dev[lib_key]}
+            if kind == "fwd":
+                tc_ms, tc_by = attention_bound_tc(B, T, H, D)
+                dev.update(bound_tc_ms=tc_ms, bound_tc_by=tc_by,
+                           launch=fa.forward_launch_info(D))
+                print(f"  {name + '[' + case + ']':36s} 3xTF32 bound {tc_ms:.5f} ms "
+                      f"({tc_by}); launch {dev['launch']}", flush=True)
             rows.append({
                 "name": f"{name}[{case}]", "route": entry["route"],
                 "source": entry["source"], "replaces": entry["replaces"],
@@ -987,10 +1035,11 @@ def dp_args(compress, nproc=2, backend="gloo"):
 
 def dp_launches(nproc):
     """K1, K2 and K3 launches a step a rank at ``nproc`` ranks with error
-    feedback, over NetResDeep's 9 leaves: K2 n a leaf (n-1 hops and the
-    gather phase's quantize), K3 (n-1)(1+ef) + ef + n a leaf
-    (tpu_ddp/parallel/collectives.py:245-268, :289-303)."""
-    return {"fused_update": 9, "fused_quant": 9 * nproc,
+    feedback, over NetResDeep's 9 leaves: K1 once (all leaves in one
+    launch), K2 n a leaf (n-1 hops and the gather phase's quantize), K3
+    (n-1)(1+ef) + ef + n a leaf (tpu_ddp/parallel/collectives.py:245-268,
+    :289-303)."""
+    return {"fused_update": 1, "fused_quant": 9 * nproc,
             "fused_dequant": 9 * ((nproc - 1) * 2 + 1 + nproc)}
 
 
@@ -1059,7 +1108,7 @@ def phase_dp_main_path(tmp, nproc=2, backend="gloo"):
         if not same:
             fail(f"the {nproc} ranks end with different params")
         want = {name: 0 for name in m["launches"]}
-        want["fused_update"] = 9 * steps
+        want["fused_update"] = steps
         if compress:
             want.update({k: v * steps for k, v in dp_launches(nproc).items()})
         for r in range(nproc):

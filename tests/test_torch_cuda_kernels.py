@@ -7,7 +7,8 @@ machine with
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
 (``chip_smoke.py`` holds the kernels to the same comparisons at the main
-path's sizes.) K1, K2 and K3 are held bitwise (K2's int8 bytes of a block
+path's sizes.) K1 runs every leaf of a step in one launch. K1, K2 and K3
+are held bitwise (K2's int8 bytes of a block
 whose scale is not finite excepted: there the scales agree and the block
 dequantizes non-finite); K4-K6 are held to the tolerances of ``tests/test_ops.py``:
 forward ``atol=2e-5``, gradients ``atol=5e-5``, ``rtol=1e-4``."""
@@ -17,7 +18,7 @@ import pytest
 import torch
 
 from tpu_ddp_torch import ops
-from tpu_ddp_torch.ops.fused_update import LeafConfig, fused_update_, update_math
+from tpu_ddp_torch.ops.fused_update import LeafBatch, LeafConfig, fused_update_, update_math
 
 pytestmark = pytest.mark.cuda
 
@@ -58,7 +59,43 @@ def test_kernel_bitwise_equal_to_plain(cuda, kind, momentum, ema, step_const,
             assert torch.equal(got, want)
 
 
-def test_train_step_launches_k1_per_leaf(cuda):
+#: (elements, offset in floats from a 16-byte boundary, decayed)
+MIXED = [(4096, 0, True), (333, 0, False), (1000, 1, True), (100_003, 1, False),
+         (65_541, 0, True), (7, 3, False), (16_384, 2, True), (0, 0, True)]
+
+
+@pytest.mark.parametrize("kind,momentum,ema,step_const", [
+    ("sgd", 0.0, 0.0, -0.01), ("sgd", 0.9, 0.99, None), ("adamw", 0.0, 0.99, -0.001)])
+def test_one_launch_bitwise_over_mixed_leaves(cuda, kind, momentum, ema, step_const):
+    """Aligned and unaligned leaves, decayed and not, small and spanning
+    several blocks' chunks, in one launch, each bitwise equal to
+    ``update_math``."""
+    cfg = LeafConfig(kind=kind, momentum=momentum, wd=5e-4, wd_apply=False,
+                     has_clip=True, max_norm=1.0, step_const=step_const,
+                     ema_decay=ema, b1=0.9, b2=0.999, eps=1e-8)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    t = lambda n, o: torch.randn(n + o, generator=gen, device=cuda)[o:]  # noqa: E731
+    leaves = [dict(g=t(n, o), p=t(n, o), m=t(n, o), v=t(n, o).abs(), e=t(n, o),
+                   u=torch.empty(n + o, device=cuda)[o:]) for n, o, _ in MIXED]
+    scalars = torch.tensor([3.0, -0.007, 0.271, 0.002997], device=cuda)
+    want = []
+    for lf, (_, _, wd) in zip(leaves, MIXED):
+        c = LeafConfig(**{**cfg.__dict__, "wd_apply": wd})
+        u, m, v, e = update_math(lf["g"], lf["p"], lf["m"], lf["v"], lf["e"], scalars, c)
+        want.append(dict(u=u, p=lf["p"] + u, m=m, v=v, e=e))
+    ops.reset_launch_counts()
+    batch = LeafBatch(*([lf[k] for lf in leaves] for k in "pmve"), cfg,
+                      [wd for _, _, wd in MIXED], us=[lf["u"] for lf in leaves])
+    batch.run([lf["g"] for lf in leaves], scalars)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_update"] == 1
+    for lf, w in zip(leaves, want):
+        for k, ref in w.items():
+            if ref is not None:
+                assert torch.equal(lf[k], ref), k
+
+
+def test_train_step_launches_k1_once_a_step(cuda):
     from tpu_ddp_torch.data.cifar10 import synthetic_cifar10
     from tpu_ddp_torch.models import NetResDeep
     from tpu_ddp_torch.train.optim import make_optimizer
@@ -72,9 +109,10 @@ def test_train_step_launches_k1_per_leaf(cuda):
                              "mask": np.ones(32, bool)}, cuda)
     step = make_train_step(tx)
     ops.reset_launch_counts()
-    state, metrics = step(state, batch)
+    for _ in range(2):
+        state, metrics = step(state, batch)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["fused_update"] == 9
+    assert ops.launch_counts()["fused_update"] == 2
     assert torch.isfinite(metrics["loss"])
 
 
@@ -136,6 +174,32 @@ def test_flash_kernels_match_plain(cuda, case):
         assert torch.all(lse[1, :, :T // 4] == fa.NEG)
 
 
+#: K4 alone: the ViT path's shape (qkv views), the long regime at D = 128,
+#: and an odd head dim (4-byte copies)
+K4_CASES = {"vit_s4": (32, 64, 3, 64, True), "t2048_d128": (4, 2048, 8, 128, False),
+            "d13": (2, 40, 2, 13, False)}
+
+
+@pytest.mark.parametrize("case", list(K4_CASES))
+def test_flash_forward_matches_plain(cuda, case):
+    from tpu_ddp_torch.ops import flash_attention as fa
+
+    B, T, H, D, views = K4_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(T + D)
+    if views:
+        qkv = torch.randn((B, T, 3 * H * D), generator=gen, device=cuda)
+        q, k, v = (x.reshape(B, T, H, D) for x in qkv.split(H * D, dim=-1))
+    else:
+        q, k, v = (torch.randn((B, T, H, D), generator=gen, device=cuda)
+                   for _ in range(3))
+    out, lse = fa.flash_forward(q, k, v)
+    want_out, want_lse = fa.forward_plain(q, k, v)
+    torch.testing.assert_close(out, want_out, atol=2e-5, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=0)
+    info = fa.forward_launch_info(D)
+    assert info["registers"] <= 128 and info["blocks_per_sm"] >= 2
+
+
 def test_flash_attention_autograd_matches_reference(cuda):
     fa, q, k, v, do, mask, causal = _flash_inputs("causal_dead_rows", cuda)
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
@@ -179,7 +243,7 @@ def test_vit_train_step_launches_flash_kernels(cuda):
     state, metrics = make_train_step(tx)(state, batch)
     make_eval_step()(state, batch)
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"fused_update": 79, "flash_attention_fwd": 12,
+    assert ops.launch_counts() == {"fused_update": 1, "flash_attention_fwd": 12,
                                    "flash_attention_dq": 6, "flash_attention_dkv": 6,
                                    "fused_quant": 0, "fused_dequant": 0}
     assert torch.isfinite(metrics["loss"])

@@ -180,10 +180,12 @@ def test_cpu_runs_plain_versions_and_counts_no_launch():
     out.backward(torch.tensor(g))
     fa.flash_attention(tq, tk, tv, causal=True).sum().backward()
     assert all(n == 0 for n in ops.launch_counts().values())
-    for name in (fa.FWD, fa.DQ, fa.DKV):
+    sources = {fa.FWD: "flash_forward.cu", fa.DQ: "flash_attention.cu",
+               fa.DKV: "flash_attention.cu"}
+    for name, source in sources.items():
         entry = ops.resolve(name)
         assert entry["route"] == "cuda"
-        assert entry["source"] == "tpu_ddp_torch/ops/csrc/flash_attention.cu"
+        assert entry["source"] == "tpu_ddp_torch/ops/csrc/" + source
         assert entry["wrapper"].__module__ == fa.__name__
     assert ops.KERNELS[fa.FWD]["replaces"] == "tpu_ddp/ops/flash_attention.py:108"
     assert ops.KERNELS[fa.DQ]["replaces"] == "tpu_ddp/ops/flash_attention.py:327"
@@ -208,15 +210,32 @@ def test_other_devices_raise():
 
 def test_each_library_has_its_own_flags_in_its_hash(monkeypatch):
     """K1 keeps ``-fmad=false`` (bitwise with its plain version); the flash
-    kernels, held to a tolerance, do not take it; the build's file name
-    covers the flags a library is built with."""
+    kernels, held to a tolerance, do not take it, and K4, held to 128
+    registers a thread by its launch bounds, takes no ``-maxrregcount``;
+    the build's file name covers the flags a library is built with."""
     from tpu_ddp_torch.ops import _build
 
     assert "-fmad=false" in _build.flags("fused_update")
     assert "-fmad=false" not in _build.flags("flash_attention")
+    assert not any(f.startswith(("-fmad", "-maxrregcount"))
+                   for f in _build.flags("flash_forward"))
     before = _build.library_path("flash_attention")
     source, extra, fns = _build.LIBRARIES["flash_attention"]
     monkeypatch.setitem(_build.LIBRARIES, "flash_attention",
                         (source, extra + ("-lineinfo",), fns))
     assert _build.library_path("flash_attention") != before
     assert all(e["library"] in _build.LIBRARIES for e in ops.KERNELS.values())
+
+
+def test_k4_design_variants_edit_the_source_once():
+    """``tools/k4_variants.py`` rebuilds K4 with one design choice undone
+    by textual edits of ``flash_forward.cu``; each edit must still find
+    its text exactly once."""
+    from tpu_ddp_torch.ops import _build
+    from tpu_ddp_torch.tools import k4_variants
+
+    src = (_build.CSRC / _build.LIBRARIES[k4_variants.LIBRARY][0]).read_text()
+    assert k4_variants.VARIANTS["built"] == []
+    for name, edits in k4_variants.VARIANTS.items():
+        for old, _ in edits:
+            assert src.count(old) == 1, (name, old)

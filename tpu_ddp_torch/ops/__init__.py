@@ -35,8 +35,8 @@ KERNELS = {
         "wrapper": "tpu_ddp_torch.ops.flash_attention:flash_forward",
         "plain": "tpu_ddp_torch.ops.flash_attention:forward_plain",
         "route": "cuda",
-        "source": "tpu_ddp_torch/ops/csrc/flash_attention.cu",
-        "library": "flash_attention",
+        "source": "tpu_ddp_torch/ops/csrc/flash_forward.cu",
+        "library": "flash_forward",
         "replaces": "tpu_ddp/ops/flash_attention.py:108",
         "strategies": ("dp",),
     },

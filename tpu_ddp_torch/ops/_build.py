@@ -42,14 +42,20 @@ LIBRARIES = {
     # -fmad=false: K1 rounds every product as its plain version does
     "fused_update": ("fused_update.cu", ("-fmad=false",), {
         "tpu_ddp_fused_update": (
-            _I, [_P] * 7 + [_LL] + [_I] * 6 + [_F] * 11 + [_P]),
+            _I, [_P, _I, _I, _P] + [_I] * 5 + [_F] * 11 + [_P]),
         **_ERR,
     }),
-    # held to a tolerance, not to bits: nvcc's default contraction into
-    # FMAs. Without -maxrregcount ptxas holds K4 and K5 to 128 registers a
-    # thread, and at D = 128 K4 then takes about twice as long.
-    "flash_attention": ("flash_attention.cu", ("-maxrregcount=255",), {
+    # K4, held to a tolerance: nvcc's default contraction into FMAs; its
+    # __launch_bounds__ hold it to 128 registers a thread
+    "flash_forward": ("flash_forward.cu", (), {
         "tpu_ddp_flash_fwd": (_I, [_P] * 7 + [_I] * 5 + [_P]),
+        "tpu_ddp_flash_fwd_info": (_I, [_I, _P]),
+        **_ERR,
+    }),
+    # K5 and K6, held to a tolerance, not to bits: nvcc's default
+    # contraction into FMAs. Without -maxrregcount ptxas holds K5 to 128
+    # registers a thread, and at D = 128 it then takes about twice as long.
+    "flash_attention": ("flash_attention.cu", ("-maxrregcount=255",), {
         "tpu_ddp_flash_dq": (_I, [_P] * 9 + [_I] * 5 + [_P]),
         "tpu_ddp_flash_dkv": (_I, [_P] * 10 + [_I] * 5 + [_P]),
         **_ERR,

@@ -1,48 +1,43 @@
-// K4-K6: flash attention for Hopper, forward and the two backward kernels.
+// K5-K6: the two flash-attention backward kernels for Hopper.
 //
-// Replaces the Pallas kernels of tpu_ddp/ops/flash_attention.py:
-//   K4 flash_fwd_kernel  <- _kernel      (launched by _flash_forward)
+// Replace the Pallas kernels of tpu_ddp/ops/flash_attention.py:
 //   K5 flash_dq_kernel   <- _dq_kernel   (launched by _flash_backward)
 //   K6 flash_dkv_kernel  <- _dkv_kernel  (launched by _flash_backward)
-// The plain PyTorch versions are forward_plain, dq_plain and dkv_plain in
-// tpu_ddp_torch/ops/flash_attention.py.
+// The plain PyTorch versions are dq_plain and dkv_plain in
+// tpu_ddp_torch/ops/flash_attention.py. The forward, K4, is
+// csrc/flash_forward.cu; its row log-sum-exp lse is read here.
 //
 // What they compute, for q, k, v of shape (B, T, H, D), float32, scale
 // 1/sqrt(D), a key visible to a query when it exists (col < T), is not
 // masked (kv_mask[b, col] > 0) and, under causal, col <= row:
-//   K4  s = scale * q.k (invisible: NEG); online softmax over the kv tiles
-//       with the running max m, sum l and accumulator acc; out = acc / l and
-//       lse = m + log l, or out = 0 and lse = NEG for a row that sees no key.
 //   K5  p = exp(scale * q.k - lse) (invisible: 0); ds = p * (dO.v - di) *
 //       scale; dq = sum over keys of ds * k.
 //   K6  dv = sum over queries of p * dO; dk = sum over queries of ds * q.
 // di = rowsum(dO * O) comes from the caller, as in the JAX package.
 //
-// Design. The TPU kernels walk a sequential grid and carry m, l, acc (or the
-// dq, dk, dv sums) in VMEM scratch from one grid step to the next. Here the
-// sequential grid dimension is a loop inside one thread block: a block owns
-// one (b*h, 64-row tile) -- of queries for K4 and K5, of keys for K6 -- keeps
-// its running state in registers, and streams the other side's 64-row tiles
-// through shared memory. 256 threads as 16 x 16: thread (ty, tx) computes
-// rows 4ty..4ty+3 and columns tx, tx+16, tx+32, tx+48 of each 64 x 64 score
-// tile (float4 reads from rows padded to D+4 floats, so the 16 column rows a
+// Design. The TPU kernels walk a sequential grid and carry the dq, dk, dv
+// sums in VMEM scratch from one grid step to the next. Here the sequential
+// grid dimension is a loop inside one thread block: a block owns one (b*h,
+// 64-row tile) -- of queries for K5, of keys for K6 -- keeps its running
+// sums in registers, and streams the other side's 64-row tiles through
+// shared memory. 256 threads as 16 x 16: thread (ty, tx) computes rows
+// 4ty..4ty+3 and columns tx, tx+16, tx+32, tx+48 of each 64 x 64 score tile
+// (float4 reads from rows padded to D+4 floats, so the 16 column rows a
 // half-warp reads fall in distinct banks), and the same four rows of the
-// output accumulator, columns 4tx..4tx+3 (+64). A row's 64 scores live in
-// one half-warp, so row max and row sum are four shuffles. Tiles are padded
-// with zeros past T and D, so any T >= 1 and any D <= 128 work; D <= 64
-// takes the 64-wide instantiation. Causal skips the tiles above the
-// diagonal. q, k, v and dO are read through their (B, T, H) strides, so the
-// views of the ViT's qkv split need no copy; outputs are contiguous.
+// output accumulator, columns 4tx..4tx+3 (+64). Tiles are padded with zeros
+// past T and D, so any T >= 1 and any D <= 128 work; D <= 64 takes the
+// 64-wide instantiation. Causal skips the tiles above the diagonal. q, k, v
+// and dO are read through their (B, T, H) strides, so the views of the
+// ViT's qkv split need no copy; outputs are contiguous.
 //
-// What bounds them on this card: float32 arithmetic on the CUDA cores (the
-// port runs float32 with TF32 off, so no tensor cores): 4*T^2*D operations
-// per (b, h) forward, 6*T^2*D for dq and 8*T^2*D for dk/dv, against 67 TFLOP/s;
-// at short T (the ViT's 64 tokens) the bytes of q, k, v and the launch
-// instead. The design keeps every score tile out of device memory (it lives
-// in registers and one shared-memory tile) and reads each input tile once
-// per block, with eight loads in flight per thread. Built with
-// -maxrregcount=255 (tpu_ddp_torch/ops/_build.py). wgmma, TMA and bf16 are
-// later work.
+// What bounds them on this card: float32 arithmetic on the CUDA cores:
+// 6*T^2*D operations per (b, h) for dq and 8*T^2*D for dk/dv, against 67
+// TFLOP/s; at short T (the ViT's 64 tokens) the bytes of q, k, v, dO and
+// the launch instead. The design keeps every score tile out of device
+// memory (it lives in registers and shared-memory tiles) and reads each
+// input tile once per block, with eight loads in flight per thread. Built
+// with -maxrregcount=255 (tpu_ddp_torch/ops/_build.py). The tensor cores
+// (as K4 uses them), wgmma, TMA and bf16 are later work.
 //
 // Plain C interface, loaded with ctypes (tpu_ddp_torch/ops/_build.py).
 
@@ -55,7 +50,6 @@ namespace {
 constexpr int kTile = 64;        // rows of a query tile and of a key tile
 constexpr int kThreads = 256;    // 16 x 16
 constexpr int kLdP = kTile + 4;  // row stride of a 64 x 64 score tile
-constexpr float kNeg = -1e30f;   // finite stand-in for -inf (the JAX NEG)
 
 struct View {  // element strides of B, T and H; D has stride 1
   long long sb, st, sh;
@@ -63,8 +57,8 @@ struct View {  // element strides of B, T and H; D has stride 1
 
 struct Args {
   const float *q, *k, *v, *dout, *lse_in, *di, *mask;
-  float *out, *lse, *dq, *dk, *dv;
-  View vq, vk, vv, vdo, vout, vdk, vdv;  // vout: the strides of out or dq
+  float *dq, *dk, *dv;
+  View vq, vk, vv, vdo, vout, vdk, vdv;  // vout: the strides of dq
   int B, T, H, D;
   bool causal;
   float scale;
@@ -76,18 +70,6 @@ struct Tile {
   static constexpr int kFloats = kTile * kLd;
   static constexpr int kCols = kD / 16;       // accumulator columns a thread owns
 };
-
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 __device__ __forceinline__ float lane(const float4& v, int e) {
   return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
@@ -205,84 +187,6 @@ __device__ __forceinline__ void store_rows(float* y, View v, int b, int h, int t
       if (d < D) base[static_cast<long long>(t) * v.st + d] = acc[i][c] / div[i];
     }
   }
-}
-
-// K4 (replaces _kernel). Grid (query tiles, B*H).
-template <int kD>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
-  using L = Tile<kD>;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + L::kFloats;
-  float* Vs = Ks + L::kFloats;
-  float* Ps = Vs + L::kFloats;
-  float* kvis = Ps + kTile * kLdP;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int tiles = (a.T + kTile - 1) / kTile;
-  const int bh = blockIdx.x / tiles, b = bh / a.H, h = bh % a.H;
-  const int q0 = blockIdx.x % tiles * kTile;
-  const int d_end = (a.D + 3) & ~3;
-
-  load_tile<kD>(Qs, a.q, a.vq, b, h, q0, a.T, a.D);
-  float m[4], l[4], acc[4][L::kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < L::kCols; ++c) acc[i][c] = 0.0f;
-  }
-  const int kv_end = a.causal ? min(a.T, q0 + kTile) : a.T;
-  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
-    __syncthreads();  // the last tile's readers are done with Ks, Vs, Ps
-    load_tile<kD>(Ks, a.k, a.vk, b, h, k0, a.T, a.D);
-    load_tile<kD>(Vs, a.v, a.vv, b, h, k0, a.T, a.D);
-    load_key_visibility(kvis, a.mask, b, k0, a.T);
-    __syncthreads();
-    float s[4][4];
-    dot_tile<kD>(Qs, Ks, ty, tx, d_end, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 4 * ty + i;
-      bool vis[4];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        vis[j] = kvis[tx + 16 * j] != 0.0f && (!a.causal || col <= row);
-        s[i][j] = vis[j] ? s[i][j] * a.scale : kNeg;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      float rs = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // the multiplicative mask: a row that has seen no key yet has
-        // m_new == NEG, and its invisible entries must still give 0
-        const float p = vis[j] ? expf(s[i][j] - m_new) : 0.0f;
-        Ps[(4 * ty + i) * kLdP + tx + 16 * j] = p;
-        rs += p;
-      }
-      const float alpha = expf(m[i] - m_new);
-      l[i] = l[i] * alpha + half_warp_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < L::kCols; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-    pv_tile<kD>(Ps, Vs, ty, tx, acc);
-  }
-
-  float div[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const bool live = l[i] > 0.0f;
-    div[i] = live ? l[i] : 1.0f;  // a dead row's acc is 0: out = 0
-    const int row = q0 + 4 * ty + i;
-    if (tx == 0 && row < a.T)
-      a.lse[static_cast<long long>(bh) * a.T + row] = live ? m[i] + logf(l[i]) : kNeg;
-  }
-  store_rows<kD>(a.out, a.vout, b, h, q0, a.T, a.D, ty, tx, acc, div);
 }
 
 // K5 (replaces _dq_kernel). Grid (query tiles, B*H).
@@ -406,10 +310,6 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
 }
 
 template <int kD>
-constexpr size_t smem_fwd() {
-  return sizeof(float) * (3 * Tile<kD>::kFloats + kTile * kLdP + kTile);
-}
-template <int kD>
 constexpr size_t smem_dq() {
   return sizeof(float) * (4 * Tile<kD>::kFloats + kTile * kLdP + 3 * kTile);
 }
@@ -431,15 +331,12 @@ cudaError_t launch(Kernel kernel, size_t smem, const Args& a, cudaStream_t strea
   return cudaGetLastError();
 }
 
-enum Which { kFwd, kDq, kDkv };
+enum Which { kDq, kDkv };
 
 template <int kD>
 cudaError_t dispatch_width(Which w, const Args& a, cudaStream_t stream) {
-  switch (w) {
-    case kFwd: return launch(flash_fwd_kernel<kD>, smem_fwd<kD>(), a, stream);
-    case kDq: return launch(flash_dq_kernel<kD>, smem_dq<kD>(), a, stream);
-    default: return launch(flash_dkv_kernel<kD>, smem_dkv<kD>(), a, stream);
-  }
+  return w == kDq ? launch(flash_dq_kernel<kD>, smem_dq<kD>(), a, stream)
+                  : launch(flash_dkv_kernel<kD>, smem_dkv<kD>(), a, stream);
 }
 
 int run(Which w, Args& a, const long long* strides, int n_views, View* const* views,
@@ -470,21 +367,6 @@ extern "C" {
 // success). strides holds the (B, T, H) element strides of each (B, T, H, D)
 // tensor argument, in argument order; lse and di are contiguous (B, H, T);
 // mask is contiguous (B, T) float32, or null.
-
-int tpu_ddp_flash_fwd(const float* q, const float* k, const float* v,
-                      const float* mask, float* out, float* lse,
-                      const long long* strides, int B, int T, int H, int D,
-                      int causal, void* stream) {
-  Args a{};
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.mask = mask;
-  a.out = out;
-  a.lse = lse;
-  View* views[] = {&a.vq, &a.vk, &a.vv, &a.vout};
-  return run(kFwd, a, strides, 4, views, B, T, H, D, causal, stream);
-}
 
 int tpu_ddp_flash_dq(const float* q, const float* k, const float* v,
                      const float* dout, const float* lse, const float* di,

@@ -9,10 +9,12 @@ float32, as in the JAX package.
   finite ``NEG``, softmax, then the multiplicative mask, so a row with no
   visible key outputs exactly 0. It is the tests' oracle; no path of the
   port calls it.
-* Three kernels in ``csrc/flash_attention.cu``, each with its wrapper (CUDA
-  tensors launch the kernel and add one to ``LAUNCHES``; CPU tensors take the
-  plain version; anything else raises) and its plain version, which repeats
-  the kernel's arithmetic on whole ``(T, T)`` score matrices:
+* Three kernels, K4 in ``csrc/flash_forward.cu`` (float32 products on the
+  tensor cores in 3xTF32) and K5, K6 in ``csrc/flash_attention.cu``, each
+  with its wrapper (CUDA tensors launch the kernel and add one to
+  ``LAUNCHES``; CPU tensors take the plain version; anything else raises)
+  and its plain version, which repeats the kernel's arithmetic on whole
+  ``(T, T)`` score matrices:
 
   ========  ==============  ===============  ============================
   kernel    wrapper         plain            replaces
@@ -45,9 +47,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from tpu_ddp_torch.ops import LAUNCHES
+from tpu_ddp_torch.ops import KERNELS, LAUNCHES
 
-NAME = "flash_attention"
 FWD, DQ, DKV = "flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv"
 
 #: finite stand-in for -inf on invisible logits (the JAX package's NEG)
@@ -195,7 +196,7 @@ def _ptr(t: Optional[torch.Tensor]):
 def _launch(fn: str, name: str, *args) -> None:
     from tpu_ddp_torch.ops import _build
 
-    lib = _build.load(NAME)
+    lib = _build.load(KERNELS[name]["library"])
     rc = getattr(lib, fn)(*args)
     _build.check(lib, rc, f"{name} launch")
     LAUNCHES[name] += 1
@@ -214,6 +215,21 @@ def flash_forward(q, k, v, kv_mask=None, causal: bool = False
             _ptr(kv_mask), out.data_ptr(), lse.data_ptr(), _strides(q, k, v, out),
             B, T, H, D, int(causal), torch.cuda.current_stream(q.device).cuda_stream)
     return out, lse
+
+
+def forward_launch_info(D: int) -> dict:
+    """The launch K4 takes for head dim ``D`` on the current card: rows of
+    its query and key tiles, threads, registers and spilled bytes a thread,
+    dynamic shared memory a block (bytes), and resident blocks an SM by the
+    CUDA occupancy calculator."""
+    from tpu_ddp_torch.ops import _build
+
+    lib = _build.load(KERNELS[FWD]["library"])
+    out = (ctypes.c_int * 7)()
+    _build.check(lib, lib.tpu_ddp_flash_fwd_info(D, out), "flash_forward info")
+    keys = ("query_rows", "key_rows", "threads", "registers", "spill_bytes",
+            "smem_bytes", "blocks_per_sm")
+    return dict(zip(keys, out))
 
 
 def flash_dq(q, k, v, do, lse, di, kv_mask=None, causal: bool = False) -> torch.Tensor:

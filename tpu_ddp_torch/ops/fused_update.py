@@ -1,23 +1,29 @@
 """K1: the single-pass fused optimizer update — clip, moments, param update
-and EMA in one pass over each parameter leaf.
+and EMA in one pass over every parameter leaf of a step, in one launch.
 
 Counterpart of ``tpu_ddp/ops/fused_update.py``. The optax chain reads and
-writes every leaf once per transform; ``fused_update_`` does the whole
-update tail in one pass per leaf with the CUDA kernel in
-``csrc/fused_update.cu``.
+writes every leaf once per transform; K1 does the whole update tail in one
+pass with the CUDA kernel in ``csrc/fused_update.cu``, whose one launch
+covers up to ``MAX_LEAVES`` leaves.
 
 * ``update_math`` is the plain PyTorch version. It follows the JAX
   package's ``_update_math`` (:116) expression for expression, and the
   kernel follows it operation for operation, so on the card the two are
   bitwise equal for the same inputs and the same scalar tensor.
-* ``fused_update_`` is the wrapper: for CUDA tensors it launches the kernel
-  (and adds one to ``LAUNCHES["fused_update"]``), for CPU tensors it runs
-  ``update_math``; anything else raises. It works in place: ``p``, ``m``,
-  ``v`` and ``e`` are overwritten, ``u`` is written into its own buffer.
-* ``FusedUpdate.apply`` drives it over a parameter dict. Its scalar
-  prologue (global norm, schedule step, AdamW bias corrections; the JAX
-  prologue at :411-441) runs as torch ops on the device and yields one
-  float32[4] device tensor, so the step never waits for the host.
+* ``LeafBatch`` is the wrapper: one step's leaves, validated, planned
+  (``chunk_plan``) and given one ``u`` buffer once; ``run(grads, scalars)``
+  then checks the grads in one pass and, for CUDA tensors, launches the
+  kernel once per ``MAX_LEAVES`` leaves (adding one to
+  ``LAUNCHES["fused_update"]`` each time); for CPU tensors it runs
+  ``update_math`` leaf by leaf; anything else raises. It works in place:
+  ``p``, ``m``, ``v`` and ``e`` are overwritten, ``u`` is written into its
+  own buffer.
+* ``fused_update_`` is the one-leaf form of the same entry point.
+* ``FusedUpdate.apply`` drives it over a parameter dict, with the batch
+  cached across steps. Its scalar prologue (global norm, schedule step,
+  AdamW bias corrections; the JAX prologue at :411-441) runs as torch ops on
+  the device and yields one float32[4] device tensor, so the step never
+  waits for the host.
 
 Not ported yet: the ZeRO-1 pad mask (``start``/``mask_size``) and frozen
 leaves (``labeler``).
@@ -26,8 +32,11 @@ leaves (``labeler``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+import functools
+import operator
+from typing import Any, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from tpu_ddp_torch.ops import LAUNCHES
@@ -36,6 +45,16 @@ NAME = "fused_update"
 
 #: AdamW's constants (optax defaults, as ``make_optimizer`` uses them)
 B1, B2, EPS = 0.9, 0.999, 1e-8
+
+#: leaves one launch takes (``kMaxLeaves`` in csrc/fused_update.cu)
+MAX_LEAVES = 128
+#: elements one thread block covers (``kChunk``; a multiple of 4, so each
+#: chunk of an aligned leaf starts on a 16-byte boundary)
+CHUNK = 16384
+#: columns of a row of the kernel's leaf table (``kCols``), and its flags
+#: (``kLeafVec``, ``kLeafWdApply``)
+G, P, M, V, E, U, N, FIRST_BLOCK, FLAGS = range(9)
+VEC, WD_APPLY = 1, 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,66 +137,217 @@ def update_math(g, p, m, v, e, scalars: torch.Tensor, cfg: LeafConfig):
     return u, m_new, v_new, e_new
 
 
-def _check(g, p, m, v, e, u, scalars, cfg: LeafConfig):
-    if p.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"fused_update_: no kernel for device {p.device}")
-    leaves = {"g": g, "p": p, "u": u}
-    if cfg.has_m:
-        leaves["m"] = m
-    if cfg.has_v:
-        leaves["v"] = v
-    if cfg.ema_decay:
-        leaves["e"] = e
-    for name, t in leaves.items():
-        if t is None:
-            raise ValueError(f"fused_update_: operand {name} is missing")
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"fused_update_: {name} must be contiguous "
-                             f"float32, got {t.dtype}")
-        if t.numel() != g.numel() or t.device != p.device:
-            raise ValueError(f"fused_update_: {name} has {t.numel()} "
-                             f"elements on {t.device}, g has {g.numel()} "
-                             f"and p lies on {p.device}")
-    ptrs = [t.data_ptr() for t in leaves.values()]
-    if g.numel() and len(set(ptrs)) != len(ptrs):
-        raise ValueError("fused_update_: operands must not share storage")
-    if (scalars.dtype != torch.float32 or scalars.numel() != 4
-            or scalars.device != p.device):
-        raise ValueError("fused_update_: scalars must be float32[4] on "
-                         "the leaves' device")
-    return leaves
+# --------------------------------------------------------------------------
+# the launch plan
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Launch:
+    """One kernel launch: the leaves it updates (indices into the step's
+    leaves, in order), each leaf's first block in its grid, and the grid's
+    size. Block ``b`` belongs to the last leaf whose first block is ``<= b``
+    and covers elements ``[(b - first) * CHUNK, (b - first + 1) * CHUNK)``
+    of it, cut at the leaf's end."""
+
+    leaves: Tuple[int, ...]
+    first_blocks: Tuple[int, ...]
+    blocks: int
 
 
-def fused_update_(g, p, m, v, e, u, scalars: torch.Tensor, cfg: LeafConfig) -> None:
-    """One leaf's update, in place (module docstring). CUDA tensors launch
-    K1; CPU tensors take ``update_math``; other devices raise."""
-    leaves = _check(g, p, m, v, e, u, scalars, cfg)
-    if p.device.type == "cuda":
-        from tpu_ddp_torch.ops import _build
+@functools.lru_cache(maxsize=64)
+def chunk_plan(sizes: Tuple[int, ...], max_leaves: int = MAX_LEAVES,
+               chunk: int = CHUNK) -> Tuple[Launch, ...]:
+    """K1's launches for leaves of ``sizes`` elements: the non-empty leaves
+    in order, ``max_leaves`` to a launch (so ``ceil(leaves / max_leaves)``
+    launches), ``ceil(n / chunk)`` blocks a leaf. Depends on the sizes
+    alone, and is cached."""
+    live = [i for i, n in enumerate(sizes) if n > 0]
+    plan = []
+    for s in range(0, len(live), max_leaves):
+        firsts, blocks = [], 0
+        for i in live[s:s + max_leaves]:
+            firsts.append(blocks)
+            blocks += -(-sizes[i] // chunk)
+        plan.append(Launch(tuple(live[s:s + max_leaves]), tuple(firsts), blocks))
+    return tuple(plan)
 
-        lib = _build.load(NAME)
-        ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
-        rc = lib.tpu_ddp_fused_update(
-            ptr(g), ptr(p), ptr(leaves.get("m")), ptr(leaves.get("v")),
-            ptr(leaves.get("e")), ptr(u), ptr(scalars), g.numel(),
+
+def vec_flag(ptrs: Sequence[int]) -> bool:
+    """Whether a leaf takes the kernel's 16-byte vector path: every operand
+    address (0 for a slot the recipe lacks) 16-byte aligned."""
+    return all(p % 16 == 0 for p in ptrs)
+
+
+def _operand_error(name: str, t: Optional[torch.Tensor], n: int,
+                   device: torch.device) -> Optional[str]:
+    if t is None:
+        return f"operand {name} is missing"
+    if t.dtype != torch.float32 or not t.is_contiguous():
+        return f"{name} must be contiguous float32, got {t.dtype}"
+    if t.numel() != n or t.device != device:
+        return (f"{name} has {t.numel()} elements on {t.device}, p has {n} "
+                f"and lies on {device}")
+    return None
+
+
+class LeafBatch:
+    """One step's leaves for K1, validated and planned once.
+
+    ``ps`` are the params; ``ms``, ``vs`` and ``es`` the momentum or Adam
+    first moments, Adam's second moments and the EMA shadow (None where
+    ``cfg`` has no such slot); ``cfg`` holds the flags common to the step
+    (its ``wd_apply`` is not read), ``wd_apply`` the decay flag of each
+    leaf. ``us`` are the output buffers; without them the batch makes one
+    buffer for all leaves, each leaf's slice starting on a 16-byte
+    boundary, and ``us`` are its per-leaf views. ``run`` overwrites
+    them, so they hold the last step's updates only.
+
+    Checked here, once: dtype, contiguity, device and sizes of every
+    operand, and that no two operands share storage."""
+
+    def __init__(self, ps: Sequence[torch.Tensor], ms, vs, es,
+                 cfg: LeafConfig, wd_apply: Sequence[bool],
+                 us: Optional[Sequence[torch.Tensor]] = None):
+        n_leaves = len(ps)
+        self.cfg = cfg
+        self.device = ps[0].device if n_leaves else torch.device("cpu")
+        if self.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"fused_update_: no kernel for device {self.device}")
+        none = [None] * n_leaves
+        self.ps = list(ps)
+        self.ms = list(ms or none) if cfg.has_m else none
+        self.vs = list(vs or none) if cfg.has_v else none
+        self.es = list(es or none) if cfg.ema_decay else none
+        self.sizes = tuple(p.numel() for p in self.ps)
+        if us is None:
+            offsets = np.cumsum([0] + [-(-n // 4) * 4 for n in self.sizes])
+            self.u_flat = torch.empty(int(offsets[-1]), dtype=torch.float32,
+                                      device=self.device)
+            us = [self.u_flat[int(o):int(o) + p.numel()].view(p.shape)
+                  for o, p in zip(offsets, self.ps)]
+        self.us = list(us)
+        slots = {"p": self.ps, "u": self.us}
+        if cfg.has_m:
+            slots["m"] = self.ms
+        if cfg.has_v:
+            slots["v"] = self.vs
+        if cfg.ema_decay:
+            slots["e"] = self.es
+        ranges = []
+        for name, tensors in slots.items():
+            if len(tensors) != n_leaves:
+                raise ValueError(f"fused_update_: {len(tensors)} {name} "
+                                 f"operands for {n_leaves} leaves")
+            for t, n in zip(tensors, self.sizes):
+                err = _operand_error(name, t, n, self.device)
+                if err:
+                    raise ValueError(f"fused_update_: {err}")
+                if n:
+                    ranges.append((t.data_ptr(), t.data_ptr() + 4 * n))
+        ranges.sort()
+        if any(b[0] < a[1] for a, b in zip(ranges, ranges[1:])):
+            raise ValueError("fused_update_: operands must not share storage")
+        self._starts = {r[0] for r in ranges}
+        self.plan = chunk_plan(self.sizes)
+        self.rows = [i for launch in self.plan for i in launch.leaves]
+        self.wd_apply = [bool(f and cfg.wd > 0) for f in wd_apply]
+        self._cfgs = [dataclasses.replace(cfg, wd_apply=w) for w in self.wd_apply]
+        self._build_table()
+
+    def _build_table(self) -> None:
+        """The kernel's leaf table, all but the grads' column, and each
+        launch's arguments."""
+        cfg = self.cfg
+        ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+        self.table = np.zeros((len(self.rows), 9), dtype=np.int64)
+        for r, i in enumerate(self.rows):
+            ops_ = (self.ps[i], self.ms[i], self.vs[i], self.es[i], self.us[i])
+            self.table[r, P:U + 1] = [ptr(t) for t in ops_]
+            self.table[r, N] = self.sizes[i]
+            self.table[r, FLAGS] = ((VEC if vec_flag([ptr(t) for t in ops_]) else 0)
+                                    | (WD_APPLY if self.wd_apply[i] else 0))
+        self._flags = self.table[:, FLAGS].copy()
+        self._launches, row = [], 0
+        for launch in self.plan:
+            k = len(launch.leaves)
+            self.table[row:row + k, FIRST_BLOCK] = launch.first_blocks
+            self._launches.append((self.table.ctypes.data + row * 9 * 8, k,
+                                   launch.blocks))
+            row += k
+        self._consts = (
             int(cfg.kind == "adamw"), int(cfg.kind == "sgd" and cfg.momentum > 0),
-            int(cfg.wd_apply), int(cfg.has_clip), int(bool(cfg.ema_decay)),
+            int(cfg.has_clip), int(bool(cfg.ema_decay)),
             int(cfg.step_const is not None),
             cfg.momentum, cfg.wd, cfg.max_norm,
             cfg.step_const if cfg.step_const is not None else 0.0,
             1 - cfg.b1, cfg.b1, 1 - cfg.b2, cfg.b2, cfg.eps,
             cfg.ema_decay, 1.0 - cfg.ema_decay,
-            torch.cuda.current_stream(p.device).cuda_stream,
         )
-        _build.check(lib, rc, "fused_update_ launch")
-        LAUNCHES[NAME] += 1
-    else:
-        u_new, m_new, v_new, e_new = update_math(g, p, m, v, e, scalars, cfg)
-        u.copy_(u_new)
-        p.copy_(p + u_new)
-        for buf, new in ((m, m_new), (v, v_new), (e, e_new)):
-            if new is not None:
-                buf.copy_(new)
+
+    def _check_grads(self, gs: Sequence[torch.Tensor]) -> None:
+        """One pass over the grads: float32, contiguous, sized and placed
+        as their params, and apart from every other operand."""
+        if len(gs) != len(self.sizes):
+            raise ValueError(f"fused_update_: {len(gs)} grads for "
+                             f"{len(self.sizes)} leaves")
+        f32, dev = torch.float32, self.device
+        for g, n in zip(gs, self.sizes):
+            if g.dtype is not f32 or not g.is_contiguous() or g.numel() != n \
+                    or g.device != dev:
+                raise ValueError(f"fused_update_: {_operand_error('g', g, n, dev)}")
+
+    def run(self, gs: Sequence[torch.Tensor], scalars: torch.Tensor) -> None:
+        """One step's update of every leaf, in place (class docstring):
+        ``len(plan)`` launches for CUDA tensors, ``update_math`` leaf by leaf
+        for CPU tensors."""
+        self._check_grads(gs)
+        if (scalars.dtype != torch.float32 or scalars.numel() != 4
+                or scalars.device != self.device):
+            raise ValueError("fused_update_: scalars must be float32[4] on "
+                             "the leaves' device")
+        self.table_for(gs)
+        if self.device.type == "cuda":
+            self._launch(scalars)
+            return
+        for i, g in enumerate(gs):
+            p, m, v, e, u = self.ps[i], self.ms[i], self.vs[i], self.es[i], self.us[i]
+            u_new, m_new, v_new, e_new = update_math(g, p, m, v, e, scalars, self._cfgs[i])
+            u.copy_(u_new)
+            p.copy_(p + u_new)
+            for buf, new in ((m, m_new), (v, v_new), (e, e_new)):
+                if new is not None:
+                    buf.copy_(new)
+
+    def table_for(self, gs: Sequence[torch.Tensor]) -> np.ndarray:
+        """The kernel's leaf table for this step's grads: one row a
+        non-empty leaf, in launch order (columns ``G`` to ``FLAGS``); a
+        leaf's ``VEC`` flag holds only if all six of its operands, this
+        step's grad too, are 16-byte aligned."""
+        gp = [gs[i].data_ptr() for i in self.rows]
+        if not self._starts.isdisjoint(gp):
+            raise ValueError("fused_update_: operands must not share storage")
+        tab = self.table
+        tab[:, G] = gp
+        tab[:, FLAGS] = np.where(tab[:, G] % 16 == 0, self._flags, self._flags & ~VEC)
+        return tab
+
+    def _launch(self, scalars) -> None:
+        from tpu_ddp_torch.ops import _build
+
+        lib = _build.load(NAME)
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        for rows, k, blocks in self._launches:
+            rc = lib.tpu_ddp_fused_update(rows, k, blocks, scalars.data_ptr(),
+                                          *self._consts, stream)
+            _build.check(lib, rc, "fused_update_ launch")
+            LAUNCHES[NAME] += 1
+
+
+def fused_update_(g, p, m, v, e, u, scalars: torch.Tensor, cfg: LeafConfig) -> None:
+    """One leaf's update, in place: the one-leaf form of ``LeafBatch``
+    (module docstring). CUDA tensors launch K1 once; CPU tensors take
+    ``update_math``; other devices raise."""
+    LeafBatch([p], [m], [v], [e], cfg, [cfg.wd_apply], us=[u]).run([g], scalars)
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -206,13 +376,56 @@ class FusedUpdate:
     """Drives K1 over a parameter dict: ``apply(grads, opt_state, params,
     wd_mask)`` updates ``params`` and ``opt_state`` in place and returns the
     updates. ``opt_state`` is ``tpu_ddp_torch.train.optim.OptState``;
-    ``wd_mask`` names the leaves weight decay applies to."""
+    ``wd_mask`` names the leaves weight decay applies to.
+
+    The ``LeafBatch`` of the params and state slots is built on the first
+    call and kept while the same tensors, at the same addresses, come back:
+    a step then only checks the grads and launches. The returned updates
+    are views of the batch's one ``u`` buffer, which the next step
+    overwrites; nothing on the train step reads them (``train/steps.py``
+    drops them), where the JAX package returns fresh arrays."""
 
     def __init__(self, recipe: UpdateRecipe):
         if recipe.optimizer not in ("sgd", "adamw"):
             raise ValueError(
                 f"fused update supports sgd/adamw, got {recipe.optimizer!r}")
         self.recipe = recipe
+        self._batch: Optional[LeafBatch] = None
+        self._key: tuple = ()
+
+    def _slots(self, opt_state, names):
+        r = self.recipe
+        pick = lambda d: None if d is None else [d[n] for n in names]  # noqa: E731
+        if r.optimizer == "adamw":
+            return pick(opt_state.mu), pick(opt_state.nu), pick(opt_state.ema)
+        return pick(opt_state.trace if r.momentum > 0 else None), None, \
+            pick(opt_state.ema)
+
+    def _unchanged(self, opt_state, params, wd_mask) -> bool:
+        """Whether the cached batch still holds these tensors: the same
+        names, the same param and slot tensors (an identity test) and the
+        params at the same addresses, under the same decay mask."""
+        names, ps, p_ptrs, mask = self._key
+        if (list(params) != names or wd_mask != mask
+                or not all(map(operator.is_, params.values(), ps))
+                or list(map(torch.Tensor.data_ptr, ps)) != p_ptrs):
+            return False
+        b = self._batch
+        return all(now is None or all(map(operator.is_, now, cached))
+                   for cached, now in zip((b.ms, b.vs, b.es),
+                                          self._slots(opt_state, names)))
+
+    def _batch_for(self, opt_state, params, wd_mask) -> LeafBatch:
+        """The cached batch, or a new one when ``_unchanged`` fails."""
+        if self._batch is not None and self._unchanged(opt_state, params, wd_mask):
+            return self._batch
+        names = list(params)
+        ps = [params[n] for n in names]
+        ms, vs, es = self._slots(opt_state, names)
+        cfg = LeafConfig.from_recipe(self.recipe, False)
+        self._batch = LeafBatch(ps, ms, vs, es, cfg, [wd_mask[n] for n in names])
+        self._key = (names, ps, [p.data_ptr() for p in ps], dict(wd_mask))
+        return self._batch
 
     @torch.no_grad()
     def apply(self, grads: Dict[str, torch.Tensor], opt_state,
@@ -220,22 +433,16 @@ class FusedUpdate:
               wd_mask: Dict[str, bool]) -> Dict[str, torch.Tensor]:
         r = self.recipe
         scalars = prologue(r, grads.values(), opt_state)
-        updates = {}
-        for name, g in grads.items():
-            p = params[name]
-            cfg = LeafConfig.from_recipe(r, wd_mask[name])
-            m = v = e = None
-            if r.optimizer == "adamw":
-                m, v = opt_state.mu[name], opt_state.nu[name]
-            elif r.momentum > 0:
-                m = opt_state.trace[name]
-            if r.ema_decay:
-                e = opt_state.ema[name]
-            u = torch.empty_like(p)
-            fused_update_(g.contiguous(), p, m, v, e, u, scalars, cfg)
-            updates[name] = u
+        batch = self._batch_for(opt_state, params, wd_mask)
+        names = self._key[0]
+        if len(grads) != len(names):
+            raise ValueError(f"fused update: {len(grads)} grads for "
+                             f"{len(names)} params")
+        # autograd may hand back a grad in another memory format (a conv
+        # kernel's); the kernel reads each leaf as one contiguous run
+        batch.run([grads[n].contiguous() for n in names], scalars)
         if r.optimizer == "adamw":
             opt_state.count += 1
         if callable(r.lr):
             opt_state.sched_count += 1
-        return updates
+        return dict(zip(names, batch.us))
