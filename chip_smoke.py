@@ -48,10 +48,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (32, 64, 3, 64) as views of one qkv product, ViT-B/16's 196 tokens
    (8, 196, 12, 64), D=48, a prime T=67, causal at (4, 512, 4, 64), causal
    with a key mask that leaves rows with no visible key (their output and dq
-   must be exactly 0), and the long regime (4, 2048, 8, 128). Tolerances
+   must be exactly 0, and the masked keys' dk and dv too), the long regime
+   (4, 2048, 8, 128), and (3, 77, 2, 37): D not a multiple of 4 (4-byte
+   copies) and T not a multiple of any tile. Tolerances
    (``|got - want| <= atol + rtol * |want|``) are those of
    ``tests/test_ops.py`` everywhere: forward and lse ``atol=2e-5``,
-   gradients ``atol=5e-5``, ``rtol=1e-4``.
+   gradients ``atol=5e-5``, ``rtol=1e-4``. A second call of K5 and of K6
+   on the same inputs must give the same bits (no atomics).
 8. The ViT main path: ``tpu_ddp_torch.cli.train.main`` with ``--device cuda
    --synthetic-data --model vit_s4 --attention flash --kernels --optimizer
    adamw --lr 1e-3`` (full width: patch 4, hidden 192, depth 6, 3 heads of
@@ -66,13 +69,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    recipe, as in phase 6, with phase 8's flash run's launches. K4, K5 and
    K6 at the main path's shape and at (4, 2048, 8, 128), each in turns with
    its plain version, beside its bound (bytes over 3.35 TB/s against
-   float32 operations over 67 TFLOP/s; for K4 also ``bound_tc_ms``, the
-   same bytes against its products in 3xTF32, three TF32 products each, over
-   the tensor cores' 495 TFLOP/s, and K4's launch: tile rows, registers,
-   shared memory and blocks an SM) and
-   ``torch.nn.functional.scaled_dot_product_attention`` as the yardstick
-   (forward for K4, its backward, which gives dq, dk and dv at once, for K5
-   and for K6; never called by the port).
+   float32 operations over 67 TFLOP/s; also ``bound_tc_ms``, the same bytes
+   against its products in 3xTF32, three TF32 products each, over the
+   tensor cores' 495 TFLOP/s: two products for K4, three for K5, four for
+   K6; and each kernel's launch: tile rows, registers, shared memory and
+   blocks an SM) and ``torch.nn.functional.scaled_dot_product_attention``
+   as the yardstick (forward for K4, its backward, which gives dq, dk and
+   dv at once, for K5 and for K6; never called by the port). One line a
+   shape gives K5 + K6 beside SDPA's backward, by events and device time.
 
 10. K2/K3 against plain on the card: ``fused_quant`` and ``fused_dequant``
     (bare and with ``add_to``) against ``quantize_chunk`` and
@@ -169,6 +173,9 @@ FLASH_CASES = {
     "causal_t512": (4, 512, 4, 64, True, None, False),
     "causal_dead_rows": (4, 256, 4, 64, True, "dead", False),
     "t2048_d128": (4, 2048, 8, 128, False, None, False),
+    # D not a multiple of 4 (4-byte copies, zero-filled columns) and T not a
+    # multiple of any tile
+    "d37_t77": (3, 77, 2, 37, False, None, False),
 }
 FLASH_TIMED = {"vit_s4": 200, "t2048_d128": 20}   # case -> timed iterations
 
@@ -646,7 +653,14 @@ def phase_flash_vs_plain():
         out, lse = fa.flash_forward(q, k, v, mask, causal)
         dq = fa.flash_dq(q, k, v, do, want_lse, di, mask, causal)
         dk, dv = fa.flash_dkv(q, k, v, do, want_lse, di, mask, causal)
+        # each output row is written once by its block (no atomics): a
+        # second call gives the same bits
+        again = (fa.flash_dq(q, k, v, do, want_lse, di, mask, causal),
+                 *fa.flash_dkv(q, k, v, do, want_lse, di, mask, causal))
         torch.cuda.synchronize()
+        repeat = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
+        if not repeat:
+            failed.append(f"{case}: two calls of K5/K6 differ")
         errs, size = {}, {}
         for name, got, want, tol in (
                 ("out", out, want_out, FWD_TOL), ("lse", lse, want_lse, FWD_TOL),
@@ -663,11 +677,14 @@ def phase_flash_vs_plain():
                     and bool((lse[1, :, :T // 4] == fa.NEG).all()))
             if not dead:
                 failed.append(f"{case}: rows with no visible key are not exactly 0")
+            hidden = mask == 0
+            if not (bool((dk[hidden] == 0).all()) and bool((dv[hidden] == 0).all())):
+                failed.append(f"{case}: masked keys' dk/dv are not exactly 0")
         results[case] = errs
         print(f"  {case:18s} {tuple(q.shape)} causal={causal} mask={mask is not None} "
-              + " ".join(f"{n}={e:.3g} (of {size[n]:.3g})" for n, e in errs.items()),
-              flush=True)
-        del q, k, v, do, want_out, want_lse, want_dq, want_dk, want_dv
+              + " ".join(f"{n}={e:.3g} (of {size[n]:.3g})" for n, e in errs.items())
+              + f" K5/K6 bitwise on a second call: {repeat}", flush=True)
+        del q, k, v, do, want_out, want_lse, want_dq, want_dk, want_dv, again
     if failed:
         fail("flash kernels disagree with their plain versions: " + "; ".join(failed))
     return results
@@ -733,30 +750,37 @@ def phase_vit_main_path():
     return runs
 
 
-def attention_bound(kind, B, T, H, D):
-    """(bound_ms, bound_by) of one non-causal, unmasked call: bytes (each
-    input read once, each output written once) over the HBM rate against
-    float32 operations (two per multiply-add of the products, and the
-    per-score softmax work) over the float32 rate."""
+def attention_work(kind, B, T, H, D):
+    """(bytes, product operations, other float32 operations) of one
+    non-causal, unmasked call: each input read once, each output written
+    once; two operations per multiply-add of its products (forward: S and
+    P V; dq: S, dP and dS K; dk/dv: S, dP, P^T dO and dS^T Q), and the
+    per-score softmax work."""
     n, rows, pairs = B * T * H * D, B * H * T, B * H * T * T
     if kind == "fwd":        # read q, k, v; write out, lse
-        nbytes, ops_ = 4 * (4 * n + rows), 4 * pairs * D + 5 * pairs
-    elif kind == "dq":       # read q, k, v, dO, lse, di; write dq
-        nbytes, ops_ = 4 * (5 * n + 2 * rows), 6 * pairs * D + 6 * pairs
-    else:                    # read q, k, v, dO, lse, di; write dk, dv
-        nbytes, ops_ = 4 * (6 * n + 2 * rows), 8 * pairs * D + 6 * pairs
+        return 4 * (4 * n + rows), 4 * pairs * D, 5 * pairs
+    if kind == "dq":         # read q, k, v, dO, lse, di; write dq
+        return 4 * (5 * n + 2 * rows), 6 * pairs * D, 6 * pairs
+    # read q, k, v, dO, lse, di; write dk, dv
+    return 4 * (6 * n + 2 * rows), 8 * pairs * D, 6 * pairs
+
+
+def attention_bound(kind, B, T, H, D):
+    """(bound_ms, bound_by) of one call: its bytes over the HBM rate
+    against all its float32 operations over the float32 rate."""
+    nbytes, products, other = attention_work(kind, B, T, H, D)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops_ / FP32_OPS_PER_S * 1e3
+    t_ops = (products + other) / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def attention_bound_tc(B, T, H, D):
-    """(bound_ms, bound_by) of K4's call in 3xTF32: the forward's bytes
-    against its two products as three TF32 products each (2 * 3 operations
-    a multiply-add) over the tensor cores' rate."""
-    n, rows, pairs = B * T * H * D, B * H * T, B * H * T * T
-    t_bytes = 4 * (4 * n + rows) / HBM_BYTES_PER_S * 1e3
-    t_ops = 3 * 4 * pairs * D / TF32_OPS_PER_S * 1e3
+def attention_bound_tc(kind, B, T, H, D):
+    """(bound_ms, bound_by) of one call of K4, K5 or K6 in 3xTF32: its bytes
+    against its products as three TF32 products each over the tensor
+    cores' rate."""
+    nbytes, products, _ = attention_work(kind, B, T, H, D)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * products / TF32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -808,12 +832,12 @@ def phase_flash_timing(results, counts):
             dev = {"device_ms": device_ms(kernel, iters),
                    "plain_device_ms": device_ms(plain, iters),
                    "library_device_ms": lib_dev[lib_key]}
-            if kind == "fwd":
-                tc_ms, tc_by = attention_bound_tc(B, T, H, D)
-                dev.update(bound_tc_ms=tc_ms, bound_tc_by=tc_by,
-                           launch=fa.forward_launch_info(D))
-                print(f"  {name + '[' + case + ']':36s} 3xTF32 bound {tc_ms:.5f} ms "
-                      f"({tc_by}); launch {dev['launch']}", flush=True)
+            tc_ms, tc_by = attention_bound_tc(kind, B, T, H, D)
+            dev.update(bound_tc_ms=tc_ms, bound_tc_by=tc_by,
+                       launch=fa.forward_launch_info(D) if kind == "fwd"
+                       else fa.backward_launch_info(kind, D))
+            print(f"  {name + '[' + case + ']':36s} 3xTF32 bound {tc_ms:.5f} ms "
+                  f"({tc_by}); launch {dev['launch']}", flush=True)
             rows.append({
                 "name": f"{name}[{case}]", "route": entry["route"],
                 "source": entry["source"], "replaces": entry["replaces"],
@@ -831,6 +855,12 @@ def phase_flash_timing(results, counts):
                   f"bound {b_ms:.5f} ms ({b_by}); device only: kernel "
                   f"{dev['device_ms']}, plain {dev['plain_device_ms']}, "
                   f"library {dev['library_device_ms']} ms", flush=True)
+        k5, k6 = rows[-2], rows[-1]
+        dev_sum = (None if k5["device_ms"] is None or k6["device_ms"] is None
+                   else k5["device_ms"] + k6["device_ms"])
+        print(f"  K5 + K6 [{case}]: events {k5['ms'] + k6['ms']:.5f} ms, device {dev_sum} ms; "
+              f"SDPA backward (dq, dk, dv): events {lib_ms['bwd']:.5f} ms, device "
+              f"{lib_dev['bwd']} ms", flush=True)
         del q, k, v, do, out, lse, di, leaves, sdpa_out
     return rows
 

@@ -125,6 +125,10 @@ FLASH_CASES = {
     "causal_dead_rows": (2, 256, 2, 64, True, "dead", False),
     "d128_t130": (1, 130, 2, 128, False, None, False),
     "t1": (1, 1, 1, 8, False, None, False),
+    # D not a multiple of 4 (4-byte copies, zero-filled columns), T not a
+    # multiple of any tile
+    "d37_t77": (3, 77, 2, 37, False, None, False),
+    "d37_t77_causal_dead": (3, 77, 2, 37, True, "dead", False),
 }
 
 
@@ -168,10 +172,43 @@ def test_flash_kernels_match_plain(cuda, case):
     for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
         assert torch.isfinite(got).all()
         torch.testing.assert_close(got, want, atol=5e-5, rtol=1e-4)
-    if case == "causal_dead_rows":
+    if FLASH_CASES[case][5] == "dead":
         T = q.shape[1]
         assert torch.all(out[1, :T // 4] == 0) and torch.all(dq[1, :T // 4] == 0)
         assert torch.all(lse[1, :, :T // 4] == fa.NEG)
+        # masked keys get no gradient, exactly
+        hidden = mask == 0
+        assert torch.all(dk[hidden] == 0) and torch.all(dv[hidden] == 0)
+
+
+@pytest.mark.parametrize("case", ["vit_s4", "d37_t77_causal_dead", "d128_t130"])
+def test_flash_backward_is_bitwise_repeatable(cuda, case):
+    """Each output row of K5/K6 is written once by its block, with no
+    atomics: two calls on the same inputs give the same bits."""
+    fa, q, k, v, do, mask, causal = _flash_inputs(case, cuda)
+    out, lse = fa.forward_plain(q, k, v, mask, causal)
+    di = fa.row_dot(do, out)
+    first = (fa.flash_dq(q, k, v, do, lse, di, mask, causal),
+             *fa.flash_dkv(q, k, v, do, lse, di, mask, causal))
+    second = (fa.flash_dq(q, k, v, do, lse, di, mask, causal),
+              *fa.flash_dkv(q, k, v, do, lse, di, mask, causal))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_backward_launch_info(cuda):
+    """K5/K6's resources from the runtime: no spill at D = 64, at least two
+    blocks an SM at D = 128 (128 threads a block, 64 own rows)."""
+    from tpu_ddp_torch.ops import flash_attention as fa
+
+    for kind in ("dq", "dkv"):
+        small, large = fa.backward_launch_info(kind, 64), fa.backward_launch_info(kind, 128)
+        assert small["spill_bytes"] == 0, (kind, small)
+        assert large["blocks_per_sm"] >= 2, (kind, large)
+        own = "query_rows" if kind == "dq" else "key_rows"
+        assert small["threads"] == large["threads"] == 128
+        assert small[own] == large[own] == 64
 
 
 #: K4 alone: the ViT path's shape (qkv views), the long regime at D = 128,

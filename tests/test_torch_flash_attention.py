@@ -45,6 +45,7 @@ CASES = {
     "causal": (2, 128, 2, 64, 3, 1.0, True, None),
     "mask_dead_rows": (2, 128, 2, 64, 4, 1.0, True, "dead"),
     "prime_t67": (1, 67, 2, 32, 5, 1.0, True, "tail"),
+    "d128": (1, 128, 2, 128, 6, 1.0, False, None),
 }
 PORT_IMPLS = ("reference", "flash_attention_cpu", "kernel_functions")
 
@@ -125,12 +126,11 @@ def test_dead_rows_are_exact_zeros(impl):
     assert np.all(dk[1, :T // 4] == 0.0) and np.all(dv[1, :T // 4] == 0.0)
 
 
-@pytest.mark.parametrize("case", [c for c in CASES if c != "prime_t67"])
-def test_kernel_plain_versions_match_pallas_kernels(case):
-    """K4's ``(out, lse)`` against ``_flash_forward`` (its lane-broadcast
-    ``(B*H, T, 128)`` lse, column 0), and K5/K6 against ``_flash_backward``
-    given the same forward residuals: the plain versions that the CUDA
-    kernels are held to on the card compute what the Pallas kernels do."""
+@functools.lru_cache(maxsize=None)
+def _pallas_kernels(case):
+    """The Pallas kernels in interpret mode: ``_flash_forward``'s ``(out,
+    lse)``, its lse as ``(B, H, T)``, and ``_flash_backward``'s ``(dq, dk,
+    dv)`` from those residuals under the cotangent g, all as numpy."""
     q, k, v, g, mask, causal = _inputs(case)
     B, T, H, D = q.shape
     jm = None if mask is None else jnp.asarray(mask)
@@ -138,24 +138,104 @@ def test_kernel_plain_versions_match_pallas_kernels(case):
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jm, block_q=64,
         block_k=64, interpret=True, causal=causal)
     assert j_lse is not None  # the Pallas kernel ran, not the jnp path
+    grads = jfa._flash_backward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), j_out, j_lse,
+        jnp.asarray(g), jm, block_q=64, block_k=64, interpret=True,
+        causal=causal)
+    lse = np.asarray(j_lse)[:, :, 0].reshape(B, H, T)
+    return (np.asarray(j_out), lse) + tuple(np.asarray(x) for x in grads)
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c != "prime_t67"])
+def test_kernel_plain_versions_match_pallas_kernels(case):
+    """K4's ``(out, lse)`` against ``_flash_forward`` (its lane-broadcast
+    ``(B*H, T, 128)`` lse, column 0), and K5/K6 against ``_flash_backward``
+    given the same forward residuals: the plain versions that the CUDA
+    kernels are held to on the card compute what the Pallas kernels do."""
+    q, k, v, g, mask, causal = _inputs(case)
+    j_out, j_lse, jdq, jdk, jdv = _pallas_kernels(case)
     tq, tk, tv, tg = (torch.tensor(x) for x in (q, k, v, g))
     tm = None if mask is None else torch.tensor(mask)
     out, lse = fa.flash_forward(tq, tk, tv, tm, causal)
     fwd_tol = SHARP_TOL if case == "sharp" else FWD_TOL
-    np.testing.assert_allclose(out.numpy(), np.asarray(j_out), **fwd_tol)
-    np.testing.assert_allclose(
-        lse.numpy(), np.asarray(j_lse)[:, :, 0].reshape(B, H, T), **fwd_tol)
+    np.testing.assert_allclose(out.numpy(), j_out, **fwd_tol)
+    np.testing.assert_allclose(lse.numpy(), j_lse, **fwd_tol)
 
-    jdq, jdk, jdv = jfa._flash_backward(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), j_out, j_lse,
-        jnp.asarray(g), jm, block_q=64, block_k=64, interpret=True,
-        causal=causal)
     di = fa.row_dot(tg, out)
     dq = fa.flash_dq(tq, tk, tv, tg, lse, di, tm, causal)
     dk, dv = fa.flash_dkv(tq, tk, tv, tg, lse, di, tm, causal)
     for name, a, b in (("dq", dq, jdq), ("dk", dk, jdk), ("dv", dv, jdv)):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), **GRAD_TOL,
-                                   err_msg=name)
+        np.testing.assert_allclose(a.numpy(), b, **GRAD_TOL, err_msg=name)
+
+
+def _tf32_split(x: torch.Tensor):
+    """K5/K6's operand split on int32 views: ``hi = tf32(x)`` and ``lo =
+    tf32(x - hi)``, each rounded by adding half a TF32 unit to the bit
+    pattern and clearing the 13 bits below it."""
+    def rna(t):
+        return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the kernels form it: three products of TF32 values
+    (lo.hi + hi.lo, then hi.hi; lo.lo dropped), summed in float32."""
+    ah, al = _tf32_split(a)
+    bh, bl = _tf32_split(b)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _emulated_backward(case, lse, out):
+    """dq, dk, dv by K5/K6's arithmetic on whole (T, T) matrices: S and dP
+    in 3xTF32, ``p = 2^(s * scale2 - lse * log2e)`` rounded once (the
+    kernels' fma; ``scale2 = scale * log2e`` in float32), invisible entries
+    0 by selection, ``ds = p * (dp - di) * scale``, then dQ, dK and dV in
+    3xTF32."""
+    q, k, v, g, mask, causal = _inputs(case)
+    B, T, H, D = q.shape
+    log2e = np.float32(1.4426950408889634)
+    scale = np.float32(1.0 / np.sqrt(D))
+    scale2 = np.float32(scale * log2e)
+    tq, tk, tv, tg = (torch.tensor(x).transpose(1, 2) for x in (q, k, v, g))
+    di = torch.tensor((g * out).sum(-1)).transpose(1, 2)          # (B, H, T)
+    lse2 = torch.tensor(lse) * float(log2e)
+    s = _mm_3xtf32(tq, tk.transpose(-1, -2))
+    dp = _mm_3xtf32(tg, tv.transpose(-1, -2))
+    arg = (s.double() * float(scale2) - lse2[..., None].double()).float()
+    vis = torch.ones((T, T), dtype=torch.bool)
+    if causal:
+        vis = torch.tril(vis)
+    vis = vis[None, None]
+    if mask is not None:
+        vis = vis & torch.tensor(mask > 0)[:, None, None, :]
+    p = torch.where(vis, torch.exp2(arg), torch.zeros(()))
+    ds = p * (dp - di[..., None]) * float(scale)
+    dq = _mm_3xtf32(ds, tk)
+    dk = _mm_3xtf32(ds.transpose(-1, -2), tq)
+    dv = _mm_3xtf32(p.transpose(-1, -2), tg)
+    return tuple(x.transpose(1, 2).numpy() for x in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("case", ["plain", "d48", "causal", "mask_dead_rows", "d128"])
+def test_kernel_arithmetic_emulated_matches_pallas_backward(case):
+    """The precision argument of K5/K6 on the card, pinned on the CPU: their
+    arithmetic (3xTF32 products, base-2 exp from ``lse * log2e``) emulated
+    in torch is within ``tests/test_ops.py``'s gradient tolerance of the
+    Pallas ``_flash_backward`` given the same forward residuals; dead rows'
+    dq and masked keys' dk and dv stay exactly 0."""
+    j_out, j_lse, jdq, jdk, jdv = _pallas_kernels(case)
+    got = _emulated_backward(case, j_lse, j_out)
+    for name, a, b in zip(("dq", "dk", "dv"), got, (jdq, jdk, jdv)):
+        assert np.all(np.isfinite(a)), name
+        np.testing.assert_allclose(a, b, **GRAD_TOL, err_msg=name)
+    mask = _inputs(case)[4]
+    if mask is not None:
+        T = mask.shape[1]
+        hidden = mask == 0
+        assert np.all(got[0][1, :T // 4] == 0.0)
+        assert np.all(got[1][hidden] == 0.0) and np.all(got[2][hidden] == 0.0)
 
 
 def test_strided_qkv_views_match_contiguous():
@@ -210,15 +290,15 @@ def test_other_devices_raise():
 
 def test_each_library_has_its_own_flags_in_its_hash(monkeypatch):
     """K1 keeps ``-fmad=false`` (bitwise with its plain version); the flash
-    kernels, held to a tolerance, do not take it, and K4, held to 128
-    registers a thread by its launch bounds, takes no ``-maxrregcount``;
-    the build's file name covers the flags a library is built with."""
+    kernels, held to a tolerance, do not take it, and K4-K6, whose launch
+    bounds set their register caps, take no ``-maxrregcount``; the build's
+    file name covers the flags a library is built with."""
     from tpu_ddp_torch.ops import _build
 
     assert "-fmad=false" in _build.flags("fused_update")
-    assert "-fmad=false" not in _build.flags("flash_attention")
-    assert not any(f.startswith(("-fmad", "-maxrregcount"))
-                   for f in _build.flags("flash_forward"))
+    for name in ("flash_forward", "flash_attention"):
+        assert not any(f.startswith(("-fmad", "-maxrregcount"))
+                       for f in _build.flags(name)), name
     before = _build.library_path("flash_attention")
     source, extra, fns = _build.LIBRARIES["flash_attention"]
     monkeypatch.setitem(_build.LIBRARIES, "flash_attention",
@@ -237,5 +317,19 @@ def test_k4_design_variants_edit_the_source_once():
     src = (_build.CSRC / _build.LIBRARIES[k4_variants.LIBRARY][0]).read_text()
     assert k4_variants.VARIANTS["built"] == []
     for name, edits in k4_variants.VARIANTS.items():
+        for old, _ in edits:
+            assert src.count(old) == 1, (name, old)
+
+
+def test_k56_design_variants_edit_the_source_once():
+    """``tools/k56_variants.py`` rebuilds K5/K6 with one design choice
+    undone by textual edits of ``flash_attention.cu``; each edit must still
+    find its text exactly once."""
+    from tpu_ddp_torch.ops import _build
+    from tpu_ddp_torch.tools import k56_variants
+
+    src = (_build.CSRC / _build.LIBRARIES[k56_variants.LIBRARY][0]).read_text()
+    assert k56_variants.VARIANTS["built"] == []
+    for name, edits in k56_variants.VARIANTS.items():
         for old, _ in edits:
             assert src.count(old) == 1, (name, old)

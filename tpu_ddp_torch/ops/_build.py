@@ -52,12 +52,13 @@ LIBRARIES = {
         "tpu_ddp_flash_fwd_info": (_I, [_I, _P]),
         **_ERR,
     }),
-    # K5 and K6, held to a tolerance, not to bits: nvcc's default
-    # contraction into FMAs. Without -maxrregcount ptxas holds K5 to 128
-    # registers a thread, and at D = 128 it then takes about twice as long.
-    "flash_attention": ("flash_attention.cu", ("-maxrregcount=255",), {
+    # K5 and K6, held to a tolerance: nvcc's default contraction into FMAs;
+    # their __launch_bounds__ (128 threads, two blocks an SM) allow up to
+    # 255 registers a thread
+    "flash_attention": ("flash_attention.cu", (), {
         "tpu_ddp_flash_dq": (_I, [_P] * 9 + [_I] * 5 + [_P]),
         "tpu_ddp_flash_dkv": (_I, [_P] * 10 + [_I] * 5 + [_P]),
+        "tpu_ddp_flash_bwd_info": (_I, [_I, _I, _P]),
         **_ERR,
     }),
     # -fmad=false: K3 rounds q * scale and the sum with add_to apart, as

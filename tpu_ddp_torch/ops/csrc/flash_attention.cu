@@ -1,4 +1,5 @@
-// K5-K6: the two flash-attention backward kernels for Hopper.
+// K5-K6: the two flash-attention backward kernels for Hopper, on the tensor
+// cores in 3xTF32.
 //
 // Replace the Pallas kernels of tpu_ddp/ops/flash_attention.py:
 //   K5 flash_dq_kernel   <- _dq_kernel   (launched by _flash_backward)
@@ -13,43 +14,74 @@
 //   K5  p = exp(scale * q.k - lse) (invisible: 0); ds = p * (dO.v - di) *
 //       scale; dq = sum over keys of ds * k.
 //   K6  dv = sum over queries of p * dO; dk = sum over queries of ds * q.
-// di = rowsum(dO * O) comes from the caller, as in the JAX package.
+// di = rowsum(dO * O) comes from the caller, as in the JAX package. Each
+// output row is written once, by the block that owns it, with no atomics,
+// so the result does not change from run to run.
 //
-// Design. The TPU kernels walk a sequential grid and carry the dq, dk, dv
-// sums in VMEM scratch from one grid step to the next. Here the sequential
-// grid dimension is a loop inside one thread block: a block owns one (b*h,
-// 64-row tile) -- of queries for K5, of keys for K6 -- keeps its running
-// sums in registers, and streams the other side's 64-row tiles through
-// shared memory. 256 threads as 16 x 16: thread (ty, tx) computes rows
-// 4ty..4ty+3 and columns tx, tx+16, tx+32, tx+48 of each 64 x 64 score tile
-// (float4 reads from rows padded to D+4 floats, so the 16 column rows a
-// half-warp reads fall in distinct banks), and the same four rows of the
-// output accumulator, columns 4tx..4tx+3 (+64). Tiles are padded with zeros
-// past T and D, so any T >= 1 and any D <= 128 work; D <= 64 takes the
-// 64-wide instantiation. Causal skips the tiles above the diagonal. q, k, v
-// and dO are read through their (B, T, H) strides, so the views of the
-// ViT's qkv split need no copy; outputs are contiguous.
+// What bounds them on this card: their products, 6*T^2*D operations per
+// (b, h) for dq (S = Q K^T, dP = dO V^T, dQ = dS K) and 8*T^2*D for dk/dv
+// (S^T, dP^T, dV = P^T dO, dK = dS^T Q). They run on the tensor cores in
+// 3xTF32, as K4's do: each operand x splits into hi = tf32(x) and
+// lo = tf32(x - hi), and a product is lo.hi + hi.lo + hi.hi with float32
+// accumulators, three mma.sync.m16n8k8 TF32 products for each float32 one
+// (165 TFLOP/s at most, against 67 for float32 on the CUDA cores). At short
+// T (the ViT's 64 tokens) the bytes of q, k, v, dO and one tile's latency
+// bound them instead.
 //
-// What bounds them on this card: float32 arithmetic on the CUDA cores:
-// 6*T^2*D operations per (b, h) for dq and 8*T^2*D for dk/dv, against 67
-// TFLOP/s; at short T (the ViT's 64 tokens) the bytes of q, k, v, dO and
-// the launch instead. The design keeps every score tile out of device
-// memory (it lives in registers and shared-memory tiles) and reads each
-// input tile once per block, with eight loads in flight per thread. Built
-// with -maxrregcount=255 (tpu_ddp_torch/ops/_build.py). The tensor cores
-// (as K4 uses them), wgmma, TMA and bf16 are later work.
+// The design (K4's FlashAttention-2 layout, twice):
+// - K5: a block owns one (b*h, 64-row query tile), each of its four warps
+//   16 query rows. The Q and dO tiles stay in shared memory; each thread
+//   keeps lse * log2(e) and di of its two rows (g, g + 8) in registers. K,
+//   V and the key mask stream through the ring. Per key tile, S and dP are
+//   mma accumulators; p = 2^(s * scale * log2(e) - lse * log2(e)) and
+//   ds = p * (dp - di) * scale replace them in place; then dQ += dS K.
+// - K6: a block owns one (b*h, 64-row key tile), each warp 16 key rows. K,
+//   V and the rows' key-mask bits stay; Q, dO and the query tile's lse and
+//   di stream through the ring. Per query tile, S^T = K Q^T and
+//   dP^T = V dO^T (K4's S with the roles swapped, the per-column lse and
+//   di from the ring), then dV += P^T dO and dK += dS^T Q.
+// - A score accumulator holds row r's columns 2t and 2t + 1 in lane (r, t),
+//   which is the A operand's layout once the column order inside each
+//   8-wide slice is permuted (column 2t as k = t, 2t + 1 as k = t + 4); the
+//   B operand (K for dQ, dO and Q for dV and dK) is read in that same order.
+//   So P and dS never leave registers: no shuffle, no score tile in shared
+//   memory, no barrier between the scores and the products.
+// - The three products of a 3xTF32 step go to independent accumulators in
+//   turn (S's and dP's n-tiles together; the output n-tiles, four at a
+//   time, of dQ, or of dV and dK together), so no mma waits on the one
+//   before it.
+// - The streamed tiles go through a two-stage ring in shared memory, filled
+//   by cp.async: tile j + 1 loads while tile j is computed, one barrier a
+//   tile. Rows past T and columns past D arrive as zeros (cp.async's
+//   src-size), so any T >= 1 and D <= 128 work and the products run over
+//   all kD columns with no bound checks. Tiles are rows of kD + 4 floats:
+//   every fragment read of a warp falls in 32 distinct banks.
+// - An entry that is not visible is set to 0 by selection, so rows with no
+//   visible key give dq = 0 and masked keys dk = dv = 0, exactly; a tile
+//   the warp sees whole skips the visibility tests.
+// - Resources: 128 threads, __launch_bounds__(128, 2), so a thread may take
+//   up to 255 registers (K6's dk and dv accumulators alone are 128 at
+//   D = 128) and two blocks fit an SM's register file. Shared memory a
+//   block: the two resident (64, kD + 4) tiles and the ring, ~100 KB at
+//   D = 128 with 16-row streamed tiles, so two blocks fit an SM's 227 KB;
+//   at D = 64, 32-row streamed tiles, ~70 KB.
+// Causal: K5 stops at its query tile's last row, and a warp skips the key
+// tiles past its own last row; K6 starts at the query tile holding its
+// first key, and a warp skips the query tiles that end before its first
+// key. q, k, v and dO are read through their (B, T, H) strides, so the
+// views of the ViT's qkv split need no copy; 16-byte copies where D, the
+// strides and the pointers allow, 4-byte ones otherwise.
 //
 // Plain C interface, loaded with ctypes (tpu_ddp_torch/ops/_build.py).
 
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <cstdint>
 
 namespace {
 
-constexpr int kTile = 64;        // rows of a query tile and of a key tile
-constexpr int kThreads = 256;    // 16 x 16
-constexpr int kLdP = kTile + 4;  // row stride of a 64 x 64 score tile
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct View {  // element strides of B, T and H; D has stride 1
   long long sb, st, sh;
@@ -60,283 +92,504 @@ struct Args {
   float *dq, *dk, *dv;
   View vq, vk, vv, vdo, vout, vdk, vdv;  // vout: the strides of dq
   int B, T, H, D;
-  bool causal;
+  bool causal, vec;  // vec: 16-byte copies of q, k, v and dO rows
   float scale;
 };
 
-template <int kD>
-struct Tile {
-  static constexpr int kLd = kD + 4;          // row stride of a (64, kD) tile
-  static constexpr int kFloats = kTile * kLd;
-  static constexpr int kCols = kD / 16;       // accumulator columns a thread owns
-};
+constexpr int kBM = 64;        // rows a block owns: queries (K5), keys (K6)
+constexpr int kThreads = 128;  // four warps of 16 rows
+constexpr int kMinBlocks = 2;  // blocks an SM: up to 255 registers a thread
 
-__device__ __forceinline__ float lane(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+// Shared memory of a block: two resident (kBM, kD + 4) tiles, two streamed
+// (kBN, kD + 4) tiles in two stages, and kVecs per-row vectors of the
+// streamed tile in two stages (K5: the key mask; K6: lse and di).
+template <int kD, int kBN, int kVecs>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (2 * kBM * (kD + 4) + 4 * kBN * (kD + 4) + 2 * kVecs * kBN);
 }
 
-// Rows [t0, t0 + 64) of the (b, h) slice of x into a (64, kD) shared tile;
-// rows past T and columns past D are zero.
-template <int kD>
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Rows [t0, t0 + kRows) of the (b, h) slice of x into a (kRows, kD + 4)
+// shared tile; rows past T and columns past D are zero. A source address
+// that would lie outside the slice is replaced by its base (nothing is read
+// from it: src-size 0).
+template <int kD, int kRows>
 __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ x,
-                                          View v, int b, int h, int t0, int T, int D) {
+                                          View v, int b, int h, int t0, int T, int D,
+                                          bool vec) {
+  constexpr int kLd = kD + 4;
   const float* base = x + b * v.sb + h * v.sh;
-#pragma unroll 8  // eight loads in flight per thread, not one
-  for (int i = threadIdx.x; i < kTile * kD; i += kThreads) {
-    const int r = i / kD, d = i % kD, t = t0 + r;
-    dst[r * Tile<kD>::kLd + d] =
-        (t < T && d < D) ? base[static_cast<long long>(t) * v.st + d] : 0.0f;
-  }
-}
-
-// Per-row statistic (lse or di) of rows [t0, t0 + 64) of the (B, H, T) array.
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src,
-                                          int bh, int t0, int T) {
-  if (threadIdx.x < kTile) {
-    const int t = t0 + threadIdx.x;
-    dst[threadIdx.x] = t < T ? src[static_cast<long long>(bh) * T + t] : 0.0f;
-  }
-}
-
-// 1 where key row t0 + r exists and is not masked.
-__device__ __forceinline__ void load_key_visibility(float* dst, const float* mask,
-                                                    int b, int t0, int T) {
-  if (threadIdx.x < kTile) {
-    const int t = t0 + threadIdx.x;
-    const bool live = t < T && (mask == nullptr ||
-                                mask[static_cast<long long>(b) * T + t] > 0.0f);
-    dst[threadIdx.x] = live ? 1.0f : 0.0f;
-  }
-}
-
-// s[i][j] = A[4ty + i] . B[tx + 16j] over the first d_end columns.
-template <int kD>
-__device__ __forceinline__ void dot_tile(const float* A, const float* Bm, int ty,
-                                         int tx, int d_end, float (&s)[4][4]) {
-  constexpr int kLd = Tile<kD>::kLd;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+  if (vec) {
+    constexpr int kChunks = kD / 4;
 #pragma unroll 4
-  for (int d = 0; d < d_end; d += 4) {
-    float4 a[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[i] = *reinterpret_cast<const float4*>(A + (4 * ty + i) * kLd + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      bv[j] = *reinterpret_cast<const float4*>(Bm + (tx + 16 * j) * kLd + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(a[i].x, bv[j].x, s[i][j]);
-        s[i][j] = fmaf(a[i].y, bv[j].y, s[i][j]);
-        s[i][j] = fmaf(a[i].z, bv[j].z, s[i][j]);
-        s[i][j] = fmaf(a[i].w, bv[j].w, s[i][j]);
-      }
-  }
-}
-
-// acc[i][4g + e] += sum_r P[4ty + i][r] * V[r][4tx + 64g + e]: a 64 x 64
-// score tile in shared memory times a (64, kD) tile.
-template <int kD>
-__device__ __forceinline__ void pv_tile(const float* P, const float* V, int ty,
-                                        int tx, float (&acc)[4][Tile<kD>::kCols]) {
-  constexpr int kLd = Tile<kD>::kLd;
-  constexpr int kGroups = kD / 64;
-#pragma unroll 2
-  for (int r = 0; r < kTile; r += 4) {
-    float4 p[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      p[i] = *reinterpret_cast<const float4*>(P + (4 * ty + i) * kLdP + r);
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-#pragma unroll
-      for (int g = 0; g < kGroups; ++g) {
-        const float4 vv =
-            *reinterpret_cast<const float4*>(V + (r + e) * kLd + 4 * tx + 64 * g);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float pe = lane(p[i], e);
-          acc[i][4 * g + 0] = fmaf(pe, vv.x, acc[i][4 * g + 0]);
-          acc[i][4 * g + 1] = fmaf(pe, vv.y, acc[i][4 * g + 1]);
-          acc[i][4 * g + 2] = fmaf(pe, vv.z, acc[i][4 * g + 2]);
-          acc[i][4 * g + 3] = fmaf(pe, vv.w, acc[i][4 * g + 3]);
-        }
-      }
-  }
-}
-
-// Rows 4ty + i (< T) of acc, divided by div[i], into the (b, h) slice of y.
-template <int kD>
-__device__ __forceinline__ void store_rows(float* y, View v, int b, int h, int t0,
-                                           int T, int D, int ty, int tx,
-                                           const float (&acc)[4][Tile<kD>::kCols],
-                                           const float (&div)[4]) {
-  float* base = y + b * v.sb + h * v.sh;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + 4 * ty + i;
-    if (t >= T) continue;
-#pragma unroll
-    for (int c = 0; c < Tile<kD>::kCols; ++c) {
-      const int d = 4 * tx + 64 * (c / 4) + c % 4;
-      if (d < D) base[static_cast<long long>(t) * v.st + d] = acc[i][c] / div[i];
+    for (int i = threadIdx.x; i < kRows * kChunks; i += kThreads) {
+      const int r = i / kChunks, d = 4 * (i % kChunks), t = t0 + r;
+      const bool live = t < T && d < D;
+      cp_async16(dst + r * kLd + d, live ? base + static_cast<long long>(t) * v.st + d : base,
+                 live ? 16 : 0);
+    }
+  } else {
+#pragma unroll 4
+    for (int i = threadIdx.x; i < kRows * kD; i += kThreads) {
+      const int r = i / kD, d = i % kD, t = t0 + r;
+      const bool live = t < T && d < D;
+      cp_async4(dst + r * kLd + d, live ? base + static_cast<long long>(t) * v.st + d : base,
+                live ? 4 : 0);
     }
   }
 }
 
-// K5 (replaces _dq_kernel). Grid (query tiles, B*H).
-template <int kD>
-__global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
-  using L = Tile<kD>;
+// Elements [t0, t0 + n) of row src into dst, zero past T (n <= kThreads).
+__device__ __forceinline__ void load_vec(float* dst, const float* src, int t0, int n, int T) {
+  if (threadIdx.x < n) {
+    const int t = t0 + threadIdx.x;
+    const bool live = t < T;
+    cp_async4(dst + threadIdx.x, live ? src + t : src, live ? 4 : 0);
+  }
+}
+
+// hi = tf32(x) and lo = x - hi, as the mma's 32-bit operands. hi rounds to
+// nearest, ties away from zero (cvt.rna.tf32.f32's rounding), written as
+// in K4 (flash_forward.cu: the instruction costs more on sm_90): an add of
+// half a TF32 unit to the bit pattern and a mask of the 13 bits below it.
+// lo (exact: |lo| <= 2^-11 |x|) goes to the tensor core as it is, which
+// reads a TF32 operand's top 19 bits and so truncates it.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  const float rest = x - __uint_as_float(hi);
+  lo = __float_as_uint(rest);
+}
+
+// d += a.b, one m16n8k8 TF32 product with float32 accumulators
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One round of d[d0 + i] += a.b[i] in 3xTF32 over kN accumulators: round 0
+// the lo.hi terms, 1 the hi.lo terms, 2 the hi.hi terms (the small terms
+// first)
+template <int kRound, int kN, int kM>
+__device__ __forceinline__ void mma_round(float (&d)[kM][4], int d0, const uint32_t (&ahi)[4],
+                                          const uint32_t (&alo)[4],
+                                          const uint32_t (&bhi)[kN][2],
+                                          const uint32_t (&blo)[kN][2]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i)
+    mma(d[d0 + i], kRound == 0 ? alo : ahi, kRound == 1 ? blo[i] : bhi[i]);
+}
+
+// The A operand (16 x 8: rows g, g + 8; columns t, t + 4) of a row-major
+// tile, split; p points at row g, column t.
+template <int kLd>
+__device__ __forceinline__ void frag_a(const float* p, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split(p[0], hi[0], lo[0]);
+  split(p[8 * kLd], hi[1], lo[1]);
+  split(p[4], hi[2], lo[2]);
+  split(p[8 * kLd + 4], hi[3], lo[3]);
+}
+
+// The B operand (8 x 8: k = t, t + 4; n = g) of X^T, X a row-major tile
+// whose row is n, split; p points at row g, column t.
+__device__ __forceinline__ void frag_b(const float* p, uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+  split(p[0], hi[0], lo[0]);
+  split(p[4], hi[1], lo[1]);
+}
+
+// The B operand of X itself under the permutation: k = t is row 2t, k = t + 4
+// row 2t + 1, n = g the column; p points at row 2t, column g.
+template <int kLd>
+__device__ __forceinline__ void frag_b_perm(const float* p, uint32_t (&hi)[2],
+                                            uint32_t (&lo)[2]) {
+  split(p[0], hi[0], lo[0]);
+  split(p[kLd], hi[1], lo[1]);
+}
+
+// An accumulator (rows g, g + 8; columns 2t, 2t + 1) as the A operand under
+// the permutation, split.
+__device__ __forceinline__ void frag_acc(const float (&c)[4], uint32_t (&hi)[4],
+                                         uint32_t (&lo)[4]) {
+  split(c[0], hi[0], lo[0]);
+  split(c[2], hi[1], lo[1]);
+  split(c[1], hi[2], lo[2]);
+  split(c[3], hi[3], lo[3]);
+}
+
+// 2^x (ex2.approx: 2 ulp; an argument of -inf or below -126 gives 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// S = A X^T and U = C Y^T for a warp's 16 rows of the resident tiles (A, C
+// at the lane's row g, column t) and the kBN rows of the streamed ones, over
+// all kD columns: the three products of each 3xTF32 step go round the 2 kN
+// independent accumulators; with few n-tiles (16-row streamed tiles) the
+// small terms get accumulators of their own, as in K4, for more of them.
+template <int kD, int kBN>
+__device__ __forceinline__ void two_products(const float* A, const float* X, const float* C,
+                                             const float* Y, int g, int t,
+                                             float (&s)[kBN / 8][4], float (&u)[kBN / 8][4]) {
+  constexpr int kLd = kD + 4, kNT = kBN / 8;
+  constexpr bool kSmallAcc = kNT < 4;
+  float sm[kSmallAcc ? kNT : 1][4], um[kSmallAcc ? kNT : 1][4];
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = u[n][e] = 0.0f;
+#pragma unroll
+  for (int n = 0; n < (kSmallAcc ? kNT : 1); ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sm[n][e] = um[n][e] = 0.0f;
+#pragma unroll(kD == 64 ? 2 : kD / 8)
+  for (int kk = 0; kk < kD; kk += 8) {
+    uint32_t ah[4], al[4], ch[4], cl[4];
+    uint32_t xh[kNT][2], xl[kNT][2], yh[kNT][2], yl[kNT][2];
+    frag_a<kLd>(A + kk, ah, al);
+    frag_a<kLd>(C + kk, ch, cl);
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      frag_b(X + (8 * n + g) * kLd + kk + t, xh[n], xl[n]);
+      frag_b(Y + (8 * n + g) * kLd + kk + t, yh[n], yl[n]);
+    }
+    if constexpr (kSmallAcc) {
+      mma_round<0>(sm, 0, ah, al, xh, xl);
+      mma_round<0>(um, 0, ch, cl, yh, yl);
+      mma_round<2>(s, 0, ah, al, xh, xl);
+      mma_round<2>(u, 0, ch, cl, yh, yl);
+      mma_round<1>(sm, 0, ah, al, xh, xl);
+      mma_round<1>(um, 0, ch, cl, yh, yl);
+    } else {
+      mma_round<0>(s, 0, ah, al, xh, xl);
+      mma_round<0>(u, 0, ch, cl, yh, yl);
+      mma_round<1>(s, 0, ah, al, xh, xl);
+      mma_round<1>(u, 0, ch, cl, yh, yl);
+      mma_round<2>(s, 0, ah, al, xh, xl);
+      mma_round<2>(u, 0, ch, cl, yh, yl);
+    }
+  }
+  if constexpr (kSmallAcc) {
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] += sm[n][e];
+        u[n][e] += um[n][e];
+      }
+  }
+}
+
+// Rows row_lo and row_lo + 8 (those below T) of a warp's (16, kD)
+// accumulator into the (b, h) slice of y, columns below D.
+template <int kDT>
+__device__ __forceinline__ void store_rows(float* y, View v, int b, int h, int row_lo,
+                                           int T, int D, int t, const float (&acc)[kDT][4]) {
+  float* base = y + b * v.sb + h * v.sh;
+  const int row_hi = row_lo + 8;
+#pragma unroll
+  for (int dn = 0; dn < kDT; ++dn) {
+    const int col = 8 * dn + 2 * t;
+    if (col >= D) break;
+    const bool pair = col + 1 < D;
+    if (row_lo < T) {
+      float* o = base + static_cast<long long>(row_lo) * v.st + col;
+      o[0] = acc[dn][0];
+      if (pair) o[1] = acc[dn][1];
+    }
+    if (row_hi < T) {
+      float* o = base + static_cast<long long>(row_hi) * v.st + col;
+      o[0] = acc[dn][2];
+      if (pair) o[1] = acc[dn][3];
+    }
+  }
+}
+
+constexpr int kG = 4;  // output n-tiles a round of dQ, dV and dK
+
+// K5 (replaces _dq_kernel). 1-D grid of B*H*ceil(T/kBM) blocks, the query
+// tiles of one (b, h) adjacent so that they share K/V tiles in L2.
+template <int kD, int kBN>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) flash_dq_kernel(Args a) {
+  constexpr int kLd = kD + 4, kNT = kBN / 8, kDT = kD / 8;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
-  float* dOs = Qs + L::kFloats;
-  float* Ks = dOs + L::kFloats;
-  float* Vs = Ks + L::kFloats;
-  float* DSs = Vs + L::kFloats;
-  float* kvis = DSs + kTile * kLdP;
-  float* lse_s = kvis + kTile;
-  float* di_s = lse_s + kTile;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int tiles = (a.T + kTile - 1) / kTile;
-  const int bh = blockIdx.x / tiles, b = bh / a.H, h = bh % a.H;
-  const int q0 = blockIdx.x % tiles * kTile;
-  const int d_end = (a.D + 3) & ~3;
+  float* dOs = Qs + kBM * kLd;
+  float* Ks = dOs + kBM * kLd;  // [2][kBN][kLd]
+  float* Vs = Ks + 2 * kBN * kLd;
+  float* Ms = Vs + 2 * kBN * kLd;  // [2][kBN]
 
-  load_tile<kD>(Qs, a.q, a.vq, b, h, q0, a.T, a.D);
-  load_tile<kD>(dOs, a.dout, a.vdo, b, h, q0, a.T, a.D);
-  load_rows(lse_s, a.lse_in, bh, q0, a.T);
-  load_rows(di_s, a.di, bh, q0, a.T);
-  float acc[4][L::kCols];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;  // the mma fragments' row and column
+  const int tiles = (a.T + kBM - 1) / kBM;
+  const int bh = blockIdx.x / tiles, b = bh / a.H, h = bh % a.H;
+  // under causal the last query tiles have the most keys: start them first
+  const int tile = a.causal ? tiles - 1 - blockIdx.x % tiles : blockIdx.x % tiles;
+  const int q0 = tile * kBM;
+  const int warp_first = q0 + 16 * warp, warp_last = warp_first + 15;
+  const int row_lo = warp_first + g, row_hi = row_lo + 8;
+  const float scale2 = a.scale * kLog2e;
+  const float* mask_b = a.mask ? a.mask + static_cast<long long>(b) * a.T : nullptr;
+
+  auto load_kv = [&](int j, int stage) {
+    const int k0 = j * kBN;
+    load_tile<kD, kBN>(Ks + stage * kBN * kLd, a.k, a.vk, b, h, k0, a.T, a.D, a.vec);
+    load_tile<kD, kBN>(Vs + stage * kBN * kLd, a.v, a.vv, b, h, k0, a.T, a.D, a.vec);
+    if (mask_b != nullptr) load_vec(Ms + stage * kBN, mask_b, k0, kBN, a.T);
+  };
+
+  const int kv_end = a.causal ? min(a.T, q0 + kBM) : a.T;
+  const int n_tiles = (kv_end + kBN - 1) / kBN;
+  load_tile<kD, kBM>(Qs, a.q, a.vq, b, h, q0, a.T, a.D, a.vec);
+  load_tile<kD, kBM>(dOs, a.dout, a.vdo, b, h, q0, a.T, a.D, a.vec);
+  load_kv(0, 0);
+  cp_async_commit();
+
+  // the two rows' lse in base 2 and di; a row past T takes 0 (not stored)
+  const float* lse_bh = a.lse_in + static_cast<long long>(bh) * a.T;
+  const float* di_bh = a.di + static_cast<long long>(bh) * a.T;
+  const float l2_lo = row_lo < a.T ? lse_bh[row_lo] * kLog2e : 0.0f;
+  const float l2_hi = row_hi < a.T ? lse_bh[row_hi] * kLog2e : 0.0f;
+  const float di_lo = row_lo < a.T ? di_bh[row_lo] : 0.0f;
+  const float di_hi = row_hi < a.T ? di_bh[row_hi] : 0.0f;
+
+  float dq[kDT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < kDT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.0f;
+  const float* Qw = Qs + (16 * warp + g) * kLd + t;
+  const float* dOw = dOs + (16 * warp + g) * kLd + t;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // tile j is in; every warp is done with tile j - 1
+    if (j + 1 < n_tiles) load_kv(j + 1, (j + 1) & 1);
+    cp_async_commit();
+    const int k0 = j * kBN;
+    if (a.causal && k0 > warp_last) continue;  // no key of this tile is visible
+    const float* Kt = Ks + (j & 1) * kBN * kLd;
+    const float* Vt = Vs + (j & 1) * kBN * kLd;
+    const float* Mt = Ms + (j & 1) * kBN;
+
+    float s[kNT][4], ds[kNT][4];  // S, then dP, then dS in place
+    two_products<kD, kBN>(Qw, Kt, dOw, Vt, g, t, s, ds);
+
+    // p and ds. A tile the warp sees whole (no key mask, no key past T,
+    // under causal no key past its first row) needs no visibility; else an
+    // entry (row g or g + 8, key 8n + 2t + (e & 1)) that is not visible
+    // gets p = 0 by selection.
+    const bool whole = mask_b == nullptr && k0 + kBN <= a.T &&
+                       (!a.causal || k0 + kBN - 1 <= warp_first);
 #pragma unroll
-    for (int c = 0; c < L::kCols; ++c) acc[i][c] = 0.0f;
-  const int kv_end = a.causal ? min(a.T, q0 + kTile) : a.T;
-  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
-    __syncthreads();
-    load_tile<kD>(Ks, a.k, a.vk, b, h, k0, a.T, a.D);
-    load_tile<kD>(Vs, a.v, a.vv, b, h, k0, a.T, a.D);
-    load_key_visibility(kvis, a.mask, b, k0, a.T);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    dot_tile<kD>(Qs, Ks, ty, tx, d_end, s);
-    dot_tile<kD>(dOs, Vs, ty, tx, d_end, dp);
+    for (int n = 0; n < kNT; ++n) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 4 * ty + i;
-      const float lse = lse_s[4 * ty + i], di = di_s[4 * ty + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool vis = kvis[tx + 16 * j] != 0.0f && (!a.causal || col <= row);
-        const float p = vis ? expf(s[i][j] * a.scale - lse) : 0.0f;
-        DSs[(4 * ty + i) * kLdP + tx + 16 * j] = p * (dp[i][j] - di) * a.scale;
+      for (int e = 0; e < 4; ++e) {
+        float p = ex2(fmaf(s[n][e], scale2, -(e < 2 ? l2_lo : l2_hi)));
+        if (!whole) {
+          const int c = 8 * n + 2 * t + (e & 1), col = k0 + c;
+          const bool live = (mask_b != nullptr ? Mt[c] > 0.0f : col < a.T) &&
+                            (!a.causal || col <= (e < 2 ? row_lo : row_hi));
+          p = live ? p : 0.0f;
+        }
+        ds[n][e] = p * (ds[n][e] - (e < 2 ? di_lo : di_hi)) * a.scale;
       }
     }
-    __syncthreads();
-    pv_tile<kD>(DSs, Ks, ty, tx, acc);
+
+    // dQ += dS K: dS's accumulator layout is its A operand under the key
+    // permutation, so K rows are read as keys 2t and 2t + 1
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      uint32_t ah[4], al[4];
+      frag_acc(ds[n], ah, al);
+      const float* Kr = Kt + (8 * n + 2 * t) * kLd + g;
+#pragma unroll
+      for (int d0 = 0; d0 < kDT; d0 += kG) {
+        uint32_t bh_[kG][2], bl[kG][2];
+#pragma unroll
+        for (int i = 0; i < kG; ++i) frag_b_perm<kLd>(Kr + 8 * (d0 + i), bh_[i], bl[i]);
+        mma_round<0>(dq, d0, ah, al, bh_, bl);
+        mma_round<1>(dq, d0, ah, al, bh_, bl);
+        mma_round<2>(dq, d0, ah, al, bh_, bl);
+      }
+    }
   }
-  const float one[4] = {1.0f, 1.0f, 1.0f, 1.0f};
-  store_rows<kD>(a.dq, a.vout, b, h, q0, a.T, a.D, ty, tx, acc, one);
+  cp_async_wait_all();  // the last (empty) group
+  store_rows(a.dq, a.vout, b, h, row_lo, a.T, a.D, t, dq);
 }
 
-// K6 (replaces _dkv_kernel). Grid (key tiles, B*H).
-template <int kD>
-__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
-  using L = Tile<kD>;
+// K6 (replaces _dkv_kernel). 1-D grid of B*H*ceil(T/kBM) blocks, the key
+// tiles of one (b, h) adjacent so that they share Q/dO tiles in L2.
+template <int kD, int kBN>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) flash_dkv_kernel(Args a) {
+  constexpr int kLd = kD + 4, kNT = kBN / 8, kDT = kD / 8;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + L::kFloats;
-  float* Qs = Vs + L::kFloats;
-  float* dOs = Qs + L::kFloats;
-  float* Ps = dOs + L::kFloats;
-  float* DSs = Ps + kTile * kLdP;
-  float* kvis = DSs + kTile * kLdP;
-  float* lse_s = kvis + kTile;
-  float* di_s = lse_s + kTile;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int tiles = (a.T + kTile - 1) / kTile;
-  const int bh = blockIdx.x / tiles, b = bh / a.H, h = bh % a.H;
-  const int k0 = blockIdx.x % tiles * kTile;
-  const int d_end = (a.D + 3) & ~3;
+  float* Vs = Ks + kBM * kLd;
+  float* Qs = Vs + kBM * kLd;  // [2][kBN][kLd]
+  float* dOs = Qs + 2 * kBN * kLd;
+  float* Ls = dOs + 2 * kBN * kLd;  // [2][kBN]: the query tile's lse
+  float* Ds = Ls + 2 * kBN;         // [2][kBN]: its di
 
-  load_tile<kD>(Ks, a.k, a.vk, b, h, k0, a.T, a.D);
-  load_tile<kD>(Vs, a.v, a.vv, b, h, k0, a.T, a.D);
-  load_key_visibility(kvis, a.mask, b, k0, a.T);
-  float dk[4][L::kCols], dv[4][L::kCols];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int tiles = (a.T + kBM - 1) / kBM;
+  const int bh = blockIdx.x / tiles, b = bh / a.H, h = bh % a.H;
+  const int k0 = blockIdx.x % tiles * kBM;
+  const int warp_first = k0 + 16 * warp;
+  const int key_lo = warp_first + g, key_hi = key_lo + 8;
+  const float scale2 = a.scale * kLog2e;
+  const float* mask_b = a.mask ? a.mask + static_cast<long long>(b) * a.T : nullptr;
+  const bool live_lo = key_lo < a.T && (mask_b == nullptr || mask_b[key_lo] > 0.0f);
+  const bool live_hi = key_hi < a.T && (mask_b == nullptr || mask_b[key_hi] > 0.0f);
+  const float* lse_bh = a.lse_in + static_cast<long long>(bh) * a.T;
+  const float* di_bh = a.di + static_cast<long long>(bh) * a.T;
+
+  // causal: queries before k0 see none of this tile's keys
+  const int q_begin = a.causal ? k0 : 0;
+  auto load_q = [&](int j, int stage) {
+    const int q0 = q_begin + j * kBN;
+    load_tile<kD, kBN>(Qs + stage * kBN * kLd, a.q, a.vq, b, h, q0, a.T, a.D, a.vec);
+    load_tile<kD, kBN>(dOs + stage * kBN * kLd, a.dout, a.vdo, b, h, q0, a.T, a.D, a.vec);
+    load_vec(Ls + stage * kBN, lse_bh, q0, kBN, a.T);
+    load_vec(Ds + stage * kBN, di_bh, q0, kBN, a.T);
+  };
+
+  const int n_tiles = (a.T - q_begin + kBN - 1) / kBN;
+  load_tile<kD, kBM>(Ks, a.k, a.vk, b, h, k0, a.T, a.D, a.vec);
+  load_tile<kD, kBM>(Vs, a.v, a.vv, b, h, k0, a.T, a.D, a.vec);
+  load_q(0, 0);
+  cp_async_commit();
+
+  float dk[kDT][4], dv[kDT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < kDT; ++n)
 #pragma unroll
-    for (int c = 0; c < L::kCols; ++c) dk[i][c] = dv[i][c] = 0.0f;
-  // causal: query rows before k0 see none of this tile's keys
-  for (int q0 = a.causal ? k0 : 0; q0 < a.T; q0 += kTile) {
-    __syncthreads();
-    load_tile<kD>(Qs, a.q, a.vq, b, h, q0, a.T, a.D);
-    load_tile<kD>(dOs, a.dout, a.vdo, b, h, q0, a.T, a.D);
-    load_rows(lse_s, a.lse_in, bh, q0, a.T);
-    load_rows(di_s, a.di, bh, q0, a.T);
-    __syncthreads();
-    // transposed tiles: key rows 4ty + i, query columns tx + 16j
-    float s[4][4], dp[4][4];
-    dot_tile<kD>(Ks, Qs, ty, tx, d_end, s);
-    dot_tile<kD>(Vs, dOs, ty, tx, d_end, dp);
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.0f;
+  const float* Kw = Ks + (16 * warp + g) * kLd + t;
+  const float* Vw = Vs + (16 * warp + g) * kLd + t;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // tile j is in; every warp is done with tile j - 1
+    if (j + 1 < n_tiles) load_q(j + 1, (j + 1) & 1);
+    cp_async_commit();
+    const int q0 = q_begin + j * kBN;
+    // causal: every query of this tile comes before the warp's first key
+    if (a.causal && q0 + kBN - 1 < warp_first) continue;
+    const float* Qt = Qs + (j & 1) * kBN * kLd;
+    const float* dOt = dOs + (j & 1) * kBN * kLd;
+    const float* Lt = Ls + (j & 1) * kBN;
+    const float* Dt = Ds + (j & 1) * kBN;
+
+    float p[kNT][4], ds[kNT][4];  // S^T, then P^T; dP^T, then dS^T
+    two_products<kD, kBN>(Kw, Qt, Vw, dOt, g, t, p, ds);
+
+    // P^T and dS^T: entry (key row g or g + 8, query 8n + 2t + (e & 1)),
+    // with that query's lse and di. A tile the warp sees whole (no key
+    // mask, no key or query past T, under causal no key past the tile's
+    // first query) needs no visibility.
+    const bool whole = mask_b == nullptr && q0 + kBN <= a.T && warp_first + 16 <= a.T &&
+                       (!a.causal || warp_first + 15 <= q0);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int col = k0 + 4 * ty + i;
-      const bool key_live = kvis[4 * ty + i] != 0.0f;
+    for (int n = 0; n < kNT; ++n) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row = q0 + tx + 16 * j;
-        const bool vis = key_live && row < a.T && (!a.causal || col <= row);
-        const float p = vis ? expf(s[i][j] * a.scale - lse_s[tx + 16 * j]) : 0.0f;
-        Ps[(4 * ty + i) * kLdP + tx + 16 * j] = p;
-        DSs[(4 * ty + i) * kLdP + tx + 16 * j] =
-            p * (dp[i][j] - di_s[tx + 16 * j]) * a.scale;
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * n + 2 * t + (e & 1);
+        float pe = ex2(fmaf(p[n][e], scale2, -(Lt[c] * kLog2e)));
+        if (!whole) {
+          const int row = q0 + c;
+          const bool live = (e < 2 ? live_lo : live_hi) && row < a.T &&
+                            (!a.causal || (e < 2 ? key_lo : key_hi) <= row);
+          pe = live ? pe : 0.0f;
+        }
+        p[n][e] = pe;
+        ds[n][e] = pe * (ds[n][e] - Dt[c]) * a.scale;
       }
     }
-    __syncthreads();
-    pv_tile<kD>(Ps, dOs, ty, tx, dv);
-    pv_tile<kD>(DSs, Qs, ty, tx, dk);
+
+    // dV += P^T dO and dK += dS^T Q: both accumulator layouts are A
+    // operands under the query permutation, so dO and Q rows are read as
+    // queries 2t and 2t + 1
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      uint32_t ph[4], pl[4], sh[4], sl[4];
+      frag_acc(p[n], ph, pl);
+      frag_acc(ds[n], sh, sl);
+      const float* dOr = dOt + (8 * n + 2 * t) * kLd + g;
+      const float* Qr = Qt + (8 * n + 2 * t) * kLd + g;
+#pragma unroll
+      for (int d0 = 0; d0 < kDT; d0 += kG) {
+        uint32_t oh[kG][2], ol[kG][2], qh[kG][2], ql[kG][2];
+#pragma unroll
+        for (int i = 0; i < kG; ++i) {
+          frag_b_perm<kLd>(dOr + 8 * (d0 + i), oh[i], ol[i]);
+          frag_b_perm<kLd>(Qr + 8 * (d0 + i), qh[i], ql[i]);
+        }
+        mma_round<0>(dv, d0, ph, pl, oh, ol);
+        mma_round<0>(dk, d0, sh, sl, qh, ql);
+        mma_round<1>(dv, d0, ph, pl, oh, ol);
+        mma_round<1>(dk, d0, sh, sl, qh, ql);
+        mma_round<2>(dv, d0, ph, pl, oh, ol);
+        mma_round<2>(dk, d0, sh, sl, qh, ql);
+      }
+    }
   }
-  const float one[4] = {1.0f, 1.0f, 1.0f, 1.0f};
-  store_rows<kD>(a.dk, a.vdk, b, h, k0, a.T, a.D, ty, tx, dk, one);
-  store_rows<kD>(a.dv, a.vdv, b, h, k0, a.T, a.D, ty, tx, dv, one);
+  cp_async_wait_all();  // the last (empty) group
+  store_rows(a.dk, a.vdk, b, h, key_lo, a.T, a.D, t, dk);
+  store_rows(a.dv, a.vdv, b, h, key_lo, a.T, a.D, t, dv);
 }
 
-template <int kD>
-constexpr size_t smem_dq() {
-  return sizeof(float) * (4 * Tile<kD>::kFloats + kTile * kLdP + 3 * kTile);
-}
-template <int kD>
-constexpr size_t smem_dkv() {
-  return sizeof(float) * (4 * Tile<kD>::kFloats + 2 * kTile * kLdP + 3 * kTile);
+enum Which { kDq = 0, kDkv = 1 };
+
+using Kernel = void (*)(Args);
+
+struct Launch {
+  Kernel kernel;
+  size_t smem;
+  int query_rows, key_rows;  // rows of a block's query and key tiles
+};
+
+// The kernel for head dim D: the 64-wide tiles with 32-row streamed tiles,
+// or the 128-wide ones with 16-row streamed tiles (the ring and the
+// registers at D = 128, two blocks an SM).
+Launch pick(Which w, int D) {
+  if (w == kDq)
+    return D <= 64 ? Launch{flash_dq_kernel<64, 32>, smem_bytes<64, 32, 1>(), kBM, 32}
+                   : Launch{flash_dq_kernel<128, 16>, smem_bytes<128, 16, 1>(), kBM, 16};
+  return D <= 64 ? Launch{flash_dkv_kernel<64, 32>, smem_bytes<64, 32, 2>(), 32, kBM}
+                 : Launch{flash_dkv_kernel<128, 16>, smem_bytes<128, 16, 2>(), 16, kBM};
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, const Args& a, cudaStream_t stream) {
-  // above 48 KB, dynamic shared memory needs the kernel's opt-in
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+// above 48 KB, dynamic shared memory needs the kernel's opt-in; the carveout
+// asks for the SM's largest shared-memory split, so two blocks fit
+cudaError_t prepare(const Launch& l) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      l.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(l.smem));
   if (err != cudaSuccess) return err;
-  // one block per (b*h, tile), tiles of one (b, h) adjacent, so blocks that
-  // read the same K/V (or Q/dO) tiles run together and share them in L2
-  const unsigned blocks = a.B * a.H * ((a.T + kTile - 1) / kTile);
-  kernel<<<blocks, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-enum Which { kDq, kDkv };
-
-template <int kD>
-cudaError_t dispatch_width(Which w, const Args& a, cudaStream_t stream) {
-  return w == kDq ? launch(flash_dq_kernel<kD>, smem_dq<kD>(), a, stream)
-                  : launch(flash_dkv_kernel<kD>, smem_dkv<kD>(), a, stream);
+  return cudaFuncSetAttribute(l.kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
 }
 
 int run(Which w, Args& a, const long long* strides, int n_views, View* const* views,
@@ -351,12 +604,21 @@ int run(Which w, Args& a, const long long* strides, int n_views, View* const* vi
   a.H = H;
   a.D = D;
   a.causal = causal != 0;
+  const auto aligned16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const auto strides4 = [](const View& v) {
+    return v.sb % 4 == 0 && v.st % 4 == 0 && v.sh % 4 == 0;
+  };
+  a.vec = D % 4 == 0 && aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
+          aligned16(a.dout) && strides4(a.vq) && strides4(a.vk) && strides4(a.vv) &&
+          strides4(a.vdo);
   // as PyTorch rounds the Python float 1/sqrt(D) for a float32 product
   a.scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      D <= 64 ? dispatch_width<64>(w, a, s) : dispatch_width<128>(w, a, s);
-  return static_cast<int>(err);
+  const Launch l = pick(w, D);
+  const cudaError_t err = prepare(l);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned blocks = B * H * ((T + kBM - 1) / kBM);
+  l.kernel<<<blocks, kThreads, l.smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -364,9 +626,10 @@ int run(Which w, Args& a, const long long* strides, int n_views, View* const* vi
 extern "C" {
 
 // Each entry point returns cudaGetLastError() after its launch (0 on
-// success). strides holds the (B, T, H) element strides of each (B, T, H, D)
-// tensor argument, in argument order; lse and di are contiguous (B, H, T);
-// mask is contiguous (B, T) float32, or null.
+// success), or the error of setting the kernel's attributes. strides holds
+// the (B, T, H) element strides of each (B, T, H, D) tensor argument, in
+// argument order; lse and di are contiguous (B, H, T); mask is contiguous
+// (B, T) float32, or null.
 
 int tpu_ddp_flash_dq(const float* q, const float* k, const float* v,
                      const float* dout, const float* lse, const float* di,
@@ -402,6 +665,28 @@ int tpu_ddp_flash_dkv(const float* q, const float* k, const float* v,
   a.dv = dv;
   View* views[] = {&a.vq, &a.vk, &a.vv, &a.vdo, &a.vdk, &a.vdv};
   return run(kDkv, a, strides, 6, views, B, T, H, D, causal, stream);
+}
+
+// The launch configuration of K5 (which = 0) or K6 (which = 1) for head dim
+// D, into out[7]: rows of a block's query and key tiles, threads a block,
+// registers and local (spilled) bytes a thread, dynamic shared memory a
+// block, and blocks an SM by the runtime's occupancy calculator. Returns a
+// CUDA error code.
+int tpu_ddp_flash_bwd_info(int which, int D, int* out) {
+  if (D < 1 || D > 128 || (which != kDq && which != kDkv))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Launch l = pick(static_cast<Which>(which), D);
+  cudaError_t err = prepare(l);
+  cudaFuncAttributes attr{};
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, l.kernel);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, l.kernel, kThreads, l.smem);
+  const int vals[] = {l.query_rows, l.key_rows, kThreads, attr.numRegs,
+                      static_cast<int>(attr.localSizeBytes), static_cast<int>(l.smem),
+                      per_sm};
+  for (int i = 0; i < 7; ++i) out[i] = vals[i];
+  return static_cast<int>(err);
 }
 
 const char* tpu_ddp_cuda_error_string(int code) {

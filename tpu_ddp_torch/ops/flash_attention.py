@@ -9,12 +9,15 @@ float32, as in the JAX package.
   finite ``NEG``, softmax, then the multiplicative mask, so a row with no
   visible key outputs exactly 0. It is the tests' oracle; no path of the
   port calls it.
-* Three kernels, K4 in ``csrc/flash_forward.cu`` (float32 products on the
-  tensor cores in 3xTF32) and K5, K6 in ``csrc/flash_attention.cu``, each
-  with its wrapper (CUDA tensors launch the kernel and add one to
-  ``LAUNCHES``; CPU tensors take the plain version; anything else raises)
-  and its plain version, which repeats the kernel's arithmetic on whole
-  ``(T, T)`` score matrices:
+* Three kernels, K4 in ``csrc/flash_forward.cu`` and K5, K6 in
+  ``csrc/flash_attention.cu``, all three with their float32 products on the
+  tensor cores in 3xTF32 (``mma.sync``, each operand split into a high and
+  a low TF32 part), each with its wrapper (CUDA tensors launch the kernel
+  and add one to ``LAUNCHES``; CPU tensors take the plain version; anything
+  else raises) and its plain version, which repeats the kernel's
+  arithmetic on whole ``(T, T)`` score matrices. ``forward_launch_info``
+  and ``backward_launch_info`` report each kernel's tiles, registers,
+  shared memory and blocks an SM on the current card:
 
   ========  ==============  ===============  ============================
   kernel    wrapper         plain            replaces
@@ -217,19 +220,33 @@ def flash_forward(q, k, v, kv_mask=None, causal: bool = False
     return out, lse
 
 
+_LAUNCH_KEYS = ("query_rows", "key_rows", "threads", "registers", "spill_bytes",
+                "smem_bytes", "blocks_per_sm")
+
+
+def _launch_info(name: str, fn: str, *args) -> dict:
+    from tpu_ddp_torch.ops import _build
+
+    lib = _build.load(KERNELS[name]["library"])
+    out = (ctypes.c_int * len(_LAUNCH_KEYS))()
+    _build.check(lib, getattr(lib, fn)(*args, out), f"{name} launch info")
+    return dict(zip(_LAUNCH_KEYS, out))
+
+
 def forward_launch_info(D: int) -> dict:
     """The launch K4 takes for head dim ``D`` on the current card: rows of
     its query and key tiles, threads, registers and spilled bytes a thread,
     dynamic shared memory a block (bytes), and resident blocks an SM by the
     CUDA occupancy calculator."""
-    from tpu_ddp_torch.ops import _build
+    return _launch_info(FWD, "tpu_ddp_flash_fwd_info", D)
 
-    lib = _build.load(KERNELS[FWD]["library"])
-    out = (ctypes.c_int * 7)()
-    _build.check(lib, lib.tpu_ddp_flash_fwd_info(D, out), "flash_forward info")
-    keys = ("query_rows", "key_rows", "threads", "registers", "spill_bytes",
-            "smem_bytes", "blocks_per_sm")
-    return dict(zip(keys, out))
+
+def backward_launch_info(kind: str, D: int) -> dict:
+    """The launch K5 (``kind="dq"``) or K6 (``kind="dkv"``) takes for head
+    dim ``D`` on the current card, with ``forward_launch_info``'s keys: K5's
+    block owns the query rows and streams the key rows, K6 the other way."""
+    which = {"dq": 0, "dkv": 1}[kind]
+    return _launch_info(DQ if kind == "dq" else DKV, "tpu_ddp_flash_bwd_info", which, D)
 
 
 def flash_dq(q, k, v, do, lse, di, kv_mask=None, causal: bool = False) -> torch.Tensor:
