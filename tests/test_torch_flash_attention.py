@@ -169,14 +169,15 @@ def test_kernel_plain_versions_match_pallas_kernels(case):
 
 
 def _tf32_split(x: torch.Tensor):
-    """K5/K6's operand split on int32 views: ``hi = tf32(x)`` and ``lo =
-    tf32(x - hi)``, each rounded by adding half a TF32 unit to the bit
-    pattern and clearing the 13 bits below it."""
-    def rna(t):
-        return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    """K5/K6's operand split on int32 views, as the tensor core sees it:
+    ``hi = tf32(x)``, rounded as K4 rounds it (add half a TF32 unit to the
+    bit pattern, clear the 13 bits below it), and ``lo = x - hi``, handed
+    over unrounded, of which the tensor core reads the top 19 bits."""
+    def bits(t):
+        return t.contiguous().view(torch.int32)
 
-    hi = rna(x)
-    return hi, rna(x - hi)
+    hi = ((bits(x) + 0x1000) & -0x2000).view(torch.float32)
+    return hi, (bits(x - hi) & -0x2000).view(torch.float32)
 
 
 def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -22,9 +22,11 @@
 // (b, h) for dq (S = Q K^T, dP = dO V^T, dQ = dS K) and 8*T^2*D for dk/dv
 // (S^T, dP^T, dV = P^T dO, dK = dS^T Q). They run on the tensor cores in
 // 3xTF32, as K4's do: each operand x splits into hi = tf32(x) and
-// lo = tf32(x - hi), and a product is lo.hi + hi.lo + hi.hi with float32
-// accumulators, three mma.sync.m16n8k8 TF32 products for each float32 one
-// (165 TFLOP/s at most, against 67 for float32 on the CUDA cores). At short
+// lo = x - hi (which the tensor core reads truncated to TF32), and a
+// product is lo.hi + hi.lo + hi.hi with float32 accumulators (lo.lo,
+// ~2^-22 relative, dropped), three mma.sync.m16n8k8 TF32 products for each
+// float32 one (165 TFLOP/s at most, against 67 for float32 on the CUDA
+// cores, by the H100 SXM data sheet's 495 TF32 and 67 float32 TFLOP/s). At short
 // T (the ViT's 64 tokens) the bytes of q, k, v, dO and one tile's latency
 // bound them instead.
 //
@@ -64,7 +66,8 @@
 //   D = 128) and two blocks fit an SM's register file. Shared memory a
 //   block: the two resident (64, kD + 4) tiles and the ring, ~100 KB at
 //   D = 128 with 16-row streamed tiles, so two blocks fit an SM's 227 KB;
-//   at D = 64, 32-row streamed tiles, ~70 KB.
+//   at D = 64, 32-row streamed tiles, ~70 KB (64-key tiles for K5 measured
+//   slower at the ViT's shape: tools/k56_variants.py, PERF.md).
 // Causal: K5 stops at its query tile's last row, and a warp skips the key
 // tiles past its own last row; K6 starts at the query tile holding its
 // first key, and a warp skips the query tiles that end before its first
@@ -248,23 +251,17 @@ __device__ __forceinline__ float ex2(float x) {
 // S = A X^T and U = C Y^T for a warp's 16 rows of the resident tiles (A, C
 // at the lane's row g, column t) and the kBN rows of the streamed ones, over
 // all kD columns: the three products of each 3xTF32 step go round the 2 kN
-// independent accumulators; with few n-tiles (16-row streamed tiles) the
-// small terms get accumulators of their own, as in K4, for more of them.
+// independent accumulators (K4's own accumulators for the small terms, at
+// few n-tiles, measured no faster here: PERF.md).
 template <int kD, int kBN>
 __device__ __forceinline__ void two_products(const float* A, const float* X, const float* C,
                                              const float* Y, int g, int t,
                                              float (&s)[kBN / 8][4], float (&u)[kBN / 8][4]) {
   constexpr int kLd = kD + 4, kNT = kBN / 8;
-  constexpr bool kSmallAcc = kNT < 4;
-  float sm[kSmallAcc ? kNT : 1][4], um[kSmallAcc ? kNT : 1][4];
 #pragma unroll
   for (int n = 0; n < kNT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[n][e] = u[n][e] = 0.0f;
-#pragma unroll
-  for (int n = 0; n < (kSmallAcc ? kNT : 1); ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) sm[n][e] = um[n][e] = 0.0f;
 #pragma unroll(kD == 64 ? 2 : kD / 8)
   for (int kk = 0; kk < kD; kk += 8) {
     uint32_t ah[4], al[4], ch[4], cl[4];
@@ -276,30 +273,12 @@ __device__ __forceinline__ void two_products(const float* A, const float* X, con
       frag_b(X + (8 * n + g) * kLd + kk + t, xh[n], xl[n]);
       frag_b(Y + (8 * n + g) * kLd + kk + t, yh[n], yl[n]);
     }
-    if constexpr (kSmallAcc) {
-      mma_round<0>(sm, 0, ah, al, xh, xl);
-      mma_round<0>(um, 0, ch, cl, yh, yl);
-      mma_round<2>(s, 0, ah, al, xh, xl);
-      mma_round<2>(u, 0, ch, cl, yh, yl);
-      mma_round<1>(sm, 0, ah, al, xh, xl);
-      mma_round<1>(um, 0, ch, cl, yh, yl);
-    } else {
-      mma_round<0>(s, 0, ah, al, xh, xl);
-      mma_round<0>(u, 0, ch, cl, yh, yl);
-      mma_round<1>(s, 0, ah, al, xh, xl);
-      mma_round<1>(u, 0, ch, cl, yh, yl);
-      mma_round<2>(s, 0, ah, al, xh, xl);
-      mma_round<2>(u, 0, ch, cl, yh, yl);
-    }
-  }
-  if constexpr (kSmallAcc) {
-#pragma unroll
-    for (int n = 0; n < kNT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] += sm[n][e];
-        u[n][e] += um[n][e];
-      }
+    mma_round<0>(s, 0, ah, al, xh, xl);
+    mma_round<0>(u, 0, ch, cl, yh, yl);
+    mma_round<1>(s, 0, ah, al, xh, xl);
+    mma_round<1>(u, 0, ch, cl, yh, yl);
+    mma_round<2>(s, 0, ah, al, xh, xl);
+    mma_round<2>(u, 0, ch, cl, yh, yl);
   }
 }
 

@@ -4,7 +4,7 @@ choice undone, on the same inputs, in turns.
     python -m tpu_ddp_torch.tools.k4_variants
 
 Each variant is ``csrc/flash_forward.cu`` with one textual change, built
-with the library's own nvcc flags into ``build/tpu_ddp_torch/k4_variants/``:
+with the library's own nvcc flags (``tools/variants.py``):
 
 * ``built``: the source as it is;
 * ``cvt_rna``: the operand split through ``cvt.rna.tf32.f32`` instead of its
@@ -23,18 +23,14 @@ JSON object with these numbers.
 
 from __future__ import annotations
 
-import ctypes
 import json
-import subprocess
 
 import torch
 import torch.nn.functional as F
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
-from tpu_ddp_torch.ops import _build
 from tpu_ddp_torch.ops import flash_attention as fa
 from tpu_ddp_torch.runtime import device_name
+from tpu_ddp_torch.tools import variants
 
 LIBRARY = "flash_forward"
 #: variant -> [(text in the source, its replacement)], each found once
@@ -62,35 +58,6 @@ SHAPES = {
 TOL = 2e-5       # tests/test_ops.py's forward tolerance
 
 
-def build_variants() -> dict:
-    """variant -> loaded library, all compiled at once."""
-    src = (_build.CSRC / _build.LIBRARIES[LIBRARY][0]).read_text()
-    out = _build.BUILD_DIR / "k4_variants"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, edits in VARIANTS.items():
-        text = src
-        for old, new in edits:
-            if text.count(old) != 1:
-                raise RuntimeError(f"variant {name}: {old!r} is not in the source once")
-            text = text.replace(old, new)
-        (out / f"{name}.cu").write_text(text)
-        procs[name] = subprocess.Popen(
-            [_build.nvcc(), *_build.flags(LIBRARY), "-o", str(out / f"{name}.so"),
-             str(out / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
-    libs = {}
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"variant {name} does not build:\n{log[-4000:]}")
-        lib = ctypes.CDLL(str(out / f"{name}.so"))
-        restype, argtypes = _build.LIBRARIES[LIBRARY][2]["tpu_ddp_flash_fwd"]
-        lib.tpu_ddp_flash_fwd.restype, lib.tpu_ddp_flash_fwd.argtypes = restype, argtypes
-        libs[name] = lib
-    return libs
-
-
 def forward(lib, q, k, v) -> torch.Tensor:
     B, T, H, D = q.shape
     out = torch.empty((B, T, H, D), device=q.device)
@@ -103,22 +70,10 @@ def forward(lib, q, k, v) -> torch.Tensor:
     return out
 
 
-def kernel_us(fn, iters: int) -> float:
-    """Device microseconds a call of K4's kernel under ``torch.profiler``."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and "flash_fwd" in e.key) / iters
-
-
 def main() -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("k4_variants needs a CUDA device")
-    libs = build_variants()
+    libs = variants.build(LIBRARY, VARIANTS)
     gen = torch.Generator(device="cuda").manual_seed(0)
     result = {"device": device_name(torch.device("cuda")), "us": {}, "max_abs_err": {}}
     for shape, (B, T, H, D, between, iters) in SHAPES.items():
@@ -145,7 +100,8 @@ def main() -> dict:
         turns = list(libs) + list(libs)[::-1]
         us = {name: [] for name in libs}
         for name in turns:
-            us[name].append(kernel_us(calls[name], iters))
+            us[name].append(
+                variants.kernel_us(calls[name], iters, ("flash_fwd",))["flash_fwd"])
         result["us"][shape] = us
         print(f"{shape}: " + "  ".join(f"{n} {u[0]:.3f}/{u[1]:.3f}" for n, u in us.items()),
               flush=True)

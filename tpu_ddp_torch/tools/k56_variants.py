@@ -4,13 +4,11 @@ kernels rebuilt with one choice undone, on the same inputs, in turns.
     python -m tpu_ddp_torch.tools.k56_variants [--baseline PATH [--baseline-flags F]]
 
 Each variant is ``csrc/flash_attention.cu`` with one textual change, built
-with the library's own nvcc flags into ``build/tpu_ddp_torch/k56_variants/``:
+with the library's own nvcc flags (``tools/variants.py``):
 
 * ``built``: the source as it is;
 * ``lo_rounded``: the low part of each operand split rounded to TF32, as K4
   rounds it, instead of handed to the tensor core as it is;
-* ``no_small_acc``: no accumulators of their own for the small 3xTF32 terms
-  of S and dP at 16-row streamed tiles;
 * ``kg2``: the output n-tiles of dQ, dV and dK two at a time, not four;
 * ``dq_rows64_d64``: K5 at D <= 64 with 64-key streamed tiles, not 32.
 
@@ -32,16 +30,12 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
-from pathlib import Path
 
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
-from tpu_ddp_torch.ops import _build
 from tpu_ddp_torch.ops import flash_attention as fa
 from tpu_ddp_torch.runtime import device_name
+from tpu_ddp_torch.tools import variants
 
 LIBRARY = "flash_attention"
 #: variant -> [(text in the source, its replacement)], each found once
@@ -49,8 +43,6 @@ VARIANTS = {
     "built": [],
     "lo_rounded": [("  lo = __float_as_uint(rest);\n",
                     "  lo = (__float_as_uint(rest) + 0x1000u) & 0xffffe000u;\n")],
-    "no_small_acc": [("constexpr bool kSmallAcc = kNT < 4;",
-                      "constexpr bool kSmallAcc = false;")],
     "kg2": [("constexpr int kG = 4;", "constexpr int kG = 2;")],
     "dq_rows64_d64": [(
         "Launch{flash_dq_kernel<64, 32>, smem_bytes<64, 32, 1>(), kBM, 32}",
@@ -63,56 +55,20 @@ SHAPES = {
     "t2048_d64": (4, 2048, 8, 64, 10),
 }
 TOL = dict(atol=5e-5, rtol=1e-4)   # tests/test_ops.py's gradient tolerance
-
-
-def _compile(name: str, source: Path, flags, out: Path) -> subprocess.Popen:
-    return subprocess.Popen([_build.nvcc(), *flags, "-o", str(out / f"{name}.so"),
-                             str(source)], stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-
-
-def build_variants(baseline=None, baseline_flags=()) -> dict:
-    """variant -> loaded library, all compiled at once."""
-    src = (_build.CSRC / _build.LIBRARIES[LIBRARY][0]).read_text()
-    out = _build.BUILD_DIR / "k56_variants"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, edits in VARIANTS.items():
-        text = src
-        for old, new in edits:
-            if text.count(old) != 1:
-                raise RuntimeError(f"variant {name}: {old!r} is not in the source once")
-            text = text.replace(old, new)
-        (out / f"{name}.cu").write_text(text)
-        procs[name] = _compile(name, out / f"{name}.cu", _build.flags(LIBRARY), out)
-    if baseline:
-        procs["baseline"] = _compile("baseline", Path(baseline),
-                                     _build.flags(LIBRARY) + tuple(baseline_flags), out)
-    libs = {}
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"variant {name} does not build:\n{log[-4000:]}")
-        lib = ctypes.CDLL(str(out / f"{name}.so"))
-        for fn, (restype, argtypes) in _build.LIBRARIES[LIBRARY][2].items():
-            if hasattr(lib, fn):
-                getattr(lib, fn).restype, getattr(lib, fn).argtypes = restype, argtypes
-        libs[name] = lib
-    return libs
+DQ, DKV = "flash_dq_kernel", "flash_dkv_kernel"
 
 
 def launch_info(lib) -> dict:
-    """K5's and K6's registers and blocks an SM at D = 64 and 128, where the
-    library reports them."""
+    """K5's and K6's launches at D = 64 and 128 (``backward_launch_info``'s
+    keys), where the library reports them."""
     if not hasattr(lib, "tpu_ddp_flash_bwd_info"):
         return {}
     info = {}
     for which, kind in enumerate(("dq", "dkv")):
         for D in (64, 128):
-            out = (ctypes.c_int * 7)()
+            out = (ctypes.c_int * len(fa._LAUNCH_KEYS))()
             if lib.tpu_ddp_flash_bwd_info(which, D, out) == 0:
-                info[f"{kind}_d{D}"] = {"registers": out[3], "spill_bytes": out[4],
-                                        "smem_bytes": out[5], "blocks_per_sm": out[6]}
+                info[f"{kind}_d{D}"] = dict(zip(fa._LAUNCH_KEYS, out))
     return info
 
 
@@ -132,24 +88,6 @@ def backward(lib, q, k, v, do, lse, di):
     return dq, dk, dv
 
 
-def kernel_us(fn, iters: int) -> dict:
-    """Device microseconds a call of K5's and of K6's kernel under
-    ``torch.profiler``."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = {"dq": 0.0, "dkv": 0.0}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            for kind in us:
-                if f"flash_{kind}_kernel" in e.key:
-                    us[kind] += e.self_device_time_total / iters
-    return us
-
-
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline", help="another source with the same C entry points")
@@ -158,7 +96,8 @@ def main(argv=None) -> dict:
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k56_variants needs a CUDA device")
-    libs = build_variants(args.baseline, args.baseline_flags.split())
+    extra = {"baseline": (args.baseline, args.baseline_flags.split())} if args.baseline else {}
+    libs = variants.build(LIBRARY, VARIANTS, extra)
     gen = torch.Generator(device="cuda").manual_seed(0)
     result = {"device": device_name(torch.device("cuda")),
               "launch": {n: launch_info(lib) for n, lib in libs.items()},
@@ -181,11 +120,12 @@ def main(argv=None) -> dict:
         turns = list(libs) + list(libs)[::-1]
         us = {name: [] for name in libs}
         for name in turns:
-            us[name].append(kernel_us(lambda lib=libs[name]: backward(lib, q, k, v, do, lse, di),
-                                      iters))
+            us[name].append(variants.kernel_us(
+                lambda lib=libs[name]: backward(lib, q, k, v, do, lse, di), iters,
+                (DQ, DKV)))
         result["us"][shape] = us
         print(f"{shape}: " + "  ".join(
-            f"{n} dq {u[0]['dq']:.2f}/{u[1]['dq']:.2f} dkv {u[0]['dkv']:.2f}/{u[1]['dkv']:.2f}"
+            f"{n} dq {u[0][DQ]:.2f}/{u[1][DQ]:.2f} dkv {u[0][DKV]:.2f}/{u[1][DKV]:.2f}"
             for n, u in us.items()), flush=True)
         del q, k, v, do, out, lse, di, want
     print(f"launch: {result['launch']}", flush=True)
