@@ -21,6 +21,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    several blocks' chunks). Each group goes through one multi-tensor
    launch. Expected: bitwise equal, every leaf, and exactly one launch a
    group.
+3b. K1 with ZeRO-1's pad mask against its plain version
+   (``update_math_masked``), bitwise, one launch a group: every recipe of
+   phase 3 under both schedules, over NetResDeep's and ViT-S/4's shards at
+   every rank of 2, 3, 4 and 8 ranks, and over the mask's edge cases (the
+   live count inside a float4, in a shard's second chunk, at a chunk's
+   end, zero, and unaligned shards on the scalar path). Prints the rows
+   with a live mask, which must be more than 0.
 4. Main path: ``tpu_ddp_torch.cli.train.main`` with ``--device cuda
    --synthetic-data --kernels`` at NetResDeep's full width (n_chans1=32,
    n_blocks=10, tied), batch 32, SGD lr 1e-2, 2 epochs of 200 steps. The
@@ -109,11 +116,33 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     with its plain version, beside the bound (bytes over 3.35 TB/s). No
     single PyTorch call quantizes or dequantizes block-scaled int8, so these
     rows have no library time.
+14. ``--zero1`` on three ranks: NetResDeep ``--zero1 --kernels`` through
+    the launcher, three ranks sharing the card over gloo, the recipe and 2
+    x 100 steps a rank of phase 12 (at three ranks seven of its nine leaves
+    pad, so the mask runs on the path), in float32 and with ``--grad-compress
+    int8 --grad-compress-error-feedback``; plain DP on three ranks beside
+    them. Each: the step count, finite and falling losses, params bitwise
+    equal on all ranks, launches exact (K1 once a step; with int8, K2 18 and
+    K3 36 a step). Then 5 steps of zero1 and of plain DP under deterministic
+    cuDNN: losses within ``rtol=1e-5`` (held at three ranks; printed only
+    under ``--nccl``).
+15. ViT-S/4 ``--zero1 --kernels --attention flash --optimizer adamw --lr 1e-3
+    --weight-decay 0.05 --grad-clip-norm 1.0 --ema-decay 0.999`` on three
+    ranks over gloo, one epoch of 20 steps, and the same without
+    ``--zero1``, both under deterministic cuDNN: replicas bitwise equal, K1
+    once a step, K4-K6 as in phase 8, the EMA evaluation finite, the first 5
+    losses within ``rtol=1e-5``. Then ``Zero1Partition.accounting()`` of
+    both paths at three ranks.
+16. Timing of K1 with the pad mask at the zero1 paths' shards (rank 2 of
+    three, the recipes of phases 14 and 15): masked, the same shards
+    unmasked, the plain version and ``torch._fused_sgd_`` /
+    ``torch._fused_adamw_`` as the yardstick, in turns, beside the bound.
+    The step times of phases 14 and 15 per rank close the run.
 
-The NetResDeep phases keep their sizes; the whole run takes two to three
-minutes on the card, the build included. ``python3 chip_smoke.py --nccl N``,
-on a machine with N cards, runs phase 12 alone at N ranks, one card each,
-over NCCL. The line before the last is one JSON object
+The NetResDeep phases keep their sizes; the whole run takes five to seven
+minutes on the card, the build included. ``python3 chip_smoke.py --nccl N
+[12] [14]``, on a machine with N cards, runs phases 12 and 14 (or the ones
+named) alone at N ranks, one card each, over NCCL. The line before the last is one JSON object
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -213,25 +242,26 @@ def device_ms(fn, iters):
     """Mean device milliseconds per call of ``fn``: the sum of the times of
     the kernels (and copies) it ran, from ``torch.profiler``, without the
     host time between them. At small shapes the host's launch rate, not the
-    device, sets ``time_ms``; this is the device's share. A profile that
-    recorded no device event at all is taken again, up to three times, and
-    then reported as None."""
+    device, sets ``time_ms``; this is the device's share. The profile is
+    taken twice and the larger reading kept: the profiler can drop a
+    kernel's events (torch 2.11 once read K1 at 0.24 us beside 4.8 us
+    readings of the same call) but never adds any. Two profiles that
+    recorded no device event at all give None."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    readings = []
+    for _ in range(2):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / iters * 1e-3
-    return None
+        readings.append(sum(e.self_device_time_total for e in prof.key_averages()
+                            if e.device_type == DeviceType.CUDA))
+    return max(readings) / iters * 1e-3 if max(readings) > 0 else None
 
 
 def leaf_config(variant, schedule, wd_apply):
@@ -283,6 +313,7 @@ class Leaf:
             return buf[offset:].view(shape)
 
         self.cfg, self.n = cfg, n
+        self.valid = n              # live elements (ZeRO-1's pad mask past them)
         self.g, self.p = make(), make()
         self.m = make(0.1) if cfg.has_m else None
         self.v = make(0.01, positive=True) if cfg.has_v else None
@@ -333,32 +364,47 @@ def leaf_batch(leaves):
     return LeafBatch([lf.p for lf in leaves], [lf.m for lf in leaves],
                      [lf.v for lf in leaves], [lf.e for lf in leaves],
                      leaves[0].cfg, [lf.cfg.wd_apply for lf in leaves],
-                     us=[lf.u for lf in leaves])
+                     us=[lf.u for lf in leaves], valid=[lf.valid for lf in leaves])
+
+
+def plain_outputs(lf, scalars):
+    """The plain version's ``(u, p, m, v, e)`` for one leaf, flat: the
+    update, then the pad mask past ``lf.valid`` (``update_math_masked``)."""
+    from tpu_ddp_torch.ops.fused_update import update_math_masked
+
+    flat = [None if t is None else t.reshape(-1) for t in (lf.g, lf.p, lf.m, lf.v, lf.e)]
+    return update_math_masked(*flat, scalars, lf.cfg, start=0,
+                              mask_size=lf.valid if lf.valid < lf.n else None)
 
 
 def compare(leaves, scalars):
     """K1 over all of ``leaves`` in one multi-tensor call and the plain
-    version leaf by leaf, on copies; (max_abs_err, max_ulp, launches)."""
+    version leaf by leaf, on copies; (max_abs_err, max_ulp, launches), each
+    output of all leaves compared at once."""
+    import torch
+
     from tpu_ddp_torch import ops
-    from tpu_ddp_torch.ops.fused_update import update_math
 
     refs, krns = [lf.clone() for lf in leaves], [lf.clone() for lf in leaves]
     before = ops.LAUNCHES["fused_update"]
     leaf_batch(krns).run([k.g for k in krns], scalars)
     launches = ops.LAUNCHES["fused_update"] - before
-    worst_abs, worst_ulp = 0.0, 0
+    got, want = {k: [] for k in "upmve"}, {k: [] for k in "upmve"}
     for ref, krn in zip(refs, krns):
-        u, m, v, e = update_math(ref.g, ref.p, ref.m, ref.v, ref.e, scalars, ref.cfg)
-        want = {"u": u, "p": ref.p + u, "m": m, "v": v, "e": e}
-        for k, w in want.items():
-            if w is None:
-                continue
-            got = getattr(krn, k)
-            if not bool((got.isfinite() == w.isfinite()).all()):
-                fail(f"K1 {k}: finite pattern differs from the plain version")
-            worst_abs = max(worst_abs, float((got - w).abs().nan_to_num().max())
-                            if got.numel() else 0.0)
-            worst_ulp = max(worst_ulp, ulp_diff(got, w))
+        for k, w in zip("upmve", plain_outputs(ref, scalars)):
+            if w is not None:
+                want[k].append(w)
+                got[k].append(getattr(krn, k).reshape(-1))
+    worst_abs, worst_ulp = 0.0, 0
+    for k in "upmve":
+        if not want[k]:
+            continue
+        g, w = torch.cat(got[k]), torch.cat(want[k])
+        if not bool((g.isfinite() == w.isfinite()).all()):
+            fail(f"K1 {k}: finite pattern differs from the plain version")
+        if g.numel():
+            worst_abs = max(worst_abs, float((g - w).abs().nan_to_num().max()))
+            worst_ulp = max(worst_ulp, ulp_diff(g, w))
     return worst_abs, worst_ulp, launches
 
 
@@ -414,6 +460,76 @@ def phase_kernel_vs_plain():
     bitwise = all(ulp == 0 for _, ulp in results.values())
     print(f"  K1 bitwise equal to its plain version everywhere: {bitwise}",
           flush=True)
+    return results
+
+
+#: ZeRO-1 (phases 3b, 14, 15): rank counts whose shards phase 3b checks,
+#: and the mask's edge cases as (leaf size, ranks, rank, offset in floats):
+#: the live count inside a float4 (1,022 of 1,024), in a shard's second
+#: 16,384-element chunk (NetResDeep's fc1.weight at 3 ranks: 21,844 of
+#: 21,846), at a chunk's end (16,384 of 16,385), 0 (a 1-element leaf's
+#: shards past rank 0), and unaligned shards on the scalar path
+ZERO1_SHARDS = (2, 3, 4, 8)
+ZERO1_EDGES = [(4094, 4, 3, 0), (65_536, 3, 2, 0), (32_769, 2, 1, 0),
+               (1, 4, 1, 0), (1, 4, 3, 0), (10, 3, 2, 0), (1003, 2, 1, 1),
+               (1003, 2, 0, 1), (100_001, 3, 2, 3)]
+
+
+def shard_leaf(shape, n, r, cfg, gen, offset=0):
+    """Rank r's shard of a leaf of ``shape`` over n ranks (ceil(size / n)
+    elements), its live count set as ``Zero1Partition`` sets it."""
+    from tpu_ddp_torch.ops.fused_update import shard_valid
+
+    size = math.prod(shape)
+    s = -(-size // n)
+    lf = Leaf((s,), cfg, gen, offset)
+    lf.valid = shard_valid(size, r * s, s)
+    return lf
+
+
+def phase_masked_vs_plain():
+    """Phase 3b: K1 with ZeRO-1's pad mask against its plain version,
+    bitwise, one launch a group: every recipe of phase 3, NetResDeep's and
+    ViT-S/4's shards at every rank of 2, 3, 4 and 8, and the edge cases."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    models = {"netresdeep": NETRESDEEP_LEAVES, "vit_s4": vit_leaf_shapes()}
+    results, live_mask_rows, groups = {}, 0, 0
+    print("phase 3b: K1 with the ZeRO-1 pad mask vs plain version, one launch a "
+          "group (max |diff|, max ulp)", flush=True)
+    for variant in VARIANTS:
+        for schedule in ("constant", "cosine"):
+            cases = {f"{model} {n} ranks rank {r}":
+                     [(s, n, r, 0, len(s) >= 2) for s in shapes]
+                     for model, shapes in models.items()
+                     for n in ZERO1_SHARDS for r in range(n)}
+            cases["edges"] = [((size,), n, r, off, True)
+                              for size, n, r, off in ZERO1_EDGES]
+            worst = (0.0, 0)
+            for name, spec in cases.items():
+                leaves = [shard_leaf(shape, n, r, leaf_config(variant, schedule, wd),
+                                     gen, off) for shape, n, r, off, wd in spec]
+                scalars = scalars_for(leaves, leaves[0].cfg, schedule)
+                err, ulp, launches = compare(leaves, scalars)
+                live_mask_rows += sum(lf.valid < lf.n for lf in leaves)
+                groups += 1
+                results[(variant, schedule, name)] = (err, ulp)
+                worst = (max(worst[0], err), max(worst[1], ulp))
+                if ulp:
+                    fail(f"masked K1 {variant}/{schedule}/{name}: {ulp} ulp from "
+                         "the plain version (must be bitwise)")
+                if launches != 1:
+                    fail(f"masked K1 {variant}/{schedule}/{name}: {launches} "
+                         "launches, expected 1")
+                del leaves
+            torch.cuda.synchronize()
+            print(f"  {variant:20s} {schedule:8s} {len(cases)} groups: "
+                  f"max|diff|={worst[0]:.3g} max_ulp={worst[1]}", flush=True)
+    print(f"  {groups} groups, one launch each; rows with a live mask "
+          f"{live_mask_rows}; bitwise equal everywhere: True", flush=True)
+    if not live_mask_rows:
+        fail("phase 3b ran no leaf with a live mask")
     return results
 
 
@@ -1074,15 +1190,19 @@ def dp_launches(nproc):
 
 
 def rank_child(out_dir, args):
-    """One rank of phase 12, started by the launcher: the train CLI's
-    ``run`` with the launch counts zeroed just before; writes the counts,
-    the metrics and the final weights to ``out_dir``."""
+    """One rank of phases 12, 14 and 15, started by the launcher: the train
+    CLI's ``run`` with the launch counts zeroed just before (under cuDNN's
+    deterministic algorithms when ``args`` start with ``--deterministic``);
+    writes the counts, the metrics and the final weights to ``out_dir``."""
     import torch
 
     sys.path.insert(0, ROOT)
     from tpu_ddp_torch import ops
     from tpu_ddp_torch.cli import train as cli
 
+    if args[:1] == ["--deterministic"]:
+        torch.backends.cudnn.deterministic = True
+        args = args[1:]
     rank = int(os.environ["RANK"])
     ops.reset_launch_counts()
     trainer, metrics = cli.run(args)
@@ -1094,17 +1214,19 @@ def rank_child(out_dir, args):
                os.path.join(out_dir, f"rank{rank}.pt"))
 
 
-def launch_dp(tmp, name, args, nproc):
+def launch_dp(tmp, name, args, nproc, phase="12", deterministic=False):
     import torch
 
     from tpu_ddp_torch.cli.launch import run_job
 
     out = os.path.join(tmp, name)
     os.makedirs(out)
-    print(f"phase 12: python -m tpu_ddp_torch.cli.launch --nproc-per-node {nproc} "
-          f"-- python -m tpu_ddp_torch.cli.train {' '.join(args)}", flush=True)
+    how = ", deterministic cuDNN" if deterministic else ""
+    print(f"phase {phase}{how}: python -m tpu_ddp_torch.cli.launch --nproc-per-node "
+          f"{nproc} -- python -m tpu_ddp_torch.cli.train {' '.join(args)}", flush=True)
     rc = run_job([sys.executable, os.path.abspath(__file__), "--rank-child", out,
-                  *args], nproc_per_node=nproc)
+                  *(["--deterministic"] if deterministic else []), *args],
+                 nproc_per_node=nproc)
     if rc:
         fail(f"the {nproc}-rank run exited with {rc}")
     metrics = []
@@ -1153,6 +1275,239 @@ def phase_dp_main_path(tmp, nproc=2, backend="gloo"):
     if not diff <= DP_LOSS_ATOL:
         fail("plain DP and the int8 ring disagree over the first steps")
     return runs
+
+
+# ---- phases 14-16: --zero1 on three ranks (K1's pad mask on the path) ----
+
+#: three ranks: at two none of NetResDeep's leaves pads; at three seven of
+#: its nine do (the four 32-element leaves and the 65,536-, 320- and
+#: 10-element ones), so the mask runs on the path itself
+ZERO1_RANKS = 3
+VIT_ZERO1_STEPS = 20
+ZERO1_RTOL = 1e-5          # phase 5a's bound on the first steps' losses
+
+
+def zero1_launches(nproc, compress):
+    """K1, K2 and K3 launches a step a rank of NetResDeep under ``--zero1``
+    at ``nproc`` ranks: K1 once (the shards of all nine leaves in one
+    launch). With the int8 ring and error feedback, each leaf's
+    reduce-scatter (``parallel/collectives.py::ring_reduce_scatter``) makes
+    n-1 hops, each quantizing the payload it sends once (K2), dequantizing
+    it once for the error and the received one once into the carry (K3).
+    The params' all-gather moves float32 and runs neither."""
+    hops = 9 * (nproc - 1) if compress else 0
+    return {"fused_update": 1, "fused_quant": hops, "fused_dequant": 2 * hops}
+
+
+def check_run(label, metrics, same, want_steps, want_per_step, extra=None):
+    """The checks every multi-rank run of phases 14-15 passes: the step
+    count, finite losses, params bitwise equal on every rank, and each
+    rank's launches exactly ``want_per_step`` times the steps (plus
+    ``extra``)."""
+    m = metrics[0]
+    steps, losses = m["steps"], m["step_losses"]
+    step_ms = " / ".join(f"{x['steady_step_ms']:.4f}" for x in metrics)
+    print(f"  {label}: steps {steps}; launches on rank 0 {m['launches']}; params "
+          f"bitwise equal on all {len(metrics)} ranks {same}; final test accuracy "
+          f"{m['test_accuracy']:.4f}, test loss {m['test_loss']:.4f}; steady-state "
+          f"step time per rank {step_ms} ms", flush=True)
+    if steps != want_steps:
+        fail(f"{label} took {steps} steps, expected {want_steps}")
+    if not all(math.isfinite(x) for x in losses) or not math.isfinite(m["test_loss"]):
+        fail(f"{label}: a loss is not finite")
+    if not same:
+        fail(f"{label}: the ranks end with different params")
+    want = {name: 0 for name in m["launches"]}
+    want.update({k: v * steps for k, v in want_per_step.items()})
+    want.update(extra or {})
+    for r, x in enumerate(metrics):
+        if x["launches"] != want:
+            fail(f"{label}: rank {r} launched {x['launches']}, expected {want}")
+
+
+def first_losses_close(label, got, want, hold=True):
+    """The first steps' losses of two runs, held to ``ZERO1_RTOL`` (only
+    printed when not ``hold``)."""
+    got, want = got[:PLAIN_STEPS_RTOL], want[:PLAIN_STEPS_RTOL]
+    rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    print(f"  {label}, first {PLAIN_STEPS_RTOL} step losses: relative differences "
+          f"{' '.join(f'{r:.3g}' for r in rel)} (limit {ZERO1_RTOL}"
+          f"{'' if hold else ', not held at this rank count'})", flush=True)
+    if hold and (len(rel) != PLAIN_STEPS_RTOL or not max(rel) <= ZERO1_RTOL):
+        fail(f"{label}: the first losses disagree")
+
+
+def short_args(args, nproc, steps):
+    """``args`` cut to one epoch of ``steps`` steps a rank, no evaluation."""
+    out = [a for a in args if a != "--eval-each-epoch"]
+    out[out.index("--synthetic-size") + 1] = str(nproc * 32 * steps)
+    out[out.index("--epochs") + 1] = "1"
+    return out
+
+
+def phase_zero1_dp(tmp, n=ZERO1_RANKS, backend="gloo"):
+    """Phase 14: NetResDeep ``--zero1 --kernels`` on n ranks (three sharing
+    the card over gloo), plain float32 and with the int8 ring and error
+    feedback, and plain DP on n ranks beside them; then the first steps of
+    zero1 and of plain DP again under cuDNN's deterministic algorithms
+    (cuDNN's default backward sums in a run-dependent order), their losses
+    held to ``ZERO1_RTOL`` at three ranks. At other rank counts (the
+    ``--nccl`` mode) they are printed only: the reduce-scatter sums in
+    another order than the all-reduce, and NetResDeep carries that ulp of
+    gradient to 2e-5-4e-5 of the loss by step 5 at four ranks, on four gloo
+    CPU ranks too, where the arithmetic is exact."""
+    runs = {}
+    for name, compress, zero1 in (("zero1", False, True),
+                                  ("zero1_int8_ef", True, True),
+                                  ("plain_dp", False, False)):
+        args = dp_args(compress, n, backend) + (["--zero1"] if zero1 else [])
+        metrics, same = launch_dp(tmp, name, args, n, phase="14")
+        per_step = (zero1_launches(n, compress) if zero1 else {"fused_update": 1})
+        check_run(name, metrics, same, 2 * DP_STEPS_PER_EPOCH, per_step)
+        losses = metrics[0]["step_losses"]
+        first, last = sum(losses[:20]) / 20, sum(losses[-20:]) / 20
+        print(f"  mean loss of the first 20 steps {first:.4f}, last 20 {last:.4f}",
+              flush=True)
+        if not last < first:
+            fail(f"{name}: the losses did not fall")
+        runs[name] = metrics
+    short = {}
+    for name, zero1 in (("zero1_first", True), ("plain_dp_first", False)):
+        args = short_args(dp_args(False, n, backend), n, PLAIN_STEPS_RTOL) + (
+            ["--zero1"] if zero1 else [])
+        metrics, same = launch_dp(tmp, name, args, n, phase="14", deterministic=True)
+        check_run(name, metrics, same, PLAIN_STEPS_RTOL,
+                  zero1_launches(n, False) if zero1 else {"fused_update": 1})
+        short[name] = metrics[0]["step_losses"]
+    first_losses_close(f"zero1 vs plain DP at {n} ranks, deterministic cuDNN",
+                       short["zero1_first"], short["plain_dp_first"],
+                       hold=n == ZERO1_RANKS)
+    diff = max(abs(a - b) for a, b in zip(runs["zero1_int8_ef"][0]["step_losses"][:5],
+                                          runs["zero1"][0]["step_losses"][:5]))
+    print(f"  zero1 int8 + error feedback vs zero1 float32, first 5 step losses: "
+          f"max |diff| {diff:.4g} (limit {DP_LOSS_ATOL})", flush=True)
+    if not diff <= DP_LOSS_ATOL:
+        fail("zero1 with the int8 ring disagrees with float32 zero1")
+    return runs
+
+
+def vit_zero1_args(zero1):
+    args = ["--device", "cuda", "--dist-backend", "gloo", "--synthetic-data",
+            "--synthetic-size", str(ZERO1_RANKS * 32 * VIT_ZERO1_STEPS), "--epochs", "1",
+            "--model", "vit_s4", "--attention", "flash", "--kernels",
+            "--optimizer", "adamw", "--lr", "1e-3", "--weight-decay", "0.05",
+            "--grad-clip-norm", "1.0", "--ema-decay", "0.999", "--batch-size", "32",
+            "--eval-each-epoch", "--log-every-epochs", "1"]
+    return args + (["--zero1"] if zero1 else [])
+
+
+def phase_zero1_vit(tmp):
+    """Phase 15: ViT-S/4 ``--zero1`` with flash attention, AdamW, decay,
+    clipping and EMA on three ranks over gloo (every branch of K1 under the
+    mask), against the same run without ``--zero1``; both under cuDNN's
+    deterministic algorithms (the patch embed's convolution)."""
+    runs = {}
+    for zero1 in (True, False):
+        name = "vit_zero1" if zero1 else "vit_replicated"
+        metrics, same = launch_dp(tmp, name, vit_zero1_args(zero1), ZERO1_RANKS,
+                                  phase="15", deterministic=True)
+        steps, evals = metrics[0]["steps"], metrics[0]["eval_batches"]
+        check_run(name, metrics, same, VIT_ZERO1_STEPS,
+                  {"fused_update": 1, "flash_attention_dq": VIT_DEPTH,
+                   "flash_attention_dkv": VIT_DEPTH},
+                  extra={"flash_attention_fwd": VIT_DEPTH * (steps + evals)})
+        runs[name] = metrics
+    first_losses_close("ViT zero1 vs without --zero1 at three ranks",
+                       runs["vit_zero1"][0]["step_losses"],
+                       runs["vit_replicated"][0]["step_losses"])
+    return runs
+
+
+def print_accounting():
+    """``Zero1Partition.accounting()`` of both zero1 paths at three ranks."""
+    from tpu_ddp_torch.models import MODEL_REGISTRY, NetResDeep
+    from tpu_ddp_torch.parallel.zero import Zero1Partition
+    from tpu_ddp_torch.train.optim import decay_mask, make_optimizer
+
+    for label, model, kw in (
+            ("NetResDeep, SGD lr 1e-2 (phase 14)",
+             NetResDeep(n_chans1=32, n_blocks=10, num_classes=10), dict(lr=1e-2)),
+            ("ViT-S/4, AdamW + decay + clip + EMA (phase 15)",
+             MODEL_REGISTRY["vit_s4"](), dict(optimizer="adamw", lr=1e-3,
+                                              weight_decay=0.05, grad_clip_norm=1.0,
+                                              ema_decay=0.999))):
+        params = dict(model.named_parameters())
+        tx = make_optimizer(zero1_axis="data", decay_mask=decay_mask(params), **kw)
+        acct = Zero1Partition(tx, params, ZERO1_RANKS, rank=0).accounting()
+        print(f"  accounting, {label}, {ZERO1_RANKS} ranks: {json.dumps(acct)}",
+              flush=True)
+
+
+def time_masked_group(variant, shapes, n, r, iters):
+    """Rank r's shards of ``shapes`` over n ranks through K1 with the pad
+    mask, through K1 on the same shards without it, through the plain
+    version and through one PyTorch multi-tensor optimizer call, in turns
+    (masked, unmasked, plain, library, plain, unmasked, masked)."""
+    import torch
+
+    from tpu_ddp_torch.ops.fused_update import LeafBatch
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    leaves = [shard_leaf(s, n, r, leaf_config(variant, "constant", len(s) >= 2), gen)
+              for s in shapes]
+    scalars = scalars_for(leaves, leaves[0].cfg, "constant")
+    grads = [lf.g for lf in leaves]
+    masked = leaf_batch(leaves)
+    bare = LeafBatch([lf.p for lf in leaves], [lf.m for lf in leaves],
+                     [lf.v for lf in leaves], [lf.e for lf in leaves], leaves[0].cfg,
+                     [lf.cfg.wd_apply for lf in leaves], us=[lf.u for lf in leaves])
+    calls = {"kernel": lambda: masked.run(grads, scalars),
+             "unmasked": lambda: bare.run(grads, scalars),
+             "plain": lambda: [plain_outputs(lf, scalars) for lf in leaves],
+             "library": library_call(variant, leaves)}
+    ms = {k: [] for k in calls}
+    for k in ("kernel", "unmasked", "plain", "library", "plain", "unmasked", "kernel"):
+        ms[k].append(time_ms(calls[k], iters))
+    dev = {k: device_ms(fn, 20) for k, fn in calls.items()}
+    b_ms, b_by = bound([(lf.cfg, lf.n) for lf in leaves])
+    masked_rows = sum(lf.valid < lf.n for lf in leaves)
+    return {k: sum(v) / len(v) for k, v in ms.items()}, dev, b_ms, b_by, masked_rows
+
+
+def phase_masked_timing(results, launches):
+    """Phase 16: K1 with the pad mask at the zero1 paths' shards, rank 2 of
+    three (the rank with the most pad)."""
+    from tpu_ddp_torch import ops
+
+    print("phase 16: K1 with the ZeRO-1 pad mask, timing (CUDA events; ms per "
+          "step of the listed shards)", flush=True)
+    entry = ops.KERNELS["fused_update"]
+    rows = []
+    n, r = ZERO1_RANKS, ZERO1_RANKS - 1
+    for model, variant, shapes, iters in (
+            ("netresdeep", "sgd", NETRESDEEP_LEAVES, 500),
+            ("vit_s4", "adamw_wd_clip_ema", vit_leaf_shapes(), 200)):
+        ms, dev, b_ms, b_by, masked_rows = time_masked_group(variant, shapes, n, r, iters)
+        group = f"{model} {n} ranks rank {r}"
+        err = max(results[(variant, s, group)][0] for s in ("constant", "cosine"))
+        row = {
+            "name": f"fused_update[zero1,{model},{n} ranks]", "route": entry["route"],
+            "source": entry["source"], "replaces": entry["replaces"],
+            "launches": launches[model], "max_abs_err": err, "ms": ms["kernel"],
+            "plain_ms": ms["plain"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": ms["library"], "unmasked_ms": ms["unmasked"],
+            "shapes": f"{group}: {len(shapes)} shards, {masked_rows} with a live mask",
+            "recipe": variant, "device_ms": dev["kernel"],
+            "unmasked_device_ms": dev["unmasked"], "plain_device_ms": dev["plain"],
+            "library_device_ms": dev["library"],
+        }
+        rows.append(row)
+        print(f"  {row['name']:36s} masked {ms['kernel']:.5f} ms, unmasked "
+              f"{ms['unmasked']:.5f} ms, plain {ms['plain']:.5f} ms, library "
+              f"{ms['library']:.5f} ms, bound {b_ms:.6f} ms ({b_by}); device only: "
+              f"masked {dev['kernel']}, unmasked {dev['unmasked']}, plain "
+              f"{dev['plain']}, library {dev['library']} ms", flush=True)
+    return rows
 
 
 def quant_bound(sizes, block, kind):
@@ -1239,9 +1594,10 @@ def phase_quant_timing(quant_err, runs):
     return rows
 
 
-def nccl_main(nproc):
-    """``python3 chip_smoke.py --nccl N`` on a machine with N cards: phase 12
-    at N ranks, one card each, over NCCL (the default backend on cuda)."""
+def nccl_main(nproc, phases):
+    """``python3 chip_smoke.py --nccl N [12] [14]`` on a machine with N
+    cards: phases 12 and 14 (or the ones named) at N ranks, one card each,
+    over NCCL (the default backend on cuda)."""
     import shutil
     import tempfile
 
@@ -1257,7 +1613,10 @@ def nccl_main(nproc):
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
     try:
-        phase_dp_main_path(tmp, nproc, "nccl")
+        if "12" in phases:
+            phase_dp_main_path(tmp, nproc, "nccl")
+        if "14" in phases:
+            phase_zero1_dp(tmp, nproc, "nccl")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"chip_smoke --nccl {nproc}: ok", flush=True)
@@ -1267,7 +1626,7 @@ def main():
     if sys.argv[1:2] == ["--rank-child"]:
         return rank_child(sys.argv[2], sys.argv[3:])
     if sys.argv[1:2] == ["--nccl"]:
-        return nccl_main(int(sys.argv[2]))
+        return nccl_main(int(sys.argv[2]), sys.argv[3:] or ["12", "14"])
     import shutil
     import tempfile
 
@@ -1298,6 +1657,7 @@ def main():
               f"registers/thread, {spills} bytes of spill stores", flush=True)
 
     results = phase_kernel_vs_plain()
+    masked_results = phase_masked_vs_plain()
     args, metrics, launches = phase_main_path()
     phase_plain_same_steps(args, metrics)
     rows = phase_timing(results, launches)
@@ -1314,13 +1674,22 @@ def main():
     try:
         phase_ring_on_card(tmp)
         dp_runs = phase_dp_main_path(tmp)
+        zero1_runs = phase_zero1_dp(tmp)
+        zero1_runs.update(phase_zero1_vit(tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    print_accounting()
     rows += phase_quant_timing(quant_err, dp_runs)
+    rows += phase_masked_timing(masked_results, {
+        "netresdeep": zero1_runs["zero1"][0]["launches"]["fused_update"],
+        "vit_s4": zero1_runs["vit_zero1"][0]["launches"]["fused_update"]})
     for name, ms in (("int8 ring", dp_runs["int8"]), ("plain DP", dp_runs["plain"])):
         print(f"NetResDeep on two ranks, {name}: steady-state step time per rank "
               f"{ms[0]['steady_step_ms']:.4f} / {ms[1]['steady_step_ms']:.4f} ms",
               flush=True)
+    for name, ms in zero1_runs.items():
+        print(f"three ranks, {name}: steady-state step time per rank "
+              + " / ".join(f"{x['steady_step_ms']:.4f}" for x in ms) + " ms", flush=True)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -7,7 +7,8 @@ machine with
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
 (``chip_smoke.py`` holds the kernels to the same comparisons at the main
-path's sizes.) K1 runs every leaf of a step in one launch. K1, K2 and K3
+path's sizes.) K1 runs every leaf of a step in one launch, ZeRO-1's
+shards with their pad mask too. K1, K2 and K3
 are held bitwise (K2's int8 bytes of a block
 whose scale is not finite excepted: there the scales agree and the block
 dequantizes non-finite); K4-K6 are held to the tolerances of ``tests/test_ops.py``:
@@ -95,6 +96,61 @@ def test_one_launch_bitwise_over_mixed_leaves(cuda, kind, momentum, ema, step_co
                 assert torch.equal(lf[k], ref), k
 
 
+#: ZeRO-1 shards with the pad mask: (leaf size, ranks, rank, offset in
+#: floats from a 16-byte boundary). The live count inside a float4, in a
+#: shard's second 16,384-element chunk (NetResDeep's fc1.weight at 3 ranks),
+#: at a chunk's end, 0 (a 1-element leaf past rank 0), on the scalar path
+#: (unaligned), and a shard without pad beside them
+MASKED = [(4094, 4, 3, 0), (65_536, 3, 2, 0), (32_769, 2, 1, 0), (1, 4, 1, 0),
+          (1, 4, 3, 0), (10, 3, 2, 0), (1003, 2, 1, 1), (100_001, 3, 2, 3),
+          (1003, 2, 0, 0)]
+
+
+@pytest.mark.parametrize("kind,momentum,ema,step_const,wd,clip", [
+    ("sgd", 0.0, 0.0, -0.01, 0.0, False), ("sgd", 0.9, 0.99, None, 5e-4, True),
+    ("adamw", 0.0, 0.99, -0.001, 0.05, True), ("adamw", 0.0, 0.0, None, 0.0, False)])
+def test_masked_kernel_bitwise_equal_to_plain(cuda, kind, momentum, ema, step_const,
+                                              wd, clip):
+    """K1 with ZeRO-1's pad mask, all shards in one launch, each bitwise
+    equal to ``update_math_masked``; the pad's u is +0 and its p unchanged."""
+    from tpu_ddp_torch.ops.fused_update import shard_valid, update_math_masked
+
+    cfg = LeafConfig(kind=kind, momentum=momentum, wd=wd, wd_apply=wd > 0,
+                     has_clip=clip, max_norm=1.0, step_const=step_const,
+                     ema_decay=ema, b1=0.9, b2=0.999, eps=1e-8)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    t = lambda n, o: torch.randn(n + o, generator=gen, device=cuda)[o:]  # noqa: E731
+    leaves, valid = [], []
+    for size, n, r, o in MASKED:
+        s = -(-size // n)
+        valid.append(shard_valid(size, r * s, s))
+        leaves.append(dict(g=t(s, o), p=t(s, o), m=t(s, o), v=t(s, o).abs(),
+                           e=t(s, o), u=torch.empty(s + o, device=cuda)[o:]))
+    scalars = torch.tensor([3.0, -0.007, 0.271, 0.002997], device=cuda)
+    want = []
+    for lf, live in zip(leaves, valid):
+        n = lf["g"].numel()
+        u, p, m, v, e = update_math_masked(
+            lf["g"], lf["p"], lf["m"] if cfg.has_m else None,
+            lf["v"] if cfg.has_v else None, lf["e"] if ema else None, scalars, cfg,
+            start=0, mask_size=live if live < n else None)
+        want.append(dict(u=u, p=p, m=m, v=v, e=e, p0=lf["p"].clone()))
+    assert any(live < lf["g"].numel() for lf, live in zip(leaves, valid))
+    ops.reset_launch_counts()
+    batch = LeafBatch(*([lf[k] for lf in leaves] for k in "pmve"), cfg,
+                      [cfg.wd_apply] * len(leaves), us=[lf["u"] for lf in leaves],
+                      valid=valid)
+    batch.run([lf["g"] for lf in leaves], scalars)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_update"] == 1
+    for lf, w, live in zip(leaves, want, valid):
+        for k in "upmve":
+            if w[k] is not None:
+                assert torch.equal(lf[k], w[k]), k
+        assert not bool(lf["u"][live:].view(torch.int32).any())       # +0.0
+        assert torch.equal(lf["p"][live:], w["p0"][live:] + 0.0)
+
+
 def test_train_step_launches_k1_once_a_step(cuda):
     from tpu_ddp_torch.data.cifar10 import synthetic_cifar10
     from tpu_ddp_torch.models import NetResDeep
@@ -114,6 +170,48 @@ def test_train_step_launches_k1_once_a_step(cuda):
     torch.cuda.synchronize()
     assert ops.launch_counts()["fused_update"] == 2
     assert torch.isfinite(metrics["loss"])
+
+
+def test_zero1_train_step_launches_k1_once_a_step(cuda):
+    """``--zero1`` at one rank: K1 runs once a step on the shards, its leaf
+    table built once, and the params follow the replicated run's bits."""
+    from tpu_ddp_torch.data.cifar10 import synthetic_cifar10
+    from tpu_ddp_torch.models import NetResDeep
+    from tpu_ddp_torch.parallel.zero import Zero1Partition
+    from tpu_ddp_torch.train.optim import decay_mask, make_optimizer
+    from tpu_ddp_torch.train.state import create_train_state
+    from tpu_ddp_torch.train.steps import batch_to_device, make_train_step
+
+    torch.backends.cudnn.deterministic = True
+    images, labels = synthetic_cifar10(32, 10, 0)
+    batch = batch_to_device({"image": images, "label": labels,
+                             "mask": np.ones(32, bool)}, cuda)
+    kw = dict(optimizer="adamw", lr=1e-3, weight_decay=0.05, grad_clip_norm=1.0,
+              ema_decay=0.9, kernels=True)
+    models = {}
+    try:
+        for zero1 in (False, True):
+            model = NetResDeep()
+            params = dict(model.named_parameters())
+            tx = (make_optimizer(zero1_axis="data", decay_mask=decay_mask(params), **kw)
+                  if zero1 else make_optimizer(**kw))
+            part = Zero1Partition(tx, params, 1) if zero1 else None
+            state = create_train_state(model, tx, cuda, zero1=part)
+            step = make_train_step(tx, zero1=part)
+            ops.reset_launch_counts()
+            batches = []
+            for _ in range(3):
+                state, metrics = step(state, batch)
+                batches.append(tx.fused._batch)
+            torch.cuda.synchronize()
+            assert ops.launch_counts()["fused_update"] == 3
+            assert all(b is batches[0] for b in batches)
+            assert torch.isfinite(metrics["loss"])
+            models[zero1] = state.model.state_dict()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for name, want in models[False].items():
+        torch.testing.assert_close(models[True][name], want, rtol=0, atol=1e-6)
 
 
 #: (B, T, H, D, causal, kv mask kind, qkv as views of one product)

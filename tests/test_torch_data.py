@@ -57,3 +57,76 @@ def test_loader_batches_bit_identical(ws, exclude_pad, shuffle):
                 np.testing.assert_array_equal(got[k], want[k])
             short |= not want["mask"].all()
     assert short
+
+
+@pytest.fixture
+def numpy_codec(monkeypatch):
+    """The JAX package decodes through its numpy path, which the port
+    copies; its C++ codec (``tpu_ddp/native``, not ported) rounds the
+    normalisation differently in the last bit."""
+    from tpu_ddp import native
+
+    monkeypatch.setattr(native, "AVAILABLE", False)
+
+
+def _write_batches(root, names, rows=3, seed=0):
+    """CIFAR-10's python-pickle batches of ``rows`` random images each,
+    under ``root/cifar-10-batches-py``."""
+    import pickle
+
+    rng = np.random.default_rng(seed)
+    sub = root / "cifar-10-batches-py"
+    sub.mkdir(parents=True)
+    for name in names:
+        d = {b"data": rng.integers(0, 256, size=(rows, 3072), dtype=np.uint8),
+             b"labels": [int(x) for x in rng.integers(0, 10, size=rows)]}
+        with open(sub / name, "wb") as f:
+            pickle.dump(d, f)
+    return sub
+
+
+@pytest.mark.parametrize("nest", ["", "CIFAR-10"])
+def test_tarball_only_dir_extracts_and_loads_as_jax(tmp_path, nest, numpy_codec):
+    """A data dir holding only ``cifar-10-python.tar.gz`` (what torchvision
+    leaves) is extracted and loaded; both packages give identical arrays."""
+    import tarfile
+
+    _write_batches(tmp_path / "src", [f"data_batch_{i}" for i in range(1, 6)]
+                   + ["test_batch"])
+    dirs = []
+    for pkg in ("port", "jax"):
+        d = tmp_path / pkg / nest
+        d.mkdir(parents=True)
+        (d / ".extract.tmp.notapid").mkdir()      # a stale temp dir to sweep
+        with tarfile.open(d / "cifar-10-python.tar.gz", "w:gz") as tf:
+            tf.add(tmp_path / "src" / "cifar-10-batches-py", "cifar-10-batches-py")
+        dirs.append(tmp_path / pkg)
+    for train in (True, False):
+        got = cifar10.load_cifar10(str(dirs[0]), train=train)
+        want = jax_cifar10.load_cifar10(str(dirs[1]), train=train)
+        assert got[0].shape == ((15 if train else 3), 32, 32, 3)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+    extracted = dirs[0] / nest / "cifar-10-batches-py"
+    assert (extracted / "data_batch_5").is_file()
+    assert sorted(p.name for p in (dirs[0] / nest).iterdir()) == [
+        "cifar-10-batches-py", "cifar-10-python.tar.gz"]
+
+
+def test_test_split_only_dir_loads_as_jax(tmp_path, numpy_codec):
+    """No tarball and only ``test_batch``: the eval split loads as in the JAX
+    package; the train split names its missing file."""
+    _write_batches(tmp_path, ["test_batch"], rows=5, seed=1)
+    got = cifar10.load_cifar10(str(tmp_path), train=False)
+    want = jax_cifar10.load_cifar10(str(tmp_path), train=False)
+    assert got[0].shape == (5, 32, 32, 3)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    with pytest.raises(FileNotFoundError, match="data_batch_1"):
+        cifar10.load_cifar10(str(tmp_path), train=True)
+
+
+def test_empty_dir_raises(tmp_path):
+    with pytest.raises(FileNotFoundError, match="cifar-10-python.tar.gz"):
+        cifar10.load_cifar10(str(tmp_path))

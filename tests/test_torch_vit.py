@@ -200,3 +200,43 @@ def test_cli_flash_needs_an_attention_model():
     with pytest.raises(ValueError, match="needs an attention model"):
         main(["--device", "cpu", "--synthetic-data", "--synthetic-size", "64",
               "--epochs", "1", "--attention", "flash"])
+
+
+def _one_block(monkeypatch):
+    """ViT-B/16's builder at one block: its widths, its patch, a CPU-sized
+    depth (a test size; the depth does not touch the input size)."""
+    import tpu_ddp_torch.models.vit as vit_mod
+
+    monkeypatch.setattr(vit_mod, "ViT", lambda **kw: ViT(**{**kw, "depth": 1}))
+
+
+def test_vit_b16_takes_its_published_input_size(monkeypatch):
+    """``vit_b16(image_size=224)`` sizes ``pos_embed`` (1, 196, 768), as the
+    Flax ``vit_b16`` does when initialised on a 224x224 batch, and its
+    logits on such a batch match the Flax model's through ``from_jax``
+    (``atol=1e-5``, as above). ``build_model`` passes the size through;
+    ViT-S/4 keeps 64 tokens by default."""
+    from tpu_ddp_torch.train.trainer import TrainConfig, build_model
+
+    flax_b16 = JAX_REGISTRY["vit_b16"](num_classes=10)
+    x224 = np.random.default_rng(2).normal(size=(1, 224, 224, 3)).astype(np.float32)
+    shapes = jax.eval_shape(lambda: flax_b16.init(jax.random.key(0), x224,
+                                                  train=False))["params"]
+    assert shapes["pos_embed"].shape == (1, 196, 768)
+    assert MODEL_REGISTRY["vit_s4"]().pos_embed.shape == (1, 64, 192)
+
+    _one_block(monkeypatch)
+    port = MODEL_REGISTRY["vit_b16"](num_classes=10, image_size=224)
+    assert port.pos_embed.shape == (1, 196, 768) and len(port.blocks) == 1
+    built = build_model(TrainConfig(model="vit_b16"), image_size=224)
+    assert built.pos_embed.shape == (1, 196, 768)
+
+    flax_model = FlaxViT(patch_size=16, hidden_dim=768, depth=1, num_heads=12,
+                         num_classes=10)
+    variables = flax_model.init(jax.random.key(0), x224, train=False)
+    want = np.asarray(flax_model.apply(variables, x224, train=False))
+    port.load_state_dict(from_jax(jax.device_get(variables["params"]), {})["model"])
+    with torch.no_grad():
+        got = port(torch.from_numpy(x224)).numpy()
+    assert got.shape == (1, 10)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)

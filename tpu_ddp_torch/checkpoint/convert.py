@@ -17,8 +17,10 @@ Flax tree, so each leaf maps by path:
 
 Every param-shaped optimizer slot (SGD trace, AdamW mu/nu, EMA) maps the
 same way; the optax state is read by its field names (``trace``, ``mu``,
-``nu``, ``count``, ``ema``), not by importing optax. Used by tests; reads
-nothing from the network.
+``nu``, ``count``, ``ema``), not by importing optax. Under ZeRO-1,
+``parallel/zero.py``'s ``Zero1Partition.shard_opt_state`` lays the converted
+state out in a rank's shards and ``deshard_opt_state`` brings it back.
+Used by tests; reads nothing from the network.
 """
 
 from __future__ import annotations

@@ -46,6 +46,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "leaf, and the int8 ring's quantize and "
                         "dequantize(-accumulate) through the CUDA kernels "
                         "of ops/csrc/fused_quant.cu")
+    p.add_argument("--zero1", action="store_true",
+                   help="ZeRO-1 weight-update sharding (dp): reduce-"
+                        "scatter gradients instead of all-reducing them, "
+                        "apply the optimizer to only this replica's 1/N "
+                        "shard of params + optimizer state (the state "
+                        "lives scattered — ~1/N the optimizer HBM and "
+                        "update FLOPs), then all-gather the updated "
+                        "params. Identical training math")
     p.add_argument("--grad-compress", choices=["none", "bf16", "int8"],
                    default="none",
                    help="quantize the gradient sync's wire payloads: the "
@@ -99,6 +107,7 @@ def config_from_args(args) -> TrainConfig:
         grad_clip_norm=args.grad_clip_norm,
         ema_decay=args.ema_decay,
         kernels=args.kernels,
+        zero1=args.zero1,
         grad_compress=args.grad_compress,
         grad_compress_block=args.grad_compress_block,
         grad_compress_error_feedback=args.grad_compress_error_feedback,

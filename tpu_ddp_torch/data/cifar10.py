@@ -5,13 +5,17 @@ A numpy copy of ``tpu_ddp/data/cifar10.py`` (``load_cifar10`` :181,
 that the same seed gives bit-identical arrays in both packages. Images are
 NHWC float32, normalised with the reference's per-channel constants.
 Fetching the dataset (``download.py``) is not ported yet: the directory must
-already hold ``cifar-10-batches-py``.
+already hold ``cifar-10-batches-py`` or the ``cifar-10-python.tar.gz`` that
+torchvision leaves behind, which ``_find_batches_dir`` extracts as the JAX
+package's ``_find_dataset_dir`` (:86) does.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
+import shutil
+import tarfile
 from typing import Tuple
 
 import numpy as np
@@ -20,21 +24,79 @@ CIFAR10_MEAN = np.array([0.4915, 0.4823, 0.4468], np.float32)
 CIFAR10_STD = np.array([0.2470, 0.2435, 0.2616], np.float32)
 
 _SUBDIR = "cifar-10-batches-py"
+_TARBALL = "cifar-10-python.tar.gz"
+_MARKERS = ("data_batch_1", "test_batch")
 _TRAIN_FILES = [f"data_batch_{i}" for i in range(1, 6)]
 _TEST_FILES = ["test_batch"]
 
 
 def _find_batches_dir(data_dir: str) -> str:
-    for c in (data_dir, os.path.join(data_dir, _SUBDIR),
-              os.path.join(data_dir, "CIFAR-10", _SUBDIR)):
-        if all(os.path.isfile(os.path.join(c, m))
-               for m in ("data_batch_1", "test_batch")):
+    """The batches dir under ``data_dir``: one holding every marker file;
+    else the tarball's, extracted; else, with no tarball, one holding any
+    marker (an eval-only placement holds just the test split, and the
+    split's own files are checked when they are opened).
+
+    Extraction is atomic, as in the JAX package: into a pid-named temp dir
+    beside the tarball (temp dirs of dead processes are swept first), then
+    one ``os.rename`` into place, so no reader sees half a dir. Where the
+    rename finds a dir, a complete one is kept and an incomplete one is
+    replaced."""
+    candidates = (data_dir, os.path.join(data_dir, _SUBDIR),
+                  os.path.join(data_dir, "CIFAR-10", _SUBDIR))
+
+    def complete(c: str) -> bool:
+        return all(os.path.isfile(os.path.join(c, m)) for m in _MARKERS)
+
+    for c in candidates:
+        if complete(c):
+            return c
+    for c in (data_dir, os.path.join(data_dir, "CIFAR-10")):
+        tar = os.path.join(c, _TARBALL)
+        if os.path.isfile(tar):
+            return _extract(tar, c, complete)
+    for c in candidates:
+        if any(os.path.isfile(os.path.join(c, m)) for m in _MARKERS):
             return c
     raise FileNotFoundError(
         f"CIFAR-10 batches not found under {data_dir!r}: expected "
-        f"{_SUBDIR}/data_batch_1 and test_batch. Use --synthetic-data for "
-        "runs without the dataset."
+        f"{_SUBDIR}/data_batch_1 and test_batch, or {_TARBALL}. Use "
+        "--synthetic-data for runs without the dataset."
     )
+
+
+def _extract(tar: str, parent: str, complete) -> str:
+    """``tar`` into ``parent/cifar-10-batches-py`` (``_find_batches_dir``)."""
+    for stale in os.listdir(parent):
+        if not stale.startswith(".extract.tmp."):
+            continue
+        try:
+            os.kill(int(stale.rsplit(".", 1)[1]), 0)
+        except (ValueError, ProcessLookupError):
+            shutil.rmtree(os.path.join(parent, stale), ignore_errors=True)
+        except PermissionError:
+            pass    # a live process of another user owns it
+    dst = os.path.join(parent, _SUBDIR)
+    tmp = os.path.join(parent, f".extract.tmp.{os.getpid()}")
+    try:
+        with tarfile.open(tar) as tf:
+            tf.extractall(tmp, filter="data")   # no absolute paths, no ..
+        src = os.path.join(tmp, _SUBDIR)
+        if not os.path.isdir(src):
+            raise FileNotFoundError(
+                f"{tar} does not hold the canonical {_SUBDIR}/ layout")
+        try:
+            os.rename(src, dst)
+        except OSError:
+            if not complete(dst):
+                shutil.rmtree(dst, ignore_errors=True)
+                try:
+                    os.rename(src, dst)
+                except OSError:
+                    if not complete(dst):
+                        raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dst
 
 
 def load_cifar10(data_dir: str, train: bool = True) -> Tuple[np.ndarray, np.ndarray]:

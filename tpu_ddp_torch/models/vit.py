@@ -144,15 +144,18 @@ class ViT(nn.Module):
 
 
 @register("vit_s4")
-def vit_s4(num_classes: int = 10, generator: Optional[torch.Generator] = None) -> ViT:
+def vit_s4(num_classes: int = 10, generator: Optional[torch.Generator] = None,
+           image_size: int = 32) -> ViT:
     """Small ViT for 32x32 inputs (patch 4 -> 64 tokens)."""
     return ViT(patch_size=4, hidden_dim=192, depth=6, num_heads=3,
-               num_classes=num_classes, image_size=32, generator=generator)
+               num_classes=num_classes, image_size=image_size, generator=generator)
 
 
 @register("vit_b16")
-def vit_b16(num_classes: int = 1000, generator: Optional[torch.Generator] = None) -> ViT:
-    """ViT-B/16 as the CIFAR trainer feeds it: 32x32 images, 4 tokens (its
-    published input is 224x224, 196 tokens)."""
+def vit_b16(num_classes: int = 1000, generator: Optional[torch.Generator] = None,
+            image_size: int = 32) -> ViT:
+    """ViT-B/16: 196 tokens at its published 224x224 input, 4 at the 32x32
+    the CIFAR trainer feeds it. ``pos_embed`` is sized for ``image_size``,
+    as the Flax model sizes it from the input it is initialised on."""
     return ViT(patch_size=16, hidden_dim=768, depth=12, num_heads=12,
-               num_classes=num_classes, image_size=32, generator=generator)
+               num_classes=num_classes, image_size=image_size, generator=generator)

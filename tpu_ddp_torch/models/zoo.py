@@ -1,8 +1,9 @@
 """Model registry: ``register(name)`` puts a factory into
 ``MODEL_REGISTRY``.
 
-Counterpart of ``tpu_ddp/models/zoo.py``. A factory takes ``num_classes``
-and a ``torch.Generator`` that fixes its weights. NetResDeep is built by the
+Counterpart of ``tpu_ddp/models/zoo.py``. A factory takes ``num_classes``,
+a ``torch.Generator`` that fixes its weights and the ``image_size`` of its
+square input (default 32, CIFAR's). NetResDeep is built by the
 trainer itself (its constructor carries the tied-blocks flag), as in the
 JAX package.
 """

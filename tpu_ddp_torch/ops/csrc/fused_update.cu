@@ -6,9 +6,12 @@
 // elementwise over each float32 leaf, what the optax chain does as separate
 // passes: the global-norm clip, SGD (coupled decay, momentum trace) or AdamW
 // (mu/nu, bias correction, decoupled decay), the -lr or schedule scale, and
-// the EMA of the new params. The arithmetic follows _update_math
-// (fused_update.py:116-151) operation for operation, and
-// tpu_ddp_torch/ops/fused_update.py::update_math is its plain PyTorch
+// the EMA of the new params, and under ZeRO-1 the pad mask
+// (_build_kernel :205-210): a shard's elements past its leaf's real size
+// get u = +0.0 and p + 0.0, while m, v and the EMA still see the unmasked
+// u. The arithmetic follows _update_math (fused_update.py:116-151)
+// operation for operation, and tpu_ddp_torch/ops/fused_update.py's
+// update_math (and update_math_masked, with the mask) is its plain PyTorch
 // version.
 //
 // What bounds it: device-memory bandwidth. Per element it moves 16 bytes for
@@ -23,17 +26,24 @@
 // (up to kMaxLeaves; a larger tree takes ceil(leaves / kMaxLeaves)). The
 // leaves' operands travel in one kernel parameter, a table of kMaxLeaves
 // entries (pointers g, p, m, v, e, u, the element count, the leaf's first
-// block and its vec and wd_apply flags; about 8 KB, within Hopper's 32,764
-// bytes of kernel parameters), so nothing is copied to the device for it and
-// nothing waits on the host. The grid is one wave of blocks over all leaves:
+// block, its vec, wd_apply and mask flags and its count of live elements;
+// 72 bytes an entry, about 9.2 KB, within Hopper's 32,764 bytes of kernel
+// parameters), so nothing is copied to the device for it and nothing waits
+// on the host. The grid is one wave of blocks over all leaves:
 // each block owns one kChunk-element chunk of one leaf (a binary search of
 // the leaves' first blocks), and strides over it in 16-byte vector loads and
 // stores where all six of the leaf's pointers are 16-byte aligned (a scalar
 // loop covers the tail and unaligned leaves). Every operand is read once and
 // written once; p, m, v and e are updated in place, u goes to its own
 // buffer. The flags common to the step (AdamW, momentum, clip, EMA, constant
-// step) are template parameters; weight decay is per leaf, so each block
-// picks one of two instantiations of the same chunk loop.
+// step) are template parameters; weight decay and the mask are per leaf, so
+// each block picks one of four instantiations of the same chunk loop. The
+// mask's ZeRO-1 form: a shard of a padded leaf holds `valid` live elements
+// (its leaf's real size less the shard's start, clamped to [0, n]), then
+// pad. Only a block whose chunk reaches past `valid` runs the masked loop,
+// which zeroes u element by element (the boundary may fall inside a
+// float4); every other block, and every leaf without a pad, runs the loop
+// without the select.
 //
 // Exactness: build with -fmad=false. PyTorch's plain version rounds after
 // every operation; letting nvcc contract a multiply and an add into one FMA
@@ -70,8 +80,8 @@ enum : int {
   kNumVariants = 64,
 };
 
-// Per-leaf flags of a table entry (the Python plan's VEC and WD_APPLY).
-enum : int { kLeafVec = 1, kLeafWdApply = 2 };
+// Per-leaf flags of a table entry (the Python plan's VEC, WD_APPLY and MASK).
+enum : int { kLeafVec = 1, kLeafWdApply = 2, kLeafMask = 4 };
 
 constexpr int kThreads = 256;
 // Elements one block covers; a multiple of 4, so every chunk of an aligned
@@ -80,13 +90,15 @@ constexpr long long kChunk = 16384;
 // Leaves one launch takes (tpu_ddp_torch/ops/fused_update.py MAX_LEAVES).
 constexpr int kMaxLeaves = 128;
 // Columns of a table row as the Python plan writes it.
-constexpr int kCols = 9;
+constexpr int kCols = 10;
 
+// One element's update; m, v and e in place. Returns u before the pad mask
+// (the EMA has already seen it); the caller writes u and p + u.
 template <int F>
-__device__ __forceinline__ void update_one(float g, float& p, float& m,
-                                           float& v, float& e, float& u,
-                                           const Consts& c, float g_norm,
-                                           float step, float bc1, float bc2) {
+__device__ __forceinline__ float update_one(float g, float p, float& m,
+                                            float& v, float& e,
+                                            const Consts& c, float g_norm,
+                                            float step, float bc1, float bc2) {
   if (F & kClip) {
     g = (g_norm < c.max_norm) ? g : (g / g_norm) * c.max_norm;
   }
@@ -111,8 +123,7 @@ __device__ __forceinline__ void update_one(float g, float& p, float& m,
   }
   uu = (F & kStepConst) ? c.step_const * uu : step * uu;
   if (F & kEma) e = c.ema_decay * e + c.one_minus_ema * (p + uu);
-  u = uu;
-  p = p + uu;
+  return uu;
 }
 
 struct Leaf {
@@ -120,7 +131,8 @@ struct Leaf {
   float *p, *m, *v, *e, *u;
   long long n;
   int first_block;  // the leaf's first block in the launch's grid
-  int flags;        // kLeafVec | kLeafWdApply
+  int flags;        // kLeafVec | kLeafWdApply | kLeafMask
+  long long valid;  // elements [0, valid) are live, the rest pad (n: no pad)
 };
 
 struct Table {
@@ -128,8 +140,9 @@ struct Table {
   int count;
 };
 
-// Elements [begin, end) of one leaf; begin is a multiple of 4.
-template <int F>
+// Elements [begin, end) of one leaf; begin is a multiple of 4. kMask: u is
+// zeroed at every element i >= L.valid.
+template <int F, bool kMask>
 __device__ __forceinline__ void update_chunk(const Leaf& L, long long begin,
                                              long long end, bool vec,
                                              const Consts& c, float g_norm,
@@ -144,6 +157,7 @@ __device__ __forceinline__ void update_chunk(const Leaf& L, long long begin,
   float* __restrict__ e = L.e;
   float* __restrict__ u = L.u;
   const long long vec_end = vec ? begin + (end - begin) / 4 * 4 : begin;
+  const long long valid = L.valid;
   float dummy = 0.0f;
 
   for (long long i4 = begin / 4 + threadIdx.x; i4 < vec_end / 4; i4 += kThreads) {
@@ -153,10 +167,21 @@ __device__ __forceinline__ void update_chunk(const Leaf& L, long long begin,
     if (kHasM) mv = reinterpret_cast<float4*>(m)[i4];
     if (kHasV) vv = reinterpret_cast<float4*>(v)[i4];
     if (kHasE) ev = reinterpret_cast<float4*>(e)[i4];
-    update_one<F>(gv.x, pv.x, mv.x, vv.x, ev.x, uv.x, c, g_norm, step, bc1, bc2);
-    update_one<F>(gv.y, pv.y, mv.y, vv.y, ev.y, uv.y, c, g_norm, step, bc1, bc2);
-    update_one<F>(gv.z, pv.z, mv.z, vv.z, ev.z, uv.z, c, g_norm, step, bc1, bc2);
-    update_one<F>(gv.w, pv.w, mv.w, vv.w, ev.w, uv.w, c, g_norm, step, bc1, bc2);
+    uv.x = update_one<F>(gv.x, pv.x, mv.x, vv.x, ev.x, c, g_norm, step, bc1, bc2);
+    uv.y = update_one<F>(gv.y, pv.y, mv.y, vv.y, ev.y, c, g_norm, step, bc1, bc2);
+    uv.z = update_one<F>(gv.z, pv.z, mv.z, vv.z, ev.z, c, g_norm, step, bc1, bc2);
+    uv.w = update_one<F>(gv.w, pv.w, mv.w, vv.w, ev.w, c, g_norm, step, bc1, bc2);
+    if (kMask) {
+      const long long i = 4 * i4;
+      if (i >= valid) uv.x = 0.0f;
+      if (i + 1 >= valid) uv.y = 0.0f;
+      if (i + 2 >= valid) uv.z = 0.0f;
+      if (i + 3 >= valid) uv.w = 0.0f;
+    }
+    pv.x = pv.x + uv.x;
+    pv.y = pv.y + uv.y;
+    pv.z = pv.z + uv.z;
+    pv.w = pv.w + uv.w;
     reinterpret_cast<float4*>(u)[i4] = uv;
     reinterpret_cast<float4*>(p)[i4] = pv;
     if (kHasM) reinterpret_cast<float4*>(m)[i4] = mv;
@@ -168,10 +193,10 @@ __device__ __forceinline__ void update_chunk(const Leaf& L, long long begin,
     float mi = kHasM ? m[i] : dummy;
     float vi = kHasV ? v[i] : dummy;
     float ei = kHasE ? e[i] : dummy;
-    float ui;
-    update_one<F>(g[i], pi, mi, vi, ei, ui, c, g_norm, step, bc1, bc2);
+    float ui = update_one<F>(g[i], pi, mi, vi, ei, c, g_norm, step, bc1, bc2);
+    if (kMask && i >= valid) ui = 0.0f;
     u[i] = ui;
-    p[i] = pi;
+    p[i] = pi + ui;
     if (kHasM) m[i] = mi;
     if (kHasV) v[i] = vi;
     if (kHasE) e[i] = ei;
@@ -179,6 +204,8 @@ __device__ __forceinline__ void update_chunk(const Leaf& L, long long begin,
 }
 
 // One block per (leaf, chunk); F holds the step's flags (never kDecay).
+// A block runs the masked loop only if its leaf has a pad and its chunk
+// reaches past the leaf's live elements.
 template <int F>
 __global__ void __launch_bounds__(kThreads)
     fused_update_kernel(const __grid_constant__ Table t,
@@ -194,14 +221,21 @@ __global__ void __launch_bounds__(kThreads)
   const long long begin = static_cast<long long>(b - L.first_block) * kChunk;
   const long long end = begin + kChunk < L.n ? begin + kChunk : L.n;
   const bool vec = (L.flags & kLeafVec) != 0;
+  const bool mask = (L.flags & kLeafMask) != 0 && end > L.valid;
   const float g_norm = scalars[0];
   const float step = scalars[1];
   const float bc1 = scalars[2];
   const float bc2 = scalars[3];
-  if (L.flags & kLeafWdApply)
-    update_chunk<F | kDecay>(L, begin, end, vec, c, g_norm, step, bc1, bc2);
-  else
-    update_chunk<F>(L, begin, end, vec, c, g_norm, step, bc1, bc2);
+  if (L.flags & kLeafWdApply) {
+    if (mask)
+      update_chunk<F | kDecay, true>(L, begin, end, vec, c, g_norm, step, bc1, bc2);
+    else
+      update_chunk<F | kDecay, false>(L, begin, end, vec, c, g_norm, step, bc1, bc2);
+  } else if (mask) {
+    update_chunk<F, true>(L, begin, end, vec, c, g_norm, step, bc1, bc2);
+  } else {
+    update_chunk<F, false>(L, begin, end, vec, c, g_norm, step, bc1, bc2);
+  }
 }
 
 template <int F>
@@ -230,7 +264,7 @@ extern "C" {
 
 // One launch over `leaves` table rows (at most kMaxLeaves) and `blocks`
 // blocks. A row is kCols int64: g, p, m, v, e, u (addresses; 0 where the
-// recipe has no such slot), n, first block, flags. Returns
+// recipe has no such slot), n, first block, flags, live elements. Returns
 // cudaGetLastError() after the launch (0 on success).
 int tpu_ddp_fused_update(const long long* rows, int leaves, int blocks,
                          const float* scalars, int adamw, int momentum_on,
@@ -242,7 +276,7 @@ int tpu_ddp_fused_update(const long long* rows, int leaves, int blocks,
   if (leaves < 1 || leaves > kMaxLeaves || blocks < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (blocks == 0) return 0;
-  // ~8 KB, kept off the caller's stack; the launch copies it, and ctypes
+  // ~9.2 KB, kept off the caller's stack; the launch copies it, and ctypes
   // drops the GIL around this call, so each thread has its own
   static thread_local Table t;
   t.count = leaves;
@@ -258,6 +292,7 @@ int tpu_ddp_fused_update(const long long* rows, int leaves, int blocks,
     L.n = r[6];
     L.first_block = static_cast<int>(r[7]);
     L.flags = static_cast<int>(r[8]);
+    L.valid = r[9];
   }
   // the variant index: kAdamW and kMomentum in bits 0-1, then kClip, kEma
   // and kStepConst shifted down past the per-leaf kDecay bit

@@ -10,12 +10,18 @@ covers up to ``MAX_LEAVES`` leaves.
   package's ``_update_math`` (:116) expression for expression, and the
   kernel follows it operation for operation, so on the card the two are
   bitwise equal for the same inputs and the same scalar tensor.
+  ``update_math_masked`` adds ZeRO-1's pad mask, as ``_reference_leaf``
+  (:274) does: on a shard that starts at element ``start`` of a leaf of
+  ``mask_size`` real elements, ``u`` is zero wherever
+  ``start + i >= mask_size``, after the EMA has seen it.
 * ``LeafBatch`` is the wrapper: one step's leaves, validated, planned
   (``chunk_plan``) and given one ``u`` buffer once; ``run(grads, scalars)``
   then checks the grads in one pass and, for CUDA tensors, launches the
   kernel once per ``MAX_LEAVES`` leaves (adding one to
   ``LAUNCHES["fused_update"]`` each time); for CPU tensors it runs
-  ``update_math`` leaf by leaf; anything else raises. It works in place:
+  ``update_math_masked`` leaf by leaf; anything else raises. Each leaf has
+  ``valid`` live elements (all of them unless ZeRO-1's pad mask says
+  otherwise). It works in place:
   ``p``, ``m``, ``v`` and ``e`` are overwritten, ``u`` is written into its
   own buffer.
 * ``fused_update_`` is the one-leaf form of the same entry point.
@@ -23,10 +29,11 @@ covers up to ``MAX_LEAVES`` leaves.
   cached across steps. Its scalar prologue (global norm, schedule step,
   AdamW bias corrections; the JAX prologue at :411-441) runs as torch ops on
   the device and yields one float32[4] device tensor, so the step never
-  waits for the host.
+  waits for the host. ``FusedUpdate.apply_sharded`` is the ZeRO-1 form
+  (JAX :371): the same pass over this rank's shards, with the pad mask and
+  the clip's norm summed over the ranks.
 
-Not ported yet: the ZeRO-1 pad mask (``start``/``mask_size``) and frozen
-leaves (``labeler``).
+Not ported yet: frozen leaves (``labeler``).
 """
 
 from __future__ import annotations
@@ -52,9 +59,10 @@ MAX_LEAVES = 128
 #: chunk of an aligned leaf starts on a 16-byte boundary)
 CHUNK = 16384
 #: columns of a row of the kernel's leaf table (``kCols``), and its flags
-#: (``kLeafVec``, ``kLeafWdApply``)
-G, P, M, V, E, U, N, FIRST_BLOCK, FLAGS = range(9)
-VEC, WD_APPLY = 1, 2
+#: (``kLeafVec``, ``kLeafWdApply``, ``kLeafMask``)
+G, P, M, V, E, U, N, FIRST_BLOCK, FLAGS, VALID = range(10)
+COLS = 10
+VEC, WD_APPLY, MASK = 1, 2, 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,6 +145,28 @@ def update_math(g, p, m, v, e, scalars: torch.Tensor, cfg: LeafConfig):
     return u, m_new, v_new, e_new
 
 
+def shard_valid(mask_size: int, start: int, n: int) -> int:
+    """Live elements of a shard of ``n`` elements that starts at element
+    ``start`` of a leaf of ``mask_size`` real elements: those with
+    ``start + i < mask_size``, which come first. The kernel's ``valid``
+    column."""
+    return min(max(mask_size - start, 0), n)
+
+
+def update_math_masked(g, p, m, v, e, scalars: torch.Tensor, cfg: LeafConfig,
+                       start: Optional[int] = None,
+                       mask_size: Optional[int] = None):
+    """``update_math``, then ZeRO-1's pad mask, as the JAX package's
+    ``_reference_leaf`` (:274-287): ``u`` is zero where ``start + i >=
+    mask_size`` (no mask when ``mask_size`` is None). Returns ``(u, p + u,
+    m_new, v_new, e_new)``; the EMA saw the unmasked ``u``."""
+    u, m_new, v_new, e_new = update_math(g, p, m, v, e, scalars, cfg)
+    if mask_size is not None:
+        gidx = start + torch.arange(g.shape[0], device=g.device)
+        u = torch.where(gidx < mask_size, u, torch.zeros_like(u))
+    return u, p + u, m_new, v_new, e_new
+
+
 # --------------------------------------------------------------------------
 # the launch plan
 # --------------------------------------------------------------------------
@@ -197,7 +227,8 @@ class LeafBatch:
     first moments, Adam's second moments and the EMA shadow (None where
     ``cfg`` has no such slot); ``cfg`` holds the flags common to the step
     (its ``wd_apply`` is not read), ``wd_apply`` the decay flag of each
-    leaf. ``us`` are the output buffers; without them the batch makes one
+    leaf, ``valid`` (None: every element) each leaf's live elements: under
+    ZeRO-1's pad mask ``u`` is zero past them (``shard_valid``). ``us`` are the output buffers; without them the batch makes one
     buffer for all leaves, each leaf's slice starting on a 16-byte
     boundary, and ``us`` are its per-leaf views. ``run`` overwrites
     them, so they hold the last step's updates only.
@@ -207,7 +238,8 @@ class LeafBatch:
 
     def __init__(self, ps: Sequence[torch.Tensor], ms, vs, es,
                  cfg: LeafConfig, wd_apply: Sequence[bool],
-                 us: Optional[Sequence[torch.Tensor]] = None):
+                 us: Optional[Sequence[torch.Tensor]] = None,
+                 valid: Optional[Sequence[int]] = None):
         n_leaves = len(ps)
         self.cfg = cfg
         self.device = ps[0].device if n_leaves else torch.device("cpu")
@@ -219,6 +251,11 @@ class LeafBatch:
         self.vs = list(vs or none) if cfg.has_v else none
         self.es = list(es or none) if cfg.ema_decay else none
         self.sizes = tuple(p.numel() for p in self.ps)
+        self.valid = list(self.sizes if valid is None else valid)
+        if len(self.valid) != n_leaves or not all(
+                0 <= k <= n for k, n in zip(self.valid, self.sizes)):
+            raise ValueError("fused_update_: valid needs one count in [0, n] "
+                             "a leaf")
         if us is None:
             offsets = np.cumsum([0] + [-(-n // 4) * 4 for n in self.sizes])
             self.u_flat = torch.empty(int(offsets[-1]), dtype=torch.float32,
@@ -259,19 +296,21 @@ class LeafBatch:
         launch's arguments."""
         cfg = self.cfg
         ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
-        self.table = np.zeros((len(self.rows), 9), dtype=np.int64)
+        self.table = np.zeros((len(self.rows), COLS), dtype=np.int64)
         for r, i in enumerate(self.rows):
             ops_ = (self.ps[i], self.ms[i], self.vs[i], self.es[i], self.us[i])
             self.table[r, P:U + 1] = [ptr(t) for t in ops_]
             self.table[r, N] = self.sizes[i]
+            self.table[r, VALID] = self.valid[i]
             self.table[r, FLAGS] = ((VEC if vec_flag([ptr(t) for t in ops_]) else 0)
-                                    | (WD_APPLY if self.wd_apply[i] else 0))
+                                    | (WD_APPLY if self.wd_apply[i] else 0)
+                                    | (MASK if self.valid[i] < self.sizes[i] else 0))
         self._flags = self.table[:, FLAGS].copy()
         self._launches, row = [], 0
         for launch in self.plan:
             k = len(launch.leaves)
             self.table[row:row + k, FIRST_BLOCK] = launch.first_blocks
-            self._launches.append((self.table.ctypes.data + row * 9 * 8, k,
+            self._launches.append((self.table.ctypes.data + row * COLS * 8, k,
                                    launch.blocks))
             row += k
         self._consts = (
@@ -311,12 +350,17 @@ class LeafBatch:
             return
         for i, g in enumerate(gs):
             p, m, v, e, u = self.ps[i], self.ms[i], self.vs[i], self.es[i], self.us[i]
-            u_new, m_new, v_new, e_new = update_math(g, p, m, v, e, scalars, self._cfgs[i])
-            u.copy_(u_new)
-            p.copy_(p + u_new)
+            live = self.valid[i]
+            u_new, p_new, m_new, v_new, e_new = update_math_masked(
+                g.reshape(-1), p.reshape(-1),
+                *(None if t is None else t.reshape(-1) for t in (m, v, e)),
+                scalars, self._cfgs[i], start=0,
+                mask_size=live if live < self.sizes[i] else None)
+            u.copy_(u_new.view(u.shape))
+            p.copy_(p_new.view(p.shape))
             for buf, new in ((m, m_new), (v, v_new), (e, e_new)):
                 if new is not None:
-                    buf.copy_(new)
+                    buf.copy_(new.view(buf.shape))
 
     def table_for(self, gs: Sequence[torch.Tensor]) -> np.ndarray:
         """The kernel's leaf table for this step's grads: one row a
@@ -331,10 +375,13 @@ class LeafBatch:
         tab[:, FLAGS] = np.where(tab[:, G] % 16 == 0, self._flags, self._flags & ~VEC)
         return tab
 
-    def _launch(self, scalars) -> None:
+    def _launch(self, scalars, lib=None) -> None:
+        """This step's launches, through ``lib`` (a build of
+        ``csrc/fused_update.cu`` with the same C entry point; the port's own
+        by default)."""
         from tpu_ddp_torch.ops import _build
 
-        lib = _build.load(NAME)
+        lib = lib or _build.load(NAME)
         stream = torch.cuda.current_stream(self.device).cuda_stream
         for rows, k, blocks in self._launches:
             rc = lib.tpu_ddp_fused_update(rows, k, blocks, scalars.data_ptr(),
@@ -355,14 +402,34 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
 
 
-def prologue(recipe: UpdateRecipe, grads, opt_state) -> torch.Tensor:
+def sharded_global_norm(shards) -> torch.Tensor:
+    """The global norm of a tree that lives as 1/N shards over the ranks:
+    each shard's float32 sum of squares, summed, summed over the ranks, then
+    ``sqrt`` (the JAX ``clip_by_global_norm_sharded``'s norm,
+    ``parallel/zero.py:735-739``). The pad elements are zero and add
+    nothing."""
+    from tpu_ddp_torch.parallel.collectives import all_reduce_sum_
+    from tpu_ddp_torch.parallel.runtime import world_size
+
+    sq = sum(torch.sum(torch.square(x.to(torch.float32))) for x in shards)
+    if world_size() > 1:
+        all_reduce_sum_([sq])
+    return torch.sqrt(sq)
+
+
+def prologue(recipe: UpdateRecipe, grads, opt_state,
+             sharded: bool = False) -> torch.Tensor:
     """``[g_norm, step, bc1, bc2]`` as one float32[4] tensor on the grads'
-    device, from torch ops only (no host sync)."""
+    device, from torch ops only (``sharded``: the grads are ZeRO-1 shards
+    and the norm is ``sharded_global_norm``, a collective; otherwise no
+    host sync)."""
     grads = list(grads)
     dev = grads[0].device
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     one = torch.ones((), dtype=torch.float32, device=dev)
-    g_norm = global_norm(grads) if recipe.grad_clip_norm > 0 else zero
+    g_norm = zero
+    if recipe.grad_clip_norm > 0:
+        g_norm = sharded_global_norm(grads) if sharded else global_norm(grads)
     step = -1 * recipe.lr(opt_state.sched_count) if callable(recipe.lr) else zero
     bc1 = bc2 = one
     if recipe.optimizer == "adamw":
@@ -377,6 +444,8 @@ class FusedUpdate:
     wd_mask)`` updates ``params`` and ``opt_state`` in place and returns the
     updates. ``opt_state`` is ``tpu_ddp_torch.train.optim.OptState``;
     ``wd_mask`` names the leaves weight decay applies to.
+    ``apply_sharded(gsh, opt_state, psh, partition)`` is the same on this
+    rank's ZeRO-1 shards (``parallel/zero.py``), with the pad mask.
 
     The ``LeafBatch`` of the params and state slots is built on the first
     call and kept while the same tensors, at the same addresses, come back:
@@ -401,12 +470,13 @@ class FusedUpdate:
         return pick(opt_state.trace if r.momentum > 0 else None), None, \
             pick(opt_state.ema)
 
-    def _unchanged(self, opt_state, params, wd_mask) -> bool:
+    def _unchanged(self, opt_state, params, wd_mask, valid) -> bool:
         """Whether the cached batch still holds these tensors: the same
         names, the same param and slot tensors (an identity test) and the
-        params at the same addresses, under the same decay mask."""
-        names, ps, p_ptrs, mask = self._key
-        if (list(params) != names or wd_mask != mask
+        params at the same addresses, under the same decay mask and live
+        counts."""
+        names, ps, p_ptrs, mask, live = self._key
+        if (list(params) != names or wd_mask != mask or valid != live
                 or not all(map(operator.is_, params.values(), ps))
                 or list(map(torch.Tensor.data_ptr, ps)) != p_ptrs):
             return False
@@ -415,25 +485,42 @@ class FusedUpdate:
                    for cached, now in zip((b.ms, b.vs, b.es),
                                           self._slots(opt_state, names)))
 
-    def _batch_for(self, opt_state, params, wd_mask) -> LeafBatch:
+    def _batch_for(self, opt_state, params, wd_mask, valid) -> LeafBatch:
         """The cached batch, or a new one when ``_unchanged`` fails."""
-        if self._batch is not None and self._unchanged(opt_state, params, wd_mask):
+        if self._batch is not None and self._unchanged(opt_state, params,
+                                                       wd_mask, valid):
             return self._batch
         names = list(params)
         ps = [params[n] for n in names]
         ms, vs, es = self._slots(opt_state, names)
         cfg = LeafConfig.from_recipe(self.recipe, False)
-        self._batch = LeafBatch(ps, ms, vs, es, cfg, [wd_mask[n] for n in names])
-        self._key = (names, ps, [p.data_ptr() for p in ps], dict(wd_mask))
+        self._batch = LeafBatch(ps, ms, vs, es, cfg, [wd_mask[n] for n in names],
+                                valid=valid)
+        self._key = (names, ps, [p.data_ptr() for p in ps], dict(wd_mask), valid)
         return self._batch
 
     @torch.no_grad()
     def apply(self, grads: Dict[str, torch.Tensor], opt_state,
               params: Dict[str, torch.Tensor],
               wd_mask: Dict[str, bool]) -> Dict[str, torch.Tensor]:
+        return self._run(grads, opt_state, params, wd_mask, None)
+
+    @torch.no_grad()
+    def apply_sharded(self, gsh: Dict[str, torch.Tensor], opt_state,
+                      psh: Dict[str, torch.Tensor], partition) -> Dict[str, torch.Tensor]:
+        """The ZeRO-1 update of this rank's shards, in place (the JAX
+        ``apply_sharded``, :371-376): ``gsh``, ``psh`` and ``opt_state``'s
+        slots are the shards of ``partition`` (a ``Zero1Partition``), each
+        leaf's pad masked by the kernel (``partition.valid()``), the clip's
+        norm ``sharded_global_norm``, the decay mask the partition's, taken
+        from the leaves' original shapes. Returns the masked updates."""
+        return self._run(gsh, opt_state, psh, partition.decay_mask,
+                         partition.valid(), sharded=True)
+
+    def _run(self, grads, opt_state, params, wd_mask, valid, sharded=False):
         r = self.recipe
-        scalars = prologue(r, grads.values(), opt_state)
-        batch = self._batch_for(opt_state, params, wd_mask)
+        scalars = prologue(r, grads.values(), opt_state, sharded=sharded)
+        batch = self._batch_for(opt_state, params, wd_mask, valid)
         names = self._key[0]
         if len(grads) != len(names):
             raise ValueError(f"fused update: {len(grads)} grads for "

@@ -1,5 +1,5 @@
-"""Collectives of the data-parallel step: the compressed gradient ring and
-the plain all-reduce.
+"""Collectives of the data-parallel step: the compressed gradient ring, the
+plain all-reduce, and ZeRO-1's reduce-scatter and all-gather.
 
 Counterpart of ``tpu_ddp/parallel/collectives.py`` (``_quant`` :168,
 ``_dequant`` :182, ``ring_reduce_scatter`` :196, ``ring_all_reduce`` :272,
@@ -7,14 +7,23 @@ Counterpart of ``tpu_ddp/parallel/collectives.py`` (``_quant`` :168,
 runs over the default ``torch.distributed`` process group; each rank is one
 process.
 
-Every call that moves bytes between ranks goes through one of three helpers
-here (``exchange``, ``all_gather_bytes``, ``_all_reduce_flat``). Under the
+Every call that moves bytes between ranks goes through one of four helpers
+here (``exchange``, ``all_gather_bytes``, ``_all_reduce_flat``,
+``reduce_scatter_sum``). Under the
 ``gloo`` backend, which sends no CUDA tensor point to point, they stage
 CUDA tensors through pinned host buffers: copy to the host, send, receive,
 copy back to the card. Only wire bytes take that route; every quantize,
 dequantize and sum stays on the card. Under ``nccl`` the same calls carry
 device tensors. A payload crosses the wire packed into one byte buffer
 (``_pack``), one message a hop.
+
+ZeRO-1 (``parallel/zero.py``) moves a step's gradients and params in one
+collective each, not one a leaf: ``ChunkMajor`` lays every leaf's N chunks
+out in one ``(N, W)`` buffer whose row r holds every leaf's r-th chunk in
+leaf order, so one ``reduce_scatter_sum`` gives rank r its row of the sum
+(the shards of all leaves) and one ``all_gather_bytes`` brings every row
+back. Both backends take ``reduce_scatter_tensor``, gloo on the pinned host
+copies.
 
 Not ported yet: the telemetry hop hook (``_RING_HOP_HOOK``, ``_emit_hop``),
 ``prefetched_block_gather`` (ZeRO-3) and ``ring_shift`` (sequence
@@ -92,6 +101,72 @@ def _all_reduce_flat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     else:
         dist.all_reduce(flat, op=dist.ReduceOp.SUM)
     return flat
+
+
+def reduce_scatter_sum(x: torch.Tensor) -> torch.Tensor:
+    """Rank r's ``(len(x) / n,)`` chunk of the SUM over the ranks of the
+    1-D ``x``, cut into n equal chunks in rank order (one
+    ``reduce_scatter_tensor``)."""
+    n = world_size()
+    out = torch.empty(x.numel() // n, dtype=x.dtype, device=x.device)
+    if _staged(x):
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        send = _to_host(x)
+        torch.cuda.current_stream(x.device).synchronize()
+        dist.reduce_scatter_tensor(host, send, op=dist.ReduceOp.SUM)
+        out.copy_(host, non_blocking=True)
+    else:
+        dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM)
+    return out
+
+
+class ChunkMajor:
+    """Leaves of ``sizes`` elements over ``n`` ranks, each padded to a
+    multiple of n and cut into n chunks of ``shard[i] = ceil(size / n)``,
+    laid out chunk-major: row r of an ``(n, width)`` buffer holds every
+    leaf's r-th chunk, leaf i's at columns ``[offsets[i], offsets[i] +
+    shard[i])``. Offsets are multiples of ``align`` elements, so a chunk of
+    a float32 buffer from the allocator starts on a 16-byte boundary."""
+
+    def __init__(self, sizes: Sequence[int], n: int, align: int = 4):
+        self.n, self.sizes = n, tuple(sizes)
+        self.shard = tuple(-(-size // n) for size in self.sizes)
+        offsets, width = [], 0
+        for s in self.shard:
+            offsets.append(width)
+            width += -(-s // align) * align
+        self.offsets, self.width = tuple(offsets), width
+
+    def _rows(self, i: int):
+        """(full rows, elements of the row after them) of leaf i."""
+        s = self.shard[i]
+        return (0, 0) if s == 0 else divmod(self.sizes[i], s)
+
+    def pack_(self, rows: torch.Tensor, tensors: Sequence[torch.Tensor]) -> None:
+        """Copy each leaf into its chunks of ``rows`` ``(n, width)``; the
+        pad and the gaps between leaves are left as they are."""
+        for i, t in enumerate(tensors):
+            x, off, s = t.reshape(-1), self.offsets[i], self.shard[i]
+            full, rem = self._rows(i)
+            if full:
+                rows[:full, off:off + s].copy_(x[:full * s].view(full, s))
+            if rem:
+                rows[full, off:off + rem].copy_(x[full * s:])
+
+    def unpack_(self, rows: torch.Tensor, tensors: Sequence[torch.Tensor]) -> None:
+        """The inverse of ``pack_``: each leaf from its chunks of ``rows``,
+        the pad dropped. The leaves must be contiguous."""
+        for i, t in enumerate(tensors):
+            x, off, s = t.view(-1), self.offsets[i], self.shard[i]
+            full, rem = self._rows(i)
+            if full:
+                x[:full * s].view(full, s).copy_(rows[:full, off:off + s])
+            if rem:
+                x[full * s:].copy_(rows[full, off:off + rem])
+
+    def views(self, row: torch.Tensor) -> List[torch.Tensor]:
+        """Each leaf's chunk in one ``(width,)`` row, as views."""
+        return [row[off:off + s] for off, s in zip(self.offsets, self.shard)]
 
 
 def _scatter_back(flat: torch.Tensor, tensors: Sequence[torch.Tensor]) -> None:

@@ -10,10 +10,19 @@ decay, constant and warmup-cosine schedules, and the EMA of the params.
 ``Optimizer.apply`` runs the plain chain: stage by stage over all leaves, in
 the optax chain's order, with the same arithmetic. With ``kernels=True`` it
 sends the update through K1 instead (``ops/fused_update.py``). Both update
-the params and the optimizer state in place.
+the params and the optimizer state in place. ``Optimizer.update`` is the
+plain chain alone (optax's ``tx.update``: the state in place, the params
+left as they are).
 
-Not ported yet (they raise ``NotImplementedError``): ``lamb``, freeze masks
-and ``zero1_axis`` (the DP-family slice).
+``zero1_axis`` builds the optimizer for ZeRO-1's sharded update space
+(``parallel/zero.py``; the port's one axis is the data axis of the default
+process group): the chain runs on this rank's 1/N shards, so the clip's
+norm is summed over the ranks (``clip_by_global_norm_sharded``) and the
+decay mask must be given, computed from the original shapes
+(``decay_mask=``), because ``ndim`` means nothing on flat shards.
+
+Not ported yet (they raise ``NotImplementedError``): ``lamb`` and freeze
+masks.
 """
 
 from __future__ import annotations
@@ -85,11 +94,20 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
 class Optimizer:
     """``init(params) -> OptState`` and ``apply(grads, state, params) ->
     updates`` (params and state updated in place). ``fused`` is the
-    ``FusedUpdate`` that runs K1, when built with ``kernels=True``."""
+    ``FusedUpdate`` that runs K1, when built with ``kernels=True``.
+    ``decay_mask`` (None: ``ndim >= 2`` of the params given) names the
+    leaves weight decay applies to; ``zero1_axis`` (module docstring)."""
 
-    def __init__(self, recipe: UpdateRecipe, kernels: bool = False):
+    def __init__(self, recipe: UpdateRecipe, kernels: bool = False,
+                 decay_mask: Optional[Dict[str, bool]] = None,
+                 zero1_axis: Optional[str] = None):
         self.recipe = recipe
         self.fused = FusedUpdate(recipe) if kernels else None
+        self.decay_mask = decay_mask
+        self.zero1_axis = zero1_axis
+
+    def wd_mask(self, params: Params) -> Dict[str, bool]:
+        return self.decay_mask if self.decay_mask is not None else decay_mask(params)
 
     def init(self, params: Params) -> OptState:
         r = self.recipe
@@ -109,23 +127,33 @@ class Optimizer:
 
     @torch.no_grad()
     def apply(self, grads: Params, state: OptState, params: Params) -> Params:
-        mask = decay_mask(params)
+        mask = self.wd_mask(params)
         if self.fused is not None:
             return self.fused.apply(grads, state, params, mask)
-        return self._chain(grads, state, params, mask)
+        u = self.update(grads, state, params)
+        for n, x in u.items():                      # apply_updates
+            params[n].copy_(params[n] + x)
+        return u
 
-    def _chain(self, grads: Params, state: OptState, params: Params,
-               mask: Dict[str, bool]) -> Params:
+    @torch.no_grad()
+    def update(self, grads: Params, state: OptState, params: Params) -> Params:
         """The plain chain, one stage at a time over all leaves, in the
-        order ``make_optimizer`` chains the optax transforms."""
+        order ``make_optimizer`` chains the optax transforms: returns the
+        updates and moves ``state`` in place; ``params`` are read only."""
         r = self.recipe
         wd = r.weight_decay
+        mask = self.wd_mask(params)
         u = dict(grads)
-        if r.grad_clip_norm > 0:                    # clip_by_global_norm
-            g_norm = global_norm(u.values())
-            u = {n: torch.where(g_norm < r.grad_clip_norm, g,
-                                (g / g_norm) * r.grad_clip_norm)
-                 for n, g in u.items()}
+        if r.grad_clip_norm > 0:
+            if self.zero1_axis is not None:
+                from tpu_ddp_torch.parallel.zero import clip_by_global_norm_sharded
+
+                u = clip_by_global_norm_sharded(u, r.grad_clip_norm)
+            else:                                   # clip_by_global_norm
+                g_norm = global_norm(u.values())
+                u = {n: torch.where(g_norm < r.grad_clip_norm, g,
+                                    (g / g_norm) * r.grad_clip_norm)
+                     for n, g in u.items()}
         if r.optimizer == "adamw":                  # scale_by_adam
             mu = {n: (1 - B1) * g + B1 * state.mu[n] for n, g in u.items()}
             nu = {n: (1 - B2) * (g * g) + B2 * state.nu[n] for n, g in u.items()}
@@ -159,8 +187,6 @@ class Optimizer:
             d = r.ema_decay
             for n, x in u.items():
                 state.ema[n].copy_(d * state.ema[n] + (1.0 - d) * (params[n] + x))
-        for n, x in u.items():                      # apply_updates
-            params[n].copy_(params[n] + x)
         return u
 
 
@@ -175,22 +201,31 @@ def make_optimizer(
     freeze_predicate: Optional[Callable] = None,
     optimizer: str = "sgd",
     ema_decay: float = 0.0,
+    decay_mask: Optional[Dict[str, bool]] = None,
     zero1_axis: Optional[str] = None,
     kernels: bool = False,
 ) -> Optimizer:
     """The JAX ``make_optimizer``'s signature and semantics for this slice.
-    ``kernels=True`` sends every update through K1."""
+    ``kernels=True`` sends every update through K1; ``decay_mask`` and
+    ``zero1_axis`` as in the module docstring."""
     if grad_clip_norm < 0:
         raise ValueError(f"grad_clip_norm must be >= 0, got {grad_clip_norm}")
+    if zero1_axis is not None and optimizer == "lamb":
+        raise ValueError(
+            "--zero1 does not compose with --optimizer lamb: the "
+            "layer-wise trust ratio needs whole-parameter norms, which "
+            "the 1/N update shards cannot provide")
+    if zero1_axis is not None and weight_decay > 0 and decay_mask is None:
+        raise ValueError(
+            "zero1_axis with weight_decay needs a precomputed decay_mask "
+            "(the ndim>=2 heuristic cannot see original shapes on "
+            "flattened update-space leaves)")
     if optimizer == "lamb":
         raise NotImplementedError(
             "--optimizer lamb is not ported yet (later slice: model zoo)")
     if freeze_predicate is not None:
         raise NotImplementedError(
             "freeze masks are not ported yet (later slice: fine-tuning)")
-    if zero1_axis is not None:
-        raise NotImplementedError(
-            "zero1_axis is not ported yet (later slice: DP family, --zero1)")
     if optimizer not in ("sgd", "adamw"):
         raise ValueError(f"unknown optimizer {optimizer!r}")
     if optimizer == "adamw" and momentum > 0:
@@ -211,4 +246,5 @@ def make_optimizer(
         weight_decay=weight_decay, grad_clip_norm=grad_clip_norm,
         ema_decay=ema_decay,
     )
-    return Optimizer(recipe, kernels=kernels)
+    return Optimizer(recipe, kernels=kernels, decay_mask=decay_mask,
+                     zero1_axis=zero1_axis)

@@ -32,12 +32,15 @@ class TrainState:
 
 
 def create_train_state(model: nn.Module, tx: Optimizer,
-                       device: torch.device) -> TrainState:
+                       device: torch.device, zero1=None) -> TrainState:
     """Move ``model`` (initialised from its own seeded generator) to
-    ``device`` and build the optimizer state for its params."""
+    ``device`` and build the optimizer state for its params: replicated, or
+    under ZeRO-1 (``zero1``, a ``parallel.zero.Zero1Partition``) this rank's
+    shards of it, built in shard space."""
     model = model.to(device)
+    params = dict(model.named_parameters())
     return TrainState(
         step=torch.zeros((), dtype=torch.int64, device=device),
         model=model,
-        opt_state=tx.init(dict(model.named_parameters())),
+        opt_state=tx.init(params) if zero1 is None else zero1.init_opt_state(params),
     )

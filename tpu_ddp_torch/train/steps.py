@@ -13,6 +13,12 @@ stats), its local masked cross-entropy and the backward. Then:
   ``state.grad_residual`` when error feedback is on;
 * the optimizer update (``Optimizer.apply``) runs on every rank on the same
   averaged gradients, so the replicas stay equal;
+* under ZeRO-1 (``zero1``, a ``parallel.zero.Zero1Partition``; the JAX
+  step's zero1 branch :230-242) the last two are one: the partition's
+  reduce-scatter is the gradient sync (the compressed ring when the
+  partition has the compressor, with the residual threaded as above), the
+  update runs on this rank's shards of the params and of the state in
+  ``state.opt_state``, and one all-gather brings the params back whole;
 * ``loss`` is averaged over the ranks, ``accuracy`` is the summed correct
   count over the summed count (:318-329).
 
@@ -20,8 +26,8 @@ With one rank nothing of this runs a collective: the step is the
 single-device step. The metrics stay on the device; the caller fetches
 them when it needs them.
 
-Not ported yet: zero1 and zero3, the health recorder, augment, mixup and
-auxiliary losses, and the scanned and accumulating steps.
+Not ported yet: zero3, the health recorder, augment, mixup and auxiliary
+losses, and the scanned and accumulating steps.
 """
 
 from __future__ import annotations
@@ -50,12 +56,14 @@ def batch_to_device(batch: dict, device: torch.device) -> Batch:
             for k, v in batch.items()}
 
 
-def make_train_step(tx: Optimizer, *,
-                    compress=None) -> Callable[[TrainState, Batch], tuple]:
+def make_train_step(tx: Optimizer, *, compress=None,
+                    zero1=None) -> Callable[[TrainState, Batch], tuple]:
     """``step(state, batch) -> (state, {"loss", "accuracy"})``; ``state`` is
     updated in place and returned. ``batch`` holds this rank's rows.
     ``compress`` (a ``parallel.compression.GradCompressor``) replaces the
-    gradient all-reduce with its compressed ring."""
+    gradient all-reduce with its compressed ring; ``zero1`` (a
+    ``parallel.zero.Zero1Partition`` built over ``tx``, with ``compress``
+    attached when both are given) shards the update (module docstring)."""
     ef = compress is not None and compress.config.error_feedback
 
     def train_step(state: TrainState, batch: Batch):
@@ -68,15 +76,20 @@ def make_train_step(tx: Optimizer, *,
         if n > 1:
             all_reduce_mean_([b for _, b in model.named_buffers()])
         grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
-        if compress is not None:
-            residual = state.grad_residual if ef else None
-            grads, err_state = compress.all_reduce_mean(grads, residual,
-                                                        with_error=ef)
-            if ef:
-                state.grad_residual = err_state
-        elif n > 1:
-            grads = sync_gradients(grads)
-        tx.apply(grads, state.opt_state, params)
+        residual = state.grad_residual if ef else None
+        err_state = None
+        if zero1 is not None:
+            _, _, err_state = zero1.sharded_update(
+                grads, params, state.opt_state, residual=residual, with_error=ef)
+        else:
+            if compress is not None:
+                grads, err_state = compress.all_reduce_mean(grads, residual,
+                                                            with_error=ef)
+            elif n > 1:
+                grads = sync_gradients(grads)
+            tx.apply(grads, state.opt_state, params)
+        if ef:
+            state.grad_residual = err_state
         state.step += 1
         with torch.no_grad():
             correct, count = masked_accuracy(logits, batch["label"],

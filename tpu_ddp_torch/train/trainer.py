@@ -12,10 +12,16 @@ With ``n`` ranks (a process group joined by ``parallel/runtime.py``), the
 loaders shard over ``n``: each rank takes its own ``per_shard_batch`` rows
 of the shard-major global batch, and the step averages the gradients over
 the ranks (``train/steps.py``). Steady-state images/sec counts this rank's
-images.
+images. ``--zero1`` shards the update over the ranks
+(``parallel/zero.py``; the JAX trainer's :893-925 and :1171-1237): the
+decay mask is taken from the params' original shapes before the optimizer
+is built, the optimizer state is built in shard space, the compressor (if
+any) runs the partition's reduce-scatter, and evaluation under
+``--ema-decay`` gathers the EMA shards first (``_eval_params``, the JAX
+``_eval_source_state`` :2603-2640).
 
 Not ported yet: checkpointing and resume, telemetry, health, preemption,
-the strategies other than data parallelism (zero1, zero3, fsdp, tp, pp).
+the strategies other than data parallelism (zero3, fsdp, tp, pp).
 """
 
 from __future__ import annotations
@@ -36,7 +42,8 @@ from tpu_ddp_torch.parallel.compression import MODES as COMPRESS_MODES
 from tpu_ddp_torch.parallel.compression import GradCompression, GradCompressor
 from tpu_ddp_torch.parallel.runtime import rank, world_size
 from tpu_ddp_torch.runtime import resolve_device, set_float32_precision
-from tpu_ddp_torch.train.optim import make_optimizer
+from tpu_ddp_torch.parallel.zero import DATA_AXIS, Zero1Partition
+from tpu_ddp_torch.train.optim import decay_mask, make_optimizer
 from tpu_ddp_torch.train.state import create_train_state
 from tpu_ddp_torch.train.steps import batch_to_device, make_eval_step, make_train_step
 
@@ -61,6 +68,7 @@ class TrainConfig:
     grad_clip_norm: float = 0.0
     ema_decay: float = 0.0
     kernels: bool = False
+    zero1: bool = False                   # ZeRO-1 update sharding
     grad_compress: str = "none"           # none | bf16 | int8 (the ring)
     grad_compress_block: int = 256
     grad_compress_error_feedback: bool = False
@@ -75,6 +83,12 @@ class TrainConfig:
     log_every_epochs: int = 10
 
     def __post_init__(self):
+        if self.zero1 and self.optimizer == "lamb":
+            raise ValueError(
+                "--zero1 does not compose with --optimizer lamb (the "
+                "layer-wise trust ratio needs whole-parameter norms; "
+                "the 1/N update shards cannot provide them)"
+            )
         if self.grad_compress not in COMPRESS_MODES:
             raise ValueError(
                 f"unknown grad-compress mode {self.grad_compress!r}; "
@@ -96,9 +110,10 @@ class TrainConfig:
 NUM_CLASSES = 10  # CIFAR-10
 
 
-def build_model(c: TrainConfig) -> torch.nn.Module:
-    """NetResDeep, or a registry model (``models/zoo.py``), with weights
-    from ``c.seed``. ``attention == "flash"`` binds the port's
+def build_model(c: TrainConfig, image_size: int = 32) -> torch.nn.Module:
+    """NetResDeep, or a registry model (``models/zoo.py``) for square
+    inputs of ``image_size`` (CIFAR's 32 by default), with weights from
+    ``c.seed``. ``attention == "flash"`` binds the port's
     ``flash_attention`` into the model's ``attention_impl`` (the JAX
     ``build_model`` :564-578); on a model without one, NetResDeep included,
     it raises (the JAX package builds NetResDeep before it reads the flag
@@ -110,7 +125,8 @@ def build_model(c: TrainConfig) -> torch.nn.Module:
                            num_classes=NUM_CLASSES, tied=c.tied_blocks,
                            generator=generator)
     elif name in MODEL_REGISTRY:
-        model = MODEL_REGISTRY[name](num_classes=NUM_CLASSES, generator=generator)
+        model = MODEL_REGISTRY[name](num_classes=NUM_CLASSES, generator=generator,
+                                     image_size=image_size)
     else:
         raise ValueError(f"unknown model {c.model!r}")
     if c.attention == "flash":
@@ -150,18 +166,29 @@ class Trainer:
             *test_data, world_size=self.world_size,
             per_shard_batch=c.per_shard_batch, shuffle=False,
             exclude_sampler_pad=True)
+        model = build_model(c)
+        params = dict(model.named_parameters())
+        # ZeRO-1's chain runs on flat shards, where ndim says nothing: the
+        # decay mask comes from the original shapes, here
         self.tx = make_optimizer(
             lr=c.lr, optimizer=c.optimizer, momentum=c.momentum,
             weight_decay=c.weight_decay, schedule=c.schedule,
             total_steps=self.train_loader.steps_per_epoch * c.epochs,
             warmup_steps=c.warmup_steps, grad_clip_norm=c.grad_clip_norm,
             ema_decay=c.ema_decay, kernels=c.kernels,
+            decay_mask=decay_mask(params) if c.zero1 else None,
+            zero1_axis=DATA_AXIS if c.zero1 else None,
         )
-        self.state = create_train_state(build_model(c), self.tx, self.device)
+        self.zero1 = (Zero1Partition(self.tx, params, self.world_size)
+                      if c.zero1 else None)
+        self.state = create_train_state(model, self.tx, self.device, zero1=self.zero1)
         self.compress = self._build_compressor()
+        if self.zero1 is not None and self.compress is not None:
+            self.zero1.set_compression(self.compress)
         if self.compress is not None and c.grad_compress_error_feedback:
             self.state.grad_residual = self.compress.init_residual(self.device)
-        self.train_step = make_train_step(self.tx, compress=self.compress)
+        self.train_step = make_train_step(self.tx, compress=self.compress,
+                                          zero1=self.zero1)
         self.eval_step = make_eval_step()
         self.history = {"train_loss": [], "step_loss": []}
         self.eval_batches = 0  # eval steps run so far (every evaluate call)
@@ -235,10 +262,19 @@ class Trainer:
                 if self.history["train_loss"] else float("nan"),
                 "step_losses": list(self.history["step_loss"])}
 
+    def _eval_params(self):
+        """The weights evaluation reads in place of the model's: the EMA
+        shadow when ``ema_decay`` is on (under ZeRO-1 gathered from the
+        ranks' shards and unflattened, a collective), else None."""
+        if not self.config.ema_decay:
+            return None
+        ema = self.state.opt_state.ema
+        return ema if self.zero1 is None else self.zero1.gather_params(ema)
+
     def evaluate(self) -> tuple:
         """(accuracy, loss) over the test set; the EMA weights when
         ``ema_decay`` is on. One host sync for the whole pass."""
-        ema = self.state.opt_state.ema if self.config.ema_decay else None
+        ema = self._eval_params()
         outs = [self.eval_step(self.state, self.to_device(b), ema)
                 for b in self.test_loader.epoch_batches(epoch=0, shard=self.rank)]
         self.eval_batches += len(outs)
