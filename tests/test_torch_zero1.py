@@ -135,7 +135,7 @@ def test_partition_layout_and_accounting_match_jax(n, recipe):
         got = part.param_slots[name]
         assert (got.size, got.padded) == (want.size, want.padded), name
         assert got.padded % n == 0, name
-    assert part.param_slots["fc2.bias"].padded == 8 if n != 3 else 9
+    assert part.param_slots["fc2.bias"].padded == (8 if n != 3 else 9)
     assert part.accounting() == jax_part.accounting()
 
     # the chunk-major layout holds each leaf's shard once a row, aligned
@@ -154,6 +154,25 @@ def test_partition_layout_and_accounting_match_jax(n, recipe):
         shards = [Zero1Partition(tx, port_params, n, rank=r).local_shard(
             {name: x})[name] for r in range(n)]
         assert torch.equal(torch.cat(shards), x)
+
+
+@pytest.mark.parametrize("kernels", [False, True], ids=["plain", "k1"])
+def test_decay_mask_has_one_source_under_zero1(kernels):
+    """At weight decay 0 the optimizer may come without a decay mask; the
+    partition then sets ``tx.decay_mask`` from the original shapes, which
+    the plain chain and K1 both read, and K1's sharded form refuses to clip
+    by a norm it was not given (it would be this rank's shards' only)."""
+    params = dict(NetResDeep(**MODEL).named_parameters())
+    tx = make_optimizer(zero1_axis="data", grad_clip_norm=1.0, kernels=kernels)
+    assert tx.decay_mask is None
+    part = Zero1Partition(tx, params, 3, rank=2)
+    assert tx.decay_mask == decay_mask(params)
+    shards = part.local_shard(part.flatten(params))
+    assert tx.wd_mask(shards) == decay_mask(params)
+    if kernels:
+        with pytest.raises(ValueError, match="g_norm"):
+            tx.fused.apply_sharded(shards, part.init_opt_state(params),
+                                   part.param_shards(params), part)
 
 
 # ---- (b) the masked plain version of K1 -------------------------------------
@@ -283,9 +302,8 @@ def _state_dict(opt_state):
 
 
 def _worker(rank, n, path):
-    from tpu_ddp_torch.ops.fused_update import sharded_global_norm
     from tpu_ddp_torch.parallel.compression import GradCompression, GradCompressor
-    from tpu_ddp_torch.parallel.zero import clip_by_global_norm_sharded
+    from tpu_ddp_torch.parallel.zero import clip_by_global_norm_sharded, sharded_global_norm
     from tpu_ddp_torch.train.optim import OptState
     from tpu_ddp_torch.train.state import create_train_state
     from tpu_ddp_torch.train.steps import make_train_step

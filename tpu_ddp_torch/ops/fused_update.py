@@ -31,7 +31,7 @@ covers up to ``MAX_LEAVES`` leaves.
   the device and yields one float32[4] device tensor, so the step never
   waits for the host. ``FusedUpdate.apply_sharded`` is the ZeRO-1 form
   (JAX :371): the same pass over this rank's shards, with the pad mask and
-  the clip's norm summed over the ranks.
+  the clip's norm that the caller summed over the ranks.
 
 Not ported yet: frozen leaves (``labeler``).
 """
@@ -402,34 +402,20 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
 
 
-def sharded_global_norm(shards) -> torch.Tensor:
-    """The global norm of a tree that lives as 1/N shards over the ranks:
-    each shard's float32 sum of squares, summed, summed over the ranks, then
-    ``sqrt`` (the JAX ``clip_by_global_norm_sharded``'s norm,
-    ``parallel/zero.py:735-739``). The pad elements are zero and add
-    nothing."""
-    from tpu_ddp_torch.parallel.collectives import all_reduce_sum_
-    from tpu_ddp_torch.parallel.runtime import world_size
-
-    sq = sum(torch.sum(torch.square(x.to(torch.float32))) for x in shards)
-    if world_size() > 1:
-        all_reduce_sum_([sq])
-    return torch.sqrt(sq)
-
-
 def prologue(recipe: UpdateRecipe, grads, opt_state,
-             sharded: bool = False) -> torch.Tensor:
+             g_norm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``[g_norm, step, bc1, bc2]`` as one float32[4] tensor on the grads'
-    device, from torch ops only (``sharded``: the grads are ZeRO-1 shards
-    and the norm is ``sharded_global_norm``, a collective; otherwise no
-    host sync)."""
+    device, from torch ops only, with no host sync. Under clipping the norm
+    is ``g_norm`` when the caller gives it (ZeRO-1's, summed over the
+    ranks), else ``global_norm`` of ``grads``."""
     grads = list(grads)
     dev = grads[0].device
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     one = torch.ones((), dtype=torch.float32, device=dev)
-    g_norm = zero
-    if recipe.grad_clip_norm > 0:
-        g_norm = sharded_global_norm(grads) if sharded else global_norm(grads)
+    if recipe.grad_clip_norm <= 0:
+        g_norm = zero
+    elif g_norm is None:
+        g_norm = global_norm(grads)
     step = -1 * recipe.lr(opt_state.sched_count) if callable(recipe.lr) else zero
     bc1 = bc2 = one
     if recipe.optimizer == "adamw":
@@ -507,19 +493,24 @@ class FusedUpdate:
 
     @torch.no_grad()
     def apply_sharded(self, gsh: Dict[str, torch.Tensor], opt_state,
-                      psh: Dict[str, torch.Tensor], partition) -> Dict[str, torch.Tensor]:
+                      psh: Dict[str, torch.Tensor], partition,
+                      g_norm: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """The ZeRO-1 update of this rank's shards, in place (the JAX
         ``apply_sharded``, :371-376): ``gsh``, ``psh`` and ``opt_state``'s
         slots are the shards of ``partition`` (a ``Zero1Partition``), each
-        leaf's pad masked by the kernel (``partition.valid()``), the clip's
-        norm ``sharded_global_norm``, the decay mask the partition's, taken
-        from the leaves' original shapes. Returns the masked updates."""
-        return self._run(gsh, opt_state, psh, partition.decay_mask,
-                         partition.valid(), sharded=True)
+        leaf's pad masked by the kernel (``partition.valid()``), under the
+        decay mask of ``partition.tx``, taken from the original shapes.
+        ``g_norm`` is the clip's global norm, which the caller sums over
+        the ranks; a clipping recipe needs it. Returns the masked updates."""
+        if self.recipe.grad_clip_norm > 0 and g_norm is None:
+            raise ValueError("apply_sharded under clipping needs the global "
+                             "norm over the ranks (g_norm)")
+        return self._run(gsh, opt_state, psh, partition.tx.decay_mask,
+                         partition.valid(), g_norm)
 
-    def _run(self, grads, opt_state, params, wd_mask, valid, sharded=False):
+    def _run(self, grads, opt_state, params, wd_mask, valid, g_norm=None):
         r = self.recipe
-        scalars = prologue(r, grads.values(), opt_state, sharded=sharded)
+        scalars = prologue(r, grads.values(), opt_state, g_norm)
         batch = self._batch_for(opt_state, params, wd_mask, valid)
         names = self._key[0]
         if len(grads) != len(names):

@@ -40,14 +40,16 @@ from typing import Dict, List, Optional
 
 import torch
 
-from tpu_ddp_torch.ops.fused_update import sharded_global_norm, shard_valid
+from tpu_ddp_torch.ops.fused_update import shard_valid
 from tpu_ddp_torch.parallel.collectives import (
     ChunkMajor,
     all_gather_bytes,
+    all_reduce_sum_,
     reduce_scatter_sum,
 )
 from tpu_ddp_torch.parallel.compression import _flat_leaf, _leaf_slot, _unflat_leaf
 from tpu_ddp_torch.parallel.runtime import rank as process_rank
+from tpu_ddp_torch.parallel.runtime import world_size
 from tpu_ddp_torch.train.optim import OptState
 
 DATA_AXIS = "data"
@@ -56,6 +58,17 @@ Tree = Dict[str, torch.Tensor]
 
 #: the ``OptState`` fields that stay whole on every rank (int32 step counts)
 REPLICATED_SLOTS = ("count", "sched_count")
+
+
+def sharded_global_norm(shards) -> torch.Tensor:
+    """The global norm of a tree that lives as 1/N shards over the ranks:
+    each shard's float32 sum of squares, summed, summed over the ranks, then
+    ``sqrt`` (the JAX ``clip_by_global_norm_sharded``'s norm, :735-739).
+    The pad elements are zero and add nothing."""
+    sq = sum(torch.sum(torch.square(x.to(torch.float32))) for x in shards)
+    if world_size() > 1:
+        all_reduce_sum_([sq])
+    return torch.sqrt(sq)
 
 
 def clip_by_global_norm_sharded(updates: Tree, max_norm: float) -> Tree:
@@ -74,9 +87,11 @@ class Zero1Partition:
 
     ``tx`` is the ``Optimizer`` built with ``zero1_axis``;
     ``params_template`` maps leaf names to anything with a ``shape``;
-    ``rank`` defaults to this process's rank in the default group.
-    ``decay_mask`` is ``tx``'s, or ``ndim >= 2`` of the template's original
-    shapes. A compressor is attached with ``set_compression``."""
+    ``rank`` defaults to this process's rank in the default group. The
+    decay mask is ``tx.decay_mask``, which both the plain chain and K1
+    read; when ``tx`` has none (legal at weight decay 0), it is set here
+    to ``ndim >= 2`` of the template's original shapes. A compressor is
+    attached with ``set_compression``."""
 
     def __init__(self, tx, params_template, n_shards: int,
                  rank: Optional[int] = None):
@@ -90,8 +105,9 @@ class Zero1Partition:
         self.names = list(self.param_slots)
         self.layout = ChunkMajor([s.size for s in self.param_slots.values()],
                                  n_shards)
-        self.decay_mask = (tx.decay_mask if tx.decay_mask is not None else
-                           {n: len(s.shape) >= 2 for n, s in self.param_slots.items()})
+        if tx.decay_mask is None:
+            tx.decay_mask = {n: len(s.shape) >= 2
+                             for n, s in self.param_slots.items()}
         self.compress = None
         self._bufs: Optional[dict] = None
         self._seen: tuple = ()
@@ -255,7 +271,9 @@ class Zero1Partition:
         psh = self.param_shards(params)
         fused = self.tx.fused
         if fused is not None:
-            updates = fused.apply_sharded(gsh, opt_state, psh, self)
+            g_norm = (sharded_global_norm(gsh.values())
+                      if self.tx.recipe.grad_clip_norm > 0 else None)
+            updates = fused.apply_sharded(gsh, opt_state, psh, self, g_norm)
         else:
             updates = self.mask_pad(self.tx.update(gsh, opt_state, psh))
             with torch.no_grad():
