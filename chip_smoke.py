@@ -85,46 +85,61 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    dv at once, for K5 and for K6; never called by the port). One line a
    shape gives K5 + K6 beside SDPA's backward, by events and device time.
 
-10. K2/K3 against plain on the card: ``fused_quant`` and ``fused_dequant``
-    (bare and with ``add_to``) against ``quantize_chunk`` and
-    ``dequantize_chunk`` at NetResDeep's 9 ring chunks at every rank count
-    the run drives (2 and 3; N under ``--nccl N``), ViT-S/4's 79 leaves
-    halved, sizes 1, 255, 257, 1,000,003 (also from an unaligned
-    address) and 2**24 at block 256, blocks 1, 64, 256, 1,000 and 4,096, and
-    blocks holding NaN, +Inf, -Inf and only zeros. Bitwise, except the int8
-    bytes of a block whose scale is not finite: there the scales must agree
-    (NaN with NaN, +-Inf equal) and the block must dequantize non-finite.
+10. K2/K3 against plain on the card. The one-segment case: ``fused_quant``
+    and ``fused_dequant`` (bare and with ``add_to``) against
+    ``quantize_chunk`` and ``dequantize_chunk`` at NetResDeep's 9 ring chunks
+    at every rank count the run drives (2 and 3; N under ``--nccl N``),
+    ViT-S/4's 79 leaves halved, sizes 1, 255, 257, 1,000,003 (also from an
+    unaligned address) and 2**24 at block 256, blocks 1, 64, 256, 1,000 and
+    4,096, and blocks holding NaN, +Inf, -Inf and only zeros. The segment
+    form, every leaf of a ring hop in one launch (``segment_quant`` with and
+    without the error, ``segment_dequant`` accumulating, into the shard row,
+    and over the n gathered rows) against ``segment_quant_plain`` /
+    ``segment_dequant_plain`` at every chunk: NetResDeep's tables at those
+    rank counts, ViT-S/4's 79 leaves and ViT-B/16's 151 (past K1's table of
+    128) at two ranks, NetResDeep at 3 ranks (and N) with NaN, +Inf, -Inf
+    and all-zero blocks, and six ragged leaves at four ranks with block 7
+    (an odd number of message bytes: the gathered rows start unaligned),
+    finite and not. Bitwise, except the int8 bytes of a block whose scale is
+    not finite: there the scales must agree (NaN with NaN, +-Inf equal), the
+    block must dequantize non-finite and its error be non-finite.
 11. The ring on the card: two ranks on ``cuda:0`` over gloo (spawned) run
     ``ring_all_reduce`` int8 with ``with_error`` at NetResDeep's 9 leaves and
-    one 2**22 leaf, through K2/K3 and through the plain versions on the same
-    inputs: outputs and errors bitwise equal on each rank, outputs identical
-    across ranks. Then one step's ring over the 9 leaves (error feedback,
-    K2/K3) timed by the host clock, and its device time split by
-    ``torch.profiler`` into K2/K3, host-device copies and other kernels.
+    one 2**22 leaf each alone, and ``GradCompressor.all_reduce_mean`` and
+    ``reduce_scatter_mean`` over NetResDeep's 9 and ViT-S/4's 79 leaves
+    (error feedback), through K2/K3 and through the plain versions on the
+    same inputs: outputs and errors bitwise equal on each rank, the one-leaf
+    outputs identical across ranks. Then one step's ring over each tree,
+    timed by the host clock, with its launches (one K2 and one K3 a hop and
+    for the gather: 2 each at two ranks), its wire calls (one exchange and
+    one all-gather) and its device time split by ``torch.profiler`` into
+    K2/K3, host-device copies and other kernels.
 12. The main path on two ranks: ``python -m tpu_ddp_torch.cli.launch
     --nproc-per-node 2 -- python -m tpu_ddp_torch.cli.train --device cuda
     --dist-backend gloo --synthetic-data --kernels --grad-compress int8
     --grad-compress-error-feedback --eval-each-epoch``, NetResDeep at full
     width, batch 32 a rank, SGD lr 1e-2, 2 epochs of 100 steps, both ranks
     sharing the card. Losses finite and falling; launches exact on each rank
-    (K1 1, K2 18 and K3 45 a step, nothing else); params bitwise equal on
-    both ranks at the end. The same run without ``--grad-compress`` (plain
-    DP over gloo) keeps its first 5 step losses within 0.05 of the int8
+    (K1 1, K2 2 and K3 2 a step, nothing else); the ring's wire calls one
+    exchange and one all-gather a step; params bitwise equal on both ranks
+    at the end. The same run without ``--grad-compress`` (plain DP over
+    gloo, no ring) keeps its first 5 step losses within 0.05 of the int8
     run's. Steady-state step time per rank of both.
-13. Timing of K2, K3 and K3 with ``add_to``: one main-path step's calls on
-    one rank (each of the 9 chunks twice through K2, four times through K3
-    and once through K3 with ``add_to``) and one 2**24 chunk, each in turns
-    with its plain version, beside the bound (bytes over 3.35 TB/s). No
-    single PyTorch call quantizes or dequantizes block-scaled int8, so these
-    rows have no library time.
+13. Timing of K2 and K3: one main-path step's calls on one rank at two
+    ranks (K2 over the 9 leaves with the error, twice; K3 accumulating one
+    hop's message, once; K3 over the two gathered rows, once) and one
+    2**24 chunk (K2, K3 bare and with ``add_to``: the one-segment case),
+    each in turns with its plain version, beside the bound (bytes over 3.35
+    TB/s). No single PyTorch call quantizes or dequantizes block-scaled
+    int8, so these rows have no library time.
 14. ``--zero1`` on three ranks: NetResDeep ``--zero1 --kernels`` through
     the launcher, three ranks sharing the card over gloo, the recipe and 2
     x 100 steps a rank of phase 12 (at three ranks seven of its nine leaves
     pad, so the mask runs on the path), in float32 and with ``--grad-compress
     int8 --grad-compress-error-feedback``; plain DP on three ranks beside
     them. Each: the step count, finite and falling losses, params bitwise
-    equal on all ranks, launches exact (K1 once a step; with int8, K2 18 and
-    K3 36 a step). Then 5 steps of zero1 and of plain DP under deterministic
+    equal on all ranks, launches exact (K1 once a step; with int8, K2 2 and
+    K3 2 a step, and the ring's two exchanges). Then 5 steps of zero1 and of plain DP under deterministic
     cuDNN: losses within ``rtol=1e-5`` at three ranks (``rtol=1e-4`` at
     other rank counts, under ``--nccl``).
 15. ViT-S/4 ``--zero1 --kernels --attention flash --optimizer adamw --lr 1e-3
@@ -990,20 +1005,33 @@ QUANT_BLOCKS = [1, 64, 256, 1000, 4096]   # 4096: one thread block a scale block
 RING_LEAVES = [math.prod(s) for s in NETRESDEEP_LEAVES] + [1 << 22]
 DP_STEPS_PER_EPOCH = 100
 DP_LOSS_ATOL = 0.05
+VIT_B16_LEAVES = 151
 
 
-def netresdeep_chunks(n):
-    """The ring's chunk sizes for NetResDeep at ``n`` ranks, one K2 / K3
-    call each per hop: each leaf flattened, padded to a multiple of n
-    (``GradCompressor``'s slots) and cut in n."""
+def ring_layout(shapes, n):
+    """The flat ring's layout (``collectives.FlatLayout``) of leaves of
+    ``shapes`` at ``n`` ranks, as ``GradCompressor`` builds it."""
     import torch
 
     from tpu_ddp_torch.parallel.compression import GradCompression, GradCompressor
 
-    template = {str(i): torch.empty(s, device="meta")
-                for i, s in enumerate(NETRESDEEP_LEAVES)}
-    return [s.padded // n for s in
-            GradCompressor(GradCompression(), template, n).slots.values()]
+    template = {str(i): torch.empty(s, device="meta") for i, s in enumerate(shapes)}
+    return GradCompressor(GradCompression(block=QUANT_BLOCK), template, n).layout
+
+
+def vit_b16_leaf_shapes():
+    """ViT-B/16's (224x224) parameter shapes: more leaves than K1's table
+    of 128 holds."""
+    import torch
+
+    from tpu_ddp_torch.models import MODEL_REGISTRY
+
+    with torch.device("meta"):
+        model = MODEL_REGISTRY["vit_b16"](image_size=224)
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    if len(shapes) != VIT_B16_LEAVES:
+        fail(f"vit_b16 has {len(shapes)} parameter leaves, expected {VIT_B16_LEAVES}")
+    return shapes
 
 
 def quant_case(x, block, gen, failed, label):
@@ -1045,6 +1073,95 @@ def quant_case(x, block, gen, failed, label):
     return worst
 
 
+def _bits(t):
+    import torch
+
+    return t.view(torch.int32)
+
+
+def _same_finite(a, b):
+    """Same non-finite pattern, and the same bits wherever finite."""
+    import torch
+
+    fin = torch.isfinite(b)
+    return torch.equal(fin, torch.isfinite(a)) and torch.equal(_bits(a[fin]), _bits(b[fin]))
+
+
+def bad_blocks(layout, msg, c):
+    """Leaf-major mask of chunk c's elements whose scale block in the int8
+    message ``msg`` is not finite."""
+    import torch
+
+    bad = torch.zeros(layout.total, dtype=torch.bool, device=msg.device)
+    for i, views in enumerate(layout.payload(msg, "int8")):
+        nonfinite = ~torch.isfinite(views["scale"])
+        if bool(nonfinite.any()):
+            layout.chunk(bad, i, c).copy_(
+                nonfinite.repeat_interleave(layout.block)[:layout.shard[i]])
+    return bad
+
+
+def segment_case(layout, x, failed, label):
+    """Segment K2 (with and without the error) and K3 (accumulating, into
+    the shard row, and the n-row gather) over every leaf of ``layout``, at
+    every chunk, against their plain versions. Bitwise, except the int8
+    bytes of a block whose scale is not finite: there the scales agree (NaN
+    with NaN, +-Inf equal) and the error is non-finite in both; K3, given
+    the same message, has the same non-finite pattern and the same bits
+    elsewhere. Returns max |diff| over finite values."""
+    import torch
+
+    from tpu_ddp_torch.ops.fused_quant import (
+        segment_dequant,
+        segment_dequant_plain,
+        segment_quant,
+        segment_quant_plain,
+    )
+
+    n, nb, block = layout.n, layout.n_blocks, layout.block
+    worst, msgs = 0.0, []
+
+    def check(ok, what):
+        if not ok:
+            failed.append(f"{label}: {what} differs from its plain version")
+
+    for c in range(n):
+        err_k, err_p = torch.zeros_like(x), torch.zeros_like(x)
+        msg = segment_quant(x, layout, c, err=err_k)
+        want = segment_quant_plain(x, layout, c, "int8", err=err_p)
+        s_k, s_p = msg[:4 * nb].view(torch.float32), want[:4 * nb].view(torch.float32)
+        nan = torch.isnan(s_p)
+        check(torch.equal(torch.isnan(s_k), nan) and torch.equal(s_k[~nan], s_p[~nan]),
+              f"K2 scale at chunk {c}")
+        rows = torch.isfinite(s_p).repeat_interleave(block)
+        check(torch.equal(msg[4 * nb:][rows], want[4 * nb:][rows]), f"K2 q at chunk {c}")
+        bad = bad_blocks(layout, want, c)
+        check(torch.equal(_bits(err_k[~bad]), _bits(err_p[~bad]))
+              and not bool(torch.isfinite(err_k[bad]).any())
+              and not bool(torch.isfinite(err_p[bad]).any()), f"K2's error at chunk {c}")
+        check(torch.equal(segment_quant(x, layout, c), msg), f"K2 without the error at {c}")
+        c2 = (c + 1) % n
+        acc_k, acc_p = x.clone(), x.clone()
+        segment_dequant(msg, layout, acc_k, add=x, add_chunk=c2, out_chunk=c2)
+        segment_dequant_plain(msg, layout, "int8", acc_p, add=x, add_chunk=c2, out_chunk=c2)
+        check(_same_finite(acc_k, acc_p), f"K3 +add_to at chunk {c2}")
+        row_k = torch.zeros(layout.rows.width, device=x.device)
+        row_p = torch.zeros_like(row_k)
+        segment_dequant(msg, layout, row_k, add=x, add_chunk=c, to_rows=True)
+        segment_dequant_plain(msg, layout, "int8", row_p, add=x, add_chunk=c, to_rows=True)
+        check(_same_finite(row_k, row_p), f"K3 into the shard row at chunk {c}")
+        for a, b in ((acc_k, acc_p), (row_k, row_p)):
+            fin = torch.isfinite(b)
+            if bool(fin.any()):
+                worst = max(worst, float((a[fin] - b[fin]).abs().max()))
+        msgs.append(msg)
+    gathered = torch.stack(msgs)
+    out_k = segment_dequant(gathered, layout, torch.empty_like(x))
+    out_p = segment_dequant_plain(gathered, layout, "int8", torch.empty_like(x))
+    check(_same_finite(out_k, out_p), f"K3 gather of {n} rows")
+    return worst
+
+
 def phase_quant_vs_plain(rank_counts):
     """Phase 10, with NetResDeep's ring chunks at each of ``rank_counts``."""
     import torch
@@ -1060,7 +1177,7 @@ def phase_quant_vs_plain(rank_counts):
     print("phase 10: K2/K3 vs plain versions (bitwise; non-finite blocks by "
           "the sentinel contract)", flush=True)
     for ranks in rank_counts:
-        for i, n in enumerate(netresdeep_chunks(ranks)):
+        for i, n in enumerate(ring_layout(NETRESDEEP_LEAVES, ranks).shard):
             run(f"netresdeep chunk {i} at {ranks} ranks ({n})",
                 torch.randn(n, generator=gen, device="cuda"), QUANT_BLOCK)
     for i, shape in enumerate(vit_leaf_shapes()):
@@ -1079,11 +1196,52 @@ def phase_quant_vs_plain(rank_counts):
     x[1300], x[1301] = float("inf"), float("nan")
     run("nan, +inf, -inf and all-zero blocks", x, QUANT_BLOCK)
     run("nan, +inf, -inf and all-zero blocks, block 64", x, 64)
-    print(f"  {len(worst)} cases, max |diff| over finite values "
+    singles = len(worst)
+
+    # the segment form: every leaf of a ring hop in one launch
+    def run_layout(label, layout, scale=1.0, poison=False):
+        x = torch.randn(layout.total, generator=gen, device="cuda") * scale
+        if poison:      # a NaN, a +Inf, a -Inf and an all-zero block, one a leaf
+            for i, v in zip(range(0, len(layout.padded), 2), ("nan", "inf", "-inf", "0")):
+                chunk = layout.chunk(x, i, i % layout.n)
+                if v == "0":
+                    chunk[:layout.block] = 0.0
+                else:
+                    chunk[len(chunk) // 2] = float(v)
+        worst[label] = segment_case(layout, x, failed, label)
+        torch.cuda.synchronize()
+
+    tables = [(f"netresdeep's 9 leaves at {r} ranks", NETRESDEEP_LEAVES, r, 1.0)
+              for r in rank_counts]
+    tables += [(f"vit_s4's {VIT_LEAVES} leaves at 2 ranks", vit_leaf_shapes(), 2, 0.02),
+               (f"vit_b16's {VIT_B16_LEAVES} leaves at 2 ranks", vit_b16_leaf_shapes(), 2,
+                0.02)]
+    for label, shapes, r, scale in tables:
+        layout = ring_layout(shapes, r)
+        run_layout(f"segments: {label} ({layout.total} elements, {layout.n_blocks} "
+                   f"scale blocks)", layout, scale)
+    for r in sorted(set(rank_counts) | {3}):
+        run_layout(f"segments: netresdeep at {r} ranks with nan, +inf, -inf and zero "
+                   "blocks", ring_layout(NETRESDEEP_LEAVES, r), poison=True)
+    from tpu_ddp_torch.parallel.collectives import FlatLayout
+
+    # block 7: an odd number of message bytes, so the gathered rows start unaligned
+    ragged = FlatLayout([36, 8, 4, 64, 4, 100], 4, 7)
+    run_layout("segments: 6 ragged leaves at 4 ranks, block 7", ragged)
+    run_layout("segments: 6 ragged leaves at 4 ranks, block 7, non-finite", ragged,
+               poison=True)
+    print(f"  {singles} single-chunk cases and {len(worst) - singles} segment tables "
+          f"(every chunk; K2 with and without the error, K3 +add_to, into the shard "
+          f"row and the n-row gather); max |diff| over finite values "
           f"{max(worst.values()):.3g}", flush=True)
     if failed:
         fail("K2/K3 disagree with their plain versions: " + "; ".join(failed[:10]))
     return max(worst.values())
+
+
+#: phase 11's trees: the main path's and the ViT's, whose 79 leaves were 79
+#: rings a step before the flat ring
+RING_STEP_ITERS = {"netresdeep": 100, "vit_s4": 30}
 
 
 def ring_rank(rank, world, out_dir):
@@ -1092,10 +1250,12 @@ def ring_rank(rank, world, out_dir):
 
     from tpu_ddp_torch.parallel.collectives import ring_all_reduce
     from tpu_ddp_torch.parallel.compression import GradCompression, GradCompressor
+    from tpu_ddp_torch.tools.ring_compare import time_ring, wire_counter
 
     torch.cuda.set_device(0)
+    wire = wire_counter()
     gen = torch.Generator(device="cuda").manual_seed(100 + rank)
-    result = {"equal": True}
+    result = {"equal": True, "steps": {}}
     outs = []
     for n in RING_LEAVES:
         x = torch.randn(n + n % 2, generator=gen, device="cuda")
@@ -1105,53 +1265,24 @@ def ring_rank(rank, world, out_dir):
                                        with_error=True, kernels=False)
         result["equal"] &= torch.equal(k_out, p_out) and torch.equal(k_err, p_err)
         outs.append(k_out.cpu())
+    for model, shapes in (("netresdeep", NETRESDEEP_LEAVES), ("vit_s4", vit_leaf_shapes())):
+        params = {f"leaf{i}": torch.randn(s, generator=gen, device="cuda") * 0.02
+                  for i, s in enumerate(shapes)}
+        comps = {kernels: GradCompressor(GradCompression(
+            mode="int8", block=QUANT_BLOCK, error_feedback=True, kernels=kernels),
+            params, world) for kernels in (True, False)}
+        residual = comps[True].init_residual("cuda")
+        for kind in ("all_reduce_mean", "reduce_scatter_mean"):
+            (k, k_err), (p, p_err) = (getattr(comps[kn], kind)(params, residual, True)
+                                      for kn in (True, False))
+            for a, b in ((k, p), (k_err, p_err)):
+                result["equal"] &= all(torch.equal(a[name], b[name]) for name in a)
+            outs += [k[name].cpu() for name in k]
+        result["steps"][model] = dict(leaves=len(shapes), **time_ring(
+            comps[True], params, residual, wire, RING_STEP_ITERS[model]))
     torch.save(outs, f"{out_dir}/ring{rank}.pt")
-    # one step's ring over NetResDeep's 9 leaves, as the train step runs it
-    params = {f"leaf{i}": torch.randn(s, generator=gen, device="cuda")
-              for i, s in enumerate(NETRESDEEP_LEAVES)}
-    comp = GradCompressor(GradCompression(mode="int8", block=QUANT_BLOCK,
-                                          error_feedback=True, kernels=True),
-                          params, world)
-    residual = comp.init_residual("cuda")
-
-    def step():
-        nonlocal residual
-        _, residual = comp.all_reduce_mean(params, residual, with_error=True)
-
-    for _ in range(10):
-        step()
-    torch.cuda.synchronize()
-    iters = 100
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        step()
-    torch.cuda.synchronize()
-    result["ring_step_ms"] = (time.perf_counter() - t0) / iters * 1e3
-    result["ring_device"] = profile_split(step, 20)
     with open(f"{out_dir}/ring{rank}.json", "w") as f:
         json.dump(result, f)
-
-
-def profile_split(fn, iters):
-    """Device ms per call of ``fn`` under ``torch.profiler``, split into
-    K2/K3, host<->device copies and other kernels; None without device
-    events."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    split = {"quant_kernels": 0.0, "memcpy": 0.0, "other": 0.0}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        key = ("quant_kernels" if "tpu_ddp_quant" in e.key or "tpu_ddp_dequant" in e.key
-               else "memcpy" if "memcpy" in e.key.lower() else "other")
-        split[key] += e.self_device_time_total / iters * 1e-3
-    return split if any(split.values()) else None
 
 
 def phase_ring_on_card(tmp):
@@ -1159,26 +1290,39 @@ def phase_ring_on_card(tmp):
 
     import torch
 
-    print("phase 11: ring_all_reduce int8 + error feedback on two ranks on "
-          "cuda:0 over gloo, K2/K3 vs plain versions", flush=True)
+    print("phase 11: the int8 ring with error feedback on two ranks on cuda:0 over "
+          "gloo, K2/K3 vs plain versions; one step's ring over all leaves", flush=True)
     out = os.path.join(tmp, "ring")
     os.makedirs(out)
-    spawn(ring_rank, 2, out, init_file=os.path.join(out, "rdzv"), timeout=300)
+    spawn(ring_rank, 2, out, init_file=os.path.join(out, "rdzv"), timeout=600)
     res = []
     for r in range(2):
         with open(os.path.join(out, f"ring{r}.json")) as f:
             res.append(json.load(f))
     outs = [torch.load(os.path.join(out, f"ring{r}.pt")) for r in range(2)]
-    same = all(torch.equal(a, b) for a, b in zip(*outs))
-    print(f"  leaves {RING_LEAVES}: kernels == plain on rank 0 {res[0]['equal']}, "
-          f"rank 1 {res[1]['equal']}; outputs identical across ranks {same}", flush=True)
-    for r in range(2):
-        print(f"  rank {r}: one step's ring over NetResDeep's 9 leaves "
-              f"{res[r]['ring_step_ms']:.4f} ms (host clock); device ms a step by "
-              f"kind: {res[r]['ring_device']}", flush=True)
+    same = all(torch.equal(a, b) for a, b in zip(outs[0][:len(RING_LEAVES)],
+                                                outs[1][:len(RING_LEAVES)]))
+    print(f"  one leaf of {RING_LEAVES} and GradCompressor's all_reduce_mean / "
+          f"reduce_scatter_mean over NetResDeep's 9 and ViT-S/4's {VIT_LEAVES} leaves: "
+          f"kernels == plain on rank 0 {res[0]['equal']}, rank 1 {res[1]['equal']}; "
+          f"one-leaf outputs identical across ranks {same}", flush=True)
+    failed = []
+    for model in RING_STEP_ITERS:
+        for r in range(2):
+            st = res[r]["steps"][model]
+            print(f"  rank {r}: one step's ring over {model}'s {st['leaves']} leaves "
+                  f"{st['host_ms']:.4f} ms (host clock); launches {st['launches']}; "
+                  f"wire calls {st['wire_calls']}; device ms a step by kind: "
+                  f"{st['device_ms']}", flush=True)
+            if (st["launches"] != {"fused_quant": 2, "fused_dequant": 2}
+                    or st["wire_calls"] != {"exchange": 1, "all_gather_bytes": 1}):
+                failed.append(f"rank {r} {model}")
     if not (res[0]["equal"] and res[1]["equal"] and same):
         fail("the ring with K2/K3 differs from the ring with plain versions, "
              "or across ranks")
+    if failed:
+        fail("a step's ring did not make one K2, one K3 and one wire call a hop: "
+             + ", ".join(failed))
     return res
 
 
@@ -1196,11 +1340,19 @@ def dp_args(compress, nproc=2, backend="gloo"):
 def dp_launches(nproc):
     """K1, K2 and K3 launches a step a rank at ``nproc`` ranks with error
     feedback, over NetResDeep's 9 leaves: K1 once (all leaves in one
-    launch), K2 n a leaf (n-1 hops and the gather phase's quantize), K3
-    (n-1)(1+ef) + ef + n a leaf (tpu_ddp/parallel/collectives.py:245-268,
-    :289-303)."""
-    return {"fused_update": 1, "fused_quant": 9 * nproc,
-            "fused_dequant": 9 * ((nproc - 1) * 2 + 1 + nproc)}
+    launch); the flat ring over all leaves at once: K2 n (n-1 hops and the
+    gather phase's quantize, the error in the same pass), K3 n (n-1 hops'
+    accumulate and one dequantize of all n gathered rows)."""
+    return {"fused_update": 1, "fused_quant": nproc, "fused_dequant": nproc}
+
+
+def ring_wire_calls(nproc, compress, zero1):
+    """The ring's wire calls a step a rank: n-1 exchanges, and for the
+    all-reduce one all-gather (the params' all-gather of ``--zero1`` is not
+    the ring's)."""
+    if not compress:
+        return {"exchange": 0, "all_gather_bytes": 0}
+    return {"exchange": nproc - 1, "all_gather_bytes": 0 if zero1 else 1}
 
 
 def rank_child(out_dir, args):
@@ -1213,15 +1365,18 @@ def rank_child(out_dir, args):
     sys.path.insert(0, ROOT)
     from tpu_ddp_torch import ops
     from tpu_ddp_torch.cli import train as cli
+    from tpu_ddp_torch.tools.ring_compare import wire_counter
 
     if args[:1] == ["--deterministic"]:
         torch.backends.cudnn.deterministic = True
         args = args[1:]
     rank = int(os.environ["RANK"])
+    wire = wire_counter()
     ops.reset_launch_counts()
     trainer, metrics = cli.run(args)
     torch.cuda.synchronize()
     metrics["launches"] = ops.launch_counts()
+    metrics["wire_calls"] = wire
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(metrics, f)
     torch.save({k: v.cpu() for k, v in trainer.state.model.state_dict().items()},
@@ -1277,9 +1432,14 @@ def phase_dp_main_path(tmp, nproc=2, backend="gloo"):
         want["fused_update"] = steps
         if compress:
             want.update({k: v * steps for k, v in dp_launches(nproc).items()})
+        wire = {k: v * steps for k, v in ring_wire_calls(nproc, compress, False).items()}
+        print(f"  the ring's wire calls on rank 0: {m['wire_calls']}", flush=True)
         for r in range(nproc):
             if metrics[r]["launches"] != want:
                 fail(f"rank {r} launched {metrics[r]['launches']}, expected {want}")
+            if metrics[r]["wire_calls"] != wire:
+                fail(f"rank {r}'s ring made {metrics[r]['wire_calls']} wire calls, "
+                     f"expected {wire}")
         runs["int8" if compress else "plain"] = metrics
     got = runs["plain"][0]["step_losses"][:PLAIN_STEPS_RTOL]
     want = runs["int8"][0]["step_losses"][:PLAIN_STEPS_RTOL]
@@ -1309,13 +1469,13 @@ ZERO1_RTOL_OTHER = 1e-4
 def zero1_launches(nproc, compress):
     """K1, K2 and K3 launches a step a rank of NetResDeep under ``--zero1``
     at ``nproc`` ranks: K1 once (the shards of all nine leaves in one
-    launch). With the int8 ring and error feedback, each leaf's
-    reduce-scatter (``parallel/collectives.py::ring_reduce_scatter``) makes
-    n-1 hops, each quantizing the payload it sends once (K2), dequantizing
-    it once for the error and the received one once into the carry (K3).
-    The params' all-gather moves float32 and runs neither."""
-    hops = 9 * (nproc - 1) if compress else 0
-    return {"fused_update": 1, "fused_quant": hops, "fused_dequant": 2 * hops}
+    launch). With the int8 ring and error feedback, the reduce-scatter over
+    all leaves (``parallel/collectives.py::ring_reduce_scatter_flat``) makes
+    n-1 hops, each one K2 (the message and the error) and one K3 (the
+    received message into the running sums; the last hop's into the
+    gradient row). The params' all-gather moves float32 and runs neither."""
+    hops = nproc - 1 if compress else 0
+    return {"fused_update": 1, "fused_quant": hops, "fused_dequant": hops}
 
 
 def check_run(label, metrics, same, want_steps, want_per_step, extra=None):
@@ -1378,6 +1538,11 @@ def phase_zero1_dp(tmp, n=ZERO1_RANKS, backend="gloo"):
         metrics, same = launch_dp(tmp, name, args, n, phase="14")
         per_step = (zero1_launches(n, compress) if zero1 else {"fused_update": 1})
         check_run(name, metrics, same, 2 * DP_STEPS_PER_EPOCH, per_step)
+        wire = {k: v * 2 * DP_STEPS_PER_EPOCH
+                for k, v in ring_wire_calls(n, compress, zero1).items()}
+        if any(x["wire_calls"] != wire for x in metrics):
+            fail(f"{name}: the ring's wire calls {metrics[0]['wire_calls']}, "
+                 f"expected {wire}")
         losses = metrics[0]["step_losses"]
         first, last = sum(losses[:20]) / 20, sum(losses[-20:]) / 20
         print(f"  mean loss of the first 20 steps {first:.4f}, last 20 {last:.4f}",
@@ -1524,27 +1689,43 @@ def phase_masked_timing(results, launches):
     return rows
 
 
-def quant_bound(sizes, block, kind):
-    """(bound_ms, "bytes"): bytes each call must move over the HBM rate.
-    K2 reads 4 bytes an element and writes nb * block int8 plus 4 bytes a
-    block; K3 reads 1 byte an element (5 with add_to) plus 4 a block and
-    writes 4 an element. Their few operations an element are far below the
-    bytes' time."""
-    total = 0
+def quant_bound(sizes, block, kind, rows=1):
+    """(bound_ms, "bytes"): bytes one call must move over the HBM rate, for
+    chunks of ``sizes`` (one a leaf), each input read once and each output
+    written once. K2 reads 4 bytes an element and writes nb * block int8
+    plus 4 bytes a block ("quant"), and 4 bytes an element more with the
+    error ("quant_err"); K3 reads nb * block plus 4 a block, and 4 an
+    element more with add_to ("dequant_add"), and writes 4 an element, for
+    each of ``rows`` messages. A segment table is 32 bytes a leaf (read
+    once). Their few operations an element are far below the bytes'
+    time."""
+    total = 32 * len(sizes) if len(sizes) > 1 else 0
     for n in sizes:
         nb = -(-n // block)
-        if kind == "quant":
-            total += 4 * n + nb * block + 4 * nb
+        if kind.startswith("quant"):
+            total += 4 * n + nb * block + 4 * nb + (4 * n if kind == "quant_err" else 0)
         else:
-            total += n + 4 * nb + 4 * n + (4 * n if kind == "dequant_add" else 0)
+            total += rows * (nb * block + 4 * nb + 4 * n
+                             + (4 * n if kind == "dequant_add" else 0))
     return total / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
 def phase_quant_timing(quant_err, runs):
+    """Phase 13: one main-path step's K2/K3 calls on one rank at two ranks
+    (the flat ring over NetResDeep's 9 leaves: K2 with the error n times,
+    K3 +add_to n-1 times, K3 over the n gathered rows once) and one 2**24
+    chunk (the one-segment case), each in turns with its plain version."""
     import torch
 
     from tpu_ddp_torch import ops
-    from tpu_ddp_torch.ops.fused_quant import fused_dequant, fused_quant
+    from tpu_ddp_torch.ops.fused_quant import (
+        fused_dequant,
+        fused_quant,
+        segment_dequant,
+        segment_dequant_plain,
+        segment_quant,
+        segment_quant_plain,
+    )
     from tpu_ddp_torch.parallel.compression import dequantize_chunk, quantize_chunk
 
     print("phase 13: K2/K3 timing (CUDA events, ms per step of the listed calls; "
@@ -1552,59 +1733,73 @@ def phase_quant_timing(quant_err, runs):
           flush=True)
     gen = torch.Generator(device="cuda").manual_seed(13)
     launches = runs["int8"][0]["launches"]
-    groups = {
-        # one step of the main path on one rank: each chunk twice through K2,
-        # four times through bare K3 and once through K3 with add_to
-        "netresdeep step": (netresdeep_chunks(2), {"quant": 2, "dequant": 4,
-                                                "dequant_add": 1}, 500),
-        "2^24": ([LARGE], {"quant": 1, "dequant": 1, "dequant_add": 1}, 50),
+    n = 2
+    layout = ring_layout(NETRESDEEP_LEAVES, n)
+    x = torch.randn(layout.total, generator=gen, device="cuda")
+    err, acc, out = (torch.empty_like(x) for _ in range(3))
+    msgs = torch.stack([segment_quant(x, layout, c) for c in range(n)])
+    msg = msgs[0].clone()
+    big = torch.randn(LARGE, generator=gen, device="cuda")
+    big_acc = torch.randn(LARGE, generator=gen, device="cuda")
+    payload = fused_quant(big, QUANT_BLOCK)
+    chunks = list(layout.shard)
+    # name -> (kernel, plain, calls a step, kind, sizes, rows, shapes)
+    cases = {
+        "fused_quant": (
+            lambda: segment_quant(x, layout, 0, err=err),
+            lambda: segment_quant_plain(x, layout, 0, "int8", err=err),
+            n, "quant_err", chunks, 1, f"netresdeep step at {n} ranks: 9 leaves' chunks "
+            f"{chunks} in one launch with the error, x {n}"),
+        "fused_dequant[add_to]": (
+            lambda: segment_dequant(msg, layout, acc, add=x, add_chunk=1, out_chunk=1),
+            lambda: segment_dequant_plain(msg, layout, "int8", acc, add=x, add_chunk=1,
+                                          out_chunk=1),
+            n - 1, "dequant_add", chunks, 1, f"netresdeep step at {n} ranks: one hop's "
+            f"message into 9 leaves' running sums, x {n - 1}"),
+        "fused_dequant[gather]": (
+            lambda: segment_dequant(msgs, layout, out),
+            lambda: segment_dequant_plain(msgs, layout, "int8", out),
+            1, "dequant", chunks, n, f"netresdeep step at {n} ranks: the {n} gathered "
+            "rows into 9 leaves, x 1"),
+        "fused_quant[2^24]": (
+            lambda: fused_quant(big, QUANT_BLOCK),
+            lambda: quantize_chunk(big, "int8", QUANT_BLOCK),
+            1, "quant", [LARGE], 1, "one 2^24 chunk"),
+        "fused_dequant[2^24]": (
+            lambda: fused_dequant(payload, QUANT_BLOCK, LARGE),
+            lambda: dequantize_chunk(payload, "int8", QUANT_BLOCK, LARGE),
+            1, "dequant", [LARGE], 1, "one 2^24 chunk"),
+        "fused_dequant[add_to][2^24]": (
+            lambda: fused_dequant(payload, QUANT_BLOCK, LARGE, add_to=big_acc),
+            lambda: big_acc + dequantize_chunk(payload, "int8", QUANT_BLOCK, LARGE),
+            1, "dequant_add", [LARGE], 1, "one 2^24 chunk"),
     }
     rows = []
-    for group, (sizes, reps, iters) in groups.items():
-        xs = [torch.randn(n, generator=gen, device="cuda") for n in sizes]
-        accs = [torch.randn(n, generator=gen, device="cuda") for n in sizes]
-        payloads = [fused_quant(x, QUANT_BLOCK) for x in xs]
-        calls = {
-            "quant": (lambda: [fused_quant(x, QUANT_BLOCK) for x in xs],
-                      lambda: [quantize_chunk(x, "int8", QUANT_BLOCK) for x in xs]),
-            "dequant": (lambda: [fused_dequant(p, QUANT_BLOCK, x.numel())
-                                 for p, x in zip(payloads, xs)],
-                        lambda: [dequantize_chunk(p, "int8", QUANT_BLOCK, x.numel())
-                                 for p, x in zip(payloads, xs)]),
-            "dequant_add": (lambda: [fused_dequant(p, QUANT_BLOCK, x.numel(), add_to=a)
-                                     for p, x, a in zip(payloads, xs, accs)],
-                            lambda: [a + dequantize_chunk(p, "int8", QUANT_BLOCK, x.numel())
-                                     for p, x, a in zip(payloads, xs, accs)]),
+    for name, (kernel, plain, calls, kind, sizes, n_rows, shapes) in cases.items():
+        iters = 50 if name.endswith("[2^24]") else 500
+        k1, p1 = time_ms(kernel, iters), time_ms(plain, iters)
+        p2, k2 = time_ms(plain, iters), time_ms(kernel, iters)
+        dev_k, dev_p = device_ms(kernel, 20), device_ms(plain, 20)
+        b_ms, b_by = quant_bound(sizes, QUANT_BLOCK, kind, n_rows)
+        base = name.split("[")[0]
+        entry = ops.KERNELS[base]
+        scale = lambda v: None if v is None else v * calls  # noqa: E731
+        row = {
+            "name": name, "route": entry["route"], "source": entry["source"],
+            "replaces": entry["replaces"], "launches": launches[base],
+            "max_abs_err": quant_err, "ms": (k1 + k2) / 2 * calls,
+            "plain_ms": (p1 + p2) / 2 * calls, "bound_ms": b_ms * calls,
+            "bound_by": b_by, "library_ms": None,
+            "library": "none: no single PyTorch call quantizes or dequantizes "
+                       "block-scaled int8",
+            "shapes": f"{shapes}, block {QUANT_BLOCK}",
+            "device_ms": scale(dev_k), "plain_device_ms": scale(dev_p),
         }
-        for kind, (kernel, plain) in calls.items():
-            n_rep = reps[kind]
-            k1, p1 = time_ms(kernel, iters), time_ms(plain, iters)
-            p2, k2 = time_ms(plain, iters), time_ms(kernel, iters)
-            dev_k, dev_p = device_ms(kernel, 20), device_ms(plain, 20)
-            b_ms, b_by = quant_bound(sizes, QUANT_BLOCK, kind)
-            name = "fused_quant" if kind == "quant" else "fused_dequant"
-            entry = ops.KERNELS[name]
-            scale = lambda v: None if v is None else v * n_rep  # noqa: E731
-            row = {
-                "name": name + {"quant": "", "dequant": "",
-                                "dequant_add": "[add_to]"}[kind]
-                + ("" if group == "netresdeep step" else "[2^24]"),
-                "route": entry["route"], "source": entry["source"],
-                "replaces": entry["replaces"], "launches": launches[name],
-                "max_abs_err": quant_err, "ms": (k1 + k2) / 2 * n_rep,
-                "plain_ms": (p1 + p2) / 2 * n_rep, "bound_ms": b_ms * n_rep,
-                "bound_by": b_by, "library_ms": None,
-                "library": "none: no single PyTorch call quantizes or dequantizes "
-                           "block-scaled int8",
-                "shapes": f"{group}: chunks {sizes} x {n_rep}, block {QUANT_BLOCK}",
-                "device_ms": scale(dev_k), "plain_device_ms": scale(dev_p),
-            }
-            rows.append(row)
-            print(f"  {row['name']:28s} {group:16s} x{n_rep}: kernel {row['ms']:.5f} ms  "
-                  f"plain {row['plain_ms']:.5f} ms  bound {row['bound_ms']:.6f} ms "
-                  f"(bytes); device only: kernel {row['device_ms']}, plain "
-                  f"{row['plain_device_ms']} ms", flush=True)
-        del xs, accs, payloads
+        rows.append(row)
+        print(f"  {name:28s} x{calls}: kernel {row['ms']:.5f} ms  plain "
+              f"{row['plain_ms']:.5f} ms  bound {row['bound_ms']:.6f} ms (bytes); device "
+              f"only: kernel {row['device_ms']}, plain {row['plain_device_ms']} ms "
+              f"({shapes})", flush=True)
     return rows
 
 

@@ -151,3 +151,17 @@ def test_nccl_rank_without_its_own_card_raises(monkeypatch):
     assert dist_runtime.rank_device("cpu", "gloo") == torch.device("cpu")
     assert dist_runtime.default_backend("cuda") == "nccl"
     assert dist_runtime.default_backend("cpu") == "gloo"
+
+
+def test_launcher_rendezvous_ports_lie_below_the_ephemeral_range():
+    """The launcher's rendezvous port is drawn from ``_PORTS``, below the
+    kernel's ephemeral range (where ``bind`` on port 0 and outgoing
+    connections take theirs), and binds when picked."""
+    import socket
+
+    from tpu_ddp_torch.cli.launch import _PORTS, pick_free_port
+
+    ports = {pick_free_port() for _ in range(20)}
+    assert all(_PORTS[0] <= p < _PORTS[1] <= 32768 for p in ports)
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", ports.pop()))

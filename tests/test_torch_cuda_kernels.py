@@ -416,3 +416,133 @@ def test_quant_kernels_bitwise_equal_to_plain(cuda, size, block, offset):
         assert not fin[~finite.repeat_interleave(block)[:size]].any()
     torch.cuda.synchronize()
     assert ops.LAUNCHES["fused_quant"] == 1 and ops.LAUNCHES["fused_dequant"] == 2
+
+
+#: (leaf lengths, ranks, block): NetResDeep's nine leaves at three ranks;
+#: ragged small leaves at four ranks with block 7 (a message of an odd
+#: number of bytes, so the gathered rows start unaligned); 200 leaves, past
+#: K1's table of 128
+SEGMENT_CASES = {
+    "netresdeep_3": ([864, 32, 9216, 32, 32, 65536, 32, 320, 10], 3, 256),
+    "ragged_4_block7": ([36, 5, 1, 63, 3, 100], 4, 7),
+    "leaves_200": ([17 * (i % 13) + 1 for i in range(200)], 2, 16),
+}
+
+
+def _f32_bits(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.parametrize("case", list(SEGMENT_CASES))
+def test_segment_kernels_bitwise_equal_to_plain(cuda, case):
+    """K2 over every leaf in one launch (the message, and the error in the
+    same pass) and K3 (accumulating into the running sums, in place too,
+    into the shard row, and the n-row gather) against their plain
+    versions, bitwise, one launch each."""
+    from tpu_ddp_torch.ops.fused_quant import (
+        segment_dequant,
+        segment_dequant_plain,
+        segment_quant,
+        segment_quant_plain,
+    )
+    from tpu_ddp_torch.parallel.collectives import FlatLayout
+
+    sizes, n, block = SEGMENT_CASES[case]
+    layout = FlatLayout([s + (-s) % n for s in sizes], n, block)
+    gen = torch.Generator(device=cuda).manual_seed(layout.total)
+    x = torch.randn(layout.total, generator=gen, device=cuda) * 3
+    x[layout.offsets[-1]:] = 0.0                     # an all-zero leaf
+    ops.reset_launch_counts()
+    msgs = []
+    for c in range(n):
+        err, err_p = torch.zeros_like(x), torch.zeros_like(x)
+        msg = segment_quant(x, layout, c, err=err)
+        assert torch.equal(msg, segment_quant_plain(x, layout, c, "int8", err=err_p))
+        assert torch.equal(_f32_bits(err), _f32_bits(err_p))
+        assert torch.equal(segment_quant(x, layout, c), msg)
+        c2 = (c + 1) % n
+        acc, acc_p, inplace = torch.zeros_like(x), torch.zeros_like(x), x.clone()
+        segment_dequant(msg, layout, acc, add=x, add_chunk=c2, out_chunk=c2)
+        segment_dequant(msg, layout, inplace, add=inplace, add_chunk=c2, out_chunk=c2)
+        segment_dequant_plain(msg, layout, "int8", acc_p, add=x, add_chunk=c2,
+                              out_chunk=c2)
+        assert torch.equal(_f32_bits(acc), _f32_bits(acc_p))
+        assert torch.equal(_f32_bits(layout.chunk(inplace, 0, c2)),
+                           _f32_bits(layout.chunk(acc, 0, c2)))
+        row = torch.zeros(layout.rows.width, device=cuda)
+        row_p = torch.zeros_like(row)
+        segment_dequant(msg, layout, row, add=x, add_chunk=c, to_rows=True)
+        segment_dequant_plain(msg, layout, "int8", row_p, add=x, add_chunk=c,
+                              to_rows=True)
+        assert torch.equal(_f32_bits(row), _f32_bits(row_p))
+        msgs.append(msg)
+    gathered = torch.stack(msgs)
+    out = segment_dequant(gathered, layout, torch.empty_like(x))
+    want = segment_dequant_plain(gathered, layout, "int8", torch.empty_like(x))
+    assert torch.equal(_f32_bits(out), _f32_bits(want))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_quant"] == 2 * n
+    assert ops.LAUNCHES["fused_dequant"] == 3 * n + 1
+
+
+def _two_rank_ring(rank, world, out_dir):
+    """One step's compressed ring over NetResDeep's nine leaves on one rank
+    of two sharing ``cuda:0`` over gloo, through K2/K3 and through the plain
+    versions: launches, wire calls and results."""
+    from tpu_ddp_torch.parallel import collectives
+    from tpu_ddp_torch.parallel.compression import GradCompression, GradCompressor
+
+    torch.cuda.set_device(0)
+    wire = [0]
+    for name in ("exchange", "all_gather_bytes"):
+        fn = getattr(collectives, name)
+
+        def counted(*a, _fn=fn, **kw):
+            wire[0] += 1
+            return _fn(*a, **kw)
+
+        setattr(collectives, name, counted)
+    shapes = [(32, 3, 3, 3), (32,), (32, 32, 3, 3), (32,), (32,), (32, 2048), (32,),
+              (10, 32), (10,)]
+    gen = torch.Generator(device="cuda").manual_seed(rank)
+    grads = {f"leaf{i}": torch.randn(s, generator=gen, device="cuda")
+             for i, s in enumerate(shapes)}
+    out = {}
+    for kernels in (True, False):
+        comp = GradCompressor(GradCompression(mode="int8", error_feedback=True,
+                                              kernels=kernels), grads, world)
+        residual = comp.init_residual("cuda")
+        for kind in ("all_reduce", "reduce_scatter"):
+            fn = (comp.all_reduce_mean if kind == "all_reduce"
+                  else comp.reduce_scatter_mean)
+            ops.reset_launch_counts()
+            before = wire[0]
+            got, err = fn(grads, residual, with_error=True)
+            torch.cuda.synchronize()
+            out[f"{kind}/{kernels}"] = {
+                "launches": ops.launch_counts(), "wire": wire[0] - before,
+                "got": {k: v.cpu() for k, v in got.items()},
+                "err": {k: v.cpu() for k, v in err.items()}}
+    torch.save(out, f"{out_dir}/rank{rank}.pt")
+
+
+def test_two_rank_ring_one_launch_a_hop(cuda, tmp_path):
+    """Two ranks on one card: the all-reduce makes K2 and K3 two launches a
+    step each (one a hop, one for the gather) and two wire calls, the
+    reduce-scatter one of each; the results and residuals are bitwise those
+    of the plain versions."""
+    from tpu_ddp_torch.parallel.runtime import spawn
+
+    spawn(_two_rank_ring, 2, str(tmp_path), init_file=str(tmp_path / "rdzv"),
+          timeout=300)
+    for rank in range(2):
+        res = torch.load(tmp_path / f"rank{rank}.pt")
+        for kind, hops in (("all_reduce", 2), ("reduce_scatter", 1)):
+            k, p = res[f"{kind}/True"], res[f"{kind}/False"]
+            assert k["launches"]["fused_quant"] == hops
+            assert k["launches"]["fused_dequant"] == hops
+            assert sum(p["launches"].values()) == 0
+            assert k["wire"] == p["wire"] == hops
+            for key in ("got", "err"):
+                for name, v in k[key].items():
+                    assert torch.equal(_f32_bits(v), _f32_bits(p[key][name])), (kind, key)

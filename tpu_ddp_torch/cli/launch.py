@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import random
 import signal
 import socket
 import subprocess
@@ -67,10 +68,26 @@ def child_env(base: dict, *, master: str, world_size: int, rank: int,
     return env
 
 
+#: rendezvous ports are drawn below Linux's ephemeral range (32768 and up
+#: by default), which the kernel hands to outgoing connections and to
+#: ``bind`` on port 0: a port from there can be taken, or sit in TIME_WAIT
+#: from a finished job's connection, before rank 0's store listens on it
+#: (seen as EADDRINUSE between back-to-back NCCL jobs on one host)
+_PORTS = (20000, 32768)
+
+
 def pick_free_port(host: str = "127.0.0.1") -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind((host, 0))
-        return s.getsockname()[1]
+    """A port on ``host`` that binds now, drawn from ``_PORTS``."""
+    rng = random.Random()
+    for _ in range(200):
+        port = rng.randrange(*_PORTS)
+        with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+            try:
+                s.bind((host, port))
+            except OSError:
+                continue
+            return port
+    raise OSError(f"no free port in {_PORTS} on {host}")
 
 
 def _terminate_all(procs: Sequence[subprocess.Popen],

@@ -61,11 +61,12 @@ LIBRARIES = {
         "tpu_ddp_flash_bwd_info": (_I, [_I, _I, _P]),
         **_ERR,
     }),
-    # -fmad=false: K3 rounds q * scale and the sum with add_to apart, as
-    # its plain version does
+    # -fmad=false: K2's error and K3 round q * scale and then the
+    # difference or the sum apart, as their plain versions do
     "fused_quant": ("fused_quant.cu", ("-fmad=false",), {
-        "tpu_ddp_fused_quant": (_I, [_P] * 3 + [_LL, _LL, _P]),
-        "tpu_ddp_fused_dequant": (_I, [_P] * 4 + [_LL, _LL, _P]),
+        "tpu_ddp_fused_quant": (_I, [_P, _P, _I] + [_LL] * 4 + [_P] * 4),
+        "tpu_ddp_fused_dequant": (
+            _I, [_P, _P, _LL, _I, _P, _I] + [_LL] * 3 + [_P, _LL, _P, _LL, _I, _P]),
         **_ERR,
     }),
 }

@@ -14,8 +14,20 @@ here (``exchange``, ``all_gather_bytes``, ``_all_reduce_flat``,
 CUDA tensors through pinned host buffers: copy to the host, send, receive,
 copy back to the card. Only wire bytes take that route; every quantize,
 dequantize and sum stays on the card. Under ``nccl`` the same calls carry
-device tensors. A payload crosses the wire packed into one byte buffer
-(``_pack``), one message a hop.
+device tensors.
+
+The compressed ring runs over all leaves of a step at once
+(``FlatLayout``): the leaves sit one after another in one float32 buffer,
+and each hop sends one wire message that carries the hop's chunk of every
+leaf, quantized by one K2 launch and dequantized into the running sums by
+one K3 launch (``ops/fused_quant.py``). Each leaf keeps its own chunks,
+scale blocks and order of sums, so every leaf's result is bitwise that of
+the JAX package's ring run on that leaf alone; only the number of launches
+and messages differs (XLA fuses the JAX package's per-leaf loop under
+``jit``; eager PyTorch would pay each launch and message from the host).
+A step's ring makes n - 1 exchanges and, for the all-reduce, one
+all-gather. ``ring_reduce_scatter`` and ``ring_all_reduce`` of one tensor
+are its one-leaf case.
 
 ZeRO-1 (``parallel/zero.py``) moves a step's gradients and params in one
 collective each, not one a leaf: ``ChunkMajor`` lays every leaf's N chunks
@@ -23,7 +35,8 @@ out in one ``(N, W)`` buffer whose row r holds every leaf's r-th chunk in
 leaf order, so one ``reduce_scatter_sum`` gives rank r its row of the sum
 (the shards of all leaves) and one ``all_gather_bytes`` brings every row
 back. Both backends take ``reduce_scatter_tensor``, gloo on the pinned host
-copies.
+copies. The compressed ring's reduce-scatter leaves its sum in the same row
+layout (``FlatLayout.rows``).
 
 Not ported yet: the telemetry hop hook (``_RING_HOP_HOOK``, ``_emit_hop``),
 ``prefetched_block_gather`` (ZeRO-3) and ``ring_shift`` (sequence
@@ -37,11 +50,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from tpu_ddp_torch.parallel.compression import dequantize_chunk, quantize_chunk
 from tpu_ddp_torch.parallel.runtime import rank, world_size
-
-#: byte alignment of every tensor inside a packed payload
-_ALIGN = 16
 
 
 def _staged(tensor: torch.Tensor) -> bool:
@@ -202,137 +211,237 @@ def sync_gradients(grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return grads
 
 
-# ---- payload packing -----------------------------------------------------
 
 
-def _spec(payload: dict) -> List[Tuple[str, torch.Size, torch.dtype]]:
-    # wider elements first: every view then starts at a multiple of its size
-    return sorted(((k, t.shape, t.dtype) for k, t in payload.items()),
-                  key=lambda s: -s[2].itemsize)
+# ---- the flat ring -------------------------------------------------------
 
 
-def _aligned(nbytes: int) -> int:
-    return -(-nbytes // _ALIGN) * _ALIGN
+def _prefix(values) -> Tuple[int, ...]:
+    """Exclusive prefix sums: the start of each of ``values`` laid end to end."""
+    out, total = [], 0
+    for v in values:
+        out.append(total)
+        total += v
+    return tuple(out)
 
 
-def _pack(payload: dict) -> torch.Tensor:
-    parts = []
-    for key, _, _ in _spec(payload):
-        b = payload[key].contiguous().reshape(-1).view(torch.uint8)
-        pad = _aligned(b.numel()) - b.numel()
-        parts.append(b)
-        if pad:
-            parts.append(b.new_zeros(pad))
-    return torch.cat(parts)
+class FlatLayout:
+    """The ring's layout of a step's leaves over ``n`` ranks: leaves of
+    ``padded`` elements (each a multiple of n) one after another in one
+    float32 buffer, leaf-major. Leaf i starts at ``offsets[i]``; its chunk
+    c is ``[offsets[i] + c * shard[i], offsets[i] + (c + 1) * shard[i])``.
+
+    A hop's wire message carries one chunk of every leaf. In int8 it holds
+    first every leaf's scales (4 bytes a scale block, leaf i's from
+    ``first_block[i]`` on), then every leaf's q (``block`` bytes a scale
+    block). The scale blocks restart at each leaf's chunk, as
+    ``quantize_chunk`` of that chunk alone would cut them. In f32 and bf16
+    the message holds the chunks one after another (leaf i's at
+    ``hop_offsets[i]``). Either way its bytes are the sum over the leaves of
+    ``chunk_wire_bytes``. ``rows`` is the shard layout (``ChunkMajor``):
+    where the reduce-scatter leaves one rank's chunk of every leaf."""
+
+    def __init__(self, padded: Sequence[int], n: int, block: int):
+        if any(p % n for p in padded):
+            raise ValueError(f"FlatLayout: leaf lengths {tuple(padded)} are not "
+                             f"all multiples of {n}")
+        self.n, self.block, self.padded = n, block, tuple(padded)
+        self.shard = tuple(p // n for p in self.padded)
+        self.offsets, self.total = _prefix(self.padded), sum(self.padded)
+        self.hop_offsets, self.hop_size = _prefix(self.shard), sum(self.shard)
+        blocks = [-(-s // block) for s in self.shard]
+        self.first_block, self.n_blocks = _prefix(blocks), sum(blocks)
+        self.rows = ChunkMajor(self.padded, n)
+        self._tables: Dict[torch.device, torch.Tensor] = {}
+
+    def msg_bytes(self, mode: str) -> int:
+        """Bytes of one hop's wire message in ``mode``."""
+        if mode == "int8":
+            return self.n_blocks * (4 + self.block)
+        return self.hop_size * (4 if mode == "f32" else 2)
+
+    def leaves(self, flat: torch.Tensor) -> List[torch.Tensor]:
+        """Each leaf of the leaf-major ``flat``, as ``(padded,)`` views."""
+        return [flat[o:o + p] for o, p in zip(self.offsets, self.padded)]
+
+    def chunk(self, flat: torch.Tensor, i: int, c: int) -> torch.Tensor:
+        """Chunk c of leaf i of the leaf-major ``flat``, as a view."""
+        start = self.offsets[i] + c * self.shard[i]
+        return flat[start:start + self.shard[i]]
+
+    def payload(self, msg: torch.Tensor, mode: str) -> List[dict]:
+        """Each leaf's payload (``quantize_chunk``'s keys) as views of one
+        uint8 message that starts 4-byte aligned."""
+        if mode == "int8":
+            scales = msg[:4 * self.n_blocks].view(torch.float32)
+            qs = msg[4 * self.n_blocks:].view(torch.int8)
+            ends = self.first_block[1:] + (self.n_blocks,)
+            return [{"q": qs[b0 * self.block:b1 * self.block], "scale": scales[b0:b1]}
+                    for b0, b1 in zip(self.first_block, ends)]
+        values = msg.view(torch.float32 if mode == "f32" else torch.bfloat16)
+        return [{"q": values[o:o + s]} for o, s in zip(self.hop_offsets, self.shard)]
+
+    def table(self, device: torch.device) -> torch.Tensor:
+        """K2/K3's segment table on ``device``: one int64 row a leaf of
+        (offset, chunk length, first scale block, offset in ``rows``),
+        uploaded once a device."""
+        table = self._tables.get(device)
+        if table is None:
+            table = torch.tensor(
+                list(zip(self.offsets, self.shard, self.first_block, self.rows.offsets)),
+                dtype=torch.int64).reshape(-1, 4).to(device)
+            self._tables[device] = table
+        return table
 
 
-def _unpack(buf: torch.Tensor, spec) -> dict:
-    out, offset = {}, 0
-    for key, shape, dtype in spec:
-        nbytes = dtype.itemsize
-        for d in shape:
-            nbytes *= d
-        out[key] = buf[offset: offset + nbytes].view(dtype).reshape(shape)
-        offset += _aligned(nbytes)
-    return out
+def _quant_hop(x: torch.Tensor, layout: FlatLayout, chunk: int, mode: str,
+               kernels: bool, err: Optional[torch.Tensor]) -> torch.Tensor:
+    """Chunk ``chunk`` of every leaf of the leaf-major ``x`` -> one uint8
+    wire message: K2 in one launch when the kernel switch is on (int8 only:
+    f32 and bf16 payloads are casts), else ``quantize_chunk`` leaf by leaf.
+    With ``err``, each element's wire error goes to the same chunk of
+    ``err``. Bit-identical by contract (``ops/fused_quant.py``)."""
+    from tpu_ddp_torch.ops import fused_quant as fq
 
-
-# ---- the ring ------------------------------------------------------------
-
-
-def _quant(p: torch.Tensor, mode: str, block: int, kernels: bool) -> dict:
-    """One wire payload: K2 when the kernel switch is on (int8 only: f32
-    and bf16 payloads are casts), else ``quantize_chunk``. Bit-identical by
-    contract (``ops/fused_quant.py``)."""
     if kernels and mode == "int8":
-        from tpu_ddp_torch.ops.fused_quant import fused_quant
-
-        return fused_quant(p, block)
-    return quantize_chunk(p, mode, block)
+        return fq.segment_quant(x, layout, chunk, err=err)
+    return fq.segment_quant_plain(x, layout, chunk, mode, err=err)
 
 
-def _dequant(payload: dict, mode: str, block: int, size: int, kernels: bool,
-             add_to: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Payload -> f32 chunk, optionally fused with the ring's carry
-    accumulate (K3 in one pass instead of dequantize-then-add)."""
+def _dequant_hop(msg: torch.Tensor, layout: FlatLayout, mode: str, kernels: bool,
+                 out: torch.Tensor, **where) -> torch.Tensor:
+    """A received message (or the all-gather's rows) -> float32 into
+    ``out``, optionally accumulated (K3 in one launch, or
+    ``dequantize_chunk`` leaf by leaf; ``where`` as
+    ``ops/fused_quant.py::segment_dequant``)."""
+    from tpu_ddp_torch.ops import fused_quant as fq
+
     if kernels and mode == "int8":
-        from tpu_ddp_torch.ops.fused_quant import fused_dequant
-
-        return fused_dequant(payload, block, size, add_to=add_to)
-    d = dequantize_chunk(payload, mode, block, size)
-    return d if add_to is None else add_to + d
+        return fq.segment_dequant(msg, layout, out, **where)
+    return fq.segment_dequant_plain(msg, layout, mode, out, **where)
 
 
-def ring_reduce_scatter(x: torch.Tensor, *, mode: str = "f32",
-                        block: int = 256, with_error: bool = False,
-                        kernels: bool = False):
-    """Ring reduce-scatter of a 1-D tensor, each hop's payload optionally
-    quantized on the wire while accumulation stays f32 on the device.
+def _reduce_scatter_hops(x: torch.Tensor, layout: FlatLayout, mode: str,
+                         kernels: bool, err: Optional[torch.Tensor],
+                         row: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The N-1 hops of the ring over every leaf of the leaf-major ``x`` at
+    once, one message a hop. Hop ``step`` sends chunk ``(idx - 1 - step)
+    mod n`` of every leaf and adds the received one to this rank's own
+    chunk ``(idx - 2 - step) mod n``, so chunk c accumulates visiting c+1,
+    c+2, ..., c: each leaf's sums in the order of the JAX package's
+    per-leaf ring. The running sums go to a new leaf-major ``acc`` (``x``
+    is only read); the last hop's, this rank's chunk of every leaf, to
+    ``row`` (the shard layout) when given, else to ``acc``. Returns
+    ``acc``."""
+    n, idx = world_size(), rank()
+    acc = torch.empty_like(x)
+    src = x
+    for step in range(n - 1):
+        msg = _quant_hop(src, layout, (idx - 1 - step) % n, mode, kernels, err)
+        got = exchange(msg, (idx + 1) % n, (idx - 1) % n)
+        c = (idx - 2 - step) % n
+        last = row is not None and step == n - 2
+        _dequant_hop(got, layout, mode, kernels, row if last else acc,
+                     add=x, add_chunk=c, out_chunk=c, to_rows=last)
+        src = acc
+    return acc
 
-    ``x``: this rank's tensor, its length divisible by the rank count N.
-    Rank i returns the i-th of N equal chunks of the SUM over the ranks.
-    The schedule is the JAX package's N-1-hop ring: rank i starts holding
-    its local partial of chunk i-1; at every hop it sends its partial to
-    rank i+1 (quantize -> wire -> dequantize), receives from rank i-1, and
-    adds its own contribution to the chunk it received, so chunk c
-    accumulates visiting c+1, c+2, ..., c, in the same order as the JAX
-    ring (the f32 ring is bitwise the JAX ring).
 
-    Returns ``(chunk, err)``: ``err`` (when ``with_error``) is the
-    quantization error THIS rank introduced, a full-length f32 tensor with
-    each hop's error at its chunk's offsets; None when not asked for,
-    all-zero in f32 mode."""
+def ring_reduce_scatter_flat(x: torch.Tensor, layout: FlatLayout, *,
+                             mode: str = "f32", with_error: bool = False,
+                             kernels: bool = False,
+                             out: Optional[torch.Tensor] = None):
+    """Ring reduce-scatter of every leaf of the leaf-major 1-D ``x``
+    (``layout``) at once, each hop's payload optionally quantized on the
+    wire while accumulation stays f32 on the device.
+
+    Returns ``(row, err)``. ``row`` holds this rank's chunk of every leaf
+    of the SUM over the ranks, in the shard layout ``layout.rows``: ``out``
+    when given (its gaps between leaves are not written), else a new zero
+    row. ``err`` (when ``with_error``) is the quantization error THIS rank
+    introduced, leaf-major, each hop's error at its chunk; zero at this
+    rank's own chunk of every leaf, and everywhere in f32 mode."""
+    err = torch.zeros_like(x) if with_error else None
+    if out is None:
+        out = torch.zeros(layout.rows.width, dtype=x.dtype, device=x.device)
+    if world_size() == 1:
+        torch._foreach_copy_(layout.rows.views(out), layout.leaves(x))
+        return out, err
+    _reduce_scatter_hops(x, layout, mode, kernels, err if mode != "f32" else None, out)
+    return out, err
+
+
+def ring_all_reduce_flat(x: torch.Tensor, layout: FlatLayout, *, mode: str = "f32",
+                         with_error: bool = False, kernels: bool = False):
+    """Ring all-reduce (SUM) of every leaf of the leaf-major 1-D ``x`` at
+    once, with wire compression in both phases: the reduce-scatter hops
+    above, then each rank quantizes its reduced chunk of every leaf ONCE
+    and the messages are all-gathered (one collective). Every rank (the
+    owner too) dequantizes the same bytes, all n rows in one pass, so the
+    result is bit-identical across the ranks even in the lossy modes, which
+    keeps the replicas' params equal.
+
+    Returns ``(sum, err)``, both leaf-major; ``err`` as in
+    ``ring_reduce_scatter_flat`` plus the owner's all-gather-phase
+    quantization error at its own chunk."""
+    n = world_size()
+    if n == 1:
+        return x, (torch.zeros_like(x) if with_error else None)
+    lossy = with_error and mode != "f32"
+    # lossy: the n - 1 hops and the gather phase write every chunk's error
+    err = (torch.empty_like(x) if lossy else
+           torch.zeros_like(x) if with_error else None)
+    e = err if lossy else None
+    acc = _reduce_scatter_hops(x, layout, mode, kernels, e)
+    msg = _quant_hop(acc, layout, rank(), mode, kernels, e)
+    out = torch.empty_like(x)
+    _dequant_hop(all_gather_bytes(msg), layout, mode, kernels, out)
+    return out, err
+
+
+def _one_leaf(x: torch.Tensor, block: int) -> FlatLayout:
     n = world_size()
     if x.shape[0] % n:
         raise ValueError(
             f"ring_reduce_scatter: length {x.shape[0]} not divisible by "
             f"the number of ranks {n}"
         )
-    s = x.shape[0] // n
-    if n == 1:
+    return FlatLayout([x.shape[0]], n, block)
+
+
+def ring_reduce_scatter(x: torch.Tensor, *, mode: str = "f32",
+                        block: int = 256, with_error: bool = False,
+                        kernels: bool = False):
+    """Ring reduce-scatter of one 1-D tensor: the one-leaf case of
+    ``ring_reduce_scatter_flat``.
+
+    ``x``: this rank's tensor, its length divisible by the rank count N.
+    Rank i returns the i-th of N equal chunks of the SUM over the ranks.
+    The schedule is the JAX package's N-1-hop ring: rank i starts holding
+    its local partial of chunk i-1; at every hop it sends its partial to
+    rank i+1 (quantize -> wire -> dequantize), receives from rank i-1, and
+    adds its own contribution to the chunk it received (the f32 ring is
+    bitwise the JAX ring).
+
+    Returns ``(chunk, err)``: ``err`` (when ``with_error``) is the
+    quantization error THIS rank introduced, a full-length f32 tensor with
+    each hop's error at its chunk's offsets; None when not asked for,
+    all-zero in f32 mode."""
+    layout = _one_leaf(x, block)
+    if layout.n == 1:
         return x, (torch.zeros_like(x) if with_error else None)
-    chunks = x.reshape(n, s)
-    idx = rank()
-    p = chunks[(idx - 1) % n]
-    err = torch.zeros_like(x) if with_error else None
-    for step in range(n - 1):
-        payload = _quant(p, mode, block, kernels)
-        if with_error and mode != "f32":
-            # the chunk being sent this hop is (idx - 1 - step) mod n
-            c = (idx - 1 - step) % n
-            err[c * s: (c + 1) * s] = p - _dequant(payload, mode, block, s, kernels)
-        spec = _spec(payload)
-        got = exchange(_pack(payload), (idx + 1) % n, (idx - 1) % n)
-        nxt = chunks[(idx - 2 - step) % n]
-        p = _dequant(_unpack(got, spec), mode, block, s, kernels, add_to=nxt)
-    return p, err
+    row, err = ring_reduce_scatter_flat(x.contiguous(), layout, mode=mode,
+                                        with_error=with_error, kernels=kernels)
+    return row[:layout.shard[0]], err
 
 
 def ring_all_reduce(x: torch.Tensor, *, mode: str = "f32",
                     block: int = 256, with_error: bool = False,
                     kernels: bool = False):
-    """Ring all-reduce (SUM) with wire compression in both phases: the
-    compressed ring reduce-scatter above, then each rank quantizes its
-    reduced chunk ONCE and the payloads are all-gathered. Every rank (the
-    owner too) dequantizes the same bytes, so the result is bit-identical
-    across the ranks even in the lossy modes, which keeps the replicas'
-    params equal.
-
-    Returns ``(sum, err)`` with ``err`` as in ``ring_reduce_scatter`` plus
-    the owner's all-gather-phase quantization error."""
-    n = world_size()
-    if n == 1:
-        return x, (torch.zeros_like(x) if with_error else None)
-    s = x.shape[0] // n
-    chunk, err = ring_reduce_scatter(
-        x, mode=mode, block=block, with_error=with_error,
-        kernels=kernels)
-    payload = _quant(chunk, mode, block, kernels)
-    if with_error and mode != "f32":
-        idx = rank()
-        err[idx * s: (idx + 1) * s] = chunk - _dequant(payload, mode, block, s, kernels)
-    spec = _spec(payload)
-    gathered = all_gather_bytes(_pack(payload))
-    rows = [_dequant(_unpack(gathered[i], spec), mode, block, s, kernels)
-            for i in range(n)]
-    return torch.cat(rows), err
+    """Ring all-reduce (SUM) of one 1-D tensor: the one-leaf case of
+    ``ring_all_reduce_flat``. Returns ``(sum, err)`` with ``err`` as in
+    ``ring_reduce_scatter`` plus the owner's all-gather-phase quantization
+    error."""
+    layout = _one_leaf(x, block)
+    return ring_all_reduce_flat(x.contiguous(), layout, mode=mode,
+                                with_error=with_error, kernels=kernels)

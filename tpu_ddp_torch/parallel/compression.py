@@ -18,7 +18,8 @@ Error feedback (``--grad-compress-error-feedback``): every rank keeps a
 residual holding the quantization error IT introduced, and adds it back
 into its local gradient the next step, so the error telescopes instead of
 accumulating. The residual is one f32 ``(padded,)`` tensor per leaf on each
-rank: that rank's row of the JAX package's ``(n_shards, padded)`` layout.
+rank (views of one buffer, the ring's layout): that rank's row of the JAX
+package's ``(n_shards, padded)`` layout.
 
 Non-finite sentinels survive compression by construction: a NaN or Inf in
 a block drives the block's max-abs scale non-finite, and dequantization
@@ -173,12 +174,19 @@ class GradCompressor:
 
     Each param leaf flattens to 1-D, zero-padded to a multiple of
     ``n_shards``; the ring collectives then cut each leaf into ``n_shards``
-    chunks and quantize every hop's payload. ``params_template`` maps leaf
-    names to anything with a ``shape``; ``n_shards`` is the number of
-    ranks."""
+    chunks and quantize every hop's payload. The port keeps all padded
+    leaves one after another in one buffer (``layout``, a
+    ``collectives.FlatLayout``) and runs ONE ring a step over all of them:
+    one wire message and one K2 and one K3 launch a hop, not one a leaf,
+    with every leaf's result bitwise that of its own ring. The residual is
+    one such buffer too, handed out as per-leaf views. ``params_template``
+    maps leaf names to anything with a ``shape``; ``n_shards`` is the number
+    of ranks."""
 
     def __init__(self, config: GradCompression, params_template,
                  n_shards: int):
+        from tpu_ddp_torch.parallel.collectives import FlatLayout
+
         if n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {n_shards}")
         self.config = config
@@ -186,66 +194,104 @@ class GradCompressor:
         self.kernels = bool(config.kernels)
         self.slots = {name: _leaf_slot(leaf, n_shards)
                       for name, leaf in params_template.items()}
+        self.names = list(self.slots)
+        self.layout = FlatLayout([s.padded for s in self.slots.values()],
+                                 n_shards, config.block)
+        self._pad: Dict[torch.device, torch.Tensor] = {}
 
     # ---- flat update space ----------------------------------------------
 
+    def _flat(self, tree: Tree) -> torch.Tensor:
+        """Original-shaped leaves -> one leaf-major buffer of the padded
+        leaves (one ``torch.cat``; the pads are slices of one cached zero
+        tensor a device)."""
+        device = tree[self.names[0]].device
+        zeros = self._pad.get(device)
+        if zeros is None:
+            zeros = torch.zeros(self.n_shards, dtype=torch.float32, device=device)
+            self._pad[device] = zeros
+        parts = []
+        for name, slot in self.slots.items():
+            parts.append(tree[name].reshape(-1))
+            if slot.padded != slot.size:
+                parts.append(zeros[:slot.padded - slot.size])
+        return torch.cat(parts)
+
+    def _joined(self, flat_tree: Tree) -> torch.Tensor:
+        """Per-leaf ``(padded,)`` tensors -> one leaf-major buffer."""
+        return torch.cat([flat_tree[name].reshape(-1) for name in self.names])
+
+    def _tree(self, flat: torch.Tensor) -> Tree:
+        return dict(zip(self.names, self.layout.leaves(flat)))
+
     def flatten(self, tree: Tree) -> Tree:
-        return {n: _flat_leaf(x, self.slots[n]) for n, x in tree.items()}
+        """Original-shaped leaves -> per-leaf ``(padded,)``, as views of one
+        leaf-major buffer."""
+        return self._tree(self._flat(tree))
 
     def unflatten(self, flat_tree: Tree) -> Tree:
         return {n: _unflat_leaf(x, self.slots[n]) for n, x in flat_tree.items()}
 
     def init_residual(self, device) -> Tree:
-        """This rank's all-zero residual, one f32 ``(padded,)`` per leaf."""
-        return {n: torch.zeros(s.padded, dtype=torch.float32, device=device)
-                for n, s in self.slots.items()}
+        """This rank's all-zero residual, one f32 ``(padded,)`` per leaf (views
+        of one leaf-major buffer)."""
+        return self._tree(torch.zeros(self.layout.total, dtype=torch.float32,
+                                      device=device))
 
     # ---- collectives ----------------------------------------------------
 
-    def _with_residual(self, flat: Tree, residual: Optional[Tree]) -> Tree:
-        if residual is None:
-            return flat
-        return {n: x + residual[n] for n, x in flat.items()}
+    def _with_residual(self, x: torch.Tensor, residual: Optional[Tree]) -> torch.Tensor:
+        return x if residual is None else x + self._joined(residual)
+
+    def _n(self, like: torch.Tensor) -> torch.Tensor:
+        return _scalar(self.n_shards, like)
 
     def all_reduce_mean(self, grads: Tree, residual: Optional[Tree] = None,
                         with_error: bool = False):
         """Local grads -> grads AVERAGED over the ranks, through the
-        compressed ring all-reduce. Returns ``(grads, err_state)``;
-        ``err_state`` (when ``with_error``) is this rank's new residual,
-        one ``(padded,)`` leaf per param; pass it back as ``residual`` next
-        step for error feedback."""
-        from tpu_ddp_torch.parallel.collectives import ring_all_reduce
+        compressed ring all-reduce over all leaves at once. Returns
+        ``(grads, err_state)``; ``err_state`` (when ``with_error``) is this
+        rank's new residual, one ``(padded,)`` leaf per param; pass it back
+        as ``residual`` next step for error feedback."""
+        from tpu_ddp_torch.parallel.collectives import ring_all_reduce_flat
 
-        flat = self._with_residual(self.flatten(grads), residual)
-        outs, errs = {}, {}
-        for name, x in flat.items():
-            out, err = ring_all_reduce(
-                x, mode=self.config.mode,
-                block=self.config.block, with_error=with_error,
-                kernels=self.kernels,
-            )
-            outs[name] = out / _scalar(self.n_shards, out)
-            errs[name] = err
-        return self.unflatten(outs), (errs if with_error else None)
+        x = self._with_residual(self._flat(grads), residual)
+        out, err = ring_all_reduce_flat(
+            x, self.layout, mode=self.config.mode, with_error=with_error,
+            kernels=self.kernels)
+        out = out / self._n(out)
+        return (self.unflatten(self._tree(out)),
+                self._tree(err) if with_error else None)
 
     def reduce_scatter_mean_flat(self, flat: Tree,
                                  residual: Optional[Tree] = None,
                                  with_error: bool = False):
         """Already-flattened (padded 1-D) leaves -> this rank's 1/N slice
-        of the averaged gradient, through the compressed ring."""
-        from tpu_ddp_torch.parallel.collectives import ring_reduce_scatter
+        of each leaf of the averaged gradient, through the compressed ring
+        over all leaves at once; the slices are views of one row of the
+        shard layout (``layout.rows``)."""
+        return self._reduce_scatter_mean(self._joined(flat), residual,
+                                         with_error, None)
 
-        flat = self._with_residual(flat, residual)
-        outs, errs = {}, {}
-        for name, x in flat.items():
-            out, err = ring_reduce_scatter(
-                x, mode=self.config.mode,
-                block=self.config.block, with_error=with_error,
-                kernels=self.kernels,
-            )
-            outs[name] = out / _scalar(self.n_shards, out)
-            errs[name] = err
-        return outs, (errs if with_error else None)
+    def reduce_scatter_mean(self, grads: Tree, residual: Optional[Tree] = None,
+                            with_error: bool = False,
+                            out: Optional[torch.Tensor] = None):
+        """``reduce_scatter_mean_flat`` of original-shaped leaves; the sum
+        lands in ``out`` when given (ZeRO-1's gradient row, whose gaps
+        between leaves are left as they are)."""
+        return self._reduce_scatter_mean(self._flat(grads), residual,
+                                         with_error, out)
+
+    def _reduce_scatter_mean(self, x, residual, with_error, out):
+        from tpu_ddp_torch.parallel.collectives import ring_reduce_scatter_flat
+
+        row, err = ring_reduce_scatter_flat(
+            self._with_residual(x, residual), self.layout,
+            mode=self.config.mode, with_error=with_error,
+            kernels=self.kernels, out=out)
+        torch.div(row, self._n(row), out=row)
+        shards = dict(zip(self.names, self.layout.rows.views(row)))
+        return shards, (self._tree(err) if with_error else None)
 
     def error_sq(self, err_state: Tree) -> torch.Tensor:
         """Sum of squares of the freshly introduced quantization error,

@@ -24,7 +24,7 @@ rank's param shards live in one persistent row of that layout, which the
 all-gather sends; K1 (``ops/fused_update.py``) updates them in place and
 masks each shard's pad (its ``valid`` column). With a ``GradCompressor``
 attached (``set_compression``) the reduce-scatter is its quantized ring,
-one ring a leaf.
+one ring over all leaves, whose sum lands in the same gradient row.
 
 The ranks are the default process group's (the JAX package's ``data``
 axis); with one rank nothing here calls a collective.
@@ -116,9 +116,10 @@ class Zero1Partition:
         """Attach a ``GradCompressor``: the gradients' reduce-scatter then
         runs its quantized ring (wire bytes ~4x fewer in int8) while the
         shard update stays f32. It must have been built over the same
-        leaves and rank count (the same padding)."""
+        leaves, in the same order, and rank count (the same padding), so
+        that its shard row is this partition's gradient row."""
         if (compress.n_shards != self.n_shards
-                or compress.slots.keys() != self.param_slots.keys()
+                or list(compress.slots) != self.names
                 or any(compress.slots[n].padded != s.padded
                        for n, s in self.param_slots.items())):
             raise ValueError(
@@ -201,11 +202,12 @@ class Zero1Partition:
         a compressor attached, its quantized ring instead, with
         ``residual``/``with_error`` for error feedback; ``err_state`` is
         None otherwise."""
-        if self.compress is not None:
-            return self.compress.reduce_scatter_mean_flat(
-                self.flatten(grads), residual, with_error=with_error)
         device = next(iter(grads.values())).device
         bufs = self._buffers(device)
+        if self.compress is not None:
+            _, err_state = self.compress.reduce_scatter_mean(
+                grads, residual, with_error=with_error, out=bufs["grad"])
+            return dict(bufs["grad_views"]), err_state
         if "send" not in bufs:
             bufs["send"] = torch.zeros(self.n_shards, self.layout.width,
                                        dtype=torch.float32, device=device)
