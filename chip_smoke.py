@@ -106,7 +106,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 11. The ring on the card: two ranks on ``cuda:0`` over gloo (spawned) run
     ``ring_all_reduce`` int8 with ``with_error`` at NetResDeep's 9 leaves and
     one 2**22 leaf each alone, and ``GradCompressor.all_reduce_mean`` and
-    ``reduce_scatter_mean`` over NetResDeep's 9 and ViT-S/4's 79 leaves
+    ``reduce_scatter_mean_flat`` over NetResDeep's 9 and ViT-S/4's 79 leaves
     (error feedback), through K2/K3 and through the plain versions on the
     same inputs: outputs and errors bitwise equal on each rank, the one-leaf
     outputs identical across ranks. Then one step's ring over each tree,
@@ -1272,9 +1272,12 @@ def ring_rank(rank, world, out_dir):
             mode="int8", block=QUANT_BLOCK, error_feedback=True, kernels=kernels),
             params, world) for kernels in (True, False)}
         residual = comps[True].init_residual("cuda")
-        for kind in ("all_reduce_mean", "reduce_scatter_mean"):
-            (k, k_err), (p, p_err) = (getattr(comps[kn], kind)(params, residual, True)
-                                      for kn in (True, False))
+        for kind in ("all_reduce_mean", "reduce_scatter_mean_flat"):
+            (k, k_err), (p, p_err) = (
+                comps[kn].all_reduce_mean(params, residual, True)
+                if kind == "all_reduce_mean" else
+                comps[kn].reduce_scatter_mean_flat(comps[kn].flatten(params), residual, True)
+                for kn in (True, False))
             for a, b in ((k, p), (k_err, p_err)):
                 result["equal"] &= all(torch.equal(a[name], b[name]) for name in a)
             outs += [k[name].cpu() for name in k]
@@ -1303,7 +1306,7 @@ def phase_ring_on_card(tmp):
     same = all(torch.equal(a, b) for a, b in zip(outs[0][:len(RING_LEAVES)],
                                                 outs[1][:len(RING_LEAVES)]))
     print(f"  one leaf of {RING_LEAVES} and GradCompressor's all_reduce_mean / "
-          f"reduce_scatter_mean over NetResDeep's 9 and ViT-S/4's {VIT_LEAVES} leaves: "
+          f"reduce_scatter_mean_flat over NetResDeep's 9 and ViT-S/4's {VIT_LEAVES} leaves: "
           f"kernels == plain on rank 0 {res[0]['equal']}, rank 1 {res[1]['equal']}; "
           f"one-leaf outputs identical across ranks {same}", flush=True)
     failed = []
@@ -1693,19 +1696,20 @@ def quant_bound(sizes, block, kind, rows=1):
     """(bound_ms, "bytes"): bytes one call must move over the HBM rate, for
     chunks of ``sizes`` (one a leaf), each input read once and each output
     written once. K2 reads 4 bytes an element and writes nb * block int8
-    plus 4 bytes a block ("quant"), and 4 bytes an element more with the
-    error ("quant_err"); K3 reads nb * block plus 4 a block, and 4 an
-    element more with add_to ("dequant_add"), and writes 4 an element, for
-    each of ``rows`` messages. A segment table is 32 bytes a leaf (read
-    once). Their few operations an element are far below the bytes'
-    time."""
+    (the tail block's zero pad included: the wire message holds it) plus 4
+    bytes a block ("quant"), and 4 bytes an element more with the error
+    ("quant_err"); K3 reads the n int8 bytes of the elements (never the
+    pad) plus 4 a block, and 4 an element more with add_to ("dequant_add"),
+    and writes 4 an element, for each of ``rows`` messages. A segment table
+    is 32 bytes a leaf (read once). Their few operations an element are far
+    below the bytes' time."""
     total = 32 * len(sizes) if len(sizes) > 1 else 0
     for n in sizes:
         nb = -(-n // block)
         if kind.startswith("quant"):
             total += 4 * n + nb * block + 4 * nb + (4 * n if kind == "quant_err" else 0)
         else:
-            total += rows * (nb * block + 4 * nb + 4 * n
+            total += rows * (n + 4 * nb + 4 * n
                              + (4 * n if kind == "dequant_add" else 0))
     return total / HBM_BYTES_PER_S * 1e3, "bytes"
 

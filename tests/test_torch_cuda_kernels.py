@@ -513,8 +513,9 @@ def _two_rank_ring(rank, world, out_dir):
                                               kernels=kernels), grads, world)
         residual = comp.init_residual("cuda")
         for kind in ("all_reduce", "reduce_scatter"):
-            fn = (comp.all_reduce_mean if kind == "all_reduce"
-                  else comp.reduce_scatter_mean)
+            fn = (comp.all_reduce_mean if kind == "all_reduce" else
+                  lambda g, r, with_error, c=comp: c.reduce_scatter_mean_flat(
+                      c.flatten(g), r, with_error=with_error))
             ops.reset_launch_counts()
             before = wire[0]
             got, err = fn(grads, residual, with_error=True)

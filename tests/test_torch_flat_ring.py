@@ -347,6 +347,52 @@ def test_segment_plain_versions_equal_per_leaf(case):
     assert sum(ops.launch_counts().values()) == 0
 
 
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+@pytest.mark.parametrize("n", RANKS)
+def test_cast_hops_equal_segment_plain_versions(n, mode):
+    """The f32 and bf16 hops (one cat and one cast a message, one cast and
+    multi-tensor ops back) give the bits of the segment plain versions
+    (``quantize_chunk`` / ``dequantize_chunk`` leaf by leaf): the message,
+    the error, the accumulate, the shard row and the n-row gather."""
+    from tpu_ddp_torch.parallel.collectives import _cast_hop, _uncast_hop
+
+    layout, x, add = _segment_case(_padded(n), n, 16, seed=40 + n)
+    for c in range(n):
+        err, want_err = torch.zeros(layout.total), torch.zeros(layout.total)
+        msg = _cast_hop(x, layout, c, mode, err)
+        assert torch.equal(msg, segment_quant_plain(x, layout, c, mode, err=want_err))
+        assert np.array_equal(_bits(err), _bits(want_err))
+        c1 = (c + 1) % n
+        for where in (dict(add=add, add_chunk=c1, out_chunk=c1),
+                      dict(add=add, add_chunk=c, to_rows=True)):
+            width = layout.rows.width if where.get("to_rows") else layout.total
+            got = _uncast_hop(msg, layout, mode, torch.zeros(width), **where)
+            want = segment_dequant_plain(msg, layout, mode, torch.zeros(width), **where)
+            assert np.array_equal(_bits(got), _bits(want))
+    msgs = torch.stack([_cast_hop(x, layout, c, mode, None) for c in range(n)])
+    got = _uncast_hop(msgs, layout, mode, torch.zeros(layout.total))
+    want = segment_dequant_plain(msgs, layout, mode, torch.zeros(layout.total))
+    assert np.array_equal(_bits(got), _bits(want))
+
+
+def test_flattened_leaves_join_without_a_copy():
+    """``flatten``'s leaves, a residual and an ``err_state`` are views of one
+    leaf-major buffer, which the ring reads as it is; other per-leaf
+    tensors are joined by one cat into the same values."""
+    template = {k: np.empty(s) for k, s in TREE.items()}
+    comp = tc.GradCompressor(tc.GradCompression(error_feedback=True), template, 3)
+    tree = {k: torch.randn(s) for k, s in TREE.items()}
+    flat = comp.flatten(tree)
+    joined = comp._joined(flat)
+    assert joined is flat["conv"]._base
+    res = comp.init_residual(torch.device("cpu"))
+    assert comp._joined(res) is res["conv"]._base
+    copies = {k: v.clone() for k, v in flat.items()}
+    again = comp._joined(copies)
+    assert again.data_ptr() != joined.data_ptr() and torch.equal(again, joined)
+    assert comp._joined(dict(reversed(list(flat.items())))) is joined
+
+
 def test_residual_is_views_of_one_buffer():
     template = {k: np.empty(s) for k, s in TREE.items()}
     comp = tc.GradCompressor(tc.GradCompression(error_feedback=True), template, 3)
@@ -372,6 +418,10 @@ def test_segment_wrappers_refuse_bad_operands():
     msg = segment_quant(torch.ones(layout.total), layout, 0)
     with pytest.raises(ValueError, match="uint8 rows"):
         segment_dequant(msg[1:], layout, torch.zeros(layout.total))
+    shifted = torch.empty(msg.numel() + 1, dtype=torch.uint8)[1:]
+    shifted.copy_(msg)
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        segment_dequant(shifted, layout, torch.zeros(layout.total))
     with pytest.raises(ValueError, match="to_rows takes one"):
         segment_dequant(torch.stack([msg, msg]), layout,
                         torch.zeros(layout.rows.width), to_rows=True)

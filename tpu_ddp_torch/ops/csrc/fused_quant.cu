@@ -46,8 +46,9 @@
 // in place, one row or all n ranks' rows (a 2-D grid) at once. About the
 // bytes: each scale block is one warp (K2: one 256-thread block when the
 // scale block is longer than 1,024 elements); neighbouring lanes read
-// neighbouring elements; K2 reduces the max with shuffles and reads the block
-// again from the cache for the second pass.
+// neighbouring elements; K2 reduces the max with shuffles and, up to 1,024
+// elements, keeps the block in registers for the second pass (its loads all
+// in flight at once; larger blocks are read again from the cache).
 //
 // Plain C interface, loaded with ctypes (tpu_ddp_torch/ops/_build.py).
 
@@ -88,9 +89,13 @@ __device__ __forceinline__ Segment find_segment(const int64_t* __restrict__ tabl
 }
 
 // G threads per scale block: 32 (one warp) or kThreads (the whole block).
-// Reads chunk `chunk` of every segment of x; writes the scales, q and (when
-// err is not null) the error at the same chunk of err.
-template <int G>
+// Reads chunk `chunk` of every segment of x; writes the scales, q and (E:
+// err is not null) the error at the same chunk of err. K > 0 (one warp):
+// each lane holds its K elements of the scale block (block <= 32 * K) in
+// registers from the max to the quantize pass, so its K loads are in flight
+// at once and the block is read once. K = 0: each pass loops over the
+// block, the second reading it again from the cache.
+template <int G, int K, bool E>
 __global__ void tpu_ddp_quant_kernel(const float* __restrict__ x,
                                      const int64_t* __restrict__ table, int nseg,
                                      int64_t size, int64_t nb, int64_t block,
@@ -99,16 +104,24 @@ __global__ void tpu_ddp_quant_kernel(const float* __restrict__ x,
   constexpr int kGroups = kThreads / G;
   const int lane = threadIdx.x % G;
   const int64_t g = static_cast<int64_t>(blockIdx.x) * kGroups + threadIdx.x / G;
-  Segment seg{0, 0, 0, 0};
-  int64_t base = 0;   // the scale block's first element within the chunk
+  int64_t start = 0;  // the scale block's first element in x
+  int64_t end = 0;    // its elements inside the chunk (the tail block is short)
+  float v[K > 0 ? K : 1];
   float amax = 0.0f;
   if (g < nb) {
-    seg = find_segment(table, nseg, size, g);
-    base = (g - seg.b) * block;
-    const float* src = x + seg.p + chunk * seg.s;
-    for (int64_t j = lane; j < block; j += G) {
-      const int64_t i = base + j;
-      amax = nan_max(amax, i < seg.s ? fabsf(src[i]) : 0.0f);
+    const Segment seg = find_segment(table, nseg, size, g);
+    const int64_t base = (g - seg.b) * block;
+    start = seg.p + chunk * seg.s + base;
+    end = seg.s - base < block ? seg.s - base : block;
+    if constexpr (K > 0) {
+#pragma unroll
+      for (int u = 0; u < K; ++u) {
+        const int j = lane + u * G;
+        v[u] = j < end ? x[start + j] : 0.0f;
+        amax = nan_max(amax, fabsf(v[u]));
+      }
+    } else {
+      for (int64_t j = lane; j < end; j += G) amax = nan_max(amax, fabsf(x[start + j]));
     }
   }
   for (int off = 16; off > 0; off >>= 1) {
@@ -125,16 +138,42 @@ __global__ void tpu_ddp_quant_kernel(const float* __restrict__ x,
   const float s = amax / 127.0f;
   const float safe = s > 0.0f ? s : 1.0f;
   if (lane == 0) scale[g] = s;
-  const float* src = x + seg.p + chunk * seg.s;
-  float* e = err != nullptr ? err + seg.p + chunk * seg.s : nullptr;
   int8_t* qb = q + g * block;
-  for (int64_t j = lane; j < block; j += G) {
-    const int64_t i = base + j;
-    const float v = i < seg.s ? src[i] : 0.0f;
-    const float r = fminf(fmaxf(rintf(v / safe), -127.0f), 127.0f);
-    const int8_t qv = static_cast<int8_t>(r);
-    qb[j] = qv;
-    if (e != nullptr && i < seg.s) e[i] = v - static_cast<float>(qv) * s;
+  float* e = E ? err + start : nullptr;
+  const bool with_err = E;
+  if constexpr (K > 0) {
+#pragma unroll
+    for (int u = 0; u < K; ++u) {
+      const int j = lane + u * G;
+      if (j < block) {
+        const int8_t qv =
+            static_cast<int8_t>(fminf(fmaxf(rintf(v[u] / safe), -127.0f), 127.0f));
+        qb[j] = qv;
+        if (with_err && j < end) e[j] = v[u] - static_cast<float>(qv) * s;
+      }
+    }
+  } else {
+    for (int64_t j = lane; j < block; j += G) {
+      const float val = j < end ? x[start + j] : 0.0f;
+      const int8_t qv =
+          static_cast<int8_t>(fminf(fmaxf(rintf(val / safe), -127.0f), 127.0f));
+      qb[j] = qv;
+      if (with_err && j < end) e[j] = val - static_cast<float>(qv) * s;
+    }
+  }
+}
+
+template <int G, int K>
+void launch_quant(int64_t grid, cudaStream_t stream, const float* x,
+                  const int64_t* table, int nseg, int64_t size, int64_t nb,
+                  int64_t block, int64_t chunk, float* scale, int8_t* q, float* err) {
+  const unsigned blocks = static_cast<unsigned>(grid);
+  if (err != nullptr) {
+    tpu_ddp_quant_kernel<G, K, true><<<blocks, kThreads, 0, stream>>>(
+        x, table, nseg, size, nb, block, chunk, scale, q, err);
+  } else {
+    tpu_ddp_quant_kernel<G, K, false><<<blocks, kThreads, 0, stream>>>(
+        x, table, nseg, size, nb, block, chunk, scale, q, err);
   }
 }
 
@@ -206,15 +245,16 @@ int tpu_ddp_fused_quant(const float* x, const int64_t* table, int nseg,
                         void* stream) {
   if (nb <= 0 || block <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (block <= kWarpMaxBlock) {
-    constexpr int kGroups = kThreads / kWarp;
-    const int64_t grid = (nb + kGroups - 1) / kGroups;
-    tpu_ddp_quant_kernel<kWarp><<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
-        x, table, nseg, size, nb, block, chunk, scale, q, err);
-  } else {
-    tpu_ddp_quant_kernel<kThreads><<<static_cast<unsigned>(nb), kThreads, 0, s>>>(
-        x, table, nseg, size, nb, block, chunk, scale, q, err);
-  }
+  const int64_t warps = (nb + kThreads / kWarp - 1) / (kThreads / kWarp);
+#define TPU_DDP_QUANT_ARGS s, x, table, nseg, size, nb, block, chunk, scale, q, err
+  if (block > kWarpMaxBlock) launch_quant<kThreads, 0>(nb, TPU_DDP_QUANT_ARGS);
+  else if (block > 16 * kWarp) launch_quant<kWarp, 32>(warps, TPU_DDP_QUANT_ARGS);
+  else if (block > 8 * kWarp) launch_quant<kWarp, 16>(warps, TPU_DDP_QUANT_ARGS);
+  else if (block > 4 * kWarp) launch_quant<kWarp, 8>(warps, TPU_DDP_QUANT_ARGS);
+  else if (block > 2 * kWarp) launch_quant<kWarp, 4>(warps, TPU_DDP_QUANT_ARGS);
+  else if (block > kWarp) launch_quant<kWarp, 2>(warps, TPU_DDP_QUANT_ARGS);
+  else launch_quant<kWarp, 1>(warps, TPU_DDP_QUANT_ARGS);
+#undef TPU_DDP_QUANT_ARGS
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -225,16 +225,20 @@ def segment_dequant(msg: torch.Tensor, layout, out: torch.Tensor, *,
                     add: Optional[torch.Tensor] = None, add_chunk: int = 0,
                     out_chunk: int = 0, to_rows: bool = False) -> torch.Tensor:
     """K3 over every leaf of ``layout`` in one launch, reading the int8
-    message(s) ``msg`` in place: ``(msg_bytes,)`` or the all-gather's ``(n,
-    msg_bytes)``, row r into chunk ``out_chunk + r`` of each leaf of the
-    leaf-major float32 ``out``; ``to_rows`` (one row) writes each leaf's
-    chunk into the shard row ``out`` (``layout.rows``) instead. With
-    ``add``, chunk ``add_chunk`` of each leaf of the leaf-major ``add`` is
-    added after the product (``add`` may be ``out``). Returns ``out``."""
+    message(s) ``msg`` in place, which must start 4-byte aligned:
+    ``(msg_bytes,)`` or the all-gather's ``(n, msg_bytes)``, row r into
+    chunk ``out_chunk + r`` of each leaf of the leaf-major float32 ``out``;
+    ``to_rows`` (one row) writes each leaf's chunk into the shard row
+    ``out`` (``layout.rows``) instead. With ``add``, chunk ``add_chunk`` of
+    each leaf of the leaf-major ``add`` is added after the product (``add``
+    may be ``out``). Returns ``out``."""
     size = layout.msg_bytes("int8")
     if msg.dtype != torch.uint8 or msg.numel() % max(size, 1) or not msg.is_contiguous():
         raise ValueError(f"segment_dequant: want contiguous uint8 rows of {size} "
                          f"bytes, got {msg.dtype} {tuple(msg.shape)}")
+    if msg.data_ptr() % 4:
+        raise ValueError("segment_dequant: the message must start 4-byte aligned "
+                         "(its scales are read as floats)")
     rows = msg.numel() // size if size else 1
     if to_rows and rows != 1:
         raise ValueError("segment_dequant: to_rows takes one message row")

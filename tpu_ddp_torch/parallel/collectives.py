@@ -269,6 +269,10 @@ class FlatLayout:
         start = self.offsets[i] + c * self.shard[i]
         return flat[start:start + self.shard[i]]
 
+    def chunks(self, flat: torch.Tensor, c: int) -> List[torch.Tensor]:
+        """Chunk c of every leaf of the leaf-major ``flat``, as views."""
+        return [self.chunk(flat, i, c) for i in range(len(self.shard))]
+
     def payload(self, msg: torch.Tensor, mode: str) -> List[dict]:
         """Each leaf's payload (``quantize_chunk``'s keys) as views of one
         uint8 message that starts 4-byte aligned."""
@@ -294,16 +298,54 @@ class FlatLayout:
         return table
 
 
+def _cast_hop(x: torch.Tensor, layout: FlatLayout, chunk: int, mode: str,
+              err: Optional[torch.Tensor]) -> torch.Tensor:
+    """The f32 and bf16 wire message: chunk ``chunk`` of every leaf of the
+    leaf-major ``x`` in one ``torch.cat``, then one cast (f32: none). With
+    ``err``, each element's wire error ``p - float(cast(p))`` goes to the
+    same chunk of ``err`` (one multi-tensor copy). Elementwise, so bitwise
+    ``quantize_chunk`` leaf by leaf."""
+    p = torch.cat(layout.chunks(x, chunk))
+    q = p if mode == "f32" else p.to(torch.bfloat16)
+    if err is not None:
+        torch._foreach_copy_(layout.chunks(err, chunk),
+                             (p - q.to(torch.float32)).split(layout.shard))
+    return q.view(torch.uint8)
+
+
+def _uncast_hop(msg: torch.Tensor, layout: FlatLayout, mode: str, out: torch.Tensor, *,
+                add: Optional[torch.Tensor] = None, add_chunk: int = 0,
+                out_chunk: int = 0, to_rows: bool = False) -> torch.Tensor:
+    """A received f32 or bf16 message (or the all-gather's rows) -> float32
+    into ``out``: one cast of all rows, then one multi-tensor add of
+    ``add``'s chunk ``add_chunk`` when given and one multi-tensor copy (the
+    keywords as ``ops/fused_quant.py::segment_dequant``'s)."""
+    values = msg.view(-1).view(torch.float32 if mode == "f32" else torch.bfloat16)
+    rows = values.view(-1, layout.hop_size).to(torch.float32)
+    src = [d for row in rows for d in row.split(layout.shard)]
+    if add is not None:
+        src = torch._foreach_add(layout.chunks(add, add_chunk) * rows.shape[0], src)
+    if to_rows:
+        dst = layout.rows.views(out)
+    else:
+        dst = [d for r in range(rows.shape[0]) for d in layout.chunks(out, out_chunk + r)]
+    torch._foreach_copy_(dst, src)
+    return out
+
+
 def _quant_hop(x: torch.Tensor, layout: FlatLayout, chunk: int, mode: str,
                kernels: bool, err: Optional[torch.Tensor]) -> torch.Tensor:
     """Chunk ``chunk`` of every leaf of the leaf-major ``x`` -> one uint8
-    wire message: K2 in one launch when the kernel switch is on (int8 only:
-    f32 and bf16 payloads are casts), else ``quantize_chunk`` leaf by leaf.
-    With ``err``, each element's wire error goes to the same chunk of
-    ``err``. Bit-identical by contract (``ops/fused_quant.py``)."""
+    wire message: in int8 K2 in one launch when the kernel switch is on,
+    else ``quantize_chunk`` leaf by leaf; f32 and bf16 are a cast
+    (``_cast_hop``). With ``err``, each element's wire error goes to the
+    same chunk of ``err``. Bit-identical by contract
+    (``ops/fused_quant.py``)."""
     from tpu_ddp_torch.ops import fused_quant as fq
 
-    if kernels and mode == "int8":
+    if mode != "int8":
+        return _cast_hop(x, layout, chunk, mode, err)
+    if kernels:
         return fq.segment_quant(x, layout, chunk, err=err)
     return fq.segment_quant_plain(x, layout, chunk, mode, err=err)
 
@@ -311,12 +353,14 @@ def _quant_hop(x: torch.Tensor, layout: FlatLayout, chunk: int, mode: str,
 def _dequant_hop(msg: torch.Tensor, layout: FlatLayout, mode: str, kernels: bool,
                  out: torch.Tensor, **where) -> torch.Tensor:
     """A received message (or the all-gather's rows) -> float32 into
-    ``out``, optionally accumulated (K3 in one launch, or
-    ``dequantize_chunk`` leaf by leaf; ``where`` as
-    ``ops/fused_quant.py::segment_dequant``)."""
+    ``out``, optionally accumulated: in int8 K3 in one launch, or
+    ``dequantize_chunk`` leaf by leaf; f32 and bf16 a cast
+    (``_uncast_hop``; ``where`` as ``ops/fused_quant.py::segment_dequant``)."""
     from tpu_ddp_torch.ops import fused_quant as fq
 
-    if kernels and mode == "int8":
+    if mode != "int8":
+        return _uncast_hop(msg, layout, mode, out, **where)
+    if kernels:
         return fq.segment_dequant(msg, layout, out, **where)
     return fq.segment_dequant_plain(msg, layout, mode, out, **where)
 

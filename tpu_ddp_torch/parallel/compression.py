@@ -218,8 +218,19 @@ class GradCompressor:
         return torch.cat(parts)
 
     def _joined(self, flat_tree: Tree) -> torch.Tensor:
-        """Per-leaf ``(padded,)`` tensors -> one leaf-major buffer."""
-        return torch.cat([flat_tree[name].reshape(-1) for name in self.names])
+        """Per-leaf ``(padded,)`` tensors -> one leaf-major buffer: the one
+        they are views of when they are this layout's views of one buffer
+        (``flatten``, ``init_residual`` and ``err_state`` hand out such
+        views), else one ``torch.cat``."""
+        leaves = [flat_tree[name] for name in self.names]
+        base = leaves[0]._base
+        if (base is not None and base.dtype == torch.float32
+                and base.shape == (self.layout.total,)
+                and all(t._base is base and t.shape == (p,) and t.storage_offset() == o
+                        for t, o, p in zip(leaves, self.layout.offsets,
+                                           self.layout.padded))):
+            return base
+        return torch.cat([t.reshape(-1) for t in leaves])
 
     def _tree(self, flat: torch.Tensor) -> Tree:
         return dict(zip(self.names, self.layout.leaves(flat)))
@@ -263,30 +274,18 @@ class GradCompressor:
         return (self.unflatten(self._tree(out)),
                 self._tree(err) if with_error else None)
 
-    def reduce_scatter_mean_flat(self, flat: Tree,
-                                 residual: Optional[Tree] = None,
-                                 with_error: bool = False):
-        """Already-flattened (padded 1-D) leaves -> this rank's 1/N slice
-        of each leaf of the averaged gradient, through the compressed ring
-        over all leaves at once; the slices are views of one row of the
-        shard layout (``layout.rows``)."""
-        return self._reduce_scatter_mean(self._joined(flat), residual,
-                                         with_error, None)
-
-    def reduce_scatter_mean(self, grads: Tree, residual: Optional[Tree] = None,
-                            with_error: bool = False,
-                            out: Optional[torch.Tensor] = None):
-        """``reduce_scatter_mean_flat`` of original-shaped leaves; the sum
-        lands in ``out`` when given (ZeRO-1's gradient row, whose gaps
-        between leaves are left as they are)."""
-        return self._reduce_scatter_mean(self._flat(grads), residual,
-                                         with_error, out)
-
-    def _reduce_scatter_mean(self, x, residual, with_error, out):
+    def reduce_scatter_mean_flat(self, flat: Tree, residual: Optional[Tree] = None,
+                                 with_error: bool = False,
+                                 out: Optional[torch.Tensor] = None):
+        """Flattened (padded 1-D) leaves -> this rank's 1/N slice of each
+        leaf of the averaged gradient, through the compressed ring over all
+        leaves at once. The slices are views of one row of the shard layout
+        (``layout.rows``): ``out`` when given (ZeRO-1's gradient row, whose
+        gaps between leaves are left as they are)."""
         from tpu_ddp_torch.parallel.collectives import ring_reduce_scatter_flat
 
         row, err = ring_reduce_scatter_flat(
-            self._with_residual(x, residual), self.layout,
+            self._with_residual(self._joined(flat), residual), self.layout,
             mode=self.config.mode, with_error=with_error,
             kernels=self.kernels, out=out)
         torch.div(row, self._n(row), out=row)

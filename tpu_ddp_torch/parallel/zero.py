@@ -205,8 +205,9 @@ class Zero1Partition:
         device = next(iter(grads.values())).device
         bufs = self._buffers(device)
         if self.compress is not None:
-            _, err_state = self.compress.reduce_scatter_mean(
-                grads, residual, with_error=with_error, out=bufs["grad"])
+            _, err_state = self.compress.reduce_scatter_mean_flat(
+                self.compress.flatten(grads), residual, with_error=with_error,
+                out=bufs["grad"])
             return dict(bufs["grad_views"]), err_state
         if "send" not in bufs:
             bufs["send"] = torch.zeros(self.n_shards, self.layout.width,

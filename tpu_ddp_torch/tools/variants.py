@@ -17,7 +17,8 @@ from tpu_ddp_torch.ops import _build
 
 def build(library: str, variants: dict, extra: dict | None = None) -> dict:
     """variant -> loaded library, all compiled at once with ``library``'s
-    nvcc flags into ``build/tpu_ddp_torch/<library>_variants/``: its
+    nvcc flags into ``build/tpu_ddp_torch/<library>_variants/`` (each
+    variant's compiler output beside it, ``<variant>.log``): its
     source with each variant's ``[(text, replacement)]`` edits (each text
     found once), and each ``extra`` ``{name: (source path, extra flags)}``,
     a source with the same C entry points."""
@@ -42,6 +43,7 @@ def build(library: str, variants: dict, extra: dict | None = None) -> dict:
     libs = {}
     for name, proc in procs.items():
         log = proc.communicate()[0]
+        (out / f"{name}.log").write_text(log)     # ptxas's register report
         if proc.returncode:
             raise RuntimeError(f"variant {name} does not build:\n{log[-4000:]}")
         lib = ctypes.CDLL(str(out / f"{name}.so"))
