@@ -118,7 +118,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     --nproc-per-node 2 -- python -m tpu_ddp_torch.cli.train --device cuda
     --dist-backend gloo --synthetic-data --kernels --grad-compress int8
     --grad-compress-error-feedback --eval-each-epoch``, NetResDeep at full
-    width, batch 32 a rank, SGD lr 1e-2, 2 epochs of 100 steps, both ranks
+    width, batch 32 a rank, SGD lr 1e-2, 2 epochs of 50 steps, both ranks
     sharing the card. Losses finite and falling; launches exact on each rank
     (K1 1, K2 2 and K3 2 a step, nothing else); the ring's wire calls one
     exchange and one all-gather a step; params bitwise equal on both ranks
@@ -134,7 +134,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     int8, so these rows have no library time.
 14. ``--zero1`` on three ranks: NetResDeep ``--zero1 --kernels`` through
     the launcher, three ranks sharing the card over gloo, the recipe and 2
-    x 100 steps a rank of phase 12 (at three ranks seven of its nine leaves
+    x 50 steps a rank of phase 12 (at three ranks seven of its nine leaves
     pad, so the mask runs on the path), in float32 and with ``--grad-compress
     int8 --grad-compress-error-feedback``; plain DP on three ranks beside
     them. Each: the step count, finite and falling losses, params bitwise
@@ -154,11 +154,26 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     unmasked, the plain version and ``torch._fused_sgd_`` /
     ``torch._fused_adamw_`` as the yardstick, in turns, beside the bound.
     The step times of phases 14 and 15 per rank close the run.
+17. Checkpoint and resume on the card, NetResDeep at full width, 25 steps
+    an epoch a rank, under deterministic cuDNN: two ranks sharing the card
+    over gloo with ``--kernels --zero1 --grad-compress int8
+    --grad-compress-error-feedback``, two epochs uninterrupted, then one
+    with ``--checkpoint-dir`` and ``--resume`` to two: the resumed run's
+    per-step losses and final params bitwise the uninterrupted run's,
+    replicas bitwise equal, its launches exactly 25 times phase 14's
+    per-step counts, both steps verified by their manifests. One rank in
+    this process (``--kernels``), SIGTERMed as it takes batch 35: it drains
+    there, saves, and ``--resume`` ends bitwise where the uninterrupted run
+    ends, K1 once a resumed step. A checkpoint cut at three ranks resumes
+    at two with finite, falling losses. Then the host-clock times of save
+    initiation (device to host), commit (write, fsync, manifest), manifest
+    verification and restore, and the sizes, of NetResDeep's state and of
+    ViT-B/16 at 224 with AdamW state, each after one step on the card.
 
-The NetResDeep phases keep their sizes; the whole run takes five to seven
-minutes on the card, the build included. ``python3 chip_smoke.py --nccl N``,
-on a machine with N cards, runs phases 10 (at N ranks' chunks), 12 and 14
-alone at N ranks, one card each, over NCCL. The line before the last is one JSON object
+The NetResDeep phases before 17 keep their sizes; the whole run takes six
+to eight minutes on the card, the build included. ``python3 chip_smoke.py
+--nccl N``, on a machine with N cards, runs phases 10 (at N ranks' chunks),
+12, 14 and 17's two-rank part alone at N ranks, one card each, over NCCL. The line before the last is one JSON object
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -1003,7 +1018,9 @@ QUANT_BLOCK = 256                      # --grad-compress-block default
 QUANT_SIZES = [1, 255, 257, 1_000_003, LARGE]
 QUANT_BLOCKS = [1, 64, 256, 1000, 4096]   # 4096: one thread block a scale block
 RING_LEAVES = [math.prod(s) for s in NETRESDEEP_LEAVES] + [1 << 22]
-DP_STEPS_PER_EPOCH = 100
+#: steps an epoch a rank of phases 12 and 14 (100 until phase 17 came:
+#: the launches, not the steps, take most of their time)
+DP_STEPS_PER_EPOCH = 50
 DP_LOSS_ATOL = 0.05
 VIT_B16_LEAVES = 151
 
@@ -1359,7 +1376,7 @@ def ring_wire_calls(nproc, compress, zero1):
 
 
 def rank_child(out_dir, args):
-    """One rank of phases 12, 14 and 15, started by the launcher: the train
+    """One rank of phases 12, 14, 15 and 17, started by the launcher: the train
     CLI's ``run`` with the launch counts zeroed just before (under cuDNN's
     deterministic algorithms when ``args`` start with ``--deterministic``);
     writes the counts, the metrics and the final weights to ``out_dir``."""
@@ -1605,6 +1622,263 @@ def phase_zero1_vit(tmp):
     return runs
 
 
+# ---- phase 17: checkpoint and resume on the card -------------------------
+
+#: steps an epoch a rank in phase 17 (the widths and the recipe are the
+#: reference's)
+CKPT_STEPS = 25
+#: the cut run's --checkpoint-steps: two saves inside its epoch before the
+#: epoch's own, so a repeat save's time on the training thread shows
+CKPT_EVERY = 10
+#: the one-rank run's SIGTERM: as it takes this batch, mid-epoch 2
+CKPT_SIGTERM_AT = 35
+
+
+def ckpt_args(nproc, backend="gloo", compress=True, zero1=True, data_ranks=None):
+    """NetResDeep, the reference recipe, ``--kernels`` (and ``--zero1`` with
+    the int8 ring and error feedback), CKPT_STEPS steps an epoch a rank at
+    ``data_ranks`` (default ``nproc``) ranks, no evaluation."""
+    args = [a for a in dp_args(compress, nproc, backend) if a != "--eval-each-epoch"]
+    args[args.index("--synthetic-size") + 1] = str((data_ranks or nproc) * 32 * CKPT_STEPS)
+    return args + (["--zero1"] if zero1 else [])
+
+
+def with_epochs(args, epochs, *extra):
+    out = list(args)
+    out[out.index("--epochs") + 1] = str(epochs)
+    return out + list(extra)
+
+
+def rank_weights(tmp, name, nproc):
+    import torch
+
+    return [torch.load(os.path.join(tmp, name, f"rank{r}.pt")) for r in range(nproc)]
+
+
+def same_weights(a, b):
+    import torch
+
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def check_manifests(ck, steps):
+    """Each of ``steps`` is committed and verifies against its manifest."""
+    from tpu_ddp_torch.checkpoint import manifest
+
+    verdicts = {s: manifest.verify_step(ck, s) for s in steps}
+    print(f"  checkpoint steps on disk {manifest.committed_steps(ck)}; manifests "
+          f"{ {s: v[0] for s, v in verdicts.items()} }", flush=True)
+    if any(v != (True, []) for v in verdicts.values()):
+        fail(f"a checkpoint step does not verify against its manifest: {verdicts}")
+
+
+def phase_checkpoint_dp(tmp, nproc=2, backend="gloo"):
+    """Phase 17: NetResDeep ``--kernels --zero1 --grad-compress int8
+    --grad-compress-error-feedback`` on ``nproc`` ranks under cuDNN's
+    deterministic algorithms: two epochs uninterrupted, then one epoch with
+    ``--checkpoint-dir`` (and a save every CKPT_EVERY steps) and ``--resume``
+    to two. The resumed run's per-step
+    losses and final params must be bitwise the uninterrupted run's, the
+    replicas bitwise equal, its launches exactly its steps times phase 14's
+    per-step counts, and its checkpoints verify. Prints each save's time on
+    the training thread of the cut and the resumed run."""
+    args = ckpt_args(nproc, backend)
+    ck = os.path.join(tmp, f"ckpt{nproc}")
+    runs = {}
+    for name, run_args in (
+            ("full", with_epochs(args, 2)),
+            ("cut", with_epochs(args, 1, "--checkpoint-dir", ck,
+                                "--checkpoint-steps", str(CKPT_EVERY))),
+            ("resumed", with_epochs(args, 2, "--checkpoint-dir", ck, "--resume"))):
+        label = f"ckpt_{name}{nproc}"
+        metrics, same = launch_dp(tmp, label, run_args, nproc, phase="17",
+                                  deterministic=True)
+        runs[name] = (metrics, same, rank_weights(tmp, label, nproc))
+    full, resumed = runs["full"], runs["resumed"]
+    per_step = zero1_launches(nproc, True)
+    want = {name: 0 for name in resumed[0][0]["launches"]}
+    want.update({k: v * CKPT_STEPS for k, v in per_step.items()})
+    bitwise = all(m["step_losses"] == f["step_losses"][CKPT_STEPS:]
+                  and same_weights(w, fw)
+                  for m, f, w, fw in zip(resumed[0], full[0], resumed[2], full[2]))
+    print(f"  resumed at step {CKPT_STEPS}: {len(resumed[0][0]['step_losses'])} steps; "
+          f"losses and final params bitwise the uninterrupted run's on every rank "
+          f"{bitwise}; replicas bitwise equal {resumed[1]}; launches on rank 0 "
+          f"{resumed[0][0]['launches']} (expected {want})", flush=True)
+    if resumed[0][0]["steps"] != 2 * CKPT_STEPS or not bitwise:
+        fail(f"the resumed {nproc}-rank run is not bitwise the uninterrupted one")
+    if not (resumed[1] and full[1]):
+        fail("the ranks end with different params")
+    if any(m["launches"] != want for m in resumed[0]):
+        fail(f"the resumed run launched {[m['launches'] for m in resumed[0]]}, "
+             f"expected {want} on every rank")
+    check_manifests(ck, (CKPT_STEPS, 2 * CKPT_STEPS))
+    for name in ("cut", "resumed"):
+        for r, m in enumerate(runs[name][0]):
+            saves = "; ".join(f"step {st}{' wait' if w else ''} {ms:.3f} ms"
+                              for st, w, ms in m["checkpoint_save_ms"])
+            print(f"  {name} run, rank {r}: the training thread's time in each save "
+                  f"(de-sharding collectives, device-to-host copy, and the commit when "
+                  f"it waits): {saves}; steady-state step {m['steady_step_ms']:.4f} ms",
+                  flush=True)
+
+
+def sigterm_at(n):
+    """Patch the train loader (the shuffled one) to send this process SIGTERM
+    as it yields its ``n``-th batch; returns the undo."""
+    import signal
+
+    from tpu_ddp_torch.data.loader import ShardedBatchLoader
+
+    inner = ShardedBatchLoader.epoch_batches
+    seen = [0]
+
+    def epoch_batches(self, *args, **kwargs):
+        for batch in inner(self, *args, **kwargs):
+            if self.shuffle:
+                if seen[0] == n:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                seen[0] += 1
+            yield batch
+
+    ShardedBatchLoader.epoch_batches = epoch_batches
+    return lambda: setattr(ShardedBatchLoader, "epoch_batches", inner)
+
+
+def phase_checkpoint_sigterm(tmp):
+    """Phase 17, one rank in this process, NetResDeep ``--kernels`` under
+    cuDNN's deterministic algorithms: two epochs uninterrupted; the same run
+    with ``--checkpoint-dir`` SIGTERMed as it takes batch CKPT_SIGTERM_AT
+    drains there and saves; ``--resume`` ends bitwise where the
+    uninterrupted run ended, with K1 once a resumed step."""
+    import torch
+
+    from tpu_ddp_torch import ops
+    from tpu_ddp_torch.checkpoint import manifest
+    from tpu_ddp_torch.cli import train as cli
+
+    args = with_epochs(ckpt_args(1, compress=False, zero1=False), 2)
+    ck = os.path.join(tmp, "ckpt_sigterm")
+    print(f"phase 17, deterministic cuDNN: one rank, SIGTERM at step {CKPT_SIGTERM_AT}: "
+          f"tpu_ddp_torch.cli.train {' '.join(args)} --checkpoint-dir DIR", flush=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        full, full_m = cli.run(args)
+        undo = sigterm_at(CKPT_SIGTERM_AT)
+        try:
+            _, cut_m = cli.run(args + ["--checkpoint-dir", ck])
+        finally:
+            undo()
+        latest = manifest.latest_verified_step(ck)
+        ops.reset_launch_counts()
+        resumed, res_m = cli.run(args + ["--checkpoint-dir", ck, "--resume"])
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    want = {name: 0 for name in counts}
+    want["fused_update"] = 2 * CKPT_STEPS - CKPT_SIGTERM_AT
+    bitwise = (cut_m["step_losses"] + res_m["step_losses"] == full_m["step_losses"]
+               and same_weights(resumed.state.model.state_dict(),
+                                full.state.model.state_dict()))
+    print(f"  drained {cut_m.get('preempted', False)} at step {cut_m['steps']}; newest "
+          f"verified checkpoint {latest}; resumed {len(res_m['step_losses'])} steps, "
+          f"launches {counts}; losses and final params bitwise the uninterrupted "
+          f"run's {bitwise}", flush=True)
+    if not cut_m.get("preempted") or cut_m["steps"] != CKPT_SIGTERM_AT:
+        fail("the SIGTERMed run did not drain at the step it was signalled")
+    if latest != (CKPT_SIGTERM_AT, []):
+        fail(f"the drained run's checkpoint is not the verified latest: {latest}")
+    if not bitwise or counts != want:
+        fail(f"the resumed run is not bitwise the uninterrupted one, or launched "
+             f"{counts} (expected {want})")
+
+
+def phase_checkpoint_rank_change(tmp):
+    """Phase 17: a checkpoint cut at three ranks (phase 14's setting) resumes
+    at two on the same data: finite, falling losses, replicas bitwise equal."""
+    n = ZERO1_RANKS
+    args = ckpt_args(n)
+    ck = os.path.join(tmp, "ckpt_rank_change")
+    launch_dp(tmp, "ckpt_cut_three", with_epochs(args, 1, "--checkpoint-dir", ck), n,
+              phase="17")
+    metrics, same = launch_dp(tmp, "ckpt_three_to_two",
+                              with_epochs(ckpt_args(2, data_ranks=n), 3,
+                                          "--checkpoint-dir", ck, "--resume"), 2,
+                              phase="17")
+    losses = metrics[0]["step_losses"]
+    first, last = sum(losses[:20]) / 20, sum(losses[-20:]) / 20
+    print(f"  resumed at two ranks from step {CKPT_STEPS} of three: {len(losses)} steps, "
+          f"mean loss of the first 20 {first:.4f}, last 20 {last:.4f}; replicas "
+          f"bitwise equal {same}", flush=True)
+    if not all(math.isfinite(x) for x in losses) or not last < first or not same:
+        fail("the three-rank checkpoint did not resume at two ranks with finite, "
+             "falling losses and equal replicas")
+
+
+def checkpoint_timing(tmp, smi):
+    """Phase 17 timing: save initiation (the device-to-host copy), commit
+    (write, fsync, manifest) and restore of NetResDeep's state (the phase's
+    recipe at one rank, with its residual) and of ViT-B/16 at 224 with AdamW
+    state, each built on the card with one step taken."""
+    import shutil
+
+    import torch
+
+    from tpu_ddp_torch.checkpoint.manager import STATE_FILE, Checkpointer
+    from tpu_ddp_torch.cli import train as cli
+    from tpu_ddp_torch.models import MODEL_REGISTRY
+    from tpu_ddp_torch.train.optim import make_optimizer
+    from tpu_ddp_torch.train.state import checkpoint_state, create_train_state
+    from tpu_ddp_torch.train.steps import make_train_step
+    from tpu_ddp_torch.train.trainer import Trainer
+
+    print(f"phase 17: checkpoint timing (host clock; {smi})", flush=True)
+    trainer = Trainer(cli.config_from_args(cli.build_parser().parse_args(
+        with_epochs(ckpt_args(1, zero1=False), 1))))
+    batch = next(trainer.train_loader.epoch_batches(epoch=1))
+    trainer.state, _ = trainer.train_step(trainer.state, trainer.to_device(batch))
+    states = [("NetResDeep, SGD, int8 residual", trainer._ckpt_state)]
+
+    def vit_state():
+        gen = torch.Generator().manual_seed(0)
+        model = MODEL_REGISTRY["vit_b16"](num_classes=10, generator=gen, image_size=224)
+        tx = make_optimizer(lr=1e-3, optimizer="adamw")
+        state = create_train_state(model, tx, torch.device("cuda"))
+        images = torch.randn(8, 224, 224, 3, generator=gen).cuda()      # NHWC
+        b = {"image": images, "label": torch.arange(8).cuda() % 10,
+             "mask": torch.ones(8, dtype=torch.bool).cuda()}
+        state, _ = make_train_step(tx)(state, b)
+        return checkpoint_state(int(state.step), state.model.state_dict(), state.opt_state)
+
+    states.append(("ViT-B/16 224, AdamW", vit_state))
+    for name, build in states:
+        flat = build()
+        torch.cuda.synchronize()
+        n_params = sum(v.numel() for k, v in flat.items() if k.startswith("model/"))
+        d = os.path.join(tmp, "ckpt_timing")
+        ck = Checkpointer(d)
+        ck.save(1, flat, wait=True)
+        first = dict(ck.timings)
+        ck.save(2, flat, wait=True)
+        again = dict(ck.timings)
+        t0 = time.perf_counter()
+        step = ck.verified_restore_step()
+        verify_ms = (time.perf_counter() - t0) * 1e3
+        restored = ck.restore(step)
+        mb = os.path.getsize(os.path.join(d, "2", STATE_FILE)) / 1e6
+        exact = all(torch.equal(restored[k], v.cpu()) if isinstance(v, torch.Tensor)
+                    else restored[k] == v for k, v in flat.items())
+        print(f"  {name}: {n_params} model elements, {mb:.3f} MB: save initiation "
+              f"{first['initiate_ms']:.3f} ms first (pinned buffers allocated), "
+              f"{again['initiate_ms']:.3f} ms again; commit {first['commit_ms']:.3f} / "
+              f"{again['commit_ms']:.3f} ms; verify {verify_ms:.3f} ms; restore "
+              f"{ck.timings['restore_ms']:.3f} ms; restored equal {exact}", flush=True)
+        shutil.rmtree(d)
+        if step != 2 or not exact:
+            fail(f"{name}: the checkpoint did not restore what was saved")
+
+
 def print_accounting():
     """``Zero1Partition.accounting()`` of both zero1 paths at three ranks."""
     from tpu_ddp_torch.models import MODEL_REGISTRY, NetResDeep
@@ -1809,7 +2083,8 @@ def phase_quant_timing(quant_err, runs):
 
 def nccl_main(nproc):
     """``python3 chip_smoke.py --nccl N`` on a machine with N cards: phase
-    10 with NetResDeep's chunks at N ranks, then phases 12 and 14 at N
+    10 with NetResDeep's chunks at N ranks, then phases 12, 14 and 17's
+    resume (``phase_checkpoint_dp``) at N
     ranks, one card each, over NCCL (the default backend on cuda)."""
     import shutil
     import tempfile
@@ -1829,6 +2104,7 @@ def nccl_main(nproc):
     try:
         phase_dp_main_path(tmp, nproc, "nccl")
         phase_zero1_dp(tmp, nproc, "nccl")
+        phase_checkpoint_dp(tmp, nproc, "nccl")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"chip_smoke --nccl {nproc}: ok", flush=True)
@@ -1888,6 +2164,12 @@ def main():
         dp_runs = phase_dp_main_path(tmp)
         zero1_runs = phase_zero1_dp(tmp)
         zero1_runs.update(phase_zero1_vit(tmp))
+        t17 = time.perf_counter()
+        phase_checkpoint_dp(tmp)
+        phase_checkpoint_sigterm(tmp)
+        phase_checkpoint_rank_change(tmp)
+        checkpoint_timing(tmp, smi)
+        print(f"phase 17 took {time.perf_counter() - t17:.1f} s", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print_accounting()

@@ -52,6 +52,9 @@ def test_cli_defaults_match_jax_cli():
             assert ref[key] == value, key
     assert port["dist_backend"] is None
     assert port["device"] == "cuda"
+    for key in ("checkpoint_dir", "checkpoint_every_epochs", "checkpoint_steps",
+                "resume", "keep_best", "eval_only", "jsonl", "tensorboard_dir"):
+        assert key in port, key
 
 
 def test_cuda_is_the_default_and_missing_cuda_raises(monkeypatch):

@@ -110,13 +110,17 @@ def _terminate_all(procs: Sequence[subprocess.Popen],
                 p.wait()
 
 
+def runs_on_cpu(cmd: Sequence[str]) -> bool:
+    """Whether ``cmd`` asks for ``--device cpu``."""
+    cmd = list(cmd)
+    return "--device=cpu" in cmd or any(
+        a == "--device" and b == "cpu" for a, b in zip(cmd, cmd[1:]))
+
+
 def wants_kernel_build(cmd: Sequence[str]) -> bool:
     """Whether ``cmd`` runs the port's CUDA kernels: ``--kernels`` without
     ``--device cpu``."""
-    cmd = list(cmd)
-    on_cpu = "--device=cpu" in cmd or any(
-        a == "--device" and b == "cpu" for a, b in zip(cmd, cmd[1:]))
-    return "--kernels" in cmd and not on_cpu
+    return "--kernels" in cmd and not runs_on_cpu(cmd)
 
 
 def run_job(cmd: Sequence[str], *, nnodes: int = 1, nproc_per_node: int = 1,

@@ -1,9 +1,11 @@
 """``python -m tpu_ddp_torch.cli.train`` — the port's training CLI.
 
 Counterpart of ``tpu_ddp/cli/train.py`` (``build_parser``, ``main`` :609,
-``_run_and_report`` :635) for this slice's flags, with the JAX CLI's names
-and defaults. It trains on the GPU unless ``--device cpu`` is given, and
-refuses to start without one otherwise. Started by
+``_run_and_report`` :635) for this slice's flags, with the JAX CLI's names,
+defaults and help. It trains on the GPU unless ``--device cpu`` is given,
+and refuses to start without one otherwise. A run drained by SIGTERM or
+SIGINT has saved its checkpoint and skips the final evaluation;
+``--resume`` continues it at the step it stopped at. Started by
 ``python -m tpu_ddp_torch.cli.launch``, it joins the launcher's process
 group first and trains data-parallel over the ranks (``--dist-backend``,
 a flag the JAX CLI does not need: one JAX process drives every device).
@@ -87,6 +89,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--eval-each-epoch", action="store_true")
     p.add_argument("--log-every-epochs", type=int, default=10)
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-every-epochs", type=int, default=10)
+    p.add_argument("--checkpoint-steps", type=int, default=0, metavar="N",
+                   help=">0: ALSO save a checkpoint every N global steps "
+                        "(mid-epoch, async)")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--eval-only", action="store_true",
+                   help="skip training: restore (--resume from "
+                        "--checkpoint-dir) and run the test-set eval")
+    p.add_argument("--keep-best", action="store_true",
+                   help="also retain the best-test-accuracy checkpoint "
+                        "under <checkpoint-dir>/best (needs "
+                        "--eval-each-epoch; best step + accuracy recorded "
+                        "in best/metadata.json)")
+    p.add_argument("--jsonl", default=None, help="metrics JSONL path")
+    p.add_argument("--tensorboard-dir", default=None,
+                   help="write TensorBoard scalar events here "
+                        "(process-0 only), alongside --jsonl")
     return p
 
 
@@ -120,6 +140,13 @@ def config_from_args(args) -> TrainConfig:
         seed=args.seed,
         eval_each_epoch=args.eval_each_epoch,
         log_every_epochs=args.log_every_epochs,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every_epochs=args.checkpoint_every_epochs,
+        checkpoint_steps=args.checkpoint_steps,
+        keep_best=args.keep_best,
+        resume=args.resume,
+        jsonl_path=args.jsonl,
+        tensorboard_dir=args.tensorboard_dir,
     )
 
 
@@ -129,16 +156,44 @@ def run(argv=None) -> tuple:
     config = config_from_args(args)
     initialize_distributed(config.device, config.dist_backend)
     try:
+        if args.eval_only and not (config.resume and config.checkpoint_dir):
+            raise SystemExit(
+                "--eval-only needs weights: --checkpoint-dir ... --resume, "
+                "or --pretrained-dir ..."
+            )
         trainer = Trainer(config)
-        metrics = trainer.run()
-        acc, loss = trainer.evaluate()
-        trainer.logger.log_text(
-            f"final test accuracy: {acc:.4f}, test loss: {loss:.4f}")
+        try:
+            metrics = _run_and_report(args, config, trainer)
+        finally:
+            trainer.close()
     finally:
         shutdown()
+    return trainer, metrics
+
+
+def _run_and_report(args, config, trainer) -> dict:
+    if args.eval_only and trainer.resumed_step is None:
+        # the mode whose whole purpose is loading weights must not evaluate
+        # the random initialisation when the checkpoint dir is empty
+        raise SystemExit(
+            f"--eval-only: no checkpoint found under "
+            f"{config.checkpoint_dir!r} to resume from"
+        )
+    metrics = {"eval_only": True} if args.eval_only else trainer.run()
+    if metrics.get("preempted"):
+        # drained: the checkpoint is written, and every second of the final
+        # eval eats into the kill's grace window
+        trainer.logger.log_text(
+            "preempted: skipping final eval/prediction outputs "
+            "(resume with --resume)")
+        metrics.setdefault("test_accuracy", float("nan"))
+        return metrics
+    acc, loss = trainer.evaluate()
+    trainer.logger.log_text(
+        f"final test accuracy: {acc:.4f}, test loss: {loss:.4f}")
     metrics.update(test_accuracy=acc, test_loss=loss,
                    eval_batches=trainer.eval_batches)
-    return trainer, metrics
+    return metrics
 
 
 def main(argv=None) -> dict:

@@ -17,6 +17,7 @@ numpy fancy indexing.
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Dict, Iterator, Optional
 
@@ -93,11 +94,14 @@ class ShardedBatchLoader:
             yield chunk.reshape(-1), mask.reshape(-1)
 
     def epoch_batches(self, epoch: Optional[int] = None,
-                      shard: Optional[int] = None) -> Iterator[Dict[str, np.ndarray]]:
+                      shard: Optional[int] = None,
+                      start: int = 0) -> Iterator[Dict[str, np.ndarray]]:
         """The global batches or, with ``shard``, that shard's
-        ``per_shard_batch`` rows of each (the batch is shard-major)."""
+        ``per_shard_batch`` rows of each (the batch is shard-major).
+        ``start`` skips the epoch's first index batches without gathering
+        them (a mid-epoch resume)."""
         bs = self.per_shard_batch
-        for idx, mask in self.epoch_index_batches(epoch):
+        for idx, mask in itertools.islice(self.epoch_index_batches(epoch), start, None):
             if shard is not None:
                 idx = idx[shard * bs:(shard + 1) * bs]
                 mask = mask[shard * bs:(shard + 1) * bs]

@@ -31,10 +31,13 @@ by a 0-dim tensor on the data's device and never by a Python scalar:
 PyTorch's CUDA division by a Python scalar multiplies by its reciprocal,
 while XLA and the kernels divide.
 
-Not ported yet: the residual's checkpoint layouts (``deshard_residual``,
-``shard_residual``, the mesh form of ``init_residual``) and ``varying``, a
-jax-version shim (the port differentiates the local loss and syncs
-explicitly).
+A checkpoint of several ranks holds every rank's residual row
+(``residual_rows``), whose sum in rank order is the JAX layout, the
+residual in param layout summed over the ranks (``deshard_residual``,
+``desharded_rows``); one rank's holds that sum alone. ``shard_residual``
+lays either out again for this run's rank count. Not ported: the mesh form of ``init_residual`` and
+``varying``, a jax-version shim (the port differentiates the local loss and
+syncs explicitly).
 """
 
 from __future__ import annotations
@@ -248,6 +251,80 @@ class GradCompressor:
         of one leaf-major buffer)."""
         return self._tree(torch.zeros(self.layout.total, dtype=torch.float32,
                                       device=device))
+
+    # ---- the residual's checkpoint layout -------------------------------
+
+    def residual_rows(self, residual: Tree) -> torch.Tensor:
+        """``(n_shards, layout.total)``: every rank's leaf-major residual, in
+        rank order (one all-gather; a collective, every rank calls it)."""
+        from tpu_ddp_torch.parallel.collectives import all_gather_bytes
+
+        flat = self._joined(residual)
+        return all_gather_bytes(flat) if self.n_shards > 1 else flat.view(1, -1)
+
+    def deshard_residual(self, residual: Tree,
+                         rows: Optional[torch.Tensor] = None) -> Tree:
+        """This rank's residual -> the PARAM-layout tree checkpoints hold:
+        the ranks' residuals summed in rank order, unpadded and reshaped (the
+        JAX ``deshard_residual``). The sum is what error feedback carries:
+        each rank adds its own residual into its gradient before the ring
+        sums them. A collective unless ``rows`` (``residual_rows``'s result)
+        is given."""
+        rows = self.residual_rows(residual) if rows is None else rows
+        total = rows[0].clone()
+        for row in rows[1:]:
+            total += row
+        return self.unflatten(self._tree(total))
+
+    def desharded_rows(self, rows: torch.Tensor) -> Tree:
+        """``residual_rows``'s result, cut at any rank count -> the
+        PARAM-layout sum ``deshard_residual`` gives, through the layout of
+        the rows' own rank count. No collective."""
+        n = rows.shape[0]
+        at = self if n == self.n_shards else GradCompressor(
+            self.config, {name: torch.empty(slot.shape, device="meta")
+                          for name, slot in self.slots.items()}, n)
+        if rows.shape[1] != at.layout.total:
+            raise ValueError(
+                f"the checkpoint's residual rows are {tuple(rows.shape)}, not "
+                f"({n}, {at.layout.total}): another model or --grad-compress-block")
+        return at.deshard_residual(None, rows)
+
+    @torch.no_grad()
+    def shard_residual(self, param_tree: Optional[Tree], out: Optional[Tree] = None,
+                       rows: Optional[torch.Tensor] = None,
+                       rank: Optional[int] = None) -> Tree:
+        """A PARAM-layout residual -> this rank's, written into ``out`` (the
+        views ``init_residual`` made, so the ring keeps reading one buffer in
+        place; a fresh ``init_residual`` when None): the whole carried error
+        on rank 0, zeros on the others (the JAX ``shard_residual``), which
+        conserves the sum across a change of rank count. ``rows`` (a
+        checkpoint's ``residual_rows``) cut at this rank count and layout
+        gives each rank its own row back instead: the quantized ring is not
+        linear in its inputs, so only that makes a resume at the same rank
+        count bitwise the uninterrupted run. Rows cut at another rank count
+        stand for their sum when ``param_tree`` is None. ``rank`` defaults
+        to this process's. No collective."""
+        from tpu_ddp_torch.parallel.runtime import rank as process_rank
+
+        rank = process_rank() if rank is None else rank
+        own_rows = rows is not None and tuple(rows.shape) == (self.n_shards,
+                                                              self.layout.total)
+        if param_tree is None and not own_rows:
+            param_tree = self.desharded_rows(rows)
+        if out is None:
+            device = (rows if own_rows else next(iter(param_tree.values()))).device
+            out = self.init_residual(device)
+        if own_rows:
+            for view, saved in zip((out[n] for n in self.names),
+                                   self.layout.leaves(rows[rank])):
+                view.copy_(saved)
+            return out
+        for name, slot in self.slots.items():
+            out[name].zero_()
+            if rank == 0:
+                out[name][:slot.size].copy_(param_tree[name].reshape(-1))
+        return out
 
     # ---- collectives ----------------------------------------------------
 

@@ -106,6 +106,26 @@ def is_primary_process() -> bool:
     return rank() == 0
 
 
+def agree_any(flag: bool) -> bool:
+    """Whether ``flag`` is set on ANY rank: a MAX all-reduce of one int over
+    the default group (gloo or nccl), every rank calls it at the same
+    point; at one rank the flag itself (the JAX trainer's
+    ``_preempt_agreed`` / ``_force_abort_agreed``, :1934-1961)."""
+    if world_size() == 1:
+        return bool(flag)
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend() == "nccl" else torch.device("cpu"))
+    t = torch.tensor([int(bool(flag))], dtype=torch.int32, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
+def barrier() -> None:
+    """Every rank waits for the others (a no-op at one rank)."""
+    if world_size() > 1:
+        dist.barrier()
+
+
 def shutdown() -> None:
     """Leave the process group, if one is up."""
     if dist.is_initialized():

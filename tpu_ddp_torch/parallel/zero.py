@@ -36,6 +36,7 @@ Not ported: the mesh's specs and shardings (``state_specs``,
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional
 
 import torch
@@ -337,6 +338,17 @@ class Zero1Partition:
             value = getattr(opt_state, slot)
             setattr(state, slot, None if value is None else value.clone())
         return state
+
+    def deshard_state(self, state):
+        """``TrainState`` -> the same state with its optimizer state in the
+        layout a replicated run holds and checkpoints (a collective; the
+        params are whole on every rank already)."""
+        return dataclasses.replace(state, opt_state=self.deshard_opt_state(state.opt_state))
+
+    def shard_state(self, state):
+        """Original-layout ``TrainState`` (a restored checkpoint's) -> this
+        rank's training layout (no collective)."""
+        return dataclasses.replace(state, opt_state=self.shard_opt_state(state.opt_state))
 
     # ---- accounting -----------------------------------------------------
 

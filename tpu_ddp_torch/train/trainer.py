@@ -20,19 +20,46 @@ any) runs the partition's reduce-scatter, and evaluation under
 ``--ema-decay`` gathers the EMA shards first (``_eval_params``, the JAX
 ``_eval_source_state`` :2603-2640).
 
-Not ported yet: checkpointing and resume, telemetry, health, preemption,
-the strategies other than data parallelism (zero3, fsdp, tp, pp).
+Checkpoints (``--checkpoint-dir``; ``checkpoint/manager.py``) hold one
+layout whatever the run's (``_ckpt_state``, the JAX ``_ckpt_state``
+:2585-2601): ZeRO-1's optimizer state de-sharded, and the error-feedback
+residual in param layout from one rank, or every rank's row from several
+(whose sum is the param-layout residual). ``--resume`` restores
+through that layout and lays it out again for this run (:1006-1074), so
+``--zero1`` and replicated runs, runs with and without error feedback, and
+runs at other rank counts resume from each other's checkpoints; at the
+same rank count a resumed run is bitwise the uninterrupted one. Saves come
+on log epochs (``epoch % checkpoint_every_epochs in (0, 1)``), every
+``checkpoint_steps`` global steps, and once at the end (``wait=True``).
+``_ckpt_state`` is a collective: every rank calls it at the same steps.
+
+SIGTERM and SIGINT drain the run (:1820-1870, :2269-2285): one rank stops
+at the next batch boundary; several ranks agree at the epoch boundary
+(``parallel/runtime.py::agree_any``), so no rank is left in the next
+step's collectives. The final checkpoint is then saved and
+``metrics["preempted"]`` is set. A second signal skips the final
+checkpoint (the ranks agree on that too); a third gets the handler that was
+there before.
+
+Not ported yet: ``--pretrained-dir``, telemetry, health, the elastic
+supervisor, ``--steps-per-call``, and the strategies other than data
+parallelism (zero3, fsdp, tp, pp).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import logging
+import os
+import signal
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from tpu_ddp_torch.checkpoint.manager import Checkpointer
 from tpu_ddp_torch.data.cifar10 import load_cifar10, synthetic_cifar10
 from tpu_ddp_torch.data.loader import ShardedBatchLoader
 from tpu_ddp_torch.metrics.logging import MetricLogger
@@ -40,12 +67,25 @@ from tpu_ddp_torch.metrics.timing import Throughput
 from tpu_ddp_torch.models import MODEL_REGISTRY, NetResDeep
 from tpu_ddp_torch.parallel.compression import MODES as COMPRESS_MODES
 from tpu_ddp_torch.parallel.compression import GradCompression, GradCompressor
-from tpu_ddp_torch.parallel.runtime import rank, world_size
-from tpu_ddp_torch.runtime import resolve_device, set_float32_precision
+from tpu_ddp_torch.parallel.runtime import (
+    agree_any,
+    barrier,
+    is_primary_process,
+    rank,
+    world_size,
+)
 from tpu_ddp_torch.parallel.zero import DATA_AXIS, Zero1Partition
+from tpu_ddp_torch.runtime import resolve_device, set_float32_precision
 from tpu_ddp_torch.train.optim import decay_mask, make_optimizer
-from tpu_ddp_torch.train.state import create_train_state
+from tpu_ddp_torch.train.state import (
+    checkpoint_state,
+    copy_opt_state_,
+    create_train_state,
+    split_checkpoint,
+)
 from tpu_ddp_torch.train.steps import batch_to_device, make_eval_step, make_train_step
+
+log = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -81,8 +121,29 @@ class TrainConfig:
     seed: int = 0
     eval_each_epoch: bool = False
     log_every_epochs: int = 10
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every_epochs: int = 10     # save on log epochs, main.py:45
+    checkpoint_steps: int = 0             # >0: ALSO save every N global steps
+    keep_best: bool = False               # <checkpoint_dir>/best: best test acc
+    resume: bool = False
+    jsonl_path: Optional[str] = None
+    tensorboard_dir: Optional[str] = None
 
     def __post_init__(self):
+        if self.checkpoint_steps < 0:
+            raise ValueError(
+                f"checkpoint_steps must be >= 0, got {self.checkpoint_steps}"
+            )
+        if self.checkpoint_steps and not self.checkpoint_dir:
+            raise ValueError(
+                "--checkpoint-steps needs --checkpoint-dir: there is "
+                "nowhere to save the step-cadence checkpoints"
+            )
+        if self.keep_best and not (self.checkpoint_dir and self.eval_each_epoch):
+            raise ValueError(
+                "--keep-best needs --checkpoint-dir and --eval-each-epoch "
+                "(and a CE loss: 'best' is keyed on test accuracy)"
+            )
         if self.zero1 and self.optimizer == "lamb":
             raise ValueError(
                 "--zero1 does not compose with --optimizer lamb (the "
@@ -156,7 +217,7 @@ class Trainer:
         c = self.config = config
         self.device = resolve_device(c.device)
         set_float32_precision()
-        self.logger = MetricLogger()
+        self.logger = MetricLogger(c.jsonl_path, tensorboard_dir=c.tensorboard_dir)
         self.rank, self.world_size = rank(), world_size()
         train_data, test_data = load_dataset(c)
         self.train_loader = ShardedBatchLoader(
@@ -190,8 +251,34 @@ class Trainer:
         self.train_step = make_train_step(self.tx, compress=self.compress,
                                           zero1=self.zero1)
         self.eval_step = make_eval_step()
-        self.history = {"train_loss": [], "step_loss": []}
+        self.history = {"train_loss": [], "step_loss": [], "epoch": []}
         self.eval_batches = 0  # eval steps run so far (every evaluate call)
+        self._preempted = self._force_abort = False
+
+        self.checkpointer = None
+        self.best_checkpointer = None
+        self.resumed_step = None      # set iff --resume restored a checkpoint
+        self.save_ms = []             # [step, wait, ms] a save (``_save``)
+        self._best_acc = float("-inf")
+        if c.checkpoint_dir:
+            self.checkpointer = Checkpointer(c.checkpoint_dir)
+            if c.keep_best:
+                best_dir = os.path.join(c.checkpoint_dir, "best")
+                self.best_checkpointer = Checkpointer(best_dir, max_to_keep=1)
+                meta = os.path.join(best_dir, "metadata.json")
+                if c.resume and os.path.isfile(meta):
+                    # a torn metadata file resets the best to unset, with a
+                    # warning, instead of killing the resume
+                    try:
+                        with open(meta) as f:
+                            self._best_acc = json.load(f)["test_accuracy"]
+                    except (OSError, ValueError, KeyError) as e:
+                        log.warning("unreadable best metadata %s (%s); treating "
+                                    "best accuracy as unset", meta, e)
+            if c.resume and self.checkpointer.latest_step() is not None:
+                self._restore(self.checkpointer.restore())
+                self.resumed_step = int(self.state.step)
+                self.logger.log_text(f"resumed from step {self.resumed_step}")
 
     def _build_compressor(self) -> Optional[GradCompressor]:
         """The ``GradCompressor`` of this run's ``--grad-compress`` knobs over
@@ -210,57 +297,222 @@ class Trainer:
             self.state.params(), self.world_size,
         )
 
+    # ---- checkpoints -------------------------------------------------------
+
+    def _ckpt_state(self) -> dict:
+        """The checkpoint's flat dict (``train/state.py``) in the one layout
+        (module docstring). A collective under ``--zero1`` and with a
+        residual at several ranks: every rank calls it at the same steps."""
+        state = self.state
+        if self.zero1 is not None:
+            state = self.zero1.deshard_state(state)
+        residual = rows = None
+        if state.grad_residual is not None and self.world_size > 1:
+            rows = self.compress.residual_rows(state.grad_residual)
+        elif state.grad_residual is not None:
+            residual = self.compress.unflatten(state.grad_residual)
+        return checkpoint_state(int(state.step), state.model.state_dict(),
+                                state.opt_state, residual, rows)
+
+    def _save(self, step: int, wait: bool = False) -> None:
+        """``checkpointer.save`` of ``_ckpt_state()``. The training thread's
+        time in the two (the collectives, the wait for the save before, the
+        device-to-host copy with its synchronisation, and with ``wait`` the
+        commit) is appended to ``save_ms`` as ``[step, wait, ms]``."""
+        t0 = time.perf_counter()
+        self.checkpointer.save(step, self._ckpt_state(), wait=wait)
+        self.save_ms.append([step, wait, (time.perf_counter() - t0) * 1e3])
+
+    def _restore(self, flat: dict) -> None:
+        """Write a checkpoint's state INTO this run's tensors (the ring and
+        ZeRO-1's rows read views of them): the model in place, the
+        optimizer state through this rank's shards under ``--zero1``, and
+        the residual with the JAX trainer's tolerance (:1043-1074): none in
+        the checkpoint starts an error-feedback run from zero, one this run
+        does not use is discarded, each with a warning."""
+        ck = split_checkpoint(flat)
+        self.state.model.load_state_dict(ck["model"])
+        self.state.step.fill_(ck["step"])
+        restored = dataclasses.replace(self.state, opt_state=ck["opt_state"])
+        if self.zero1 is not None:
+            restored = self.zero1.shard_state(restored)
+        copy_opt_state_(self.state.opt_state, restored.opt_state)
+        residual, rows = ck["grad_residual"], ck["grad_residual_rows"]
+        if self.state.grad_residual is None:
+            if residual is not None or rows is not None:
+                log.warning("checkpoint carries a grad-compress residual this run "
+                            "does not use; discarding it")
+        elif residual is None and rows is None:
+            log.warning("checkpoint carries no grad_residual; starting the "
+                        "error-feedback residual from zero")
+        else:
+            self.compress.shard_residual(residual, self.state.grad_residual,
+                                         rows=rows)
+
+    def _save_best(self, acc: float) -> None:
+        """``--keep-best``: a new best test accuracy replaces the best
+        checkpoint (``save_as_only``: a resumed run can replay a new best at
+        an older step) and ``best/metadata.json``, written atomically."""
+        self._best_acc = acc
+        step = int(self.state.step)
+        self.best_checkpointer.save_as_only(step, self._ckpt_state())
+        if is_primary_process():
+            meta = os.path.join(self.config.checkpoint_dir, "best", "metadata.json")
+            tmp = f"{meta}.tmp.{os.getpid()}"
+            with open(tmp, "w") as f:
+                json.dump({"step": step, "test_accuracy": acc}, f)
+            os.replace(tmp, meta)
+
+    # ---- the loop ----------------------------------------------------------
+
     def to_device(self, batch: dict):
         return batch_to_device(batch, self.device)
 
     def run(self) -> dict:
+        """Train from ``state.step`` to ``epochs``, draining on SIGTERM and
+        SIGINT (module docstring). The handler only sets flags, and is
+        installed only on the main thread."""
+        self._preempted = self._force_abort = False
+        old_handlers = {}
+
+        def _on_signal(signum, frame):
+            del frame
+            # async-signal-safe: flags and os.write only; the loop logs
+            if self._preempted:
+                self._force_abort = True
+                os.write(2, b"\ntpu_ddp_torch: second signal - force-abort: "
+                            b"skipping the final checkpoint (send again to kill "
+                            b"outright)\n")
+                signal.signal(signum, old_handlers.get(signum, signal.SIG_DFL))
+                return
+            self._preempted = True
+            os.write(2, b"\ntpu_ddp_torch: signal received - draining, will "
+                        b"checkpoint and exit (send again to force-abort without "
+                        b"the final checkpoint)\n")
+
+        try:
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                old_handlers[sig] = signal.signal(sig, _on_signal)
+        except ValueError:  # not the main thread
+            old_handlers = {}
+        try:
+            return self._run_loop()
+        finally:
+            for sig, handler in old_handlers.items():
+                signal.signal(sig, handler)
+
+    def _run_loop(self) -> dict:
         c = self.config
         start = time.time()
-        # steady state: every epoch after the first (which pays the kernel
-        # build and cuDNN's first-call setup); a 1-epoch run times it all
+        spe = self.train_loader.steps_per_epoch
+        host_step = int(self.state.step)
+        first_epoch = host_step // spe + 1
+        # mid-epoch resume: skip the batches the cut run trained; the order
+        # is a function of (seed, epoch), so they are exactly its prefix
+        skip = host_step % spe
+        if skip:
+            self.logger.log_text(
+                f"mid-epoch resume: skipping the first {skip} already-trained "
+                f"steps of epoch {first_epoch}")
+        # steady state: every epoch after the first one this run trains
+        # (which pays the kernel build and cuDNN's first-call setup); a
+        # 1-epoch run times it all
         throughput = Throughput(self.device)
         timed_steps = 0
-        metrics = {}
-        for epoch in range(1, c.epochs + 1):
-            timed = epoch >= 2 or c.epochs == 1
+        metrics, out = {}, {}
+        for epoch in range(first_epoch, c.epochs + 1):
+            timed = epoch > first_epoch or c.epochs == first_epoch
             if timed:
                 throughput.start()
             self.train_loader.set_epoch(epoch)
             step_losses = []
-            for batch in self.train_loader.epoch_batches(shard=self.rank):
+            for batch in self.train_loader.epoch_batches(
+                    shard=self.rank, start=skip if epoch == first_epoch else 0):
+                # one rank drains at a batch boundary; several agree at the
+                # epoch's end first, or a rank would block in the next
+                # step's collectives
+                if self.world_size == 1 and self._preempted:
+                    break
                 self.state, metrics = self.train_step(self.state, self.to_device(batch))
                 step_losses.append(metrics["loss"])
+                host_step += 1
                 if timed:
                     throughput.add(int(batch["mask"].sum()))
                     timed_steps += 1
-            losses = torch.stack(step_losses).cpu().numpy()  # one sync an epoch
+                if (self.checkpointer is not None and c.checkpoint_steps
+                        and host_step % c.checkpoint_steps == 0):
+                    self._save(host_step)
+            # one sync an epoch
+            losses = (torch.stack(step_losses).cpu().numpy() if step_losses
+                      else np.zeros(0, np.float32))
             if timed:
                 throughput.stop()
-            mean_loss = float(np.mean(losses))
-            self.history["train_loss"].append(mean_loss)
             self.history["step_loss"].extend(float(x) for x in losses)
+            if agree_any(self._preempted):
+                self.logger.log_text(
+                    f"preempted at step {host_step} (epoch {epoch}): "
+                    + ("saving final checkpoint" if self.checkpointer else
+                       "no --checkpoint-dir, progress will NOT survive"))
+                out["preempted"] = True
+                break
+            mean_loss = float(np.mean(losses))
+            self.history["epoch"].append(epoch)
+            self.history["train_loss"].append(mean_loss)
             if epoch == 1 or epoch % c.log_every_epochs == 0:
                 self.logger.log_text(f"Epoch {epoch}, Training loss {mean_loss}")
-                self.logger.log(int(self.state.step), epoch=epoch,
-                                train_loss=mean_loss,
+                self.logger.log(host_step, epoch=epoch, train_loss=mean_loss,
                                 train_accuracy=float(metrics["accuracy"]))
+                if self.checkpointer and epoch % c.checkpoint_every_epochs in (0, 1):
+                    self._save(host_step)
             if c.eval_each_epoch:
                 acc, loss = self.evaluate()
-                self.logger.log(int(self.state.step), test_accuracy=acc,
-                                test_loss=loss)
+                self.logger.log(host_step, test_accuracy=acc, test_loss=loss)
+                self.history.setdefault("test_accuracy", []).append(acc)
+                if self.best_checkpointer and acc > self._best_acc:
+                    self._save_best(acc)
         total = time.time() - start
         self.logger.log_text(f"training time: {total:.3f} seconds")
+        self._final_checkpoint(host_step)
         ips = throughput.images_per_sec_per_chip
         per = "chip" if self.world_size == 1 else "rank"
         self.logger.log_text(
             f"steady-state images/sec/{per}: {ips:.1f} "
             f"({throughput.images} images in {throughput.seconds:.3f} s)")
-        return {"total_seconds": total, "steps": int(self.state.step),
-                "images_per_sec_per_chip": ips,
-                "steady_step_ms": throughput.seconds / max(timed_steps, 1) * 1e3,
-                "train_loss": self.history["train_loss"][-1]
-                if self.history["train_loss"] else float("nan"),
-                "step_losses": list(self.history["step_loss"])}
+        out.update({"total_seconds": total, "steps": int(self.state.step),
+                    "images_per_sec_per_chip": ips,
+                    "steady_step_ms": throughput.seconds / max(timed_steps, 1) * 1e3,
+                    "train_loss": self.history["train_loss"][-1]
+                    if self.history["train_loss"] else float("nan"),
+                    "step_losses": list(self.history["step_loss"])})
+        if self.checkpointer is not None:
+            out["checkpoint_save_ms"] = list(self.save_ms)
+        return out
+
+    def _final_checkpoint(self, step: int) -> None:
+        """The final save (``wait=True``: it raises when its attempts are
+        spent), unless every rank's second signal asked to skip it; then a
+        barrier, so no rank leaves the group before rank 0 has committed."""
+        if self.checkpointer is None:
+            return
+        if agree_any(self._force_abort):
+            prev = self.checkpointer.latest_step()
+            self.logger.log_text(
+                "force-abort: skipping the final checkpoint ("
+                + (f"latest checkpoint remains step {prev}" if prev is not None
+                   else "no checkpoint exists") + ")")
+            self.checkpointer.wait_until_finished()
+        else:
+            self._save(step, wait=True)
+        if self.best_checkpointer:
+            self.best_checkpointer.wait_until_finished()
+        barrier()
+
+    def close(self) -> None:
+        """Finish in-flight saves and close the metric sinks."""
+        for ck in (self.checkpointer, self.best_checkpointer):
+            if ck is not None:
+                ck.close()
+        self.logger.close()
 
     def _eval_params(self):
         """The weights evaluation reads in place of the model's: the EMA
