@@ -13,18 +13,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (``tpu_ddp_torch/ops/csrc``, one ``nvcc`` per source, all in parallel).
 3. Kernel vs plain: K1 (``fused_update``) against its plain PyTorch version
    on the card, for SGD, SGD+momentum+decay+clip+EMA, AdamW+decay+clip+EMA
-   and the ViT path's AdamW (no decay, clip or EMA), each under a constant
-   and a cosine schedule, at NetResDeep's nine leaf shapes, at ViT-S/4's 79
-   leaf shapes, at ragged sizes (1, 127, 1,000,003, and 1,000,003 at an
-   unaligned address), at one large leaf (2**24 elements) and at a mixed
-   group (aligned and unaligned leaves, decayed and not, leaves spanning
-   several blocks' chunks). Each group goes through one multi-tensor
+   and the ViT and LM paths' AdamW (no decay, clip or EMA), each under a
+   constant and a cosine schedule, at NetResDeep's nine leaf shapes, at
+   ViT-S/4's 79 leaf shapes, at the LM-32k path's 54, at ragged sizes (1,
+   127, 1,000,003, and 1,000,003 at an unaligned address), at one large
+   leaf (2**24 elements) and at a mixed group (aligned and unaligned
+   leaves, decayed and not, leaves spanning several blocks' chunks). Each group goes through one multi-tensor
    launch. Expected: bitwise equal, every leaf, and exactly one launch a
    group.
 3b. K1 with ZeRO-1's pad mask against its plain version
    (``update_math_masked``), bitwise, one launch a group: every recipe of
    phase 3 under both schedules, over NetResDeep's and ViT-S/4's shards at
-   every rank of 2, 3, 4 and 8 ranks, and over the mask's edge cases (the
+   every rank of 2, 3, 4 and 8 ranks, LM-default's (phase 18c) at both
+   ranks of two, and over the mask's edge cases (the
    live count inside a float4, in a shard's second chunk, at a chunk's
    end, zero, and unaligned shards on the scalar path). Prints the rows
    with a live mask, which must be more than 0.
@@ -56,7 +57,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (8, 196, 12, 64), D=48, a prime T=67, causal at (4, 512, 4, 64), causal
    with a key mask that leaves rows with no visible key (their output and dq
    must be exactly 0, and the masked keys' dk and dv too), the long regime
-   (4, 2048, 8, 128), and (3, 77, 2, 37): D not a multiple of 4 (4-byte
+   (4, 2048, 8, 128), the LM-32k path's causal (4, 4096, 8, 64) as views of
+   one qkv product, and (3, 77, 2, 37): D not a multiple of 4 (4-byte
    copies) and T not a multiple of any tile. Tolerances
    (``|got - want| <= atol + rtol * |want|``) are those of
    ``tests/test_ops.py`` everywhere: forward and lse ``atol=2e-5``,
@@ -95,8 +97,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     form, every leaf of a ring hop in one launch (``segment_quant`` with and
     without the error, ``segment_dequant`` accumulating, into the shard row,
     and over the n gathered rows) against ``segment_quant_plain`` /
-    ``segment_dequant_plain`` at every chunk: NetResDeep's tables at those
-    rank counts, ViT-S/4's 79 leaves and ViT-B/16's 151 (past K1's table of
+    ``segment_dequant_plain`` at every chunk: NetResDeep's and LM-default's
+    (78 leaves, phase 18c) tables at those rank counts, ViT-S/4's 79 leaves and ViT-B/16's 151 (past K1's table of
     128) at two ranks, NetResDeep at 3 ranks (and N) with NaN, +Inf, -Inf
     and all-zero blocks, and six ragged leaves at four ranks with block 7
     (an odd number of message bytes: the gathered rows start unaligned),
@@ -170,10 +172,39 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     verification and restore, and the sizes, of NetResDeep's state and of
     ViT-B/16 at 224 with AdamW state, each after one step on the card.
 
-The NetResDeep phases before 17 keep their sizes; the whole run takes six
-to eight minutes on the card, the build included. ``python3 chip_smoke.py
+18. The causal LM on the card (``tpu_ddp_torch/models/lm.py``,
+    ``train/lm_steps.py``). (a) LM-32k widths (vocab 32,000, hidden 512,
+    depth 4, 8 heads of 64; ``benchmarks/aot_v5e.py:543-547``), B x T = 4 x
+    4,096 float32, AdamW lr 1e-3 ``--kernels``, 30 steps with ``use_flash``
+    and 30 with the plain causal attention from the same seeded weights on
+    the same batches of ``tests/test_lm.py``'s permutation task at vocab
+    32,000: launches exact (K1 30; K4 = K5 = K6 = 4 x 30 with flash, none
+    without), the first 5 losses within ``rtol=1e-5``, every loss finite and
+    the last 10 below the first 10; each run's steady ms a step (host clock,
+    steps 10-30), tokens/sec, ``max_memory_allocated`` and, under
+    ``torch.profiler`` over 5 more steps, K4-K6's device ms a step and share
+    of busy, the idle share and kernels a step. (b) ``greedy_generate`` on
+    the trained flash model from a (4, 4,088) prompt, 8 new tokens: K4
+    exactly 4 x 8 launches, and the tokens equal the plain-attention
+    decode's at every position whose plain top-2 logit margin is 1e-3 or
+    more (a row is compared until it diverges under the margin). (c)
+    LM-default (vocab 256, hidden 192, depth 6, 3 heads) at T = 256, 8 rows
+    a rank, ``--kernels`` with ZeRO-1 and the int8 ring with error
+    feedback, on two ranks sharing the card over gloo through the launcher,
+    20 steps: replicas bitwise equal, launches a rank exact (K1 20, K2 = K3
+    = 20, K4-K6 6 x 20), the ring's wire calls exact, losses finite and
+    falling. (d) Timing: K1 at LM-32k's 54 leaves, and K4, K5 and K6 at
+    (4, 4096, 8, 64) causal, each against its plain version and
+    ``scaled_dot_product_attention(..., is_causal=True)``, beside bounds
+    that count the causal call's T(T+1)/2 visible pairs a head, with (a)'s
+    flash launches; then each kernel's device time causal against full at
+    that shape, in turns.
+
+The NetResDeep phases before 17 keep their sizes; the whole run takes eight
+to ten minutes on the card, the build included. ``python3 chip_smoke.py
 --nccl N``, on a machine with N cards, runs phases 10 (at N ranks' chunks),
-12, 14 and 17's two-rank part alone at N ranks, one card each, over NCCL. The line before the last is one JSON object
+12, 14, 17's two-rank part and 18c alone at N ranks, one card each, over
+NCCL. The line before the last is one JSON object
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -210,7 +241,8 @@ VARIANTS = {
                                 max_norm=1.0, ema=0.99),
     "adamw_wd_clip_ema": dict(kind="adamw", momentum=0.0, wd=0.05,
                               max_norm=1.0, ema=0.99),
-    # the ViT path's recipe (phase 8): --optimizer adamw and nothing else
+    # the ViT and LM paths' recipe (phases 8 and 18): --optimizer adamw and
+    # nothing else
     "adamw": dict(kind="adamw", momentum=0.0, wd=0.0, max_norm=0.0, ema=0.0),
 }
 VIT_RECIPE = "adamw"
@@ -233,6 +265,8 @@ FLASH_CASES = {
     "causal_t512": (4, 512, 4, 64, True, None, False),
     "causal_dead_rows": (4, 256, 4, 64, True, "dead", False),
     "t2048_d128": (4, 2048, 8, 128, False, None, False),
+    # the LM-32k path's attention (phase 18): causal, q/k/v views of one qkv
+    "lm_causal": (4, 4096, 8, 64, True, None, True),
     # D not a multiple of 4 (4-byte copies, zero-filled columns) and T not a
     # multiple of any tile
     "d37_t77": (3, 77, 2, 37, False, None, False),
@@ -455,6 +489,7 @@ def phase_kernel_vs_plain():
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     vit_shapes = vit_leaf_shapes()
+    lm_shapes = lm_leaf_shapes(LM_32K, LM_SEQ, LM_LEAVES)
     results = {}
     print("phase 3: K1 vs plain version, one launch a group (max |diff|, max ulp, "
           "launches)", flush=True)
@@ -465,6 +500,8 @@ def phase_kernel_vs_plain():
                                for s in NETRESDEEP_LEAVES],
                 "vit_s4": [Leaf(s, leaf_config(variant, schedule, len(s) >= 2), gen)
                            for s in vit_shapes],
+                "lm_32k": [Leaf(s, leaf_config(variant, schedule, len(s) >= 2), gen)
+                           for s in lm_shapes],
                 "ragged": [Leaf(s, leaf_config(variant, schedule, True), gen)
                            for s in RAGGED],
                 "unaligned": [Leaf((1_000_003,), leaf_config(variant, schedule, True),
@@ -526,6 +563,7 @@ def phase_masked_vs_plain():
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     models = {"netresdeep": NETRESDEEP_LEAVES, "vit_s4": vit_leaf_shapes()}
+    lm_shapes = lm_leaf_shapes({}, LM_RANK_SEQ, LM_DEFAULT_LEAVES)
     results, live_mask_rows, groups = {}, 0, 0
     print("phase 3b: K1 with the ZeRO-1 pad mask vs plain version, one launch a "
           "group (max |diff|, max ulp)", flush=True)
@@ -535,6 +573,9 @@ def phase_masked_vs_plain():
                      [(s, n, r, 0, len(s) >= 2) for s in shapes]
                      for model, shapes in models.items()
                      for n in ZERO1_SHARDS for r in range(n)}
+            cases.update({f"lm_default {LM_RANKS} ranks rank {r}":
+                          [(s, LM_RANKS, r, 0, len(s) >= 2) for s in lm_shapes]
+                          for r in range(LM_RANKS)})
             cases["edges"] = [((size,), n, r, off, True)
                               for size, n, r, off in ZERO1_EDGES]
             worst = (0.0, 0)
@@ -897,13 +938,15 @@ def phase_vit_main_path():
     return runs
 
 
-def attention_work(kind, B, T, H, D):
+def attention_work(kind, B, T, H, D, causal=False):
     """(bytes, product operations, other float32 operations) of one
-    non-causal, unmasked call: each input read once, each output written
-    once; two operations per multiply-add of its products (forward: S and
-    P V; dq: S, dP and dS K; dk/dv: S, dP, P^T dO and dS^T Q), and the
-    per-score softmax work."""
-    n, rows, pairs = B * T * H * D, B * H * T, B * H * T * T
+    unmasked call: each input read once, each output written once; two
+    operations per multiply-add of its products (forward: S and P V; dq: S,
+    dP and dS K; dk/dv: S, dP, P^T dO and dS^T Q), and the per-score softmax
+    work, over the (query, key) pairs the call needs: all T^2 of a head, or
+    under ``causal`` the T(T+1)/2 visible ones."""
+    n, rows = B * T * H * D, B * H * T
+    pairs = B * H * T * (T + 1) // 2 if causal else B * H * T * T
     if kind == "fwd":        # read q, k, v; write out, lse
         return 4 * (4 * n + rows), 4 * pairs * D, 5 * pairs
     if kind == "dq":         # read q, k, v, dO, lse, di; write dq
@@ -912,103 +955,166 @@ def attention_work(kind, B, T, H, D):
     return 4 * (6 * n + 2 * rows), 8 * pairs * D, 6 * pairs
 
 
-def attention_bound(kind, B, T, H, D):
+def attention_bound(kind, B, T, H, D, causal=False):
     """(bound_ms, bound_by) of one call: its bytes over the HBM rate
     against all its float32 operations over the float32 rate."""
-    nbytes, products, other = attention_work(kind, B, T, H, D)
+    nbytes, products, other = attention_work(kind, B, T, H, D, causal)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = (products + other) / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def attention_bound_tc(kind, B, T, H, D):
+def attention_bound_tc(kind, B, T, H, D, causal=False):
     """(bound_ms, bound_by) of one call of K4, K5 or K6 in 3xTF32: its bytes
     against its products as three TF32 products each over the tensor
     cores' rate."""
-    nbytes, products, _ = attention_work(kind, B, T, H, D)
+    nbytes, products, _ = attention_work(kind, B, T, H, D, causal)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 3 * products / TF32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_flash_timing(results, counts):
+def flash_timing_rows(case, iters, errors, counts):
+    """K4, K5 and K6 at ``FLASH_CASES[case]``, each in turns with its plain
+    version and beside ``scaled_dot_product_attention`` (forward for K4, its
+    backward for K5 and K6) and both bounds: one ``kernels`` row each, with
+    phase 7's errors at the case and the path's launch ``counts``."""
     import torch
     import torch.nn.functional as F
 
     from tpu_ddp_torch import ops
     from tpu_ddp_torch.ops import flash_attention as fa
 
+    q, k, v, do, _, causal = flash_inputs(case, seed=1)
+    B, T, H, D = q.shape
+    out, lse = fa.forward_plain(q, k, v, causal=causal)
+    di = fa.row_dot(do, out)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*(x.transpose(1, 2) for x in leaves),
+                                              is_causal=causal)
+    sdpa_do = do.transpose(1, 2)
+    library = {
+        "fwd": lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=causal),
+        "bwd": lambda: torch.autograd.grad(sdpa_out, leaves, sdpa_do,
+                                           retain_graph=True),
+    }
+    lib_ms = {key: time_ms(fn, iters) for key, fn in library.items()}
+    lib_dev = {key: device_ms(fn, iters) for key, fn in library.items()}
+    timed = {
+        "flash_attention_fwd": (
+            "fwd", lambda: fa.flash_forward(q, k, v, causal=causal),
+            lambda: fa.forward_plain(q, k, v, causal=causal), ("out", "lse")),
+        "flash_attention_dq": (
+            "dq", lambda: fa.flash_dq(q, k, v, do, lse, di, causal=causal),
+            lambda: fa.dq_plain(q, k, v, do, lse, di, causal=causal), ("dq",)),
+        "flash_attention_dkv": (
+            "dkv", lambda: fa.flash_dkv(q, k, v, do, lse, di, causal=causal),
+            lambda: fa.dkv_plain(q, k, v, do, lse, di, causal=causal), ("dk", "dv")),
+    }
+    rows = []
+    for name, (kind, kernel, plain, outputs) in timed.items():
+        entry = ops.KERNELS[name]
+        k1 = time_ms(kernel, iters)
+        p1 = time_ms(plain, iters)
+        p2 = time_ms(plain, iters)
+        k2 = time_ms(kernel, iters)
+        b_ms, b_by = attention_bound(kind, B, T, H, D, causal)
+        lib_key = "fwd" if kind == "fwd" else "bwd"
+        l_ms = lib_ms[lib_key]
+        dev = {"device_ms": device_ms(kernel, iters),
+               "plain_device_ms": device_ms(plain, iters),
+               "library_device_ms": lib_dev[lib_key]}
+        tc_ms, tc_by = attention_bound_tc(kind, B, T, H, D, causal)
+        dev.update(bound_tc_ms=tc_ms, bound_tc_by=tc_by,
+                   launch=fa.forward_launch_info(D) if kind == "fwd"
+                   else fa.backward_launch_info(kind, D))
+        print(f"  {name + '[' + case + ']':36s} 3xTF32 bound {tc_ms:.5f} ms "
+              f"({tc_by}); launch {dev['launch']}", flush=True)
+        rows.append({
+            "name": f"{name}[{case}]", "route": entry["route"],
+            "source": entry["source"], "replaces": entry["replaces"],
+            "launches": counts[name],
+            "max_abs_err": max(errors[case][o] for o in outputs),
+            "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
+            "shapes": f"(B, T, H, D) = {(B, T, H, D)}, causal={causal}",
+            "library": "scaled_dot_product_attention "
+                       + ("forward" if kind == "fwd" else "backward (dq, dk, dv)")
+                       + (" is_causal=True" if causal else ""),
+            **dev,
+        })
+        print(f"  {name + '[' + case + ']':36s} kernel {(k1 + k2) / 2:.5f} ms  "
+              f"plain {(p1 + p2) / 2:.5f} ms  library {l_ms:.5f} ms  "
+              f"bound {b_ms:.5f} ms ({b_by}); device only: kernel "
+              f"{dev['device_ms']}, plain {dev['plain_device_ms']}, "
+              f"library {dev['library_device_ms']} ms", flush=True)
+    k5, k6 = rows[-2], rows[-1]
+    dev_sum = (None if k5["device_ms"] is None or k6["device_ms"] is None
+               else k5["device_ms"] + k6["device_ms"])
+    print(f"  K5 + K6 [{case}]: events {k5['ms'] + k6['ms']:.5f} ms, device {dev_sum} ms; "
+          f"SDPA backward (dq, dk, dv): events {lib_ms['bwd']:.5f} ms, device "
+          f"{lib_dev['bwd']} ms", flush=True)
+    return rows
+
+
+def phase_flash_timing(results, counts):
     print("phase 9: timing on the ViT path (CUDA events; ms per call)", flush=True)
     rows = [k1_row("fused_update[vit_s4]", VIT_RECIPE, vit_leaf_shapes(), "vit_s4",
                    100, counts["fused_update"], results["k1"],
                    f"vit_s4 {VIT_LEAVES} leaves (2,693,194)")]
     for case, iters in FLASH_TIMED.items():
-        q, k, v, do, _, _ = flash_inputs(case, seed=1)
-        B, T, H, D = q.shape
-        out, lse = fa.forward_plain(q, k, v)
+        rows += flash_timing_rows(case, iters, results["flash"], counts)
+    return rows
+
+
+def causal_against_full(case, iters):
+    """K4, K5 and K6 at ``FLASH_CASES[case]``'s shape with and without
+    ``causal``, ms by CUDA events in turns (causal, full, full, causal; the
+    profiler drops events late in the run, and at a few ms a call the
+    events measure the device). A causal call needs (T + 1) / 2T of the
+    full call's (query, key) pairs, so a ratio near that says the skipped
+    tiles cost nothing and the diagonal's partly visible tiles and the last
+    blocks leave no tail."""
+    from tpu_ddp_torch.ops import flash_attention as fa
+
+    q, k, v, do, _, _ = flash_inputs(case, seed=1)
+    T = q.shape[1]
+    calls = {}
+    for causal in (True, False):
+        out, lse = fa.forward_plain(q, k, v, causal=causal)
         di = fa.row_dot(do, out)
-        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-        sdpa_out = F.scaled_dot_product_attention(*(x.transpose(1, 2) for x in leaves))
-        sdpa_do = do.transpose(1, 2)
-        library = {
-            "fwd": lambda: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
-            "bwd": lambda: torch.autograd.grad(sdpa_out, leaves, sdpa_do,
-                                               retain_graph=True),
+        calls[causal] = {
+            "flash_attention_fwd": lambda c=causal: fa.flash_forward(q, k, v, causal=c),
+            "flash_attention_dq": lambda c=causal, lse=lse, di=di: fa.flash_dq(
+                q, k, v, do, lse, di, causal=c),
+            "flash_attention_dkv": lambda c=causal, lse=lse, di=di: fa.flash_dkv(
+                q, k, v, do, lse, di, causal=c),
         }
-        lib_ms = {key: time_ms(fn, iters) for key, fn in library.items()}
-        lib_dev = {key: device_ms(fn, iters) for key, fn in library.items()}
-        timed = {
-            "flash_attention_fwd": ("fwd", lambda: fa.flash_forward(q, k, v),
-                                    lambda: fa.forward_plain(q, k, v), ("out", "lse")),
-            "flash_attention_dq": ("dq", lambda: fa.flash_dq(q, k, v, do, lse, di),
-                                   lambda: fa.dq_plain(q, k, v, do, lse, di), ("dq",)),
-            "flash_attention_dkv": ("dkv", lambda: fa.flash_dkv(q, k, v, do, lse, di),
-                                    lambda: fa.dkv_plain(q, k, v, do, lse, di),
-                                    ("dk", "dv")),
-        }
-        for name, (kind, kernel, plain, outputs) in timed.items():
-            entry = ops.KERNELS[name]
-            k1 = time_ms(kernel, iters)
-            p1 = time_ms(plain, iters)
-            p2 = time_ms(plain, iters)
-            k2 = time_ms(kernel, iters)
-            b_ms, b_by = attention_bound(kind, B, T, H, D)
-            lib_key = "fwd" if kind == "fwd" else "bwd"
-            l_ms = lib_ms[lib_key]
-            dev = {"device_ms": device_ms(kernel, iters),
-                   "plain_device_ms": device_ms(plain, iters),
-                   "library_device_ms": lib_dev[lib_key]}
-            tc_ms, tc_by = attention_bound_tc(kind, B, T, H, D)
-            dev.update(bound_tc_ms=tc_ms, bound_tc_by=tc_by,
-                       launch=fa.forward_launch_info(D) if kind == "fwd"
-                       else fa.backward_launch_info(kind, D))
-            print(f"  {name + '[' + case + ']':36s} 3xTF32 bound {tc_ms:.5f} ms "
-                  f"({tc_by}); launch {dev['launch']}", flush=True)
-            rows.append({
-                "name": f"{name}[{case}]", "route": entry["route"],
-                "source": entry["source"], "replaces": entry["replaces"],
-                "launches": counts[name],
-                "max_abs_err": max(results["flash"][case][o] for o in outputs),
-                "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
-                "shapes": f"(B, T, H, D) = {(B, T, H, D)}",
-                "library": "scaled_dot_product_attention "
-                           + ("forward" if kind == "fwd" else "backward (dq, dk, dv)"),
-                **dev,
-            })
-            print(f"  {name + '[' + case + ']':36s} kernel {(k1 + k2) / 2:.5f} ms  "
-                  f"plain {(p1 + p2) / 2:.5f} ms  library {l_ms:.5f} ms  "
-                  f"bound {b_ms:.5f} ms ({b_by}); device only: kernel "
-                  f"{dev['device_ms']}, plain {dev['plain_device_ms']}, "
-                  f"library {dev['library_device_ms']} ms", flush=True)
-        k5, k6 = rows[-2], rows[-1]
-        dev_sum = (None if k5["device_ms"] is None or k6["device_ms"] is None
-                   else k5["device_ms"] + k6["device_ms"])
-        print(f"  K5 + K6 [{case}]: events {k5['ms'] + k6['ms']:.5f} ms, device {dev_sum} ms; "
-              f"SDPA backward (dq, dk, dv): events {lib_ms['bwd']:.5f} ms, device "
-              f"{lib_dev['bwd']} ms", flush=True)
-        del q, k, v, do, out, lse, di, leaves, sdpa_out
+    ratios = {}
+    for name in calls[True]:
+        c1 = time_ms(calls[True][name], iters)
+        f1 = time_ms(calls[False][name], iters)
+        f2 = time_ms(calls[False][name], iters)
+        c2 = time_ms(calls[True][name], iters)
+        ratios[name] = (c1 + c2) / (f1 + f2)
+        print(f"  {name + '[' + case + ']':36s} ms causal {c1:.5f}, {c2:.5f}; "
+              f"full {f1:.5f}, {f2:.5f}; causal / full {ratios[name]:.4f} (the pairs' "
+              f"ratio {(T + 1) / (2 * T):.4f})", flush=True)
+    return ratios
+
+
+def phase_lm_timing(k1_results, flash_results, counts):
+    """Phase 18 (d): K1 at LM-32k's 54 leaves under the LM's recipe, and
+    K4-K6 at its causal (4, 4,096, 8, 64), with phase 18 (a)'s flash run's
+    launches; then K4-K6 causal against full at that shape."""
+    print("phase 18d: timing on the LM path (CUDA events; ms per call)", flush=True)
+    rows = [k1_row("fused_update[lm_32k]", VIT_RECIPE,
+                   lm_leaf_shapes(LM_32K, LM_SEQ, LM_LEAVES), "lm_32k", 20,
+                   counts["fused_update"], k1_results,
+                   f"lm_32k {LM_LEAVES} leaves (47,507,712)")]
+    rows += flash_timing_rows("lm_causal", LM_TIMED_ITERS, flash_results, counts)
+    causal_against_full("lm_causal", LM_TIMED_ITERS)
     return rows
 
 
@@ -1230,6 +1336,9 @@ def phase_quant_vs_plain(rank_counts):
 
     tables = [(f"netresdeep's 9 leaves at {r} ranks", NETRESDEEP_LEAVES, r, 1.0)
               for r in rank_counts]
+    tables += [(f"lm_default's {LM_DEFAULT_LEAVES} leaves at {r} ranks",
+                lm_leaf_shapes({}, LM_RANK_SEQ, LM_DEFAULT_LEAVES), r, 0.02)
+               for r in rank_counts]
     tables += [(f"vit_s4's {VIT_LEAVES} leaves at 2 ranks", vit_leaf_shapes(), 2, 0.02),
                (f"vit_b16's {VIT_B16_LEAVES} leaves at 2 ranks", vit_b16_leaf_shapes(), 2,
                 0.02)]
@@ -2081,11 +2190,334 @@ def phase_quant_timing(quant_err, runs):
     return rows
 
 
+# ---- phase 18: the causal LM on the card (K4-K6 causal, K1; K2/K3 on ranks) ----
+
+#: LM-32k widths: the lm_causal_32k program of ``benchmarks/aot_v5e.py:543-547``
+#: (32,768 tokens sequence-sharded 8 ways, 4,096 a device) on one card, data
+#: parallel: B x T = 4 x 4,096 tokens a step, float32, AdamW lr 1e-3 through K1
+LM_32K = dict(vocab_size=32_000, hidden_dim=512, depth=4, num_heads=8, mlp_ratio=4)
+LM_BATCH, LM_SEQ, LM_LEAVES = 4, 4096, 54
+LM_STEPS, LM_STEADY_FROM, LM_PROFILE_STEPS = 30, 10, 5
+#: part (b): 8 new tokens after a 4,088-token prompt fill the position table;
+#: a position counts when the plain logits' top two differ by this much
+LM_PROMPT, LM_NEW, DECODE_MARGIN = 4088, 8, 1e-3
+#: part (c): the module's default widths (vocab 256, hidden 192, depth 6, 3
+#: heads) at T = 256, 8 rows a rank, ZeRO-1 with the int8 ring
+LM_RANKS, LM_RANK_ROWS, LM_RANK_SEQ, LM_RANK_STEPS = 2, 8, 256, 20
+LM_DEFAULT_DEPTH, LM_DEFAULT_LEAVES = 6, 78
+LM_TIMED_ITERS = 10
+LM_TOP_KERNELS = 10
+
+
+def lm_leaf_shapes(cfg, seq_len, leaves):
+    """The parameter shapes of ``CausalTransformerLM(**cfg, seq_len=seq_len)``."""
+    import torch
+
+    from tpu_ddp_torch.models import CausalTransformerLM
+
+    with torch.device("meta"):
+        model = CausalTransformerLM(**cfg, seq_len=seq_len)
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    if len(shapes) != leaves:
+        fail(f"the LM has {len(shapes)} parameter leaves, expected {leaves}")
+    return shapes
+
+
+def lm_tokens(n_batches, rows, seq_len, vocab, seed=0):
+    """``n_batches`` (rows, seq_len) int64 batches of the permutation task of
+    ``tests/test_lm.py:64-71`` at ``vocab``: each token is a fixed
+    permutation of the one before it, from a random start a row."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(vocab)
+    seq = np.empty((n_batches * rows, seq_len), np.int64)
+    seq[:, 0] = rng.integers(0, vocab, n_batches * rows)
+    for t in range(1, seq_len):
+        seq[:, t] = perm[seq[:, t - 1]]
+    return seq.reshape(n_batches, rows, seq_len)
+
+
+def lm_train_run(use_flash, tokens):
+    """Part (a), one run: LM-32k from the seeded weights, ``LM_STEPS``
+    steps on ``tokens`` with the launch counts zeroed just before and read
+    just after, then ``LM_PROFILE_STEPS`` more under ``torch.profiler``.
+    Returns (model, run's numbers)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_ddp_torch import ops
+    from tpu_ddp_torch.models import CausalTransformerLM
+    from tpu_ddp_torch.tools.profile_step import FLASH_KERNELS, _device_us
+    from tpu_ddp_torch.train import create_lm_train_state, make_lm_train_step
+    from tpu_ddp_torch.train.optim import make_optimizer
+
+    model = CausalTransformerLM(**LM_32K, seq_len=LM_SEQ, use_flash=use_flash,
+                                generator=torch.Generator().manual_seed(0))
+    tx = make_optimizer(lr=1e-3, optimizer="adamw", kernels=True)
+    state = create_lm_train_state(model, tx, torch.device("cuda"))
+    step = make_lm_train_step(tx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    ops.reset_launch_counts()
+    for i in range(LM_STEPS):
+        if i == LM_STEADY_FROM:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, metrics = step(state, {"tokens": tokens[i]})
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    steady_s = (time.perf_counter() - t0) / (LM_STEPS - LM_STEADY_FROM)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for i in range(LM_PROFILE_STEPS):
+            state, _ = step(state, {"tokens": tokens[i]})
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) / LM_PROFILE_STEPS * 1e3
+    busy_us, kernels, rows = _device_us(prof)
+    flash_ms = sum(us for us, _, k in rows if any(f in k for f in FLASH_KERNELS)
+                   ) / LM_PROFILE_STEPS * 1e-3
+    busy_ms = busy_us / LM_PROFILE_STEPS * 1e-3
+    return state.model, {
+        "losses": [float(x) for x in losses], "launches": counts,
+        "steady_step_ms": steady_s * 1e3,
+        "tokens_per_sec": LM_BATCH * LM_SEQ / steady_s,
+        "max_memory_allocated": peak,
+        "profiled_step_ms": wall_ms, "device_busy_ms_per_step": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
+        "kernels_per_step": kernels / LM_PROFILE_STEPS,
+        "flash_device_ms_per_step": flash_ms,
+        "flash_share_of_busy": flash_ms / busy_ms if busy_ms else None,
+        "top": [(us / LM_PROFILE_STEPS * 1e-3, count / LM_PROFILE_STEPS, key)
+                for us, count, key in sorted(rows, reverse=True)[:LM_TOP_KERNELS]],
+    }
+
+
+def phase_lm_train(tokens, smi):
+    """Phase 18 (a): LM-32k widths, ``LM_STEPS`` steps with ``use_flash``
+    (K4-K6 causal) and with the plain causal attention, from the same
+    seeded weights on the same batches. Returns (the flash model, runs)."""
+    runs = {}
+    for attention in ("flash", "full"):
+        model, run = lm_train_run(attention == "flash", tokens)
+        runs[attention] = run
+        losses, counts = run["losses"], run["launches"]
+        flash = attention == "flash"
+        want = {name: 0 for name in counts}
+        want["fused_update"] = LM_STEPS
+        for name in ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv"):
+            want[name] = LM_32K["depth"] * LM_STEPS if flash else 0
+        first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
+        print(f"phase 18a: LM-32k {attention} attention, {LM_STEPS} steps of "
+              f"(B, T) = ({LM_BATCH}, {LM_SEQ}), AdamW lr 1e-3 --kernels ({smi}): "
+              f"launches {counts}; mean loss of the first 10 steps {first:.5f}, "
+              f"last 10 {last:.5f}; steady {run['steady_step_ms']:.3f} ms a step "
+              f"(steps {LM_STEADY_FROM}-{LM_STEPS}), {run['tokens_per_sec']:.1f} "
+              f"tokens/sec, max_memory_allocated {run['max_memory_allocated']} B",
+              flush=True)
+        print(f"  torch.profiler over {LM_PROFILE_STEPS} steps: step "
+              f"{run['profiled_step_ms']:.3f} ms, device busy "
+              f"{run['device_busy_ms_per_step']:.3f} ms, idle share "
+              f"{run['device_idle_share']}, {run['kernels_per_step']:.1f} kernels "
+              f"a step; K4-K6 {run['flash_device_ms_per_step']:.3f} device ms a step "
+              f"({run['flash_share_of_busy']} of busy); the kernels that take most "
+              "device time (ms a step, calls a step):", flush=True)
+        for ms, calls, key in run["top"]:
+            print(f"    {ms:9.3f} ms {calls:6.1f}x  {key[:100]}", flush=True)
+        if counts != want:
+            fail(f"LM {attention}: launches {counts}, expected {want}")
+        if not all(math.isfinite(x) for x in losses) or not last < first:
+            fail(f"LM {attention}: losses are not finite and falling")
+        if flash:
+            flash_model = model
+        del model
+    got = runs["full"]["losses"][:PLAIN_STEPS_RTOL]
+    want = runs["flash"]["losses"][:PLAIN_STEPS_RTOL]
+    rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    print(f"  full vs flash, relative loss difference per step: "
+          f"{' '.join(f'{r:.2g}' for r in rel)} (limit {FULL_STEPS_RTOL})", flush=True)
+    if not max(rel) <= FULL_STEPS_RTOL:
+        fail("the LM's full and flash losses disagree over the first steps")
+    return flash_model, runs
+
+
+def phase_lm_decode(model, tokens):
+    """Phase 18 (b): ``greedy_generate`` from a (B, LM_PROMPT) prompt, with
+    K4 and with the plain causal attention. Where the two decodes have seen
+    the same tokens, they must pick the same one at every position where
+    the plain logits' top two differ by ``DECODE_MARGIN`` or more; a
+    position under the margin may differ, and that row's later positions
+    are then not comparable."""
+    import torch
+
+    from tpu_ddp_torch import ops
+    from tpu_ddp_torch.models import greedy_generate
+
+    prompt = tokens[:, :LM_PROMPT]
+    out, counts, ms = {}, {}, {}
+    for attention in ("flash", "full"):
+        model.use_flash = attention == "flash"
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out[attention] = greedy_generate(model, prompt, LM_NEW)
+        torch.cuda.synchronize()
+        ms[attention] = (time.perf_counter() - t0) * 1e3 / LM_NEW
+        counts[attention] = ops.launch_counts()
+    with torch.no_grad():        # what each plain decode step saw, by causality
+        logits = model(out["full"])[:, LM_PROMPT - 1:-1]
+    model.use_flash = True
+    top2 = logits.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).cpu()
+    got, want = out["flash"][:, LM_PROMPT:].cpu(), out["full"][:, LM_PROMPT:].cpu()
+    checked = under = unchecked = 0
+    bad = []
+    for b in range(got.shape[0]):
+        for j in range(LM_NEW):
+            if margin[b, j] < DECODE_MARGIN:
+                under += 1
+                if got[b, j] != want[b, j]:
+                    unchecked += LM_NEW - j - 1
+                    break
+                continue
+            checked += 1
+            if got[b, j] != want[b, j]:
+                bad.append((b, j))
+                break
+    task = float((got == tokens[:, LM_PROMPT:].cpu()).float().mean())
+    print(f"phase 18b: greedy_generate from a {tuple(prompt.shape)} prompt, {LM_NEW} "
+          f"new tokens: flash launches {counts['flash']}, plain launches "
+          f"{counts['full']}; {checked} positions checked, {under} under the "
+          f"margin {DECODE_MARGIN}, {unchecked} past a divergence under it; "
+          f"differing checked positions {bad}; min margin {float(margin.min()):.4g}; "
+          f"share of the task's next tokens {task:.4f}; ms a token (host clock) "
+          f"flash {ms['flash']:.3f}, plain {ms['full']:.3f}", flush=True)
+    want_counts = {name: 0 for name in counts["flash"]}
+    want_counts["flash_attention_fwd"] = LM_32K["depth"] * LM_NEW
+    if counts["flash"] != want_counts:
+        fail(f"flash decode launched {counts['flash']}, expected {want_counts}")
+    if any(counts["full"].values()):
+        fail(f"plain decode launched kernels: {counts['full']}")
+    if not torch.equal(out["flash"][:, :LM_PROMPT], prompt):
+        fail("greedy_generate changed the prompt")
+    if bad or not checked:
+        fail(f"flash and plain decodes differ at checked positions {bad} "
+             f"({checked} checked)")
+
+
+def lm_rank_child(out_dir, backend):
+    """Phase 18 (c) on one rank, started by the launcher: LM-default at
+    T = 256 with flash attention, ``LM_RANK_ROWS`` rows a rank, AdamW lr
+    1e-3 through K1, ZeRO-1 with the int8 ring and error feedback (K2/K3),
+    ``LM_RANK_STEPS`` steps with the launch counts zeroed just before;
+    writes the counts, the ring's wire calls, the losses and the weights."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from tpu_ddp_torch import ops
+    from tpu_ddp_torch.models import CausalTransformerLM
+    from tpu_ddp_torch.parallel import runtime
+    from tpu_ddp_torch.parallel.compression import GradCompression, GradCompressor
+    from tpu_ddp_torch.parallel.zero import DATA_AXIS, Zero1Partition
+    from tpu_ddp_torch.tools.ring_compare import wire_counter
+    from tpu_ddp_torch.train import create_lm_train_state, make_lm_train_step
+    from tpu_ddp_torch.train.optim import decay_mask, make_optimizer
+
+    runtime.initialize_distributed("cuda", backend)
+    try:
+        rank, world = runtime.rank(), runtime.world_size()
+        device = runtime.rank_device("cuda", backend)
+        model = CausalTransformerLM(seq_len=LM_RANK_SEQ, use_flash=True,
+                                    generator=torch.Generator().manual_seed(0))
+        params = dict(model.named_parameters())
+        tx = make_optimizer(lr=1e-3, optimizer="adamw", kernels=True,
+                            zero1_axis=DATA_AXIS, decay_mask=decay_mask(params))
+        part = Zero1Partition(tx, params, world)
+        state = create_lm_train_state(model, tx, device, zero1=part)
+        comp = GradCompressor(GradCompression(mode="int8", block=QUANT_BLOCK,
+                                              error_feedback=True, kernels=True),
+                              state.params(), world)
+        part.set_compression(comp)
+        state.grad_residual = comp.init_residual(device)
+        step = make_lm_train_step(tx, compress=comp, zero1=part)
+        rows = slice(rank * LM_RANK_ROWS, (rank + 1) * LM_RANK_ROWS)
+        tokens = torch.from_numpy(lm_tokens(LM_RANK_STEPS, world * LM_RANK_ROWS,
+                                            LM_RANK_SEQ, 256)[:, rows]).to(device)
+        wire = wire_counter()
+        losses = []
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for i in range(LM_RANK_STEPS):
+            state, metrics = step(state, {"tokens": tokens[i]})
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / LM_RANK_STEPS * 1e3
+        out = {"launches": ops.launch_counts(), "wire_calls": wire,
+               "losses": [float(x) for x in losses], "step_ms": step_ms}
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        torch.save({k: v.cpu() for k, v in state.model.state_dict().items()},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        runtime.shutdown()
+
+
+def phase_lm_ranks(tmp, nproc=LM_RANKS, backend="gloo"):
+    """Phase 18 (c): ``lm_rank_child`` on ``nproc`` ranks through the
+    launcher (two sharing the card over gloo; one card each over NCCL)."""
+    import torch
+
+    from tpu_ddp_torch.cli.launch import run_job
+
+    out = os.path.join(tmp, f"lm_{nproc}_{backend}")
+    os.makedirs(out)
+    print(f"phase 18c: LM-default (T = {LM_RANK_SEQ}, {LM_RANK_ROWS} rows a rank) "
+          f"--kernels --zero1 int8 + error feedback, flash attention, on {nproc} "
+          f"ranks over {backend}, {LM_RANK_STEPS} steps", flush=True)
+    rc = run_job([sys.executable, os.path.abspath(__file__), "--lm-rank-child", out,
+                  backend], nproc_per_node=nproc)
+    if rc:
+        fail(f"the {nproc}-rank LM run exited with {rc}")
+    metrics = []
+    for r in range(nproc):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            metrics.append(json.load(f))
+    weights = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(nproc)]
+    same = all(torch.equal(weights[0][k], w[k]) for w in weights[1:] for k in w)
+    want = {name: 0 for name in metrics[0]["launches"]}
+    want.update({k: v * LM_RANK_STEPS for k, v in zero1_launches(nproc, True).items()})
+    for name in ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv"):
+        want[name] = LM_DEFAULT_DEPTH * LM_RANK_STEPS
+    wire = {k: v * LM_RANK_STEPS for k, v in ring_wire_calls(nproc, True, True).items()}
+    losses = metrics[0]["losses"]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    print(f"  launches on rank 0 {metrics[0]['launches']}; wire calls "
+          f"{metrics[0]['wire_calls']}; params bitwise equal on all {nproc} ranks "
+          f"{same}; mean loss of the first 5 steps {first:.5f}, last 5 {last:.5f}; "
+          "step time per rank (host clock) "
+          + " / ".join(f"{m['step_ms']:.3f}" for m in metrics) + " ms", flush=True)
+    for r, m in enumerate(metrics):
+        if m["launches"] != want:
+            fail(f"LM rank {r} launched {m['launches']}, expected {want}")
+        if m["wire_calls"] != wire:
+            fail(f"LM rank {r}'s ring made {m['wire_calls']} wire calls, "
+                 f"expected {wire}")
+    if not same:
+        fail(f"the {nproc} LM ranks end with different params")
+    if not all(math.isfinite(x) for x in losses) or not last < first:
+        fail(f"the {nproc}-rank LM losses are not finite and falling")
+    return metrics
+
+
 def nccl_main(nproc):
     """``python3 chip_smoke.py --nccl N`` on a machine with N cards: phase
-    10 with NetResDeep's chunks at N ranks, then phases 12, 14 and 17's
-    resume (``phase_checkpoint_dp``) at N
-    ranks, one card each, over NCCL (the default backend on cuda)."""
+    10 with NetResDeep's chunks at N ranks, then phases 12, 14, 17's
+    resume (``phase_checkpoint_dp``) and 18c at N ranks, one card each, over
+    NCCL (the default backend on cuda)."""
     import shutil
     import tempfile
 
@@ -2105,6 +2537,7 @@ def nccl_main(nproc):
         phase_dp_main_path(tmp, nproc, "nccl")
         phase_zero1_dp(tmp, nproc, "nccl")
         phase_checkpoint_dp(tmp, nproc, "nccl")
+        phase_lm_ranks(tmp, nproc, "nccl")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"chip_smoke --nccl {nproc}: ok", flush=True)
@@ -2113,6 +2546,8 @@ def nccl_main(nproc):
 def main():
     if sys.argv[1:2] == ["--rank-child"]:
         return rank_child(sys.argv[2], sys.argv[3:])
+    if sys.argv[1:2] == ["--lm-rank-child"]:
+        return lm_rank_child(sys.argv[2], sys.argv[3])
     if sys.argv[1:2] == ["--nccl"]:
         return nccl_main(int(sys.argv[2]))
     import shutil
@@ -2170,9 +2605,19 @@ def main():
         phase_checkpoint_rank_change(tmp)
         checkpoint_timing(tmp, smi)
         print(f"phase 17 took {time.perf_counter() - t17:.1f} s", flush=True)
+        t18 = time.perf_counter()
+        lm_tokens_32k = torch.from_numpy(
+            lm_tokens(LM_STEPS, LM_BATCH, LM_SEQ, LM_32K["vocab_size"])).to("cuda")
+        lm_model, lm_runs = phase_lm_train(lm_tokens_32k, smi)
+        phase_lm_decode(lm_model, lm_tokens_32k[-1])
+        del lm_model, lm_tokens_32k
+        torch.cuda.empty_cache()
+        phase_lm_ranks(tmp)
+        print(f"phase 18 (a)-(c) took {time.perf_counter() - t18:.1f} s", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print_accounting()
+    rows += phase_lm_timing(results, flash_results, lm_runs["flash"]["launches"])
     rows += phase_quant_timing(quant_err, dp_runs)
     rows += phase_masked_timing(masked_results, {
         "netresdeep": zero1_runs["zero1"][0]["launches"]["fused_update"],

@@ -384,6 +384,30 @@ def test_vit_train_step_launches_flash_kernels(cuda):
     assert torch.isfinite(metrics["loss"])
 
 
+def test_lm_train_step_launches_causal_flash_kernels(cuda):
+    """One LM step at tiny widths with ``use_flash``: K4, K5 and K6 once a
+    block each (causal), K1 once; the loss finite."""
+    from tpu_ddp_torch.models import CausalTransformerLM
+    from tpu_ddp_torch.train import create_lm_train_state, make_lm_train_step
+    from tpu_ddp_torch.train.optim import make_optimizer
+
+    depth = 2
+    model = CausalTransformerLM(vocab_size=17, hidden_dim=32, depth=depth, num_heads=2,
+                                seq_len=64, use_flash=True)
+    tx = make_optimizer(lr=1e-3, optimizer="adamw", kernels=True)
+    state = create_lm_train_state(model, tx, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tokens = torch.randint(0, 17, (4, 64), generator=gen, device=cuda)
+    ops.reset_launch_counts()
+    state, metrics = make_lm_train_step(tx)(state, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"fused_update": 1, "flash_attention_fwd": depth,
+                                   "flash_attention_dq": depth,
+                                   "flash_attention_dkv": depth,
+                                   "fused_quant": 0, "fused_dequant": 0}
+    assert torch.isfinite(metrics["loss"])
+
+
 @pytest.mark.parametrize("size,block,offset", [
     (5, 256, 0), (432, 256, 0), (32768, 256, 0), (1000003, 256, 1),
     (100003, 1, 0), (100003, 64, 0), (100003, 1000, 0), (100003, 4096, 0)])

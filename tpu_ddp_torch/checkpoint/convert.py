@@ -9,11 +9,13 @@ Flax tree, so each leaf maps by path:
 * conv ``kernel`` ``(kh, kw, in, out)`` -> ``weight`` ``(out, in, kh, kw)``;
 * dense ``kernel`` ``(in, out)`` -> ``weight`` ``(out, in)`` (the port
   flattens channels-last, so ``fc1`` needs no row permutation);
+* an ``nn.Embed``'s ``embedding`` ``(V, F)`` -> ``weight`` ``(V, F)``, as
+  it is (the LM's ``tok_embed``);
 * BatchNorm and LayerNorm ``scale``/``bias`` -> ``weight``/``bias``;
   ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``;
-* a raw param (the ViT's ``pos_embed``) is carried as it is, under its own
-  name; an empty ``batch_stats`` tree (the ViT has no BatchNorm) gives no
-  entries.
+* a raw param (the ViT's and the LM's ``pos_embed``) is carried as it
+  is, under its own name; an empty ``batch_stats`` tree (the ViT and the
+  LM have no BatchNorm) gives no entries.
 
 Every param-shaped optimizer slot (SGD trace, AdamW mu/nu, EMA) maps the
 same way; the optax state is read by its field names (``trace``, ``mu``,
@@ -32,8 +34,8 @@ import torch
 
 from tpu_ddp_torch.train.optim import OptState
 
-_RENAME = {"kernel": "weight", "scale": "weight", "bias": "bias",
-           "mean": "running_mean", "var": "running_var"}
+_RENAME = {"kernel": "weight", "scale": "weight", "embedding": "weight",
+           "bias": "bias", "mean": "running_mean", "var": "running_var"}
 #: params that are tensors of the module itself, not of a layer
 _RAW = ("pos_embed",)
 

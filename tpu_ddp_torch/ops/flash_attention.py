@@ -7,8 +7,8 @@ float32, as in the JAX package.
 * ``reference`` is the plain PyTorch attention (``_reference`` :72), with
   autograd through it: scale ``1/sqrt(D)``, invisible scores set to the
   finite ``NEG``, softmax, then the multiplicative mask, so a row with no
-  visible key outputs exactly 0. It is the tests' oracle; no path of the
-  port calls it.
+  visible key outputs exactly 0. It is the tests' oracle and the LM's
+  plain causal attention (``models/lm.py``).
 * Three kernels, K4 in ``csrc/flash_forward.cu`` and K5, K6 in
   ``csrc/flash_attention.cu``, all three with their float32 products on the
   tensor cores in 3xTF32 (``mma.sync``, each operand split into a high and

@@ -56,6 +56,31 @@ def batch_to_device(batch: dict, device: torch.device) -> Batch:
             for k, v in batch.items()}
 
 
+def sync_and_update(tx: Optimizer, state: TrainState, grads: Dict[str, torch.Tensor],
+                    params: Dict[str, torch.Tensor], *, compress=None, zero1=None) -> None:
+    """The tail every data-parallel step shares: average ``grads`` (this
+    rank's) over the ranks and update ``params`` and ``state`` in place, by
+    ZeRO-1's sharded update, or the compressed ring, or the all-reduce
+    (nothing at one rank), then ``tx``; thread the error-feedback residual
+    and count the step (module docstring)."""
+    ef = compress is not None and compress.config.error_feedback
+    residual = state.grad_residual if ef else None
+    err_state = None
+    if zero1 is not None:
+        _, _, err_state = zero1.sharded_update(
+            grads, params, state.opt_state, residual=residual, with_error=ef)
+    else:
+        if compress is not None:
+            grads, err_state = compress.all_reduce_mean(grads, residual,
+                                                        with_error=ef)
+        elif world_size() > 1:
+            grads = sync_gradients(grads)
+        tx.apply(grads, state.opt_state, params)
+    if ef:
+        state.grad_residual = err_state
+    state.step += 1
+
+
 def make_train_step(tx: Optimizer, *, compress=None,
                     zero1=None) -> Callable[[TrainState, Batch], tuple]:
     """``step(state, batch) -> (state, {"loss", "accuracy"})``; ``state`` is
@@ -64,7 +89,6 @@ def make_train_step(tx: Optimizer, *, compress=None,
     gradient all-reduce with its compressed ring; ``zero1`` (a
     ``parallel.zero.Zero1Partition`` built over ``tx``, with ``compress``
     attached when both are given) shards the update (module docstring)."""
-    ef = compress is not None and compress.config.error_feedback
 
     def train_step(state: TrainState, batch: Batch):
         n = world_size()
@@ -76,21 +100,7 @@ def make_train_step(tx: Optimizer, *, compress=None,
         if n > 1:
             all_reduce_mean_([b for _, b in model.named_buffers()])
         grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
-        residual = state.grad_residual if ef else None
-        err_state = None
-        if zero1 is not None:
-            _, _, err_state = zero1.sharded_update(
-                grads, params, state.opt_state, residual=residual, with_error=ef)
-        else:
-            if compress is not None:
-                grads, err_state = compress.all_reduce_mean(grads, residual,
-                                                            with_error=ef)
-            elif n > 1:
-                grads = sync_gradients(grads)
-            tx.apply(grads, state.opt_state, params)
-        if ef:
-            state.grad_residual = err_state
-        state.step += 1
+        sync_and_update(tx, state, grads, params, compress=compress, zero1=zero1)
         with torch.no_grad():
             correct, count = masked_accuracy(logits, batch["label"],
                                              batch.get("mask"))
