@@ -18,17 +18,24 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ViT-S/4's 79 leaf shapes, at the LM-32k path's 54, at ragged sizes (1,
    127, 1,000,003, and 1,000,003 at an unaligned address), at one large
    leaf (2**24 elements) and at a mixed group (aligned and unaligned
-   leaves, decayed and not, leaves spanning several blocks' chunks). Each group goes through one multi-tensor
-   launch. Expected: bitwise equal, every leaf, and exactly one launch a
-   group.
+   leaves, decayed and not, leaves spanning several blocks' chunks), at
+   ResNet-50's 161 (two launches), and with frozen rows (``--freeze``): half
+   of NetResDeep's and of the mixed group's leaves frozen, all of
+   NetResDeep's, and ResNet-50's head-only fine-tune. A frozen leaf's p holds
+   some -0.0, which ``p + 0.0`` must turn into +0.0. Each group of up to 128
+   leaves goes through one multi-tensor launch. Expected: bitwise equal
+   (the signs of zeros too), every leaf, and exactly ceil(leaves / 128)
+   launches a group.
 3b. K1 with ZeRO-1's pad mask against its plain version
    (``update_math_masked``), bitwise, one launch a group: every recipe of
    phase 3 under both schedules, over NetResDeep's and ViT-S/4's shards at
    every rank of 2, 3, 4 and 8 ranks, LM-default's (phase 18c) at both
    ranks of two, and over the mask's edge cases (the
    live count inside a float4, in a shard's second chunk, at a chunk's
-   end, zero, and unaligned shards on the scalar path). Prints the rows
-   with a live mask, which must be more than 0.
+   end, zero, and unaligned shards on the scalar path); frozen shards:
+   ResNet-18's head-only fine-tune (phase 19d) at every rank of 2 and 3
+   ranks, and the edge cases with every other leaf frozen. Prints the rows
+   with a live mask and the frozen ones among them; neither may be 0.
 4. Main path: ``tpu_ddp_torch.cli.train.main`` with ``--device cuda
    --synthetic-data --kernels`` at NetResDeep's full width (n_chans1=32,
    n_blocks=10, tied), batch 32, SGD lr 1e-2, 2 epochs of 200 steps. The
@@ -200,11 +207,40 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     flash launches; then each kernel's device time causal against full at
     that shape, in turns.
 
+19. Fine-tuning (``models/resnet_family.py``, ``train/finetune.py``,
+    ``checkpoint/import_foreign.py``, ``--freeze``, ``--loss bce``) at
+    ResNet-50's full width (CIFAR stem; 23,705,252 params at 100 classes,
+    161 leaves, 106 BatchNorm stats), under cuDNN's deterministic
+    algorithms, all through the train CLI. (a) Pretraining: ``--model
+    resnet50 --num-classes 100 --synthetic-data --kernels --optimizer sgd
+    --momentum 0.9``, batch 32, 2 epochs of 15 steps, ``--checkpoint-dir``:
+    K1 exactly 2 x 30 (161 leaves, two launches a step), finite losses with
+    the last 10 below the first 10, steady ms a step and images/s (host
+    clock, epoch 2), ``max_memory_allocated``, and the device idle share and
+    kernels a step over 5 profiled steps. (b) Its final state exported by
+    ``export_state_dict`` to a torchvision-layout ``.pt`` (with
+    torchvision's ``num_batches_tracked`` entries, which the import reports
+    unmapped), then ``--pretrained-dir FILE --num-classes 3 --loss bce
+    --freeze head --kernels`` on ``synthetic_multilabel``, 30 steps: every
+    backbone param bitwise the file's (``p + 0.0``), the head and every
+    BatchNorm running stat moved, K1 exactly 2 x 30, BCE losses finite and
+    falling; the same from (a)'s checkpoint directory restores the backbone
+    bitwise. (c) (b) again without ``--kernels``: per-step losses and the
+    final state bitwise (b)'s. (d) ResNet-18 at CIFAR-100 widths
+    (11,220,132 params, 62 leaves) fine-tuned from a file with ``--zero1
+    --grad-compress int8 --grad-compress-error-feedback --freeze head
+    --kernels`` on two ranks sharing the card over gloo, 20 steps a rank:
+    replicas bitwise, frozen params the file's, launches a rank exact (K1
+    20, K2 = K3 = 20) and the ring's wire calls. (e) K1 at ResNet-50's 161
+    leaves under SGD with momentum, all trainable and head-only, in turns
+    with the plain version, ``torch._fused_sgd_`` over the trainable leaves
+    and the bound (a frozen element moves 12 bytes: read p, write p and u).
+
 The NetResDeep phases before 17 keep their sizes; the whole run takes eight
 to ten minutes on the card, the build included. ``python3 chip_smoke.py
 --nccl N``, on a machine with N cards, runs phases 10 (at N ranks' chunks),
-12, 14, 17's two-rank part and 18c alone at N ranks, one card each, over
-NCCL. The line before the last is one JSON object
+12, 14, 17's two-rank part, 18c and 19d alone at N ranks, one card each,
+over NCCL. The line before the last is one JSON object
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -244,6 +280,8 @@ VARIANTS = {
     # the ViT and LM paths' recipe (phases 8 and 18): --optimizer adamw and
     # nothing else
     "adamw": dict(kind="adamw", momentum=0.0, wd=0.0, max_norm=0.0, ema=0.0),
+    # the fine-tune path's recipe (phase 19): --momentum 0.9 and nothing else
+    "sgd_mom": dict(kind="sgd", momentum=0.9, wd=0.0, max_norm=0.0, ema=0.0),
 }
 VIT_RECIPE = "adamw"
 MAIN_STEPS_PER_EPOCH = 200
@@ -272,6 +310,15 @@ FLASH_CASES = {
     "d37_t77": (3, 77, 2, 37, False, None, False),
 }
 FLASH_TIMED = {"vit_s4": 200, "t2048_d128": 20}   # case -> timed iterations
+
+
+T_START = time.perf_counter()
+
+
+def stamp(what):
+    """The run's elapsed host time after ``what``, for the time budget."""
+    print(f"[chip_smoke: {what} done at {time.perf_counter() - T_START:.1f} s]",
+          flush=True)
 
 
 def fail(msg):
@@ -341,9 +388,14 @@ def leaf_config(variant, schedule, wd_apply):
                       ema_decay=v["ema"], b1=0.9, b2=0.999, eps=1e-8)
 
 
-def leaf_bytes_ops(cfg, n):
+def leaf_bytes_ops(cfg, n, frozen=False):
     """Bytes K1 must move (each operand read once, each result written
-    once, plus the 16-byte scalar vector) and float operations it does."""
+    once, plus the 16-byte scalar vector) and float operations it does. A
+    frozen leaf reads p (and e) and writes p and u (and e): 12 bytes an
+    element, 20 with the EMA; p + 0, and the EMA's four operations."""
+    if frozen:
+        ema = bool(cfg.ema_decay)
+        return 4 * n * (3 + 2 * ema) + 16, (1 + 4 * ema) * n
     slots = 2 + int(cfg.has_m) + int(cfg.has_v) + int(bool(cfg.ema_decay))
     ops = 2                                          # scale, p + u
     ops += 2 if cfg.has_clip else 0                  # (g / norm) * max
@@ -356,21 +408,25 @@ def leaf_bytes_ops(cfg, n):
 
 
 def bound(items):
-    """(bound_ms, bound_by) for a list of (cfg, n) leaves."""
-    total_bytes = sum(leaf_bytes_ops(c, n)[0] for c, n in items)
-    total_ops = sum(leaf_bytes_ops(c, n)[1] for c, n in items)
+    """(bound_ms, bound_by) for a list of (cfg, n) or (cfg, n, frozen)
+    leaves."""
+    total_bytes = sum(leaf_bytes_ops(*it)[0] for it in items)
+    total_ops = sum(leaf_bytes_ops(*it)[1] for it in items)
     t_bytes = total_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = total_ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 class Leaf:
-    """One leaf's operands on the card, made from a seeded generator."""
+    """One leaf's operands on the card, made from a seeded generator. A
+    ``frozen`` leaf has no m or v (K1's frozen rows; its p holds some
+    ``-0.0``, which ``p + 0.0`` turns into ``+0.0``)."""
 
-    def __init__(self, shape, cfg, gen, offset=0):
+    def __init__(self, shape, cfg, gen, offset=0, frozen=False):
         import torch
 
         n = math.prod(shape)
+        self.frozen = frozen
 
         def make(scale=1.0, positive=False):
             buf = torch.randn(n + offset, generator=gen, device="cuda") * scale
@@ -380,8 +436,10 @@ class Leaf:
         self.cfg, self.n = cfg, n
         self.valid = n              # live elements (ZeRO-1's pad mask past them)
         self.g, self.p = make(), make()
-        self.m = make(0.1) if cfg.has_m else None
-        self.v = make(0.01, positive=True) if cfg.has_v else None
+        if frozen:
+            self.p[::7] = -0.0
+        self.m = make(0.1) if cfg.has_m and not frozen else None
+        self.v = make(0.01, positive=True) if cfg.has_v and not frozen else None
         self.e = make() if cfg.ema_decay else None
         self.u = torch.empty(n + offset, device="cuda")[offset:].view(shape)
 
@@ -401,7 +459,9 @@ def scalars_for(leaf_list, cfg, schedule):
 
     from tpu_ddp_torch.ops.fused_update import global_norm
 
-    g_norm = global_norm([lf.g for lf in leaf_list])
+    trainable = [lf.g for lf in leaf_list if not lf.frozen]
+    g_norm = (global_norm(trainable) if trainable
+              else torch.zeros((), device="cuda"))
     step = torch.tensor(-0.7e-2 if schedule == "cosine" else 0.0, device="cuda")
     bc = (1 - 0.9 ** 3, 1 - 0.999 ** 3) if cfg.kind == "adamw" else (1.0, 1.0)
     return torch.stack([g_norm.float(), step.float(),
@@ -429,15 +489,19 @@ def leaf_batch(leaves):
     return LeafBatch([lf.p for lf in leaves], [lf.m for lf in leaves],
                      [lf.v for lf in leaves], [lf.e for lf in leaves],
                      leaves[0].cfg, [lf.cfg.wd_apply for lf in leaves],
-                     us=[lf.u for lf in leaves], valid=[lf.valid for lf in leaves])
+                     us=[lf.u for lf in leaves], valid=[lf.valid for lf in leaves],
+                     frozen=[lf.frozen for lf in leaves])
 
 
 def plain_outputs(lf, scalars):
     """The plain version's ``(u, p, m, v, e)`` for one leaf, flat: the
-    update, then the pad mask past ``lf.valid`` (``update_math_masked``)."""
-    from tpu_ddp_torch.ops.fused_update import update_math_masked
+    update, then the pad mask past ``lf.valid`` (``update_math_masked``);
+    a frozen leaf's ``update_math_frozen``."""
+    from tpu_ddp_torch.ops.fused_update import update_math_frozen, update_math_masked
 
     flat = [None if t is None else t.reshape(-1) for t in (lf.g, lf.p, lf.m, lf.v, lf.e)]
+    if lf.frozen:
+        return update_math_frozen(flat[1], flat[4], lf.cfg)
     return update_math_masked(*flat, scalars, lf.cfg, start=0,
                               mask_size=lf.valid if lf.valid < lf.n else None)
 
@@ -445,7 +509,8 @@ def plain_outputs(lf, scalars):
 def compare(leaves, scalars):
     """K1 over all of ``leaves`` in one multi-tensor call and the plain
     version leaf by leaf, on copies; (max_abs_err, max_ulp, launches), each
-    output of all leaves compared at once."""
+    output of all leaves compared at once, bit for bit (``ulp_diff`` maps
+    -0.0 and +0.0 to 0, so the signs of zeros are compared too)."""
     import torch
 
     from tpu_ddp_torch import ops
@@ -467,6 +532,9 @@ def compare(leaves, scalars):
         g, w = torch.cat(got[k]), torch.cat(want[k])
         if not bool((g.isfinite() == w.isfinite()).all()):
             fail(f"K1 {k}: finite pattern differs from the plain version")
+        if not bool((g.signbit() == w.signbit()).all()):
+            fail(f"K1 {k}: the sign of a value (or of a zero) differs from the "
+                 "plain version")
         if g.numel():
             worst_abs = max(worst_abs, float((g - w).abs().nan_to_num().max()))
             worst_ulp = max(worst_ulp, ulp_diff(g, w))
@@ -484,12 +552,34 @@ def vit_leaf_shapes():
     return shapes
 
 
+def resnet_leaf_shapes(name, num_classes, leaves):
+    """The parameter names and shapes of the registry's ``name`` at
+    ``num_classes``, in the model's order."""
+    import torch
+
+    from tpu_ddp_torch.models import MODEL_REGISTRY
+
+    with torch.device("meta"):
+        model = MODEL_REGISTRY[name](num_classes=num_classes)
+    named = [(n, tuple(p.shape)) for n, p in model.named_parameters()]
+    if len(named) != leaves:
+        fail(f"{name} has {len(named)} parameter leaves, expected {leaves}")
+    return named
+
+
+def head_only(named):
+    """(shape, frozen) a leaf of ``named``: all but the head frozen, as
+    ``--freeze head`` leaves them."""
+    return [(shape, not n.startswith("head.")) for n, shape in named]
+
+
 def phase_kernel_vs_plain():
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     vit_shapes = vit_leaf_shapes()
     lm_shapes = lm_leaf_shapes(LM_32K, LM_SEQ, LM_LEAVES)
+    r50 = head_only(resnet_leaf_shapes("resnet50", FT_CLASSES, R50_LEAVES))
     results = {}
     print("phase 3: K1 vs plain version, one launch a group (max |diff|, max ulp, "
           "launches)", flush=True)
@@ -509,10 +599,26 @@ def phase_kernel_vs_plain():
                 "large": [Leaf((LARGE,), leaf_config(variant, schedule, True), gen)],
                 "mixed": [Leaf(s, leaf_config(variant, schedule, wd), gen, offset=off)
                           for s, off, wd in MIXED],
+                # frozen rows (--freeze): half of NetResDeep's and of the mixed
+                # group's leaves, all of NetResDeep's, and ResNet-50's head-only
+                # fine-tune (161 leaves: two launches)
+                "netresdeep_frozen": [
+                    Leaf(s, leaf_config(variant, schedule, len(s) >= 2), gen,
+                         frozen=i % 2 == 0) for i, s in enumerate(NETRESDEEP_LEAVES)],
+                "all_frozen": [Leaf(s, leaf_config(variant, schedule, len(s) >= 2), gen,
+                                    frozen=True) for s in NETRESDEEP_LEAVES],
+                "mixed_frozen": [
+                    Leaf(s, leaf_config(variant, schedule, wd), gen, offset=off,
+                         frozen=i % 2 == 1) for i, (s, off, wd) in enumerate(MIXED)],
+                "resnet50": [Leaf(s, leaf_config(variant, schedule, len(s) >= 2), gen)
+                             for s, _ in r50],
+                "resnet50_head": [Leaf(s, leaf_config(variant, schedule, len(s) >= 2),
+                                       gen, frozen=f) for s, f in r50],
             }
             for group, leaves in groups.items():
                 scalars = scalars_for(leaves, leaves[0].cfg, schedule)
                 err, ulp, launches = compare(leaves, scalars)
+                want_launches = -(-len(leaves) // MAX_K1_LEAVES)
                 torch.cuda.synchronize()
                 results[(variant, schedule, group)] = (err, ulp)
                 print(f"  {variant:20s} {schedule:8s} {group:10s} "
@@ -521,9 +627,9 @@ def phase_kernel_vs_plain():
                 if ulp:
                     fail(f"K1 {variant}/{schedule}/{group}: {ulp} ulp from the "
                          "plain version (must be bitwise)")
-                if launches != 1:
+                if launches != want_launches:
                     fail(f"K1 {variant}/{schedule}/{group}: {launches} launches "
-                         f"for {len(leaves)} leaves, expected 1")
+                         f"for {len(leaves)} leaves, expected {want_launches}")
             del groups
     bitwise = all(ulp == 0 for _, ulp in results.values())
     print(f"  K1 bitwise equal to its plain version everywhere: {bitwise}",
@@ -543,14 +649,14 @@ ZERO1_EDGES = [(4094, 4, 3, 0), (65_536, 3, 2, 0), (32_769, 2, 1, 0),
                (1003, 2, 0, 1), (100_001, 3, 2, 3)]
 
 
-def shard_leaf(shape, n, r, cfg, gen, offset=0):
+def shard_leaf(shape, n, r, cfg, gen, offset=0, frozen=False):
     """Rank r's shard of a leaf of ``shape`` over n ranks (ceil(size / n)
     elements), its live count set as ``Zero1Partition`` sets it."""
     from tpu_ddp_torch.ops.fused_update import shard_valid
 
     size = math.prod(shape)
     s = -(-size // n)
-    lf = Leaf((s,), cfg, gen, offset)
+    lf = Leaf((s,), cfg, gen, offset, frozen=frozen)
     lf.valid = shard_valid(size, r * s, s)
     return lf
 
@@ -558,13 +664,16 @@ def shard_leaf(shape, n, r, cfg, gen, offset=0):
 def phase_masked_vs_plain():
     """Phase 3b: K1 with ZeRO-1's pad mask against its plain version,
     bitwise, one launch a group: every recipe of phase 3, NetResDeep's and
-    ViT-S/4's shards at every rank of 2, 3, 4 and 8, and the edge cases."""
+    ViT-S/4's shards at every rank of 2, 3, 4 and 8, and the edge cases;
+    then frozen shards: ResNet-18's head-only fine-tune (phase 19d) at every
+    rank of 2 and 3, and the edge cases with every other leaf frozen."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     models = {"netresdeep": NETRESDEEP_LEAVES, "vit_s4": vit_leaf_shapes()}
     lm_shapes = lm_leaf_shapes({}, LM_RANK_SEQ, LM_DEFAULT_LEAVES)
-    results, live_mask_rows, groups = {}, 0, 0
+    r18 = head_only(resnet_leaf_shapes("resnet18", 100, R18_LEAVES))
+    results, live_mask_rows, frozen_mask_rows, groups = {}, 0, 0, 0
     print("phase 3b: K1 with the ZeRO-1 pad mask vs plain version, one launch a "
           "group (max |diff|, max ulp)", flush=True)
     for variant in VARIANTS:
@@ -578,13 +687,20 @@ def phase_masked_vs_plain():
                           for r in range(LM_RANKS)})
             cases["edges"] = [((size,), n, r, off, True)
                               for size, n, r, off in ZERO1_EDGES]
+            cases.update({f"resnet18 head-only {n} ranks rank {r}":
+                          [(s, n, r, 0, len(s) >= 2, f) for s, f in r18]
+                          for n in (2, 3) for r in range(n)})
+            cases["frozen edges"] = [((size,), n, r, off, True, i % 2 == 0)
+                                     for i, (size, n, r, off) in enumerate(ZERO1_EDGES)]
             worst = (0.0, 0)
             for name, spec in cases.items():
                 leaves = [shard_leaf(shape, n, r, leaf_config(variant, schedule, wd),
-                                     gen, off) for shape, n, r, off, wd in spec]
+                                     gen, off, *cold)
+                          for shape, n, r, off, wd, *cold in spec]
                 scalars = scalars_for(leaves, leaves[0].cfg, schedule)
                 err, ulp, launches = compare(leaves, scalars)
                 live_mask_rows += sum(lf.valid < lf.n for lf in leaves)
+                frozen_mask_rows += sum(lf.frozen and lf.valid < lf.n for lf in leaves)
                 groups += 1
                 results[(variant, schedule, name)] = (err, ulp)
                 worst = (max(worst[0], err), max(worst[1], ulp))
@@ -599,9 +715,10 @@ def phase_masked_vs_plain():
             print(f"  {variant:20s} {schedule:8s} {len(cases)} groups: "
                   f"max|diff|={worst[0]:.3g} max_ulp={worst[1]}", flush=True)
     print(f"  {groups} groups, one launch each; rows with a live mask "
-          f"{live_mask_rows}; bitwise equal everywhere: True", flush=True)
-    if not live_mask_rows:
-        fail("phase 3b ran no leaf with a live mask")
+          f"{live_mask_rows}, of them frozen {frozen_mask_rows}; bitwise equal "
+          "everywhere: True", flush=True)
+    if not live_mask_rows or not frozen_mask_rows:
+        fail("phase 3b ran no leaf with a live mask, or no frozen one")
     return results
 
 
@@ -625,18 +742,21 @@ def library_call(variant, leaves):
         amsgrad=False, maximize=False)
 
 
-def time_group(variant, shapes, iters):
+def time_group(variant, shapes, iters, frozen=None):
     """(kernel_ms, plain_ms, library_ms, bound_ms, bound_by) for one step's
     worth of K1 over ``shapes`` (constant schedule): one multi-tensor call
-    against the plain version leaf by leaf."""
+    against the plain version leaf by leaf. ``frozen`` (one flag a shape)
+    marks frozen leaves; the yardstick then updates the trainable ones."""
     import torch
 
     from tpu_ddp_torch import ops
+    from tpu_ddp_torch.ops.fused_update import update_math_frozen
 
     update_math = ops.resolve("fused_update")["plain"]
     gen = torch.Generator(device="cuda").manual_seed(1)
-    leaves = [Leaf(s, leaf_config(variant, "constant", len(s) >= 2), gen)
-              for s in shapes]
+    frozen = frozen or [False] * len(shapes)
+    leaves = [Leaf(s, leaf_config(variant, "constant", len(s) >= 2), gen, frozen=f)
+              for s, f in zip(shapes, frozen)]
     scalars = scalars_for(leaves, leaves[0].cfg, "constant")
     batch, grads = leaf_batch(leaves), [lf.g for lf in leaves]
 
@@ -647,28 +767,33 @@ def time_group(variant, shapes, iters):
 
     def plain():
         for lf in leaves:
+            if lf.frozen:
+                update_math_frozen(lf.p, lf.e, lf.cfg)
+                continue
             u = update_math(lf.g, lf.p, lf.m, lf.v, lf.e, scalars, lf.cfg)[0]
             lf.p + u
 
-    lib = library_call(variant, leaves)
+    lib = library_call(variant, [lf for lf in leaves if not lf.frozen])
     # turns: kernel, plain, plain, kernel (and the yardstick between)
     k1 = time_ms(kernel, iters)
     p1 = time_ms(plain, iters)
     lib_ms = time_ms(lib, iters)
     p2 = time_ms(plain, iters)
     k2 = time_ms(kernel, iters)
-    b_ms, b_by = bound([(lf.cfg, lf.n) for lf in leaves])
+    b_ms, b_by = bound([(lf.cfg, lf.n, lf.frozen) for lf in leaves])
     dev = {"device_ms": device_ms(kernel, 20), "plain_device_ms": device_ms(plain, 20),
            "library_device_ms": device_ms(lib, 20)}
     return (k1 + k2) / 2, (p1 + p2) / 2, lib_ms, b_ms, b_by, dev
 
 
-def k1_row(name, variant, shapes, group, iters, launches, results, label):
-    """One ``kernels`` row of K1 over ``shapes`` under ``variant``."""
+def k1_row(name, variant, shapes, group, iters, launches, results, label,
+           frozen=None):
+    """One ``kernels`` row of K1 over ``shapes`` under ``variant`` (with
+    ``frozen`` leaves, ``time_group``)."""
     from tpu_ddp_torch import ops
 
     entry = ops.KERNELS["fused_update"]
-    k_ms, p_ms, l_ms, b_ms, b_by, dev = time_group(variant, shapes, iters)
+    k_ms, p_ms, l_ms, b_ms, b_by, dev = time_group(variant, shapes, iters, frozen)
     err = max(results[(variant, s, group)][0] for s in ("constant", "cosine"))
     print(f"  {name:36s} kernel {k_ms:.5f} ms  plain {p_ms:.5f} ms  "
           f"library {l_ms:.5f} ms  bound {b_ms:.5f} ms ({b_by}); device "
@@ -2513,11 +2638,293 @@ def phase_lm_ranks(tmp, nproc=LM_RANKS, backend="gloo"):
     return metrics
 
 
+#: phase 19: fine-tuning at ResNet-50's full width (CIFAR stem), under cuDNN's
+#: deterministic algorithms. (a) pretrains at 100 classes, (b) and (c)
+#: fine-tune at 3 (BCE, the head alone): 2 epochs of 15 steps at batch 32
+#: each; (d) ResNet-18 at 100 classes on ranks, 2 epochs of 10 steps a rank
+FT_STEPS_PER_EPOCH, FT_EPOCHS = 15, 2
+FT_STEPS = FT_STEPS_PER_EPOCH * FT_EPOCHS
+FT_CLASSES, FT_PRETRAIN_CLASSES = 3, 100
+R50_LEAVES, R50_PARAMS, R50_STATS = 161, 23_705_252, 106
+R18_LEAVES, R18_PARAMS = 62, 11_220_132
+FT_RANKS, FT_RANK_STEPS_PER_EPOCH = 2, 10
+FT_PROFILE_STEPS = 5
+#: leaves one K1 launch takes (``MAX_LEAVES`` of ops/fused_update.py)
+MAX_K1_LEAVES = 128
+
+
+def ft_args(*extra, classes, model="resnet50", steps_per_epoch=FT_STEPS_PER_EPOCH,
+            nproc=1):
+    """The train CLI's arguments of a phase-19 run: SGD with momentum 0.9,
+    lr 1e-2, batch 32 a rank, ``FT_EPOCHS`` epochs of ``steps_per_epoch``
+    steps on synthetic data."""
+    return ["--device", "cuda", "--model", model, "--num-classes", str(classes),
+            "--synthetic-data", "--synthetic-size", str(nproc * 32 * steps_per_epoch),
+            "--epochs", str(FT_EPOCHS), "--batch-size", "32", "--optimizer", "sgd",
+            "--momentum", "0.9", "--lr", "1e-2", "--log-every-epochs", "1", *extra]
+
+
+def ft_run(label, args, want_k1):
+    """``tpu_ddp_torch.cli.train.run(args)`` with the launch counts zeroed
+    just before and read just after; checks them (K1 ``want_k1``, nothing
+    else) and the losses (``FT_STEPS`` of them, finite, the last 10 below
+    the first 10). Returns (trainer, metrics)."""
+    import torch
+
+    from tpu_ddp_torch import ops
+    from tpu_ddp_torch.cli import train as cli
+
+    print(f"phase {label}: tpu_ddp_torch.cli.train {' '.join(args)}", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    trainer, metrics = cli.run(args)
+    torch.cuda.synchronize()
+    counts = metrics["launches"] = ops.launch_counts()
+    metrics["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    losses = metrics["step_losses"]
+    first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
+    print(f"  launches {counts}; mean loss of the first 10 steps {first:.5f}, last "
+          f"10 {last:.5f}; steady {metrics['steady_step_ms']:.3f} ms a step (epoch "
+          f"2, host clock), {metrics['images_per_sec_per_chip']:.1f} images/s, "
+          f"max_memory_allocated {metrics['max_memory_allocated']} B", flush=True)
+    want = {name: 0 for name in counts}
+    want["fused_update"] = want_k1
+    if counts != want:
+        fail(f"phase {label}: launches {counts}, expected {want}")
+    if len(losses) != FT_STEPS or not all(math.isfinite(x) for x in losses) \
+            or not last < first:
+        fail(f"phase {label}: losses are not {FT_STEPS} finite and falling ones")
+    return trainer, metrics
+
+
+def ft_profile(trainer, n=FT_PROFILE_STEPS):
+    """``n`` more train steps of ``trainer`` under ``torch.profiler`` (one
+    step before, unprofiled): (host ms a step, device busy ms a step, idle
+    share, kernels a step, the ``LM_TOP_KERNELS`` kernels that take most
+    device time as (ms a step, calls a step, name))."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_ddp_torch.tools.profile_step import _device_us
+
+    trainer.train_loader.set_epoch(FT_EPOCHS + 1)
+    batches = [trainer.to_device(b) for _, b in
+               zip(range(n + 1), trainer.train_loader.epoch_batches())]
+    trainer.state, _ = trainer.train_step(trainer.state, batches[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[1:]:
+            trainer.state, _ = trainer.train_step(trainer.state, b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / n * 1e3
+    busy_us, kernels, rows = _device_us(prof)
+    busy_ms = busy_us / n * 1e-3
+    top = [(us / n * 1e-3, count / n, key)
+           for us, count, key in sorted(rows, reverse=True)[:LM_TOP_KERNELS]]
+    return wall_ms, busy_ms, 1.0 - busy_ms / wall_ms, kernels / n, top
+
+
+def export_pretrained(model, state_dict, path):
+    """``export_state_dict`` of ``state_dict`` to the torchvision-layout
+    ``path``, with the ``num_batches_tracked`` entry torchvision keeps
+    beside each BatchNorm (the port has none: the import reports them
+    unmapped)."""
+    import torch
+
+    from tpu_ddp_torch.checkpoint.import_foreign import export_state_dict
+
+    params = {n: state_dict[n] for n, _ in model.named_parameters()}
+    stats = {n: state_dict[n] for n, _ in model.named_buffers()}
+    export_state_dict(params, stats, model, path)
+    sd = torch.load(path, weights_only=True)
+    for key in [k for k in sd if k.endswith(".running_mean")]:
+        sd[key.replace(".running_mean", ".num_batches_tracked")] = torch.tensor(FT_STEPS)
+    torch.save(sd, path)
+    return params
+
+
+def same_bits(a, b):
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+def phase_finetune(tmp, smi):
+    """Phase 19 (a)-(c) and (e)'s launches: ResNet-50 pretrained, exported,
+    fine-tuned from the file and from the checkpoint directory, and the
+    fine-tune again with the plain update. Returns {run: metrics}."""
+    import torch
+
+    from tpu_ddp_torch.checkpoint.import_foreign import import_state_dict
+    from tpu_ddp_torch.cli import train as cli
+    from tpu_ddp_torch.train.trainer import Trainer, build_model
+
+    ck = os.path.join(tmp, "ft_ckpt")
+    runs = {}
+    # (a) pretraining at 100 classes, two K1 launches a step (161 leaves)
+    trainer, m = ft_run("19a", ft_args("--kernels", "--checkpoint-dir", ck,
+                                       classes=FT_PRETRAIN_CLASSES), 2 * FT_STEPS)
+    model = trainer.state.model
+    n_params = sum(p.numel() for p in model.parameters())
+    n_leaves, n_stats = len(list(model.parameters())), len(list(model.buffers()))
+    if (n_params, n_leaves, n_stats) != (R50_PARAMS, R50_LEAVES, R50_STATS):
+        fail(f"ResNet-50 has {n_params} params in {n_leaves} leaves and {n_stats} "
+             f"BatchNorm stats, expected {R50_PARAMS}, {R50_LEAVES}, {R50_STATS}")
+    final = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    path = os.path.join(tmp, "resnet50_pretrained.pt")
+    params = export_pretrained(model, final, path)
+    wall, busy, idle, kernels, top = ft_profile(trainer)
+    m.update(profiled_step_ms=wall, device_busy_ms_per_step=busy,
+             device_idle_share=idle, kernels_per_step=kernels)
+    runs["pretrain"] = m
+    print(f"  {n_params:,} params in {n_leaves} leaves, {n_stats} BatchNorm stats; "
+          f"final test accuracy {m['test_accuracy']:.4f} ({smi}); torch.profiler over "
+          f"{FT_PROFILE_STEPS} steps: step {wall:.3f} ms, device busy {busy:.3f} ms, "
+          f"idle share {idle:.4f}, {kernels:.1f} kernels a step; the kernels that "
+          "take most device time (ms a step, calls a step):", flush=True)
+    for ms, calls, key in top:
+        print(f"    {ms:9.3f} ms {calls:6.1f}x  {key[:100]}", flush=True)
+    del trainer, model
+    torch.cuda.empty_cache()
+
+    # (b) the fine-tune from the exported file: BCE, the head alone trains
+    fresh = build_model(cli.config_from_args(cli.build_parser().parse_args(
+        ft_args(classes=FT_CLASSES))))
+    _, _, report = import_state_dict(path, fresh)
+    print(f"phase 19b: {path}: {report['mapped']} keys mapped, "
+          f"{len(report['unmapped'])} unmapped (e.g. {report['unmapped'][:3]})",
+          flush=True)
+    if report["mapped"] != R50_LEAVES + R50_STATS or len(report["unmapped"]) != 53:
+        fail(f"the foreign import mapped {report['mapped']} keys and left "
+             f"{len(report['unmapped'])} unmapped")
+    ft = ["--pretrained-dir", path, "--loss", "bce", "--freeze", "head"]
+    trainer, m = ft_run("19b", ft_args("--kernels", *ft, classes=FT_CLASSES), 2 * FT_STEPS)
+    got = {k: v.detach().cpu() for k, v in trainer.state.model.state_dict().items()}
+    backbone = [n for n in params if not n.startswith("head.")]
+    frozen_same = all(same_bits(got[n], final[n] + 0.0) for n in backbone)
+    head_moved = not torch.equal(got["head.weight"], fresh.head.weight.detach())
+    stats_moved = sum(not torch.equal(got[n], final[n])
+                      for n in final if ".running_" in n)
+    print(f"  {len(backbone)} backbone params bitwise the file's (p + 0.0): "
+          f"{frozen_same}; head moved {head_moved}; BatchNorm stats moved "
+          f"{stats_moved} of {R50_STATS}", flush=True)
+    if not (frozen_same and head_moved and stats_moved == R50_STATS):
+        fail("the fine-tune moved a frozen param, or left the head or the stats")
+    runs["finetune"] = m
+    kernel_losses = m["step_losses"]
+    kernel_final = got
+    del trainer
+    torch.cuda.empty_cache()
+
+    # the same from (a)'s checkpoint directory: the restored backbone
+    tr = Trainer(cli.config_from_args(cli.build_parser().parse_args(
+        ft_args("--kernels", "--pretrained-dir", ck, "--loss", "bce", "--freeze",
+                "head", classes=FT_CLASSES))))
+    got = tr.state.model.state_dict()
+    dir_same = all(same_bits(got[n].cpu(), final[n]) for n in final
+                   if not n.startswith("head."))
+    print(f"phase 19b: --pretrained-dir {ck} (step {FT_STEPS}): every backbone param "
+          f"and BatchNorm stat bitwise the checkpoint's: {dir_same}", flush=True)
+    if not dir_same:
+        fail("the restore from the checkpoint directory differs from its state")
+    tr.close()
+    del tr
+    torch.cuda.empty_cache()
+
+    # (c) the plain update on the same batches
+    trainer, m = ft_run("19c", ft_args(*ft, classes=FT_CLASSES), 0)
+    got = {k: v.detach().cpu() for k, v in trainer.state.model.state_dict().items()}
+    same = (m["step_losses"] == kernel_losses
+            and all(same_bits(got[n], kernel_final[n]) for n in got))
+    print(f"  K1 against the plain update under deterministic cuDNN: per-step losses "
+          f"and final state bitwise equal: {same}", flush=True)
+    if not same:
+        fail("the fine-tune with K1 and with the plain update differ")
+    runs["finetune_plain"] = m
+    del trainer
+    torch.cuda.empty_cache()
+    return runs
+
+
+def phase_finetune_ranks(tmp, nproc=FT_RANKS, backend="gloo"):
+    """Phase 19 (d): ResNet-18 at CIFAR-100 widths fine-tuned from a file
+    with ``--zero1 --grad-compress int8 --grad-compress-error-feedback
+    --freeze head --kernels`` on ``nproc`` ranks (two sharing the card over
+    gloo; one card each over NCCL), under deterministic cuDNN: replicas
+    bitwise, frozen params the file's, launches and wire calls exact."""
+    import torch
+
+    from tpu_ddp_torch.models import MODEL_REGISTRY
+
+    model = MODEL_REGISTRY["resnet18"](num_classes=FT_PRETRAIN_CLASSES,
+                                       generator=torch.Generator().manual_seed(1))
+    n_params = sum(p.numel() for p in model.parameters())
+    if (n_params, len(list(model.parameters()))) != (R18_PARAMS, R18_LEAVES):
+        fail(f"ResNet-18 has {n_params} params, expected {R18_PARAMS}")
+    path = os.path.join(tmp, f"resnet18_pretrained_{nproc}.pt")
+    params = export_pretrained(model, model.state_dict(), path)
+    args = ft_args("--kernels", "--zero1", "--grad-compress", "int8",
+                   "--grad-compress-error-feedback", "--freeze", "head",
+                   "--pretrained-dir", path, "--dist-backend", backend,
+                   classes=FT_PRETRAIN_CLASSES, model="resnet18",
+                   steps_per_epoch=FT_RANK_STEPS_PER_EPOCH, nproc=nproc)
+    label = f"ft_ranks{nproc}_{backend}"
+    metrics, same = launch_dp(tmp, label, args, nproc, phase="19d", deterministic=True)
+    weights = rank_weights(tmp, label, nproc)
+    steps = FT_EPOCHS * FT_RANK_STEPS_PER_EPOCH
+    want = {name: 0 for name in metrics[0]["launches"]}
+    want.update({k: v * steps for k, v in zero1_launches(nproc, True).items()})
+    wire = {k: v * steps for k, v in ring_wire_calls(nproc, True, True).items()}
+    frozen_same = all(same_bits(w[n], p.detach() + 0.0) for w in weights
+                      for n, p in params.items() if not n.startswith("head."))
+    losses = metrics[0]["step_losses"]
+    print(f"  launches on rank 0 {metrics[0]['launches']} (expected {want}); wire "
+          f"calls {metrics[0]['wire_calls']}; replicas bitwise equal {same}; frozen "
+          f"params the file's on every rank {frozen_same}; losses "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f}; steady step per rank "
+          + " / ".join(f"{x['steady_step_ms']:.3f}" for x in metrics) + " ms",
+          flush=True)
+    for r, m in enumerate(metrics):
+        if m["launches"] != want or m["wire_calls"] != wire:
+            fail(f"fine-tune rank {r}: launches {m['launches']}, wire calls "
+                 f"{m['wire_calls']}; expected {want}, {wire}")
+        if m["steps"] != steps:
+            fail(f"fine-tune rank {r} ran {m['steps']} steps, expected {steps}")
+    if not same or not frozen_same:
+        fail("the fine-tune's replicas differ, or a frozen param moved")
+    if not all(math.isfinite(x) for x in losses):
+        fail("the ranks' fine-tune losses are not finite")
+    return metrics
+
+
+def phase_finetune_timing(results, runs):
+    """Phase 19 (e): K1 at ResNet-50's 161 leaves under the fine-tune's
+    recipe (SGD, momentum 0.9), all trainable (phase 19a) and head-only
+    (19b), each beside its plain version, ``torch._fused_sgd_`` over the
+    trainable leaves and its bound."""
+    print("phase 19e: K1 at ResNet-50's 161 leaves, SGD + momentum (CUDA events; "
+          "ms per step)", flush=True)
+    named = resnet_leaf_shapes("resnet50", FT_CLASSES, R50_LEAVES)
+    shapes = [s for _, s in named]
+    return [
+        k1_row("fused_update[sgd_mom,resnet50]", "sgd_mom", shapes, "resnet50", 200,
+               runs["pretrain"]["launches"]["fused_update"], results,
+               "resnet50 161 leaves (23,506,499), all trainable"),
+        k1_row("fused_update[sgd_mom,resnet50 head-only]", "sgd_mom", shapes,
+               "resnet50_head", 200, runs["finetune"]["launches"]["fused_update"], results,
+               "resnet50 161 leaves, 159 frozen (23,500,352), head trainable (6,147)",
+               frozen=[f for _, f in head_only(named)]),
+    ]
+
+
 def nccl_main(nproc):
     """``python3 chip_smoke.py --nccl N`` on a machine with N cards: phase
     10 with NetResDeep's chunks at N ranks, then phases 12, 14, 17's
     resume (``phase_checkpoint_dp``) and 18c at N ranks, one card each, over
-    NCCL (the default backend on cuda)."""
+    NCCL (the default backend on cuda), and 19d's fine-tune at N ranks."""
     import shutil
     import tempfile
 
@@ -2538,6 +2945,7 @@ def nccl_main(nproc):
         phase_zero1_dp(tmp, nproc, "nccl")
         phase_checkpoint_dp(tmp, nproc, "nccl")
         phase_lm_ranks(tmp, nproc, "nccl")
+        phase_finetune_ranks(tmp, nproc, "nccl")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"chip_smoke --nccl {nproc}: ok", flush=True)
@@ -2581,13 +2989,16 @@ def main():
 
     results = phase_kernel_vs_plain()
     masked_results = phase_masked_vs_plain()
+    stamp("phases 1-3b")
     args, metrics, launches = phase_main_path()
     phase_plain_same_steps(args, metrics)
     rows = phase_timing(results, launches)
+    stamp("phases 4-6")
     flash_results = phase_flash_vs_plain()
     vit_runs = phase_vit_main_path()
     rows += phase_flash_timing({"k1": results, "flash": flash_results},
                                vit_runs["flash"][1])
+    stamp("phases 7-9")
     for attention, (m, _) in vit_runs.items():
         print(f"ViT-S/4 --attention {attention}: steady-state images/sec/chip "
               f"{m['images_per_sec_per_chip']:.1f}", flush=True)
@@ -2596,9 +3007,12 @@ def main():
     tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
     try:
         phase_ring_on_card(tmp)
+        stamp("phases 10-11")
         dp_runs = phase_dp_main_path(tmp)
+        stamp("phase 12")
         zero1_runs = phase_zero1_dp(tmp)
         zero1_runs.update(phase_zero1_vit(tmp))
+        stamp("phases 14-15")
         t17 = time.perf_counter()
         phase_checkpoint_dp(tmp)
         phase_checkpoint_sigterm(tmp)
@@ -2614,14 +3028,26 @@ def main():
         torch.cuda.empty_cache()
         phase_lm_ranks(tmp)
         print(f"phase 18 (a)-(c) took {time.perf_counter() - t18:.1f} s", flush=True)
+        t19 = time.perf_counter()
+        torch.backends.cudnn.deterministic = True
+        try:
+            ft_runs = phase_finetune(tmp, smi)
+            phase_finetune_ranks(tmp)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        print(f"phase 19 (a)-(d) took {time.perf_counter() - t19:.1f} s", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    stamp("phases 17-19 (a)-(d)")
     print_accounting()
     rows += phase_lm_timing(results, flash_results, lm_runs["flash"]["launches"])
+    rows += phase_finetune_timing(results, ft_runs)
+    stamp("phases 18d and 19e")
     rows += phase_quant_timing(quant_err, dp_runs)
     rows += phase_masked_timing(masked_results, {
         "netresdeep": zero1_runs["zero1"][0]["launches"]["fused_update"],
         "vit_s4": zero1_runs["vit_zero1"][0]["launches"]["fused_update"]})
+    stamp("phases 13 and 16")
     for name, ms in (("int8 ring", dp_runs["int8"]), ("plain DP", dp_runs["plain"])):
         print(f"NetResDeep on two ranks, {name}: steady-state step time per rank "
               f"{ms[0]['steady_step_ms']:.4f} / {ms[1]['steady_step_ms']:.4f} ms",

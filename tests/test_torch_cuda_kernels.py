@@ -8,7 +8,8 @@ machine with
 
 (``chip_smoke.py`` holds the kernels to the same comparisons at the main
 path's sizes.) K1 runs every leaf of a step in one launch, ZeRO-1's
-shards with their pad mask too. K1, K2 and K3
+shards with their pad mask too, and frozen leaves (``--freeze``) in the
+same launches. K1, K2 and K3
 are held bitwise (K2's int8 bytes of a block
 whose scale is not finite excepted: there the scales agree and the block
 dequantizes non-finite); K4-K6 are held to the tolerances of ``tests/test_ops.py``:
@@ -149,6 +150,58 @@ def test_masked_kernel_bitwise_equal_to_plain(cuda, kind, momentum, ema, step_co
                 assert torch.equal(lf[k], w[k]), k
         assert not bool(lf["u"][live:].view(torch.int32).any())       # +0.0
         assert torch.equal(lf["p"][live:], w["p0"][live:] + 0.0)
+
+
+@pytest.mark.parametrize("kind,momentum,ema,step_const,wd,clip", [
+    ("sgd", 0.9, 0.0, -0.01, 0.0, False), ("sgd", 0.9, 0.99, None, 5e-4, True),
+    ("adamw", 0.0, 0.99, -0.001, 0.05, True)])
+def test_frozen_rows_bitwise_equal_to_plain(cuda, kind, momentum, ema, step_const,
+                                            wd, clip):
+    """K1's frozen rows (``--freeze``) beside trainable ones, unpadded and as
+    ZeRO-1 shards with a live pad mask, 130 leaves in two launches: each
+    frozen leaf bitwise ``update_math_frozen`` (u +0.0, p + 0.0 turning -0.0
+    into +0.0, the EMA of p + 0.0), each trainable one ``update_math_masked``."""
+    from tpu_ddp_torch.ops.fused_update import update_math_frozen, update_math_masked
+
+    cfg = LeafConfig(kind=kind, momentum=momentum, wd=wd, wd_apply=wd > 0,
+                     has_clip=clip, max_norm=1.0, step_const=step_const,
+                     ema_decay=ema, b1=0.9, b2=0.999, eps=1e-8)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    t = lambda n, o: torch.randn(n + o, generator=gen, device=cuda)[o:]  # noqa: E731
+    specs = [(size, o, valid, i % 3 != 2) for i, (size, o, valid) in enumerate(
+        [(4096, 0, 4096), (1003, 1, 1003), (65_541, 0, 65_541), (1022, 0, 1019),
+         (7, 3, 7), (16_385, 0, 16_380)] * 21 + [(33, 0, 30)] * 4)]
+    leaves, want = [], []
+    scalars = torch.tensor([3.0, -0.007, 0.271, 0.002997], device=cuda)
+    for size, o, valid, frozen in specs:
+        lf = dict(g=t(size, o), p=t(size, o), m=None if frozen else t(size, o),
+                  v=None if frozen else t(size, o).abs(), e=t(size, o),
+                  u=torch.empty(size + o, device=cuda)[o:])
+        lf["p"][::5] = -0.0
+        if frozen:
+            u, p, m, v, e = update_math_frozen(lf["p"], lf["e"] if ema else None, cfg)
+        else:
+            u, p, m, v, e = update_math_masked(
+                lf["g"], lf["p"], lf["m"] if cfg.has_m else None,
+                lf["v"] if cfg.has_v else None, lf["e"] if ema else None, scalars,
+                cfg, start=0, mask_size=valid if valid < size else None)
+        leaves.append(lf)
+        want.append(dict(u=u, p=p, m=m, v=v, e=e if ema else None))
+    ops.reset_launch_counts()
+    batch = LeafBatch(*([lf[k] for lf in leaves] for k in "pmve"), cfg,
+                      [cfg.wd_apply] * len(leaves), us=[lf["u"] for lf in leaves],
+                      valid=[v for _, _, v, _ in specs],
+                      frozen=[f for _, _, _, f in specs])
+    batch.run([lf["g"] for lf in leaves], scalars)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_update"] == 2
+    bits = lambda x: x.contiguous().view(torch.int32)  # noqa: E731
+    for lf, w, (_, _, _, frozen) in zip(leaves, want, specs):
+        for k in "upmve":
+            if w[k] is not None:
+                assert torch.equal(bits(lf[k]), bits(w[k])), k
+        if frozen:
+            assert not bool(lf["u"].view(torch.int32).any())           # +0.0
 
 
 def test_train_step_launches_k1_once_a_step(cuda):

@@ -19,7 +19,11 @@ Flax tree, so each leaf maps by path:
 
 Every param-shaped optimizer slot (SGD trace, AdamW mu/nu, EMA) maps the
 same way; the optax state is read by its field names (``trace``, ``mu``,
-``nu``, ``count``, ``ema``), not by importing optax. Under ZeRO-1,
+``nu``, ``count``, ``ema``), not by importing optax. A freeze's
+``multi_transform`` state is walked too: its ``inner_states`` dict of
+``MaskedState``s, whose slots hold ``MaskedNode`` (an empty NamedTuple) at
+the frozen leaves, which are skipped, so a frozen leaf gets no slot, as in
+the port (``train/optim.py``). Under ZeRO-1,
 ``parallel/zero.py``'s ``Zero1Partition.shard_opt_state`` lays the converted
 state out in a rank's shards and ``deshard_opt_state`` brings it back.
 Used by tests; reads nothing from the network.
@@ -57,6 +61,8 @@ def convert_tree(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
     out = {}
     for key, value in tree.items():
         path = f"{prefix}.{key}" if prefix else str(key)
+        if getattr(value, "_fields", None) == ():      # optax MaskedNode
+            continue
         if isinstance(value, dict) or hasattr(value, "items"):
             out.update(convert_tree(value, path))
         else:
@@ -82,6 +88,8 @@ def _walk_opt_state(node, state: OptState) -> None:
                     if f not in ("trace", "mu", "nu", "ema", "count")]
     elif isinstance(node, (tuple, list)):
         children = list(node)
+    elif isinstance(node, dict):                 # multi_transform's partitions
+        children = list(node.values())
     else:
         return
     for child in children:

@@ -33,12 +33,15 @@ from tpu_ddp_torch.models.initializers import kaiming_normal_relu_, torch_defaul
 class BatchNorm(nn.Module):
     """Flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over NCHW input,
     with Flax's biased fast-form variance in both the normalisation and the
-    running buffer."""
+    running buffer. ``scale_init`` is the scale's constant initial value:
+    NetResDeep's 0.5 by default; the ResNet family's 1.0, and 0.0 for the
+    last BatchNorm of a residual branch."""
 
-    def __init__(self, n_chans: int, momentum: float = 0.9, eps: float = 1e-5):
+    def __init__(self, n_chans: int, momentum: float = 0.9, eps: float = 1e-5,
+                 scale_init: float = 0.5):
         super().__init__()
         self.momentum, self.eps = momentum, eps
-        self.weight = nn.Parameter(torch.full((n_chans,), 0.5))   # scale init 0.5
+        self.weight = nn.Parameter(torch.full((n_chans,), float(scale_init)))
         self.bias = nn.Parameter(torch.zeros(n_chans))
         self.register_buffer("running_mean", torch.zeros(n_chans))
         self.register_buffer("running_var", torch.ones(n_chans))

@@ -9,15 +9,18 @@
 // the EMA of the new params, and under ZeRO-1 the pad mask
 // (_build_kernel :205-210): a shard's elements past its leaf's real size
 // get u = +0.0 and p + 0.0, while m, v and the EMA still see the unmasked
-// u. The arithmetic follows _update_math (fused_update.py:116-151)
-// operation for operation, and tpu_ddp_torch/ops/fused_update.py's
-// update_math (and update_math_masked, with the mask) is its plain PyTorch
+// u. A frozen leaf (the labeler's "frozen" partition, optax set_to_zero;
+// the JAX fused path's :453-461) gets u = +0.0, p = p + 0.0 and, with the
+// EMA, e = d * e + (1 - d) * (p + 0.0); its g, m and v are not read. The
+// arithmetic follows _update_math (fused_update.py:116-151) operation for
+// operation, and tpu_ddp_torch/ops/fused_update.py's update_math (with the
+// mask update_math_masked, frozen update_math_frozen) is its plain PyTorch
 // version.
 //
 // What bounds it: device-memory bandwidth. Per element it moves 16 bytes for
 // the reference recipe (read g, p; write u, p), 24 with momentum, 32 for
 // AdamW, and 8 more with the EMA (16-40 bytes), against a handful of float
-// operations. At the main paths' sizes (76,074 and 2,693,194 elements) those
+// operations; a frozen leaf 12 (read p; write p, u), 20 with the EMA. At the main paths' sizes (76,074 and 2,693,194 elements) those
 // bytes take well under 30 us, so what a step waits for is the launch: on
 // the TPU XLA fuses the per-leaf calls into one program, under eager PyTorch
 // each one was a host round trip and a tiny grid.
@@ -37,7 +40,10 @@
 // written once; p, m, v and e are updated in place, u goes to its own
 // buffer. The flags common to the step (AdamW, momentum, clip, EMA, constant
 // step) are template parameters; weight decay and the mask are per leaf, so
-// each block picks one of four instantiations of the same chunk loop. The
+// each block picks one of four instantiations of the same chunk loop, or the
+// frozen loop, which moves only p, u and e: a fine-tune that trains the head
+// alone pays 12 of the 24 bytes an element of SGD with momentum, in the
+// same launches as the trainable leaves. The
 // mask's ZeRO-1 form: a shard of a padded leaf holds `valid` live elements
 // (its leaf's real size less the shard's start, clamped to [0, n]), then
 // pad. Only a block whose chunk reaches past `valid` runs the masked loop,
@@ -80,8 +86,9 @@ enum : int {
   kNumVariants = 64,
 };
 
-// Per-leaf flags of a table entry (the Python plan's VEC, WD_APPLY and MASK).
-enum : int { kLeafVec = 1, kLeafWdApply = 2, kLeafMask = 4 };
+// Per-leaf flags of a table entry (the Python plan's VEC, WD_APPLY, MASK and
+// FROZEN).
+enum : int { kLeafVec = 1, kLeafWdApply = 2, kLeafMask = 4, kLeafFrozen = 8 };
 
 constexpr int kThreads = 256;
 // Elements one block covers; a multiple of 4, so every chunk of an aligned
@@ -131,7 +138,7 @@ struct Leaf {
   float *p, *m, *v, *e, *u;
   long long n;
   int first_block;  // the leaf's first block in the launch's grid
-  int flags;        // kLeafVec | kLeafWdApply | kLeafMask
+  int flags;        // kLeafVec | kLeafWdApply | kLeafMask | kLeafFrozen
   long long valid;  // elements [0, valid) are live, the rest pad (n: no pad)
 };
 
@@ -203,6 +210,45 @@ __device__ __forceinline__ void update_chunk(const Leaf& L, long long begin,
   }
 }
 
+// Elements [begin, end) of a frozen leaf: u = +0.0, p = p + 0.0 (a -0.0
+// becomes +0.0, as p + zeros does) and, under kEma, the EMA of p + 0.0. g, m
+// and v are not read; the pad mask changes nothing here (u is zero).
+template <int F>
+__device__ __forceinline__ void frozen_chunk(const Leaf& L, long long begin,
+                                             long long end, bool vec,
+                                             const Consts& c) {
+  constexpr bool kHasE = (F & kEma) != 0;
+  float* __restrict__ p = L.p;
+  float* __restrict__ e = L.e;
+  float* __restrict__ u = L.u;
+  const long long vec_end = vec ? begin + (end - begin) / 4 * 4 : begin;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (long long i4 = begin / 4 + threadIdx.x; i4 < vec_end / 4; i4 += kThreads) {
+    float4 pv = reinterpret_cast<float4*>(p)[i4];
+    pv.x = pv.x + 0.0f;
+    pv.y = pv.y + 0.0f;
+    pv.z = pv.z + 0.0f;
+    pv.w = pv.w + 0.0f;
+    reinterpret_cast<float4*>(u)[i4] = zero;
+    reinterpret_cast<float4*>(p)[i4] = pv;
+    if (kHasE) {
+      float4 ev = reinterpret_cast<float4*>(e)[i4];
+      ev.x = c.ema_decay * ev.x + c.one_minus_ema * pv.x;
+      ev.y = c.ema_decay * ev.y + c.one_minus_ema * pv.y;
+      ev.z = c.ema_decay * ev.z + c.one_minus_ema * pv.z;
+      ev.w = c.ema_decay * ev.w + c.one_minus_ema * pv.w;
+      reinterpret_cast<float4*>(e)[i4] = ev;
+    }
+  }
+  for (long long i = vec_end + threadIdx.x; i < end; i += kThreads) {
+    const float pi = p[i] + 0.0f;
+    u[i] = 0.0f;
+    p[i] = pi;
+    if (kHasE) e[i] = c.ema_decay * e[i] + c.one_minus_ema * pi;
+  }
+}
+
 // One block per (leaf, chunk); F holds the step's flags (never kDecay).
 // A block runs the masked loop only if its leaf has a pad and its chunk
 // reaches past the leaf's live elements.
@@ -221,6 +267,10 @@ __global__ void __launch_bounds__(kThreads)
   const long long begin = static_cast<long long>(b - L.first_block) * kChunk;
   const long long end = begin + kChunk < L.n ? begin + kChunk : L.n;
   const bool vec = (L.flags & kLeafVec) != 0;
+  if (L.flags & kLeafFrozen) {
+    frozen_chunk<F>(L, begin, end, vec, c);
+    return;
+  }
   const bool mask = (L.flags & kLeafMask) != 0 && end > L.valid;
   const float g_norm = scalars[0];
   const float step = scalars[1];
@@ -264,7 +314,8 @@ extern "C" {
 
 // One launch over `leaves` table rows (at most kMaxLeaves) and `blocks`
 // blocks. A row is kCols int64: g, p, m, v, e, u (addresses; 0 where the
-// recipe has no such slot), n, first block, flags, live elements. Returns
+// recipe has no such slot, and g, m, v of a frozen row), n, first block,
+// flags, live elements. Returns
 // cudaGetLastError() after the launch (0 on success).
 int tpu_ddp_fused_update(const long long* rows, int leaves, int blocks,
                          const float* scalars, int adamw, int momentum_on,

@@ -14,6 +14,9 @@ covers up to ``MAX_LEAVES`` leaves.
   (:274) does: on a shard that starts at element ``start`` of a leaf of
   ``mask_size`` real elements, ``u`` is zero wherever
   ``start + i >= mask_size``, after the EMA has seen it.
+  ``update_math_frozen`` is a frozen leaf's (the JAX package's
+  ``set_to_zero`` branch, :453-461): ``u = 0``, ``p + u`` and the EMA of
+  ``p + u``; the gradient and the moments are not read.
 * ``LeafBatch`` is the wrapper: one step's leaves, validated, planned
   (``chunk_plan``) and given one ``u`` buffer once; ``run(grads, scalars)``
   then checks the grads in one pass and, for CUDA tensors, launches the
@@ -31,9 +34,10 @@ covers up to ``MAX_LEAVES`` leaves.
   the device and yields one float32[4] device tensor, so the step never
   waits for the host. ``FusedUpdate.apply_sharded`` is the ZeRO-1 form
   (JAX :371): the same pass over this rank's shards, with the pad mask and
-  the clip's norm that the caller summed over the ranks.
-
-Not ported yet: frozen leaves (``labeler``).
+  the clip's norm that the caller summed over the ranks. Both take a
+  ``frozen`` mask (``train/optim.py``'s freeze predicate): frozen leaves get
+  the kernel's ``FROZEN`` rows in the same launches, and the clip's norm
+  covers the trainable gradients only (JAX :415).
 """
 
 from __future__ import annotations
@@ -59,10 +63,10 @@ MAX_LEAVES = 128
 #: chunk of an aligned leaf starts on a 16-byte boundary)
 CHUNK = 16384
 #: columns of a row of the kernel's leaf table (``kCols``), and its flags
-#: (``kLeafVec``, ``kLeafWdApply``, ``kLeafMask``)
+#: (``kLeafVec``, ``kLeafWdApply``, ``kLeafMask``, ``kLeafFrozen``)
 G, P, M, V, E, U, N, FIRST_BLOCK, FLAGS, VALID = range(10)
 COLS = 10
-VEC, WD_APPLY, MASK = 1, 2, 4
+VEC, WD_APPLY, MASK, FROZEN = 1, 2, 4, 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,6 +171,19 @@ def update_math_masked(g, p, m, v, e, scalars: torch.Tensor, cfg: LeafConfig,
     return u, p + u, m_new, v_new, e_new
 
 
+def update_math_frozen(p, e, cfg: LeafConfig):
+    """A frozen leaf's update, as the JAX package's fused path computes it
+    (:453-461, optax ``set_to_zero`` inside ``multi_transform``): ``u`` is
+    zeros, the param ``p + u`` (so ``-0.0`` becomes ``+0.0``), and the EMA,
+    outermost, still sees ``p + u``. Returns ``(u, p + u, None, None,
+    e_new)``, the shape of ``update_math_masked``'s result."""
+    u = torch.zeros_like(p)
+    e_new = None
+    if cfg.ema_decay:
+        e_new = cfg.ema_decay * e + (1.0 - cfg.ema_decay) * (p + u)
+    return u, p + u, None, None, e_new
+
+
 # --------------------------------------------------------------------------
 # the launch plan
 # --------------------------------------------------------------------------
@@ -228,7 +245,10 @@ class LeafBatch:
     ``cfg`` has no such slot); ``cfg`` holds the flags common to the step
     (its ``wd_apply`` is not read), ``wd_apply`` the decay flag of each
     leaf, ``valid`` (None: every element) each leaf's live elements: under
-    ZeRO-1's pad mask ``u`` is zero past them (``shard_valid``). ``us`` are the output buffers; without them the batch makes one
+    ZeRO-1's pad mask ``u`` is zero past them (``shard_valid``).
+    ``frozen`` (None: none) marks the frozen leaves, which take
+    ``update_math_frozen``: their grads are not read and they have no m or
+    v (those given are ignored). ``us`` are the output buffers; without them the batch makes one
     buffer for all leaves, each leaf's slice starting on a 16-byte
     boundary, and ``us`` are its per-leaf views. ``run`` overwrites
     them, so they hold the last step's updates only.
@@ -239,7 +259,8 @@ class LeafBatch:
     def __init__(self, ps: Sequence[torch.Tensor], ms, vs, es,
                  cfg: LeafConfig, wd_apply: Sequence[bool],
                  us: Optional[Sequence[torch.Tensor]] = None,
-                 valid: Optional[Sequence[int]] = None):
+                 valid: Optional[Sequence[int]] = None,
+                 frozen: Optional[Sequence[bool]] = None):
         n_leaves = len(ps)
         self.cfg = cfg
         self.device = ps[0].device if n_leaves else torch.device("cpu")
@@ -250,6 +271,11 @@ class LeafBatch:
         self.ms = list(ms or none) if cfg.has_m else none
         self.vs = list(vs or none) if cfg.has_v else none
         self.es = list(es or none) if cfg.ema_decay else none
+        self.frozen = [bool(f) for f in (frozen or [False] * n_leaves)]
+        if len(self.frozen) != n_leaves:
+            raise ValueError("fused_update_: frozen needs one flag a leaf")
+        for i in (i for i, f in enumerate(self.frozen) if f):
+            self.ms[i] = self.vs[i] = None
         self.sizes = tuple(p.numel() for p in self.ps)
         self.valid = list(self.sizes if valid is None else valid)
         if len(self.valid) != n_leaves or not all(
@@ -275,7 +301,9 @@ class LeafBatch:
             if len(tensors) != n_leaves:
                 raise ValueError(f"fused_update_: {len(tensors)} {name} "
                                  f"operands for {n_leaves} leaves")
-            for t, n in zip(tensors, self.sizes):
+            for t, n, cold in zip(tensors, self.sizes, self.frozen):
+                if cold and name in ("m", "v"):
+                    continue
                 err = _operand_error(name, t, n, self.device)
                 if err:
                     raise ValueError(f"fused_update_: {err}")
@@ -287,7 +315,8 @@ class LeafBatch:
         self._starts = {r[0] for r in ranges}
         self.plan = chunk_plan(self.sizes)
         self.rows = [i for launch in self.plan for i in launch.leaves]
-        self.wd_apply = [bool(f and cfg.wd > 0) for f in wd_apply]
+        self.wd_apply = [bool(f and cfg.wd > 0 and not cold)
+                         for f, cold in zip(wd_apply, self.frozen)]
         self._cfgs = [dataclasses.replace(cfg, wd_apply=w) for w in self.wd_apply]
         self._build_table()
 
@@ -304,8 +333,10 @@ class LeafBatch:
             self.table[r, VALID] = self.valid[i]
             self.table[r, FLAGS] = ((VEC if vec_flag([ptr(t) for t in ops_]) else 0)
                                     | (WD_APPLY if self.wd_apply[i] else 0)
-                                    | (MASK if self.valid[i] < self.sizes[i] else 0))
+                                    | (MASK if self.valid[i] < self.sizes[i] else 0)
+                                    | (FROZEN if self.frozen[i] else 0))
         self._flags = self.table[:, FLAGS].copy()
+        self._frozen_rows = np.array([self.frozen[i] for i in self.rows], dtype=bool)
         self._launches, row = [], 0
         for launch in self.plan:
             k = len(launch.leaves)
@@ -351,11 +382,14 @@ class LeafBatch:
         for i, g in enumerate(gs):
             p, m, v, e, u = self.ps[i], self.ms[i], self.vs[i], self.es[i], self.us[i]
             live = self.valid[i]
-            u_new, p_new, m_new, v_new, e_new = update_math_masked(
-                g.reshape(-1), p.reshape(-1),
-                *(None if t is None else t.reshape(-1) for t in (m, v, e)),
-                scalars, self._cfgs[i], start=0,
-                mask_size=live if live < self.sizes[i] else None)
+            flat = [None if t is None else t.reshape(-1) for t in (g, p, m, v, e)]
+            if self.frozen[i]:
+                u_new, p_new, m_new, v_new, e_new = update_math_frozen(
+                    flat[1], flat[4], self._cfgs[i])
+            else:
+                u_new, p_new, m_new, v_new, e_new = update_math_masked(
+                    *flat, scalars, self._cfgs[i], start=0,
+                    mask_size=live if live < self.sizes[i] else None)
             u.copy_(u_new.view(u.shape))
             p.copy_(p_new.view(p.shape))
             for buf, new in ((m, m_new), (v, v_new), (e, e_new)):
@@ -366,12 +400,13 @@ class LeafBatch:
         """The kernel's leaf table for this step's grads: one row a
         non-empty leaf, in launch order (columns ``G`` to ``FLAGS``); a
         leaf's ``VEC`` flag holds only if all six of its operands, this
-        step's grad too, are 16-byte aligned."""
+        step's grad too, are 16-byte aligned. A frozen row's grad address
+        is 0: the kernel does not read it."""
         gp = [gs[i].data_ptr() for i in self.rows]
         if not self._starts.isdisjoint(gp):
             raise ValueError("fused_update_: operands must not share storage")
         tab = self.table
-        tab[:, G] = gp
+        tab[:, G] = np.where(self._frozen_rows, 0, gp)
         tab[:, FLAGS] = np.where(tab[:, G] % 16 == 0, self._flags, self._flags & ~VEC)
         return tab
 
@@ -403,19 +438,21 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 def prologue(recipe: UpdateRecipe, grads, opt_state,
-             g_norm: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``[g_norm, step, bc1, bc2]`` as one float32[4] tensor on the grads'
-    device, from torch ops only, with no host sync. Under clipping the norm
-    is ``g_norm`` when the caller gives it (ZeRO-1's, summed over the
-    ranks), else ``global_norm`` of ``grads``."""
+             g_norm: Optional[torch.Tensor] = None,
+             device: Optional[torch.device] = None) -> torch.Tensor:
+    """``[g_norm, step, bc1, bc2]`` as one float32[4] tensor on ``device``
+    (default: the grads'), from torch ops only, with no host sync. Under
+    clipping the norm is ``g_norm`` when the caller gives it (ZeRO-1's,
+    summed over the ranks), else ``global_norm`` of ``grads`` (the trainable
+    ones; none gives 0, as optax's norm of an empty tree)."""
     grads = list(grads)
-    dev = grads[0].device
+    dev = device if device is not None else grads[0].device
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     one = torch.ones((), dtype=torch.float32, device=dev)
     if recipe.grad_clip_norm <= 0:
         g_norm = zero
     elif g_norm is None:
-        g_norm = global_norm(grads)
+        g_norm = global_norm(grads) if grads else zero
     step = -1 * recipe.lr(opt_state.sched_count) if callable(recipe.lr) else zero
     bc1 = bc2 = one
     if recipe.optimizer == "adamw":
@@ -427,9 +464,11 @@ def prologue(recipe: UpdateRecipe, grads, opt_state,
 
 class FusedUpdate:
     """Drives K1 over a parameter dict: ``apply(grads, opt_state, params,
-    wd_mask)`` updates ``params`` and ``opt_state`` in place and returns the
-    updates. ``opt_state`` is ``tpu_ddp_torch.train.optim.OptState``;
-    ``wd_mask`` names the leaves weight decay applies to.
+    wd_mask, frozen)`` updates ``params`` and ``opt_state`` in place and
+    returns the updates. ``opt_state`` is
+    ``tpu_ddp_torch.train.optim.OptState``; ``wd_mask`` names the leaves
+    weight decay applies to, ``frozen`` (None: none) the frozen ones, which
+    have no m or v slot.
     ``apply_sharded(gsh, opt_state, psh, partition)`` is the same on this
     rank's ZeRO-1 shards (``parallel/zero.py``), with the pad mask.
 
@@ -450,19 +489,20 @@ class FusedUpdate:
 
     def _slots(self, opt_state, names):
         r = self.recipe
-        pick = lambda d: None if d is None else [d[n] for n in names]  # noqa: E731
+        pick = lambda d: None if d is None else [d.get(n) for n in names]  # noqa: E731
         if r.optimizer == "adamw":
             return pick(opt_state.mu), pick(opt_state.nu), pick(opt_state.ema)
         return pick(opt_state.trace if r.momentum > 0 else None), None, \
             pick(opt_state.ema)
 
-    def _unchanged(self, opt_state, params, wd_mask, valid) -> bool:
+    def _unchanged(self, opt_state, params, wd_mask, valid, frozen) -> bool:
         """Whether the cached batch still holds these tensors: the same
         names, the same param and slot tensors (an identity test) and the
-        params at the same addresses, under the same decay mask and live
-        counts."""
-        names, ps, p_ptrs, mask, live = self._key
+        params at the same addresses, under the same decay mask, live
+        counts and frozen mask."""
+        names, ps, p_ptrs, mask, live, cold = self._key
         if (list(params) != names or wd_mask != mask or valid != live
+                or frozen != cold
                 or not all(map(operator.is_, params.values(), ps))
                 or list(map(torch.Tensor.data_ptr, ps)) != p_ptrs):
             return False
@@ -471,25 +511,26 @@ class FusedUpdate:
                    for cached, now in zip((b.ms, b.vs, b.es),
                                           self._slots(opt_state, names)))
 
-    def _batch_for(self, opt_state, params, wd_mask, valid) -> LeafBatch:
+    def _batch_for(self, opt_state, params, wd_mask, valid, frozen) -> LeafBatch:
         """The cached batch, or a new one when ``_unchanged`` fails."""
         if self._batch is not None and self._unchanged(opt_state, params,
-                                                       wd_mask, valid):
+                                                       wd_mask, valid, frozen):
             return self._batch
         names = list(params)
         ps = [params[n] for n in names]
         ms, vs, es = self._slots(opt_state, names)
         cfg = LeafConfig.from_recipe(self.recipe, False)
         self._batch = LeafBatch(ps, ms, vs, es, cfg, [wd_mask[n] for n in names],
-                                valid=valid)
-        self._key = (names, ps, [p.data_ptr() for p in ps], dict(wd_mask), valid)
+                                valid=valid, frozen=[frozen[n] for n in names])
+        self._key = (names, ps, [p.data_ptr() for p in ps], dict(wd_mask), valid,
+                     dict(frozen))
         return self._batch
 
     @torch.no_grad()
     def apply(self, grads: Dict[str, torch.Tensor], opt_state,
-              params: Dict[str, torch.Tensor],
-              wd_mask: Dict[str, bool]) -> Dict[str, torch.Tensor]:
-        return self._run(grads, opt_state, params, wd_mask, None)
+              params: Dict[str, torch.Tensor], wd_mask: Dict[str, bool],
+              frozen: Optional[Dict[str, bool]] = None) -> Dict[str, torch.Tensor]:
+        return self._run(grads, opt_state, params, wd_mask, None, frozen)
 
     @torch.no_grad()
     def apply_sharded(self, gsh: Dict[str, torch.Tensor], opt_state,
@@ -499,19 +540,23 @@ class FusedUpdate:
         ``apply_sharded``, :371-376): ``gsh``, ``psh`` and ``opt_state``'s
         slots are the shards of ``partition`` (a ``Zero1Partition``), each
         leaf's pad masked by the kernel (``partition.valid()``), under the
-        decay mask of ``partition.tx``, taken from the original shapes.
-        ``g_norm`` is the clip's global norm, which the caller sums over
-        the ranks; a clipping recipe needs it. Returns the masked updates."""
+        decay mask and freeze predicate of ``partition.tx``, the decay mask
+        taken from the original shapes. ``g_norm`` is the clip's global
+        norm over the trainable shards, which the caller sums over the
+        ranks; a clipping recipe needs it. Returns the masked updates."""
         if self.recipe.grad_clip_norm > 0 and g_norm is None:
             raise ValueError("apply_sharded under clipping needs the global "
                              "norm over the ranks (g_norm)")
         return self._run(gsh, opt_state, psh, partition.tx.decay_mask,
-                         partition.valid(), g_norm)
+                         partition.valid(), partition.tx.frozen_mask(psh), g_norm)
 
-    def _run(self, grads, opt_state, params, wd_mask, valid, g_norm=None):
+    def _run(self, grads, opt_state, params, wd_mask, valid, frozen=None,
+             g_norm=None):
         r = self.recipe
-        scalars = prologue(r, grads.values(), opt_state, g_norm)
-        batch = self._batch_for(opt_state, params, wd_mask, valid)
+        frozen = frozen or {n: False for n in params}
+        scalars = prologue(r, [g for n, g in grads.items() if not frozen[n]],
+                           opt_state, g_norm, device=next(iter(params.values())).device)
+        batch = self._batch_for(opt_state, params, wd_mask, valid, frozen)
         names = self._key[0]
         if len(grads) != len(names):
             raise ValueError(f"fused update: {len(grads)} grads for "

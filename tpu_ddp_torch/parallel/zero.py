@@ -26,6 +26,13 @@ masks each shard's pad (its ``valid`` column). With a ``GradCompressor``
 attached (``set_compression``) the reduce-scatter is its quantized ring,
 one ring over all leaves, whose sum lands in the same gradient row.
 
+Freezing (``--freeze``, the optimizer's freeze predicate, keyed by leaf
+name as the JAX ``Zero1Partition``'s path-keyed labels are, :28-37): a frozen
+leaf has no slot in the sharded trace, mu or nu, whose rows lay out the
+trainable leaves alone; its shards go through K1's frozen rows (``u`` zero,
+whatever the pad mask says), and the clip's norm sums the trainable shards.
+The EMA row keeps every leaf.
+
 The ranks are the default process group's (the JAX package's ``data``
 axis); with one rank nothing here calls a collective.
 
@@ -112,6 +119,7 @@ class Zero1Partition:
         self.compress = None
         self._bufs: Optional[dict] = None
         self._seen: tuple = ()
+        self._layouts = {tuple(self.names): self.layout}
 
     def set_compression(self, compress) -> None:
         """Attach a ``GradCompressor``: the gradients' reduce-scatter then
@@ -181,10 +189,23 @@ class Zero1Partition:
                 self._bufs[key], self._bufs[key + "_views"] = self._new_row(device)
         return self._bufs
 
-    def _new_row(self, device) -> tuple:
-        """A fresh zero row of the layout and its per-leaf views."""
-        row = torch.zeros(self.layout.width, dtype=torch.float32, device=device)
-        return row, dict(zip(self.names, self.layout.views(row)))
+    def _layout_for(self, names) -> ChunkMajor:
+        """The chunk-major layout of the leaves ``names`` (in leaf order):
+        ``layout`` for all of them, else one of their own (the trainable
+        leaves' slots under a freeze)."""
+        key = tuple(names)
+        if key not in self._layouts:
+            self._layouts[key] = ChunkMajor(
+                [self.param_slots[n].size for n in key], self.n_shards)
+        return self._layouts[key]
+
+    def _new_row(self, device, names=None) -> tuple:
+        """A fresh zero row of the layout of ``names`` (default: every
+        leaf) and its per-leaf views."""
+        names = self.names if names is None else list(names)
+        layout = self._layout_for(names)
+        row = torch.zeros(layout.width, dtype=torch.float32, device=device)
+        return row, dict(zip(names, layout.views(row)))
 
     @torch.no_grad()
     def _slice_into(self, views: Tree, tree: Tree) -> None:
@@ -251,15 +272,19 @@ class Zero1Partition:
         """Per-rank shards -> the full original-shaped tree on every rank
         (one all-gather; a collective, every rank calls it). It is also the
         JAX ``deshard_params``: a rank holds only its own shards, so
-        de-sharding is a gather here."""
-        device = next(iter(shard_tree.values())).device
-        row, views = self._new_row(device)
+        de-sharding is a gather here. ``shard_tree`` may hold a subset of
+        the leaves (a slot of the trainable ones)."""
+        names = [n for n in self.names if n in shard_tree]
+        if not names:
+            return {}
+        device = shard_tree[names[0]].device
+        row, views = self._new_row(device, names)
         for n, view in views.items():
             view.copy_(shard_tree[n])
         rows = self._gather_rows(row)
-        out = {n: torch.empty(s.shape, dtype=torch.float32, device=device)
-               for n, s in self.param_slots.items()}
-        self.layout.unpack_(rows, [out[n] for n in self.names])
+        out = {n: torch.empty(self.param_slots[n].shape, dtype=torch.float32,
+                              device=device) for n in names}
+        self._layout_for(names).unpack_(rows, [out[n] for n in names])
         return out
 
     def sharded_update(self, grads: Tree, params: Tree, opt_state: OptState,
@@ -275,8 +300,12 @@ class Zero1Partition:
         psh = self.param_shards(params)
         fused = self.tx.fused
         if fused is not None:
-            g_norm = (sharded_global_norm(gsh.values())
-                      if self.tx.recipe.grad_clip_norm > 0 else None)
+            g_norm = None
+            if self.tx.recipe.grad_clip_norm > 0:      # over the trainable shards
+                frozen = self.tx.frozen_mask(psh)
+                tr = [g for n, g in gsh.items() if not frozen[n]]
+                g_norm = (sharded_global_norm(tr) if tr else
+                          torch.zeros((), device=next(iter(gsh.values())).device))
             updates = fused.apply_sharded(gsh, opt_state, psh, self, g_norm)
         else:
             updates = self.mask_pad(self.tx.update(gsh, opt_state, psh))
@@ -294,15 +323,24 @@ class Zero1Partition:
                  ["trace"] if r.momentum > 0 else [])
         return slots + (["ema"] if r.ema_decay else [])
 
+    def _slot_names(self, slot: str) -> List[str]:
+        """The leaves a slot holds: all for the EMA, the trainable ones
+        for the moments."""
+        if slot == "ema":
+            return self.names
+        frozen = self.tx.frozen_mask(self.param_slots)
+        return [n for n in self.names if not frozen[n]]
+
     def init_opt_state(self, params: Tree) -> OptState:
         """Fresh optimizer state built directly in shard space (the full
         replicated state is never made): zero moments, the EMA shadow from
-        this rank's slice of ``params``, one row of the layout a slot."""
+        this rank's slice of ``params``, one row a slot (of the slot's
+        leaves: ``_slot_names``)."""
         r = self.tx.recipe
         device = next(iter(params.values())).device
         state = OptState()
         for slot in self._sharded_slots():
-            _, views = self._new_row(device)
+            _, views = self._new_row(device, self._slot_names(slot))
             if slot == "ema":
                 self._slice_into(views, params)
             setattr(state, slot, views)
@@ -318,9 +356,11 @@ class Zero1Partition:
         the JAX package by ``checkpoint/convert.py::from_jax``) -> this
         rank's shard layout. No collective."""
         state = OptState()
+        device = next((t.device for slot in self._sharded_slots()
+                       for t in getattr(opt_state, slot).values()), None)
         for slot in self._sharded_slots():
             full = getattr(opt_state, slot)
-            _, views = self._new_row(next(iter(full.values())).device)
+            _, views = self._new_row(device, self._slot_names(slot))
             self._slice_into(views, full)
             setattr(state, slot, views)
         for slot in REPLICATED_SLOTS:
@@ -358,8 +398,9 @@ class Zero1Partition:
         the port's alignment gaps between leaves are not counted)."""
         r = self.tx.recipe
         repl = shard = pad = 0
-        for _ in self._sharded_slots():
-            for n, slot in self.param_slots.items():
+        for name in self._sharded_slots():
+            for n in self._slot_names(name):
+                slot = self.param_slots[n]
                 repl += slot.size * 4
                 shard += self.shard_size(n) * 4
                 pad += (slot.padded - slot.size) * 4

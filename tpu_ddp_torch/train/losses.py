@@ -1,9 +1,11 @@
-"""Masked cross-entropy and accuracy.
+"""Masked cross-entropy, binary cross-entropy and accuracy.
 
 Counterpart of ``tpu_ddp/train/losses.py`` (``cross_entropy_loss`` :20,
-``masked_accuracy`` :63): the reference's ``nn.CrossEntropyLoss()`` with an
-optional validity mask, so the wrap-padded rows of a static-shape batch do
-not count.
+``binary_cross_entropy_with_logits`` :39, ``masked_accuracy`` :63): the
+reference's ``nn.CrossEntropyLoss()`` with an optional validity mask, so the
+wrap-padded rows of a static-shape batch do not count, and the multi-label
+fine-tune's BCE on multi-hot targets (``ppe_main_ddp.py:147``), masked the
+same way.
 """
 
 from __future__ import annotations
@@ -30,6 +32,20 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
         return nll.mean()
     mask = mask.to(nll.dtype)
     return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+def binary_cross_entropy_with_logits(logits: torch.Tensor, targets: torch.Tensor,
+                                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean over classes, then over the (valid) rows, of the numerically
+    stable ``max(x, 0) - x * t + log1p(exp(-|x|))``, expression for
+    expression as the JAX function."""
+    per = (torch.clamp_min(logits, 0) - logits * targets
+           + torch.log1p(torch.exp(-torch.abs(logits))))
+    per = per.mean(dim=-1)
+    if mask is None:
+        return per.mean()
+    mask = mask.to(per.dtype)
+    return (per * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
 
 
 def masked_accuracy(logits: torch.Tensor, labels: torch.Tensor,

@@ -21,15 +21,25 @@ norm is summed over the ranks (``clip_by_global_norm_sharded``) and the
 decay mask must be given, computed from the original shapes
 (``decay_mask=``), because ``ndim`` means nothing on flat shards.
 
-Not ported yet (they raise ``NotImplementedError``): ``lamb`` and freeze
-masks.
+``freeze_predicate`` (``freeze_all_but`` builds one) freezes leaves by
+name, with the semantics of the JAX package's
+``optax.multi_transform({"trainable": tx, "frozen": set_to_zero()})``
+(:195-206): a frozen leaf has no trace, mu or nu slot; the clip's global
+norm runs over the trainable gradients only; a frozen leaf's update is
+``+0.0`` and its param becomes ``p + 0.0``; the EMA, outermost, still runs
+over every leaf, frozen ones with ``u = 0``; the step counts (AdamW's and the
+schedule's) live with the trainable leaves and move every step. Frozen
+leaves still get gradients, which the step computes and syncs as for any
+other leaf.
+
+Not ported yet (it raises ``NotImplementedError``): ``lamb``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -57,6 +67,20 @@ class OptState:
     mu: Optional[Params] = None
     nu: Optional[Params] = None
     ema: Optional[Params] = None
+
+
+def freeze_all_but(prefixes: Tuple[str, ...]) -> Callable:
+    """``predicate(name, leaf) -> True`` to freeze every param whose
+    top-level module name (the first dotted component of its name) starts
+    with none of ``prefixes``: ``freeze_all_but(("head",))`` trains only the
+    head (the JAX ``freeze_all_but``, :240)."""
+
+    def predicate(name: str, leaf) -> bool:
+        del leaf
+        top = name.split(".", 1)[0]
+        return not any(top.startswith(p) for p in prefixes)
+
+    return predicate
 
 
 def decay_mask(params: Params) -> Dict[str, bool]:
@@ -96,23 +120,39 @@ class Optimizer:
     updates`` (params and state updated in place). ``fused`` is the
     ``FusedUpdate`` that runs K1, when built with ``kernels=True``.
     ``decay_mask`` (None: ``ndim >= 2`` of the params given) names the
-    leaves weight decay applies to; ``zero1_axis`` (module docstring)."""
+    leaves weight decay applies to; ``zero1_axis`` and ``freeze_predicate``
+    (module docstring)."""
 
     def __init__(self, recipe: UpdateRecipe, kernels: bool = False,
                  decay_mask: Optional[Dict[str, bool]] = None,
-                 zero1_axis: Optional[str] = None):
+                 zero1_axis: Optional[str] = None,
+                 freeze_predicate: Optional[Callable] = None):
         self.recipe = recipe
         self.fused = FusedUpdate(recipe) if kernels else None
         self.decay_mask = decay_mask
         self.zero1_axis = zero1_axis
+        self.freeze_predicate = freeze_predicate
+        self._frozen: Tuple[tuple, Dict[str, bool]] = ((), {})
 
     def wd_mask(self, params: Params) -> Dict[str, bool]:
         return self.decay_mask if self.decay_mask is not None else decay_mask(params)
 
+    def frozen_mask(self, params: Params) -> Dict[str, bool]:
+        """``{name: frozen}`` over ``params``'s names (all False without a
+        freeze predicate), kept while the same names come back."""
+        names = tuple(params)
+        if names != self._frozen[0]:
+            pred = self.freeze_predicate
+            self._frozen = (names, {n: bool(pred and pred(n, params[n]))
+                                    for n in names})
+        return self._frozen[1]
+
     def init(self, params: Params) -> OptState:
         r = self.recipe
         dev = next(iter(params.values())).device
-        zeros = lambda: {n: torch.zeros_like(p) for n, p in params.items()}  # noqa: E731
+        frozen = self.frozen_mask(params)
+        zeros = lambda: {n: torch.zeros_like(p) for n, p in params.items()  # noqa: E731
+                         if not frozen[n]}
         count = lambda: torch.zeros((), dtype=torch.int32, device=dev)  # noqa: E731
         state = OptState()
         if r.optimizer == "adamw":
@@ -129,7 +169,8 @@ class Optimizer:
     def apply(self, grads: Params, state: OptState, params: Params) -> Params:
         mask = self.wd_mask(params)
         if self.fused is not None:
-            return self.fused.apply(grads, state, params, mask)
+            return self.fused.apply(grads, state, params, mask,
+                                    self.frozen_mask(params))
         u = self.update(grads, state, params)
         for n, x in u.items():                      # apply_updates
             params[n].copy_(params[n] + x)
@@ -139,12 +180,15 @@ class Optimizer:
     def update(self, grads: Params, state: OptState, params: Params) -> Params:
         """The plain chain, one stage at a time over all leaves, in the
         order ``make_optimizer`` chains the optax transforms: returns the
-        updates and moves ``state`` in place; ``params`` are read only."""
+        updates and moves ``state`` in place; ``params`` are read only. The
+        chain runs on the trainable leaves; frozen ones get zeros
+        (``set_to_zero``) before the EMA."""
         r = self.recipe
         wd = r.weight_decay
         mask = self.wd_mask(params)
-        u = dict(grads)
-        if r.grad_clip_norm > 0:
+        frozen = self.frozen_mask(grads)
+        u = {n: g for n, g in grads.items() if not frozen[n]}
+        if r.grad_clip_norm > 0 and u:
             if self.zero1_axis is not None:
                 from tpu_ddp_torch.parallel.zero import clip_by_global_norm_sharded
 
@@ -183,6 +227,8 @@ class Optimizer:
             state.sched_count += 1
         else:                                       # scale(-lr)
             u = {n: (-1 * r.lr) * x for n, x in u.items()}
+        u = {n: u[n] if n in u else torch.zeros_like(g)    # set_to_zero
+             for n, g in grads.items()}
         if r.ema_decay:                             # params_ema
             d = r.ema_decay
             for n, x in u.items():
@@ -206,8 +252,9 @@ def make_optimizer(
     kernels: bool = False,
 ) -> Optimizer:
     """The JAX ``make_optimizer``'s signature and semantics for this slice.
-    ``kernels=True`` sends every update through K1; ``decay_mask`` and
-    ``zero1_axis`` as in the module docstring."""
+    ``kernels=True`` sends every update through K1; ``decay_mask``,
+    ``zero1_axis`` and ``freeze_predicate(name, leaf) -> True to freeze`` as
+    in the module docstring."""
     if grad_clip_norm < 0:
         raise ValueError(f"grad_clip_norm must be >= 0, got {grad_clip_norm}")
     if zero1_axis is not None and optimizer == "lamb":
@@ -223,9 +270,6 @@ def make_optimizer(
     if optimizer == "lamb":
         raise NotImplementedError(
             "--optimizer lamb is not ported yet (later slice: model zoo)")
-    if freeze_predicate is not None:
-        raise NotImplementedError(
-            "freeze masks are not ported yet (later slice: fine-tuning)")
     if optimizer not in ("sgd", "adamw"):
         raise ValueError(f"unknown optimizer {optimizer!r}")
     if optimizer == "adamw" and momentum > 0:
@@ -247,4 +291,4 @@ def make_optimizer(
         ema_decay=ema_decay,
     )
     return Optimizer(recipe, kernels=kernels, decay_mask=decay_mask,
-                     zero1_axis=zero1_axis)
+                     zero1_axis=zero1_axis, freeze_predicate=freeze_predicate)

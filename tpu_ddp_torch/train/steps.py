@@ -22,6 +22,12 @@ stats), its local masked cross-entropy and the backward. Then:
 * ``loss`` is averaged over the ranks, ``accuracy`` is the summed correct
   count over the summed count (:318-329).
 
+Both builders take ``loss_fn`` (``cross_entropy_loss`` by default; the
+fine-tune's ``binary_cross_entropy_with_logits`` on multi-hot targets) and
+``compute_accuracy``, as the JAX builders do (:335, :659): without accuracy
+(BCE) the train step reports no ``accuracy`` and the eval step counts
+``correct = 0``.
+
 With one rank nothing of this runs a collective: the step is the
 single-device step. The metrics stay on the device; the caller fetches
 them when it needs them.
@@ -81,9 +87,11 @@ def sync_and_update(tx: Optimizer, state: TrainState, grads: Dict[str, torch.Ten
     state.step += 1
 
 
-def make_train_step(tx: Optimizer, *, compress=None,
-                    zero1=None) -> Callable[[TrainState, Batch], tuple]:
-    """``step(state, batch) -> (state, {"loss", "accuracy"})``; ``state`` is
+def make_train_step(tx: Optimizer, *, compress=None, zero1=None,
+                    loss_fn: Callable = cross_entropy_loss,
+                    compute_accuracy: bool = True) -> Callable[[TrainState, Batch], tuple]:
+    """``step(state, batch) -> (state, {"loss", "accuracy"})`` (no
+    ``accuracy`` when ``compute_accuracy`` is False); ``state`` is
     updated in place and returned. ``batch`` holds this rank's rows.
     ``compress`` (a ``parallel.compression.GradCompressor``) replaces the
     gradient all-reduce with its compressed ring; ``zero1`` (a
@@ -96,28 +104,32 @@ def make_train_step(tx: Optimizer, *, compress=None,
         model.train()
         params = state.params()
         logits = model(batch["image"])
-        loss = cross_entropy_loss(logits, batch["label"], batch.get("mask"))
+        loss = loss_fn(logits, batch["label"], batch.get("mask"))
         if n > 1:
             all_reduce_mean_([b for _, b in model.named_buffers()])
         grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
         sync_and_update(tx, state, grads, params, compress=compress, zero1=zero1)
         with torch.no_grad():
-            correct, count = masked_accuracy(logits, batch["label"],
-                                             batch.get("mask"))
             loss = loss.detach()
+            correct = count = torch.zeros_like(loss)
+            if compute_accuracy:
+                correct, count = masked_accuracy(logits, batch["label"],
+                                                 batch.get("mask"))
             if n > 1:
                 sums = torch.stack([loss, correct, count])
                 all_reduce_sum_([sums])
                 loss = sums[0] / torch.full_like(sums[0], n)
                 correct, count = sums[1], sums[2]
-            metrics = {"loss": loss,
-                       "accuracy": correct / torch.clamp_min(count, 1.0)}
+            metrics = {"loss": loss}
+            if compute_accuracy:
+                metrics["accuracy"] = correct / torch.clamp_min(count, 1.0)
         return state, metrics
 
     return train_step
 
 
-def make_eval_step() -> Callable[..., dict]:
+def make_eval_step(loss_fn: Callable = cross_entropy_loss,
+                   compute_accuracy: bool = True) -> Callable[..., dict]:
     """``eval(state, batch, params=None) -> {correct, count, loss_sum}``,
     each summed over the ranks: running-stats BatchNorm; ``params`` (the
     EMA shadow) replaces the model's params when given. ``loss_sum`` is
@@ -133,8 +145,13 @@ def make_eval_step() -> Callable[..., dict]:
         logits = (model(images) if params is None
                   else functional_call(model, params, (images,)))
         mask = batch.get("mask")
-        loss = cross_entropy_loss(logits, batch["label"], mask)
-        correct, count = masked_accuracy(logits, batch["label"], mask)
+        loss = loss_fn(logits, batch["label"], mask)
+        if compute_accuracy:
+            correct, count = masked_accuracy(logits, batch["label"], mask)
+        else:                            # multi-hot targets: no accuracy
+            correct = torch.zeros_like(loss)
+            count = (mask.to(torch.float32).sum() if mask is not None else
+                     torch.full_like(loss, float(logits.shape[0])))
         out = {"correct": correct, "count": count, "loss_sum": loss * count}
         if world_size() > 1:
             sums = torch.stack(list(out.values()))

@@ -41,14 +41,25 @@ step's collectives. The final checkpoint is then saved and
 checkpoint (the ranks agree on that too); a third gets the handler that was
 there before.
 
-Not ported yet: ``--pretrained-dir``, telemetry, health, the elastic
-supervisor, ``--steps-per-call``, and the strategies other than data
-parallelism (zero3, fsdp, tp, pp).
+Fine-tuning (the JAX trainer's :887-943 and ``_init_dp_steps`` :1158-1215):
+``--pretrained-dir`` builds the state through
+``train/finetune.py::load_pretrained_for_finetune`` (a foreign torchvision
+file or a checkpoint directory, merged into the fresh model by name and
+shape), on the replicated path, under ``--zero1`` and with
+``--grad-compress``; ``--freeze PREFIX...`` trains only the params whose
+top-level module starts with a prefix; ``--loss bce`` trains multi-hot
+targets (``synthetic_multilabel`` under ``--synthetic-data``) and reports
+no accuracy. ``num_classes`` comes from ``--dataset`` unless given.
+
+Not ported yet: telemetry, health, the elastic supervisor,
+``--steps-per-call``, k-fold, predictions, and the strategies other than
+data parallelism (zero3, fsdp, tp, pp).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import logging
 import os
@@ -60,7 +71,13 @@ import numpy as np
 import torch
 
 from tpu_ddp_torch.checkpoint.manager import Checkpointer
-from tpu_ddp_torch.data.cifar10 import load_cifar10, synthetic_cifar10
+from tpu_ddp_torch.data.cifar10 import (
+    load_cifar10,
+    load_cifar100,
+    synthetic_cifar10,
+    synthetic_cifar10_hard,
+    synthetic_multilabel,
+)
 from tpu_ddp_torch.data.loader import ShardedBatchLoader
 from tpu_ddp_torch.metrics.logging import MetricLogger
 from tpu_ddp_torch.metrics.timing import Throughput
@@ -76,7 +93,9 @@ from tpu_ddp_torch.parallel.runtime import (
 )
 from tpu_ddp_torch.parallel.zero import DATA_AXIS, Zero1Partition
 from tpu_ddp_torch.runtime import resolve_device, set_float32_precision
-from tpu_ddp_torch.train.optim import decay_mask, make_optimizer
+from tpu_ddp_torch.train.finetune import load_pretrained_for_finetune
+from tpu_ddp_torch.train.losses import binary_cross_entropy_with_logits, cross_entropy_loss
+from tpu_ddp_torch.train.optim import decay_mask, freeze_all_but, make_optimizer
 from tpu_ddp_torch.train.state import (
     checkpoint_state,
     copy_opt_state_,
@@ -95,8 +114,11 @@ class TrainConfig:
 
     device: str = "cuda"
     data_dir: str = "data/CIFAR-10"
+    dataset: str = "cifar10"              # cifar10 | cifar100
     synthetic_data: bool = False
     synthetic_size: int = 2048
+    synthetic_task: str = "easy"          # easy | hard (synthetic_cifar10_hard)
+    synthetic_label_noise: float = 0.1    # hard task: train labels flipped
     epochs: int = 99
     per_shard_batch: int = 32
     lr: float = 1e-2
@@ -118,6 +140,11 @@ class TrainConfig:
     n_chans1: int = 32
     n_blocks: int = 10
     tied_blocks: bool = True
+    num_classes: int = 10
+    loss: str = "ce"                      # ce | bce (multi-label fine-tune)
+    label_smoothing: float = 0.0          # soft CE targets
+    freeze_prefixes: Optional[tuple] = None  # e.g. ("head",): train the head only
+    pretrained_dir: Optional[str] = None  # fine-tune: partial restore + head swap
     seed: int = 0
     eval_each_epoch: bool = False
     log_every_epochs: int = 10
@@ -139,7 +166,12 @@ class TrainConfig:
                 "--checkpoint-steps needs --checkpoint-dir: there is "
                 "nowhere to save the step-cadence checkpoints"
             )
-        if self.keep_best and not (self.checkpoint_dir and self.eval_each_epoch):
+        if self.loss not in ("ce", "bce"):
+            raise ValueError(f"unknown loss {self.loss!r}")
+        if self.dataset not in DATASETS:
+            raise ValueError(f"unknown dataset {self.dataset!r}")
+        if self.keep_best and not (self.checkpoint_dir and self.eval_each_epoch
+                                   and self.loss == "ce"):
             raise ValueError(
                 "--keep-best needs --checkpoint-dir and --eval-each-epoch "
                 "(and a CE loss: 'best' is keyed on test accuracy)"
@@ -168,7 +200,8 @@ class TrainConfig:
             )
 
 
-NUM_CLASSES = 10  # CIFAR-10
+#: dataset -> its loader and class count
+DATASETS = {"cifar10": (load_cifar10, 10), "cifar100": (load_cifar100, 100)}
 
 
 def build_model(c: TrainConfig, image_size: int = 32) -> torch.nn.Module:
@@ -183,10 +216,10 @@ def build_model(c: TrainConfig, image_size: int = 32) -> torch.nn.Module:
     name = c.model.lower()
     if name == "netresdeep":
         model = NetResDeep(n_chans1=c.n_chans1, n_blocks=c.n_blocks,
-                           num_classes=NUM_CLASSES, tied=c.tied_blocks,
+                           num_classes=c.num_classes, tied=c.tied_blocks,
                            generator=generator)
     elif name in MODEL_REGISTRY:
-        model = MODEL_REGISTRY[name](num_classes=NUM_CLASSES, generator=generator,
+        model = MODEL_REGISTRY[name](num_classes=c.num_classes, generator=generator,
                                      image_size=image_size)
     else:
         raise ValueError(f"unknown model {c.model!r}")
@@ -204,12 +237,23 @@ def build_model(c: TrainConfig, image_size: int = 32) -> torch.nn.Module:
 
 
 def load_dataset(c: TrainConfig):
-    """(train, test) ``(images, labels)`` tuples, as the JAX trainer's."""
+    """(train, test) ``(images, labels)`` tuples, as the JAX trainer's
+    (:582-620): under ``--synthetic-data`` multi-hot targets for BCE, the
+    hard task's (label noise on the train split only) or the easy one's."""
     if c.synthetic_data:
         test_size = max(c.synthetic_size // 5, 64)
-        return (synthetic_cifar10(c.synthetic_size, NUM_CLASSES, c.seed),
-                synthetic_cifar10(test_size, NUM_CLASSES, c.seed + 1))
-    return load_cifar10(c.data_dir, train=True), load_cifar10(c.data_dir, train=False)
+        k = c.num_classes
+        if c.loss == "bce":
+            return (synthetic_multilabel(c.synthetic_size, k, c.seed),
+                    synthetic_multilabel(test_size, k, c.seed + 1))
+        if c.synthetic_task == "hard":
+            return (synthetic_cifar10_hard(c.synthetic_size, k, c.seed,
+                                           label_noise=c.synthetic_label_noise),
+                    synthetic_cifar10_hard(test_size, k, c.seed + 1, label_noise=0.0))
+        return (synthetic_cifar10(c.synthetic_size, k, c.seed),
+                synthetic_cifar10(test_size, k, c.seed + 1))
+    load = DATASETS[c.dataset][0]
+    return load(c.data_dir, train=True), load(c.data_dir, train=False)
 
 
 class Trainer:
@@ -220,6 +264,11 @@ class Trainer:
         self.logger = MetricLogger(c.jsonl_path, tensorboard_dir=c.tensorboard_dir)
         self.rank, self.world_size = rank(), world_size()
         train_data, test_data = load_dataset(c)
+        if c.loss == "bce" and np.asarray(train_data[1]).ndim != 2:
+            raise ValueError(
+                "--loss bce needs multi-hot (N, C) targets; this dataset "
+                "yields class indices. Use --synthetic-data (multi-label "
+                "generator) or pass multi-hot train_data.")
         self.train_loader = ShardedBatchLoader(
             *train_data, world_size=self.world_size,
             per_shard_batch=c.per_shard_batch, seed=c.seed)
@@ -239,18 +288,33 @@ class Trainer:
             ema_decay=c.ema_decay, kernels=c.kernels,
             decay_mask=decay_mask(params) if c.zero1 else None,
             zero1_axis=DATA_AXIS if c.zero1 else None,
+            freeze_predicate=(freeze_all_but(tuple(c.freeze_prefixes))
+                              if c.freeze_prefixes else None),
         )
         self.zero1 = (Zero1Partition(self.tx, params, self.world_size)
                       if c.zero1 else None)
-        self.state = create_train_state(model, self.tx, self.device, zero1=self.zero1)
+        if c.pretrained_dir:
+            self.state = load_pretrained_for_finetune(
+                c.pretrained_dir, model, self.tx, self.device, zero1=self.zero1)
+        else:
+            self.state = create_train_state(model, self.tx, self.device,
+                                            zero1=self.zero1)
         self.compress = self._build_compressor()
         if self.zero1 is not None and self.compress is not None:
             self.zero1.set_compression(self.compress)
         if self.compress is not None and c.grad_compress_error_feedback:
             self.state.grad_residual = self.compress.init_residual(self.device)
+        if c.loss == "bce":
+            loss_fn, self.with_accuracy = binary_cross_entropy_with_logits, False
+        else:
+            loss_fn, self.with_accuracy = cross_entropy_loss, True
+            if c.label_smoothing:
+                loss_fn = functools.partial(cross_entropy_loss,
+                                            label_smoothing=c.label_smoothing)
         self.train_step = make_train_step(self.tx, compress=self.compress,
-                                          zero1=self.zero1)
-        self.eval_step = make_eval_step()
+                                          zero1=self.zero1, loss_fn=loss_fn,
+                                          compute_accuracy=self.with_accuracy)
+        self.eval_step = make_eval_step(loss_fn, compute_accuracy=self.with_accuracy)
         self.history = {"train_loss": [], "step_loss": [], "epoch": []}
         self.eval_batches = 0  # eval steps run so far (every evaluate call)
         self._preempted = self._force_abort = False
@@ -461,15 +525,20 @@ class Trainer:
             if epoch == 1 or epoch % c.log_every_epochs == 0:
                 self.logger.log_text(f"Epoch {epoch}, Training loss {mean_loss}")
                 self.logger.log(host_step, epoch=epoch, train_loss=mean_loss,
-                                train_accuracy=float(metrics["accuracy"]))
+                                **({"train_accuracy": float(metrics["accuracy"])}
+                                   if "accuracy" in metrics else {}))
                 if self.checkpointer and epoch % c.checkpoint_every_epochs in (0, 1):
                     self._save(host_step)
             if c.eval_each_epoch:
                 acc, loss = self.evaluate()
-                self.logger.log(host_step, test_accuracy=acc, test_loss=loss)
-                self.history.setdefault("test_accuracy", []).append(acc)
-                if self.best_checkpointer and acc > self._best_acc:
-                    self._save_best(acc)
+                self.history.setdefault("test_loss", []).append(loss)
+                if self.with_accuracy:   # no accuracy for multi-hot targets
+                    self.logger.log(host_step, test_accuracy=acc, test_loss=loss)
+                    self.history.setdefault("test_accuracy", []).append(acc)
+                    if self.best_checkpointer and acc > self._best_acc:
+                        self._save_best(acc)
+                else:
+                    self.logger.log(host_step, test_loss=loss)
         total = time.time() - start
         self.logger.log_text(f"training time: {total:.3f} seconds")
         self._final_checkpoint(host_step)
