@@ -236,8 +236,44 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     with the plain version, ``torch._fused_sgd_`` over the trainable leaves
     and the bound (a frozen element moves 12 bytes: read p, write p and u).
 
-The NetResDeep phases before 17 keep their sizes; the whole run takes eight
-to ten minutes on the card, the build included. ``python3 chip_smoke.py
+20. bfloat16 compute and ``--remat`` (K4-K6's bfloat16 kernels,
+    ``mma.sync.m16n8k16`` bf16 with float32 accumulators). (a) Each kernel
+    against its plain version in bfloat16 (the same dtype flow: p and ds
+    rounded to bf16 for the second products; ``tpu_ddp_torch/ops/
+    flash_attention.py``) at ViT-S/4's (32, 64, 3, 64) as qkv views, the
+    same with a key mask that hides all of batch 1's keys (its rows: out 0,
+    lse NEG, zero gradients, exactly), the LM-32k path's causal (4, 4096, 8,
+    64) views, (8, 100, 4, 48) and (3, 77, 2, 36) causal with dead rows (D
+    not a multiple of 8: element copies): out, dq, dk and dv bfloat16 within
+    ``BF16_ULPS`` = 2 bf16 units in the last place of each row's own largest
+    value (a query row of out and dq, a key row of dk and dv; at least
+    ``BF16_ROW_FLOOR`` of the tensor's largest), lse float32 within
+    ``atol=2e-5``; a control that must fail that check (K4 on a v with a
+    key of every tile past 1,024 zeroed); each kernel's launch (registers,
+    spill, shared memory, blocks an SM) at D = 64 and 128. (b) Timing at
+    the LM and ViT shapes, as phase 9's: events and device time, the plain
+    version, SDPA in bfloat16, and the bound: bf16 bytes over 3.35 TB/s
+    against the products over 989 TFLOP/s (and the softmax's float32 work
+    over 67), with causal pairs T(T+1)/2 a head. (c) ViT-S/4 through the
+    CLI with ``--compute-dtype bfloat16 --attention flash --kernels
+    --optimizer adamw``, 2 epochs of 50 steps, and the same with
+    ``--attention full``: launches exact (the ``_bf16`` kernels alone, K1
+    once a step), first 5 losses within ``BF16_LOSS_RTOL``, images/sec;
+    then flash without and with ``--remat`` under deterministic cuDNN:
+    losses and weights bitwise, K4 once more a block a train step. (d)
+    LM-32k in bfloat16 with flash, 30 steps as 18a (tokens/sec, idle share,
+    kernels a step, top kernels, K4-K6's share of busy, peak memory), its
+    first 5 losses within ``BF16_LM_RTOL`` of 18a's float32 flash run; then
+    ``remat=True``: peak memory, step time, losses bitwise the run
+    without. Both loss bands must reject K4 made wrong on purpose
+    (``BF16_FAULTS``: k and v exchanged, the score scale 1/D) for one run.
+    (e) NetResDeep ``--compute-dtype bfloat16 --kernels`` through the CLI,
+    20 steps under deterministic cuDNN, K1 once a step on the float32
+    params; with ``--remat`` the losses, params and BatchNorm running
+    buffers bitwise the run without.
+
+The NetResDeep phases before 17 keep their sizes; the whole run takes nine
+to eleven minutes on the card, the build included. ``python3 chip_smoke.py
 --nccl N``, on a machine with N cards, runs phases 10 (at N ranks' chunks),
 12, 14, 17's two-rank part, 18c and 19d alone at N ranks, one card each,
 over NCCL. The line before the last is one JSON object
@@ -310,6 +346,22 @@ FLASH_CASES = {
     "d37_t77": (3, 77, 2, 37, False, None, False),
 }
 FLASH_TIMED = {"vit_s4": 200, "t2048_d128": 20}   # case -> timed iterations
+# dense bf16 on the tensor cores: the bfloat16 K4-K6's products
+BF16_OPS_PER_S = 989e12
+#: phase 20a: K4-K6's bfloat16 kernels against their plain versions, with
+#: FLASH_CASES' keys; "dead_batch" hides every key of batch 1 (its rows see
+#: none: out 0, zero gradients)
+BF16_CASES = {
+    "vit_s4": (32, 64, 3, 64, False, None, True),
+    "vit_s4_dead_batch": (32, 64, 3, 64, False, "dead_batch", True),
+    "lm_causal": (4, 4096, 8, 64, True, None, True),
+    "t100_d48": (8, 100, 4, 48, False, None, False),
+    # D not a multiple of 8: element copies, zero-filled columns
+    "d36_t77_causal_dead": (3, 77, 2, 36, True, "dead", False),
+}
+BF16_ULPS = 2     # the bf16 tolerance: units in the last place of a row's largest |value|
+#: phase 20b: case -> (timed iterations, the path whose launches its rows carry)
+BF16_TIMED = {"lm_causal": (10, "lm"), "vit_s4": (200, "vit")}
 
 
 T_START = time.perf_counter()
@@ -927,26 +979,33 @@ def close(got, want, atol, rtol):
     return float(diff.max()), bool((diff <= atol + rtol * want.abs()).all())
 
 
-def flash_inputs(case, seed=0):
-    """q, k, v, do and the key mask of ``FLASH_CASES[case]`` on the card."""
+def flash_inputs(case, seed=0, bf16=False):
+    """q, k, v, do and the key mask of ``FLASH_CASES[case]`` on the card, or
+    of ``BF16_CASES[case]`` in bfloat16 (drawn in float32, then rounded)."""
     import torch
 
-    B, T, H, D, causal, mask_kind, views = FLASH_CASES[case]
+    B, T, H, D, causal, mask_kind, views = (BF16_CASES if bf16 else FLASH_CASES)[case]
+    dtype = torch.bfloat16 if bf16 else torch.float32
     gen = torch.Generator(device="cuda").manual_seed(seed)
     if views:
-        qkv = torch.randn((B, T, 3 * H * D), generator=gen, device="cuda")
+        qkv = torch.randn((B, T, 3 * H * D), generator=gen, device="cuda").to(dtype)
         q, k, v = (x.reshape(B, T, H, D) for x in qkv.split(H * D, dim=-1))
     else:
-        q, k, v = (torch.randn((B, T, H, D), generator=gen, device="cuda")
+        q, k, v = (torch.randn((B, T, H, D), generator=gen, device="cuda").to(dtype)
                    for _ in range(3))
-    do = torch.randn((B, T, H, D), generator=gen, device="cuda")
+    do = torch.randn((B, T, H, D), generator=gen, device="cuda").to(dtype)
     mask = None
+    if mask_kind is not None:
+        mask = torch.ones((B, T), device="cuda")
     if mask_kind == "dead":
         # batch 0 hides its last quarter of keys; batch 1 its first quarter,
         # so under causal its first T/4 queries see no key at all
-        mask = torch.ones((B, T), device="cuda")
         mask[0, 3 * T // 4:] = 0
         mask[1, :T // 4] = 0
+    elif mask_kind == "dead_batch":
+        # batch 0 hides its last quarter of keys; batch 1 every key
+        mask[0, 3 * T // 4:] = 0
+        mask[1] = 0
     return q, k, v, do, mask, causal
 
 
@@ -1035,11 +1094,11 @@ def phase_vit_main_path():
         if steps != 2 * VIT_STEPS_PER_EPOCH:
             fail(f"ViT path ran {steps} steps, expected {2 * VIT_STEPS_PER_EPOCH}")
         flash = attention == "flash"
-        want = {"fused_update": steps,
-                "flash_attention_fwd": VIT_DEPTH * (steps + evals) if flash else 0,
-                "flash_attention_dq": VIT_DEPTH * steps if flash else 0,
-                "flash_attention_dkv": VIT_DEPTH * steps if flash else 0,
-                "fused_quant": 0, "fused_dequant": 0}
+        want = {name: 0 for name in counts}
+        want.update({"fused_update": steps,
+                     "flash_attention_fwd": VIT_DEPTH * (steps + evals) if flash else 0,
+                     "flash_attention_dq": VIT_DEPTH * steps if flash else 0,
+                     "flash_attention_dkv": VIT_DEPTH * steps if flash else 0})
         if counts != want:
             fail(f"ViT --attention {attention}: launches {counts}, expected {want}")
         if not all(math.isfinite(x) for x in losses):
@@ -1063,9 +1122,10 @@ def phase_vit_main_path():
     return runs
 
 
-def attention_work(kind, B, T, H, D, causal=False):
+def attention_work(kind, B, T, H, D, causal=False, elem=4):
     """(bytes, product operations, other float32 operations) of one
-    unmasked call: each input read once, each output written once; two
+    unmasked call: each input read once, each output written once (the
+    (B, T, H, D) tensors ``elem`` bytes an element, lse and di 4); two
     operations per multiply-add of its products (forward: S and P V; dq: S,
     dP and dS K; dk/dv: S, dP, P^T dO and dS^T Q), and the per-score softmax
     work, over the (query, key) pairs the call needs: all T^2 of a head, or
@@ -1073,11 +1133,11 @@ def attention_work(kind, B, T, H, D, causal=False):
     n, rows = B * T * H * D, B * H * T
     pairs = B * H * T * (T + 1) // 2 if causal else B * H * T * T
     if kind == "fwd":        # read q, k, v; write out, lse
-        return 4 * (4 * n + rows), 4 * pairs * D, 5 * pairs
+        return elem * 4 * n + 4 * rows, 4 * pairs * D, 5 * pairs
     if kind == "dq":         # read q, k, v, dO, lse, di; write dq
-        return 4 * (5 * n + 2 * rows), 6 * pairs * D, 6 * pairs
+        return elem * 5 * n + 8 * rows, 6 * pairs * D, 6 * pairs
     # read q, k, v, dO, lse, di; write dk, dv
-    return 4 * (6 * n + 2 * rows), 8 * pairs * D, 6 * pairs
+    return elem * 6 * n + 8 * rows, 8 * pairs * D, 6 * pairs
 
 
 def attention_bound(kind, B, T, H, D, causal=False):
@@ -1099,19 +1159,34 @@ def attention_bound_tc(kind, B, T, H, D, causal=False):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def flash_timing_rows(case, iters, errors, counts):
-    """K4, K5 and K6 at ``FLASH_CASES[case]``, each in turns with its plain
-    version and beside ``scaled_dot_product_attention`` (forward for K4, its
-    backward for K5 and K6) and both bounds: one ``kernels`` row each, with
-    phase 7's errors at the case and the path's launch ``counts``."""
+def attention_bound_bf16(kind, B, T, H, D, causal=False):
+    """(bound_ms, bound_by) of one bfloat16 call of K4, K5 or K6: its bytes
+    (bf16 tensors, float32 lse and di) over the HBM rate, against its
+    products over the bf16 tensor-core rate and its other float32
+    operations over the float32 rate (they run on other units: the larger
+    of the two)."""
+    nbytes, products, other = attention_work(kind, B, T, H, D, causal, elem=2)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(products / BF16_OPS_PER_S, other / FP32_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_timing_rows(case, iters, errors, counts, bf16=False):
+    """K4, K5 and K6 at ``FLASH_CASES[case]`` (or, ``bf16``, their bfloat16
+    kernels at ``BF16_CASES[case]``), each in turns with its plain version
+    and beside ``scaled_dot_product_attention`` in the same dtype (forward
+    for K4, its backward for K5 and K6) and the bounds: one ``kernels`` row
+    each, with the errors of the kernel-against-plain phase at the case and
+    the path's launch ``counts``."""
     import torch
     import torch.nn.functional as F
 
     from tpu_ddp_torch import ops
     from tpu_ddp_torch.ops import flash_attention as fa
 
-    q, k, v, do, _, causal = flash_inputs(case, seed=1)
+    q, k, v, do, _, causal = flash_inputs(case, seed=1, bf16=bf16)
     B, T, H, D = q.shape
+    suffix, label = ("_bf16", f"bf16,{case}") if bf16 else ("", case)
     out, lse = fa.forward_plain(q, k, v, causal=causal)
     di = fa.row_dot(do, out)
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
@@ -1139,37 +1214,41 @@ def flash_timing_rows(case, iters, errors, counts):
     }
     rows = []
     for name, (kind, kernel, plain, outputs) in timed.items():
-        entry = ops.KERNELS[name]
+        entry = ops.KERNELS[name + suffix]
         k1 = time_ms(kernel, iters)
         p1 = time_ms(plain, iters)
         p2 = time_ms(plain, iters)
         k2 = time_ms(kernel, iters)
-        b_ms, b_by = attention_bound(kind, B, T, H, D, causal)
         lib_key = "fwd" if kind == "fwd" else "bwd"
         l_ms = lib_ms[lib_key]
         dev = {"device_ms": device_ms(kernel, iters),
                "plain_device_ms": device_ms(plain, iters),
-               "library_device_ms": lib_dev[lib_key]}
-        tc_ms, tc_by = attention_bound_tc(kind, B, T, H, D, causal)
-        dev.update(bound_tc_ms=tc_ms, bound_tc_by=tc_by,
-                   launch=fa.forward_launch_info(D) if kind == "fwd"
-                   else fa.backward_launch_info(kind, D))
-        print(f"  {name + '[' + case + ']':36s} 3xTF32 bound {tc_ms:.5f} ms "
-              f"({tc_by}); launch {dev['launch']}", flush=True)
+               "library_device_ms": lib_dev[lib_key],
+               "launch": fa.forward_launch_info(D, q.dtype) if kind == "fwd"
+               else fa.backward_launch_info(kind, D, q.dtype)}
+        if bf16:
+            b_ms, b_by = attention_bound_bf16(kind, B, T, H, D, causal)
+        else:
+            b_ms, b_by = attention_bound(kind, B, T, H, D, causal)
+            tc_ms, tc_by = attention_bound_tc(kind, B, T, H, D, causal)
+            dev.update(bound_tc_ms=tc_ms, bound_tc_by=tc_by)
+            print(f"  {name + '[' + label + ']':36s} 3xTF32 bound {tc_ms:.5f} ms "
+                  f"({tc_by})", flush=True)
+        print(f"  {name + '[' + label + ']':36s} launch {dev['launch']}", flush=True)
         rows.append({
-            "name": f"{name}[{case}]", "route": entry["route"],
+            "name": f"{name}[{label}]", "route": entry["route"],
             "source": entry["source"], "replaces": entry["replaces"],
-            "launches": counts[name],
+            "launches": counts[name + suffix],
             "max_abs_err": max(errors[case][o] for o in outputs),
             "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
-            "shapes": f"(B, T, H, D) = {(B, T, H, D)}, causal={causal}",
+            "shapes": f"(B, T, H, D) = {(B, T, H, D)}, causal={causal}, {q.dtype}",
             "library": "scaled_dot_product_attention "
                        + ("forward" if kind == "fwd" else "backward (dq, dk, dv)")
-                       + (" is_causal=True" if causal else ""),
+                       + (" is_causal=True" if causal else "") + f", {q.dtype}",
             **dev,
         })
-        print(f"  {name + '[' + case + ']':36s} kernel {(k1 + k2) / 2:.5f} ms  "
+        print(f"  {name + '[' + label + ']':36s} kernel {(k1 + k2) / 2:.5f} ms  "
               f"plain {(p1 + p2) / 2:.5f} ms  library {l_ms:.5f} ms  "
               f"bound {b_ms:.5f} ms ({b_by}); device only: kernel "
               f"{dev['device_ms']}, plain {dev['plain_device_ms']}, "
@@ -1177,7 +1256,7 @@ def flash_timing_rows(case, iters, errors, counts):
     k5, k6 = rows[-2], rows[-1]
     dev_sum = (None if k5["device_ms"] is None or k6["device_ms"] is None
                else k5["device_ms"] + k6["device_ms"])
-    print(f"  K5 + K6 [{case}]: events {k5['ms'] + k6['ms']:.5f} ms, device {dev_sum} ms; "
+    print(f"  K5 + K6 [{label}]: events {k5['ms'] + k6['ms']:.5f} ms, device {dev_sum} ms; "
           f"SDPA backward (dq, dk, dv): events {lib_ms['bwd']:.5f} ms, device "
           f"{lib_dev['bwd']} ms", flush=True)
     return rows
@@ -2363,11 +2442,12 @@ def lm_tokens(n_batches, rows, seq_len, vocab, seed=0):
     return seq.reshape(n_batches, rows, seq_len)
 
 
-def lm_train_run(use_flash, tokens):
+def lm_train_run(use_flash, tokens, bf16=False, remat=False):
     """Part (a), one run: LM-32k from the seeded weights, ``LM_STEPS``
     steps on ``tokens`` with the launch counts zeroed just before and read
-    just after, then ``LM_PROFILE_STEPS`` more under ``torch.profiler``.
-    Returns (model, run's numbers)."""
+    just after, then ``LM_PROFILE_STEPS`` more under ``torch.profiler``;
+    phase 20d's in bfloat16 compute and with ``remat``. Returns (model,
+    run's numbers)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2378,7 +2458,9 @@ def lm_train_run(use_flash, tokens):
     from tpu_ddp_torch.train.optim import make_optimizer
 
     model = CausalTransformerLM(**LM_32K, seq_len=LM_SEQ, use_flash=use_flash,
-                                generator=torch.Generator().manual_seed(0))
+                                generator=torch.Generator().manual_seed(0),
+                                dtype=torch.bfloat16 if bf16 else torch.float32,
+                                remat=remat)
     tx = make_optimizer(lr=1e-3, optimizer="adamw", kernels=True)
     state = create_lm_train_state(model, tx, torch.device("cuda"))
     step = make_lm_train_step(tx)
@@ -2920,6 +3002,399 @@ def phase_finetune_timing(results, runs):
     ]
 
 
+# ---- phase 20: bfloat16 compute and --remat (K4-K6's bfloat16 kernels) ----
+
+#: phase 20c: ViT-S/4 bfloat16 through the CLI, 2 epochs of this many steps;
+#: the flash and full runs' first losses within this relative band, about
+#: three times the largest difference a sound run shows (1.6e-3 on an H100:
+#: the two attentions round p at other places, a logit moves by a unit of
+#: its last place, and AdamW's normalised update carries it on; PERF.md
+#: gives the readings, a faulty kernel's included)
+BF16_VIT_STEPS_PER_EPOCH = 50
+BF16_LOSS_RTOL = 5e-3
+#: phase 20d: LM-32k bfloat16 against phase 18a's float32 flash run: its
+#: first losses within this relative band, about eight times the largest
+#: difference a sound run shows (6.3e-5 on an H100)
+BF16_LM_RTOL = 5e-4
+#: phase 20e: NetResDeep bfloat16 through the CLI, one epoch of this many steps
+BF16_NRD_STEPS = 20
+#: phase 20's negative controls: K4 made wrong on purpose for one run, by a
+#: patch of its wrapper (the sources stay as they are); each loss band must
+#: reject each of them
+BF16_FAULTS = {
+    "k_v_exchanged": lambda f: lambda q, k, v, m=None, c=False: f(q, v, k, m, c),
+    "scale_1_over_D": lambda f: lambda q, k, v, m=None, c=False: f(
+        q * (1.0 / math.sqrt(q.shape[-1])), k, v, m, c),
+}
+
+
+def with_k4_fault(name, run):
+    """``run()`` with ``BF16_FAULTS[name]`` patched into the wrapper
+    ``FlashAttention`` calls, then the wrapper restored."""
+    from tpu_ddp_torch.ops import flash_attention as fa
+
+    sound = fa.flash_forward
+    fa.flash_forward = BF16_FAULTS[name](sound)
+    try:
+        return run()
+    finally:
+        fa.flash_forward = sound
+
+
+#: phase 20a: a row's scale is its largest |want|, but at least this share
+#: of the tensor's largest: a row whose terms cancel (causal row 0 of dq:
+#: ds = p (dO v - di) with di = dO v) holds the float32 sums' residual,
+#: which scales with the tensor, not with the row
+BF16_ROW_FLOOR = 2.0 ** -12
+
+
+def bf16_row_units(got, want):
+    """``|got - want|`` in bfloat16 units in the last place of the largest
+    ``|want|`` of its own row (the last axis: a query row of out and dq, a
+    key row of dk and dv; at least ``BF16_ROW_FLOOR`` of the largest of
+    all), so that a row of small values is held to its own scale. K4 rounds
+    p against its tile's running max and the plain version against the
+    row's, both round each output once, and the sums run in other orders.
+    Returns the units, shaped as ``got``."""
+    import torch
+
+    diff = (got.float() - want.float()).abs()
+    top = want.float().abs().amax(-1, keepdim=True)
+    top = top.clamp(min=float(top.max()) * BF16_ROW_FLOOR)
+    unit = torch.exp2(torch.floor(torch.log2(top)) - 7)     # 0 where all of want is 0
+    return torch.where(diff == 0, 0.0, diff / unit)
+
+
+def bf16_row_control(fa, q, k, v, want_out):
+    """Phase 20a's negative control at the LM's causal shape: K4 on a v
+    whose last key of every 64-key tile past position 1,024 is 0, against
+    the sound plain output; the per-row check must reject it. Prints what
+    a single bound of 2 units of the tensor's largest value would read.
+    Returns the failures."""
+    import torch
+
+    v_bad = v.clone()
+    v_bad[:, 1024 + 63::64] = 0
+    bad, _ = fa.flash_forward(q, k, v_bad, None, True)
+    diff = (bad.float() - want_out.float()).abs()
+    units = bf16_row_units(bad, want_out)
+    top = float(want_out.float().abs().max())
+    whole = BF16_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
+    flagged = int((units > BF16_ULPS).any(-1).sum())
+    print(f"  control, lm_causal with the last key of every tile past 1,024 dropped: max "
+          f"|diff| {float(diff.max()):.3g} (a bound of {BF16_ULPS} units of the largest "
+          f"value, {whole:.3g}, would {'pass' if float(diff.max()) <= whole else 'reject'} "
+          f"it); worst row {float(units.max()):.3g} units, {flagged} of "
+          f"{units[..., 0].numel()} rows beyond {BF16_ULPS}", flush=True)
+    del v_bad, bad, diff, units
+    torch.cuda.empty_cache()
+    return [] if flagged else ["the per-row check passes a K4 that drops keys"]
+
+
+def phase_bf16_vs_plain():
+    """Phase 20a: K4-K6's bfloat16 kernels against their plain versions in
+    bfloat16 at ``BF16_CASES``: out, dq, dk and dv within ``BF16_ULPS`` of
+    each row's own unit (``bf16_row_units``), lse within ``atol=2e-5``;
+    rows that see no key exactly 0 with zero gradients; each kernel's
+    launch. Returns {case: {output: max |diff|}}."""
+    import torch
+
+    from tpu_ddp_torch.ops import flash_attention as fa
+
+    print(f"phase 20a: K4/K5/K6 bfloat16 kernels vs plain versions (max |diff|, and "
+          f"in [] the worst row's error in bf16 units of that row's largest value; "
+          f"bf16 outputs within {BF16_ULPS} such units in every row, lse atol 2e-5)",
+          flush=True)
+    for D in (64, 128):
+        print(f"  launch at D = {D}: K4 {fa.forward_launch_info(D, torch.bfloat16)}; "
+              f"K5 {fa.backward_launch_info('dq', D, torch.bfloat16)}; "
+              f"K6 {fa.backward_launch_info('dkv', D, torch.bfloat16)}", flush=True)
+    results, failed = {}, []
+    for case in BF16_CASES:
+        q, k, v, do, mask, causal = flash_inputs(case, bf16=True)
+        want_out, want_lse = fa.forward_plain(q, k, v, mask, causal)
+        di = fa.row_dot(do, want_out)
+        want_dq = fa.dq_plain(q, k, v, do, want_lse, di, mask, causal)
+        want_dk, want_dv = fa.dkv_plain(q, k, v, do, want_lse, di, mask, causal)
+        out, lse = fa.flash_forward(q, k, v, mask, causal)
+        dq = fa.flash_dq(q, k, v, do, want_lse, di, mask, causal)
+        dk, dv = fa.flash_dkv(q, k, v, do, want_lse, di, mask, causal)
+        torch.cuda.synchronize()
+        errs, units = {}, {}
+        for name, got, want in (("out", out, want_out), ("lse", lse, want_lse),
+                                ("dq", dq, want_dq), ("dk", dk, want_dk), ("dv", dv, want_dv)):
+            diff = (got.float() - want.float()).abs()
+            errs[name] = float(diff.max())
+            if name == "lse":
+                ok, bound = bool((diff <= 2e-5).all()), "atol 2e-5"
+            else:
+                units[name] = float(bf16_row_units(got, want).max())
+                ok, bound = units[name] <= BF16_ULPS, f"{BF16_ULPS} units of its row"
+            if (got.dtype != (torch.float32 if name == "lse" else torch.bfloat16) or not ok
+                    or not bool(torch.isfinite(got.float()).all())):
+                failed.append(f"{case} {name} (max |diff| {errs[name]:.3g}, worst row "
+                              f"{units.get(name, 0):.3g} units; bound {bound})")
+        if mask is not None:
+            T = q.shape[1]
+            rows = slice(None) if BF16_CASES[case][5] == "dead_batch" else slice(0, T // 4)
+            hidden = mask == 0
+            if not (bool((out[1, rows] == 0).all()) and bool((dq[1, rows] == 0).all())
+                    and bool((lse[1, :, rows] == fa.NEG).all())
+                    and bool((dk[hidden] == 0).all()) and bool((dv[hidden] == 0).all())):
+                failed.append(f"{case}: rows with no visible key, or masked keys, "
+                              "are not exactly 0")
+        results[case] = errs
+        print(f"  {case:20s} {tuple(q.shape)} causal={causal} mask={BF16_CASES[case][5]} "
+              + " ".join(f"{n}={e:.3g}" + (f" [{units[n]:.3g}]" if n in units else "")
+                         for n, e in errs.items()),
+              flush=True)
+        if case == "lm_causal":
+            failed += bf16_row_control(fa, q, k, v, want_out)
+        del q, k, v, do, want_out, want_lse, want_dq, want_dk, want_dv
+    torch.cuda.empty_cache()
+    if failed:
+        fail("bf16 flash kernels disagree with their plain versions: " + "; ".join(failed))
+    return results
+
+
+def vit_bf16_args(attention, *extra):
+    """Phase 20c's CLI arguments: phase 8's recipe in bfloat16, 2 epochs of
+    ``BF16_VIT_STEPS_PER_EPOCH`` steps."""
+    return ["--device", "cuda", "--synthetic-data", "--synthetic-size",
+            str(32 * BF16_VIT_STEPS_PER_EPOCH), "--epochs", "2", "--model", "vit_s4",
+            "--attention", attention, "--kernels", "--optimizer", "adamw",
+            "--lr", "1e-3", "--batch-size", "32", "--eval-each-epoch",
+            "--log-every-epochs", "1", "--compute-dtype", "bfloat16", *extra]
+
+
+def bf16_vit_run(attention, *extra):
+    """One phase-20c run with the counts zeroed just before and read just
+    after; checks the launches (the bfloat16 kernels alone; K4 once more a
+    block a step under ``--remat``), finite and falling losses and the final
+    eval. Returns (trainer, metrics)."""
+    import torch
+
+    from tpu_ddp_torch import ops
+    from tpu_ddp_torch.cli import train as cli
+
+    args = vit_bf16_args(attention, *extra)
+    print(f"phase 20c: tpu_ddp_torch.cli.train {' '.join(args)}", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    trainer, metrics = cli.run(args)
+    torch.cuda.synchronize()
+    counts = metrics["launches"] = ops.launch_counts()
+    metrics["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    steps, evals = metrics["steps"], metrics["eval_batches"]
+    losses = metrics["step_losses"]
+    flash, remat = attention == "flash", "--remat" in extra
+    want = {name: 0 for name in counts}
+    want["fused_update"] = steps
+    if flash:
+        want["flash_attention_fwd_bf16"] = VIT_DEPTH * ((2 if remat else 1) * steps + evals)
+        want["flash_attention_dq_bf16"] = want["flash_attention_dkv_bf16"] = VIT_DEPTH * steps
+    first, last = sum(losses[:20]) / 20, sum(losses[-20:]) / 20
+    print(f"  steps {steps}, eval batches {evals}, launches {counts}; mean loss of the "
+          f"first 20 steps {first:.4f}, last 20 {last:.4f}; steady-state "
+          f"images/sec/chip {metrics['images_per_sec_per_chip']:.1f} "
+          f"({metrics['steady_step_ms']:.3f} ms a step, host clock), max_memory_allocated "
+          f"{metrics['max_memory_allocated']} B, final test accuracy "
+          f"{metrics['test_accuracy']:.4f}", flush=True)
+    if steps != 2 * BF16_VIT_STEPS_PER_EPOCH or counts != want:
+        fail(f"ViT bf16 {attention} {extra}: {steps} steps, launches {counts}; "
+             f"expected {2 * BF16_VIT_STEPS_PER_EPOCH}, {want}")
+    if not all(math.isfinite(x) for x in losses) or not last < first:
+        fail(f"ViT bf16 {attention} {extra}: losses are not finite and falling")
+    if not math.isfinite(metrics["test_loss"]) or metrics["test_accuracy"] < 0.2:
+        fail(f"ViT bf16 final eval out of range: {metrics['test_accuracy']}")
+    return trainer, metrics
+
+
+def rel_diffs(got, want, n=PLAIN_STEPS_RTOL):
+    return [abs(g - w) / abs(w) for g, w in zip(got[:n], want[:n])]
+
+
+def worst_rel(got, want):
+    """The largest of ``rel_diffs``, a NaN counting as infinitely far."""
+    return max(math.inf if math.isnan(r) else r for r in rel_diffs(got, want))
+
+
+def phase_bf16_vit():
+    """Phase 20c: ViT-S/4 in bfloat16 through the trainer, flash and full,
+    and the band's controls (``BF16_FAULTS``, one epoch each); then flash
+    without and with ``--remat`` under deterministic cuDNN: losses and
+    final weights bitwise equal. Returns {run: metrics}."""
+    import torch
+
+    from tpu_ddp_torch.cli import train as cli
+
+    runs = {}
+    for attention in ("flash", "full"):
+        _, runs[attention] = bf16_vit_run(attention)
+    rel = rel_diffs(runs["full"]["step_losses"], runs["flash"]["step_losses"])
+    print(f"  bf16 --attention full vs flash, relative loss difference per step: "
+          f"{' '.join(f'{r:.2g}' for r in rel)} (band {BF16_LOSS_RTOL})", flush=True)
+    if not max(rel) <= BF16_LOSS_RTOL:
+        fail("ViT bf16 full and flash losses disagree over the first steps")
+    for name in BF16_FAULTS:
+        _, m = with_k4_fault(name, lambda: cli.run(vit_bf16_args("flash", "--epochs", "1")))
+        bad = worst_rel(runs["full"]["step_losses"], m["step_losses"])
+        print(f"  control, flash with K4 {name}: largest relative loss difference {bad:.3g} "
+              f"(band {BF16_LOSS_RTOL})", flush=True)
+        if not bad > BF16_LOSS_RTOL:
+            fail(f"ViT bf16 loss band passes a K4 with {name}")
+    torch.backends.cudnn.deterministic = True
+    try:
+        pair = {}
+        for extra in ((), ("--remat",)):
+            trainer, m = bf16_vit_run("flash", *extra)
+            pair[extra] = (m, {k: v.detach().cpu() for k, v in
+                               trainer.state.model.state_dict().items()})
+            del trainer
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (m0, w0), (m1, w1) = pair[()], pair[("--remat",)]
+    same_losses = m0["step_losses"] == m1["step_losses"]
+    same_weights = all(torch.equal(w0[k], w1[k]) for k in w0)
+    worst = max(abs(a - b) for a, b in zip(m0["step_losses"], m1["step_losses"]))
+    print(f"  deterministic cuDNN, --remat against without: per-step losses bitwise "
+          f"{same_losses} (largest difference {worst:.3g}), final weights bitwise "
+          f"{same_weights}; steady {m0['steady_step_ms']:.3f} -> {m1['steady_step_ms']:.3f} "
+          f"ms a step, max_memory_allocated {m0['max_memory_allocated']} -> "
+          f"{m1['max_memory_allocated']} B", flush=True)
+    if not (same_losses and same_weights):
+        fail("ViT bf16 --remat differs from the run without")
+    runs["remat"] = m1
+    torch.cuda.empty_cache()
+    return runs
+
+
+def phase_bf16_lm(tokens, f32_run):
+    """Phase 20d: LM-32k in bfloat16 with flash, 30 steps as phase 18a
+    (host clock and profiler), its first losses within ``BF16_LM_RTOL`` of
+    18a's float32 flash run, and the band's controls (``BF16_FAULTS``);
+    then ``remat=True``: launches (K4 twice a block a step), peak memory,
+    step time, and losses against the run without. Returns {run: numbers}."""
+    import torch
+
+    runs = {}
+    for remat in (False, True):
+        model, run = lm_train_run(True, tokens, bf16=True, remat=remat)
+        del model
+        torch.cuda.empty_cache()
+        label = "bf16_remat" if remat else "bf16"
+        runs[label] = run
+        losses, counts = run["losses"], run["launches"]
+        want = {name: 0 for name in counts}
+        want["fused_update"] = LM_STEPS
+        want["flash_attention_fwd_bf16"] = (2 if remat else 1) * LM_32K["depth"] * LM_STEPS
+        want["flash_attention_dq_bf16"] = LM_32K["depth"] * LM_STEPS
+        want["flash_attention_dkv_bf16"] = LM_32K["depth"] * LM_STEPS
+        first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
+        print(f"phase 20d: LM-32k bfloat16 flash{' remat=True' if remat else ''}, "
+              f"{LM_STEPS} steps: launches {counts}; mean loss of the first 10 steps "
+              f"{first:.5f}, last 10 {last:.5f}; steady {run['steady_step_ms']:.3f} ms a "
+              f"step, {run['tokens_per_sec']:.1f} tokens/sec, max_memory_allocated "
+              f"{run['max_memory_allocated']} B", flush=True)
+        print(f"  torch.profiler over {LM_PROFILE_STEPS} steps: step "
+              f"{run['profiled_step_ms']:.3f} ms, device busy "
+              f"{run['device_busy_ms_per_step']:.3f} ms, idle share "
+              f"{run['device_idle_share']}, {run['kernels_per_step']:.1f} kernels a step; "
+              f"K4-K6 {run['flash_device_ms_per_step']:.3f} device ms a step "
+              f"({run['flash_share_of_busy']} of busy); the kernels that take most "
+              "device time (ms a step, calls a step):", flush=True)
+        for ms, calls, key in run["top"]:
+            print(f"    {ms:9.3f} ms {calls:6.1f}x  {key[:100]}", flush=True)
+        if counts != want:
+            fail(f"LM bf16 remat={remat}: launches {counts}, expected {want}")
+        if not all(math.isfinite(x) for x in losses) or not last < first:
+            fail(f"LM bf16 remat={remat}: losses are not finite and falling")
+    rel = rel_diffs(runs["bf16"]["losses"], f32_run["losses"])
+    print(f"  bf16 against phase 18a's float32 flash run, relative loss difference per "
+          f"step: {' '.join(f'{r:.2g}' for r in rel)} (band {BF16_LM_RTOL})", flush=True)
+    if not max(rel) <= BF16_LM_RTOL:
+        fail("LM-32k bf16 losses leave the band around the float32 run's")
+    for name in BF16_FAULTS:
+        model, run = with_k4_fault(name, lambda: lm_train_run(True, tokens, bf16=True))
+        del model
+        torch.cuda.empty_cache()
+        bad = worst_rel(run["losses"], f32_run["losses"])
+        print(f"  control, bf16 with K4 {name}: largest relative loss difference {bad:.3g} "
+              f"(band {BF16_LM_RTOL})", flush=True)
+        if not bad > BF16_LM_RTOL:
+            fail(f"LM-32k bf16 loss band passes a K4 with {name}")
+    a, b = runs["bf16"]["losses"], runs["bf16_remat"]["losses"]
+    worst = max(abs(x - y) for x, y in zip(a, b))
+    print(f"  remat=True against without: losses bitwise {a == b} (largest difference "
+          f"{worst:.3g}); steady {runs['bf16']['steady_step_ms']:.3f} -> "
+          f"{runs['bf16_remat']['steady_step_ms']:.3f} ms a step; max_memory_allocated "
+          f"{runs['bf16']['max_memory_allocated']} -> "
+          f"{runs['bf16_remat']['max_memory_allocated']} B", flush=True)
+    if a != b:
+        fail("LM-32k bf16 remat=True losses differ from the run without")
+    return runs
+
+
+def phase_bf16_netresdeep():
+    """Phase 20e: NetResDeep ``--compute-dtype bfloat16 --kernels`` through
+    the CLI under deterministic cuDNN, ``BF16_NRD_STEPS`` steps: finite
+    losses, K1 once a step (float32 params); then ``--remat``: losses,
+    params and the BatchNorm running buffers bitwise the run without."""
+    import torch
+
+    from tpu_ddp_torch import ops
+    from tpu_ddp_torch.cli import train as cli
+
+    base = ["--device", "cuda", "--synthetic-data", "--synthetic-size",
+            str(32 * BF16_NRD_STEPS), "--epochs", "1", "--batch-size", "32",
+            "--kernels", "--compute-dtype", "bfloat16", "--log-every-epochs", "1"]
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for extra in ((), ("--remat",)):
+            args = base + list(extra)
+            print(f"phase 20e: tpu_ddp_torch.cli.train {' '.join(args)}", flush=True)
+            ops.reset_launch_counts()
+            trainer, m = cli.run(args)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            want = {name: 0 for name in counts}
+            want["fused_update"] = BF16_NRD_STEPS
+            losses = m["step_losses"]
+            print(f"  launches {counts}; losses {losses[0]:.5f} -> {losses[-1]:.5f}; "
+                  f"steady {m['steady_step_ms']:.3f} ms a step", flush=True)
+            if counts != want or len(losses) != BF16_NRD_STEPS \
+                    or not all(math.isfinite(x) for x in losses):
+                fail(f"NetResDeep bf16 {extra}: launches {counts} (expected {want}) "
+                     "or losses not finite")
+            out[extra] = (losses, {k: v.detach().cpu() for k, v in
+                                   trainer.state.model.state_dict().items()})
+            del trainer
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (l0, w0), (l1, w1) = out[()], out[("--remat",)]
+    buffers = [k for k in w0 if "running_" in k]
+    same_buffers = all(torch.equal(w0[k], w1[k]) for k in buffers)
+    same_all = l0 == l1 and all(torch.equal(w0[k], w1[k]) for k in w0)
+    print(f"  --remat against without: BatchNorm running buffers ({len(buffers)}) bitwise "
+          f"{same_buffers}; losses and params bitwise {same_all}", flush=True)
+    if not (same_buffers and same_all):
+        fail("NetResDeep bf16 --remat differs from the run without")
+
+
+def phase_bf16_timing(errors, counts):
+    """Phase 20b: K4-K6's bfloat16 kernels at ``BF16_TIMED``'s shapes, with
+    phase 20a's errors and the launches of the path each shape belongs to
+    (``counts``: 20c's ViT flash run, 20d's LM run)."""
+    print("phase 20b: bfloat16 K4-K6 timing (CUDA events and device time; ms per call)",
+          flush=True)
+    rows = []
+    for case, (iters, path) in BF16_TIMED.items():
+        rows += flash_timing_rows(case, iters, errors, counts[path], bf16=True)
+    return rows
+
+
 def nccl_main(nproc):
     """``python3 chip_smoke.py --nccl N`` on a machine with N cards: phase
     10 with NetResDeep's chunks at N ranks, then phases 12, 14, 17's
@@ -3039,10 +3514,22 @@ def main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     stamp("phases 17-19 (a)-(d)")
+    t20 = time.perf_counter()
+    bf16_errors = phase_bf16_vs_plain()
+    bf16_vit = phase_bf16_vit()
+    lm_tokens_32k = torch.from_numpy(
+        lm_tokens(LM_STEPS, LM_BATCH, LM_SEQ, LM_32K["vocab_size"])).to("cuda")
+    bf16_lm = phase_bf16_lm(lm_tokens_32k, lm_runs["flash"])
+    del lm_tokens_32k
+    torch.cuda.empty_cache()
+    phase_bf16_netresdeep()
+    print(f"phase 20 (a), (c)-(e) took {time.perf_counter() - t20:.1f} s", flush=True)
     print_accounting()
     rows += phase_lm_timing(results, flash_results, lm_runs["flash"]["launches"])
     rows += phase_finetune_timing(results, ft_runs)
-    stamp("phases 18d and 19e")
+    rows += phase_bf16_timing(bf16_errors, {"vit": bf16_vit["flash"]["launches"],
+                                            "lm": bf16_lm["bf16"]["launches"]})
+    stamp("phases 18d, 19e and 20b")
     rows += phase_quant_timing(quant_err, dp_runs)
     rows += phase_masked_timing(masked_results, {
         "netresdeep": zero1_runs["zero1"][0]["launches"]["fused_update"],

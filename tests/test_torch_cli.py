@@ -57,6 +57,22 @@ def test_cli_defaults_match_jax_cli():
         assert key in port, key
 
 
+def test_compute_dtype_and_remat_parse_into_the_config():
+    """``--compute-dtype`` (float32 by default, or bfloat16) and ``--remat``
+    reach ``TrainConfig`` as the JAX CLI's do; another dtype is refused."""
+    from tpu_ddp_torch.cli.train import config_from_args
+
+    config = config_from_args(build_parser().parse_args([]))
+    assert config.compute_dtype == "float32" and config.remat is False
+    config = config_from_args(build_parser().parse_args(
+        ["--compute-dtype", "bfloat16", "--remat"]))
+    assert config.compute_dtype == "bfloat16" and config.remat is True
+    with pytest.raises(SystemExit):
+        build_parser().parse_args(["--compute-dtype", "float16"])
+    with pytest.raises(ValueError, match="unknown compute dtype"):
+        TrainConfig(compute_dtype="float16")
+
+
 def test_cuda_is_the_default_and_missing_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

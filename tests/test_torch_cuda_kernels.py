@@ -13,7 +13,9 @@ same launches. K1, K2 and K3
 are held bitwise (K2's int8 bytes of a block
 whose scale is not finite excepted: there the scales agree and the block
 dequantizes non-finite); K4-K6 are held to the tolerances of ``tests/test_ops.py``:
-forward ``atol=2e-5``, gradients ``atol=5e-5``, ``rtol=1e-4``."""
+forward ``atol=2e-5``, gradients ``atol=5e-5``, ``rtol=1e-4``, and their
+bfloat16 kernels to two bf16 units of each row's largest value
+(``assert_bf16_rows``)."""
 
 import numpy as np
 import pytest
@@ -23,6 +25,9 @@ from tpu_ddp_torch import ops
 from tpu_ddp_torch.ops.fused_update import LeafBatch, LeafConfig, fused_update_, update_math
 
 pytestmark = pytest.mark.cuda
+
+#: every kernel's launch count at 0
+_NO_LAUNCHES = {name: 0 for name in ops.KERNELS}
 
 
 @pytest.fixture
@@ -314,8 +319,7 @@ def test_flash_kernels_match_plain(cuda, case):
     dq = fa.flash_dq(q, k, v, do, want_lse, di, mask, causal)
     dk, dv = fa.flash_dkv(q, k, v, do, want_lse, di, mask, causal)
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"fused_update": 0, fa.FWD: 1, fa.DQ: 1, fa.DKV: 1,
-                                   "fused_quant": 0, "fused_dequant": 0}
+    assert ops.launch_counts() == {**_NO_LAUNCHES, fa.FWD: 1, fa.DQ: 1, fa.DKV: 1}
     torch.testing.assert_close(out, want_out, atol=2e-5, rtol=0)
     torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=0)
     want_dq = fa.dq_plain(q, k, v, do, want_lse, di, mask, causal)
@@ -330,6 +334,120 @@ def test_flash_kernels_match_plain(cuda, case):
         # masked keys get no gradient, exactly
         hidden = mask == 0
         assert torch.all(dk[hidden] == 0) and torch.all(dv[hidden] == 0)
+
+
+#: the bfloat16 kernels' cases: ViT-S/4's shape (qkv views), with dead rows
+#: under a key mask, the LM's causal views at T = 1,024, an odd T with
+#: D = 48 (16-byte copies, zero-filled columns), D = 36 (element copies),
+#: D = 128, and one token
+BF16_CASES = {
+    "vit_s4": (32, 64, 3, 64, False, None, True),
+    "vit_s4_dead": (4, 64, 3, 64, True, "dead", True),
+    "lm_causal_t1024": (2, 1024, 2, 64, True, None, True),
+    "t100_d48": (4, 100, 2, 48, False, None, False),
+    "d36_t77_causal_dead": (3, 77, 2, 36, True, "dead", False),
+    "d128_t130": (1, 130, 2, 128, False, None, False),
+    "t1": (1, 1, 1, 16, False, None, False),
+}
+
+
+def assert_bf16_rows(got, want, ulps=2, floor=2.0 ** -12):
+    """``got`` within ``ulps`` bfloat16 units in the last place of the
+    largest ``|want|`` of its own row (the last axis: a query row of out and
+    dq, a key row of dk and dv), so that a row of small values, far along a
+    causal sequence, is held to its own scale. A row's scale is at least
+    ``floor`` of the tensor's largest value: a row whose terms cancel (causal
+    row 0 of dq, ds = p (dO v - di) with di = dO v) holds the float32 sums'
+    residual, which scales with the tensor. K4 rounds p against its tile's
+    running max and the plain version against the row's, both round the
+    output once, and the sums run in other orders, so a kernel and its
+    plain version differ by a rounding or two of a row's largest value."""
+    diff = (got.float() - want.float()).abs()
+    top = want.float().abs().amax(-1, keepdim=True)
+    top = top.clamp(min=float(top.max()) * floor)
+    unit = torch.exp2(torch.floor(torch.log2(top)) - 7)     # 0 where all of want is 0
+    bad = diff > ulps * unit
+    assert not bool(bad.any()), (
+        f"{int(bad.sum())} elements beyond {ulps} units of their row; worst "
+        f"{float(torch.where(diff == 0, 0.0, diff / unit).max()):.3g} units")
+
+
+def _bf16_inputs(case, device):
+    from tpu_ddp_torch.ops import flash_attention as fa
+
+    B, T, H, D, causal, mask_kind, views = BF16_CASES[case]
+    gen = torch.Generator(device=device).manual_seed(T * D + 1)
+    if views:
+        qkv = torch.randn((B, T, 3 * H * D), generator=gen, device=device)
+        q, k, v = (x.reshape(B, T, H, D)
+                   for x in qkv.to(torch.bfloat16).split(H * D, dim=-1))
+    else:
+        q, k, v = (torch.randn((B, T, H, D), generator=gen, device=device
+                               ).to(torch.bfloat16) for _ in range(3))
+    do = torch.randn((B, T, H, D), generator=gen, device=device).to(torch.bfloat16)
+    mask = None
+    if mask_kind is not None:
+        mask = torch.ones((B, T), device=device)
+        mask[0, 3 * T // 4:] = 0
+        mask[1, :T // 4] = 0
+    return fa, q, k, v, do, mask, causal
+
+
+@pytest.mark.parametrize("case", list(BF16_CASES))
+def test_bf16_flash_kernels_match_plain(cuda, case):
+    """K4-K6's bfloat16 kernels against their plain versions in bfloat16:
+    out, dq, dk and dv bfloat16 within two bf16 units of each row's largest
+    value (``assert_bf16_rows``), lse float32 within ``atol=2e-5``; launches counted
+    under the ``_bf16`` names; dead rows and masked keys exactly 0."""
+    fa, q, k, v, do, mask, causal = _bf16_inputs(case, cuda)
+    ops.reset_launch_counts()
+    out, lse = fa.flash_forward(q, k, v, mask, causal)
+    want_out, want_lse = fa.forward_plain(q, k, v, mask, causal)
+    di = fa.row_dot(do, want_out)
+    dq = fa.flash_dq(q, k, v, do, want_lse, di, mask, causal)
+    dk, dv = fa.flash_dkv(q, k, v, do, want_lse, di, mask, causal)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {**_NO_LAUNCHES, fa.FWD_BF16: 1, fa.DQ_BF16: 1,
+                                   fa.DKV_BF16: 1}
+    assert out.dtype == dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    assert lse.dtype == torch.float32
+    assert_bf16_rows(out, want_out)
+    torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=0)
+    want_dq = fa.dq_plain(q, k, v, do, want_lse, di, mask, causal)
+    want_dk, want_dv = fa.dkv_plain(q, k, v, do, want_lse, di, mask, causal)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert torch.isfinite(got.float()).all()
+        assert_bf16_rows(got, want)
+    if BF16_CASES[case][5] == "dead":
+        T = q.shape[1]
+        assert torch.all(out[1, :T // 4] == 0) and torch.all(dq[1, :T // 4] == 0)
+        assert torch.all(lse[1, :, :T // 4] == fa.NEG)
+        hidden = mask == 0
+        assert torch.all(dk[hidden] == 0) and torch.all(dv[hidden] == 0)
+
+
+def test_bf16_flash_backward_is_bitwise_repeatable(cuda):
+    fa, q, k, v, do, mask, causal = _bf16_inputs("d36_t77_causal_dead", cuda)
+    out, lse = fa.forward_plain(q, k, v, mask, causal)
+    di = fa.row_dot(do, out)
+    first = (fa.flash_dq(q, k, v, do, lse, di, mask, causal),
+             *fa.flash_dkv(q, k, v, do, lse, di, mask, causal))
+    second = (fa.flash_dq(q, k, v, do, lse, di, mask, causal),
+              *fa.flash_dkv(q, k, v, do, lse, di, mask, causal))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_bf16_launch_info(cuda):
+    """The bfloat16 kernels' resources: no spill at D = 64, 128 threads."""
+    from tpu_ddp_torch.ops import flash_attention as fa
+
+    infos = [fa.forward_launch_info(64, torch.bfloat16)]
+    infos += [fa.backward_launch_info(kind, 64, torch.bfloat16) for kind in ("dq", "dkv")]
+    for info in infos:
+        assert info["threads"] == 128 and info["spill_bytes"] == 0, info
+        assert info["blocks_per_sm"] >= 1, info
 
 
 @pytest.mark.parametrize("case", ["vit_s4", "d37_t77_causal_dead", "d128_t130"])
@@ -408,8 +526,11 @@ def test_flash_limits_raise_on_cuda(cuda):
     with pytest.raises(ValueError, match="limit of 128"):
         fa.flash_attention(q, q, q)
     q = torch.zeros((1, 8, 1, 16), device=cuda, dtype=torch.float16)
-    with pytest.raises(ValueError, match="float32 only"):
+    with pytest.raises(ValueError, match="float32 or bfloat16 only"):
         fa.flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 1, 16), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="one dtype"):
+        fa.flash_attention(q, q.float(), q)
 
 
 def test_vit_train_step_launches_flash_kernels(cuda):
@@ -431,9 +552,9 @@ def test_vit_train_step_launches_flash_kernels(cuda):
     state, metrics = make_train_step(tx)(state, batch)
     make_eval_step()(state, batch)
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"fused_update": 1, "flash_attention_fwd": 12,
-                                   "flash_attention_dq": 6, "flash_attention_dkv": 6,
-                                   "fused_quant": 0, "fused_dequant": 0}
+    assert ops.launch_counts() == {**_NO_LAUNCHES, "fused_update": 1,
+                                   "flash_attention_fwd": 12, "flash_attention_dq": 6,
+                                   "flash_attention_dkv": 6}
     assert torch.isfinite(metrics["loss"])
 
 
@@ -454,10 +575,10 @@ def test_lm_train_step_launches_causal_flash_kernels(cuda):
     ops.reset_launch_counts()
     state, metrics = make_lm_train_step(tx)(state, {"tokens": tokens})
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"fused_update": 1, "flash_attention_fwd": depth,
+    assert ops.launch_counts() == {**_NO_LAUNCHES, "fused_update": 1,
+                                   "flash_attention_fwd": depth,
                                    "flash_attention_dq": depth,
-                                   "flash_attention_dkv": depth,
-                                   "fused_quant": 0, "fused_dequant": 0}
+                                   "flash_attention_dkv": depth}
     assert torch.isfinite(metrics["loss"])
 
 

@@ -76,10 +76,10 @@ def _flax_tiny():
                               num_filters=8)
 
 
-def _port_tiny(num_classes=CLASSES, generator=None, image_size=32):
+def _port_tiny(num_classes=CLASSES, generator=None, image_size=32, dtype=torch.float32):
     del image_size
     return family.ResNet((1, 1), family._BasicBlock, num_classes=num_classes,
-                         num_filters=8, generator=generator)
+                         num_filters=8, generator=generator, dtype=dtype)
 
 
 def _bits(t):

@@ -275,12 +275,19 @@ def test_cpu_runs_plain_versions_and_counts_no_launch():
 
 @pytest.mark.parametrize("shape,dtype,match", [
     ((1, 8, 1, 160), torch.float32, "head dim 160 is above the kernels' limit of 128"),
-    ((1, 8, 1, 16), torch.float64, "float32 only"),
+    ((1, 8, 1, 16), torch.float64, "float32 or bfloat16 only"),
+    ((1, 8, 1, 16), torch.float16, "float32 or bfloat16 only"),
+    ((1, 8, 1, 16), "mixed", "one dtype for q, k, v and dO"),
 ])
 def test_limits_raise(shape, dtype, match):
-    q = torch.zeros(shape, dtype=dtype)
+    if dtype == "mixed":    # bfloat16 q and v, float32 k
+        q = torch.zeros(shape, dtype=torch.bfloat16)
+        args = (q, q.float(), q)
+    else:
+        q = torch.zeros(shape, dtype=dtype)
+        args = (q, q, q)
     with pytest.raises(ValueError, match=match):
-        fa.flash_attention(q, q, q)
+        fa.flash_attention(*args)
 
 
 def test_other_devices_raise():

@@ -18,7 +18,7 @@ import argparse
 from tpu_ddp_torch.models import MODEL_REGISTRY
 from tpu_ddp_torch.parallel.runtime import BACKENDS, initialize_distributed, shutdown
 from tpu_ddp_torch.runtime import DEVICES
-from tpu_ddp_torch.train.trainer import DATASETS, TrainConfig, Trainer
+from tpu_ddp_torch.train.trainer import COMPUTE_DTYPES, DATASETS, TrainConfig, Trainer
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -107,6 +107,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="flash = the CUDA flash-attention kernels "
                         "(ops/csrc/flash_attention.cu, forward and backward), "
                         "ViT-family models")
+    p.add_argument("--compute-dtype", choices=list(COMPUTE_DTYPES),
+                   default="float32",
+                   help="bfloat16 runs the forward/backward in bf16 on the "
+                        "tensor cores (K4-K6's bf16 kernels under --attention "
+                        "flash); params/loss stay f32")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize the forward in backward: per block "
+                        "for the ViT family, the whole forward otherwise "
+                        "(BatchNorm's running stats move once a step)")
     p.add_argument("--n-chans1", type=int, default=32, help="NetResDeep width")
     p.add_argument("--n-blocks", type=int, default=10, help="NetResDeep depth")
     p.add_argument("--untied-blocks", action="store_true",
@@ -162,6 +171,8 @@ def config_from_args(args) -> TrainConfig:
         dist_backend=args.dist_backend,
         model=args.model,
         attention=args.attention,
+        compute_dtype=args.compute_dtype,
+        remat=args.remat,
         n_chans1=args.n_chans1,
         n_blocks=args.n_blocks,
         tied_blocks=not args.untied_blocks,

@@ -16,9 +16,18 @@ draws it: an untruncated normal of std ``1/sqrt(hidden_dim)``.
 ``use_flash`` binds the attention of every block: the port's
 ``flash_attention(..., causal=True)`` (K4 forward, K5/K6 backward on CUDA
 tensors) or the plain causal attention, the numerics ground truth. Not
-ported: ``sp_axis``/``sp_flash`` (sequence parallelism), ``remat``,
-bfloat16 compute and ``attention_interpret`` (the Pallas interpreter).
-Next-token training lives in ``tpu_ddp_torch/train/lm_steps.py``.
+ported: ``sp_axis``/``sp_flash`` (sequence parallelism) and
+``attention_interpret`` (the Pallas interpreter). Next-token training lives
+in ``tpu_ddp_torch/train/lm_steps.py``.
+
+``dtype`` (:77) is the compute dtype, at Flax's cast points
+(``models/layers.py``): ``nn.Embed(dtype=)`` casts the table before the
+gather (:82), the blocks, ``ln_f`` and the head compute in it, and the
+logits are float32. In bfloat16 the plain causal attention keeps the dtype
+flow of the JAX ``_reference`` (its scores rounded to bfloat16, then
+float32, with a float32 output that the next Dense casts back), and the
+flash path runs K4-K6's bfloat16 kernels. ``remat`` (:76, :120-121)
+recomputes each block in the backward, as the ViT's does.
 """
 
 from __future__ import annotations
@@ -27,9 +36,11 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from tpu_ddp_torch.models.vit import LN_EPS, TransformerBlock, _dense
+from tpu_ddp_torch.models.layers import LayerNorm
+from tpu_ddp_torch.models.vit import LN_EPS, TransformerBlock, _dense, run_blocks
 from tpu_ddp_torch.ops import flash_attention as fa
 
 
@@ -49,11 +60,12 @@ class CausalTransformerLM(nn.Module):
 
     def __init__(self, vocab_size: int = 256, hidden_dim: int = 192, depth: int = 6,
                  num_heads: int = 3, mlp_ratio: int = 4, seq_len: int = 256,
-                 use_flash: bool = False, generator: Optional[torch.Generator] = None):
+                 use_flash: bool = False, generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        self.seq_len = seq_len
+        self.seq_len, self.dtype, self.remat = seq_len, dtype, remat
         self.tok_embed = nn.Embedding(vocab_size, hidden_dim)
         with torch.no_grad():   # Flax nn.Embed: variance_scaling(1, fan_in, normal)
             self.tok_embed.weight.normal_(0.0, 1.0 / math.sqrt(hidden_dim),
@@ -63,11 +75,11 @@ class CausalTransformerLM(nn.Module):
             self.pos_embed.normal_(0.0, 0.02, generator=generator)
         self.blocks = []
         for i in range(depth):
-            block = TransformerBlock(hidden_dim, num_heads, mlp_ratio, generator)
+            block = TransformerBlock(hidden_dim, num_heads, mlp_ratio, generator, dtype)
             self.add_module(f"block_{i}", block)
             self.blocks.append(block)
-        self.ln_f = nn.LayerNorm(hidden_dim, eps=LN_EPS)
-        self.head = _dense(hidden_dim, vocab_size, generator)
+        self.ln_f = LayerNorm(hidden_dim, LN_EPS, dtype)
+        self.head = _dense(hidden_dim, vocab_size, generator, dtype)
         self.use_flash = use_flash
 
     @property
@@ -87,9 +99,8 @@ class CausalTransformerLM(nn.Module):
             raise ValueError(f"tokens must be (B, seq_len) = (B, {self.seq_len}), "
                              f"the length pos_embed was built for; got "
                              f"{tuple(tokens.shape)}")
-        x = self.tok_embed(tokens) + self.pos_embed
-        for block in self.blocks:
-            x = block(x)
+        x = F.embedding(tokens, self.tok_embed.weight.to(self.dtype))
+        x = run_blocks(self.blocks, x + self.pos_embed.to(x.dtype), self.remat)
         return self.head(self.ln_f(x)).float()
 
 

@@ -19,6 +19,11 @@ Counterpart of ``tpu_ddp/models/resnet.py`` (``ResBlock`` :39,
 * **Tied blocks.** With ``tied=True`` one ``ResBlock`` is applied
   ``n_blocks`` times (the reference's list-repeat quirk): 76,074 params, and
   the shared BatchNorm's running stats move ``n_blocks`` times per forward.
+* **Compute dtype.** ``dtype`` (:45-136) float32 or bfloat16, at Flax's cast
+  points (``models/layers.py``): the convs and Dense layers compute in it;
+  BatchNorm takes its batch statistics and normalises in float32, keeps its
+  running buffers float32 and returns ``dtype``, as Flax's does
+  (``force_float32_reductions``); params stay float32, logits are float32.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpu_ddp_torch.models.initializers import kaiming_normal_relu_, torch_default_uniform_
+from tpu_ddp_torch.models.layers import Conv2d, Dense
 
 
 class BatchNorm(nn.Module):
@@ -35,40 +41,47 @@ class BatchNorm(nn.Module):
     with Flax's biased fast-form variance in both the normalisation and the
     running buffer. ``scale_init`` is the scale's constant initial value:
     NetResDeep's 0.5 by default; the ResNet family's 1.0, and 0.0 for the
-    last BatchNorm of a residual branch."""
+    last BatchNorm of a residual branch. The arithmetic is float32 whatever
+    ``x``'s dtype, and the result is ``dtype``. ``update_running = False``
+    keeps the running buffers as they are (the recompute of a checkpointed
+    forward, ``train/steps.py``)."""
 
     def __init__(self, n_chans: int, momentum: float = 0.9, eps: float = 1e-5,
-                 scale_init: float = 0.5):
+                 scale_init: float = 0.5, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.momentum, self.eps = momentum, eps
+        self.momentum, self.eps, self.dtype = momentum, eps, dtype
+        self.update_running = True
         self.weight = nn.Parameter(torch.full((n_chans,), float(scale_init)))
         self.bias = nn.Parameter(torch.zeros(n_chans))
         self.register_buffer("running_mean", torch.zeros(n_chans))
         self.register_buffer("running_var", torch.ones(n_chans))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
         if self.training:
             mean = x.mean(dim=(0, 2, 3))
             mean2 = (x * x).mean(dim=(0, 2, 3))
             var = torch.clamp_min(mean2 - mean * mean, 0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+            if self.update_running:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+                    self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (x - mean[:, None, None]) * mul[:, None, None]
-        return y + self.bias[:, None, None]
+        return (y + self.bias[:, None, None]).to(self.dtype)
 
 
 class ResBlock(nn.Module):
     """conv3x3 (no bias) -> BN -> relu -> (+x); kaiming-normal(relu) conv."""
 
-    def __init__(self, n_chans: int, generator: torch.Generator):
+    def __init__(self, n_chans: int, generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = nn.Conv2d(n_chans, n_chans, 3, padding=1, bias=False)
-        self.batch_norm = BatchNorm(n_chans)
+        self.conv = Conv2d(n_chans, n_chans, 3, padding=1, bias=False, compute_dtype=dtype)
+        self.batch_norm = BatchNorm(n_chans, dtype=dtype)
         kaiming_normal_relu_(self.conv.weight, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -81,28 +94,30 @@ class NetResDeep(nn.Module):
 
     def __init__(self, n_chans1: int = 32, n_blocks: int = 10,
                  num_classes: int = 10, tied: bool = True,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.n_chans1, self.n_blocks, self.tied = n_chans1, n_blocks, tied
-        self.conv1 = nn.Conv2d(3, n_chans1, 3, padding=1)
+        self.dtype = dtype
+        self.conv1 = Conv2d(3, n_chans1, 3, padding=1, compute_dtype=dtype)
         torch_default_uniform_(self.conv1.weight, 3 * 3 * 3, generator)
         torch_default_uniform_(self.conv1.bias, 3 * 3 * 3, generator)
         if tied:
-            self.resblock = ResBlock(n_chans1, generator)
+            self.resblock = ResBlock(n_chans1, generator, dtype)
             self.blocks = [self.resblock] * n_blocks
         else:
             self.blocks = []
             for i in range(n_blocks):
-                block = ResBlock(n_chans1, generator)
+                block = ResBlock(n_chans1, generator, dtype)
                 self.add_module(f"resblock_{i}", block)
                 self.blocks.append(block)
         flat = 8 * 8 * n_chans1
-        self.fc1 = nn.Linear(flat, 32)
+        self.fc1 = Dense(flat, 32, compute_dtype=dtype)
         torch_default_uniform_(self.fc1.weight, flat, generator)
         torch_default_uniform_(self.fc1.bias, flat, generator)
-        self.fc2 = nn.Linear(32, num_classes)
+        self.fc2 = Dense(32, num_classes, compute_dtype=dtype)
         torch_default_uniform_(self.fc2.weight, 32, generator)
         torch_default_uniform_(self.fc2.bias, 32, generator)
 

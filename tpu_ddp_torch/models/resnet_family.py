@@ -27,7 +27,9 @@ it first, so there it is ``Conv_0``.
   tests carry weights across.
 * The pool is a global mean over H and W; the logits are float32.
 
-Not ported: bfloat16 compute and ``bn_cross_replica_axis`` (sync BN).
+``dtype`` (:33-138) is the compute dtype, as in ``models/resnet.py``: the
+convolutions and the head compute in it, BatchNorm in float32 with a
+``dtype`` result. Not ported: ``bn_cross_replica_axis`` (sync BN).
 Convolutions, BatchNorm and the head are cuDNN, cuBLAS and torch ops, as the
 JAX package leaves them to XLA.
 """
@@ -42,6 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpu_ddp_torch.models.initializers import lecun_normal_
+from tpu_ddp_torch.models.layers import Conv2d, Dense
 from tpu_ddp_torch.models.resnet import BatchNorm
 from tpu_ddp_torch.models.zoo import register
 
@@ -55,8 +58,9 @@ def he_normal_fan_out_(weight: torch.Tensor, generator: torch.Generator):
 
 
 def _conv(in_chans: int, out_chans: int, k: int, generator: torch.Generator,
-          stride: int = 1, padding: int = 0) -> nn.Conv2d:
-    conv = nn.Conv2d(in_chans, out_chans, k, stride=stride, padding=padding, bias=False)
+          stride: int = 1, padding: int = 0, dtype: torch.dtype = torch.float32) -> Conv2d:
+    conv = Conv2d(in_chans, out_chans, k, stride=stride, padding=padding, bias=False,
+                  compute_dtype=dtype)
     he_normal_fan_out_(conv.weight, generator)
     return conv
 
@@ -68,16 +72,16 @@ class _BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, in_chans: int, filters: int, strides: int,
-                 generator: torch.Generator):
+                 generator: torch.Generator, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.Conv_0 = _conv(in_chans, filters, 3, generator, strides, 1)
-        self.BatchNorm_0 = BatchNorm(filters, scale_init=1.0)
-        self.Conv_1 = _conv(filters, filters, 3, generator, 1, 1)
-        self.BatchNorm_1 = BatchNorm(filters, scale_init=0.0)
+        self.Conv_0 = _conv(in_chans, filters, 3, generator, strides, 1, dtype)
+        self.BatchNorm_0 = BatchNorm(filters, scale_init=1.0, dtype=dtype)
+        self.Conv_1 = _conv(filters, filters, 3, generator, 1, 1, dtype)
+        self.BatchNorm_1 = BatchNorm(filters, scale_init=0.0, dtype=dtype)
         self.project = in_chans != filters or strides != 1
         if self.project:
-            self.Conv_2 = _conv(in_chans, filters, 1, generator, strides)
-            self.BatchNorm_2 = BatchNorm(filters, scale_init=1.0)
+            self.Conv_2 = _conv(in_chans, filters, 1, generator, strides, dtype=dtype)
+            self.BatchNorm_2 = BatchNorm(filters, scale_init=1.0, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
@@ -94,19 +98,19 @@ class _Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, in_chans: int, filters: int, strides: int,
-                 generator: torch.Generator):
+                 generator: torch.Generator, dtype: torch.dtype = torch.float32):
         super().__init__()
         out = filters * self.expansion
-        self.Conv_0 = _conv(in_chans, filters, 1, generator)
-        self.BatchNorm_0 = BatchNorm(filters, scale_init=1.0)
-        self.Conv_1 = _conv(filters, filters, 3, generator, strides, 1)
-        self.BatchNorm_1 = BatchNorm(filters, scale_init=1.0)
-        self.Conv_2 = _conv(filters, out, 1, generator)
-        self.BatchNorm_2 = BatchNorm(out, scale_init=0.0)
+        self.Conv_0 = _conv(in_chans, filters, 1, generator, dtype=dtype)
+        self.BatchNorm_0 = BatchNorm(filters, scale_init=1.0, dtype=dtype)
+        self.Conv_1 = _conv(filters, filters, 3, generator, strides, 1, dtype)
+        self.BatchNorm_1 = BatchNorm(filters, scale_init=1.0, dtype=dtype)
+        self.Conv_2 = _conv(filters, out, 1, generator, dtype=dtype)
+        self.BatchNorm_2 = BatchNorm(out, scale_init=0.0, dtype=dtype)
         self.project = in_chans != out or strides != 1
         if self.project:
-            self.Conv_3 = _conv(in_chans, out, 1, generator, strides)
-            self.BatchNorm_3 = BatchNorm(out, scale_init=1.0)
+            self.Conv_3 = _conv(in_chans, out, 1, generator, strides, dtype=dtype)
+            self.BatchNorm_3 = BatchNorm(out, scale_init=1.0, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
@@ -116,8 +120,9 @@ class _Bottleneck(nn.Module):
         return F.relu(y + residual)
 
 
-def _head(in_features: int, num_classes: int, generator: torch.Generator) -> nn.Linear:
-    head = nn.Linear(in_features, num_classes)
+def _head(in_features: int, num_classes: int, generator: torch.Generator,
+          dtype: torch.dtype = torch.float32) -> Dense:
+    head = Dense(in_features, num_classes, compute_dtype=dtype)
     lecun_normal_(head.weight, generator)
     with torch.no_grad():
         head.bias.zero_()
@@ -130,28 +135,29 @@ class ResNet(nn.Module):
 
     def __init__(self, stage_sizes: Sequence[int], block: type, num_classes: int = 10,
                  num_filters: int = 64, cifar_stem: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.stage_sizes, self.block = tuple(stage_sizes), block
-        self.cifar_stem = cifar_stem
+        self.cifar_stem, self.dtype = cifar_stem, dtype
         if cifar_stem:
-            self.stem_conv = _conv(3, num_filters, 3, generator, 1, 1)
+            self.stem_conv = _conv(3, num_filters, 3, generator, 1, 1, dtype)
         else:
-            self.stem_conv = _conv(3, num_filters, 7, generator, 2, 3)
-        self.stem_bn = BatchNorm(num_filters, scale_init=1.0)
+            self.stem_conv = _conv(3, num_filters, 7, generator, 2, 3, dtype)
+        self.stem_bn = BatchNorm(num_filters, scale_init=1.0, dtype=dtype)
         self.blocks = []
         chans, g = num_filters, 0
         for stage, n_blocks in enumerate(self.stage_sizes):
             for b in range(n_blocks):
                 filters = num_filters * 2 ** stage
                 blk = block(chans, filters, 2 if (b == 0 and stage > 0) else 1,
-                            generator)
+                            generator, dtype)
                 self.add_module(f"{block.__name__}_{g}", blk)
                 self.blocks.append(blk)
                 chans, g = filters * block.expansion, g + 1
-        self.head = _head(chans, num_classes, generator)
+        self.head = _head(chans, num_classes, generator, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # x: (N, H, W, 3) NHWC
@@ -165,10 +171,11 @@ class ResNet(nn.Module):
 
 def _factory(stage_sizes, block):
     def build(num_classes: int = 10, generator: Optional[torch.Generator] = None,
-              image_size: int = 32, cifar_stem: bool = True) -> ResNet:
+              image_size: int = 32, cifar_stem: bool = True,
+              dtype: torch.dtype = torch.float32) -> ResNet:
         del image_size  # the global pool takes any input size
         return ResNet(stage_sizes, block, num_classes=num_classes,
-                      cifar_stem=cifar_stem, generator=generator)
+                      cifar_stem=cifar_stem, generator=generator, dtype=dtype)
 
     return build
 
@@ -187,18 +194,18 @@ class _WideBlock(nn.Module):
     tensor."""
 
     def __init__(self, in_chans: int, filters: int, strides: int,
-                 generator: torch.Generator):
+                 generator: torch.Generator, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.BatchNorm_0 = BatchNorm(in_chans, scale_init=1.0)
+        self.BatchNorm_0 = BatchNorm(in_chans, scale_init=1.0, dtype=dtype)
         self.project = in_chans != filters or strides != 1
         convs = []
         if self.project:
-            convs.append(_conv(in_chans, filters, 1, generator, strides))
-        convs.append(_conv(in_chans, filters, 3, generator, strides, 1))
-        convs.append(_conv(filters, filters, 3, generator, 1, 1))
+            convs.append(_conv(in_chans, filters, 1, generator, strides, dtype=dtype))
+        convs.append(_conv(in_chans, filters, 3, generator, strides, 1, dtype))
+        convs.append(_conv(filters, filters, 3, generator, 1, 1, dtype))
         for c, conv in enumerate(convs):
             self.add_module(f"Conv_{c}", conv)
-        self.BatchNorm_1 = BatchNorm(filters, scale_init=1.0)
+        self.BatchNorm_1 = BatchNorm(filters, scale_init=1.0, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         convs = [getattr(self, f"Conv_{c}") for c in range(2 + self.project)]
@@ -215,25 +222,27 @@ class WideResNet(nn.Module):
     before the global pool."""
 
     def __init__(self, depth: int = 28, widen: int = 10, num_classes: int = 10,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if (depth - 4) % 6:
             raise ValueError(f"WRN depth must be 6n+4, got {depth}")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
+        self.dtype = dtype
         n = (depth - 4) // 6
-        self.stem_conv = _conv(3, 16, 3, generator, 1, 1)
+        self.stem_conv = _conv(3, 16, 3, generator, 1, 1, dtype)
         self.blocks = []
         chans, g = 16, 0
         for stage, width in enumerate((16, 32, 64)):
             for b in range(n):
                 blk = _WideBlock(chans, width * widen, 2 if (b == 0 and stage > 0) else 1,
-                                 generator)
+                                 generator, dtype)
                 self.add_module(f"_WideBlock_{g}", blk)
                 self.blocks.append(blk)
                 chans, g = width * widen, g + 1
-        self.final_bn = BatchNorm(chans, scale_init=1.0)
-        self.head = _head(chans, num_classes, generator)
+        self.final_bn = BatchNorm(chans, scale_init=1.0, dtype=dtype)
+        self.head = _head(chans, num_classes, generator, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.stem_conv(x.permute(0, 3, 1, 2))
@@ -245,16 +254,20 @@ class WideResNet(nn.Module):
 
 @register("wrn28_10")
 def wrn28_10(num_classes: int = 10, generator: Optional[torch.Generator] = None,
-             image_size: int = 32, cifar_stem: bool = True) -> WideResNet:
+             image_size: int = 32, cifar_stem: bool = True,
+             dtype: torch.dtype = torch.float32) -> WideResNet:
     """The WRN paper's headline CIFAR config (36,479,194 params at 10
     classes)."""
     del image_size, cifar_stem  # WRN is 32x32-native
-    return WideResNet(depth=28, widen=10, num_classes=num_classes, generator=generator)
+    return WideResNet(depth=28, widen=10, num_classes=num_classes, generator=generator,
+                      dtype=dtype)
 
 
 @register("wrn16_4")
 def wrn16_4(num_classes: int = 10, generator: Optional[torch.Generator] = None,
-            image_size: int = 32, cifar_stem: bool = True) -> WideResNet:
+            image_size: int = 32, cifar_stem: bool = True,
+            dtype: torch.dtype = torch.float32) -> WideResNet:
     """Small WRN of the same family."""
     del image_size, cifar_stem
-    return WideResNet(depth=16, widen=4, num_classes=num_classes, generator=generator)
+    return WideResNet(depth=16, widen=4, num_classes=num_classes, generator=generator,
+                      dtype=dtype)

@@ -19,8 +19,15 @@ padding here, because the image side divides by the patch.
 pluggable on ``(B, T, H, D)`` tensors: ``full_attention`` by default; the
 trainer sets
 ``tpu_ddp_torch.ops.flash_attention.flash_attention`` under ``--attention
-flash``. Not ported: ``sp_axis``/``sp_flash`` (sequence parallelism),
-``remat`` and bfloat16 compute.
+flash``. Not ported: ``sp_axis``/``sp_flash`` (sequence parallelism).
+
+``dtype`` is the compute dtype (``MultiHeadSelfAttention`` :49,
+``TransformerBlock`` :68, ``ViT`` :114): float32 or bfloat16, at Flax's cast
+points (``models/layers.py``); params stay float32, ``pos_embed`` is cast to
+the activations' dtype (:163), GELU runs in it, and the logits are float32
+(:180). ``remat`` (:113, :165) recomputes each block in the backward
+(``torch.utils.checkpoint``, non-reentrant), so only the blocks' inputs are
+kept; the params and their names are the same either way.
 """
 
 from __future__ import annotations
@@ -31,37 +38,44 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tpu_ddp_torch.models.initializers import lecun_normal_
+from tpu_ddp_torch.models.layers import Conv2d, Dense, LayerNorm
 from tpu_ddp_torch.models.zoo import register
 
 LN_EPS = 1e-6  # Flax nn.LayerNorm's default
 
 
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """q, k, v: (B, T, H, D) -> (B, T, H, D). Non-causal softmax attention,
-    float32 scores."""
+    """q, k, v: (B, T, H, D) -> (B, T, H, D). Non-causal softmax attention:
+    float32 scores and softmax whatever the inputs' dtype; p cast to v's
+    dtype for P V, summed in float32, the result in q's dtype (the JAX
+    ``full_attention``'s ``preferred_element_type=float32`` products)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
-    p = torch.softmax(s.float(), dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v).to(q.dtype)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    return o.to(q.dtype)
 
 
-def _dense(n_in: int, n_out: int, generator: torch.Generator) -> nn.Linear:
+def _dense(n_in: int, n_out: int, generator: torch.Generator,
+           dtype: torch.dtype = torch.float32) -> Dense:
     """Flax ``nn.Dense``: lecun-normal kernel, zero bias."""
-    layer = nn.Linear(n_in, n_out)
+    layer = Dense(n_in, n_out, compute_dtype=dtype)
     lecun_normal_(layer.weight, generator)
     nn.init.zeros_(layer.bias)
     return layer
 
 
 class MultiHeadSelfAttention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, generator: torch.Generator):
+    def __init__(self, dim: int, num_heads: int, generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
         self.attention_impl: Callable = full_attention
-        self.qkv = _dense(dim, 3 * dim, generator)
-        self.proj = _dense(dim, dim, generator)
+        self.qkv = _dense(dim, 3 * dim, generator, dtype)
+        self.proj = _dense(dim, dim, generator, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, T, C = x.shape
@@ -77,13 +91,13 @@ class MultiHeadSelfAttention(nn.Module):
 
 class TransformerBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: int,
-                 generator: torch.Generator):
+                 generator: torch.Generator, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.ln1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn = MultiHeadSelfAttention(dim, num_heads, generator)
-        self.ln2 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.mlp_up = _dense(dim, dim * mlp_ratio, generator)
-        self.mlp_down = _dense(dim * mlp_ratio, dim, generator)
+        self.ln1 = LayerNorm(dim, LN_EPS, dtype)
+        self.attn = MultiHeadSelfAttention(dim, num_heads, generator, dtype)
+        self.ln2 = LayerNorm(dim, LN_EPS, dtype)
+        self.mlp_up = _dense(dim, dim * mlp_ratio, generator, dtype)
+        self.mlp_down = _dense(dim * mlp_ratio, dim, generator, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln1(x))
@@ -91,22 +105,35 @@ class TransformerBlock(nn.Module):
         return x + self.mlp_down(h)
 
 
+def run_blocks(blocks, x: torch.Tensor, remat: bool) -> torch.Tensor:
+    """``x`` through ``blocks`` in turn; under ``remat`` (and autograd) each
+    block is checkpointed, so its internals are recomputed in the backward
+    (Flax ``nn.remat(TransformerBlock)``)."""
+    remat = remat and torch.is_grad_enabled()
+    for block in blocks:
+        x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
+    return x
+
+
 class ViT(nn.Module):
     """Patch embed -> + pos_embed -> ``depth`` pre-LN blocks -> LayerNorm
     -> token mean -> head. The input is NHWC ``(N, S, S, 3)`` with
-    ``S == image_size``, as the JAX model takes it; the logits are float32."""
+    ``S == image_size``, as the JAX model takes it; the logits are float32.
+    ``dtype`` and ``remat`` as in the module docstring."""
 
     def __init__(self, patch_size: int = 4, hidden_dim: int = 192, depth: int = 6,
                  num_heads: int = 3, num_classes: int = 10, mlp_ratio: int = 4,
-                 image_size: int = 32, generator: Optional[torch.Generator] = None):
+                 image_size: int = 32, generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         if image_size % patch_size:
             raise ValueError(f"image size {image_size} does not divide by "
                              f"patch {patch_size}")
-        self.hidden_dim = hidden_dim
-        self.patch_embed = nn.Conv2d(3, hidden_dim, patch_size, stride=patch_size)
+        self.hidden_dim, self.dtype, self.remat = hidden_dim, dtype, remat
+        self.patch_embed = Conv2d(3, hidden_dim, patch_size, stride=patch_size,
+                                  compute_dtype=dtype)
         lecun_normal_(self.patch_embed.weight, generator)
         nn.init.zeros_(self.patch_embed.bias)
         tokens = (image_size // patch_size) ** 2
@@ -115,11 +142,11 @@ class ViT(nn.Module):
             self.pos_embed.normal_(0.0, 0.02, generator=generator)
         self.blocks = []
         for i in range(depth):
-            block = TransformerBlock(hidden_dim, num_heads, mlp_ratio, generator)
+            block = TransformerBlock(hidden_dim, num_heads, mlp_ratio, generator, dtype)
             self.add_module(f"block_{i}", block)
             self.blocks.append(block)
-        self.ln_f = nn.LayerNorm(hidden_dim, eps=LN_EPS)
-        self.head = _dense(hidden_dim, num_classes, generator)
+        self.ln_f = LayerNorm(hidden_dim, LN_EPS, dtype)
+        self.head = _dense(hidden_dim, num_classes, generator, dtype)
 
     @property
     def attention_impl(self) -> Callable:
@@ -136,26 +163,27 @@ class ViT(nn.Module):
         B = x.shape[0]
         x = self.patch_embed(x.permute(0, 3, 1, 2))        # (B, C, h, w)
         x = x.permute(0, 2, 3, 1).reshape(B, -1, self.hidden_dim)  # (h, w) order
-        x = x + self.pos_embed
-        for block in self.blocks:
-            x = block(x)
+        x = x + self.pos_embed.to(x.dtype)
+        x = run_blocks(self.blocks, x, self.remat)
         x = self.ln_f(x).mean(dim=1)
         return self.head(x).float()
 
 
 @register("vit_s4")
 def vit_s4(num_classes: int = 10, generator: Optional[torch.Generator] = None,
-           image_size: int = 32) -> ViT:
+           image_size: int = 32, dtype: torch.dtype = torch.float32) -> ViT:
     """Small ViT for 32x32 inputs (patch 4 -> 64 tokens)."""
     return ViT(patch_size=4, hidden_dim=192, depth=6, num_heads=3,
-               num_classes=num_classes, image_size=image_size, generator=generator)
+               num_classes=num_classes, image_size=image_size, generator=generator,
+               dtype=dtype)
 
 
 @register("vit_b16")
 def vit_b16(num_classes: int = 1000, generator: Optional[torch.Generator] = None,
-            image_size: int = 32) -> ViT:
+            image_size: int = 32, dtype: torch.dtype = torch.float32) -> ViT:
     """ViT-B/16: 196 tokens at its published 224x224 input, 4 at the 32x32
     the CIFAR trainer feeds it. ``pos_embed`` is sized for ``image_size``,
     as the Flax model sizes it from the input it is initialised on."""
     return ViT(patch_size=16, hidden_dim=768, depth=12, num_heads=12,
-               num_classes=num_classes, image_size=image_size, generator=generator)
+               num_classes=num_classes, image_size=image_size, generator=generator,
+               dtype=dtype)

@@ -58,6 +58,35 @@ KERNELS = {
         "replaces": "tpu_ddp/ops/flash_attention.py:366",
         "strategies": ("dp",),
     },
+    # their bfloat16 instantiations (bf16 q, k, v and dO: the JAX kernels
+    # under --compute-dtype bfloat16), in the same sources
+    "flash_attention_fwd_bf16": {
+        "wrapper": "tpu_ddp_torch.ops.flash_attention:flash_forward",
+        "plain": "tpu_ddp_torch.ops.flash_attention:forward_plain",
+        "route": "cuda",
+        "source": "tpu_ddp_torch/ops/csrc/flash_forward.cu",
+        "library": "flash_forward",
+        "replaces": "tpu_ddp/ops/flash_attention.py:108",
+        "strategies": ("dp",),
+    },
+    "flash_attention_dq_bf16": {
+        "wrapper": "tpu_ddp_torch.ops.flash_attention:flash_dq",
+        "plain": "tpu_ddp_torch.ops.flash_attention:dq_plain",
+        "route": "cuda",
+        "source": "tpu_ddp_torch/ops/csrc/flash_attention.cu",
+        "library": "flash_attention",
+        "replaces": "tpu_ddp/ops/flash_attention.py:327",
+        "strategies": ("dp",),
+    },
+    "flash_attention_dkv_bf16": {
+        "wrapper": "tpu_ddp_torch.ops.flash_attention:flash_dkv",
+        "plain": "tpu_ddp_torch.ops.flash_attention:dkv_plain",
+        "route": "cuda",
+        "source": "tpu_ddp_torch/ops/csrc/flash_attention.cu",
+        "library": "flash_attention",
+        "replaces": "tpu_ddp/ops/flash_attention.py:366",
+        "strategies": ("dp",),
+    },
     # the int8 quantize and dequantize of the compressed gradient ring
     # (tpu_ddp/ops/fused_quant.py)
     "fused_quant": {

@@ -3,8 +3,9 @@ with a plain C interface, loaded with ``ctypes``.
 
 Each source under ``csrc/`` becomes ``build/tpu_ddp_torch/lib<name>-<hash>.so``
 at the root of the checkout (a directory ``.gitignore`` lists) at first use;
-the hash covers the source and the flags that library is built with, so an
-edited source or a changed flag is rebuilt. ``build`` starts one ``nvcc``
+the hash covers the source, the headers of ``csrc/`` (``*.cuh``) and the
+flags that library is built with, so an edited source or header or a
+changed flag is rebuilt. ``build`` starts one ``nvcc``
 per missing library, all at once, and waits for them. It holds a lock file
 in the build directory while it does, so that processes started together
 (the ranks of one job) build each library once and never write the same
@@ -46,10 +47,13 @@ LIBRARIES = {
         **_ERR,
     }),
     # K4, held to a tolerance: nvcc's default contraction into FMAs; its
-    # __launch_bounds__ hold it to 128 registers a thread
+    # float32 kernel's __launch_bounds__ hold it to 128 registers a thread,
+    # its bfloat16 kernel's to 255
     "flash_forward": ("flash_forward.cu", (), {
         "tpu_ddp_flash_fwd": (_I, [_P] * 7 + [_I] * 5 + [_P]),
         "tpu_ddp_flash_fwd_info": (_I, [_I, _P]),
+        "tpu_ddp_flash_fwd_bf16": (_I, [_P] * 7 + [_I] * 5 + [_P]),
+        "tpu_ddp_flash_fwd_info_bf16": (_I, [_I, _P]),
         **_ERR,
     }),
     # K5 and K6, held to a tolerance: nvcc's default contraction into FMAs;
@@ -59,6 +63,9 @@ LIBRARIES = {
         "tpu_ddp_flash_dq": (_I, [_P] * 9 + [_I] * 5 + [_P]),
         "tpu_ddp_flash_dkv": (_I, [_P] * 10 + [_I] * 5 + [_P]),
         "tpu_ddp_flash_bwd_info": (_I, [_I, _I, _P]),
+        "tpu_ddp_flash_dq_bf16": (_I, [_P] * 9 + [_I] * 5 + [_P]),
+        "tpu_ddp_flash_dkv_bf16": (_I, [_P] * 10 + [_I] * 5 + [_P]),
+        "tpu_ddp_flash_bwd_info_bf16": (_I, [_I, _I, _P]),
         **_ERR,
     }),
     # -fmad=false: K2's error and K3 round q * scale and then the
@@ -94,8 +101,9 @@ def flags(name: str) -> tuple:
 
 def library_path(name: str) -> Path:
     source = LIBRARIES[name][0]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        (CSRC / source).read_bytes() + " ".join(flags(name)).encode()
+        (CSRC / source).read_bytes() + headers + " ".join(flags(name)).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -82,22 +82,27 @@
 #include <cmath>
 #include <cstdint>
 
+#include "bf16_tiles.cuh"
+
 namespace {
+
+using bf16_tiles::Bf16;
+using bf16_tiles::View;
 
 constexpr float kLog2e = 1.4426950408889634f;
 
-struct View {  // element strides of B, T and H; D has stride 1
-  long long sb, st, sh;
-};
-
-struct Args {
-  const float *q, *k, *v, *dout, *lse_in, *di, *mask;
-  float *dq, *dk, *dv;
+template <typename E>  // the element type of q, k, v, dO, dq, dk and dv
+struct ArgsT {
+  const E *q, *k, *v, *dout;
+  const float *lse_in, *di, *mask;
+  E *dq, *dk, *dv;
   View vq, vk, vv, vdo, vout, vdk, vdv;  // vout: the strides of dq
   int B, T, H, D;
   bool causal, vec;  // vec: 16-byte copies of q, k, v and dO rows
   float scale;
 };
+using Args = ArgsT<float>;
+using ArgsB = ArgsT<Bf16>;
 
 constexpr int kBM = 64;        // rows a block owns: queries (K5), keys (K6)
 constexpr int kThreads = 128;  // four warps of 16 rows
@@ -540,30 +545,306 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) flash_dkv_kernel(Args a)
   store_rows(a.dv, a.vdv, b, h, key_lo, a.T, a.D, t, dv);
 }
 
+// The bfloat16 instantiations (replace _dq_kernel and _dkv_kernel on bf16
+// q, k, v and dO). The float32 kernels' layout, tiles and visibility; the
+// products are single bf16 ones with float32 accumulators (m16n8k16): S
+// and dP exactly the Pallas kernels' jnp.dot(..., preferred_element_type=
+// f32) up to the order of the sum; p and ds are rounded to bf16 for dS K,
+// P^T dO and dS^T Q (ops/flash_attention.py: design (a)), their accumulator
+// fragments packed into the A fragment of those products. Tiles are bf16
+// rows of kD + 8 (bf16_tiles.cuh); the resident tiles' and the B operands
+// of X^T are 32-bit fragment loads, the B operands of X itself (K for dQ,
+// dO and Q for dV and dK) one ldmatrix.x4.trans for two output tiles. dq,
+// dk and dv are rounded to bf16 (nearest even).
+template <int kD, int kBN>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) flash_dq_bf16_kernel(ArgsB a) {
+  constexpr int kLd = kD + 8, kNT = kBN / 8, kDT = kD / 8, kKT = kD / 16;
+  extern __shared__ float4 smem4[];
+  Bf16* Qs = reinterpret_cast<Bf16*>(smem4);
+  Bf16* dOs = Qs + kBM * kLd;
+  Bf16* Ks = dOs + kBM * kLd;  // [2][kBN][kLd]
+  Bf16* Vs = Ks + 2 * kBN * kLd;
+  float* Ms = reinterpret_cast<float*>(Vs + 2 * kBN * kLd);  // [2][kBN]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int tiles = (a.T + kBM - 1) / kBM;
+  const int bh = blockIdx.x / tiles, b = bh / a.H, h = bh % a.H;
+  const int tile = a.causal ? tiles - 1 - blockIdx.x % tiles : blockIdx.x % tiles;
+  const int q0 = tile * kBM;
+  const int warp_first = q0 + 16 * warp, warp_last = warp_first + 15;
+  const int row_lo = warp_first + g, row_hi = row_lo + 8;
+  const float scale2 = a.scale * kLog2e;
+  const float* mask_b = a.mask ? a.mask + static_cast<long long>(b) * a.T : nullptr;
+
+  auto load_kv = [&](int j, int stage) {
+    const int k0 = j * kBN;
+    bf16_tiles::load_tile<kD, kBN, kThreads>(Ks + stage * kBN * kLd, a.k, a.vk, b, h, k0,
+                                             a.T, a.D, a.vec);
+    bf16_tiles::load_tile<kD, kBN, kThreads>(Vs + stage * kBN * kLd, a.v, a.vv, b, h, k0,
+                                             a.T, a.D, a.vec);
+    if (mask_b != nullptr) load_vec(Ms + stage * kBN, mask_b, k0, kBN, a.T);
+  };
+
+  const int kv_end = a.causal ? min(a.T, q0 + kBM) : a.T;
+  const int n_tiles = (kv_end + kBN - 1) / kBN;
+  bf16_tiles::load_tile<kD, kBM, kThreads>(Qs, a.q, a.vq, b, h, q0, a.T, a.D, a.vec);
+  bf16_tiles::load_tile<kD, kBM, kThreads>(dOs, a.dout, a.vdo, b, h, q0, a.T, a.D, a.vec);
+  load_kv(0, 0);
+  cp_async_commit();
+
+  const float* lse_bh = a.lse_in + static_cast<long long>(bh) * a.T;
+  const float* di_bh = a.di + static_cast<long long>(bh) * a.T;
+  const float l2_lo = row_lo < a.T ? lse_bh[row_lo] * kLog2e : 0.0f;
+  const float l2_hi = row_hi < a.T ? lse_bh[row_hi] * kLog2e : 0.0f;
+  const float di_lo = row_lo < a.T ? di_bh[row_lo] : 0.0f;
+  const float di_hi = row_hi < a.T ? di_bh[row_hi] : 0.0f;
+
+  float dq[kDT][4];
+#pragma unroll
+  for (int n = 0; n < kDT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.0f;
+  const Bf16* Qw = Qs + (16 * warp + g) * kLd + 2 * t;
+  const Bf16* dOw = dOs + (16 * warp + g) * kLd + 2 * t;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // tile j is in; every warp is done with tile j - 1
+    if (j + 1 < n_tiles) load_kv(j + 1, (j + 1) & 1);
+    cp_async_commit();
+    const int k0 = j * kBN;
+    if (a.causal && k0 > warp_last) continue;  // no key of this tile is visible
+    const Bf16* Kt = Ks + (j & 1) * kBN * kLd;
+    const Bf16* Vt = Vs + (j & 1) * kBN * kLd;
+    const float* Mt = Ms + (j & 1) * kBN;
+
+    // S = Q K^T and dP = dO V^T
+    float s[kNT][4], ds[kNT][4];  // S, then p; dP, then dS
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = ds[n][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < kKT; ++kk) {
+      uint32_t qa[4], da[4];
+      bf16_tiles::frag_a<kLd>(Qw + 16 * kk, qa);
+      bf16_tiles::frag_a<kLd>(dOw + 16 * kk, da);
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        const Bf16* Kr = Kt + (8 * n + g) * kLd + 16 * kk + 2 * t;
+        const Bf16* Vr = Vt + (8 * n + g) * kLd + 16 * kk + 2 * t;
+        bf16_tiles::mma(s[n], qa, bf16_tiles::ld32(Kr), bf16_tiles::ld32(Kr + 8));
+        bf16_tiles::mma(ds[n], da, bf16_tiles::ld32(Vr), bf16_tiles::ld32(Vr + 8));
+      }
+    }
+
+    // p and ds, as the float32 kernel forms them
+    const bool whole = mask_b == nullptr && k0 + kBN <= a.T &&
+                       (!a.causal || k0 + kBN - 1 <= warp_first);
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = ex2(fmaf(s[n][e], scale2, -(e < 2 ? l2_lo : l2_hi)));
+        if (!whole) {
+          const int c = 8 * n + 2 * t + (e & 1), col = k0 + c;
+          const bool live = (mask_b != nullptr ? Mt[c] > 0.0f : col < a.T) &&
+                            (!a.causal || col <= (e < 2 ? row_lo : row_hi));
+          p = live ? p : 0.0f;
+        }
+        ds[n][e] = p * (ds[n][e] - (e < 2 ? di_lo : di_hi)) * a.scale;
+      }
+    }
+
+    // dQ += dS K over 16 keys at a time
+#pragma unroll
+    for (int m = 0; m < kNT / 2; ++m) {
+      uint32_t sa[4];
+      bf16_tiles::acc_to_a(ds[2 * m], ds[2 * m + 1], sa);
+#pragma unroll
+      for (int dn = 0; dn < kDT; dn += 2) {
+        uint32_t kb[4];
+        bf16_tiles::frag_b_trans2<kLd>(Kt + 16 * m * kLd + 8 * dn, lane, kb);
+        bf16_tiles::mma(dq[dn], sa, kb[0], kb[1]);
+        bf16_tiles::mma(dq[dn + 1], sa, kb[2], kb[3]);
+      }
+    }
+  }
+  cp_async_wait_all();  // the last (empty) group
+  bf16_tiles::store_rows(a.dq, a.vout, b, h, row_lo, a.T, a.D, t, dq);
+}
+
+template <int kD, int kBN>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) flash_dkv_bf16_kernel(ArgsB a) {
+  constexpr int kLd = kD + 8, kNT = kBN / 8, kDT = kD / 8, kKT = kD / 16;
+  extern __shared__ float4 smem4[];
+  Bf16* Ks = reinterpret_cast<Bf16*>(smem4);
+  Bf16* Vs = Ks + kBM * kLd;
+  Bf16* Qs = Vs + kBM * kLd;  // [2][kBN][kLd]
+  Bf16* dOs = Qs + 2 * kBN * kLd;
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * kBN * kLd);  // [2][kBN]: lse
+  float* Ds = Ls + 2 * kBN;                                   // [2][kBN]: di
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int tiles = (a.T + kBM - 1) / kBM;
+  const int bh = blockIdx.x / tiles, b = bh / a.H, h = bh % a.H;
+  const int k0 = blockIdx.x % tiles * kBM;
+  const int warp_first = k0 + 16 * warp;
+  const int key_lo = warp_first + g, key_hi = key_lo + 8;
+  const float scale2 = a.scale * kLog2e;
+  const float* mask_b = a.mask ? a.mask + static_cast<long long>(b) * a.T : nullptr;
+  const bool live_lo = key_lo < a.T && (mask_b == nullptr || mask_b[key_lo] > 0.0f);
+  const bool live_hi = key_hi < a.T && (mask_b == nullptr || mask_b[key_hi] > 0.0f);
+  const float* lse_bh = a.lse_in + static_cast<long long>(bh) * a.T;
+  const float* di_bh = a.di + static_cast<long long>(bh) * a.T;
+
+  const int q_begin = a.causal ? k0 : 0;
+  auto load_q = [&](int j, int stage) {
+    const int q0 = q_begin + j * kBN;
+    bf16_tiles::load_tile<kD, kBN, kThreads>(Qs + stage * kBN * kLd, a.q, a.vq, b, h, q0,
+                                             a.T, a.D, a.vec);
+    bf16_tiles::load_tile<kD, kBN, kThreads>(dOs + stage * kBN * kLd, a.dout, a.vdo, b, h,
+                                             q0, a.T, a.D, a.vec);
+    load_vec(Ls + stage * kBN, lse_bh, q0, kBN, a.T);
+    load_vec(Ds + stage * kBN, di_bh, q0, kBN, a.T);
+  };
+
+  const int n_tiles = (a.T - q_begin + kBN - 1) / kBN;
+  bf16_tiles::load_tile<kD, kBM, kThreads>(Ks, a.k, a.vk, b, h, k0, a.T, a.D, a.vec);
+  bf16_tiles::load_tile<kD, kBM, kThreads>(Vs, a.v, a.vv, b, h, k0, a.T, a.D, a.vec);
+  load_q(0, 0);
+  cp_async_commit();
+
+  float dk[kDT][4], dv[kDT][4];
+#pragma unroll
+  for (int n = 0; n < kDT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.0f;
+  const Bf16* Kw = Ks + (16 * warp + g) * kLd + 2 * t;
+  const Bf16* Vw = Vs + (16 * warp + g) * kLd + 2 * t;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // tile j is in; every warp is done with tile j - 1
+    if (j + 1 < n_tiles) load_q(j + 1, (j + 1) & 1);
+    cp_async_commit();
+    const int q0 = q_begin + j * kBN;
+    if (a.causal && q0 + kBN - 1 < warp_first) continue;
+    const Bf16* Qt = Qs + (j & 1) * kBN * kLd;
+    const Bf16* dOt = dOs + (j & 1) * kBN * kLd;
+    const float* Lt = Ls + (j & 1) * kBN;
+    const float* Dt = Ds + (j & 1) * kBN;
+
+    // S^T = K Q^T and dP^T = V dO^T
+    float p[kNT][4], ds[kNT][4];  // S^T, then P^T; dP^T, then dS^T
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[n][e] = ds[n][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < kKT; ++kk) {
+      uint32_t ka[4], va[4];
+      bf16_tiles::frag_a<kLd>(Kw + 16 * kk, ka);
+      bf16_tiles::frag_a<kLd>(Vw + 16 * kk, va);
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        const Bf16* Qr = Qt + (8 * n + g) * kLd + 16 * kk + 2 * t;
+        const Bf16* dOr = dOt + (8 * n + g) * kLd + 16 * kk + 2 * t;
+        bf16_tiles::mma(p[n], ka, bf16_tiles::ld32(Qr), bf16_tiles::ld32(Qr + 8));
+        bf16_tiles::mma(ds[n], va, bf16_tiles::ld32(dOr), bf16_tiles::ld32(dOr + 8));
+      }
+    }
+
+    // P^T and dS^T, as the float32 kernel forms them
+    const bool whole = mask_b == nullptr && q0 + kBN <= a.T && warp_first + 16 <= a.T &&
+                       (!a.causal || warp_first + 15 <= q0);
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * n + 2 * t + (e & 1);
+        float pe = ex2(fmaf(p[n][e], scale2, -(Lt[c] * kLog2e)));
+        if (!whole) {
+          const int row = q0 + c;
+          const bool live = (e < 2 ? live_lo : live_hi) && row < a.T &&
+                            (!a.causal || (e < 2 ? key_lo : key_hi) <= row);
+          pe = live ? pe : 0.0f;
+        }
+        p[n][e] = pe;
+        ds[n][e] = pe * (ds[n][e] - Dt[c]) * a.scale;
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q over 16 queries at a time
+#pragma unroll
+    for (int m = 0; m < kNT / 2; ++m) {
+      uint32_t pa[4], sa[4];
+      bf16_tiles::acc_to_a(p[2 * m], p[2 * m + 1], pa);
+      bf16_tiles::acc_to_a(ds[2 * m], ds[2 * m + 1], sa);
+#pragma unroll
+      for (int dn = 0; dn < kDT; dn += 2) {
+        uint32_t ob[4], qb[4];
+        bf16_tiles::frag_b_trans2<kLd>(dOt + 16 * m * kLd + 8 * dn, lane, ob);
+        bf16_tiles::frag_b_trans2<kLd>(Qt + 16 * m * kLd + 8 * dn, lane, qb);
+        bf16_tiles::mma(dv[dn], pa, ob[0], ob[1]);
+        bf16_tiles::mma(dk[dn], sa, qb[0], qb[1]);
+        bf16_tiles::mma(dv[dn + 1], pa, ob[2], ob[3]);
+        bf16_tiles::mma(dk[dn + 1], sa, qb[2], qb[3]);
+      }
+    }
+  }
+  cp_async_wait_all();  // the last (empty) group
+  bf16_tiles::store_rows(a.dk, a.vdk, b, h, key_lo, a.T, a.D, t, dk);
+  bf16_tiles::store_rows(a.dv, a.vdv, b, h, key_lo, a.T, a.D, t, dv);
+}
+
 enum Which { kDq = 0, kDkv = 1 };
 
-using Kernel = void (*)(Args);
-
+template <typename A>
 struct Launch {
-  Kernel kernel;
+  void (*kernel)(A);
   size_t smem;
   int query_rows, key_rows;  // rows of a block's query and key tiles
 };
 
-// The kernel for head dim D: the 64-wide tiles with 32-row streamed tiles,
-// or the 128-wide ones with 16-row streamed tiles (the ring and the
-// registers at D = 128, two blocks an SM).
-Launch pick(Which w, int D) {
+// Shared memory of a bf16 block: the resident tiles and the ring as bf16
+// rows of kD + 8, and kVecs per-row float vectors of the streamed tile in
+// two stages.
+template <int kD, int kBN, int kVecs>
+constexpr size_t smem_bf16() {
+  return sizeof(Bf16) * (2 * kBM + 4 * kBN) * (kD + 8) + sizeof(float) * 2 * kVecs * kBN;
+}
+
+// The kernel for head dim D: float32, the 64-wide tiles with 32-row
+// streamed tiles, or the 128-wide ones with 16-row streamed tiles (the ring
+// and the registers at D = 128, two blocks an SM); bfloat16, 64-row
+// streamed tiles at D <= 64 and 32-row ones at D = 128.
+Launch<Args> pick(Which w, const Args& a) {
   if (w == kDq)
-    return D <= 64 ? Launch{flash_dq_kernel<64, 32>, smem_bytes<64, 32, 1>(), kBM, 32}
-                   : Launch{flash_dq_kernel<128, 16>, smem_bytes<128, 16, 1>(), kBM, 16};
-  return D <= 64 ? Launch{flash_dkv_kernel<64, 32>, smem_bytes<64, 32, 2>(), 32, kBM}
-                 : Launch{flash_dkv_kernel<128, 16>, smem_bytes<128, 16, 2>(), 16, kBM};
+    return a.D <= 64
+               ? Launch<Args>{flash_dq_kernel<64, 32>, smem_bytes<64, 32, 1>(), kBM, 32}
+               : Launch<Args>{flash_dq_kernel<128, 16>, smem_bytes<128, 16, 1>(), kBM, 16};
+  return a.D <= 64
+             ? Launch<Args>{flash_dkv_kernel<64, 32>, smem_bytes<64, 32, 2>(), 32, kBM}
+             : Launch<Args>{flash_dkv_kernel<128, 16>, smem_bytes<128, 16, 2>(), 16, kBM};
+}
+
+Launch<ArgsB> pick(Which w, const ArgsB& a) {
+  if (w == kDq)
+    return a.D <= 64 ? Launch<ArgsB>{flash_dq_bf16_kernel<64, 64>, smem_bf16<64, 64, 1>(),
+                                     kBM, 64}
+                     : Launch<ArgsB>{flash_dq_bf16_kernel<128, 32>, smem_bf16<128, 32, 1>(),
+                                     kBM, 32};
+  return a.D <= 64 ? Launch<ArgsB>{flash_dkv_bf16_kernel<64, 64>, smem_bf16<64, 64, 2>(),
+                                   64, kBM}
+                   : Launch<ArgsB>{flash_dkv_bf16_kernel<128, 32>, smem_bf16<128, 32, 2>(),
+                                   32, kBM};
 }
 
 // above 48 KB, dynamic shared memory needs the kernel's opt-in; the carveout
 // asks for the SM's largest shared-memory split, so two blocks fit
-cudaError_t prepare(const Launch& l) {
+template <typename A>
+cudaError_t prepare(const Launch<A>& l) {
   const cudaError_t err = cudaFuncSetAttribute(
       l.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(l.smem));
   if (err != cudaSuccess) return err;
@@ -571,7 +852,25 @@ cudaError_t prepare(const Launch& l) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
-int run(Which w, Args& a, const long long* strides, int n_views, View* const* views,
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+bool strides4(const View& v) { return v.sb % 4 == 0 && v.st % 4 == 0 && v.sh % 4 == 0; }
+
+// 16-byte copies of q, k, v and dO rows: 4 floats, or 8 bf16, at a time
+bool vec_copies(const Args& a) {
+  return a.D % 4 == 0 && aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
+         aligned16(a.dout) && strides4(a.vq) && strides4(a.vk) && strides4(a.vv) &&
+         strides4(a.vdo);
+}
+
+bool vec_copies(const ArgsB& a) {
+  const void* ptrs[] = {a.q, a.k, a.v, a.dout};
+  const View views[] = {a.vq, a.vk, a.vv, a.vdo};
+  return bf16_tiles::vec_ok(a.D, ptrs, views, 4);
+}
+
+template <typename A>
+int run(Which w, A& a, const long long* strides, int n_views, View* const* views,
         int B, int T, int H, int D, int causal, void* stream) {
   if (D < 1 || D > 128 || B < 1 || H < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -583,16 +882,10 @@ int run(Which w, Args& a, const long long* strides, int n_views, View* const* vi
   a.H = H;
   a.D = D;
   a.causal = causal != 0;
-  const auto aligned16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  const auto strides4 = [](const View& v) {
-    return v.sb % 4 == 0 && v.st % 4 == 0 && v.sh % 4 == 0;
-  };
-  a.vec = D % 4 == 0 && aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
-          aligned16(a.dout) && strides4(a.vq) && strides4(a.vk) && strides4(a.vv) &&
-          strides4(a.vdo);
+  a.vec = vec_copies(a);
   // as PyTorch rounds the Python float 1/sqrt(D) for a float32 product
   a.scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
-  const Launch l = pick(w, D);
+  const Launch<A> l = pick(w, a);
   const cudaError_t err = prepare(l);
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks = B * H * ((T + kBM - 1) / kBM);
@@ -600,21 +893,11 @@ int run(Which w, Args& a, const long long* strides, int n_views, View* const* vi
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" {
-
-// Each entry point returns cudaGetLastError() after its launch (0 on
-// success), or the error of setting the kernel's attributes. strides holds
-// the (B, T, H) element strides of each (B, T, H, D) tensor argument, in
-// argument order; lse and di are contiguous (B, H, T); mask is contiguous
-// (B, T) float32, or null.
-
-int tpu_ddp_flash_dq(const float* q, const float* k, const float* v,
-                     const float* dout, const float* lse, const float* di,
-                     const float* mask, float* dq, const long long* strides,
-                     int B, int T, int H, int D, int causal, void* stream) {
-  Args a{};
+template <typename E>
+int dq(const E* q, const E* k, const E* v, const E* dout, const float* lse,
+       const float* di, const float* mask, E* dq_out, const long long* strides, int B,
+       int T, int H, int D, int causal, void* stream) {
+  ArgsT<E> a{};
   a.q = q;
   a.k = k;
   a.v = v;
@@ -622,17 +905,16 @@ int tpu_ddp_flash_dq(const float* q, const float* k, const float* v,
   a.lse_in = lse;
   a.di = di;
   a.mask = mask;
-  a.dq = dq;
+  a.dq = dq_out;
   View* views[] = {&a.vq, &a.vk, &a.vv, &a.vdo, &a.vout};
   return run(kDq, a, strides, 5, views, B, T, H, D, causal, stream);
 }
 
-int tpu_ddp_flash_dkv(const float* q, const float* k, const float* v,
-                      const float* dout, const float* lse, const float* di,
-                      const float* mask, float* dk, float* dv,
-                      const long long* strides, int B, int T, int H, int D,
-                      int causal, void* stream) {
-  Args a{};
+template <typename E>
+int dkv(const E* q, const E* k, const E* v, const E* dout, const float* lse,
+        const float* di, const float* mask, E* dk, E* dv, const long long* strides, int B,
+        int T, int H, int D, int causal, void* stream) {
+  ArgsT<E> a{};
   a.q = q;
   a.k = k;
   a.v = v;
@@ -646,15 +928,16 @@ int tpu_ddp_flash_dkv(const float* q, const float* k, const float* v,
   return run(kDkv, a, strides, 6, views, B, T, H, D, causal, stream);
 }
 
-// The launch configuration of K5 (which = 0) or K6 (which = 1) for head dim
-// D, into out[7]: rows of a block's query and key tiles, threads a block,
-// registers and local (spilled) bytes a thread, dynamic shared memory a
-// block, and blocks an SM by the runtime's occupancy calculator. Returns a
-// CUDA error code.
-int tpu_ddp_flash_bwd_info(int which, int D, int* out) {
+// rows of a block's query and key tiles, threads a block, registers and
+// local (spilled) bytes a thread, dynamic shared memory a block, and blocks
+// an SM by the runtime's occupancy calculator
+template <typename E>
+int launch_info(int which, int D, int* out) {
   if (D < 1 || D > 128 || (which != kDq && which != kDkv))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Launch l = pick(static_cast<Which>(which), D);
+  ArgsT<E> a{};
+  a.D = D;
+  const Launch<ArgsT<E>> l = pick(static_cast<Which>(which), a);
   cudaError_t err = prepare(l);
   cudaFuncAttributes attr{};
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, l.kernel);
@@ -666,6 +949,57 @@ int tpu_ddp_flash_bwd_info(int which, int D, int* out) {
                       per_sm};
   for (int i = 0; i < 7; ++i) out[i] = vals[i];
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each entry point returns cudaGetLastError() after its launch (0 on
+// success), or the error of setting the kernel's attributes. strides holds
+// the (B, T, H) element strides of each (B, T, H, D) tensor argument, in
+// argument order; lse and di are contiguous (B, H, T) float32; mask is
+// contiguous (B, T) float32, or null. The _bf16 entry points take bfloat16
+// (B, T, H, D) tensors.
+
+int tpu_ddp_flash_dq(const float* q, const float* k, const float* v,
+                     const float* dout, const float* lse, const float* di,
+                     const float* mask, float* dq_out, const long long* strides,
+                     int B, int T, int H, int D, int causal, void* stream) {
+  return dq(q, k, v, dout, lse, di, mask, dq_out, strides, B, T, H, D, causal, stream);
+}
+
+int tpu_ddp_flash_dkv(const float* q, const float* k, const float* v,
+                      const float* dout, const float* lse, const float* di,
+                      const float* mask, float* dk, float* dv,
+                      const long long* strides, int B, int T, int H, int D,
+                      int causal, void* stream) {
+  return dkv(q, k, v, dout, lse, di, mask, dk, dv, strides, B, T, H, D, causal, stream);
+}
+
+int tpu_ddp_flash_dq_bf16(const Bf16* q, const Bf16* k, const Bf16* v,
+                          const Bf16* dout, const float* lse, const float* di,
+                          const float* mask, Bf16* dq_out, const long long* strides,
+                          int B, int T, int H, int D, int causal, void* stream) {
+  return dq(q, k, v, dout, lse, di, mask, dq_out, strides, B, T, H, D, causal, stream);
+}
+
+int tpu_ddp_flash_dkv_bf16(const Bf16* q, const Bf16* k, const Bf16* v,
+                           const Bf16* dout, const float* lse, const float* di,
+                           const float* mask, Bf16* dk, Bf16* dv,
+                           const long long* strides, int B, int T, int H, int D,
+                           int causal, void* stream) {
+  return dkv(q, k, v, dout, lse, di, mask, dk, dv, strides, B, T, H, D, causal, stream);
+}
+
+// The launch configuration of K5 (which = 0) or K6 (which = 1) for head dim
+// D, into out[7] (launch_info). Returns a CUDA error code.
+int tpu_ddp_flash_bwd_info(int which, int D, int* out) {
+  return launch_info<float>(which, D, out);
+}
+
+int tpu_ddp_flash_bwd_info_bf16(int which, int D, int* out) {
+  return launch_info<Bf16>(which, D, out);
 }
 
 const char* tpu_ddp_cuda_error_string(int code) {

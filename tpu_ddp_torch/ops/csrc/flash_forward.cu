@@ -67,24 +67,30 @@
 #include <cmath>
 #include <cstdint>
 
+#include "bf16_tiles.cuh"
+
 namespace {
+
+using bf16_tiles::Bf16;
+using bf16_tiles::View;
 
 constexpr float kNeg = -1e30f;  // finite stand-in for -inf (the JAX NEG)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-struct View {  // element strides of B, T and H; D has stride 1
-  long long sb, st, sh;
-};
-
-struct Args {
-  const float *q, *k, *v, *mask;
-  float *out, *lse;
+template <typename E>  // the element type of q, k, v and out
+struct ArgsT {
+  const E *q, *k, *v;
+  const float* mask;
+  E* out;
+  float* lse;
   View vq, vk, vv, vout;
   int B, T, H, D;
   bool causal, vec;  // vec: 16-byte copies of q, k, v rows
   float scale;
 };
+using Args = ArgsT<float>;
+using ArgsB = ArgsT<Bf16>;
 
 constexpr int kBM = 64;        // query rows of a block
 constexpr int kThreads = 128;  // four warps of 16 query rows
@@ -203,6 +209,71 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// One key tile of the online softmax, in base 2, for a warp's 16 rows (the
+// lane's rows row_lo = g and row_hi = g + 8): s (the tile's raw scores, in
+// mma accumulator layout: s[n][e] is row g for e < 2, g + 8 else, key
+// 8n + 2t + (e & 1)) becomes p = 2^(s * scale * log2(e) - m), invisible
+// entries exactly 0; the running max m and sum l move, and o is rescaled
+// when a max moved. Unless the tile is seen whole, a key is visible when it
+// exists (col < T, or its mask Mt > 0 when Mt is given) and, under causal,
+// col <= row; bit 4n + e of vis says so, and an invisible score is NEG.
+template <int kNT, int kDT>
+__device__ __forceinline__ void online_softmax(float (&s)[kNT][4], float (&o)[kDT][4],
+                                               float& m_lo, float& m_hi, float& l_lo,
+                                               float& l_hi, bool whole, const float* Mt,
+                                               int k0, int T, bool causal, int row_lo,
+                                               int row_hi, int t, float scale2) {
+  unsigned vis = ~0u;
+  float mx_lo = kNeg, mx_hi = kNeg;
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (whole) {
+        s[n][e] *= scale2;
+      } else {
+        const int c = 8 * n + 2 * t + (e & 1), col = k0 + c;
+        const int row = e < 2 ? row_lo : row_hi;
+        const bool live = (Mt != nullptr ? Mt[c] > 0.0f : col < T) &&
+                          (!causal || col <= row);
+        vis &= live ? ~0u : ~(1u << (4 * n + e));
+        s[n][e] = live ? s[n][e] * scale2 : kNeg;
+      }
+    }
+    mx_lo = fmaxf(mx_lo, fmaxf(s[n][0], s[n][1]));
+    mx_hi = fmaxf(mx_hi, fmaxf(s[n][2], s[n][3]));
+  }
+  const float mn_lo = fmaxf(m_lo, quad_max(mx_lo));
+  const float mn_hi = fmaxf(m_hi, quad_max(mx_hi));
+  float rs_lo = 0.0f, rs_hi = 0.0f;
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // the multiplicative mask: a row that has seen no key yet has
+      // m == NEG, and its invisible entries must still give 0
+      const float p = ex2(s[n][e] - (e < 2 ? mn_lo : mn_hi));
+      s[n][e] = (vis >> (4 * n + e)) & 1u ? p : 0.0f;
+    }
+    rs_lo += s[n][0] + s[n][1];
+    rs_hi += s[n][2] + s[n][3];
+  }
+  const float al_lo = ex2(m_lo - mn_lo), al_hi = ex2(m_hi - mn_hi);
+  l_lo = l_lo * al_lo + quad_sum(rs_lo);
+  l_hi = l_hi * al_hi + quad_sum(rs_hi);
+  m_lo = mn_lo;
+  m_hi = mn_hi;
+  if (__any_sync(0xffffffffu, al_lo != 1.0f || al_hi != 1.0f)) {  // a max moved
+#pragma unroll
+    for (int n = 0; n < kDT; ++n) {
+      o[n][0] *= al_lo;
+      o[n][1] *= al_lo;
+      o[n][2] *= al_hi;
+      o[n][3] *= al_hi;
+    }
+  }
+}
+
 // K4 (replaces _kernel). 1-D grid of B*H*ceil(T/kBM) blocks, the query
 // tiles of one (b, h) adjacent so that they share K/V tiles in L2; at most
 // 128 registers a thread, so that four blocks' worth fit an SM's file.
@@ -307,62 +378,12 @@ __global__ void __launch_bounds__(kThreads, 4) flash_fwd_kernel(Args a) {
         for (int e = 0; e < 4; ++e) s[n][e] += sm[n][e];
     }
 
-    // The online softmax, in base 2: s2 = s * scale * log2(e), p = 2^(s2 -
-    // m). A tile the warp sees whole (no key mask, no key past T, under
-    // causal no key past its first row) needs no visibility; otherwise bit
-    // 4n + e of vis says whether s[n][e] (row g for e < 2, g + 8 else; key
-    // 8n + 2t + (e & 1)) is visible, and an invisible score is NEG.
+    // A tile the warp sees whole (no key mask, no key past T, under causal
+    // no key past its first row) needs no visibility tests.
     const bool whole = mask_b == nullptr && k0 + kBN <= a.T &&
                        (!a.causal || k0 + kBN - 1 <= q0 + 16 * warp);
-    unsigned vis = ~0u;
-    float mx_lo = kNeg, mx_hi = kNeg;
-#pragma unroll
-    for (int n = 0; n < kNT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (whole) {
-          s[n][e] *= scale2;
-        } else {
-          const int c = 8 * n + 2 * t + (e & 1), col = k0 + c;
-          const int row = e < 2 ? row_lo : row_hi;
-          const bool live = (mask_b != nullptr ? Mt[c] > 0.0f : col < a.T) &&
-                            (!a.causal || col <= row);
-          vis &= live ? ~0u : ~(1u << (4 * n + e));
-          s[n][e] = live ? s[n][e] * scale2 : kNeg;
-        }
-      }
-      mx_lo = fmaxf(mx_lo, fmaxf(s[n][0], s[n][1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[n][2], s[n][3]));
-    }
-    const float mn_lo = fmaxf(m_lo, quad_max(mx_lo));
-    const float mn_hi = fmaxf(m_hi, quad_max(mx_hi));
-    float rs_lo = 0.0f, rs_hi = 0.0f;
-#pragma unroll
-    for (int n = 0; n < kNT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        // the multiplicative mask: a row that has seen no key yet has
-        // m == NEG, and its invisible entries must still give 0
-        const float p = ex2(s[n][e] - (e < 2 ? mn_lo : mn_hi));
-        s[n][e] = (vis >> (4 * n + e)) & 1u ? p : 0.0f;
-      }
-      rs_lo += s[n][0] + s[n][1];
-      rs_hi += s[n][2] + s[n][3];
-    }
-    const float al_lo = ex2(m_lo - mn_lo), al_hi = ex2(m_hi - mn_hi);
-    l_lo = l_lo * al_lo + quad_sum(rs_lo);
-    l_hi = l_hi * al_hi + quad_sum(rs_hi);
-    m_lo = mn_lo;
-    m_hi = mn_hi;
-    if (__any_sync(0xffffffffu, al_lo != 1.0f || al_hi != 1.0f)) {  // a max moved
-#pragma unroll
-      for (int n = 0; n < kDT; ++n) {
-        o[n][0] *= al_lo;
-        o[n][1] *= al_lo;
-        o[n][2] *= al_hi;
-        o[n][3] *= al_hi;
-      }
-    }
+    online_softmax(s, o, m_lo, m_hi, l_lo, l_hi, whole, mask_b != nullptr ? Mt : nullptr,
+                   k0, a.T, a.causal, row_lo, row_hi, t, scale2);
 
     // O += P V: P's accumulator layout is its A operand under the key
     // permutation (header), so V rows are read as keys 2t and 2t + 1; the
@@ -421,75 +442,198 @@ __global__ void __launch_bounds__(kThreads, 4) flash_fwd_kernel(Args a) {
   }
 }
 
+// K4 for bfloat16 inputs (replaces _kernel on bf16 q, k, v). The float32
+// kernel's layout and online softmax; the products are single bf16 ones
+// with float32 accumulators (m16n8k16), which is the Pallas kernel's
+// jnp.dot(q, k.T, preferred_element_type=f32) exactly up to the order of
+// the sum. p is rounded to bf16 for P V (ops/flash_attention.py: design
+// (a)); the row sum l takes the unrounded p. Q, K and V tiles are bf16 rows
+// of kD + 8 (bf16_tiles.cuh); Q's and K's fragments are 32-bit loads, V's
+// one ldmatrix.x4.trans for two output tiles. out is rounded to bf16
+// (nearest even); lse stays float32. 128 threads, up to 255 registers a
+// thread (two blocks an SM by registers; shared memory allows more at
+// D = 64: Q, the K/V ring and the mask take 46 KB).
 template <int kD, int kBN>
-struct Variant {
-  using C = Cfg<kD, kBN>;
+__global__ void __launch_bounds__(kThreads, 2) flash_fwd_bf16_kernel(ArgsB a) {
+  constexpr int kLd = kD + 8, kNT = kBN / 8, kDT = kD / 8, kKT = kD / 16;
+  constexpr int kQ = kBM * kLd, kKV = kBN * kLd;
+  extern __shared__ float4 smem4[];
+  Bf16* Qs = reinterpret_cast<Bf16*>(smem4);
+  Bf16* Ks = Qs + kQ;
+  Bf16* Vs = Ks + 2 * kKV;
+  float* Ms = reinterpret_cast<float*>(Vs + 2 * kKV);
 
-  // above 48 KB, dynamic shared memory needs the kernel's opt-in; the
-  // carveout asks for the SM's largest shared-memory split, so the blocks fit
-  static cudaError_t prepare() {
-    const auto kernel = flash_fwd_kernel<kD, kBN>;
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::kSmem));
-    if (err != cudaSuccess) return err;
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                cudaSharedmemCarveoutMaxShared);
-  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int tiles = (a.T + kBM - 1) / kBM;
+  const int bh = blockIdx.x / tiles, b = bh / a.H, h = bh % a.H;
+  const int q0 = blockIdx.x % tiles * kBM;
+  const int row_lo = q0 + 16 * warp + g, row_hi = row_lo + 8;
+  const int warp_last = q0 + 16 * warp + 15;
+  const float scale2 = a.scale * kLog2e;
+  const float* mask_b = a.mask ? a.mask + static_cast<long long>(b) * a.T : nullptr;
 
-  static cudaError_t launch(const Args& a, cudaStream_t stream) {
-    const cudaError_t err = prepare();
-    if (err != cudaSuccess) return err;
-    const unsigned blocks = a.B * a.H * ((a.T + kBM - 1) / kBM);
-    flash_fwd_kernel<kD, kBN><<<blocks, kThreads, C::kSmem, stream>>>(a);
-    return cudaGetLastError();
-  }
+  auto load_kv = [&](int j, int stage) {
+    const int k0 = j * kBN;
+    bf16_tiles::load_tile<kD, kBN, kThreads>(Ks + stage * kKV, a.k, a.vk, b, h, k0, a.T,
+                                             a.D, a.vec);
+    bf16_tiles::load_tile<kD, kBN, kThreads>(Vs + stage * kKV, a.v, a.vv, b, h, k0, a.T,
+                                             a.D, a.vec);
+    if (mask_b != nullptr && threadIdx.x < kBN) {
+      const int col = k0 + threadIdx.x;
+      const bool live = col < a.T;
+      cp_async4(Ms + stage * kBN + threadIdx.x, live ? mask_b + col : mask_b, live ? 4 : 0);
+    }
+  };
 
-  // query rows, key rows and threads of a block, registers a thread, local
-  // (spilled) bytes a thread, dynamic shared memory a block, blocks an SM
-  static cudaError_t info(int* out) {
-    const auto kernel = flash_fwd_kernel<kD, kBN>;
-    cudaError_t err = prepare();
-    cudaFuncAttributes attr{};
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
-    int per_sm = 0;
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                          C::kSmem);
-    const int vals[] = {kBM, kBN, kThreads, attr.numRegs,
-                        static_cast<int>(attr.localSizeBytes), static_cast<int>(C::kSmem),
-                        per_sm};
-    for (int i = 0; i < 7; ++i) out[i] = vals[i];
-    return err;
+  const int kv_end = a.causal ? min(a.T, q0 + kBM) : a.T;
+  const int n_tiles = (kv_end + kBN - 1) / kBN;
+  bf16_tiles::load_tile<kD, kBM, kThreads>(Qs, a.q, a.vq, b, h, q0, a.T, a.D, a.vec);
+  load_kv(0, 0);
+  cp_async_commit();
+
+  float o[kDT][4];
+#pragma unroll
+  for (int n = 0; n < kDT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.0f, l_hi = 0.0f;
+  const Bf16* Qw = Qs + (16 * warp + g) * kLd + 2 * t;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // tile j is in; every warp is done with tile j - 1
+    if (j + 1 < n_tiles) load_kv(j + 1, (j + 1) & 1);
+    cp_async_commit();
+    const int k0 = j * kBN;
+    if (a.causal && k0 > warp_last) continue;  // no key of this tile is visible
+    const Bf16* Kt = Ks + (j & 1) * kKV;
+    const Bf16* Vt = Vs + (j & 1) * kKV;
+    const float* Mt = Ms + (j & 1) * kBN;
+
+    // S = Q K^T: K's rows are the B operand's columns, read as they lie
+    float s[kNT][4];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < kKT; ++kk) {
+      uint32_t qa[4];
+      bf16_tiles::frag_a<kLd>(Qw + 16 * kk, qa);
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        const Bf16* Kr = Kt + (8 * n + g) * kLd + 16 * kk + 2 * t;
+        bf16_tiles::mma(s[n], qa, bf16_tiles::ld32(Kr), bf16_tiles::ld32(Kr + 8));
+      }
+    }
+
+    const bool whole = mask_b == nullptr && k0 + kBN <= a.T &&
+                       (!a.causal || k0 + kBN - 1 <= q0 + 16 * warp);
+    online_softmax(s, o, m_lo, m_hi, l_lo, l_hi, whole, mask_b != nullptr ? Mt : nullptr,
+                   k0, a.T, a.causal, row_lo, row_hi, t, scale2);
+
+    // O += P V over 16 keys at a time: p rounded to bf16 in the A fragment
+#pragma unroll
+    for (int m = 0; m < kNT / 2; ++m) {
+      uint32_t pa[4];
+      bf16_tiles::acc_to_a(s[2 * m], s[2 * m + 1], pa);
+#pragma unroll
+      for (int dn = 0; dn < kDT; dn += 2) {
+        uint32_t vb[4];
+        bf16_tiles::frag_b_trans2<kLd>(Vt + 16 * m * kLd + 8 * dn, lane, vb);
+        bf16_tiles::mma(o[dn], pa, vb[0], vb[1]);
+        bf16_tiles::mma(o[dn + 1], pa, vb[2], vb[3]);
+      }
+    }
   }
+  cp_async_wait_all();  // the last (empty) group
+
+  const bool live_lo = l_lo > 0.0f, live_hi = l_hi > 0.0f;
+  const float inv_lo = live_lo ? 1.0f / l_lo : 0.0f;  // a dead row's o is 0
+  const float inv_hi = live_hi ? 1.0f / l_hi : 0.0f;
+  if (t == 0) {
+    float* lse = a.lse + static_cast<long long>(bh) * a.T;
+    if (row_lo < a.T) lse[row_lo] = live_lo ? m_lo * kLn2 + logf(l_lo) : kNeg;
+    if (row_hi < a.T) lse[row_hi] = live_hi ? m_hi * kLn2 + logf(l_hi) : kNeg;
+  }
+  bf16_tiles::store_rows(a.out, a.vout, b, h, row_lo, a.T, a.D, t, o, inv_lo, inv_hi);
+}
+
+// A kernel and its launch: dynamic shared memory a block and rows of its
+// key tiles
+template <typename A>
+struct Launch {
+  void (*kernel)(A);
+  size_t smem;
+  int key_rows;
 };
 
-// Calls fn with the variant for head dim D: the 64-wide tiles with 64-key
-// tiles, or the 128-wide ones with 16-key tiles (the ring and the registers
-// at D = 128).
-template <typename Fn>
-cudaError_t with_variant(int D, Fn fn) {
-  return D <= 64 ? fn(Variant<64, 64>{}) : fn(Variant<128, 16>{});
+template <int kD, int kBN>
+constexpr size_t smem_bf16() {
+  // Q, K[2], V[2] as bf16 rows of kD + 8; mask[2]
+  return sizeof(Bf16) * (kBM + 4 * kBN) * (kD + 8) + sizeof(float) * 2 * kBN;
+}
+
+// The kernel for head dim D: float32, the 64-wide tiles with 64-key tiles,
+// or the 128-wide ones with 16-key tiles (the ring and the registers at
+// D = 128); bfloat16, 64-key tiles at either width.
+Launch<Args> pick(const Args& a) {
+  return a.D <= 64 ? Launch<Args>{flash_fwd_kernel<64, 64>, Cfg<64, 64>::kSmem, 64}
+                   : Launch<Args>{flash_fwd_kernel<128, 16>, Cfg<128, 16>::kSmem, 16};
+}
+
+Launch<ArgsB> pick(const ArgsB& a) {
+  return a.D <= 64 ? Launch<ArgsB>{flash_fwd_bf16_kernel<64, 64>, smem_bf16<64, 64>(), 64}
+                   : Launch<ArgsB>{flash_fwd_bf16_kernel<128, 64>, smem_bf16<128, 64>(), 64};
+}
+
+// above 48 KB, dynamic shared memory needs the kernel's opt-in; the
+// carveout asks for the SM's largest shared-memory split, so the blocks fit
+template <typename A>
+cudaError_t prepare(const Launch<A>& l) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      l.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(l.smem));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(l.kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// query rows, key rows and threads of a block, registers a thread, local
+// (spilled) bytes a thread, dynamic shared memory a block, blocks an SM
+template <typename A>
+cudaError_t info(const Launch<A>& l, int* out) {
+  cudaError_t err = prepare(l);
+  cudaFuncAttributes attr{};
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, l.kernel);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, l.kernel, kThreads, l.smem);
+  const int vals[] = {kBM, l.key_rows, kThreads, attr.numRegs,
+                      static_cast<int>(attr.localSizeBytes), static_cast<int>(l.smem),
+                      per_sm};
+  for (int i = 0; i < 7; ++i) out[i] = vals[i];
+  return err;
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 bool strides4(const View& v) { return v.sb % 4 == 0 && v.st % 4 == 0 && v.sh % 4 == 0; }
 
-}  // namespace
+// 16-byte copies of q, k and v rows: 4 floats, or 8 bf16, at a time
+bool vec_copies(const Args& a) {
+  return a.D % 4 == 0 && aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
+         strides4(a.vq) && strides4(a.vk) && strides4(a.vv);
+}
 
-extern "C" {
+bool vec_copies(const ArgsB& a) {
+  const void* ptrs[] = {a.q, a.k, a.v};
+  const View views[] = {a.vq, a.vk, a.vv};
+  return bf16_tiles::vec_ok(a.D, ptrs, views, 3);
+}
 
-// Returns cudaGetLastError() after the launch (0 on success), or the error
-// of setting the kernel's attributes. strides holds the (B, T, H) element strides of q, k, v
-// and out; lse is contiguous (B, H, T); mask is contiguous (B, T) float32,
-// or null.
-int tpu_ddp_flash_fwd(const float* q, const float* k, const float* v,
-                      const float* mask, float* out, float* lse,
-                      const long long* strides, int B, int T, int H, int D,
-                      int causal, void* stream) {
+template <typename E>
+int run(const E* q, const E* k, const E* v, const float* mask, E* out, float* lse,
+        const long long* strides, int B, int T, int H, int D, int causal, void* stream) {
   if (D < 1 || D > 128 || B < 1 || H < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (T < 1) return 0;
-  Args a{};
+  ArgsT<E> a{};
   a.q = q;
   a.k = k;
   a.v = v;
@@ -504,25 +648,55 @@ int tpu_ddp_flash_fwd(const float* q, const float* k, const float* v,
   a.H = H;
   a.D = D;
   a.causal = causal != 0;
-  a.vec = D % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
-          strides4(a.vq) && strides4(a.vk) && strides4(a.vv);
+  a.vec = vec_copies(a);
   // as PyTorch rounds the Python float 1/sqrt(D) for a float32 product
   a.scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
-
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      with_variant(D, [&](auto variant) { return variant.launch(a, s); }));
+  const Launch<ArgsT<E>> l = pick(a);
+  const cudaError_t err = prepare(l);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned blocks = B * H * ((T + kBM - 1) / kBM);
+  l.kernel<<<blocks, kThreads, l.smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// The launch configuration tpu_ddp_flash_fwd takes for head dim D, into
-// out[7]: query rows, key rows and threads of a block, registers and local
-// (spilled) bytes a thread, dynamic shared memory a block, and blocks an SM
-// by the runtime's occupancy calculator. Returns a CUDA error code.
-int tpu_ddp_flash_fwd_info(int D, int* out) {
+template <typename E>
+int launch_info(int D, int* out) {
   if (D < 1 || D > 128) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(
-      with_variant(D, [&](auto variant) { return variant.info(out); }));
+  ArgsT<E> a{};
+  a.D = D;
+  return static_cast<int>(info(pick(a), out));
 }
+
+}  // namespace
+
+extern "C" {
+
+// Each launch returns cudaGetLastError() after the launch (0 on success), or
+// the error of setting the kernel's attributes. strides holds the (B, T, H)
+// element strides of q, k, v and out; lse is contiguous (B, H, T) float32;
+// mask is contiguous (B, T) float32, or null.
+int tpu_ddp_flash_fwd(const float* q, const float* k, const float* v,
+                      const float* mask, float* out, float* lse,
+                      const long long* strides, int B, int T, int H, int D,
+                      int causal, void* stream) {
+  return run(q, k, v, mask, out, lse, strides, B, T, H, D, causal, stream);
+}
+
+// The same for bfloat16 q, k, v and out.
+int tpu_ddp_flash_fwd_bf16(const Bf16* q, const Bf16* k, const Bf16* v,
+                           const float* mask, Bf16* out, float* lse,
+                           const long long* strides, int B, int T, int H, int D,
+                           int causal, void* stream) {
+  return run(q, k, v, mask, out, lse, strides, B, T, H, D, causal, stream);
+}
+
+// The launch configuration tpu_ddp_flash_fwd (or _bf16) takes for head dim
+// D, into out[7]: query rows, key rows and threads of a block, registers and
+// local (spilled) bytes a thread, dynamic shared memory a block, and blocks
+// an SM by the runtime's occupancy calculator. Returns a CUDA error code.
+int tpu_ddp_flash_fwd_info(int D, int* out) { return launch_info<float>(D, out); }
+
+int tpu_ddp_flash_fwd_info_bf16(int D, int* out) { return launch_info<Bf16>(D, out); }
 
 const char* tpu_ddp_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -2,7 +2,7 @@
 backward kernels, for Hopper.
 
 Counterpart of ``tpu_ddp/ops/flash_attention.py``. Layout ``(B, T, H, D)``,
-float32, as in the JAX package.
+float32 or bfloat16, as in the JAX package.
 
 * ``reference`` is the plain PyTorch attention (``_reference`` :72), with
   autograd through it: scale ``1/sqrt(D)``, invisible scores set to the
@@ -34,6 +34,33 @@ float32, as in the JAX package.
   ``q, k, v, out, lse``; backward ``di`` in torch ops (the JAX package
   computes it outside the kernels too, :416), then K5 and K6.
 
+**bfloat16.** q, k, v (and dO) in bfloat16 take each kernel's bfloat16
+instantiation (``mma.sync.m16n8k16`` bf16 x bf16 with float32 accumulators,
+one product where the float32 kernels make three TF32 ones), counted apart
+as ``flash_attention_{fwd,dq,dkv}_bf16``. The dtype flow is the JAX
+kernels' (:138, :291, :352-354, :391-394, :416-420): S = Q Kᵀ and
+dP = dO Vᵀ exact products summed in float32; the running max, the
+denominator, ``lse`` and ``di`` float32; ``out``, ``dq``, ``dk`` and ``dv``
+rounded to bfloat16 (round to nearest even). Where JAX multiplies the
+float32 ``p`` and ``ds`` into a bf16 operand (P V, dS K, Pᵀ dO, dSᵀ Q) it
+promotes the bf16 side and the product is float32; here ``p`` and ``ds``
+are **rounded to bfloat16** first and the product is one bf16 product
+(design (a): the FlashAttention convention, the one the JAX package's own
+``full_attention`` takes for p, ``models/vit.py:40``). The accumulator
+fragment of S then is, register for register, the A fragment of the next
+product, so P never goes through shared memory; the rounding costs up to
+2^-9 relative on each p and ds, within the tolerances the tests state. The
+denominator ``l`` sums the unrounded p, as the JAX kernel's does. The plain
+versions take the same flow, so that the card compares kernel and plain
+version in the working type; K4 rounds p against the running max of its
+key tile and rescales afterwards, where ``forward_plain`` rounds against
+the row's final max, so the two may differ by a rounding of p.
+
+``reference`` keeps the dtype flow of the JAX ``_reference`` (:72-88) on
+bfloat16 inputs: the score einsum rounds to bfloat16, the ``np.float64``
+scale then promotes the scores to float32, and softmax, P V and the output
+stay float32 (a float32 result from bfloat16 inputs).
+
 The kernels serve every ``T >= 1`` and ``D <= 128``: there is no
 counterpart of ``_plan``'s fallback to the jnp path for tiny or prime ``T``
 (:199-202), of the interpret/shard_map fallback (:260-266), or of the
@@ -53,6 +80,10 @@ import torch
 from tpu_ddp_torch.ops import KERNELS, LAUNCHES
 
 FWD, DQ, DKV = "flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv"
+#: the bfloat16 instantiations' launch counts
+FWD_BF16, DQ_BF16, DKV_BF16 = FWD + "_bf16", DQ + "_bf16", DKV + "_bf16"
+#: the dtypes the kernels take
+DTYPES = (torch.float32, torch.bfloat16)
 
 #: finite stand-in for -inf on invisible logits (the JAX package's NEG)
 NEG = -1e30
@@ -80,22 +111,39 @@ def _bhqk_visibility(Tq: int, Tk: int, causal: bool,
     return vis
 
 
-def _scores(q: torch.Tensor, k: torch.Tensor, vis: Optional[torch.Tensor]) -> torch.Tensor:
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(q.shape[-1]))
+def _scores(q: torch.Tensor, k: torch.Tensor, vis: Optional[torch.Tensor],
+            rounded: bool = False) -> torch.Tensor:
+    """Scaled float32 scores; bfloat16 operands are exact in float32, so
+    the sum runs in float32 as the tensor cores' does. ``rounded`` rounds
+    the unscaled scores to the inputs' dtype first (``reference``)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    if rounded:
+        s = s.to(q.dtype).float()
+    s = s * (1.0 / math.sqrt(q.shape[-1]))
     return s if vis is None else torch.where(vis, s, NEG)
+
+
+def _product(eq: str, a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``einsum(eq, a, b)`` as the kernels form it for ``dtype`` inputs: in
+    float32 as it is; in bfloat16 with ``a`` (p or ds) rounded to bfloat16,
+    summed in float32 (module docstring) and returned in float32."""
+    if dtype == torch.float32:
+        return torch.einsum(eq, a, b)
+    return torch.einsum(eq, a.to(dtype).float(), b.float())
 
 
 def reference(q, k, v, causal: bool = False, kv_mask=None) -> torch.Tensor:
     """Plain attention on ``(B, T, H, D)``, the numerics ground truth.
     ``causal`` hides col > row; ``kv_mask`` ``(B, Tk)``, nonzero = attend,
-    hides key/value columns. Rows with no visible key output exactly 0."""
+    hides key/value columns. Rows with no visible key output exactly 0.
+    bfloat16 inputs give a float32 result (module docstring)."""
     vis = _bhqk_visibility(q.shape[1], k.shape[1], causal, kv_mask, q.device)
-    p = torch.softmax(_scores(q, k, vis), dim=-1)
+    p = torch.softmax(_scores(q, k, vis, rounded=True), dim=-1)
     if vis is not None:
         # all-NEG rows softmax to a uniform row; the multiplicative mask
         # turns them into exact zeros
         p = p * vis
-    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float())
 
 
 def _probs(q, k, lse, kv_mask, causal):
@@ -108,7 +156,8 @@ def _probs(q, k, lse, kv_mask, causal):
 
 def forward_plain(q, k, v, kv_mask=None, causal: bool = False):
     """K4's function on whole matrices: ``(out, lse)``; a row with no
-    visible key gives ``out = 0`` and ``lse = NEG``."""
+    visible key gives ``out = 0`` and ``lse = NEG``. ``out`` in the inputs'
+    dtype, ``lse`` float32."""
     vis = _bhqk_visibility(q.shape[1], k.shape[1], causal, kv_mask, q.device)
     s = _scores(q, k, vis)
     m = s.amax(dim=-1, keepdim=True)
@@ -117,28 +166,35 @@ def forward_plain(q, k, v, kv_mask=None, causal: bool = False):
         p = p * vis
     l = p.sum(dim=-1, keepdim=True)
     live = l > 0
-    out = torch.einsum("bhqk,bkhd->bqhd", p / torch.where(live, l, 1.0), v)
-    lse = torch.where(live, m + torch.log(torch.where(live, l, 1.0)), NEG)
+    safe_l = torch.where(live, l, 1.0)
+    if q.dtype == torch.float32:
+        out = torch.einsum("bhqk,bkhd->bqhd", p / safe_l, v)
+    else:   # P V on the rounded p, then the division, as K4 does
+        o = _product("bhqk,bkhd->bqhd", p, v, q.dtype)
+        out = (o / safe_l.squeeze(-1).transpose(1, 2)[..., None]).to(q.dtype)
+    lse = torch.where(live, m + torch.log(safe_l), NEG)
     return out, lse[..., 0]
 
 
 def dq_plain(q, k, v, do, lse, di, kv_mask=None, causal: bool = False):
-    """K5's function: ``dq = (p * (dO Vᵀ - di) * scale) K``."""
+    """K5's function: ``dq = (p * (dO Vᵀ - di) * scale) K``, in the inputs'
+    dtype."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     p = _probs(q, k, lse, kv_mask, causal)
-    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
     ds = p * (dp - di[..., None]) * scale
-    return torch.einsum("bhqk,bkhd->bqhd", ds, k)
+    return _product("bhqk,bkhd->bqhd", ds, k, q.dtype).to(q.dtype)
 
 
 def dkv_plain(q, k, v, do, lse, di, kv_mask=None, causal: bool = False):
-    """K6's function: ``(dk, dv) = (dsᵀ Q, pᵀ dO)``."""
+    """K6's function: ``(dk, dv) = (dsᵀ Q, pᵀ dO)``, in the inputs' dtype."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     p = _probs(q, k, lse, kv_mask, causal)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
-    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    dv = _product("bhqk,bqhd->bkhd", p, do, q.dtype)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
     ds = p * (dp - di[..., None]) * scale
-    return torch.einsum("bhqk,bqhd->bkhd", ds, q), dv
+    dk = _product("bhqk,bqhd->bkhd", ds, q, q.dtype)
+    return dk.to(q.dtype), dv.to(q.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -160,9 +216,12 @@ def _check(q, k, v, kv_mask, what: str, *more):
             raise ValueError(f"{what}: {name} is {tuple(t.shape)}, q is "
                              f"{tuple(q.shape)} (self-attention shapes only)")
     for name, t in (("q", q), ("k", k), ("v", v)) + more:
-        if t.dtype != torch.float32:
+        if t.dtype not in DTYPES:
             raise ValueError(f"{what}: {name} is {t.dtype}; the kernels take "
-                             "float32 only")
+                             "float32 or bfloat16 only")
+        if t.dtype != q.dtype:
+            raise ValueError(f"{what}: {name} is {t.dtype}, q is {q.dtype} "
+                             "(one dtype for q, k, v and dO)")
         if t.device != q.device:
             raise ValueError(f"{what}: {name} lies on {t.device}, q on {q.device}")
         if t.stride(-1) != 1:
@@ -196,9 +255,12 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch(fn: str, name: str, *args) -> None:
+def _launch(fn: str, name: str, dtype: torch.dtype, *args) -> None:
+    """Launch ``fn`` (its ``_bf16`` entry point and count for bfloat16)."""
     from tpu_ddp_torch.ops import _build
 
+    if dtype == torch.bfloat16:
+        fn, name = fn + "_bf16", name + "_bf16"
     lib = _build.load(KERNELS[name]["library"])
     rc = getattr(lib, fn)(*args)
     _build.check(lib, rc, f"{name} launch")
@@ -212,9 +274,9 @@ def flash_forward(q, k, v, kv_mask=None, causal: bool = False
     if q.device.type == "cpu":
         return forward_plain(q, k, v, kv_mask, causal)
     B, T, H, D = q.shape
-    out = torch.empty((B, T, H, D), dtype=torch.float32, device=q.device)
+    out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    _launch("tpu_ddp_flash_fwd", FWD, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    _launch("tpu_ddp_flash_fwd", FWD, q.dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             _ptr(kv_mask), out.data_ptr(), lse.data_ptr(), _strides(q, k, v, out),
             B, T, H, D, int(causal), torch.cuda.current_stream(q.device).cuda_stream)
     return out, lse
@@ -224,29 +286,33 @@ _LAUNCH_KEYS = ("query_rows", "key_rows", "threads", "registers", "spill_bytes",
                 "smem_bytes", "blocks_per_sm")
 
 
-def _launch_info(name: str, fn: str, *args) -> dict:
+def _launch_info(name: str, fn: str, dtype: torch.dtype, *args) -> dict:
     from tpu_ddp_torch.ops import _build
 
+    if dtype == torch.bfloat16:
+        fn, name = fn + "_bf16", name + "_bf16"
     lib = _build.load(KERNELS[name]["library"])
     out = (ctypes.c_int * len(_LAUNCH_KEYS))()
     _build.check(lib, getattr(lib, fn)(*args, out), f"{name} launch info")
     return dict(zip(_LAUNCH_KEYS, out))
 
 
-def forward_launch_info(D: int) -> dict:
-    """The launch K4 takes for head dim ``D`` on the current card: rows of
-    its query and key tiles, threads, registers and spilled bytes a thread,
-    dynamic shared memory a block (bytes), and resident blocks an SM by the
-    CUDA occupancy calculator."""
-    return _launch_info(FWD, "tpu_ddp_flash_fwd_info", D)
+def forward_launch_info(D: int, dtype: torch.dtype = torch.float32) -> dict:
+    """The launch K4 takes for head dim ``D`` and inputs of ``dtype`` on the
+    current card: rows of its query and key tiles, threads, registers and
+    spilled bytes a thread, dynamic shared memory a block (bytes), and
+    resident blocks an SM by the CUDA occupancy calculator."""
+    return _launch_info(FWD, "tpu_ddp_flash_fwd_info", dtype, D)
 
 
-def backward_launch_info(kind: str, D: int) -> dict:
+def backward_launch_info(kind: str, D: int, dtype: torch.dtype = torch.float32) -> dict:
     """The launch K5 (``kind="dq"``) or K6 (``kind="dkv"``) takes for head
-    dim ``D`` on the current card, with ``forward_launch_info``'s keys: K5's
-    block owns the query rows and streams the key rows, K6 the other way."""
+    dim ``D`` and inputs of ``dtype`` on the current card, with
+    ``forward_launch_info``'s keys: K5's block owns the query rows and
+    streams the key rows, K6 the other way."""
     which = {"dq": 0, "dkv": 1}[kind]
-    return _launch_info(DQ if kind == "dq" else DKV, "tpu_ddp_flash_bwd_info", which, D)
+    return _launch_info(DQ if kind == "dq" else DKV, "tpu_ddp_flash_bwd_info", dtype,
+                        which, D)
 
 
 def flash_dq(q, k, v, do, lse, di, kv_mask=None, causal: bool = False) -> torch.Tensor:
@@ -257,8 +323,8 @@ def flash_dq(q, k, v, do, lse, di, kv_mask=None, causal: bool = False) -> torch.
     _rows(di, B, H, T, "flash_dq")
     if q.device.type == "cpu":
         return dq_plain(q, k, v, do, lse, di, kv_mask, causal)
-    dq = torch.empty((B, T, H, D), dtype=torch.float32, device=q.device)
-    _launch("tpu_ddp_flash_dq", DQ, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    dq = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+    _launch("tpu_ddp_flash_dq", DQ, q.dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), di.data_ptr(), _ptr(kv_mask),
             dq.data_ptr(), _strides(q, k, v, do, dq), B, T, H, D, int(causal),
             torch.cuda.current_stream(q.device).cuda_stream)
@@ -274,9 +340,9 @@ def flash_dkv(q, k, v, do, lse, di, kv_mask=None, causal: bool = False
     _rows(di, B, H, T, "flash_dkv")
     if q.device.type == "cpu":
         return dkv_plain(q, k, v, do, lse, di, kv_mask, causal)
-    dk = torch.empty((B, T, H, D), dtype=torch.float32, device=q.device)
-    dv = torch.empty((B, T, H, D), dtype=torch.float32, device=q.device)
-    _launch("tpu_ddp_flash_dkv", DKV, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    dk = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+    _launch("tpu_ddp_flash_dkv", DKV, q.dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), di.data_ptr(), _ptr(kv_mask),
             dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, do, dk, dv),
             B, T, H, D, int(causal), torch.cuda.current_stream(q.device).cuda_stream)
@@ -284,8 +350,9 @@ def flash_dkv(q, k, v, do, lse, di, kv_mask=None, causal: bool = False
 
 
 def row_dot(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """``di = rowsum(dO * O)`` as ``(B, H, T)``."""
-    return (do * out).sum(dim=-1).transpose(1, 2).contiguous()
+    """``di = rowsum(dO * O)`` as ``(B, H, T)`` float32, from bfloat16
+    operands too (:416-420)."""
+    return (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
 
 
 def _unit_last(t: torch.Tensor) -> torch.Tensor:
@@ -314,7 +381,7 @@ class FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, *, causal: bool = False, kv_mask=None) -> torch.Tensor:
-    """(B, T, H, D) float32 attention through ``FlashAttention``: K4
+    """(B, T, H, D) attention through ``FlashAttention``: K4
     forward and K5/K6 backward on CUDA tensors, their plain versions on CPU
     tensors. ``causal`` hides
     col > row; ``kv_mask`` ``(B, T)``, nonzero = attend; rows with no visible
@@ -322,8 +389,9 @@ def flash_attention(q, k, v, *, causal: bool = False, kv_mask=None) -> torch.Ten
 
     The JAX function's ``block_q``, ``block_k`` and ``interpret`` are not
     here: the first two tile the TPU's VMEM and the last runs Pallas in its
-    interpreter; the CUDA kernels fix their own tiles. A head dim above 128
-    or a dtype other than float32 raises ``ValueError``."""
+    interpreter; the CUDA kernels fix their own tiles. float32 or bfloat16
+    inputs, one dtype for all three, give an output of that dtype; a head
+    dim above 128, another dtype or mixed dtypes raise ``ValueError``."""
     if kv_mask is not None:
         kv_mask = kv_mask.to(device=q.device, dtype=torch.float32).contiguous()
     q, k, v = _unit_last(q), _unit_last(k), _unit_last(v)

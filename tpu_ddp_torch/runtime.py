@@ -4,12 +4,19 @@ Counterpart of ``tpu_ddp/parallel/runtime.py`` (``is_tpu_device``,
 ``device_count``) for one process on one device. The port runs on the GPU
 unless the caller asks for the CPU; it never falls back silently.
 
-Precision policy (float32 is the only compute dtype ported): cuDNN runs
-float32 convolutions in TF32 by default (``torch.backends.cudnn.allow_tf32``
-is True), which keeps about three decimal digits and would make the card's
-float32 numbers a different computation from the JAX reference's.
-``set_float32_precision`` turns TF32 off for both cuDNN and cuBLAS and pins
-the float32 matmul precision to "highest".
+Precision policy. float32: cuDNN runs float32 convolutions in TF32 by
+default (``torch.backends.cudnn.allow_tf32`` is True), which keeps about
+three decimal digits and would make the card's float32 numbers a different
+computation from the JAX reference's. ``set_float32_precision`` turns TF32
+off for both cuDNN and cuBLAS and pins the float32 matmul precision to
+"highest". bfloat16 (``--compute-dtype bfloat16``): XLA sums a bf16 dot in
+float32 and rounds the result once; cuBLAS may instead reduce a bf16 GEMM's
+split-K partial sums in bf16
+(``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``,
+True by default), a rounding per partial sum that the reference does not
+make. ``set_bfloat16_precision`` turns that off, so a bf16 product is
+float32 sums rounded once, as in the JAX package; it leaves the float32
+policy as it is.
 """
 
 from __future__ import annotations
@@ -40,6 +47,11 @@ def set_float32_precision() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+def set_bfloat16_precision() -> None:
+    """Apply the bfloat16 precision policy (module docstring)."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def device_name(device: torch.device) -> str:

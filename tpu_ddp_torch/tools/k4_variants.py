@@ -1,7 +1,7 @@
 """K4's design choices on the card: K4 as built against K4 rebuilt with one
 choice undone, on the same inputs, in turns.
 
-    python -m tpu_ddp_torch.tools.k4_variants
+    python -m tpu_ddp_torch.tools.k4_variants [--baseline PATH]
 
 Each variant is ``csrc/flash_forward.cu`` with one textual change, built
 with the library's own nvcc flags (``tools/variants.py``):
@@ -13,6 +13,10 @@ with the library's own nvcc flags (``tools/variants.py``):
   short T;
 * ``unroll_full``: the S loop fully unrolled at D = 64 too.
 
+``--baseline`` adds another source with the same C entry points (an earlier
+``flash_forward.cu``, say), built with the library's flags, as the variant
+``baseline``.
+
 For each: the largest difference from ``forward_plain`` at every timed
 shape, and the kernel's device time (``torch.profiler``, microseconds a
 call, two readings in turns) at the ViT-S/4 path's (32, 64, 3, 64) called
@@ -23,6 +27,7 @@ JSON object with these numbers.
 
 from __future__ import annotations
 
+import argparse
 import json
 
 import torch
@@ -70,10 +75,14 @@ def forward(lib, q, k, v) -> torch.Tensor:
     return out
 
 
-def main() -> dict:
+def main(argv=None) -> dict:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--baseline", help="another source with the same C entry points")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k4_variants needs a CUDA device")
-    libs = variants.build(LIBRARY, VARIANTS)
+    extra = {"baseline": (args.baseline, ())} if args.baseline else {}
+    libs = variants.build(LIBRARY, VARIANTS, extra)
     gen = torch.Generator(device="cuda").manual_seed(0)
     result = {"device": device_name(torch.device("cuda")), "us": {}, "max_abs_err": {}}
     for shape, (B, T, H, D, between, iters) in SHAPES.items():

@@ -45,8 +45,8 @@ VARIANTS = {
                     "  lo = (__float_as_uint(rest) + 0x1000u) & 0xffffe000u;\n")],
     "kg2": [("constexpr int kG = 4;", "constexpr int kG = 2;")],
     "dq_rows64_d64": [(
-        "Launch{flash_dq_kernel<64, 32>, smem_bytes<64, 32, 1>(), kBM, 32}",
-        "Launch{flash_dq_kernel<64, 64>, smem_bytes<64, 64, 1>(), kBM, 64}")],
+        "Launch<Args>{flash_dq_kernel<64, 32>, smem_bytes<64, 32, 1>(), kBM, 32}",
+        "Launch<Args>{flash_dq_kernel<64, 64>, smem_bytes<64, 64, 1>(), kBM, 64}")],
 }
 #: name -> (B, T, H, D, timed calls)
 SHAPES = {

@@ -40,7 +40,9 @@ from tpu_ddp_torch.train.trainer import Trainer
 
 STEPS, PROFILE_STEPS, WARMUP, TOP = 100, 20, 20, 12
 ROUNDS, UPDATE_CALLS, ATTENTION_REPS = 3, 200, 50
-FLASH_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+#: K4-K6's kernel names, float32 and bfloat16, as the profiler shows them
+FLASH_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
+                 "flash_fwd_bf16_kernel", "flash_dq_bf16_kernel", "flash_dkv_bf16_kernel")
 
 
 def variants(model: str) -> dict:

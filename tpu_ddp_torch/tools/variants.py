@@ -21,7 +21,8 @@ def build(library: str, variants: dict, extra: dict | None = None) -> dict:
     variant's compiler output beside it, ``<variant>.log``): its
     source with each variant's ``[(text, replacement)]`` edits (each text
     found once), and each ``extra`` ``{name: (source path, extra flags)}``,
-    a source with the same C entry points."""
+    a source with the same C entry points. The headers of ``csrc/`` are on
+    the include path."""
     src = (_build.CSRC / _build.LIBRARIES[library][0]).read_text()
     out = _build.BUILD_DIR / f"{library}_variants"
     out.mkdir(parents=True, exist_ok=True)
@@ -36,9 +37,11 @@ def build(library: str, variants: dict, extra: dict | None = None) -> dict:
         sources[name] = (out / f"{name}.cu", ())
     sources.update({name: (Path(path), tuple(flags))
                     for name, (path, flags) in (extra or {}).items()})
+    # -I: the variants' copies find the headers of csrc/ (bf16_tiles.cuh)
     procs = {name: subprocess.Popen(
-        [_build.nvcc(), *_build.flags(library), *flags, "-o", str(out / f"{name}.so"),
-         str(path)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        [_build.nvcc(), *_build.flags(library), *flags, "-I", str(_build.CSRC),
+         "-o", str(out / f"{name}.so"), str(path)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for name, (path, flags) in sources.items()}
     libs = {}
     for name, proc in procs.items():

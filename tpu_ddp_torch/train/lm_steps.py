@@ -10,7 +10,9 @@ the gradient sync and update of the image step, ``train/steps.py``'s
 ``sync_and_update``: the all-reduce mean, or the compressed ring with this
 rank's error-feedback residual, or ZeRO-1's sharded update. The model has
 no BatchNorm buffers. The loss is averaged over the ranks, and it is the
-step's only metric, as in the JAX step.
+step's only metric, as in the JAX step. The model's ``dtype`` and ``remat``
+apply as the model carries them, as in the JAX step; the loss takes the
+model's float32 logits.
 
 Not ported: the ``health`` flight recorder (the port has none yet) and
 ``make_sp_lm_train_step`` (sequence parallelism and ring attention).

@@ -22,6 +22,16 @@ stats), its local masked cross-entropy and the backward. Then:
 * ``loss`` is averaged over the ranks, ``accuracy`` is the summed correct
   count over the summed count (:318-329).
 
+``remat`` (the JAX ``resolve_remat`` :65 and its whole-forward
+``jax.checkpoint`` :176): a model with a ``remat`` attribute (the ViT, the
+LM) recomputes each block in the backward; any other (NetResDeep, the
+ResNet family) has its whole forward checkpointed
+(``torch.utils.checkpoint``, non-reentrant). The recompute runs the
+forward a second time, and ``jax.checkpoint`` returns the mutated
+``batch_stats`` once: the recompute therefore runs with every BatchNorm's
+``update_running`` off, so the running buffers move once a step, as
+without remat.
+
 Both builders take ``loss_fn`` (``cross_entropy_loss`` by default; the
 fine-tune's ``binary_cross_entropy_with_logits`` on multi-hot targets) and
 ``compute_accuracy``, as the JAX builders do (:335, :659): without accuracy
@@ -38,11 +48,14 @@ losses, and the scanned and accumulating steps.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional
 
 import torch
 from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
+from tpu_ddp_torch.models.resnet import BatchNorm
 from tpu_ddp_torch.parallel.collectives import (
     all_reduce_mean_,
     all_reduce_sum_,
@@ -60,6 +73,37 @@ def batch_to_device(batch: dict, device: torch.device) -> Batch:
     """Numpy ``{image, label, mask}`` -> tensors on ``device``."""
     return {k: torch.as_tensor(v).to(device, non_blocking=True)
             for k, v in batch.items()}
+
+
+def resolve_remat(model: torch.nn.Module, remat: bool) -> bool:
+    """Under ``remat``, turn on the per-block recompute of a model that has
+    one (``model.remat``); returns whether the caller must checkpoint the
+    whole forward instead (a model without it)."""
+    if remat and hasattr(model, "remat"):
+        model.remat = True
+        return False
+    return remat
+
+
+@contextlib.contextmanager
+def running_stats_frozen(model: torch.nn.Module):
+    """Every BatchNorm of ``model`` leaves its running buffers alone."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.update_running = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_running = True
+
+
+def checkpointed_forward(model: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``model(x)`` with the whole forward recomputed in the backward; the
+    recompute moves no BatchNorm running buffer (module docstring)."""
+    return checkpoint(model, x, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          running_stats_frozen(model)))
 
 
 def sync_and_update(tx: Optimizer, state: TrainState, grads: Dict[str, torch.Tensor],
@@ -89,21 +133,26 @@ def sync_and_update(tx: Optimizer, state: TrainState, grads: Dict[str, torch.Ten
 
 def make_train_step(tx: Optimizer, *, compress=None, zero1=None,
                     loss_fn: Callable = cross_entropy_loss,
-                    compute_accuracy: bool = True) -> Callable[[TrainState, Batch], tuple]:
+                    compute_accuracy: bool = True,
+                    remat: bool = False) -> Callable[[TrainState, Batch], tuple]:
     """``step(state, batch) -> (state, {"loss", "accuracy"})`` (no
     ``accuracy`` when ``compute_accuracy`` is False); ``state`` is
     updated in place and returned. ``batch`` holds this rank's rows.
     ``compress`` (a ``parallel.compression.GradCompressor``) replaces the
     gradient all-reduce with its compressed ring; ``zero1`` (a
     ``parallel.zero.Zero1Partition`` built over ``tx``, with ``compress``
-    attached when both are given) shards the update (module docstring)."""
+    attached when both are given) shards the update; ``remat`` recomputes
+    the forward in the backward (module docstring)."""
 
     def train_step(state: TrainState, batch: Batch):
         n = world_size()
         model = state.model
         model.train()
         params = state.params()
-        logits = model(batch["image"])
+        if resolve_remat(model, remat):
+            logits = checkpointed_forward(model, batch["image"])
+        else:
+            logits = model(batch["image"])
         loss = loss_fn(logits, batch["label"], batch.get("mask"))
         if n > 1:
             all_reduce_mean_([b for _, b in model.named_buffers()])

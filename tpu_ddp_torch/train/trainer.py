@@ -51,6 +51,12 @@ top-level module starts with a prefix; ``--loss bce`` trains multi-hot
 targets (``synthetic_multilabel`` under ``--synthetic-data``) and reports
 no accuracy. ``num_classes`` comes from ``--dataset`` unless given.
 
+``--compute-dtype bfloat16`` builds every model in bfloat16 compute (the
+JAX ``build_model`` :553; params, optimizer state, gradients and the loss
+stay float32; the models' ``Dense`` layers apply the bfloat16 precision
+policy, ``models/layers.py``); ``--remat`` recomputes the forward in the
+backward (``train/steps.py``: per block where the model has it).
+
 Not ported yet: telemetry, health, the elastic supervisor,
 ``--steps-per-call``, k-fold, predictions, and the strategies other than
 data parallelism (zero3, fsdp, tp, pp).
@@ -82,6 +88,7 @@ from tpu_ddp_torch.data.loader import ShardedBatchLoader
 from tpu_ddp_torch.metrics.logging import MetricLogger
 from tpu_ddp_torch.metrics.timing import Throughput
 from tpu_ddp_torch.models import MODEL_REGISTRY, NetResDeep
+from tpu_ddp_torch.models.layers import DTYPES as COMPUTE_DTYPES
 from tpu_ddp_torch.parallel.compression import MODES as COMPRESS_MODES
 from tpu_ddp_torch.parallel.compression import GradCompression, GradCompressor
 from tpu_ddp_torch.parallel.runtime import (
@@ -137,6 +144,8 @@ class TrainConfig:
     dist_backend: Optional[str] = None    # None: nccl on cuda, gloo on cpu
     model: str = "netresdeep"
     attention: str = "full"               # full | flash (CUDA kernels K4-K6)
+    compute_dtype: str = "float32"        # float32 | bfloat16 (params stay f32)
+    remat: bool = False                   # recompute the forward in the backward
     n_chans1: int = 32
     n_blocks: int = 10
     tied_blocks: bool = True
@@ -168,6 +177,8 @@ class TrainConfig:
             )
         if self.loss not in ("ce", "bce"):
             raise ValueError(f"unknown loss {self.loss!r}")
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"unknown compute dtype {self.compute_dtype!r}")
         if self.dataset not in DATASETS:
             raise ValueError(f"unknown dataset {self.dataset!r}")
         if self.keep_best and not (self.checkpoint_dir and self.eval_each_epoch
@@ -207,20 +218,22 @@ DATASETS = {"cifar10": (load_cifar10, 10), "cifar100": (load_cifar100, 100)}
 def build_model(c: TrainConfig, image_size: int = 32) -> torch.nn.Module:
     """NetResDeep, or a registry model (``models/zoo.py``) for square
     inputs of ``image_size`` (CIFAR's 32 by default), with weights from
-    ``c.seed``. ``attention == "flash"`` binds the port's
+    ``c.seed``, computing in ``c.compute_dtype``. ``attention == "flash"``
+    binds the port's
     ``flash_attention`` into the model's ``attention_impl`` (the JAX
     ``build_model`` :564-578); on a model without one, NetResDeep included,
     it raises (the JAX package builds NetResDeep before it reads the flag
     and ignores it there)."""
     generator = torch.Generator().manual_seed(c.seed)
+    dtype = COMPUTE_DTYPES[c.compute_dtype]
     name = c.model.lower()
     if name == "netresdeep":
         model = NetResDeep(n_chans1=c.n_chans1, n_blocks=c.n_blocks,
                            num_classes=c.num_classes, tied=c.tied_blocks,
-                           generator=generator)
+                           generator=generator, dtype=dtype)
     elif name in MODEL_REGISTRY:
         model = MODEL_REGISTRY[name](num_classes=c.num_classes, generator=generator,
-                                     image_size=image_size)
+                                     image_size=image_size, dtype=dtype)
     else:
         raise ValueError(f"unknown model {c.model!r}")
     if c.attention == "flash":
@@ -313,7 +326,8 @@ class Trainer:
                                             label_smoothing=c.label_smoothing)
         self.train_step = make_train_step(self.tx, compress=self.compress,
                                           zero1=self.zero1, loss_fn=loss_fn,
-                                          compute_accuracy=self.with_accuracy)
+                                          compute_accuracy=self.with_accuracy,
+                                          remat=c.remat)
         self.eval_step = make_eval_step(loss_fn, compute_accuracy=self.with_accuracy)
         self.history = {"train_loss": [], "step_loss": [], "epoch": []}
         self.eval_batches = 0  # eval steps run so far (every evaluate call)
