@@ -236,19 +236,22 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     with the plain version, ``torch._fused_sgd_`` over the trainable leaves
     and the bound (a frozen element moves 12 bytes: read p, write p and u).
 
-20. bfloat16 compute and ``--remat`` (K4-K6's bfloat16 kernels,
-    ``mma.sync.m16n8k16`` bf16 with float32 accumulators). (a) Each kernel
+20. bfloat16 compute and ``--remat`` (K4-K6's bfloat16 kernels: K4's and
+    K5's on TMA, an mbarrier ring and ``wgmma``, K6's ``mma.sync.m16n8k16``;
+    bf16 products with float32 accumulators). (a) Each kernel
     against its plain version in bfloat16 (the same dtype flow: p and ds
     rounded to bf16 for the second products; ``tpu_ddp_torch/ops/
     flash_attention.py``) at ViT-S/4's (32, 64, 3, 64) as qkv views, the
     same with a key mask that hides all of batch 1's keys (its rows: out 0,
     lse NEG, zero gradients, exactly), the LM-32k path's causal (4, 4096, 8,
-    64) views, (8, 100, 4, 48) and (3, 77, 2, 36) causal with dead rows (D
-    not a multiple of 8: element copies): out, dq, dk and dv bfloat16 within
+    64) views, (8, 100, 4, 48), (3, 77, 2, 36) causal with dead rows (D not
+    a multiple of 8: K4 and K5 read a padded copy, ``tma_operand``) and
+    (3, 200, 2, 128) causal with dead rows (D = 128, T not a multiple of
+    the 128-row query tile): out, dq, dk and dv bfloat16 within
     ``BF16_ULPS`` = 2 bf16 units in the last place of each row's own largest
     value (a query row of out and dq, a key row of dk and dv; at least
-    ``BF16_ROW_FLOOR`` of the tensor's largest), lse float32 within
-    ``atol=2e-5``; a control that must fail that check (K4 on a v with a
+    ``BF16_ROW_FLOOR`` of the tensor's largest: ``tools/variants.py``), lse
+    float32 within ``atol=2e-5``; a control that must fail that check (K4 on a v with a
     key of every tile past 1,024 zeroed); each kernel's launch (registers,
     spill, shared memory, blocks an SM) at D = 64 and 128. (b) Timing at
     the LM and ViT shapes, as phase 9's: events and device time, the plain
@@ -270,7 +273,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     (e) NetResDeep ``--compute-dtype bfloat16 --kernels`` through the CLI,
     20 steps under deterministic cuDNN, K1 once a step on the float32
     params; with ``--remat`` the losses, params and BatchNorm running
-    buffers bitwise the run without.
+    buffers bitwise the run without. (f) K4's and K5's bfloat16 kernels
+    against the parent commit's, built from a copy of its sources under
+    ``build/parent_csrc/`` (``flash_forward.cu``, ``flash_attention.cu``,
+    ``bf16_tiles.cuh``; ``git show <parent>:tpu_ddp_torch/ops/csrc/<file>``)
+    when that copy is there, in turns in one process (parent, this, this,
+    parent) at the LM-32k and ViT-S/4 shapes: CUDA events and device time,
+    and how many bf16 units of a row the two outputs lie apart; with the
+    host time of one tensor map's encode, which each call of the new K4 and
+    K5 makes once an operand. Without the copy the phase says so and is
+    skipped.
 
 The NetResDeep phases before 17 keep their sizes; the whole run takes nine
 to eleven minutes on the card, the build included. ``python3 chip_smoke.py
@@ -356,8 +368,10 @@ BF16_CASES = {
     "vit_s4_dead_batch": (32, 64, 3, 64, False, "dead_batch", True),
     "lm_causal": (4, 4096, 8, 64, True, None, True),
     "t100_d48": (8, 100, 4, 48, False, None, False),
-    # D not a multiple of 8: element copies, zero-filled columns
+    # D not a multiple of 8: K4 and K5 read a padded copy (tma_operand)
     "d36_t77_causal_dead": (3, 77, 2, 36, True, "dead", False),
+    # D = 128 (two 64-column boxes a row), T not a multiple of 128
+    "d128_t200_causal_dead": (3, 200, 2, 128, True, "dead", False),
 }
 BF16_ULPS = 2     # the bf16 tolerance: units in the last place of a row's largest |value|
 #: phase 20b: case -> (timed iterations, the path whose launches its rows carry)
@@ -1250,7 +1264,8 @@ def flash_timing_rows(case, iters, errors, counts, bf16=False):
         })
         print(f"  {name + '[' + label + ']':36s} kernel {(k1 + k2) / 2:.5f} ms  "
               f"plain {(p1 + p2) / 2:.5f} ms  library {l_ms:.5f} ms  "
-              f"bound {b_ms:.5f} ms ({b_by}); device only: kernel "
+              f"bound {b_ms:.5f} ms ({b_by}; {200 * b_ms / (k1 + k2):.1f}% of it by "
+              f"events); device only: kernel "
               f"{dev['device_ms']}, plain {dev['plain_device_ms']}, "
               f"library {dev['library_device_ms']} ms", flush=True)
     k5, k6 = rows[-2], rows[-1]
@@ -3041,30 +3056,6 @@ def with_k4_fault(name, run):
         fa.flash_forward = sound
 
 
-#: phase 20a: a row's scale is its largest |want|, but at least this share
-#: of the tensor's largest: a row whose terms cancel (causal row 0 of dq:
-#: ds = p (dO v - di) with di = dO v) holds the float32 sums' residual,
-#: which scales with the tensor, not with the row
-BF16_ROW_FLOOR = 2.0 ** -12
-
-
-def bf16_row_units(got, want):
-    """``|got - want|`` in bfloat16 units in the last place of the largest
-    ``|want|`` of its own row (the last axis: a query row of out and dq, a
-    key row of dk and dv; at least ``BF16_ROW_FLOOR`` of the largest of
-    all), so that a row of small values is held to its own scale. K4 rounds
-    p against its tile's running max and the plain version against the
-    row's, both round each output once, and the sums run in other orders.
-    Returns the units, shaped as ``got``."""
-    import torch
-
-    diff = (got.float() - want.float()).abs()
-    top = want.float().abs().amax(-1, keepdim=True)
-    top = top.clamp(min=float(top.max()) * BF16_ROW_FLOOR)
-    unit = torch.exp2(torch.floor(torch.log2(top)) - 7)     # 0 where all of want is 0
-    return torch.where(diff == 0, 0.0, diff / unit)
-
-
 def bf16_row_control(fa, q, k, v, want_out):
     """Phase 20a's negative control at the LM's causal shape: K4 on a v
     whose last key of every 64-key tile past position 1,024 is 0, against
@@ -3072,6 +3063,8 @@ def bf16_row_control(fa, q, k, v, want_out):
     a single bound of 2 units of the tensor's largest value would read.
     Returns the failures."""
     import torch
+
+    from tpu_ddp_torch.tools.variants import bf16_row_units
 
     v_bad = v.clone()
     v_bad[:, 1024 + 63::64] = 0
@@ -3100,6 +3093,7 @@ def phase_bf16_vs_plain():
     import torch
 
     from tpu_ddp_torch.ops import flash_attention as fa
+    from tpu_ddp_torch.tools.variants import bf16_row_units
 
     print(f"phase 20a: K4/K5/K6 bfloat16 kernels vs plain versions (max |diff|, and "
           f"in [] the worst row's error in bf16 units of that row's largest value; "
@@ -3395,6 +3389,104 @@ def phase_bf16_timing(errors, counts):
     return rows
 
 
+#: phase 20f: case -> timed iterations, for K4 and K5 against the parent's
+BF16_PARENT_TIMED = {"lm_causal": 20, "vit_s4": 200}
+PARENT_DIR = os.path.join(ROOT, "build", "parent_csrc")
+
+
+def tma_encode_us(t, rows, n=2000):
+    """Host microseconds of one ``cuTensorMapEncodeTiled`` (the driver's,
+    through ctypes) of the bf16 (B, T, H, D) tensor ``t`` as K4 and K5
+    encode each operand on each call (``csrc/hopper.cuh``): 4-D, boxes of
+    64 columns by ``rows`` tokens, 128-byte swizzle. None if the driver
+    refuses it."""
+    import ctypes
+
+    B, T, H, D = t.shape
+    cuda = ctypes.CDLL("libcuda.so.1")
+    buf = (ctypes.c_uint8 * 192)()          # a tensor map: 128 bytes, 64-aligned
+    addr = ctypes.addressof(buf)
+    tmap = ctypes.c_void_p(addr + (-addr) % 64)
+    u64, u32 = ctypes.c_uint64, ctypes.c_uint32
+    dims = (u64 * 4)(D, H, T, B)
+    strides = (u64 * 3)(*(2 * s for s in reversed(t.stride()[:3])))
+    box, unit = (u32 * 4)(64, 1, rows, 1), (u32 * 4)(1, 1, 1, 1)
+    # bfloat16 (9), no interleave (0), 128-byte swizzle (3), 128-byte L2
+    # promotion (2), zero fill (0): the arguments hopper.cuh passes
+    args = (tmap, 9, 4, ctypes.c_void_p(t.data_ptr()), dims, strides, box, unit, 0, 3, 2, 0)
+    if cuda.cuTensorMapEncodeTiled(*args) != 0:
+        return None
+    t0 = time.perf_counter()
+    for _ in range(n):
+        cuda.cuTensorMapEncodeTiled(*args)
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def phase_bf16_against_parent():
+    """Phase 20f: K4's and K5's bfloat16 kernels against the parent commit's
+    (``build/parent_csrc/``), in turns: {case: {kernel: {"this"|"parent":
+    {"ms": [...], "device_ms": [...]}}}}, or None without the copy."""
+    import torch
+
+    from tpu_ddp_torch.ops import _build
+    from tpu_ddp_torch.ops import flash_attention as fa
+    from tpu_ddp_torch.tools import k4_variants, k56_variants, variants
+    from tpu_ddp_torch.tools.variants import bf16_row_units
+
+    files = ("flash_forward.cu", "flash_attention.cu", "bf16_tiles.cuh")
+    if not all(os.path.isfile(os.path.join(PARENT_DIR, f)) for f in files):
+        print(f"phase 20f: no copy of the parent's sources under {PARENT_DIR} (git show "
+              "<parent>:tpu_ddp_torch/ops/csrc/<file> for "
+              f"{', '.join(files)}); skipped", flush=True)
+        return None
+    print("phase 20f: K4/K5 bfloat16 against the parent's (in turns parent, this, this, "
+          "parent; ms a call by CUDA events and device time)", flush=True)
+    libs = {
+        "flash_forward": {
+            "this": _build.load("flash_forward"),
+            **variants.build("flash_forward", {}, {
+                "parent": (os.path.join(PARENT_DIR, "flash_forward.cu"), ())})},
+        "flash_attention": {
+            "this": _build.load("flash_attention"),
+            **variants.build("flash_attention", {}, {
+                "parent": (os.path.join(PARENT_DIR, "flash_attention.cu"), ())})},
+    }
+    results = {}
+    for case, iters in BF16_PARENT_TIMED.items():
+        q, k, v, do, _, causal = flash_inputs(case, seed=2, bf16=True)
+        out, lse = fa.forward_plain(q, k, v, causal=causal)
+        di = fa.row_dot(do, out)
+        calls = {
+            "K4": {n: (lambda lib=lib: k4_variants.forward(lib, q, k, v, causal))
+                   for n, lib in libs["flash_forward"].items()},
+            "K5": {n: (lambda lib=lib: k56_variants.dq(lib, q, k, v, do, lse, di, causal))
+                   for n, lib in libs["flash_attention"].items()},
+        }
+        results[case] = {}
+        for kernel, fns in calls.items():
+            got = {n: fn() for n, fn in fns.items()}
+            # each is held to the plain version elsewhere (phase 20a, the
+            # parent in its own run): here only how far apart the two are
+            units = float(bf16_row_units(got["this"], got["parent"]).max())
+            row = {n: {"ms": [], "device_ms": []} for n in fns}
+            for n in ("parent", "this", "this", "parent"):
+                row[n]["ms"].append(time_ms(fns[n], iters))
+                row[n]["device_ms"].append(device_ms(fns[n], iters))
+            results[case][kernel] = row
+            mean = {n: sum(r["ms"]) / 2 for n, r in row.items()}
+            if kernel == "K4":
+                print(f"  one tensor map's encode on the host (K4 makes 3 a call, K5 4): "
+                      f"{tma_encode_us(q, 128)} us", flush=True)
+            print(f"  {kernel}[bf16,{case}] {tuple(q.shape)} causal={causal}: this "
+                  f"{row['this']['ms']} ms (device {row['this']['device_ms']}); parent "
+                  f"{row['parent']['ms']} ms (device {row['parent']['device_ms']}); "
+                  f"parent / this {mean['parent'] / mean['this']:.3f} by events; the two "
+                  f"within {units:.3g} bf16 units of each row", flush=True)
+        del q, k, v, do, out, lse, di
+    torch.cuda.empty_cache()
+    return results
+
+
 def nccl_main(nproc):
     """``python3 chip_smoke.py --nccl N`` on a machine with N cards: phase
     10 with NetResDeep's chunks at N ranks, then phases 12, 14, 17's
@@ -3529,7 +3621,8 @@ def main():
     rows += phase_finetune_timing(results, ft_runs)
     rows += phase_bf16_timing(bf16_errors, {"vit": bf16_vit["flash"]["launches"],
                                             "lm": bf16_lm["bf16"]["launches"]})
-    stamp("phases 18d, 19e and 20b")
+    phase_bf16_against_parent()
+    stamp("phases 18d, 19e, 20b and 20f")
     rows += phase_quant_timing(quant_err, dp_runs)
     rows += phase_masked_timing(masked_results, {
         "netresdeep": zero1_runs["zero1"][0]["launches"]["fused_update"],

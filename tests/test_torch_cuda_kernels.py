@@ -337,16 +337,20 @@ def test_flash_kernels_match_plain(cuda, case):
 
 
 #: the bfloat16 kernels' cases: ViT-S/4's shape (qkv views), with dead rows
-#: under a key mask, the LM's causal views at T = 1,024, an odd T with
-#: D = 48 (16-byte copies, zero-filled columns), D = 36 (element copies),
-#: D = 128, and one token
+#: under a key mask, the LM's causal views at T = 1,024 and at the LM-32k
+#: path's (4, 4096, 8, 64), an odd T with D = 48 (zero-filled columns),
+#: D = 36 (K4 and K5 read a padded copy), D = 128 at T = 130 and, causal
+#: with dead rows, at T = 200 (T not a multiple of the 128-row query tile),
+#: and one token
 BF16_CASES = {
     "vit_s4": (32, 64, 3, 64, False, None, True),
     "vit_s4_dead": (4, 64, 3, 64, True, "dead", True),
     "lm_causal_t1024": (2, 1024, 2, 64, True, None, True),
+    "lm_causal_t4096": (4, 4096, 8, 64, True, None, True),
     "t100_d48": (4, 100, 2, 48, False, None, False),
     "d36_t77_causal_dead": (3, 77, 2, 36, True, "dead", False),
     "d128_t130": (1, 130, 2, 128, False, None, False),
+    "d128_t200_causal_dead": (3, 200, 2, 128, True, "dead", False),
     "t1": (1, 1, 1, 16, False, None, False),
 }
 
@@ -440,13 +444,19 @@ def test_bf16_flash_backward_is_bitwise_repeatable(cuda):
 
 
 def test_bf16_launch_info(cuda):
-    """The bfloat16 kernels' resources: no spill at D = 64, 128 threads."""
+    """The bfloat16 kernels' resources: K4 and K5 two warpgroups (256
+    threads) over a 128-row query tile and 64-key tiles, K6 128 threads; no
+    spill at D = 64."""
     from tpu_ddp_torch.ops import flash_attention as fa
 
-    infos = [fa.forward_launch_info(64, torch.bfloat16)]
-    infos += [fa.backward_launch_info(kind, 64, torch.bfloat16) for kind in ("dq", "dkv")]
-    for info in infos:
-        assert info["threads"] == 128 and info["spill_bytes"] == 0, info
+    k4 = fa.forward_launch_info(64, torch.bfloat16)
+    k5, k6 = (fa.backward_launch_info(kind, 64, torch.bfloat16) for kind in ("dq", "dkv"))
+    for info in (k4, k5):
+        assert info["threads"] == 256, info
+        assert (info["query_rows"], info["key_rows"]) == (128, 64), info
+    assert k6["threads"] == 128, k6
+    for info in (k4, k5, k6):
+        assert info["spill_bytes"] == 0, info
         assert info["blocks_per_sm"] >= 1, info
 
 

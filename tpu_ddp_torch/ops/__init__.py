@@ -58,8 +58,9 @@ KERNELS = {
         "replaces": "tpu_ddp/ops/flash_attention.py:366",
         "strategies": ("dp",),
     },
-    # their bfloat16 instantiations (bf16 q, k, v and dO: the JAX kernels
-    # under --compute-dtype bfloat16), in the same sources
+    # their bfloat16 kernels (bf16 q, k, v and dO: the JAX kernels under
+    # --compute-dtype bfloat16), in the same sources: K4's and K5's on TMA,
+    # an mbarrier ring and wgmma (csrc/flash_wg.cuh), K6's on mma.sync
     "flash_attention_fwd_bf16": {
         "wrapper": "tpu_ddp_torch.ops.flash_attention:flash_forward",
         "plain": "tpu_ddp_torch.ops.flash_attention:forward_plain",

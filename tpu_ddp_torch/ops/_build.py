@@ -48,7 +48,9 @@ LIBRARIES = {
     }),
     # K4, held to a tolerance: nvcc's default contraction into FMAs; its
     # float32 kernel's __launch_bounds__ hold it to 128 registers a thread,
-    # its bfloat16 kernel's to 255
+    # its bfloat16 kernel's (256 threads: TMA, mbarriers, wgmma) to 255.
+    # The TMA tensor maps are encoded through the runtime's
+    # driver entry point (hopper.cuh), so no library or link flag is added.
     "flash_forward": ("flash_forward.cu", (), {
         "tpu_ddp_flash_fwd": (_I, [_P] * 7 + [_I] * 5 + [_P]),
         "tpu_ddp_flash_fwd_info": (_I, [_I, _P]),
@@ -57,8 +59,9 @@ LIBRARIES = {
         **_ERR,
     }),
     # K5 and K6, held to a tolerance: nvcc's default contraction into FMAs;
-    # their __launch_bounds__ (128 threads, two blocks an SM) allow up to
-    # 255 registers a thread
+    # their __launch_bounds__ (128 threads, two blocks an SM; K5's bfloat16
+    # kernel, on TMA and wgmma as K4's, 256 threads, one) allow up to 255
+    # registers a thread
     "flash_attention": ("flash_attention.cu", (), {
         "tpu_ddp_flash_dq": (_I, [_P] * 9 + [_I] * 5 + [_P]),
         "tpu_ddp_flash_dkv": (_I, [_P] * 10 + [_I] * 5 + [_P]),

@@ -83,6 +83,7 @@
 #include <cstdint>
 
 #include "bf16_tiles.cuh"
+#include "flash_wg.cuh"
 
 namespace {
 
@@ -545,134 +546,183 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) flash_dkv_kernel(Args a)
   store_rows(a.dv, a.vdv, b, h, key_lo, a.T, a.D, t, dv);
 }
 
-// The bfloat16 instantiations (replace _dq_kernel and _dkv_kernel on bf16
-// q, k, v and dO). The float32 kernels' layout, tiles and visibility; the
-// products are single bf16 ones with float32 accumulators (m16n8k16): S
-// and dP exactly the Pallas kernels' jnp.dot(..., preferred_element_type=
-// f32) up to the order of the sum; p and ds are rounded to bf16 for dS K,
-// P^T dO and dS^T Q (ops/flash_attention.py: design (a)), their accumulator
-// fragments packed into the A fragment of those products. Tiles are bf16
-// rows of kD + 8 (bf16_tiles.cuh); the resident tiles' and the B operands
-// of X^T are 32-bit fragment loads, the B operands of X itself (K for dQ,
-// dO and Q for dV and dK) one ldmatrix.x4.trans for two output tiles. dq,
-// dk and dv are rounded to bf16 (nearest even).
-template <int kD, int kBN>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) flash_dq_bf16_kernel(ArgsB a) {
-  constexpr int kLd = kD + 8, kNT = kBN / 8, kDT = kD / 8, kKT = kD / 16;
-  extern __shared__ float4 smem4[];
-  Bf16* Qs = reinterpret_cast<Bf16*>(smem4);
-  Bf16* dOs = Qs + kBM * kLd;
-  Bf16* Ks = dOs + kBM * kLd;  // [2][kBN][kLd]
-  Bf16* Vs = Ks + 2 * kBN * kLd;
-  float* Ms = reinterpret_cast<float*>(Vs + 2 * kBN * kLd);  // [2][kBN]
+// K5 for bfloat16 inputs (replaces _dq_kernel on bf16 q, k, v and dO), on
+// Hopper's tensor-core path: TMA, an mbarrier ring and wgmma, in the
+// skeleton it shares with K4's (flash_wg.cuh).
+//
+// What bounds it: its three products, 6 T^2 D bf16 operations a (b, h)
+// (under causal over the T(T + 1)/2 visible pairs), at 989 TFLOP/s; at the
+// ViT's 64 tokens one tile's latency. The mma.sync design before it (one
+// warp's 16 rows, Q's, dO's and K's fragments reloaded from shared memory
+// every key tile, two 4-warp blocks an SM) reached 14.5% of that bound at
+// the LM's shape. Here:
+// - a block owns 128 query rows of one (b, h), 64 to each warpgroup; Q and
+//   dO are loaded once, and each thread keeps lse * log2(e) and di of its
+//   two rows in registers; K and V tiles of 64 keys stream through the ring;
+// - S = Q K^T and dP = dO V^T are wgmma with both operands in shared
+//   memory, issued together; p = 2^(s * scale * log2(e) - lse * log2(e))
+//   (invisible entries 0 by selection, without branches) and
+//   ds = p (dp - di) scale are formed in their accumulator registers,
+//   rounded to bf16 (design (a)) and handed as A fragments to dQ += dS K,
+//   with K read transposed (MN-major) from the same ring stage;
+// - tile j's ds is formed while the tensor cores run tile j + 1's S and dP,
+//   issued before it into a second pair of accumulators: S, dP, the next
+//   tile's S and dP, dQ and dS's fragments take 32 + 32 + 64 + kD / 2 + 16
+//   registers a thread, 225 in all at D = 64, which two warpgroups allow;
+// - dq is written once, rounded to bf16 (nearest even), by the warpgroup
+//   that owns its rows: no atomics, so a call's bits do not change from run
+//   to run.
+// 256 threads, one block an SM; measured alternatives (dQ of tile j - 1 also
+// under tile j's ds, 3 or 6 stages): tools/k56_variants.py, PERF.md.
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int tiles = (a.T + kBM - 1) / kBM;
-  const int bh = blockIdx.x / tiles, b = bh / a.H, h = bh % a.H;
-  const int tile = a.causal ? tiles - 1 - blockIdx.x % tiles : blockIdx.x % tiles;
-  const int q0 = tile * kBM;
-  const int warp_first = q0 + 16 * warp, warp_last = warp_first + 15;
-  const int row_lo = warp_first + g, row_hi = row_lo + 8;
+// K5's scores of one key tile for a warp's 16 rows (row_lo = its row g,
+// row_hi = g + 8), in accumulator layout (key 8n + 2t + (e & 1)):
+// p = 2^(s * scale * log2(e) - lse * log2(e)) and ds = p (dp - di) scale
+// replace dp. A tile seen whole (kWhole) has no invisible score; otherwise
+// one (its key not in `keys`, or under causal past the row) gets p = 0 by
+// selection. Both forms are branch-free over the scores.
+template <bool kWhole, int kNT>
+__device__ __forceinline__ void ds_tile(const float (&s)[kNT][4], float (&dp)[kNT][4],
+                                        uint32_t keys, int k0, bool causal, int row_lo,
+                                        int row_hi, int t, float scale2, float scale, float l2_lo,
+                                        float l2_hi, float di_lo, float di_hi) {
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = ex2(fmaf(s[n][e], scale2, -(e < 2 ? l2_lo : l2_hi)));
+      if (!kWhole)
+        p = flash_wg::visible(keys, n, e, k0, t, causal, row_lo, row_hi) ? p : 0.0f;
+      dp[n][e] = p * (dp[n][e] - (e < 2 ? di_lo : di_hi)) * scale;
+    }
+  }
+}
+
+template <int kD, int kStages>
+__global__ void __launch_bounds__(flash_wg::kThreads, 1)
+    flash_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv, flash_wg::Args a) {
+  namespace fw = flash_wg;
+  using L = fw::Smem<kD, 2, kStages>;
+  constexpr int kBN = fw::kBN, kNT = fw::kNT, kDT = kD / 8;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ fw::Sync<kStages> sy;
+  uint8_t* smem = fw::align1024(smem_raw);
+  const fw::Work w = fw::block_work(a);
+  const fw::Ring<kD, 2, kStages> ring{sy, smem, &tk, &tv, w};
+  fw::init_barriers(sy);
+  if (threadIdx.x == 0) {
+    const CUtensorMap* res[2] = {&tq, &tdo};
+    ring.start(res);
+  }
+  const int wg = threadIdx.x / fw::kWG;
+  const int tid = threadIdx.x % fw::kWG, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = w.q0 + 64 * wg;  // the warpgroup's first row
+  const int row_lo = r0 + 16 * warp + g, row_hi = row_lo + 8;
   const float scale2 = a.scale * kLog2e;
-  const float* mask_b = a.mask ? a.mask + static_cast<long long>(b) * a.T : nullptr;
+  const float* mask_b = a.mask ? a.mask + static_cast<long long>(w.b) * a.T : nullptr;
+  const uint64_t qd = hopper::desc_sw128(smem + wg * 64 * 128);
+  const uint64_t dod = hopper::desc_sw128(smem + L::kResBytes + wg * 64 * 128);
+  const int n_act = fw::active_tiles(w, a, r0);
+  const float* Mt = nullptr;  // the key-mask tile of the last tile taken
 
-  auto load_kv = [&](int j, int stage) {
-    const int k0 = j * kBN;
-    bf16_tiles::load_tile<kD, kBN, kThreads>(Ks + stage * kBN * kLd, a.k, a.vk, b, h, k0,
-                                             a.T, a.D, a.vec);
-    bf16_tiles::load_tile<kD, kBN, kThreads>(Vs + stage * kBN * kLd, a.v, a.vv, b, h, k0,
-                                             a.T, a.D, a.vec);
-    if (mask_b != nullptr) load_vec(Ms + stage * kBN, mask_b, k0, kBN, a.T);
-  };
-
-  const int kv_end = a.causal ? min(a.T, q0 + kBM) : a.T;
-  const int n_tiles = (kv_end + kBN - 1) / kBN;
-  bf16_tiles::load_tile<kD, kBM, kThreads>(Qs, a.q, a.vq, b, h, q0, a.T, a.D, a.vec);
-  bf16_tiles::load_tile<kD, kBM, kThreads>(dOs, a.dout, a.vdo, b, h, q0, a.T, a.D, a.vec);
-  load_kv(0, 0);
-  cp_async_commit();
-
-  const float* lse_bh = a.lse_in + static_cast<long long>(bh) * a.T;
-  const float* di_bh = a.di + static_cast<long long>(bh) * a.T;
+  // the two rows' lse in base 2 and di; a row past T takes 0 (not stored)
+  const float* lse_bh = a.lse_in + static_cast<long long>(w.bh) * a.T;
+  const float* di_bh = a.di + static_cast<long long>(w.bh) * a.T;
   const float l2_lo = row_lo < a.T ? lse_bh[row_lo] * kLog2e : 0.0f;
   const float l2_hi = row_hi < a.T ? lse_bh[row_hi] * kLog2e : 0.0f;
   const float di_lo = row_lo < a.T ? di_bh[row_lo] : 0.0f;
   const float di_hi = row_hi < a.T ? di_bh[row_hi] : 0.0f;
 
-  float dq[kDT][4];
+  // tile j's stage in, and its key mask in the warpgroup's buffer
+  auto acquire = [&](int j) {
+    if (mask_b != nullptr)
+      Mt = fw::mask_tile(sy.mask[wg], mask_b, j * kBN, a.T, j, wg, tid);
+    ring.wait(j);
+  };
+  auto stage = [&](int j) { return ring.stage(j); };
+
+  // S and dP of tile j + 1 into sn and dn, issued as one group
+  auto issue_sdp = [&](float* s_acc, float* p_acc, int j) {
+    fw::issue_abt<kD>(s_acc, qd, hopper::desc_sw128(stage(j)));
+    fw::issue_abt<kD>(p_acc, dod, hopper::desc_sw128(stage(j) + L::kTileBytes));
+    hopper::wgmma_commit();
+  };
+
+  // sc, dp: tile j's S and dP (dp then dS); sn, dn: tile j + 1's
+  float dq[kDT][4], sc[kNT][4], dp[kNT][4], sn[kNT][4], dn[kNT][4];
+  uint32_t da[kNT / 2][4];  // dS's A fragments, rounded to bf16
 #pragma unroll
   for (int n = 0; n < kDT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.0f;
-  const Bf16* Qw = Qs + (16 * warp + g) * kLd + 2 * t;
-  const Bf16* dOw = dOs + (16 * warp + g) * kLd + 2 * t;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    cp_async_wait_all();
-    __syncthreads();  // tile j is in; every warp is done with tile j - 1
-    if (j + 1 < n_tiles) load_kv(j + 1, (j + 1) & 1);
-    cp_async_commit();
+  hopper::mbar_wait(&sy.res, 0);
+  if (n_act > 0) {
+    acquire(0);
+    hopper::wgmma_fence();
+    issue_sdp(&sc[0][0], &dp[0][0], 0);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs<4 * kNT>(&sc[0][0]);
+    hopper::fence_regs<4 * kNT>(&dp[0][0]);
+  }
+  // Tile j's ds is formed while S and dP of tile j + 1 run on the tensor
+  // cores; then dQ += dS K.
+  for (int j = 0; j < n_act; ++j) {
+    const bool more = j + 1 < n_act;
     const int k0 = j * kBN;
-    if (a.causal && k0 > warp_last) continue;  // no key of this tile is visible
-    const Bf16* Kt = Ks + (j & 1) * kBN * kLd;
-    const Bf16* Vt = Vs + (j & 1) * kBN * kLd;
-    const float* Mt = Ms + (j & 1) * kBN;
-
-    // S = Q K^T and dP = dO V^T
-    float s[kNT][4], ds[kNT][4];  // S, then p; dP, then dS
-#pragma unroll
-    for (int n = 0; n < kNT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = ds[n][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < kKT; ++kk) {
-      uint32_t qa[4], da[4];
-      bf16_tiles::frag_a<kLd>(Qw + 16 * kk, qa);
-      bf16_tiles::frag_a<kLd>(dOw + 16 * kk, da);
-#pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-        const Bf16* Kr = Kt + (8 * n + g) * kLd + 16 * kk + 2 * t;
-        const Bf16* Vr = Vt + (8 * n + g) * kLd + 16 * kk + 2 * t;
-        bf16_tiles::mma(s[n], qa, bf16_tiles::ld32(Kr), bf16_tiles::ld32(Kr + 8));
-        bf16_tiles::mma(ds[n], da, bf16_tiles::ld32(Vr), bf16_tiles::ld32(Vr + 8));
-      }
+    const float* Mj = Mt;  // tile j's key mask (taking tile j + 1 moves Mt)
+    if (more) {
+      acquire(j + 1);
+      hopper::wgmma_fence();
+      issue_sdp(&sn[0][0], &dn[0][0], j + 1);
     }
-
-    // p and ds, as the float32 kernel forms them
-    const bool whole = mask_b == nullptr && k0 + kBN <= a.T &&
-                       (!a.causal || k0 + kBN - 1 <= warp_first);
+    // a tile the warp sees whole (no key mask, no key past T, under causal
+    // no key past its first row) needs no visibility
+    if (mask_b == nullptr && k0 + kBN <= a.T && (!a.causal || k0 + kBN - 1 <= r0 + 16 * warp))
+      ds_tile<true>(sc, dp, 0u, k0, a.causal, row_lo, row_hi, t, scale2, a.scale, l2_lo,
+                    l2_hi, di_lo, di_hi);
+    else
+      ds_tile<false>(sc, dp, fw::key_bits(Mj, k0, a.T, t), k0, a.causal, row_lo, row_hi,
+                     t, scale2, a.scale, l2_lo, l2_hi, di_lo, di_hi);
+    fw::to_a(dp, da);
+    hopper::wgmma_fence();
+    fw::issue_px<kD>(&dq[0][0], da, hopper::desc_sw128(stage(j)));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs<4 * kDT>(&dq[0][0]);
+    ring.release(j, lane);
+    if (more) {
+      hopper::fence_regs<4 * kNT>(&sn[0][0]);
+      hopper::fence_regs<4 * kNT>(&dn[0][0]);
 #pragma unroll
-    for (int n = 0; n < kNT; ++n) {
+      for (int n = 0; n < kNT; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = ex2(fmaf(s[n][e], scale2, -(e < 2 ? l2_lo : l2_hi)));
-        if (!whole) {
-          const int c = 8 * n + 2 * t + (e & 1), col = k0 + c;
-          const bool live = (mask_b != nullptr ? Mt[c] > 0.0f : col < a.T) &&
-                            (!a.causal || col <= (e < 2 ? row_lo : row_hi));
-          p = live ? p : 0.0f;
+        for (int e = 0; e < 4; ++e) {
+          sc[n][e] = sn[n][e];
+          dp[n][e] = dn[n][e];
         }
-        ds[n][e] = p * (ds[n][e] - (e < 2 ? di_lo : di_hi)) * a.scale;
-      }
-    }
-
-    // dQ += dS K over 16 keys at a time
-#pragma unroll
-    for (int m = 0; m < kNT / 2; ++m) {
-      uint32_t sa[4];
-      bf16_tiles::acc_to_a(ds[2 * m], ds[2 * m + 1], sa);
-#pragma unroll
-      for (int dn = 0; dn < kDT; dn += 2) {
-        uint32_t kb[4];
-        bf16_tiles::frag_b_trans2<kLd>(Kt + 16 * m * kLd + 8 * dn, lane, kb);
-        bf16_tiles::mma(dq[dn], sa, kb[0], kb[1]);
-        bf16_tiles::mma(dq[dn + 1], sa, kb[2], kb[3]);
-      }
     }
   }
-  cp_async_wait_all();  // the last (empty) group
-  bf16_tiles::store_rows(a.dq, a.vout, b, h, row_lo, a.T, a.D, t, dq);
+  // the tiles none of the warpgroup's rows sees: taken and given back
+  for (int j = n_act; j < w.n_tiles; ++j) {
+    acquire(j);
+    ring.release(j, lane);
+  }
+  bf16_tiles::store_rows(a.out, a.vout, w.b, w.h, row_lo, a.T, a.D, t, dq);
 }
 
+// K6 for bfloat16 inputs (replaces _dkv_kernel on bf16 q, k, v and dO). The
+// float32 kernel's layout, tiles and visibility; the products are single
+// bf16 ones with float32 accumulators (m16n8k16): S^T and dP^T exactly the
+// Pallas kernel's jnp.dot(..., preferred_element_type=f32) up to the order
+// of the sum; p and ds are rounded to bf16 for P^T dO and dS^T Q
+// (ops/flash_attention.py: design (a)), their accumulator fragments packed
+// into the A fragment of those products. Tiles are bf16 rows of kD + 8
+// (bf16_tiles.cuh); the resident tiles' and the B operands of X^T are 32-bit
+// fragment loads, the B operands of X itself (dO and Q) one
+// ldmatrix.x4.trans for two output tiles. dk and dv are rounded to bf16
+// (nearest even).
 template <int kD, int kBN>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) flash_dkv_bf16_kernel(ArgsB a) {
   constexpr int kLd = kD + 8, kNT = kBN / 8, kDT = kD / 8, kKT = kD / 16;
@@ -807,9 +857,9 @@ struct Launch {
   int query_rows, key_rows;  // rows of a block's query and key tiles
 };
 
-// Shared memory of a bf16 block: the resident tiles and the ring as bf16
-// rows of kD + 8, and kVecs per-row float vectors of the streamed tile in
-// two stages.
+// Shared memory of a bf16 K6 block: the resident tiles and the ring as
+// bf16 rows of kD + 8, and kVecs per-row float vectors of the streamed tile
+// in two stages.
 template <int kD, int kBN, int kVecs>
 constexpr size_t smem_bf16() {
   return sizeof(Bf16) * (2 * kBM + 4 * kBN) * (kD + 8) + sizeof(float) * 2 * kVecs * kBN;
@@ -817,8 +867,9 @@ constexpr size_t smem_bf16() {
 
 // The kernel for head dim D: float32, the 64-wide tiles with 32-row
 // streamed tiles, or the 128-wide ones with 16-row streamed tiles (the ring
-// and the registers at D = 128, two blocks an SM); bfloat16, 64-row
-// streamed tiles at D <= 64 and 32-row ones at D = 128.
+// and the registers at D = 128, two blocks an SM); bfloat16 (K6 only: K5's
+// is dq_bf16's), 64-row streamed tiles at D <= 64 and 32-row ones at
+// D = 128.
 Launch<Args> pick(Which w, const Args& a) {
   if (w == kDq)
     return a.D <= 64
@@ -829,12 +880,7 @@ Launch<Args> pick(Which w, const Args& a) {
              : Launch<Args>{flash_dkv_kernel<128, 16>, smem_bytes<128, 16, 2>(), 16, kBM};
 }
 
-Launch<ArgsB> pick(Which w, const ArgsB& a) {
-  if (w == kDq)
-    return a.D <= 64 ? Launch<ArgsB>{flash_dq_bf16_kernel<64, 64>, smem_bf16<64, 64, 1>(),
-                                     kBM, 64}
-                     : Launch<ArgsB>{flash_dq_bf16_kernel<128, 32>, smem_bf16<128, 32, 1>(),
-                                     kBM, 32};
+Launch<ArgsB> pick(Which, const ArgsB& a) {
   return a.D <= 64 ? Launch<ArgsB>{flash_dkv_bf16_kernel<64, 64>, smem_bf16<64, 64, 2>(),
                                    64, kBM}
                    : Launch<ArgsB>{flash_dkv_bf16_kernel<128, 32>, smem_bf16<128, 32, 2>(),
@@ -951,6 +997,81 @@ int launch_info(int which, int D, int* out) {
   return static_cast<int>(err);
 }
 
+// ---- K5 bfloat16: the host side of a TMA launch ----
+
+// K/V stages of the ring: a warpgroup holds two (dS K of tile j, S and dP
+// of tile j + 1), and the loads of the next ones run meanwhile
+constexpr int kDqStages = 4;
+
+// a wgmma kernel and its dynamic shared memory a block
+struct LaunchW {
+  void (*kernel)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, flash_wg::Args);
+  int smem;
+};
+
+LaunchW pick_dq_bf16(int D) {
+  using flash_wg::Smem;
+  return D <= 64 ? LaunchW{flash_dq_bf16_kernel<64, kDqStages>, Smem<64, 2, kDqStages>::kDynamic}
+                 : LaunchW{flash_dq_bf16_kernel<128, kDqStages>,
+                           Smem<128, 2, kDqStages>::kDynamic};
+}
+
+cudaError_t prepare_bf16(const LaunchW& l) {
+  return cudaFuncSetAttribute(l.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.smem);
+}
+
+// One tensor map a call for each of q, dO, k and v (ops/flash_attention.py
+// hands over operands TMA takes as they lie, or aligned copies); the scale
+// is 1/sqrt(D) of the true D.
+int dq_bf16(const Bf16* q, const Bf16* k, const Bf16* v, const Bf16* dout, const float* lse,
+            const float* di, const float* mask, Bf16* dq_out, const long long* strides, int B,
+            int T, int H, int D, int causal, void* stream) {
+  if (D < 1 || D > 128 || B < 1 || H < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (T < 1) return 0;
+  const LaunchW l = pick_dq_bf16(D);
+  const long long* s = strides;  // (B, T, H) strides of q, k, v, dO and dq
+  CUtensorMap tq, tdo, tk, tv;
+  if (!hopper_host::encode_bf16(&tq, q, s[0], s[1], s[2], B, T, H, D, flash_wg::kBM) ||
+      !hopper_host::encode_bf16(&tk, k, s[3], s[4], s[5], B, T, H, D, flash_wg::kBN) ||
+      !hopper_host::encode_bf16(&tv, v, s[6], s[7], s[8], B, T, H, D, flash_wg::kBN) ||
+      !hopper_host::encode_bf16(&tdo, dout, s[9], s[10], s[11], B, T, H, D, flash_wg::kBM))
+    return static_cast<int>(cudaErrorInvalidValue);
+  flash_wg::Args a{};
+  a.mask = mask;
+  a.lse_in = lse;
+  a.di = di;
+  a.out = dq_out;
+  a.vout = View{s[12], s[13], s[14]};
+  a.B = B;
+  a.T = T;
+  a.H = H;
+  a.D = D;
+  a.causal = causal != 0;
+  a.scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
+  const cudaError_t err = prepare_bf16(l);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned blocks = B * H * ((T + flash_wg::kBM - 1) / flash_wg::kBM);
+  l.kernel<<<blocks, flash_wg::kThreads, l.smem, static_cast<cudaStream_t>(stream)>>>(
+      tq, tdo, tk, tv, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_info_dq_bf16(int D, int* out) {
+  if (D < 1 || D > 128) return static_cast<int>(cudaErrorInvalidValue);
+  const LaunchW l = pick_dq_bf16(D);
+  cudaError_t err = prepare_bf16(l);
+  cudaFuncAttributes attr{};
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, l.kernel);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, l.kernel, flash_wg::kThreads,
+                                                        l.smem);
+  const int vals[] = {flash_wg::kBM, flash_wg::kBN, flash_wg::kThreads, attr.numRegs,
+                      static_cast<int>(attr.localSizeBytes), l.smem, per_sm};
+  for (int i = 0; i < 7; ++i) out[i] = vals[i];
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 extern "C" {
@@ -981,7 +1102,7 @@ int tpu_ddp_flash_dq_bf16(const Bf16* q, const Bf16* k, const Bf16* v,
                           const Bf16* dout, const float* lse, const float* di,
                           const float* mask, Bf16* dq_out, const long long* strides,
                           int B, int T, int H, int D, int causal, void* stream) {
-  return dq(q, k, v, dout, lse, di, mask, dq_out, strides, B, T, H, D, causal, stream);
+  return dq_bf16(q, k, v, dout, lse, di, mask, dq_out, strides, B, T, H, D, causal, stream);
 }
 
 int tpu_ddp_flash_dkv_bf16(const Bf16* q, const Bf16* k, const Bf16* v,
@@ -999,7 +1120,7 @@ int tpu_ddp_flash_bwd_info(int which, int D, int* out) {
 }
 
 int tpu_ddp_flash_bwd_info_bf16(int which, int D, int* out) {
-  return launch_info<Bf16>(which, D, out);
+  return which == kDq ? launch_info_dq_bf16(D, out) : launch_info<Bf16>(which, D, out);
 }
 
 const char* tpu_ddp_cuda_error_string(int code) {

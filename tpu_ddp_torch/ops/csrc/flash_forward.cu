@@ -68,6 +68,7 @@
 #include <cstdint>
 
 #include "bf16_tiles.cuh"
+#include "flash_wg.cuh"
 
 namespace {
 
@@ -90,7 +91,6 @@ struct ArgsT {
   float scale;
 };
 using Args = ArgsT<float>;
-using ArgsB = ArgsT<Bf16>;
 
 constexpr int kBM = 64;        // query rows of a block
 constexpr int kThreads = 128;  // four warps of 16 query rows
@@ -442,118 +442,192 @@ __global__ void __launch_bounds__(kThreads, 4) flash_fwd_kernel(Args a) {
   }
 }
 
-// K4 for bfloat16 inputs (replaces _kernel on bf16 q, k, v). The float32
-// kernel's layout and online softmax; the products are single bf16 ones
-// with float32 accumulators (m16n8k16), which is the Pallas kernel's
-// jnp.dot(q, k.T, preferred_element_type=f32) exactly up to the order of
-// the sum. p is rounded to bf16 for P V (ops/flash_attention.py: design
-// (a)); the row sum l takes the unrounded p. Q, K and V tiles are bf16 rows
-// of kD + 8 (bf16_tiles.cuh); Q's and K's fragments are 32-bit loads, V's
-// one ldmatrix.x4.trans for two output tiles. out is rounded to bf16
-// (nearest even); lse stays float32. 128 threads, up to 255 registers a
-// thread (two blocks an SM by registers; shared memory allows more at
-// D = 64: Q, the K/V ring and the mask take 46 KB).
-template <int kD, int kBN>
-__global__ void __launch_bounds__(kThreads, 2) flash_fwd_bf16_kernel(ArgsB a) {
-  constexpr int kLd = kD + 8, kNT = kBN / 8, kDT = kD / 8, kKT = kD / 16;
-  constexpr int kQ = kBM * kLd, kKV = kBN * kLd;
-  extern __shared__ float4 smem4[];
-  Bf16* Qs = reinterpret_cast<Bf16*>(smem4);
-  Bf16* Ks = Qs + kQ;
-  Bf16* Vs = Ks + 2 * kKV;
-  float* Ms = reinterpret_cast<float*>(Vs + 2 * kKV);
+// K4 for bfloat16 inputs (replaces _kernel on bf16 q, k, v), on Hopper's
+// tensor-core path: TMA, an mbarrier ring and wgmma, in the skeleton it
+// shares with K5's (flash_wg.cuh).
+//
+// What bounds it: the two products, 4 T^2 D bf16 operations a (b, h)
+// (under causal over the T(T + 1)/2 visible pairs), at 989 TFLOP/s on the
+// tensor cores; at the ViT's 64 tokens one tile's latency. The mma.sync
+// design before it (one warp's 16 rows, fragments reloaded from shared
+// memory every key tile, copies and products in the same warps, two
+// 4-warp blocks an SM) reached 10.5% of that bound at the LM's shape. Here:
+// - a block owns 128 query rows of one (b, h), 64 to each warpgroup; Q is
+//   loaded once and K and V tiles of 64 keys stream through the ring, so
+//   the copies run beside the products (128-key tiles measured slower at
+//   the LM's shape: pick_bf16);
+// - S = Q K^T is wgmma with both operands in shared memory (K is K-major
+//   as it lies); the online softmax runs on S's accumulator registers in
+//   base 2, without branches over the scores (row max and sum are shuffles
+//   within the quad that holds a row; a tile the warp sees whole skips the
+//   visibility tests, and the rescale of O is skipped when no row max of
+//   the warp moved); p is rounded to bf16 and its accumulator pairs are
+//   P V's A operand in registers, with V read transposed (MN-major) from
+//   the ring: P never goes through shared memory;
+// - S of tile j and P V of tile j - 1 are issued together, so tile j's
+//   softmax runs while P V does, and O is rescaled once P V has landed;
+// - the row sum l takes the unrounded p, out = O / l is rounded to bf16
+//   (nearest even) and lse = m ln 2 + log l stays float32 (the dtype flow
+//   of ops/flash_attention.py's design (a)); a row that sees no key gives
+//   out 0 and lse NEG.
+// 256 threads; at D = 64, 127 registers a thread and 81 KB of shared
+// memory, so two blocks an SM.
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int tiles = (a.T + kBM - 1) / kBM;
-  const int bh = blockIdx.x / tiles, b = bh / a.H, h = bh % a.H;
-  const int q0 = blockIdx.x % tiles * kBM;
-  const int row_lo = q0 + 16 * warp + g, row_hi = row_lo + 8;
-  const int warp_last = q0 + 16 * warp + 15;
-  const float scale2 = a.scale * kLog2e;
-  const float* mask_b = a.mask ? a.mask + static_cast<long long>(b) * a.T : nullptr;
-
-  auto load_kv = [&](int j, int stage) {
-    const int k0 = j * kBN;
-    bf16_tiles::load_tile<kD, kBN, kThreads>(Ks + stage * kKV, a.k, a.vk, b, h, k0, a.T,
-                                             a.D, a.vec);
-    bf16_tiles::load_tile<kD, kBN, kThreads>(Vs + stage * kKV, a.v, a.vv, b, h, k0, a.T,
-                                             a.D, a.vec);
-    if (mask_b != nullptr && threadIdx.x < kBN) {
-      const int col = k0 + threadIdx.x;
-      const bool live = col < a.T;
-      cp_async4(Ms + stage * kBN + threadIdx.x, live ? mask_b + col : mask_b, live ? 4 : 0);
+// One key tile of the online softmax for a warp's 16 rows (row_lo = its row
+// g, row_hi = g + 8): s (raw scores in accumulator layout, key
+// 8n + 2t + (e & 1)) becomes p = 2^(s * scale * log2(e) - m), invisible
+// entries exactly 0; m and l move as in online_softmax, and al_lo, al_hi
+// are the factors by which the caller rescales O (once the product that
+// accumulates into it has landed). A tile seen whole (kWhole) has no
+// invisible score; otherwise one (its key not in `keys`, or under causal
+// past the row) is set to NEG, the mark that zeroes its p. Both forms are
+// branch-free over the scores.
+template <bool kWhole, int kNT>
+__device__ __forceinline__ void softmax_tile(float (&s)[kNT][4], float& m_lo, float& m_hi,
+                                             float& l_lo, float& l_hi, float& al_lo,
+                                             float& al_hi, uint32_t keys, int k0, bool causal,
+                                             int row_lo, int row_hi, int t, float scale2) {
+  float mx_lo = kNeg, mx_hi = kNeg;
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (kWhole)
+        s[n][e] *= scale2;
+      else
+        s[n][e] = flash_wg::visible(keys, n, e, k0, t, causal, row_lo, row_hi)
+                      ? s[n][e] * scale2
+                      : kNeg;
     }
+    mx_lo = fmaxf(mx_lo, fmaxf(s[n][0], s[n][1]));
+    mx_hi = fmaxf(mx_hi, fmaxf(s[n][2], s[n][3]));
+  }
+  const float mn_lo = fmaxf(m_lo, quad_max(mx_lo));
+  const float mn_hi = fmaxf(m_hi, quad_max(mx_hi));
+  float rs_lo = 0.0f, rs_hi = 0.0f;
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // a row that has seen no key yet has m == NEG: its invisible
+      // entries must still give 0
+      const float p = ex2(s[n][e] - (e < 2 ? mn_lo : mn_hi));
+      s[n][e] = kWhole || s[n][e] != kNeg ? p : 0.0f;
+    }
+    rs_lo += s[n][0] + s[n][1];
+    rs_hi += s[n][2] + s[n][3];
+  }
+  al_lo = ex2(m_lo - mn_lo);
+  al_hi = ex2(m_hi - mn_hi);
+  l_lo = l_lo * al_lo + quad_sum(rs_lo);
+  l_hi = l_hi * al_hi + quad_sum(rs_hi);
+  m_lo = mn_lo;
+  m_hi = mn_hi;
+}
+
+template <int kD, int kStages>
+__global__ void __launch_bounds__(flash_wg::kThreads, 1)
+    flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv, flash_wg::Args a) {
+  namespace fw = flash_wg;
+  using L = fw::Smem<kD, 1, kStages>;
+  constexpr int kBN = fw::kBN, kNT = fw::kNT, kDT = kD / 8;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ fw::Sync<kStages> sy;
+  uint8_t* smem = fw::align1024(smem_raw);
+  const fw::Work w = fw::block_work(a);
+  const fw::Ring<kD, 1, kStages> ring{sy, smem, &tk, &tv, w};
+  fw::init_barriers(sy);
+  if (threadIdx.x == 0) {
+    const CUtensorMap* res[1] = {&tq};
+    ring.start(res);
+  }
+  const int wg = threadIdx.x / fw::kWG;
+  const int tid = threadIdx.x % fw::kWG, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = w.q0 + 64 * wg;  // the warpgroup's first row
+  const int row_lo = r0 + 16 * warp + g, row_hi = row_lo + 8;
+  const float scale2 = a.scale * kLog2e;
+  const float* mask_b = a.mask ? a.mask + static_cast<long long>(w.b) * a.T : nullptr;
+  const uint64_t qd = hopper::desc_sw128(smem + wg * 64 * 128);
+  const int n_act = fw::active_tiles(w, a, r0);
+  const float* Mt = nullptr;  // the key-mask tile of the last tile taken
+
+  // tile j's stage in, and its key mask in the warpgroup's buffer
+  auto acquire = [&](int j) {
+    if (mask_b != nullptr)
+      Mt = fw::mask_tile(sy.mask[wg], mask_b, j * kBN, a.T, j, wg, tid);
+    ring.wait(j);
   };
+  auto stage = [&](int j) { return ring.stage(j); };
 
-  const int kv_end = a.causal ? min(a.T, q0 + kBM) : a.T;
-  const int n_tiles = (kv_end + kBN - 1) / kBN;
-  bf16_tiles::load_tile<kD, kBM, kThreads>(Qs, a.q, a.vq, b, h, q0, a.T, a.D, a.vec);
-  load_kv(0, 0);
-  cp_async_commit();
-
-  float o[kDT][4];
+  float o[kDT][4], sc[kNT][4];
+  uint32_t pa[kNT / 2][4];
 #pragma unroll
   for (int n = 0; n < kDT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
   float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.0f, l_hi = 0.0f;
-  const Bf16* Qw = Qs + (16 * warp + g) * kLd + 2 * t;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    cp_async_wait_all();
-    __syncthreads();  // tile j is in; every warp is done with tile j - 1
-    if (j + 1 < n_tiles) load_kv(j + 1, (j + 1) & 1);
-    cp_async_commit();
-    const int k0 = j * kBN;
-    if (a.causal && k0 > warp_last) continue;  // no key of this tile is visible
-    const Bf16* Kt = Ks + (j & 1) * kKV;
-    const Bf16* Vt = Vs + (j & 1) * kKV;
-    const float* Mt = Ms + (j & 1) * kBN;
-
-    // S = Q K^T: K's rows are the B operand's columns, read as they lie
-    float s[kNT][4];
-#pragma unroll
-    for (int n = 0; n < kNT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < kKT; ++kk) {
-      uint32_t qa[4];
-      bf16_tiles::frag_a<kLd>(Qw + 16 * kk, qa);
-#pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-        const Bf16* Kr = Kt + (8 * n + g) * kLd + 16 * kk + 2 * t;
-        bf16_tiles::mma(s[n], qa, bf16_tiles::ld32(Kr), bf16_tiles::ld32(Kr + 8));
-      }
+  hopper::mbar_wait(&sy.res, 0);
+  // Step j issues S of tile j and O += P V of tile j - 1 together; tile j's
+  // softmax then runs while P V does, and O is rescaled once P V has
+  // landed. Every warpgroup takes n_tiles + 1 steps; a tile none of its
+  // rows sees is only taken and released.
+  for (int j = 0; j <= w.n_tiles; ++j) {
+    if (j < w.n_tiles) acquire(j);
+    const bool s_go = j < n_act, pv_go = j >= 1 && j - 1 < n_act;
+    hopper::wgmma_fence();
+    if (s_go) {
+      fw::issue_abt<kD>(&sc[0][0], qd, hopper::desc_sw128(stage(j)));
+      hopper::wgmma_commit();
     }
-
-    const bool whole = mask_b == nullptr && k0 + kBN <= a.T &&
-                       (!a.causal || k0 + kBN - 1 <= q0 + 16 * warp);
-    online_softmax(s, o, m_lo, m_hi, l_lo, l_hi, whole, mask_b != nullptr ? Mt : nullptr,
-                   k0, a.T, a.causal, row_lo, row_hi, t, scale2);
-
-    // O += P V over 16 keys at a time: p rounded to bf16 in the A fragment
+    if (pv_go) {
+      fw::issue_px<kD>(&o[0][0], pa, hopper::desc_sw128(stage(j - 1) + L::kTileBytes));
+      hopper::wgmma_commit();
+    }
+    float al_lo = 1.0f, al_hi = 1.0f;
+    if (s_go) {
+      if (pv_go)
+        hopper::wgmma_wait<1>();
+      else
+        hopper::wgmma_wait<0>();
+      hopper::fence_regs<4 * kNT>(&sc[0][0]);
+      // a tile the warp sees whole (no key mask, no key past T, under
+      // causal no key past its first row) skips the visibility tests
+      const int k0 = j * kBN;
+      if (mask_b == nullptr && k0 + kBN <= a.T && (!a.causal || k0 + kBN - 1 <= r0 + 16 * warp))
+        softmax_tile<true>(sc, m_lo, m_hi, l_lo, l_hi, al_lo, al_hi, 0u, k0, a.causal, row_lo,
+                           row_hi, t, scale2);
+      else
+        softmax_tile<false>(sc, m_lo, m_hi, l_lo, l_hi, al_lo, al_hi,
+                            fw::key_bits(Mt, k0, a.T, t), k0, a.causal, row_lo, row_hi, t,
+                            scale2);
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs<4 * kDT>(&o[0][0]);
+    if (j >= 1) ring.release(j - 1, lane);
+    if (s_go) {
+      if (__any_sync(0xffffffffu, al_lo != 1.0f || al_hi != 1.0f)) {  // a max moved
 #pragma unroll
-    for (int m = 0; m < kNT / 2; ++m) {
-      uint32_t pa[4];
-      bf16_tiles::acc_to_a(s[2 * m], s[2 * m + 1], pa);
-#pragma unroll
-      for (int dn = 0; dn < kDT; dn += 2) {
-        uint32_t vb[4];
-        bf16_tiles::frag_b_trans2<kLd>(Vt + 16 * m * kLd + 8 * dn, lane, vb);
-        bf16_tiles::mma(o[dn], pa, vb[0], vb[1]);
-        bf16_tiles::mma(o[dn + 1], pa, vb[2], vb[3]);
+        for (int n = 0; n < kDT; ++n) {
+          o[n][0] *= al_lo;
+          o[n][1] *= al_lo;
+          o[n][2] *= al_hi;
+          o[n][3] *= al_hi;
+        }
       }
+      fw::to_a(sc, pa);
     }
   }
-  cp_async_wait_all();  // the last (empty) group
 
   const bool live_lo = l_lo > 0.0f, live_hi = l_hi > 0.0f;
   const float inv_lo = live_lo ? 1.0f / l_lo : 0.0f;  // a dead row's o is 0
   const float inv_hi = live_hi ? 1.0f / l_hi : 0.0f;
   if (t == 0) {
-    float* lse = a.lse + static_cast<long long>(bh) * a.T;
+    float* lse = a.lse + static_cast<long long>(w.bh) * a.T;
     if (row_lo < a.T) lse[row_lo] = live_lo ? m_lo * kLn2 + logf(l_lo) : kNeg;
     if (row_hi < a.T) lse[row_hi] = live_hi ? m_hi * kLn2 + logf(l_hi) : kNeg;
   }
-  bf16_tiles::store_rows(a.out, a.vout, b, h, row_lo, a.T, a.D, t, o, inv_lo, inv_hi);
+  bf16_tiles::store_rows(a.out, a.vout, w.b, w.h, row_lo, a.T, a.D, t, o, inv_lo, inv_hi);
 }
 
 // A kernel and its launch: dynamic shared memory a block and rows of its
@@ -565,23 +639,12 @@ struct Launch {
   int key_rows;
 };
 
-template <int kD, int kBN>
-constexpr size_t smem_bf16() {
-  // Q, K[2], V[2] as bf16 rows of kD + 8; mask[2]
-  return sizeof(Bf16) * (kBM + 4 * kBN) * (kD + 8) + sizeof(float) * 2 * kBN;
-}
-
 // The kernel for head dim D: float32, the 64-wide tiles with 64-key tiles,
 // or the 128-wide ones with 16-key tiles (the ring and the registers at
-// D = 128); bfloat16, 64-key tiles at either width.
+// D = 128).
 Launch<Args> pick(const Args& a) {
   return a.D <= 64 ? Launch<Args>{flash_fwd_kernel<64, 64>, Cfg<64, 64>::kSmem, 64}
                    : Launch<Args>{flash_fwd_kernel<128, 16>, Cfg<128, 16>::kSmem, 16};
-}
-
-Launch<ArgsB> pick(const ArgsB& a) {
-  return a.D <= 64 ? Launch<ArgsB>{flash_fwd_bf16_kernel<64, 64>, smem_bf16<64, 64>(), 64}
-                   : Launch<ArgsB>{flash_fwd_bf16_kernel<128, 64>, smem_bf16<128, 64>(), 64};
 }
 
 // above 48 KB, dynamic shared memory needs the kernel's opt-in; the
@@ -620,12 +683,6 @@ bool strides4(const View& v) { return v.sb % 4 == 0 && v.st % 4 == 0 && v.sh % 4
 bool vec_copies(const Args& a) {
   return a.D % 4 == 0 && aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
          strides4(a.vq) && strides4(a.vk) && strides4(a.vv);
-}
-
-bool vec_copies(const ArgsB& a) {
-  const void* ptrs[] = {a.q, a.k, a.v};
-  const View views[] = {a.vq, a.vk, a.vv};
-  return bf16_tiles::vec_ok(a.D, ptrs, views, 3);
 }
 
 template <typename E>
@@ -667,6 +724,82 @@ int launch_info(int D, int* out) {
   return static_cast<int>(info(pick(a), out));
 }
 
+// ---- K4 bfloat16: the host side of a TMA launch ----
+
+// K/V stages of the ring: a warpgroup holds two (P V of tile j - 1, S of
+// tile j), and the loads of the next two run meanwhile
+constexpr int kFwdStages = 4;
+
+// a wgmma kernel and its dynamic shared memory a block
+struct LaunchW {
+  void (*kernel)(CUtensorMap, CUtensorMap, CUtensorMap, flash_wg::Args);
+  int smem;
+};
+
+// 64-key tiles at either width: at the LM's (4, 4096, 8, 64) 128-key tiles
+// (S in 64 accumulator registers a thread) took 0.294 ms against 0.245 on
+// an H100 (PERF.md)
+LaunchW pick_bf16(int D) {
+  using flash_wg::Smem;
+  return D <= 64 ? LaunchW{flash_fwd_bf16_kernel<64, kFwdStages>, Smem<64, 1, kFwdStages>::kDynamic}
+                 : LaunchW{flash_fwd_bf16_kernel<128, kFwdStages>,
+                           Smem<128, 1, kFwdStages>::kDynamic};
+}
+
+cudaError_t prepare_bf16(const LaunchW& l) {
+  return cudaFuncSetAttribute(l.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.smem);
+}
+
+// One tensor map a call for each of q, k and v (ops/flash_attention.py
+// hands over operands TMA takes as they lie, or aligned copies); the scale
+// is 1/sqrt(D) of the true D.
+int run_bf16(const Bf16* q, const Bf16* k, const Bf16* v, const float* mask, Bf16* out,
+             float* lse, const long long* strides, int B, int T, int H, int D, int causal,
+             void* stream) {
+  if (D < 1 || D > 128 || B < 1 || H < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (T < 1) return 0;
+  const LaunchW l = pick_bf16(D);
+  const long long* s = strides;  // (B, T, H) strides of q, k, v and out
+  CUtensorMap tq, tk, tv;
+  if (!hopper_host::encode_bf16(&tq, q, s[0], s[1], s[2], B, T, H, D, flash_wg::kBM) ||
+      !hopper_host::encode_bf16(&tk, k, s[3], s[4], s[5], B, T, H, D, flash_wg::kBN) ||
+      !hopper_host::encode_bf16(&tv, v, s[6], s[7], s[8], B, T, H, D, flash_wg::kBN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  flash_wg::Args a{};
+  a.mask = mask;
+  a.out = out;
+  a.lse = lse;
+  a.vout = View{s[9], s[10], s[11]};
+  a.B = B;
+  a.T = T;
+  a.H = H;
+  a.D = D;
+  a.causal = causal != 0;
+  a.scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
+  const cudaError_t err = prepare_bf16(l);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned blocks = B * H * ((T + flash_wg::kBM - 1) / flash_wg::kBM);
+  l.kernel<<<blocks, flash_wg::kThreads, l.smem, static_cast<cudaStream_t>(stream)>>>(tq, tk,
+                                                                                     tv, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_info_bf16(int D, int* out) {
+  if (D < 1 || D > 128) return static_cast<int>(cudaErrorInvalidValue);
+  const LaunchW l = pick_bf16(D);
+  cudaError_t err = prepare_bf16(l);
+  cudaFuncAttributes attr{};
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, l.kernel);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, l.kernel, flash_wg::kThreads,
+                                                        l.smem);
+  const int vals[] = {flash_wg::kBM, flash_wg::kBN, flash_wg::kThreads, attr.numRegs,
+                      static_cast<int>(attr.localSizeBytes), l.smem, per_sm};
+  for (int i = 0; i < 7; ++i) out[i] = vals[i];
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 extern "C" {
@@ -687,7 +820,7 @@ int tpu_ddp_flash_fwd_bf16(const Bf16* q, const Bf16* k, const Bf16* v,
                            const float* mask, Bf16* out, float* lse,
                            const long long* strides, int B, int T, int H, int D,
                            int causal, void* stream) {
-  return run(q, k, v, mask, out, lse, strides, B, T, H, D, causal, stream);
+  return run_bf16(q, k, v, mask, out, lse, strides, B, T, H, D, causal, stream);
 }
 
 // The launch configuration tpu_ddp_flash_fwd (or _bf16) takes for head dim
@@ -696,7 +829,7 @@ int tpu_ddp_flash_fwd_bf16(const Bf16* q, const Bf16* k, const Bf16* v,
 // an SM by the runtime's occupancy calculator. Returns a CUDA error code.
 int tpu_ddp_flash_fwd_info(int D, int* out) { return launch_info<float>(D, out); }
 
-int tpu_ddp_flash_fwd_info_bf16(int D, int* out) { return launch_info<Bf16>(D, out); }
+int tpu_ddp_flash_fwd_info_bf16(int D, int* out) { return launch_info_bf16(D, out); }
 
 const char* tpu_ddp_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

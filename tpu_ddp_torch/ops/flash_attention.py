@@ -35,9 +35,18 @@ float32 or bfloat16, as in the JAX package.
   computes it outside the kernels too, :416), then K5 and K6.
 
 **bfloat16.** q, k, v (and dO) in bfloat16 take each kernel's bfloat16
-instantiation (``mma.sync.m16n8k16`` bf16 x bf16 with float32 accumulators,
-one product where the float32 kernels make three TF32 ones), counted apart
-as ``flash_attention_{fwd,dq,dkv}_bf16``. The dtype flow is the JAX
+kernel, counted apart as ``flash_attention_{fwd,dq,dkv}_bf16``, with one
+bf16 x bf16 product and float32 accumulators where the float32 kernels make
+three TF32 ones. K4's and K5's are Hopper's tensor-core path: TMA loads
+into 128-byte-swizzled shared memory, an mbarrier ring and ``wgmma``
+(``csrc/flash_wg.cuh``, ``csrc/hopper.cuh``); K6's is ``mma.sync.m16n8k16``
+on ``cp.async`` tiles. TMA describes an operand by a tensor map, which needs
+a 16-byte-aligned base and strides that are multiples of 16 bytes:
+``tma_operand`` hands K4 and K5 each bf16 operand that ``tma_ready`` as it
+lies (the ViT's ``qkv`` views and the LM's, D = 64) and any other as a copy
+whose rows lie at D rounded up to 8 elements, zero beyond D, viewed back to
+D (the copy of a ``(B, T, H, 36)`` tensor, say). The kernels read D
+columns and take the scale ``1/sqrt(D)`` from that true D. The dtype flow is the JAX
 kernels' (:138, :291, :352-354, :391-394, :416-420): S = Q Kᵀ and
 dP = dO Vᵀ exact products summed in float32; the running max, the
 denominator, ``lse`` and ``di`` float32; ``out``, ``dq``, ``dk`` and ``dv``
@@ -66,7 +75,8 @@ counterpart of ``_plan``'s fallback to the jnp path for tiny or prime ``T``
 (:199-202), of the interpret/shard_map fallback (:260-266), or of the
 backward's ``lse is None`` branch (:513-519). ``q``, ``k`` and ``v`` may be
 strided views (the ViT's ``qkv`` split): the kernels take each tensor's
-batch, token and head strides and need only a unit stride on ``D``.
+batch, token and head strides and need only a unit stride on ``D`` (and,
+for bf16 K4 and K5, TMA's alignment, else ``tma_operand``'s copy).
 """
 
 from __future__ import annotations
@@ -251,6 +261,33 @@ def _strides(*tensors) -> ctypes.Array:
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
+def tma_ready(t: torch.Tensor) -> bool:
+    """Whether the bfloat16 K4 and K5, which load their operands by TMA, can
+    describe the ``(B, T, H, D)`` tensor ``t`` by a tensor map as it lies:
+    a 16-byte-aligned base; batch, token and head strides that are multiples
+    of 16 bytes (8 elements), the head stride the row of D values at least;
+    and those strides nested as a packed tensor's are (no two rows
+    overlapping). The ViT's ``qkv`` views and the LM's take it at D = 64."""
+    B, T, H, D = t.shape
+    sb, st, sh, sd = t.stride()
+    return (t.data_ptr() % 16 == 0 and sd == 1 and sb % 8 == 0 and st % 8 == 0
+            and sh % 8 == 0 and sh >= D and st >= H * sh and sb >= T * st)
+
+
+def tma_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when ``tma_ready``, else a copy with the same values and
+    shape whose rows lie at a stride of D rounded up to 8 elements, zero
+    beyond D (a contiguous ``(B, T, H, Dp)`` tensor, viewed back to D). The
+    kernel reads D columns, so it takes the true D, and the scale
+    ``1/sqrt(D)`` with it, from the view."""
+    if tma_ready(t):
+        return t
+    B, T, H, D = t.shape
+    padded = t.new_zeros((B, T, H, -(-D // 8) * 8))
+    padded[..., :D] = t
+    return padded[..., :D]
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
@@ -274,6 +311,8 @@ def flash_forward(q, k, v, kv_mask=None, causal: bool = False
     if q.device.type == "cpu":
         return forward_plain(q, k, v, kv_mask, causal)
     B, T, H, D = q.shape
+    if q.dtype == torch.bfloat16:
+        q, k, v = tma_operand(q), tma_operand(k), tma_operand(v)
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     _launch("tpu_ddp_flash_fwd", FWD, q.dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -323,6 +362,8 @@ def flash_dq(q, k, v, do, lse, di, kv_mask=None, causal: bool = False) -> torch.
     _rows(di, B, H, T, "flash_dq")
     if q.device.type == "cpu":
         return dq_plain(q, k, v, do, lse, di, kv_mask, causal)
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = tma_operand(q), tma_operand(k), tma_operand(v), tma_operand(do)
     dq = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     _launch("tpu_ddp_flash_dq", DQ, q.dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), di.data_ptr(), _ptr(kv_mask),
