@@ -236,23 +236,23 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     with the plain version, ``torch._fused_sgd_`` over the trainable leaves
     and the bound (a frozen element moves 12 bytes: read p, write p and u).
 
-20. bfloat16 compute and ``--remat`` (K4-K6's bfloat16 kernels: K4's and
-    K5's on TMA, an mbarrier ring and ``wgmma``, K6's ``mma.sync.m16n8k16``;
-    bf16 products with float32 accumulators). (a) Each kernel
+20. bfloat16 compute and ``--remat`` (K4-K6's bfloat16 kernels, on TMA, an
+    mbarrier ring and ``wgmma``; bf16 products with float32 accumulators). (a) Each kernel
     against its plain version in bfloat16 (the same dtype flow: p and ds
     rounded to bf16 for the second products; ``tpu_ddp_torch/ops/
     flash_attention.py``) at ViT-S/4's (32, 64, 3, 64) as qkv views, the
     same with a key mask that hides all of batch 1's keys (its rows: out 0,
     lse NEG, zero gradients, exactly), the LM-32k path's causal (4, 4096, 8,
     64) views, (8, 100, 4, 48), (3, 77, 2, 36) causal with dead rows (D not
-    a multiple of 8: K4 and K5 read a padded copy, ``tma_operand``) and
+    a multiple of 8: the kernels read a padded copy, ``tma_operand``) and
     (3, 200, 2, 128) causal with dead rows (D = 128, T not a multiple of
     the 128-row query tile): out, dq, dk and dv bfloat16 within
     ``BF16_ULPS`` = 2 bf16 units in the last place of each row's own largest
     value (a query row of out and dq, a key row of dk and dv; at least
     ``BF16_ROW_FLOOR`` of the tensor's largest: ``tools/variants.py``), lse
-    float32 within ``atol=2e-5``; a control that must fail that check (K4 on a v with a
-    key of every tile past 1,024 zeroed); each kernel's launch (registers,
+    float32 within ``atol=2e-5``; two controls that must fail that check (K4 on a v
+    with a key of every tile past 1,024 zeroed; K6 on a dO with a query of every
+    tile past 1,024 zeroed, in dk and in dv); each kernel's launch (registers,
     spill, shared memory, blocks an SM) at D = 64 and 128. (b) Timing at
     the LM and ViT shapes, as phase 9's: events and device time, the plain
     version, SDPA in bfloat16, and the bound: bf16 bytes over 3.35 TB/s
@@ -273,16 +273,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     (e) NetResDeep ``--compute-dtype bfloat16 --kernels`` through the CLI,
     20 steps under deterministic cuDNN, K1 once a step on the float32
     params; with ``--remat`` the losses, params and BatchNorm running
-    buffers bitwise the run without. (f) K4's and K5's bfloat16 kernels
-    against the parent commit's, built from a copy of its sources under
-    ``build/parent_csrc/`` (``flash_forward.cu``, ``flash_attention.cu``,
-    ``bf16_tiles.cuh``; ``git show <parent>:tpu_ddp_torch/ops/csrc/<file>``)
-    when that copy is there, in turns in one process (parent, this, this,
-    parent) at the LM-32k and ViT-S/4 shapes: CUDA events and device time,
-    and how many bf16 units of a row the two outputs lie apart; with the
-    host time of one tensor map's encode, which each call of the new K4 and
-    K5 makes once an operand. Without the copy the phase says so and is
-    skipped.
+    buffers bitwise the run without. (f) K4's, K5's and K6's bfloat16
+    kernels against the parent commit's, built from a copy of its sources
+    under ``build/parent_csrc/`` (``PARENT_FILES``: ``flash_forward.cu``,
+    ``flash_attention.cu`` and the headers ``bf16_tiles.cuh``,
+    ``flash_wg.cuh``, ``hopper.cuh``; ``git show
+    <parent>:tpu_ddp_torch/ops/csrc/<file>``) when that copy is there, in
+    turns in one process (parent, this, this, parent) at the LM-32k and
+    ViT-S/4 shapes: CUDA events and device time, K4's and K5's outputs
+    equal to the parent's to the bit (else the phase fails), and how many
+    bf16 units of a row K6's lie from the parent's; with the host time of
+    one tensor map's encode, which each call of K4-K6 makes once an operand.
+    Without the copy the phase says so and is skipped.
 
 The NetResDeep phases before 17 keep their sizes; the whole run takes nine
 to eleven minutes on the card, the build included. ``python3 chip_smoke.py
@@ -368,7 +370,7 @@ BF16_CASES = {
     "vit_s4_dead_batch": (32, 64, 3, 64, False, "dead_batch", True),
     "lm_causal": (4, 4096, 8, 64, True, None, True),
     "t100_d48": (8, 100, 4, 48, False, None, False),
-    # D not a multiple of 8: K4 and K5 read a padded copy (tma_operand)
+    # D not a multiple of 8: the kernels read a padded copy (tma_operand)
     "d36_t77_causal_dead": (3, 77, 2, 36, True, "dead", False),
     # D = 128 (two 64-column boxes a row), T not a multiple of 128
     "d128_t200_causal_dead": (3, 200, 2, 128, True, "dead", False),
@@ -1262,10 +1264,12 @@ def flash_timing_rows(case, iters, errors, counts, bf16=False):
                        + (" is_causal=True" if causal else "") + f", {q.dtype}",
             **dev,
         })
+        dev_share = ("" if dev["device_ms"] is None
+                     else f", {100 * b_ms / dev['device_ms']:.1f}% by device time")
         print(f"  {name + '[' + label + ']':36s} kernel {(k1 + k2) / 2:.5f} ms  "
               f"plain {(p1 + p2) / 2:.5f} ms  library {l_ms:.5f} ms  "
               f"bound {b_ms:.5f} ms ({b_by}; {200 * b_ms / (k1 + k2):.1f}% of it by "
-              f"events); device only: kernel "
+              f"events{dev_share}); device only: kernel "
               f"{dev['device_ms']}, plain {dev['plain_device_ms']}, "
               f"library {dev['library_device_ms']} ms", flush=True)
     k5, k6 = rows[-2], rows[-1]
@@ -2335,8 +2339,8 @@ def phase_quant_timing(quant_err, runs):
     from tpu_ddp_torch.parallel.compression import dequantize_chunk, quantize_chunk
 
     print("phase 13: K2/K3 timing (CUDA events, ms per step of the listed calls; "
-          "no single PyTorch call computes either function, so no library time)",
-          flush=True)
+          "no single PyTorch call quantizes block-scaled int8 or dequantizes into a "
+          "ring's sums, so only the bare dequantize has a library time)", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(13)
     launches = runs["int8"][0]["launches"]
     n = 2
@@ -2380,12 +2384,25 @@ def phase_quant_timing(quant_err, runs):
             lambda: big_acc + dequantize_chunk(payload, "int8", QUANT_BLOCK, LARGE),
             1, "dequant_add", [LARGE], 1, "one 2^24 chunk"),
     }
+    # the bare 2^24 dequantize's one PyTorch call: int8 times float32
+    # promotes to float32, q * scale a block (its size is whole blocks)
+    nb = LARGE // QUANT_BLOCK
+    library = {"fused_dequant[2^24]": (
+        lambda: torch.mul(payload["q"].view(nb, QUANT_BLOCK), payload["scale"][:, None]),
+        "torch.mul(q.view(nb, block), scale[:, None]), int8 x float32")}
+    lib_fn = library["fused_dequant[2^24]"][0]
+    print(f"  torch.mul against K3 on the 2^24 chunk: equal to the bit "
+          f"{bool(torch.equal(lib_fn().view(-1), fused_dequant(payload, QUANT_BLOCK, LARGE)))}",
+          flush=True)
     rows = []
     for name, (kernel, plain, calls, kind, sizes, n_rows, shapes) in cases.items():
         iters = 50 if name.endswith("[2^24]") else 500
         k1, p1 = time_ms(kernel, iters), time_ms(plain, iters)
         p2, k2 = time_ms(plain, iters), time_ms(kernel, iters)
         dev_k, dev_p = device_ms(kernel, 20), device_ms(plain, 20)
+        lib = library.get(name)
+        l_ms = (time_ms(lib[0], iters) + time_ms(lib[0], iters)) / 2 if lib else None
+        l_dev = device_ms(lib[0], 20) if lib else None
         b_ms, b_by = quant_bound(sizes, QUANT_BLOCK, kind, n_rows)
         base = name.split("[")[0]
         entry = ops.KERNELS[base]
@@ -2395,16 +2412,19 @@ def phase_quant_timing(quant_err, runs):
             "replaces": entry["replaces"], "launches": launches[base],
             "max_abs_err": quant_err, "ms": (k1 + k2) / 2 * calls,
             "plain_ms": (p1 + p2) / 2 * calls, "bound_ms": b_ms * calls,
-            "bound_by": b_by, "library_ms": None,
-            "library": "none: no single PyTorch call quantizes or dequantizes "
-                       "block-scaled int8",
+            "bound_by": b_by, "library_ms": scale(l_ms),
+            "library": lib[1] if lib else
+            "none: no single PyTorch call quantizes block-scaled int8 or dequantizes "
+            "into a ring's running sums",
             "shapes": f"{shapes}, block {QUANT_BLOCK}",
             "device_ms": scale(dev_k), "plain_device_ms": scale(dev_p),
+            "library_device_ms": scale(l_dev),
         }
         rows.append(row)
         print(f"  {name:28s} x{calls}: kernel {row['ms']:.5f} ms  plain "
-              f"{row['plain_ms']:.5f} ms  bound {row['bound_ms']:.6f} ms (bytes); device "
-              f"only: kernel {row['device_ms']}, plain {row['plain_device_ms']} ms "
+              f"{row['plain_ms']:.5f} ms  library {row['library_ms']} ms  bound "
+              f"{row['bound_ms']:.6f} ms (bytes); device only: kernel {row['device_ms']}, "
+              f"plain {row['plain_device_ms']}, library {row['library_device_ms']} ms "
               f"({shapes})", flush=True)
     return rows
 
@@ -3084,6 +3104,33 @@ def bf16_row_control(fa, q, k, v, want_out):
     return [] if flagged else ["the per-row check passes a K4 that drops keys"]
 
 
+def bf16_dkv_control(fa, q, k, v, do, lse, di, want_dk, want_dv):
+    """Phase 20a's negative control for K6 at the LM's causal shape: K6 on a
+    dO whose last query row of every 64-query tile past position 1,024 is 0,
+    against the plain version on the true dO; the per-row check must reject
+    both dk and dv. Returns the failures."""
+    import torch
+
+    from tpu_ddp_torch.tools.variants import bf16_row_units
+
+    do_bad = do.clone()
+    do_bad[:, 1024 + 63::64] = 0
+    dk, dv = fa.flash_dkv(q, k, v, do_bad, lse, di, None, True)
+    flagged, worst = {}, {}
+    for name, got, want in (("dk", dk, want_dk), ("dv", dv, want_dv)):
+        units = bf16_row_units(got, want)
+        flagged[name] = int((units > BF16_ULPS).any(-1).sum())
+        worst[name] = float(units.max())
+    print(f"  control, K6 on lm_causal with the last query of every tile past 1,024 dropped "
+          f"from dO: worst row dk {worst['dk']:.3g} / dv {worst['dv']:.3g} units; rows beyond "
+          f"{BF16_ULPS}: dk {flagged['dk']}, dv {flagged['dv']} of {dk[..., 0].numel()}",
+          flush=True)
+    del do_bad, dk, dv
+    torch.cuda.empty_cache()
+    return ([] if all(flagged.values())
+            else ["the per-row check passes a K6 whose dO drops queries"])
+
+
 def phase_bf16_vs_plain():
     """Phase 20a: K4-K6's bfloat16 kernels against their plain versions in
     bfloat16 at ``BF16_CASES``: out, dq, dk and dv within ``BF16_ULPS`` of
@@ -3144,6 +3191,7 @@ def phase_bf16_vs_plain():
               flush=True)
         if case == "lm_causal":
             failed += bf16_row_control(fa, q, k, v, want_out)
+            failed += bf16_dkv_control(fa, q, k, v, do, want_lse, di, want_dk, want_dv)
         del q, k, v, do, want_out, want_lse, want_dq, want_dk, want_dv
     torch.cuda.empty_cache()
     if failed:
@@ -3389,14 +3437,17 @@ def phase_bf16_timing(errors, counts):
     return rows
 
 
-#: phase 20f: case -> timed iterations, for K4 and K5 against the parent's
+#: phase 20f: case -> timed iterations, for K4-K6 against the parent's
 BF16_PARENT_TIMED = {"lm_causal": 20, "vit_s4": 200}
 PARENT_DIR = os.path.join(ROOT, "build", "parent_csrc")
+#: the parent's sources phase 20f builds: the two libraries and their headers
+PARENT_FILES = ("flash_forward.cu", "flash_attention.cu", "bf16_tiles.cuh", "flash_wg.cuh",
+                "hopper.cuh")
 
 
 def tma_encode_us(t, rows, n=2000):
     """Host microseconds of one ``cuTensorMapEncodeTiled`` (the driver's,
-    through ctypes) of the bf16 (B, T, H, D) tensor ``t`` as K4 and K5
+    through ctypes) of the bf16 (B, T, H, D) tensor ``t`` as K4-K6
     encode each operand on each call (``csrc/hopper.cuh``): 4-D, boxes of
     64 columns by ``rows`` tokens, 128-byte swizzle. None if the driver
     refuses it."""
@@ -3423,9 +3474,11 @@ def tma_encode_us(t, rows, n=2000):
 
 
 def phase_bf16_against_parent():
-    """Phase 20f: K4's and K5's bfloat16 kernels against the parent commit's
-    (``build/parent_csrc/``), in turns: {case: {kernel: {"this"|"parent":
-    {"ms": [...], "device_ms": [...]}}}}, or None without the copy."""
+    """Phase 20f: K4's, K5's and K6's bfloat16 kernels against the parent
+    commit's (``build/parent_csrc/``), in turns: {case: {kernel:
+    {"this"|"parent": {"ms": [...], "device_ms": [...]}}}}, or None without
+    the copy. K4's and K5's outputs must equal the parent's to the bit;
+    K6's are reported in bf16 units of each row from the parent's."""
     import torch
 
     from tpu_ddp_torch.ops import _build
@@ -3433,13 +3486,12 @@ def phase_bf16_against_parent():
     from tpu_ddp_torch.tools import k4_variants, k56_variants, variants
     from tpu_ddp_torch.tools.variants import bf16_row_units
 
-    files = ("flash_forward.cu", "flash_attention.cu", "bf16_tiles.cuh")
-    if not all(os.path.isfile(os.path.join(PARENT_DIR, f)) for f in files):
+    if not all(os.path.isfile(os.path.join(PARENT_DIR, f)) for f in PARENT_FILES):
         print(f"phase 20f: no copy of the parent's sources under {PARENT_DIR} (git show "
               "<parent>:tpu_ddp_torch/ops/csrc/<file> for "
-              f"{', '.join(files)}); skipped", flush=True)
+              f"{', '.join(PARENT_FILES)}); skipped", flush=True)
         return None
-    print("phase 20f: K4/K5 bfloat16 against the parent's (in turns parent, this, this, "
+    print("phase 20f: K4/K5/K6 bfloat16 against the parent's (in turns parent, this, this, "
           "parent; ms a call by CUDA events and device time)", flush=True)
     libs = {
         "flash_forward": {
@@ -3451,7 +3503,7 @@ def phase_bf16_against_parent():
             **variants.build("flash_attention", {}, {
                 "parent": (os.path.join(PARENT_DIR, "flash_attention.cu"), ())})},
     }
-    results = {}
+    results, failed = {}, []
     for case, iters in BF16_PARENT_TIMED.items():
         q, k, v, do, _, causal = flash_inputs(case, seed=2, bf16=True)
         out, lse = fa.forward_plain(q, k, v, causal=causal)
@@ -3461,13 +3513,20 @@ def phase_bf16_against_parent():
                    for n, lib in libs["flash_forward"].items()},
             "K5": {n: (lambda lib=lib: k56_variants.dq(lib, q, k, v, do, lse, di, causal))
                    for n, lib in libs["flash_attention"].items()},
+            "K6": {n: (lambda lib=lib: k56_variants.dkv(lib, q, k, v, do, lse, di, causal))
+                   for n, lib in libs["flash_attention"].items()},
         }
         results[case] = {}
         for kernel, fns in calls.items():
             got = {n: fn() for n, fn in fns.items()}
+            pairs = list(zip(*(x if isinstance(x, tuple) else (x,) for x in
+                               (got["this"], got["parent"]))))
             # each is held to the plain version elsewhere (phase 20a, the
-            # parent in its own run): here only how far apart the two are
-            units = float(bf16_row_units(got["this"], got["parent"]).max())
+            # parent in its own run): here how far apart the two are
+            same = all(bool(torch.equal(a, b)) for a, b in pairs)
+            units = max(float(bf16_row_units(a, b).max()) for a, b in pairs)
+            if kernel != "K6" and not same:
+                failed.append(f"{kernel}[{case}] differs from the parent's ({units:.3g} units)")
             row = {n: {"ms": [], "device_ms": []} for n in fns}
             for n in ("parent", "this", "this", "parent"):
                 row[n]["ms"].append(time_ms(fns[n], iters))
@@ -3475,15 +3534,17 @@ def phase_bf16_against_parent():
             results[case][kernel] = row
             mean = {n: sum(r["ms"]) / 2 for n, r in row.items()}
             if kernel == "K4":
-                print(f"  one tensor map's encode on the host (K4 makes 3 a call, K5 4): "
+                print(f"  one tensor map's encode on the host (K4 makes 3 a call, K5 4, K6 6): "
                       f"{tma_encode_us(q, 128)} us", flush=True)
             print(f"  {kernel}[bf16,{case}] {tuple(q.shape)} causal={causal}: this "
                   f"{row['this']['ms']} ms (device {row['this']['device_ms']}); parent "
                   f"{row['parent']['ms']} ms (device {row['parent']['device_ms']}); "
-                  f"parent / this {mean['parent'] / mean['this']:.3f} by events; the two "
-                  f"within {units:.3g} bf16 units of each row", flush=True)
+                  f"parent / this {mean['parent'] / mean['this']:.3f} by events; equal to "
+                  f"the bit {same}, within {units:.3g} bf16 units of each row", flush=True)
         del q, k, v, do, out, lse, di
     torch.cuda.empty_cache()
+    if failed:
+        fail("phase 20f: " + "; ".join(failed))
     return results
 
 

@@ -339,7 +339,7 @@ def test_flash_kernels_match_plain(cuda, case):
 #: the bfloat16 kernels' cases: ViT-S/4's shape (qkv views), with dead rows
 #: under a key mask, the LM's causal views at T = 1,024 and at the LM-32k
 #: path's (4, 4096, 8, 64), an odd T with D = 48 (zero-filled columns),
-#: D = 36 (K4 and K5 read a padded copy), D = 128 at T = 130 and, causal
+#: D = 36 (the kernels read a padded copy), D = 128 at T = 130 and, causal
 #: with dead rows, at T = 200 (T not a multiple of the 128-row query tile),
 #: and one token
 BF16_CASES = {
@@ -444,9 +444,9 @@ def test_bf16_flash_backward_is_bitwise_repeatable(cuda):
 
 
 def test_bf16_launch_info(cuda):
-    """The bfloat16 kernels' resources: K4 and K5 two warpgroups (256
-    threads) over a 128-row query tile and 64-key tiles, K6 128 threads; no
-    spill at D = 64."""
+    """The bfloat16 kernels' resources: two warpgroups (256 threads) each,
+    K4 and K5 over a 128-row query tile and 64-key tiles, K6 over 128 keys
+    and 64-query tiles; no spill at D = 64."""
     from tpu_ddp_torch.ops import flash_attention as fa
 
     k4 = fa.forward_launch_info(64, torch.bfloat16)
@@ -454,7 +454,8 @@ def test_bf16_launch_info(cuda):
     for info in (k4, k5):
         assert info["threads"] == 256, info
         assert (info["query_rows"], info["key_rows"]) == (128, 64), info
-    assert k6["threads"] == 128, k6
+    assert k6["threads"] == 256, k6
+    assert (k6["query_rows"], k6["key_rows"]) == (64, 128), k6
     for info in (k4, k5, k6):
         assert info["spill_bytes"] == 0, info
         assert info["blocks_per_sm"] >= 1, info

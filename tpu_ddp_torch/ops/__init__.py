@@ -59,8 +59,8 @@ KERNELS = {
         "strategies": ("dp",),
     },
     # their bfloat16 kernels (bf16 q, k, v and dO: the JAX kernels under
-    # --compute-dtype bfloat16), in the same sources: K4's and K5's on TMA,
-    # an mbarrier ring and wgmma (csrc/flash_wg.cuh), K6's on mma.sync
+    # --compute-dtype bfloat16), in the same sources, all three on TMA, an
+    # mbarrier ring and wgmma (csrc/flash_wg.cuh)
     "flash_attention_fwd_bf16": {
         "wrapper": "tpu_ddp_torch.ops.flash_attention:flash_forward",
         "plain": "tpu_ddp_torch.ops.flash_attention:forward_plain",

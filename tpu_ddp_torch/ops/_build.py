@@ -59,8 +59,8 @@ LIBRARIES = {
         **_ERR,
     }),
     # K5 and K6, held to a tolerance: nvcc's default contraction into FMAs;
-    # their __launch_bounds__ (128 threads, two blocks an SM; K5's bfloat16
-    # kernel, on TMA and wgmma as K4's, 256 threads, one) allow up to 255
+    # their __launch_bounds__ (128 threads, two blocks an SM; their bfloat16
+    # kernels, on TMA and wgmma as K4's, 256 threads, one) allow up to 255
     # registers a thread
     "flash_attention": ("flash_attention.cu", (), {
         "tpu_ddp_flash_dq": (_I, [_P] * 9 + [_I] * 5 + [_P]),

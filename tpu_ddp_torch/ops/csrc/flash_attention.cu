@@ -103,7 +103,6 @@ struct ArgsT {
   float scale;
 };
 using Args = ArgsT<float>;
-using ArgsB = ArgsT<Bf16>;
 
 constexpr int kBM = 64;        // rows a block owns: queries (K5), keys (K6)
 constexpr int kThreads = 128;  // four warps of 16 rows
@@ -620,7 +619,7 @@ __global__ void __launch_bounds__(flash_wg::kThreads, 1)
   const int wg = threadIdx.x / fw::kWG;
   const int tid = threadIdx.x % fw::kWG, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int r0 = w.q0 + 64 * wg;  // the warpgroup's first row
+  const int r0 = w.row0 + 64 * wg;  // the warpgroup's first row
   const int row_lo = r0 + 16 * warp + g, row_hi = row_lo + 8;
   const float scale2 = a.scale * kLog2e;
   const float* mask_b = a.mask ? a.mask + static_cast<long long>(w.b) * a.T : nullptr;
@@ -712,140 +711,168 @@ __global__ void __launch_bounds__(flash_wg::kThreads, 1)
   bf16_tiles::store_rows(a.out, a.vout, w.b, w.h, row_lo, a.T, a.D, t, dq);
 }
 
-// K6 for bfloat16 inputs (replaces _dkv_kernel on bf16 q, k, v and dO). The
-// float32 kernel's layout, tiles and visibility; the products are single
-// bf16 ones with float32 accumulators (m16n8k16): S^T and dP^T exactly the
-// Pallas kernel's jnp.dot(..., preferred_element_type=f32) up to the order
-// of the sum; p and ds are rounded to bf16 for P^T dO and dS^T Q
-// (ops/flash_attention.py: design (a)), their accumulator fragments packed
-// into the A fragment of those products. Tiles are bf16 rows of kD + 8
-// (bf16_tiles.cuh); the resident tiles' and the B operands of X^T are 32-bit
-// fragment loads, the B operands of X itself (dO and Q) one
-// ldmatrix.x4.trans for two output tiles. dk and dv are rounded to bf16
-// (nearest even).
-template <int kD, int kBN>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) flash_dkv_bf16_kernel(ArgsB a) {
-  constexpr int kLd = kD + 8, kNT = kBN / 8, kDT = kD / 8, kKT = kD / 16;
-  extern __shared__ float4 smem4[];
-  Bf16* Ks = reinterpret_cast<Bf16*>(smem4);
-  Bf16* Vs = Ks + kBM * kLd;
-  Bf16* Qs = Vs + kBM * kLd;  // [2][kBN][kLd]
-  Bf16* dOs = Qs + 2 * kBN * kLd;
-  float* Ls = reinterpret_cast<float*>(dOs + 2 * kBN * kLd);  // [2][kBN]: lse
-  float* Ds = Ls + 2 * kBN;                                   // [2][kBN]: di
+// K6 for bfloat16 inputs (replaces _dkv_kernel on bf16 q, k, v and dO), on
+// Hopper's tensor-core path: TMA, an mbarrier ring and wgmma, in the
+// skeleton K4's and K5's share (flash_wg.cuh) with the roles of the resident
+// and streamed tiles swapped.
+//
+// What bounds it: its four products, 8 T^2 D bf16 operations a (b, h)
+// (under causal over the T(T + 1)/2 visible pairs), at 989 TFLOP/s; at the
+// ViT's 64 tokens one tile's latency. The mma.sync design before it (128
+// threads, each warp's 16 keys, K's and V's fragments reloaded from shared
+// memory for every query tile, cp.async tiles) reached 18.3% of that bound
+// at the LM's shape. Here:
+// - a block owns 128 keys of one (b, h), 64 to each warpgroup; K and V are
+//   loaded once, and Q and dO tiles of 64 queries stream through the ring
+//   with those queries' lse and di (TMA loads of the (B H, T) float32 rows
+//   into the same stage); under causal the query tiles start at the block's
+//   first key, and the grid starts the first key tiles, which the most
+//   queries see;
+// - S^T = K Q^T and dP^T = V dO^T are wgmma with both operands in shared
+//   memory, issued together (the warpgroup's 64 keys are the M rows);
+//   p^T = 2^(s^T scale log2(e) - lse log2(e)) is formed in S^T's
+//   accumulator registers, a column's lse read from the stage (invisible
+//   entries 0 by selection, without branches: two live-key flags a thread,
+//   a query test a column), and ds^T = p^T (dp^T - di) scale in dP^T's;
+//   both are rounded to bf16 (design (a)) and handed as A fragments to
+//   dV += P^T dO and dK += dS^T Q, issued together, with dO and Q read
+//   transposed (MN-major) from the same stage;
+// - the tensor cores overlap one warpgroup's products with the other's
+//   p^T and ds^T; a thread holds S^T, dP^T, dK, dV and the A fragments,
+//   32 + 32 + 32 + 32 + 32 registers at D = 64 (176 in all, no spill);
+// - dk and dv are written once, rounded to bf16 (nearest even), by the
+//   warpgroup that owns their keys: no atomics, so a call's bits do not
+//   change from run to run.
+// 256 threads, one block an SM. Measured no faster at the LM's shape
+// (PERF.md): tile j + 1's S^T and dP^T issued before tile j's p^T into a
+// second pair of accumulators, as K5 does; dV, dK of tile j issued back to
+// back with S^T, dP^T of tile j + 1 (ptxas serializes the wgmma); lse and
+// di copied by each warpgroup instead of riding in the stage. dV issued
+// before ds^T is formed, S^T waited for alone (p^T formed while dP^T
+// runs), 3 or 6 stages: tools/k56_variants.py.
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int tiles = (a.T + kBM - 1) / kBM;
-  const int bh = blockIdx.x / tiles, b = bh / a.H, h = bh % a.H;
-  const int k0 = blockIdx.x % tiles * kBM;
-  const int warp_first = k0 + 16 * warp;
-  const int key_lo = warp_first + g, key_hi = key_lo + 8;
+// K6's p^T of one query tile for a warp's 16 keys (key_lo = its row g,
+// key_hi = g + 8), in accumulator layout (query q0 + 8n + 2t + (e & 1)):
+// s = S^T becomes p^T = 2^(s scale log2(e) - lse log2(e)) with the tile's
+// kBN values of lse, rounded to bf16 into the A fragments pa. A tile seen
+// whole (kWhole) has no invisible score; otherwise one (flash_wg::visible_kv)
+// gets p = 0 by selection. Both forms are branch-free over the scores.
+template <bool kWhole, int kNT>
+__device__ __forceinline__ void p_tile(float (&s)[kNT][4], uint32_t (&pa)[kNT / 2][4],
+                                       const float* lse, bool live_lo, bool live_hi, int q0,
+                                       int T, bool causal, int key_lo, int key_hi, int t,
+                                       float scale2) {
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+    const float2 l = *reinterpret_cast<const float2*>(lse + 8 * n + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = ex2(fmaf(s[n][e], scale2, -((e & 1 ? l.y : l.x) * kLog2e)));
+      s[n][e] = kWhole || flash_wg::visible_kv(live_lo, live_hi, n, e, q0, t, T, causal,
+                                               key_lo, key_hi)
+                    ? p
+                    : 0.0f;
+    }
+  }
+  flash_wg::to_a(s, pa);
+}
+
+// ds^T = p^T (dp - di) scale from p = P^T and dp = dP^T with the tile's kBN
+// values of di, rounded to bf16 into the A fragments sa (an invisible entry's
+// p is 0, so its ds is too)
+template <int kNT>
+__device__ __forceinline__ void ds_tile_kv(const float (&p)[kNT][4], float (&dp)[kNT][4],
+                                           uint32_t (&sa)[kNT / 2][4], const float* di, int t,
+                                           float scale) {
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+    const float2 d = *reinterpret_cast<const float2*>(di + 8 * n + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dp[n][e] = p[n][e] * (dp[n][e] - (e & 1 ? d.y : d.x)) * scale;
+  }
+  flash_wg::to_a(dp, sa);
+}
+
+template <int kD, int kStages>
+__global__ void __launch_bounds__(flash_wg::kThreads, 1)
+    flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const __grid_constant__ CUtensorMap tlse,
+                          const __grid_constant__ CUtensorMap tdi, flash_wg::Args a) {
+  namespace fw = flash_wg;
+  using L = fw::Smem<kD, 2, kStages, 2>;
+  constexpr int kBN = fw::kBN, kNT = fw::kNT, kDT = kD / 8;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ fw::Sync<kStages> sy;
+  uint8_t* smem = fw::align1024(smem_raw);
+  const fw::Work w = fw::block_work_kv(a);
+  const fw::Ring<kD, 2, kStages, 2> ring{sy, smem, &tq, &tdo, w, {&tlse, &tdi}};
+  fw::init_barriers(sy);
+  if (threadIdx.x == 0) {
+    const CUtensorMap* res[2] = {&tk, &tv};
+    ring.start(res);
+  }
+  const int wg = threadIdx.x / fw::kWG;
+  const int tid = threadIdx.x % fw::kWG, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = w.row0 + 64 * wg;  // the warpgroup's first key
+  const int rw = r0 + 16 * warp;    // the warp's
+  const int key_lo = rw + g, key_hi = key_lo + 8;
   const float scale2 = a.scale * kLog2e;
-  const float* mask_b = a.mask ? a.mask + static_cast<long long>(b) * a.T : nullptr;
+  const float* mask_b = a.mask ? a.mask + static_cast<long long>(w.b) * a.T : nullptr;
   const bool live_lo = key_lo < a.T && (mask_b == nullptr || mask_b[key_lo] > 0.0f);
   const bool live_hi = key_hi < a.T && (mask_b == nullptr || mask_b[key_hi] > 0.0f);
-  const float* lse_bh = a.lse_in + static_cast<long long>(bh) * a.T;
-  const float* di_bh = a.di + static_cast<long long>(bh) * a.T;
+  const uint64_t kd = hopper::desc_sw128(smem + wg * 64 * 128);
+  const uint64_t vd = hopper::desc_sw128(smem + L::kResBytes + wg * 64 * 128);
+  const int n_tiles = w.n_tiles, j0 = fw::first_tile_kv(w, a, r0);
 
-  const int q_begin = a.causal ? k0 : 0;
-  auto load_q = [&](int j, int stage) {
-    const int q0 = q_begin + j * kBN;
-    bf16_tiles::load_tile<kD, kBN, kThreads>(Qs + stage * kBN * kLd, a.q, a.vq, b, h, q0,
-                                             a.T, a.D, a.vec);
-    bf16_tiles::load_tile<kD, kBN, kThreads>(dOs + stage * kBN * kLd, a.dout, a.vdo, b, h,
-                                             q0, a.T, a.D, a.vec);
-    load_vec(Ls + stage * kBN, lse_bh, q0, kBN, a.T);
-    load_vec(Ds + stage * kBN, di_bh, q0, kBN, a.T);
-  };
-
-  const int n_tiles = (a.T - q_begin + kBN - 1) / kBN;
-  bf16_tiles::load_tile<kD, kBM, kThreads>(Ks, a.k, a.vk, b, h, k0, a.T, a.D, a.vec);
-  bf16_tiles::load_tile<kD, kBM, kThreads>(Vs, a.v, a.vv, b, h, k0, a.T, a.D, a.vec);
-  load_q(0, 0);
-  cp_async_commit();
-
-  float dk[kDT][4], dv[kDT][4];
+  // sc, dp: a tile's S^T and dP^T (p^T, ds^T in place)
+  float dk[kDT][4], dv[kDT][4], sc[kNT][4], dp[kNT][4];
+  uint32_t pa[kNT / 2][4], sa[kNT / 2][4];  // P^T's and dS^T's A fragments, bf16
 #pragma unroll
   for (int n = 0; n < kDT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.0f;
-  const Bf16* Kw = Ks + (16 * warp + g) * kLd + 2 * t;
-  const Bf16* Vw = Vs + (16 * warp + g) * kLd + 2 * t;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    cp_async_wait_all();
-    __syncthreads();  // tile j is in; every warp is done with tile j - 1
-    if (j + 1 < n_tiles) load_q(j + 1, (j + 1) & 1);
-    cp_async_commit();
-    const int q0 = q_begin + j * kBN;
-    if (a.causal && q0 + kBN - 1 < warp_first) continue;
-    const Bf16* Qt = Qs + (j & 1) * kBN * kLd;
-    const Bf16* dOt = dOs + (j & 1) * kBN * kLd;
-    const float* Lt = Ls + (j & 1) * kBN;
-    const float* Dt = Ds + (j & 1) * kBN;
-
-    // S^T = K Q^T and dP^T = V dO^T
-    float p[kNT][4], ds[kNT][4];  // S^T, then P^T; dP^T, then dS^T
-#pragma unroll
-    for (int n = 0; n < kNT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) p[n][e] = ds[n][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < kKT; ++kk) {
-      uint32_t ka[4], va[4];
-      bf16_tiles::frag_a<kLd>(Kw + 16 * kk, ka);
-      bf16_tiles::frag_a<kLd>(Vw + 16 * kk, va);
-#pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-        const Bf16* Qr = Qt + (8 * n + g) * kLd + 16 * kk + 2 * t;
-        const Bf16* dOr = dOt + (8 * n + g) * kLd + 16 * kk + 2 * t;
-        bf16_tiles::mma(p[n], ka, bf16_tiles::ld32(Qr), bf16_tiles::ld32(Qr + 8));
-        bf16_tiles::mma(ds[n], va, bf16_tiles::ld32(dOr), bf16_tiles::ld32(dOr + 8));
-      }
-    }
-
-    // P^T and dS^T, as the float32 kernel forms them
-    const bool whole = mask_b == nullptr && q0 + kBN <= a.T && warp_first + 16 <= a.T &&
-                       (!a.causal || warp_first + 15 <= q0);
-#pragma unroll
-    for (int n = 0; n < kNT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 8 * n + 2 * t + (e & 1);
-        float pe = ex2(fmaf(p[n][e], scale2, -(Lt[c] * kLog2e)));
-        if (!whole) {
-          const int row = q0 + c;
-          const bool live = (e < 2 ? live_lo : live_hi) && row < a.T &&
-                            (!a.causal || (e < 2 ? key_lo : key_hi) <= row);
-          pe = live ? pe : 0.0f;
-        }
-        p[n][e] = pe;
-        ds[n][e] = pe * (ds[n][e] - Dt[c]) * a.scale;
-      }
-    }
-
-    // dV += P^T dO and dK += dS^T Q over 16 queries at a time
-#pragma unroll
-    for (int m = 0; m < kNT / 2; ++m) {
-      uint32_t pa[4], sa[4];
-      bf16_tiles::acc_to_a(p[2 * m], p[2 * m + 1], pa);
-      bf16_tiles::acc_to_a(ds[2 * m], ds[2 * m + 1], sa);
-#pragma unroll
-      for (int dn = 0; dn < kDT; dn += 2) {
-        uint32_t ob[4], qb[4];
-        bf16_tiles::frag_b_trans2<kLd>(dOt + 16 * m * kLd + 8 * dn, lane, ob);
-        bf16_tiles::frag_b_trans2<kLd>(Qt + 16 * m * kLd + 8 * dn, lane, qb);
-        bf16_tiles::mma(dv[dn], pa, ob[0], ob[1]);
-        bf16_tiles::mma(dk[dn], sa, qb[0], qb[1]);
-        bf16_tiles::mma(dv[dn + 1], pa, ob[2], ob[3]);
-        bf16_tiles::mma(dk[dn + 1], sa, qb[2], qb[3]);
-      }
-    }
+  hopper::mbar_wait(&sy.res, 0);
+  // the tiles none of the warpgroup's keys is seen by: taken and given back
+  for (int j = 0; j < j0; ++j) {
+    ring.wait(j);
+    ring.release(j, lane);
   }
-  cp_async_wait_all();  // the last (empty) group
-  bf16_tiles::store_rows(a.dk, a.vdk, b, h, key_lo, a.T, a.D, t, dk);
-  bf16_tiles::store_rows(a.dv, a.vdv, b, h, key_lo, a.T, a.D, t, dv);
+  for (int j = j0; j < n_tiles; ++j) {
+    const uint64_t qdesc = hopper::desc_sw128(ring.stage(j));
+    const uint64_t dodesc = hopper::desc_sw128(ring.stage(j) + L::kTileBytes);
+    ring.wait(j);
+    hopper::wgmma_fence();
+    fw::issue_abt<kD>(&sc[0][0], kd, qdesc);   // S^T = K Q^T
+    fw::issue_abt<kD>(&dp[0][0], vd, dodesc);  // dP^T = V dO^T
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs<4 * kNT>(&sc[0][0]);
+    hopper::fence_regs<4 * kNT>(&dp[0][0]);
+    // a tile the warp sees whole (no key mask, no key or query past T, under
+    // causal no key of the warp after the tile's first query) needs no
+    // visibility
+    const int q0 = w.s0 + j * kBN;
+    const float* vt = ring.vec(j);  // lse, then di
+    if (mask_b == nullptr && rw + 16 <= a.T && q0 + kBN <= a.T && (!a.causal || rw + 15 <= q0))
+      p_tile<true>(sc, pa, vt, live_lo, live_hi, q0, a.T, a.causal, key_lo, key_hi, t, scale2);
+    else
+      p_tile<false>(sc, pa, vt, live_lo, live_hi, q0, a.T, a.causal, key_lo, key_hi, t, scale2);
+    ds_tile_kv(sc, dp, sa, vt + kBN, t, a.scale);
+    hopper::wgmma_fence();
+    fw::issue_px<kD>(&dv[0][0], pa, dodesc);  // dV += P^T dO
+    fw::issue_px<kD>(&dk[0][0], sa, qdesc);   // dK += dS^T Q
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs<4 * kDT>(&dk[0][0]);
+    hopper::fence_regs<4 * kDT>(&dv[0][0]);
+    ring.release(j, lane);
+  }
+  bf16_tiles::store_rows(a.out, a.vout, w.b, w.h, key_lo, a.T, a.D, t, dk);
+  bf16_tiles::store_rows(a.out2, a.vout2, w.b, w.h, key_lo, a.T, a.D, t, dv);
 }
 
 enum Which { kDq = 0, kDkv = 1 };
@@ -857,19 +884,9 @@ struct Launch {
   int query_rows, key_rows;  // rows of a block's query and key tiles
 };
 
-// Shared memory of a bf16 K6 block: the resident tiles and the ring as
-// bf16 rows of kD + 8, and kVecs per-row float vectors of the streamed tile
-// in two stages.
-template <int kD, int kBN, int kVecs>
-constexpr size_t smem_bf16() {
-  return sizeof(Bf16) * (2 * kBM + 4 * kBN) * (kD + 8) + sizeof(float) * 2 * kVecs * kBN;
-}
-
-// The kernel for head dim D: float32, the 64-wide tiles with 32-row
-// streamed tiles, or the 128-wide ones with 16-row streamed tiles (the ring
-// and the registers at D = 128, two blocks an SM); bfloat16 (K6 only: K5's
-// is dq_bf16's), 64-row streamed tiles at D <= 64 and 32-row ones at
-// D = 128.
+// The kernel for head dim D: the 64-wide tiles with 32-row streamed tiles,
+// or the 128-wide ones with 16-row streamed tiles (the ring and the
+// registers at D = 128, two blocks an SM).
 Launch<Args> pick(Which w, const Args& a) {
   if (w == kDq)
     return a.D <= 64
@@ -878,13 +895,6 @@ Launch<Args> pick(Which w, const Args& a) {
   return a.D <= 64
              ? Launch<Args>{flash_dkv_kernel<64, 32>, smem_bytes<64, 32, 2>(), 32, kBM}
              : Launch<Args>{flash_dkv_kernel<128, 16>, smem_bytes<128, 16, 2>(), 16, kBM};
-}
-
-Launch<ArgsB> pick(Which, const ArgsB& a) {
-  return a.D <= 64 ? Launch<ArgsB>{flash_dkv_bf16_kernel<64, 64>, smem_bf16<64, 64, 2>(),
-                                   64, kBM}
-                   : Launch<ArgsB>{flash_dkv_bf16_kernel<128, 32>, smem_bf16<128, 32, 2>(),
-                                   32, kBM};
 }
 
 // above 48 KB, dynamic shared memory needs the kernel's opt-in; the carveout
@@ -902,17 +912,11 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 bool strides4(const View& v) { return v.sb % 4 == 0 && v.st % 4 == 0 && v.sh % 4 == 0; }
 
-// 16-byte copies of q, k, v and dO rows: 4 floats, or 8 bf16, at a time
+// 16-byte copies of q, k, v and dO rows: 4 floats at a time
 bool vec_copies(const Args& a) {
   return a.D % 4 == 0 && aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
          aligned16(a.dout) && strides4(a.vq) && strides4(a.vk) && strides4(a.vv) &&
          strides4(a.vdo);
-}
-
-bool vec_copies(const ArgsB& a) {
-  const void* ptrs[] = {a.q, a.k, a.v, a.dout};
-  const View views[] = {a.vq, a.vk, a.vv, a.vdo};
-  return bf16_tiles::vec_ok(a.D, ptrs, views, 4);
 }
 
 template <typename A>
@@ -997,15 +1001,23 @@ int launch_info(int which, int D, int* out) {
   return static_cast<int>(err);
 }
 
-// ---- K5 bfloat16: the host side of a TMA launch ----
+// ---- K5's and K6's bfloat16 kernels: the host side of a TMA launch ----
 
-// K/V stages of the ring: a warpgroup holds two (dS K of tile j, S and dP
+// K/V stages of K5's ring: a warpgroup holds two (dS K of tile j, S and dP
 // of tile j + 1), and the loads of the next ones run meanwhile
 constexpr int kDqStages = 4;
+// Q/dO stages of K6's ring, likewise
+constexpr int kDkvStages = 4;
 
 // a wgmma kernel and its dynamic shared memory a block
 struct LaunchW {
   void (*kernel)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, flash_wg::Args);
+  int smem;
+};
+
+struct LaunchKv {
+  void (*kernel)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap,
+                 flash_wg::Args);
   int smem;
 };
 
@@ -1016,13 +1028,37 @@ LaunchW pick_dq_bf16(int D) {
                            Smem<128, 2, kDqStages>::kDynamic};
 }
 
-cudaError_t prepare_bf16(const LaunchW& l) {
+LaunchKv pick_dkv_bf16(int D) {
+  using flash_wg::Smem;
+  return D <= 64 ? LaunchKv{flash_dkv_bf16_kernel<64, kDkvStages>,
+                            Smem<64, 2, kDkvStages, 2>::kDynamic}
+                 : LaunchKv{flash_dkv_bf16_kernel<128, kDkvStages>,
+                            Smem<128, 2, kDkvStages, 2>::kDynamic};
+}
+
+template <typename L>
+cudaError_t prepare_bf16(const L& l) {
   return cudaFuncSetAttribute(l.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.smem);
 }
 
+// The fields both kernels' Args share; the scale is 1/sqrt(D) of the true D.
+flash_wg::Args args_bf16(const float* lse, const float* di, const float* mask, int B, int T,
+                         int H, int D, int causal) {
+  flash_wg::Args a{};
+  a.mask = mask;
+  a.lse_in = lse;
+  a.di = di;
+  a.B = B;
+  a.T = T;
+  a.H = H;
+  a.D = D;
+  a.causal = causal != 0;
+  a.scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
+  return a;
+}
+
 // One tensor map a call for each of q, dO, k and v (ops/flash_attention.py
-// hands over operands TMA takes as they lie, or aligned copies); the scale
-// is 1/sqrt(D) of the true D.
+// hands over operands TMA takes as they lie, or aligned copies).
 int dq_bf16(const Bf16* q, const Bf16* k, const Bf16* v, const Bf16* dout, const float* lse,
             const float* di, const float* mask, Bf16* dq_out, const long long* strides, int B,
             int T, int H, int D, int causal, void* stream) {
@@ -1036,18 +1072,9 @@ int dq_bf16(const Bf16* q, const Bf16* k, const Bf16* v, const Bf16* dout, const
       !hopper_host::encode_bf16(&tv, v, s[6], s[7], s[8], B, T, H, D, flash_wg::kBN) ||
       !hopper_host::encode_bf16(&tdo, dout, s[9], s[10], s[11], B, T, H, D, flash_wg::kBM))
     return static_cast<int>(cudaErrorInvalidValue);
-  flash_wg::Args a{};
-  a.mask = mask;
-  a.lse_in = lse;
-  a.di = di;
+  flash_wg::Args a = args_bf16(lse, di, mask, B, T, H, D, causal);
   a.out = dq_out;
   a.vout = View{s[12], s[13], s[14]};
-  a.B = B;
-  a.T = T;
-  a.H = H;
-  a.D = D;
-  a.causal = causal != 0;
-  a.scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
   const cudaError_t err = prepare_bf16(l);
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks = B * H * ((T + flash_wg::kBM - 1) / flash_wg::kBM);
@@ -1056,9 +1083,41 @@ int dq_bf16(const Bf16* q, const Bf16* k, const Bf16* v, const Bf16* dout, const
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_info_dq_bf16(int D, int* out) {
-  if (D < 1 || D > 128) return static_cast<int>(cudaErrorInvalidValue);
-  const LaunchW l = pick_dq_bf16(D);
+// One tensor map a call for each of k, v, q and dO, and for lse and di,
+// whose rows lie at a stride of T rounded up to 4 (TMA's 16 bytes; the
+// wrapper pads them where T is not a multiple of 4).
+int dkv_bf16(const Bf16* q, const Bf16* k, const Bf16* v, const Bf16* dout, const float* lse,
+             const float* di, const float* mask, Bf16* dk, Bf16* dv, const long long* strides,
+             int B, int T, int H, int D, int causal, void* stream) {
+  if (D < 1 || D > 128 || B < 1 || H < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (T < 1) return 0;
+  const LaunchKv l = pick_dkv_bf16(D);
+  const long long* s = strides;  // (B, T, H) strides of q, k, v, dO, dk and dv
+  const long long ld = (T + 3) / 4 * 4;
+  CUtensorMap tk, tv, tq, tdo, tlse, tdi;
+  if (!hopper_host::encode_bf16(&tk, k, s[3], s[4], s[5], B, T, H, D, flash_wg::kBM) ||
+      !hopper_host::encode_bf16(&tv, v, s[6], s[7], s[8], B, T, H, D, flash_wg::kBM) ||
+      !hopper_host::encode_bf16(&tq, q, s[0], s[1], s[2], B, T, H, D, flash_wg::kBN) ||
+      !hopper_host::encode_bf16(&tdo, dout, s[9], s[10], s[11], B, T, H, D, flash_wg::kBN) ||
+      !hopper_host::encode_f32_rows(&tlse, lse, B * H, T, ld, flash_wg::kBN) ||
+      !hopper_host::encode_f32_rows(&tdi, di, B * H, T, ld, flash_wg::kBN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  flash_wg::Args a = args_bf16(lse, di, mask, B, T, H, D, causal);
+  a.out = dk;
+  a.vout = View{s[12], s[13], s[14]};
+  a.out2 = dv;
+  a.vout2 = View{s[15], s[16], s[17]};
+  const cudaError_t err = prepare_bf16(l);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned blocks = B * H * ((T + flash_wg::kBM - 1) / flash_wg::kBM);
+  l.kernel<<<blocks, flash_wg::kThreads, l.smem, static_cast<cudaStream_t>(stream)>>>(
+      tk, tv, tq, tdo, tlse, tdi, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// launch_info's values for a wgmma kernel with query_rows and key_rows a block
+template <typename L>
+int info_bf16(const L& l, int query_rows, int key_rows, int* out) {
   cudaError_t err = prepare_bf16(l);
   cudaFuncAttributes attr{};
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, l.kernel);
@@ -1066,10 +1125,17 @@ int launch_info_dq_bf16(int D, int* out) {
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, l.kernel, flash_wg::kThreads,
                                                         l.smem);
-  const int vals[] = {flash_wg::kBM, flash_wg::kBN, flash_wg::kThreads, attr.numRegs,
+  const int vals[] = {query_rows, key_rows, flash_wg::kThreads, attr.numRegs,
                       static_cast<int>(attr.localSizeBytes), l.smem, per_sm};
   for (int i = 0; i < 7; ++i) out[i] = vals[i];
   return static_cast<int>(err);
+}
+
+int launch_info_bf16(int which, int D, int* out) {
+  if (D < 1 || D > 128 || (which != kDq && which != kDkv))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return which == kDq ? info_bf16(pick_dq_bf16(D), flash_wg::kBM, flash_wg::kBN, out)
+                      : info_bf16(pick_dkv_bf16(D), flash_wg::kBN, flash_wg::kBM, out);
 }
 
 }  // namespace
@@ -1079,9 +1145,10 @@ extern "C" {
 // Each entry point returns cudaGetLastError() after its launch (0 on
 // success), or the error of setting the kernel's attributes. strides holds
 // the (B, T, H) element strides of each (B, T, H, D) tensor argument, in
-// argument order; lse and di are contiguous (B, H, T) float32; mask is
-// contiguous (B, T) float32, or null. The _bf16 entry points take bfloat16
-// (B, T, H, D) tensors.
+// argument order; lse and di are contiguous (B, H, T) float32 (for
+// tpu_ddp_flash_dkv_bf16 rows at a stride of T rounded up to 4, the same
+// where T is a multiple of 4); mask is contiguous (B, T) float32, or null.
+// The _bf16 entry points take bfloat16 (B, T, H, D) tensors.
 
 int tpu_ddp_flash_dq(const float* q, const float* k, const float* v,
                      const float* dout, const float* lse, const float* di,
@@ -1110,7 +1177,7 @@ int tpu_ddp_flash_dkv_bf16(const Bf16* q, const Bf16* k, const Bf16* v,
                            const float* mask, Bf16* dk, Bf16* dv,
                            const long long* strides, int B, int T, int H, int D,
                            int causal, void* stream) {
-  return dkv(q, k, v, dout, lse, di, mask, dk, dv, strides, B, T, H, D, causal, stream);
+  return dkv_bf16(q, k, v, dout, lse, di, mask, dk, dv, strides, B, T, H, D, causal, stream);
 }
 
 // The launch configuration of K5 (which = 0) or K6 (which = 1) for head dim
@@ -1120,7 +1187,7 @@ int tpu_ddp_flash_bwd_info(int which, int D, int* out) {
 }
 
 int tpu_ddp_flash_bwd_info_bf16(int which, int D, int* out) {
-  return which == kDq ? launch_info_dq_bf16(D, out) : launch_info<Bf16>(which, D, out);
+  return launch_info_bf16(which, D, out);
 }
 
 const char* tpu_ddp_cuda_error_string(int code) {

@@ -546,7 +546,7 @@ __global__ void __launch_bounds__(flash_wg::kThreads, 1)
   const int wg = threadIdx.x / fw::kWG;
   const int tid = threadIdx.x % fw::kWG, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int r0 = w.q0 + 64 * wg;  // the warpgroup's first row
+  const int r0 = w.row0 + 64 * wg;  // the warpgroup's first row
   const int row_lo = r0 + 16 * warp + g, row_hi = row_lo + 8;
   const float scale2 = a.scale * kLog2e;
   const float* mask_b = a.mask ? a.mask + static_cast<long long>(w.b) * a.T : nullptr;

@@ -1,13 +1,15 @@
-// The skeleton that K4's and K5's bfloat16 kernels share (flash_forward.cu,
-// flash_attention.cu): a block of two warpgroups over one (b, h) and a
-// 128-row query tile, 64 rows each.
+// The skeleton that K4's, K5's and K6's bfloat16 kernels share
+// (flash_forward.cu, flash_attention.cu): a block of two warpgroups over one
+// (b, h) and a 128-row resident tile, 64 rows each.
 //
-// - The block's resident tiles (K4: Q; K5: Q and dO) are loaded once by
-//   TMA; the key tiles (K and V, kBN = 64 rows each) stream through a ring of
-//   kStages stages. Each stage has a "full" mbarrier, which its TMA loads
-//   complete, and a count of the warps done with it: the last of the eight
-//   to finish a tile issues the loads of the tile kStages on into the same
-//   stage, from its own lane 0. Thread 0 issues the first kStages.
+// - The block's resident tiles (K4: Q; K5: Q and dO; K6: K and V) are
+//   loaded once by TMA; the streamed tiles (K4, K5: K and V; K6: Q and dO;
+//   kBN = 64 rows each) go through a ring of kStages stages, with K6's
+//   per-query lse and di riding in the same stage. Each stage has a "full"
+//   mbarrier, which its TMA loads complete, and a count of the warps done
+//   with it: the last of the eight to finish a tile issues the loads of the
+//   tile kStages on into the same stage, from its own lane 0. Thread 0
+//   issues the first kStages.
 // - No warp is given to the loads alone: two warpgroups (256 threads) and
 //   one block an SM let ptxas give each thread up to 255 registers, where a
 //   third, producer warpgroup caps every thread at 168 (and so does a lone
@@ -25,12 +27,14 @@
 //   64-column boxes, each on a 1024-byte boundary. A tile reaching past T or
 //   D arrives zero-filled, so the products need no bound checks; the row
 //   and key tests are the warpgroups' own (T = 1 to any T, D <= 128).
-// - The key mask's floats do not ride in the ring: a warpgroup copies its
+// - K4's and K5's key mask does not ride in the ring: a warpgroup copies its
 //   tile's kBN floats (zero past T) into a buffer of its own, one of three,
-//   behind one named barrier of its warpgroup.
-// - Under causal the grid starts the heaviest query tiles (the last of each
-//   head) first, all heads' together; otherwise a head's tiles are adjacent,
-//   so that they share K and V in L2.
+//   behind one named barrier of its warpgroup. K6's mask is per resident
+//   key, two flags a thread.
+// - Under causal the grid starts the heaviest blocks first, all heads'
+//   together: K4's and K5's last query tiles, which see the most keys, and
+//   K6's first key tiles, which the most queries see; otherwise a head's
+//   tiles are adjacent, so that they share the streamed tiles in L2.
 
 #pragma once
 
@@ -55,25 +59,30 @@ struct Args {
   const float* mask;    // (B, T), or null
   const float* lse_in;  // K5: the forward's (B, H, T) row log-sum-exp
   const float* di;      // K5: (B, H, T) rowsum(dO * O)
-  Bf16* out;            // K4's out, K5's dq: (B, T, H, D) through vout
+  Bf16* out;            // K4's out, K5's dq, K6's dk: (B, T, H, D) through vout
   float* lse;           // K4: (B, H, T)
   View vout;
+  Bf16* out2;           // K6's dv, through vout2
+  View vout2;
   int B, T, H, D;
   bool causal;
   float scale;
 };
 
-// Shared memory: kRes resident (kBM, kD) tiles, then kStages stages of a K
-// and a V (kBN, kD) tile; each tile is kD / 64 boxes of 64 columns.
-template <int kD, int kRes, int kStages>
+// Shared memory: kRes resident (kBM, kD) tiles, then kStages stages of two
+// streamed (kBN, kD) tiles, each tile kD / 64 boxes of 64 columns; then, for
+// each stage, kVecs float vectors of the streamed tile's kBN rows.
+template <int kD, int kRes, int kStages, int kVecs = 0>
 struct Smem {
   static constexpr int kBoxes = kD / 64;
   static constexpr int kResBytes = kBM * kD * 2;
   static constexpr int kTileBytes = kBN * kD * 2;
   static constexpr int kStageBytes = 2 * kTileBytes;
-  // dynamic shared memory a block: the tiles and the slack that rounds the
-  // base up to 1024 bytes
-  static constexpr int kDynamic = kRes * kResBytes + kStages * kStageBytes + 1024;
+  static constexpr int kVecBytes = kVecs * kBN * 4;
+  // dynamic shared memory a block: the tiles, the vectors and the slack that
+  // rounds the base up to 1024 bytes
+  static constexpr int kDynamic =
+      kRes * kResBytes + kStages * (kStageBytes + kVecBytes) + 1024;
 };
 
 // the barriers, the ring's counts, and each warpgroup's key-mask tiles
@@ -86,7 +95,10 @@ struct Sync {
 };
 
 struct Work {
-  int b, h, bh, q0, n_tiles;  // the block's head, first query row, key tiles
+  int b, h, bh;
+  int row0;     // the first resident row: a query (K4, K5), a key (K6)
+  int s0;       // the first streamed row
+  int n_tiles;  // streamed tiles
 };
 
 __device__ __forceinline__ Work block_work(const Args& a) {
@@ -94,15 +106,35 @@ __device__ __forceinline__ Work block_work(const Args& a) {
   Work w;
   if (a.causal) {  // the last query tiles see the most keys: start them first
     w.bh = blockIdx.x % heads;
-    w.q0 = (tiles - 1 - static_cast<int>(blockIdx.x) / heads) * kBM;
+    w.row0 = (tiles - 1 - static_cast<int>(blockIdx.x) / heads) * kBM;
   } else {
     w.bh = blockIdx.x / tiles;
-    w.q0 = blockIdx.x % tiles * kBM;
+    w.row0 = blockIdx.x % tiles * kBM;
   }
   w.b = w.bh / a.H;
   w.h = w.bh % a.H;
-  const int kv_end = a.causal ? min(a.T, w.q0 + kBM) : a.T;
+  w.s0 = 0;
+  const int kv_end = a.causal ? min(a.T, w.row0 + kBM) : a.T;
   w.n_tiles = (kv_end + kBN - 1) / kBN;
+  return w;
+}
+
+// K6's block: 128 keys of one (b, h), and the query tiles from s0 on, under
+// causal from its first key (the queries before it see none of its keys)
+__device__ __forceinline__ Work block_work_kv(const Args& a) {
+  const int tiles = (a.T + kBM - 1) / kBM, heads = a.B * a.H;
+  Work w;
+  if (a.causal) {  // the first key tiles are seen by the most queries: start them first
+    w.bh = blockIdx.x % heads;
+    w.row0 = static_cast<int>(blockIdx.x) / heads * kBM;
+  } else {
+    w.bh = blockIdx.x / tiles;
+    w.row0 = blockIdx.x % tiles * kBM;
+  }
+  w.b = w.bh / a.H;
+  w.h = w.bh % a.H;
+  w.s0 = a.causal ? w.row0 : 0;
+  w.n_tiles = (a.T - w.s0 + kBN - 1) / kBN;
   return w;
 }
 
@@ -112,6 +144,14 @@ __device__ __forceinline__ Work block_work(const Args& a) {
 __device__ __forceinline__ int active_tiles(const Work& w, const Args& a, int r0) {
   if (r0 >= a.T) return 0;
   return a.causal ? min(w.n_tiles, (r0 + 63) / kBN + 1) : w.n_tiles;
+}
+
+// K6: the first of the query tiles that some key of the warpgroup from key
+// r0 on is seen by (n_tiles if none: its keys lie past T); under causal the
+// skipped tiles are the first ones, whose queries all come before r0.
+__device__ __forceinline__ int first_tile_kv(const Work& w, const Args& a, int r0) {
+  if (r0 >= a.T) return w.n_tiles;
+  return a.causal ? (r0 - w.s0) / kBN : 0;
 }
 
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
@@ -132,35 +172,51 @@ __device__ __forceinline__ void init_barriers(Sync<kStages>& sy) {
   __syncthreads();
 }
 
-// The block's loads: the resident tiles (kRes tensor maps, rows q0 of the
-// block) and key tiles 0 .. n_tiles - 1 of maps tk and tv through the ring.
-template <int kD, int kRes, int kStages>
+// The block's loads: the resident tiles (kRes tensor maps, rows row0 of the
+// block) and streamed tiles 0 .. n_tiles - 1 (rows s0 + j kBN on) of maps ta
+// and tb through the ring, with the same rows of the kVecs (B H, T) float32
+// vectors of maps vecs (K6: lse and di).
+template <int kD, int kRes, int kStages, int kVecs = 0>
 struct Ring {
-  using L = Smem<kD, kRes, kStages>;
+  using L = Smem<kD, kRes, kStages, kVecs>;
   Sync<kStages>& sy;
-  uint8_t* smem;  // the resident tiles, then the stages
-  const CUtensorMap *tk, *tv;
+  uint8_t* smem;  // the resident tiles, then the stages, then the vectors
+  const CUtensorMap *ta, *tb;  // K4, K5: K and V; K6: Q and dO
   Work w;
+  const CUtensorMap* vecs[2] = {};  // kVecs <= 2 of them
 
   __device__ __forceinline__ uint8_t* stage(int j) const {
     return smem + kRes * L::kResBytes + (j % kStages) * L::kStageBytes;
   }
 
-  // key tile j (K, then V) into its stage, completing its full barrier
+  // streamed tile j's vectors, one after another
+  __device__ __forceinline__ float* vec(int j) const {
+    return reinterpret_cast<float*>(smem + kRes * L::kResBytes + kStages * L::kStageBytes +
+                                    (j % kStages) * L::kVecBytes);
+  }
+
+  // streamed tile j (ta's, then tb's, then the vectors) into its stage,
+  // completing its full barrier
   __device__ __forceinline__ void load(int j) const {
     uint64_t* full = &sy.full[j % kStages];
     uint8_t* kt = stage(j);
-    hopper::mbar_expect_tx(full, L::kStageBytes);
+    const int row = w.s0 + j * kBN;
+    hopper::mbar_expect_tx(full, L::kStageBytes + L::kVecBytes);
 #pragma unroll
     for (int x = 0; x < L::kBoxes; ++x) {
-      hopper::tma_load_4d(kt + x * kBN * 128, tk, full, 64 * x, w.h, j * kBN, w.b);
-      hopper::tma_load_4d(kt + L::kTileBytes + x * kBN * 128, tv, full, 64 * x, w.h, j * kBN,
+      hopper::tma_load_4d(kt + x * kBN * 128, ta, full, 64 * x, w.h, row, w.b);
+      hopper::tma_load_4d(kt + L::kTileBytes + x * kBN * 128, tb, full, 64 * x, w.h, row,
                           w.b);
+    }
+    if constexpr (kVecs > 0) {
+      float* v = vec(j);
+#pragma unroll
+      for (int i = 0; i < kVecs; ++i) hopper::tma_load_2d(v + i * kBN, vecs[i], full, row, w.bh);
     }
   }
 
   // thread 0, once the barriers are set: the resident tiles and the first
-  // kStages key tiles
+  // kStages streamed tiles
   __device__ __forceinline__ void start(const CUtensorMap* const (&res)[kRes]) const {
     hopper::mbar_expect_tx(&sy.res, kRes * L::kResBytes);
 #pragma unroll
@@ -168,7 +224,7 @@ struct Ring {
 #pragma unroll
       for (int x = 0; x < L::kBoxes; ++x)
         hopper::tma_load_4d(smem + r * L::kResBytes + x * kBM * 128, res[r], &sy.res, 64 * x,
-                            w.h, w.q0, w.b);
+                            w.h, w.row0, w.b);
     for (int j = 0; j < kStages && j < w.n_tiles; ++j) load(j);
   }
 
@@ -230,9 +286,19 @@ __device__ __forceinline__ bool visible(uint32_t keys, int n, int e, int k0, int
   return key & (!causal | (col <= (e < 2 ? row_lo : row_hi)));
 }
 
-// acc (the warpgroup's 64 rows by kBN keys, float32) = A B^T over kD
-// columns, issued and not waited for: a the descriptor of a resident tile's
-// box 0 at the warpgroup's rows, b that of a streamed tile.
+// K6's form, the roles flipped (rows are keys, columns queries): whether
+// score e of n-tile n of a tile from query q0 on is visible: its key row
+// (key_lo for e < 2, key_hi else) is live (exists, not masked), its query is
+// below T and, under causal, not before the key
+__device__ __forceinline__ bool visible_kv(bool live_lo, bool live_hi, int n, int e, int q0,
+                                           int t, int T, bool causal, int key_lo, int key_hi) {
+  const int q = q0 + 8 * n + 2 * t + (e & 1);
+  return (e < 2 ? live_lo : live_hi) & (q < T) & (!causal | ((e < 2 ? key_lo : key_hi) <= q));
+}
+
+// acc (the warpgroup's 64 rows by kBN streamed rows, float32) = A B^T over
+// kD columns, issued and not waited for: a the descriptor of a resident
+// tile's box 0 at the warpgroup's rows, b that of a streamed tile.
 template <int kD>
 __device__ __forceinline__ void issue_abt(float* acc, uint64_t a, uint64_t b) {
 #pragma unroll

@@ -1,4 +1,4 @@
-// Hopper (sm_90a) building blocks of K4's and K5's bfloat16 kernels
+// Hopper (sm_90a) building blocks of K4's, K5's and K6's bfloat16 kernels
 // (flash_forward.cu, flash_attention.cu), in inline PTX: the mbarrier, TMA
 // tensor loads, named barriers, the wgmma shared-memory descriptor and
 // wgmma itself; on the host, the encoding of a TMA tensor map.
@@ -99,6 +99,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// The box at coordinates (c0, c1) of a 2-D tensor map into shared memory
+// at dst, as tma_load_4d
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -244,6 +255,24 @@ inline bool encode_bf16(CUtensorMap* map, const void* ptr, long long sb, long lo
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The tensor map of `rows` float32 rows of n values at ptr, row r at
+// ptr + r * stride (stride a multiple of 4 elements: TMA's 16 bytes), as
+// boxes of `cols` values of one row, not swizzled; reads past n are
+// zero-filled. Returns false if the encode fails.
+inline bool encode_f32_rows(CUtensorMap* map, const float* ptr, int rows, int n,
+                            long long stride, int cols) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(stride) * 4};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(cols), 1};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(ptr), dims, strides,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_NONE,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -37,16 +37,20 @@ float32 or bfloat16, as in the JAX package.
 **bfloat16.** q, k, v (and dO) in bfloat16 take each kernel's bfloat16
 kernel, counted apart as ``flash_attention_{fwd,dq,dkv}_bf16``, with one
 bf16 x bf16 product and float32 accumulators where the float32 kernels make
-three TF32 ones. K4's and K5's are Hopper's tensor-core path: TMA loads
-into 128-byte-swizzled shared memory, an mbarrier ring and ``wgmma``
-(``csrc/flash_wg.cuh``, ``csrc/hopper.cuh``); K6's is ``mma.sync.m16n8k16``
-on ``cp.async`` tiles. TMA describes an operand by a tensor map, which needs
-a 16-byte-aligned base and strides that are multiples of 16 bytes:
-``tma_operand`` hands K4 and K5 each bf16 operand that ``tma_ready`` as it
-lies (the ViT's ``qkv`` views and the LM's, D = 64) and any other as a copy
-whose rows lie at D rounded up to 8 elements, zero beyond D, viewed back to
-D (the copy of a ``(B, T, H, 36)`` tensor, say). The kernels read D
-columns and take the scale ``1/sqrt(D)`` from that true D. The dtype flow is the JAX
+three TF32 ones. All three are Hopper's tensor-core path: TMA loads into
+128-byte-swizzled shared memory, an mbarrier ring and ``wgmma``
+(``csrc/flash_wg.cuh``, ``csrc/hopper.cuh``), K4 and K5 with the query rows
+resident and the key tiles streamed, K6 the other way, with each query
+tile's ``lse`` and ``di`` in the same ring stage. TMA describes an operand
+by a tensor map, which needs a 16-byte-aligned base and strides that are
+multiples of 16 bytes: ``tma_operand`` hands the kernels each bf16 operand
+that ``tma_ready`` as it lies (the ViT's ``qkv`` views and the LM's,
+D = 64) and any other as a copy whose rows lie at D rounded up to 8
+elements, zero beyond D, viewed back to D (the copy of a ``(B, T, H, 36)``
+tensor, say); ``tma_rows`` hands K6 ``lse`` and ``di`` as they lie where T
+is a multiple of 4 (the LM's and the ViT's) and otherwise as a copy whose
+rows lie at T rounded up to 4, zero beyond T. The kernels read D columns
+and take the scale ``1/sqrt(D)`` from that true D. The dtype flow is the JAX
 kernels' (:138, :291, :352-354, :391-394, :416-420): S = Q Kᵀ and
 dP = dO Vᵀ exact products summed in float32; the running max, the
 denominator, ``lse`` and ``di`` float32; ``out``, ``dq``, ``dk`` and ``dv``
@@ -76,7 +80,7 @@ counterpart of ``_plan``'s fallback to the jnp path for tiny or prime ``T``
 backward's ``lse is None`` branch (:513-519). ``q``, ``k`` and ``v`` may be
 strided views (the ViT's ``qkv`` split): the kernels take each tensor's
 batch, token and head strides and need only a unit stride on ``D`` (and,
-for bf16 K4 and K5, TMA's alignment, else ``tma_operand``'s copy).
+for the bf16 kernels, TMA's alignment, else ``tma_operand``'s copy).
 """
 
 from __future__ import annotations
@@ -262,7 +266,7 @@ def _strides(*tensors) -> ctypes.Array:
 
 
 def tma_ready(t: torch.Tensor) -> bool:
-    """Whether the bfloat16 K4 and K5, which load their operands by TMA, can
+    """Whether the bfloat16 K4-K6, which load their operands by TMA, can
     describe the ``(B, T, H, D)`` tensor ``t`` by a tensor map as it lies:
     a 16-byte-aligned base; batch, token and head strides that are multiples
     of 16 bytes (8 elements), the head stride the row of D values at least;
@@ -286,6 +290,19 @@ def tma_operand(t: torch.Tensor) -> torch.Tensor:
     padded = t.new_zeros((B, T, H, -(-D // 8) * 8))
     padded[..., :D] = t
     return padded[..., :D]
+
+
+def tma_rows(t: torch.Tensor) -> torch.Tensor:
+    """The contiguous ``(B, H, T)`` float32 row statistics ``t`` (``lse`` or
+    ``di``) as the bfloat16 K6 reads them by TMA, rows at a stride of T
+    rounded up to 4 (16 bytes): ``t`` itself where T is a multiple of 4,
+    else a copy with the same values, zero beyond T, viewed back to T."""
+    B, H, T = t.shape
+    if T % 4 == 0:
+        return t
+    padded = t.new_zeros((B, H, -(-T // 4) * 4))
+    padded[..., :T] = t
+    return padded[..., :T]
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -381,6 +398,9 @@ def flash_dkv(q, k, v, do, lse, di, kv_mask=None, causal: bool = False
     _rows(di, B, H, T, "flash_dkv")
     if q.device.type == "cpu":
         return dkv_plain(q, k, v, do, lse, di, kv_mask, causal)
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = tma_operand(q), tma_operand(k), tma_operand(v), tma_operand(do)
+        lse, di = tma_rows(lse), tma_rows(di)
     dk = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     dv = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     _launch("tpu_ddp_flash_dkv", DKV, q.dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -14,11 +14,17 @@ textual change, built with the library's own nvcc flags
 * ``kg2``: the output n-tiles of dQ, dV and dK two at a time, not four;
 * ``dq_rows64_d64``: K5 at D <= 64 with 64-key streamed tiles, not 32.
 
-bfloat16 (K5's wgmma kernel and K6's mma.sync one, ``--dtype bfloat16``):
+bfloat16 (K5's and K6's wgmma kernels, ``--dtype bfloat16``):
 
 * ``built``: the source as it is;
 * ``stages3``: three K/V stages in K5's ring, not four;
-* ``stages6_d64``: six K/V stages in K5's ring at D <= 64, not four.
+* ``stages6_d64``: six K/V stages in K5's ring at D <= 64, not four;
+* ``dkv_split_wait``: K6 waiting for S^T alone and forming p^T while dP^T
+  runs, not for both;
+* ``dkv_early_dv``: K6 issuing dV += P^T dO before it forms ds^T, not with
+  dK;
+* ``dkv_stages3``, ``dkv_stages6``: three or six Q/dO stages in K6's ring,
+  not four (six at D = 64 only: D = 128's do not fit).
 
 ``--baseline`` adds another source with the same C entry points (an earlier
 ``flash_attention.cu``, say; for the parent commit's, ``git show
@@ -34,8 +40,10 @@ and each kernel's device time (``torch.profiler``, microseconds a call, two
 readings in turns). float32: at the ViT-S/4 path's (32, 64, 3, 64), at
 (4, 2048, 8, 128) and at (4, 2048, 8, 64). bfloat16: at the LM-32k path's
 (4, 4096, 8, 64) causal and the ViT-S/4 path's (32, 64, 3, 64), q, k and v
-views of one qkv product, with each kernel's CUDA-event time beside. The
-last line is one JSON object with these numbers.
+views of one qkv product, each kernel timed alone, with its CUDA-event time
+beside, and each variant's outputs in bf16 units of each row from the first
+variant's (``units_vs_first``). The last line is one JSON object with these
+numbers.
 """
 
 from __future__ import annotations
@@ -66,6 +74,26 @@ VARIANTS_BF16 = {
     "stages3": [("constexpr int kDqStages = 4;", "constexpr int kDqStages = 3;")],
     "stages6_d64": [("LaunchW{flash_dq_bf16_kernel<64, kDqStages>, Smem<64, 2, kDqStages>",
                      "LaunchW{flash_dq_bf16_kernel<64, 6>, Smem<64, 2, 6>")],
+    "dkv_split_wait": [
+        ("    fw::issue_abt<kD>(&sc[0][0], kd, qdesc);   // S^T = K Q^T\n"
+         "    fw::issue_abt<kD>(&dp[0][0], vd, dodesc);  // dP^T = V dO^T\n"
+         "    hopper::wgmma_commit();\n    hopper::wgmma_wait<0>();\n"
+         "    hopper::fence_regs<4 * kNT>(&sc[0][0]);\n"
+         "    hopper::fence_regs<4 * kNT>(&dp[0][0]);\n",
+         "    fw::issue_abt<kD>(&sc[0][0], kd, qdesc);\n    hopper::wgmma_commit();\n"
+         "    fw::issue_abt<kD>(&dp[0][0], vd, dodesc);\n    hopper::wgmma_commit();\n"
+         "    hopper::wgmma_wait<1>();\n    hopper::fence_regs<4 * kNT>(&sc[0][0]);\n"),
+        ("    ds_tile_kv(sc, dp, sa, vt + kBN, t, a.scale);\n",
+         "    hopper::wgmma_wait<0>();\n    hopper::fence_regs<4 * kNT>(&dp[0][0]);\n"
+         "    ds_tile_kv(sc, dp, sa, vt + kBN, t, a.scale);\n")],
+    "dkv_early_dv": [
+        ("    ds_tile_kv(sc, dp, sa, vt + kBN, t, a.scale);\n    hopper::wgmma_fence();\n"
+         "    fw::issue_px<kD>(&dv[0][0], pa, dodesc);  // dV += P^T dO\n",
+         "    hopper::wgmma_fence();\n    fw::issue_px<kD>(&dv[0][0], pa, dodesc);\n"
+         "    hopper::wgmma_commit();\n"
+         "    ds_tile_kv(sc, dp, sa, vt + kBN, t, a.scale);\n    hopper::wgmma_fence();\n")],
+    "dkv_stages3": [("constexpr int kDkvStages = 4;", "constexpr int kDkvStages = 3;")],
+    "dkv_stages6": [("constexpr int kDkvStages = 4;", "constexpr int kDkvStages = 6;")],
 }
 #: name -> (B, T, H, D, timed calls)
 SHAPES = {
@@ -116,24 +144,35 @@ def dq(lib, q, k, v, do, lse, di, causal=False):
     return out
 
 
-def backward(lib, q, k, v, do, lse, di, causal=False):
-    """K5 and K6 of ``lib``: (dq, dk, dv); the bfloat16 entry points for
-    bfloat16 inputs."""
+def dkv(lib, q, k, v, do, lse, di, causal=False):
+    """K6 of ``lib``: (dk, dv); the bfloat16 entry point for bfloat16
+    inputs, through the wrapper's operand plan."""
     B, T, H, D = q.shape
     dk, dv = (torch.empty((B, T, H, D), device=q.device, dtype=q.dtype) for _ in range(2))
-    fn = lib.tpu_ddp_flash_dkv_bf16 if q.dtype == torch.bfloat16 else lib.tpu_ddp_flash_dkv
+    bf16 = q.dtype == torch.bfloat16
+    fn = lib.tpu_ddp_flash_dkv_bf16 if bf16 else lib.tpu_ddp_flash_dkv
+    if bf16:
+        q, k, v, do = (fa.tma_operand(x) for x in (q, k, v, do))
+        lse, di = fa.tma_rows(lse), fa.tma_rows(di)
     rc = fn(*[x.data_ptr() for x in (q, k, v, do, lse, di)], None, dk.data_ptr(),
             dv.data_ptr(), fa._strides(q, k, v, do, dk, dv), B, T, H, D, int(causal),
             torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"K6 launch: CUDA error {rc}")
-    return dq(lib, q, k, v, do, lse, di, causal), dk, dv
+    return dk, dv
+
+
+def backward(lib, q, k, v, do, lse, di, causal=False):
+    """K5 and K6 of ``lib``: (dq, dk, dv)."""
+    return (dq(lib, q, k, v, do, lse, di, causal), *dkv(lib, q, k, v, do, lse, di, causal))
 
 
 def _main_bf16(libs, gen, result) -> dict:
-    """The bfloat16 kernels at ``SHAPES_BF16``: errors, device and event
-    times in turns."""
+    """The bfloat16 kernels at ``SHAPES_BF16``: errors, each kernel's device
+    and event times alone in turns, and each variant's outputs in bf16 units
+    from the first variant's."""
     bad = {}
+    first = next(iter(libs))
     for shape, (B, T, H, D, causal, iters) in SHAPES_BF16.items():
         qkv = torch.randn((B, T, 3 * H * D), generator=gen, device="cuda").to(torch.bfloat16)
         q, k, v = (x.reshape(B, T, H, D) for x in qkv.split(H * D, dim=-1))
@@ -142,25 +181,34 @@ def _main_bf16(libs, gen, result) -> dict:
         di = fa.row_dot(do, out)
         want = (fa.dq_plain(q, k, v, do, lse, di, causal=causal),
                 *fa.dkv_plain(q, k, v, do, lse, di, causal=causal))
+        outs = {}
         for name, lib in libs.items():
-            got = backward(lib, q, k, v, do, lse, di, causal)
+            outs[name] = got = backward(lib, q, k, v, do, lse, di, causal)
             err = max(float(variants.bf16_row_units(g, w).max())
                       for g, w in zip(got, want))
             result["max_abs_err"][name] = max(err, result["max_abs_err"].get(name, 0.0))
             if not err <= BF16_UNITS:
                 bad.setdefault(name, []).append(shape)
+        result.setdefault("units_vs_first", {})[shape] = {
+            name: [float(variants.bf16_row_units(g, w).max())
+                   for g, w in zip(got, outs[first])] for name, got in outs.items()}
         turns = list(libs) + list(libs)[::-1]
-        us = {name: [] for name in libs}
-        ev = {name: [] for name in libs}
+        us = {name: {DQ_BF16: [], DKV_BF16: []} for name in libs}
+        ev = {name: {DQ_BF16: [], DKV_BF16: []} for name in libs}
         for name in turns:
-            call = lambda lib=libs[name]: backward(lib, q, k, v, do, lse, di, causal)  # noqa: E731
-            us[name].append(variants.kernel_us(call, iters, (DQ_BF16, DKV_BF16)))
-            ev[name].append(variants.event_us(call, iters))
+            lib = libs[name]
+            for kernel, call in (
+                    (DQ_BF16, lambda: dq(lib, q, k, v, do, lse, di, causal)),
+                    (DKV_BF16, lambda: dkv(lib, q, k, v, do, lse, di, causal))):
+                us[name][kernel].append(variants.kernel_us(call, iters, (kernel,))[kernel])
+                ev[name][kernel].append(variants.event_us(call, iters))
         result["us"][shape] = us
         result["event_us"][shape] = ev
         print(f"{shape}: " + "  ".join(
-            f"{n} dq {u[0][DQ_BF16]:.2f}/{u[1][DQ_BF16]:.2f} dkv {u[0][DKV_BF16]:.2f}/"
-            f"{u[1][DKV_BF16]:.2f} events (both) {e[0]:.2f}/{e[1]:.2f}"
+            f"{n} dq {u[DQ_BF16][0]:.2f}/{u[DQ_BF16][1]:.2f} (events {e[DQ_BF16][0]:.2f}/"
+            f"{e[DQ_BF16][1]:.2f}) dkv {u[DKV_BF16][0]:.2f}/{u[DKV_BF16][1]:.2f} (events "
+            f"{e[DKV_BF16][0]:.2f}/{e[DKV_BF16][1]:.2f}); units from {first} "
+            f"{result['units_vs_first'][shape][n]}"
             for (n, u), e in zip(us.items(), ev.values())), flush=True)
         del q, k, v, do, qkv, out, lse, di, want
     return bad
