@@ -139,8 +139,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     hop's message, once; K3 over the two gathered rows, once) and one
     2**24 chunk (K2, K3 bare and with ``add_to``: the one-segment case),
     each in turns with its plain version, beside the bound (bytes over 3.35
-    TB/s). No single PyTorch call quantizes or dequantizes block-scaled
-    int8, so these rows have no library time.
+    TB/s). No single PyTorch call quantizes block-scaled int8 or
+    dequantizes into a ring's running sums, so those rows have no library
+    time; the 2**24 dequantize has ``torch.mul(q.view(nb, block), scale[:,
+    None])`` bare and ``torch.addcmul(add_to.view(nb, block), q.view(nb,
+    block), scale[:, None])`` with ``add_to`` as yardsticks (never called by
+    the port; whether each equals K3 to the bit is printed).
 14. ``--zero1`` on three ranks: NetResDeep ``--zero1 --kernels`` through
     the launcher, three ranks sharing the card over gloo, the recipe and 2
     x 50 steps a rank of phase 12 (at three ranks seven of its nine leaves
@@ -286,11 +290,38 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     one tensor map's encode, which each call of K4-K6 makes once an operand.
     Without the copy the phase says so and is skipped.
 
-The NetResDeep phases before 17 keep their sizes; the whole run takes nine
-to eleven minutes on the card, the build included. ``python3 chip_smoke.py
+21. The numerics flight recorder (``tpu_ddp_torch/health/``; the step's
+    stats and skip-step guard, ``train/steps.py``). (a) NetResDeep at full
+    width through the train CLI's arguments and the trainer's ``run``:
+    ``--synthetic-data --kernels --no-shuffle --momentum 0.9 --health on
+    --health-policy skip_step --health-per-layer-stride 1 --health-dir``,
+    one epoch of 40 steps with the fifth batch all NaN (``poison_batch``),
+    under deterministic cuDNN: exactly one non-finite step; the params,
+    momentum and BatchNorm buffers after it bitwise as before it; K1 once
+    every step, the skipped one included; the dump (meta, health, batch)
+    written and the dir rendered by ``health/summarize.py``; the final
+    params finite. The same steps without ``--kernels``: the health records,
+    per-layer norms included, equal to the bit. (b) Two ranks sharing the
+    card over gloo through the launcher, ``--kernels --zero1 --grad-compress
+    int8`` without error feedback (K2 computes its error for health alone),
+    ``skip_step``, 20 steps a rank with rank 0's fifth batch all NaN: both
+    ranks' health records equal, the same step skipped on both, replicas
+    bitwise, ``compress_error_norm`` finite and above 0 on the healthy
+    steps, launches (K1, K2 and K3 once a step) and the ring's wire calls
+    exact. (c) The cost: LM-32k in bfloat16 (phase 20d's run, K4-K6 and K1)
+    with health off, ``warn`` and ``skip_step`` in turns (off, warn, skip,
+    skip, warn, off), each step followed by the trainer's one copy of the
+    scalars to the host: ms a step, tokens/s, launches and kernels a step,
+    device busy time and peak memory, the losses of all six runs equal to
+    the bit; then NetResDeep ``--kernels`` with health off and on in turns
+    (2 epochs of 50 steps, epoch 2 timed; kernels a step over 5 profiled
+    steps, four turns of each).
+
+The NetResDeep phases before 17 keep their sizes; the whole run takes ten
+to twelve minutes on the card, the build included. ``python3 chip_smoke.py
 --nccl N``, on a machine with N cards, runs phases 10 (at N ranks' chunks),
-12, 14, 17's two-rank part, 18c and 19d alone at N ranks, one card each,
-over NCCL. The line before the last is one JSON object
+12, 14, 17's two-rank part, 18c, 19d and 21b alone at N ranks, one card
+each, over NCCL. The line before the last is one JSON object
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -1722,6 +1753,9 @@ def rank_child(out_dir, args):
     if args[:1] == ["--deterministic"]:
         torch.backends.cudnn.deterministic = True
         args = args[1:]
+    if args[:1] == ["--poison-batch"]:
+        poison_batch(int(args[1]), rank=0)
+        args = args[2:]
     rank = int(os.environ["RANK"])
     wire = wire_counter()
     ops.reset_launch_counts()
@@ -1735,7 +1769,11 @@ def rank_child(out_dir, args):
                os.path.join(out_dir, f"rank{rank}.pt"))
 
 
-def launch_dp(tmp, name, args, nproc, phase="12", deterministic=False):
+def launch_dp(tmp, name, args, nproc, phase="12", deterministic=False, poison=None):
+    """``args`` through the launcher on ``nproc`` ranks (``rank_child``),
+    under deterministic cuDNN, and with rank 0's ``poison``-th batch all NaN
+    (``poison_batch``) when asked. Returns (every rank's metrics, whether the
+    ranks' weights are bitwise equal)."""
     import torch
 
     from tpu_ddp_torch.cli.launch import run_job
@@ -1743,10 +1781,13 @@ def launch_dp(tmp, name, args, nproc, phase="12", deterministic=False):
     out = os.path.join(tmp, name)
     os.makedirs(out)
     how = ", deterministic cuDNN" if deterministic else ""
+    if poison is not None:
+        how += f", rank 0's batch {poison} all NaN"
     print(f"phase {phase}{how}: python -m tpu_ddp_torch.cli.launch --nproc-per-node "
           f"{nproc} -- python -m tpu_ddp_torch.cli.train {' '.join(args)}", flush=True)
     rc = run_job([sys.executable, os.path.abspath(__file__), "--rank-child", out,
-                  *(["--deterministic"] if deterministic else []), *args],
+                  *(["--deterministic"] if deterministic else []),
+                  *(["--poison-batch", str(poison)] if poison is not None else []), *args],
                  nproc_per_node=nproc)
     if rc:
         fail(f"the {nproc}-rank run exited with {rc}")
@@ -2340,7 +2381,8 @@ def phase_quant_timing(quant_err, runs):
 
     print("phase 13: K2/K3 timing (CUDA events, ms per step of the listed calls; "
           "no single PyTorch call quantizes block-scaled int8 or dequantizes into a "
-          "ring's sums, so only the bare dequantize has a library time)", flush=True)
+          "ring's sums, so only the 2^24 dequantize, bare and into add_to, has a "
+          "library time)", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(13)
     launches = runs["int8"][0]["launches"]
     n = 2
@@ -2384,16 +2426,25 @@ def phase_quant_timing(quant_err, runs):
             lambda: big_acc + dequantize_chunk(payload, "int8", QUANT_BLOCK, LARGE),
             1, "dequant_add", [LARGE], 1, "one 2^24 chunk"),
     }
-    # the bare 2^24 dequantize's one PyTorch call: int8 times float32
-    # promotes to float32, q * scale a block (its size is whole blocks)
+    # the 2^24 dequantize's one PyTorch call: int8 times float32 promotes to
+    # float32, q * scale a block (its size is whole blocks); into add_to,
+    # add_to + q * scale in one torch.addcmul
     nb = LARGE // QUANT_BLOCK
-    library = {"fused_dequant[2^24]": (
-        lambda: torch.mul(payload["q"].view(nb, QUANT_BLOCK), payload["scale"][:, None]),
-        "torch.mul(q.view(nb, block), scale[:, None]), int8 x float32")}
-    lib_fn = library["fused_dequant[2^24]"][0]
-    print(f"  torch.mul against K3 on the 2^24 chunk: equal to the bit "
-          f"{bool(torch.equal(lib_fn().view(-1), fused_dequant(payload, QUANT_BLOCK, LARGE)))}",
-          flush=True)
+    library = {
+        "fused_dequant[2^24]": (
+            lambda: torch.mul(payload["q"].view(nb, QUANT_BLOCK), payload["scale"][:, None]),
+            "torch.mul(q.view(nb, block), scale[:, None]), int8 x float32"),
+        "fused_dequant[add_to][2^24]": (
+            lambda: torch.addcmul(big_acc.view(nb, QUANT_BLOCK),
+                                  payload["q"].view(nb, QUANT_BLOCK), payload["scale"][:, None]),
+            "torch.addcmul(add_to.view(nb, block), q.view(nb, block), scale[:, None])"),
+    }
+    for name, (lib_fn, call) in library.items():
+        want = (fused_dequant(payload, QUANT_BLOCK, LARGE, add_to=big_acc) if "add_to" in name
+                else fused_dequant(payload, QUANT_BLOCK, LARGE))
+        got = lib_fn().view(-1)
+        print(f"  {call} against K3 ({name}): equal to the bit {bool(torch.equal(got, want))}, "
+              f"max |diff| {float((got - want).abs().max()):.3g}", flush=True)
     rows = []
     for name, (kernel, plain, calls, kind, sizes, n_rows, shapes) in cases.items():
         iters = 50 if name.endswith("[2^24]") else 500
@@ -2477,16 +2528,21 @@ def lm_tokens(n_batches, rows, seq_len, vocab, seed=0):
     return seq.reshape(n_batches, rows, seq_len)
 
 
-def lm_train_run(use_flash, tokens, bf16=False, remat=False):
+def lm_train_run(use_flash, tokens, bf16=False, remat=False, health=None):
     """Part (a), one run: LM-32k from the seeded weights, ``LM_STEPS``
     steps on ``tokens`` with the launch counts zeroed just before and read
     just after, then ``LM_PROFILE_STEPS`` more under ``torch.profiler``;
-    phase 20d's in bfloat16 compute and with ``remat``. Returns (model,
-    run's numbers)."""
+    phase 20d's in bfloat16 compute and with ``remat``. ``health`` (a
+    policy, phase 21c) adds the flight recorder to the step and, after each
+    step, the trainer's host half: ``HealthFeed``'s one copy of the scalars
+    to the host (read a step late, as the trainer reads it) into a
+    ``HealthMonitor`` that writes nothing. Returns (model, run's numbers)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from tpu_ddp_torch import ops
+    from tpu_ddp_torch.health.monitor import HealthMonitor
+    from tpu_ddp_torch.health.stats import HealthConfig, HealthFeed
     from tpu_ddp_torch.models import CausalTransformerLM
     from tpu_ddp_torch.tools.profile_step import FLASH_KERNELS, _device_us
     from tpu_ddp_torch.train import create_lm_train_state, make_lm_train_step
@@ -2498,7 +2554,18 @@ def lm_train_run(use_flash, tokens, bf16=False, remat=False):
                                 remat=remat)
     tx = make_optimizer(lr=1e-3, optimizer="adamw", kernels=True)
     state = create_lm_train_state(model, tx, torch.device("cuda"))
-    step = make_lm_train_step(tx)
+    inner = make_lm_train_step(tx, health=None if health is None else HealthConfig(
+        skip_nonfinite=health == "skip_step"))
+    monitor = HealthMonitor(policy=health) if health is not None else None
+    feed = HealthFeed(monitor, lag=health != "halt") if health is not None else None
+    seen = [0]
+
+    def step(state, batch):
+        state, metrics = inner(state, batch)
+        if feed is not None:
+            feed.push(seen[0], metrics.pop("health"), batch)
+            seen[0] += 1
+        return state, metrics
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses = []
@@ -2523,6 +2590,10 @@ def lm_train_run(use_flash, tokens, bf16=False, remat=False):
     flash_ms = sum(us for us, _, k in rows if any(f in k for f in FLASH_KERNELS)
                    ) / LM_PROFILE_STEPS * 1e-3
     busy_ms = busy_us / LM_PROFILE_STEPS * 1e-3
+    if feed is not None:
+        feed.flush()
+    if monitor is not None and monitor.nonfinite_steps:
+        fail(f"LM-32k with health {health}: {monitor.nonfinite_steps} non-finite steps")
     return state.model, {
         "losses": [float(x) for x in losses], "launches": counts,
         "steady_step_ms": steady_s * 1e3,
@@ -3548,11 +3619,337 @@ def phase_bf16_against_parent():
     return results
 
 
+# ---- phase 21: the numerics flight recorder (K1 under the guard, K2's error for health) ----
+
+#: 21a: one epoch of NetResDeep steps at full width, the fifth batch all NaN
+HEALTH_STEPS, HEALTH_POISON = 40, 4
+#: 21b: steps a rank on two ranks, rank 0's fifth batch all NaN
+HEALTH_RANK_STEPS = 20
+#: 21c: NetResDeep's cost runs, steps an epoch (epoch 2 is timed), and the
+#: turns of health off and on (its host-bound step time moves run to run)
+HEALTH_NRD_STEPS = 50
+HEALTH_NRD_TURNS = (False, True, True, False) * 2
+
+
+def poison_batch(n, rank=None):
+    """Patch the train loader (the one that keeps the sampler's pad: not the
+    test loader) to fill its ``n``-th batch with NaN, on ``rank`` only
+    (the ``RANK`` of the launcher) or on every process; returns the undo."""
+    import numpy as np
+
+    from tpu_ddp_torch.data.loader import ShardedBatchLoader
+
+    inner = ShardedBatchLoader.epoch_batches
+    seen = [0]
+    mine = rank is None or int(os.environ.get("RANK", "0")) == rank
+
+    def epoch_batches(self, *args, **kwargs):
+        for batch in inner(self, *args, **kwargs):
+            if not self.exclude_sampler_pad:
+                if seen[0] == n and mine:
+                    batch = dict(batch, image=np.full_like(batch["image"], np.nan))
+                seen[0] += 1
+            yield batch
+
+    ShardedBatchLoader.epoch_batches = epoch_batches
+    return lambda: setattr(ShardedBatchLoader, "epoch_batches", inner)
+
+
+def state_bits(state):
+    """Clones of what a step moves: the model (params and BatchNorm
+    buffers), every optimizer slot and count."""
+    from tpu_ddp_torch.train.state import COUNTS, SLOTS
+
+    out = {f"model/{k}": v.clone() for k, v in state.model.state_dict().items()}
+    for slot in SLOTS:
+        for n, t in (getattr(state.opt_state, slot) or {}).items():
+            out[f"opt/{slot}/{n}"] = t.clone()
+    for c in COUNTS:
+        if getattr(state.opt_state, c) is not None:
+            out[f"opt/{c}"] = getattr(state.opt_state, c).clone()
+    return out
+
+
+def same_state(a, b):
+    """Two ``state_bits`` equal to the bit (``same_bits`` for the float
+    tensors: NaN payloads and signed zeros too)."""
+    import torch
+
+    return set(a) == set(b) and all(
+        same_bits(a[k], b[k]) if a[k].is_floating_point() else torch.equal(a[k], b[k])
+        for k in a)
+
+
+def health_records(run_dir, rank=0):
+    """The step records of ``health-p<rank>.jsonl`` under ``run_dir``,
+    without the rank."""
+    with open(os.path.join(run_dir, f"health-p{rank}.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    return [{k: v for k, v in r.items() if k != "pid"} for r in recs if r["type"] == "health"]
+
+
+def same_records(a, b):
+    """Two runs' health records equal to the bit: their JSON texts (a float
+    prints as the shortest text that reads back to it; NaN equals NaN)."""
+    return json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True)
+
+
+def health_args(health_dir, kernels=True):
+    """Phase 21a's CLI arguments: NetResDeep at full width, one unshuffled
+    epoch of ``HEALTH_STEPS`` steps, SGD with momentum, the recorder on
+    with ``skip_step`` and per-layer norms every step."""
+    return ["--device", "cuda", "--synthetic-data", "--synthetic-size", str(32 * HEALTH_STEPS),
+            "--epochs", "1", "--no-shuffle", "--n-chans1", "32", "--n-blocks", "10",
+            "--batch-size", "32", "--lr", "1e-2", "--momentum", "0.9", "--log-every-epochs",
+            "1", "--health", "on", "--health-policy", "skip_step",
+            "--health-per-layer-stride", "1", "--health-dir", health_dir,
+            *(["--kernels"] if kernels else [])]
+
+
+def health_run(args):
+    """A trainer built from the train CLI's ``args``, trained by its ``run``
+    with the fifth batch all NaN and the launch counts zeroed just before;
+    the state's bits just before and after the poisoned step. Returns
+    (trainer, metrics, launch counts, bits before, bits after)."""
+    import torch
+
+    from tpu_ddp_torch import ops
+    from tpu_ddp_torch.cli import train as cli
+    from tpu_ddp_torch.train.trainer import Trainer
+
+    trainer = Trainer(cli.config_from_args(cli.build_parser().parse_args(args)))
+    inner, calls, bits = trainer.train_step, [0], {}
+
+    def watched(state, batch):
+        if calls[0] == HEALTH_POISON:
+            bits["before"] = state_bits(state)
+        out = inner(state, batch)
+        if calls[0] == HEALTH_POISON:
+            bits["after"] = state_bits(state)
+        calls[0] += 1
+        return out
+
+    trainer.train_step = watched
+    undo = poison_batch(HEALTH_POISON)
+    ops.reset_launch_counts()
+    try:
+        metrics = trainer.run()
+    finally:
+        undo()
+        trainer.close()
+    torch.cuda.synchronize()
+    return trainer, metrics, ops.launch_counts(), bits["before"], bits["after"]
+
+
+def phase_health_skip(tmp):
+    """Phase 21a: the flight recorder's ``skip_step`` on the main path at
+    full width, under deterministic cuDNN: exactly one non-finite step, the
+    params, momentum and BatchNorm buffers after it bitwise as before it,
+    K1 once every step (the skipped one too), the dump written and rendered,
+    the final params finite; then the same steps without ``--kernels``:
+    health records equal to the bit."""
+    import torch
+
+    from tpu_ddp_torch.health.summarize import summarize_health
+
+    records = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for kernels in (True, False):
+            run_dir = os.path.join(tmp, f"health_{'k1' if kernels else 'plain'}")
+            args = health_args(run_dir, kernels)
+            print(f"phase 21a: tpu_ddp_torch.cli.train {' '.join(args)} (deterministic "
+                  f"cuDNN, batch {HEALTH_POISON} all NaN)", flush=True)
+            trainer, m, counts, before, after = health_run(args)
+            mon = trainer.health_monitor
+            recs = records[kernels] = health_records(run_dir)
+            bad = [r["step"] for r in recs if not r["all_finite"]]
+            finite = all(bool(torch.isfinite(p).all()) for p in trainer.state.params().values())
+            skipped = same_state(before, after)
+            want = {name: 0 for name in counts}
+            want["fused_update"] = HEALTH_STEPS if kernels else 0
+            dump = os.path.join(run_dir, "anomalies", f"step_{HEALTH_POISON:08d}")
+            dumped = sorted(os.listdir(dump)) if os.path.isdir(dump) else []
+            summary = summarize_health(run_dir)
+            print(f"  steps {m['steps']}, non-finite steps {bad} (monitor "
+                  f"{mon.nonfinite_steps}); state after the poisoned step bitwise as "
+                  f"before it ({len(before)} tensors: params, momentum, BatchNorm buffers) "
+                  f"{skipped}; launches {counts}; final params finite {finite}; dump "
+                  f"{dumped}; steady {m['steady_step_ms']:.3f} ms a step", flush=True)
+            if m["steps"] != HEALTH_STEPS or bad != [HEALTH_POISON] or mon.nonfinite_steps != 1:
+                fail(f"21a: non-finite steps {bad} in {m['steps']}, expected "
+                     f"[{HEALTH_POISON}] in {HEALTH_STEPS}")
+            if not skipped:
+                fail("21a: the skipped step moved the params, momentum or BatchNorm buffers")
+            if counts != want:
+                fail(f"21a: launches {counts}, expected {want}")
+            if not finite:
+                fail("21a: the final params are not finite")
+            if dumped != ["batch.npz", "health.json", "meta.json"] \
+                    or "non-finite: 1" not in summary:
+                fail(f"21a: dump {dumped}, or the summary does not show the step")
+            if kernels:
+                print("  " + summary.replace("\n", "\n  "), flush=True)
+            del trainer
+    finally:
+        torch.backends.cudnn.deterministic = False
+    same = same_records(records[True], records[False])
+    print(f"  K1 against the plain update: {len(records[True])} health records (per-layer "
+          f"norms included) equal to the bit {same}", flush=True)
+    for a, b in zip(records[True], records[False]):
+        keys = [k for k in a if not same_records(a[k], b.get(k))]
+        if keys:
+            print(f"  first difference, step {a['step']}: "
+                  + "; ".join(f"{k} {a[k]} against {b.get(k)}" for k in keys)[:2000], flush=True)
+            break
+    if not same:
+        fail("21a: the health records of the K1 and plain runs differ")
+
+
+def phase_health_ranks(tmp, nproc=2, backend="gloo"):
+    """Phase 21b: two ranks through the launcher, ``--kernels --zero1
+    --grad-compress int8`` without error feedback (K2's error pass runs for
+    health alone), ``skip_step``, rank 0's fifth batch all NaN: both ranks'
+    health files equal, the same step skipped on both, replicas bitwise,
+    ``compress_error_norm`` finite and above 0 on the healthy steps,
+    launches and the ring's wire calls exact."""
+    run_dir = os.path.join(tmp, "health_ranks")
+    args = ["--device", "cuda", "--dist-backend", backend, "--synthetic-data",
+            "--synthetic-size", str(nproc * 32 * HEALTH_RANK_STEPS), "--epochs", "1",
+            "--no-shuffle", "--kernels", "--zero1", "--grad-compress", "int8",
+            "--n-chans1", "32", "--n-blocks", "10", "--batch-size", "32", "--lr", "1e-2",
+            "--momentum", "0.9", "--log-every-epochs", "1", "--health", "on",
+            "--health-policy", "skip_step", "--health-per-layer-stride", "5",
+            "--health-dir", run_dir]
+    metrics, same = launch_dp(tmp, "health_ranks_out", args, nproc, phase="21b",
+                              poison=HEALTH_POISON)
+    recs = [health_records(run_dir, r) for r in range(nproc)]
+    bad = [[r["step"] for r in rec if not r["all_finite"]] for rec in recs]
+    errs = [r["compress_error_norm"] for r in recs[0] if r["all_finite"]]
+    steps = metrics[0]["steps"]
+    want = {name: 0 for name in metrics[0]["launches"]}
+    want.update({k: v * steps for k, v in zero1_launches(nproc, True).items()})
+    wire = {k: v * steps for k, v in ring_wire_calls(nproc, True, True).items()}
+    print(f"  steps {steps}; non-finite steps by rank {bad}; health files equal on the "
+          f"{nproc} ranks {all(same_records(rec, recs[0]) for rec in recs)}; replicas "
+          f"bitwise {same}; "
+          f"compress_error_norm on the healthy steps {min(errs):.6g}..{max(errs):.6g}; "
+          f"launches on rank 0 {metrics[0]['launches']}; wire calls "
+          f"{metrics[0]['wire_calls']}", flush=True)
+    if steps != HEALTH_RANK_STEPS or bad != [[HEALTH_POISON]] * nproc:
+        fail(f"21b: non-finite steps {bad} in {steps}, expected [{HEALTH_POISON}] a rank")
+    if not all(same_records(rec, recs[0]) for rec in recs):
+        fail("21b: the ranks' health records differ")
+    if not same:
+        fail("21b: the replicas end with different params")
+    if not all(math.isfinite(e) and e > 0 for e in errs):
+        fail("21b: compress_error_norm is not finite and above 0 on a healthy step")
+    for r in range(nproc):
+        if metrics[r]["launches"] != want or metrics[r]["wire_calls"] != wire:
+            fail(f"21b: rank {r} launched {metrics[r]['launches']} (expected {want}) or "
+                 f"made {metrics[r]['wire_calls']} wire calls (expected {wire})")
+
+
+def nrd_cost_run(health):
+    """Phase 21c, NetResDeep: the main path's recipe through the trainer, 2
+    epochs of ``HEALTH_NRD_STEPS`` steps (epoch 2 timed), health off or on
+    (``warn``, nothing written); then 5 more steps of the step and its host
+    read under ``torch.profiler``. Returns the run's numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_ddp_torch.cli import train as cli
+    from tpu_ddp_torch.tools.profile_step import _device_us
+    from tpu_ddp_torch.train.trainer import Trainer
+
+    args = ["--device", "cuda", "--synthetic-data", "--synthetic-size",
+            str(32 * HEALTH_NRD_STEPS), "--epochs", "2", "--kernels", "--n-chans1", "32",
+            "--n-blocks", "10", "--batch-size", "32", "--lr", "1e-2", "--log-every-epochs", "1",
+            *(["--health", "on"] if health else [])]
+    trainer = Trainer(cli.config_from_args(cli.build_parser().parse_args(args)))
+    torch.cuda.reset_peak_memory_stats()
+    m = trainer.run()
+    batches = [trainer.to_device(b) for b in trainer.train_loader.epoch_batches(epoch=3)][:5]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i, b in enumerate(batches):
+            trainer.state, metrics = trainer.train_step(trainer.state, b)
+            if health:
+                trainer.health_feed.push(i, metrics.pop("health"), b)
+        if health:
+            trainer.health_feed.flush()
+        torch.cuda.synchronize()
+    busy_us, kernels, _ = _device_us(prof)
+    trainer.close()
+    return {"steady_step_ms": m["steady_step_ms"], "losses": m["step_losses"],
+            "kernels_per_step": kernels / len(batches),
+            "device_busy_ms_per_step": busy_us / len(batches) * 1e-3,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def phase_health_cost(tokens, smi):
+    """Phase 21c: what the recorder costs. LM-32k in bfloat16 (phase 20d's
+    run: K4-K6 and K1) with health off, ``warn`` and ``skip_step`` in turns
+    (off, warn, skip, skip, warn, off) over the same steps: ms a step,
+    tokens/s, launches and kernels a step, peak memory; losses equal to the
+    bit. Then NetResDeep's step with health off and on, in turns (four
+    runs each)."""
+    import torch
+
+    runs = {}
+    for label in ("off", "warn", "skip_step", "skip_step", "warn", "off"):
+        model, run = lm_train_run(True, tokens, bf16=True,
+                                  health=None if label == "off" else label)
+        del model
+        torch.cuda.empty_cache()
+        runs.setdefault(label, []).append(run)
+        print(f"phase 21c: LM-32k bf16 flash, health {label} ({smi}): steady "
+              f"{run['steady_step_ms']:.3f} ms a step, {run['tokens_per_sec']:.1f} tokens/sec, "
+              f"{run['kernels_per_step']:.1f} kernels a step (profiled step "
+              f"{run['profiled_step_ms']:.3f} ms, device busy "
+              f"{run['device_busy_ms_per_step']:.3f} ms, idle share "
+              f"{run['device_idle_share']}), max_memory_allocated "
+              f"{run['max_memory_allocated']} B, launches {run['launches']}", flush=True)
+    losses = [r["losses"] for rs in runs.values() for r in rs]
+    if any(x != losses[0] for x in losses):
+        fail("21c: the LM's losses with health on differ from health off")
+    want = {name: 0 for name in runs["off"][0]["launches"]}
+    want["fused_update"] = LM_STEPS
+    for name in ("fwd", "dq", "dkv"):
+        want[f"flash_attention_{name}_bf16"] = LM_32K["depth"] * LM_STEPS
+    if any(r["launches"] != want for rs in runs.values() for r in rs):
+        fail(f"21c: the LM's launches differ from {want}")
+    mean = lambda label, key: sum(r[key] for r in runs[label]) / len(runs[label])  # noqa: E731
+    for label in ("warn", "skip_step"):
+        more = lambda key: mean(label, key) - mean("off", key)  # noqa: E731
+        ms, off_ms = mean(label, "steady_step_ms"), mean("off", "steady_step_ms")
+        print(f"  LM-32k bf16, health {label} against off (means of two runs each): "
+              f"{ms:.3f} against {off_ms:.3f} ms a step ({ms / off_ms - 1:+.4f}); "
+              f"{more('kernels_per_step'):+.1f} kernels a step; device busy "
+              f"{more('device_busy_ms_per_step'):+.3f} ms a step; peak "
+              f"{more('max_memory_allocated'):+.0f} B; losses equal to the bit", flush=True)
+    nrd = {}
+    for health in HEALTH_NRD_TURNS:
+        run = nrd_cost_run(health)
+        nrd.setdefault(health, []).append(run)
+        print(f"phase 21c: NetResDeep --kernels, health {'on' if health else 'off'}: steady "
+              f"{run['steady_step_ms']:.3f} ms a step, {run['kernels_per_step']:.1f} kernels a "
+              f"step, device busy {run['device_busy_ms_per_step']:.3f} ms a step, "
+              f"max_memory_allocated {run['max_memory_allocated']} B", flush=True)
+    if any(not all(math.isfinite(x) for x in r["losses"]) for rs in nrd.values() for r in rs):
+        fail("21c: NetResDeep produced a non-finite loss")
+    on = sorted(r["steady_step_ms"] for r in nrd[True])
+    off = sorted(r["steady_step_ms"] for r in nrd[False])
+    print(f"  NetResDeep, health on against off, ms a step sorted: {on} against {off}",
+          flush=True)
+    return {"lm": runs, "netresdeep": nrd}
+
+
 def nccl_main(nproc):
     """``python3 chip_smoke.py --nccl N`` on a machine with N cards: phase
     10 with NetResDeep's chunks at N ranks, then phases 12, 14, 17's
     resume (``phase_checkpoint_dp``) and 18c at N ranks, one card each, over
-    NCCL (the default backend on cuda), and 19d's fine-tune at N ranks."""
+    NCCL (the default backend on cuda), 19d's fine-tune and 21b's flight
+    recorder at N ranks."""
     import shutil
     import tempfile
 
@@ -3574,6 +3971,7 @@ def nccl_main(nproc):
         phase_checkpoint_dp(tmp, nproc, "nccl")
         phase_lm_ranks(tmp, nproc, "nccl")
         phase_finetune_ranks(tmp, nproc, "nccl")
+        phase_health_ranks(tmp, nproc, "nccl")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"chip_smoke --nccl {nproc}: ok", flush=True)
@@ -3673,10 +4071,20 @@ def main():
     lm_tokens_32k = torch.from_numpy(
         lm_tokens(LM_STEPS, LM_BATCH, LM_SEQ, LM_32K["vocab_size"])).to("cuda")
     bf16_lm = phase_bf16_lm(lm_tokens_32k, lm_runs["flash"])
-    del lm_tokens_32k
     torch.cuda.empty_cache()
     phase_bf16_netresdeep()
     print(f"phase 20 (a), (c)-(e) took {time.perf_counter() - t20:.1f} s", flush=True)
+    t21 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
+    try:
+        phase_health_skip(tmp)
+        phase_health_ranks(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_health_cost(lm_tokens_32k, smi)
+    del lm_tokens_32k
+    torch.cuda.empty_cache()
+    print(f"phase 21 took {time.perf_counter() - t21:.1f} s", flush=True)
     print_accounting()
     rows += phase_lm_timing(results, flash_results, lm_runs["flash"]["launches"])
     rows += phase_finetune_timing(results, ft_runs)

@@ -121,6 +121,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--untied-blocks", action="store_true",
                    help="independent ResBlocks (the reference ties them)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--no-shuffle", action="store_true")
     p.add_argument("--eval-each-epoch", action="store_true")
     p.add_argument("--log-every-epochs", type=int, default=10)
     p.add_argument("--checkpoint-dir", default=None)
@@ -141,6 +142,35 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tensorboard-dir", default=None,
                    help="write TensorBoard scalar events here "
                         "(process-0 only), alongside --jsonl")
+    p.add_argument("--health", choices=["off", "on"], default="off",
+                   help="numerics flight recorder: global grad/param/"
+                        "update norms + NaN/Inf sentinels computed on the "
+                        "device inside the step every step, recorded to "
+                        "health-p<rank>.jsonl (under --health-dir), with a "
+                        "loss-spike detector and a one-shot anomaly dump to "
+                        "<dir>/anomalies/. Read back with `python -m "
+                        "tpu_ddp_torch.health DIR`")
+    p.add_argument("--health-policy",
+                   choices=["warn", "skip_step", "halt"], default="warn",
+                   help="on an anomaly: warn (log + dump), skip_step "
+                        "(a guard in the step discards NaN/Inf updates — "
+                        "optimizer state stays in sync, training "
+                        "continues; loss spikes are recorded but still "
+                        "applied), halt (drain + final checkpoint on any "
+                        "anomaly)")
+    p.add_argument("--health-per-layer-stride", type=int, default=0,
+                   metavar="N",
+                   help=">0: also compute the per-layer grad/param norm "
+                        "breakdown in the step, recording it every N steps "
+                        "(and always into anomaly dumps)")
+    p.add_argument("--health-dir", default=None, metavar="DIR",
+                   help="where health records + anomaly dumps go (none: "
+                        "nothing is written)")
+    p.add_argument("--health-window", type=int, default=128,
+                   help="loss-spike detector rolling window (steps)")
+    p.add_argument("--health-spike-threshold", type=float, default=10.0,
+                   metavar="K",
+                   help="spike when loss > median + K * MAD of the window")
     return p
 
 
@@ -192,6 +222,13 @@ def config_from_args(args) -> TrainConfig:
         resume=args.resume,
         jsonl_path=args.jsonl,
         tensorboard_dir=args.tensorboard_dir,
+        shuffle=not args.no_shuffle,
+        health=args.health,
+        health_policy=args.health_policy,
+        health_per_layer_stride=args.health_per_layer_stride,
+        health_dir=args.health_dir,
+        health_window=args.health_window,
+        health_spike_threshold=args.health_spike_threshold,
     )
 
 

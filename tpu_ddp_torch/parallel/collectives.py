@@ -204,6 +204,13 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
     _scatter_back(flat / n, tensors)
 
 
+def rank_mean(total: torch.Tensor, n: int) -> torch.Tensor:
+    """``total``, a sum over ``n`` ranks, divided by ``n`` as
+    ``all_reduce_mean_`` divides (by a 0-dim tensor); ``total`` itself at
+    one rank."""
+    return total if n == 1 else total / torch.full_like(total, n)
+
+
 def sync_gradients(grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Gradient all-reduce-mean over the ranks (``all_reduce_mean_``), in
     place; returns ``grads``."""

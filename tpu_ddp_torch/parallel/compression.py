@@ -369,15 +369,21 @@ class GradCompressor:
         shards = dict(zip(self.names, self.layout.rows.views(row)))
         return shards, (self._tree(err) if with_error else None)
 
+    def local_error_sq(self, err_state: Tree) -> torch.Tensor:
+        """This rank's sum of squares of the freshly introduced quantization
+        error: one pass over the buffer ``err_state``'s leaves are views of
+        (the ring's error output), float32."""
+        flat = self._joined(err_state)
+        return torch.sum(torch.square(flat.to(torch.float32)))
+
     def error_sq(self, err_state: Tree) -> torch.Tensor:
-        """Sum of squares of the freshly introduced quantization error,
-        summed over the ranks (every rank gets the same number)."""
+        """``local_error_sq`` summed over the ranks (every rank gets the same
+        number): the JAX ``error_sq``, behind the flight recorder's
+        ``compress_error_norm``. The train step folds the local sum into
+        its one all-reduce instead (``train/steps.py``)."""
         from tpu_ddp_torch.parallel.collectives import all_reduce_sum_
 
-        leaves = list(err_state.values())
-        total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-        for leaf in leaves:
-            total = total + torch.sum(torch.square(leaf.to(torch.float32)))
+        total = self.local_error_sq(err_state)
         all_reduce_sum_([total])
         return total
 

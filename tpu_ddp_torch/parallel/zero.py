@@ -36,23 +36,31 @@ The EMA row keeps every leaf.
 The ranks are the default process group's (the JAX package's ``data``
 axis); with one rank nothing here calls a collective.
 
+The flight recorder (``health_stats``, the JAX :297): the shard-local sums
+of the gradient and update shards go over the ranks in the step's one
+all-reduce, and ``sharded_update``'s ``before_gather`` lets the step's
+skip-step guard put the shards back before the all-gather sends them
+(``train/steps.py``).
+
 Not ported: the mesh's specs and shardings (``state_specs``,
-``state_shardings``, ``_jitted``; the port's state is per rank anyway),
-``health_stats`` and ZeRO-3.
+``state_shardings``, ``_jitted``; the port's state is per rank anyway) and
+ZeRO-3.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
+from tpu_ddp_torch.health.stats import assemble_stats, leaf_norms, nonfinite_leaves
 from tpu_ddp_torch.ops.fused_update import shard_valid
 from tpu_ddp_torch.parallel.collectives import (
     ChunkMajor,
     all_gather_bytes,
     all_reduce_sum_,
+    rank_mean,
     reduce_scatter_sum,
 )
 from tpu_ddp_torch.parallel.compression import _flat_leaf, _leaf_slot, _unflat_leaf
@@ -288,14 +296,17 @@ class Zero1Partition:
         return out
 
     def sharded_update(self, grads: Tree, params: Tree, opt_state: OptState,
-                       residual: Optional[Tree] = None, with_error: bool = False):
+                       residual: Optional[Tree] = None, with_error: bool = False,
+                       before_gather: Optional[Callable] = None):
         """The ZeRO-1 update tail of a step: ``grads`` are this rank's
         local (unsynced) full-shaped gradients, ``params`` the replicated
         params, ``opt_state`` this rank's shard of the state. Reduce-scatter,
         the update of the shards (K1 when ``tx`` has it, else the plain
         chain, the pad mask and ``p + u``), then one all-gather into
-        ``params``; ``params`` and ``opt_state`` change in place. Returns
-        ``(grad_shards, update_shards, err_state)``."""
+        ``params``; ``params`` and ``opt_state`` change in place.
+        ``before_gather(grad_shards, update_shards, err_state)`` runs
+        between the update and the all-gather. Returns ``(grad_shards,
+        update_shards, err_state)``."""
         gsh, err_state = self.reduce_scatter_mean(grads, residual, with_error)
         psh = self.param_shards(params)
         fused = self.tx.fused
@@ -312,8 +323,47 @@ class Zero1Partition:
             with torch.no_grad():
                 for n, u in updates.items():
                     psh[n].copy_(psh[n] + u)
+        if before_gather is not None:
+            before_gather(gsh, updates, err_state)
         self.gather_params_(params)
         return gsh, updates, err_state
+
+    def health_stats(self, *, sums: torch.Tensor, grad_shards: Tree,
+                     param_norms: torch.Tensor, update_shards: Tree,
+                     per_layer: bool = False,
+                     compress_error_sq: Optional[torch.Tensor] = None) -> dict:
+        """The flight recorder's schema (``health/stats.py``) from this
+        rank's gradient and update shards (the JAX ``health_stats``, :297):
+        their shard-local sums of squares and non-finite counts (and each
+        leaf's gradient sum of squares under ``per_layer``), this rank's
+        ``compress_error_sq`` and the step's metric ``sums`` (its loss
+        first) are summed over the ranks in ONE all-reduce, ``sums`` in
+        place; the loss is ``sums[0]`` over the rank count. ``param_norms``
+        are the old replicated params' per-leaf norms (``leaf_norms``, in
+        leaf order), which need no reduction. The update shards are
+        pad-masked, as ``sharded_update`` returns them."""
+        gs = [grad_shards[n] for n in self.names]
+        us = [update_shards[n] for n in self.names]
+        g, u = leaf_norms(gs), leaf_norms(us)
+        g_sq = g * g
+        local = [torch.sum(g_sq), nonfinite_leaves(gs, g),
+                 torch.sum(u * u), nonfinite_leaves(us, u)]
+        if compress_error_sq is not None:
+            local.append(compress_error_sq)
+        vec = torch.stack(local)
+        if per_layer:
+            vec = torch.cat([vec, g_sq])
+        if self.n_shards > 1:
+            all_reduce_sum_([sums, vec])
+        pl = None
+        if per_layer:
+            pl = {"grad_norm": dict(zip(self.names, torch.sqrt(vec[len(local):]).unbind())),
+                  "param_norm": dict(zip(self.names, param_norms.unbind()))}
+        return assemble_stats(
+            loss=rank_mean(sums[0], self.n_shards), grad_sq=vec[0], grad_bad=vec[1],
+            param_sq=torch.sum(param_norms * param_norms), update_sq=vec[2],
+            update_bad=vec[3], per_layer=pl,
+            compress_error_sq=vec[4] if compress_error_sq is not None else None)
 
     # ---- the optimizer state in shard space -----------------------------
 

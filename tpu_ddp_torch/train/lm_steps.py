@@ -14,21 +14,27 @@ step's only metric, as in the JAX step. The model's ``dtype`` and ``remat``
 apply as the model carries them, as in the JAX step; the loss takes the
 model's float32 logits.
 
-Not ported: the ``health`` flight recorder (the port has none yet) and
-``make_sp_lm_train_step`` (sequence parallelism and ring attention).
+``health`` adds the flight recorder (the JAX ``_with_health`` :38 and
+``make_lm_train_step(health=)`` :60) through the same ``sync_and_update``:
+``metrics["health"]``, and under ``skip_nonfinite`` the guard over the
+params, the optimizer state and the residual (the model has no buffers).
+
+Not ported: ``make_sp_lm_train_step`` (sequence parallelism and ring
+attention).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
-from tpu_ddp_torch.parallel.collectives import all_reduce_mean_
+from tpu_ddp_torch.health.stats import HealthConfig
+from tpu_ddp_torch.parallel.collectives import rank_mean
 from tpu_ddp_torch.parallel.runtime import world_size
 from tpu_ddp_torch.train.optim import Optimizer
 from tpu_ddp_torch.train.state import TrainState, create_train_state
-from tpu_ddp_torch.train.steps import sync_and_update
+from tpu_ddp_torch.train.steps import StepHealth, sync_and_update
 
 Batch = Dict[str, torch.Tensor]
 
@@ -40,25 +46,32 @@ def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return -lp.gather(-1, targets[..., None])[..., 0]
 
 
-def make_lm_train_step(tx: Optimizer, *, compress=None,
-                       zero1=None) -> Callable[[TrainState, Batch], tuple]:
-    """``step(state, {"tokens": (B, T)}) -> (state, {"loss"})``; ``state``
-    is updated in place and returned, ``tokens`` are this rank's rows.
-    ``compress`` and ``zero1`` as in ``train/steps.py::make_train_step``."""
+def make_lm_train_step(tx: Optimizer, *, compress=None, zero1=None,
+                       health: Optional[HealthConfig] = None
+                       ) -> Callable[[TrainState, Batch], tuple]:
+    """``step(state, {"tokens": (B, T)}) -> (state, {"loss"})`` (and
+    ``health`` under ``health``); ``state`` is updated in place and
+    returned, ``tokens`` are this rank's rows. ``compress``, ``zero1`` and
+    ``health`` as in ``train/steps.py::make_train_step``."""
+    recorder = StepHealth(health) if health is not None else None
 
     def train_step(state: TrainState, batch: Batch):
         model = state.model
         model.train()
         params = state.params()
         tokens = batch["tokens"]
+        if recorder is not None:
+            recorder.before_forward(model)
         logits = model(tokens)
         loss = token_nll(logits[:, :-1], tokens[:, 1:]).mean()
         grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
-        sync_and_update(tx, state, grads, params, compress=compress, zero1=zero1)
-        loss = loss.detach()
-        if world_size() > 1:
-            all_reduce_mean_([loss])
-        return state, {"loss": loss}
+        sums = loss.detach().reshape(1)
+        stats = sync_and_update(tx, state, grads, params, sums, compress=compress,
+                                zero1=zero1, health=recorder)
+        metrics = {"loss": rank_mean(sums[0], world_size())}
+        if stats is not None:
+            metrics["health"] = stats
+        return state, metrics
 
     return train_step
 

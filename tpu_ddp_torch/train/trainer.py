@@ -57,9 +57,27 @@ stay float32; the models' ``Dense`` layers apply the bfloat16 precision
 policy, ``models/layers.py``); ``--remat`` recomputes the forward in the
 backward (``train/steps.py``: per block where the model has it).
 
-Not ported yet: telemetry, health, the elastic supervisor,
-``--steps-per-call``, k-fold, predictions, and the strategies other than
-data parallelism (zero3, fsdp, tp, pp).
+The numerics flight recorder (``--health on``; the JAX trainer's
+:315-332, :356-371, :728-760, :2206-2216, :2285-2295, :2430-2445 and
+``_on_health`` :2513-2556): the step builds the stats on the device
+(``train/steps.py``), and ``health.stats.HealthFeed`` copies the scalars to
+the host once a step (the per-layer norms only on a stride step or when a
+sentinel trips, the batch only when a dump is written) into a
+``health.monitor.HealthMonitor``, which writes ``health-p<rank>.jsonl`` and
+the anomaly dump under ``--health-dir`` (without one it writes nothing, and
+the trainer says so). Under ``warn`` and ``skip_step`` a step's copy is
+read once the next step is enqueued, so the read does not drain the
+device's queue; each epoch's end reads the last. The verdicts:
+``skip_step`` was applied in the step already; ``halt`` drains the run as
+preemption does, at once on every rank (the stats are the same on every
+rank, so is the verdict), and the final checkpoint is refused when the
+params are non-finite (the poisoned update was applied) and kept when they
+are finite (a loss spike).
+``--no-shuffle`` (``TrainConfig.shuffle``) keeps the train loader's order.
+
+Not ported yet: telemetry (and the health gauges it carries), the elastic
+supervisor, ``--steps-per-call``, k-fold, predictions, and the strategies
+other than data parallelism (zero3, fsdp, tp, pp).
 """
 
 from __future__ import annotations
@@ -85,6 +103,9 @@ from tpu_ddp_torch.data.cifar10 import (
     synthetic_multilabel,
 )
 from tpu_ddp_torch.data.loader import ShardedBatchLoader
+from tpu_ddp_torch.health.monitor import POLICIES as HEALTH_POLICIES
+from tpu_ddp_torch.health.monitor import HealthMonitor, next_incarnation
+from tpu_ddp_torch.health.stats import HealthConfig, HealthFeed
 from tpu_ddp_torch.metrics.logging import MetricLogger
 from tpu_ddp_torch.metrics.timing import Throughput
 from tpu_ddp_torch.models import MODEL_REGISTRY, NetResDeep
@@ -164,8 +185,28 @@ class TrainConfig:
     resume: bool = False
     jsonl_path: Optional[str] = None
     tensorboard_dir: Optional[str] = None
+    shuffle: bool = True                  # False: the train loader's fixed order
+    health: str = "off"                   # "on": the numerics flight recorder
+    health_policy: str = "warn"           # warn | skip_step | halt
+    health_per_layer_stride: int = 0      # >0: per-layer norms every N steps
+    health_dir: Optional[str] = None      # health JSONL + anomalies/ run dir
+    health_window: int = 128              # spike detector rolling window
+    health_spike_threshold: float = 10.0  # spike at median + K * MAD
 
     def __post_init__(self):
+        if self.health not in ("off", "on"):
+            raise ValueError(
+                f"unknown health mode {self.health!r}; valid modes: off, on")
+        if self.health_policy not in HEALTH_POLICIES:
+            raise ValueError(
+                f"unknown health policy {self.health_policy!r}; valid "
+                f"policies: {', '.join(HEALTH_POLICIES)}")
+        if self.health_per_layer_stride < 0:
+            raise ValueError(
+                "health_per_layer_stride must be >= 0, got "
+                f"{self.health_per_layer_stride}")
+        if self.health_window < 4:
+            raise ValueError(f"health_window must be >= 4, got {self.health_window}")
         if self.checkpoint_steps < 0:
             raise ValueError(
                 f"checkpoint_steps must be >= 0, got {self.checkpoint_steps}"
@@ -270,13 +311,19 @@ def load_dataset(c: TrainConfig):
 
 
 class Trainer:
-    def __init__(self, config: TrainConfig):
+    def __init__(self, config: TrainConfig, *, train_data=None, test_data=None):
+        """``train_data``/``test_data``: ``(images, labels)`` that replace the
+        configured dataset's splits (the JAX trainer's); the test split
+        defaults to ``train_data`` when only that is given."""
         c = self.config = config
         self.device = resolve_device(c.device)
         set_float32_precision()
         self.logger = MetricLogger(c.jsonl_path, tensorboard_dir=c.tensorboard_dir)
         self.rank, self.world_size = rank(), world_size()
-        train_data, test_data = load_dataset(c)
+        if train_data is None:
+            train_data, test_data = load_dataset(c)
+        elif test_data is None:
+            test_data = train_data
         if c.loss == "bce" and np.asarray(train_data[1]).ndim != 2:
             raise ValueError(
                 "--loss bce needs multi-hot (N, C) targets; this dataset "
@@ -284,7 +331,7 @@ class Trainer:
                 "generator) or pass multi-hot train_data.")
         self.train_loader = ShardedBatchLoader(
             *train_data, world_size=self.world_size,
-            per_shard_batch=c.per_shard_batch, seed=c.seed)
+            per_shard_batch=c.per_shard_batch, shuffle=c.shuffle, seed=c.seed)
         self.test_loader = ShardedBatchLoader(
             *test_data, world_size=self.world_size,
             per_shard_batch=c.per_shard_batch, shuffle=False,
@@ -324,10 +371,29 @@ class Trainer:
             if c.label_smoothing:
                 loss_fn = functools.partial(cross_entropy_loss,
                                             label_smoothing=c.label_smoothing)
+        self.health_monitor = None
+        self._health_halted = None    # the step a halt verdict stopped at
+        health = None
+        if c.health != "off":
+            health = HealthConfig(per_layer=c.health_per_layer_stride > 0,
+                                  skip_nonfinite=c.health_policy == "skip_step")
+            if not c.health_dir:
+                log.warning(
+                    "health=on without --health-dir: detection and the %r "
+                    "policy are active, but no health JSONL or anomaly dumps "
+                    "will be written", c.health_policy)
+            self.health_monitor = HealthMonitor(
+                run_dir=c.health_dir, policy=c.health_policy,
+                per_layer_stride=c.health_per_layer_stride,
+                process_index=self.rank, window=c.health_window,
+                spike_threshold=c.health_spike_threshold,
+                run_meta=dataclasses.asdict(c),
+                incarnation=next_incarnation(c.health_dir, self.rank) if c.health_dir else 0)
+            self.health_feed = HealthFeed(self.health_monitor, lag=c.health_policy != "halt")
         self.train_step = make_train_step(self.tx, compress=self.compress,
                                           zero1=self.zero1, loss_fn=loss_fn,
                                           compute_accuracy=self.with_accuracy,
-                                          remat=c.remat)
+                                          remat=c.remat, health=health)
         self.eval_step = make_eval_step(loss_fn, compute_accuracy=self.with_accuracy)
         self.history = {"train_loss": [], "step_loss": [], "epoch": []}
         self.eval_batches = 0  # eval steps run so far (every evaluate call)
@@ -511,15 +577,24 @@ class Trainer:
                 # step's collectives
                 if self.world_size == 1 and self._preempted:
                     break
-                self.state, metrics = self.train_step(self.state, self.to_device(batch))
+                dev_batch = self.to_device(batch)
+                self.state, metrics = self.train_step(self.state, dev_batch)
                 step_losses.append(metrics["loss"])
                 host_step += 1
+                if (self.health_monitor is not None and self.health_feed.push(
+                        host_step - 1, metrics.pop("health"), dev_batch) == "halt"):
+                    # the stats are the same on every rank, so is the
+                    # verdict: every rank stops at this step
+                    self._health_halted = host_step
+                    break
                 if timed:
                     throughput.add(int(batch["mask"].sum()))
                     timed_steps += 1
                 if (self.checkpointer is not None and c.checkpoint_steps
                         and host_step % c.checkpoint_steps == 0):
                     self._save(host_step)
+            if self.health_monitor is not None:
+                self.health_feed.flush()
             # one sync an epoch
             losses = (torch.stack(step_losses).cpu().numpy() if step_losses
                       else np.zeros(0, np.float32))
@@ -533,6 +608,13 @@ class Trainer:
                        "no --checkpoint-dir, progress will NOT survive"))
                 out["preempted"] = True
                 break
+            if self._health_halted is not None:
+                self.logger.log_text(
+                    f"health anomaly at step {self._health_halted} with policy "
+                    "'halt': stopping training"
+                    + (" (saving final checkpoint)" if self.checkpointer else ""))
+                out["health_halted"] = True
+                break                             # the drain of a preemption
             mean_loss = float(np.mean(losses))
             self.history["epoch"].append(epoch)
             self.history["train_loss"].append(mean_loss)
@@ -584,17 +666,36 @@ class Trainer:
                 + (f"latest checkpoint remains step {prev}" if prev is not None
                    else "no checkpoint exists") + ")")
             self.checkpointer.wait_until_finished()
+        elif self._health_halted is not None and not self._params_finite():
+            # halt builds no skip guard: the poisoned update was applied, and
+            # NaN params must not become the checkpoint --resume restores
+            prev = self.checkpointer.latest_step()
+            self.logger.log_text(
+                "health halt: final params are non-finite; NOT checkpointing "
+                "them (" + (f"latest good checkpoint remains step {prev}"
+                            if prev is not None else "no checkpoint exists") + ")")
+            self.checkpointer.wait_until_finished()
         else:
             self._save(step, wait=True)
         if self.best_checkpointer:
             self.best_checkpointer.wait_until_finished()
         barrier()
 
+    def _params_finite(self) -> bool:
+        """Whether every param is finite (one host read for all of them; the
+        params are replicated, so every rank answers the same)."""
+        params = list(self.state.params().values())
+        bad = torch.stack([(~torch.isfinite(p)).any() for p in params]).any()
+        return not bool(bad)
+
     def close(self) -> None:
-        """Finish in-flight saves and close the metric sinks."""
+        """Finish in-flight saves and close the metric sinks and the health
+        record."""
         for ck in (self.checkpointer, self.best_checkpointer):
             if ck is not None:
                 ck.close()
+        if self.health_monitor is not None:
+            self.health_monitor.close()
         self.logger.close()
 
     def _eval_params(self):
