@@ -316,12 +316,38 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     the bit; then NetResDeep ``--kernels`` with health off and on in turns
     (2 epochs of 50 steps, epoch 2 timed; kernels a step over 5 profiled
     steps, four turns of each).
+22. The step variants and the in-step data path, through the train CLI. (a)
+    NetResDeep ``--kernels --steps-per-call 8`` against ``--steps-per-call
+    1`` under deterministic cuDNN, in turns (8, 1, 1, 8), 2 epochs of 48
+    steps (6 fused calls an epoch): per-step losses equal to the bit, K1
+    once an optimizer step (96), the steady ms a step (epoch 2) and, in the
+    second turn of each, over 16 more profiled steps (2 fused calls, or 16
+    single steps), kernels a step, device busy ms a step and the idle share:
+    no capture, so both should match within noise. (b) ViT-S/4 ``--attention
+    flash --kernels --optimizer adamw --batch-size 128 --grad-accum-steps
+    4`` against ``--grad-accum-steps 1``, 20 steps: the first 5 losses
+    within ``rtol=1e-4`` (LayerNorm only, so accumulation is exact up to
+    rounding), K4 6 x (4 x steps + eval batches), K5 = K6 = 6 x 4 x steps (6
+    x steps without accumulation), K1 once a step, peak memory of both. (c)
+    NetResDeep ``--kernels --augment --mixup-alpha 0.2``, 2 epochs of 30
+    steps under deterministic cuDNN; the same run SIGTERMed at batch 35
+    drains and saves, and ``--resume`` ends with the uninterrupted run's
+    losses and params to the bit, K1 once a resumed step; the draws on the
+    card (20,000 crop offsets and flips at one step) cover 0..8, flip about
+    half (within 4 sigma) and equal the CPU's draws to the bit. (d)
+    ``--dump-predictions`` after a short NetResDeep run: one row a test
+    image, the predictions the argmax of the eval-mode forward's logits,
+    their accuracy the trainer's ``final test accuracy``. (e) Two gloo ranks
+    sharing the card through the launcher, ``--steps-per-call 4 --grad-
+    compress int8 --grad-compress-error-feedback --kernels``, one epoch of
+    20 steps: K2 and K3 2 a step a rank, K1 1, the ring's wire calls exact,
+    replicas bitwise.
 
 The NetResDeep phases before 17 keep their sizes; the whole run takes ten
 to twelve minutes on the card, the build included. ``python3 chip_smoke.py
 --nccl N``, on a machine with N cards, runs phases 10 (at N ranks' chunks),
-12, 14, 17's two-rank part, 18c, 19d and 21b alone at N ranks, one card
-each, over NCCL. The line before the last is one JSON object
+12, 14, 17's two-rank part, 18c, 19d, 21b and 22e alone at N ranks, one
+card each, over NCCL. The line before the last is one JSON object
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -2852,24 +2878,33 @@ def ft_args(*extra, classes, model="resnet50", steps_per_epoch=FT_STEPS_PER_EPOC
             "--momentum", "0.9", "--lr", "1e-2", "--log-every-epochs", "1", *extra]
 
 
-def ft_run(label, args, want_k1):
+def counted_run(args):
     """``tpu_ddp_torch.cli.train.run(args)`` with the launch counts zeroed
-    just before and read just after; checks them (K1 ``want_k1``, nothing
-    else) and the losses (``FT_STEPS`` of them, finite, the last 10 below
-    the first 10). Returns (trainer, metrics)."""
+    just before and read just after, and the peak memory of the run.
+    Returns (trainer, metrics)."""
     import torch
 
     from tpu_ddp_torch import ops
     from tpu_ddp_torch.cli import train as cli
 
-    print(f"phase {label}: tpu_ddp_torch.cli.train {' '.join(args)}", flush=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     trainer, metrics = cli.run(args)
     torch.cuda.synchronize()
-    counts = metrics["launches"] = ops.launch_counts()
+    metrics["launches"] = ops.launch_counts()
     metrics["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return trainer, metrics
+
+
+def ft_run(label, args, want_k1):
+    """``tpu_ddp_torch.cli.train.run(args)`` with the launch counts zeroed
+    just before and read just after; checks them (K1 ``want_k1``, nothing
+    else) and the losses (``FT_STEPS`` of them, finite, the last 10 below
+    the first 10). Returns (trainer, metrics)."""
+    print(f"phase {label}: tpu_ddp_torch.cli.train {' '.join(args)}", flush=True)
+    trainer, metrics = counted_run(args)
+    counts = metrics["launches"]
     losses = metrics["step_losses"]
     first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
     print(f"  launches {counts}; mean loss of the first 10 steps {first:.5f}, last "
@@ -3944,12 +3979,257 @@ def phase_health_cost(tokens, smi):
     return {"lm": runs, "netresdeep": nrd}
 
 
+#: phase 22: (a) steps an epoch, the fused calls' K and the turns; (b) ViT
+#: steps and the accumulation's K; (c) steps an epoch and the SIGTERM's batch;
+#: (e) steps a rank
+P22_STEPS = 48
+P22_K = 8
+P22_TURNS = (P22_K, 1, 1, P22_K)
+P22_PROFILE_STEPS = 16
+P22_VIT_STEPS = 20
+P22_ACCUM = 4
+P22_AUG_STEPS = 30
+P22_AUG_SIGTERM_AT = 35
+P22_RANK_STEPS = 20
+
+
+def variant_profile(trainer, n=P22_PROFILE_STEPS):
+    """``n`` more steps of ``trainer`` under ``torch.profiler``, as fused
+    calls when it has them (``multi_step``) or single steps, one call
+    before, unprofiled: (host ms a step, device busy ms a step, idle share,
+    kernels a step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_ddp_torch.data.loader import step_groups
+    from tpu_ddp_torch.tools.profile_step import _device_us
+
+    k = trainer.steps_per_call if trainer.multi_step is not None else 1
+    step = trainer.multi_step or trainer.train_step
+    host = list(trainer.train_loader.epoch_batches(epoch=1000))[:n + k]
+    calls = [trainer.to_device(b) for _, b in step_groups(host, k)]
+    trainer.state, _ = step(trainer.state, calls[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in calls[1:]:
+            trainer.state, _ = step(trainer.state, b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / n * 1e3
+    busy_us, kernels, _ = _device_us(prof)
+    busy_ms = busy_us / n * 1e-3
+    return wall_ms, busy_ms, 1.0 - busy_ms / wall_ms, kernels / n
+
+
+def nrd_args(steps, epochs, *extra):
+    """NetResDeep at full width through the train CLI: ``--kernels``, batch
+    32, SGD lr 1e-2, ``epochs`` epochs of ``steps`` steps."""
+    return ["--device", "cuda", "--synthetic-data", "--synthetic-size", str(32 * steps),
+            "--epochs", str(epochs), "--kernels", "--n-chans1", "32", "--n-blocks", "10",
+            "--batch-size", "32", "--lr", "1e-2", "--log-every-epochs", "1", *extra]
+
+
+def phase_scan(smi):
+    """Phase 22a: ``--steps-per-call 8`` against 1 (module docstring)."""
+    import torch
+
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for k in P22_TURNS:
+            args = nrd_args(P22_STEPS, 2, "--steps-per-call", str(k))
+            print(f"phase 22a, deterministic cuDNN: tpu_ddp_torch.cli.train {' '.join(args)}",
+                  flush=True)
+            trainer, m = counted_run(args)
+            print(f"  launches {m['launches']}; steady {m['steady_step_ms']:.4f} ms a step "
+                  f"(epoch 2)", flush=True)
+            if k in runs:            # the second turn of each K is profiled
+                m["profile"] = variant_profile(trainer)
+                wall, busy, idle, kernels = m["profile"]
+                print(f"  profiled {P22_PROFILE_STEPS} more steps: {wall:.4f} ms a step, busy "
+                      f"{busy:.4f} ms, idle {idle:.4f}, {kernels:.1f} kernels a step",
+                      flush=True)
+            del trainer
+            want = {name: 0 for name in m["launches"]}
+            want["fused_update"] = 2 * P22_STEPS
+            if m["launches"] != want or m["steps"] != 2 * P22_STEPS:
+                fail(f"22a: {m['steps']} steps and launches {m['launches']}, expected "
+                     f"{2 * P22_STEPS} and {want}")
+            runs.setdefault(k, []).append(m)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    same = all(r["step_losses"] == runs[1][0]["step_losses"] for rs in runs.values() for r in rs)
+    print(f"  --steps-per-call {P22_K} against 1: {2 * P22_STEPS} step losses equal to the "
+          f"bit {same}; steady ms a step {[r['steady_step_ms'] for r in runs[P22_K]]} against "
+          f"{[r['steady_step_ms'] for r in runs[1]]}; kernels a step "
+          f"{runs[P22_K][1]['profile'][3]} against {runs[1][1]['profile'][3]} ({smi})",
+          flush=True)
+    if not same:
+        fail("22a: the fused calls' losses differ from the single steps'")
+    return runs
+
+
+def vit_accum_args(accum):
+    return ["--device", "cuda", "--synthetic-data", "--synthetic-size",
+            str(128 * P22_VIT_STEPS), "--epochs", "1", "--model", "vit_s4", "--attention",
+            "flash", "--kernels", "--optimizer", "adamw", "--lr", "1e-3", "--batch-size",
+            "128", "--grad-accum-steps", str(accum), "--log-every-epochs", "1"]
+
+
+def phase_grad_accum(smi):
+    """Phase 22b: ViT-S/4 flash with ``--grad-accum-steps 4`` against 1
+    (module docstring)."""
+    runs = {}
+    for accum in (P22_ACCUM, 1):
+        args = vit_accum_args(accum)
+        print(f"phase 22b: tpu_ddp_torch.cli.train {' '.join(args)}", flush=True)
+        trainer, m = counted_run(args)
+        steps, evals = m["steps"], trainer.eval_batches
+        del trainer
+        per = VIT_DEPTH * accum * steps
+        want = {name: 0 for name in m["launches"]}
+        want.update(fused_update=steps, flash_attention_fwd=per + VIT_DEPTH * evals,
+                    flash_attention_dq=per, flash_attention_dkv=per)
+        print(f"  steps {steps}, eval batches {evals}; launches {m['launches']}; steady "
+              f"{m['steady_step_ms']:.4f} ms a step; max_memory_allocated "
+              f"{m['max_memory_allocated']} B ({smi})", flush=True)
+        if m["launches"] != want or steps != P22_VIT_STEPS:
+            fail(f"22b: {steps} steps and launches {m['launches']}, expected "
+                 f"{P22_VIT_STEPS} and {want}")
+        if not all(math.isfinite(x) for x in m["step_losses"]):
+            fail("22b: a loss is not finite")
+        runs[accum] = m
+    rel = rel_diffs(runs[P22_ACCUM]["step_losses"], runs[1]["step_losses"])
+    print(f"  accumulated against the full batch, first {PLAIN_STEPS_RTOL} losses: relative "
+          f"differences {' '.join(f'{r:.3g}' for r in rel)} (limit 1e-4)", flush=True)
+    if not max(rel) <= 1e-4:
+        fail("22b: the accumulated step's first losses differ from the full batch's")
+    return runs
+
+
+def card_draws():
+    """22c's draw check: 20,000 crop offsets and flips at one step on the
+    card cover 0..8 and flip about half, and equal the CPU's to the bit."""
+    import torch
+
+    from tpu_ddp_torch.data import augment
+
+    n = 20_000
+    offsets, flip = augment.crop_flip_draws(0, torch.tensor(7, device="cuda"), 0, n)
+    perm, lam = augment.mixup_draws(0, torch.tensor(7, device="cuda"), 0, 32, alpha=0.2)
+    cpu = augment.crop_flip_draws(0, torch.tensor(7), 0, n)
+    cpu_mix = augment.mixup_draws(0, torch.tensor(7), 0, 32, alpha=0.2)
+    counts = torch.bincount(offsets.reshape(-1), minlength=9).tolist()
+    rate = float(flip.float().mean())
+    same = (torch.equal(offsets.cpu(), cpu[0]) and torch.equal(flip.cpu(), cpu[1])
+            and torch.equal(perm.cpu(), cpu_mix[0]))
+    lam_diff = abs(float(lam) - float(cpu_mix[1]))
+    print(f"  draws on the card: offsets by value {counts}, flip rate {rate:.4f}, the CPU's "
+          f"offsets, flips and partners to the bit {same}, lambda {float(lam):.6f} "
+          f"(CPU {float(cpu_mix[1]):.6f})", flush=True)
+    if len(counts) != 9 or min(counts) == 0 or abs(rate - 0.5) > 4 * (0.25 / n) ** 0.5:
+        fail("22c: the card's crop offsets do not cover 0..8 or its flips are not about half")
+    if not same or lam_diff > 1e-6:
+        fail("22c: the card's draws differ from the CPU's")
+
+
+def phase_augment_resume(tmp):
+    """Phase 22c: ``--augment --mixup-alpha 0.2`` cut by SIGTERM and resumed,
+    bitwise the uninterrupted run (module docstring)."""
+    import torch
+
+    from tpu_ddp_torch import ops
+    from tpu_ddp_torch.cli import train as cli
+
+    args = nrd_args(P22_AUG_STEPS, 2, "--augment", "--mixup-alpha", "0.2")
+    ck = os.path.join(tmp, "augment_ckpt")
+    print(f"phase 22c, deterministic cuDNN, SIGTERM at batch {P22_AUG_SIGTERM_AT}: "
+          f"tpu_ddp_torch.cli.train {' '.join(args)} --checkpoint-dir DIR", flush=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        full, full_m = cli.run(args)
+        undo = sigterm_at(P22_AUG_SIGTERM_AT)
+        try:
+            _, cut_m = cli.run(args + ["--checkpoint-dir", ck])
+        finally:
+            undo()
+        resumed, res_m = counted_run(args + ["--checkpoint-dir", ck, "--resume"])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    counts = res_m["launches"]
+    want = {name: 0 for name in counts}
+    want["fused_update"] = 2 * P22_AUG_STEPS - P22_AUG_SIGTERM_AT
+    losses = full_m["step_losses"]
+    bitwise = (cut_m["step_losses"] + res_m["step_losses"] == losses
+               and same_weights(resumed.state.model.state_dict(),
+                                full.state.model.state_dict()))
+    print(f"  drained {cut_m.get('preempted', False)} at step {cut_m['steps']}; resumed "
+          f"{len(res_m['step_losses'])} steps, launches {counts}; losses and final params "
+          f"bitwise the uninterrupted run's {bitwise}; losses finite "
+          f"{all(math.isfinite(x) for x in losses)}", flush=True)
+    if not cut_m.get("preempted") or cut_m["steps"] != P22_AUG_SIGTERM_AT:
+        fail("22c: the SIGTERMed run did not drain at the step it was signalled")
+    if not bitwise or counts != want or not all(math.isfinite(x) for x in losses):
+        fail(f"22c: the resumed run is not bitwise the uninterrupted one, its losses are "
+             f"not finite, or it launched {counts} (expected {want})")
+    card_draws()
+
+
+def phase_dump_predictions(tmp):
+    """Phase 22d: ``--dump-predictions`` after a short NetResDeep run
+    (module docstring)."""
+    import numpy as np
+    import torch
+
+    path = os.path.join(tmp, "predictions.json")
+    args = nrd_args(20, 1, "--dump-predictions", path)
+    print(f"phase 22d, deterministic cuDNN: tpu_ddp_torch.cli.train {' '.join(args)}",
+          flush=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        trainer, m = counted_run(args)
+        images = torch.as_tensor(trainer.test_loader.images).to("cuda")
+        with torch.no_grad():
+            trainer.state.model.eval()
+            # the predict step's batches: the test set is a whole number of them
+            want = torch.cat([trainer.state.model(x) for x in images.split(32)])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    with open(path) as f:
+        dump = json.load(f)
+    preds, labels = np.asarray(dump["predictions"]), np.asarray(dump["labels"])
+    argmax = want.argmax(-1).cpu().numpy()
+    acc = float(np.mean(preds == labels))
+    print(f"  {len(preds)} rows for {len(trainer.test_loader.images)} test images; "
+          f"predictions equal the eval forward's argmax {np.array_equal(preds, argmax)}; "
+          f"labels the test set's {np.array_equal(labels, trainer.test_loader.labels)}; "
+          f"accuracy {acc} against the trainer's {m['test_accuracy']}", flush=True)
+    if len(preds) != len(trainer.test_loader.images) or not np.array_equal(preds, argmax) \
+            or not np.array_equal(labels, trainer.test_loader.labels) \
+            or acc != m["test_accuracy"]:
+        fail("22d: the dump does not hold the test set's predictions and accuracy")
+
+
+def phase_scan_ranks(tmp, nproc=2, backend="gloo"):
+    """Phase 22e: two ranks through the launcher, ``--steps-per-call 4``
+    over the int8 ring with error feedback (module docstring)."""
+    args = short_args(dp_args(True, nproc, backend), nproc, P22_RANK_STEPS)
+    args += ["--steps-per-call", "4"]
+    metrics, same = launch_dp(tmp, "scan_ranks", args, nproc, phase="22e")
+    check_run("22e", metrics, same, P22_RANK_STEPS, dp_launches(nproc))
+    wire = {k: v * P22_RANK_STEPS for k, v in ring_wire_calls(nproc, True, False).items()}
+    for r, m in enumerate(metrics):
+        if m["wire_calls"] != wire:
+            fail(f"22e: rank {r} made {m['wire_calls']} wire calls, expected {wire}")
+    return metrics
+
+
 def nccl_main(nproc):
     """``python3 chip_smoke.py --nccl N`` on a machine with N cards: phase
     10 with NetResDeep's chunks at N ranks, then phases 12, 14, 17's
     resume (``phase_checkpoint_dp``) and 18c at N ranks, one card each, over
     NCCL (the default backend on cuda), 19d's fine-tune and 21b's flight
-    recorder at N ranks."""
+    recorder and 22e's fused calls at N ranks."""
     import shutil
     import tempfile
 
@@ -3972,6 +4252,7 @@ def nccl_main(nproc):
         phase_lm_ranks(tmp, nproc, "nccl")
         phase_finetune_ranks(tmp, nproc, "nccl")
         phase_health_ranks(tmp, nproc, "nccl")
+        phase_scan_ranks(tmp, nproc, "nccl")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"chip_smoke --nccl {nproc}: ok", flush=True)
@@ -4085,6 +4366,17 @@ def main():
     del lm_tokens_32k
     torch.cuda.empty_cache()
     print(f"phase 21 took {time.perf_counter() - t21:.1f} s", flush=True)
+    t22 = time.perf_counter()
+    phase_scan(smi)
+    phase_grad_accum(smi)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
+    try:
+        phase_augment_resume(tmp)
+        phase_dump_predictions(tmp)
+        phase_scan_ranks(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 22 took {time.perf_counter() - t22:.1f} s", flush=True)
     print_accounting()
     rows += phase_lm_timing(results, flash_results, lm_runs["flash"]["launches"])
     rows += phase_finetune_timing(results, ft_runs)

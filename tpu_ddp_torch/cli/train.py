@@ -2,8 +2,10 @@
 
 Counterpart of ``tpu_ddp/cli/train.py`` (``build_parser``, ``main`` :609,
 ``_run_and_report`` :635) for this slice's flags, with the JAX CLI's names,
-defaults and help. It trains on the GPU unless ``--device cpu`` is given,
-and refuses to start without one otherwise. A run drained by SIGTERM or
+defaults and help. After the final evaluation ``--dump-predictions`` and
+``--viz-predictions`` run the test set's batch inference (:670-737). It
+trains on the GPU unless ``--device cpu`` is given, and refuses to start
+without one otherwise. A run drained by SIGTERM or
 SIGINT has saved its checkpoint and skips the final evaluation;
 ``--resume`` continues it at the step it stopped at. Started by
 ``python -m tpu_ddp_torch.cli.launch``, it joins the launcher's process
@@ -14,9 +16,18 @@ a flag the JAX CLI does not need: one JAX process drives every device).
 from __future__ import annotations
 
 import argparse
+import json
 
+import numpy as np
+
+from tpu_ddp_torch.metrics.evaluation import mean_average_precision, multilabel_predictions
 from tpu_ddp_torch.models import MODEL_REGISTRY
-from tpu_ddp_torch.parallel.runtime import BACKENDS, initialize_distributed, shutdown
+from tpu_ddp_torch.parallel.runtime import (
+    BACKENDS,
+    initialize_distributed,
+    is_primary_process,
+    shutdown,
+)
 from tpu_ddp_torch.runtime import DEVICES
 from tpu_ddp_torch.train.trainer import COMPUTE_DTYPES, DATASETS, TrainConfig, Trainer
 
@@ -50,6 +61,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup-steps", type=int, default=0)
     p.add_argument("--grad-clip-norm", type=float, default=0.0,
                    help="clip the global gradient norm before the update (0 = off)")
+    p.add_argument("--mixup-alpha", type=float, default=0.0,
+                   help="on-device mixup: one Beta(alpha,alpha) lambda per "
+                        "shard step blends images and the CE loss "
+                        "(0 = off, typical 0.2); composes with --augment")
     p.add_argument("--ema-decay", type=float, default=0.0,
                    help="exponential moving average of the params (0 = off); "
                         "eval uses the averaged weights")
@@ -121,9 +136,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--untied-blocks", action="store_true",
                    help="independent ResBlocks (the reference ties them)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--augment", action="store_true",
+                   help="on-device random crop+flip (the reference has no "
+                        "augmentation; needed for the 93%% target)")
     p.add_argument("--no-shuffle", action="store_true")
     p.add_argument("--eval-each-epoch", action="store_true")
     p.add_argument("--log-every-epochs", type=int, default=10)
+    p.add_argument("--viz-predictions", default=None, metavar="DIR",
+                   help="write predictions.png (pred-vs-true image grid) + "
+                        "confusion_matrix.png after the final eval — the "
+                        "classification analogue of the reference's "
+                        "prediction drawing (ppe_main_ddp.py:355-396)")
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--checkpoint-every-epochs", type=int, default=10)
     p.add_argument("--checkpoint-steps", type=int, default=0, metavar="N",
@@ -139,6 +162,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "--eval-each-epoch; best step + accuracy recorded "
                         "in best/metadata.json)")
     p.add_argument("--jsonl", default=None, help="metrics JSONL path")
+    p.add_argument("--plot-curves", default=None, metavar="PNG",
+                   help="write loss-curve PNG at end (ppe_main_ddp.py:176-181)")
+    p.add_argument("--dump-predictions", default=None, metavar="JSON",
+                   help="batch-infer the test set and dump predictions "
+                        "(ppe_main_ddp.py:310-396)")
+    p.add_argument("--steps-per-call", type=int, default=1,
+                   help=">1 runs K optimizer steps per call over K stacked "
+                        "batches (one host-to-device copy a group) — "
+                        "semantics unchanged")
+    p.add_argument("--grad-accum-steps", type=int, default=1,
+                   help=">1 splits each optimizer step into K sequential "
+                        "microbatches (gradient accumulation): same "
+                        "semantics, ~1/K activation memory — the big-"
+                        "global-batch knob")
     p.add_argument("--tensorboard-dir", default=None,
                    help="write TensorBoard scalar events here "
                         "(process-0 only), alongside --jsonl")
@@ -229,6 +266,12 @@ def config_from_args(args) -> TrainConfig:
         health_dir=args.health_dir,
         health_window=args.health_window,
         health_spike_threshold=args.health_spike_threshold,
+        augment=args.augment,
+        mixup_alpha=args.mixup_alpha,
+        steps_per_call=args.steps_per_call,
+        grad_accum_steps=args.grad_accum_steps,
+        plot_curves=args.plot_curves,
+        dump_predictions=args.dump_predictions,
     )
 
 
@@ -279,7 +322,50 @@ def _run_and_report(args, config, trainer) -> dict:
     else:   # accuracy is undefined for multi-hot targets
         trainer.logger.log_text(f"final test loss: {loss:.4f}")
     metrics.update(test_loss=loss, eval_batches=trainer.eval_batches)
+    if args.dump_predictions or args.viz_predictions:
+        _predictions(args, config, trainer, metrics)
     return metrics
+
+
+def _predictions(args, config, trainer, metrics) -> None:
+    """The post-training batch inference of the JAX CLI (:670-737): the
+    test set's predictions (argmax, or BCE's thresholded sigmoid with the
+    mAP logged) dumped as JSON, and the prediction grid and confusion
+    matrix; ``Trainer.predict`` is a collective, every rank runs it, rank 0
+    writes."""
+    logits, labels = trainer.predict()
+    if config.loss == "bce":
+        scores = 1.0 / (1.0 + np.exp(-logits))
+        ap = mean_average_precision(scores, labels)
+        trainer.logger.log_text(f"test mAP: {ap['mAP']:.4f}")
+        metrics["test_mAP"] = ap["mAP"]
+        preds = multilabel_predictions(scores)
+    else:
+        preds = np.argmax(logits, axis=-1)
+    if not is_primary_process():
+        return
+    if args.dump_predictions:
+        with open(args.dump_predictions, "w") as f:
+            json.dump({"predictions": np.asarray(preds).tolist(),
+                       "labels": np.asarray(labels).tolist()}, f)
+        trainer.logger.log_text(f"predictions -> {args.dump_predictions}")
+    if args.viz_predictions:
+        if config.loss != "ce":
+            trainer.logger.log_text(
+                "--viz-predictions skipped: class-grid/confusion images need "
+                "class-index labels (--loss ce); use the mAP/PR plots for multi-label")
+            return
+        from tpu_ddp_torch.metrics.visualization import save_prediction_artifacts
+
+        # predict() gives rows in sampler order, not dataset order: each
+        # prediction's dataset row comes from the loader's own index stream
+        row_order = np.concatenate([idx[mask] for idx, mask in
+                                    trainer.test_loader.epoch_index_batches(epoch=0)])
+        paths = save_prediction_artifacts(
+            trainer.test_loader.images[row_order], np.asarray(labels), np.asarray(preds),
+            args.viz_predictions, num_classes=config.num_classes)
+        trainer.logger.log_text(
+            f"prediction viz -> {paths['grid']}, {paths['confusion_matrix']}")
 
 
 def main(argv=None) -> dict:

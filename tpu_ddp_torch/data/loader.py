@@ -10,16 +10,19 @@ yield the same batches for the same seed:
 * every batch has the same shape: the short last batch is wrap-padded and a
   boolean ``mask`` marks its real rows.
 
+``step_groups`` fuses an epoch's batches into stacked groups of K for
+``--steps-per-call`` (the JAX trainer's ``_epoch_stream``, :1439-1531).
+
 The JAX loader's telemetry and observer hooks, multi-host slicing,
-``drop_last`` and frozen epoch order are not ported yet; the gather is
-numpy fancy indexing.
+``drop_last``, frozen epoch order and the host prefetchers are not ported
+yet; the gather is numpy fancy indexing.
 """
 
 from __future__ import annotations
 
 import itertools
 import math
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterable, Iterator, Optional
 
 import numpy as np
 
@@ -113,3 +116,24 @@ class ShardedBatchLoader:
 
     def __len__(self):
         return self.steps_per_epoch
+
+
+def step_groups(batches: Iterable[Dict[str, np.ndarray]],
+                steps_per_call: int) -> Iterator[tuple]:
+    """Yield ``("stacked", group)`` for each run of ``steps_per_call``
+    batches, every array of ``group`` stacked on a new leading (K,) axis (one
+    host-to-device copy a group), and ``("single", batch)`` for the epoch's
+    remainder, shorter than K, so the fused call's shapes stay static. With
+    ``steps_per_call <= 1`` every batch is single."""
+    if steps_per_call <= 1:
+        for batch in batches:
+            yield "single", batch
+        return
+    pending = []
+    for batch in batches:
+        pending.append(batch)
+        if len(pending) == steps_per_call:
+            yield "stacked", {k: np.stack([b[k] for b in pending]) for k in pending[0]}
+            pending = []
+    for batch in pending:
+        yield "single", batch

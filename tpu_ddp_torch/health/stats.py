@@ -196,11 +196,14 @@ class ScalarRead:
     (the JAX trainer's one ``device_get`` of the scalar subtree a step):
     started at construction (on a card into pinned memory, with an event
     after it, so the host does not wait), read by ``result()`` as Python
-    floats and bools."""
+    floats and bools. The stats of a fused K-step call (``train/steps.py::
+    scan``: every leaf with a leading (K,) axis) are ``stacked`` and still
+    one copy."""
 
     def __init__(self, stats: Dict[str, Any]):
         self.keys = [k for k in stats if k != "per_layer"]
         vec = torch.stack([stats[k].to(torch.float32) for k in self.keys])
+        self.stacked = vec.dim() == 2
         self._event = None
         if vec.is_cuda:
             self._host = torch.empty(vec.shape, dtype=vec.dtype, pin_memory=True)
@@ -210,33 +213,43 @@ class ScalarRead:
         else:
             self._host = vec
 
-    def result(self) -> Dict[str, Any]:
+    def result(self) -> List[Dict[str, Any]]:
+        """One dict of host values a step, in step order."""
         if self._event is not None:
             self._event.synchronize()
-        values = self._host.tolist()
-        return {k: (bool(v) if k.endswith("_finite") else v) for k, v in zip(self.keys, values)}
+        rows = self._host.tolist()
+        per_step = list(zip(*rows)) if self.stacked else [rows]
+        return [{k: (bool(v) if k.endswith("_finite") else v) for k, v in zip(self.keys, vals)}
+                for vals in per_step]
 
 
-def per_layer_to_host(per_layer: Dict[str, Dict[str, torch.Tensor]]) -> Dict[str, dict]:
-    """The per-layer norms as Python floats, in one more copy."""
+def per_layer_to_host(per_layer: Dict[str, Dict[str, torch.Tensor]]) -> List[Dict[str, dict]]:
+    """The per-layer norms as Python floats, in one more copy: one dict a
+    step (one for a single step's, K for a fused call's)."""
     groups = list(per_layer)
     names = list(per_layer[groups[0]])
-    rows = torch.stack([torch.stack([per_layer[g][n] for n in names])
-                        for g in groups]).cpu().tolist()
-    return {g: dict(zip(names, row)) for g, row in zip(groups, rows)}
+    table = torch.stack([torch.stack([per_layer[g][n] for n in names])
+                         for g in groups]).cpu()
+    if table.dim() == 2:
+        table = table[..., None]
+    return [{g: dict(zip(names, row)) for g, row in zip(groups, table[..., j].tolist())}
+            for j in range(table.shape[-1])]
 
 
 class HealthFeed:
-    """Feeds a ``health.monitor.HealthMonitor`` each step's stats: the
+    """Feeds a ``health.monitor.HealthMonitor`` each call's stats: the
     scalars in one copy to the host (``ScalarRead``), the per-layer norms
-    only on a stride step or when a sentinel tripped, the batch only when
-    a dump is written (``batch``: the step's tensors). With ``lag`` a step's
-    copy is read only once the next step has been enqueued, so the read does
-    not drain the device's queue each step (the ``warn`` and ``skip_step``
-    policies: their verdicts change nothing in the loop, and the skip
-    itself happened in the step); without it (``halt``) it is read at once,
-    so the run stops at the step that tripped. ``flush`` reads what is
-    still pending."""
+    only when a step of the call is a stride step or tripped a sentinel,
+    the batch only when a dump is written (``batch``: the call's tensors). A
+    fused K-step call (stats and batch with a leading (K,) axis) gives K
+    records, steps ``step`` to ``step + K - 1``, and the strongest verdict
+    among them (the JAX trainer's ``_on_health``, :2513-2556). With ``lag``
+    a call's copy is read only once the next call has been enqueued, so the
+    read does not drain the device's queue each call (the ``warn`` and
+    ``skip_step`` policies: their verdicts change nothing in the loop, and
+    the skip itself happened in the step); without it (``halt``) it is read
+    at once, so the run stops at the end of the call that tripped.
+    ``flush`` reads what is still pending."""
 
     def __init__(self, monitor, lag: bool):
         self.monitor = monitor
@@ -244,8 +257,8 @@ class HealthFeed:
         self._pending: Optional[tuple] = None
 
     def push(self, step: int, stats: Dict[str, Any], batch: Dict[str, torch.Tensor]) -> str:
-        """Start ``step``'s copy; returns the verdict of the step read now
-        ("ok" when none is)."""
+        """Start the copy of the call whose first step is ``step``; returns
+        the verdict of the call read now ("ok" when none is)."""
         read = (step, ScalarRead(stats), stats.get("per_layer"), batch)
         if self.lag:
             read, self._pending = self._pending, read
@@ -256,16 +269,27 @@ class HealthFeed:
         return "ok" if read is None else self._consume(*read)
 
     def _consume(self, step, scalars, per_layer, batch) -> str:
-        host = scalars.result()
+        hosts = scalars.result()
         stride = self.monitor.per_layer_stride
-        if per_layer is not None and (not host["all_finite"]
-                                      or (stride and step % stride == 0)):
-            host["per_layer"] = per_layer_to_host(per_layer)
+        layers = None
+        if per_layer is not None and (
+                not all(h["all_finite"] for h in hosts)
+                or (stride and any((step + j) % stride == 0 for j in range(len(hosts))))):
+            layers = per_layer_to_host(per_layer)
+        verdicts = []
+        for j, host in enumerate(hosts):
+            if layers is not None:
+                host["per_layer"] = layers[j]
 
-        def batch_provider():
-            return {k: v.cpu().numpy() for k, v in batch.items()}
+            def batch_provider(j=j):
+                return {k: (v[j] if scalars.stacked else v).cpu().numpy()
+                        for k, v in batch.items()}
 
-        return self.monitor.on_step(step, host, batch_provider=batch_provider)
+            verdicts.append(self.monitor.on_step(step + j, host,
+                                                 batch_provider=batch_provider))
+        if "halt" in verdicts:
+            return "halt"
+        return next((v for v in verdicts if v != "ok"), "ok")
 
 
 @torch.no_grad()

@@ -17,9 +17,9 @@ replicated layout), and the error-feedback residual: from one rank
 ``grad_residual_rows``, every rank's leaf-major residual, whose sum in rank
 order is the param-layout residual (see
 ``parallel/compression.py::GradCompressor.shard_residual``). The data order
-comes from ``(seed, epoch)`` (``data/loader.py``), and nothing on the
-port's path draws random numbers while it trains (no augment, mixup or
-dropout is ported), so no loader or generator state is saved.
+comes from ``(seed, epoch)`` (``data/loader.py``), and the in-step draws of
+augment and mixup from ``(seed, step, rank)`` (``data/augment.py``), so no
+loader or generator state is saved.
 """
 
 from __future__ import annotations

@@ -59,8 +59,15 @@ which then sends the restored shards. The error-feedback residual keeps
 its old value the same way. No step builder reads a device value on the
 host: the guard's ``ok`` stays on the device.
 
-Not ported yet: zero3, augment, mixup and auxiliary losses, and the scanned
-and accumulating steps (health in them comes with them).
+The step variants (the JAX builders of these names): ``augment`` and
+``mixup_alpha`` in ``make_train_step`` (the in-step data path,
+``data/augment.py``); ``scan``/``make_scan_train_step``, K calls of the one
+step body over K stacked batches (``--steps-per-call``; the semantics of
+the JAX ``lax.scan``, not yet one captured graph); the accumulating step,
+``make_grad_accum_train_step``, which shares ``sync_and_update``;
+``make_predict_step``. Health rides in every one of them.
+
+Not ported yet: zero3 and auxiliary losses (the MoE router's).
 """
 
 from __future__ import annotations
@@ -72,6 +79,7 @@ import torch
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
+from tpu_ddp_torch.data import augment as augment_ops
 from tpu_ddp_torch.health.stats import (
     HealthConfig,
     SkipGuard,
@@ -86,7 +94,7 @@ from tpu_ddp_torch.parallel.collectives import (
     rank_mean,
     sync_gradients,
 )
-from tpu_ddp_torch.parallel.runtime import world_size
+from tpu_ddp_torch.parallel.runtime import rank, world_size
 from tpu_ddp_torch.train.losses import cross_entropy_loss, masked_accuracy
 from tpu_ddp_torch.train.optim import OptState, Optimizer
 from tpu_ddp_torch.train.state import COUNTS, SLOTS, TrainState
@@ -238,11 +246,61 @@ def sync_and_update(tx: Optimizer, state: TrainState, grads: Dict[str, torch.Ten
     return stats
 
 
+def _forward(model: torch.nn.Module, images: torch.Tensor, remat: bool) -> torch.Tensor:
+    """The train-mode forward, its whole graph checkpointed under ``remat``
+    for a model without per-block recompute."""
+    if resolve_remat(model, remat):
+        return checkpointed_forward(model, images)
+    return model(images)
+
+
+def _augmented(batch: Batch, step: torch.Tensor, *, augment: bool, seed: int,
+               mixup_alpha: float) -> Batch:
+    """``batch`` with the JAX step's in-step data path applied (:209-226):
+    crop and flip, then mixup, whose partner labels and lambda ride along
+    as ``_mix_label`` and ``_mix_lam``. The draws are keyed on ``(seed,
+    step, rank)`` on the device (``data/augment.py``)."""
+    rows, r = batch["image"].shape[0], rank()
+    out = dict(batch)
+    if augment:
+        offsets, flip = augment_ops.crop_flip_draws(seed, step, r, rows)
+        out["image"] = augment_ops.crop_flip(out["image"], offsets, flip)
+    if mixup_alpha > 0:
+        perm, lam = augment_ops.mixup_draws(seed, step, r, rows, alpha=mixup_alpha,
+                                            valid=batch.get("mask"))
+        out["image"] = augment_ops.mix(out["image"], perm, lam)
+        out["_mix_label"], out["_mix_lam"] = batch["label"][perm], lam
+    return out
+
+
+def _metric_sums(loss: torch.Tensor, logits: torch.Tensor, batch: Batch,
+                 compute_accuracy: bool) -> torch.Tensor:
+    """``(loss, correct, count)`` of this rank's rows: the metric sums a
+    step all-reduces (the counts 0 without accuracy)."""
+    correct = count = torch.zeros_like(loss)
+    if compute_accuracy:
+        correct, count = masked_accuracy(logits, batch["label"], batch.get("mask"))
+    return torch.stack([loss, correct, count])
+
+
+def _step_metrics(sums: torch.Tensor, n: int, compute_accuracy: bool, stats) -> dict:
+    """A step's metrics from its metric sums over the ranks (loss, correct,
+    count) and its health stats."""
+    metrics = {"loss": rank_mean(sums[0], n)}
+    if compute_accuracy:
+        metrics["accuracy"] = sums[1] / torch.clamp_min(sums[2], 1.0)
+    if stats is not None:
+        metrics["health"] = stats
+    return metrics
+
+
 def make_train_step(tx: Optimizer, *, compress=None, zero1=None,
                     loss_fn: Callable = cross_entropy_loss,
                     compute_accuracy: bool = True,
                     remat: bool = False,
-                    health: Optional[HealthConfig] = None) -> Callable[[TrainState, Batch], tuple]:
+                    health: Optional[HealthConfig] = None,
+                    augment: bool = False, augment_seed: int = 0,
+                    mixup_alpha: float = 0.0) -> Callable[[TrainState, Batch], tuple]:
     """``step(state, batch) -> (state, {"loss", "accuracy"})`` (no
     ``accuracy`` when ``compute_accuracy`` is False; ``health`` too under
     ``health``); ``state`` is updated in place and returned. ``batch`` holds
@@ -251,7 +309,11 @@ def make_train_step(tx: Optimizer, *, compress=None, zero1=None,
     ``parallel.zero.Zero1Partition`` built over ``tx``, with ``compress``
     attached when both are given) shards the update; ``remat`` recomputes
     the forward in the backward; ``health`` adds the flight recorder
-    (module docstring)."""
+    (module docstring). ``augment`` crops and flips the images and
+    ``mixup_alpha > 0`` mixes them, with draws keyed on ``(augment_seed,
+    state.step, rank)``; the loss is then ``lam * loss(y) + (1 - lam) *
+    loss(y[perm])``, the reported loss too, and the accuracy counts the
+    true labels (the JAX ``_make_shard_step`` :179-226)."""
     recorder = StepHealth(health) if health is not None else None
 
     def train_step(state: TrainState, batch: Batch):
@@ -259,34 +321,149 @@ def make_train_step(tx: Optimizer, *, compress=None, zero1=None,
         model = state.model
         model.train()
         params = state.params()
+        if augment or mixup_alpha > 0:
+            batch = _augmented(batch, state.step, augment=augment, seed=augment_seed,
+                               mixup_alpha=mixup_alpha)
         if recorder is not None:
             recorder.before_forward(model)
-        if resolve_remat(model, remat):
-            logits = checkpointed_forward(model, batch["image"])
-        else:
-            logits = model(batch["image"])
-        loss = loss_fn(logits, batch["label"], batch.get("mask"))
+        logits = _forward(model, batch["image"], remat)
+        mask = batch.get("mask")
+        loss = loss_fn(logits, batch["label"], mask)
+        if mixup_alpha > 0:
+            lam = batch["_mix_lam"]
+            loss = lam * loss + (1.0 - lam) * loss_fn(logits, batch["_mix_label"], mask)
         if n > 1:
             all_reduce_mean_([b for _, b in model.named_buffers()])
         grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
         with torch.no_grad():
-            loss = loss.detach()
-            correct = count = torch.zeros_like(loss)
-            if compute_accuracy:
-                correct, count = masked_accuracy(logits, batch["label"],
-                                                 batch.get("mask"))
-            sums = torch.stack([loss, correct, count])
+            sums = _metric_sums(loss.detach(), logits, batch, compute_accuracy)
         stats = sync_and_update(tx, state, grads, params, sums, compress=compress,
                                 zero1=zero1, health=recorder)
         with torch.no_grad():
-            metrics = {"loss": rank_mean(sums[0], n)}
-            if compute_accuracy:
-                metrics["accuracy"] = sums[1] / torch.clamp_min(sums[2], 1.0)
-            if stats is not None:
-                metrics["health"] = stats
-        return state, metrics
+            return state, _step_metrics(sums, n, compute_accuracy, stats)
 
     return train_step
+
+
+def _stack(trees: list):
+    """Dicts of equal structure, their tensor leaves stacked on a new
+    leading axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def scan(step: Callable, steps_per_call: int) -> Callable[[TrainState, Batch], tuple]:
+    """``multi(state, batches)``: ``step`` run ``steps_per_call`` times,
+    over ``batches[k]`` for each k in order, where every tensor of
+    ``batches`` has a leading (K,) axis (K stacked batches of this rank's
+    rows); the metrics leaves, ``health`` included, gain the same leading
+    axis. The JAX ``make_scan_train_step`` (:393-459) as a loop over the one
+    step body: the state (ZeRO-1's shards, the error-feedback residual, the
+    skip guard's buffers) is carried in place, the draws of
+    ``augment``/``mixup`` are keyed on each step's ``state.step``, so a call
+    is bitwise ``steps_per_call`` single steps, and nothing in it reads a
+    device value on the host."""
+    def multi_step(state: TrainState, batches: Batch):
+        got = batches["image"].shape[0]
+        if got != steps_per_call:
+            raise ValueError(f"stacked batches of {got} steps for a scan of {steps_per_call}")
+        outs = []
+        for k in range(steps_per_call):
+            state, metrics = step(state, {key: v[k] for key, v in batches.items()})
+            outs.append(metrics)
+        with torch.no_grad():
+            return state, _stack(outs)
+
+    return multi_step
+
+
+def make_scan_train_step(tx: Optimizer, *, steps_per_call: int,
+                         **kwargs) -> Callable[[TrainState, Batch], tuple]:
+    """``scan`` of ``make_train_step(tx, **kwargs)`` (``--steps-per-call``)."""
+    return scan(make_train_step(tx, **kwargs), steps_per_call)
+
+
+def make_grad_accum_train_step(tx: Optimizer, *, accum_steps: int, compress=None, zero1=None,
+                               loss_fn: Callable = cross_entropy_loss,
+                               compute_accuracy: bool = True, remat: bool = False,
+                               health: Optional[HealthConfig] = None
+                               ) -> Callable[[TrainState, Batch], tuple]:
+    """One optimizer step over this rank's rows split into ``accum_steps``
+    microbatches of ``rows / accum_steps`` (``--grad-accum-steps``; the JAX
+    ``make_grad_accum_train_step`` :462-656). Each microbatch runs its
+    forward and backward alone (activations of one microbatch live at a
+    time); BatchNorm normalises each by its own statistics and chains its
+    running buffers through them, averaged over the ranks once after the
+    loop. The gradients are summed in microbatch order and divided by K,
+    then one ``sync_and_update``: one all-reduce, one compressed ring or one
+    ZeRO-1 reduce-scatter, and one optimizer update (K1 once), per
+    accumulated batch. ``loss`` is the microbatches' mean loss averaged over
+    the ranks, ``accuracy`` the correct count over the count of all of
+    them; ``health`` holds the stats of the accumulated gradient."""
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    recorder = StepHealth(health) if health is not None else None
+
+    def train_step(state: TrainState, batch: Batch):
+        rows = batch["image"].shape[0]
+        if rows % accum_steps:
+            raise ValueError(
+                f"per-shard batch {rows} not divisible by accum_steps {accum_steps}")
+        m = rows // accum_steps
+        n = world_size()
+        model = state.model
+        model.train()
+        params = state.params()
+        leaves = list(params.values())
+        if recorder is not None:
+            recorder.before_forward(model)
+        acc = total = None
+        for k in range(accum_steps):
+            micro = {key: v[k * m:(k + 1) * m] for key, v in batch.items()}
+            logits = _forward(model, micro["image"], remat)
+            loss = loss_fn(logits, micro["label"], micro.get("mask"))
+            grads = torch.autograd.grad(loss, leaves)
+            with torch.no_grad():
+                term = _metric_sums(loss.detach(), logits, micro, compute_accuracy)
+                if acc is None:
+                    acc, total = list(grads), term
+                else:
+                    torch._foreach_add_(acc, grads)
+                    total = total + term
+        if n > 1:
+            all_reduce_mean_([b for _, b in model.named_buffers()])
+        with torch.no_grad():
+            grads = {name: g / accum_steps for name, g in zip(params, acc)}
+            sums = torch.cat([total[:1] / accum_steps, total[1:]])
+        stats = sync_and_update(tx, state, grads, params, sums, compress=compress,
+                                zero1=zero1, health=recorder)
+        with torch.no_grad():
+            return state, _step_metrics(sums, n, compute_accuracy, stats)
+
+    return train_step
+
+
+def _eval_logits(model: torch.nn.Module, images: torch.Tensor,
+                 params: Optional[Dict[str, torch.Tensor]]) -> torch.Tensor:
+    """The eval-mode forward (running-stats BatchNorm), with ``params`` (the
+    EMA shadow) in place of the model's when given."""
+    model.eval()
+    return model(images) if params is None else functional_call(model, params, (images,))
+
+
+def make_predict_step() -> Callable[..., torch.Tensor]:
+    """``predict(state, batch, params=None) -> logits`` of this rank's rows:
+    the eval-mode forward, ``params`` (the EMA shadow) in place of the
+    model's when given (the JAX ``make_predict_step`` :705-726; the trainer
+    gathers the ranks' rows, ``Trainer.predict``)."""
+
+    @torch.no_grad()
+    def predict_step(state: TrainState, batch: Batch,
+                     params: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        return _eval_logits(state.model, batch["image"], params)
+
+    return predict_step
 
 
 def make_eval_step(loss_fn: Callable = cross_entropy_loss,
@@ -300,11 +477,7 @@ def make_eval_step(loss_fn: Callable = cross_entropy_loss,
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch,
                   params: Optional[Dict[str, torch.Tensor]] = None):
-        model = state.model
-        model.eval()
-        images = batch["image"]
-        logits = (model(images) if params is None
-                  else functional_call(model, params, (images,)))
+        logits = _eval_logits(state.model, batch["image"], params)
         mask = batch.get("mask")
         loss = loss_fn(logits, batch["label"], mask)
         if compute_accuracy:

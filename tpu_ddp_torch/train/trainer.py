@@ -75,9 +75,22 @@ params are non-finite (the poisoned update was applied) and kept when they
 are finite (a loss spike).
 ``--no-shuffle`` (``TrainConfig.shuffle``) keeps the train loader's order.
 
+The step variants (the JAX trainer's :1243-1300, ``_epoch_stream``
+:1439-1531 and its loop :2110-2130): ``--grad-accum-steps`` builds the
+accumulating step; ``--steps-per-call K`` (clamped to the epoch's length)
+runs each run of K batches as one fused call over a stacked group, one
+host-to-device copy a group, and the epoch's remainder as single steps;
+``host_step``, the step-cadence saves and the flight recorder advance by
+the call (one record a step, ``HealthFeed`` reading a call's K records one
+call late); a resume skips whole groups and replays a group that straddles
+the resume point, as the JAX trainer does. ``--augment`` and
+``--mixup-alpha`` run in the step. ``predict`` is the batch inference of
+``--dump-predictions`` (``cli/train.py``), ``--plot-curves`` the loss curves
+written at the end of ``run``.
+
 Not ported yet: telemetry (and the health gauges it carries), the elastic
-supervisor, ``--steps-per-call``, k-fold, predictions, and the strategies
-other than data parallelism (zero3, fsdp, tp, pp).
+supervisor, k-fold, the host prefetchers, and the strategies other than
+data parallelism (zero3, fsdp, tp, pp).
 """
 
 from __future__ import annotations
@@ -102,7 +115,7 @@ from tpu_ddp_torch.data.cifar10 import (
     synthetic_cifar10_hard,
     synthetic_multilabel,
 )
-from tpu_ddp_torch.data.loader import ShardedBatchLoader
+from tpu_ddp_torch.data.loader import ShardedBatchLoader, step_groups
 from tpu_ddp_torch.health.monitor import POLICIES as HEALTH_POLICIES
 from tpu_ddp_torch.health.monitor import HealthMonitor, next_incarnation
 from tpu_ddp_torch.health.stats import HealthConfig, HealthFeed
@@ -111,6 +124,7 @@ from tpu_ddp_torch.metrics.timing import Throughput
 from tpu_ddp_torch.models import MODEL_REGISTRY, NetResDeep
 from tpu_ddp_torch.models.layers import DTYPES as COMPUTE_DTYPES
 from tpu_ddp_torch.parallel.compression import MODES as COMPRESS_MODES
+from tpu_ddp_torch.parallel.collectives import all_gather_bytes
 from tpu_ddp_torch.parallel.compression import GradCompression, GradCompressor
 from tpu_ddp_torch.parallel.runtime import (
     agree_any,
@@ -130,7 +144,14 @@ from tpu_ddp_torch.train.state import (
     create_train_state,
     split_checkpoint,
 )
-from tpu_ddp_torch.train.steps import batch_to_device, make_eval_step, make_train_step
+from tpu_ddp_torch.train.steps import (
+    batch_to_device,
+    make_eval_step,
+    make_grad_accum_train_step,
+    make_predict_step,
+    make_train_step,
+    scan,
+)
 
 log = logging.getLogger(__name__)
 
@@ -192,6 +213,12 @@ class TrainConfig:
     health_dir: Optional[str] = None      # health JSONL + anomalies/ run dir
     health_window: int = 128              # spike detector rolling window
     health_spike_threshold: float = 10.0  # spike at median + K * MAD
+    augment: bool = False                 # in-step random crop + flip
+    mixup_alpha: float = 0.0              # >0: in-step mixup, Beta(a, a)
+    steps_per_call: int = 1               # >1: K optimizer steps a call
+    grad_accum_steps: int = 1             # >1: K microbatches a step
+    plot_curves: Optional[str] = None     # loss-curve PNG at the end
+    dump_predictions: Optional[str] = None  # predictions JSON after the eval
 
     def __post_init__(self):
         if self.health not in ("off", "on"):
@@ -390,11 +417,9 @@ class Trainer:
                 run_meta=dataclasses.asdict(c),
                 incarnation=next_incarnation(c.health_dir, self.rank) if c.health_dir else 0)
             self.health_feed = HealthFeed(self.health_monitor, lag=c.health_policy != "halt")
-        self.train_step = make_train_step(self.tx, compress=self.compress,
-                                          zero1=self.zero1, loss_fn=loss_fn,
-                                          compute_accuracy=self.with_accuracy,
-                                          remat=c.remat, health=health)
+        self._init_steps(loss_fn, health)
         self.eval_step = make_eval_step(loss_fn, compute_accuracy=self.with_accuracy)
+        self.predict_step = make_predict_step()
         self.history = {"train_loss": [], "step_loss": [], "epoch": []}
         self.eval_batches = 0  # eval steps run so far (every evaluate call)
         self._preempted = self._force_abort = False
@@ -423,6 +448,33 @@ class Trainer:
                 self._restore(self.checkpointer.restore())
                 self.resumed_step = int(self.state.step)
                 self.logger.log_text(f"resumed from step {self.resumed_step}")
+
+    def _init_steps(self, loss_fn, health) -> None:
+        """``train_step``, and ``multi_step`` (the fused K-step call) under
+        ``--steps-per-call``, with the JAX trainer's guards (:1243-1300):
+        accumulation takes neither augment nor mixup, and is the opposite
+        trade of fused steps; ``steps_per_call`` is clamped to the epoch's
+        length (a longer group would never fill)."""
+        c = self.config
+        common = dict(compress=self.compress, zero1=self.zero1, loss_fn=loss_fn,
+                      compute_accuracy=self.with_accuracy, remat=c.remat, health=health)
+        if c.grad_accum_steps > 1:
+            if c.augment or c.mixup_alpha > 0:
+                raise ValueError("--augment/--mixup-alpha are not yet supported with "
+                                 "--grad-accum-steps")
+            self.train_step = make_grad_accum_train_step(
+                self.tx, accum_steps=c.grad_accum_steps, **common)
+        else:
+            self.train_step = make_train_step(self.tx, augment=c.augment, augment_seed=c.seed,
+                                              mixup_alpha=c.mixup_alpha, **common)
+        self.steps_per_call = min(c.steps_per_call, self.train_loader.steps_per_epoch)
+        if self.steps_per_call > 1 and c.grad_accum_steps > 1:
+            raise ValueError(
+                "--steps-per-call and --grad-accum-steps are opposite trades (fuse "
+                "more steps per dispatch vs split one step into microbatches); pick one")
+        # the fused call runs the single step's body (and its skip guard)
+        self.multi_step = (scan(self.train_step, self.steps_per_call)
+                           if self.steps_per_call > 1 else None)
 
     def _build_compressor(self) -> Optional[GradCompressor]:
         """The ``GradCompressor`` of this run's ``--grad-compress`` knobs over
@@ -554,6 +606,12 @@ class Trainer:
         # mid-epoch resume: skip the batches the cut run trained; the order
         # is a function of (seed, epoch), so they are exactly its prefix
         skip = host_step % spe
+        # --steps-per-call: whole fused groups are skipped; a group that
+        # straddles the resume point is replayed whole, as the JAX trainer
+        # replays it (:2114-2121)
+        K = self.steps_per_call if self.multi_step is not None else 1
+        if K > 1 and skip < spe // K * K:
+            skip -= skip % K
         if skip:
             self.logger.log_text(
                 f"mid-epoch resume: skipping the first {skip} already-trained "
@@ -570,33 +628,38 @@ class Trainer:
                 throughput.start()
             self.train_loader.set_epoch(epoch)
             step_losses = []
-            for batch in self.train_loader.epoch_batches(
-                    shard=self.rank, start=skip if epoch == first_epoch else 0):
-                # one rank drains at a batch boundary; several agree at the
+            batches = self.train_loader.epoch_batches(
+                shard=self.rank, start=skip if epoch == first_epoch else 0)
+            for kind, batch in step_groups(batches, K):
+                # one rank drains at a call boundary; several agree at the
                 # epoch's end first, or a rank would block in the next
                 # step's collectives
                 if self.world_size == 1 and self._preempted:
                     break
                 dev_batch = self.to_device(batch)
-                self.state, metrics = self.train_step(self.state, dev_batch)
-                step_losses.append(metrics["loss"])
-                host_step += 1
+                dn = K if kind == "stacked" else 1
+                step = self.multi_step if kind == "stacked" else self.train_step
+                self.state, metrics = step(self.state, dev_batch)
+                step_losses.append(metrics["loss"].reshape(-1))
+                host_step += dn
                 if (self.health_monitor is not None and self.health_feed.push(
-                        host_step - 1, metrics.pop("health"), dev_batch) == "halt"):
+                        host_step - dn, metrics.pop("health"), dev_batch) == "halt"):
                     # the stats are the same on every rank, so is the
-                    # verdict: every rank stops at this step
+                    # verdict: every rank stops at the end of this call
                     self._health_halted = host_step
                     break
                 if timed:
                     throughput.add(int(batch["mask"].sum()))
-                    timed_steps += 1
+                    timed_steps += dn
+                # a fused group saves once, at the boundary it crosses
                 if (self.checkpointer is not None and c.checkpoint_steps
-                        and host_step % c.checkpoint_steps == 0):
+                        and host_step // c.checkpoint_steps
+                        > (host_step - dn) // c.checkpoint_steps):
                     self._save(host_step)
             if self.health_monitor is not None:
                 self.health_feed.flush()
             # one sync an epoch
-            losses = (torch.stack(step_losses).cpu().numpy() if step_losses
+            losses = (torch.cat(step_losses).cpu().numpy() if step_losses
                       else np.zeros(0, np.float32))
             if timed:
                 throughput.stop()
@@ -621,7 +684,7 @@ class Trainer:
             if epoch == 1 or epoch % c.log_every_epochs == 0:
                 self.logger.log_text(f"Epoch {epoch}, Training loss {mean_loss}")
                 self.logger.log(host_step, epoch=epoch, train_loss=mean_loss,
-                                **({"train_accuracy": float(metrics["accuracy"])}
+                                **({"train_accuracy": float(metrics["accuracy"].reshape(-1)[-1])}
                                    if "accuracy" in metrics else {}))
                 if self.checkpointer and epoch % c.checkpoint_every_epochs in (0, 1):
                     self._save(host_step)
@@ -638,6 +701,14 @@ class Trainer:
         total = time.time() - start
         self.logger.log_text(f"training time: {total:.3f} seconds")
         self._final_checkpoint(host_step)
+        if c.plot_curves and is_primary_process():
+            from tpu_ddp_torch.metrics.plotting import plot_loss_curves
+
+            series = {"train_loss": self.history["train_loss"]}
+            if self.history.get("test_loss"):
+                series["test_loss"] = self.history["test_loss"]
+            plot_loss_curves(series, c.plot_curves)
+            self.logger.log_text(f"loss curves -> {c.plot_curves}")
         ips = throughput.images_per_sec_per_chip
         per = "chip" if self.world_size == 1 else "rank"
         self.logger.log_text(
@@ -718,3 +789,26 @@ class Trainer:
                 for k in ("correct", "count", "loss_sum")}
         n = max(sums["count"], 1.0)
         return sums["correct"] / n, sums["loss_sum"] / n
+
+    def predict(self, loader: Optional[ShardedBatchLoader] = None) -> tuple:
+        """Batch inference over ``loader`` (the test loader by default):
+        ``(logits, labels)`` as host numpy arrays without the sampler's and
+        the batches' padding, the EMA shadow's logits under ``ema_decay``
+        (the JAX ``predict`` :2660-2692). Each rank runs its own rows; the
+        ranks' logits are gathered (one all-gather for the whole pass, a
+        collective) into the global shard-major batches, so every rank
+        returns every row, in sampler order: dataset order at one rank, the
+        sampler's interleave (rank r takes rows r::n) at n."""
+        loader = self.test_loader if loader is None else loader
+        params = self._eval_params()
+        outs = [self.predict_step(self.state, self.to_device(b), params)
+                for b in loader.epoch_batches(epoch=0, shard=self.rank)]
+        local = torch.stack(outs).float()                # (batches, rows, classes)
+        if self.world_size > 1:
+            gathered = all_gather_bytes(local.reshape(-1))
+            local = gathered.view(self.world_size, *local.shape).transpose(0, 1)
+        logits = local.reshape(-1, local.shape[-1]).cpu().numpy()
+        index = list(loader.epoch_index_batches(epoch=0))
+        mask = np.concatenate([m for _, m in index])
+        labels = np.asarray(loader.labels)[np.concatenate([i for i, _ in index])]
+        return logits[mask], labels[mask]
