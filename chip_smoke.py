@@ -152,9 +152,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     int8 --grad-compress-error-feedback``; plain DP on three ranks beside
     them. Each: the step count, finite and falling losses, params bitwise
     equal on all ranks, launches exact (K1 once a step; with int8, K2 2 and
-    K3 2 a step, and the ring's two exchanges). Then 5 steps of zero1 and of plain DP under deterministic
-    cuDNN: losses within ``rtol=1e-5`` at three ranks (``rtol=1e-4`` at
-    other rank counts, under ``--nccl``).
+    K3 2 a step, and the ring's two exchanges). All three under deterministic
+    cuDNN: the first 5 steps of zero1 and of plain DP within ``rtol=1e-5`` at
+    three ranks (``rtol=1e-4`` at other rank counts, under ``--nccl``).
 15. ViT-S/4 ``--zero1 --kernels --attention flash --optimizer adamw --lr 1e-3
     --weight-decay 0.05 --grad-clip-norm 1.0 --ema-decay 0.999`` on three
     ranks over gloo, one epoch of 20 steps, and the same without
@@ -309,13 +309,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     bitwise, ``compress_error_norm`` finite and above 0 on the healthy
     steps, launches (K1, K2 and K3 once a step) and the ring's wire calls
     exact. (c) The cost: LM-32k in bfloat16 (phase 20d's run, K4-K6 and K1)
-    with health off, ``warn`` and ``skip_step`` in turns (off, warn, skip,
-    skip, warn, off), each step followed by the trainer's one copy of the
-    scalars to the host: ms a step, tokens/s, launches and kernels a step,
-    device busy time and peak memory, the losses of all six runs equal to
-    the bit; then NetResDeep ``--kernels`` with health off and on in turns
-    (2 epochs of 50 steps, epoch 2 timed; kernels a step over 5 profiled
-    steps, four turns of each).
+    with health off, ``warn`` and ``skip_step`` (one run each), each step
+    followed by the trainer's one copy of the scalars to the host: ms a
+    step, tokens/s, launches and kernels a step, device busy time and peak
+    memory, the losses of the three runs equal to the bit; then NetResDeep
+    ``--kernels`` with health off and on in turns (2 epochs of 50 steps,
+    epoch 2 timed; kernels a step over 5 profiled steps, two turns of
+    each).
 22. The step variants and the in-step data path, through the train CLI. (a)
     NetResDeep ``--kernels --steps-per-call 8`` against ``--steps-per-call
     1`` under deterministic cuDNN, in turns (8, 1, 1, 8), 2 epochs of 48
@@ -343,8 +343,39 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     20 steps: K2 and K3 2 a step a rank, K1 1, the ring's wire calls exact,
     replicas bitwise.
 
-The NetResDeep phases before 17 keep their sizes; the whole run takes ten
-to twelve minutes on the card, the build included. ``python3 chip_smoke.py
+23. The trainer, CLI and optimizer remainder and the host data path. (a)
+    NetResDeep ``--kernels`` at full width (batch 32, SGD lr 1e-2,
+    deterministic cuDNN, 2 epochs of 16 steps) on each host data path:
+    ``--prefetch-depth 0`` (the gather on the training thread), the default
+    ``--prefetch-depth 2`` (the native ring: pinned slots, the copy to the
+    card on a copy stream), ``--prefetch-batches 2`` (the staged prefetcher)
+    and ``--prefetch-depth 2 --steps-per-call 8`` (one ring submission a
+    group): per-step losses equal to the bit across the four, K1 once a
+    step; host ms a step of the wait for a batch, its copy and the gather,
+    steady ms a step, images/sec, and on the first two paths a profiled
+    third epoch's device busy ms and idle share; the two gathers alone over
+    200 batches. (b)
+    ``--sync-bn --kernels`` on two gloo ranks sharing the card through the
+    launcher (``--sync-bn-child``), 2 epochs of 5 steps at 32 rows a rank,
+    against one rank at batch 64 on the same data order (each step's 64 rows
+    are the same set), stepped from the very state the two ranks started
+    each step from (the two runs' rounding differs, as the convolutions at 32
+    and at 64 rows sum in other orders, and a free run amplifies it): every
+    step's loss within ``rtol=1e-5``, replicas bitwise; the same ranks
+    without ``--sync-bn``, held to one rank along their own states, differ
+    by more than that; 10 BatchNorm
+    all-reduces a step forward and 10 backward; K1 once a step; what the
+    sync adds to the step. (c) ``--optimizer lamb``: two NetResDeep updates
+    on the card against the plain chain on the CPU on the same gradients
+    within 1e-6; 20 steps through the CLI with a falling loss;
+    ``--kernels --optimizer lamb`` refused (K1 has no lamb branch). (d)
+    ``--cv-mode 2``, one epoch a fold of 128 rows: both folds complete,
+    their validation sets disjoint and covering the 256 rows, K1 once a
+    step.
+
+Phase 2 also builds the native data-path library (``tpu_ddp_torch/native``)
+with g++ from the checkout. The NetResDeep phases before 17 keep their
+sizes; the whole run aims at ten minutes on the card, the build included. ``python3 chip_smoke.py
 --nccl N``, on a machine with N cards, runs phases 10 (at N ranks' chunks),
 12, 14, 17's two-rank part, 18c, 19d, 21b and 22e alone at N ranks, one
 card each, over NCCL. The line before the last is one JSON object
@@ -416,7 +447,7 @@ FLASH_CASES = {
     # multiple of any tile
     "d37_t77": (3, 77, 2, 37, False, None, False),
 }
-FLASH_TIMED = {"vit_s4": 200, "t2048_d128": 20}   # case -> timed iterations
+FLASH_TIMED = {"vit_s4": 50, "t2048_d128": 20}   # case -> timed iterations
 # dense bf16 on the tensor cores: the bfloat16 K4-K6's products
 BF16_OPS_PER_S = 989e12
 #: phase 20a: K4-K6's bfloat16 kernels against their plain versions, with
@@ -434,7 +465,7 @@ BF16_CASES = {
 }
 BF16_ULPS = 2     # the bf16 tolerance: units in the last place of a row's largest |value|
 #: phase 20b: case -> (timed iterations, the path whose launches its rows carry)
-BF16_TIMED = {"lm_causal": (10, "lm"), "vit_s4": (200, "vit")}
+BF16_TIMED = {"lm_causal": (10, "lm"), "vit_s4": (50, "vit")}
 
 
 T_START = time.perf_counter()
@@ -906,8 +937,8 @@ def time_group(variant, shapes, iters, frozen=None):
     p2 = time_ms(plain, iters)
     k2 = time_ms(kernel, iters)
     b_ms, b_by = bound([(lf.cfg, lf.n, lf.frozen) for lf in leaves])
-    dev = {"device_ms": device_ms(kernel, 20), "plain_device_ms": device_ms(plain, 20),
-           "library_device_ms": device_ms(lib, 20)}
+    dev = {"device_ms": device_ms(kernel, 10), "plain_device_ms": device_ms(plain, 10),
+           "library_device_ms": device_ms(lib, 10)}
     return (k1 + k2) / 2, (p1 + p2) / 2, lib_ms, b_ms, b_by, dev
 
 
@@ -1765,16 +1796,21 @@ def ring_wire_calls(nproc, compress, zero1):
 
 
 def rank_child(out_dir, args):
-    """One rank of phases 12, 14, 15 and 17, started by the launcher: the train
-    CLI's ``run`` with the launch counts zeroed just before (under cuDNN's
-    deterministic algorithms when ``args`` start with ``--deterministic``);
-    writes the counts, the metrics and the final weights to ``out_dir``."""
+    """One rank of phases 12, 14, 15, 17, 19d, 21b and 22e, started by the
+    launcher: ``[--deterministic] [--poison-batch N] --run NAME ARGS...
+    [--run NAME ARGS...]``. Joins the process group once and trains each
+    run in turn on it, as the train CLI's ``run`` would (under cuDNN's
+    deterministic algorithms with ``--deterministic``), the launch and
+    wire-call counts zeroed just before each; writes each run's counts,
+    metrics and final weights to ``out_dir/NAME``."""
     import torch
 
     sys.path.insert(0, ROOT)
     from tpu_ddp_torch import ops
     from tpu_ddp_torch.cli import train as cli
+    from tpu_ddp_torch.parallel import runtime
     from tpu_ddp_torch.tools.ring_compare import wire_counter
+    from tpu_ddp_torch.train.trainer import Trainer
 
     if args[:1] == ["--deterministic"]:
         torch.backends.cudnn.deterministic = True
@@ -1782,55 +1818,88 @@ def rank_child(out_dir, args):
     if args[:1] == ["--poison-batch"]:
         poison_batch(int(args[1]), rank=0)
         args = args[2:]
+    runs, i = [], 0
+    while i < len(args):            # --run NAME ARGS..., up to the next --run
+        j = args.index("--run", i + 1) if "--run" in args[i + 1:] else len(args)
+        runs.append((args[i + 1], args[i + 2:j]))
+        i = j
     rank = int(os.environ["RANK"])
     wire = wire_counter()
-    ops.reset_launch_counts()
-    trainer, metrics = cli.run(args)
-    torch.cuda.synchronize()
-    metrics["launches"] = ops.launch_counts()
-    metrics["wire_calls"] = wire
-    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-        json.dump(metrics, f)
-    torch.save({k: v.cpu() for k, v in trainer.state.model.state_dict().items()},
-               os.path.join(out_dir, f"rank{rank}.pt"))
+    parsed = [(name, cli.build_parser().parse_args(a)) for name, a in runs]
+    first = cli.config_from_args(parsed[0][1])
+    runtime.initialize_distributed(first.device, first.dist_backend)
+    try:
+        for name, ns in parsed:
+            config = cli.config_from_args(ns)
+            wire.update(dict.fromkeys(wire, 0))
+            ops.reset_launch_counts()
+            trainer = Trainer(config)
+            try:
+                metrics = cli._run_and_report(ns, config, trainer)
+            finally:
+                trainer.close()
+            torch.cuda.synchronize()
+            metrics["launches"] = ops.launch_counts()
+            metrics["wire_calls"] = dict(wire)
+            out = os.path.join(out_dir, name)
+            with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+                json.dump(metrics, f)
+            torch.save({k: v.cpu() for k, v in trainer.state.model.state_dict().items()},
+                       os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        runtime.shutdown()
 
 
-def launch_dp(tmp, name, args, nproc, phase="12", deterministic=False, poison=None):
-    """``args`` through the launcher on ``nproc`` ranks (``rank_child``),
-    under deterministic cuDNN, and with rank 0's ``poison``-th batch all NaN
-    (``poison_batch``) when asked. Returns (every rank's metrics, whether the
-    ranks' weights are bitwise equal)."""
+def launch_dp_runs(tmp, runs, nproc, phase="12", deterministic=False, poison=None):
+    """The ``(name, args)`` runs through the launcher on ``nproc`` ranks, one
+    after another in one job (``rank_child``: one process start and one
+    process group for all of them), under deterministic cuDNN, and with rank
+    0's ``poison``-th batch all NaN (``poison_batch``) when asked. Returns
+    ``{name: (every rank's metrics, whether the ranks' weights are bitwise
+    equal)}``."""
     import torch
 
     from tpu_ddp_torch.cli.launch import run_job
 
-    out = os.path.join(tmp, name)
-    os.makedirs(out)
     how = ", deterministic cuDNN" if deterministic else ""
     if poison is not None:
         how += f", rank 0's batch {poison} all NaN"
-    print(f"phase {phase}{how}: python -m tpu_ddp_torch.cli.launch --nproc-per-node "
-          f"{nproc} -- python -m tpu_ddp_torch.cli.train {' '.join(args)}", flush=True)
-    rc = run_job([sys.executable, os.path.abspath(__file__), "--rank-child", out,
+    argv = []
+    for name, args in runs:
+        os.makedirs(os.path.join(tmp, name))
+        print(f"phase {phase}{how}: python -m tpu_ddp_torch.cli.launch --nproc-per-node "
+              f"{nproc} -- python -m tpu_ddp_torch.cli.train {' '.join(args)}", flush=True)
+        argv += ["--run", name, *args]
+    rc = run_job([sys.executable, os.path.abspath(__file__), "--rank-child", tmp,
                   *(["--deterministic"] if deterministic else []),
-                  *(["--poison-batch", str(poison)] if poison is not None else []), *args],
+                  *(["--poison-batch", str(poison)] if poison is not None else []), *argv],
                  nproc_per_node=nproc)
     if rc:
-        fail(f"the {nproc}-rank run exited with {rc}")
-    metrics = []
-    for r in range(nproc):
-        with open(os.path.join(out, f"rank{r}.json")) as f:
-            metrics.append(json.load(f))
-    weights = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(nproc)]
-    same = all(torch.equal(weights[0][k], w[k]) for w in weights[1:] for k in w)
-    return metrics, same
+        fail(f"the {nproc}-rank job exited with {rc}")
+    out = {}
+    for name, _ in runs:
+        metrics = []
+        for r in range(nproc):
+            with open(os.path.join(tmp, name, f"rank{r}.json")) as f:
+                metrics.append(json.load(f))
+        weights = [torch.load(os.path.join(tmp, name, f"rank{r}.pt")) for r in range(nproc)]
+        out[name] = (metrics, all(torch.equal(weights[0][k], w[k])
+                                  for w in weights[1:] for k in w))
+    return out
+
+
+def launch_dp(tmp, name, args, nproc, phase="12", deterministic=False, poison=None):
+    """One run through ``launch_dp_runs``: (every rank's metrics, whether the
+    ranks' weights are bitwise equal)."""
+    return launch_dp_runs(tmp, [(name, args)], nproc, phase, deterministic, poison)[name]
 
 
 def phase_dp_main_path(tmp, nproc=2, backend="gloo"):
     runs = {}
+    jobs = launch_dp_runs(tmp, [("int8" if c else "plain", dp_args(c, nproc, backend))
+                                for c in (True, False)], nproc)
     for compress in (True, False):
-        metrics, same = launch_dp(tmp, "int8" if compress else "plain",
-                                  dp_args(compress, nproc, backend), nproc)
+        metrics, same = jobs["int8" if compress else "plain"]
         m = metrics[0]
         steps, losses = m["steps"], m["step_losses"]
         first, last = sum(losses[:20]) / 20, sum(losses[-20:]) / 20
@@ -1944,17 +2013,20 @@ def short_args(args, nproc, steps):
 def phase_zero1_dp(tmp, n=ZERO1_RANKS, backend="gloo"):
     """Phase 14: NetResDeep ``--zero1 --kernels`` on n ranks (three sharing
     the card over gloo), plain float32 and with the int8 ring and error
-    feedback, and plain DP on n ranks beside them; then the first steps of
-    zero1 and of plain DP again under cuDNN's deterministic algorithms
-    (cuDNN's default backward sums in a run-dependent order), their losses
-    held to ``ZERO1_RTOL`` at three ranks and ``ZERO1_RTOL_OTHER`` at
+    feedback, and plain DP on n ranks beside them, all under cuDNN's
+    deterministic algorithms (cuDNN's default backward sums in a
+    run-dependent order), so that the first steps of zero1 and of plain DP
+    are held to ``ZERO1_RTOL`` at three ranks and ``ZERO1_RTOL_OTHER`` at
     other rank counts (the ``--nccl`` mode)."""
     runs = {}
-    for name, compress, zero1 in (("zero1", False, True),
-                                  ("zero1_int8_ef", True, True),
-                                  ("plain_dp", False, False)):
-        args = dp_args(compress, n, backend) + (["--zero1"] if zero1 else [])
-        metrics, same = launch_dp(tmp, name, args, n, phase="14")
+    cases = (("zero1", False, True), ("zero1_int8_ef", True, True),
+             ("plain_dp", False, False))
+    jobs = launch_dp_runs(tmp, [(name, dp_args(compress, n, backend)
+                                 + (["--zero1"] if zero1 else []))
+                                for name, compress, zero1 in cases],
+                          n, phase="14", deterministic=True)
+    for name, compress, zero1 in cases:
+        metrics, same = jobs[name]
         per_step = (zero1_launches(n, compress) if zero1 else {"fused_update": 1})
         check_run(name, metrics, same, 2 * DP_STEPS_PER_EPOCH, per_step)
         wire = {k: v * 2 * DP_STEPS_PER_EPOCH
@@ -1969,16 +2041,9 @@ def phase_zero1_dp(tmp, n=ZERO1_RANKS, backend="gloo"):
         if not last < first:
             fail(f"{name}: the losses did not fall")
         runs[name] = metrics
-    short = {}
-    for name, zero1 in (("zero1_first", True), ("plain_dp_first", False)):
-        args = short_args(dp_args(False, n, backend), n, PLAIN_STEPS_RTOL) + (
-            ["--zero1"] if zero1 else [])
-        metrics, same = launch_dp(tmp, name, args, n, phase="14", deterministic=True)
-        check_run(name, metrics, same, PLAIN_STEPS_RTOL,
-                  zero1_launches(n, False) if zero1 else {"fused_update": 1})
-        short[name] = metrics[0]["step_losses"]
     first_losses_close(f"zero1 vs plain DP at {n} ranks, deterministic cuDNN",
-                       short["zero1_first"], short["plain_dp_first"],
+                       runs["zero1"][0]["step_losses"][:PLAIN_STEPS_RTOL],
+                       runs["plain_dp"][0]["step_losses"][:PLAIN_STEPS_RTOL],
                        ZERO1_RTOL if n == ZERO1_RANKS else ZERO1_RTOL_OTHER)
     diff = max(abs(a - b) for a, b in zip(runs["zero1_int8_ef"][0]["step_losses"][:5],
                                           runs["zero1"][0]["step_losses"][:5]))
@@ -2005,10 +2070,12 @@ def phase_zero1_vit(tmp):
     mask), against the same run without ``--zero1``; both under cuDNN's
     deterministic algorithms (the patch embed's convolution)."""
     runs = {}
+    names = {True: "vit_zero1", False: "vit_replicated"}
+    jobs = launch_dp_runs(tmp, [(names[z], vit_zero1_args(z)) for z in (True, False)],
+                          ZERO1_RANKS, phase="15", deterministic=True)
     for zero1 in (True, False):
-        name = "vit_zero1" if zero1 else "vit_replicated"
-        metrics, same = launch_dp(tmp, name, vit_zero1_args(zero1), ZERO1_RANKS,
-                                  phase="15", deterministic=True)
+        name = names[zero1]
+        metrics, same = jobs[name]
         steps, evals = metrics[0]["steps"], metrics[0]["eval_batches"]
         check_run(name, metrics, same, VIT_ZERO1_STEPS,
                   {"fused_update": 1, "flash_attention_dq": VIT_DEPTH,
@@ -2084,15 +2151,15 @@ def phase_checkpoint_dp(tmp, nproc=2, backend="gloo"):
     args = ckpt_args(nproc, backend)
     ck = os.path.join(tmp, f"ckpt{nproc}")
     runs = {}
-    for name, run_args in (
-            ("full", with_epochs(args, 2)),
-            ("cut", with_epochs(args, 1, "--checkpoint-dir", ck,
-                                "--checkpoint-steps", str(CKPT_EVERY))),
-            ("resumed", with_epochs(args, 2, "--checkpoint-dir", ck, "--resume"))):
+    cases = (("full", with_epochs(args, 2)),
+             ("cut", with_epochs(args, 1, "--checkpoint-dir", ck,
+                                 "--checkpoint-steps", str(CKPT_EVERY))),
+             ("resumed", with_epochs(args, 2, "--checkpoint-dir", ck, "--resume")))
+    jobs = launch_dp_runs(tmp, [(f"ckpt_{name}{nproc}", a) for name, a in cases], nproc,
+                          phase="17", deterministic=True)
+    for name, _ in cases:
         label = f"ckpt_{name}{nproc}"
-        metrics, same = launch_dp(tmp, label, run_args, nproc, phase="17",
-                                  deterministic=True)
-        runs[name] = (metrics, same, rank_weights(tmp, label, nproc))
+        runs[name] = (*jobs[label], rank_weights(tmp, label, nproc))
     full, resumed = runs["full"], runs["resumed"]
     per_step = zero1_launches(nproc, True)
     want = {name: 0 for name in resumed[0][0]["launches"]}
@@ -2122,26 +2189,53 @@ def phase_checkpoint_dp(tmp, nproc=2, backend="gloo"):
                   flush=True)
 
 
-def sigterm_at(n):
-    """Patch the train loader (the shuffled one) to send this process SIGTERM
-    as it yields its ``n``-th batch; returns the undo."""
-    import signal
-
+def patch_train_batches(n, change):
+    """Patch both host data paths of the train loader so that its ``n``-th
+    batch goes through ``change``: the synchronous path's
+    ``ShardedBatchLoader.epoch_batches`` (the shuffled loader or the one
+    that keeps the sampler's pad: not the test loader) and the native
+    ring's ``BatchPrefetcher.acquire`` (which feeds only the train loop, one
+    acquire a step here). ``change(images)`` returns the batch's images: a
+    new array, or the slot's view filled in place. Returns the undo."""
     from tpu_ddp_torch.data.loader import ShardedBatchLoader
+    from tpu_ddp_torch.native.prefetch import BatchPrefetcher
 
-    inner = ShardedBatchLoader.epoch_batches
+    inner, inner_acquire = ShardedBatchLoader.epoch_batches, BatchPrefetcher.acquire
     seen = [0]
 
     def epoch_batches(self, *args, **kwargs):
         for batch in inner(self, *args, **kwargs):
-            if self.shuffle:
+            if not self.exclude_sampler_pad:
                 if seen[0] == n:
-                    os.kill(os.getpid(), signal.SIGTERM)
+                    batch = dict(batch, image=change(batch["image"]))
                 seen[0] += 1
             yield batch
 
-    ShardedBatchLoader.epoch_batches = epoch_batches
-    return lambda: setattr(ShardedBatchLoader, "epoch_batches", inner)
+    def acquire(self):
+        img, lbl, slot = inner_acquire(self)
+        if seen[0] == n:
+            img = change(img)
+        seen[0] += 1
+        return img, lbl, slot
+
+    ShardedBatchLoader.epoch_batches, BatchPrefetcher.acquire = epoch_batches, acquire
+
+    def undo():
+        ShardedBatchLoader.epoch_batches, BatchPrefetcher.acquire = inner, inner_acquire
+
+    return undo
+
+
+def sigterm_at(n):
+    """Send this process SIGTERM as the train loop takes its ``n``-th batch
+    (``patch_train_batches``); returns the undo."""
+    import signal
+
+    def change(images):
+        os.kill(os.getpid(), signal.SIGTERM)
+        return images
+
+    return patch_train_batches(n, change)
 
 
 def phase_checkpoint_sigterm(tmp):
@@ -2323,7 +2417,7 @@ def time_masked_group(variant, shapes, n, r, iters):
     ms = {k: [] for k in calls}
     for k in ("kernel", "unmasked", "plain", "library", "plain", "unmasked", "kernel"):
         ms[k].append(time_ms(calls[k], iters))
-    dev = {k: device_ms(fn, 20) for k, fn in calls.items()}
+    dev = {k: device_ms(fn, 5) for k, fn in calls.items()}
     b_ms, b_by = bound([(lf.cfg, lf.n) for lf in leaves])
     masked_rows = sum(lf.valid < lf.n for lf in leaves)
     return {k: sum(v) / len(v) for k, v in ms.items()}, dev, b_ms, b_by, masked_rows
@@ -2340,8 +2434,8 @@ def phase_masked_timing(results, launches):
     rows = []
     n, r = ZERO1_RANKS, ZERO1_RANKS - 1
     for model, variant, shapes, iters in (
-            ("netresdeep", "sgd", NETRESDEEP_LEAVES, 500),
-            ("vit_s4", "adamw_wd_clip_ema", vit_leaf_shapes(), 200)):
+            ("netresdeep", "sgd", NETRESDEEP_LEAVES, 200),
+            ("vit_s4", "adamw_wd_clip_ema", vit_leaf_shapes(), 50)):
         ms, dev, b_ms, b_by, masked_rows = time_masked_group(variant, shapes, n, r, iters)
         group = f"{model} {n} ranks rank {r}"
         err = max(results[(variant, s, group)][0] for s in ("constant", "cosine"))
@@ -2473,13 +2567,13 @@ def phase_quant_timing(quant_err, runs):
               f"max |diff| {float((got - want).abs().max()):.3g}", flush=True)
     rows = []
     for name, (kernel, plain, calls, kind, sizes, n_rows, shapes) in cases.items():
-        iters = 50 if name.endswith("[2^24]") else 500
+        iters = 50 if name.endswith("[2^24]") else 200
         k1, p1 = time_ms(kernel, iters), time_ms(plain, iters)
         p2, k2 = time_ms(plain, iters), time_ms(kernel, iters)
-        dev_k, dev_p = device_ms(kernel, 20), device_ms(plain, 20)
+        dev_k, dev_p = device_ms(kernel, 10), device_ms(plain, 10)
         lib = library.get(name)
         l_ms = (time_ms(lib[0], iters) + time_ms(lib[0], iters)) / 2 if lib else None
-        l_dev = device_ms(lib[0], 20) if lib else None
+        l_dev = device_ms(lib[0], 10) if lib else None
         b_ms, b_by = quant_bound(sizes, QUANT_BLOCK, kind, n_rows)
         base = name.split("[")[0]
         entry = ops.KERNELS[base]
@@ -3663,31 +3757,25 @@ HEALTH_RANK_STEPS = 20
 #: 21c: NetResDeep's cost runs, steps an epoch (epoch 2 is timed), and the
 #: turns of health off and on (its host-bound step time moves run to run)
 HEALTH_NRD_STEPS = 50
-HEALTH_NRD_TURNS = (False, True, True, False) * 2
+HEALTH_NRD_TURNS = (False, True, True, False)
 
 
 def poison_batch(n, rank=None):
-    """Patch the train loader (the one that keeps the sampler's pad: not the
-    test loader) to fill its ``n``-th batch with NaN, on ``rank`` only
-    (the ``RANK`` of the launcher) or on every process; returns the undo."""
+    """Fill the train loop's ``n``-th batch with NaN (``patch_train_batches``:
+    on the native ring, the slot itself before its copy to the card), on
+    ``rank`` only (the ``RANK`` of the launcher) or on every process;
+    returns the undo."""
     import numpy as np
 
-    from tpu_ddp_torch.data.loader import ShardedBatchLoader
+    if rank is not None and int(os.environ.get("RANK", "0")) != rank:
+        return lambda: None
 
-    inner = ShardedBatchLoader.epoch_batches
-    seen = [0]
-    mine = rank is None or int(os.environ.get("RANK", "0")) == rank
+    def change(images):
+        if isinstance(images, np.ndarray):
+            return np.full_like(images, np.nan)
+        return images.fill_(float("nan"))
 
-    def epoch_batches(self, *args, **kwargs):
-        for batch in inner(self, *args, **kwargs):
-            if not self.exclude_sampler_pad:
-                if seen[0] == n and mine:
-                    batch = dict(batch, image=np.full_like(batch["image"], np.nan))
-                seen[0] += 1
-            yield batch
-
-    ShardedBatchLoader.epoch_batches = epoch_batches
-    return lambda: setattr(ShardedBatchLoader, "epoch_batches", inner)
+    return patch_train_batches(n, change)
 
 
 def state_bits(state):
@@ -3923,15 +4011,14 @@ def nrd_cost_run(health):
 
 def phase_health_cost(tokens, smi):
     """Phase 21c: what the recorder costs. LM-32k in bfloat16 (phase 20d's
-    run: K4-K6 and K1) with health off, ``warn`` and ``skip_step`` in turns
-    (off, warn, skip, skip, warn, off) over the same steps: ms a step,
-    tokens/s, launches and kernels a step, peak memory; losses equal to the
-    bit. Then NetResDeep's step with health off and on, in turns (four
-    runs each)."""
+    run: K4-K6 and K1) with health off, ``warn`` and ``skip_step``, one run
+    each, over the same steps: ms a step, tokens/s, launches and kernels a
+    step, peak memory; losses equal to the bit. Then NetResDeep's step with
+    health off and on, in turns (two runs each)."""
     import torch
 
     runs = {}
-    for label in ("off", "warn", "skip_step", "skip_step", "warn", "off"):
+    for label in ("off", "warn", "skip_step"):
         model, run = lm_train_run(True, tokens, bf16=True,
                                   health=None if label == "off" else label)
         del model
@@ -3957,7 +4044,7 @@ def phase_health_cost(tokens, smi):
     for label in ("warn", "skip_step"):
         more = lambda key: mean(label, key) - mean("off", key)  # noqa: E731
         ms, off_ms = mean(label, "steady_step_ms"), mean("off", "steady_step_ms")
-        print(f"  LM-32k bf16, health {label} against off (means of two runs each): "
+        print(f"  LM-32k bf16, health {label} against off (one run each): "
               f"{ms:.3f} against {off_ms:.3f} ms a step ({ms / off_ms - 1:+.4f}); "
               f"{more('kernels_per_step'):+.1f} kernels a step; device busy "
               f"{more('device_busy_ms_per_step'):+.3f} ms a step; peak "
@@ -4224,6 +4311,386 @@ def phase_scan_ranks(tmp, nproc=2, backend="gloo"):
     return metrics
 
 
+# ---- phase 23: the trainer, CLI and optimizer remainder; the host data path
+
+#: 23a: steps an epoch (two epochs, and a profiled third on the paths of
+#: P23_PROFILED), and its four paths
+P23_STEPS = 16
+P23_K = 8
+P23_PATHS = (("--prefetch-depth 0", ["--prefetch-depth", "0"]),
+             ("--prefetch-depth 2", []),
+             ("--prefetch-batches 2", ["--prefetch-batches", "2"]),
+             (f"--prefetch-depth 2 --steps-per-call {P23_K}", ["--steps-per-call", str(P23_K)]))
+P23_PROFILED = ("--prefetch-depth 0", "--prefetch-depth 2")
+#: 23a: batches the gathers alone are timed over
+P23_GATHERS = 200
+#: 23b: steps an epoch (two epochs) at two ranks of 32 rows and at one of 64
+P23_BN_STEPS = 5
+P23_BN_RTOL = 1e-5
+
+#: 23b: BatchNorm calls a NetResDeep forward (one tied BatchNorm, 10 blocks)
+P23_BN_CALLS = 10
+P23_LAMB_STEPS = 20
+P23_LAMB_ATOL = 1e-6
+P23_CV_ROWS = 256
+
+
+def data_path_profile(trainer):
+    """One more epoch of ``trainer`` through its ``run`` (its own data path)
+    under ``torch.profiler``: (ms a step, device busy ms a step, idle
+    share)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_ddp_torch.tools.profile_step import _device_us
+
+    trainer.config.epochs += 1
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / P23_STEPS * 1e3
+    busy = _device_us(prof)[0] / P23_STEPS * 1e-3
+    return wall, busy, 1.0 - busy / wall
+
+
+def gather_alone(loader):
+    """Host ms a 32-row batch of the main path's two gathers alone:
+    ``loader.gather`` (numpy's fancy indexing below 1 MiB, the synchronous
+    path's) and one native ring round trip (submit, acquire, release; the
+    ring's C++ worker gathers)."""
+    from tpu_ddp_torch.native.prefetch import BatchPrefetcher
+
+    index = [idx for idx, _ in loader.epoch_index_batches(epoch=1)]
+    index = (index * (P23_GATHERS // len(index) + 1))[:P23_GATHERS]
+    t0 = time.perf_counter()
+    for idx in index:
+        loader.gather(idx)
+    numpy_ms = (time.perf_counter() - t0) / P23_GATHERS * 1e3
+    with BatchPrefetcher(loader.images, loader.labels, max_batch=loader.local_batch,
+                         depth=3, pin_memory=True) as pf:
+        t0 = time.perf_counter()
+        for idx in index:
+            pf.submit(idx)
+            pf.release(pf.acquire()[2])
+        ring_ms = (time.perf_counter() - t0) / P23_GATHERS * 1e3
+    return numpy_ms, ring_ms
+
+
+def phase_data_path(smi):
+    """Phase 23a: NetResDeep at full width through the train CLI's config
+    (``--kernels``, batch 32, SGD lr 1e-2, deterministic cuDNN) on each host
+    data path; losses bitwise equal across the four, K1 once a step, and the
+    host ms a step of the gather, the copy and the wait for a batch."""
+    import torch
+
+    from tpu_ddp_torch import ops
+    from tpu_ddp_torch.cli import train as cli
+    from tpu_ddp_torch.train.trainer import Trainer
+
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, extra in P23_PATHS:
+            args = nrd_args(P23_STEPS, 2, *extra)
+            print(f"phase 23a, deterministic cuDNN, {label}: tpu_ddp_torch.cli.train "
+                  f"{' '.join(args)}", flush=True)
+            trainer = Trainer(cli.config_from_args(cli.build_parser().parse_args(args)))
+            try:
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                m = trainer.run()
+                torch.cuda.synchronize()
+                m["launches"] = ops.launch_counts()
+                gathered = trainer.train_loader.gather_seconds
+                m["gather_ms"] = gathered / (2 * P23_STEPS) * 1e3 if gathered else None
+                if label in P23_PROFILED:
+                    m["profile"] = data_path_profile(trainer)
+                if label == P23_PATHS[0][0]:
+                    m["gather_alone"] = gather_alone(trainer.train_loader)
+            finally:
+                trainer.close()
+            want = {name: 0 for name in m["launches"]}
+            want["fused_update"] = 2 * P23_STEPS
+            if m["launches"] != want or m["steps"] != 2 * P23_STEPS:
+                fail(f"23a {label}: {m['steps']} steps and launches {m['launches']}, "
+                     f"expected {2 * P23_STEPS} and {want}")
+            profiled = ("" if "profile" not in m else "; profiled epoch {:.4f} ms a step, "
+                        "device busy {:.4f} ms, idle share {:.4f}".format(*m["profile"]))
+            gather = ("in the ring's C++ worker" if m["gather_ms"] is None else
+                      f"{m['gather_ms']:.4f} ms a step on the "
+                      + ("training thread" if label == P23_PATHS[0][0] else "loader thread"))
+            print(f"  K1 {m['launches']['fused_update']} launches in {m['steps']} steps; host "
+                  f"ms a step: data wait {m['data_ms']['data_wait']:.4f}, H2D "
+                  f"{m['data_ms']['h2d']:.4f}, gather {gather}; steady "
+                  f"{m['steady_step_ms']:.4f} ms a step, "
+                  f"{m['images_per_sec_per_chip']:.1f} images/sec{profiled}", flush=True)
+            runs[label] = m
+    finally:
+        torch.backends.cudnn.deterministic = False
+    first = runs[P23_PATHS[0][0]]
+    same = all(m["step_losses"] == first["step_losses"] for m in runs.values())
+    numpy_ms, ring_ms = first["gather_alone"]
+    print(f"  23a: {2 * P23_STEPS} step losses equal to the bit on the four paths {same}; "
+          f"a 32-row batch of float32 images is {32 * 32 * 32 * 3 * 4} B; gathered alone "
+          f"(host ms a batch, {P23_GATHERS} batches): numpy {numpy_ms:.4f}, native ring round "
+          f"trip {ring_ms:.4f} ({smi})", flush=True)
+    if not same:
+        fail("23a: the host data paths' losses differ")
+    return runs
+
+
+def sync_bn_child(out_dir, args):
+    """One rank of phase 23b, started by the launcher: the train CLI's
+    config of ``args`` trained twice on the one process group, with and
+    without ``--sync-bn``, under deterministic cuDNN, the launch and sync-BN
+    counts zeroed just before each; writes the metrics and each run's
+    final weights to ``out_dir``."""
+    import dataclasses
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from tpu_ddp_torch import ops
+    from tpu_ddp_torch.cli import train as cli
+    from tpu_ddp_torch.models.resnet import SYNC_BN_COLLECTIVES
+    from tpu_ddp_torch.parallel import runtime
+    from tpu_ddp_torch.train.trainer import Trainer
+
+    torch.backends.cudnn.deterministic = True
+    rank = int(os.environ["RANK"])
+    base = cli.config_from_args(cli.build_parser().parse_args(args))
+    runtime.initialize_distributed(base.device, base.dist_backend)
+    out = {}
+    try:
+        for label, sync in (("sync", True), ("local", False)):
+            trainer = Trainer(dataclasses.replace(base, sync_bn=sync))
+            states, inner = [], trainer.train_step
+
+            def watched(state, batch, inner=inner, states=states):
+                states.append({k: v.to("cpu", copy=True)
+                               for k, v in state.model.state_dict().items()})
+                return inner(state, batch)
+
+            trainer.train_step = watched      # the state each step starts from
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            SYNC_BN_COLLECTIVES.clear()
+            m = trainer.run()
+            torch.cuda.synchronize()
+            m["launches"] = ops.launch_counts()
+            m["sync_bn"] = dict(SYNC_BN_COLLECTIVES)
+            states.append({k: v.to("cpu", copy=True)
+                           for k, v in trainer.state.model.state_dict().items()})
+            torch.save(states, os.path.join(out_dir, f"{label}_rank{rank}.pt"))
+            trainer.close()
+            out[label] = m
+    finally:
+        runtime.shutdown()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_sync_bn(tmp, smi, nproc=2):
+    """Phase 23b: ``--sync-bn --kernels`` on two gloo ranks sharing the card
+    against one rank at batch 64 on the same data order, and the same two
+    ranks without ``--sync-bn`` (module docstring)."""
+    import torch
+
+    from tpu_ddp_torch import ops
+    from tpu_ddp_torch.cli import train as cli
+    from tpu_ddp_torch.cli.launch import run_job
+    from tpu_ddp_torch.train.trainer import Trainer
+
+    def bn_args(batch, *extra):
+        return ["--device", "cuda", *extra, "--synthetic-data", "--synthetic-size",
+                str(nproc * 32 * P23_BN_STEPS), "--epochs", "2", "--kernels", "--n-chans1",
+                "32", "--n-blocks", "10", "--batch-size", str(batch), "--lr", "1e-2",
+                "--log-every-epochs", "1"]
+
+    args, one = bn_args(32, "--dist-backend", "gloo"), bn_args(32 * nproc)
+    out = os.path.join(tmp, "sync_bn")
+    os.makedirs(out)
+    print(f"phase 23b, deterministic cuDNN: python -m tpu_ddp_torch.cli.launch "
+          f"--nproc-per-node {nproc} -- python -m tpu_ddp_torch.cli.train {' '.join(args)} "
+          "with and without --sync-bn", flush=True)
+    rc = run_job([sys.executable, os.path.abspath(__file__), "--sync-bn-child", out, *args],
+                 nproc_per_node=nproc)
+    if rc:
+        fail(f"23b: the {nproc}-rank run exited with {rc}")
+    ranks = []
+    for r in range(nproc):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    states = {label: [torch.load(os.path.join(out, f"{label}_rank{r}.pt"))
+                      for r in range(nproc)] for label in ("sync", "local")}
+    print(f"phase 23b, deterministic cuDNN, the oracle: one rank at batch {32 * nproc} "
+          f"(tpu_ddp_torch.cli.train {' '.join(one)}), each step from the state the two "
+          "ranks started it from", flush=True)
+    steps = 2 * P23_BN_STEPS
+    torch.backends.cudnn.deterministic = True
+    try:
+        trainer = Trainer(cli.config_from_args(cli.build_parser().parse_args(one)))
+        oracle, state_diff = {}, {}
+        ops.reset_launch_counts()
+        for label in ("sync", "local"):
+            oracle[label], state_diff[label] = [], []
+            s = 0
+            for epoch in (1, 2):
+                trainer.train_loader.set_epoch(epoch)
+                for batch in trainer.train_loader.epoch_batches():
+                    trainer.state.model.load_state_dict(states[label][0][s])
+                    trainer.state, m = trainer.train_step(trainer.state,
+                                                          trainer.to_device(batch))
+                    oracle[label].append(float(m["loss"]))
+                    after = trainer.state.model.state_dict()
+                    state_diff[label].append(max(
+                        float((after[k].cpu() - v).abs().max())
+                        for k, v in states[label][0][s + 1].items()))
+                    s += 1
+        torch.cuda.synchronize()
+        oracle_k1 = ops.launch_counts()["fused_update"]
+        trainer.close()
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    def rels(label):
+        return [abs(g - w) / abs(w) for g, w in zip(ranks[0][label]["step_losses"],
+                                                   oracle[label])]
+
+    sync, local = ranks[0]["sync"], ranks[0]["local"]
+    replicas = {label: all(torch.equal(states[label][0][-1][k], w[-1][k])
+                           for w in states[label][1:] for k in w[-1]) for label in states}
+    calls = {k: v / steps for k, v in sync["sync_bn"].items()}
+    print(f"  from the same state each step, the two ranks' loss against one rank at the "
+          f"whole batch, relative: synced {' '.join(f'{x:.3g}' for x in rels('sync'))} "
+          f"(limit {P23_BN_RTOL}); without --sync-bn "
+          f"{' '.join(f'{x:.3g}' for x in rels('local'))} (must exceed it); largest "
+          f"|difference| of the state after a step: synced {max(state_diff['sync']):.3g}, "
+          f"without {max(state_diff['local']):.3g}", flush=True)
+    print(f"  replicas bitwise: sync {replicas['sync']}, without {replicas['local']}; K1 a "
+          f"rank {[r['sync']['launches']['fused_update'] for r in ranks]} (sync), "
+          f"{[r['local']['launches']['fused_update'] for r in ranks]} (without), "
+          f"{oracle_k1} (the oracle's two trajectories) in {steps} steps each", flush=True)
+    print(f"  BN collectives a step a rank: {calls} ({sum(calls.values()):.0f}; "
+          f"{2 * P23_BN_CALLS} expected); steady ms a step at two ranks: sync "
+          f"{sync['steady_step_ms']:.4f}, without {local['steady_step_ms']:.4f}, the sync adds "
+          f"{sync['steady_step_ms'] - local['steady_step_ms']:.4f} ms ({smi})", flush=True)
+    if not max(rels("sync")) <= P23_BN_RTOL:
+        fail("23b: the synced ranks' losses disagree with one rank at the whole batch")
+    if not max(rels("local")) > P23_BN_RTOL:
+        fail("23b: the unsynced ranks agree with the whole batch: the sync did not show")
+    if not (replicas["sync"] and replicas["local"]):
+        fail("23b: replicas differ")
+    if calls != {"forward": P23_BN_CALLS, "backward": P23_BN_CALLS} or local["sync_bn"]:
+        fail(f"23b: sync-BN collectives {sync['sync_bn']} / {local['sync_bn']}, expected "
+             f"{P23_BN_CALLS} each way a step and none without --sync-bn")
+    for r in ranks:
+        for label in ("sync", "local"):
+            if r[label]["launches"]["fused_update"] != steps or r[label]["steps"] != steps:
+                fail(f"23b: {label}: K1 {r[label]['launches']} in {r[label]['steps']} steps")
+    if oracle_k1 != 2 * steps:
+        fail(f"23b: the oracle launched K1 {oracle_k1} times in 2 x {steps} steps")
+
+
+def phase_lamb(smi):
+    """Phase 23c: one NetResDeep lamb update on the card against the plain
+    chain on the CPU on the same gradients, 20 steps through the CLI with a
+    falling loss, and ``--kernels --optimizer lamb`` refused."""
+    import torch
+
+    from tpu_ddp_torch import ops
+    from tpu_ddp_torch.cli import train as cli
+    from tpu_ddp_torch.models import NetResDeep
+    from tpu_ddp_torch.train.optim import make_optimizer
+
+    gen = torch.Generator().manual_seed(23)
+    named = dict(NetResDeep(generator=torch.Generator().manual_seed(0)).named_parameters())
+    params = {n: p.detach().clone() for n, p in named.items()}
+    grads = {n: torch.randn(p.shape, generator=gen) for n, p in params.items()}
+    grads["fc2.bias"].zero_()               # a leaf whose trust ratio is 1
+    out = {}
+    for device in ("cuda", "cpu"):
+        tx = make_optimizer(lr=1e-2, optimizer="lamb", weight_decay=0.01, grad_clip_norm=1.0)
+        p = {n: t.to(device) for n, t in params.items()}
+        state = tx.init(p)
+        for _ in range(2):
+            tx.apply({n: g.to(device) for n, g in grads.items()}, state, p)
+        out[device] = p
+    err = max(float((out["cuda"][n].cpu() - out["cpu"][n]).abs().max()) for n in params)
+    print(f"phase 23c: lamb on NetResDeep's {len(params)} leaves, two updates on the card "
+          f"against the plain chain on the CPU: max |diff| {err:.3g} (limit "
+          f"{P23_LAMB_ATOL})", flush=True)
+    if not err <= P23_LAMB_ATOL:
+        fail("23c: lamb on the card disagrees with the CPU")
+    args = [a for a in nrd_args(P23_LAMB_STEPS, 1) if a != "--kernels"]
+    args += ["--optimizer", "lamb", "--weight-decay", "0.01"]
+    print(f"phase 23c: tpu_ddp_torch.cli.train {' '.join(args)}", flush=True)
+    trainer, m = counted_run(args)
+    del trainer
+    losses = m["step_losses"]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    print(f"  {m['steps']} steps, mean loss of the first 5 {first:.4f}, last 5 {last:.4f}; "
+          f"launches {m['launches']}; steady {m['steady_step_ms']:.4f} ms a step ({smi})",
+          flush=True)
+    if m["steps"] != P23_LAMB_STEPS or not last < first or any(m["launches"].values()):
+        fail("23c: the lamb run did not take its steps, its loss did not fall, or it "
+             "launched a kernel")
+    try:
+        cli.run(nrd_args(P23_LAMB_STEPS, 1, "--optimizer", "lamb"))
+    except ValueError as e:
+        refused = "no lamb branch" in str(e)
+        print(f"  --kernels --optimizer lamb refused: {e}", flush=True)
+    else:
+        refused = False
+    ops.reset_launch_counts()
+    if not refused:
+        fail("23c: --kernels --optimizer lamb was not refused")
+
+
+def phase_cv(smi):
+    """Phase 23d: ``--cv-mode 2`` through the train CLI, NetResDeep at full
+    width, one epoch a fold: both folds train and validate, their validation
+    sets are disjoint and cover the data, K1 once a step."""
+    import numpy as np
+
+    from tpu_ddp_torch import ops
+    from tpu_ddp_torch.cli import train as cli
+
+    args = nrd_args(P23_CV_ROWS // 32, 1, "--cv-mode", "2")
+    print(f"phase 23d: tpu_ddp_torch.cli.train {' '.join(args)}", flush=True)
+    seen = []
+    inner = cli.Trainer
+
+    class Recording(inner):
+        def __init__(self, config, *, train_data=None, test_data=None):
+            seen.append((train_data, test_data))
+            super().__init__(config, train_data=train_data, test_data=test_data)
+
+    cli.Trainer = Recording
+    try:
+        ops.reset_launch_counts()
+        _, out = cli.run(args)
+        counts = ops.launch_counts()
+    finally:
+        cli.Trainer = inner
+    rows = [set(map(bytes, np.ascontiguousarray(test[0]).reshape(len(test[0]), -1)))
+            for _, test in seen]
+    disjoint = not rows[0] & rows[1]
+    covers = sum(len(test[0]) for _, test in seen) == P23_CV_ROWS and all(
+        len(train[0]) + len(test[0]) == P23_CV_ROWS for train, test in seen)
+    steps = sum(r["steps"] for r in out["cv_results"])
+    print(f"  folds {out['completed_folds']}, val accuracy "
+          f"{[round(r['val_accuracy'], 4) for r in out['cv_results']]}; validation sets "
+          f"disjoint {disjoint}, covering the {P23_CV_ROWS} rows {covers}; K1 "
+          f"{counts['fused_update']} launches in {steps} steps", flush=True)
+    if out["completed_folds"] != 2 or not (disjoint and covers):
+        fail("23d: the folds did not complete or their validation sets are wrong")
+    if counts["fused_update"] != steps or steps != 2 * (P23_CV_ROWS // 2 // 32):
+        fail(f"23d: K1 {counts['fused_update']} launches in {steps} steps")
+
+
 def nccl_main(nproc):
     """``python3 chip_smoke.py --nccl N`` on a machine with N cards: phase
     10 with NetResDeep's chunks at N ranks, then phases 12, 14, 17's
@@ -4261,6 +4728,8 @@ def nccl_main(nproc):
 def main():
     if sys.argv[1:2] == ["--rank-child"]:
         return rank_child(sys.argv[2], sys.argv[3:])
+    if sys.argv[1:2] == ["--sync-bn-child"]:
+        return sync_bn_child(sys.argv[2], sys.argv[3:])
     if sys.argv[1:2] == ["--lm-rank-child"]:
         return lm_rank_child(sys.argv[2], sys.argv[3])
     if sys.argv[1:2] == ["--nccl"]:
@@ -4283,10 +4752,14 @@ def main():
           f"count {torch.cuda.device_count()}", flush=True)
     print(f"  nvidia-smi: {smi}", flush=True)
 
+    from tpu_ddp_torch import native
+
     t0 = time.perf_counter()
     built = _build.build()
     print(f"phase 2: built {sorted(built)} in {time.perf_counter() - t0:.2f} s "
           f"({', '.join(f'{k} {v:.2f} s' for k, v in built.items())})", flush=True)
+    print(f"  native data-path library (g++): {native.build():.2f} s, "
+          f"{native.library_path().name}", flush=True)
     for name in _build.LIBRARIES:
         log = _build.build_log(name)
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
@@ -4377,14 +4850,30 @@ def main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 22 took {time.perf_counter() - t22:.1f} s", flush=True)
+    t23 = time.perf_counter()
+    phase_data_path(smi)
+    stamp("phase 23a")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
+    try:
+        phase_sync_bn(tmp, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    stamp("phase 23b")
+    phase_lamb(smi)
+    phase_cv(smi)
+    print(f"phase 23 took {time.perf_counter() - t23:.1f} s", flush=True)
     print_accounting()
     rows += phase_lm_timing(results, flash_results, lm_runs["flash"]["launches"])
+    stamp("phase 18d")
     rows += phase_finetune_timing(results, ft_runs)
+    stamp("phase 19e")
     rows += phase_bf16_timing(bf16_errors, {"vit": bf16_vit["flash"]["launches"],
                                             "lm": bf16_lm["bf16"]["launches"]})
+    stamp("phase 20b")
     phase_bf16_against_parent()
     stamp("phases 18d, 19e, 20b and 20f")
     rows += phase_quant_timing(quant_err, dp_runs)
+    stamp("phase 13")
     rows += phase_masked_timing(masked_results, {
         "netresdeep": zero1_runs["zero1"][0]["launches"]["fused_update"],
         "vit_s4": zero1_runs["vit_zero1"][0]["launches"]["fused_update"]})

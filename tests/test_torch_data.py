@@ -19,11 +19,20 @@ def test_synthetic_cifar10_bit_identical():
 
 
 def test_normalize_and_decode_bit_identical():
+    """``normalize`` is the JAX numpy transform's copy; ``decode_normalize``
+    runs the port's copy of the C++ codec, whose bits are the JAX package's
+    codec's (g++ builds both here), within 1e-6 of the numpy transform."""
+    from tpu_ddp import native as jax_native
+
     raw = np.random.default_rng(0).integers(0, 256, size=(5, 3072), dtype=np.uint8)
     hwc = raw.reshape(5, 3, 32, 32).transpose(0, 2, 3, 1)
     np.testing.assert_array_equal(cifar10.normalize(hwc), jax_cifar10.normalize(hwc))
-    np.testing.assert_array_equal(cifar10.decode_normalize(raw),
-                                  jax_cifar10.normalize(hwc))
+    assert jax_native.AVAILABLE
+    np.testing.assert_array_equal(
+        cifar10.decode_normalize(raw),
+        jax_native.decode_normalize(raw, jax_cifar10.CIFAR10_MEAN, jax_cifar10.CIFAR10_STD))
+    np.testing.assert_allclose(cifar10.decode_normalize(raw),
+                               jax_cifar10.normalize(hwc), rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("n,ws,shuffle,epoch", [
@@ -60,13 +69,14 @@ def test_loader_batches_bit_identical(ws, exclude_pad, shuffle):
 
 
 @pytest.fixture
-def numpy_codec(monkeypatch):
-    """The JAX package decodes through its numpy path, which the port
-    copies; its C++ codec (``tpu_ddp/native``, not ported) rounds the
-    normalisation differently in the last bit."""
+def native_codec():
+    """Both packages decode through their copies of the C++ codec
+    (``tpu_ddp/native``, ``tpu_ddp_torch/native``), which round the
+    normalisation alike; the JAX package's numpy fallback differs in the
+    last bit, so it must not be live."""
     from tpu_ddp import native
 
-    monkeypatch.setattr(native, "AVAILABLE", False)
+    assert native.AVAILABLE
 
 
 def _write_batches(root, names, rows=3, seed=0):
@@ -86,7 +96,7 @@ def _write_batches(root, names, rows=3, seed=0):
 
 
 @pytest.mark.parametrize("nest", ["", "CIFAR-10"])
-def test_tarball_only_dir_extracts_and_loads_as_jax(tmp_path, nest, numpy_codec):
+def test_tarball_only_dir_extracts_and_loads_as_jax(tmp_path, nest, native_codec):
     """A data dir holding only ``cifar-10-python.tar.gz`` (what torchvision
     leaves) is extracted and loaded; both packages give identical arrays."""
     import tarfile
@@ -114,7 +124,7 @@ def test_tarball_only_dir_extracts_and_loads_as_jax(tmp_path, nest, numpy_codec)
         "cifar-10-batches-py", "cifar-10-python.tar.gz"]
 
 
-def test_test_split_only_dir_loads_as_jax(tmp_path, numpy_codec):
+def test_test_split_only_dir_loads_as_jax(tmp_path, native_codec):
     """No tarball and only ``test_batch``: the eval split loads as in the JAX
     package; the train split names its missing file."""
     _write_batches(tmp_path, ["test_batch"], rows=5, seed=1)

@@ -570,16 +570,16 @@ def _write_cifar100(root, rows=(6, 4), seed=0):
 
 
 @pytest.fixture
-def numpy_codec(monkeypatch):
-    """The JAX package decodes through its numpy path, which the port
-    copies (its C++ codec is not ported)."""
+def native_codec():
+    """Both packages decode through their copies of the C++ codec, which
+    round alike; the JAX package's numpy fallback must not be live."""
     from tpu_ddp import native
 
-    monkeypatch.setattr(native, "AVAILABLE", False)
+    assert native.AVAILABLE
 
 
 @pytest.mark.parametrize("layout", ["extracted", "tarball"])
-def test_load_cifar100_is_jax_bitwise(tmp_path, layout, numpy_codec):
+def test_load_cifar100_is_jax_bitwise(tmp_path, layout, native_codec):
     """The fine labels, as the JAX loader reads them, from the extracted
     batches or from the tarball alone (extracted atomically)."""
     import tarfile

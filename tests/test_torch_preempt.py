@@ -117,6 +117,8 @@ class SignalAt:
 
 
 def run(signal_at=False, **kw):
+    if signal_at:   # the shim wraps epoch_batches: the synchronous data path
+        kw["prefetch_depth"] = 0
     t = Trainer(TrainConfig(**{**BASE, **kw}))
     if signal_at:
         t.train_loader = SignalAt(t.train_loader)

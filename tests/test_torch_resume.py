@@ -85,7 +85,9 @@ def _run(**kw):
 
 
 def _run_killed(at, **kw):
-    t = _trainer(**kw)
+    # the shim wraps epoch_batches: the synchronous data path (the resumed
+    # and uninterrupted runs take the default, the native ring)
+    t = _trainer(**{**kw, "prefetch_depth": 0})
     t.train_loader = DieAt(t.train_loader, at)
     with pytest.raises(Killed):
         t.run()

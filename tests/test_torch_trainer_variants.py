@@ -55,7 +55,9 @@ def _run(**kw):
 
 
 def _run_killed(at, **kw):
-    t = Trainer(TrainConfig(**{**BASE, **kw}))
+    # the shim wraps epoch_batches: the synchronous data path (the resumed
+    # and uninterrupted runs take the default, the native ring)
+    t = Trainer(TrainConfig(**{**BASE, **kw, "prefetch_depth": 0}))
     t.train_loader = DieAt(t.train_loader, at)
     with pytest.raises(Killed):
         t.run()
@@ -154,8 +156,8 @@ def test_health_records_under_fused_groups(policy, tmp_path):
     run_dir = str(tmp_path / policy)
     t = Trainer(TrainConfig(**{**BASE, "epochs": 2, "steps_per_call": 4, "health": "on",
                                "health_policy": policy, "health_per_layer_stride": 3,
-                               "health_dir": run_dir}))
-    t.train_loader = NanAt(t.train_loader, 5)
+                               "health_dir": run_dir, "prefetch_depth": 0}))
+    t.train_loader = NanAt(t.train_loader, 5)   # wraps the synchronous path
     out = t.run()
     t.close()
     recs = _records(run_dir)

@@ -1,8 +1,12 @@
 """``python -m tpu_ddp_torch.cli.train`` — the port's training CLI.
 
 Counterpart of ``tpu_ddp/cli/train.py`` (``build_parser``, ``main`` :609,
-``_run_and_report`` :635) for this slice's flags, with the JAX CLI's names,
-defaults and help. After the final evaluation ``--dump-predictions`` and
+``_run_and_report`` :635, ``run_cv`` :546) for this slice's flags, with the
+JAX CLI's names, defaults and help. ``--global-batch-size`` is divided by the
+data world, which in the port is the launched world size (the port has only
+the data axis; the JAX :426-450 divides by the mesh's data axis), or
+``--n-devices`` where given. ``--cv-mode K`` runs k-fold cross-validation
+over the train split instead of one run. After the final evaluation ``--dump-predictions`` and
 ``--viz-predictions`` run the test set's batch inference (:670-737). It
 trains on the GPU unless ``--device cpu`` is given, and refuses to start
 without one otherwise. A run drained by SIGTERM or
@@ -16,7 +20,9 @@ a flag the JAX CLI does not need: one JAX process drives every device).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
 
 import numpy as np
 
@@ -37,6 +43,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=DEVICES, default="cuda",
                    help="cuda (default) demands a GPU; cpu runs on the CPU")
     p.add_argument("--data-dir", default="data/CIFAR-10")
+    p.add_argument("--download", action="store_true",
+                   help="fetch + md5-verify the canonical dataset tarball "
+                        "into --data-dir when absent (the reference's "
+                        "datasets.CIFAR10 download=True convenience)")
     p.add_argument("--dataset", choices=sorted(DATASETS), default="cifar10",
                    help="cifar100 = the scale-out recipe (its 100 fine "
                         "labels; --num-classes follows)")
@@ -53,8 +63,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--epochs", type=int, default=99)
     p.add_argument("--batch-size", type=int, default=32,
                    help="per-device batch (the reference's per-process 32)")
+    p.add_argument("--global-batch-size", type=int, default=None,
+                   help="fix the GLOBAL batch instead (sane mode; divided "
+                        "across devices)")
     p.add_argument("--lr", type=float, default=1e-2)
-    p.add_argument("--optimizer", choices=["sgd", "adamw"], default="sgd")
+    p.add_argument("--optimizer", choices=["sgd", "adamw", "lamb"],
+                   default="sgd",
+                   help="sgd = the reference family (main.py:27); adamw = "
+                        "the ViT-family recipe; lamb = layer-wise-adaptive "
+                        "large-global-batch training (no --kernels: K1 has "
+                        "no lamb branch)")
     p.add_argument("--momentum", type=float, default=0.0)
     p.add_argument("--weight-decay", type=float, default=0.0)
     p.add_argument("--schedule", choices=["constant", "cosine"], default="constant")
@@ -68,6 +86,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ema-decay", type=float, default=0.0,
                    help="exponential moving average of the params (0 = off); "
                         "eval uses the averaged weights")
+    p.add_argument("--n-devices", type=int, default=None,
+                   help="1 == the main_no_ddp.py single-device baseline; "
+                        "a rank owns one card, so N must equal the "
+                        "launched world size")
     p.add_argument("--kernels", action="store_true",
                    help="send the optimizer update through the fused CUDA "
                         "kernel (ops/csrc/fused_update.cu), one pass per "
@@ -118,6 +140,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fine-tune: partial restore + head swap from this "
                         "checkpoint dir, or from a torchvision-layout state "
                         "dict file (.pt/.pth/.npz), strict=False semantics")
+    p.add_argument("--sync-bn", action="store_true",
+                   help="BatchNorm statistics over all ranks (one "
+                        "all-reduce a BatchNorm call, and one in the "
+                        "backward)")
     p.add_argument("--attention", choices=["full", "flash"], default="full",
                    help="flash = the CUDA flash-attention kernels "
                         "(ops/csrc/flash_attention.cu, forward and backward), "
@@ -140,8 +166,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="on-device random crop+flip (the reference has no "
                         "augmentation; needed for the 93%% target)")
     p.add_argument("--no-shuffle", action="store_true")
+    p.add_argument("--faithful-epoch-order", action="store_true",
+                   help="reproduce the missing set_epoch(): same order every epoch")
     p.add_argument("--eval-each-epoch", action="store_true")
     p.add_argument("--log-every-epochs", type=int, default=10)
+    p.add_argument("--log-every-steps", type=int, default=None,
+                   help="also log an in-epoch progress line every N steps "
+                        "(the reference's per-100-iter print, "
+                        "ppe_main_ddp.py:151-152); each line costs one "
+                        "host sync")
+    p.add_argument("--cv-mode", type=int, default=None, metavar="K",
+                   help="k-fold cross-validation over the train split "
+                        "(the reference's -cv_mode, ppe_main_ddp.py:28-37,"
+                        "91-93): trains K models, reports per-fold and "
+                        "mean val accuracy; checkpointing disabled per fold")
     p.add_argument("--viz-predictions", default=None, metavar="DIR",
                    help="write predictions.png (pred-vs-true image grid) + "
                         "confusion_matrix.png after the final eval — the "
@@ -176,6 +214,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "microbatches (gradient accumulation): same "
                         "semantics, ~1/K activation memory — the big-"
                         "global-batch knob")
+    p.add_argument("--prefetch-depth", type=int, default=2,
+                   help="batches assembled ahead on the native host "
+                        "prefetcher (C++ ring buffer, pinned slots on the "
+                        "card; 0 disables)")
+    p.add_argument("--prefetch-batches", type=int, default=0,
+                   help="batches buffered ahead by the STAGED background "
+                        "prefetcher: the loader's own generator on a thread, "
+                        "bit-identical batch stream; takes precedence over "
+                        "--prefetch-depth (0 = off)")
     p.add_argument("--tensorboard-dir", default=None,
                    help="write TensorBoard scalar events here "
                         "(process-0 only), alongside --jsonl")
@@ -211,17 +258,31 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def data_world(n_devices=None) -> int:
+    """The data-parallel world the run will have: ``--n-devices`` where
+    given, else the launcher's ``WORLD_SIZE`` (1 without the launcher)."""
+    return n_devices or int(os.environ.get("WORLD_SIZE", "1"))
+
+
 def config_from_args(args) -> TrainConfig:
+    per_shard = args.batch_size
+    if args.global_batch_size:
+        data = data_world(args.n_devices)
+        if args.global_batch_size % data:
+            raise ValueError(f"global batch {args.global_batch_size} not divisible by "
+                             f"{data} data shards")
+        per_shard = args.global_batch_size // data
     return TrainConfig(
         device=args.device,
         data_dir=args.data_dir,
+        download=args.download,
         dataset=args.dataset,
         synthetic_data=args.synthetic_data,
         synthetic_size=args.synthetic_size,
         synthetic_task=args.synthetic_task,
         synthetic_label_noise=args.synthetic_label_noise,
         epochs=args.epochs,
-        per_shard_batch=args.batch_size,
+        per_shard_batch=per_shard,
         lr=args.lr,
         optimizer=args.optimizer,
         momentum=args.momentum,
@@ -236,6 +297,7 @@ def config_from_args(args) -> TrainConfig:
         grad_compress_block=args.grad_compress_block,
         grad_compress_error_feedback=args.grad_compress_error_feedback,
         dist_backend=args.dist_backend,
+        n_devices=args.n_devices,
         model=args.model,
         attention=args.attention,
         compute_dtype=args.compute_dtype,
@@ -260,6 +322,11 @@ def config_from_args(args) -> TrainConfig:
         jsonl_path=args.jsonl,
         tensorboard_dir=args.tensorboard_dir,
         shuffle=not args.no_shuffle,
+        reshuffle_each_epoch=not args.faithful_epoch_order,
+        sync_bn=args.sync_bn,
+        prefetch_depth=args.prefetch_depth,
+        prefetch_batches=args.prefetch_batches,
+        log_every_steps=args.log_every_steps,
         health=args.health,
         health_policy=args.health_policy,
         health_per_layer_stride=args.health_per_layer_stride,
@@ -276,11 +343,14 @@ def config_from_args(args) -> TrainConfig:
 
 
 def run(argv=None) -> tuple:
-    """``main``, returning ``(trainer, metrics)``."""
+    """``main``, returning ``(trainer, metrics)`` (no trainer under
+    ``--cv-mode``, which builds one a fold)."""
     args = build_parser().parse_args(argv)
     config = config_from_args(args)
     initialize_distributed(config.device, config.dist_backend)
     try:
+        if args.cv_mode:
+            return None, run_cv(args, config)
         if args.eval_only and not (config.resume and config.checkpoint_dir
                                    or config.pretrained_dir):
             raise SystemExit(
@@ -295,6 +365,47 @@ def run(argv=None) -> tuple:
     finally:
         shutdown()
     return trainer, metrics
+
+
+def run_cv(args, config) -> dict:
+    """k-fold cross-validation (the JAX ``run_cv`` :546-606, the
+    reference's ``-cv_mode``): one fresh ``Trainer`` a fold, data-parallel
+    over the ranks, with no checkpoints and no resume; each fold's health
+    record goes to ``<health-dir>/fold<i>`` (the records open with mode
+    "w"). Reports each fold's validation accuracy and their mean."""
+    from tpu_ddp_torch.train.kfold import run_kfold
+    from tpu_ddp_torch.train.trainer import load_dataset
+
+    (images, labels), _ = load_dataset(config)
+    fold_config = dataclasses.replace(config, checkpoint_dir=None, resume=False)
+    say = print if is_primary_process() else (lambda *a, **k: None)
+
+    def make_trainer(train_data, val_data, fold):
+        say(f"[cv] fold {fold + 1}/{args.cv_mode}")
+        cfg = dataclasses.replace(
+            fold_config,
+            health_dir=(os.path.join(fold_config.health_dir, f"fold{fold}")
+                        if fold_config.health_dir else None))
+        return Trainer(cfg, train_data=train_data, test_data=val_data)
+
+    results = run_kfold(np.asarray(images), np.asarray(labels), k=args.cv_mode,
+                        make_trainer=make_trainer, seed=config.seed)
+    preempted = any(r.get("preempted") for r in results)
+    # a drained fold carries no val metrics and stays out of the aggregate
+    accs = [r["val_accuracy"] for r in results if "val_accuracy" in r]
+    if preempted:
+        say(f"[cv] preempted after {len(accs)}/{args.cv_mode} completed folds; "
+            "aggregate covers completed folds only")
+    if accs:
+        say("[cv] val accuracy per fold: " + ", ".join(f"{a:.4f}" for a in accs)
+            + f" | mean {np.mean(accs):.4f} +- {np.std(accs):.4f}")
+    return {
+        "cv_results": results,
+        "preempted": preempted,
+        "completed_folds": len(accs),
+        "mean_val_accuracy": float(np.mean(accs)) if accs else None,
+        "std_val_accuracy": float(np.std(accs)) if accs else None,
+    }
 
 
 def _run_and_report(args, config, trainer) -> dict:

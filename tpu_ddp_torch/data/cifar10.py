@@ -7,10 +7,15 @@ A numpy copy of ``tpu_ddp/data/cifar10.py`` (``DATASET_LAYOUTS`` :35,
 :245, ``synthetic_multilabel`` :311), so that the same seed gives
 bit-identical arrays in both packages. Images are NHWC float32, normalised
 with the reference's per-channel constants (CIFAR-10's for CIFAR-100 too,
-as in the JAX package). Fetching the dataset (``download.py``) is not ported
-yet: the directory must already hold the batches (``cifar-10-batches-py`` or
-``cifar-100-python``) or the tarball that torchvision leaves behind, which
-``_find_dataset_dir`` extracts as the JAX package's (:86) does.
+as in the JAX package). The directory holds the batches
+(``cifar-10-batches-py`` or ``cifar-100-python``) or the tarball that
+torchvision leaves behind, which ``_find_dataset_dir`` extracts as the JAX
+package's (:86) does; ``data/download.py`` fetches the tarball
+(``--download``), with the probes ``extracted_dataset_dir``,
+``existing_tarball`` and ``ensure_extracted`` (the JAX :43-81).
+``decode_normalize`` runs the C++ codec of ``native/`` (the JAX
+``_load_pickles`` :209-212 calls the JAX package's copy of it), so both
+packages decode to the same bits.
 """
 
 from __future__ import annotations
@@ -43,6 +48,40 @@ _C100_TEST_FILES = ["test"]
 def _find_batches_dir(data_dir: str) -> str:
     """CIFAR-10's batches dir (``_find_dataset_dir``)."""
     return _find_dataset_dir(data_dir, "cifar10")
+
+
+def extracted_dataset_dir(data_dir: str, dataset: str):
+    """The extracted batches dir holding every marker file, else None. A pure
+    probe: it never extracts, never raises (ranks waiting for local rank 0's
+    extraction poll it, and extraction lands atomically)."""
+    subdir, markers, _, what = DATASET_LAYOUTS[dataset]
+    for c in (data_dir, os.path.join(data_dir, subdir),
+              os.path.join(data_dir, what, subdir)):
+        if all(os.path.isfile(os.path.join(c, m)) for m in markers):
+            return c
+    return None
+
+
+def existing_tarball(data_dir: str, dataset: str):
+    """The canonical tarball already under ``data_dir``, else None."""
+    _, _, tarball, what = DATASET_LAYOUTS[dataset]
+    for c in (data_dir, os.path.join(data_dir, what)):
+        p = os.path.join(c, tarball)
+        if os.path.isfile(p):
+            return p
+    return None
+
+
+def ensure_extracted(data_dir: str, dataset: str) -> bool:
+    """Extract the tarball now unless the batches are on disk; whether the
+    extracted dir exists afterwards (``download.ensure_dataset`` has one
+    process do the extraction up front)."""
+    if extracted_dataset_dir(data_dir, dataset) is not None:
+        return True
+    if existing_tarball(data_dir, dataset) is None:
+        return False
+    _find_dataset_dir(data_dir, dataset)  # extracts
+    return extracted_dataset_dir(data_dir, dataset) is not None
 
 
 def _find_dataset_dir(data_dir: str, dataset: str) -> str:
@@ -141,10 +180,13 @@ def _load_pickles(batches_dir: str, files, label_key: bytes):
 
 
 def decode_normalize(raw: np.ndarray) -> np.ndarray:
-    """(N, 3072) uint8 planar RGB -> (N, 32, 32, 3) float32 normalised."""
-    n = raw.shape[0]
-    x = raw.reshape(n, 3, 32, 32).transpose(0, 2, 3, 1).astype(np.float32) / 255.0
-    return (x - CIFAR10_MEAN) / CIFAR10_STD
+    """(N, 3072) uint8 planar RGB -> (N, 32, 32, 3) float32 normalised, by
+    the C++ codec (``native.decode_normalize``): ``byte * (1 / (255 std)) -
+    mean / std``, which differs from ``normalize``'s ``(byte / 255 - mean)
+    / std`` in the last bit."""
+    from tpu_ddp_torch import native
+
+    return native.decode_normalize(raw, CIFAR10_MEAN, CIFAR10_STD)
 
 
 def normalize(images_uint8: np.ndarray) -> np.ndarray:

@@ -6,25 +6,37 @@ yield the same batches for the same seed:
 
 * pad by wrapping so every shard has ``ceil(N / world_size)`` samples;
 * shard ``r`` takes ``padded[r::world_size]`` (interleaved);
-* a seeded permutation per epoch (``seed + epoch``);
+* a seeded permutation per epoch (``seed + epoch``), or the epoch-0
+  order every epoch under ``reshuffle_each_epoch=False`` (the reference's
+  missing ``sampler.set_epoch``, ``--faithful-epoch-order``);
 * every batch has the same shape: the short last batch is wrap-padded and a
-  boolean ``mask`` marks its real rows.
+  boolean ``mask`` marks its real rows; ``drop_last`` drops it instead;
+* ``process_index``/``process_count``: ``world_size`` stays the global
+  shard count and every process computes the same sampler math; process p
+  yields only the rows of its contiguous block of ``world_size /
+  process_count`` shards (``local_batch`` rows a step). The port runs one
+  process a rank, so its trainer passes ``(rank, world_size)``: each rank
+  gathers only its own ``per_shard_batch`` rows.
 
-``step_groups`` fuses an epoch's batches into stacked groups of K for
-``--steps-per-call`` (the JAX trainer's ``_epoch_stream``, :1439-1531).
-
-The JAX loader's telemetry and observer hooks, multi-host slicing,
-``drop_last``, frozen epoch order and the host prefetchers are not ported
-yet; the gather is numpy fancy indexing.
+The gather goes through ``native.gather_rows`` (the JAX loader's
+``_gather``, :36-40). ``step_groups`` fuses an epoch's batches into stacked
+groups of K for ``--steps-per-call`` (the JAX trainer's ``_epoch_stream``,
+:1439-1531). The host prefetchers that run ahead of the step are
+``native/prefetch.py`` and ``datapath/prefetch.py``; ``Trainer`` drives
+them. The JAX loader's telemetry spans and stage observer wait for
+telemetry; ``gather_seconds`` counts the time spent in the gather.
 """
 
 from __future__ import annotations
 
 import itertools
 import math
+import time
 from typing import Dict, Iterable, Iterator, Optional
 
 import numpy as np
+
+from tpu_ddp_torch import native
 
 
 def shard_indices(n: int, world_size: int, *, shuffle: bool, seed: int = 0,
@@ -43,36 +55,61 @@ def shard_indices(n: int, world_size: int, *, shuffle: bool, seed: int = 0,
 
 
 class ShardedBatchLoader:
-    """Yields ``{image, label, mask}`` batches of the fixed global shape
-    ``(world_size * per_shard_batch, ...)``, shard-major."""
+    """Yields ``{image, label, mask}`` batches of the fixed shape
+    ``(local_batch, ...)``, shard-major: the global batch of
+    ``world_size * per_shard_batch`` rows at one process."""
 
     def __init__(self, images: np.ndarray, labels: np.ndarray, *,
                  world_size: int = 1, per_shard_batch: int = 32,
-                 shuffle: bool = True, seed: int = 0,
-                 exclude_sampler_pad: bool = False):
+                 shuffle: bool = True, reshuffle_each_epoch: bool = True,
+                 seed: int = 0, drop_last: bool = False,
+                 exclude_sampler_pad: bool = False,
+                 process_index: int = 0, process_count: int = 1):
         """exclude_sampler_pad: also mask the sampler's wrap-pad duplicates
         (True for eval, so metrics count every sample once)."""
         if len(images) != len(labels):
             raise ValueError(f"{len(images)} images but {len(labels)} labels")
+        if world_size % process_count:
+            raise ValueError(f"{world_size} devices not divisible by "
+                             f"{process_count} hosts")
         self.images, self.labels = images, labels
         self.world_size = world_size
         self.per_shard_batch = per_shard_batch
         self.shuffle = shuffle
+        self.reshuffle_each_epoch = reshuffle_each_epoch
         self.seed = seed
+        self.drop_last = drop_last
         self.exclude_sampler_pad = exclude_sampler_pad
+        self.process_index = process_index
+        self.process_count = process_count
+        self.local_world_size = world_size // process_count
+        self.gather_seconds = 0.0
         self._epoch = 0
         per_shard = math.ceil(len(images) / world_size)
-        self.steps_per_epoch = math.ceil(per_shard / per_shard_batch)
+        if drop_last:
+            self.steps_per_epoch = per_shard // per_shard_batch
+        else:
+            self.steps_per_epoch = math.ceil(per_shard / per_shard_batch)
+
+    @property
+    def global_batch(self) -> int:
+        return self.per_shard_batch * self.world_size
+
+    @property
+    def local_batch(self) -> int:
+        """Rows this process gathers a step (``global_batch`` at one
+        process)."""
+        return self.per_shard_batch * self.local_world_size
 
     def set_epoch(self, epoch: int) -> None:
         self._epoch = epoch
 
     def epoch_index_batches(self, epoch: Optional[int] = None) -> Iterator[tuple]:
-        """Yield ``(idx, mask)`` per step."""
+        """Yield this process's ``(idx, mask)`` per step."""
         epoch = self._epoch if epoch is None else epoch
         shards = shard_indices(
             len(self.images), self.world_size, shuffle=self.shuffle,
-            seed=self.seed, epoch=epoch,
+            seed=self.seed, epoch=epoch if self.reshuffle_each_epoch else 0,
         )
         per_shard = shards.shape[1]
         n = len(self.images)
@@ -94,23 +131,34 @@ class ShardedBatchLoader:
             mask[:, :valid] = True
             if self.exclude_sampler_pad:
                 mask[:, :valid] &= real
-            yield chunk.reshape(-1), mask.reshape(-1)
+            # process p owns the contiguous shard block [p * lws, (p+1) * lws)
+            lo_r = self.process_index * self.local_world_size
+            hi_r = lo_r + self.local_world_size
+            yield chunk[lo_r:hi_r].reshape(-1), mask[lo_r:hi_r].reshape(-1)
+
+    def gather(self, idx: np.ndarray) -> tuple:
+        """``(images[idx], labels[idx])`` through ``native.gather_rows``."""
+        t0 = time.perf_counter()
+        out = native.gather_rows(self.images, idx), native.gather_rows(self.labels, idx)
+        self.gather_seconds += time.perf_counter() - t0
+        return out
 
     def epoch_batches(self, epoch: Optional[int] = None,
                       shard: Optional[int] = None,
                       start: int = 0) -> Iterator[Dict[str, np.ndarray]]:
-        """The global batches or, with ``shard``, that shard's
-        ``per_shard_batch`` rows of each (the batch is shard-major).
-        ``start`` skips the epoch's first index batches without gathering
-        them (a mid-epoch resume)."""
+        """This process's batches or, with ``shard``, that shard's
+        ``per_shard_batch`` rows of each (the batch is shard-major; ``shard``
+        counts from this process's first). ``start`` skips the epoch's
+        first index batches without gathering them (a mid-epoch resume)."""
         bs = self.per_shard_batch
         for idx, mask in itertools.islice(self.epoch_index_batches(epoch), start, None):
             if shard is not None:
                 idx = idx[shard * bs:(shard + 1) * bs]
                 mask = mask[shard * bs:(shard + 1) * bs]
+            images, labels = self.gather(idx)
             yield {
-                "image": np.ascontiguousarray(self.images[idx]),
-                "label": np.ascontiguousarray(self.labels[idx]),
+                "image": np.ascontiguousarray(images),
+                "label": np.ascontiguousarray(labels),
                 "mask": mask,
             }
 

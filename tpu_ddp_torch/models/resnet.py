@@ -16,6 +16,17 @@ Counterpart of ``tpu_ddp/models/resnet.py`` (``ResBlock`` :39,
   ``torch.nn.BatchNorm2d`` stores the unbiased one. ``BatchNorm`` below is
   therefore written out in plain torch ops: running value
   ``0.9 * running + (1 - 0.9) * batch`` (torch momentum 0.1), eps 1e-5.
+* **Sync BN.** ``bn_cross_replica_axis`` (the JAX ``resnet.py`` :50, :70;
+  ``--sync-bn``, wired by ``Trainer`` as the JAX trainer's :552-566 wires
+  it) makes every BatchNorm take its batch statistics over all the ranks of
+  the default process group, as Flax's ``axis_name`` does: the stacked
+  ``(2, C)`` local ``[E[x], E[x²]]`` goes through one all-reduce-mean a
+  call (``sync_stats``), and the variance is formed from the averaged pair.
+  The backward of that all-reduce-mean is the all-reduce-mean of the
+  cotangent, which is what JAX's transpose of ``pmean`` gives inside the
+  ``dp`` step's ``shard_map``. The running buffers move with the synced
+  statistics. At one rank nothing is sent, and the arithmetic is that of
+  the unsynced model.
 * **Tied blocks.** With ``tied=True`` one ``ResBlock`` is applied
   ``n_blocks`` times (the reference's list-repeat quirk): 76,074 params, and
   the shared BatchNorm's running stats move ``n_blocks`` times per forward.
@@ -28,12 +39,51 @@ Counterpart of ``tpu_ddp/models/resnet.py`` (``ResBlock`` :39,
 
 from __future__ import annotations
 
+import collections
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from tpu_ddp_torch.models.initializers import kaiming_normal_relu_, torch_default_uniform_
 from tpu_ddp_torch.models.layers import Conv2d, Dense
+
+
+#: sync-BN all-reduces since the last clear: "forward" (the statistics) and
+#: "backward" (their cotangents)
+SYNC_BN_COLLECTIVES: collections.Counter = collections.Counter()
+
+
+class _SyncMean(torch.autograd.Function):
+    """The mean over the ranks, whose backward is the mean over the ranks
+    of the cotangent (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, stats: torch.Tensor) -> torch.Tensor:
+        from tpu_ddp_torch.parallel.collectives import all_reduce_mean_
+
+        out = stats.clone()
+        all_reduce_mean_([out])
+        SYNC_BN_COLLECTIVES["forward"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+        from tpu_ddp_torch.parallel.collectives import all_reduce_mean_
+
+        out = grad.contiguous().clone()
+        all_reduce_mean_([out])
+        SYNC_BN_COLLECTIVES["backward"] += 1
+        return out
+
+
+def sync_stats(stats: torch.Tensor) -> torch.Tensor:
+    """``stats`` averaged over the ranks of the default process group, one
+    all-reduce forward and one backward; ``stats`` itself at one rank."""
+    from tpu_ddp_torch.parallel.runtime import world_size
+
+    return _SyncMean.apply(stats) if world_size() > 1 else stats
 
 
 class BatchNorm(nn.Module):
@@ -44,12 +94,15 @@ class BatchNorm(nn.Module):
     last BatchNorm of a residual branch. The arithmetic is float32 whatever
     ``x``'s dtype, and the result is ``dtype``. ``update_running = False``
     keeps the running buffers as they are (the recompute of a checkpointed
-    forward, ``train/steps.py``)."""
+    forward, ``train/steps.py``). With ``axis_name`` (Flax's name) set, the
+    batch statistics are taken over every rank (module docstring)."""
 
     def __init__(self, n_chans: int, momentum: float = 0.9, eps: float = 1e-5,
-                 scale_init: float = 0.5, dtype: torch.dtype = torch.float32):
+                 scale_init: float = 0.5, dtype: torch.dtype = torch.float32,
+                 axis_name: Optional[str] = None):
         super().__init__()
         self.momentum, self.eps, self.dtype = momentum, eps, dtype
+        self.axis_name = axis_name
         self.update_running = True
         self.weight = nn.Parameter(torch.full((n_chans,), float(scale_init)))
         self.bias = nn.Parameter(torch.zeros(n_chans))
@@ -61,6 +114,8 @@ class BatchNorm(nn.Module):
         if self.training:
             mean = x.mean(dim=(0, 2, 3))
             mean2 = (x * x).mean(dim=(0, 2, 3))
+            if self.axis_name is not None:
+                mean, mean2 = sync_stats(torch.stack([mean, mean2])).unbind(0)
             var = torch.clamp_min(mean2 - mean * mean, 0.0)
             if self.update_running:
                 with torch.no_grad():
@@ -78,10 +133,11 @@ class ResBlock(nn.Module):
     """conv3x3 (no bias) -> BN -> relu -> (+x); kaiming-normal(relu) conv."""
 
     def __init__(self, n_chans: int, generator: torch.Generator,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 bn_cross_replica_axis: Optional[str] = None):
         super().__init__()
         self.conv = Conv2d(n_chans, n_chans, 3, padding=1, bias=False, compute_dtype=dtype)
-        self.batch_norm = BatchNorm(n_chans, dtype=dtype)
+        self.batch_norm = BatchNorm(n_chans, dtype=dtype, axis_name=bn_cross_replica_axis)
         kaiming_normal_relu_(self.conv.weight, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -95,7 +151,8 @@ class NetResDeep(nn.Module):
     def __init__(self, n_chans1: int = 32, n_blocks: int = 10,
                  num_classes: int = 10, tied: bool = True,
                  generator: torch.Generator | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 bn_cross_replica_axis: Optional[str] = None):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -105,12 +162,12 @@ class NetResDeep(nn.Module):
         torch_default_uniform_(self.conv1.weight, 3 * 3 * 3, generator)
         torch_default_uniform_(self.conv1.bias, 3 * 3 * 3, generator)
         if tied:
-            self.resblock = ResBlock(n_chans1, generator, dtype)
+            self.resblock = ResBlock(n_chans1, generator, dtype, bn_cross_replica_axis)
             self.blocks = [self.resblock] * n_blocks
         else:
             self.blocks = []
             for i in range(n_blocks):
-                block = ResBlock(n_chans1, generator, dtype)
+                block = ResBlock(n_chans1, generator, dtype, bn_cross_replica_axis)
                 self.add_module(f"resblock_{i}", block)
                 self.blocks.append(block)
         flat = 8 * 8 * n_chans1

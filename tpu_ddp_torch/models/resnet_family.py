@@ -29,13 +29,16 @@ it first, so there it is ``Conv_0``.
 
 ``dtype`` (:33-138) is the compute dtype, as in ``models/resnet.py``: the
 convolutions and the head compute in it, BatchNorm in float32 with a
-``dtype`` result. Not ported: ``bn_cross_replica_axis`` (sync BN).
+``dtype`` result. ``bn_cross_replica_axis`` (:32, :62, :101, :186, :222)
+syncs every BatchNorm's statistics over the ranks (``--sync-bn``;
+``models/resnet.py``).
 Convolutions, BatchNorm and the head are cuDNN, cuBLAS and torch ops, as the
 JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence
 
@@ -72,16 +75,18 @@ class _BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, in_chans: int, filters: int, strides: int,
-                 generator: torch.Generator, dtype: torch.dtype = torch.float32):
+                 generator: torch.Generator, dtype: torch.dtype = torch.float32,
+                 bn_cross_replica_axis: Optional[str] = None):
         super().__init__()
+        bn = functools.partial(BatchNorm, dtype=dtype, axis_name=bn_cross_replica_axis)
         self.Conv_0 = _conv(in_chans, filters, 3, generator, strides, 1, dtype)
-        self.BatchNorm_0 = BatchNorm(filters, scale_init=1.0, dtype=dtype)
+        self.BatchNorm_0 = bn(filters, scale_init=1.0)
         self.Conv_1 = _conv(filters, filters, 3, generator, 1, 1, dtype)
-        self.BatchNorm_1 = BatchNorm(filters, scale_init=0.0, dtype=dtype)
+        self.BatchNorm_1 = bn(filters, scale_init=0.0)
         self.project = in_chans != filters or strides != 1
         if self.project:
             self.Conv_2 = _conv(in_chans, filters, 1, generator, strides, dtype=dtype)
-            self.BatchNorm_2 = BatchNorm(filters, scale_init=1.0, dtype=dtype)
+            self.BatchNorm_2 = bn(filters, scale_init=1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
@@ -98,19 +103,21 @@ class _Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, in_chans: int, filters: int, strides: int,
-                 generator: torch.Generator, dtype: torch.dtype = torch.float32):
+                 generator: torch.Generator, dtype: torch.dtype = torch.float32,
+                 bn_cross_replica_axis: Optional[str] = None):
         super().__init__()
+        bn = functools.partial(BatchNorm, dtype=dtype, axis_name=bn_cross_replica_axis)
         out = filters * self.expansion
         self.Conv_0 = _conv(in_chans, filters, 1, generator, dtype=dtype)
-        self.BatchNorm_0 = BatchNorm(filters, scale_init=1.0, dtype=dtype)
+        self.BatchNorm_0 = bn(filters, scale_init=1.0)
         self.Conv_1 = _conv(filters, filters, 3, generator, strides, 1, dtype)
-        self.BatchNorm_1 = BatchNorm(filters, scale_init=1.0, dtype=dtype)
+        self.BatchNorm_1 = bn(filters, scale_init=1.0)
         self.Conv_2 = _conv(filters, out, 1, generator, dtype=dtype)
-        self.BatchNorm_2 = BatchNorm(out, scale_init=0.0, dtype=dtype)
+        self.BatchNorm_2 = bn(out, scale_init=0.0)
         self.project = in_chans != out or strides != 1
         if self.project:
             self.Conv_3 = _conv(in_chans, out, 1, generator, strides, dtype=dtype)
-            self.BatchNorm_3 = BatchNorm(out, scale_init=1.0, dtype=dtype)
+            self.BatchNorm_3 = bn(out, scale_init=1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
@@ -136,7 +143,8 @@ class ResNet(nn.Module):
     def __init__(self, stage_sizes: Sequence[int], block: type, num_classes: int = 10,
                  num_filters: int = 64, cifar_stem: bool = True,
                  generator: Optional[torch.Generator] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 bn_cross_replica_axis: Optional[str] = None):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -146,14 +154,15 @@ class ResNet(nn.Module):
             self.stem_conv = _conv(3, num_filters, 3, generator, 1, 1, dtype)
         else:
             self.stem_conv = _conv(3, num_filters, 7, generator, 2, 3, dtype)
-        self.stem_bn = BatchNorm(num_filters, scale_init=1.0, dtype=dtype)
+        self.stem_bn = BatchNorm(num_filters, scale_init=1.0, dtype=dtype,
+                                 axis_name=bn_cross_replica_axis)
         self.blocks = []
         chans, g = num_filters, 0
         for stage, n_blocks in enumerate(self.stage_sizes):
             for b in range(n_blocks):
                 filters = num_filters * 2 ** stage
                 blk = block(chans, filters, 2 if (b == 0 and stage > 0) else 1,
-                            generator, dtype)
+                            generator, dtype, bn_cross_replica_axis)
                 self.add_module(f"{block.__name__}_{g}", blk)
                 self.blocks.append(blk)
                 chans, g = filters * block.expansion, g + 1
@@ -172,10 +181,12 @@ class ResNet(nn.Module):
 def _factory(stage_sizes, block):
     def build(num_classes: int = 10, generator: Optional[torch.Generator] = None,
               image_size: int = 32, cifar_stem: bool = True,
-              dtype: torch.dtype = torch.float32) -> ResNet:
+              dtype: torch.dtype = torch.float32,
+              bn_cross_replica_axis: Optional[str] = None) -> ResNet:
         del image_size  # the global pool takes any input size
         return ResNet(stage_sizes, block, num_classes=num_classes,
-                      cifar_stem=cifar_stem, generator=generator, dtype=dtype)
+                      cifar_stem=cifar_stem, generator=generator, dtype=dtype,
+                      bn_cross_replica_axis=bn_cross_replica_axis)
 
     return build
 
@@ -194,9 +205,11 @@ class _WideBlock(nn.Module):
     tensor."""
 
     def __init__(self, in_chans: int, filters: int, strides: int,
-                 generator: torch.Generator, dtype: torch.dtype = torch.float32):
+                 generator: torch.Generator, dtype: torch.dtype = torch.float32,
+                 bn_cross_replica_axis: Optional[str] = None):
         super().__init__()
-        self.BatchNorm_0 = BatchNorm(in_chans, scale_init=1.0, dtype=dtype)
+        bn = functools.partial(BatchNorm, dtype=dtype, axis_name=bn_cross_replica_axis)
+        self.BatchNorm_0 = bn(in_chans, scale_init=1.0)
         self.project = in_chans != filters or strides != 1
         convs = []
         if self.project:
@@ -205,7 +218,7 @@ class _WideBlock(nn.Module):
         convs.append(_conv(filters, filters, 3, generator, 1, 1, dtype))
         for c, conv in enumerate(convs):
             self.add_module(f"Conv_{c}", conv)
-        self.BatchNorm_1 = BatchNorm(filters, scale_init=1.0, dtype=dtype)
+        self.BatchNorm_1 = bn(filters, scale_init=1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         convs = [getattr(self, f"Conv_{c}") for c in range(2 + self.project)]
@@ -223,7 +236,8 @@ class WideResNet(nn.Module):
 
     def __init__(self, depth: int = 28, widen: int = 10, num_classes: int = 10,
                  generator: Optional[torch.Generator] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 bn_cross_replica_axis: Optional[str] = None):
         super().__init__()
         if (depth - 4) % 6:
             raise ValueError(f"WRN depth must be 6n+4, got {depth}")
@@ -237,11 +251,12 @@ class WideResNet(nn.Module):
         for stage, width in enumerate((16, 32, 64)):
             for b in range(n):
                 blk = _WideBlock(chans, width * widen, 2 if (b == 0 and stage > 0) else 1,
-                                 generator, dtype)
+                                 generator, dtype, bn_cross_replica_axis)
                 self.add_module(f"_WideBlock_{g}", blk)
                 self.blocks.append(blk)
                 chans, g = width * widen, g + 1
-        self.final_bn = BatchNorm(chans, scale_init=1.0, dtype=dtype)
+        self.final_bn = BatchNorm(chans, scale_init=1.0, dtype=dtype,
+                                  axis_name=bn_cross_replica_axis)
         self.head = _head(chans, num_classes, generator, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -255,19 +270,21 @@ class WideResNet(nn.Module):
 @register("wrn28_10")
 def wrn28_10(num_classes: int = 10, generator: Optional[torch.Generator] = None,
              image_size: int = 32, cifar_stem: bool = True,
-             dtype: torch.dtype = torch.float32) -> WideResNet:
+             dtype: torch.dtype = torch.float32,
+             bn_cross_replica_axis: Optional[str] = None) -> WideResNet:
     """The WRN paper's headline CIFAR config (36,479,194 params at 10
     classes)."""
     del image_size, cifar_stem  # WRN is 32x32-native
     return WideResNet(depth=28, widen=10, num_classes=num_classes, generator=generator,
-                      dtype=dtype)
+                      dtype=dtype, bn_cross_replica_axis=bn_cross_replica_axis)
 
 
 @register("wrn16_4")
 def wrn16_4(num_classes: int = 10, generator: Optional[torch.Generator] = None,
             image_size: int = 32, cifar_stem: bool = True,
-            dtype: torch.dtype = torch.float32) -> WideResNet:
+            dtype: torch.dtype = torch.float32,
+            bn_cross_replica_axis: Optional[str] = None) -> WideResNet:
     """Small WRN of the same family."""
     del image_size, cifar_stem
     return WideResNet(depth=16, widen=4, num_classes=num_classes, generator=generator,
-                      dtype=dtype)
+                      dtype=dtype, bn_cross_replica_axis=bn_cross_replica_axis)

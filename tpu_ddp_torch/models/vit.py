@@ -171,8 +171,10 @@ class ViT(nn.Module):
 
 @register("vit_s4")
 def vit_s4(num_classes: int = 10, generator: Optional[torch.Generator] = None,
-           image_size: int = 32, dtype: torch.dtype = torch.float32) -> ViT:
+           image_size: int = 32, dtype: torch.dtype = torch.float32,
+           bn_cross_replica_axis: Optional[str] = None) -> ViT:
     """Small ViT for 32x32 inputs (patch 4 -> 64 tokens)."""
+    del bn_cross_replica_axis  # no BatchNorm; the JAX factory ignores it too
     return ViT(patch_size=4, hidden_dim=192, depth=6, num_heads=3,
                num_classes=num_classes, image_size=image_size, generator=generator,
                dtype=dtype)
@@ -180,10 +182,12 @@ def vit_s4(num_classes: int = 10, generator: Optional[torch.Generator] = None,
 
 @register("vit_b16")
 def vit_b16(num_classes: int = 1000, generator: Optional[torch.Generator] = None,
-            image_size: int = 32, dtype: torch.dtype = torch.float32) -> ViT:
+            image_size: int = 32, dtype: torch.dtype = torch.float32,
+            bn_cross_replica_axis: Optional[str] = None) -> ViT:
     """ViT-B/16: 196 tokens at its published 224x224 input, 4 at the 32x32
     the CIFAR trainer feeds it. ``pos_embed`` is sized for ``image_size``,
     as the Flax model sizes it from the input it is initialised on."""
+    del bn_cross_replica_axis  # no BatchNorm; the JAX factory ignores it too
     return ViT(patch_size=16, hidden_dim=768, depth=12, num_heads=12,
                num_classes=num_classes, image_size=image_size, generator=generator,
                dtype=dtype)

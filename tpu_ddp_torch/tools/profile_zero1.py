@@ -170,7 +170,7 @@ def _rank(rank: int, world: int, model: str, out_path: str) -> None:
         argv + (["--zero1"] if v == "zero1" else []))))
         for v in VARIANTS}
     first = trainers["replicated"]
-    batches = [first.to_device(b) for b in first.train_loader.epoch_batches(shard=rank)]
+    batches = [first.to_device(b) for b in first.train_loader.epoch_batches()]
     for t in trainers.values():
         _run(t, batches[:WARMUP])
 

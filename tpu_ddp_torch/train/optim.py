@@ -4,8 +4,8 @@ Counterpart of ``tpu_ddp/train/optim.py`` (``params_ema`` :28,
 ``_decay_mask`` :75, ``make_optimizer`` :85, and ``apply_optimizer`` :226,
 which is ``Optimizer.apply`` here) for the parts this slice runs: SGD with
 or without momentum (optax ``trace``), coupled weight decay under the
-``ndim >= 2`` mask, global-norm clipping, AdamW with decoupled masked
-decay, constant and warmup-cosine schedules, and the EMA of the params.
+``ndim >= 2`` mask, global-norm clipping, AdamW and LAMB with decoupled
+masked decay, constant and warmup-cosine schedules, and the EMA of the params.
 
 ``Optimizer.apply`` runs the plain chain: stage by stage over all leaves, in
 the optax chain's order, with the same arithmetic. With ``kernels=True`` it
@@ -13,6 +13,14 @@ sends the update through K1 instead (``ops/fused_update.py``). Both update
 the params and the optimizer state in place. ``Optimizer.update`` is the
 plain chain alone (optax's ``tx.update``: the state in place, the params
 left as they are).
+
+``lamb`` is optax's ``lamb`` (the JAX ``make_optimizer`` :169-175):
+``scale_by_adam`` with eps 1e-6, the masked ``add_decayed_weights``,
+``scale_by_trust_ratio`` (each leaf's update scaled by ``||p|| / ||u||``,
+taken as 1 where either norm is 0), then the learning rate; the clip,
+freeze masks and EMA wrap it as they wrap AdamW. K1 has no lamb branch in
+either package: the JAX package quietly drops its fused update for lamb
+(:120-132), the port refuses ``kernels=True`` with lamb instead.
 
 ``zero1_axis`` builds the optimizer for ZeRO-1's sharded update space
 (``parallel/zero.py``; the port's one axis is the data axis of the default
@@ -32,7 +40,6 @@ schedule's) live with the trainable leaves and move every step. Frozen
 leaves still get gradients, which the step computes and syncs as for any
 other leaf.
 
-Not ported yet (it raises ``NotImplementedError``): ``lamb``.
 """
 
 from __future__ import annotations
@@ -53,6 +60,9 @@ from tpu_ddp_torch.ops.fused_update import (
 )
 
 Params = Dict[str, torch.Tensor]
+
+#: optax ``lamb``'s eps (AdamW's is ``EPS``, 1e-8)
+LAMB_EPS = 1e-6
 
 
 @dataclasses.dataclass
@@ -155,7 +165,7 @@ class Optimizer:
                          if not frozen[n]}
         count = lambda: torch.zeros((), dtype=torch.int32, device=dev)  # noqa: E731
         state = OptState()
-        if r.optimizer == "adamw":
+        if r.optimizer in ("adamw", "lamb"):
             state.count, state.mu, state.nu = count(), zeros(), zeros()
         elif r.momentum > 0:
             state.trace = zeros()
@@ -198,17 +208,20 @@ class Optimizer:
                 u = {n: torch.where(g_norm < r.grad_clip_norm, g,
                                     (g / g_norm) * r.grad_clip_norm)
                      for n, g in u.items()}
-        if r.optimizer == "adamw":                  # scale_by_adam
+        if r.optimizer in ("adamw", "lamb"):        # scale_by_adam
+            eps = EPS if r.optimizer == "adamw" else LAMB_EPS
             mu = {n: (1 - B1) * g + B1 * state.mu[n] for n, g in u.items()}
             nu = {n: (1 - B2) * (g * g) + B2 * state.nu[n] for n, g in u.items()}
             count_inc = state.count + 1
             bc1 = 1 - B1 ** count_inc.to(torch.float32)
             bc2 = 1 - B2 ** count_inc.to(torch.float32)
-            u = {n: (mu[n] / bc1) / (torch.sqrt(nu[n] / bc2 + 0.0) + EPS)
+            u = {n: (mu[n] / bc1) / (torch.sqrt(nu[n] / bc2 + 0.0) + eps)
                  for n in u}
             if wd > 0:                              # add_decayed_weights
                 u = {n: x + wd * params[n] if mask[n] else x
                      for n, x in u.items()}
+            if r.optimizer == "lamb":               # scale_by_trust_ratio
+                u = {n: x * trust_ratio(params[n], x) for n, x in u.items()}
             for n in u:
                 state.mu[n].copy_(mu[n])
                 state.nu[n].copy_(nu[n])
@@ -234,6 +247,16 @@ class Optimizer:
             for n, x in u.items():
                 state.ema[n].copy_(d * state.ema[n] + (1.0 - d) * (params[n] + x))
         return u
+
+
+def trust_ratio(param: torch.Tensor, update: torch.Tensor) -> torch.Tensor:
+    """optax ``scale_by_trust_ratio``'s factor (no min norm, trust
+    coefficient 1, eps 0): ``||param|| / ||update||``, and 1 where either
+    norm is 0."""
+    p_norm = torch.sqrt(torch.sum(param * param))
+    u_norm = torch.sqrt(torch.sum(update * update))
+    zero = (p_norm == 0.0) | (u_norm == 0.0)
+    return torch.where(zero, torch.ones_like(p_norm), p_norm / (u_norm + 0.0))
 
 
 def make_optimizer(
@@ -267,14 +290,16 @@ def make_optimizer(
             "zero1_axis with weight_decay needs a precomputed decay_mask "
             "(the ndim>=2 heuristic cannot see original shapes on "
             "flattened update-space leaves)")
-    if optimizer == "lamb":
-        raise NotImplementedError(
-            "--optimizer lamb is not ported yet (later slice: model zoo)")
-    if optimizer not in ("sgd", "adamw"):
+    if optimizer not in ("sgd", "adamw", "lamb"):
         raise ValueError(f"unknown optimizer {optimizer!r}")
-    if optimizer == "adamw" and momentum > 0:
-        raise ValueError("--momentum is an SGD knob; adamw has its own "
+    if optimizer in ("adamw", "lamb") and momentum > 0:
+        raise ValueError(f"--momentum is an SGD knob; {optimizer} has its own "
                          "moment estimates (b1=0.9)")
+    if kernels and optimizer == "lamb":
+        raise ValueError(
+            "--kernels with --optimizer lamb: K1 (ops/csrc/fused_update.cu) has "
+            "no lamb branch (nor has the JAX package's fused update); drop "
+            "--kernels or use sgd or adamw")
     if ema_decay and not 0.0 < ema_decay < 1.0:
         raise ValueError(f"ema decay must be in (0, 1), got {ema_decay}")
     if schedule == "cosine":

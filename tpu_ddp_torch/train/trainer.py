@@ -88,20 +88,52 @@ the resume point, as the JAX trainer does. ``--augment`` and
 ``--dump-predictions`` (``cli/train.py``), ``--plot-curves`` the loss curves
 written at the end of ``run``.
 
-Not ported yet: telemetry (and the health gauges it carries), the elastic
-supervisor, k-fold, the host prefetchers, and the strategies other than
-data parallelism (zero3, fsdp, tp, pp).
+The host data path (the JAX ``_epoch_stream`` :1439-1477,
+``_host_batch_stream`` :1496 and ``_prefetched_stream`` :1539-1631;
+``Trainer._epoch_stream`` here): the train loader is process-local (each
+rank samples the global order and gathers only its own rows). With
+``--prefetch-batches N`` the loader's batches come from
+``datapath/prefetch.py``'s background thread; else with
+``--prefetch-depth D`` (2 by default) from the native ring of
+``native/prefetch.py``: D gathers run ahead of the step in C++, a fused
+``--steps-per-call`` group is ONE submission of the concatenated indices
+(its slot is the stacked ``(K * B, ...)`` layout), and on the card each
+slot is pinned host memory copied to the card asynchronously on a copy
+stream; the slot goes back to the ring once a CUDA event behind the copy
+has completed. On the CPU the slot's rows are copied first
+(``torch.from_numpy`` would alias them). With both 0 the batches are
+gathered on the training thread. All three give the same batches, bit for
+bit. ``metrics["data_ms"]`` holds the training thread's host ms a step
+waiting for a batch and issuing its host-to-device copy.
+
+``--sync-bn`` builds the model with ``bn_cross_replica_axis`` (the JAX
+:552-566; ``models/resnet.py``): BatchNorm statistics over every rank. The
+JAX trainer refuses it outside data parallelism (:1309-1322); the port has
+no other parallelism, so there is nothing to refuse yet. ``--n-devices N``
+must equal the launched world size (a process owns one card here, where a
+JAX process drives every device of its host and ``n_devices`` slices them);
+1 is ``main_no_ddp``'s one-rank run. ``--log-every-steps N`` logs the
+reference's in-epoch line ``Epoch E, iter N, loss L`` every N steps, with
+one host read of that step's loss (:2221-2233). ``--download`` fetches the
+dataset first (``data/download.py``). ``--cv-mode`` (k-fold,
+``train/kfold.py``) is driven by the CLI.
+
+Not ported yet: telemetry (and the health gauges, ``data/*`` spans and
+data digests it carries), the elastic supervisor, and the strategies other
+than data parallelism (zero3, fsdp, tp, pp).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import json
 import logging
 import os
 import signal
 import time
+from collections import deque
 from typing import Optional
 
 import numpy as np
@@ -115,6 +147,7 @@ from tpu_ddp_torch.data.cifar10 import (
     synthetic_cifar10_hard,
     synthetic_multilabel,
 )
+from tpu_ddp_torch.data.download import ensure_dataset
 from tpu_ddp_torch.data.loader import ShardedBatchLoader, step_groups
 from tpu_ddp_torch.health.monitor import POLICIES as HEALTH_POLICIES
 from tpu_ddp_torch.health.monitor import HealthMonitor, next_incarnation
@@ -163,6 +196,7 @@ class TrainConfig:
 
     device: str = "cuda"
     data_dir: str = "data/CIFAR-10"
+    download: bool = False                # fetch + md5-verify when absent
     dataset: str = "cifar10"              # cifar10 | cifar100
     synthetic_data: bool = False
     synthetic_size: int = 2048
@@ -184,6 +218,7 @@ class TrainConfig:
     grad_compress_block: int = 256
     grad_compress_error_feedback: bool = False
     dist_backend: Optional[str] = None    # None: nccl on cuda, gloo on cpu
+    n_devices: Optional[int] = None       # None: the launched world; else == it
     model: str = "netresdeep"
     attention: str = "full"               # full | flash (CUDA kernels K4-K6)
     compute_dtype: str = "float32"        # float32 | bfloat16 (params stay f32)
@@ -207,6 +242,11 @@ class TrainConfig:
     jsonl_path: Optional[str] = None
     tensorboard_dir: Optional[str] = None
     shuffle: bool = True                  # False: the train loader's fixed order
+    reshuffle_each_epoch: bool = True     # False: the epoch-0 order every epoch
+    sync_bn: bool = False                 # BatchNorm statistics over all ranks
+    prefetch_depth: int = 2               # >0: the native ring, D gathers ahead
+    prefetch_batches: int = 0             # >0: the staged background prefetcher
+    log_every_steps: Optional[int] = None  # in-epoch loss lines (a host read each)
     health: str = "off"                   # "on": the numerics flight recorder
     health_policy: str = "warn"           # warn | skip_step | halt
     health_per_layer_stride: int = 0      # >0: per-layer norms every N steps
@@ -271,6 +311,14 @@ class TrainConfig:
                 "grad_compress_block must be >= 1, got "
                 f"{self.grad_compress_block}"
             )
+        if self.prefetch_batches < 0:
+            raise ValueError(
+                f"prefetch_batches must be >= 0 (0 disables the staged "
+                f"background prefetcher), got {self.prefetch_batches}")
+        if self.prefetch_depth < 0:
+            raise ValueError(
+                f"prefetch_depth must be >= 0 (0 disables the native "
+                f"prefetcher), got {self.prefetch_depth}")
         if self.grad_compress_error_feedback and self.grad_compress == "none":
             raise ValueError(
                 "--grad-compress-error-feedback needs --grad-compress "
@@ -291,17 +339,19 @@ def build_model(c: TrainConfig, image_size: int = 32) -> torch.nn.Module:
     ``flash_attention`` into the model's ``attention_impl`` (the JAX
     ``build_model`` :564-578); on a model without one, NetResDeep included,
     it raises (the JAX package builds NetResDeep before it reads the flag
-    and ignores it there)."""
+    and ignores it there). ``sync_bn`` passes the data axis as
+    ``bn_cross_replica_axis`` (the JAX :552)."""
     generator = torch.Generator().manual_seed(c.seed)
     dtype = COMPUTE_DTYPES[c.compute_dtype]
     name = c.model.lower()
+    sync = {"bn_cross_replica_axis": DATA_AXIS} if c.sync_bn else {}
     if name == "netresdeep":
         model = NetResDeep(n_chans1=c.n_chans1, n_blocks=c.n_blocks,
                            num_classes=c.num_classes, tied=c.tied_blocks,
-                           generator=generator, dtype=dtype)
+                           generator=generator, dtype=dtype, **sync)
     elif name in MODEL_REGISTRY:
         model = MODEL_REGISTRY[name](num_classes=c.num_classes, generator=generator,
-                                     image_size=image_size, dtype=dtype)
+                                     image_size=image_size, dtype=dtype, **sync)
     else:
         raise ValueError(f"unknown model {c.model!r}")
     if c.attention == "flash":
@@ -333,6 +383,8 @@ def load_dataset(c: TrainConfig):
                     synthetic_cifar10_hard(test_size, k, c.seed + 1, label_noise=0.0))
         return (synthetic_cifar10(c.synthetic_size, k, c.seed),
                 synthetic_cifar10(test_size, k, c.seed + 1))
+    # a no-op unless --download and the data is absent (the JAX :612-616)
+    ensure_dataset(c.data_dir, c.dataset, download=c.download)
     load = DATASETS[c.dataset][0]
     return load(c.data_dir, train=True), load(c.data_dir, train=False)
 
@@ -347,6 +399,11 @@ class Trainer:
         set_float32_precision()
         self.logger = MetricLogger(c.jsonl_path, tensorboard_dir=c.tensorboard_dir)
         self.rank, self.world_size = rank(), world_size()
+        if c.n_devices is not None and c.n_devices != self.world_size:
+            raise ValueError(
+                f"--n-devices {c.n_devices} but {self.world_size} rank(s) were "
+                "launched: in the port a rank owns one card, so --n-devices must "
+                "equal the launcher's world size (1: one process, main_no_ddp)")
         if train_data is None:
             train_data, test_data = load_dataset(c)
         elif test_data is None:
@@ -356,9 +413,13 @@ class Trainer:
                 "--loss bce needs multi-hot (N, C) targets; this dataset "
                 "yields class indices. Use --synthetic-data (multi-label "
                 "generator) or pass multi-hot train_data.")
+        # process-local: this rank samples the global order and gathers only
+        # its own rows (the test loader stays global: predict reads its order)
         self.train_loader = ShardedBatchLoader(
             *train_data, world_size=self.world_size,
-            per_shard_batch=c.per_shard_batch, shuffle=c.shuffle, seed=c.seed)
+            per_shard_batch=c.per_shard_batch, shuffle=c.shuffle,
+            reshuffle_each_epoch=c.reshuffle_each_epoch, seed=c.seed,
+            process_index=self.rank, process_count=self.world_size)
         self.test_loader = ShardedBatchLoader(
             *test_data, world_size=self.world_size,
             per_shard_batch=c.per_shard_batch, shuffle=False,
@@ -421,6 +482,9 @@ class Trainer:
         self.eval_step = make_eval_step(loss_fn, compute_accuracy=self.with_accuracy)
         self.predict_step = make_predict_step()
         self.history = {"train_loss": [], "step_loss": [], "epoch": []}
+        self._prefetcher = None       # the native ring, built at first use
+        self._copy_stream = None
+        self.data_seconds = {"data_wait": 0.0, "h2d": 0.0}
         self.eval_batches = 0  # eval steps run so far (every evaluate call)
         self._preempted = self._force_abort = False
 
@@ -564,6 +628,148 @@ class Trainer:
     def to_device(self, batch: dict):
         return batch_to_device(batch, self.device)
 
+    # ---- the host data path ------------------------------------------------
+
+    def _epoch_stream(self, K: int, start: int):
+        """Yield ``(kind, device_batch, n_real)`` for this rank's batches of
+        the loader's current epoch from index batch ``start`` on: "stacked"
+        for a fused K-step group (a leading (K,) axis), "single" for a lone
+        step (module docstring); ``n_real`` is the host's count of unmasked
+        rows. The staged prefetcher takes precedence, then the native ring,
+        then the synchronous path (the JAX ``_epoch_stream``)."""
+        c = self.config
+        loader = self.train_loader
+        if c.prefetch_batches > 0:
+            from tpu_ddp_torch.datapath.prefetch import BackgroundPrefetcher
+
+            pf = BackgroundPrefetcher(lambda: loader.epoch_batches(start=start),
+                                      depth=c.prefetch_batches)
+            try:
+                yield from self._host_batch_stream(pf, K)
+            finally:
+                pf.close()
+            return
+        if c.prefetch_depth > 0:
+            yield from self._prefetched_stream(K, c.prefetch_depth, start)
+            return
+        yield from self._host_batch_stream(loader.epoch_batches(start=start), K)
+
+    def _host_batch_stream(self, batches, K: int):
+        """The consuming half of the synchronous and staged paths: draw host
+        batches (``data_wait``: on the synchronous path the gather runs in
+        it) and copy them to the device (``h2d``), K-step groups stacked."""
+        it = step_groups(batches, K)
+        clock = time.perf_counter
+        while True:
+            t0 = clock()
+            item = next(it, None)
+            t1 = clock()
+            self.data_seconds["data_wait"] += t1 - t0
+            if item is None:
+                return
+            kind, batch = item
+            dev = self.to_device(batch)
+            self.data_seconds["h2d"] += clock() - t1
+            yield kind, dev, int(batch["mask"].sum())
+
+    def _prefetched_stream(self, K: int, depth: int, start: int):
+        """The native ring's ``_epoch_stream`` (the JAX ``_prefetched_stream``
+        :1539-1631): ``depth`` submissions run ahead of the one being
+        consumed; a fused group is one submission of K index batches.
+
+        Slot lifetime: on the card the slot's rows go to the device on
+        ``_copy_stream`` (asynchronous: the slots are pinned), the step's
+        stream waits for the copy, and an event recorded behind the copy is
+        waited on before the slot is released, which happens just before
+        the next submission needs a free slot (so the wait is for a copy
+        long done, not for the step). On the CPU the rows are copied out of
+        the slot and the slot is released at once. A stream closed early
+        acquires and releases what it left in flight, so the ring is empty
+        for the next epoch."""
+        loader = self.train_loader
+        cuda = self.device.type == "cuda"
+        if self._prefetcher is None:
+            from tpu_ddp_torch.native.prefetch import BatchPrefetcher
+
+            # depth + 1 slots: depth in flight and the one being consumed
+            self._prefetcher = BatchPrefetcher(
+                loader.images, loader.labels, max_batch=K * loader.local_batch,
+                depth=depth + 1, pin_memory=cuda)
+            if cuda:
+                self._copy_stream = torch.cuda.Stream(self.device)
+        pf = self._prefetcher
+        img_tail, lbl_tail = loader.images.shape[1:], loader.labels.shape[1:]
+        clock = time.perf_counter
+
+        def submissions():
+            index = itertools.islice(loader.epoch_index_batches(), start, None)
+            pending = []
+            for idx, mask in index:
+                if K <= 1:
+                    yield "single", idx, mask
+                    continue
+                pending.append((idx, mask))
+                if len(pending) == K:
+                    yield ("stacked", np.concatenate([i for i, _ in pending]),
+                           np.stack([m for _, m in pending]))
+                    pending = []
+            for idx, mask in pending:
+                yield "single", idx, mask
+
+        in_flight = deque()          # (kind, mask) a submission, FIFO
+        held = []                    # [(slot, event)] copies not yet known done
+
+        def release_held():
+            for slot, event in held:
+                event.synchronize()
+                pf.release(slot)
+            held.clear()
+
+        def emit():
+            kind, mask = in_flight.popleft()
+            t0 = clock()
+            img, lbl, slot = pf.acquire()
+            t1 = clock()
+            if kind == "stacked":
+                img = img.view((K, -1) + img_tail)
+                lbl = lbl.view((K, -1) + lbl_tail)
+            if cuda:
+                step_stream = torch.cuda.current_stream(self.device)
+                with torch.cuda.stream(self._copy_stream):
+                    dev_img = img.to(self.device, non_blocking=True)
+                    dev_lbl = lbl.to(self.device, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record(self._copy_stream)
+                step_stream.wait_event(event)
+                # allocated on the copy stream, used on the step's
+                dev_img.record_stream(step_stream)
+                dev_lbl.record_stream(step_stream)
+                held.append((slot, event))
+            else:
+                dev_img, dev_lbl = img.clone(), lbl.clone()
+                pf.release(slot)
+            dev = {"image": dev_img, "label": dev_lbl,
+                   "mask": torch.as_tensor(mask).to(self.device, non_blocking=True)}
+            self.data_seconds["data_wait"] += t1 - t0
+            self.data_seconds["h2d"] += clock() - t1
+            return kind, dev, int(mask.sum())
+
+        try:
+            for kind, idx, mask in submissions():
+                release_held()
+                pf.submit(idx)
+                in_flight.append((kind, mask))
+                if len(in_flight) > depth:
+                    yield emit()
+            while in_flight:
+                yield emit()
+        finally:
+            release_held()
+            while in_flight:          # a stream closed early (a drain, a halt)
+                in_flight.popleft()
+                pf.release(pf.acquire()[2])
+
+
     def run(self) -> dict:
         """Train from ``state.step`` to ``epochs``, draining on SIGTERM and
         SIGINT (module docstring). The handler only sets flags, and is
@@ -601,7 +807,8 @@ class Trainer:
         c = self.config
         start = time.time()
         spe = self.train_loader.steps_per_epoch
-        host_step = int(self.state.step)
+        host_step = first_step = int(self.state.step)
+        self.data_seconds = dict.fromkeys(self.data_seconds, 0.0)
         first_epoch = host_step // spe + 1
         # mid-epoch resume: skip the batches the cut run trained; the order
         # is a function of (seed, epoch), so they are exactly its prefix
@@ -628,20 +835,20 @@ class Trainer:
                 throughput.start()
             self.train_loader.set_epoch(epoch)
             step_losses = []
-            batches = self.train_loader.epoch_batches(
-                shard=self.rank, start=skip if epoch == first_epoch else 0)
-            for kind, batch in step_groups(batches, K):
+            n_steps = 0                   # steps this run trained this epoch
+            stream = self._epoch_stream(K, skip if epoch == first_epoch else 0)
+            for kind, dev_batch, n_real in stream:
                 # one rank drains at a call boundary; several agree at the
                 # epoch's end first, or a rank would block in the next
                 # step's collectives
                 if self.world_size == 1 and self._preempted:
                     break
-                dev_batch = self.to_device(batch)
                 dn = K if kind == "stacked" else 1
                 step = self.multi_step if kind == "stacked" else self.train_step
                 self.state, metrics = step(self.state, dev_batch)
                 step_losses.append(metrics["loss"].reshape(-1))
                 host_step += dn
+                n_steps += dn
                 if (self.health_monitor is not None and self.health_feed.push(
                         host_step - dn, metrics.pop("health"), dev_batch) == "halt"):
                     # the stats are the same on every rank, so is the
@@ -649,13 +856,19 @@ class Trainer:
                     self._health_halted = host_step
                     break
                 if timed:
-                    throughput.add(int(batch["mask"].sum()))
+                    throughput.add(n_real)
                     timed_steps += dn
+                if (c.log_every_steps and n_steps // c.log_every_steps
+                        > (n_steps - dn) // c.log_every_steps):
+                    # the reference's in-epoch line; this read is its one sync
+                    cur = float(metrics["loss"].reshape(-1)[-1])
+                    self.logger.log_text(f"Epoch {epoch}, iter {n_steps}, loss {cur:.4f}")
                 # a fused group saves once, at the boundary it crosses
                 if (self.checkpointer is not None and c.checkpoint_steps
                         and host_step // c.checkpoint_steps
                         > (host_step - dn) // c.checkpoint_steps):
                     self._save(host_step)
+            stream.close()                # the ring's in-flight gathers back
             if self.health_monitor is not None:
                 self.health_feed.flush()
             # one sync an epoch
@@ -714,9 +927,11 @@ class Trainer:
         self.logger.log_text(
             f"steady-state images/sec/{per}: {ips:.1f} "
             f"({throughput.images} images in {throughput.seconds:.3f} s)")
+        trained = max(int(self.state.step) - first_step, 1)
         out.update({"total_seconds": total, "steps": int(self.state.step),
                     "images_per_sec_per_chip": ips,
                     "steady_step_ms": throughput.seconds / max(timed_steps, 1) * 1e3,
+                    "data_ms": {k: v / trained * 1e3 for k, v in self.data_seconds.items()},
                     "train_loss": self.history["train_loss"][-1]
                     if self.history["train_loss"] else float("nan"),
                     "step_losses": list(self.history["step_loss"])})
@@ -760,8 +975,11 @@ class Trainer:
         return not bool(bad)
 
     def close(self) -> None:
-        """Finish in-flight saves and close the metric sinks and the health
-        record."""
+        """Stop the native prefetcher, finish in-flight saves and close the
+        metric sinks and the health record."""
+        if self._prefetcher is not None:
+            self._prefetcher.close()
+            self._prefetcher = None
         for ck in (self.checkpointer, self.best_checkpointer):
             if ck is not None:
                 ck.close()
