@@ -373,11 +373,34 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     their validation sets disjoint and covering the 256 rows, K1 once a
     step.
 
+24. ZeRO-3 (``--zero3``: the params scattered, gathered block by block on
+    the prefetch schedule) on three gloo ranks sharing the card, under
+    deterministic cuDNN, in one job. (a) NetResDeep ``--zero3 --kernels``
+    with phase 14's arguments, float32 and int8 with error feedback: the
+    first losses within ``ZERO1_RTOL`` of phase 14's ``--zero1`` runs (and
+    whether all are equal to the bit), K1 once a step a rank, K2/K3 at
+    ZeRO-1's counts, the ring's wire calls ZeRO-1's, one block gather a
+    block (4) a step. (b) ViT-S/4 with phase 15's arguments over two
+    epochs (the second timed), replicated, ``--zero1`` and ``--zero3``: K1
+    once a step, K4 6 x (steps + eval
+    batches), K5 = K6 = 6 a step, 10 block gathers a step under
+    ``--zero3``; its losses against this job's and phase 15's ``--zero1``;
+    each rank's memory allocated between steps and its peak for the three
+    layouts, the drop from ``--zero1`` to ``--zero3`` at least 0.9 of
+    ``params_bytes_replicated - params_bytes_per_device_sharded``
+    (``Zero3Partition.accounting()``); ms a step a rank each. (c) (a)'s int8
+    run cut after its first epoch and resumed: losses and params bitwise the
+    uncut run's; the checkpoint then resumed under ``--zero1`` at two ranks.
+    (d) ``skip_step`` under ``--zero3 --grad-compress int8`` at two ranks,
+    rank 0's fifth batch all NaN: the step skipped on both, each rank's
+    state (shards, slots, counts, buffers, residual) bitwise across it.
+
 Phase 2 also builds the native data-path library (``tpu_ddp_torch/native``)
 with g++ from the checkout. The NetResDeep phases before 17 keep their
 sizes; the whole run aims at ten minutes on the card, the build included. ``python3 chip_smoke.py
 --nccl N``, on a machine with N cards, runs phases 10 (at N ranks' chunks),
-12, 14, 17's two-rank part, 18c, 19d, 21b and 22e alone at N ranks, one
+12, 14, 24 (a)-(c) (with ViT-S/4 ``--zero3`` timed again with the gathers
+serialized), 17's two-rank part, 18c, 19d, 21b and 22e alone at N ranks, one
 card each, over NCCL. The line before the last is one JSON object
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -1795,29 +1818,51 @@ def ring_wire_calls(nproc, compress, zero1):
     return {"exchange": nproc - 1, "all_gather_bytes": 0 if zero1 else 1}
 
 
+#: a run of ``rank_child`` whose name ends so gathers ZeRO-3's blocks
+#: serialized (``Zero3Partition.prefetch = False``)
+SERIAL = "_serial"
+
+
 def rank_child(out_dir, args):
-    """One rank of phases 12, 14, 15, 17, 19d, 21b and 22e, started by the
-    launcher: ``[--deterministic] [--poison-batch N] --run NAME ARGS...
+    """One rank of phases 12, 14, 15, 17, 19d, 21b, 22e and 24, started by
+    the launcher: ``[--deterministic] [--poison-batch N] --run NAME ARGS...
     [--run NAME ARGS...]``. Joins the process group once and trains each
     run in turn on it, as the train CLI's ``run`` would (under cuDNN's
-    deterministic algorithms with ``--deterministic``), the launch and
-    wire-call counts zeroed just before each; writes each run's counts,
-    metrics and final weights to ``out_dir/NAME``."""
+    deterministic algorithms with ``--deterministic``), the launch,
+    wire-call and block-gather counts zeroed just before each; writes each
+    run's counts, metrics and final weights (under ``--zero3`` gathered:
+    every rank takes part) to ``out_dir/NAME``. The metrics also carry the
+    device memory allocated just before each train step after the first
+    (``memory_between_steps``, bytes) and the run's peak; with
+    ``--poison-batch N`` whether the state (ZeRO-3's shards too) was
+    bitwise the same just after the N-th step as just before it
+    (``poisoned_step_bitwise``). A run named ``*_serial`` gathers ZeRO-3's
+    blocks without the prefetch."""
     import torch
 
     sys.path.insert(0, ROOT)
     from tpu_ddp_torch import ops
     from tpu_ddp_torch.cli import train as cli
-    from tpu_ddp_torch.parallel import runtime
+    from tpu_ddp_torch.parallel import collectives, runtime
     from tpu_ddp_torch.tools.ring_compare import wire_counter
     from tpu_ddp_torch.train.trainer import Trainer
 
     if args[:1] == ["--deterministic"]:
         torch.backends.cudnn.deterministic = True
         args = args[1:]
+    poisoned = None
     if args[:1] == ["--poison-batch"]:
-        poison_batch(int(args[1]), rank=0)
+        poisoned = int(args[1])
+        poison_batch(poisoned, rank=0)
         args = args[2:]
+    gathers = [0]
+    issue = collectives.BlockGather._issue
+
+    def counted_issue(gather, k):
+        gathers[0] += 1
+        return issue(gather, k)
+
+    collectives.BlockGather._issue = counted_issue
     runs, i = [], 0
     while i < len(args):            # --run NAME ARGS..., up to the next --run
         j = args.index("--run", i + 1) if "--run" in args[i + 1:] else len(args)
@@ -1832,8 +1877,26 @@ def rank_child(out_dir, args):
         for name, ns in parsed:
             config = cli.config_from_args(ns)
             wire.update(dict.fromkeys(wire, 0))
+            gathers[0] = 0
             ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             trainer = Trainer(config)
+            if name.endswith(SERIAL):
+                trainer.zero1.prefetch = False
+            between, bits, inner = [], {}, trainer.train_step
+
+            def watched(state, batch, inner=inner, between=between, bits=bits):
+                between.append(torch.cuda.memory_allocated())
+                calls = len(between) - 1
+                if calls == poisoned:
+                    bits["before"] = state_bits(state)
+                out = inner(state, batch)
+                if calls == poisoned:
+                    bits["after"] = state_bits(state)
+                return out
+
+            trainer.train_step = watched
             try:
                 metrics = cli._run_and_report(ns, config, trainer)
             finally:
@@ -1841,10 +1904,15 @@ def rank_child(out_dir, args):
             torch.cuda.synchronize()
             metrics["launches"] = ops.launch_counts()
             metrics["wire_calls"] = dict(wire)
+            metrics["block_gathers"] = gathers[0]
+            metrics["memory_between_steps"] = between[1:]
+            metrics["peak_memory"] = torch.cuda.max_memory_allocated()
+            if bits:
+                metrics["poisoned_step_bitwise"] = same_state(bits["before"], bits["after"])
             out = os.path.join(out_dir, name)
             with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
                 json.dump(metrics, f)
-            torch.save({k: v.cpu() for k, v in trainer.state.model.state_dict().items()},
+            torch.save({k: v.cpu() for k, v in trainer.model_state().items()},
                        os.path.join(out, f"rank{rank}.pt"))
     finally:
         runtime.shutdown()
@@ -2054,14 +2122,20 @@ def phase_zero1_dp(tmp, n=ZERO1_RANKS, backend="gloo"):
     return runs
 
 
-def vit_zero1_args(zero1):
-    args = ["--device", "cuda", "--dist-backend", "gloo", "--synthetic-data",
-            "--synthetic-size", str(ZERO1_RANKS * 32 * VIT_ZERO1_STEPS), "--epochs", "1",
+def vit_layout_args(layout, n=ZERO1_RANKS, backend="gloo"):
+    """Phase 15's ViT-S/4 arguments at ``n`` ranks over ``backend``, with
+    ``layout``'s flag (``"zero1"``, ``"zero3"``; None: replicated)."""
+    args = ["--device", "cuda", "--dist-backend", backend, "--synthetic-data",
+            "--synthetic-size", str(n * 32 * VIT_ZERO1_STEPS), "--epochs", "1",
             "--model", "vit_s4", "--attention", "flash", "--kernels",
             "--optimizer", "adamw", "--lr", "1e-3", "--weight-decay", "0.05",
             "--grad-clip-norm", "1.0", "--ema-decay", "0.999", "--batch-size", "32",
             "--eval-each-epoch", "--log-every-epochs", "1"]
-    return args + (["--zero1"] if zero1 else [])
+    return args + ([f"--{layout}"] if layout else [])
+
+
+def vit_zero1_args(zero1):
+    return vit_layout_args("zero1" if zero1 else None)
 
 
 def phase_zero1_vit(tmp):
@@ -3780,10 +3854,15 @@ def poison_batch(n, rank=None):
 
 def state_bits(state):
     """Clones of what a step moves: the model (params and BatchNorm
-    buffers), every optimizer slot and count."""
+    buffers), ZeRO-3's param shards, every optimizer slot and count, the
+    error-feedback residual."""
     from tpu_ddp_torch.train.state import COUNTS, SLOTS
 
     out = {f"model/{k}": v.clone() for k, v in state.model.state_dict().items()}
+    for n, t in (state.param_shards or {}).items():
+        out[f"shard/{n}"] = t.clone()
+    for n, t in (state.grad_residual or {}).items():
+        out[f"residual/{n}"] = t.clone()
     for slot in SLOTS:
         for n, t in (getattr(state.opt_state, slot) or {}).items():
             out[f"opt/{slot}/{n}"] = t.clone()
@@ -4691,10 +4770,210 @@ def phase_cv(smi):
         fail(f"23d: K1 {counts['fused_update']} launches in {steps} steps")
 
 
+# ---- phase 24: --zero3 (parameter streaming) on three ranks -------------
+
+#: ZeRO-3's blocks (top-level modules) of NetResDeep and ViT-S/4
+ZERO3_BLOCKS = {"netresdeep": 4, "vit_s4": 10}
+
+
+def vit_zero3_accounting(n):
+    """``Zero3Partition.accounting()`` of phase 15's ViT-S/4 recipe at ``n``
+    ranks (built on the CPU: the layout needs shapes only)."""
+    from tpu_ddp_torch.parallel.zero import Zero3Partition
+    from tpu_ddp_torch.train.optim import decay_mask, make_optimizer
+    from tpu_ddp_torch.train.trainer import TrainConfig, build_model
+
+    params = dict(build_model(TrainConfig(device="cpu", model="vit_s4")).named_parameters())
+    tx = make_optimizer(optimizer="adamw", lr=1e-3, weight_decay=0.05, grad_clip_norm=1.0,
+                        ema_decay=0.999, zero1_axis="data", decay_mask=decay_mask(params))
+    return Zero3Partition(tx, params, n, rank=0).accounting()
+
+
+#: 24b's ViT-S/4 runs take two epochs of phase 15's, the second one timed
+P24_VIT_EPOCHS = 2
+
+
+def zero3_runs(n, backend, serial):
+    """Phase 24's runs on ``n`` ranks in one job: (a) NetResDeep
+    ``--zero3`` float32 and int8 with error feedback (phase 14's arguments);
+    (b) ViT-S/4 replicated, ``--zero1`` and ``--zero3`` (phase 15's, over
+    ``P24_VIT_EPOCHS`` epochs), and with ``serial`` the ``--zero3`` run in
+    turns with the gathers serialized (prefetch, serial, serial,
+    prefetch)."""
+    runs = [("zero3", dp_args(False, n, backend) + ["--zero3"]),
+            ("zero3_int8_ef", dp_args(True, n, backend) + ["--zero3"])]
+    vit = lambda layout: with_epochs(vit_layout_args(layout, n, backend),  # noqa: E731
+                                     P24_VIT_EPOCHS)
+    runs += [(f"p24_vit_{layout or 'replicated'}", vit(layout))
+             for layout in (None, "zero1", "zero3")]
+    if serial:
+        runs += [("p24_vit_zero3" + SERIAL, vit("zero3")),
+                 ("p24_vit_zero3_2" + SERIAL, vit("zero3")), ("p24_vit_zero3_2", vit("zero3"))]
+    return runs
+
+
+def print_memory(label, metrics):
+    """Each rank's device memory allocated between steps (the last sample,
+    and the spread of the samples) and its peak, in bytes."""
+    for r, m in enumerate(metrics):
+        between = m["memory_between_steps"]
+        print(f"  {label}, rank {r}: memory allocated between steps {between[-1]} B "
+              f"(samples {min(between)}..{max(between)}), peak {m['peak_memory']} B; "
+              f"steady-state step {m['steady_step_ms']:.4f} ms", flush=True)
+
+
+def phase_zero3(tmp, zero1_runs, n=ZERO1_RANKS, backend="gloo", serial=False):
+    """Phase 24 (a)-(c) on ``n`` ranks (three sharing the card over gloo, or
+    one card each over NCCL), all under cuDNN's deterministic algorithms, in
+    one job (``zero3_runs``): the launches (K1 once a step, K2/K3 at
+    ZeRO-1's counts, K4-K6 at the ViT's), the ring's wire calls and one
+    block gather a block a step, the first losses against phase 14's and
+    15's ``--zero1`` runs (``zero1_runs``) within ``ZERO1_RTOL``, replicas
+    bitwise, memory between steps and peak against ``accounting()`` for
+    the three ViT layouts, and (c) the resumed run bitwise the uncut one.
+    Returns the runs' metrics."""
+    ck = os.path.join(tmp, f"zero3_ckpt{n}")
+    runs = zero3_runs(n, backend, serial)
+    int8 = dict(runs)["zero3_int8_ef"]
+    runs += [("p24_cut", with_epochs(int8, 1, "--checkpoint-dir", ck)),
+             ("p24_resumed", with_epochs(int8, 2, "--checkpoint-dir", ck, "--resume"))]
+    jobs = launch_dp_runs(tmp, runs, n, phase="24", deterministic=True)
+    steps = 2 * DP_STEPS_PER_EPOCH
+    out = {}
+    # (a) NetResDeep
+    for name, compress in (("zero3", False), ("zero3_int8_ef", True)):
+        metrics, same = jobs[name]
+        check_run(f"24a {name}", metrics, same, steps, zero1_launches(n, compress))
+        wire = {k: v * steps for k, v in ring_wire_calls(n, compress, True).items()}
+        gathers = ZERO3_BLOCKS["netresdeep"] * steps
+        print(f"  24a {name}: the ring's wire calls on rank 0 {metrics[0]['wire_calls']} "
+              f"(expected {wire}); block gathers {metrics[0]['block_gathers']} "
+              f"(expected {gathers}: one a block a step)", flush=True)
+        for r, m in enumerate(metrics):
+            if m["wire_calls"] != wire or m["block_gathers"] != gathers:
+                fail(f"24a {name}: rank {r} made {m['wire_calls']} wire calls and "
+                     f"{m['block_gathers']} block gathers")
+        zero1 = zero1_runs[name.replace("zero3", "zero1")][0]["step_losses"]
+        got = metrics[0]["step_losses"]
+        first_losses_close(f"24a {name} vs phase 14's --zero1", got, zero1)
+        print(f"  24a {name}: all {len(got)} step losses equal to phase 14's --zero1 "
+              f"to the bit: {got == zero1}", flush=True)
+        out[name] = metrics
+    # (b) ViT-S/4
+    acct = vit_zero3_accounting(n)
+    print(f"  24b ViT-S/4 Zero3Partition.accounting() at {n} ranks: {acct}", flush=True)
+    want_per_step = {"fused_update": 1, "flash_attention_dq": VIT_DEPTH,
+                     "flash_attention_dkv": VIT_DEPTH}
+    vit = {}
+    vit_steps = P24_VIT_EPOCHS * VIT_ZERO1_STEPS
+    for name in [r for r, _ in runs if r.startswith("p24_vit_")]:
+        metrics, same = jobs[name]
+        evals = metrics[0]["eval_batches"]
+        check_run(f"24b {name}", metrics, same, vit_steps, want_per_step,
+                  extra={"flash_attention_fwd": VIT_DEPTH * (vit_steps + evals)})
+        print_memory(f"24b {name}", metrics)
+        vit[name] = metrics
+        out[name] = metrics
+    z3 = vit["p24_vit_zero3"]
+    gathers = ZERO3_BLOCKS["vit_s4"] * vit_steps
+    if any(m["block_gathers"] != gathers for name, ms in vit.items() if "zero3" in name
+           for m in ms):
+        fail(f"24b: {[m['block_gathers'] for m in z3]} block gathers, expected {gathers}")
+    first_losses_close("24b ViT --zero3 vs --zero1 (this job)",
+                       z3[0]["step_losses"], vit["p24_vit_zero1"][0]["step_losses"])
+    print(f"  24b: all {vit_steps} step losses of --zero3 equal to --zero1's to the bit: "
+          f"{z3[0]['step_losses'] == vit['p24_vit_zero1'][0]['step_losses']}", flush=True)
+    if "vit_zero1" in zero1_runs:
+        first_losses_close("24b ViT --zero3 vs phase 15's --zero1",
+                           z3[0]["step_losses"], zero1_runs["vit_zero1"][0]["step_losses"])
+    saved = acct["params_bytes_replicated"] - acct["params_bytes_per_device_sharded"]
+    for r in range(n):
+        drop = (vit["p24_vit_zero1"][r]["memory_between_steps"][-1]
+                - z3[r]["memory_between_steps"][-1])
+        print(f"  24b rank {r}: memory between steps, --zero1 minus --zero3: {drop} B "
+              f"({drop / saved:.3f} of params_bytes_replicated - "
+              f"params_bytes_per_device_sharded = {saved} B)", flush=True)
+        if drop < 0.9 * saved:
+            fail(f"24b: rank {r} holds {drop} B less under --zero3 than --zero1, "
+                 f"less than 0.9 of {saved} B")
+    for name, metrics in vit.items():
+        print(f"  24b {name}: steady-state step time per rank "
+              + " / ".join(f"{m['steady_step_ms']:.4f}" for m in metrics) + " ms",
+              flush=True)
+    if serial:
+        turns = ("p24_vit_zero3", "p24_vit_zero3" + SERIAL, "p24_vit_zero3_2" + SERIAL,
+                 "p24_vit_zero3_2")
+        mean = lambda name: sum(m["steady_step_ms"] for m in vit[name]) / n  # noqa: E731
+        print("  24b ViT-S/4 --zero3 in turns, prefetch / serialized / serialized / "
+              "prefetch, mean over the ranks: "
+              + " / ".join(f"{mean(t):.4f}" for t in turns) + " ms a step", flush=True)
+    # (c) cut and resumed
+    full, resumed = jobs["zero3_int8_ef"], jobs["p24_resumed"]
+    weights = {name: rank_weights(tmp, name, n) for name in ("zero3_int8_ef", "p24_resumed")}
+    cut_steps = DP_STEPS_PER_EPOCH
+    bitwise = all(m["step_losses"] == f["step_losses"][cut_steps:] and same_weights(w, fw)
+                  for m, f, w, fw in zip(resumed[0], full[0], weights["p24_resumed"],
+                                         weights["zero3_int8_ef"]))
+    want = {k: 0 for k in resumed[0][0]["launches"]}
+    want.update({k: v * cut_steps for k, v in zero1_launches(n, True).items()})
+    print(f"  24c: --zero3 int8 cut at step {cut_steps} and resumed: losses and final "
+          f"params bitwise the uncut run's on every rank {bitwise}; replicas bitwise "
+          f"{resumed[1]}; launches on rank 0 {resumed[0][0]['launches']}", flush=True)
+    if not bitwise or not resumed[1] or any(m["launches"] != want for m in resumed[0]):
+        fail("24c: the resumed --zero3 run is not bitwise the uncut one")
+    check_manifests(ck, (cut_steps, 2 * cut_steps))
+    return out
+
+
+def phase_zero3_two(tmp, n=ZERO1_RANKS):
+    """Phase 24 (c) and (d) at two ranks over gloo: 24c's ``--zero3`` int8
+    checkpoint (``phase_zero3``'s at ``n`` ranks; its latest, the resumed
+    run's last step) resumed under ``--zero1`` (from that step, finite
+    losses, replicas bitwise, the data that of ``n`` ranks); then
+    ``skip_step`` under ``--zero3`` with rank 0's fifth batch all NaN: that
+    step skipped on both ranks, every rank's state (param shards, optimizer
+    slots and counts, BatchNorm buffers, residual) bitwise as before it,
+    replicas bitwise."""
+    ck = os.path.join(tmp, f"zero3_ckpt{n}")
+    args = dp_args(True, 2) + ["--zero1"]
+    args[args.index("--synthetic-size") + 1] = str(n * 32 * DP_STEPS_PER_EPOCH)
+    args = [a for a in args if a != "--eval-each-epoch"]
+    metrics, same = launch_dp(tmp, "zero3_to_zero1_two",
+                              with_epochs(args, 3, "--checkpoint-dir", ck, "--resume"), 2,
+                              phase="24c", deterministic=True)
+    losses = metrics[0]["step_losses"]
+    want = 3 * (n * DP_STEPS_PER_EPOCH // 2) - 2 * DP_STEPS_PER_EPOCH
+    first, last = sum(losses[:20]) / 20, sum(losses[-20:]) / 20
+    print(f"  24c: the {n}-rank --zero3 checkpoint (step {2 * DP_STEPS_PER_EPOCH}) resumed "
+          f"under --zero1 at two ranks: {len(losses)} steps (expected {want}), mean loss "
+          f"of the first 20 {first:.4f}, last 20 {last:.4f}; replicas bitwise equal "
+          f"{same}", flush=True)
+    if not all(math.isfinite(x) for x in losses) or len(losses) != want or not same:
+        fail("24c: the --zero3 checkpoint did not resume under --zero1 at two ranks")
+    run_dir = os.path.join(tmp, "zero3_health")
+    args = ["--device", "cuda", "--dist-backend", "gloo", "--synthetic-data",
+            "--synthetic-size", str(2 * 32 * HEALTH_RANK_STEPS), "--epochs", "1",
+            "--no-shuffle", "--kernels", "--zero3", "--grad-compress", "int8",
+            "--grad-compress-error-feedback", "--n-chans1", "32", "--n-blocks", "10",
+            "--batch-size", "32", "--lr", "1e-2", "--momentum", "0.9",
+            "--log-every-epochs", "1", "--health", "on", "--health-policy", "skip_step",
+            "--health-per-layer-stride", "5", "--health-dir", run_dir]
+    metrics, same = launch_dp(tmp, "zero3_skip", args, 2, phase="24d",
+                              deterministic=True, poison=HEALTH_POISON)
+    recs = [health_records(run_dir, r) for r in range(2)]
+    bad = [[r["step"] for r in rec if not r["all_finite"]] for rec in recs]
+    bits = [m["poisoned_step_bitwise"] for m in metrics]
+    print(f"  24d: non-finite steps by rank {bad}; the state bitwise across the skipped "
+          f"step on each rank {bits}; replicas bitwise {same}; launches on rank 0 "
+          f"{metrics[0]['launches']}", flush=True)
+    if bad != [[HEALTH_POISON]] * 2 or not all(bits) or not same:
+        fail("24d: skip_step under --zero3 did not leave the state bitwise")
+
+
 def nccl_main(nproc):
     """``python3 chip_smoke.py --nccl N`` on a machine with N cards: phase
-    10 with NetResDeep's chunks at N ranks, then phases 12, 14, 17's
-    resume (``phase_checkpoint_dp``) and 18c at N ranks, one card each, over
+    10 with NetResDeep's chunks at N ranks, then phases 12, 14, 24 (a)-(c),
+    17's resume (``phase_checkpoint_dp``) and 18c at N ranks, one card each, over
     NCCL (the default backend on cuda), 19d's fine-tune and 21b's flight
     recorder and 22e's fused calls at N ranks."""
     import shutil
@@ -4714,7 +4993,8 @@ def nccl_main(nproc):
     phase_quant_vs_plain((nproc,))
     try:
         phase_dp_main_path(tmp, nproc, "nccl")
-        phase_zero1_dp(tmp, nproc, "nccl")
+        zero1_runs = phase_zero1_dp(tmp, nproc, "nccl")
+        phase_zero3(tmp, zero1_runs, nproc, "nccl", serial=True)
         phase_checkpoint_dp(tmp, nproc, "nccl")
         phase_lm_ranks(tmp, nproc, "nccl")
         phase_finetune_ranks(tmp, nproc, "nccl")
@@ -4862,6 +5142,14 @@ def main():
     phase_lamb(smi)
     phase_cv(smi)
     print(f"phase 23 took {time.perf_counter() - t23:.1f} s", flush=True)
+    t24 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
+    try:
+        phase_zero3(tmp, zero1_runs)
+        phase_zero3_two(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 24 took {time.perf_counter() - t24:.1f} s", flush=True)
     print_accounting()
     rows += phase_lm_timing(results, flash_results, lm_runs["flash"]["launches"])
     stamp("phase 18d")

@@ -93,6 +93,17 @@ def port_runs(tmp_path_factory):
     return runs
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _drop_cached_jax_results():
+    """Clear this module's caches when its tests end: their results can be
+    numpy views of JAX buffers, which would otherwise stay alive in the
+    worker process and count in a later file's ``jax.live_arrays()``
+    (``tests/test_memtrack.py``)."""
+    yield
+    for fn in (_jax_ring,):
+        fn.cache_clear()
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_ring(n, mode):
     devices = jax.devices()

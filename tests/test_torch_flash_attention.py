@@ -62,6 +62,17 @@ def _mask(kind, B, T):
     return m
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _drop_cached_jax_results():
+    """Clear this module's caches when its tests end: their results can be
+    numpy views of JAX buffers, which would otherwise stay alive in the
+    worker process and count in a later file's ``jax.live_arrays()``
+    (``tests/test_memtrack.py``)."""
+    yield
+    for fn in (_inputs, _jax_results, _pallas_kernels,):
+        fn.cache_clear()
+
+
 @functools.lru_cache(maxsize=None)
 def _inputs(case):
     B, T, H, D, seed, qs, causal, mkind = CASES[case]

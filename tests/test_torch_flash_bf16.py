@@ -58,6 +58,17 @@ def assert_bf16_close(got, want, what):
     np.testing.assert_allclose(got, want, rtol=0, atol=bf16_atol(want), err_msg=what)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _drop_cached_jax_results():
+    """Clear this module's caches when its tests end: their results can be
+    numpy views of JAX buffers, which would otherwise stay alive in the
+    worker process and count in a later file's ``jax.live_arrays()``
+    (``tests/test_memtrack.py``)."""
+    yield
+    for fn in (_inputs, _jax_flash,):
+        fn.cache_clear()
+
+
 @functools.lru_cache(maxsize=None)
 def _inputs(case):
     """q, k, v, g as bfloat16-exact float32 numpy arrays, and the mask."""

@@ -147,6 +147,17 @@ def _jax_body(n, mode, block):
     return body
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _drop_cached_jax_results():
+    """Clear this module's caches when its tests end: their results can be
+    numpy views of JAX buffers, which would otherwise stay alive in the
+    worker process and count in a later file's ``jax.live_arrays()``
+    (``tests/test_memtrack.py``)."""
+    yield
+    for fn in (_jax_runs,):
+        fn.cache_clear()
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_runs(n, mode, block):
     """The JAX compressor's two steps on n ranks, each leaf ``(n, ...)`` in

@@ -1,18 +1,22 @@
 """Resume across gloo CPU ranks (``parallel/runtime.py::spawn``).
 
 (a) two ranks under ``--kernels --zero1 --grad-compress int8
-    --grad-compress-error-feedback``, cut at epoch 1 of 2 and resumed: the
-    per-step losses and final params are BITWISE the uninterrupted run's
-    (each rank gets its own residual row back from the checkpoint), and the
-    replicas are bitwise equal;
+    --grad-compress-error-feedback`` (and the same under ``--zero3``), cut
+    at epoch 1 of 2 and resumed: the per-step losses and final params are
+    BITWISE the uninterrupted run's (each rank gets its own residual row
+    back from the checkpoint), and the replicas are bitwise equal;
 (b) across layouts at two ranks: a ``--zero1`` checkpoint resumes into a
-    replicated run and a replicated one into ``--zero1``, and after the
-    restore each run's optimizer state (de-sharded under ``--zero1``)
-    equals the other run's de-sharded state bitwise;
+    replicated run and a replicated one into ``--zero1``, and ``--zero3``
+    is both source and target against replicated and ``--zero1`` runs;
+    after the restore each run's optimizer state (de-sharded under
+    ``--zero1`` and ``--zero3``) and params (gathered under ``--zero3``)
+    equal the other run's bitwise;
 (c) a checkpoint cut at three ranks (``--zero1``, int8 ring with error
     feedback) resumes at two: the restored de-sharded state equals the
     checkpoint's, with the residual's sum all on rank 0, the losses are
-    finite and the replicas bitwise equal.
+    finite and the replicas bitwise equal; a ``--zero3`` checkpoint cut at
+    three ranks resumes under ``--zero3`` at two, its params and optimizer
+    state restored exactly.
 """
 
 import math
@@ -32,6 +36,13 @@ BASE = dict(device="cpu", synthetic_data=True, synthetic_size=200, per_shard_bat
             n_chans1=8, n_blocks=2, seed=0, log_every_epochs=1)
 ZERO1_INT8 = dict(kernels=True, zero1=True, grad_compress="int8",
                   grad_compress_error_feedback=True, momentum=0.9)
+ZERO3_INT8 = {**ZERO1_INT8, "zero1": False, "zero3": True}
+#: the layouts as TrainConfig fields
+LAYOUTS = {"replicated": {}, "zero1": dict(zero1=True), "zero3": dict(zero3=True)}
+#: (source, target) checkpoint layouts, by test id
+ACROSS = {f"{a}_into_{b}": (a, b) for a, b in (
+    ("zero1", "replicated"), ("replicated", "zero1"), ("zero3", "replicated"),
+    ("replicated", "zero3"), ("zero3", "zero1"), ("zero1", "zero3"))}
 SLOTS = ("trace", "ema")
 
 
@@ -58,7 +69,7 @@ def _resumed(**kw):
 
 def _opt(t):
     """The run's optimizer state in the replicated layout (a collective
-    under ``--zero1``), as plain CPU tensors."""
+    under ``--zero1`` and ``--zero3``), as plain CPU tensors."""
     state = t.state if t.zero1 is None else t.zero1.deshard_state(t.state)
     out = {f"{slot}/{n}": v.clone() for slot in SLOTS
            for n, v in (getattr(state.opt_state, slot) or {}).items()}
@@ -66,7 +77,8 @@ def _opt(t):
 
 
 def _model(t):
-    return {k: v.clone() for k, v in t.state.model.state_dict().items()}
+    """The model state, params whole (a collective under ``--zero3``)."""
+    return {k: v.clone() for k, v in t.model_state().items()}
 
 
 def _two_rank_worker(rank, world, tmp):
@@ -77,18 +89,38 @@ def _two_rank_worker(rank, world, tmp):
     _run(epochs=1, checkpoint_dir=ck, **ZERO1_INT8)
     resumed = _run(epochs=2, checkpoint_dir=ck, resume=True, **ZERO1_INT8)
     out["resumed"] = (resumed.history["step_loss"], _model(resumed), resumed.resumed_step)
+    full = _run(epochs=2, **ZERO3_INT8)
+    out["zero3_full"] = (full.history["step_loss"], _model(full))
+    ck = os.path.join(tmp, "cut3")
+    _run(epochs=1, checkpoint_dir=ck, **ZERO3_INT8)
+    resumed = _run(epochs=2, checkpoint_dir=ck, resume=True, **ZERO3_INT8)
+    out["zero3_resumed"] = (resumed.history["step_loss"], _model(resumed),
+                            resumed.resumed_step)
 
     layout = dict(momentum=0.9, ema_decay=0.9, kernels=True)
-    for src, dst in ((True, False), (False, True)):
-        ck = os.path.join(tmp, f"zero1_{src}")
-        cut = _run(epochs=1, checkpoint_dir=ck, zero1=src, **layout)
-        back = _resumed(epochs=2, checkpoint_dir=ck, zero1=dst, **layout)
-        out[f"layout_{src}"] = (_opt(cut), _opt(back), _model(cut), _model(back))
+    for name, (src, dst) in ACROSS.items():
+        ck = os.path.join(tmp, name)
+        cut = _run(epochs=1, checkpoint_dir=ck, **LAYOUTS[src], **layout)
+        back = _resumed(epochs=2, checkpoint_dir=ck, **LAYOUTS[dst], **layout)
+        out[name] = (_opt(cut), _opt(back), _model(cut), _model(back))
     torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
 
 
 def _cut_three_worker(rank, world, tmp):
     _run(epochs=1, checkpoint_dir=os.path.join(tmp, "three"), **ZERO1_INT8)
+
+
+def _cut_three_zero3_worker(rank, world, tmp):
+    _run(epochs=1, checkpoint_dir=os.path.join(tmp, "three3"), **ZERO3_INT8)
+
+
+def _resume_two_zero3_worker(rank, world, tmp):
+    t = _resumed(epochs=2, checkpoint_dir=os.path.join(tmp, "three3"), **ZERO3_INT8)
+    restored = {"opt": _opt(t), "model": _model(t), "step": t.resumed_step}
+    t.run()
+    t.close()
+    torch.save({**restored, "losses": t.history["step_loss"], "final": _model(t)},
+               os.path.join(tmp, f"two3_{rank}.pt"))
 
 
 def _resume_two_worker(rank, world, tmp):
@@ -124,11 +156,22 @@ def test_two_rank_zero1_int8_resume_is_bitwise(two):
     assert _equal(two[0]["resumed"][1], two[1]["resumed"][1])
 
 
-@pytest.mark.parametrize("src", [True, False], ids=["zero1_into_replicated",
-                                                    "replicated_into_zero1"])
-def test_checkpoints_resume_across_layouts(two, src):
+def test_two_rank_zero3_int8_resume_is_bitwise(two):
+    for r, res in enumerate(two):
+        full_losses, full_model = res["zero3_full"]
+        losses, model, step = res["zero3_resumed"]
+        assert step == 25
+        assert losses == full_losses[25:], r
+        assert _equal(model, full_model), r
+        # zero3 trains the zero1 run's bits
+        assert full_losses == res["full"][0] and _equal(full_model, res["full"][1])
+    assert _equal(two[0]["zero3_resumed"][1], two[1]["zero3_resumed"][1])
+
+
+@pytest.mark.parametrize("case", list(ACROSS))
+def test_checkpoints_resume_across_layouts(two, case):
     for res in two:
-        cut_opt, back_opt, cut_model, back_model = res[f"layout_{src}"]
+        cut_opt, back_opt, cut_model, back_model = res[case]
         assert cut_opt and _equal(back_opt, cut_opt)
         assert _equal(back_model, cut_model)
 
@@ -160,3 +203,23 @@ def test_three_rank_checkpoint_resumes_at_two(tmp_path):
         assert all(math.isfinite(x) for x in run["losses"])
     assert runs[0]["losses"] == runs[1]["losses"]
     assert _equal(runs[0]["model"], runs[1]["model"])
+
+
+def test_three_rank_zero3_checkpoint_resumes_at_two(tmp_path):
+    tmp = str(tmp_path)
+    dist_runtime.spawn(_cut_three_zero3_worker, 3, tmp, init_file=os.path.join(tmp, "i3"),
+                       timeout=180)
+    ck = split_checkpoint(Checkpointer(os.path.join(tmp, "three3")).restore())
+    dist_runtime.spawn(_resume_two_zero3_worker, 2, tmp, init_file=os.path.join(tmp, "i2"),
+                       timeout=180)
+    runs = [torch.load(os.path.join(tmp, f"two3_{r}.pt")) for r in range(2)]
+    want = {f"{slot}/{n}": v for slot in SLOTS
+            for n, v in (getattr(ck["opt_state"], slot) or {}).items()}
+    for r, run in enumerate(runs):
+        assert run["step"] == ck["step"]
+        assert _equal(run["opt"], want), r
+        assert _equal(run["model"], ck["model"]), r
+        assert len(run["losses"]) == 2 * 25 - ck["step"]
+        assert all(math.isfinite(x) for x in run["losses"])
+    assert runs[0]["losses"] == runs[1]["losses"]
+    assert _equal(runs[0]["final"], runs[1]["final"])

@@ -104,6 +104,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "lives scattered — ~1/N the optimizer HBM and "
                         "update FLOPs), then all-gather the updated "
                         "params. Identical training math")
+    p.add_argument("--zero3", action="store_true",
+                   help="ZeRO-3 parameter streaming (dp): params live "
+                        "permanently scattered in the same flat update "
+                        "space as --zero1's optimizer state (1/N param + "
+                        "1/N optimizer HBM per chip); the forward "
+                        "all-gathers them block by block with the next "
+                        "block's gather prefetched under the current "
+                        "block's compute, and the backward reduce-"
+                        "scatters grads straight into shard space — no "
+                        "full-param re-gather. Same training math; "
+                        "checkpoints stay in the replicated layout so "
+                        "--resume composes across zero3/zero1/replicated "
+                        "and device counts")
     p.add_argument("--grad-compress", choices=["none", "bf16", "int8"],
                    default="none",
                    help="quantize the gradient sync's wire payloads: the "
@@ -293,6 +306,7 @@ def config_from_args(args) -> TrainConfig:
         ema_decay=args.ema_decay,
         kernels=args.kernels,
         zero1=args.zero1,
+        zero3=args.zero3,
         grad_compress=args.grad_compress,
         grad_compress_block=args.grad_compress_block,
         grad_compress_error_feedback=args.grad_compress_error_feedback,

@@ -38,9 +38,14 @@ back. Both backends take ``reduce_scatter_tensor``, gloo on the pinned host
 copies. The compressed ring's reduce-scatter leaves its sum in the same row
 layout (``FlatLayout.rows``).
 
-Not ported yet: the telemetry hop hook (``_RING_HOP_HOOK``, ``_emit_hop``),
-``prefetched_block_gather`` (ZeRO-3) and ``ring_shift`` (sequence
-parallelism).
+ZeRO-3 (``parallel/zero.py::Zero3Partition``) gathers the params block by
+block (``BlockGather``, the JAX ``prefetched_block_gather`` :99-145): one
+all-gather a block of leaves, each block's shards in a chunk-major row of its
+own, issued asynchronously, with block k+1's gather issued before block k is
+first used, so at most two are in flight.
+
+Not ported yet: the telemetry hop hook (``_RING_HOP_HOOK``, ``_emit_hop``)
+and ``ring_shift`` (sequence parallelism).
 """
 
 from __future__ import annotations
@@ -129,6 +134,85 @@ def reduce_scatter_sum(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+class BlockGather:
+    """The ZeRO-3 block gather on the prefetch schedule (the JAX
+    ``prefetched_block_gather``, :99-145). ``flat`` is this rank's param
+    row; block k's own row is ``flat[starts[k]:starts[k] + widths[k]]`` (a
+    ``ChunkMajor`` row of the block's leaves), the blocks in the order the
+    forward first uses them. ``wait(k)`` hands back the blocks it waited
+    for, each with its ``(n, widths[j])`` gathered rows.
+
+    Each block is ONE all-gather, launched asynchronously: under NCCL
+    ``all_gather_into_tensor(..., async_op=True)``, whose wait makes the
+    compute stream wait on it; under gloo with CUDA tensors the row goes to
+    pinned host memory first (``_staged``; the whole ``flat`` row in one
+    copy and one synchronisation, as no step writes it before its update),
+    the collective runs async on the host copies and the result is copied
+    back to the card at the wait. With ``prefetch`` (the product schedule)
+    ``start`` issues block 0 and ``wait(k)`` issues block k+1 before it
+    waits for block k, so block k+1's gather is in flight under block k's
+    compute and no more than two gathers are ever outstanding; without it,
+    ``wait(k)`` issues block k and waits for it at once (the JAX serialized
+    schedule). ``wait(k)`` waits, in order, for every block up to k not yet
+    waited for; for a block waited for already (a tied block entered
+    again, a recompute under remat) it returns nothing."""
+
+    def __init__(self, flat: torch.Tensor, starts: Sequence[int],
+                 widths: Sequence[int], n: int, prefetch: bool = True):
+        self.flat, self.n, self.prefetch = flat, n, prefetch
+        self.starts, self.widths = list(starts), list(widths)
+        self.issued = self.waited = 0    # blocks issued, waited for (prefixes)
+        self._work: Dict[int, tuple] = {}
+        self._host: Optional[torch.Tensor] = None
+
+    def start(self) -> None:
+        if self.prefetch and self.widths:
+            self._issue(0)
+
+    def _row(self, buf: torch.Tensor, k: int) -> torch.Tensor:
+        return buf[self.starts[k]:self.starts[k] + self.widths[k]]
+
+    def _issue(self, k: int) -> None:
+        row = self._row(self.flat, k)
+        self.issued = k + 1
+        if self.n == 1:
+            self._work[k] = (row.view(1, -1), None, None)
+            return
+        out = torch.empty(self.n * row.numel(), dtype=row.dtype, device=row.device)
+        if _staged(row):
+            if self._host is None:
+                self._host = _to_host(self.flat)
+                torch.cuda.current_stream(row.device).synchronize()
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            work = dist.all_gather_into_tensor(host, self._row(self._host, k), async_op=True)
+            self._work[k] = (out, host, work)
+        else:
+            self._work[k] = (out, None, dist.all_gather_into_tensor(out, row, async_op=True))
+
+    def _finish(self, k: int) -> torch.Tensor:
+        out, host, work = self._work.pop(k)
+        if work is not None:
+            work.wait()
+        if host is not None:
+            out.copy_(host, non_blocking=True)
+        return out.view(self.n, -1)
+
+    def wait(self, k: int) -> List[Tuple[int, torch.Tensor]]:
+        done = []
+        while self.waited <= k:
+            j = self.waited
+            last = min(j + 1 if self.prefetch else j, len(self.widths) - 1)
+            while self.issued <= last:
+                self._issue(self.issued)
+            done.append((j, self._finish(j)))
+            self.waited = j + 1
+        return done
+
+    def outstanding(self) -> int:
+        """Gathers issued and not yet waited for."""
+        return len(self._work)
+
+
 class ChunkMajor:
     """Leaves of ``sizes`` elements over ``n`` ranks, each padded to a
     multiple of n and cut into n chunks of ``shard[i] = ceil(size / n)``,
@@ -176,6 +260,25 @@ class ChunkMajor:
     def views(self, row: torch.Tensor) -> List[torch.Tensor]:
         """Each leaf's chunk in one ``(width,)`` row, as views."""
         return [row[off:off + s] for off, s in zip(self.offsets, self.shard)]
+
+    def leaves(self, rows: torch.Tensor, align: int = 128) -> List[torch.Tensor]:
+        """``unpack_`` into new storage: each leaf from its chunks of
+        ``rows`` ``(n, width)``, as a ``(size,)`` view of one new buffer
+        that holds the padded leaves one after another, each starting on a
+        multiple of ``align`` elements (512 bytes in float32, where the
+        allocator would put a tensor of its own, so the libraries that read
+        a leaf see the alignment they would), filled by one multi-tensor
+        copy (one allocation, not one a leaf)."""
+        padded = [self.n * s for s in self.shard]
+        starts, total = [], 0
+        for p in padded:
+            starts.append(total)
+            total += -(-p // align) * align
+        buf = torch.empty(total, dtype=rows.dtype, device=rows.device)
+        torch._foreach_copy_(
+            [buf[o:o + p].view(self.n, s) for o, p, s in zip(starts, padded, self.shard)],
+            [rows[:, off:off + s] for off, s in zip(self.offsets, self.shard)])
+        return [buf[o:o + size] for o, size in zip(starts, self.sizes)]
 
 
 def _scatter_back(flat: torch.Tensor, tensors: Sequence[torch.Tensor]) -> None:

@@ -1,5 +1,5 @@
 """ZeRO-1: the optimizer update sharded over the data-parallel ranks
-(``--zero1``).
+(``--zero1``), and ZeRO-3: the params scattered too (``--zero3``).
 
 Counterpart of ``tpu_ddp/parallel/zero.py`` (``Zero1Partition`` :114,
 ``clip_by_global_norm_sharded`` :724). Plain DP averages the full gradients
@@ -42,9 +42,33 @@ all-reduce, and ``sharded_update``'s ``before_gather`` lets the step's
 skip-step guard put the shards back before the all-gather sends them
 (``train/steps.py``).
 
+ZeRO-3 (``Zero3Partition``, the JAX :496-721) keeps the params themselves
+as 1/N shards between steps, in the same per-leaf padded update space: the
+shards are the state (``TrainState.param_shards``), K1 updates them in
+place, and nothing is gathered after the update. The forward gathers them
+block by block (``param_blocks``: one block a top-level module name), one
+all-gather a block on the prefetch schedule (``collectives.BlockGather``).
+
+Where the module's parameters live under ZeRO-3: between steps each
+``nn.Parameter`` of the model holds an empty placeholder; the step's
+``stream_params`` points each block's parameters at freshly gathered
+full-shape tensors (``.data``) when the forward first enters the block (a
+forward pre-hook on the block's module; the root's pre-hook for params
+that sit on the root, such as the ViT's ``pos_embed``), and puts the
+placeholders back after the backward. The alternative, ``functional_call``
+over the gathered tree, would need every block's tensor before the forward
+starts, so every gather would be in flight (or done) at once and the
+prefetch schedule could not bound them to two; with the placeholders the
+Parameter objects stay the autograd leaves the step differentiates, the
+module code is unchanged, and the gather stays outside autograd, as the
+JAX gather stays outside ``value_and_grad`` (``tpu_ddp/train/steps.py``
+:231-241): the backward returns full-shape local gradients, which
+``reduce_scatter_mean`` consumes, with no second gather. A block entered
+twice (NetResDeep's tied ``resblock``, a recompute under ``--remat``) is
+gathered once.
+
 Not ported: the mesh's specs and shardings (``state_specs``,
-``state_shardings``, ``_jitted``; the port's state is per rank anyway) and
-ZeRO-3.
+``state_shardings``, ``_jitted``; the port's state is per rank anyway).
 """
 
 from __future__ import annotations
@@ -57,6 +81,7 @@ import torch
 from tpu_ddp_torch.health.stats import assemble_stats, leaf_norms, nonfinite_leaves
 from tpu_ddp_torch.ops.fused_update import shard_valid
 from tpu_ddp_torch.parallel.collectives import (
+    BlockGather,
     ChunkMajor,
     all_gather_bytes,
     all_reduce_sum_,
@@ -108,6 +133,11 @@ class Zero1Partition:
     read; when ``tx`` has none (legal at weight decay 0), it is set here
     to ``ndim >= 2`` of the template's original shapes. A compressor is
     attached with ``set_compression``."""
+
+    #: whether the params live as this rank's shards between steps (ZeRO-3)
+    scattered_params = False
+    #: this rank's persistent rows (``_buffers``)
+    _ROWS = ("grad", "param")
 
     def __init__(self, tx, params_template, n_shards: int,
                  rank: Optional[int] = None):
@@ -193,7 +223,7 @@ class Zero1Partition:
         gradients (``send``) are added by the uncompressed reduce-scatter."""
         if self._bufs is None:
             self._bufs = {}
-            for key in ("grad", "param"):
+            for key in self._ROWS:
                 self._bufs[key], self._bufs[key + "_views"] = self._new_row(device)
         return self._bufs
 
@@ -309,6 +339,16 @@ class Zero1Partition:
         update_shards, err_state)``."""
         gsh, err_state = self.reduce_scatter_mean(grads, residual, with_error)
         psh = self.param_shards(params)
+        updates = self._update_shards(gsh, psh, opt_state)
+        if before_gather is not None:
+            before_gather(gsh, updates, err_state)
+        self.gather_params_(params)
+        return gsh, updates, err_state
+
+    def _update_shards(self, gsh: Tree, psh: Tree, opt_state: OptState) -> Tree:
+        """The update of this rank's shards ``psh`` in place by the averaged
+        gradient shards ``gsh``: K1 when ``tx`` has it, else the plain chain,
+        the pad mask and ``p + u``. Returns the masked updates."""
         fused = self.tx.fused
         if fused is not None:
             g_norm = None
@@ -323,10 +363,7 @@ class Zero1Partition:
             with torch.no_grad():
                 for n, u in updates.items():
                     psh[n].copy_(psh[n] + u)
-        if before_gather is not None:
-            before_gather(gsh, updates, err_state)
-        self.gather_params_(params)
-        return gsh, updates, err_state
+        return updates
 
     def health_stats(self, *, sums: torch.Tensor, grad_shards: Tree,
                      param_norms: torch.Tensor, update_shards: Tree,
@@ -340,8 +377,11 @@ class Zero1Partition:
         first) are summed over the ranks in ONE all-reduce, ``sums`` in
         place; the loss is ``sums[0]`` over the rank count. ``param_norms``
         are the old replicated params' per-leaf norms (``leaf_norms``, in
-        leaf order), which need no reduction. The update shards are
-        pad-masked, as ``sharded_update`` returns them."""
+        leaf order), which need no reduction; under ZeRO-3
+        (``scattered_params``) the old param SHARDS' norms, whose squares
+        travel in the same all-reduce (the JAX Zero3 ``health_stats``,
+        :594). The update shards are pad-masked, as ``sharded_update``
+        returns them."""
         gs = [grad_shards[n] for n in self.names]
         us = [update_shards[n] for n in self.names]
         g, u = leaf_norms(gs), leaf_norms(us)
@@ -350,18 +390,25 @@ class Zero1Partition:
                  torch.sum(u * u), nonfinite_leaves(us, u)]
         if compress_error_sq is not None:
             local.append(compress_error_sq)
+        p_sq = param_norms * param_norms
+        if self.scattered_params:
+            local.append(torch.sum(p_sq))
         vec = torch.stack(local)
+        k = len(local)
         if per_layer:
-            vec = torch.cat([vec, g_sq])
+            vec = torch.cat([vec, g_sq] + ([p_sq] if self.scattered_params else []))
         if self.n_shards > 1:
             all_reduce_sum_([sums, vec])
+        param_sq = vec[k - 1] if self.scattered_params else torch.sum(p_sq)
         pl = None
         if per_layer:
-            pl = {"grad_norm": dict(zip(self.names, torch.sqrt(vec[len(local):]).unbind())),
-                  "param_norm": dict(zip(self.names, param_norms.unbind()))}
+            L = len(self.names)
+            p_norms = (torch.sqrt(vec[k + L:]) if self.scattered_params else param_norms)
+            pl = {"grad_norm": dict(zip(self.names, torch.sqrt(vec[k:k + L]).unbind())),
+                  "param_norm": dict(zip(self.names, p_norms.unbind()))}
         return assemble_stats(
             loss=rank_mean(sums[0], self.n_shards), grad_sq=vec[0], grad_bad=vec[1],
-            param_sq=torch.sum(param_norms * param_norms), update_sq=vec[2],
+            param_sq=param_sq, update_sq=vec[2],
             update_bad=vec[3], per_layer=pl,
             compress_error_sq=vec[4] if compress_error_sq is not None else None)
 
@@ -464,3 +511,248 @@ class Zero1Partition:
             "padding_overhead_bytes_total": int(pad),
             "sharding_factor": round(repl / shard, 2) if shard else None,
         }
+
+
+# ---- ZeRO-3 -------------------------------------------------------------------
+
+
+def param_blocks(params_template) -> tuple:
+    """The prefetch blocks: the leaves of ``params_template`` (names ->
+    leaves) grouped by their top-level module name (the part before the
+    first dot; a param on the root is a block of its own), in the order of
+    the names' first appearance. Returns ``(block_names, blocks)``, where
+    ``blocks[k]`` lists the leaf indices of block k (the JAX
+    ``param_blocks``, :467, whose names these are; JAX orders the blocks by
+    ``tree_flatten``, which sorts the names, where ``named_parameters``
+    order is the forward's order of first use for the port's models: the
+    root's own params, then the children as the forward calls them)."""
+    names: list = []
+    blocks: list = []
+    index: dict = {}
+    for i, name in enumerate(params_template):
+        top = name.split(".", 1)[0]
+        k = index.get(top)
+        if k is None:
+            k = index[top] = len(blocks)
+            names.append(top)
+            blocks.append([])
+        blocks[k].append(i)
+    return names, blocks
+
+
+class Zero3Partition(Zero1Partition):
+    """ZeRO-3 parameter streaming (the JAX ``Zero3Partition``, :496-721;
+    module docstring): the params live between steps as this rank's 1/N
+    shards in ZeRO-1's per-leaf padded update space, and the forward
+    gathers them block by block.
+
+    What changes from ``Zero1Partition``: this rank's param shards sit in
+    one row (``shard_params``) that holds each block's ``ChunkMajor`` row
+    one after another, so a block's all-gather sends one contiguous slice;
+    ``stream_params`` gathers them for a forward and backward;
+    ``sharded_update`` takes the shards themselves and gathers nothing
+    after the update; ``health_stats`` sums the param norms over the ranks
+    too. The gradients' reduce-scatter, the pad mask (``valid()``), K1 and
+    the compressed ring are ZeRO-1's. ``prefetch=False`` (the JAX injection
+    argument) serializes the gathers. Checkpoints keep the one de-sharded
+    layout: ``deshard_params`` and ``deshard_state`` for the params and
+    the optimizer state (``train/state.py::full_model_state``)."""
+
+    scattered_params = True
+    #: no param row of ZeRO-1's layout: the shards' row is ``shard_params``'s
+    _ROWS = ("grad",)
+
+    def __init__(self, tx, params_template, n_shards: int,
+                 rank: Optional[int] = None, prefetch: bool = True):
+        super().__init__(tx, params_template, n_shards, rank)
+        self.prefetch = prefetch
+        self.block_names, self.blocks = param_blocks(params_template)
+        self.block_layouts = [
+            ChunkMajor([self.param_slots[self.names[i]].size for i in blk], n_shards)
+            for blk in self.blocks]
+        starts, width = [], 0
+        for lay in self.block_layouts:
+            starts.append(width)
+            width += lay.width
+        self.block_starts, self.row_width = starts, width
+        self._row: Optional[torch.Tensor] = None
+
+    # ---- the scattered params -------------------------------------------
+
+    @torch.no_grad()
+    def shard_params(self, params: Tree) -> Tree:
+        """Original-shaped ``params`` -> this rank's shards: per-leaf views
+        of a new row (the pads zero), the training layout (the JAX
+        ``shard_params``). The partition keeps the row: it is what
+        ``stream_params`` gathers, so one partition serves one state."""
+        device = next(iter(params.values())).device
+        self._row = torch.zeros(self.row_width, dtype=torch.float32, device=device)
+        views = {}
+        for blk, lay, start in zip(self.blocks, self.block_layouts, self.block_starts):
+            row = self._row[start:start + lay.width]
+            views.update(zip((self.names[i] for i in blk), lay.views(row)))
+        shards = {n: views[n] for n in self.names}
+        self._slice_into(shards, params)
+        return shards
+
+    @torch.no_grad()
+    def shard_model_(self, model: torch.nn.Module) -> Tree:
+        """``shard_params`` of ``model``'s params, whose storage is then
+        released: each ``nn.Parameter`` keeps an empty placeholder, so the
+        full init copy is transient (the JAX trainer's :1171-1234)."""
+        params = dict(model.named_parameters())
+        shards = self.shard_params(params)
+        for p in params.values():
+            p.data = placeholder(p)
+        return shards
+
+    @torch.no_grad()
+    def load_params_(self, shards: Tree, params: Tree) -> None:
+        """Write this rank's slice of the original-shaped ``params`` (a
+        restored checkpoint's, a fine-tune's merge) into ``shards``, in
+        place; the pads stay zero. No collective."""
+        self._slice_into(shards, params)
+
+    def deshard_params(self, shards: Tree) -> Tree:
+        """This rank's shards -> the whole original-shaped params on every
+        rank (one all-gather; a collective)."""
+        return self.gather_params(shards)
+
+    def stream_params(self, model: torch.nn.Module, shards: Tree,
+                      prefetch: Optional[bool] = None) -> "ParamStream":
+        """A context in which ``model``'s params are gathered from ``shards``
+        (``shard_params``'s) block by block as the forward first enters
+        each block, on the prefetch schedule (``prefetch``, default the
+        partition's); see ``ParamStream``."""
+        if shards[self.names[0]].untyped_storage().data_ptr() != \
+                self._row.untyped_storage().data_ptr():
+            raise ValueError("stream_params: the shards are not this partition's "
+                             "(shard_params made them for another state)")
+        return ParamStream(self, model, self.prefetch if prefetch is None else prefetch)
+
+    # ---- the step's update ----------------------------------------------
+
+    def reduce_scatter_mean(self, grads: Tree, residual: Optional[Tree] = None,
+                            with_error: bool = False):
+        """ZeRO-1's reduce-scatter; its full-size chunk-major send buffer
+        is not kept between steps (ZeRO-3 keeps nothing full-size)."""
+        out = super().reduce_scatter_mean(grads, residual, with_error)
+        self._bufs.pop("send", None)
+        return out
+
+    def sharded_update(self, grads: Tree, shards: Tree, opt_state: OptState,
+                       residual: Optional[Tree] = None, with_error: bool = False,
+                       before_gather: Optional[Callable] = None):
+        """The ZeRO-3 update tail (the JAX :572): ``grads`` are this rank's
+        local full-shaped gradients from the backward, ``shards`` this
+        rank's param shards, the state itself. Reduce-scatter, then the
+        update of the shards in place (K1 or the plain chain, ZeRO-1's),
+        and nothing gathered after it. ``before_gather(grad_shards,
+        update_shards, err_state)`` runs after the update, where ZeRO-1's
+        would (the health record and the skip guard). Returns
+        ``(grad_shards, update_shards, err_state)``."""
+        gsh, err_state = self.reduce_scatter_mean(grads, residual, with_error)
+        updates = self._update_shards(gsh, shards, opt_state)
+        if before_gather is not None:
+            before_gather(gsh, updates, err_state)
+        return gsh, updates, err_state
+
+    # ---- accounting -----------------------------------------------------
+
+    def accounting(self) -> dict:
+        """ZeRO-1's optimizer-state table and the params' (the JAX
+        ``accounting``, :685, keys and numbers): replicated against 1/N
+        param bytes a rank, the pad, and the prefetch high-water, the
+        largest gathered bytes of two adjacent blocks. ``block_names`` are
+        listed in the JAX order (sorted); the high-water follows the port's
+        block order (``param_blocks``), so it alone may differ from JAX's."""
+        acct = super().accounting()
+        repl = shard = pad = 0
+        block_bytes = []
+        for blk in self.blocks:
+            b = 0
+            for i in blk:
+                slot = self.param_slots[self.names[i]]
+                repl += slot.size * 4
+                shard += slot.padded // self.n_shards * 4
+                pad += (slot.padded - slot.size) * 4
+                b += slot.padded * 4
+            block_bytes.append(b)
+        high = (max(a + b for a, b in zip(block_bytes, block_bytes[1:]))
+                if len(block_bytes) > 1 else sum(block_bytes))
+        acct.update({
+            "params_bytes_replicated": int(repl),
+            "params_bytes_per_device_sharded": int(shard),
+            "params_padding_overhead_bytes_total": int(pad),
+            "n_blocks": len(self.blocks),
+            "block_names": sorted(self.block_names),
+            "prefetch_buffer_bytes": int(high),
+        })
+        return acct
+
+
+def placeholder(p: torch.Tensor) -> torch.Tensor:
+    """The empty tensor a scattered param holds between steps."""
+    return torch.empty(0, dtype=p.dtype, device=p.device)
+
+
+class ParamStream:
+    """``Zero3Partition.stream_params``'s context: on entry block 0's gather
+    is issued (``collectives.BlockGather``); a forward pre-hook on each
+    block's module (the root's for params on the root) waits for the block
+    when the forward first enters it, which issues the next block's gather
+    first, and points the block's parameters at full-shape views of one
+    buffer unpacked from the gathered rows (``ChunkMajor.leaves``). On
+    exit it waits for every block not entered yet, the hooks go and the
+    parameters get their placeholders
+    back, so the gathered tensors live from a block's first use to the end
+    of the backward. The hooks do nothing for a block already gathered: a
+    tied block entered again, a recompute under remat."""
+
+    def __init__(self, part: Zero3Partition, model: torch.nn.Module, prefetch: bool):
+        self.part, self.model = part, model
+        named = dict(model.named_parameters())
+        self.params = [[named[part.names[i]] for i in blk] for blk in part.blocks]
+        self.shapes = [[part.param_slots[part.names[i]].shape for i in blk]
+                       for blk in part.blocks]
+        self.gather = BlockGather(part._row, part.block_starts,
+                                  [lay.width for lay in part.block_layouts],
+                                  part.n_shards, prefetch)
+        self._handles: list = []
+
+    def __enter__(self) -> "ParamStream":
+        children = dict(self.model.named_children())
+        on_root = []
+        for k, name in enumerate(self.part.block_names):
+            if name in children:
+                self._handles.append(children[name].register_forward_pre_hook(
+                    lambda module, args, k=k: self.use(k)))
+            else:
+                on_root.append(k)
+        if on_root:
+            last = max(on_root)
+            self._handles.append(self.model.register_forward_pre_hook(
+                lambda module, args: self.use(last)))
+        self.gather.start()
+        return self
+
+    @torch.no_grad()
+    def use(self, k: int) -> None:
+        """Block k is about to be used: wait for it (and any block before
+        it not waited for) and point its parameters at the gathered
+        values."""
+        for j, rows in self.gather.wait(k):
+            leaves = self.part.block_layouts[j].leaves(rows)
+            for p, shape, t in zip(self.params[j], self.shapes[j], leaves):
+                p.data = t.view(shape)
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        for handle in self._handles:
+            handle.remove()
+        self._handles.clear()
+        if exc_type is None and self.part.blocks:   # a block never entered too
+            self.use(len(self.part.blocks) - 1)
+        with torch.no_grad():
+            for ps in self.params:
+                for p in ps:
+                    p.data = placeholder(p)

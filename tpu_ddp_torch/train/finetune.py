@@ -23,7 +23,13 @@ import torch
 from tpu_ddp_torch.checkpoint.manager import Checkpointer, merge_params
 from tpu_ddp_torch.parallel.runtime import is_primary_process
 from tpu_ddp_torch.train.optim import Optimizer
-from tpu_ddp_torch.train.state import TrainState, create_train_state, split_checkpoint
+from tpu_ddp_torch.train.state import (
+    TrainState,
+    create_train_state,
+    full_model_state,
+    load_model_state_,
+    split_checkpoint,
+)
 
 log = logging.getLogger(__name__)
 
@@ -56,16 +62,18 @@ def load_pretrained_for_finetune(path: str, model: torch.nn.Module, tx: Optimize
                                  device: torch.device, *, step: Optional[int] = None,
                                  zero1=None) -> TrainState:
     """A fresh state for ``model`` (its own seeded init, the optimizer state
-    built on it, under ZeRO-1 in ``zero1``'s shards), then every restored
+    built on it, under ZeRO-1 in ``zero1``'s shards, under ZeRO-3 the params
+    too), then every restored
     tensor whose name and shape still match merged into the model in place
-    (``merge_params``): ``load_state_dict(strict=False)`` plus the head
+    (``merge_params``; under ZeRO-3 against the gathered fresh params, a
+    collective, and into the shards): ``load_state_dict(strict=False)`` plus the head
     swap; a head of another width, or a 7x7 stem against a CIFAR stem,
     keeps the fresh init. The optimizer state is fresh and the step 0, as
     in the JAX package (:41-45), whose EMA shadow, too, starts from the
     fresh init."""
     state = create_train_state(model, tx, device, zero1=zero1)
     restored = pretrained_model_state(path, state.model, step)
-    fresh = state.model.state_dict()
+    fresh = full_model_state(state, zero1)
     merged = merge_params(restored, fresh)
-    state.model.load_state_dict(merged)
+    load_model_state_(state, merged, zero1)
     return state

@@ -8,7 +8,10 @@ negative log-likelihood of ``logits[:, :-1]`` against ``tokens[:, 1:]``,
 from a float32 ``log_softmax`` over the vocabulary) and the backward; then
 the gradient sync and update of the image step, ``train/steps.py``'s
 ``sync_and_update``: the all-reduce mean, or the compressed ring with this
-rank's error-feedback residual, or ZeRO-1's sharded update. The model has
+rank's error-feedback residual, or ZeRO-1's or ZeRO-3's sharded update
+(ZeRO-3 streams the params through the forward as the image step does;
+the JAX LM step has no zero3 branch, the port's shares the image step's
+tail). The model has
 no BatchNorm buffers. The loss is averaged over the ranks, and it is the
 step's only metric, as in the JAX step. The model's ``dtype`` and ``remat``
 apply as the model carries them, as in the JAX step; the loss takes the
@@ -34,7 +37,7 @@ from tpu_ddp_torch.parallel.collectives import rank_mean
 from tpu_ddp_torch.parallel.runtime import world_size
 from tpu_ddp_torch.train.optim import Optimizer
 from tpu_ddp_torch.train.state import TrainState, create_train_state
-from tpu_ddp_torch.train.steps import StepHealth, sync_and_update
+from tpu_ddp_torch.train.steps import StepHealth, streamed, sync_and_update, update_params
 
 Batch = Dict[str, torch.Tensor]
 
@@ -62,12 +65,13 @@ def make_lm_train_step(tx: Optimizer, *, compress=None, zero1=None,
         tokens = batch["tokens"]
         if recorder is not None:
             recorder.before_forward(model)
-        logits = model(tokens)
-        loss = token_nll(logits[:, :-1], tokens[:, 1:]).mean()
-        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        with streamed(zero1, state):
+            logits = model(tokens)
+            loss = token_nll(logits[:, :-1], tokens[:, 1:]).mean()
+            grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
         sums = loss.detach().reshape(1)
-        stats = sync_and_update(tx, state, grads, params, sums, compress=compress,
-                                zero1=zero1, health=recorder)
+        stats = sync_and_update(tx, state, grads, update_params(state, params, zero1),
+                                sums, compress=compress, zero1=zero1, health=recorder)
         metrics = {"loss": rank_mean(sums[0], world_size())}
         if stats is not None:
             metrics["health"] = stats

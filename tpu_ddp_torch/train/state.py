@@ -6,7 +6,11 @@ Counterpart of ``tpu_ddp/train/state.py`` (``TrainState`` :24,
 model's tensors and the optimizer state are updated in place by the step.
 ``grad_residual`` is this rank's error-feedback residual of the compressed
 gradient ring (``parallel/compression.py``): one f32 ``(padded,)`` tensor
-per param, or ``None`` without error feedback.
+per param, or ``None`` without error feedback. Under ZeRO-3
+(``parallel/zero.py::Zero3Partition``) ``param_shards`` holds this rank's
+param shards, the params' only storage between steps: the module's
+parameters are empty placeholders then, and ``full_model_state`` and
+``load_model_state_`` read and write the params through the shards.
 
 ``checkpoint_state`` and ``split_checkpoint`` are the checkpoint's one
 layout (the JAX trainer's ``_ckpt_state``, :2585-2601): a flat dict, keyed
@@ -43,9 +47,16 @@ class TrainState:
     model: nn.Module
     opt_state: OptState
     grad_residual: Optional[Dict[str, torch.Tensor]] = None
+    param_shards: Optional[Dict[str, torch.Tensor]] = None
 
     def params(self) -> Dict[str, torch.Tensor]:
         return dict(self.model.named_parameters())
+
+
+def scattered(zero) -> bool:
+    """Whether ``zero`` (a partition or None) keeps the params scattered
+    (ZeRO-3)."""
+    return getattr(zero, "scattered_params", False)
 
 
 def create_train_state(model: nn.Module, tx: Optimizer,
@@ -53,14 +64,52 @@ def create_train_state(model: nn.Module, tx: Optimizer,
     """Move ``model`` (initialised from its own seeded generator) to
     ``device`` and build the optimizer state for its params: replicated, or
     under ZeRO-1 (``zero1``, a ``parallel.zero.Zero1Partition``) this rank's
-    shards of it, built in shard space."""
+    shards of it, built in shard space. Under ZeRO-3 (a ``Zero3Partition``)
+    the params then move into this rank's shards too, and the module keeps
+    placeholders: the full init copy is transient."""
     model = model.to(device)
     params = dict(model.named_parameters())
-    return TrainState(
+    state = TrainState(
         step=torch.zeros((), dtype=torch.int64, device=device),
         model=model,
         opt_state=tx.init(params) if zero1 is None else zero1.init_opt_state(params),
     )
+    if scattered(zero1):
+        state.param_shards = zero1.shard_model_(model)
+    return state
+
+
+def full_model_state(state: TrainState, zero=None) -> Dict[str, torch.Tensor]:
+    """The model's state dict (params and BatchNorm buffers) with the params
+    whole: under ZeRO-3 gathered from the ranks' shards (a collective, every
+    rank calls it), else the module's own tensors."""
+    out = state.model.state_dict()
+    if scattered(zero):
+        full = zero.deshard_params(state.param_shards)
+        out = type(out)((k, full.get(k, v)) for k, v in out.items())
+    return out
+
+
+@torch.no_grad()
+def load_model_state_(state: TrainState, model_state: Dict[str, torch.Tensor],
+                      zero=None) -> None:
+    """Write a flat model state (``full_model_state``'s layout: a checkpoint's,
+    a fine-tune's merge) into ``state`` in place: ``load_state_dict``, or
+    under ZeRO-3 the buffers into the module and this rank's slice of each
+    param into its shard. Raises on missing or unexpected keys, as
+    ``load_state_dict`` does."""
+    if not scattered(zero):
+        state.model.load_state_dict(model_state)
+        return
+    current = state.model.state_dict()      # the placeholders and the buffers
+    if set(model_state) != set(current):
+        raise RuntimeError(
+            f"model state mismatch: missing {sorted(set(current) - set(model_state))}, "
+            f"unexpected {sorted(set(model_state) - set(current))}")
+    for name, t in current.items():
+        if name not in zero.param_slots:
+            t.copy_(model_state[name])
+    zero.load_params_(state.param_shards, {n: model_state[n] for n in zero.param_slots})
 
 
 def checkpoint_state(step: int, model_state: Dict[str, torch.Tensor],

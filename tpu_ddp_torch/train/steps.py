@@ -19,6 +19,15 @@ stats), its local masked cross-entropy and the backward. Then:
   partition has the compressor, with the residual threaded as above), the
   update runs on this rank's shards of the params and of the state in
   ``state.opt_state``, and one all-gather brings the params back whole;
+* under ZeRO-3 (``zero1`` a ``parallel.zero.Zero3Partition``; the JAX
+  step's zero3 branch :231-241, ``scattered_params``) the params live as
+  this rank's shards in ``state.param_shards``: the forward runs inside
+  the partition's ``stream_params``, which gathers them block by block as
+  the forward first enters each block (block k+1's gather issued before
+  block k is used) and puts the module's placeholders back after the
+  backward; the gather is outside autograd, so the backward gives the
+  full-shaped local gradients the reduce-scatter takes, and the update of
+  the shards is ZeRO-1's without the all-gather after it;
 * ``loss`` is averaged over the ranks, ``accuracy`` is the summed correct
   count over the summed count (:318-329).
 
@@ -52,10 +61,11 @@ error feedback or not (:255-257), for ``compress_error_norm``. The step
 still makes one all-reduce of its scalars: the metric sums, the ring's
 error and ZeRO-1's shard sums travel in one vector. With
 ``skip_nonfinite`` a ``SkipGuard`` saves the BatchNorm buffers before the
-forward and the params (ZeRO-1: this rank's param shards), every optimizer
-slot and both step counts before the update, and after it selects the old
-values when ``all_finite`` is false; ZeRO-1 selects before its all-gather,
-which then sends the restored shards. The error-feedback residual keeps
+forward and the params (ZeRO-1 and ZeRO-3: this rank's param shards),
+every optimizer slot and both step counts before the update, and after it
+selects the old values when ``all_finite`` is false; ZeRO-1 selects before
+its all-gather, which then sends the restored shards (ZeRO-3 has no
+gather: the shards are the state). The error-feedback residual keeps
 its old value the same way. No step builder reads a device value on the
 host: the guard's ``ok`` stays on the device.
 
@@ -65,9 +75,11 @@ The step variants (the JAX builders of these names): ``augment`` and
 step body over K stacked batches (``--steps-per-call``; the semantics of
 the JAX ``lax.scan``, not yet one captured graph); the accumulating step,
 ``make_grad_accum_train_step``, which shares ``sync_and_update``;
-``make_predict_step``. Health rides in every one of them.
+``make_predict_step``. Health rides in every one of them, and so does
+ZeRO-3: the fused call streams the params each step, the accumulating step
+gathers them once for all its microbatches (the JAX :538-556).
 
-Not ported yet: zero3 and auxiliary losses (the MoE router's).
+Not ported yet: auxiliary losses (the MoE router's).
 """
 
 from __future__ import annotations
@@ -97,7 +109,7 @@ from tpu_ddp_torch.parallel.collectives import (
 from tpu_ddp_torch.parallel.runtime import rank, world_size
 from tpu_ddp_torch.train.losses import cross_entropy_loss, masked_accuracy
 from tpu_ddp_torch.train.optim import OptState, Optimizer
-from tpu_ddp_torch.train.state import COUNTS, SLOTS, TrainState
+from tpu_ddp_torch.train.state import COUNTS, SLOTS, TrainState, scattered
 
 Batch = Dict[str, torch.Tensor]
 
@@ -164,13 +176,15 @@ class StepHealth:
     @torch.no_grad()
     def before_update(self, state: TrainState, params: Dict[str, torch.Tensor],
                       zero1=None) -> None:
-        """The old params' per-leaf norms, and under the guard the tensors
-        the update writes in place: the params (ZeRO-1: this rank's param
-        shards, which the all-gather sends), every optimizer slot and the
-        counts."""
+        """The old params' per-leaf norms (ZeRO-3: ``params`` are this
+        rank's shards, and these their shard-local norms), and under the
+        guard the tensors the update writes in place: the params (ZeRO-1:
+        this rank's param shards, which the all-gather sends; ZeRO-3: the
+        shards, the state itself), every optimizer slot and the counts."""
         self._param_norms = leaf_norms(list(params.values()))
         if self.guard is not None:
-            held = zero1.param_shards(params) if zero1 is not None else params
+            held = (zero1.param_shards(params)
+                    if zero1 is not None and not scattered(zero1) else params)
             self.guard.save("update", list(held.values()) + _opt_tensors(state.opt_state))
 
     @torch.no_grad()
@@ -205,8 +219,9 @@ def sync_and_update(tx: Optimizer, state: TrainState, grads: Dict[str, torch.Ten
                     params: Dict[str, torch.Tensor], sums: torch.Tensor, *,
                     compress=None, zero1=None, health: Optional[StepHealth] = None):
     """The tail every data-parallel step shares: average ``grads`` (this
-    rank's) over the ranks and update ``params`` and ``state`` in place, by
-    ZeRO-1's sharded update, or the compressed ring, or the all-reduce
+    rank's) over the ranks and update ``params`` (ZeRO-3: this rank's
+    shards, ``state.param_shards``) and ``state`` in place, by ZeRO-1's or
+    ZeRO-3's sharded update, or the compressed ring, or the all-reduce
     (nothing at one rank), then ``tx``; thread the error-feedback residual
     and count the step (module docstring). ``sums`` are the step's metric
     sums on this rank (its loss first), summed over the ranks in place.
@@ -244,6 +259,21 @@ def sync_and_update(tx: Optimizer, state: TrainState, grads: Dict[str, torch.Ten
         state.grad_residual = err_state
     state.step += 1
     return stats
+
+
+def streamed(zero1, state: TrainState):
+    """The context a step's forward and backward run in: under ZeRO-3 the
+    partition's ``stream_params`` over ``state.param_shards`` (module
+    docstring), else nothing."""
+    if scattered(zero1):
+        return zero1.stream_params(state.model, state.param_shards)
+    return contextlib.nullcontext()
+
+
+def update_params(state: TrainState, params: Dict[str, torch.Tensor], zero1):
+    """What ``sync_and_update`` updates: the shards under ZeRO-3, else
+    ``params``."""
+    return state.param_shards if scattered(zero1) else params
 
 
 def _forward(model: torch.nn.Module, images: torch.Tensor, remat: bool) -> torch.Tensor:
@@ -326,19 +356,20 @@ def make_train_step(tx: Optimizer, *, compress=None, zero1=None,
                                mixup_alpha=mixup_alpha)
         if recorder is not None:
             recorder.before_forward(model)
-        logits = _forward(model, batch["image"], remat)
-        mask = batch.get("mask")
-        loss = loss_fn(logits, batch["label"], mask)
-        if mixup_alpha > 0:
-            lam = batch["_mix_lam"]
-            loss = lam * loss + (1.0 - lam) * loss_fn(logits, batch["_mix_label"], mask)
-        if n > 1:
-            all_reduce_mean_([b for _, b in model.named_buffers()])
-        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        with streamed(zero1, state):
+            logits = _forward(model, batch["image"], remat)
+            mask = batch.get("mask")
+            loss = loss_fn(logits, batch["label"], mask)
+            if mixup_alpha > 0:
+                lam = batch["_mix_lam"]
+                loss = lam * loss + (1.0 - lam) * loss_fn(logits, batch["_mix_label"], mask)
+            if n > 1:
+                all_reduce_mean_([b for _, b in model.named_buffers()])
+            grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
         with torch.no_grad():
             sums = _metric_sums(loss.detach(), logits, batch, compute_accuracy)
-        stats = sync_and_update(tx, state, grads, params, sums, compress=compress,
-                                zero1=zero1, health=recorder)
+        stats = sync_and_update(tx, state, grads, update_params(state, params, zero1),
+                                sums, compress=compress, zero1=zero1, health=recorder)
         with torch.no_grad():
             return state, _step_metrics(sums, n, compute_accuracy, stats)
 
@@ -419,25 +450,27 @@ def make_grad_accum_train_step(tx: Optimizer, *, accum_steps: int, compress=None
         if recorder is not None:
             recorder.before_forward(model)
         acc = total = None
-        for k in range(accum_steps):
-            micro = {key: v[k * m:(k + 1) * m] for key, v in batch.items()}
-            logits = _forward(model, micro["image"], remat)
-            loss = loss_fn(logits, micro["label"], micro.get("mask"))
-            grads = torch.autograd.grad(loss, leaves)
-            with torch.no_grad():
-                term = _metric_sums(loss.detach(), logits, micro, compute_accuracy)
-                if acc is None:
-                    acc, total = list(grads), term
-                else:
-                    torch._foreach_add_(acc, grads)
-                    total = total + term
+        # ZeRO-3: one gather for every microbatch (the first one's forward)
+        with streamed(zero1, state):
+            for k in range(accum_steps):
+                micro = {key: v[k * m:(k + 1) * m] for key, v in batch.items()}
+                logits = _forward(model, micro["image"], remat)
+                loss = loss_fn(logits, micro["label"], micro.get("mask"))
+                grads = torch.autograd.grad(loss, leaves)
+                with torch.no_grad():
+                    term = _metric_sums(loss.detach(), logits, micro, compute_accuracy)
+                    if acc is None:
+                        acc, total = list(grads), term
+                    else:
+                        torch._foreach_add_(acc, grads)
+                        total = total + term
         if n > 1:
             all_reduce_mean_([b for _, b in model.named_buffers()])
         with torch.no_grad():
             grads = {name: g / accum_steps for name, g in zip(params, acc)}
             sums = torch.cat([total[:1] / accum_steps, total[1:]])
-        stats = sync_and_update(tx, state, grads, params, sums, compress=compress,
-                                zero1=zero1, health=recorder)
+        stats = sync_and_update(tx, state, grads, update_params(state, params, zero1),
+                                sums, compress=compress, zero1=zero1, health=recorder)
         with torch.no_grad():
             return state, _step_metrics(sums, n, compute_accuracy, stats)
 

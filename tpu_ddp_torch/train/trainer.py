@@ -18,15 +18,21 @@ decay mask is taken from the params' original shapes before the optimizer
 is built, the optimizer state is built in shard space, the compressor (if
 any) runs the partition's reduce-scatter, and evaluation under
 ``--ema-decay`` gathers the EMA shards first (``_eval_params``, the JAX
-``_eval_source_state`` :2603-2640).
+``_eval_source_state`` :2603-2640). ``--zero3`` (the JAX :1171-1237)
+scatters the params too (``parallel/zero.py::Zero3Partition``, in
+``self.zero1`` as ZeRO-1's partition is): the state is built with the full
+init copy transient, the compressor is built over the original shapes, the
+step streams the params through each forward, and evaluation and
+``predict`` gather the params (or the EMA shadow) once a pass.
 
 Checkpoints (``--checkpoint-dir``; ``checkpoint/manager.py``) hold one
 layout whatever the run's (``_ckpt_state``, the JAX ``_ckpt_state``
 :2585-2601): ZeRO-1's optimizer state de-sharded, and the error-feedback
 residual in param layout from one rank, or every rank's row from several
-(whose sum is the param-layout residual). ``--resume`` restores
+(whose sum is the param-layout residual); ``--zero3``'s params gathered
+whole (``train/state.py::full_model_state``). ``--resume`` restores
 through that layout and lays it out again for this run (:1006-1074), so
-``--zero1`` and replicated runs, runs with and without error feedback, and
+``--zero3``, ``--zero1`` and replicated runs, runs with and without error feedback, and
 runs at other rank counts resume from each other's checkpoints; at the
 same rank count a resumed run is bitwise the uninterrupted one. Saves come
 on log epochs (``epoch % checkpoint_every_epochs in (0, 1)``), every
@@ -120,7 +126,7 @@ dataset first (``data/download.py``). ``--cv-mode`` (k-fold,
 
 Not ported yet: telemetry (and the health gauges, ``data/*`` spans and
 data digests it carries), the elastic supervisor, and the strategies other
-than data parallelism (zero3, fsdp, tp, pp).
+than data parallelism (fsdp, tp, pp).
 """
 
 from __future__ import annotations
@@ -166,7 +172,7 @@ from tpu_ddp_torch.parallel.runtime import (
     rank,
     world_size,
 )
-from tpu_ddp_torch.parallel.zero import DATA_AXIS, Zero1Partition
+from tpu_ddp_torch.parallel.zero import DATA_AXIS, Zero1Partition, Zero3Partition
 from tpu_ddp_torch.runtime import resolve_device, set_float32_precision
 from tpu_ddp_torch.train.finetune import load_pretrained_for_finetune
 from tpu_ddp_torch.train.losses import binary_cross_entropy_with_logits, cross_entropy_loss
@@ -175,6 +181,8 @@ from tpu_ddp_torch.train.state import (
     checkpoint_state,
     copy_opt_state_,
     create_train_state,
+    full_model_state,
+    load_model_state_,
     split_checkpoint,
 )
 from tpu_ddp_torch.train.steps import (
@@ -214,6 +222,7 @@ class TrainConfig:
     ema_decay: float = 0.0
     kernels: bool = False
     zero1: bool = False                   # ZeRO-1 update sharding
+    zero3: bool = False                   # ZeRO-3 parameter streaming
     grad_compress: str = "none"           # none | bf16 | int8 (the ring)
     grad_compress_block: int = 256
     grad_compress_error_feedback: bool = False
@@ -298,6 +307,18 @@ class TrainConfig:
         if self.zero1 and self.optimizer == "lamb":
             raise ValueError(
                 "--zero1 does not compose with --optimizer lamb (the "
+                "layer-wise trust ratio needs whole-parameter norms; "
+                "the 1/N update shards cannot provide them)"
+            )
+        if self.zero3 and self.zero1:
+            raise ValueError(
+                "--zero3 subsumes --zero1 (parameters AND optimizer "
+                "state live scattered in the same flat update space); "
+                "drop --zero1"
+            )
+        if self.zero3 and self.optimizer == "lamb":
+            raise ValueError(
+                "--zero3 does not compose with --optimizer lamb (the "
                 "layer-wise trust ratio needs whole-parameter norms; "
                 "the 1/N update shards cannot provide them)"
             )
@@ -426,7 +447,8 @@ class Trainer:
             exclude_sampler_pad=True)
         model = build_model(c)
         params = dict(model.named_parameters())
-        # ZeRO-1's chain runs on flat shards, where ndim says nothing: the
+        sharded = c.zero1 or c.zero3
+        # ZeRO's chain runs on flat shards, where ndim says nothing: the
         # decay mask comes from the original shapes, here
         self.tx = make_optimizer(
             lr=c.lr, optimizer=c.optimizer, momentum=c.momentum,
@@ -434,13 +456,14 @@ class Trainer:
             total_steps=self.train_loader.steps_per_epoch * c.epochs,
             warmup_steps=c.warmup_steps, grad_clip_norm=c.grad_clip_norm,
             ema_decay=c.ema_decay, kernels=c.kernels,
-            decay_mask=decay_mask(params) if c.zero1 else None,
-            zero1_axis=DATA_AXIS if c.zero1 else None,
+            decay_mask=decay_mask(params) if sharded else None,
+            zero1_axis=DATA_AXIS if sharded else None,
             freeze_predicate=(freeze_all_but(tuple(c.freeze_prefixes))
                               if c.freeze_prefixes else None),
         )
-        self.zero1 = (Zero1Partition(self.tx, params, self.world_size)
-                      if c.zero1 else None)
+        # the partition: ZeRO-1's, or ZeRO-3's (params scattered too)
+        self.zero1 = ((Zero3Partition if c.zero3 else Zero1Partition)(
+            self.tx, params, self.world_size) if sharded else None)
         if c.pretrained_dir:
             self.state = load_pretrained_for_finetune(
                 c.pretrained_dir, model, self.tx, self.device, zero1=self.zero1)
@@ -543,10 +566,13 @@ class Trainer:
     def _build_compressor(self) -> Optional[GradCompressor]:
         """The ``GradCompressor`` of this run's ``--grad-compress`` knobs over
         the ranks, or None without compression. ``kernels`` reaches it as in
-        the JAX trainer: K2 and K3 run the int8 payloads."""
+        the JAX trainer: K2 and K3 run the int8 payloads. It is built over
+        the params' original shapes (under ZeRO-3 the partition's slots: the
+        module holds placeholders, the JAX :1224-1232)."""
         c = self.config
         if c.grad_compress == "none":
             return None
+        template = self.zero1.param_slots if c.zero3 else self.state.params()
         return GradCompressor(
             GradCompression(
                 mode=c.grad_compress,
@@ -554,15 +580,23 @@ class Trainer:
                 error_feedback=c.grad_compress_error_feedback,
                 kernels=c.kernels,
             ),
-            self.state.params(), self.world_size,
+            template, self.world_size,
         )
 
     # ---- checkpoints -------------------------------------------------------
 
+    def model_state(self) -> dict:
+        """The model's state dict with the params whole (under ``--zero3``
+        gathered from the ranks' shards: a collective, every rank calls
+        it)."""
+        return full_model_state(self.state, self.zero1)
+
     def _ckpt_state(self) -> dict:
         """The checkpoint's flat dict (``train/state.py``) in the one layout
-        (module docstring). A collective under ``--zero1`` and with a
-        residual at several ranks: every rank calls it at the same steps."""
+        (module docstring). A collective under ``--zero1``, ``--zero3`` and
+        with a residual at several ranks: every rank calls it at the same
+        steps."""
+        model_state = self.model_state()
         state = self.state
         if self.zero1 is not None:
             state = self.zero1.deshard_state(state)
@@ -571,7 +605,7 @@ class Trainer:
             rows = self.compress.residual_rows(state.grad_residual)
         elif state.grad_residual is not None:
             residual = self.compress.unflatten(state.grad_residual)
-        return checkpoint_state(int(state.step), state.model.state_dict(),
+        return checkpoint_state(int(state.step), model_state,
                                 state.opt_state, residual, rows)
 
     def _save(self, step: int, wait: bool = False) -> None:
@@ -585,13 +619,14 @@ class Trainer:
 
     def _restore(self, flat: dict) -> None:
         """Write a checkpoint's state INTO this run's tensors (the ring and
-        ZeRO-1's rows read views of them): the model in place, the
-        optimizer state through this rank's shards under ``--zero1``, and
+        ZeRO-1's rows read views of them): the model in place (under
+        ``--zero3`` the params into this rank's shards), the optimizer state
+        through this rank's shards under ``--zero1`` and ``--zero3``, and
         the residual with the JAX trainer's tolerance (:1043-1074): none in
         the checkpoint starts an error-feedback run from zero, one this run
         does not use is discarded, each with a warning."""
         ck = split_checkpoint(flat)
-        self.state.model.load_state_dict(ck["model"])
+        load_model_state_(self.state, ck["model"], self.zero1)
         self.state.step.fill_(ck["step"])
         restored = dataclasses.replace(self.state, opt_state=ck["opt_state"])
         if self.zero1 is not None:
@@ -969,10 +1004,12 @@ class Trainer:
 
     def _params_finite(self) -> bool:
         """Whether every param is finite (one host read for all of them; the
-        params are replicated, so every rank answers the same)."""
-        params = list(self.state.params().values())
-        bad = torch.stack([(~torch.isfinite(p)).any() for p in params]).any()
-        return not bool(bad)
+        params are replicated, so every rank answers the same; under
+        ``--zero3`` each rank reads its shards and the ranks agree)."""
+        zero3 = self.config.zero3
+        params = (self.state.param_shards if zero3 else self.state.params()).values()
+        bad = bool(torch.stack([(~torch.isfinite(p)).any() for p in params]).any())
+        return not (agree_any(bad) if zero3 else bad)
 
     def close(self) -> None:
         """Stop the native prefetcher, finish in-flight saves and close the
@@ -989,12 +1026,17 @@ class Trainer:
 
     def _eval_params(self):
         """The weights evaluation reads in place of the model's: the EMA
-        shadow when ``ema_decay`` is on (under ZeRO-1 gathered from the
-        ranks' shards and unflattened, a collective), else None."""
-        if not self.config.ema_decay:
-            return None
-        ema = self.state.opt_state.ema
-        return ema if self.zero1 is None else self.zero1.gather_params(ema)
+        shadow when ``ema_decay`` is on (under ZeRO-1 and ZeRO-3 gathered
+        from the ranks' shards and unflattened, a collective), under
+        ``--zero3`` without it the params gathered from their shards (the
+        JAX ``_eval_source_state`` :2615-2640: one gather a pass), else
+        None."""
+        if self.config.ema_decay:
+            ema = self.state.opt_state.ema
+            return ema if self.zero1 is None else self.zero1.gather_params(ema)
+        if self.config.zero3:
+            return self.zero1.deshard_params(self.state.param_shards)
+        return None
 
     def evaluate(self) -> tuple:
         """(accuracy, loss) over the test set; the EMA weights when
