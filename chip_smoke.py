@@ -394,14 +394,49 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     (d) ``skip_step`` under ``--zero3 --grad-compress int8`` at two ranks,
     rank 0's fifth batch all NaN: the step skipped on both, each rank's
     state (shards, slots, counts, buffers, residual) bitwise across it.
+25. Sequence parallelism (``--parallelism sp``, ring attention). (a) The
+    ring on four gloo ranks sharing the card in one job, as two rings of 2
+    and then one ring of 4: ``ring_flash_attention`` (K4 a forward hop, K5
+    and K6 a backward hop) against the same ring with the plain tiles and
+    against one-rank ``flash_attention`` on the whole sequence, out, lse
+    and the gradients of q, k and v, at ViT-S/4's (32, 64, 3, 64) float32
+    (causal and not, and with a key mask that leaves a batch row with no
+    key) and bfloat16, and LM-32k's (4, 4096, 8, 64) causal float32 and
+    bfloat16, each cut into n chunks of the sequence. Every K4-K6 call of
+    the ring against its plain version on the same inputs: phase 7's
+    float32 tolerances, bfloat16 within 2 units of each row's largest value
+    (phase 20a's check), lse ``atol=2e-5``. The ring's results: phase 7's
+    float32 tolerances; in bfloat16 the ring sums tiles each rounded to
+    bfloat16, so a row is held within ``2 m + 1`` units of its scale (m
+    tiles summed into it; ``sp_ring_child`` says which scale), ``2 m + 3``
+    against one-rank flash. K4, K5 and K6 n times a pass on each rank,
+    ``s + 1`` times causal (s: the rank's place on the ring). (b) and (c)
+    in one launcher job on two gloo ranks sharing the card. (b) ViT-S/4
+    through the CLI with ``--parallelism sp --mesh data=1,sequence=2
+    --sp-flash --kernels --optimizer adamw --lr 1e-3`` at batch 32, two
+    epochs of 20 steps (the second timed): the first 5 losses within
+    ``rtol=1e-5`` of a one-rank ``--attention flash`` run in this process
+    on the same data, order and init, K1 once a step, K4 = K5 = K6 = 12 a
+    step a rank, replicas bitwise, ms a step and peak memory a rank against
+    the one-rank run's; then 10 steps under ``--health on --health-policy
+    warn``. (c) LM-32k through ``make_sp_lm_train_step`` with ``sp_flash``
+    at sequence=2, 6 steps in float32 and 6 in bfloat16 from phase 18a's
+    seeded weights on its batches: the first 5 losses within ``rtol=1e-5``
+    of 18a's float32 run and 5e-3 of 20d's bfloat16 run, K4-K6 4 a step on
+    rank 0 and 8 on rank 1, the ranks' params equal to the bit, ms a step,
+    tokens/sec and peak memory a rank against the one-rank run, and the
+    flash ring's forward + backward at a layer timed first. Over gloo every
+    exchange is staged through host memory and
+    synchronises the stream first, so no transfer overlaps a tile there.
 
 Phase 2 also builds the native data-path library (``tpu_ddp_torch/native``)
 with g++ from the checkout. The NetResDeep phases before 17 keep their
 sizes; the whole run aims at ten minutes on the card, the build included. ``python3 chip_smoke.py
 --nccl N``, on a machine with N cards, runs phases 10 (at N ranks' chunks),
 12, 14, 24 (a)-(c) (with ViT-S/4 ``--zero3`` timed again with the gathers
-serialized), 17's two-rank part, 18c, 19d, 21b and 22e alone at N ranks, one
-card each, over NCCL. The line before the last is one JSON object
+serialized), 17's two-rank part, 18c, 19d, 21b, 22e and 25 (b) and (c) (at
+data=N/2, sequence=2) alone at N ranks, one card each, over NCCL. The line
+before the last is one JSON object
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -1837,7 +1872,9 @@ def rank_child(out_dir, args):
     ``--poison-batch N`` whether the state (ZeRO-3's shards too) was
     bitwise the same just after the N-th step as just before it
     (``poisoned_step_bitwise``). A run named ``*_serial`` gathers ZeRO-3's
-    blocks without the prefetch."""
+    blocks without the prefetch. ``--then-sp-lm D`` runs phase 25c's LM
+    steps on the same group after the runs (``sp_lm_runs``, data axis D),
+    into ``out_dir/sp_lm``."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -1854,6 +1891,10 @@ def rank_child(out_dir, args):
     if args[:1] == ["--poison-batch"]:
         poisoned = int(args[1])
         poison_batch(poisoned, rank=0)
+        args = args[2:]
+    sp_lm = None
+    if args[:1] == ["--then-sp-lm"]:
+        sp_lm = int(args[1])
         args = args[2:]
     gathers = [0]
     issue = collectives.BlockGather._issue
@@ -1914,17 +1955,20 @@ def rank_child(out_dir, args):
                 json.dump(metrics, f)
             torch.save({k: v.cpu() for k, v in trainer.model_state().items()},
                        os.path.join(out, f"rank{rank}.pt"))
+        if sp_lm is not None:
+            sp_lm_runs(os.path.join(out_dir, "sp_lm"), sp_lm)
     finally:
         runtime.shutdown()
 
 
-def launch_dp_runs(tmp, runs, nproc, phase="12", deterministic=False, poison=None):
+def launch_dp_runs(tmp, runs, nproc, phase="12", deterministic=False, poison=None,
+                   extra=()):
     """The ``(name, args)`` runs through the launcher on ``nproc`` ranks, one
     after another in one job (``rank_child``: one process start and one
     process group for all of them), under deterministic cuDNN, and with rank
     0's ``poison``-th batch all NaN (``poison_batch``) when asked. Returns
     ``{name: (every rank's metrics, whether the ranks' weights are bitwise
-    equal)}``."""
+    equal)}``. ``extra``: more of ``rank_child``'s options."""
     import torch
 
     from tpu_ddp_torch.cli.launch import run_job
@@ -1940,7 +1984,8 @@ def launch_dp_runs(tmp, runs, nproc, phase="12", deterministic=False, poison=Non
         argv += ["--run", name, *args]
     rc = run_job([sys.executable, os.path.abspath(__file__), "--rank-child", tmp,
                   *(["--deterministic"] if deterministic else []),
-                  *(["--poison-batch", str(poison)] if poison is not None else []), *argv],
+                  *(["--poison-batch", str(poison)] if poison is not None else []), *extra,
+                  *argv],
                  nproc_per_node=nproc)
     if rc:
         fail(f"the {nproc}-rank job exited with {rc}")
@@ -4970,6 +5015,474 @@ def phase_zero3_two(tmp, n=ZERO1_RANKS):
         fail("24d: skip_step under --zero3 did not leave the state bitwise")
 
 
+#: phase 25: sequence parallelism. (a) the ring at 2 and 4 gloo ranks sharing
+#: the card: global (B, T, H, D) shapes cut into n chunks of T, cases (shape,
+#: dtype, causal, key mask); (b) ViT-S/4 through the CLI at data=1,
+#: sequence=2, batch 32, SP_VIT_STEPS steps an epoch for two epochs, and
+#: SP_VIT_HEALTH_STEPS under --health warn; (c) in the same job, LM-32k
+#: through make_sp_lm_train_step, SP_LM_STEPS steps in float32 and in
+#: bfloat16, the ring timed alone first
+SP_RINGS = (2, 4)
+SP_SHAPES = {"vit_s4": (32, 64, 3, 64), "lm_32k": (LM_BATCH, LM_SEQ, LM_32K["num_heads"], 64)}
+SP_CASES = [("vit_s4", "float32", False, False), ("vit_s4", "float32", True, False),
+            ("vit_s4", "float32", False, True), ("vit_s4", "bfloat16", False, False),
+            ("lm_32k", "float32", True, False), ("lm_32k", "bfloat16", True, False)]
+SP_BF16_UNITS = 2                 # bf16 units of a row's largest value
+SP_RING_ITERS = 5                 # timed forward + backward passes of the ring
+SP_VIT_STEPS, SP_VIT_HEALTH_STEPS = 20, 10
+SP_LM_STEPS, SP_LM_STEADY_FROM = 6, 3
+SP_LM_BF16_RTOL = 5e-3
+
+
+def sp_case_label(case):
+    shape, dtype, causal, masked = case
+    return (f"{shape} {dtype}" + (" causal" if causal else "")
+            + (" kv_mask" if masked else ""))
+
+
+def bf16_row_units(got, want, scale=None, floor=2.0 ** -12):
+    """The largest distance of ``got`` from ``want`` in bfloat16 units of
+    each row's scale (the last axis): the row's largest ``|want|``, or
+    ``scale`` (one value a row) where given; a row's scale at least
+    ``floor`` of the tensor's largest (phase 20a's check)."""
+    import torch
+
+    diff = (got.float() - want.float()).abs()
+    top = want.float().abs().amax(-1, keepdim=True) if scale is None else scale[..., None]
+    top = top.clamp(min=float(top.max()) * floor)
+    unit = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    return float(torch.where(diff == 0, 0.0, diff / unit).max())
+
+
+def tile_close(got, want, grad):
+    """(ok, measure) of one K4-K6 output against its plain version: within
+    2 bf16 units of each row's largest value, or phase 7's float32
+    tolerances (``grad``: the gradients')."""
+    import torch
+
+    if got.dtype == torch.bfloat16:
+        units = bf16_row_units(got, want)
+        return units <= SP_BF16_UNITS, units
+    tol = GRAD_TOL if grad else FWD_TOL
+    err = (got.float() - want.float()).abs()
+    return bool((err <= tol["atol"] + tol["rtol"] * want.float().abs()).all()), float(err.max())
+
+
+def checked_tiles(fa, records):
+    """Wrap the K4-K6 wrappers the flash ring calls: each call's outputs
+    against their plain versions on the same inputs (``tile_close``; lse
+    ``atol=2e-5``), appended to ``records[kind]`` with each output row's
+    largest ``|value|``. Returns the function that unwraps them."""
+    orig = fa.flash_forward, fa.flash_dq, fa.flash_dkv
+
+    def rowmax(t):
+        return t.detach().float().abs().amax(-1)
+
+    def fwd(q, k, v, kv_mask=None, causal=False):
+        out, lse = orig[0](q, k, v, kv_mask, causal)
+        want_out, want_lse = fa.forward_plain(q, k, v, kv_mask, causal)
+        ok, m = tile_close(out, want_out, False)
+        lse_err = float((lse - want_lse).abs().max())
+        records["fwd"].append((ok and lse_err <= 2e-5, m, lse_err, rowmax(out)))
+        return out, lse
+
+    def dq(q, k, v, do, lse, di, kv_mask=None, causal=False):
+        got = orig[1](q, k, v, do, lse, di, kv_mask, causal)
+        ok, m = tile_close(got, fa.dq_plain(q, k, v, do, lse, di, kv_mask, causal), True)
+        records["dq"].append((ok, m, rowmax(got)))
+        return got
+
+    def dkv(q, k, v, do, lse, di, kv_mask=None, causal=False):
+        dk, dv = orig[2](q, k, v, do, lse, di, kv_mask, causal)
+        want_dk, want_dv = fa.dkv_plain(q, k, v, do, lse, di, kv_mask, causal)
+        (ok_k, mk), (ok_v, mv) = tile_close(dk, want_dk, True), tile_close(dv, want_dv, True)
+        records["dkv"].append((ok_k and ok_v, max(mk, mv), rowmax(dk), rowmax(dv)))
+        return dk, dv
+
+    fa.flash_forward, fa.flash_dq, fa.flash_dkv = fwd, dq, dkv
+
+    def restore():
+        fa.flash_forward, fa.flash_dq, fa.flash_dkv = orig
+    return restore
+
+
+def sp_ring_child(out_dir):
+    """Phase 25 (a) on one rank, started by the launcher over gloo (the
+    ranks share ``cuda:0``), for each ring size n of ``SP_RINGS`` on the
+    grid ``data = world / n, sequence = n`` (two rings of 2, then one of 4,
+    at four ranks): every case of ``SP_CASES`` on this rank's
+    chunk, through ``ring_flash_attention`` (K4-K6 a hop; its launches
+    counted alone; each tile's outputs held to their plain versions on the
+    same inputs, ``checked_tiles``), through the same ring with the plain
+    tiles, and against one-rank ``flash_attention`` on the whole sequence
+    (this rank's rows of it); out, lse, dq, dk and dv compared. Writes
+    ``rank<r>.json``.
+
+    The ring's float32 results are held to phase 7's tolerances. In
+    bfloat16 each tile's output is rounded to bfloat16 before the ring sums
+    it in float32 (as the JAX ring does), so the ring's error is the sum of
+    its tiles' (each within 2 units of its own rows' largest value) and the
+    final rounding: a row is held within ``2 m + 1`` units of its scale (m
+    tiles summed into it; the row's largest value among its tiles' and the
+    result's), ``2 m + 3`` against one-rank flash (whose own kernel adds 2),
+    and the units against the result's own largest value are reported
+    beside them."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from tpu_ddp_torch import ops
+    from tpu_ddp_torch.ops import flash_attention as fa
+    from tpu_ddp_torch.parallel import runtime
+    from tpu_ddp_torch.parallel.mesh import create_mesh
+    from tpu_ddp_torch.parallel.ring_attention import (
+        ring_attention,
+        ring_flash_attention,
+        ring_forward,
+    )
+
+    runtime.initialize_distributed("cuda", "gloo")
+    try:
+        world = runtime.world_size()
+        # every rank builds every layout's groups, in the same order
+        meshes = [create_mesh({"data": world // n, "sequence": n}) for n in SP_RINGS]
+        out = {}
+        for mesh in meshes:
+            n, s, group = mesh.sequence_size, mesh.sequence_index, mesh.sequence_group()
+            res_n = out[str(n)] = {"cases": {}}
+            for case in SP_CASES:
+                shape, dtype_name, causal, masked = case
+                dtype = getattr(torch, dtype_name)
+                B, T, H, D = SP_SHAPES[shape]
+                rows = slice(s * T // n, (s + 1) * T // n)
+                gen = torch.Generator(device="cuda").manual_seed(T + D + len(res_n["cases"]))
+                full = [torch.randn((B, T, H, D), generator=gen, device="cuda").to(dtype)
+                        for _ in range(4)]
+                km_full = None
+                if masked:
+                    km_full = (torch.rand((B, T), generator=gen, device="cuda") > 0.3).float()
+                    km_full[0] = 0.0                                 # a dead batch row
+                q, k, v, g = (t[:, rows] for t in full)
+                km = None if km_full is None else km_full[:, rows].contiguous()
+                res, records = {}, {"fwd": [], "dq": [], "dkv": []}
+                for tile, ring in (("flash", ring_flash_attention), ("plain", ring_attention),
+                                   ("one_rank", None)):
+                    a, b, c = (t.clone().requires_grad_() for t in (full[:3] if ring is None
+                                                                    else (q, k, v)))
+                    torch.cuda.synchronize()
+                    ops.reset_launch_counts()
+                    if ring is None:
+                        o = fa.flash_attention(a, b, c, causal=causal, kv_mask=km_full)
+                        o.backward(full[3])
+                        lse = fa.flash_forward(*(t.detach() for t in (a, b, c)), km_full,
+                                               causal)[1][:, :, rows]
+                        grads = [t.grad[:, rows] for t in (a, b, c)]
+                        o = o[:, rows]
+                    else:
+                        restore = checked_tiles(fa, records) if tile == "flash" else None
+                        try:
+                            o = ring(a, b, c, group=group, causal=causal, kv_mask=km)
+                            o.backward(g)
+                            torch.cuda.synchronize()
+                        finally:
+                            if restore is not None:
+                                restore()
+                        res[tile + "_launches"] = ops.launch_counts()
+                        lse = ring_forward(q, k, v, km, group, causal, tile == "flash")[1]
+                        grads = [t.grad for t in (a, b, c)]
+                    res[tile] = [o.detach(), lse] + grads
+                errs = {"tiles": {kind: [max((r[1] for r in recs), default=0.0),
+                                         all(r[0] for r in recs)]
+                                  for kind, recs in records.items()}}
+                failed = [f"{kind} tile" for kind, (_, ok) in errs["tiles"].items() if not ok]
+                # each row's scale: its largest value among the tiles summed into it
+                # (dk and dv: the tiles of every rank whose queries saw this chunk)
+                held = [((s - i) % n, r[2].cpu(), r[3].cpu()) for i, r in enumerate(records["dkv"])]
+                every = [None] * n
+                dist.all_gather_object(every, held, group=group)
+                mine = [x for rank_held in every for x in rank_held if x[0] == s]
+                scales = {"out": torch.stack([r[3] for r in records["fwd"]]).amax(0),
+                          "dq": torch.stack([r[2] for r in records["dq"]]).amax(0),
+                          "dk": torch.stack([x[1] for x in mine]).amax(0).cuda(),
+                          "dv": torch.stack([x[2] for x in mine]).amax(0).cuda()}
+                terms = {"out": len(records["fwd"]), "dq": len(records["dq"]),
+                         "dk": len(mine), "dv": len(mine)}
+                for other in ("plain", "one_rank"):
+                    for i, name in enumerate(("out", "lse", "dq", "dk", "dv")):
+                        got, want = res["flash"][i], res[other][i]
+                        key = f"{name} vs {other}"
+                        err = float((got.float() - want.float()).abs().max())
+                        errs[key] = err
+                        if name == "lse":
+                            ok = err <= 2e-5
+                        elif dtype == torch.bfloat16:
+                            scale = torch.maximum(scales[name], want.float().abs().amax(-1))
+                            units = bf16_row_units(got, want, scale)
+                            bound = 2 * terms[name] + (1 if other == "plain" else 3)
+                            errs[key + " bf16 units"] = [units, bound,
+                                                         bf16_row_units(got, want)]
+                            ok = units <= bound
+                        else:
+                            tol = FWD_TOL if name == "out" else GRAD_TOL
+                            ok = bool(((got - want).abs()
+                                       <= tol["atol"] + tol["rtol"] * want.abs()).all())
+                        if not ok:
+                            failed.append(key)
+                errs["failed"] = failed
+                suffix = "_bf16" if dtype == torch.bfloat16 else ""
+                tiles = s + 1 if causal else n
+                want = {name: 0 for name in res["flash_launches"]}
+                for kind in ("fwd", "dq", "dkv"):
+                    want[f"flash_attention_{kind}{suffix}"] = tiles
+                res_n["cases"][sp_case_label(case)] = {
+                    "launches": res["flash_launches"], "want_launches": want,
+                    "plain_launches": res["plain_launches"], "errors": errs}
+                del full, q, k, v, g, res, records, scales
+                torch.cuda.empty_cache()
+        with open(os.path.join(out_dir, f"rank{runtime.rank()}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        runtime.shutdown()
+
+
+def phase_sp_ring(tmp, smi):
+    """Phase 25 (a): ``sp_ring_child`` on ``max(SP_RINGS)`` ranks sharing
+    the card: its rings of each size in turn, in one job."""
+    from tpu_ddp_torch.cli.launch import run_job
+
+    world = max(SP_RINGS)
+    out = os.path.join(tmp, "sp_ring")
+    os.makedirs(out)
+    rc = run_job([sys.executable, os.path.abspath(__file__), "--sp-ring-child", out],
+                 nproc_per_node=world)
+    if rc:
+        fail(f"phase 25a: the {world}-rank ring job exited with {rc}")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    failed = []
+    for n in SP_RINGS:
+        for r, res in enumerate(ranks):
+            res = res[str(n)]
+            for label, c in res["cases"].items():
+                errs = c["errors"]
+                if c["launches"] != c["want_launches"]:
+                    failed.append(f"n={n} rank {r} {label}: launches {c['launches']}, "
+                                  f"expected {c['want_launches']}")
+                if any(c["plain_launches"].values()):
+                    failed.append(f"n={n} rank {r} {label}: the plain ring launched "
+                                  f"{c['plain_launches']}")
+                if errs.get("failed"):
+                    failed.append(f"n={n} rank {r} {label}: {errs['failed']}")
+                if r >= n:              # the other rings of n repeat the first's cases
+                    continue
+                launched = {k: v for k, v in c["launches"].items() if v}
+                tiles = ", ".join(f"{k} {m:.3g}" for k, (m, _) in errs["tiles"].items())
+                ends = ", ".join(
+                    f"{k} {v:.3g}" if isinstance(v, float) else
+                    f"{k} {v[0]:.3g} (bound {v[1]}; {v[2]:.3g} of the result's own largest)"
+                    for k, v in errs.items() if k not in ("tiles", "failed"))
+                print(f"phase 25a: ring of {n} over gloo on one card ({smi}), rank {r}, "
+                      f"{label}: flash ring launches {launched}; each tile against its "
+                      f"plain version, largest {tiles}; the ring: {ends}", flush=True)
+    if failed:
+        fail("phase 25a: " + "; ".join(failed))
+
+
+def sp_vit_args(nproc, backend, data, *extra, steps=SP_VIT_STEPS, epochs=2):
+    seq = nproc // data
+    return ["--device", "cuda", "--dist-backend", backend, "--synthetic-data",
+            "--synthetic-size", str(data * 32 * steps), "--epochs", str(epochs),
+            "--model", "vit_s4", "--parallelism", "sp", "--mesh",
+            f"data={data},sequence={seq}", "--sp-flash", "--kernels", "--optimizer",
+            "adamw", "--lr", "1e-3", "--batch-size", "32", "--log-every-epochs", "1",
+            *extra]
+
+
+def sp_vit_one_rank():
+    """Phase 25b's baseline: the one-rank ``--attention flash`` run in this
+    process on the SP run's first epoch (the same data, order and init);
+    its metrics with its peak memory above what the process held."""
+    import torch
+
+    from tpu_ddp_torch.cli import train as cli
+
+    args = ["--device", "cuda", "--synthetic-data", "--synthetic-size",
+            str(32 * SP_VIT_STEPS), "--epochs", "1", "--model", "vit_s4", "--attention",
+            "flash", "--kernels", "--optimizer", "adamw", "--lr", "1e-3", "--batch-size",
+            "32", "--log-every-epochs", "1"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    metrics = cli.main(args)
+    torch.cuda.synchronize()
+    metrics["peak_memory"] = torch.cuda.max_memory_allocated() - held
+    return metrics
+
+
+def sp_lm_runs(out_dir, data):
+    """Phase 25 (c) on one rank, in ``rank_child``'s process group: LM-32k
+    through ``make_sp_lm_train_step`` with ``sp_flash`` on this rank's rows
+    and chunk of phase 18a's batches, AdamW lr 1e-3 through K1, float32 then
+    bfloat16: the flash ring's forward + backward at a layer's shape timed
+    first, then ``SP_LM_STEPS`` steps with the launch counts zeroed just
+    before; writes the losses, counts, ms a step, tokens/sec and peak memory
+    of this rank, and a digest of its params."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from tpu_ddp_torch import ops
+    from tpu_ddp_torch.models import CausalTransformerLM
+    from tpu_ddp_torch.parallel import runtime
+    from tpu_ddp_torch.parallel.mesh import create_mesh
+    from tpu_ddp_torch.parallel.ring_attention import ring_flash_attention
+    from tpu_ddp_torch.train import create_lm_train_state, make_sp_lm_train_step
+    from tpu_ddp_torch.train.optim import make_optimizer
+
+    device = runtime.rank_device("cuda", dist.get_backend())
+    mesh = create_mesh({"data": data, "sequence": runtime.world_size() // data})
+    n, s, d = mesh.sequence_size, mesh.sequence_index, mesh.data_index
+    rows = slice(d * LM_BATCH // data, (d + 1) * LM_BATCH // data)
+    cols = slice(s * LM_SEQ // n, (s + 1) * LM_SEQ // n)
+    tokens = torch.from_numpy(lm_tokens(LM_STEPS, LM_BATCH, LM_SEQ, LM_32K["vocab_size"])
+                              [:SP_LM_STEPS, rows, cols].copy()).to(device)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        B, T = tokens.shape[1:]
+        H, D = LM_32K["num_heads"], LM_32K["hidden_dim"] // LM_32K["num_heads"]
+        gen = torch.Generator(device=device).manual_seed(1)
+        q, k, v, g = (torch.randn((B, T, H, D), generator=gen, device=device).to(dtype)
+                      for _ in range(4))
+        for t in (q, k, v):
+            t.requires_grad_()
+        ring_ms = []
+        for i in range(SP_RING_ITERS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ring_flash_attention(q, k, v, group=mesh.sequence_group(),
+                                 causal=True).backward(g)
+            torch.cuda.synchronize()
+            ring_ms.append((time.perf_counter() - t0) * 1e3)
+        del q, k, v, g
+        model = CausalTransformerLM(**LM_32K, seq_len=LM_SEQ,
+                                    generator=torch.Generator().manual_seed(0), dtype=dtype)
+        tx = make_optimizer(lr=1e-3, optimizer="adamw", kernels=True)
+        state = create_lm_train_state(model, tx, device)
+        step = make_sp_lm_train_step(tx, mesh, sp_flash=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        losses = []
+        for i in range(SP_LM_STEPS):
+            if i == SP_LM_STEADY_FROM:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state, metrics = step(state, {"tokens": tokens[i]})
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / (SP_LM_STEPS - SP_LM_STEADY_FROM)
+        digest = hashlib.sha256()
+        for name, p in sorted(state.model.state_dict().items()):
+            digest.update(p.detach().cpu().numpy().tobytes())
+        out[str(dtype).split(".")[-1]] = {
+            "losses": [float(x) for x in losses], "launches": ops.launch_counts(),
+            "step_ms": step_s * 1e3, "tokens_per_sec": B * T / step_s,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "ring_ms": sorted(ring_ms[1:])[SP_RING_ITERS // 2],
+            "digest": digest.hexdigest()}
+        del model, state, step
+        torch.cuda.empty_cache()
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"rank{runtime.rank()}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_sp_train(tmp, smi, one_rank=None, nproc=2, backend="gloo", data=1):
+    """Phase 25 (b) and (c) in one launcher job on ``nproc`` ranks
+    (``rank_child --then-sp-lm``): ViT-S/4 ``--parallelism sp --sp-flash
+    --kernels`` through the CLI, a short run under ``--health warn``, then
+    the LM-32k steps. ``one_rank``: ``{"vit": sp_vit_one_rank()'s metrics,
+    "float32": phase 18a's run, "bfloat16": phase 20d's}``, or None."""
+    seq = nproc // data
+    runs = launch_dp_runs(tmp, [
+        ("sp_vit", sp_vit_args(nproc, backend, data)),
+        ("sp_vit_health", sp_vit_args(nproc, backend, data, "--health", "on",
+                                      "--health-policy", "warn",
+                                      steps=SP_VIT_HEALTH_STEPS, epochs=1))],
+        nproc, phase="25b", extra=["--then-sp-lm", str(data)])
+    for name, (metrics, same) in runs.items():
+        steps = metrics[0]["steps"]
+        want = {k: 0 for k in metrics[0]["launches"]}
+        want["fused_update"] = steps
+        for kind in ("fwd", "dq", "dkv"):
+            want[f"flash_attention_{kind}"] = VIT_DEPTH * seq * steps
+        losses = metrics[0]["step_losses"]
+        print(f"phase 25b {name} ({smi}): {steps} steps on {nproc} ranks over {backend} "
+              f"(data={data}, sequence={seq}); launches on rank 0 {metrics[0]['launches']}; "
+              f"replicas bitwise {same}; steady step ms a rank "
+              + " / ".join(f"{m['steady_step_ms']:.3f}" for m in metrics)
+              + "; peak memory a rank " + " / ".join(str(m["peak_memory"]) for m in metrics)
+              + f" B; final test accuracy {metrics[0].get('test_accuracy')}", flush=True)
+        for r, m in enumerate(metrics):
+            if m["launches"] != want:
+                fail(f"25b {name} rank {r}: launches {m['launches']}, expected {want}")
+        if not same or not all(math.isfinite(x) for x in losses):
+            fail(f"25b {name}: replicas differ or a loss is not finite")
+    losses = runs["sp_vit"][0][0]["step_losses"]
+    if not sum(losses[-10:]) < sum(losses[:10]):
+        fail("25b: the SP ViT losses did not fall")
+    if one_rank is not None:
+        base = one_rank["vit"]
+        rel = rel_diffs(losses, base["step_losses"])
+        peak = runs["sp_vit"][0][0]["peak_memory"]
+        print(f"  against the one-rank --attention flash run, relative loss difference "
+              f"per step: {' '.join(f'{x:.2g}' for x in rel)} (limit {FULL_STEPS_RTOL}); "
+              f"peak memory a rank {peak} B against one rank's {base['peak_memory']} B "
+              f"({peak / base['peak_memory']:.3f}x)", flush=True)
+        if not max(rel) <= FULL_STEPS_RTOL:
+            fail("25b: the SP ViT losses leave the one-rank run's")
+    ranks = []
+    for r in range(nproc):
+        with open(os.path.join(tmp, "sp_lm", f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    print(f"phase 25c: LM-32k make_sp_lm_train_step(sp_flash=True) on {nproc} ranks over "
+          f"{backend} (data={data}, sequence={seq}), {SP_LM_STEPS} steps a dtype", flush=True)
+    for dtype, rtol in (("float32", FULL_STEPS_RTOL), ("bfloat16", SP_LM_BF16_RTOL)):
+        suffix = "_bf16" if dtype == "bfloat16" else ""
+        for r, res in enumerate(ranks):
+            run = res[dtype]
+            want = {k: 0 for k in run["launches"]}
+            want["fused_update"] = SP_LM_STEPS
+            for kind in ("fwd", "dq", "dkv"):
+                want[f"flash_attention_{kind}{suffix}"] = (
+                    LM_32K["depth"] * (r % seq + 1) * SP_LM_STEPS)
+            print(f"  {dtype} rank {r} ({smi}): launches {run['launches']}; "
+                  f"{run['step_ms']:.3f} ms a step (steps {SP_LM_STEADY_FROM}-"
+                  f"{SP_LM_STEPS}, host clock), {run['tokens_per_sec']:.1f} tokens/sec a "
+                  f"rank, max_memory_allocated {run['max_memory_allocated']} B; the flash "
+                  f"ring's forward + backward at a layer {run['ring_ms']:.3f} ms", flush=True)
+            if run["launches"] != want:
+                fail(f"25c {dtype} rank {r}: launches {run['launches']}, expected {want}")
+        losses = ranks[0][dtype]["losses"]
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"25c {dtype}: a loss is not finite")
+        if len({res[dtype]["digest"] for res in ranks}) != 1:
+            fail(f"25c {dtype}: the ranks end with different params")
+        if one_rank is not None:
+            base = one_rank[dtype]
+            rel = rel_diffs(losses, base["losses"])
+            print(f"  {dtype} against the one-rank run: relative loss difference per step "
+                  f"{' '.join(f'{x:.2g}' for x in rel)} (limit {rtol}); one rank "
+                  f"{base['steady_step_ms']:.3f} ms a step, {base['tokens_per_sec']:.1f} "
+                  f"tokens/sec, max_memory_allocated {base['max_memory_allocated']} B",
+                  flush=True)
+            if not max(rel) <= rtol:
+                fail(f"25c {dtype}: the SP LM losses leave the one-rank run's")
+
+
 def nccl_main(nproc):
     """``python3 chip_smoke.py --nccl N`` on a machine with N cards: phase
     10 with NetResDeep's chunks at N ranks, then phases 12, 14, 24 (a)-(c),
@@ -4986,7 +5499,8 @@ def nccl_main(nproc):
     sys.path.insert(0, ROOT)
     from tpu_ddp_torch.ops import _build
 
-    print(nvidia_smi(), flush=True)
+    smi = nvidia_smi()
+    print(smi, flush=True)
     _build.build()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
@@ -5000,6 +5514,7 @@ def nccl_main(nproc):
         phase_finetune_ranks(tmp, nproc, "nccl")
         phase_health_ranks(tmp, nproc, "nccl")
         phase_scan_ranks(tmp, nproc, "nccl")
+        phase_sp_train(tmp, smi, None, nproc, "nccl", data=nproc // 2)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"chip_smoke --nccl {nproc}: ok", flush=True)
@@ -5012,6 +5527,8 @@ def main():
         return sync_bn_child(sys.argv[2], sys.argv[3:])
     if sys.argv[1:2] == ["--lm-rank-child"]:
         return lm_rank_child(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--sp-ring-child"]:
+        return sp_ring_child(sys.argv[2])
     if sys.argv[1:2] == ["--nccl"]:
         return nccl_main(int(sys.argv[2]))
     import shutil
@@ -5150,6 +5667,16 @@ def main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 24 took {time.perf_counter() - t24:.1f} s", flush=True)
+    t25 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
+    try:
+        phase_sp_ring(tmp, smi)
+        stamp("phase 25a")
+        phase_sp_train(tmp, smi, {"vit": sp_vit_one_rank(), "float32": lm_runs["flash"],
+                                  "bfloat16": bf16_lm["bf16"]})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 25 took {time.perf_counter() - t25:.1f} s", flush=True)
     print_accounting()
     rows += phase_lm_timing(results, flash_results, lm_runs["flash"]["launches"])
     stamp("phase 18d")

@@ -3,7 +3,11 @@ same names, defaults, choices and ``nargs``; each reaches the config; and
 ``--global-batch-size`` gives the JAX ``config_from_args``'s per-shard batch
 at one, two and four data shards (``--n-devices``, or the launcher's
 ``WORLD_SIZE`` in the port), refusing a non-divisible value with the same
-message."""
+message. Sequence parallelism adds ``--parallelism``, ``--mesh`` and
+``--sp-flash``: the same checks, ``--global-batch-size`` divided by the
+mesh's data axis as the JAX CLI divides it, and the rank grid's
+``parallel/mesh.py::resolve`` against ``MeshSpec.resolve`` (the sizes, or
+the same error)."""
 
 import pytest
 
@@ -13,7 +17,7 @@ from tpu_ddp_torch.cli.train import build_parser, config_from_args
 
 NEW = ("--optimizer", "--sync-bn", "--faithful-epoch-order", "--global-batch-size",
        "--n-devices", "--log-every-steps", "--cv-mode", "--prefetch-depth",
-       "--prefetch-batches", "--download")
+       "--prefetch-batches", "--download", "--parallelism", "--mesh", "--sp-flash")
 
 
 def _action(parser, flag):
@@ -61,3 +65,54 @@ def test_global_batch_size_refuses_a_remainder_with_the_jax_message():
     with pytest.raises(ValueError) as port_err:
         config_from_args(build_parser().parse_args(argv))
     assert str(port_err.value) == str(jax_err.value) == "global batch 30 not divisible by 4 data shards"
+
+
+def test_sp_flags_reach_the_config():
+    argv = ["--device", "cpu", "--parallelism", "sp", "--mesh", "data=2,sequence=2",
+            "--sp-flash"]
+    got = config_from_args(build_parser().parse_args(argv))
+    want = jax_config_from_args(jax_build_parser().parse_args(argv))
+    assert (got.parallelism, got.mesh, got.sp_flash) == (want.parallelism, want.mesh,
+                                                         want.sp_flash) == (
+        "sp", {"data": 2, "sequence": 2}, True)
+    d = config_from_args(build_parser().parse_args([]))
+    assert (d.parallelism, d.mesh, d.sp_flash) == (None, None, False)
+
+
+@pytest.mark.parametrize("mesh", [["--mesh", "data=-1,sequence=2"], ["--mesh", "sequence=4"],
+                                  ["--parallelism", "sp"], ["--mesh", "data=2,sequence=2"]],
+                         ids=lambda m: " ".join(m))
+def test_global_batch_size_under_a_mesh_as_jax(mesh):
+    argv = ["--device", "cpu", "--global-batch-size", "64", "--n-devices", "4", *mesh]
+    want = jax_config_from_args(jax_build_parser().parse_args(argv)).per_shard_batch
+    assert config_from_args(build_parser().parse_args(argv)).per_shard_batch == want
+
+
+@pytest.mark.parametrize("text,n", [
+    ("data=2,sequence=2", 4), ("sequence=2", 8), ("data=-1,sequence=4", 8),
+    ("data=1,sequence=2", 2), ("data=4", 4), ("data=3", 8), ("data=2,sequence=2", 8),
+    ("data=-1,sequence=-1", 8), ("sequence=3", 8)])
+def test_mesh_resolve_as_jax(text, n):
+    from tpu_ddp.parallel.mesh import MeshSpec
+    from tpu_ddp.train.strategy import parse_mesh_arg as jax_parse_mesh_arg
+    from tpu_ddp_torch.parallel.mesh import resolve
+    from tpu_ddp_torch.train.strategy import parse_mesh_arg
+
+    sizes = parse_mesh_arg(text)
+    assert sizes == jax_parse_mesh_arg(text)
+    try:
+        want = MeshSpec(**sizes).resolve(n)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            resolve(sizes, n)
+        assert str(got.value) == str(e)
+        return
+    assert resolve(sizes, n) == {k: want[k] for k in ("data", "sequence")}
+    assert all(v == 1 for k, v in want.items() if k not in ("data", "sequence"))
+
+
+def test_mesh_unported_axis_raises():
+    from tpu_ddp_torch.parallel.mesh import resolve
+
+    with pytest.raises(ValueError, match="ROADMAP.md §1 item 2"):
+        resolve({"data": 2, "model": 2}, 4)

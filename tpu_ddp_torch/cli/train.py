@@ -3,9 +3,12 @@
 Counterpart of ``tpu_ddp/cli/train.py`` (``build_parser``, ``main`` :609,
 ``_run_and_report`` :635, ``run_cv`` :546) for this slice's flags, with the
 JAX CLI's names, defaults and help. ``--global-batch-size`` is divided by the
-data world, which in the port is the launched world size (the port has only
-the data axis; the JAX :426-450 divides by the mesh's data axis), or
-``--n-devices`` where given. ``--cv-mode K`` runs k-fold cross-validation
+mesh's data axis (the JAX :426-450), of the launched world size or
+``--n-devices`` where given. ``--parallelism``, ``--mesh`` and
+``--sp-flash`` (the JAX :64, :123, :158) route the run to a family
+(``train/strategy.py``): dp, and sp, sequence parallelism with ring
+attention over the ``sequence`` axis; the other five choices raise, not
+ported yet. ``--cv-mode K`` runs k-fold cross-validation
 over the train split instead of one run. After the final evaluation ``--dump-predictions`` and
 ``--viz-predictions`` run the test set's batch inference (:670-737). It
 trains on the GPU unless ``--device cpu`` is given, and refuses to start
@@ -22,6 +25,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 
 import numpy as np
@@ -35,6 +39,7 @@ from tpu_ddp_torch.parallel.runtime import (
     shutdown,
 )
 from tpu_ddp_torch.runtime import DEVICES
+from tpu_ddp_torch.train.strategy import default_mesh_sizes, infer_parallelism, parse_mesh_arg
 from tpu_ddp_torch.train.trainer import COMPUTE_DTYPES, DATASETS, TrainConfig, Trainer
 
 
@@ -90,6 +95,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="1 == the main_no_ddp.py single-device baseline; "
                         "a rank owns one card, so N must equal the "
                         "launched world size")
+    p.add_argument("--parallelism",
+                   choices=["dp", "fsdp", "tp", "fsdp_tp", "pp", "sp", "ep"],
+                   default=None,
+                   help="scale-out strategy: dp (default), sp (sequence "
+                        "parallel + ring attention over the sequence axis); "
+                        "fsdp, tp, fsdp_tp, pp and ep are not ported yet. "
+                        "Default: inferred from --mesh, else dp")
+    p.add_argument("--mesh", default=None, metavar="AXES",
+                   help="rank grid axis sizes, e.g. data=2,sequence=2 "
+                        "(axes: data, pipeline, expert, sequence, model; "
+                        "-1 = rest; data and sequence are ported). Naming a "
+                        "non-data axis infers the matching --parallelism")
     p.add_argument("--kernels", action="store_true",
                    help="send the optimizer update through the fused CUDA "
                         "kernel (ops/csrc/fused_update.cu), one pass per "
@@ -161,6 +178,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="flash = the CUDA flash-attention kernels "
                         "(ops/csrc/flash_attention.cu, forward and backward), "
                         "ViT-family models")
+    p.add_argument("--sp-flash", action="store_true",
+                   help="sequence-parallel runs with flash-kernel "
+                        "ring-attention blocks (K4-K6 a ring hop; the "
+                        "long-context config)")
     p.add_argument("--compute-dtype", choices=list(COMPUTE_DTYPES),
                    default="float32",
                    help="bfloat16 runs the forward/backward in bf16 on the "
@@ -271,16 +292,24 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def data_world(n_devices=None) -> int:
-    """The data-parallel world the run will have: ``--n-devices`` where
-    given, else the launcher's ``WORLD_SIZE`` (1 without the launcher)."""
-    return n_devices or int(os.environ.get("WORLD_SIZE", "1"))
+def data_world(n_devices=None, mesh_sizes=None, parallelism=None) -> int:
+    """The data axis the run will have: of ``--n-devices`` ranks where
+    given, else of the launcher's ``WORLD_SIZE`` (1 without the launcher),
+    the mesh's data axis, including the default mesh a bare
+    ``--parallelism`` implies (the JAX :426-445)."""
+    total = n_devices or int(os.environ.get("WORLD_SIZE", "1"))
+    sizes = mesh_sizes or default_mesh_sizes(infer_parallelism(mesh_sizes, parallelism))
+    data = sizes.get("data", -1)
+    if data == -1:
+        data = total // math.prod(v for v in sizes.values() if v != -1)
+    return data
 
 
 def config_from_args(args) -> TrainConfig:
     per_shard = args.batch_size
+    mesh_sizes = None if args.mesh is None else parse_mesh_arg(args.mesh)
     if args.global_batch_size:
-        data = data_world(args.n_devices)
+        data = data_world(args.n_devices, mesh_sizes, args.parallelism)
         if args.global_batch_size % data:
             raise ValueError(f"global batch {args.global_batch_size} not divisible by "
                              f"{data} data shards")
@@ -311,6 +340,9 @@ def config_from_args(args) -> TrainConfig:
         grad_compress_block=args.grad_compress_block,
         grad_compress_error_feedback=args.grad_compress_error_feedback,
         dist_backend=args.dist_backend,
+        parallelism=args.parallelism,
+        mesh=mesh_sizes,
+        sp_flash=args.sp_flash,
         n_devices=args.n_devices,
         model=args.model,
         attention=args.attention,

@@ -15,8 +15,13 @@ draws it: an untruncated normal of std ``1/sqrt(hidden_dim)``.
 
 ``use_flash`` binds the attention of every block: the port's
 ``flash_attention(..., causal=True)`` (K4 forward, K5/K6 backward on CUDA
-tensors) or the plain causal attention, the numerics ground truth. Not
-ported: ``sp_axis``/``sp_flash`` (sequence parallelism) and
+tensors) or the plain causal attention, the numerics ground truth.
+``set_sequence_parallel(group, flash)`` is the JAX ``sp_axis``/``sp_flash``
+(:85-106), as on the ViT (``models/vit.py``): tokens ``(B, seq_len / n)``,
+this rank's chunk of the sequence on ``group``'s ring of n, ``pos_embed``
+sliced at the rank's place, and the causal ring attention
+(``parallel/ring_attention.py``), flash tiles under ``flash``;
+``greedy_generate`` takes the plain module only, as in JAX. Not ported:
 ``attention_interpret`` (the Pallas interpreter). Next-token training lives
 in ``tpu_ddp_torch/train/lm_steps.py``.
 
@@ -40,7 +45,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpu_ddp_torch.models.layers import LayerNorm
-from tpu_ddp_torch.models.vit import LN_EPS, TransformerBlock, _dense, run_blocks
+from tpu_ddp_torch.models.vit import (
+    LN_EPS,
+    TransformerBlock,
+    _dense,
+    run_blocks,
+    sequence_slice,
+    set_sequence_parallel,
+)
 from tpu_ddp_torch.ops import flash_attention as fa
 
 
@@ -80,6 +92,7 @@ class CausalTransformerLM(nn.Module):
             self.blocks.append(block)
         self.ln_f = LayerNorm(hidden_dim, LN_EPS, dtype)
         self.head = _dense(hidden_dim, vocab_size, generator, dtype)
+        self.sp_group, self.sp_flash = None, False
         self.use_flash = use_flash
 
     @property
@@ -94,13 +107,20 @@ class CausalTransformerLM(nn.Module):
         for block in self.blocks:
             block.attn.attention_impl = impl
 
+    def set_sequence_parallel(self, group=None, flash: bool = False) -> None:
+        """Run sequence-parallel over the ring of ``group`` (the causal ring
+        attention, flash tiles under ``flash``), or with ``group`` None as
+        the plain module again (module docstring)."""
+        set_sequence_parallel(self, group, flash, causal=True)
+
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        if tokens.dim() != 2 or tokens.shape[1] != self.seq_len:
+        if tokens.dim() != 2 or (self.sp_group is None and tokens.shape[1] != self.seq_len):
             raise ValueError(f"tokens must be (B, seq_len) = (B, {self.seq_len}), "
                              f"the length pos_embed was built for; got "
                              f"{tuple(tokens.shape)}")
         x = F.embedding(tokens, self.tok_embed.weight.to(self.dtype))
-        x = run_blocks(self.blocks, x + self.pos_embed.to(x.dtype), self.remat)
+        pos = sequence_slice(self, self.pos_embed, tokens.shape[1])
+        x = run_blocks(self.blocks, x + pos.to(x.dtype), self.remat)
         return self.head(self.ln_f(x)).float()
 
 
@@ -115,6 +135,9 @@ def greedy_generate(model: CausalTransformerLM, prompt: torch.Tensor,
     not-yet-written tail, so the argmax there fills position ``i`` exactly,
     with no KV cache. ``T0 + n_new`` must equal ``model.seq_len``."""
     B, T0 = prompt.shape
+    if model.sp_group is not None:
+        raise ValueError("greedy_generate takes the plain module: "
+                         "set_sequence_parallel(None) first")
     if T0 + n_new != model.seq_len:
         raise ValueError(f"T0 + n_new = {T0} + {n_new} must equal the model's "
                          f"seq_len {model.seq_len} (its position table's length)")

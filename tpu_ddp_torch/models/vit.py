@@ -19,7 +19,20 @@ padding here, because the image side divides by the patch.
 pluggable on ``(B, T, H, D)`` tensors: ``full_attention`` by default; the
 trainer sets
 ``tpu_ddp_torch.ops.flash_attention.flash_attention`` under ``--attention
-flash``. Not ported: ``sp_axis``/``sp_flash`` (sequence parallelism).
+flash``.
+
+Sequence parallelism (the JAX ``sp_axis``/``sp_flash``, :87-106, :133-153,
+:177-178): ``ViT.set_sequence_parallel(group, flash)`` makes the same
+module take this rank's stripe of image rows, ``H / n`` of them for the n
+ranks of ``group``'s ring, whose patches are contiguous tokens in the
+``(h, w)`` order; the global ``pos_embed`` is sliced at ``s * T_local``
+(s: the rank's place on the ring), every block's attention is the ring
+(``parallel/ring_attention.py``: flash tiles under ``flash``), and the
+mean-pool closes with the ring's mean (``collectives.group_mean``, whose
+backward is the same mean: ``parallel/sequence_parallel.py`` says why).
+The params and their names and shapes are the plain module's, so a
+checkpoint or ``from_jax`` serves both; ``set_sequence_parallel(None)``
+makes it the plain module again (the JAX ``clone(sp_axis=None)``).
 
 ``dtype`` is the compute dtype (``MultiHeadSelfAttention`` :49,
 ``TransformerBlock`` :68, ``ViT`` :114): float32 or bfloat16, at Flax's cast
@@ -32,6 +45,7 @@ kept; the params and their names are the same either way.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Optional
 
@@ -115,6 +129,42 @@ def run_blocks(blocks, x: torch.Tensor, remat: bool) -> torch.Tensor:
     return x
 
 
+def set_sequence_parallel(model: nn.Module, group, flash: bool, causal: bool) -> None:
+    """Bind the ring of ``group`` (flash tiles under ``flash``, ``causal``
+    as given) into every block of ``model`` (a ViT or the LM), keeping the
+    plain attention to bind back when ``group`` is None."""
+    if group is None:
+        if model.sp_group is not None:
+            for block, impl in zip(model.blocks, model._plain_attention):
+                block.attn.attention_impl = impl
+        model.sp_group, model.sp_flash = None, False
+        return
+    from tpu_ddp_torch.parallel.ring_attention import ring_attention, ring_flash_attention
+
+    if model.sp_group is None:
+        model._plain_attention = [block.attn.attention_impl for block in model.blocks]
+    model.sp_group, model.sp_flash = group, flash
+    ring = functools.partial(ring_flash_attention if flash else ring_attention,
+                             group=group, causal=causal)
+    for block in model.blocks:
+        block.attn.attention_impl = ring
+
+
+def sequence_slice(model: nn.Module, pos_embed: torch.Tensor, t_local: int) -> torch.Tensor:
+    """The rows of the global ``(1, T, C)`` ``pos_embed`` that this rank's
+    ``t_local`` tokens take: all of it on the plain module, rows
+    ``[s * t_local, (s + 1) * t_local)`` on the ring (module docstring)."""
+    if model.sp_group is None:
+        return pos_embed
+    from tpu_ddp_torch.parallel.ring_attention import ring_position
+
+    n, s = ring_position(model.sp_group)
+    if t_local * n != pos_embed.shape[1]:
+        raise ValueError(f"{t_local} tokens a rank on a ring of {n} is not the "
+                         f"{pos_embed.shape[1]} positions of pos_embed")
+    return pos_embed[:, s * t_local:(s + 1) * t_local]
+
+
 class ViT(nn.Module):
     """Patch embed -> + pos_embed -> ``depth`` pre-LN blocks -> LayerNorm
     -> token mean -> head. The input is NHWC ``(N, S, S, 3)`` with
@@ -132,6 +182,8 @@ class ViT(nn.Module):
             raise ValueError(f"image size {image_size} does not divide by "
                              f"patch {patch_size}")
         self.hidden_dim, self.dtype, self.remat = hidden_dim, dtype, remat
+        self.patch_size = patch_size
+        self.sp_group, self.sp_flash = None, False
         self.patch_embed = Conv2d(3, hidden_dim, patch_size, stride=patch_size,
                                   compute_dtype=dtype)
         lecun_normal_(self.patch_embed.weight, generator)
@@ -159,13 +211,26 @@ class ViT(nn.Module):
         for block in self.blocks:
             block.attn.attention_impl = fn
 
+    def set_sequence_parallel(self, group=None, flash: bool = False) -> None:
+        """Run sequence-parallel over the ring of ``group`` (ring attention
+        with the flash tiles under ``flash``), or with ``group`` None as the
+        plain module again (module docstring)."""
+        set_sequence_parallel(self, group, flash, causal=False)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B = x.shape[0]
+        if self.sp_group is not None and x.shape[1] % self.patch_size:
+            raise ValueError(f"a stripe of {x.shape[1]} image rows does not divide by "
+                             f"patch {self.patch_size}")
         x = self.patch_embed(x.permute(0, 3, 1, 2))        # (B, C, h, w)
         x = x.permute(0, 2, 3, 1).reshape(B, -1, self.hidden_dim)  # (h, w) order
-        x = x + self.pos_embed.to(x.dtype)
+        x = x + sequence_slice(self, self.pos_embed, x.shape[1]).to(x.dtype)
         x = run_blocks(self.blocks, x, self.remat)
         x = self.ln_f(x).mean(dim=1)
+        if self.sp_group is not None:
+            from tpu_ddp_torch.parallel.collectives import group_mean
+
+            x = group_mean(x, self.sp_group)
         return self.head(x).float()
 
 

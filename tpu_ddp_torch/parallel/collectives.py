@@ -44,8 +44,20 @@ all-gather a block of leaves, each block's shards in a chunk-major row of its
 own, issued asynchronously, with block k+1's gather issued before block k is
 first used, so at most two are in flight.
 
-Not ported yet: the telemetry hop hook (``_RING_HOP_HOOK``, ``_emit_hop``)
-and ``ring_shift`` (sequence parallelism).
+Sequence parallelism (``parallel/ring_attention.py``,
+``parallel/sequence_parallel.py``) runs over a group of the rank grid
+(``parallel/mesh.py``): ``exchange`` and ``exchange_async`` take a
+``group`` and name their peers by their rank in it. ``exchange_async``
+posts one ``batch_isend_irecv`` of several buffers and returns a handle
+whose ``wait`` hands back what arrived: under NCCL the transfer runs beside
+the compute stream, which waits for it only at ``wait``; under gloo the
+CUDA buffers are staged through pinned host memory before the post, which
+synchronises the stream, so nothing overlaps there. ``ring_shift`` (the JAX
+``ring_shift`` :152) moves a tensor one or more places around a ring.
+``group_sum`` and ``group_mean`` are the ring's ``psum`` and ``pmean`` with
+a backward that applies the same collective to the gradient.
+
+Not ported yet: the telemetry hop hook (``_RING_HOP_HOOK``, ``_emit_hop``).
 """
 
 from __future__ import annotations
@@ -70,22 +82,69 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
     return host
 
 
-def exchange(buf: torch.Tensor, dst: int, src: int) -> torch.Tensor:
+def group_ranks(group: Optional[dist.ProcessGroup] = None) -> List[int]:
+    """The global ranks of ``group`` (None: the default group) in group
+    order; ``[0]`` with no process group up."""
+    if not dist.is_initialized():
+        return [0]
+    return dist.get_process_group_ranks(group or dist.group.WORLD)
+
+
+class Exchange:
+    """An exchange in flight (``exchange_async``); ``wait`` returns the
+    buffers received, in the order they were sent."""
+
+    def __init__(self, reqs, outs, recvs):
+        self._reqs, self._outs, self._recvs = reqs, outs, recvs
+
+    def wait(self) -> List[torch.Tensor]:
+        for req in self._reqs:
+            req.wait()
+        for out, recv in zip(self._outs, self._recvs):
+            if recv is not out:
+                out.copy_(recv, non_blocking=True)
+        return self._outs
+
+
+def exchange_async(bufs: Sequence[torch.Tensor], dst: int, src: int,
+                   group: Optional[dist.ProcessGroup] = None) -> Exchange:
+    """Post the sends of ``bufs`` to ``dst`` and the receives of
+    same-shaped buffers from ``src`` (ranks in ``group``; None: the default
+    group) as one ``batch_isend_irecv``, the i-th buffer under tag i, and
+    return the handle (module docstring). The buffers must be contiguous."""
+    ranks = group_ranks(group)
+    outs = [torch.empty_like(b) for b in bufs]
+    sends, recvs = list(bufs), outs
+    if _staged(bufs[0]):
+        sends = [_to_host(b) for b in bufs]
+        recvs = [torch.empty(b.shape, dtype=b.dtype, pin_memory=True) for b in bufs]
+        torch.cuda.current_stream(bufs[0].device).synchronize()
+    ops = []
+    for tag, (send, recv) in enumerate(zip(sends, recvs)):
+        ops += [dist.P2POp(dist.isend, send, ranks[dst], group, tag),
+                dist.P2POp(dist.irecv, recv, ranks[src], group, tag)]
+    return Exchange(dist.batch_isend_irecv(ops), outs, recvs)
+
+
+def exchange(buf: torch.Tensor, dst: int, src: int,
+             group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
     """Send ``buf`` to rank ``dst`` and return the same-shaped buffer
-    received from ``src`` (one ``batch_isend_irecv``)."""
-    out = torch.empty_like(buf)
-    send, recv = buf, out
-    if _staged(buf):
-        send = _to_host(buf)
-        recv = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
-        torch.cuda.current_stream(buf.device).synchronize()
-    reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, send, dst),
-                                   dist.P2POp(dist.irecv, recv, src)])
-    for req in reqs:
-        req.wait()
-    if recv is not out:
-        out.copy_(recv, non_blocking=True)
-    return out
+    received from ``src`` (ranks in ``group``; one ``batch_isend_irecv``)."""
+    return exchange_async([buf], dst, src, group).wait()[0]
+
+
+def ring_shift(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None,
+               shift: int = 1) -> torch.Tensor:
+    """``x`` moved ``shift`` places around the ring of ``group``: the rank
+    at position i sends to ``(i + shift) % n`` and returns what it got from
+    ``(i - shift) % n`` (the JAX ``ring_shift``); ``x`` itself on a ring of
+    one. Outside autograd (the LM moves token ids with it)."""
+    ranks = group_ranks(group)
+    n = len(ranks)
+    if n == 1:
+        return x
+    i = ranks.index(dist.get_rank())
+    return exchange(x.contiguous(), (i + shift) % n, (i - shift) % n, group)
 
 
 def all_gather_bytes(buf: torch.Tensor) -> torch.Tensor:
@@ -103,17 +162,18 @@ def all_gather_bytes(buf: torch.Tensor) -> torch.Tensor:
     return out.view(n, buf.numel())
 
 
-def _all_reduce_flat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The SUM over the ranks of the concatenation of ``tensors``, with
-    ONE all-reduce."""
+def _all_reduce_flat(tensors: Sequence[torch.Tensor],
+                     group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """The SUM over the ranks of ``group`` (None: all) of the
+    concatenation of ``tensors``, with ONE all-reduce."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
     if _staged(flat):
         host = _to_host(flat)
         torch.cuda.current_stream(flat.device).synchronize()
-        dist.all_reduce(host, op=dist.ReduceOp.SUM)
+        dist.all_reduce(host, op=dist.ReduceOp.SUM, group=group)
         flat.copy_(host, non_blocking=True)
     else:
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
     return flat
 
 
@@ -305,6 +365,42 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
     flat = _all_reduce_flat(tensors)
     n = torch.full((), world_size(), dtype=flat.dtype, device=flat.device)
     _scatter_back(flat / n, tensors)
+
+
+class _GroupAllReduce(torch.autograd.Function):
+    """The sum (``mean``: the mean) over the ranks of ``group``, whose
+    backward is the same collective on the gradient (the JAX ``psum`` and
+    ``pmean`` of jax 0.4, whose transposes are themselves)."""
+
+    @staticmethod
+    def forward(ctx, x, group, mean):
+        ctx.group, ctx.mean = group, mean
+        return _group_reduce(x, group, mean)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _group_reduce(g, ctx.group, ctx.mean), None, None
+
+
+def _group_reduce(x: torch.Tensor, group, mean: bool) -> torch.Tensor:
+    n = len(group_ranks(group))
+    if n == 1:
+        return x.clone()
+    out = _all_reduce_flat([x], group).view(x.shape)
+    return out / torch.full((), n, dtype=out.dtype, device=out.device) if mean else out
+
+
+def group_sum(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """``x`` summed over the ranks of ``group``; the backward sums the
+    gradient over them too."""
+    return _GroupAllReduce.apply(x, group, False)
+
+
+def group_mean(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """``x`` averaged over the ranks of ``group`` (the sum, then a division
+    by a 0-dim tensor, as ``all_reduce_mean_``); the backward averages the
+    gradient over them too."""
+    return _GroupAllReduce.apply(x, group, True)
 
 
 def rank_mean(total: torch.Tensor, n: int) -> torch.Tensor:

@@ -22,8 +22,21 @@ model's float32 logits.
 ``metrics["health"]``, and under ``skip_nonfinite`` the guard over the
 params, the optimizer state and the residual (the model has no buffers).
 
-Not ported: ``make_sp_lm_train_step`` (sequence parallelism and ring
-attention).
+``make_sp_lm_train_step`` (the JAX :165-306) is the sequence-parallel step
+on the data x sequence grid (``parallel/mesh.py``): tokens
+``(B, T / n)``, this rank's data shard's rows cut to its chunk of the
+sequence, the model sequence-parallel over the rank's ring (the causal
+ring attention, ``parallel/ring_attention.py``). The target of a chunk's
+last position is the next chunk's first token, brought by one
+``ring_shift`` of ``tokens[:, :1]`` by -1 (the JAX ``shift_perm`` :191);
+the global last position has no target and is masked on the last rank of
+the ring. The loss is ``sum(nll * mask) / sum(mask)`` with both sums over
+the ring (``collectives.group_sum``, whose backward is the same sum), the
+DP step's mean over ``(B, T - 1)``. Each rank's gradient is then n times
+its own partial, and the all-reduce mean over all ranks of
+``sync_and_update`` is the exact gradient
+(``parallel/sequence_parallel.py`` on the convention). ``zero1`` and
+``compress`` are deferred there too.
 """
 
 from __future__ import annotations
@@ -33,7 +46,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from tpu_ddp_torch.health.stats import HealthConfig
-from tpu_ddp_torch.parallel.collectives import rank_mean
+from tpu_ddp_torch.parallel.collectives import group_sum, rank_mean, ring_shift
 from tpu_ddp_torch.parallel.runtime import world_size
 from tpu_ddp_torch.train.optim import Optimizer
 from tpu_ddp_torch.train.state import TrainState, create_train_state
@@ -80,7 +93,59 @@ def make_lm_train_step(tx: Optimizer, *, compress=None, zero1=None,
     return train_step
 
 
-#: the JAX function initialises the model from a dummy token batch; the
-#: port's LM is initialised at construction, so ``create_train_state``
-#: serves it as it is
+def sp_targets(tokens: torch.Tensor, mesh) -> tuple:
+    """``(targets, mask)`` of this rank's ``(B, T / n)`` chunk of tokens:
+    the chunk shifted left by one with the next chunk's first token last
+    (one ``ring_shift`` by -1), and the float32 mask that drops the global
+    last position on the last rank of the ring (module docstring)."""
+    next_first = ring_shift(tokens[:, :1], mesh.sequence_group(), shift=-1)
+    targets = torch.cat([tokens[:, 1:], next_first], dim=1)
+    mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
+    if mesh.sequence_index == mesh.sequence_size - 1:
+        mask[:, -1] = 0.0
+    return targets, mask
+
+
+def make_sp_lm_train_step(tx: Optimizer, mesh, *, sp_flash: bool = False,
+                          health: Optional[HealthConfig] = None, zero1=None,
+                          compress=None) -> Callable[[TrainState, Batch], tuple]:
+    """``step(state, {"tokens": (B, T / n)}) -> (state, {"loss"})`` (and
+    ``health`` under ``health``) for the LM in ``state.model``, updated in
+    place; ``mesh`` the rank's ``parallel.mesh.Mesh`` and ``tokens`` its
+    chunk of its data shard's rows; ``sp_flash``: the ring's flash tiles
+    (K4-K6). Module docstring for the rest."""
+    from tpu_ddp_torch.parallel.sequence_parallel import check_overlays, sequence_parallel
+
+    check_overlays(zero1, compress)
+    recorder = StepHealth(health) if health is not None else None
+    group = mesh.sequence_group()
+
+    def train_step(state: TrainState, batch: Batch):
+        model = state.model
+        model.train()
+        params = state.params()
+        tokens = batch["tokens"]
+        targets, mask = sp_targets(tokens, mesh)
+        if recorder is not None:
+            recorder.before_forward(model)
+        with sequence_parallel(model, mesh, sp_flash):
+            logits = model(tokens)
+        nll = token_nll(logits, targets)
+        total = group_sum(torch.stack([(nll * mask).sum(), mask.sum()]), group)
+        loss = total[0] / total[1]
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        sums = loss.detach().reshape(1)
+        stats = sync_and_update(tx, state, grads, params, sums, health=recorder)
+        metrics = {"loss": rank_mean(sums[0], world_size())}
+        if stats is not None:
+            metrics["health"] = stats
+        return state, metrics
+
+    return train_step
+
+
+#: the JAX function initialises the model from a dummy token batch, through
+#: the plain twin of an SP model (:309); the port's LM is initialised at
+#: construction, as the plain module, so ``create_train_state`` serves it
+#: as it is
 create_lm_train_state = create_train_state

@@ -114,19 +114,31 @@ waiting for a batch and issuing its host-to-device copy.
 
 ``--sync-bn`` builds the model with ``bn_cross_replica_axis`` (the JAX
 :552-566; ``models/resnet.py``): BatchNorm statistics over every rank. The
-JAX trainer refuses it outside data parallelism (:1309-1322); the port has
-no other parallelism, so there is nothing to refuse yet. ``--n-devices N``
-must equal the launched world size (a process owns one card here, where a
-JAX process drives every device of its host and ``n_devices`` slices them);
-1 is ``main_no_ddp``'s one-rank run. ``--log-every-steps N`` logs the
+JAX trainer and this one refuse it outside data parallelism (:1309-1322).
+``--n-devices N`` must equal the launched world size (a process owns one
+card here, where a JAX process drives every device of its host and
+``n_devices`` slices them), and under a mesh data x sequence; 1 is
+``main_no_ddp``'s one-rank run. ``--log-every-steps N`` logs the
 reference's in-epoch line ``Epoch E, iter N, loss L`` every N steps, with
 one host read of that step's loss (:2221-2233). ``--download`` fetches the
 dataset first (``data/download.py``). ``--cv-mode`` (k-fold,
 ``train/kfold.py``) is driven by the CLI.
 
+Sequence parallelism (``--parallelism sp``, ``--mesh data=D,sequence=S``,
+``--sp-flash``; the JAX ``_init_strategy_steps`` :1302-1370): the ranks
+form the grid of ``parallel/mesh.py`` and ``train/strategy.py`` builds the
+step. The loaders shard over the data axis (the JAX :1375-1380), so the S
+ranks of a data row load the same rows and each cuts its stripe of every
+image (``parallel/sequence_parallel.py``); evaluation and ``predict`` run
+the plain module on whole images, each rank its data shard's rows. The
+state is replicated, so checkpoints and resume are the data-parallel ones.
+``--augment``, ``--mixup-alpha`` and ``--sync-bn`` raise with the JAX
+message, ``--steps-per-call`` warns and runs 1, ``--pretrained-dir`` goes
+through ``train/finetune.py``.
+
 Not ported yet: telemetry (and the health gauges, ``data/*`` spans and
 data digests it carries), the elastic supervisor, and the strategies other
-than data parallelism (fsdp, tp, pp).
+than data and sequence parallelism (fsdp, tp, pp, ep).
 """
 
 from __future__ import annotations
@@ -139,6 +151,7 @@ import logging
 import os
 import signal
 import time
+import warnings
 from collections import deque
 from typing import Optional
 
@@ -172,6 +185,8 @@ from tpu_ddp_torch.parallel.runtime import (
     rank,
     world_size,
 )
+from tpu_ddp_torch.parallel.mesh import create_mesh
+from tpu_ddp_torch.parallel.mesh import resolve as resolve_mesh
 from tpu_ddp_torch.parallel.zero import DATA_AXIS, Zero1Partition, Zero3Partition
 from tpu_ddp_torch.runtime import resolve_device, set_float32_precision
 from tpu_ddp_torch.train.finetune import load_pretrained_for_finetune
@@ -184,6 +199,12 @@ from tpu_ddp_torch.train.state import (
     full_model_state,
     load_model_state_,
     split_checkpoint,
+)
+from tpu_ddp_torch.train.strategy import (
+    build_strategy,
+    check_strategy,
+    default_mesh_sizes,
+    infer_parallelism,
 )
 from tpu_ddp_torch.train.steps import (
     batch_to_device,
@@ -227,6 +248,11 @@ class TrainConfig:
     grad_compress_block: int = 256
     grad_compress_error_feedback: bool = False
     dist_backend: Optional[str] = None    # None: nccl on cuda, gloo on cpu
+    parallelism: Optional[str] = None     # dp|sp here (the JAX's seven); None = infer
+                                          # from mesh (default dp)
+    mesh: Optional[dict] = None           # axis sizes, e.g. {"data": 2,
+                                          # "sequence": 2}; None = the mode's default
+    sp_flash: bool = False                # SP: flash-kernel ring blocks
     n_devices: Optional[int] = None       # None: the launched world; else == it
     model: str = "netresdeep"
     attention: str = "full"               # full | flash (CUDA kernels K4-K6)
@@ -310,6 +336,13 @@ class TrainConfig:
                 "layer-wise trust ratio needs whole-parameter norms; "
                 "the 1/N update shards cannot provide them)"
             )
+        if self.zero1 and self.parallelism not in (None, "dp", "sp"):
+            raise ValueError(
+                f"--zero1 is not supported with --parallelism "
+                f"{self.parallelism}: fsdp/fsdp_tp already scatter the "
+                "optimizer state (ZeRO-3 subsumes ZeRO-1); tp/pp/ep own "
+                "their state layout"
+            )
         if self.zero3 and self.zero1:
             raise ValueError(
                 "--zero3 subsumes --zero1 (parameters AND optimizer "
@@ -321,6 +354,14 @@ class TrainConfig:
                 "--zero3 does not compose with --optimizer lamb (the "
                 "layer-wise trust ratio needs whole-parameter norms; "
                 "the 1/N update shards cannot provide them)"
+            )
+        if self.zero3 and self.parallelism not in (None, "dp"):
+            raise ValueError(
+                f"--zero3 is not supported with --parallelism "
+                f"{self.parallelism}: fsdp/fsdp_tp already stream "
+                "scattered parameters (GSPMD owns that schedule — use "
+                "them directly); tp/pp/ep/sp own their state layout. "
+                "Use --zero3 with dp"
             )
         if self.grad_compress not in COMPRESS_MODES:
             raise ValueError(
@@ -340,6 +381,14 @@ class TrainConfig:
             raise ValueError(
                 f"prefetch_depth must be >= 0 (0 disables the native "
                 f"prefetcher), got {self.prefetch_depth}")
+        if (self.grad_compress != "none"
+                and self.parallelism not in (None, "dp", "sp")):
+            raise ValueError(
+                f"--grad-compress is not supported with --parallelism "
+                f"{self.parallelism}: the GSPMD/pipeline families' grad "
+                "movement is partitioner-internal, not a pmean this "
+                "framework owns. Use --grad-compress with dp or sp"
+            )
         if self.grad_compress_error_feedback and self.grad_compress == "none":
             raise ValueError(
                 "--grad-compress-error-feedback needs --grad-compress "
@@ -425,6 +474,16 @@ class Trainer:
                 f"--n-devices {c.n_devices} but {self.world_size} rank(s) were "
                 "launched: in the port a rank owns one card, so --n-devices must "
                 "equal the launcher's world size (1: one process, main_no_ddp)")
+        # the rank grid: built for a family other than dp, whose data axis
+        # the loaders shard over (every rank builds its groups here)
+        self.parallelism = infer_parallelism(c.mesh, c.parallelism)
+        sizes = dict(c.mesh or default_mesh_sizes(self.parallelism))
+        if self.parallelism == "dp":
+            resolve_mesh(sizes, self.world_size)
+            self.mesh, self.data_size, self.data_index = None, self.world_size, self.rank
+        else:
+            self.mesh = create_mesh(sizes)
+            self.data_size, self.data_index = self.mesh.data_size, self.mesh.data_index
         if train_data is None:
             train_data, test_data = load_dataset(c)
         elif test_data is None:
@@ -437,15 +496,17 @@ class Trainer:
         # process-local: this rank samples the global order and gathers only
         # its own rows (the test loader stays global: predict reads its order)
         self.train_loader = ShardedBatchLoader(
-            *train_data, world_size=self.world_size,
+            *train_data, world_size=self.data_size,
             per_shard_batch=c.per_shard_batch, shuffle=c.shuffle,
             reshuffle_each_epoch=c.reshuffle_each_epoch, seed=c.seed,
-            process_index=self.rank, process_count=self.world_size)
+            process_index=self.data_index, process_count=self.data_size)
         self.test_loader = ShardedBatchLoader(
-            *test_data, world_size=self.world_size,
+            *test_data, world_size=self.data_size,
             per_shard_batch=c.per_shard_batch, shuffle=False,
             exclude_sampler_pad=True)
         model = build_model(c)
+        if self.mesh is not None:
+            self._check_strategy(model)
         params = dict(model.named_parameters())
         sharded = c.zero1 or c.zero3
         # ZeRO's chain runs on flat shards, where ndim says nothing: the
@@ -501,9 +562,12 @@ class Trainer:
                 run_meta=dataclasses.asdict(c),
                 incarnation=next_incarnation(c.health_dir, self.rank) if c.health_dir else 0)
             self.health_feed = HealthFeed(self.health_monitor, lag=c.health_policy != "halt")
-        self._init_steps(loss_fn, health)
-        self.eval_step = make_eval_step(loss_fn, compute_accuracy=self.with_accuracy)
-        self.predict_step = make_predict_step()
+        if self.mesh is None:
+            self._init_steps(loss_fn, health)
+            self.eval_step = make_eval_step(loss_fn, compute_accuracy=self.with_accuracy)
+            self.predict_step = make_predict_step()
+        else:
+            self._init_strategy_steps(model, loss_fn, health)
         self.history = {"train_loss": [], "step_loss": [], "epoch": []}
         self._prefetcher = None       # the native ring, built at first use
         self._copy_stream = None
@@ -562,6 +626,48 @@ class Trainer:
         # the fused call runs the single step's body (and its skip guard)
         self.multi_step = (scan(self.train_step, self.steps_per_call)
                            if self.steps_per_call > 1 else None)
+
+    def _check_strategy(self, model) -> None:
+        """The guards of a family other than dp (the JAX
+        ``_init_strategy_steps`` :1302-1336, then ``build_strategy``'s),
+        before the optimizer and the state are built."""
+        c = self.config
+        for flag, name in (
+            (c.augment, "--augment"),
+            (c.mixup_alpha > 0, "--mixup-alpha"),
+            (c.sync_bn, "--sync-bn"),
+        ):
+            if flag:
+                raise ValueError(
+                    f"{name} is only supported with data parallelism "
+                    f"(got --parallelism {self.parallelism})"
+                )
+        if c.steps_per_call > 1:
+            warnings.warn(
+                f"steps_per_call={c.steps_per_call} ignored: scan "
+                "fusion is dp-only",
+                stacklevel=2,
+            )
+        check_strategy(self.parallelism, model, remat=c.remat,
+                       grad_accum_steps=c.grad_accum_steps, zero1=c.zero1,
+                       grad_compress=None if c.grad_compress == "none" else c.grad_compress)
+
+    def _init_strategy_steps(self, model, loss_fn, health) -> None:
+        """``build_strategy``'s state and steps (module docstring)."""
+        c = self.config
+        strategy = build_strategy(
+            self.parallelism, self.mesh, model, self.tx, self.device, loss_fn=loss_fn,
+            compute_accuracy=self.with_accuracy, sp_flash=c.sp_flash,
+            initial_state=self.state, remat=c.remat, grad_accum_steps=c.grad_accum_steps,
+            health=health, zero1=c.zero1,
+            grad_compress=None if c.grad_compress == "none" else {
+                "mode": c.grad_compress, "block": c.grad_compress_block,
+                "error_feedback": c.grad_compress_error_feedback})
+        self.state = strategy.state
+        self.train_step = strategy.train_step
+        self.eval_step = strategy.eval_step
+        self.predict_step = strategy.predict_step
+        self.multi_step, self.steps_per_call = None, 1
 
     def _build_compressor(self) -> Optional[GradCompressor]:
         """The ``GradCompressor`` of this run's ``--grad-compress`` knobs over
@@ -1043,7 +1149,7 @@ class Trainer:
         ``ema_decay`` is on. One host sync for the whole pass."""
         ema = self._eval_params()
         outs = [self.eval_step(self.state, self.to_device(b), ema)
-                for b in self.test_loader.epoch_batches(epoch=0, shard=self.rank)]
+                for b in self.test_loader.epoch_batches(epoch=0, shard=self.data_index)]
         self.eval_batches += len(outs)
         sums = {k: float(torch.stack([o[k] for o in outs]).sum())
                 for k in ("correct", "count", "loss_sum")}
@@ -1062,11 +1168,14 @@ class Trainer:
         loader = self.test_loader if loader is None else loader
         params = self._eval_params()
         outs = [self.predict_step(self.state, self.to_device(b), params)
-                for b in loader.epoch_batches(epoch=0, shard=self.rank)]
+                for b in loader.epoch_batches(epoch=0, shard=self.data_index)]
         local = torch.stack(outs).float()                # (batches, rows, classes)
         if self.world_size > 1:
             gathered = all_gather_bytes(local.reshape(-1))
-            local = gathered.view(self.world_size, *local.shape).transpose(0, 1)
+            # rank r = d * S + s: one copy of each data shard's rows, s = 0's
+            S = self.world_size // self.data_size
+            gathered = gathered.view(self.data_size, S, *local.shape)[:, 0]
+            local = gathered.transpose(0, 1)
         logits = local.reshape(-1, local.shape[-1]).cpu().numpy()
         index = list(loader.epoch_index_batches(epoch=0))
         mask = np.concatenate([m for _, m in index])
