@@ -428,14 +428,46 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     flash ring's forward + backward at a layer timed first. Over gloo every
     exchange is staged through host memory and
     synchronises the stream first, so no transfer overlaps a tile there.
+26. The SP overlays and the GSPMD families (``parallel/tensor_parallel.py``),
+    every run through the CLI on ranks sharing the card over gloo, two
+    epochs of 8 steps (the second timed) at a global batch of 64 under
+    cuDNN's deterministic algorithms. First K4-K6 against their plain
+    versions, with phase 7's tolerances, at the shapes a tensor-parallel
+    rank gives them: (32, 64, 2, 64), (32, 64, 1, 64) and (64, 64, 1, 64),
+    q, k and v views of the rank's qkv columns. (a)
+    ViT-S/4 ``--parallelism sp --mesh data=2,sequence=2 --sp-flash
+    --kernels`` replicated, with ``--zero1`` (the partition over the data
+    group) and with ``--grad-compress int8 --grad-compress-error-feedback``
+    (the ring over the data group): ``--zero1``'s first 5 losses within
+    ``rtol=1e-5`` of the replicated run's, int8's within 0.05 (phase 12's
+    band), replicas bitwise, K1 once a step, K2 and K3 2 a step, K4-K6 12 a
+    step a rank; then LM-32k at depth 2 through ``make_sp_lm_train_step``
+    with ``sp_flash``, replicated and ``--zero1``, 6 steps each, losses
+    within ``rtol=1e-5``, params bitwise over the ranks. (b) ViT-S/4 at full
+    width ``--parallelism tp --attention flash --kernels`` (AdamW) at
+    ``data=2,model=2`` (2 heads and 1 a rank) and ``data=1,model=3`` (1 head
+    a rank); (c) NetResDeep at full width ``tp --mesh data=2,model=2
+    --kernels``, ViT-S/4 ``--parallelism fsdp --mesh data=2`` and
+    ``fsdp_tp --mesh data=2,model=2``. Each of (b) and (c): the first 5
+    losses within ``rtol=1e-5`` of one rank's whole model on the same
+    global batches (run in this process; NetResDeep's, whose ten tied
+    BatchNorm blocks part the two trajectories by 2e-5 in three steps, each
+    step taken from the state the sharded run started it from, phase 23b's
+    oracle, with the trajectories' differences printed), K1 once a step,
+    K4 6 a step and a test batch and K5 and K6 6 a step a rank (each rank's
+    own heads), the gathered params bitwise over the ranks; ms a step,
+    param and optimizer bytes and peak memory a rank against the one-rank
+    run's. ``python3 chip_smoke.py --phase 26`` runs phase 26 alone (the
+    kernels built first), ``--nccl N --phase 26`` its N-rank job alone.
 
 Phase 2 also builds the native data-path library (``tpu_ddp_torch/native``)
 with g++ from the checkout. The NetResDeep phases before 17 keep their
 sizes; the whole run aims at ten minutes on the card, the build included. ``python3 chip_smoke.py
 --nccl N``, on a machine with N cards, runs phases 10 (at N ranks' chunks),
 12, 14, 24 (a)-(c) (with ViT-S/4 ``--zero3`` timed again with the gathers
-serialized), 17's two-rank part, 18c, 19d, 21b, 22e and 25 (b) and (c) (at
-data=N/2, sequence=2) alone at N ranks, one card each, over NCCL. The line
+serialized), 17's two-rank part, 18c, 19d, 21b, 22e, 25 (b) and (c) (at
+data=N/2, sequence=2) and 26's N-rank job (without the one-rank baselines)
+alone at N ranks, one card each, over NCCL. The line
 before the last is one JSON object
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -447,6 +479,7 @@ import re
 import subprocess
 import sys
 import time
+import weakref
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -1141,12 +1174,15 @@ def close(got, want, atol, rtol):
     return float(diff.max()), bool((diff <= atol + rtol * want.abs()).all())
 
 
-def flash_inputs(case, seed=0, bf16=False):
+def flash_inputs(case, seed=0, bf16=False, cases=None):
     """q, k, v, do and the key mask of ``FLASH_CASES[case]`` on the card, or
-    of ``BF16_CASES[case]`` in bfloat16 (drawn in float32, then rounded)."""
+    of ``BF16_CASES[case]`` in bfloat16 (drawn in float32, then rounded);
+    ``cases``: another table of the same form."""
     import torch
 
-    B, T, H, D, causal, mask_kind, views = (BF16_CASES if bf16 else FLASH_CASES)[case]
+    if cases is None:
+        cases = BF16_CASES if bf16 else FLASH_CASES
+    B, T, H, D, causal, mask_kind, views = cases[case]
     dtype = torch.bfloat16 if bf16 else torch.float32
     gen = torch.Generator(device="cuda").manual_seed(seed)
     if views:
@@ -1171,15 +1207,18 @@ def flash_inputs(case, seed=0, bf16=False):
     return q, k, v, do, mask, causal
 
 
-def phase_flash_vs_plain():
+def phase_flash_vs_plain(cases=None, label="phase 7"):
+    """K4-K6 against their plain versions at each of ``cases``' shapes
+    (default ``FLASH_CASES``), float32, with ``FWD_TOL`` and ``GRAD_TOL``."""
     import torch
 
     from tpu_ddp_torch.ops import flash_attention as fa
 
-    print("phase 7: K4/K5/K6 vs plain versions (max |diff|)", flush=True)
+    cases = FLASH_CASES if cases is None else cases
+    print(f"{label}: K4/K5/K6 vs plain versions (max |diff|)", flush=True)
     results, failed = {}, []
-    for case in FLASH_CASES:
-        q, k, v, do, mask, causal = flash_inputs(case)
+    for case in cases:
+        q, k, v, do, mask, causal = flash_inputs(case, cases=cases)
         want_out, want_lse = fa.forward_plain(q, k, v, mask, causal)
         di = fa.row_dot(do, want_out)
         want_dq = fa.dq_plain(q, k, v, do, want_lse, di, mask, causal)
@@ -1874,7 +1913,12 @@ def rank_child(out_dir, args):
     (``poisoned_step_bitwise``). A run named ``*_serial`` gathers ZeRO-3's
     blocks without the prefetch. ``--then-sp-lm D`` runs phase 25c's LM
     steps on the same group after the runs (``sp_lm_runs``, data axis D),
-    into ``out_dir/sp_lm``."""
+    into ``out_dir/sp_lm``; ``--then-sp-lm-zero1 D`` phase 26a's
+    (``sp_lm_zero1_runs``), into ``out_dir/sp_lm_zero1``; ``--save-states
+    NAME`` saves run NAME's whole model state (``Trainer.model_state``, a
+    collective) before each step and after the last, into
+    ``out_dir/NAME/states.pt`` from rank 0. Each run's metrics also carry
+    the param and optimizer-state bytes this rank holds (``held_bytes``)."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -1892,9 +1936,16 @@ def rank_child(out_dir, args):
         poisoned = int(args[1])
         poison_batch(poisoned, rank=0)
         args = args[2:]
-    sp_lm = None
+    sp_lm = sp_lm_zero1 = None
     if args[:1] == ["--then-sp-lm"]:
         sp_lm = int(args[1])
+        args = args[2:]
+    if args[:1] == ["--then-sp-lm-zero1"]:
+        sp_lm_zero1 = int(args[1])
+        args = args[2:]
+    keep_states = None
+    if args[:1] == ["--save-states"]:
+        keep_states = args[1]
         args = args[2:]
     gathers = [0]
     issue = collectives.BlockGather._issue
@@ -1926,8 +1977,16 @@ def rank_child(out_dir, args):
             if name.endswith(SERIAL):
                 trainer.zero1.prefetch = False
             between, bits, inner = [], {}, trainer.train_step
+            kept = [] if name == keep_states else None
+            # a weak reference: the trainer holds this function, and a cycle
+            # would keep the run's state alive into the next run's memory
+            owner = weakref.ref(trainer)
 
-            def watched(state, batch, inner=inner, between=between, bits=bits):
+            def watched(state, batch, inner=inner, between=between, bits=bits, kept=kept,
+                        owner=owner):
+                if kept is not None:
+                    kept.append({k: v.to("cpu", copy=True)
+                                 for k, v in owner().model_state().items()})
                 between.append(torch.cuda.memory_allocated())
                 calls = len(between) - 1
                 if calls == poisoned:
@@ -1948,6 +2007,7 @@ def rank_child(out_dir, args):
             metrics["block_gathers"] = gathers[0]
             metrics["memory_between_steps"] = between[1:]
             metrics["peak_memory"] = torch.cuda.max_memory_allocated()
+            metrics.update(held_bytes(trainer))
             if bits:
                 metrics["poisoned_step_bitwise"] = same_state(bits["before"], bits["after"])
             out = os.path.join(out_dir, name)
@@ -1955,10 +2015,31 @@ def rank_child(out_dir, args):
                 json.dump(metrics, f)
             torch.save({k: v.cpu() for k, v in trainer.model_state().items()},
                        os.path.join(out, f"rank{rank}.pt"))
+            if kept is not None:
+                kept.append({k: v.to("cpu", copy=True)
+                             for k, v in trainer.model_state().items()})
+                if rank == 0:
+                    torch.save(kept, os.path.join(out, "states.pt"))
         if sp_lm is not None:
             sp_lm_runs(os.path.join(out_dir, "sp_lm"), sp_lm)
+        if sp_lm_zero1 is not None:
+            sp_lm_zero1_runs(os.path.join(out_dir, "sp_lm_zero1"), sp_lm_zero1)
     finally:
         runtime.shutdown()
+
+
+def held_bytes(trainer):
+    """``{"param_bytes", "opt_bytes"}``: the bytes of the params and of the
+    optimizer slots this rank holds (its cut, its shards or the whole
+    tensors: ``trainer.layout``'s)."""
+    from tpu_ddp_torch.train.state import SLOTS
+
+    state = trainer.state
+    params = trainer.layout.local_params(state)
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+    return {"param_bytes": nbytes(params.values()),
+            "opt_bytes": nbytes([t for slot in SLOTS
+                                 for t in (getattr(state.opt_state, slot) or {}).values()])}
 
 
 def launch_dp_runs(tmp, runs, nproc, phase="12", deterministic=False, poison=None,
@@ -5483,12 +5564,367 @@ def phase_sp_train(tmp, smi, one_rank=None, nproc=2, backend="gloo", data=1):
                 fail(f"25c {dtype}: the SP LM losses leave the one-rank run's")
 
 
+# ---- phase 26: the SP overlays and the GSPMD families --------------------------------
+
+#: steps an epoch of each phase-26 run (two epochs, the second timed), at a
+#: global batch of GSPMD_BATCH
+GSPMD_STEPS, GSPMD_BATCH = 8, 64
+#: phase 26a's LM-32k, cut in depth
+SP_LM_ZERO1_DEPTH, SP_LM_ZERO1_STEPS = 2, 6
+#: the shapes K4-K6 take on a tensor-parallel rank in phase 26 (each rank's
+#: data shard's rows of GSPMD_BATCH, ViT-S/4's 64 tokens, its own heads of 64
+#: columns: model=2 holds 2 heads and 1, model=3 one; q, k and v views of
+#: the rank's qkv columns), held against the plain versions as in phase 7
+TP_FLASH_CASES = {
+    "tp_data2_2heads": (GSPMD_BATCH // 2, 64, 2, 64, False, None, True),
+    "tp_data2_1head": (GSPMD_BATCH // 2, 64, 1, 64, False, None, True),
+    "tp_data1_1head": (GSPMD_BATCH, 64, 1, 64, False, None, True),
+}
+
+
+def sp_lm_zero1_runs(out_dir, data):
+    """Phase 26a's LM on one rank, in ``rank_child``'s process group: LM-32k
+    at depth ``SP_LM_ZERO1_DEPTH`` through ``make_sp_lm_train_step`` with
+    ``sp_flash`` on this rank's rows and chunk of phase 18a's batches, AdamW
+    lr 1e-3 through K1, replicated and then under ``--zero1`` over the
+    data group (``Zero1Partition(group=mesh.data_group())``), the launch
+    counts zeroed before each; writes each run's losses, counts and a
+    digest of its params."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from tpu_ddp_torch import ops
+    from tpu_ddp_torch.models import CausalTransformerLM
+    from tpu_ddp_torch.parallel import runtime
+    from tpu_ddp_torch.parallel.mesh import create_mesh
+    from tpu_ddp_torch.parallel.zero import Zero1Partition
+    from tpu_ddp_torch.train import create_lm_train_state, make_sp_lm_train_step
+    from tpu_ddp_torch.train.optim import make_optimizer
+
+    device = runtime.rank_device("cuda", dist.get_backend())
+    mesh = create_mesh({"data": data, "sequence": runtime.world_size() // data})
+    n, s, d = mesh.sequence_size, mesh.sequence_index, mesh.data_index
+    rows = slice(d * LM_BATCH // data, (d + 1) * LM_BATCH // data)
+    cols = slice(s * LM_SEQ // n, (s + 1) * LM_SEQ // n)
+    tokens = torch.from_numpy(lm_tokens(LM_STEPS, LM_BATCH, LM_SEQ, LM_32K["vocab_size"])
+                              [:SP_LM_ZERO1_STEPS, rows, cols].copy()).to(device)
+    out = {}
+    for name in ("replicated", "zero1"):
+        model = CausalTransformerLM(**dict(LM_32K, depth=SP_LM_ZERO1_DEPTH), seq_len=LM_SEQ,
+                                    generator=torch.Generator().manual_seed(0))
+        zero1 = name == "zero1"
+        tx = make_optimizer(lr=1e-3, optimizer="adamw", kernels=True,
+                            zero1_axis="data" if zero1 else None)
+        part = (Zero1Partition(tx, dict(model.named_parameters()), mesh.data_size,
+                               rank=d, group=mesh.data_group()) if zero1 else None)
+        state = create_lm_train_state(model, tx, device, zero1=part)
+        step = make_sp_lm_train_step(tx, mesh, sp_flash=True, zero1=part)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        losses = []
+        for i in range(SP_LM_ZERO1_STEPS):
+            state, metrics = step(state, {"tokens": tokens[i]})
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        digest = hashlib.sha256()
+        for _, p in sorted(state.model.state_dict().items()):
+            digest.update(p.detach().cpu().numpy().tobytes())
+        out[name] = {"losses": [float(x) for x in losses], "launches": ops.launch_counts(),
+                     "digest": digest.hexdigest()}
+        del model, state, step
+        torch.cuda.empty_cache()
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"rank{runtime.rank()}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def gspmd_args(backend, model, parallelism=None, mesh=None, *extra):
+    """A phase-26 run of ``model`` (``"vit"``: ViT-S/4 with ``--attention
+    flash`` and AdamW; ``"cnn"``: NetResDeep at its full width, the
+    reference's SGD, whose state is the model's alone), ``--kernels``, two
+    epochs of GSPMD_STEPS steps at a global batch of GSPMD_BATCH; one rank
+    without ``parallelism``."""
+    args = ["--device", "cuda", "--synthetic-data", "--synthetic-size",
+            str(GSPMD_BATCH * GSPMD_STEPS), "--epochs", "2", "--kernels",
+            "--global-batch-size", str(GSPMD_BATCH), "--log-every-epochs", "1"]
+    if model == "vit":
+        args += ["--model", "vit_s4", "--attention", "flash", "--optimizer", "adamw",
+                 "--lr", "1e-3"]
+    if parallelism is not None:
+        args += ["--dist-backend", backend, "--parallelism", parallelism, "--mesh", mesh]
+    return args + list(extra)
+
+
+def gspmd_one_rank(model):
+    """Phase 26's baseline: the one-rank run of ``gspmd_args(model)`` in this
+    process on the same global batches; its metrics, launch counts, held
+    bytes and peak memory above what the process held."""
+    import torch
+
+    from tpu_ddp_torch import ops
+    from tpu_ddp_torch.cli import train as cli
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    trainer, metrics = cli.run(gspmd_args(None, model))
+    torch.cuda.synchronize()
+    metrics["launches"] = ops.launch_counts()
+    metrics["peak_memory"] = torch.cuda.max_memory_allocated() - held
+    metrics.update(held_bytes(trainer))
+    del trainer
+    torch.cuda.empty_cache()
+    return metrics
+
+
+def gspmd_launches(m, steps, flash):
+    """The launches a step of a phase-26 GSPMD run makes on every rank: K1
+    once a step; with ``flash`` K4 once a block a step and a test batch, K5
+    and K6 once a block a step (each rank's own heads)."""
+    want = {k: 0 for k in m["launches"]}
+    want["fused_update"] = steps
+    if flash:
+        want["flash_attention_fwd"] = VIT_DEPTH * (steps + m.get("eval_batches", 0))
+        want["flash_attention_dq"] = want["flash_attention_dkv"] = VIT_DEPTH * steps
+    return want
+
+
+def same_state_losses(states_path, model):
+    """One rank's loss of each of the first ``PLAIN_STEPS_RTOL`` steps of
+    ``gspmd_args(model)``'s batches, each step taken from the state the
+    sharded run started it from (its ``--save-states`` file: phase 23b's
+    oracle), under deterministic cuDNN."""
+    import torch
+
+    from tpu_ddp_torch.cli import train as cli
+    from tpu_ddp_torch.train.trainer import Trainer
+
+    states = torch.load(states_path)
+    torch.backends.cudnn.deterministic = True
+    try:
+        trainer = Trainer(cli.config_from_args(cli.build_parser().parse_args(
+            gspmd_args(None, model))))
+        trainer.train_loader.set_epoch(1)
+        out = []
+        for s, batch in zip(range(PLAIN_STEPS_RTOL), trainer.train_loader.epoch_batches()):
+            trainer.state.model.load_state_dict(states[s])
+            trainer.state, m = trainer.train_step(trainer.state, trainer.to_device(batch))
+            out.append(float(m["loss"]))
+        trainer.close()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def check_gspmd_run(label, metrics, same, base, flash, smi, same_state=None):
+    """One phase-26 GSPMD run against its one-rank baseline ``base``: the
+    first losses within ``FULL_STEPS_RTOL`` (with ``same_state``, the
+    ``--save-states`` file of a run whose trajectory leaves one rank's by
+    more in a few steps, each step taken from the same state:
+    ``same_state_losses``), the launches, replicas (the gathered model
+    state) bitwise; prints ms a step, the bytes held and the peak memory a
+    rank against the baseline's."""
+    m = metrics[0]
+    if same_state:
+        rel = rel_diffs(m["step_losses"], base["step_losses"])
+        print(f"  26 {label}: along the two trajectories, relative loss differences "
+              f"{' '.join(f'{x:.3g}' for x in rel)}", flush=True)
+        first_losses_close(f"26 {label} vs one rank's whole model from the same state each "
+                           "step", m["step_losses"], same_state_losses(same_state, "cnn"),
+                           FULL_STEPS_RTOL)
+    else:
+        first_losses_close(f"26 {label} vs one rank's whole model", m["step_losses"],
+                           base["step_losses"], FULL_STEPS_RTOL)
+    print(f"  26 {label} ({smi}): {m['steps']} steps; launches on rank 0 {m['launches']}; "
+          f"replicas bitwise {same}; steady ms a step a rank "
+          + " / ".join(f"{x['steady_step_ms']:.3f}" for x in metrics)
+          + f" (one rank {base['steady_step_ms']:.3f}); param bytes a rank "
+          + " / ".join(str(x["param_bytes"]) for x in metrics)
+          + f" (one rank {base['param_bytes']}); optimizer bytes a rank "
+          + " / ".join(str(x["opt_bytes"]) for x in metrics)
+          + f" (one rank {base['opt_bytes']}); peak memory a rank "
+          + " / ".join(str(x["peak_memory"]) for x in metrics)
+          + f" B (one rank {base['peak_memory']} B); final test accuracy "
+          f"{m.get('test_accuracy')}", flush=True)
+    for r, x in enumerate(metrics):
+        want = gspmd_launches(x, x["steps"], flash)
+        if x["launches"] != want:
+            fail(f"26 {label} rank {r}: launches {x['launches']}, expected {want}")
+    if not same or not all(math.isfinite(v) for v in m["step_losses"]):
+        fail(f"26 {label}: replicas differ or a loss is not finite")
+
+
+def phase_gspmd(tmp, smi, base=None, nproc=4, backend="gloo"):
+    """Phase 26: (a) ViT-S/4 ``--parallelism sp --mesh data=2,sequence=2
+    --sp-flash --kernels`` replicated, with ``--zero1`` and with
+    ``--grad-compress int8 --grad-compress-error-feedback``, then the
+    LM-32k SP step with and without ``--zero1`` (``sp_lm_zero1_runs``); (b)
+    ViT-S/4 at full width under ``--parallelism tp --attention flash
+    --kernels`` at model=2 (data=2; 2 heads and 1 a rank) and model=3
+    (data=1; 1 head a rank); (c) NetResDeep at full width under ``tp --mesh
+    data=2,model=2``, ViT-S/4 under ``fsdp`` (data=2) and ``fsdp_tp``
+    (data=2, model=2). The ranks share the card over gloo (or have a card
+    each under ``--nccl``: the 4-rank job alone); ``base``: the one-rank
+    baselines ``{"vit", "cnn"}`` (``gspmd_one_rank``), None under
+    ``--nccl``."""
+    phase_flash_vs_plain(TP_FLASH_CASES, "phase 26 (tensor-parallel ranks' heads)")
+    sp = lambda *extra: sp_vit_args(nproc, backend, 2, *extra, steps=GSPMD_STEPS)  # noqa: E731
+    jobs = {nproc: [("sp_replicated", sp()), ("sp_zero1", sp("--zero1")),
+                    ("sp_int8", sp("--grad-compress", "int8",
+                                   "--grad-compress-error-feedback")),
+                    ("tp_vit_m2", gspmd_args(backend, "vit", "tp", "data=2,model=2")),
+                    ("fsdp_tp_vit", gspmd_args(backend, "vit", "fsdp_tp", "data=2,model=2")),
+                    ("tp_cnn", gspmd_args(backend, "cnn", "tp", "data=2,model=2"))]}
+    if base is not None:
+        jobs[3] = [("tp_vit_m3", gspmd_args(backend, "vit", "tp", "data=1,model=3"))]
+        jobs[2] = [("fsdp_vit", gspmd_args(backend, "vit", "fsdp", "data=2"))]
+    runs = {}
+    for n, job in jobs.items():
+        extra = (["--then-sp-lm-zero1", "2", "--save-states", "tp_cnn"] if n == nproc
+                 else [])
+        runs.update(launch_dp_runs(os.path.join(tmp, f"gspmd{n}"), job, n, phase="26",
+                                   deterministic=True, extra=extra))
+    # (a) the overlays
+    for name in ("sp_replicated", "sp_zero1", "sp_int8"):
+        metrics, same = runs[name]
+        steps = metrics[0]["steps"]
+        want = {k: 0 for k in metrics[0]["launches"]}
+        want["fused_update"] = steps
+        for kind in ("fwd", "dq", "dkv"):
+            want[f"flash_attention_{kind}"] = VIT_DEPTH * (nproc // 2) * steps
+        if name == "sp_int8":
+            want.update({k: v * steps for k, v in dp_launches(2).items() if k != "fused_update"})
+        print(f"phase 26a {name} ({smi}): {steps} steps on {nproc} ranks over {backend} "
+              f"(data=2, sequence={nproc // 2}); launches on rank 0 {metrics[0]['launches']}; "
+              f"replicas bitwise {same}; steady ms a step a rank "
+              + " / ".join(f"{m['steady_step_ms']:.3f}" for m in metrics)
+              + "; optimizer bytes a rank " + " / ".join(str(m["opt_bytes"]) for m in metrics)
+              + "; peak memory a rank " + " / ".join(str(m["peak_memory"]) for m in metrics)
+              + " B", flush=True)
+        for r, m in enumerate(metrics):
+            if m["launches"] != want:
+                fail(f"26a {name} rank {r}: launches {m['launches']}, expected {want}")
+        if not same or not all(math.isfinite(x) for x in metrics[0]["step_losses"]):
+            fail(f"26a {name}: replicas differ or a loss is not finite")
+    replicated = runs["sp_replicated"][0][0]["step_losses"]
+    first_losses_close("26a sp --zero1 vs replicated sp", runs["sp_zero1"][0][0]["step_losses"],
+                       replicated, FULL_STEPS_RTOL)
+    diff = max(abs(a - b) for a, b in zip(runs["sp_int8"][0][0]["step_losses"], replicated))
+    print(f"  26a sp int8 + error feedback vs replicated sp: max |loss diff| {diff:.4g} "
+          f"(limit {DP_LOSS_ATOL})", flush=True)
+    if not diff <= DP_LOSS_ATOL:
+        fail("26a: sp with the int8 ring leaves the float32 run's band")
+    lm = []
+    for r in range(nproc):
+        with open(os.path.join(tmp, f"gspmd{nproc}", "sp_lm_zero1", f"rank{r}.json")) as f:
+            lm.append(json.load(f))
+    for name in ("replicated", "zero1"):
+        for r, res in enumerate(lm):
+            want = {k: 0 for k in res[name]["launches"]}
+            want["fused_update"] = SP_LM_ZERO1_STEPS
+            for kind in ("fwd", "dq", "dkv"):
+                want[f"flash_attention_{kind}"] = (SP_LM_ZERO1_DEPTH * (r % (nproc // 2) + 1)
+                                                   * SP_LM_ZERO1_STEPS)
+            if res[name]["launches"] != want:
+                fail(f"26a LM {name} rank {r}: launches {res[name]['launches']}, "
+                     f"expected {want}")
+        if len({res[name]["digest"] for res in lm}) != 1:
+            fail(f"26a LM {name}: the ranks end with different params")
+        print(f"  26a LM-32k at depth {SP_LM_ZERO1_DEPTH} {name}: launches on rank 0 "
+              f"{lm[0][name]['launches']}; losses {lm[0][name]['losses']}", flush=True)
+    first_losses_close("26a LM --zero1 vs replicated", lm[0]["zero1"]["losses"],
+                       lm[0]["replicated"]["losses"], FULL_STEPS_RTOL)
+    # (b), (c) the GSPMD families
+    if base is None:
+        for name in ("tp_vit_m2", "fsdp_tp_vit", "tp_cnn"):
+            metrics, same = runs[name]
+            for r, x in enumerate(metrics):
+                want = gspmd_launches(x, x["steps"], name != "tp_cnn")
+                if x["launches"] != want:
+                    fail(f"26 {name} rank {r}: launches {x['launches']}, expected {want}")
+            print(f"  26 {name} over {backend}: launches on rank 0 {metrics[0]['launches']}; "
+                  f"replicas bitwise {same}; steady ms a step a rank "
+                  + " / ".join(f"{x['steady_step_ms']:.3f}" for x in metrics), flush=True)
+            if not same:
+                fail(f"26 {name}: replicas differ")
+        return runs
+    for name, label in (("tp_vit_m2", "b ViT-S/4 tp data=2 model=2 (heads 2 + 1)"),
+                        ("tp_vit_m3", "b ViT-S/4 tp data=1 model=3 (1 head a rank)"),
+                        ("tp_cnn", "c NetResDeep tp data=2 model=2"),
+                        ("fsdp_vit", "c ViT-S/4 fsdp data=2"),
+                        ("fsdp_tp_vit", "c ViT-S/4 fsdp_tp data=2 model=2")):
+        check_gspmd_run(label, *runs[name], base["cnn" if name == "tp_cnn" else "vit"],
+                        name != "tp_cnn", smi, same_state=name == "tp_cnn" and os.path.join(
+                            tmp, f"gspmd{nproc}", name, "states.pt"))
+    return runs
+
+
+def run_phase26(smi):
+    """Phase 26 on one card: the one-rank baselines, then ``phase_gspmd``."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t26 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    try:
+        base26 = {"vit": gspmd_one_rank("vit"), "cnn": gspmd_one_rank("cnn")}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
+    try:
+        phase_gspmd(tmp, smi, base26)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 26 took {time.perf_counter() - t26:.1f} s", flush=True)
+
+
+def phase26_main(nproc=None):
+    """``python3 chip_smoke.py --phase 26``: phase 26 alone on one card (the
+    kernels built, then ``run_phase26``), or with ``nproc`` (``--nccl N
+    --phase 26``) its N-rank job alone on N cards over NCCL; for phase 26's
+    readings, which the whole smoke prints too."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
+    if nproc is not None and torch.cuda.device_count() < nproc:
+        fail(f"--nccl {nproc} needs {nproc} cards, {torch.cuda.device_count()} visible")
+    sys.path.insert(0, ROOT)
+    from tpu_ddp_torch import native
+    from tpu_ddp_torch.ops import _build
+
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    _build.build()
+    native.build()
+    if nproc is None:
+        run_phase26(smi)
+    else:
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
+        try:
+            phase_gspmd(tmp, smi, None, nproc, "nccl")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    print(f"chip_smoke --phase 26: ok ({smi})", flush=True)
+
+
 def nccl_main(nproc):
     """``python3 chip_smoke.py --nccl N`` on a machine with N cards: phase
     10 with NetResDeep's chunks at N ranks, then phases 12, 14, 24 (a)-(c),
     17's resume (``phase_checkpoint_dp``) and 18c at N ranks, one card each, over
     NCCL (the default backend on cuda), 19d's fine-tune and 21b's flight
-    recorder and 22e's fused calls at N ranks."""
+    recorder and 22e's fused calls at N ranks, 25 (b) and (c) and 26's N-rank
+    job."""
     import shutil
     import tempfile
 
@@ -5515,6 +5951,7 @@ def nccl_main(nproc):
         phase_health_ranks(tmp, nproc, "nccl")
         phase_scan_ranks(tmp, nproc, "nccl")
         phase_sp_train(tmp, smi, None, nproc, "nccl", data=nproc // 2)
+        phase_gspmd(tmp, smi, None, nproc, "nccl")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"chip_smoke --nccl {nproc}: ok", flush=True)
@@ -5530,7 +5967,11 @@ def main():
     if sys.argv[1:2] == ["--sp-ring-child"]:
         return sp_ring_child(sys.argv[2])
     if sys.argv[1:2] == ["--nccl"]:
+        if sys.argv[3:5] == ["--phase", "26"]:
+            return phase26_main(int(sys.argv[2]))
         return nccl_main(int(sys.argv[2]))
+    if sys.argv[1:3] == ["--phase", "26"]:
+        return phase26_main()
     import shutil
     import tempfile
 
@@ -5677,6 +6118,7 @@ def main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 25 took {time.perf_counter() - t25:.1f} s", flush=True)
+    run_phase26(smi)
     print_accounting()
     rows += phase_lm_timing(results, flash_results, lm_runs["flash"]["launches"])
     stamp("phase 18d")

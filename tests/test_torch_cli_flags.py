@@ -107,12 +107,12 @@ def test_mesh_resolve_as_jax(text, n):
             resolve(sizes, n)
         assert str(got.value) == str(e)
         return
-    assert resolve(sizes, n) == {k: want[k] for k in ("data", "sequence")}
-    assert all(v == 1 for k, v in want.items() if k not in ("data", "sequence"))
+    assert resolve(sizes, n) == {k: want[k] for k in ("data", "sequence", "model")}
+    assert all(v == 1 for k, v in want.items() if k not in ("data", "sequence", "model"))
 
 
 def test_mesh_unported_axis_raises():
     from tpu_ddp_torch.parallel.mesh import resolve
 
     with pytest.raises(ValueError, match="ROADMAP.md §1 item 2"):
-        resolve({"data": 2, "model": 2}, 4)
+        resolve({"data": 2, "pipeline": 2}, 4)

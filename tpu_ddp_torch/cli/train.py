@@ -6,9 +6,10 @@ JAX CLI's names, defaults and help. ``--global-batch-size`` is divided by the
 mesh's data axis (the JAX :426-450), of the launched world size or
 ``--n-devices`` where given. ``--parallelism``, ``--mesh`` and
 ``--sp-flash`` (the JAX :64, :123, :158) route the run to a family
-(``train/strategy.py``): dp, and sp, sequence parallelism with ring
-attention over the ``sequence`` axis; the other five choices raise, not
-ported yet. ``--cv-mode K`` runs k-fold cross-validation
+(``train/strategy.py``): dp; sp, sequence parallelism with ring
+attention over the ``sequence`` axis; tp, fsdp and fsdp_tp, the GSPMD
+families over the ``data`` and ``model`` axes
+(``parallel/tensor_parallel.py``); pp and ep raise, not ported yet. ``--cv-mode K`` runs k-fold cross-validation
 over the train split instead of one run. After the final evaluation ``--dump-predictions`` and
 ``--viz-predictions`` run the test set's batch inference (:670-737). It
 trains on the GPU unless ``--device cpu`` is given, and refuses to start
@@ -99,13 +100,15 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["dp", "fsdp", "tp", "fsdp_tp", "pp", "sp", "ep"],
                    default=None,
                    help="scale-out strategy: dp (default), sp (sequence "
-                        "parallel + ring attention over the sequence axis); "
-                        "fsdp, tp, fsdp_tp, pp and ep are not ported yet. "
+                        "parallel + ring attention over the sequence axis), "
+                        "tp (tensor parallel over the model axis), fsdp "
+                        "(params and optimizer state scattered over data), "
+                        "fsdp_tp (both); pp and ep are not ported yet. "
                         "Default: inferred from --mesh, else dp")
     p.add_argument("--mesh", default=None, metavar="AXES",
                    help="rank grid axis sizes, e.g. data=2,sequence=2 "
                         "(axes: data, pipeline, expert, sequence, model; "
-                        "-1 = rest; data and sequence are ported). Naming a "
+                        "-1 = rest; data, sequence and model are ported). Naming a "
                         "non-data axis infers the matching --parallelism")
     p.add_argument("--kernels", action="store_true",
                    help="send the optimizer update through the fused CUDA "

@@ -56,34 +56,36 @@ SYNC_BN_COLLECTIVES: collections.Counter = collections.Counter()
 
 
 class _SyncMean(torch.autograd.Function):
-    """The mean over the ranks, whose backward is the mean over the ranks
-    of the cotangent (module docstring)."""
+    """The mean over the ranks (of ``group``; None: all), whose backward is
+    the mean over the ranks of the cotangent (module docstring)."""
 
     @staticmethod
-    def forward(ctx, stats: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, stats: torch.Tensor, group) -> torch.Tensor:
         from tpu_ddp_torch.parallel.collectives import all_reduce_mean_
 
+        ctx.group = group
         out = stats.clone()
-        all_reduce_mean_([out])
+        all_reduce_mean_([out], group)
         SYNC_BN_COLLECTIVES["forward"] += 1
         return out
 
     @staticmethod
-    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+    def backward(ctx, grad: torch.Tensor):
         from tpu_ddp_torch.parallel.collectives import all_reduce_mean_
 
         out = grad.contiguous().clone()
-        all_reduce_mean_([out])
+        all_reduce_mean_([out], ctx.group)
         SYNC_BN_COLLECTIVES["backward"] += 1
-        return out
+        return out, None
 
 
-def sync_stats(stats: torch.Tensor) -> torch.Tensor:
-    """``stats`` averaged over the ranks of the default process group, one
-    all-reduce forward and one backward; ``stats`` itself at one rank."""
-    from tpu_ddp_torch.parallel.runtime import world_size
+def sync_stats(stats: torch.Tensor, group=None) -> torch.Tensor:
+    """``stats`` averaged over the ranks of ``group`` (None: the default
+    process group), one all-reduce forward and one backward; ``stats``
+    itself at one rank."""
+    from tpu_ddp_torch.parallel.collectives import group_size
 
-    return _SyncMean.apply(stats) if world_size() > 1 else stats
+    return _SyncMean.apply(stats, group) if group_size(group) > 1 else stats
 
 
 class BatchNorm(nn.Module):
@@ -95,7 +97,9 @@ class BatchNorm(nn.Module):
     ``x``'s dtype, and the result is ``dtype``. ``update_running = False``
     keeps the running buffers as they are (the recompute of a checkpointed
     forward, ``train/steps.py``). With ``axis_name`` (Flax's name) set, the
-    batch statistics are taken over every rank (module docstring)."""
+    batch statistics are taken over every rank (module docstring), or over
+    the ranks of ``sync_group`` where that is set (the data group of the
+    GSPMD families, ``parallel/tensor_parallel.py``)."""
 
     def __init__(self, n_chans: int, momentum: float = 0.9, eps: float = 1e-5,
                  scale_init: float = 0.5, dtype: torch.dtype = torch.float32,
@@ -103,6 +107,7 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.momentum, self.eps, self.dtype = momentum, eps, dtype
         self.axis_name = axis_name
+        self.sync_group = None
         self.update_running = True
         self.weight = nn.Parameter(torch.full((n_chans,), float(scale_init)))
         self.bias = nn.Parameter(torch.zeros(n_chans))
@@ -115,7 +120,8 @@ class BatchNorm(nn.Module):
             mean = x.mean(dim=(0, 2, 3))
             mean2 = (x * x).mean(dim=(0, 2, 3))
             if self.axis_name is not None:
-                mean, mean2 = sync_stats(torch.stack([mean, mean2])).unbind(0)
+                mean, mean2 = sync_stats(torch.stack([mean, mean2]),
+                                         self.sync_group).unbind(0)
             var = torch.clamp_min(mean2 - mean * mean, 0.0)
             if self.update_running:
                 with torch.no_grad():

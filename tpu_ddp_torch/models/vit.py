@@ -87,20 +87,24 @@ class MultiHeadSelfAttention(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
         self.attention_impl: Callable = full_attention
         self.qkv = _dense(dim, 3 * dim, generator, dtype)
         self.proj = _dense(dim, dim, generator, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, T, C = x.shape
-        head_dim = C // self.num_heads
-        # strided views of the one qkv product, as jnp.split gives them
-        q, k, v = self.qkv(x).split(C, dim=-1)
-        q = q.reshape(B, T, self.num_heads, head_dim)
-        k = k.reshape(B, T, self.num_heads, head_dim)
-        v = v.reshape(B, T, self.num_heads, head_dim)
+        B, T, _ = x.shape
+        # strided views of the one qkv product, as jnp.split gives them; the
+        # heads are counted from its width, so a tensor-parallel rank's qkv
+        # (its heads' q, k and v columns, parallel/tensor_parallel.py)
+        # gives its own heads
+        q, k, v = self.qkv(x).chunk(3, dim=-1)
+        heads = q.shape[-1] // self.head_dim
+        q = q.reshape(B, T, heads, self.head_dim)
+        k = k.reshape(B, T, heads, self.head_dim)
+        v = v.reshape(B, T, heads, self.head_dim)
         o = self.attention_impl(q, k, v)
-        return self.proj(o.reshape(B, T, C))
+        return self.proj(o.reshape(B, T, heads * self.head_dim))
 
 
 class TransformerBlock(nn.Module):

@@ -529,8 +529,12 @@ class FusedUpdate:
     @torch.no_grad()
     def apply(self, grads: Dict[str, torch.Tensor], opt_state,
               params: Dict[str, torch.Tensor], wd_mask: Dict[str, bool],
-              frozen: Optional[Dict[str, bool]] = None) -> Dict[str, torch.Tensor]:
-        return self._run(grads, opt_state, params, wd_mask, None, frozen)
+              frozen: Optional[Dict[str, bool]] = None,
+              g_norm: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """The update of whole leaves; ``g_norm`` is the clip's norm where
+        the caller forms it (tensor parallelism's local leaves), else the
+        global norm of the trainable ``grads``."""
+        return self._run(grads, opt_state, params, wd_mask, None, frozen, g_norm)
 
     @torch.no_grad()
     def apply_sharded(self, gsh: Dict[str, torch.Tensor], opt_state,

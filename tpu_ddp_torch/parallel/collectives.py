@@ -4,8 +4,8 @@ plain all-reduce, and ZeRO-1's reduce-scatter and all-gather.
 Counterpart of ``tpu_ddp/parallel/collectives.py`` (``_quant`` :168,
 ``_dequant`` :182, ``ring_reduce_scatter`` :196, ``ring_all_reduce`` :272,
 ``sync_gradients`` :317). Where the JAX package names a mesh axis, the port
-runs over the default ``torch.distributed`` process group; each rank is one
-process.
+runs over a ``torch.distributed`` process group (the default one, or a group
+of the rank grid: "Groups" below); each rank is one process.
 
 Every call that moves bytes between ranks goes through one of four helpers
 here (``exchange``, ``all_gather_bytes``, ``_all_reduce_flat``,
@@ -57,6 +57,16 @@ synchronises the stream, so nothing overlaps there. ``ring_shift`` (the JAX
 ``group_sum`` and ``group_mean`` are the ring's ``psum`` and ``pmean`` with
 a backward that applies the same collective to the gradient.
 
+Groups. Every collective here takes an optional ``group`` (a
+``torch.distributed`` process group; None: the default group) and then
+runs over that group's ranks alone, each rank at its place in it
+(``group_size``, ``group_rank``): the flat ring, ``reduce_scatter_sum``,
+``all_gather_bytes``, the all-reduces and ``BlockGather``. That is what
+runs ZeRO-1, ZeRO-3 and the compressed ring over the data axis of a rank
+grid (``parallel/mesh.py``: the JAX package's ``axis=DATA_AXIS``), as
+``--zero1`` and ``--grad-compress`` do under sequence parallelism and
+``--parallelism fsdp`` does. With no group a call runs over every rank.
+
 Not ported yet: the telemetry hop hook (``_RING_HOP_HOOK``, ``_emit_hop``).
 """
 
@@ -88,6 +98,16 @@ def group_ranks(group: Optional[dist.ProcessGroup] = None) -> List[int]:
     if not dist.is_initialized():
         return [0]
     return dist.get_process_group_ranks(group or dist.group.WORLD)
+
+
+def group_size(group: Optional[dist.ProcessGroup] = None) -> int:
+    """The ranks of ``group`` (None: the default group's, 1 with none up)."""
+    return world_size() if group is None else dist.get_world_size(group)
+
+
+def group_rank(group: Optional[dist.ProcessGroup] = None) -> int:
+    """This rank's place in ``group`` (None: its rank in the default group)."""
+    return rank() if group is None else dist.get_rank(group)
 
 
 class Exchange:
@@ -147,18 +167,20 @@ def ring_shift(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None,
     return exchange(x.contiguous(), (i + shift) % n, (i - shift) % n, group)
 
 
-def all_gather_bytes(buf: torch.Tensor) -> torch.Tensor:
-    """``(n, len(buf))``: every rank's ``buf``, in rank order."""
-    n = world_size()
+def all_gather_bytes(buf: torch.Tensor,
+                     group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """``(n, len(buf))``: every rank's ``buf``, in rank order (the n ranks
+    of ``group``; None: all)."""
+    n = group_size(group)
     out = torch.empty(n * buf.numel(), dtype=buf.dtype, device=buf.device)
     if _staged(buf):
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         send = _to_host(buf)
         torch.cuda.current_stream(buf.device).synchronize()
-        dist.all_gather_into_tensor(host, send)
+        dist.all_gather_into_tensor(host, send, group=group)
         out.copy_(host, non_blocking=True)
     else:
-        dist.all_gather_into_tensor(out, buf)
+        dist.all_gather_into_tensor(out, buf, group=group)
     return out.view(n, buf.numel())
 
 
@@ -177,20 +199,21 @@ def _all_reduce_flat(tensors: Sequence[torch.Tensor],
     return flat
 
 
-def reduce_scatter_sum(x: torch.Tensor) -> torch.Tensor:
-    """Rank r's ``(len(x) / n,)`` chunk of the SUM over the ranks of the
-    1-D ``x``, cut into n equal chunks in rank order (one
-    ``reduce_scatter_tensor``)."""
-    n = world_size()
+def reduce_scatter_sum(x: torch.Tensor,
+                       group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """Rank r's ``(len(x) / n,)`` chunk of the SUM over the n ranks of
+    ``group`` (None: all) of the 1-D ``x``, cut into n equal chunks in rank
+    order (one ``reduce_scatter_tensor``)."""
+    n = group_size(group)
     out = torch.empty(x.numel() // n, dtype=x.dtype, device=x.device)
     if _staged(x):
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         send = _to_host(x)
         torch.cuda.current_stream(x.device).synchronize()
-        dist.reduce_scatter_tensor(host, send, op=dist.ReduceOp.SUM)
+        dist.reduce_scatter_tensor(host, send, op=dist.ReduceOp.SUM, group=group)
         out.copy_(host, non_blocking=True)
     else:
-        dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM)
+        dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=group)
     return out
 
 
@@ -218,8 +241,9 @@ class BlockGather:
     again, a recompute under remat) it returns nothing."""
 
     def __init__(self, flat: torch.Tensor, starts: Sequence[int],
-                 widths: Sequence[int], n: int, prefetch: bool = True):
-        self.flat, self.n, self.prefetch = flat, n, prefetch
+                 widths: Sequence[int], n: int, prefetch: bool = True,
+                 group: Optional[dist.ProcessGroup] = None):
+        self.flat, self.n, self.prefetch, self.group = flat, n, prefetch, group
         self.starts, self.widths = list(starts), list(widths)
         self.issued = self.waited = 0    # blocks issued, waited for (prefixes)
         self._work: Dict[int, tuple] = {}
@@ -244,10 +268,12 @@ class BlockGather:
                 self._host = _to_host(self.flat)
                 torch.cuda.current_stream(row.device).synchronize()
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            work = dist.all_gather_into_tensor(host, self._row(self._host, k), async_op=True)
+            work = dist.all_gather_into_tensor(host, self._row(self._host, k),
+                                               group=self.group, async_op=True)
             self._work[k] = (out, host, work)
         else:
-            self._work[k] = (out, None, dist.all_gather_into_tensor(out, row, async_op=True))
+            self._work[k] = (out, None, dist.all_gather_into_tensor(
+                out, row, group=self.group, async_op=True))
 
     def _finish(self, k: int) -> torch.Tensor:
         out, host, work = self._work.pop(k)
@@ -348,22 +374,25 @@ def _scatter_back(flat: torch.Tensor, tensors: Sequence[torch.Tensor]) -> None:
         offset += t.numel()
 
 
-def all_reduce_sum_(tensors: Sequence[torch.Tensor]) -> None:
-    """Sum each f32 tensor over the ranks, in place."""
+def all_reduce_sum_(tensors: Sequence[torch.Tensor],
+                    group: Optional[dist.ProcessGroup] = None) -> None:
+    """Sum each f32 tensor over the ranks (of ``group``; None: all), in
+    place."""
     if not tensors:
         return
-    _scatter_back(_all_reduce_flat(tensors), tensors)
+    _scatter_back(_all_reduce_flat(tensors, group), tensors)
 
 
-def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
-    """Average each f32 tensor over the ranks, in place: the SUM, then a
-    division by the rank count held as a 0-dim tensor (a true division on
-    the card, as XLA's ``pmean``; ``ReduceOp.AVG`` is missing from older
-    gloo builds)."""
+def all_reduce_mean_(tensors: Sequence[torch.Tensor],
+                     group: Optional[dist.ProcessGroup] = None) -> None:
+    """Average each f32 tensor over the ranks (of ``group``; None: all), in
+    place: the SUM, then a division by the rank count held as a 0-dim
+    tensor (a true division on the card, as XLA's ``pmean``;
+    ``ReduceOp.AVG`` is missing from older gloo builds)."""
     if not tensors:
         return
-    flat = _all_reduce_flat(tensors)
-    n = torch.full((), world_size(), dtype=flat.dtype, device=flat.device)
+    flat = _all_reduce_flat(tensors, group)
+    n = torch.full((), group_size(group), dtype=flat.dtype, device=flat.device)
     _scatter_back(flat / n, tensors)
 
 
@@ -410,13 +439,12 @@ def rank_mean(total: torch.Tensor, n: int) -> torch.Tensor:
     return total if n == 1 else total / torch.full_like(total, n)
 
 
-def sync_gradients(grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Gradient all-reduce-mean over the ranks (``all_reduce_mean_``), in
-    place; returns ``grads``."""
-    all_reduce_mean_(list(grads.values()))
+def sync_gradients(grads: Dict[str, torch.Tensor],
+                   group: Optional[dist.ProcessGroup] = None) -> Dict[str, torch.Tensor]:
+    """Gradient all-reduce-mean over the ranks (of ``group``; None: all;
+    ``all_reduce_mean_``), in place; returns ``grads``."""
+    all_reduce_mean_(list(grads.values()), group)
     return grads
-
-
 
 
 # ---- the flat ring -------------------------------------------------------
@@ -573,7 +601,8 @@ def _dequant_hop(msg: torch.Tensor, layout: FlatLayout, mode: str, kernels: bool
 
 def _reduce_scatter_hops(x: torch.Tensor, layout: FlatLayout, mode: str,
                          kernels: bool, err: Optional[torch.Tensor],
-                         row: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         row: Optional[torch.Tensor] = None,
+                         group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
     """The N-1 hops of the ring over every leaf of the leaf-major ``x`` at
     once, one message a hop. Hop ``step`` sends chunk ``(idx - 1 - step)
     mod n`` of every leaf and adds the received one to this rank's own
@@ -581,14 +610,14 @@ def _reduce_scatter_hops(x: torch.Tensor, layout: FlatLayout, mode: str,
     c+2, ..., c: each leaf's sums in the order of the JAX package's
     per-leaf ring. The running sums go to a new leaf-major ``acc`` (``x``
     is only read); the last hop's, this rank's chunk of every leaf, to
-    ``row`` (the shard layout) when given, else to ``acc``. Returns
-    ``acc``."""
-    n, idx = world_size(), rank()
+    ``row`` (the shard layout) when given, else to ``acc``. The ranks and
+    places are ``group``'s (None: all). Returns ``acc``."""
+    n, idx = group_size(group), group_rank(group)
     acc = torch.empty_like(x)
     src = x
     for step in range(n - 1):
         msg = _quant_hop(src, layout, (idx - 1 - step) % n, mode, kernels, err)
-        got = exchange(msg, (idx + 1) % n, (idx - 1) % n)
+        got = exchange(msg, (idx + 1) % n, (idx - 1) % n, group)
         c = (idx - 2 - step) % n
         last = row is not None and step == n - 2
         _dequant_hop(got, layout, mode, kernels, row if last else acc,
@@ -600,7 +629,8 @@ def _reduce_scatter_hops(x: torch.Tensor, layout: FlatLayout, mode: str,
 def ring_reduce_scatter_flat(x: torch.Tensor, layout: FlatLayout, *,
                              mode: str = "f32", with_error: bool = False,
                              kernels: bool = False,
-                             out: Optional[torch.Tensor] = None):
+                             out: Optional[torch.Tensor] = None,
+                             group: Optional[dist.ProcessGroup] = None):
     """Ring reduce-scatter of every leaf of the leaf-major 1-D ``x``
     (``layout``) at once, each hop's payload optionally quantized on the
     wire while accumulation stays f32 on the device.
@@ -610,19 +640,22 @@ def ring_reduce_scatter_flat(x: torch.Tensor, layout: FlatLayout, *,
     when given (its gaps between leaves are not written), else a new zero
     row. ``err`` (when ``with_error``) is the quantization error THIS rank
     introduced, leaf-major, each hop's error at its chunk; zero at this
-    rank's own chunk of every leaf, and everywhere in f32 mode."""
+    rank's own chunk of every leaf, and everywhere in f32 mode. The ranks
+    are ``group``'s (None: all)."""
     err = torch.zeros_like(x) if with_error else None
     if out is None:
         out = torch.zeros(layout.rows.width, dtype=x.dtype, device=x.device)
-    if world_size() == 1:
+    if group_size(group) == 1:
         torch._foreach_copy_(layout.rows.views(out), layout.leaves(x))
         return out, err
-    _reduce_scatter_hops(x, layout, mode, kernels, err if mode != "f32" else None, out)
+    _reduce_scatter_hops(x, layout, mode, kernels, err if mode != "f32" else None, out,
+                         group)
     return out, err
 
 
 def ring_all_reduce_flat(x: torch.Tensor, layout: FlatLayout, *, mode: str = "f32",
-                         with_error: bool = False, kernels: bool = False):
+                         with_error: bool = False, kernels: bool = False,
+                         group: Optional[dist.ProcessGroup] = None):
     """Ring all-reduce (SUM) of every leaf of the leaf-major 1-D ``x`` at
     once, with wire compression in both phases: the reduce-scatter hops
     above, then each rank quantizes its reduced chunk of every leaf ONCE
@@ -633,8 +666,9 @@ def ring_all_reduce_flat(x: torch.Tensor, layout: FlatLayout, *, mode: str = "f3
 
     Returns ``(sum, err)``, both leaf-major; ``err`` as in
     ``ring_reduce_scatter_flat`` plus the owner's all-gather-phase
-    quantization error at its own chunk."""
-    n = world_size()
+    quantization error at its own chunk. The ranks are ``group``'s (None:
+    all)."""
+    n = group_size(group)
     if n == 1:
         return x, (torch.zeros_like(x) if with_error else None)
     lossy = with_error and mode != "f32"
@@ -642,10 +676,10 @@ def ring_all_reduce_flat(x: torch.Tensor, layout: FlatLayout, *, mode: str = "f3
     err = (torch.empty_like(x) if lossy else
            torch.zeros_like(x) if with_error else None)
     e = err if lossy else None
-    acc = _reduce_scatter_hops(x, layout, mode, kernels, e)
-    msg = _quant_hop(acc, layout, rank(), mode, kernels, e)
+    acc = _reduce_scatter_hops(x, layout, mode, kernels, e, group=group)
+    msg = _quant_hop(acc, layout, group_rank(group), mode, kernels, e)
     out = torch.empty_like(x)
-    _dequant_hop(all_gather_bytes(msg), layout, mode, kernels, out)
+    _dequant_hop(all_gather_bytes(msg, group), layout, mode, kernels, out)
     return out, err
 
 

@@ -184,16 +184,20 @@ class GradCompressor:
     with every leaf's result bitwise that of its own ring. The residual is
     one such buffer too, handed out as per-leaf views. ``params_template``
     maps leaf names to anything with a ``shape``; ``n_shards`` is the number
-    of ranks."""
+    of ranks, those of ``group`` (None: the default group; on a rank grid
+    the data group, where the ring's input, its output and the residual
+    are then the same on every rank of the other axes: the JAX "residual
+    scattered over data, replicated over sequence")."""
 
     def __init__(self, config: GradCompression, params_template,
-                 n_shards: int):
+                 n_shards: int, group=None):
         from tpu_ddp_torch.parallel.collectives import FlatLayout
 
         if n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {n_shards}")
         self.config = config
         self.n_shards = n_shards
+        self.group = group
         self.kernels = bool(config.kernels)
         self.slots = {name: _leaf_slot(leaf, n_shards)
                       for name, leaf in params_template.items()}
@@ -260,7 +264,8 @@ class GradCompressor:
         from tpu_ddp_torch.parallel.collectives import all_gather_bytes
 
         flat = self._joined(residual)
-        return all_gather_bytes(flat) if self.n_shards > 1 else flat.view(1, -1)
+        return (all_gather_bytes(flat, self.group) if self.n_shards > 1
+                else flat.view(1, -1))
 
     def deshard_residual(self, residual: Tree,
                          rows: Optional[torch.Tensor] = None) -> Tree:
@@ -283,7 +288,7 @@ class GradCompressor:
         n = rows.shape[0]
         at = self if n == self.n_shards else GradCompressor(
             self.config, {name: torch.empty(slot.shape, device="meta")
-                          for name, slot in self.slots.items()}, n)
+                          for name, slot in self.slots.items()}, n, self.group)
         if rows.shape[1] != at.layout.total:
             raise ValueError(
                 f"the checkpoint's residual rows are {tuple(rows.shape)}, not "
@@ -304,10 +309,10 @@ class GradCompressor:
         linear in its inputs, so only that makes a resume at the same rank
         count bitwise the uninterrupted run. Rows cut at another rank count
         stand for their sum when ``param_tree`` is None. ``rank`` defaults
-        to this process's. No collective."""
-        from tpu_ddp_torch.parallel.runtime import rank as process_rank
+        to this process's place in ``group``. No collective."""
+        from tpu_ddp_torch.parallel.collectives import group_rank
 
-        rank = process_rank() if rank is None else rank
+        rank = group_rank(self.group) if rank is None else rank
         own_rows = rows is not None and tuple(rows.shape) == (self.n_shards,
                                                               self.layout.total)
         if param_tree is None and not own_rows:
@@ -346,7 +351,7 @@ class GradCompressor:
         x = self._with_residual(self._flat(grads), residual)
         out, err = ring_all_reduce_flat(
             x, self.layout, mode=self.config.mode, with_error=with_error,
-            kernels=self.kernels)
+            kernels=self.kernels, group=self.group)
         out = out / self._n(out)
         return (self.unflatten(self._tree(out)),
                 self._tree(err) if with_error else None)
@@ -364,7 +369,7 @@ class GradCompressor:
         row, err = ring_reduce_scatter_flat(
             self._with_residual(self._joined(flat), residual), self.layout,
             mode=self.config.mode, with_error=with_error,
-            kernels=self.kernels, out=out)
+            kernels=self.kernels, out=out, group=self.group)
         torch.div(row, self._n(row), out=row)
         shards = dict(zip(self.names, self.layout.rows.views(row)))
         return shards, (self._tree(err) if with_error else None)
@@ -384,7 +389,7 @@ class GradCompressor:
         from tpu_ddp_torch.parallel.collectives import all_reduce_sum_
 
         total = self.local_error_sq(err_state)
-        all_reduce_sum_([total])
+        all_reduce_sum_([total], self.group)
         return total
 
     # ---- accounting -----------------------------------------------------

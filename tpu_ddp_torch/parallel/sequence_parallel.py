@@ -33,10 +33,20 @@ step's loss is the same on the n ranks of a ring, and the mean over all
 ranks counts each data shard n times over n * D ranks. There is no
 ``accuracy``, as in the JAX step.
 
-Deferred: ``zero1`` and ``compress`` (``--zero1``, ``--grad-compress``).
-The JAX step runs the data half of their sync over the data group alone,
-which needs ``ChunkMajor``, ``FlatLayout`` and the ring to take a group
-(``ROADMAP.md`` §1 item 1); the step builders raise for them until then.
+**Overlays** (``zero1``, a ``parallel.zero.Zero1Partition``, and
+``compress``, a ``parallel.compression.GradCompressor``: ``--zero1`` and
+``--grad-compress``; the JAX :87-124). Both are built over
+``mesh.data_group()`` (``D`` shards). The one mean over all the ranks is
+then taken in two halves: first the mean over the sequence ring (one
+all-reduce of every gradient), after which the ranks of a ring hold the
+same gradients, then the data half over the data group alone: the
+partition's reduce-scatter, or the compressed ring
+(``train/steps.py::sync_and_update`` with ``group``). The optimizer state
+is scattered over ``data`` and replicated over ``sequence``, and so is
+the error-feedback residual: the data group at each sequence index runs
+the same arithmetic on the same inputs. The flight recorder's sums go
+over the data group, where the gradients are already complete over the
+ring, so its stats are true globals (the JAX comment at :126-131).
 """
 
 from __future__ import annotations
@@ -47,9 +57,8 @@ from typing import Callable, Dict, Optional
 import torch
 
 from tpu_ddp_torch.health.stats import HealthConfig
-from tpu_ddp_torch.parallel.collectives import rank_mean
+from tpu_ddp_torch.parallel.collectives import all_reduce_mean_, group_size, rank_mean
 from tpu_ddp_torch.parallel.mesh import Mesh
-from tpu_ddp_torch.parallel.runtime import world_size
 from tpu_ddp_torch.train.losses import cross_entropy_loss
 from tpu_ddp_torch.train.optim import Optimizer
 from tpu_ddp_torch.train.state import TrainState
@@ -57,16 +66,17 @@ from tpu_ddp_torch.train.steps import StepHealth, sync_and_update
 
 Batch = Dict[str, torch.Tensor]
 
-#: the message of the sp steps' deferred overlays
-DEFERRED = ("--zero1 and --grad-compress are not ported under --parallelism sp "
-            "yet: their data-axis sync needs ChunkMajor, FlatLayout and the "
-            "ring over a group (ROADMAP.md §1 item 1)")
 
-
-def check_overlays(zero1=None, compress=None) -> None:
-    """Raise for the overlays the sp steps defer (module docstring)."""
-    if zero1 is not None or compress is not None:
-        raise ValueError(DEFERRED)
+def sync_group(grads: Dict[str, torch.Tensor], mesh: Mesh, zero1=None, compress=None):
+    """The group ``sync_and_update`` averages ``grads`` over (module
+    docstring): all the ranks (None) without an overlay; with one, the
+    data group, after ``grads`` are averaged over the sequence ring here,
+    in place."""
+    if zero1 is None and compress is None:
+        return None
+    if group_size(mesh.sequence_group()) > 1:
+        all_reduce_mean_(list(grads.values()), mesh.sequence_group())
+    return mesh.data_group()
 
 
 @contextlib.contextmanager
@@ -100,8 +110,8 @@ def make_sp_train_step(tx: Optimizer, mesh: Mesh, *, sp_flash: bool = False,
     ``health``) for the ViT in ``state.model``, updated in place; ``batch``
     holds this rank's data shard with each image cut to its stripe
     (``image_stripe``), and the shard's labels and mask. ``sp_flash``: the
-    ring's flash tiles (K4-K6). Module docstring for the rest."""
-    check_overlays(zero1, compress)
+    ring's flash tiles (K4-K6); ``zero1`` and ``compress`` the overlays,
+    built over ``mesh.data_group()``. Module docstring for the rest."""
     recorder = StepHealth(health) if health is not None else None
 
     def train_step(state: TrainState, batch: Batch):
@@ -115,8 +125,10 @@ def make_sp_train_step(tx: Optimizer, mesh: Mesh, *, sp_flash: bool = False,
         loss = loss_fn(logits, batch["label"], batch.get("mask"))
         grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
         sums = loss.detach().reshape(1)
-        stats = sync_and_update(tx, state, grads, params, sums, health=recorder)
-        metrics = {"loss": rank_mean(sums[0], world_size())}
+        group = sync_group(grads, mesh, zero1, compress)
+        stats = sync_and_update(tx, state, grads, params, sums, compress=compress,
+                                zero1=zero1, health=recorder, group=group)
+        metrics = {"loss": rank_mean(sums[0], group_size(group))}
         if stats is not None:
             metrics["health"] = stats
         return state, metrics

@@ -33,8 +33,19 @@ trainable leaves alone; its shards go through K1's frozen rows (``u`` zero,
 whatever the pad mask says), and the clip's norm sums the trainable shards.
 The EMA row keeps every leaf.
 
-The ranks are the default process group's (the JAX package's ``data``
-axis); with one rank nothing here calls a collective.
+The ranks are those of ``group`` (a ``torch.distributed`` process group;
+None: the default group), the JAX package's ``data`` axis: the whole world
+under data parallelism, ``mesh.data_group()`` on a rank grid
+(``parallel/mesh.py``), where the state is then replicated over the other
+axes (``--zero1`` under sequence parallelism, ``--parallelism fsdp`` and
+``fsdp_tp``); with one rank nothing here calls a collective.
+``average=False`` makes the gradients' reduction a SUM (the GSPMD steps of
+``parallel/tensor_parallel.py`` divide by the global count in the loss
+already), and ``leaf_sums`` (``train/optim.py``) sums each leaf's squares
+over every rank that holds a piece of it (there: over the model group too),
+for the clip's norm and lamb's trust ratios, which the update then takes
+over whole leaves. DP's ``--zero1`` and ``--zero3`` build no such sums and
+refuse lamb, as the JAX package does (``make_optimizer``'s ``zero1_axis``).
 
 The flight recorder (``health_stats``, the JAX :297): the shard-local sums
 of the gradient and update shards go over the ranks in the step's one
@@ -85,12 +96,12 @@ from tpu_ddp_torch.parallel.collectives import (
     ChunkMajor,
     all_gather_bytes,
     all_reduce_sum_,
+    group_rank,
+    group_size,
     rank_mean,
     reduce_scatter_sum,
 )
 from tpu_ddp_torch.parallel.compression import _flat_leaf, _leaf_slot, _unflat_leaf
-from tpu_ddp_torch.parallel.runtime import rank as process_rank
-from tpu_ddp_torch.parallel.runtime import world_size
 from tpu_ddp_torch.train.optim import OptState
 
 DATA_AXIS = "data"
@@ -101,22 +112,26 @@ Tree = Dict[str, torch.Tensor]
 REPLICATED_SLOTS = ("count", "sched_count")
 
 
-def sharded_global_norm(shards) -> torch.Tensor:
-    """The global norm of a tree that lives as 1/N shards over the ranks:
-    each shard's float32 sum of squares, summed, summed over the ranks, then
-    ``sqrt`` (the JAX ``clip_by_global_norm_sharded``'s norm, :735-739).
-    The pad elements are zero and add nothing."""
+def sharded_global_norm(shards, group=None) -> torch.Tensor:
+    """The global norm of a tree that lives as 1/N shards over the ranks
+    (of ``group``; None: all): each shard's float32 sum of squares, summed,
+    summed over the ranks, then ``sqrt`` (the JAX
+    ``clip_by_global_norm_sharded``'s norm, :735-739). The pad elements are
+    zero and add nothing."""
     sq = sum(torch.sum(torch.square(x.to(torch.float32))) for x in shards)
-    if world_size() > 1:
-        all_reduce_sum_([sq])
+    if group_size(group) > 1:
+        all_reduce_sum_([sq], group)
     return torch.sqrt(sq)
 
 
-def clip_by_global_norm_sharded(updates: Tree, max_norm: float) -> Tree:
+def clip_by_global_norm_sharded(updates: Tree, max_norm: float,
+                                g_norm: Optional[torch.Tensor] = None) -> Tree:
     """``optax.clip_by_global_norm`` for gradients living as 1/N shards: the
-    norm is ``sharded_global_norm`` (squared shards summed over the ranks
-    before the ``sqrt``), so every rank clips by the true global norm."""
-    g_norm = sharded_global_norm(updates.values())
+    norm is ``g_norm`` when given, else ``sharded_global_norm`` over all the
+    ranks (squared shards summed before the ``sqrt``), so every rank clips
+    by the true global norm."""
+    if g_norm is None:
+        g_norm = sharded_global_norm(updates.values())
     trigger = g_norm < max_norm
     return {n: torch.where(trigger, t, (t / g_norm) * max_norm)
             for n, t in updates.items()}
@@ -128,7 +143,9 @@ class Zero1Partition:
 
     ``tx`` is the ``Optimizer`` built with ``zero1_axis``;
     ``params_template`` maps leaf names to anything with a ``shape``;
-    ``rank`` defaults to this process's rank in the default group. The
+    ``group`` is the ranks' process group (None: the default group) and
+    ``rank`` defaults to this process's place in it; ``average`` and
+    ``leaf_sums`` as in the module docstring. The
     decay mask is ``tx.decay_mask``, which both the plain chain and K1
     read; when ``tx`` has none (legal at weight decay 0), it is set here
     to ``ndim >= 2`` of the template's original shapes. A compressor is
@@ -140,12 +157,19 @@ class Zero1Partition:
     _ROWS = ("grad", "param")
 
     def __init__(self, tx, params_template, n_shards: int,
-                 rank: Optional[int] = None):
+                 rank: Optional[int] = None, group=None, *, average: bool = True,
+                 leaf_sums: Optional[Callable] = None):
         if n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {n_shards}")
         self.tx = tx
         self.n_shards = n_shards
-        self.rank = process_rank() if rank is None else rank
+        self.group = group
+        self.rank = group_rank(group) if rank is None else rank
+        #: the gradients' reduction: the mean over the ranks, or (False) the sum
+        self.average = average
+        #: the per-leaf sums over the ranks (module docstring); None: the
+        #: clip's norm is ``sharded_global_norm`` over ``group``
+        self.leaf_sums = leaf_sums
         self.param_slots = {name: _leaf_slot(leaf, n_shards)
                             for name, leaf in params_template.items()}
         self.names = list(self.param_slots)
@@ -258,10 +282,10 @@ class Zero1Partition:
                             with_error: bool = False):
         """Local full-shaped grads -> ``(shards, err_state)``: this rank's
         slice of the gradient AVERAGED over the ranks, the sum and then a
-        true division by the rank count as ``all_reduce_mean_`` does. With
-        a compressor attached, its quantized ring instead, with
-        ``residual``/``with_error`` for error feedback; ``err_state`` is
-        None otherwise."""
+        true division by the rank count as ``all_reduce_mean_`` does (the
+        sum alone when ``average`` is False). With a compressor attached,
+        its quantized ring instead, with ``residual``/``with_error`` for
+        error feedback; ``err_state`` is None otherwise."""
         device = next(iter(grads.values())).device
         bufs = self._buffers(device)
         if self.compress is not None:
@@ -274,10 +298,13 @@ class Zero1Partition:
                                        dtype=torch.float32, device=device)
         send = bufs["send"]
         self.layout.pack_(send, [grads[n] for n in self.names])
-        total = (reduce_scatter_sum(send.view(-1)) if self.n_shards > 1
+        total = (reduce_scatter_sum(send.view(-1), self.group) if self.n_shards > 1
                  else send[0])
-        n = torch.full((), self.n_shards, dtype=total.dtype, device=total.device)
-        torch.div(total, n, out=bufs["grad"])
+        if self.average:
+            n = torch.full((), self.n_shards, dtype=total.dtype, device=total.device)
+            torch.div(total, n, out=bufs["grad"])
+        else:
+            bufs["grad"].copy_(total)
         return dict(bufs["grad_views"]), None
 
     def param_shards(self, params: Tree) -> Tree:
@@ -295,7 +322,7 @@ class Zero1Partition:
 
     def _gather_rows(self, row: torch.Tensor) -> torch.Tensor:
         """Every rank's ``(width,)`` row, ``(n, width)``."""
-        return all_gather_bytes(row) if self.n_shards > 1 else row.view(1, -1)
+        return all_gather_bytes(row, self.group) if self.n_shards > 1 else row.view(1, -1)
 
     @torch.no_grad()
     def gather_params_(self, params: Tree) -> None:
@@ -350,16 +377,20 @@ class Zero1Partition:
         gradient shards ``gsh``: K1 when ``tx`` has it, else the plain chain,
         the pad mask and ``p + u``. Returns the masked updates."""
         fused = self.tx.fused
-        if fused is not None:
-            g_norm = None
-            if self.tx.recipe.grad_clip_norm > 0:      # over the trainable shards
-                frozen = self.tx.frozen_mask(psh)
-                tr = [g for n, g in gsh.items() if not frozen[n]]
-                g_norm = (sharded_global_norm(tr) if tr else
+        g_norm = None
+        if self.tx.recipe.grad_clip_norm > 0:          # over the trainable shards
+            frozen = self.tx.frozen_mask(psh)
+            tr = {n: g for n, g in gsh.items() if not frozen[n]}
+            if self.leaf_sums is not None and tr:
+                g_norm = self.tx.clip_norm(tr, self.leaf_sums)
+            elif tr or fused is not None:
+                g_norm = (sharded_global_norm(tr.values(), self.group) if tr else
                           torch.zeros((), device=next(iter(gsh.values())).device))
+        if fused is not None:
             updates = fused.apply_sharded(gsh, opt_state, psh, self, g_norm)
         else:
-            updates = self.mask_pad(self.tx.update(gsh, opt_state, psh))
+            updates = self.mask_pad(self.tx.update(gsh, opt_state, psh, g_norm=g_norm,
+                                                   leaf_sums=self.leaf_sums))
             with torch.no_grad():
                 for n, u in updates.items():
                     psh[n].copy_(psh[n] + u)
@@ -398,7 +429,7 @@ class Zero1Partition:
         if per_layer:
             vec = torch.cat([vec, g_sq] + ([p_sq] if self.scattered_params else []))
         if self.n_shards > 1:
-            all_reduce_sum_([sums, vec])
+            all_reduce_sum_([sums, vec], self.group)
         param_sq = vec[k - 1] if self.scattered_params else torch.sum(p_sq)
         pl = None
         if per_layer:
@@ -416,7 +447,7 @@ class Zero1Partition:
 
     def _sharded_slots(self) -> List[str]:
         r = self.tx.recipe
-        slots = (["mu", "nu"] if r.optimizer == "adamw" else
+        slots = (["mu", "nu"] if r.optimizer in ("adamw", "lamb") else
                  ["trace"] if r.momentum > 0 else [])
         return slots + (["ema"] if r.ema_decay else [])
 
@@ -442,7 +473,7 @@ class Zero1Partition:
                 self._slice_into(views, params)
             setattr(state, slot, views)
         count = lambda: torch.zeros((), dtype=torch.int32, device=device)  # noqa: E731
-        if r.optimizer == "adamw":
+        if r.optimizer in ("adamw", "lamb"):
             state.count = count()
         if callable(r.lr):
             state.sched_count = count()
@@ -501,7 +532,7 @@ class Zero1Partition:
                 repl += slot.size * 4
                 shard += self.shard_size(n) * 4
                 pad += (slot.padded - slot.size) * 4
-        scalars = int(r.optimizer == "adamw") + int(callable(r.lr))
+        scalars = int(r.optimizer in ("adamw", "lamb")) + int(callable(r.lr))
         repl += 4 * scalars
         shard += 4 * scalars
         return {
@@ -563,8 +594,9 @@ class Zero3Partition(Zero1Partition):
     _ROWS = ("grad",)
 
     def __init__(self, tx, params_template, n_shards: int,
-                 rank: Optional[int] = None, prefetch: bool = True):
-        super().__init__(tx, params_template, n_shards, rank)
+                 rank: Optional[int] = None, prefetch: bool = True, group=None,
+                 **kwargs):
+        super().__init__(tx, params_template, n_shards, rank, group, **kwargs)
         self.prefetch = prefetch
         self.block_names, self.blocks = param_blocks(params_template)
         self.block_layouts = [
@@ -717,7 +749,7 @@ class ParamStream:
                        for blk in part.blocks]
         self.gather = BlockGather(part._row, part.block_starts,
                                   [lay.width for lay in part.block_layouts],
-                                  part.n_shards, prefetch)
+                                  part.n_shards, prefetch, part.group)
         self._handles: list = []
 
     def __enter__(self) -> "ParamStream":

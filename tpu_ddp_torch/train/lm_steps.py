@@ -36,7 +36,10 @@ DP step's mean over ``(B, T - 1)``. Each rank's gradient is then n times
 its own partial, and the all-reduce mean over all ranks of
 ``sync_and_update`` is the exact gradient
 (``parallel/sequence_parallel.py`` on the convention). ``zero1`` and
-``compress`` are deferred there too.
+``compress`` (``--zero1``, ``--grad-compress``; the JAX :165-306) are built
+over ``mesh.data_group()``: the gradients are averaged over the ring first
+and the data half is theirs, as in the ViT's sp step
+(``sequence_parallel.sync_group``).
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from tpu_ddp_torch.health.stats import HealthConfig
-from tpu_ddp_torch.parallel.collectives import group_sum, rank_mean, ring_shift
+from tpu_ddp_torch.parallel.collectives import group_size, group_sum, rank_mean, ring_shift
 from tpu_ddp_torch.parallel.runtime import world_size
 from tpu_ddp_torch.train.optim import Optimizer
 from tpu_ddp_torch.train.state import TrainState, create_train_state
@@ -113,10 +116,10 @@ def make_sp_lm_train_step(tx: Optimizer, mesh, *, sp_flash: bool = False,
     ``health`` under ``health``) for the LM in ``state.model``, updated in
     place; ``mesh`` the rank's ``parallel.mesh.Mesh`` and ``tokens`` its
     chunk of its data shard's rows; ``sp_flash``: the ring's flash tiles
-    (K4-K6). Module docstring for the rest."""
-    from tpu_ddp_torch.parallel.sequence_parallel import check_overlays, sequence_parallel
+    (K4-K6); ``zero1`` and ``compress`` the overlays over the data group.
+    Module docstring for the rest."""
+    from tpu_ddp_torch.parallel.sequence_parallel import sequence_parallel, sync_group
 
-    check_overlays(zero1, compress)
     recorder = StepHealth(health) if health is not None else None
     group = mesh.sequence_group()
 
@@ -135,8 +138,10 @@ def make_sp_lm_train_step(tx: Optimizer, mesh, *, sp_flash: bool = False,
         loss = total[0] / total[1]
         grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
         sums = loss.detach().reshape(1)
-        stats = sync_and_update(tx, state, grads, params, sums, health=recorder)
-        metrics = {"loss": rank_mean(sums[0], world_size())}
+        sync = sync_group(grads, mesh, zero1, compress)
+        stats = sync_and_update(tx, state, grads, params, sums, compress=compress,
+                                zero1=zero1, health=recorder, group=sync)
+        metrics = {"loss": rank_mean(sums[0], group_size(sync))}
         if stats is not None:
             metrics["health"] = stats
         return state, metrics

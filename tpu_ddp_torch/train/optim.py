@@ -18,7 +18,11 @@ left as they are).
 ``scale_by_adam`` with eps 1e-6, the masked ``add_decayed_weights``,
 ``scale_by_trust_ratio`` (each leaf's update scaled by ``||p|| / ||u||``,
 taken as 1 where either norm is 0), then the learning rate; the clip,
-freeze masks and EMA wrap it as they wrap AdamW. K1 has no lamb branch in
+freeze masks and EMA wrap it as they wrap AdamW. Where the leaves are cut
+over ranks (tensor parallelism's leaves, FSDP's shards), ``leaf_sums``
+gives each leaf's whole norms: the clip's and the trust ratio's squares are
+summed over the ranks that hold a leaf's pieces before the ``sqrt``, so
+every rank scales its piece by the whole leaf's ratio, as GSPMD does. K1 has no lamb branch in
 either package: the JAX package quietly drops its fused update for lamb
 (:120-132), the port refuses ``kernels=True`` with lamb instead.
 
@@ -60,6 +64,10 @@ from tpu_ddp_torch.ops.fused_update import (
 )
 
 Params = Dict[str, torch.Tensor]
+#: ``leaf_sums(vec, names) -> vec``: ``vec`` (k, L) holds per-leaf values of
+#: this rank's pieces (column i is leaf ``names[i]``); the result their sums
+#: over the ranks that hold each leaf's pieces, each whole leaf counted once
+LeafSums = Callable[[torch.Tensor, list], torch.Tensor]
 
 #: optax ``lamb``'s eps (AdamW's is ``EPS``, 1e-8)
 LAMB_EPS = 1e-6
@@ -175,34 +183,60 @@ class Optimizer:
             state.ema = {n: p.detach().clone() for n, p in params.items()}
         return state
 
+    def clip_norm(self, grads: Params, leaf_sums: LeafSums) -> Optional[torch.Tensor]:
+        """The clip's global norm of the trainable ``grads``, whose leaves
+        are cut over ranks as ``leaf_sums`` sums them; None with the clip
+        off or no trainable leaf."""
+        frozen = self.frozen_mask(grads)
+        names = [n for n in grads if not frozen[n]]
+        if self.recipe.grad_clip_norm <= 0 or not names:
+            return None
+        sq = torch.stack([torch.sum(torch.square(grads[n].to(torch.float32))) for n in names])
+        return torch.sqrt(torch.sum(leaf_sums(sq[None], names)))
+
     @torch.no_grad()
-    def apply(self, grads: Params, state: OptState, params: Params) -> Params:
+    def apply(self, grads: Params, state: OptState, params: Params,
+              g_norm: Optional[torch.Tensor] = None,
+              leaf_sums: Optional[LeafSums] = None) -> Params:
+        """``update`` and ``p + u`` (or K1), in place; ``g_norm`` and
+        ``leaf_sums`` as in ``update``."""
         mask = self.wd_mask(params)
         if self.fused is not None:
+            if g_norm is None and leaf_sums is not None:
+                g_norm = self.clip_norm(grads, leaf_sums)
             return self.fused.apply(grads, state, params, mask,
-                                    self.frozen_mask(params))
-        u = self.update(grads, state, params)
+                                    self.frozen_mask(params), g_norm=g_norm)
+        u = self.update(grads, state, params, g_norm=g_norm, leaf_sums=leaf_sums)
         for n, x in u.items():                      # apply_updates
             params[n].copy_(params[n] + x)
         return u
 
     @torch.no_grad()
-    def update(self, grads: Params, state: OptState, params: Params) -> Params:
+    def update(self, grads: Params, state: OptState, params: Params,
+               g_norm: Optional[torch.Tensor] = None,
+               leaf_sums: Optional[LeafSums] = None) -> Params:
         """The plain chain, one stage at a time over all leaves, in the
         order ``make_optimizer`` chains the optax transforms: returns the
         updates and moves ``state`` in place; ``params`` are read only. The
         chain runs on the trainable leaves; frozen ones get zeros
-        (``set_to_zero``) before the EMA."""
+        (``set_to_zero``) before the EMA. ``g_norm``: the clip's global
+        norm of the trainable gradients where the caller forms it (leaves
+        that live sharded over ranks: ZeRO's, tensor parallelism's);
+        ``leaf_sums`` where the leaves are cut over ranks (module docstring):
+        the clip's norm, when no ``g_norm`` is given, and lamb's trust
+        ratios are then the whole leaves'."""
         r = self.recipe
         wd = r.weight_decay
         mask = self.wd_mask(params)
         frozen = self.frozen_mask(grads)
         u = {n: g for n, g in grads.items() if not frozen[n]}
         if r.grad_clip_norm > 0 and u:
-            if self.zero1_axis is not None:
+            if g_norm is None and leaf_sums is not None:
+                g_norm = self.clip_norm(grads, leaf_sums)
+            if self.zero1_axis is not None or g_norm is not None:
                 from tpu_ddp_torch.parallel.zero import clip_by_global_norm_sharded
 
-                u = clip_by_global_norm_sharded(u, r.grad_clip_norm)
+                u = clip_by_global_norm_sharded(u, r.grad_clip_norm, g_norm)
             else:                                   # clip_by_global_norm
                 g_norm = global_norm(u.values())
                 u = {n: torch.where(g_norm < r.grad_clip_norm, g,
@@ -221,7 +255,7 @@ class Optimizer:
                 u = {n: x + wd * params[n] if mask[n] else x
                      for n, x in u.items()}
             if r.optimizer == "lamb":               # scale_by_trust_ratio
-                u = {n: x * trust_ratio(params[n], x) for n, x in u.items()}
+                u = scale_by_trust_ratio(params, u, leaf_sums)
             for n in u:
                 state.mu[n].copy_(mu[n])
                 state.nu[n].copy_(nu[n])
@@ -249,14 +283,33 @@ class Optimizer:
         return u
 
 
+def _ratio(p_norm: torch.Tensor, u_norm: torch.Tensor) -> torch.Tensor:
+    zero = (p_norm == 0.0) | (u_norm == 0.0)
+    return torch.where(zero, torch.ones_like(p_norm), p_norm / (u_norm + 0.0))
+
+
 def trust_ratio(param: torch.Tensor, update: torch.Tensor) -> torch.Tensor:
     """optax ``scale_by_trust_ratio``'s factor (no min norm, trust
     coefficient 1, eps 0): ``||param|| / ||update||``, and 1 where either
     norm is 0."""
-    p_norm = torch.sqrt(torch.sum(param * param))
-    u_norm = torch.sqrt(torch.sum(update * update))
-    zero = (p_norm == 0.0) | (u_norm == 0.0)
-    return torch.where(zero, torch.ones_like(p_norm), p_norm / (u_norm + 0.0))
+    return _ratio(torch.sqrt(torch.sum(param * param)),
+                  torch.sqrt(torch.sum(update * update)))
+
+
+def scale_by_trust_ratio(params: Params, updates: Params,
+                         leaf_sums: Optional[LeafSums] = None) -> Params:
+    """Each leaf of ``updates`` times its ``trust_ratio``; under
+    ``leaf_sums`` (leaves cut over ranks) the param's and the update's
+    squares summed over the ranks that hold the leaf's pieces first, so the
+    ratio is the whole leaf's (module docstring)."""
+    if leaf_sums is None:
+        return {n: x * trust_ratio(params[n], x) for n, x in updates.items()}
+    names = list(updates)
+    sq = torch.stack([torch.stack([torch.sum(params[n] * params[n]), torch.sum(x * x)])
+                      for n, x in updates.items()], 1)
+    p_norm, u_norm = torch.sqrt(leaf_sums(sq, names))
+    ratio = _ratio(p_norm, u_norm)
+    return {n: x * ratio[i] for i, (n, x) in enumerate(updates.items())}
 
 
 def make_optimizer(

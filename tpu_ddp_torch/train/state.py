@@ -24,6 +24,13 @@ order is the param-layout residual (see
 comes from ``(seed, epoch)`` (``data/loader.py``), and the in-step draws of
 augment and mixup from ``(seed, step, rank)`` (``data/augment.py``), so no
 loader or generator state is saved.
+
+``StateLayout`` is how a rank holds the state against that one layout: cut
+over a model group (``tp``, ``parallel/tensor_parallel.py``'s
+``TensorParallel``), the optimizer state (and under ZeRO-3 the params)
+scattered over a data group (``zero``, a ``Zero1Partition`` or
+``Zero3Partition``), both, or neither (a replicated run). The trainer
+saves, restores, checks and evaluates every family through it.
 """
 
 from __future__ import annotations
@@ -110,6 +117,66 @@ def load_model_state_(state: TrainState, model_state: Dict[str, torch.Tensor],
         if name not in zero.param_slots:
             t.copy_(model_state[name])
     zero.load_params_(state.param_shards, {n: model_state[n] for n in zero.param_slots})
+
+
+@dataclasses.dataclass
+class StateLayout:
+    """A rank's layout of a ``TrainState`` (module docstring): ``tp`` (a
+    ``TensorParallel`` or None) and ``zero`` (a ZeRO partition or None).
+    The checkpoint keeps the one replicated layout: the methods here gather
+    on save and cut on restore."""
+
+    tp: Optional[object] = None
+    zero: Optional[object] = None
+
+    @property
+    def split(self) -> bool:
+        """Whether the ranks hold different params (a model cut, ZeRO-3)."""
+        return self.tp is not None or scattered(self.zero)
+
+    def model_state(self, state: TrainState) -> Dict[str, torch.Tensor]:
+        """The whole model state dict (a collective when ``split``: every
+        rank calls it)."""
+        local = full_model_state(state, self.zero)
+        return self.tp.gather(local) if self.tp is not None else local
+
+    def load_model_state_(self, state: TrainState, whole: Dict[str, torch.Tensor]) -> None:
+        """Write a whole model state (a checkpoint's) into this rank's
+        layout, in place; no collective."""
+        local = self.tp.scatter(whole) if self.tp is not None else whole
+        load_model_state_(state, local, self.zero)
+
+    def deshard_opt_state(self, opt_state: OptState) -> OptState:
+        """This rank's optimizer state -> the replicated layout (a
+        collective under a cut)."""
+        if self.zero is not None:
+            opt_state = self.zero.deshard_opt_state(opt_state)
+        return self.tp.opt_state(opt_state, self.tp.gather) if self.tp is not None else opt_state
+
+    def shard_opt_state(self, opt_state: OptState) -> OptState:
+        """A replicated-layout optimizer state -> this rank's (no
+        collective)."""
+        if self.tp is not None:
+            opt_state = self.tp.opt_state(opt_state, self.tp.scatter)
+        return self.zero.shard_opt_state(opt_state) if self.zero is not None else opt_state
+
+    def eval_params(self, state: TrainState, ema: bool) -> Optional[Dict[str, torch.Tensor]]:
+        """The weights evaluation reads in place of the module's (the JAX
+        ``_eval_source_state`` :2615-2640): the EMA shadow under ``ema``
+        (gathered from its shards under ZeRO), the params gathered from
+        their shards under ZeRO-3, else None; a collective under ZeRO. Under
+        a model cut they are this rank's leaves, which its cut model reads."""
+        if ema:
+            shadow = state.opt_state.ema
+            return shadow if self.zero is None else self.zero.gather_params(shadow)
+        if scattered(self.zero):
+            return self.zero.deshard_params(state.param_shards)
+        return None
+
+    def local_params(self, state: TrainState) -> Dict[str, torch.Tensor]:
+        """What this rank holds of the params: its shards under ZeRO-3,
+        else its leaves."""
+        return state.param_shards if scattered(self.zero) else state.params()
 
 
 def checkpoint_state(step: int, model_state: Dict[str, torch.Tensor],

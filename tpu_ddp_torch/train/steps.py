@@ -103,6 +103,7 @@ from tpu_ddp_torch.models.resnet import BatchNorm
 from tpu_ddp_torch.parallel.collectives import (
     all_reduce_mean_,
     all_reduce_sum_,
+    group_size,
     rank_mean,
     sync_gradients,
 )
@@ -189,11 +190,12 @@ class StepHealth:
 
     @torch.no_grad()
     def finish(self, sums: torch.Tensor, grads, updates, err_state, *,
-               compress=None, zero1=None) -> dict:
+               compress=None, zero1=None, group=None) -> dict:
         """The stats of the synchronised ``grads`` (ZeRO-1: this rank's
         shards) and the applied ``updates``, and the ring's error; ``sums``
-        (the step's metric sums, its loss first) are summed over the ranks in
-        place, in the same all-reduce. Then the guard's select."""
+        (the step's metric sums, its loss first) are summed over the ranks
+        (of ``group``; None: all) in place, in the same all-reduce. Then the
+        guard's select."""
         cfg = self.config
         err_sq = None if err_state is None else compress.local_error_sq(err_state)
         # K1's updates are contiguous; the plain chain's keep a conv grad's
@@ -204,9 +206,9 @@ class StepHealth:
                 sums=sums, grad_shards=grads, param_norms=self._param_norms,
                 update_shards=updates, per_layer=cfg.per_layer, compress_error_sq=err_sq)
         else:
-            n = world_size()
+            n = group_size(group)
             if n > 1:
-                all_reduce_sum_([sums] + ([] if err_sq is None else [err_sq]))
+                all_reduce_sum_([sums] + ([] if err_sq is None else [err_sq]), group)
             stats = health_stats(loss=rank_mean(sums[0], n), grads=grads, updates=updates,
                                  param_norms=self._param_norms, per_layer=cfg.per_layer,
                                  compress_error_sq=err_sq)
@@ -217,7 +219,8 @@ class StepHealth:
 
 def sync_and_update(tx: Optimizer, state: TrainState, grads: Dict[str, torch.Tensor],
                     params: Dict[str, torch.Tensor], sums: torch.Tensor, *,
-                    compress=None, zero1=None, health: Optional[StepHealth] = None):
+                    compress=None, zero1=None, health: Optional[StepHealth] = None,
+                    group=None):
     """The tail every data-parallel step shares: average ``grads`` (this
     rank's) over the ranks and update ``params`` (ZeRO-3: this rank's
     shards, ``state.param_shards``) and ``state`` in place, by ZeRO-1's or
@@ -225,7 +228,10 @@ def sync_and_update(tx: Optimizer, state: TrainState, grads: Dict[str, torch.Ten
     (nothing at one rank), then ``tx``; thread the error-feedback residual
     and count the step (module docstring). ``sums`` are the step's metric
     sums on this rank (its loss first), summed over the ranks in place.
-    Returns ``metrics["health"]`` under ``health``, else None."""
+    The ranks are ``group``'s (None: all; the data group of a rank grid
+    under sequence parallelism's overlays, over which ``zero1`` and
+    ``compress`` are built too). Returns ``metrics["health"]`` under
+    ``health``, else None."""
     ef = compress is not None and compress.config.error_feedback
     want_err = compress is not None and (ef or health is not None)
     residual = state.grad_residual if ef else None
@@ -235,7 +241,8 @@ def sync_and_update(tx: Optimizer, state: TrainState, grads: Dict[str, torch.Ten
 
     def record(grads_seen, updates, err):
         nonlocal stats
-        stats = health.finish(sums, grads_seen, updates, err, compress=compress, zero1=zero1)
+        stats = health.finish(sums, grads_seen, updates, err, compress=compress, zero1=zero1,
+                              group=group)
 
     if zero1 is not None:
         _, _, err_state = zero1.sharded_update(
@@ -245,13 +252,13 @@ def sync_and_update(tx: Optimizer, state: TrainState, grads: Dict[str, torch.Ten
         if compress is not None:
             grads, err_state = compress.all_reduce_mean(grads, residual,
                                                         with_error=want_err)
-        elif world_size() > 1:
-            grads = sync_gradients(grads)
+        elif group_size(group) > 1:
+            grads = sync_gradients(grads, group)
         updates = tx.apply(grads, state.opt_state, params)
         if health is not None:
             record(grads, updates, err_state)
-    if health is None and world_size() > 1:
-        all_reduce_sum_([sums])
+    if health is None and group_size(group) > 1:
+        all_reduce_sum_([sums], group)
     if ef:
         if health is not None and health.guard is not None:
             tree_select_(stats["all_finite"], list(err_state.values()),
@@ -500,12 +507,13 @@ def make_predict_step() -> Callable[..., torch.Tensor]:
 
 
 def make_eval_step(loss_fn: Callable = cross_entropy_loss,
-                   compute_accuracy: bool = True) -> Callable[..., dict]:
+                   compute_accuracy: bool = True, group=None) -> Callable[..., dict]:
     """``eval(state, batch, params=None) -> {correct, count, loss_sum}``,
-    each summed over the ranks: running-stats BatchNorm; ``params`` (the
-    EMA shadow) replaces the model's params when given. ``loss_sum`` is
-    each rank's masked-mean loss times ITS OWN count before the sum, so the
-    eval loss is exact across shards with unequal real counts."""
+    each summed over the ranks (of ``group``; None: all): running-stats
+    BatchNorm; ``params`` (the EMA shadow) replaces the model's params when
+    given. ``loss_sum`` is each rank's masked-mean loss times ITS OWN count
+    before the sum, so the eval loss is exact across shards with unequal
+    real counts."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch,
@@ -520,9 +528,9 @@ def make_eval_step(loss_fn: Callable = cross_entropy_loss,
             count = (mask.to(torch.float32).sum() if mask is not None else
                      torch.full_like(loss, float(logits.shape[0])))
         out = {"correct": correct, "count": count, "loss_sum": loss * count}
-        if world_size() > 1:
+        if group_size(group) > 1:
             sums = torch.stack(list(out.values()))
-            all_reduce_sum_([sums])
+            all_reduce_sum_([sums], group)
             out = dict(zip(out, sums))
         return out
 

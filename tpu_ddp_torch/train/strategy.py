@@ -13,12 +13,22 @@ stays in the ``Trainer``, as in JAX (:296-297).
 ``parallel/sequence_parallel.py::make_sp_train_step``, which gets each
 image cut to the rank's stripe (``image_stripe``, the JAX batch spec
 ``P(data, sequence)``); the state is the plain module's, replicated on
-every rank (the params' shapes are the same either way), so checkpoints
-keep the replicated layout; evaluation and prediction run the plain module
-on whole images, each rank on its data shard's rows, replicated over the
-ring (the JAX :400-411). ``--zero1`` and ``--grad-compress`` under sp are
-deferred (``ROADMAP.md`` §1 item 1) and raise. The other families (fsdp,
-tp, fsdp_tp, pp, ep) are not ported yet (``ROADMAP.md`` §1 item 2) and
+every rank (the params' shapes are the same either way); evaluation and
+prediction run the plain module on whole images, each rank on its data
+shard's rows, replicated over the ring (the JAX :400-411). ``--zero1`` and
+``--grad-compress`` (the JAX :368-398) build the partition and the
+compressor over ``mesh.data_group()``: the optimizer state and the
+error-feedback residual scattered over data and replicated over sequence;
+the trainer de-shards them for checkpoints as under dp.
+
+``fsdp``, ``tp`` and ``fsdp_tp`` (the JAX :504-537) are the GSPMD family
+of ``parallel/tensor_parallel.py``: the ViT with Megatron rules, the conv
+families (NetResDeep, the ResNet family, WideResNet) with channel rules
+(``_tp_rules_for``), fsdp for any model. Their eval and predict steps
+(``_gspmd_eval_predict``, the JAX :188) run the sharded model on each data
+shard's rows, the counts summed over the data group once; the strategy's
+``layout`` gathers the state whole for checkpoints and cuts it again on
+restore. pp and ep are not ported yet (``ROADMAP.md`` §1 item 2) and
 raise.
 """
 
@@ -41,7 +51,7 @@ from tpu_ddp_torch.train.losses import cross_entropy_loss
 
 PARALLELISMS = ("dp", "fsdp", "tp", "fsdp_tp", "pp", "sp", "ep")
 #: the families the port runs
-PORTED = ("dp", "sp")
+PORTED = ("dp", "sp", "fsdp", "tp", "fsdp_tp")
 
 # Which mesh axis (other than data) each inferred mode keys on.
 _AXIS_TO_MODE = {
@@ -114,6 +124,27 @@ def default_mesh_sizes(parallelism: str) -> dict:
     }[parallelism]
 
 
+def _tp_rules_for(model, parallelism: str):
+    """The JAX ``_tp_rules_for`` (:250): Megatron rules for the ViT,
+    channel rules for the conv families; any other model raises rather
+    than train replicated while reporting tensor parallelism."""
+    from tpu_ddp_torch.models.resnet import NetResDeep
+    from tpu_ddp_torch.models.resnet_family import ResNet, WideResNet
+    from tpu_ddp_torch.models.vit import ViT
+    from tpu_ddp_torch.parallel.tensor_parallel import CNN_TP_RULES, VIT_TP_RULES
+
+    if isinstance(model, ViT):
+        return VIT_TP_RULES
+    if isinstance(model, (NetResDeep, ResNet, WideResNet)):
+        return CNN_TP_RULES
+    raise ValueError(
+        f"--parallelism {parallelism} has no partition-rule set for "
+        f"{type(model).__name__}; supported families: ViT/MoEViT "
+        "(Megatron rules) and NetResDeep/ResNet/WideResNet "
+        "(channel-sharding rules)"
+    )
+
+
 def _require_model(model, kinds: tuple, parallelism: str) -> None:
     """The JAX ``_require_model`` (:234) for the families the port has: a
     ViT (the MoE family is not ported)."""
@@ -132,22 +163,24 @@ def _require_model(model, kinds: tuple, parallelism: str) -> None:
 
 @dataclasses.dataclass
 class Strategy:
-    """What the ``Trainer`` takes from a family: its state and steps."""
+    """What the ``Trainer`` takes from a family: its state and steps, the
+    state's ``layout`` (``train/state.py::StateLayout``: sp's partition over
+    the data group, a GSPMD family's cut), and sp's compressor."""
 
     state: object
     train_step: Callable
     eval_step: Callable
     predict_step: Callable
+    layout: object
+    compress: Optional[object] = None
 
 
 def check_strategy(parallelism: str, model: torch.nn.Module, *, remat: bool = False,
                    grad_accum_steps: int = 1, zero1: bool = False,
                    grad_compress: Optional[dict] = None) -> None:
     """``build_strategy``'s guards, in the JAX order (:332-351), before
-    anything is built: the flags a family refuses, the families not ported,
-    the model the family needs, and sp's deferred overlays."""
-    from tpu_ddp_torch.parallel.sequence_parallel import DEFERRED
-
+    anything is built: the flags a family refuses, the families not ported
+    and the model the family needs."""
     if (remat or grad_accum_steps > 1) and parallelism in ("pp", "sp"):
         raise ValueError(
             "--remat/--grad-accum-steps are not supported with "
@@ -170,14 +203,27 @@ def check_strategy(parallelism: str, model: torch.nn.Module, *, remat: bool = Fa
         )
     if parallelism not in PORTED:
         raise ValueError(
-            f"--parallelism {parallelism} is not ported yet: the port runs dp "
-            "and sp (ROADMAP.md §1 item 2 queues the GSPMD families, the "
-            "pipeline and experts)")
+            f"--parallelism {parallelism} is not ported yet: the port runs dp, "
+            "sp, fsdp, tp and fsdp_tp (ROADMAP.md §1 item 2 queues the "
+            "pipeline, and experts with the MoE ViT)")
     if parallelism == "dp":
         raise ValueError("dp runs in the Trainer, not through build_strategy")
-    _require_model(model, ("vit",), "sp")
-    if zero1 or grad_compress:
-        raise ValueError(DEFERRED)
+    if parallelism == "sp":
+        _require_model(model, ("vit",), "sp")
+    elif parallelism in ("tp", "fsdp_tp"):
+        _tp_rules_for(model, parallelism)
+
+
+def _gspmd_eval_predict(mesh: Mesh, *, loss_fn: Callable, compute_accuracy: bool):
+    """Eval and predict of the GSPMD families (the JAX :188): the sharded
+    model in eval mode on this rank's data shard's rows, the eval sums
+    summed over the data group once (the model group's ranks hold the same
+    rows and the same logits)."""
+    from tpu_ddp_torch.train.steps import make_eval_step, make_predict_step
+
+    return (make_eval_step(loss_fn, compute_accuracy=compute_accuracy,
+                           group=mesh.data_group()),
+            make_predict_step())
 
 
 def build_strategy(parallelism: str, mesh: Mesh, model: torch.nn.Module, tx,
@@ -187,18 +233,53 @@ def build_strategy(parallelism: str, mesh: Mesh, model: torch.nn.Module, tx,
                    health=None, zero1: bool = False,
                    grad_compress: Optional[dict] = None) -> Strategy:
     """The strategy of ``parallelism`` (not dp) on ``mesh`` (module
-    docstring), after ``check_strategy``. ``initial_state``: a state to lay
-    out instead of a fresh one (the fine-tune path); ``health`` a
-    ``HealthConfig`` or None."""
+    docstring), after ``check_strategy``. ``initial_state``: a replicated
+    state to lay out instead of a fresh one (the trainer's, the fine-tune
+    path's); ``health`` a ``HealthConfig`` or None; ``grad_compress`` the
+    ``GradCompression`` fields (``mode``, ``block``, ``error_feedback``,
+    ``kernels``)."""
+    from tpu_ddp_torch.parallel import tensor_parallel as tpar
     from tpu_ddp_torch.parallel.sequence_parallel import image_stripe, make_sp_train_step
-    from tpu_ddp_torch.train.state import create_train_state
+    from tpu_ddp_torch.train.state import StateLayout, create_train_state
     from tpu_ddp_torch.train.steps import make_eval_step, make_predict_step
 
     check_strategy(parallelism, model, remat=remat, grad_accum_steps=grad_accum_steps,
                    zero1=zero1, grad_compress=grad_compress)
     state = initial_state or create_train_state(model, tx, device)
+    if parallelism != "sp":
+        kw = dict(loss_fn=loss_fn, compute_accuracy=compute_accuracy, remat=remat,
+                  grad_accum_steps=grad_accum_steps, health=health)
+        if parallelism == "fsdp":
+            step, state, layout = tpar.make_fsdp_train_step(state, tx, mesh, **kw)
+        else:
+            build = (tpar.make_tp_train_step if parallelism == "tp"
+                     else tpar.make_fsdp_tp_train_step)
+            step, state, layout = build(state, tx, mesh,
+                                        rules=_tp_rules_for(model, parallelism), **kw)
+        eval_step, predict_step = _gspmd_eval_predict(
+            mesh, loss_fn=loss_fn, compute_accuracy=compute_accuracy)
+        return Strategy(state=state, train_step=step, eval_step=eval_step,
+                        predict_step=predict_step, layout=layout)
+    part = comp = None
+    params = state.params()
+    if zero1:
+        from tpu_ddp_torch.parallel.zero import Zero1Partition
+
+        part = Zero1Partition(tx, params, mesh.data_size, rank=mesh.data_index,
+                              group=mesh.data_group())
+        state = part.shard_state(state)
+    if grad_compress:
+        from tpu_ddp_torch.parallel.compression import GradCompression, GradCompressor
+
+        comp = GradCompressor(GradCompression(**grad_compress), params, mesh.data_size,
+                              group=mesh.data_group())
+        if part is not None:
+            part.set_compression(comp)
+        if comp.config.error_feedback:
+            # scattered over data, replicated over sequence (the JAX :385-397)
+            state.grad_residual = comp.init_residual(device)
     inner = make_sp_train_step(tx, mesh, sp_flash=sp_flash, loss_fn=loss_fn,
-                               health=health)
+                               health=health, zero1=part, compress=comp)
     patch = model.patch_size
 
     def train_step(state, batch):
@@ -206,4 +287,5 @@ def build_strategy(parallelism: str, mesh: Mesh, model: torch.nn.Module, tx,
 
     return Strategy(state=state, train_step=train_step,
                     eval_step=make_eval_step(loss_fn, compute_accuracy=compute_accuracy),
-                    predict_step=make_predict_step())
+                    predict_step=make_predict_step(), layout=StateLayout(zero=part),
+                    compress=comp)

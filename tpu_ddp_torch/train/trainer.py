@@ -130,15 +130,25 @@ form the grid of ``parallel/mesh.py`` and ``train/strategy.py`` builds the
 step. The loaders shard over the data axis (the JAX :1375-1380), so the S
 ranks of a data row load the same rows and each cuts its stripe of every
 image (``parallel/sequence_parallel.py``); evaluation and ``predict`` run
-the plain module on whole images, each rank its data shard's rows. The
-state is replicated, so checkpoints and resume are the data-parallel ones.
-``--augment``, ``--mixup-alpha`` and ``--sync-bn`` raise with the JAX
-message, ``--steps-per-call`` warns and runs 1, ``--pretrained-dir`` goes
-through ``train/finetune.py``.
+the plain module on whole images, each rank its data shard's rows. Under
+``--zero1`` and ``--grad-compress`` the strategy builds the partition and
+the compressor over the data group (``self.layout.zero``,
+``self.compress``), and checkpoints de-shard them as under dp. ``--augment``, ``--mixup-alpha`` and
+``--sync-bn`` raise with the JAX message, ``--steps-per-call`` warns and
+runs 1, ``--pretrained-dir`` goes through ``train/finetune.py``.
+
+The GSPMD families (``--parallelism tp``, ``fsdp``, ``fsdp_tp``, ``--mesh
+data=D,model=M``; ``parallel/tensor_parallel.py``) take the same route,
+with the same guards: the loaders shard over the data axis (the M ranks of
+a model group load the same rows), and the strategy lays the replicated
+state out (``self.layout``). Every family's checkpoints, evaluation's
+weights and final-params check go through its ``train/state.py::
+StateLayout``: the state gathered whole on save and cut again on restore,
+so dp, tp, fsdp and fsdp_tp runs resume from each other's checkpoints.
 
 Not ported yet: telemetry (and the health gauges, ``data/*`` spans and
-data digests it carries), the elastic supervisor, and the strategies other
-than data and sequence parallelism (fsdp, tp, pp, ep).
+data digests it carries), the elastic supervisor, and the pipeline and
+expert strategies (pp, ep).
 """
 
 from __future__ import annotations
@@ -193,11 +203,10 @@ from tpu_ddp_torch.train.finetune import load_pretrained_for_finetune
 from tpu_ddp_torch.train.losses import binary_cross_entropy_with_logits, cross_entropy_loss
 from tpu_ddp_torch.train.optim import decay_mask, freeze_all_but, make_optimizer
 from tpu_ddp_torch.train.state import (
+    StateLayout,
     checkpoint_state,
     copy_opt_state_,
     create_train_state,
-    full_model_state,
-    load_model_state_,
     split_checkpoint,
 )
 from tpu_ddp_torch.train.strategy import (
@@ -248,10 +257,10 @@ class TrainConfig:
     grad_compress_block: int = 256
     grad_compress_error_feedback: bool = False
     dist_backend: Optional[str] = None    # None: nccl on cuda, gloo on cpu
-    parallelism: Optional[str] = None     # dp|sp here (the JAX's seven); None = infer
-                                          # from mesh (default dp)
+    parallelism: Optional[str] = None     # dp|sp|fsdp|tp|fsdp_tp here (the JAX's seven);
+                                          # None = infer from mesh (default dp)
     mesh: Optional[dict] = None           # axis sizes, e.g. {"data": 2,
-                                          # "sequence": 2}; None = the mode's default
+                                          # "model": 2}; None = the mode's default
     sp_flash: bool = False                # SP: flash-kernel ring blocks
     n_devices: Optional[int] = None       # None: the launched world; else == it
     model: str = "netresdeep"
@@ -508,9 +517,11 @@ class Trainer:
         if self.mesh is not None:
             self._check_strategy(model)
         params = dict(model.named_parameters())
-        sharded = c.zero1 or c.zero3
+        sharded = c.zero1 or c.zero3 or self.parallelism in ("fsdp", "fsdp_tp")
         # ZeRO's chain runs on flat shards, where ndim says nothing: the
-        # decay mask comes from the original shapes, here
+        # decay mask comes from the original shapes, here (FSDP's partition
+        # sums each leaf's norms over its pieces, ``leaf_sums``, so lamb runs
+        # there, and the optimizer is not built for ZeRO's axis)
         self.tx = make_optimizer(
             lr=c.lr, optimizer=c.optimizer, momentum=c.momentum,
             weight_decay=c.weight_decay, schedule=c.schedule,
@@ -518,13 +529,16 @@ class Trainer:
             warmup_steps=c.warmup_steps, grad_clip_norm=c.grad_clip_norm,
             ema_decay=c.ema_decay, kernels=c.kernels,
             decay_mask=decay_mask(params) if sharded else None,
-            zero1_axis=DATA_AXIS if sharded else None,
+            zero1_axis=DATA_AXIS if c.zero1 or c.zero3 else None,
             freeze_predicate=(freeze_all_but(tuple(c.freeze_prefixes))
                               if c.freeze_prefixes else None),
         )
-        # the partition: ZeRO-1's, or ZeRO-3's (params scattered too)
+        # the partition: ZeRO-1's, or ZeRO-3's (params scattered too); on a
+        # rank grid the strategy builds the state's layout instead
         self.zero1 = ((Zero3Partition if c.zero3 else Zero1Partition)(
-            self.tx, params, self.world_size) if sharded else None)
+            self.tx, params, self.world_size)
+            if (c.zero1 or c.zero3) and self.mesh is None else None)
+        self.layout = StateLayout(zero=self.zero1)
         if c.pretrained_dir:
             self.state = load_pretrained_for_finetune(
                 c.pretrained_dir, model, self.tx, self.device, zero1=self.zero1)
@@ -627,6 +641,15 @@ class Trainer:
         self.multi_step = (scan(self.train_step, self.steps_per_call)
                            if self.steps_per_call > 1 else None)
 
+    def _compress_fields(self) -> Optional[dict]:
+        """The ``GradCompression`` fields of this run, None without
+        ``--grad-compress``."""
+        c = self.config
+        if c.grad_compress == "none":
+            return None
+        return {"mode": c.grad_compress, "block": c.grad_compress_block,
+                "error_feedback": c.grad_compress_error_feedback, "kernels": c.kernels}
+
     def _check_strategy(self, model) -> None:
         """The guards of a family other than dp (the JAX
         ``_init_strategy_steps`` :1302-1336, then ``build_strategy``'s),
@@ -650,7 +673,7 @@ class Trainer:
             )
         check_strategy(self.parallelism, model, remat=c.remat,
                        grad_accum_steps=c.grad_accum_steps, zero1=c.zero1,
-                       grad_compress=None if c.grad_compress == "none" else c.grad_compress)
+                       grad_compress=self._compress_fields())
 
     def _init_strategy_steps(self, model, loss_fn, health) -> None:
         """``build_strategy``'s state and steps (module docstring)."""
@@ -659,11 +682,9 @@ class Trainer:
             self.parallelism, self.mesh, model, self.tx, self.device, loss_fn=loss_fn,
             compute_accuracy=self.with_accuracy, sp_flash=c.sp_flash,
             initial_state=self.state, remat=c.remat, grad_accum_steps=c.grad_accum_steps,
-            health=health, zero1=c.zero1,
-            grad_compress=None if c.grad_compress == "none" else {
-                "mode": c.grad_compress, "block": c.grad_compress_block,
-                "error_feedback": c.grad_compress_error_feedback})
+            health=health, zero1=c.zero1, grad_compress=self._compress_fields())
         self.state = strategy.state
+        self.compress, self.layout = strategy.compress, strategy.layout
         self.train_step = strategy.train_step
         self.eval_step = strategy.eval_step
         self.predict_step = strategy.predict_step
@@ -676,8 +697,8 @@ class Trainer:
         the params' original shapes (under ZeRO-3 the partition's slots: the
         module holds placeholders, the JAX :1224-1232)."""
         c = self.config
-        if c.grad_compress == "none":
-            return None
+        if c.grad_compress == "none" or self.mesh is not None:
+            return None           # a rank grid's compressor is the strategy's
         template = self.zero1.param_slots if c.zero3 else self.state.params()
         return GradCompressor(
             GradCompression(
@@ -693,9 +714,9 @@ class Trainer:
 
     def model_state(self) -> dict:
         """The model's state dict with the params whole (under ``--zero3``
-        gathered from the ranks' shards: a collective, every rank calls
-        it)."""
-        return full_model_state(self.state, self.zero1)
+        and the GSPMD families gathered from the ranks' shards: a
+        collective, every rank calls it)."""
+        return self.layout.model_state(self.state)
 
     def _ckpt_state(self) -> dict:
         """The checkpoint's flat dict (``train/state.py``) in the one layout
@@ -703,11 +724,10 @@ class Trainer:
         with a residual at several ranks: every rank calls it at the same
         steps."""
         model_state = self.model_state()
-        state = self.state
-        if self.zero1 is not None:
-            state = self.zero1.deshard_state(state)
+        state = dataclasses.replace(
+            self.state, opt_state=self.layout.deshard_opt_state(self.state.opt_state))
         residual = rows = None
-        if state.grad_residual is not None and self.world_size > 1:
+        if state.grad_residual is not None and self.compress.n_shards > 1:
             rows = self.compress.residual_rows(state.grad_residual)
         elif state.grad_residual is not None:
             residual = self.compress.unflatten(state.grad_residual)
@@ -732,12 +752,9 @@ class Trainer:
         the checkpoint starts an error-feedback run from zero, one this run
         does not use is discarded, each with a warning."""
         ck = split_checkpoint(flat)
-        load_model_state_(self.state, ck["model"], self.zero1)
+        self.layout.load_model_state_(self.state, ck["model"])
         self.state.step.fill_(ck["step"])
-        restored = dataclasses.replace(self.state, opt_state=ck["opt_state"])
-        if self.zero1 is not None:
-            restored = self.zero1.shard_state(restored)
-        copy_opt_state_(self.state.opt_state, restored.opt_state)
+        copy_opt_state_(self.state.opt_state, self.layout.shard_opt_state(ck["opt_state"]))
         residual, rows = ck["grad_residual"], ck["grad_residual_rows"]
         if self.state.grad_residual is None:
             if residual is not None or rows is not None:
@@ -1111,11 +1128,11 @@ class Trainer:
     def _params_finite(self) -> bool:
         """Whether every param is finite (one host read for all of them; the
         params are replicated, so every rank answers the same; under
-        ``--zero3`` each rank reads its shards and the ranks agree)."""
-        zero3 = self.config.zero3
-        params = (self.state.param_shards if zero3 else self.state.params()).values()
-        bad = bool(torch.stack([(~torch.isfinite(p)).any() for p in params]).any())
-        return not (agree_any(bad) if zero3 else bad)
+        ``--zero3`` and the GSPMD families each rank reads what it holds and
+        the ranks agree)."""
+        params = self.layout.local_params(self.state)
+        bad = bool(torch.stack([(~torch.isfinite(p)).any() for p in params.values()]).any())
+        return not (agree_any(bad) if self.layout.split else bad)
 
     def close(self) -> None:
         """Stop the native prefetcher, finish in-flight saves and close the
@@ -1136,13 +1153,8 @@ class Trainer:
         from the ranks' shards and unflattened, a collective), under
         ``--zero3`` without it the params gathered from their shards (the
         JAX ``_eval_source_state`` :2615-2640: one gather a pass), else
-        None."""
-        if self.config.ema_decay:
-            ema = self.state.opt_state.ema
-            return ema if self.zero1 is None else self.zero1.gather_params(ema)
-        if self.config.zero3:
-            return self.zero1.deshard_params(self.state.param_shards)
-        return None
+        None: ``StateLayout.eval_params``."""
+        return self.layout.eval_params(self.state, bool(self.config.ema_decay))
 
     def evaluate(self) -> tuple:
         """(accuracy, loss) over the test set; the EMA weights when
