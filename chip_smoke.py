@@ -414,7 +414,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     in one launcher job on two gloo ranks sharing the card. (b) ViT-S/4
     through the CLI with ``--parallelism sp --mesh data=1,sequence=2
     --sp-flash --kernels --optimizer adamw --lr 1e-3`` at batch 32, two
-    epochs of 20 steps (the second timed): the first 5 losses within
+    epochs of 12 steps (the second timed): the first 5 losses within
     ``rtol=1e-5`` of a one-rank ``--attention flash`` run in this process
     on the same data, order and init, K1 once a step, K4 = K5 = K6 = 12 a
     step a rank, replicas bitwise, ms a step and peak memory a rank against
@@ -430,7 +430,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     synchronises the stream first, so no transfer overlaps a tile there.
 26. The SP overlays and the GSPMD families (``parallel/tensor_parallel.py``),
     every run through the CLI on ranks sharing the card over gloo, two
-    epochs of 8 steps (the second timed) at a global batch of 64 under
+    epochs of 5 steps (the second timed) at a global batch of 64 under
     cuDNN's deterministic algorithms. First K4-K6 against their plain
     versions, with phase 7's tolerances, at the shapes a tensor-parallel
     rank gives them: (32, 64, 2, 64), (32, 64, 1, 64) and (64, 64, 1, 64),
@@ -459,6 +459,28 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     param and optimizer bytes and peak memory a rank against the one-rank
     run's. ``python3 chip_smoke.py --phase 26`` runs phase 26 alone (the
     kernels built first), ``--nccl N --phase 26`` its N-rank job alone.
+27. Pipeline and experts (``run_phase27``). (a) K4-K6 against their plain
+    versions at the pp microbatch shape (8, 64, 3, 64) with phase 7's
+    tolerances; then ViT-S/4 at full width on two gloo ranks sharing the
+    card, ``--parallelism pp --mesh data=1,pipeline=2 --attention flash
+    --kernels --optimizer adamw``, batch 32, ``--microbatches 4``, two
+    epochs of ``PP_STEPS``, under gpipe and 1f1b: losses finite, the
+    schedules' within 1e-5 of each other, each step's within ``rtol=1e-5``
+    of one rank's whole model on the same batch from the state the pp run
+    started it from (``--save-states``); a step a rank K4 = K5 = K6 = 12
+    under gpipe, K4 = 24 and K5 = K6 = 12 under 1f1b, K1 1, and the final
+    evaluation's K4 6 a test batch (the plain module, on the params
+    gathered over the pipeline); the printed schedule line (bubble 20.0%
+    and in-flight 4, 33.3% and 3). (b) K1 bitwise against its plain
+    version at ``vit_moe_s4``'s 85 leaves (one launch); ``vit_moe_s4`` and
+    ``vit_moe_s4_top2`` at full width on one rank, ``--kernels --optimizer
+    adamw``, two epochs of ``MOE_STEPS`` steps: losses finite and falling,
+    ``aux_loss`` at least ``1 - 1e-5`` every step, K1 once a step. (c)
+    ``vit_moe_s4 --parallelism ep --mesh data=1,expert=2`` on two gloo
+    ranks: losses held to one rank's from the same states, K1 once a step,
+    each rank holding 4 of the 8 experts (its param bytes against the
+    one-rank run's: 3,550,464 expert parameters less). ``python3
+    chip_smoke.py --phase 27`` runs it alone.
 
 Phase 2 also builds the native data-path library (``tpu_ddp_torch/native``)
 with g++ from the checkout. The NetResDeep phases before 17 keep their
@@ -1915,9 +1937,10 @@ def rank_child(out_dir, args):
     steps on the same group after the runs (``sp_lm_runs``, data axis D),
     into ``out_dir/sp_lm``; ``--then-sp-lm-zero1 D`` phase 26a's
     (``sp_lm_zero1_runs``), into ``out_dir/sp_lm_zero1``; ``--save-states
-    NAME`` saves run NAME's whole model state (``Trainer.model_state``, a
-    collective) before each step and after the last, into
-    ``out_dir/NAME/states.pt`` from rank 0. Each run's metrics also carry
+    NAME[,NAME...]`` saves each named run's whole model state
+    (``Trainer.model_state``, a collective) before each step and after the
+    last, into ``out_dir/NAME/states.pt`` from rank 0. Each run's metrics
+    carry the line its strategy printed (``strategy_line``: pp's schedule). Each run's metrics also carry
     the param and optimizer-state bytes this rank holds (``held_bytes``)."""
     import torch
 
@@ -1943,9 +1966,9 @@ def rank_child(out_dir, args):
     if args[:1] == ["--then-sp-lm-zero1"]:
         sp_lm_zero1 = int(args[1])
         args = args[2:]
-    keep_states = None
+    keep_states = ()
     if args[:1] == ["--save-states"]:
-        keep_states = args[1]
+        keep_states = args[1].split(",")
         args = args[2:]
     gathers = [0]
     issue = collectives.BlockGather._issue
@@ -1977,7 +2000,7 @@ def rank_child(out_dir, args):
             if name.endswith(SERIAL):
                 trainer.zero1.prefetch = False
             between, bits, inner = [], {}, trainer.train_step
-            kept = [] if name == keep_states else None
+            kept = [] if name in keep_states else None
             # a weak reference: the trainer holds this function, and a cycle
             # would keep the run's state alive into the next run's memory
             owner = weakref.ref(trainer)
@@ -2007,6 +2030,7 @@ def rank_child(out_dir, args):
             metrics["block_gathers"] = gathers[0]
             metrics["memory_between_steps"] = between[1:]
             metrics["peak_memory"] = torch.cuda.max_memory_allocated()
+            metrics["strategy_line"] = trainer.strategy_line
             metrics.update(held_bytes(trainer))
             if bits:
                 metrics["poisoned_step_bitwise"] = same_state(bits["before"], bits["after"])
@@ -5110,7 +5134,7 @@ SP_CASES = [("vit_s4", "float32", False, False), ("vit_s4", "float32", True, Fal
             ("lm_32k", "float32", True, False), ("lm_32k", "bfloat16", True, False)]
 SP_BF16_UNITS = 2                 # bf16 units of a row's largest value
 SP_RING_ITERS = 5                 # timed forward + backward passes of the ring
-SP_VIT_STEPS, SP_VIT_HEALTH_STEPS = 20, 10
+SP_VIT_STEPS, SP_VIT_HEALTH_STEPS = 12, 10
 SP_LM_STEPS, SP_LM_STEADY_FROM = 6, 3
 SP_LM_BF16_RTOL = 5e-3
 
@@ -5568,7 +5592,7 @@ def phase_sp_train(tmp, smi, one_rank=None, nproc=2, backend="gloo", data=1):
 
 #: steps an epoch of each phase-26 run (two epochs, the second timed), at a
 #: global batch of GSPMD_BATCH
-GSPMD_STEPS, GSPMD_BATCH = 8, 64
+GSPMD_STEPS, GSPMD_BATCH = 5, 64
 #: phase 26a's LM-32k, cut in depth
 SP_LM_ZERO1_DEPTH, SP_LM_ZERO1_STEPS = 2, 6
 #: the shapes K4-K6 take on a tensor-parallel rank in phase 26 (each rank's
@@ -5692,11 +5716,11 @@ def gspmd_launches(m, steps, flash):
     return want
 
 
-def same_state_losses(states_path, model):
-    """One rank's loss of each of the first ``PLAIN_STEPS_RTOL`` steps of
-    ``gspmd_args(model)``'s batches, each step taken from the state the
-    sharded run started it from (its ``--save-states`` file: phase 23b's
-    oracle), under deterministic cuDNN."""
+def same_state_losses(states_path, args, steps=PLAIN_STEPS_RTOL):
+    """One rank's loss of each of the first ``steps`` steps of the run of
+    ``args`` (the one-rank form of the sharded run's), each step taken from
+    the state the sharded run started it from (its ``--save-states`` file:
+    phase 23b's oracle), under deterministic cuDNN."""
     import torch
 
     from tpu_ddp_torch.cli import train as cli
@@ -5705,11 +5729,10 @@ def same_state_losses(states_path, model):
     states = torch.load(states_path)
     torch.backends.cudnn.deterministic = True
     try:
-        trainer = Trainer(cli.config_from_args(cli.build_parser().parse_args(
-            gspmd_args(None, model))))
+        trainer = Trainer(cli.config_from_args(cli.build_parser().parse_args(args)))
         trainer.train_loader.set_epoch(1)
         out = []
-        for s, batch in zip(range(PLAIN_STEPS_RTOL), trainer.train_loader.epoch_batches()):
+        for s, batch in zip(range(steps), trainer.train_loader.epoch_batches()):
             trainer.state.model.load_state_dict(states[s])
             trainer.state, m = trainer.train_step(trainer.state, trainer.to_device(batch))
             out.append(float(m["loss"]))
@@ -5733,7 +5756,7 @@ def check_gspmd_run(label, metrics, same, base, flash, smi, same_state=None):
         print(f"  26 {label}: along the two trajectories, relative loss differences "
               f"{' '.join(f'{x:.3g}' for x in rel)}", flush=True)
         first_losses_close(f"26 {label} vs one rank's whole model from the same state each "
-                           "step", m["step_losses"], same_state_losses(same_state, "cnn"),
+                           "step", m["step_losses"], same_state_losses(same_state, gspmd_args(None, "cnn")),
                            FULL_STEPS_RTOL)
     else:
         first_losses_close(f"26 {label} vs one rank's whole model", m["step_losses"],
@@ -5917,6 +5940,243 @@ def phase26_main(nproc=None):
             shutil.rmtree(tmp, ignore_errors=True)
     print(f"chip_smoke --phase 26: ok ({smi})", flush=True)
 
+#: phase 27: the pp runs' steps an epoch (two epochs at batch PP_BATCH: the
+#: second is the steady one), microbatches and the microbatch attention
+#: shape; the MoE runs' steps an epoch; the experts of vit_moe_s4 (3 MoE
+#: layers of 8 experts, hidden 192, MLP 768)
+PP_STEPS, PP_BATCH, PP_MICRO = 6, 32, 4
+PP_FLASH_CASES = {"pp_micro": (PP_BATCH // PP_MICRO, 64, 3, 64, False, None, True)}
+PP_BLOCKS = VIT_DEPTH // 2                # a stage's blocks at pipeline=2
+#: the schedule line's bubble and in-flight count at 2 stages and 4 micros
+PP_LINES = {"gpipe": "bubble=20.0% in-flight=4", "1f1b": "bubble=33.3% in-flight=3"}
+MOE_STEPS = 16
+EP_STEPS = 6
+MOE_LEAVES = 85
+MOE_EXPERT_PARAMS = 3 * 8 * (2 * 192 * 768 + 768 + 192)
+
+
+def pp_args(schedule, backend="gloo", one_rank=False):
+    """A phase-27a run: ViT-S/4 ``--attention flash --kernels`` AdamW, two
+    epochs of ``PP_STEPS`` steps at batch ``PP_BATCH``, under pp
+    ``schedule`` on ``data=1,pipeline=2`` (``one_rank``: the whole model on
+    one rank, the same batches)."""
+    args = ["--device", "cuda", "--synthetic-data", "--synthetic-size",
+            str(PP_BATCH * PP_STEPS), "--epochs", "2", "--model", "vit_s4",
+            "--attention", "flash", "--kernels", "--optimizer", "adamw", "--lr", "1e-3",
+            "--batch-size", str(PP_BATCH), "--log-every-epochs", "1"]
+    if one_rank:
+        return args
+    return args + ["--dist-backend", backend, "--parallelism", "pp", "--mesh",
+                   "data=1,pipeline=2", "--microbatches", str(PP_MICRO),
+                   "--pp-schedule", schedule]
+
+
+def moe_args(model, steps, parallelism=None, backend="gloo"):
+    """A phase-27 MoE run: ``model`` at full width, ``--kernels`` AdamW, two
+    epochs of ``steps`` steps at batch 32, on one rank or under
+    ``parallelism`` ep on ``data=1,expert=2``."""
+    args = ["--device", "cuda", "--synthetic-data", "--synthetic-size", str(32 * steps),
+            "--epochs", "2", "--model", model, "--kernels", "--optimizer", "adamw",
+            "--lr", "1e-3", "--batch-size", "32", "--log-every-epochs", "1"]
+    if parallelism:
+        args += ["--dist-backend", backend, "--parallelism", parallelism, "--mesh",
+                 "data=1,expert=2"]
+    return args
+
+
+def pp_launches(schedule, m):
+    """K1 and K4-K6 launches a pp rank makes in a phase-27a run: a step K1
+    once, K4, K5 and K6 once a stage block and microbatch (K4 twice under
+    1f1b: forward and recompute); the final evaluation K4 once a block of
+    the plain module and a test batch."""
+    steps, evals = m["steps"], m["eval_batches"]
+    per = PP_BLOCKS * PP_MICRO * steps
+    want = {k: 0 for k in m["launches"]}
+    want.update({"fused_update": steps,
+                 "flash_attention_fwd": (2 if schedule == "1f1b" else 1) * per
+                 + VIT_DEPTH * evals,
+                 "flash_attention_dq": per, "flash_attention_dkv": per})
+    return want
+
+
+def moe_one_rank(model, smi):
+    """Phase 27b's run of ``model`` on one rank in this process: losses
+    finite and falling, ``aux_loss`` at least 1 - 1e-5 every step, K1 once a
+    step; returns its metrics and held bytes."""
+    import torch
+
+    from tpu_ddp_torch import ops
+    from tpu_ddp_torch.cli import train as cli
+    from tpu_ddp_torch.train.trainer import Trainer
+
+    ns = cli.build_parser().parse_args(moe_args(model, MOE_STEPS))
+    config = cli.config_from_args(ns)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    trainer = Trainer(config)
+    aux, inner = [], trainer.train_step
+
+    def step(state, batch):
+        state, metrics = inner(state, batch)
+        aux.append(metrics["aux_loss"])
+        return state, metrics
+
+    trainer.train_step = step
+    try:
+        metrics = cli._run_and_report(ns, config, trainer)
+    finally:
+        trainer.close()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    aux = [float(a) for a in aux]
+    losses = metrics["step_losses"]
+    first, last = sum(losses[:8]) / 8, sum(losses[-8:]) / 8
+    print(f"  27b {model} ({smi}): {metrics['steps']} steps; launches {counts}; mean loss "
+          f"of the first 8 steps {first:.4f}, last 8 {last:.4f}; aux_loss min "
+          f"{min(aux):.6f} max {max(aux):.6f}; steady ms a step "
+          f"{metrics['steady_step_ms']:.3f}; final test accuracy "
+          f"{metrics['test_accuracy']:.4f}", flush=True)
+    want = {k: 0 for k in counts}
+    want["fused_update"] = metrics["steps"]
+    if counts != want:
+        fail(f"27b {model}: launches {counts}, expected {want}")
+    if metrics["steps"] != 2 * MOE_STEPS or not all(math.isfinite(x) for x in losses):
+        fail(f"27b {model}: {metrics['steps']} steps or a non-finite loss")
+    if not last < first:
+        fail(f"27b {model}: the losses did not fall")
+    if len(aux) != 2 * MOE_STEPS or not min(aux) >= 1.0 - 1e-5:
+        fail(f"27b {model}: aux_loss below 1 - 1e-5 or missing: {aux}")
+    metrics.update(held_bytes(trainer))
+    return metrics
+
+
+def phase_pp_ep(tmp, smi, backend="gloo"):
+    """Phase 27 (module docstring): (a) pp, (b) the MoE ViT on one rank,
+    (c) ep."""
+    import torch
+
+    phase_flash_vs_plain(PP_FLASH_CASES, "phase 27a (pp microbatch)")
+    # one two-rank job for 27a's runs and 27c's (one process start)
+    runs = launch_dp_runs(
+        os.path.join(tmp, "pp"), [(f"pp_{sched}", pp_args(sched, backend))
+                                  for sched in ("gpipe", "1f1b")]
+        + [("ep", moe_args("vit_moe_s4", EP_STEPS, "ep", backend))],
+        2, phase="27a, 27c", deterministic=True,
+        extra=["--save-states", "pp_gpipe,pp_1f1b,ep"])
+    one = {}
+    for sched in ("gpipe", "1f1b"):
+        metrics, same = runs[f"pp_{sched}"]
+        m = metrics[0]
+        line = m["strategy_line"]
+        print(f"  27a pp {sched} ({smi}): {m['steps']} steps; launches on rank 0 "
+              f"{m['launches']}, rank 1 {metrics[1]['launches']}; eval batches "
+              f"{m['eval_batches']}; gathered params bitwise on both ranks {same}; steady "
+              f"ms a step a rank " + " / ".join(f"{x['steady_step_ms']:.3f}" for x in metrics)
+              + f"; peak memory a rank " + " / ".join(str(x["peak_memory"]) for x in metrics)
+              + f" B; final test accuracy {m['test_accuracy']:.4f}; printed: {line}",
+              flush=True)
+        want_line = PP_LINES[sched]
+        if want_line not in (line or ""):
+            fail(f"27a pp {sched}: printed {line!r}, expected {want_line!r}")
+        for r, x in enumerate(metrics):
+            want = pp_launches(sched, x)
+            if x["launches"] != want:
+                fail(f"27a pp {sched} rank {r}: launches {x['launches']}, expected {want}")
+        if (not same or m["steps"] != 2 * PP_STEPS
+                or not all(math.isfinite(v) for v in m["step_losses"])):
+            fail(f"27a pp {sched}: ranks differ, wrong step count or a non-finite loss")
+        one[sched] = same_state_losses(os.path.join(tmp, "pp", f"pp_{sched}", "states.pt"),
+                                       pp_args(sched, one_rank=True), PP_STEPS)
+        first_losses_close(f"27a pp {sched} vs one rank's whole model from the same state "
+                           "each step", m["step_losses"], one[sched], FULL_STEPS_RTOL)
+    gp, ob = runs["pp_gpipe"][0][0]["step_losses"], runs["pp_1f1b"][0][0]["step_losses"]
+    diff = max(abs(a - b) for a, b in zip(gp, ob))
+    print(f"  27a gpipe vs 1f1b: max |loss diff| over {len(gp)} steps {diff:.3g} "
+          "(limit 1e-5)", flush=True)
+    if not diff <= 1e-5:
+        fail("27a: the two schedules' losses differ by more than 1e-5")
+    stamp("phase 27a")
+    # (b) K1 at the MoE ViT's leaves, then the two MoE models on one rank
+    from tpu_ddp_torch.models import MODEL_REGISTRY
+
+    shapes = [tuple(p.shape) for p in MODEL_REGISTRY["vit_moe_s4"]().parameters()]
+    if len(shapes) != MOE_LEAVES:
+        fail(f"vit_moe_s4 has {len(shapes)} parameter leaves, expected {MOE_LEAVES}")
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    for variant in ("adamw", "adamw_wd_clip_ema"):
+        leaves = [Leaf(sh, leaf_config(variant, "constant", len(sh) >= 2), gen)
+                  for sh in shapes]
+        err, ulp, launches = compare(leaves, scalars_for(leaves, leaves[0].cfg, "constant"))
+        print(f"  27b K1 {variant} at vit_moe_s4's {len(shapes)} leaves: max|diff|={err:.3g} "
+              f"max_ulp={ulp} launches={launches}", flush=True)
+        if ulp or launches != 1:
+            fail(f"27b K1 {variant}: {ulp} ulp from the plain version, {launches} launches")
+        del leaves
+    base = {m: moe_one_rank(m, smi) for m in ("vit_moe_s4", "vit_moe_s4_top2")}
+    stamp("phase 27b")
+    # (c) ep on two ranks, run in 27a's job
+    metrics, same = runs["ep"]
+    m = metrics[0]
+    whole = base["vit_moe_s4"]["param_bytes"]
+    held = [x["param_bytes"] for x in metrics]
+    print(f"  27c ep ({smi}): {m['steps']} steps; launches on rank 0 {m['launches']}; "
+          f"gathered params bitwise on both ranks {same}; steady ms a step a rank "
+          + " / ".join(f"{x['steady_step_ms']:.3f}" for x in metrics)
+          + f" (one rank {base['vit_moe_s4']['steady_step_ms']:.3f}); param bytes a rank "
+          + " / ".join(str(h) for h in held) + f" (one rank {whole}: {MOE_EXPERT_PARAMS} "
+          f"expert parameters, {MOE_EXPERT_PARAMS // 2} a rank, "
+          f"{4 * MOE_EXPERT_PARAMS // 2} B less); peak memory a rank "
+          + " / ".join(str(x["peak_memory"]) for x in metrics) + " B", flush=True)
+    for r, x in enumerate(metrics):
+        want = {k: 0 for k in x["launches"]}
+        want["fused_update"] = x["steps"]
+        if x["launches"] != want:
+            fail(f"27c ep rank {r}: launches {x['launches']}, expected {want}")
+    if any(h != whole - 4 * MOE_EXPERT_PARAMS // 2 for h in held):
+        fail(f"27c ep: a rank holds {held} param bytes, expected "
+             f"{whole - 4 * MOE_EXPERT_PARAMS // 2}")
+    if not same or not all(math.isfinite(v) for v in m["step_losses"]):
+        fail("27c ep: the ranks differ or a loss is not finite")
+    first_losses_close("27c ep vs one rank's whole model from the same state each step",
+                       m["step_losses"], same_state_losses(
+                           os.path.join(tmp, "pp", "ep", "states.pt"),
+                           moe_args("vit_moe_s4", EP_STEPS), EP_STEPS), FULL_STEPS_RTOL)
+    return runs, base, metrics
+
+
+def run_phase27(smi):
+    """Phase 27 on one card (``phase_pp_ep``), in a scratch directory."""
+    import shutil
+    import tempfile
+
+    t27 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
+    try:
+        phase_pp_ep(tmp, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 27 took {time.perf_counter() - t27:.1f} s", flush=True)
+
+
+def phase27_main():
+    """``python3 chip_smoke.py --phase 27``: the kernels built, then phase 27
+    alone on one card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
+    sys.path.insert(0, ROOT)
+    from tpu_ddp_torch import native
+    from tpu_ddp_torch.ops import _build
+
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    _build.build()
+    native.build()
+    run_phase27(smi)
+    print(f"chip_smoke --phase 27: ok ({smi})", flush=True)
+
 
 def nccl_main(nproc):
     """``python3 chip_smoke.py --nccl N`` on a machine with N cards: phase
@@ -5972,6 +6232,8 @@ def main():
         return nccl_main(int(sys.argv[2]))
     if sys.argv[1:3] == ["--phase", "26"]:
         return phase26_main()
+    if sys.argv[1:3] == ["--phase", "27"]:
+        return phase27_main()
     import shutil
     import tempfile
 
@@ -6119,6 +6381,7 @@ def main():
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 25 took {time.perf_counter() - t25:.1f} s", flush=True)
     run_phase26(smi)
+    run_phase27(smi)
     print_accounting()
     rows += phase_lm_timing(results, flash_results, lm_runs["flash"]["launches"])
     stamp("phase 18d")

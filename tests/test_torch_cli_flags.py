@@ -107,12 +107,16 @@ def test_mesh_resolve_as_jax(text, n):
             resolve(sizes, n)
         assert str(got.value) == str(e)
         return
-    assert resolve(sizes, n) == {k: want[k] for k in ("data", "sequence", "model")}
-    assert all(v == 1 for k, v in want.items() if k not in ("data", "sequence", "model"))
+    assert resolve(sizes, n) == want
 
 
 def test_mesh_unported_axis_raises():
+    """No axis is left unported: the pipeline and expert axes resolve as
+    ``MeshSpec.resolve`` does, and an unknown axis raises its message."""
+    from tpu_ddp.parallel.mesh import MeshSpec
     from tpu_ddp_torch.parallel.mesh import resolve
 
-    with pytest.raises(ValueError, match="ROADMAP.md §1 item 2"):
-        resolve({"data": 2, "pipeline": 2}, 4)
+    assert resolve({"data": 2, "pipeline": 2}, 4) == MeshSpec(data=2, pipeline=2).resolve(4)
+    assert resolve({"expert": 2}, 4) == MeshSpec(expert=2).resolve(4)
+    with pytest.raises(ValueError, match="unknown mesh axis 'stage'"):
+        resolve({"stage": 2}, 4)

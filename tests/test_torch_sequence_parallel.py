@@ -25,7 +25,7 @@ the CPU; the JAX flash ring takes its jnp tile there):
 * the guards: JAX's messages word for word for ``--remat`` and
   ``--grad-accum-steps`` under sp, and for ``--zero3`` with a parallelism;
   ``--zero1`` and ``--grad-compress`` under sp and the GSPMD families
-  pass them, pp and ep raise naming ``ROADMAP.md`` §1.
+  pass them, pp takes the ViT and ep refuses it.
 """
 
 import dataclasses
@@ -303,15 +303,16 @@ def test_sp_overlays_deferred(overlay):
 
 @pytest.mark.parametrize("parallelism", ["fsdp", "tp", "fsdp_tp", "pp", "ep"])
 def test_unported_families_raise(parallelism):
-    """pp and ep still raise naming what is left; fsdp, tp and fsdp_tp are
-    ported and take the ViT."""
+    """Every family is ported: fsdp, tp, fsdp_tp and pp take the ViT; ep
+    raises on it, naming the MoE ViT it needs
+    (``tests/test_torch_pp_ep_cli.py`` holds the message to JAX's)."""
     from tpu_ddp_torch.models import ViT
     from tpu_ddp_torch.train.strategy import check_strategy
 
-    if parallelism in ("fsdp", "tp", "fsdp_tp"):
+    if parallelism != "ep":
         check_strategy(parallelism, ViT(**VIT))
         return
-    with pytest.raises(ValueError, match="ROADMAP.md §1 item 2"):
+    with pytest.raises(ValueError, match="needs a MoEViT model"):
         check_strategy(parallelism, ViT(**VIT))
 
 

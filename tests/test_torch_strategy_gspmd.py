@@ -7,7 +7,7 @@ word, and checkpoints portable across dp, tp, fsdp and fsdp_tp.
   ``--grad-compress`` under tp, fsdp and fsdp_tp raise the JAX
   ``TrainConfig``'s messages; ``--augment``, ``--mixup-alpha`` and
   ``--sync-bn`` under them the JAX trainer's; ``--steps-per-call`` warns;
-  pp and ep still raise, naming ``ROADMAP.md`` §1 item 2.
+  pp takes the ViT and refuses the MoE ViT, ep the reverse.
 * Portability (the JAX ``test_checkpoint_portable_across_strategies``,
   ``tests/test_strategy.py:371``): on 4 gloo CPU ranks NetResDeep (n_chans1
   8, 2 tied blocks; BatchNorm's running stats cut under tp) trains an epoch
@@ -91,10 +91,19 @@ def test_steps_per_call_warns_under_tp():
 
 @pytest.mark.parametrize("parallelism", ["pp", "ep"])
 def test_pp_ep_still_raise(parallelism):
+    """pp and ep are ported: pp takes the ViT, ep the MoE ViT and raises on
+    a ViT (``tests/test_torch_pp_ep_cli.py`` holds the messages to JAX's)."""
+    from tpu_ddp_torch.models import MoEViT
     from tpu_ddp_torch.train.strategy import check_strategy
 
-    with pytest.raises(ValueError, match="ROADMAP.md §1 item 2"):
-        check_strategy(parallelism, ViT(**VIT))
+    if parallelism == "pp":
+        check_strategy("pp", ViT(**VIT))
+        with pytest.raises(ValueError, match="needs a ViT model"):
+            check_strategy("pp", MoEViT(depth=2, hidden_dim=32, num_heads=2, num_experts=2))
+        return
+    check_strategy("ep", MoEViT(depth=2, hidden_dim=32, num_heads=2, num_experts=2))
+    with pytest.raises(ValueError, match="needs a MoEViT model"):
+        check_strategy("ep", ViT(**VIT))
 
 
 # ---- checkpoints portable across the families ------------------------------------

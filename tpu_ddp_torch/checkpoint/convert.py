@@ -13,9 +13,15 @@ Flax tree, so each leaf maps by path:
   it is (the LM's ``tok_embed``);
 * BatchNorm and LayerNorm ``scale``/``bias`` -> ``weight``/``bias``;
   ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``;
-* a raw param (the ViT's and the LM's ``pos_embed``) is carried as it
-  is, under its own name; an empty ``batch_stats`` tree (the ViT and the
-  LM have no BatchNorm) gives no entries.
+* a raw param (the ViT's and the LM's ``pos_embed``, the MoE layer's
+  stacked expert weights ``w_up``, ``b_up``, ``w_down`` and ``b_down``,
+  kept in the JAX layout) is carried as it is, under its own name; an
+  empty ``batch_stats`` tree (the ViT and the LM have no BatchNorm) gives
+  no entries;
+* the pipeline layout's stacked ``blocks`` tree (``tpu_ddp/parallel/
+  pipeline.py``'s ``to_pipeline_params``) is unstacked into ``block_<i>``
+  first, in params and in every optimizer slot, so a pp state carries
+  across in the plain layout.
 
 Every param-shaped optimizer slot (SGD trace, AdamW mu/nu, EMA) maps the
 same way; the optax state is read by its field names (``trace``, ``mu``,
@@ -41,7 +47,7 @@ from tpu_ddp_torch.train.optim import OptState
 _RENAME = {"kernel": "weight", "scale": "weight", "embedding": "weight",
            "bias": "bias", "mean": "running_mean", "var": "running_var"}
 #: params that are tensors of the module itself, not of a layer
-_RAW = ("pos_embed",)
+_RAW = ("pos_embed", "w_up", "b_up", "w_down", "b_down")
 
 
 def _leaf(path: str, x) -> tuple:
@@ -56,9 +62,31 @@ def _leaf(path: str, x) -> tuple:
     return f"{head}.{_RENAME[last]}", torch.tensor(np.ascontiguousarray(x))
 
 
+def _unstack_blocks(tree):
+    """A top-level ``blocks`` subtree (leaves with a leading depth axis) ->
+    ``block_<i>`` subtrees (the JAX ``from_pipeline_params``)."""
+    blocks = tree["blocks"]
+
+    def depth(node):
+        if hasattr(node, "items"):
+            return depth(next(iter(node.values())))
+        return np.asarray(node).shape[0]
+
+    def pick(node, i):
+        if hasattr(node, "items"):
+            return {k: pick(v, i) for k, v in node.items()}
+        return np.asarray(node)[i]
+
+    out = {k: v for k, v in tree.items() if k != "blocks"}
+    out.update({f"block_{i}": pick(blocks, i) for i in range(depth(blocks))})
+    return out
+
+
 def convert_tree(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
     """Nested Flax dict -> flat ``{torch_name: tensor}``."""
     out = {}
+    if not prefix and hasattr(tree, "items") and "blocks" in tree:
+        tree = _unstack_blocks(tree)
     for key, value in tree.items():
         path = f"{prefix}.{key}" if prefix else str(key)
         if getattr(value, "_fields", None) == ():      # optax MaskedNode

@@ -9,7 +9,10 @@ mesh's data axis (the JAX :426-450), of the launched world size or
 (``train/strategy.py``): dp; sp, sequence parallelism with ring
 attention over the ``sequence`` axis; tp, fsdp and fsdp_tp, the GSPMD
 families over the ``data`` and ``model`` axes
-(``parallel/tensor_parallel.py``); pp and ep raise, not ported yet. ``--cv-mode K`` runs k-fold cross-validation
+(``parallel/tensor_parallel.py``); pp, the pipeline over the ``pipeline``
+axis (``--microbatches``, ``--pp-schedule``, :128-138); ep, the MoE ViT's
+experts over the ``expert`` axis (``--aux-weight`` :139 weighs its
+load-balance loss under every family). ``--cv-mode K`` runs k-fold cross-validation
 over the train split instead of one run. After the final evaluation ``--dump-predictions`` and
 ``--viz-predictions`` run the test set's batch inference (:670-737). It
 trains on the GPU unless ``--device cpu`` is given, and refuses to start
@@ -103,13 +106,28 @@ def build_parser() -> argparse.ArgumentParser:
                         "parallel + ring attention over the sequence axis), "
                         "tp (tensor parallel over the model axis), fsdp "
                         "(params and optimizer state scattered over data), "
-                        "fsdp_tp (both); pp and ep are not ported yet. "
-                        "Default: inferred from --mesh, else dp")
+                        "fsdp_tp (both), pp (pipeline stages over the "
+                        "pipeline axis, ViT family), ep (MoE experts over "
+                        "the expert axis). Default: inferred from --mesh, "
+                        "else dp")
     p.add_argument("--mesh", default=None, metavar="AXES",
                    help="rank grid axis sizes, e.g. data=2,sequence=2 "
                         "(axes: data, pipeline, expert, sequence, model; "
-                        "-1 = rest; data, sequence and model are ported). Naming a "
+                        "-1 = rest). Naming a "
                         "non-data axis infers the matching --parallelism")
+    p.add_argument("--microbatches", type=int, default=4,
+                   help="pipeline microbatches per step (pp only); more "
+                        "microbatches = smaller bubble, and under "
+                        "--pp-schedule 1f1b activation memory stays O(S) "
+                        "regardless")
+    p.add_argument("--pp-schedule", choices=["gpipe", "1f1b"],
+                   default="gpipe",
+                   help="pipeline schedule (pp only): gpipe = autodiff "
+                        "backward, O(M) stored activations; 1f1b = "
+                        "interleaved manual backward with per-stage "
+                        "recompute, O(S) in-flight activations")
+    p.add_argument("--aux-weight", type=float, default=0.01,
+                   help="MoE load-balance loss weight (MoE models only)")
     p.add_argument("--kernels", action="store_true",
                    help="send the optimizer update through the fused CUDA "
                         "kernel (ops/csrc/fused_update.cu), one pass per "
@@ -346,6 +364,9 @@ def config_from_args(args) -> TrainConfig:
         parallelism=args.parallelism,
         mesh=mesh_sizes,
         sp_flash=args.sp_flash,
+        n_microbatches=args.microbatches,
+        pp_schedule=args.pp_schedule,
+        aux_weight=args.aux_weight,
         n_devices=args.n_devices,
         model=args.model,
         attention=args.attention,

@@ -28,7 +28,7 @@ KERNELS = {
         "source": "tpu_ddp_torch/ops/csrc/fused_update.cu",
         "library": "fused_update",
         "replaces": "tpu_ddp/ops/fused_update.py:165",
-        "strategies": ("dp", "sp", "fsdp", "tp", "fsdp_tp"),
+        "strategies": ("dp", "sp", "fsdp", "tp", "fsdp_tp", "pp", "ep"),
     },
     # the three kernels of flash attention (tpu_ddp/ops/flash_attention.py)
     "flash_attention_fwd": {
@@ -38,7 +38,7 @@ KERNELS = {
         "source": "tpu_ddp_torch/ops/csrc/flash_forward.cu",
         "library": "flash_forward",
         "replaces": "tpu_ddp/ops/flash_attention.py:108",
-        "strategies": ("dp", "sp", "fsdp", "tp", "fsdp_tp"),
+        "strategies": ("dp", "sp", "fsdp", "tp", "fsdp_tp", "pp"),
     },
     "flash_attention_dq": {
         "wrapper": "tpu_ddp_torch.ops.flash_attention:flash_dq",
@@ -47,7 +47,7 @@ KERNELS = {
         "source": "tpu_ddp_torch/ops/csrc/flash_attention.cu",
         "library": "flash_attention",
         "replaces": "tpu_ddp/ops/flash_attention.py:327",
-        "strategies": ("dp", "sp", "fsdp", "tp", "fsdp_tp"),
+        "strategies": ("dp", "sp", "fsdp", "tp", "fsdp_tp", "pp"),
     },
     "flash_attention_dkv": {
         "wrapper": "tpu_ddp_torch.ops.flash_attention:flash_dkv",
@@ -56,7 +56,7 @@ KERNELS = {
         "source": "tpu_ddp_torch/ops/csrc/flash_attention.cu",
         "library": "flash_attention",
         "replaces": "tpu_ddp/ops/flash_attention.py:366",
-        "strategies": ("dp", "sp", "fsdp", "tp", "fsdp_tp"),
+        "strategies": ("dp", "sp", "fsdp", "tp", "fsdp_tp", "pp"),
     },
     # their bfloat16 kernels (bf16 q, k, v and dO: the JAX kernels under
     # --compute-dtype bfloat16), in the same sources, all three on TMA, an
@@ -68,7 +68,7 @@ KERNELS = {
         "source": "tpu_ddp_torch/ops/csrc/flash_forward.cu",
         "library": "flash_forward",
         "replaces": "tpu_ddp/ops/flash_attention.py:108",
-        "strategies": ("dp", "sp", "fsdp", "tp", "fsdp_tp"),
+        "strategies": ("dp", "sp", "fsdp", "tp", "fsdp_tp", "pp"),
     },
     "flash_attention_dq_bf16": {
         "wrapper": "tpu_ddp_torch.ops.flash_attention:flash_dq",
@@ -77,7 +77,7 @@ KERNELS = {
         "source": "tpu_ddp_torch/ops/csrc/flash_attention.cu",
         "library": "flash_attention",
         "replaces": "tpu_ddp/ops/flash_attention.py:327",
-        "strategies": ("dp", "sp", "fsdp", "tp", "fsdp_tp"),
+        "strategies": ("dp", "sp", "fsdp", "tp", "fsdp_tp", "pp"),
     },
     "flash_attention_dkv_bf16": {
         "wrapper": "tpu_ddp_torch.ops.flash_attention:flash_dkv",
@@ -86,7 +86,7 @@ KERNELS = {
         "source": "tpu_ddp_torch/ops/csrc/flash_attention.cu",
         "library": "flash_attention",
         "replaces": "tpu_ddp/ops/flash_attention.py:366",
-        "strategies": ("dp", "sp", "fsdp", "tp", "fsdp_tp"),
+        "strategies": ("dp", "sp", "fsdp", "tp", "fsdp_tp", "pp"),
     },
     # the int8 quantize and dequantize of the compressed gradient ring
     # (tpu_ddp/ops/fused_quant.py)

@@ -8,8 +8,8 @@ runs over a ``torch.distributed`` process group (the default one, or a group
 of the rank grid: "Groups" below); each rank is one process.
 
 Every call that moves bytes between ranks goes through one of four helpers
-here (``exchange``, ``all_gather_bytes``, ``_all_reduce_flat``,
-``reduce_scatter_sum``). Under the
+here (``post``, which ``exchange`` and ``exchange_async`` call,
+``all_gather_bytes``, ``_all_reduce_flat``, ``reduce_scatter_sum``). Under the
 ``gloo`` backend, which sends no CUDA tensor point to point, they stage
 CUDA tensors through pinned host buffers: copy to the host, send, receive,
 copy back to the card. Only wire bytes take that route; every quantize,
@@ -126,24 +126,41 @@ class Exchange:
         return self._outs
 
 
+def post(sends: Sequence[Tuple[torch.Tensor, int, int]],
+         recvs: Sequence[Tuple[torch.Tensor, int, int]],
+         group: Optional[dist.ProcessGroup] = None) -> Exchange:
+    """Post the sends ``(buf, dst, tag)`` and the receives ``(like, src,
+    tag)`` (a buffer shaped as ``like`` from ``src``) as one
+    ``batch_isend_irecv`` over ``group``'s ranks, either list possibly
+    empty, and return the handle: ``wait`` hands back the buffers received,
+    in ``recvs``' order. Under gloo, CUDA buffers are staged through pinned
+    host memory (module docstring). The pipeline's hops
+    (``parallel/pipeline.py``) post a send and a receive in each direction;
+    ``exchange_async`` is the case of one peer each way."""
+    ranks = group_ranks(group)
+    outs = [torch.empty_like(like) for like, _, _ in recvs]
+    bufs = [b.contiguous() for b, _, _ in sends]
+    wires = outs
+    staged = [t for t in bufs + outs if _staged(t)]
+    if staged:
+        bufs = [_to_host(b) for b in bufs]
+        wires = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True) for o in outs]
+        torch.cuda.current_stream(staged[0].device).synchronize()
+    ops = [dist.P2POp(dist.isend, b, ranks[dst], group, tag)
+           for b, (_, dst, tag) in zip(bufs, sends)]
+    ops += [dist.P2POp(dist.irecv, w, ranks[src], group, tag)
+            for w, (_, src, tag) in zip(wires, recvs)]
+    return Exchange(dist.batch_isend_irecv(ops) if ops else [], outs, wires)
+
+
 def exchange_async(bufs: Sequence[torch.Tensor], dst: int, src: int,
                    group: Optional[dist.ProcessGroup] = None) -> Exchange:
     """Post the sends of ``bufs`` to ``dst`` and the receives of
     same-shaped buffers from ``src`` (ranks in ``group``; None: the default
     group) as one ``batch_isend_irecv``, the i-th buffer under tag i, and
     return the handle (module docstring). The buffers must be contiguous."""
-    ranks = group_ranks(group)
-    outs = [torch.empty_like(b) for b in bufs]
-    sends, recvs = list(bufs), outs
-    if _staged(bufs[0]):
-        sends = [_to_host(b) for b in bufs]
-        recvs = [torch.empty(b.shape, dtype=b.dtype, pin_memory=True) for b in bufs]
-        torch.cuda.current_stream(bufs[0].device).synchronize()
-    ops = []
-    for tag, (send, recv) in enumerate(zip(sends, recvs)):
-        ops += [dist.P2POp(dist.isend, send, ranks[dst], group, tag),
-                dist.P2POp(dist.irecv, recv, ranks[src], group, tag)]
-    return Exchange(dist.batch_isend_irecv(ops), outs, recvs)
+    return post([(b, dst, i) for i, b in enumerate(bufs)],
+                [(b, src, i) for i, b in enumerate(bufs)], group)
 
 
 def exchange(buf: torch.Tensor, dst: int, src: int,

@@ -1,29 +1,30 @@
-"""The rank grid: the ``data``, ``sequence`` and ``model`` axes over the
-ranks.
+"""The rank grid: the ``data``, ``pipeline``, ``expert``, ``sequence`` and
+``model`` axes over the ranks.
 
 Counterpart of ``tpu_ddp/parallel/mesh.py`` (``MeshSpec.resolve`` :42,
-``create_mesh`` :65) for the three axes the port runs. The JAX mesh is
-data-major with ``model`` innermost (``AXIS_ORDER`` :28,
-``devices.reshape(shape)`` :79), so here rank r sits at data index
-``r // (S * M)``, sequence index ``(r // M) % S`` and model index
-``r % M`` (``S``, ``M``: the sequence and model sizes): a model group is
-``M`` consecutive ranks, a sequence ring is ``S`` ranks ``M`` apart, in
-sequence order (the causal ring's schedule depends on it), and a data
-group is every ``S * M``-th rank. With ``M == 1`` this is the grid of
-sequence parallelism as it was: ring ``d * S .. d * S + S - 1``.
+``create_mesh`` :65). The JAX mesh is data-major with ``model`` innermost
+(``AXIS_ORDER`` :28, ``devices.reshape(shape)`` :79), so here rank r sits
+where the JAX mesh puts device r: with ``P``, ``E``, ``S`` and ``M`` the
+pipeline, expert, sequence and model sizes, rank
+``(((d * P + p) * E + e) * S + s) * M + m`` is at data index d, pipeline
+index p (stage p of a pipeline), expert index e, sequence index s and model
+index m. A model group is ``M`` consecutive ranks, a sequence ring is ``S``
+ranks ``M`` apart, in sequence order (the causal ring's schedule depends on
+it), an expert group ``E`` ranks ``S * M`` apart, a pipeline ``P`` ranks
+``E * S * M`` apart in stage order, and a data group every
+``P * E * S * M``-th rank. With ``P == E == 1`` this is the grid of the
+sequence-parallel and GSPMD families as it was.
 
-``create_mesh`` builds one ``torch.distributed`` group for each ring, each
-data column and each model group, every rank calling ``new_group`` for
-every group in the same order (``torch.distributed`` requires it), and
-keeps this rank's three. With no process group up (one process) they are
-None and the grid is 1 x 1 x 1. The other JAX axes (``pipeline``,
-``expert``) belong to parallelisms not ported yet (``ROADMAP.md`` §1 item
-2): naming one at a size other than 1 raises.
+``create_mesh`` builds one ``torch.distributed`` group for each group of
+each axis, every rank calling ``new_group`` for every group in the same
+order (``torch.distributed`` requires it), and keeps this rank's five.
+With no process group up (one process) they are None and every axis is 1.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Dict, Optional
 
@@ -36,26 +37,17 @@ MODEL_AXIS = "model"
 EXPERT_AXIS = "expert"
 #: the JAX package's axis order, outermost first
 AXIS_ORDER = (DATA_AXIS, PIPELINE_AXIS, EXPERT_AXIS, SEQUENCE_AXIS, MODEL_AXIS)
-#: the axes the port runs, outermost first
-PORTED_AXES = (DATA_AXIS, SEQUENCE_AXIS, MODEL_AXIS)
 
 
 def resolve(sizes: Dict[str, int], n_devices: int) -> Dict[str, int]:
-    """``{"data": D, "sequence": S, "model": M}`` with ``D * S * M ==
-    n_devices`` from the axis sizes ``sizes`` (missing axes are 1; -1 on at
-    most one axis means "the rest"), with ``MeshSpec.resolve``'s
-    messages."""
-    for axis, size in sizes.items():
+    """Every axis's size, their product ``n_devices``, from the axis sizes
+    ``sizes`` (missing axes are 1, data -1; -1 on at most one axis means
+    "the rest"), with ``MeshSpec.resolve``'s messages."""
+    for axis in sizes:
         if axis not in AXIS_ORDER:
             raise ValueError(f"unknown mesh axis {axis!r}; choose from {AXIS_ORDER}")
-        if axis not in PORTED_AXES and size != 1:
-            raise ValueError(
-                f"mesh axis {axis!r} is not ported yet: the port runs the data, "
-                "sequence and model axes (ROADMAP.md §1 item 2 queues the "
-                "pipeline and expert axes)")
     # MeshSpec's defaults: data takes the rest, the others are 1
-    full = {DATA_AXIS: sizes.get(DATA_AXIS, -1), SEQUENCE_AXIS: sizes.get(SEQUENCE_AXIS, 1),
-            MODEL_AXIS: sizes.get(MODEL_AXIS, 1)}
+    full = {a: sizes.get(a, -1 if a == DATA_AXIS else 1) for a in AXIS_ORDER}
     wild = [k for k, v in full.items() if v == -1]
     if len(wild) > 1:
         raise ValueError(f"at most one -1 axis, got {wild}")
@@ -72,9 +64,10 @@ def resolve(sizes: Dict[str, int], n_devices: int) -> Dict[str, int]:
 
 @dataclasses.dataclass
 class Mesh:
-    """This rank's place on the grid and its three groups (module
-    docstring): ``data_size`` x ``sequence_size`` x ``model_size`` ranks,
-    this one at ``(data_index, sequence_index, model_index)``."""
+    """This rank's place on the grid and its groups (module docstring):
+    ``data_size`` x ``pipeline_size`` x ``expert_size`` x ``sequence_size``
+    x ``model_size`` ranks, this one at ``(data_index, pipeline_index,
+    expert_index, sequence_index, model_index)``."""
 
     data_size: int
     sequence_size: int
@@ -83,60 +76,93 @@ class Mesh:
     column: Optional[dist.ProcessGroup] = None    # this rank's data group
     model_size: int = 1
     tensor: Optional[dist.ProcessGroup] = None    # this rank's model group
+    pipeline_size: int = 1
+    pipe: Optional[dist.ProcessGroup] = None      # this rank's pipeline
+    expert_size: int = 1
+    experts: Optional[dist.ProcessGroup] = None   # this rank's expert group
+
+    def _index(self, inner: int, size: int) -> int:
+        return (self.rank // inner) % size
 
     @property
     def data_index(self) -> int:
-        return self.rank // (self.sequence_size * self.model_size)
+        return self.rank // (self.pipeline_size * self.expert_size * self.sequence_size
+                             * self.model_size)
+
+    @property
+    def pipeline_index(self) -> int:
+        return self._index(self.expert_size * self.sequence_size * self.model_size,
+                           self.pipeline_size)
+
+    @property
+    def expert_index(self) -> int:
+        return self._index(self.sequence_size * self.model_size, self.expert_size)
 
     @property
     def sequence_index(self) -> int:
-        return (self.rank // self.model_size) % self.sequence_size
+        return self._index(self.model_size, self.sequence_size)
 
     @property
     def model_index(self) -> int:
         return self.rank % self.model_size
 
     def sequence_group(self) -> Optional[dist.ProcessGroup]:
-        """This rank's sequence ring: ranks ``d * S * M + s * M + m`` over
-        s (``d * S .. d * S + S - 1`` at ``M == 1``)."""
+        """This rank's sequence ring: the ``S`` ranks at its other indices,
+        in sequence order."""
         return self.ring
 
     def data_group(self) -> Optional[dist.ProcessGroup]:
-        """The ranks at this rank's sequence and model index: ``s * M + m``,
-        then every ``S * M``-th rank."""
+        """The ``D`` ranks at this rank's pipeline, expert, sequence and
+        model index."""
         return self.column
 
     def model_group(self) -> Optional[dist.ProcessGroup]:
-        """The ``M`` consecutive ranks at this rank's data and sequence
-        index."""
+        """The ``M`` consecutive ranks at this rank's other indices."""
         return self.tensor
+
+    def pipeline_group(self) -> Optional[dist.ProcessGroup]:
+        """This rank's pipeline: the ``P`` ranks at its other indices, in
+        stage order."""
+        return self.pipe
+
+    def expert_group(self) -> Optional[dist.ProcessGroup]:
+        """The ``E`` ranks at this rank's other indices, in expert order."""
+        return self.experts
+
+
+#: the Mesh field each axis's group is kept in
+_GROUP_FIELD = {SEQUENCE_AXIS: "ring", DATA_AXIS: "column", MODEL_AXIS: "tensor",
+                PIPELINE_AXIS: "pipe", EXPERT_AXIS: "experts"}
 
 
 def create_mesh(sizes: Optional[Dict[str, int]] = None) -> Mesh:
     """The grid of ``sizes`` (``resolve``; default all data) over the
-    ranks of the default process group, or the 1 x 1 x 1 grid of one
-    process with no group. Every rank must call it, at the same point."""
+    ranks of the default process group, or the grid of one process with
+    no group. Every rank must call it, at the same point."""
     up = dist.is_initialized()
     world = dist.get_world_size() if up else 1
     shape = resolve(dict(sizes or {DATA_AXIS: -1}), world)
-    D, S, M = shape[DATA_AXIS], shape[SEQUENCE_AXIS], shape[MODEL_AXIS]
-    mesh = Mesh(D, S, dist.get_rank() if up else 0, model_size=M)
+    mesh = Mesh(shape[DATA_AXIS], shape[SEQUENCE_AXIS], dist.get_rank() if up else 0,
+                model_size=shape[MODEL_AXIS], pipeline_size=shape[PIPELINE_AXIS],
+                expert_size=shape[EXPERT_AXIS])
     if not up:
         return mesh
-    at = lambda d, s, m: (d * S + s) * M + m  # noqa: E731
-    for d in range(D):                       # every rank builds every group
-        for m in range(M):
-            group = dist.new_group([at(d, s, m) for s in range(S)])
-            if (d, m) == (mesh.data_index, mesh.model_index):
-                mesh.ring = group
-    for s in range(S):
-        for m in range(M):
-            group = dist.new_group([at(d, s, m) for d in range(D)])
-            if (s, m) == (mesh.sequence_index, mesh.model_index):
-                mesh.column = group
-    for d in range(D):
-        for s in range(S):
-            group = dist.new_group([at(d, s, m) for m in range(M)])
-            if (d, s) == (mesh.data_index, mesh.sequence_index):
-                mesh.tensor = group
+    mine = {DATA_AXIS: mesh.data_index, PIPELINE_AXIS: mesh.pipeline_index,
+            EXPERT_AXIS: mesh.expert_index, SEQUENCE_AXIS: mesh.sequence_index,
+            MODEL_AXIS: mesh.model_index}
+
+    def at(coords: Dict[str, int]) -> int:
+        r = 0
+        for a in AXIS_ORDER:
+            r = r * shape[a] + coords[a]
+        return r
+
+    # every rank builds every group, the axes in this order
+    for axis in (SEQUENCE_AXIS, DATA_AXIS, MODEL_AXIS, PIPELINE_AXIS, EXPERT_AXIS):
+        others = [a for a in AXIS_ORDER if a != axis]
+        for rest in itertools.product(*(range(shape[a]) for a in others)):
+            coords = dict(zip(others, rest))
+            group = dist.new_group([at({**coords, axis: i}) for i in range(shape[axis])])
+            if all(coords[a] == mine[a] for a in others):
+                setattr(mesh, _GROUP_FIELD[axis], group)
     return mesh

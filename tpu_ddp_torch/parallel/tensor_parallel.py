@@ -64,7 +64,11 @@ is the JAX step's, a slice of the GLOBAL batch (rows ``[k * B / K, (k + 1)
 * B / K)``, cut over the data group), so under accumulation the data
 group first all-gathers its batch (``_microbatches``), and each
 microbatch's loss is its own masked mean and its BatchNorm statistics its
-own. ``--health`` gives the DP schema with global norms.
+own. ``--health`` gives the DP schema with global norms. A model with
+auxiliary losses (the MoE ViT) adds ``aux_weight`` times their mean over
+the global batch (the JAX :131-152, :197-217), reported as ``aux_loss``.
+``TensorParallel`` also cuts over the expert axis
+(``parallel/expert_parallel.py``), whose rules cut only the MoE experts.
 
 Deliberate differences from the JAX package (``ROADMAP.md`` §3): the
 head-aligned qkv shards; FSDP keeps ZeRO-3's flat chunks where
@@ -84,18 +88,20 @@ from torch import nn
 
 from tpu_ddp_torch.health.stats import HealthConfig, assemble_stats, leaf_norms, leaf_peaks
 from tpu_ddp_torch.models.layers import Conv2d, Dense
+from tpu_ddp_torch.models.moe import sown_aux_losses
 from tpu_ddp_torch.models.resnet import BatchNorm
 from tpu_ddp_torch.parallel.collectives import (
     _all_reduce_flat,
     all_gather_bytes,
     all_reduce_sum_,
     group_size,
+    rank_mean,
     reduce_scatter_sum,
 )
-from tpu_ddp_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
+from tpu_ddp_torch.parallel.mesh import DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, Mesh
 from tpu_ddp_torch.parallel.partitioning import PartitionRule, specs_for_params
-from tpu_ddp_torch.train.losses import cross_entropy_loss
-from tpu_ddp_torch.train.state import StateLayout, TrainState
+from tpu_ddp_torch.train.losses import combine_aux_loss, cross_entropy_loss
+from tpu_ddp_torch.train.state import StateLayout, TrainState, map_opt_slots
 from tpu_ddp_torch.train.steps import (
     StepHealth,
     _forward,
@@ -299,23 +305,25 @@ def head_split(num_heads: int, head_dim: int, parts: int, copies: int) -> List[n
 
 
 class TensorParallel:
-    """The model-axis layout of ``model``'s params under ``rules`` over the
-    ``size`` ranks of ``group``, this rank at ``index`` (module docstring).
-    ``layout[name] = (dim, indices)``: the torch dimension cut and each
-    rank's indices along it (params, and a cut BatchNorm's running
+    """The ``axis`` layout (the model axis; the expert axis for
+    ``parallel/expert_parallel.py``) of ``model``'s params under ``rules``
+    over the ``size`` ranks of ``group``, this rank at ``index`` (module
+    docstring). ``layout[name] = (dim, indices)``: the torch dimension cut
+    and each rank's indices along it (params, and a cut BatchNorm's running
     buffers); a name not in it is replicated. Built from the whole model,
     before ``shard_model_`` cuts it."""
 
-    def __init__(self, model: nn.Module, rules, size: int, index: int, group):
+    def __init__(self, model: nn.Module, rules, size: int, index: int, group,
+                 axis: str = MODEL_AXIS):
         from tpu_ddp_torch.models.vit import MultiHeadSelfAttention
 
-        self.size, self.index, self.group = size, index, group
+        self.size, self.index, self.group, self.axis = size, index, group, axis
         self.once: Dict[tuple, torch.Tensor] = {}    # ``_model_once``'s masks
         view = jax_view(model)
         specs = specs_for_params({path: shape for path, shape, _ in view.values()}, rules)
         heads = {}
         for mname, m in model.named_modules():
-            if isinstance(m, MultiHeadSelfAttention):
+            if isinstance(m, MultiHeadSelfAttention) and axis == MODEL_AXIS:
                 cut = lambda copies, m=m: head_split(m.num_heads, m.head_dim, size, copies)  # noqa: E731
                 heads[f"{mname}.qkv.weight"] = heads[f"{mname}.qkv.bias"] = cut(3)
                 heads[f"{mname}.proj.weight"] = cut(1)
@@ -323,9 +331,9 @@ class TensorParallel:
         self.layout: Dict[str, Tuple[int, List[torch.Tensor]]] = {}
         for name, (path, _, dims) in view.items():
             spec = specs[path]
-            if MODEL_AXIS not in spec:
+            if axis not in spec:
                 continue
-            dim = dims[spec.index(MODEL_AXIS)]
+            dim = dims[spec.index(axis)]
             cut = heads.get(name) or even_split(params[name].shape[dim], size)
             self.layout[name] = (dim, [torch.as_tensor(i, dtype=torch.int64) for i in cut])
         for mname, m in model.named_modules():
@@ -379,10 +387,16 @@ class TensorParallel:
         rank's rows, and the modules whose weight is cut change class
         (module docstring). The conv families' ``fc1`` learns the channel
         count of the last cut conv before it, to gather its flattened
-        input."""
+        input; under the expert axis each MoE layer learns its experts
+        (``models/moe.py::set_expert_parallel``)."""
         for name, t in list(model.named_parameters()) + list(model.named_buffers()):
             if name in self.layout:
                 t.data = self.local(name, t.data)
+        if self.axis == EXPERT_AXIS:
+            from tpu_ddp_torch.models.moe import set_expert_parallel
+
+            set_expert_parallel(model, self.group, self.size, self.index)
+            return
         channels = None
         for mname, m in model.named_modules():
             dim = self.layout.get(f"{mname}.weight", (None,))[0]
@@ -408,16 +422,7 @@ class TensorParallel:
     def opt_state(self, opt_state, fn):
         """``opt_state`` with every param-shaped slot mapped by ``fn``
         (``scatter`` or ``gather``); the counts as they are."""
-        from tpu_ddp_torch.train.state import COUNTS, SLOTS
-        from tpu_ddp_torch.train.optim import OptState
-
-        out = OptState()
-        for slot in SLOTS:
-            value = getattr(opt_state, slot)
-            setattr(out, slot, None if value is None else fn(value))
-        for slot in COUNTS:
-            setattr(out, slot, getattr(opt_state, slot))
-        return out
+        return map_opt_slots(opt_state, fn)
 
 
 def sync_batch_norm_(model: nn.Module, group) -> None:
@@ -480,15 +485,16 @@ def _model_once(tp: Optional[TensorParallel], names, device) -> Optional[torch.T
 def leaf_sums(tp: Optional[TensorParallel], mesh: Mesh, fsdp: bool) -> Callable:
     """``train/optim.py``'s ``LeafSums`` of the layout: per-leaf values of
     this rank summed over the ranks that split the leaves, the data group
-    under ``fsdp`` (every leaf is a shard there), then the model group, each
-    replicated leaf counted once (``_model_once``)."""
+    under ``fsdp`` (every leaf is a shard there), then the cut's group (the
+    model group; under ep the expert group), each replicated leaf counted
+    once (``_model_once``)."""
     def sums(vec: torch.Tensor, names) -> torch.Tensor:
         if fsdp and mesh.data_size > 1:
             all_reduce_sum_([vec], mesh.data_group())
         once = _model_once(tp, names, vec.device)
         if once is not None:
             vec = vec * once
-            all_reduce_sum_([vec], mesh.model_group())
+            all_reduce_sum_([vec], tp.group)
         return vec
 
     return sums
@@ -524,11 +530,14 @@ class GspmdHealth(StepHealth):
 
 
 def _global_loss(loss_fn: Callable, logits: torch.Tensor, batch, group,
-                 compute_accuracy: bool):
+                 compute_accuracy: bool, sown=None, aux_weight: float = 0.0):
     """This rank's part of the masked mean loss over the global batch: its
     masked sum over the count summed over the data group ``group`` (one
     all-reduce, outside autograd), as ``loss_fn`` times its own count over
-    the global one; and its metric sums (module docstring)."""
+    the global one; with the model's ``sown`` auxiliary losses, their mean
+    over the global batch is the mean of the data group's, so this rank's
+    part adds ``aux_weight * aux / D`` (``combine_aux_loss``). Returns the
+    objective and the metric sums (the task loss's part, and the aux's)."""
     mask = batch.get("mask")
     local = loss_fn(logits, batch["label"], mask)
     with torch.no_grad():
@@ -539,9 +548,14 @@ def _global_loss(loss_fn: Callable, logits: torch.Tensor, batch, group,
             all_reduce_sum_([total], group)
         scale = torch.clamp_min(count, 1.0) / torch.clamp_min(total, 1.0)
     loss = local * scale
+    objective = loss
+    _, aux = combine_aux_loss(loss, sown or {}, aux_weight)
+    if aux is not None:             # this rank's part of the global batch's mean
+        aux = rank_mean(aux, group_size(group))
+        objective = loss + aux_weight * aux
     with torch.no_grad():
-        sums = _metric_sums(loss.detach(), logits, batch, compute_accuracy)
-    return loss, sums
+        sums = _metric_sums(loss.detach(), logits, batch, compute_accuracy, aux)
+    return objective, sums
 
 
 def _microbatches(batch, count: int, mesh: Mesh) -> list:
@@ -568,9 +582,11 @@ def make_sharded_train_step(tx, mesh: Mesh, layout: StateLayout, *,
                             loss_fn: Callable = cross_entropy_loss,
                             compute_accuracy: bool = True, remat: bool = False,
                             grad_accum_steps: int = 1,
-                            health: Optional[HealthConfig] = None) -> Callable:
+                            health: Optional[HealthConfig] = None,
+                            aux_weight: float = 0.01) -> Callable:
     """``step(state, batch) -> (state, {"loss", "accuracy"})`` (``health``
-    too under ``health``) for a state laid out by ``layout_state``;
+    too under ``health``, ``aux_loss`` for a model with auxiliary losses,
+    weighed by ``aux_weight``) for a state laid out by ``layout_state``;
     ``batch`` holds this rank's data shard's rows (the same on every rank
     of its model group). ``state`` is updated in place. Module docstring
     for the arithmetic."""
@@ -595,7 +611,8 @@ def make_sharded_train_step(tx, mesh: Mesh, layout: StateLayout, *,
         with streamed(zero, state):
             for micro in _microbatches(batch, A, mesh):
                 logits = _forward(model, micro["image"], remat)
-                loss, sums = _global_loss(loss_fn, logits, micro, data, compute_accuracy)
+                loss, sums = _global_loss(loss_fn, logits, micro, data, compute_accuracy,
+                                          sown_aux_losses(model), aux_weight)
                 grads = torch.autograd.grad(loss, leaves)
                 if acc is None:
                     acc, total = list(grads), sums
@@ -605,7 +622,7 @@ def make_sharded_train_step(tx, mesh: Mesh, layout: StateLayout, *,
                         total = total + sums
         with torch.no_grad():
             grads = dict(zip(params, acc if A == 1 else [g / A for g in acc]))
-            sums = total if A == 1 else torch.cat([total[:1] / A, total[1:]])
+            sums = total if A == 1 else torch.cat([total[:1] / A, total[1:3], total[3:] / A])
             if group_size(data) > 1:
                 all_reduce_sum_([sums], data)
         held = state.param_shards if zero is not None else params

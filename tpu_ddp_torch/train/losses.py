@@ -1,7 +1,8 @@
 """Masked cross-entropy, binary cross-entropy and accuracy.
 
 Counterpart of ``tpu_ddp/train/losses.py`` (``cross_entropy_loss`` :20,
-``binary_cross_entropy_with_logits`` :39, ``masked_accuracy`` :63): the
+``binary_cross_entropy_with_logits`` :39, ``combine_aux_loss`` :48,
+``masked_accuracy`` :63): the
 reference's ``nn.CrossEntropyLoss()`` with an optional validity mask, so the
 wrap-padded rows of a static-shape batch do not count, and the multi-label
 fine-tune's BCE on multi-hot targets (``ppe_main_ddp.py:147``), masked the
@@ -10,7 +11,7 @@ same way.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -46,6 +47,21 @@ def binary_cross_entropy_with_logits(logits: torch.Tensor, targets: torch.Tensor
         return per.mean()
     mask = mask.to(per.dtype)
     return (per * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+def combine_aux_loss(task: torch.Tensor, sown: Dict[str, torch.Tensor], aux_weight: float):
+    """Fold the auxiliary losses a model kept in its forward (``sown``:
+    ``models/moe.py::sown_aux_losses``, the MoE router's load-balance terms)
+    into the differentiated objective: ``(total, aux)``, ``aux`` their sum in
+    the JAX tree's key order and None when the model kept none (the JAX
+    ``combine_aux_loss``, shared by every step builder)."""
+    if not sown:
+        return task, None
+    keys = sorted(sown)
+    aux = sown[keys[0]]
+    for k in keys[1:]:
+        aux = aux + sown[k]
+    return task + aux_weight * aux, aux
 
 
 def masked_accuracy(logits: torch.Tensor, labels: torch.Tensor,

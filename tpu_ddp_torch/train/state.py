@@ -27,7 +27,8 @@ loader or generator state is saved.
 
 ``StateLayout`` is how a rank holds the state against that one layout: cut
 over a model group (``tp``, ``parallel/tensor_parallel.py``'s
-``TensorParallel``), the optimizer state (and under ZeRO-3 the params)
+``TensorParallel``; over an expert group the same class; a pipeline stage,
+``parallel/pipeline.py``'s ``PipelineLayout``), the optimizer state (and under ZeRO-3 the params)
 scattered over a data group (``zero``, a ``Zero1Partition`` or
 ``Zero3Partition``), both, or neither (a replicated run). The trainer
 saves, restores, checks and evaluates every family through it.
@@ -119,6 +120,18 @@ def load_model_state_(state: TrainState, model_state: Dict[str, torch.Tensor],
     zero.load_params_(state.param_shards, {n: model_state[n] for n in zero.param_slots})
 
 
+def map_opt_slots(opt_state: OptState, fn) -> OptState:
+    """``opt_state`` with every param-shaped slot mapped by ``fn`` (a cut's
+    ``scatter`` or ``gather``); the counts as they are."""
+    out = OptState()
+    for slot in SLOTS:
+        value = getattr(opt_state, slot)
+        setattr(out, slot, None if value is None else fn(value))
+    for slot in COUNTS:
+        setattr(out, slot, getattr(opt_state, slot))
+    return out
+
+
 @dataclasses.dataclass
 class StateLayout:
     """A rank's layout of a ``TrainState`` (module docstring): ``tp`` (a
@@ -165,7 +178,11 @@ class StateLayout:
         ``_eval_source_state`` :2615-2640): the EMA shadow under ``ema``
         (gathered from its shards under ZeRO), the params gathered from
         their shards under ZeRO-3, else None; a collective under ZeRO. Under
-        a model cut they are this rank's leaves, which its cut model reads."""
+        a model cut they are this rank's leaves, which its cut model reads;
+        under a pipeline stage (``tp`` with an ``eval_params`` of its own)
+        the whole params (or shadow) gathered over the pipeline."""
+        if hasattr(self.tp, "eval_params"):
+            return self.tp.eval_params(state, ema)
         if ema:
             shadow = state.opt_state.ema
             return shadow if self.zero is None else self.zero.gather_params(shadow)

@@ -79,7 +79,13 @@ the JAX ``lax.scan``, not yet one captured graph); the accumulating step,
 ZeRO-3: the fused call streams the params each step, the accumulating step
 gathers them once for all its microbatches (the JAX :538-556).
 
-Not ported yet: auxiliary losses (the MoE router's).
+Auxiliary losses (the JAX ``combine_aux_loss`` in every builder, :173, :188,
+:321-322, :509-518, :559-568): a model that keeps losses in its forward
+(the MoE ViT's load-balance terms, ``models/moe.py::sown_aux_losses``) has
+``aux_weight`` times their sum added to the loss the step differentiates;
+``loss`` stays the task loss, and ``metrics["aux_loss"]`` is the aux term
+averaged over the ranks (the accumulating step: the microbatches' mean;
+the JAX accumulating step sums it the same way and does not report it).
 """
 
 from __future__ import annotations
@@ -99,6 +105,7 @@ from tpu_ddp_torch.health.stats import (
     leaf_norms,
     tree_select_,
 )
+from tpu_ddp_torch.models.moe import sown_aux_losses
 from tpu_ddp_torch.models.resnet import BatchNorm
 from tpu_ddp_torch.parallel.collectives import (
     all_reduce_mean_,
@@ -108,7 +115,7 @@ from tpu_ddp_torch.parallel.collectives import (
     sync_gradients,
 )
 from tpu_ddp_torch.parallel.runtime import rank, world_size
-from tpu_ddp_torch.train.losses import cross_entropy_loss, masked_accuracy
+from tpu_ddp_torch.train.losses import combine_aux_loss, cross_entropy_loss, masked_accuracy
 from tpu_ddp_torch.train.optim import OptState, Optimizer
 from tpu_ddp_torch.train.state import COUNTS, SLOTS, TrainState, scattered
 
@@ -311,21 +318,24 @@ def _augmented(batch: Batch, step: torch.Tensor, *, augment: bool, seed: int,
 
 
 def _metric_sums(loss: torch.Tensor, logits: torch.Tensor, batch: Batch,
-                 compute_accuracy: bool) -> torch.Tensor:
-    """``(loss, correct, count)`` of this rank's rows: the metric sums a
-    step all-reduces (the counts 0 without accuracy)."""
+                 compute_accuracy: bool, aux: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``(loss, correct, count)`` of this rank's rows, and the aux loss
+    after them when there is one: the metric sums a step all-reduces (the
+    counts 0 without accuracy)."""
     correct = count = torch.zeros_like(loss)
     if compute_accuracy:
         correct, count = masked_accuracy(logits, batch["label"], batch.get("mask"))
-    return torch.stack([loss, correct, count])
+    return torch.stack([loss, correct, count] + ([] if aux is None else [aux.detach()]))
 
 
 def _step_metrics(sums: torch.Tensor, n: int, compute_accuracy: bool, stats) -> dict:
     """A step's metrics from its metric sums over the ranks (loss, correct,
-    count) and its health stats."""
+    count, and the aux loss where there is one) and its health stats."""
     metrics = {"loss": rank_mean(sums[0], n)}
     if compute_accuracy:
         metrics["accuracy"] = sums[1] / torch.clamp_min(sums[2], 1.0)
+    if sums.shape[0] > 3:
+        metrics["aux_loss"] = rank_mean(sums[3], n)
     if stats is not None:
         metrics["health"] = stats
     return metrics
@@ -337,7 +347,8 @@ def make_train_step(tx: Optimizer, *, compress=None, zero1=None,
                     remat: bool = False,
                     health: Optional[HealthConfig] = None,
                     augment: bool = False, augment_seed: int = 0,
-                    mixup_alpha: float = 0.0) -> Callable[[TrainState, Batch], tuple]:
+                    mixup_alpha: float = 0.0,
+                    aux_weight: float = 0.01) -> Callable[[TrainState, Batch], tuple]:
     """``step(state, batch) -> (state, {"loss", "accuracy"})`` (no
     ``accuracy`` when ``compute_accuracy`` is False; ``health`` too under
     ``health``); ``state`` is updated in place and returned. ``batch`` holds
@@ -350,7 +361,8 @@ def make_train_step(tx: Optimizer, *, compress=None, zero1=None,
     ``mixup_alpha > 0`` mixes them, with draws keyed on ``(augment_seed,
     state.step, rank)``; the loss is then ``lam * loss(y) + (1 - lam) *
     loss(y[perm])``, the reported loss too, and the accuracy counts the
-    true labels (the JAX ``_make_shard_step`` :179-226)."""
+    true labels (the JAX ``_make_shard_step`` :179-226); ``aux_weight``
+    weighs the model's auxiliary losses (module docstring)."""
     recorder = StepHealth(health) if health is not None else None
 
     def train_step(state: TrainState, batch: Batch):
@@ -370,11 +382,12 @@ def make_train_step(tx: Optimizer, *, compress=None, zero1=None,
             if mixup_alpha > 0:
                 lam = batch["_mix_lam"]
                 loss = lam * loss + (1.0 - lam) * loss_fn(logits, batch["_mix_label"], mask)
+            total, aux = combine_aux_loss(loss, sown_aux_losses(model), aux_weight)
             if n > 1:
                 all_reduce_mean_([b for _, b in model.named_buffers()])
-            grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+            grads = dict(zip(params, torch.autograd.grad(total, list(params.values()))))
         with torch.no_grad():
-            sums = _metric_sums(loss.detach(), logits, batch, compute_accuracy)
+            sums = _metric_sums(loss.detach(), logits, batch, compute_accuracy, aux)
         stats = sync_and_update(tx, state, grads, update_params(state, params, zero1),
                                 sums, compress=compress, zero1=zero1, health=recorder)
         with torch.no_grad():
@@ -425,7 +438,8 @@ def make_scan_train_step(tx: Optimizer, *, steps_per_call: int,
 def make_grad_accum_train_step(tx: Optimizer, *, accum_steps: int, compress=None, zero1=None,
                                loss_fn: Callable = cross_entropy_loss,
                                compute_accuracy: bool = True, remat: bool = False,
-                               health: Optional[HealthConfig] = None
+                               health: Optional[HealthConfig] = None,
+                               aux_weight: float = 0.01
                                ) -> Callable[[TrainState, Batch], tuple]:
     """One optimizer step over this rank's rows split into ``accum_steps``
     microbatches of ``rows / accum_steps`` (``--grad-accum-steps``; the JAX
@@ -463,9 +477,10 @@ def make_grad_accum_train_step(tx: Optimizer, *, accum_steps: int, compress=None
                 micro = {key: v[k * m:(k + 1) * m] for key, v in batch.items()}
                 logits = _forward(model, micro["image"], remat)
                 loss = loss_fn(logits, micro["label"], micro.get("mask"))
-                grads = torch.autograd.grad(loss, leaves)
+                objective, aux = combine_aux_loss(loss, sown_aux_losses(model), aux_weight)
+                grads = torch.autograd.grad(objective, leaves)
                 with torch.no_grad():
-                    term = _metric_sums(loss.detach(), logits, micro, compute_accuracy)
+                    term = _metric_sums(loss.detach(), logits, micro, compute_accuracy, aux)
                     if acc is None:
                         acc, total = list(grads), term
                     else:
@@ -475,7 +490,7 @@ def make_grad_accum_train_step(tx: Optimizer, *, accum_steps: int, compress=None
             all_reduce_mean_([b for _, b in model.named_buffers()])
         with torch.no_grad():
             grads = {name: g / accum_steps for name, g in zip(params, acc)}
-            sums = torch.cat([total[:1] / accum_steps, total[1:]])
+            sums = torch.cat([total[:1] / accum_steps, total[1:3], total[3:] / accum_steps])
         stats = sync_and_update(tx, state, grads, update_params(state, params, zero1),
                                 sums, compress=compress, zero1=zero1, health=recorder)
         with torch.no_grad():
@@ -492,33 +507,36 @@ def _eval_logits(model: torch.nn.Module, images: torch.Tensor,
     return model(images) if params is None else functional_call(model, params, (images,))
 
 
-def make_predict_step() -> Callable[..., torch.Tensor]:
+def make_predict_step(model: Optional[torch.nn.Module] = None) -> Callable[..., torch.Tensor]:
     """``predict(state, batch, params=None) -> logits`` of this rank's rows:
     the eval-mode forward, ``params`` (the EMA shadow) in place of the
     model's when given (the JAX ``make_predict_step`` :705-726; the trainer
-    gathers the ranks' rows, ``Trainer.predict``)."""
+    gathers the ranks' rows, ``Trainer.predict``). ``model``: a module to
+    run in place of ``state.model`` (pp's whole module, on the params
+    gathered over the pipeline)."""
 
     @torch.no_grad()
     def predict_step(state: TrainState, batch: Batch,
                      params: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
-        return _eval_logits(state.model, batch["image"], params)
+        return _eval_logits(state.model if model is None else model, batch["image"], params)
 
     return predict_step
 
 
 def make_eval_step(loss_fn: Callable = cross_entropy_loss,
-                   compute_accuracy: bool = True, group=None) -> Callable[..., dict]:
+                   compute_accuracy: bool = True, group=None,
+                   model: Optional[torch.nn.Module] = None) -> Callable[..., dict]:
     """``eval(state, batch, params=None) -> {correct, count, loss_sum}``,
     each summed over the ranks (of ``group``; None: all): running-stats
     BatchNorm; ``params`` (the EMA shadow) replaces the model's params when
-    given. ``loss_sum`` is each rank's masked-mean loss times ITS OWN count
-    before the sum, so the eval loss is exact across shards with unequal
-    real counts."""
+    given; ``model`` as in ``make_predict_step``. ``loss_sum`` is each
+    rank's masked-mean loss times ITS OWN count before the sum, so the eval
+    loss is exact across shards with unequal real counts."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch,
                   params: Optional[Dict[str, torch.Tensor]] = None):
-        logits = _eval_logits(state.model, batch["image"], params)
+        logits = _eval_logits(state.model if model is None else model, batch["image"], params)
         mask = batch.get("mask")
         loss = loss_fn(logits, batch["label"], mask)
         if compute_accuracy:

@@ -22,14 +22,26 @@ error-feedback residual scattered over data and replicated over sequence;
 the trainer de-shards them for checkpoints as under dp.
 
 ``fsdp``, ``tp`` and ``fsdp_tp`` (the JAX :504-537) are the GSPMD family
-of ``parallel/tensor_parallel.py``: the ViT with Megatron rules, the conv
-families (NetResDeep, the ResNet family, WideResNet) with channel rules
-(``_tp_rules_for``), fsdp for any model. Their eval and predict steps
-(``_gspmd_eval_predict``, the JAX :188) run the sharded model on each data
-shard's rows, the counts summed over the data group once; the strategy's
-``layout`` gathers the state whole for checkpoints and cuts it again on
-restore. pp and ep are not ported yet (``ROADMAP.md`` §1 item 2) and
-raise.
+of ``parallel/tensor_parallel.py``: the ViT and the MoE ViT with Megatron
+rules (the MoE ViT's experts replicated), the conv families (NetResDeep,
+the ResNet family, WideResNet) with channel rules (``_tp_rules_for``), fsdp
+for any model. ``ep`` (the JAX :540-550) takes the MoE ViT, its experts cut
+over the expert group (``parallel/expert_parallel.py``), through the same
+step. Their eval and predict steps (``_gspmd_eval_predict``, the JAX :188)
+run the sharded model on each data shard's rows, the counts summed over the
+data group once; the strategy's ``layout`` gathers the state whole for
+checkpoints and cuts it again on restore. A model with auxiliary losses
+(the MoE ViT) adds ``aux_weight`` times them to the loss in every family.
+
+``pp`` (the JAX :420-500) takes a ViT whose depth divides into the stages:
+each rank of a pipeline holds its stage (``parallel/pipeline.py``), the
+step runs ``--pp-schedule`` (gpipe or 1f1b) over ``--microbatches``, and
+the schedule's line is printed (``pp_schedule_line``). A fine-tune's
+``initial_state`` is laid out the same way, its optimizer state fresh (the
+trainer builds it so). Evaluation and prediction run the plain module on
+the params gathered over the pipeline once a pass (the JAX
+``prepare_eval``), each rank on its data shard's rows, the counts summed
+over the data group.
 """
 
 from __future__ import annotations
@@ -50,8 +62,6 @@ from tpu_ddp_torch.parallel.mesh import (
 from tpu_ddp_torch.train.losses import cross_entropy_loss
 
 PARALLELISMS = ("dp", "fsdp", "tp", "fsdp_tp", "pp", "sp", "ep")
-#: the families the port runs
-PORTED = ("dp", "sp", "fsdp", "tp", "fsdp_tp")
 
 # Which mesh axis (other than data) each inferred mode keys on.
 _AXIS_TO_MODE = {
@@ -128,12 +138,13 @@ def _tp_rules_for(model, parallelism: str):
     """The JAX ``_tp_rules_for`` (:250): Megatron rules for the ViT,
     channel rules for the conv families; any other model raises rather
     than train replicated while reporting tensor parallelism."""
+    from tpu_ddp_torch.models.moe import MoEViT
     from tpu_ddp_torch.models.resnet import NetResDeep
     from tpu_ddp_torch.models.resnet_family import ResNet, WideResNet
     from tpu_ddp_torch.models.vit import ViT
     from tpu_ddp_torch.parallel.tensor_parallel import CNN_TP_RULES, VIT_TP_RULES
 
-    if isinstance(model, ViT):
+    if isinstance(model, (ViT, MoEViT)):
         return VIT_TP_RULES
     if isinstance(model, (NetResDeep, ResNet, WideResNet)):
         return CNN_TP_RULES
@@ -146,11 +157,11 @@ def _tp_rules_for(model, parallelism: str):
 
 
 def _require_model(model, kinds: tuple, parallelism: str) -> None:
-    """The JAX ``_require_model`` (:234) for the families the port has: a
-    ViT (the MoE family is not ported)."""
+    """The JAX ``_require_model`` (:234): a ViT or an MoE ViT."""
+    from tpu_ddp_torch.models.moe import MoEViT
     from tpu_ddp_torch.models.vit import ViT
 
-    by_name = {"vit": ViT}
+    by_name = {"vit": ViT, "moe": MoEViT}
     allowed = tuple(by_name[k] for k in kinds)
     if not isinstance(model, allowed):
         names = " or ".join(a.__name__ for a in allowed)
@@ -158,14 +169,28 @@ def _require_model(model, kinds: tuple, parallelism: str) -> None:
             f"--parallelism {parallelism} needs a {names} model (its "
             f"partition rules key on that family's parameter paths); got "
             f"{type(model).__name__}. Pick e.g. --model vit_s4"
+            + (" / vit_moe_s4" if "moe" in kinds else "")
         )
+
+
+def pp_schedule_line(n_stages: int, n_microbatches: int, schedule: str) -> str:
+    """The line the pp strategy prints (the JAX :466-476)."""
+    from tpu_ddp_torch.parallel.pipeline import pp_schedule_stats
+
+    stats = pp_schedule_stats(n_stages, n_microbatches, schedule)
+    return (f"pp strategy: schedule={stats['schedule']} "
+            f"stages={n_stages} microbatches="
+            f"{n_microbatches} bubble={stats['bubble_fraction']:.1%} "
+            f"in-flight={stats['in_flight_microbatches']} "
+            f"recompute={stats['recompute']}")
 
 
 @dataclasses.dataclass
 class Strategy:
     """What the ``Trainer`` takes from a family: its state and steps, the
     state's ``layout`` (``train/state.py::StateLayout``: sp's partition over
-    the data group, a GSPMD family's cut), and sp's compressor."""
+    the data group, a GSPMD family's cut, pp's stage), sp's compressor, and
+    the line the family printed (pp's schedule)."""
 
     state: object
     train_step: Callable
@@ -173,14 +198,16 @@ class Strategy:
     predict_step: Callable
     layout: object
     compress: Optional[object] = None
+    line: Optional[str] = None
 
 
 def check_strategy(parallelism: str, model: torch.nn.Module, *, remat: bool = False,
                    grad_accum_steps: int = 1, zero1: bool = False,
                    grad_compress: Optional[dict] = None) -> None:
     """``build_strategy``'s guards, in the JAX order (:332-351), before
-    anything is built: the flags a family refuses, the families not ported
-    and the model the family needs."""
+    anything is built: the flags a family refuses and the model the family
+    needs (a ViT for sp and pp, the MoE ViT for ep, a rule set for tp and
+    fsdp_tp)."""
     if (remat or grad_accum_steps > 1) and parallelism in ("pp", "sp"):
         raise ValueError(
             "--remat/--grad-accum-steps are not supported with "
@@ -201,15 +228,14 @@ def check_strategy(parallelism: str, model: torch.nn.Module, *, remat: bool = Fa
             "movement is GSPMD-internal, not a pmean this router owns. "
             "Use --grad-compress with dp or sp."
         )
-    if parallelism not in PORTED:
-        raise ValueError(
-            f"--parallelism {parallelism} is not ported yet: the port runs dp, "
-            "sp, fsdp, tp and fsdp_tp (ROADMAP.md §1 item 2 queues the "
-            "pipeline, and experts with the MoE ViT)")
+    if parallelism not in PARALLELISMS:
+        raise ValueError(f"unknown parallelism {parallelism!r}")
     if parallelism == "dp":
         raise ValueError("dp runs in the Trainer, not through build_strategy")
-    if parallelism == "sp":
-        _require_model(model, ("vit",), "sp")
+    if parallelism in ("sp", "pp"):
+        _require_model(model, ("vit",), parallelism)
+    elif parallelism == "ep":
+        _require_model(model, ("moe",), "ep")
     elif parallelism in ("tp", "fsdp_tp"):
         _tp_rules_for(model, parallelism)
 
@@ -231,13 +257,15 @@ def build_strategy(parallelism: str, mesh: Mesh, model: torch.nn.Module, tx,
                    compute_accuracy: bool = True, sp_flash: bool = False,
                    initial_state=None, remat: bool = False, grad_accum_steps: int = 1,
                    health=None, zero1: bool = False,
-                   grad_compress: Optional[dict] = None) -> Strategy:
+                   grad_compress: Optional[dict] = None, aux_weight: float = 0.01,
+                   n_microbatches: int = 4, pp_schedule: str = "gpipe") -> Strategy:
     """The strategy of ``parallelism`` (not dp) on ``mesh`` (module
     docstring), after ``check_strategy``. ``initial_state``: a replicated
     state to lay out instead of a fresh one (the trainer's, the fine-tune
     path's); ``health`` a ``HealthConfig`` or None; ``grad_compress`` the
     ``GradCompression`` fields (``mode``, ``block``, ``error_feedback``,
-    ``kernels``)."""
+    ``kernels``); ``aux_weight`` the auxiliary losses' weight;
+    ``n_microbatches`` and ``pp_schedule`` pp's."""
     from tpu_ddp_torch.parallel import tensor_parallel as tpar
     from tpu_ddp_torch.parallel.sequence_parallel import image_stripe, make_sp_train_step
     from tpu_ddp_torch.train.state import StateLayout, create_train_state
@@ -246,11 +274,19 @@ def build_strategy(parallelism: str, mesh: Mesh, model: torch.nn.Module, tx,
     check_strategy(parallelism, model, remat=remat, grad_accum_steps=grad_accum_steps,
                    zero1=zero1, grad_compress=grad_compress)
     state = initial_state or create_train_state(model, tx, device)
+    if parallelism == "pp":
+        return _pp_strategy(state, tx, mesh, loss_fn=loss_fn,
+                            compute_accuracy=compute_accuracy, health=health,
+                            n_microbatches=n_microbatches, schedule=pp_schedule)
     if parallelism != "sp":
         kw = dict(loss_fn=loss_fn, compute_accuracy=compute_accuracy, remat=remat,
-                  grad_accum_steps=grad_accum_steps, health=health)
+                  grad_accum_steps=grad_accum_steps, health=health, aux_weight=aux_weight)
         if parallelism == "fsdp":
             step, state, layout = tpar.make_fsdp_train_step(state, tx, mesh, **kw)
+        elif parallelism == "ep":
+            from tpu_ddp_torch.parallel.expert_parallel import make_ep_train_step
+
+            step, state, layout = make_ep_train_step(state, tx, mesh, **kw)
         else:
             build = (tpar.make_tp_train_step if parallelism == "tp"
                      else tpar.make_fsdp_tp_train_step)
@@ -289,3 +325,31 @@ def build_strategy(parallelism: str, mesh: Mesh, model: torch.nn.Module, tx,
                     eval_step=make_eval_step(loss_fn, compute_accuracy=compute_accuracy),
                     predict_step=make_predict_step(), layout=StateLayout(zero=part),
                     compress=comp)
+
+
+def _pp_strategy(state, tx, mesh: Mesh, *, loss_fn: Callable, compute_accuracy: bool,
+                 health, n_microbatches: int, schedule: str) -> Strategy:
+    """The pp family (module docstring): the replicated ``state`` laid out
+    for this rank's stage in place, the schedule's step, and evaluation on
+    a whole copy of the module taken before the cut."""
+    import copy
+
+    from tpu_ddp_torch.parallel import pipeline as ppl
+    from tpu_ddp_torch.parallel.runtime import is_primary_process
+    from tpu_ddp_torch.train.state import StateLayout
+    from tpu_ddp_torch.train.steps import make_eval_step, make_predict_step
+
+    ppl.check_clip(tx)
+    plain = copy.deepcopy(state.model)
+    layout = ppl.layout_pipeline(state, tx, mesh)
+    step = ppl.make_pp_train_step(state.model, tx, mesh, n_microbatches=n_microbatches,
+                                  schedule=schedule, loss_fn=loss_fn,
+                                  compute_accuracy=compute_accuracy, health=health)
+    line = pp_schedule_line(mesh.pipeline_size, n_microbatches, schedule)
+    if is_primary_process():
+        print(line, flush=True)
+    return Strategy(state=state, train_step=step,
+                    eval_step=make_eval_step(loss_fn, compute_accuracy=compute_accuracy,
+                                             group=mesh.data_group(), model=plain),
+                    predict_step=make_predict_step(model=plain),
+                    layout=StateLayout(tp=layout), line=line)

@@ -146,9 +146,16 @@ weights and final-params check go through its ``train/state.py::
 StateLayout``: the state gathered whole on save and cut again on restore,
 so dp, tp, fsdp and fsdp_tp runs resume from each other's checkpoints.
 
+The pipeline (``--parallelism pp``, ``--microbatches``, ``--pp-schedule``;
+``parallel/pipeline.py``) and expert parallelism (``--parallelism ep`` on
+the MoE ViT; ``parallel/expert_parallel.py``) take the same route and
+guards: a pp rank holds its stage, and checkpoints, ``--resume`` and
+evaluation go through its layout as for the other families (the params
+gathered over the pipeline); ``--aux-weight`` weighs the MoE ViT's
+load-balance loss in every family, dp included.
+
 Not ported yet: telemetry (and the health gauges, ``data/*`` spans and
-data digests it carries), the elastic supervisor, and the pipeline and
-expert strategies (pp, ep).
+data digests it carries) and the elastic supervisor.
 """
 
 from __future__ import annotations
@@ -257,11 +264,14 @@ class TrainConfig:
     grad_compress_block: int = 256
     grad_compress_error_feedback: bool = False
     dist_backend: Optional[str] = None    # None: nccl on cuda, gloo on cpu
-    parallelism: Optional[str] = None     # dp|sp|fsdp|tp|fsdp_tp here (the JAX's seven);
+    parallelism: Optional[str] = None     # dp|fsdp|tp|fsdp_tp|pp|sp|ep;
                                           # None = infer from mesh (default dp)
     mesh: Optional[dict] = None           # axis sizes, e.g. {"data": 2,
                                           # "model": 2}; None = the mode's default
     sp_flash: bool = False                # SP: flash-kernel ring blocks
+    n_microbatches: int = 4               # pipeline microbatches (pp only)
+    pp_schedule: str = "gpipe"            # "gpipe" | "1f1b" (pp only)
+    aux_weight: float = 0.01              # MoE load-balance loss weight
     n_devices: Optional[int] = None       # None: the launched world; else == it
     model: str = "netresdeep"
     attention: str = "full"               # full | flash (CUDA kernels K4-K6)
@@ -486,6 +496,7 @@ class Trainer:
         # the rank grid: built for a family other than dp, whose data axis
         # the loaders shard over (every rank builds its groups here)
         self.parallelism = infer_parallelism(c.mesh, c.parallelism)
+        self.strategy_line = None     # the line a family printed (pp's schedule)
         sizes = dict(c.mesh or default_mesh_sizes(self.parallelism))
         if self.parallelism == "dp":
             resolve_mesh(sizes, self.world_size)
@@ -622,7 +633,8 @@ class Trainer:
         length (a longer group would never fill)."""
         c = self.config
         common = dict(compress=self.compress, zero1=self.zero1, loss_fn=loss_fn,
-                      compute_accuracy=self.with_accuracy, remat=c.remat, health=health)
+                      compute_accuracy=self.with_accuracy, remat=c.remat, health=health,
+                      aux_weight=c.aux_weight)
         if c.grad_accum_steps > 1:
             if c.augment or c.mixup_alpha > 0:
                 raise ValueError("--augment/--mixup-alpha are not yet supported with "
@@ -682,7 +694,10 @@ class Trainer:
             self.parallelism, self.mesh, model, self.tx, self.device, loss_fn=loss_fn,
             compute_accuracy=self.with_accuracy, sp_flash=c.sp_flash,
             initial_state=self.state, remat=c.remat, grad_accum_steps=c.grad_accum_steps,
-            health=health, zero1=c.zero1, grad_compress=self._compress_fields())
+            health=health, zero1=c.zero1, grad_compress=self._compress_fields(),
+            aux_weight=c.aux_weight, n_microbatches=c.n_microbatches,
+            pp_schedule=c.pp_schedule)
+        self.strategy_line = strategy.line
         self.state = strategy.state
         self.compress, self.layout = strategy.compress, strategy.layout
         self.train_step = strategy.train_step
