@@ -480,7 +480,36 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     ranks: losses held to one rank's from the same states, K1 once a step,
     each rank holding 4 of the 8 experts (its param bytes against the
     one-rank run's: 3,550,464 expert parameters less). ``python3
-    chip_smoke.py --phase 27`` runs it alone.
+    chip_smoke.py --phase 27`` runs it alone; ``--nccl N --phase 27`` its
+    job alone at N ranks, one card each, over NCCL (pp on
+    ``data=N/2,pipeline=2`` at the same global batch of 32, ep on
+    ``data=1,expert=N``), losses held to one rank's as here.
+28. Telemetry (``run_phase28``). (a) NetResDeep at full width ``--kernels``,
+    two epochs of ``TEL_STEPS`` steps, without ``--telemetry-dir``, with it
+    (the default sinks, ``--watchdog-deadline 300``) and with it and
+    ``--no-data-digests``, in turns, twice, under deterministic cuDNN: the
+    six runs' launches (K1 once a step) and losses are the same, to the
+    bit; of each traced run: every step carries ``data_wait``,
+    ``compiled_step`` and ``device_sync``; ``train/steps`` is the steps
+    taken; the Chrome trace loads; the heartbeat's
+    step is the last step; ``memory/high_water_bytes`` is
+    ``torch.cuda.max_memory_allocated()`` as the gauge read it;
+    ``train/mfu`` is in (0, 1); ``data-p0.jsonl`` has one digest a step;
+    the steady ms a step of the three arms printed (telemetry's cost, and
+    its split between the digests and the rest), and a batch digest's host
+    time in Python, in the native ring's gather thread, and on the training
+    thread's side of the ring (``digest_cost``).
+    (b) ViT-S/4 ``--attention flash --kernels``, the same six runs of
+    ``TEL_VIT_STEPS`` steps an epoch: K4-K6's launches unchanged by
+    telemetry, MFU and the three arms' steady ms printed. (c) two gloo
+    ranks sharing the card through the launcher, ``--grad-compress int8
+    --kernels --telemetry-dir``, a counting hop hook in each rank
+    (``rank_child``'s ``--hop-hook``): n hop calls a step (the ring's n - 1
+    and the gather phase), ``wire_bytes`` the hop's ``chunk_wire_bytes``
+    over NetResDeep's leaves (n - 1 of them for the gather), K2 and K3 n a
+    step as without a hook, each rank's ``trace-p<rank>.jsonl``, the
+    summary sink on rank 0 alone. ``python3 chip_smoke.py --phase 28`` runs
+    it alone.
 
 Phase 2 also builds the native data-path library (``tpu_ddp_torch/native``)
 with g++ from the checkout. The NetResDeep phases before 17 keep their
@@ -488,8 +517,8 @@ sizes; the whole run aims at ten minutes on the card, the build included. ``pyth
 --nccl N``, on a machine with N cards, runs phases 10 (at N ranks' chunks),
 12, 14, 24 (a)-(c) (with ViT-S/4 ``--zero3`` timed again with the gathers
 serialized), 17's two-rank part, 18c, 19d, 21b, 22e, 25 (b) and (c) (at
-data=N/2, sequence=2) and 26's N-rank job (without the one-rank baselines)
-alone at N ranks, one card each, over NCCL. The line
+data=N/2, sequence=2), 26's N-rank job (without the one-rank baselines)
+and 27's job alone at N ranks, one card each, over NCCL. The line
 before the last is one JSON object
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -1948,6 +1977,7 @@ def rank_child(out_dir, args):
     from tpu_ddp_torch import ops
     from tpu_ddp_torch.cli import train as cli
     from tpu_ddp_torch.parallel import collectives, runtime
+    from tpu_ddp_torch.telemetry import TerminalSummarySink, reset_default_registry
     from tpu_ddp_torch.tools.ring_compare import wire_counter
     from tpu_ddp_torch.train.trainer import Trainer
 
@@ -1970,6 +2000,12 @@ def rank_child(out_dir, args):
     if args[:1] == ["--save-states"]:
         keep_states = args[1].split(",")
         args = args[2:]
+    hops = None
+    if args[:1] == ["--hop-hook"]:
+        hops = []
+        collectives.set_ring_hop_hook(lambda probe, **kw: hops.append(
+            [kw["kind"], kw["dtype"], kw["hop"], kw["n_hops"], kw["wire_bytes"]]))
+        args = args[1:]
     gathers = [0]
     issue = collectives.BlockGather._issue
 
@@ -1991,6 +2027,9 @@ def rank_child(out_dir, args):
     try:
         for name, ns in parsed:
             config = cli.config_from_args(ns)
+            reset_default_registry()
+            if hops is not None:
+                hops.clear()
             wire.update(dict.fromkeys(wire, 0))
             gathers[0] = 0
             ops.reset_launch_counts()
@@ -2031,6 +2070,10 @@ def rank_child(out_dir, args):
             metrics["memory_between_steps"] = between[1:]
             metrics["peak_memory"] = torch.cuda.max_memory_allocated()
             metrics["strategy_line"] = trainer.strategy_line
+            metrics["summary_sink"] = any(isinstance(s, TerminalSummarySink)
+                                          for s in trainer.telemetry.sinks)
+            if hops is not None:
+                metrics["hop_calls"] = list(hops)
             metrics.update(held_bytes(trainer))
             if bits:
                 metrics["poisoned_step_bitwise"] = same_state(bits["before"], bits["after"])
@@ -5955,32 +5998,32 @@ MOE_LEAVES = 85
 MOE_EXPERT_PARAMS = 3 * 8 * (2 * 192 * 768 + 768 + 192)
 
 
-def pp_args(schedule, backend="gloo", one_rank=False):
+def pp_args(schedule, backend="gloo", one_rank=False, nproc=2):
     """A phase-27a run: ViT-S/4 ``--attention flash --kernels`` AdamW, two
-    epochs of ``PP_STEPS`` steps at batch ``PP_BATCH``, under pp
-    ``schedule`` on ``data=1,pipeline=2`` (``one_rank``: the whole model on
-    one rank, the same batches)."""
+    epochs of ``PP_STEPS`` steps at the global batch ``PP_BATCH``, under pp
+    ``schedule`` on ``data=nproc/2,pipeline=2`` (``one_rank``: the whole
+    model on one rank, the same batches)."""
     args = ["--device", "cuda", "--synthetic-data", "--synthetic-size",
             str(PP_BATCH * PP_STEPS), "--epochs", "2", "--model", "vit_s4",
             "--attention", "flash", "--kernels", "--optimizer", "adamw", "--lr", "1e-3",
-            "--batch-size", str(PP_BATCH), "--log-every-epochs", "1"]
+            "--global-batch-size", str(PP_BATCH), "--log-every-epochs", "1"]
     if one_rank:
         return args
     return args + ["--dist-backend", backend, "--parallelism", "pp", "--mesh",
-                   "data=1,pipeline=2", "--microbatches", str(PP_MICRO),
+                   f"data={nproc // 2},pipeline=2", "--microbatches", str(PP_MICRO),
                    "--pp-schedule", schedule]
 
 
-def moe_args(model, steps, parallelism=None, backend="gloo"):
+def moe_args(model, steps, parallelism=None, backend="gloo", nproc=2):
     """A phase-27 MoE run: ``model`` at full width, ``--kernels`` AdamW, two
     epochs of ``steps`` steps at batch 32, on one rank or under
-    ``parallelism`` ep on ``data=1,expert=2``."""
+    ``parallelism`` ep on ``data=1,expert=nproc``."""
     args = ["--device", "cuda", "--synthetic-data", "--synthetic-size", str(32 * steps),
             "--epochs", "2", "--model", model, "--kernels", "--optimizer", "adamw",
-            "--lr", "1e-3", "--batch-size", "32", "--log-every-epochs", "1"]
+            "--lr", "1e-3", "--global-batch-size", "32", "--log-every-epochs", "1"]
     if parallelism:
         args += ["--dist-backend", backend, "--parallelism", parallelism, "--mesh",
-                 "data=1,expert=2"]
+                 f"data=1,expert={nproc}"]
     return args
 
 
@@ -6050,27 +6093,31 @@ def moe_one_rank(model, smi):
     return metrics
 
 
-def phase_pp_ep(tmp, smi, backend="gloo"):
+def phase_pp_ep(tmp, smi, backend="gloo", nproc=2):
     """Phase 27 (module docstring): (a) pp, (b) the MoE ViT on one rank,
-    (c) ep."""
+    (c) ep. At ``nproc`` ranks other than two (``--nccl N --phase 27``) the
+    job alone: pp on ``data=N/2,pipeline=2`` and ep on ``data=1,expert=N``,
+    without (b) and the kernel checks."""
     import torch
 
-    phase_flash_vs_plain(PP_FLASH_CASES, "phase 27a (pp microbatch)")
-    # one two-rank job for 27a's runs and 27c's (one process start)
+    if nproc == 2:
+        phase_flash_vs_plain(PP_FLASH_CASES, "phase 27a (pp microbatch)")
+    # one job for 27a's runs and 27c's (one process start)
     runs = launch_dp_runs(
-        os.path.join(tmp, "pp"), [(f"pp_{sched}", pp_args(sched, backend))
+        os.path.join(tmp, "pp"), [(f"pp_{sched}", pp_args(sched, backend, nproc=nproc))
                                   for sched in ("gpipe", "1f1b")]
-        + [("ep", moe_args("vit_moe_s4", EP_STEPS, "ep", backend))],
-        2, phase="27a, 27c", deterministic=True,
+        + [("ep", moe_args("vit_moe_s4", EP_STEPS, "ep", backend, nproc))],
+        nproc, phase="27a, 27c", deterministic=True,
         extra=["--save-states", "pp_gpipe,pp_1f1b,ep"])
     one = {}
     for sched in ("gpipe", "1f1b"):
         metrics, same = runs[f"pp_{sched}"]
         m = metrics[0]
         line = m["strategy_line"]
-        print(f"  27a pp {sched} ({smi}): {m['steps']} steps; launches on rank 0 "
-              f"{m['launches']}, rank 1 {metrics[1]['launches']}; eval batches "
-              f"{m['eval_batches']}; gathered params bitwise on both ranks {same}; steady "
+        print(f"  27a pp {sched} ({smi}, {nproc} ranks over {backend}): {m['steps']} steps; "
+              f"launches on rank 0 {m['launches']}, rank 1 {metrics[1]['launches']}; "
+              f"eval batches "
+              f"{m['eval_batches']}; gathered params bitwise on every rank {same}; steady "
               f"ms a step a rank " + " / ".join(f"{x['steady_step_ms']:.3f}" for x in metrics)
               + f"; peak memory a rank " + " / ".join(str(x["peak_memory"]) for x in metrics)
               + f" B; final test accuracy {m['test_accuracy']:.4f}; printed: {line}",
@@ -6102,6 +6149,9 @@ def phase_pp_ep(tmp, smi, backend="gloo"):
     shapes = [tuple(p.shape) for p in MODEL_REGISTRY["vit_moe_s4"]().parameters()]
     if len(shapes) != MOE_LEAVES:
         fail(f"vit_moe_s4 has {len(shapes)} parameter leaves, expected {MOE_LEAVES}")
+    if nproc != 2:
+        base = {"vit_moe_s4": {"param_bytes": 4 * sum(math.prod(sh) for sh in shapes)}}
+        return runs, base, ep_check(runs, base, smi, nproc, backend, tmp)
     gen = torch.Generator(device="cuda").manual_seed(27)
     for variant in ("adamw", "adamw_wd_clip_ema"):
         leaves = [Leaf(sh, leaf_config(variant, "constant", len(sh) >= 2), gen)
@@ -6115,33 +6165,42 @@ def phase_pp_ep(tmp, smi, backend="gloo"):
     base = {m: moe_one_rank(m, smi) for m in ("vit_moe_s4", "vit_moe_s4_top2")}
     stamp("phase 27b")
     # (c) ep on two ranks, run in 27a's job
+    return runs, base, ep_check(runs, base, smi, nproc, backend, tmp)
+
+
+def ep_check(runs, base, smi, nproc, backend, tmp):
+    """Phase 27c's checks of the ep run of ``runs`` (the job in ``tmp``) at
+    ``nproc`` ranks: launches, each rank's experts' bytes, replicas and
+    losses held to one rank's from the same states. Returns every rank's
+    metrics."""
     metrics, same = runs["ep"]
     m = metrics[0]
     whole = base["vit_moe_s4"]["param_bytes"]
     held = [x["param_bytes"] for x in metrics]
-    print(f"  27c ep ({smi}): {m['steps']} steps; launches on rank 0 {m['launches']}; "
-          f"gathered params bitwise on both ranks {same}; steady ms a step a rank "
-          + " / ".join(f"{x['steady_step_ms']:.3f}" for x in metrics)
-          + f" (one rank {base['vit_moe_s4']['steady_step_ms']:.3f}); param bytes a rank "
+    less = 4 * MOE_EXPERT_PARAMS * (nproc - 1) // nproc
+    print(f"  27c ep ({smi}, {nproc} ranks over {backend}): {m['steps']} steps; launches "
+          f"on rank 0 {m['launches']}; gathered params bitwise on every rank {same}; steady "
+          f"ms a step a rank " + " / ".join(f"{x['steady_step_ms']:.3f}" for x in metrics)
+          + (f" (one rank {base['vit_moe_s4']['steady_step_ms']:.3f})" if nproc == 2 else "")
+          + "; param bytes a rank "
           + " / ".join(str(h) for h in held) + f" (one rank {whole}: {MOE_EXPERT_PARAMS} "
-          f"expert parameters, {MOE_EXPERT_PARAMS // 2} a rank, "
-          f"{4 * MOE_EXPERT_PARAMS // 2} B less); peak memory a rank "
-          + " / ".join(str(x["peak_memory"]) for x in metrics) + " B", flush=True)
+          f"expert parameters, {MOE_EXPERT_PARAMS // nproc} a rank, {less} B less); peak "
+          "memory a rank " + " / ".join(str(x["peak_memory"]) for x in metrics) + " B",
+          flush=True)
     for r, x in enumerate(metrics):
         want = {k: 0 for k in x["launches"]}
         want["fused_update"] = x["steps"]
         if x["launches"] != want:
             fail(f"27c ep rank {r}: launches {x['launches']}, expected {want}")
-    if any(h != whole - 4 * MOE_EXPERT_PARAMS // 2 for h in held):
-        fail(f"27c ep: a rank holds {held} param bytes, expected "
-             f"{whole - 4 * MOE_EXPERT_PARAMS // 2}")
+    if any(h != whole - less for h in held):
+        fail(f"27c ep: a rank holds {held} param bytes, expected {whole - less}")
     if not same or not all(math.isfinite(v) for v in m["step_losses"]):
         fail("27c ep: the ranks differ or a loss is not finite")
     first_losses_close("27c ep vs one rank's whole model from the same state each step",
                        m["step_losses"], same_state_losses(
                            os.path.join(tmp, "pp", "ep", "states.pt"),
                            moe_args("vit_moe_s4", EP_STEPS), EP_STEPS), FULL_STEPS_RTOL)
-    return runs, base, metrics
+    return metrics
 
 
 def run_phase27(smi):
@@ -6178,6 +6237,328 @@ def phase27_main():
     print(f"chip_smoke --phase 27: ok ({smi})", flush=True)
 
 
+#: phase 28: NetResDeep's steps an epoch (two epochs at batch 32), ViT-S/4's,
+#: and the two-rank job's
+TEL_STEPS, TEL_VIT_STEPS, TEL_RANK_STEPS = 20, 8, 4
+STEP_PHASES = ("data_wait", "compiled_step", "device_sync")
+
+
+def tel_args(model, steps, run_dir=None, *extra):
+    """A phase-28 run: NetResDeep at full width or ViT-S/4 ``--attention
+    flash`` (AdamW), ``--kernels``, two epochs of ``steps`` steps at batch
+    32; with ``run_dir`` under ``--telemetry-dir`` (the default sinks) and
+    ``--watchdog-deadline 300``."""
+    args = ["--device", "cuda", "--synthetic-data", "--synthetic-size", str(32 * steps),
+            "--epochs", "2", "--kernels", "--batch-size", "32", "--log-every-epochs", "1",
+            *extra]
+    if model == "vit_s4":
+        args += ["--model", "vit_s4", "--attention", "flash", "--optimizer", "adamw",
+                 "--lr", "1e-3"]
+    if run_dir:
+        args += ["--telemetry-dir", run_dir, "--watchdog-deadline", "300"]
+    return args
+
+
+def traced_run(args):
+    """``counted_run`` with the process-wide telemetry registry reset first
+    and ``torch.cuda.max_memory_allocated()`` read just after each epoch's
+    telemetry (``metrics["peaks"]``: what the memory gauges saw)."""
+    import torch
+
+    from tpu_ddp_torch.telemetry import reset_default_registry
+    from tpu_ddp_torch.train.trainer import Trainer
+
+    reset_default_registry()
+    peaks, traced = [], Trainer._traced_epoch
+
+    def traced_epoch(self, *a):
+        traced(self, *a)
+        peaks.append(torch.cuda.max_memory_allocated())
+
+    Trainer._traced_epoch = traced_epoch
+    try:
+        trainer, metrics = counted_run(args)
+    finally:
+        Trainer._traced_epoch = traced
+    metrics["peaks"] = peaks
+    return trainer, metrics
+
+
+def trace_records(run_dir, rank=0):
+    with open(os.path.join(run_dir, f"trace-p{rank}.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def check_traced(label, run_dir, metrics, plain, smi):
+    """Phase 28a's checks of a traced run against the same run without
+    telemetry (``plain``)."""
+    records = trace_records(run_dir)
+    steps = metrics["steps"]
+    by_step = {}
+    for r in records:
+        if r["type"] == "span" and r["name"] in STEP_PHASES:
+            by_step.setdefault(r["step"], set()).add(r["name"])
+    full = sorted(s for s, names in by_step.items() if names == set(STEP_PHASES))
+    final = records[-1]["attrs"]
+    counters, gauges = final["counters"], final["gauges"]
+    with open(os.path.join(run_dir, "trace-p0.trace.json")) as f:
+        chrome = json.load(f)["traceEvents"]
+    with open(os.path.join(run_dir, "heartbeat-p0.json")) as f:
+        beat = json.load(f)["step"]
+    with open(os.path.join(run_dir, "data-p0.jsonl")) as f:
+        digests = [json.loads(line) for line in f][1:]
+    print(f"  28a {label} ({smi}): {steps} steps, {len(full)} with all of {STEP_PHASES}; "
+          f"train/steps {counters.get('train/steps')}; launches {metrics['launches']} "
+          f"(without telemetry {plain['launches']}); losses bitwise the run's without "
+          f"telemetry {metrics['step_losses'] == plain['step_losses']}; chrome events "
+          f"{len(chrome)}; heartbeat step {beat}; memory/high_water_bytes "
+          f"{gauges.get('memory/high_water_bytes')} (max_memory_allocated at the gauge "
+          f"{metrics['peaks'][-1] if metrics['peaks'] else None}); train/mfu "
+          f"{gauges.get('train/mfu')}; digests {len(digests)}", flush=True)
+    if full != list(range(steps)) or counters.get("train/steps") != steps:
+        fail(f"28a {label}: steps without the three phases, or train/steps "
+             f"{counters.get('train/steps')} != {steps}")
+    if metrics["launches"] != plain["launches"] or metrics["launches"]["fused_update"] != steps:
+        fail(f"28a {label}: launches {metrics['launches']}, without telemetry "
+             f"{plain['launches']}")
+    if metrics["step_losses"] != plain["step_losses"]:
+        fail(f"28a {label}: the losses differ from the run's without telemetry")
+    if not {e["name"] for e in chrome if e.get("ph") == "X"} >= set(STEP_PHASES):
+        fail(f"28a {label}: the Chrome trace lacks the step phases")
+    if beat != steps:
+        fail(f"28a {label}: the heartbeat's step is {beat}, expected {steps}")
+    if not metrics["peaks"] or gauges.get("memory/high_water_bytes") != metrics["peaks"][-1]:
+        fail(f"28a {label}: memory/high_water_bytes {gauges.get('memory/high_water_bytes')} "
+             f"!= max_memory_allocated {metrics['peaks']}")
+    mfu = gauges.get("train/mfu")
+    if mfu is None or not 0 < mfu < 1 or mfu != metrics["mfu"]:
+        fail(f"28a {label}: train/mfu {mfu} (metrics {metrics['mfu']}) outside (0, 1)")
+    if [d["step"] for d in digests] != list(range(steps)):
+        fail(f"28a {label}: digest steps {[d['step'] for d in digests]}")
+
+
+#: phase 28's arms, in turns: no telemetry, telemetry, telemetry without digests
+TEL_ARMS = ("off", "on", "nodig")
+
+
+def tel_arm_args(model, steps, tmp, i, arm):
+    """Run ``i`` of phase 28's turns in ``arm`` (``TEL_ARMS``)."""
+    if arm == "off":
+        return tel_args(model, steps)
+    extra = ["--no-data-digests"] if arm == "nodig" else []
+    return tel_args(model, steps, os.path.join(tmp, f"{model}{i}"), *extra)
+
+
+def check_arms(label, runs, losses=True):
+    """Every run's launches and (with ``losses``) losses, to the bit, are
+    the first untraced run's, and a digest-free run writes no digest
+    file."""
+    plain = runs[0][1]
+    for arm, m, run_dir in runs:
+        if m["launches"] != plain["launches"] or (
+                losses and m["step_losses"] != plain["step_losses"]):
+            fail(f"28 {label} {arm}: launches {m['launches']} or losses differ from the "
+                 f"run's without telemetry ({plain['launches']})")
+        if arm == "nodig" and os.path.exists(os.path.join(run_dir, "data-p0.jsonl")):
+            fail(f"28 {label}: --no-data-digests wrote data-p0.jsonl")
+
+
+def fence_cost(label, runs, smi):
+    """The steady ms a step of ``runs`` (``TEL_ARMS`` in turns) and the
+    differences of the arms' means: all of telemetry, the part the digests
+    add, and the rest (spans, counters, the ``device_sync`` fence)."""
+    ms = {arm: [m["steady_step_ms"] for k, m, *_ in runs if k == arm] for arm in TEL_ARMS}
+    mean = {arm: sum(v) / len(v) for arm, v in ms.items()}
+    print(f"  28 telemetry cost, {label} ({smi}): steady ms a step "
+          + "; ".join(f"{arm} " + " / ".join(f"{x:.4f}" for x in v) for arm, v in ms.items())
+          + f": telemetry {mean['on'] - mean['off']:+.4f} ms a step, of which digests "
+          f"{mean['on'] - mean['nodig']:+.4f} and spans, counters and fence "
+          f"{mean['nodig'] - mean['off']:+.4f}", flush=True)
+
+
+def digest_cost(smi, reps=50):
+    """Host ms of a NetResDeep batch's digest (32 rows of 32x32x3 float32),
+    medians of ``reps``: ``batch_digest`` in Python (what the training
+    thread pays on the synchronous and staged paths); the native ring's
+    submit to acquire without and with the rows' digests (the gather
+    thread's C++ hash between them); and ``xor_row_digests`` of the row
+    digests (what the training thread pays on the native ring)."""
+    import statistics
+
+    import numpy as np
+
+    from tpu_ddp_torch.datapath.audit import batch_digest, xor_row_digests
+    from tpu_ddp_torch.native.prefetch import BatchPrefetcher
+
+    rng = np.random.default_rng(28)
+    images = rng.standard_normal((4096, 32, 32, 3)).astype(np.float32)
+    labels = rng.integers(0, 10, 4096).astype(np.int32)
+    mask = np.ones(32, bool)
+
+    def median_ms(fn):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    idx = rng.integers(0, 4096, 32)
+    py = median_ms(lambda: batch_digest(images[idx], labels[idx], mask))
+    ring = {}
+    for seed in (None, 0):
+        with BatchPrefetcher(images, labels, max_batch=32, depth=2, digest_seed=seed) as pf:
+            def one():
+                pf.submit(rng.integers(0, 4096, 32))
+                slot = pf.acquire()[2]
+                if seed is not None:
+                    ring["rows"] = pf.row_digests(slot, 32).copy()
+                pf.release(slot)
+            ring[seed] = median_ms(one)
+    fold = median_ms(lambda: xor_row_digests(ring["rows"], mask))
+    print(f"  28 digest cost ({smi}): one batch's digest in Python {py:.4f} ms; the native "
+          f"ring's gather {ring[None]:.4f} ms, with the rows' digests {ring[0]:.4f} ms; the "
+          f"training thread's fold of the row digests {fold:.4f} ms (medians of {reps})",
+          flush=True)
+
+
+def phase_telemetry(tmp, smi):
+    """Phase 28 (module docstring): (a) NetResDeep traced against untraced,
+    in turns, under deterministic cuDNN; (b) ViT-S/4 flash; (c) two gloo
+    ranks with the int8 ring and a counting hop hook."""
+    import torch
+
+    from tpu_ddp_torch.parallel.compression import chunk_wire_bytes
+
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    try:
+        for i, arm in enumerate(TEL_ARMS * 2):
+            args = tel_arm_args("netresdeep", TEL_STEPS, tmp, i, arm)
+            if i == 1:
+                print(f"phase 28a: tpu_ddp_torch.cli.train {' '.join(args)}", flush=True)
+            runs.append((arm, traced_run(args)[1], args[args.index("--telemetry-dir") + 1]
+                         if arm != "off" else None))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check_arms("NetResDeep", runs)
+    for arm, traced, run_dir in runs:
+        if arm == "on":
+            check_traced("NetResDeep", run_dir, traced, runs[0][1], smi)
+    print(f"  28a NetResDeep MFU ({smi}): " + " / ".join(
+        f"{m['mfu']:.6f}" for k, m, _ in runs if k != "off"), flush=True)
+    fence_cost("NetResDeep batch 32", runs, smi)
+    digest_cost(smi)
+    stamp("phase 28a")
+    vit = []
+    for i, arm in enumerate(TEL_ARMS * 2):
+        args = tel_arm_args("vit_s4", TEL_VIT_STEPS, tmp, i, arm)
+        vit.append((arm, traced_run(args)[1], args[args.index("--telemetry-dir") + 1]
+                    if arm != "off" else None))
+    # K5's dQ accumulates with atomics: the ViT's losses are not bitwise
+    check_arms("ViT-S/4", vit, losses=False)
+    for arm, traced, _ in vit:
+        if not traced["launches"]["flash_attention_fwd"]:
+            fail(f"28b ViT-S/4 {arm}: launches {traced['launches']}")
+        if arm != "off" and (traced["mfu"] is None or not 0 < traced["mfu"] < 1):
+            fail(f"28b ViT-S/4: mfu {traced['mfu']}")
+    print(f"  28b ViT-S/4 flash ({smi}): launches {vit[1][1]['launches']} in every arm; MFU "
+          + " / ".join(f"{m['mfu']:.6f}" for k, m, _ in vit if k != "off"), flush=True)
+    fence_cost("ViT-S/4 flash batch 32", vit, smi)
+    stamp("phase 28b")
+    # (c) two gloo ranks, the int8 ring with a counting hop hook in each
+    run_dir = os.path.join(tmp, "ranks")
+    args = ["--device", "cuda", "--dist-backend", "gloo", "--synthetic-data",
+            "--synthetic-size", str(2 * 32 * TEL_RANK_STEPS), "--epochs", "2", "--kernels",
+            "--batch-size", "32", "--grad-compress", "int8", "--log-every-epochs", "1",
+            "--telemetry-dir", run_dir]
+    metrics, same = launch_dp_runs(tmp, [("tel_ranks", args)], 2, phase="28c",
+                                   extra=["--hop-hook"])["tel_ranks"]
+    n = 2
+    msg = sum(chunk_wire_bytes((math.prod(sh) + (-math.prod(sh)) % n) // n, "int8", 256)
+              for sh in NETRESDEEP_LEAVES)
+    for r, m in enumerate(metrics):
+        steps, calls = m["steps"], m["hop_calls"]
+        want = [("ring-all-reduce", "s8", hop, n, msg if hop < n else (n - 1) * msg)
+                for _ in range(steps) for hop in range(1, n + 1)]
+        print(f"  28c rank {r} ({smi}): {steps} steps, {len(calls)} hop calls ({n} a step), "
+              f"wire bytes {sorted({c[4] for c in calls})} (a hop's message {msg} B); "
+              f"launches {m['launches']}; summary sink {m['summary_sink']}", flush=True)
+        if [tuple(c) for c in calls] != want:
+            fail(f"28c rank {r}: hop calls {calls[:4]}..., expected {want[:4]}...")
+        if m["launches"] != {**{k: 0 for k in m["launches"]}, "fused_update": steps,
+                             "fused_quant": n * steps, "fused_dequant": n * steps}:
+            fail(f"28c rank {r}: launches {m['launches']}")
+        if m["summary_sink"] != (r == 0):
+            fail(f"28c rank {r}: summary sink {m['summary_sink']}")
+        if not os.path.isfile(os.path.join(run_dir, f"trace-p{r}.jsonl")):
+            fail(f"28c: no trace-p{r}.jsonl")
+    if not same:
+        fail("28c: the ranks' weights differ")
+    return runs, vit
+
+
+def run_phase28(smi):
+    """Phase 28 on one card (``phase_telemetry``), in a scratch directory."""
+    import shutil
+    import tempfile
+
+    t28 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
+    try:
+        phase_telemetry(tmp, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 28 took {time.perf_counter() - t28:.1f} s", flush=True)
+
+
+def phase27_nccl_main(nproc):
+    """``python3 chip_smoke.py --nccl N --phase 27`` on a machine with N
+    cards: phase 27's job alone at N ranks, one card each, over NCCL (pp
+    gpipe and 1f1b on ``data=N/2,pipeline=2``, ep on ``data=1,expert=N``),
+    losses held to one rank's from the same states."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    if torch.cuda.device_count() < nproc:
+        fail(f"--nccl {nproc} needs {nproc} cards, {torch.cuda.device_count()} visible")
+    sys.path.insert(0, ROOT)
+    from tpu_ddp_torch.ops import _build
+
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    _build.build()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
+    try:
+        phase_pp_ep(tmp, smi, "nccl", nproc)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"chip_smoke --nccl {nproc} --phase 27: ok ({smi})", flush=True)
+
+
+def phase28_main():
+    """``python3 chip_smoke.py --phase 28``: the kernels built, then phase 28
+    alone on one card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
+    sys.path.insert(0, ROOT)
+    from tpu_ddp_torch import native
+    from tpu_ddp_torch.ops import _build
+
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    _build.build()
+    native.build()
+    run_phase28(smi)
+    print(f"chip_smoke --phase 28: ok ({smi})", flush=True)
+
+
 def nccl_main(nproc):
     """``python3 chip_smoke.py --nccl N`` on a machine with N cards: phase
     10 with NetResDeep's chunks at N ranks, then phases 12, 14, 24 (a)-(c),
@@ -6212,6 +6593,7 @@ def nccl_main(nproc):
         phase_scan_ranks(tmp, nproc, "nccl")
         phase_sp_train(tmp, smi, None, nproc, "nccl", data=nproc // 2)
         phase_gspmd(tmp, smi, None, nproc, "nccl")
+        phase_pp_ep(tmp, smi, "nccl", nproc)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"chip_smoke --nccl {nproc}: ok", flush=True)
@@ -6229,11 +6611,15 @@ def main():
     if sys.argv[1:2] == ["--nccl"]:
         if sys.argv[3:5] == ["--phase", "26"]:
             return phase26_main(int(sys.argv[2]))
+        if sys.argv[3:5] == ["--phase", "27"]:
+            return phase27_nccl_main(int(sys.argv[2]))
         return nccl_main(int(sys.argv[2]))
     if sys.argv[1:3] == ["--phase", "26"]:
         return phase26_main()
     if sys.argv[1:3] == ["--phase", "27"]:
         return phase27_main()
+    if sys.argv[1:3] == ["--phase", "28"]:
+        return phase28_main()
     import shutil
     import tempfile
 
@@ -6382,6 +6768,7 @@ def main():
     print(f"phase 25 took {time.perf_counter() - t25:.1f} s", flush=True)
     run_phase26(smi)
     run_phase27(smi)
+    run_phase28(smi)
     print_accounting()
     rows += phase_lm_timing(results, flash_results, lm_runs["flash"]["launches"])
     stamp("phase 18d")

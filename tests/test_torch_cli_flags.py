@@ -7,7 +7,12 @@ message. Sequence parallelism adds ``--parallelism``, ``--mesh`` and
 ``--sp-flash``: the same checks, ``--global-batch-size`` divided by the
 mesh's data axis as the JAX CLI divides it, and the rank grid's
 ``parallel/mesh.py::resolve`` against ``MeshSpec.resolve`` (the sizes, or
-the same error)."""
+the same error). Telemetry adds ``--telemetry-dir``, ``--telemetry-sinks``,
+``--telemetry-snapshot-steps``, ``--watchdog-deadline``, ``--watchdog-abort``
+and ``--no-data-digests`` (the same checks; each reaches ``TrainConfig``)
+and the launcher's ``--telemetry-dir``."""
+
+import argparse
 
 import pytest
 
@@ -17,7 +22,9 @@ from tpu_ddp_torch.cli.train import build_parser, config_from_args
 
 NEW = ("--optimizer", "--sync-bn", "--faithful-epoch-order", "--global-batch-size",
        "--n-devices", "--log-every-steps", "--cv-mode", "--prefetch-depth",
-       "--prefetch-batches", "--download", "--parallelism", "--mesh", "--sp-flash")
+       "--prefetch-batches", "--download", "--parallelism", "--mesh", "--sp-flash",
+       "--telemetry-dir", "--telemetry-sinks", "--telemetry-snapshot-steps",
+       "--watchdog-deadline", "--watchdog-abort", "--no-data-digests")
 
 
 def _action(parser, flag):
@@ -44,6 +51,52 @@ def test_new_flags_reach_the_config():
     assert (c.log_every_steps, c.prefetch_depth, c.prefetch_batches, c.download) == (7, 3, 4, True)
     d = config_from_args(build_parser().parse_args([]))
     assert (d.prefetch_depth, d.prefetch_batches, d.reshuffle_each_epoch, d.sync_bn) == (2, 0, True, False)
+    t = config_from_args(build_parser().parse_args([
+        "--telemetry-dir", "/tmp/t", "--telemetry-sinks", "jsonl", "--telemetry-snapshot-steps",
+        "9", "--watchdog-deadline", "2.5", "--watchdog-abort", "--no-data-digests"]))
+    assert (t.telemetry_dir, t.telemetry_sinks, t.telemetry_snapshot_steps) == ("/tmp/t", "jsonl", 9)
+    assert (t.watchdog_deadline_seconds, t.watchdog_abort, t.data_digests) == (2.5, True, False)
+    assert (d.telemetry_dir, d.telemetry_sinks, d.telemetry_snapshot_steps) == (
+        None, "jsonl,chrome,summary", 50)
+    assert (d.watchdog_deadline_seconds, d.watchdog_abort, d.data_digests) == (0.0, False, True)
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--telemetry-sinks", "jsonl,bogus"], "unknown telemetry sink 'bogus'"),
+    (["--telemetry-snapshot-steps", "-1"], "telemetry_snapshot_steps must be >= 0"),
+    (["--watchdog-abort"], "--watchdog-abort needs --watchdog-deadline > 0"),
+])
+def test_telemetry_guards_raise_the_jax_messages(argv, message):
+    with pytest.raises(ValueError) as port_err:
+        config_from_args(build_parser().parse_args(argv))
+    with pytest.raises(ValueError) as jax_err:
+        jax_config_from_args(jax_build_parser().parse_args(argv)).validate()
+    assert str(port_err.value) == str(jax_err.value) and message in str(port_err.value)
+
+
+def _launch_parser(main, monkeypatch):
+    """The argparse parser a launcher's ``main`` makes (neither exposes one)."""
+    class Built(Exception):
+        pass
+
+    def grab(self, *args, **kwargs):
+        raise Built(self)
+
+    with monkeypatch.context() as m:
+        m.setattr(argparse.ArgumentParser, "parse_args", grab)
+        with pytest.raises(Built) as got:
+            main([])
+    return got.value.args[0]
+
+
+def test_launcher_telemetry_dir_matches_the_jax_launcher(monkeypatch):
+    from tpu_ddp.cli.launch import main as jax_launch
+    from tpu_ddp_torch.cli.launch import main as port_launch
+
+    got = _action(_launch_parser(port_launch, monkeypatch), "--telemetry-dir")
+    want = _action(_launch_parser(jax_launch, monkeypatch), "--telemetry-dir")
+    for key in ("dest", "default", "choices", "nargs", "type", "metavar"):
+        assert getattr(got, key) == getattr(want, key), key
 
 
 @pytest.mark.parametrize("world", [1, 2, 4])

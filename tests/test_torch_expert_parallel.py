@@ -16,7 +16,10 @@ depth 2, 2 heads, 4 experts, MoE in block 1) and take two steps. Cases:
   enough to trigger (its norm over whole leaves: the experts' squares
   summed over the expert group) and EMA;
 * tp at ``data=2,model=2`` on the MoE ViT (attention and the dense block's
-  MLP cut by the Megatron rules, the experts replicated), SGD.
+  MLP cut by the Megatron rules, the experts replicated), SGD;
+* ep at ``data=2,expert=2``, SGD, with ``remat`` and with two accumulated
+  microbatches a step (``grad_accum_steps=2``), both of which the JAX
+  ``make_ep_train_step`` takes (:41-71).
 
 Checks: losses within 1e-4 and ``aux_loss`` within 1e-5 of JAX's, and at
 least ``1 - 1e-5`` (``tests/test_expert_parallel.py`` :167); params gathered
@@ -33,12 +36,14 @@ import pytest
 import torch
 
 MOE = dict(patch_size=8, hidden_dim=32, depth=2, num_heads=2, num_experts=4)
-#: name -> (family, mesh, optimizer)
+#: name -> (family, mesh, optimizer, the step's remat and accumulation)
 CASES = {
-    "ep_d2e2_sgd": ("ep", {"data": 2, "expert": 2}, "sgd"),
-    "ep_e4_sgd": ("ep", {"data": 1, "expert": 4}, "sgd"),
-    "ep_d2e2_adamw": ("ep", {"data": 2, "expert": 2}, "adamw"),
-    "tp_d2m2_sgd": ("tp", {"data": 2, "model": 2}, "sgd"),
+    "ep_d2e2_sgd": ("ep", {"data": 2, "expert": 2}, "sgd", {}),
+    "ep_e4_sgd": ("ep", {"data": 1, "expert": 4}, "sgd", {}),
+    "ep_d2e2_adamw": ("ep", {"data": 2, "expert": 2}, "adamw", {}),
+    "tp_d2m2_sgd": ("tp", {"data": 2, "model": 2}, "sgd", {}),
+    "ep_d2e2_sgd_remat": ("ep", {"data": 2, "expert": 2}, "sgd", {"remat": True}),
+    "ep_d2e2_sgd_accum2": ("ep", {"data": 2, "expert": 2}, "sgd", {"grad_accum_steps": 2}),
 }
 RECIPES = {
     "sgd": dict(lr=0.05, momentum=0.9),
@@ -66,14 +71,15 @@ def _jax_case(case, devices):
     from tpu_ddp.train import create_train_state, make_optimizer
     from tpu_ddp_torch.checkpoint.convert import convert_tree
 
-    family, sizes, opt = CASES[case]
+    family, sizes, opt, step_kw = CASES[case]
     model = MoEViT(num_classes=10, **MOE)
     tx = make_optimizer(kernels=False, **RECIPES[opt])
     state = create_train_state(model, tx, jax.random.key(0))
     init = convert_tree(jax.device_get(state.params))
     mesh = create_mesh(MeshSpec(**sizes), devices[:4])
     if family == "ep":
-        step, shardings = make_ep_train_step(model, tx, mesh, state, donate=False)
+        step, shardings = make_ep_train_step(model, tx, mesh, state, donate=False,
+                                             **step_kw)
     else:
         step, shardings = jtp.make_tp_train_step(model, tx, mesh, state,
                                                  rules=jtp.VIT_TP_RULES, donate=False)
@@ -91,12 +97,12 @@ def port_rank(case, path):
     from tpu_ddp_torch.train.optim import make_optimizer
     from tpu_ddp_torch.train.strategy import build_strategy
 
-    family, sizes, opt = CASES[case]
+    family, sizes, opt, step_kw = CASES[case]
     mesh = create_mesh(sizes)
     model = MoEViT(num_classes=10, **MOE)
     model.load_state_dict(torch.load(f"{path}/init_{case}.pt"))
     tx = make_optimizer(kernels=True, **RECIPES[opt])
-    strat = build_strategy(family, mesh, model, tx, torch.device("cpu"))
+    strat = build_strategy(family, mesh, model, tx, torch.device("cpu"), **step_kw)
     rows = slice(mesh.data_index * 16 // mesh.data_size,
                  (mesh.data_index + 1) * 16 // mesh.data_size)
     out = []

@@ -30,9 +30,18 @@ need a filesystem they all share.
 Kept from the JAX class: the duplicate-step guard, retention by step
 number, bounded retries with backoff and ``fault_hook(step, attempt)``,
 ``save_as_only`` with its intent marker, ``latest_step`` honouring the
-marker, and verified restore with named refusal and fallback. The JAX
-class's telemetry spans and counters are not ported; ``counters`` and
-``timings`` keep what they would record (saves, retries, failures,
+marker, and verified restore with named refusal and fallback. Its
+telemetry too (``telemetry=``, the JAX :84-475): the ``checkpoint`` span
+around a save's initiation (the device-to-host copy, and with ``wait`` the
+write and commit; ``step``, ``wait``, ``retries``; ``best`` for
+``save_as_only``), ``checkpoint_wait`` around a wait for the save in
+flight, ``checkpoint_restore`` around a restore; the counters
+``checkpoint/saves``, ``completed`` and ``io_seconds`` (counted when the
+write commits, from the save's start), ``manifests``, ``save_retries``,
+``save_failures``, ``verify_refused``, ``restores`` and
+``restore_seconds``; the instants ``checkpoint_save_failed``,
+``checkpoint_save_retried`` and ``checkpoint_refused``. ``counters`` and
+``timings`` keep the same counts a checkpointer (saves, retries, failures,
 manifests, restores; the last save's initiation and commit and the last
 restore, in ms).
 """
@@ -79,7 +88,8 @@ class Checkpointer:
 
     def __init__(self, directory: str, max_to_keep: int = 3, *,
                  save_attempts: int = 3, save_retry_base_s: float = 0.25,
-                 fault_hook: Optional[Callable[[int, int], None]] = None):
+                 fault_hook: Optional[Callable[[int, int], None]] = None,
+                 telemetry=None):
         if save_attempts < 1:
             raise ValueError(
                 f"save_attempts must be >= 1, got {save_attempts}")
@@ -88,6 +98,9 @@ class Checkpointer:
         self.save_attempts = save_attempts
         self.save_retry_base_s = save_retry_base_s
         self.fault_hook = fault_hook
+        if telemetry is None:
+            from tpu_ddp_torch.telemetry import NULL as telemetry
+        self.telemetry = telemetry
         self.primary = is_primary_process()
         os.makedirs(self.directory, exist_ok=True)
         self.counters: Dict[str, int] = collections.Counter()
@@ -156,10 +169,11 @@ class Checkpointer:
     def save(self, step: int, state: dict, wait: bool = False) -> None:
         """Checkpoint ``state`` at ``step`` (module docstring). A step equal
         to the latest one is skipped (a cadence save colliding with the
-        epoch-boundary or final save); ``wait=True`` still drains. A
-        ``wait=True`` save at the step of the background save in flight
-        waits for it and saves again when that one failed, so a final
-        save is never lost to a background failure that only logs."""
+        epoch-boundary or final save), and stays out of the telemetry;
+        ``wait=True`` still drains. A ``wait=True`` save at the step of the
+        background save in flight waits for it and saves again when that
+        one failed, so a final save is never lost to a background failure
+        that only logs."""
         step = int(step)
         if not self.primary:
             return
@@ -172,45 +186,60 @@ class Checkpointer:
                 self.wait_until_finished()
             return
         self._clear_marker()
-        self.wait_until_finished()
+        self._join()
         t0 = time.perf_counter()
-        host = self._to_host(state)
-        self.timings["initiate_ms"] = (time.perf_counter() - t0) * 1e3
-        self.counters["saves"] += 1
         if wait:
             try:
-                self._save_with_retry(step, host)
+                with self.telemetry.span("checkpoint", step=step, wait=True, retries=0):
+                    host = self._to_host(state)
+                    self.timings["initiate_ms"] = (time.perf_counter() - t0) * 1e3
+                    self.counters["saves"] += 1
+                    self._save_with_retry(step, host, t0=t0)
             except OSError as e:
-                self.counters["save_failures"] += 1
-                log.error("final checkpoint save at step %d FAILED after %d "
-                          "attempts: %s", step, self.save_attempts, e)
+                self._failed(step, e, "final checkpoint save")
                 raise
+            self.telemetry.count("checkpoint/saves")
             return
+        with self.telemetry.span("checkpoint", step=step, wait=False, retries=0):
+            host = self._to_host(state)
+        self.timings["initiate_ms"] = (time.perf_counter() - t0) * 1e3
+        self.counters["saves"] += 1
+        self.telemetry.count("checkpoint/saves")
         self._in_flight = step
         self._thread = threading.Thread(target=self._save_background,
-                                        args=(step, host), daemon=True,
+                                        args=(step, host, t0), daemon=True,
                                         name="tpu-ddp-torch-ckpt")
         self._thread.start()
 
-    def _save_background(self, step: int, host: dict) -> None:
+    def _failed(self, step: int, e: OSError, what: str) -> None:
+        """Record a save whose attempts are spent."""
+        self.counters["save_failures"] += 1
+        self.telemetry.count("checkpoint/save_failures")
+        self.telemetry.instant("checkpoint_save_failed", step=step,
+                               attempts=self.save_attempts, error=str(e)[:300])
+        log.error("%s at step %d FAILED after %d attempts: %s", what, step,
+                  self.save_attempts, e)
+
+    def _save_background(self, step: int, host: dict, t0: float) -> None:
         try:
-            self._save_with_retry(step, host)
+            self._save_with_retry(step, host, t0=t0)
         except OSError as e:
             # the cadence save is gone; training must not die for it
-            self.counters["save_failures"] += 1
-            log.error("checkpoint save at step %d FAILED after %d attempts: %s",
-                      step, self.save_attempts, e)
+            self._failed(step, e, "checkpoint save")
 
-    def _save_with_retry(self, step: int, host: dict, *, retain: bool = True) -> None:
+    def _save_with_retry(self, step: int, host: dict, *, retain: bool = True,
+                         t0: Optional[float] = None) -> None:
         """Bounded attempts with exponential backoff and jitter; raises the
-        last ``OSError`` when the budget is spent."""
+        last ``OSError`` when the budget is spent. A commit counts
+        ``checkpoint/completed`` and the seconds since ``t0``, the save's
+        start, as ``checkpoint/io_seconds``."""
         attempt = 0
         while True:
             try:
                 if self.fault_hook is not None:
                     self.fault_hook(step, attempt)
                 self._commit(step, host, retain)
-                return
+                break
             except OSError as e:
                 attempt += 1
                 if attempt >= self.save_attempts:
@@ -222,7 +251,14 @@ class Checkpointer:
                             "(%s); retrying in %.2fs", step, attempt,
                             self.save_attempts, e, delay)
                 self.counters["save_retries"] += 1
+                self.telemetry.count("checkpoint/save_retries")
                 time.sleep(delay)
+        if attempt:
+            self.telemetry.instant("checkpoint_save_retried", step=step, retries=attempt)
+        if t0 is not None:
+            self.telemetry.count("checkpoint/io_seconds",
+                                 round(time.perf_counter() - t0, 6))
+        self.telemetry.count("checkpoint/completed")
 
     def _commit(self, step: int, host: dict, retain: bool) -> None:
         """Write under a temporary name, fsync, rename into place, fsync
@@ -246,6 +282,7 @@ class Checkpointer:
         try:
             ckpt_manifest.write_manifest(self.directory, step)
             self.counters["manifests"] += 1
+            self.telemetry.count("checkpoint/manifests")
         except OSError as e:
             log.warning("checksum manifest for step %d failed: %s (the step "
                         "stays restorable but unverifiable)", step, e)
@@ -260,7 +297,13 @@ class Checkpointer:
 
     def wait_until_finished(self) -> None:
         """Block until the in-flight background save has committed (or
-        failed) and its manifest is written."""
+        failed) and its manifest is written; the ``checkpoint_wait`` span
+        shows a save's write that outlived its overlap with training."""
+        with self.telemetry.span("checkpoint_wait",
+                                 pending=int(self._thread is not None)):
+            self._join()
+
+    def _join(self) -> None:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
@@ -290,10 +333,12 @@ class Checkpointer:
             json.dump({"step": int(step)}, f)
         os.replace(tmp, marker)
         t0 = time.perf_counter()
-        host = self._to_host(state)
-        self.timings["initiate_ms"] = (time.perf_counter() - t0) * 1e3
-        self.counters["saves"] += 1
-        self._save_with_retry(int(step), host, retain=False)
+        with self.telemetry.span("checkpoint", step=int(step), best=True):
+            host = self._to_host(state)
+            self.timings["initiate_ms"] = (time.perf_counter() - t0) * 1e3
+            self.counters["saves"] += 1
+            self._save_with_retry(int(step), host, retain=False, t0=t0)
+        self.telemetry.count("checkpoint/saves")
         for s in self.all_steps():
             if s != step:
                 self._delete(s)
@@ -314,6 +359,10 @@ class Checkpointer:
             self.directory, candidates=candidates)
         refused = [r for r in refusals if r["verdict"] == "refused"]
         self.counters["verify_refused"] += len(refused)
+        for refusal in refused:
+            self.telemetry.count("checkpoint/verify_refused")
+            self.telemetry.instant("checkpoint_refused", step=refusal["step"],
+                                   problems=refusal["problems"][:8])
         if step is not None and refused:
             log.warning("falling back to checkpoint step %d (next-older "
                         "verified step)", step)
@@ -334,13 +383,20 @@ class Checkpointer:
             verdict, problems = ckpt_manifest.verify_step(self.directory, step)
             if verdict is False:
                 self.counters["verify_refused"] += 1
+                self.telemetry.count("checkpoint/verify_refused")
+                self.telemetry.instant("checkpoint_refused", step=step,
+                                       problems=problems[:8])
                 raise ValueError(f"checkpoint step {step} REFUSED by its checksum "
                                  f"manifest: {'; '.join(problems)}")
         t0 = time.perf_counter()
-        state = torch.load(os.path.join(self.directory, str(int(step)), STATE_FILE),
-                           map_location="cpu", weights_only=True)
+        with self.telemetry.span("checkpoint_restore", step=step):
+            state = torch.load(os.path.join(self.directory, str(int(step)), STATE_FILE),
+                               map_location="cpu", weights_only=True)
         self.timings["restore_ms"] = (time.perf_counter() - t0) * 1e3
         self.counters["restores"] += 1
+        self.telemetry.count("checkpoint/restore_seconds",
+                             round(self.timings["restore_ms"] / 1e3, 6))
+        self.telemetry.count("checkpoint/restores")
         return state
 
     def close(self) -> None:

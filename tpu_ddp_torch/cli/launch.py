@@ -22,8 +22,12 @@ reads. As in the JAX launcher:
 
 When the command asks for ``--kernels`` on ``cuda`` (no ``--device cpu``),
 the launcher builds the port's CUDA libraries once before it spawns, so the
-ranks find them built. stdlib only: the launcher imports neither torch nor
-jax (``ops/_build.py`` is stdlib only).
+ranks find them built. With ``--telemetry-dir`` the launcher writes the
+job's lifecycle into ``launch-n<node>.jsonl`` there (the JAX
+``_job_telemetry`` :126-146 and its events :160-245): ``job_start``, a
+``child_spawn`` and a ``child_exit`` a rank, ``signal_forwarded`` and
+``job_end``. stdlib only: the launcher imports neither torch nor jax
+(``ops/_build.py`` and ``telemetry/`` are stdlib only).
 """
 
 from __future__ import annotations
@@ -123,11 +127,28 @@ def wants_kernel_build(cmd: Sequence[str]) -> bool:
     return "--kernels" in cmd and not runs_on_cpu(cmd)
 
 
+def _job_telemetry(telemetry_dir: Optional[str], node_rank: int):
+    """The launcher's ``Telemetry``: one JSONL sink,
+    ``launch-n<node>.jsonl`` in ``telemetry_dir``; the inert ``NULL``
+    without one."""
+    from tpu_ddp_torch.telemetry import NULL, Clock, JsonlTraceSink, Telemetry
+
+    if not telemetry_dir:
+        return NULL
+    clock = Clock()
+    sink = JsonlTraceSink(os.path.join(telemetry_dir, f"launch-n{node_rank}.jsonl"),
+                          clock=clock, process_index=node_rank)
+    return Telemetry([sink], process_index=node_rank, clock=clock)
+
+
 def run_job(cmd: Sequence[str], *, nnodes: int = 1, nproc_per_node: int = 1,
-            node_rank: int = 0, master: Optional[str] = None) -> int:
+            node_rank: int = 0, master: Optional[str] = None,
+            telemetry_dir: Optional[str] = None) -> int:
     """Launch ``cmd`` once per local rank and supervise until all exit.
     Returns 0 iff every child exited 0, else the first failing child's code
-    (the others torn down, torchrun-style)."""
+    (the others torn down, torchrun-style). ``telemetry_dir``: the job's
+    lifecycle events go to ``launch-n<node>.jsonl`` there."""
+    tel = _job_telemetry(telemetry_dir, node_rank)
     if master is None:
         if nnodes > 1:
             raise ValueError("--master host:port is required when nnodes > 1 "
@@ -145,8 +166,11 @@ def run_job(cmd: Sequence[str], *, nnodes: int = 1, nproc_per_node: int = 1,
         base_env.setdefault("OMP_NUM_THREADS", "1")
     procs: List[subprocess.Popen] = []
     forwarded = []
+    forwarded_logged = 0
 
     def _forward(signum, frame):
+        # async-signal-safe: no sink IO here (the sink's lock may be held
+        # by the interrupted main thread); the loop emits the instant
         forwarded.append(signum)
         for p in procs:
             if p.poll() is None:
@@ -157,15 +181,22 @@ def run_job(cmd: Sequence[str], *, nnodes: int = 1, nproc_per_node: int = 1,
 
     prev = {s: signal.signal(s, _forward) for s in (signal.SIGTERM, signal.SIGINT)}
     try:
+        tel.instant("job_start", nnodes=nnodes, nproc_per_node=nproc_per_node,
+                    node_rank=node_rank, coordinator=master)
         for rank, local in plan_ranks(nnodes, nproc_per_node, node_rank):
             procs.append(subprocess.Popen(list(cmd), env=child_env(
                 base_env, master=master, world_size=world_size, rank=rank,
                 local_rank=local, nproc_per_node=nproc_per_node)))
+            tel.instant("child_spawn", process_id=rank, local_rank=local,
+                        os_pid=procs[-1].pid)
         rc = 0
         live = list(procs)
         escalate_at = None
         while live:
             time.sleep(0.1)
+            while forwarded_logged < len(forwarded):
+                tel.instant("signal_forwarded", signum=int(forwarded[forwarded_logged]))
+                forwarded_logged += 1
             if forwarded and escalate_at is None:
                 # a forwarded signal gets ONE grace window; a rank wedged in
                 # a collective (its peer gone) must not pin the launcher
@@ -177,15 +208,19 @@ def run_job(cmd: Sequence[str], *, nnodes: int = 1, nproc_per_node: int = 1,
                 if code is None:
                     continue
                 live.remove(p)
+                tel.instant("child_exit", os_pid=p.pid, code=code)
                 if code != 0 and rc == 0:
                     rc = code
                     _terminate_all(live)
         # signal-style exits surface as the shell's 128+N
-        return 128 - rc if rc < 0 else rc
+        rc = 128 - rc if rc < 0 else rc
+        tel.instant("job_end", rc=rc)
+        return rc
     finally:
         _terminate_all(procs)
         for s, h in prev.items():
             signal.signal(s, h)
+        tel.close()
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -203,6 +238,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--master", default=None, metavar="HOST:PORT",
                     help="rendezvous address (node 0's reachable address); "
                          "a free localhost port for single-node jobs")
+    ap.add_argument("--telemetry-dir", default=None, metavar="DIR",
+                    help="write launcher job-lifecycle events "
+                    "(spawn/exit/signals) to launch-n<node>.jsonl here; "
+                    "pass the same dir to the train CLI's --telemetry-dir "
+                    "for a combined picture")
     ap.add_argument("cmd", nargs=argparse.REMAINDER,
                     help="command to launch, after `--`: python -m "
                          "tpu_ddp_torch.cli.train ...")
@@ -214,7 +254,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         ap.error("no command given; usage: python -m tpu_ddp_torch.cli.launch "
                  "[opts] -- python -m tpu_ddp_torch.cli.train ...")
     return run_job(cmd, nnodes=args.nnodes, nproc_per_node=args.nproc_per_node,
-                   node_rank=args.node_rank, master=args.master)
+                   node_rank=args.node_rank, master=args.master,
+                   telemetry_dir=args.telemetry_dir)
 
 
 if __name__ == "__main__":

@@ -18,7 +18,11 @@ over the train split instead of one run. After the final evaluation ``--dump-pre
 trains on the GPU unless ``--device cpu`` is given, and refuses to start
 without one otherwise. A run drained by SIGTERM or
 SIGINT has saved its checkpoint and skips the final evaluation;
-``--resume`` continues it at the step it stopped at. Started by
+``--resume`` continues it at the step it stopped at. ``--telemetry-dir``
+and its flags (the JAX :237-252, :273-285, :387-391) turn the trainer's
+telemetry on; the sinks close after the final evaluation is recorded
+(``Trainer.record_final_eval``, the JAX :629), so the trace is a whole run
+record. Started by
 ``python -m tpu_ddp_torch.cli.launch``, it joins the launcher's process
 group first and trains data-parallel over the ranks (``--dist-backend``,
 a flag the JAX CLI does not need: one JAX process drives every device).
@@ -310,6 +314,36 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--health-spike-threshold", type=float, default=10.0,
                    metavar="K",
                    help="spike when loss > median + K * MAD of the window")
+    p.add_argument("--telemetry-dir", default=None, metavar="DIR",
+                   help="enable structured telemetry into this run dir: "
+                        "per-rank schema-versioned JSONL trace + Chrome "
+                        "trace_event JSON (Perfetto-loadable) + terminal "
+                        "phase summary; read back with `python -m "
+                        "tpu_ddp_torch.telemetry summarize DIR`. Adds a "
+                        "per-step device fence for phase attribution")
+    p.add_argument("--telemetry-sinks", default="jsonl,chrome,summary",
+                   metavar="LIST",
+                   help="comma-separated subset of jsonl,chrome,summary")
+    p.add_argument("--telemetry-snapshot-steps", type=int, default=50,
+                   metavar="N",
+                   help="flush a counters snapshot into the JSONL trace "
+                        "every N steps so a killed run leaves a usable tail "
+                        "(0 disables; epoch-end and final snapshots always "
+                        "happen)")
+    p.add_argument("--watchdog-deadline", type=float, default=0.0,
+                   metavar="SECONDS",
+                   help=">0: hang watchdog — every rank writes a heartbeat "
+                        "file (under --telemetry-dir) per step and dumps all "
+                        "thread stacks when no step completes within the "
+                        "deadline")
+    p.add_argument("--watchdog-abort", action="store_true",
+                   help="escalate a watchdog firing: after the stack dump, "
+                        "exit the wedged process with code 113 so a "
+                        "supervisor can restart it")
+    p.add_argument("--no-data-digests", dest="data_digests",
+                   action="store_false", default=True,
+                   help="skip the per-step batch-content digest sink "
+                        "(data-p<i>.jsonl) under --telemetry-dir")
     return p
 
 
@@ -409,6 +443,12 @@ def config_from_args(args) -> TrainConfig:
         grad_accum_steps=args.grad_accum_steps,
         plot_curves=args.plot_curves,
         dump_predictions=args.dump_predictions,
+        telemetry_dir=args.telemetry_dir,
+        telemetry_sinks=args.telemetry_sinks,
+        telemetry_snapshot_steps=args.telemetry_snapshot_steps,
+        watchdog_deadline_seconds=args.watchdog_deadline,
+        watchdog_abort=args.watchdog_abort,
+        data_digests=args.data_digests,
     )
 
 
@@ -441,8 +481,9 @@ def run_cv(args, config) -> dict:
     """k-fold cross-validation (the JAX ``run_cv`` :546-606, the
     reference's ``-cv_mode``): one fresh ``Trainer`` a fold, data-parallel
     over the ranks, with no checkpoints and no resume; each fold's health
-    record goes to ``<health-dir>/fold<i>`` (the records open with mode
-    "w"). Reports each fold's validation accuracy and their mean."""
+    record and telemetry go to ``<health-dir>/fold<i>`` and
+    ``<telemetry-dir>/fold<i>`` (the records open with mode "w"). Reports
+    each fold's validation accuracy and their mean."""
     from tpu_ddp_torch.train.kfold import run_kfold
     from tpu_ddp_torch.train.trainer import load_dataset
 
@@ -454,6 +495,8 @@ def run_cv(args, config) -> dict:
         say(f"[cv] fold {fold + 1}/{args.cv_mode}")
         cfg = dataclasses.replace(
             fold_config,
+            telemetry_dir=(os.path.join(fold_config.telemetry_dir, f"fold{fold}")
+                           if fold_config.telemetry_dir else None),
             health_dir=(os.path.join(fold_config.health_dir, f"fold{fold}")
                         if fold_config.health_dir else None))
         return Trainer(cfg, train_data=train_data, test_data=val_data)
@@ -500,8 +543,10 @@ def _run_and_report(args, config, trainer) -> dict:
         trainer.logger.log_text(
             f"final test accuracy: {acc:.4f}, test loss: {loss:.4f}")
         metrics["test_accuracy"] = acc
+        trainer.record_final_eval(accuracy=acc, loss=loss)
     else:   # accuracy is undefined for multi-hot targets
         trainer.logger.log_text(f"final test loss: {loss:.4f}")
+        trainer.record_final_eval(loss=loss)
     metrics.update(test_loss=loss, eval_batches=trainer.eval_batches)
     if args.dump_predictions or args.viz_predictions:
         _predictions(args, config, trainer, metrics)

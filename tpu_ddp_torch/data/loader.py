@@ -23,8 +23,13 @@ The gather goes through ``native.gather_rows`` (the JAX loader's
 groups of K for ``--steps-per-call`` (the JAX trainer's ``_epoch_stream``,
 :1439-1531). The host prefetchers that run ahead of the step are
 ``native/prefetch.py`` and ``datapath/prefetch.py``; ``Trainer`` drives
-them. The JAX loader's telemetry spans and stage observer wait for
-telemetry; ``gather_seconds`` counts the time spent in the gather.
+them. ``epoch_batches`` runs the JAX loader's stages (:223-280: index,
+gather, collate, shard), each batch's in a ``data/<stage>`` span of
+``telemetry=`` (a ``Telemetry``; the inert ``NULL`` by default), and counts
+``loader/batches``. It has no ``data/augment`` span: the port's
+augmentation runs inside the step. ``gather_seconds`` counts the time
+spent in the gather. The JAX loader's stage observer (``observer=``,
+``datapath/stages.py``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -64,7 +69,8 @@ class ShardedBatchLoader:
                  shuffle: bool = True, reshuffle_each_epoch: bool = True,
                  seed: int = 0, drop_last: bool = False,
                  exclude_sampler_pad: bool = False,
-                 process_index: int = 0, process_count: int = 1):
+                 process_index: int = 0, process_count: int = 1,
+                 telemetry=None):
         """exclude_sampler_pad: also mask the sampler's wrap-pad duplicates
         (True for eval, so metrics count every sample once)."""
         if len(images) != len(labels):
@@ -84,6 +90,9 @@ class ShardedBatchLoader:
         self.process_count = process_count
         self.local_world_size = world_size // process_count
         self.gather_seconds = 0.0
+        if telemetry is None:
+            from tpu_ddp_torch.telemetry import NULL as telemetry
+        self.telemetry = telemetry
         self._epoch = 0
         per_shard = math.ceil(len(images) / world_size)
         if drop_last:
@@ -149,18 +158,28 @@ class ShardedBatchLoader:
         """This process's batches or, with ``shard``, that shard's
         ``per_shard_batch`` rows of each (the batch is shard-major; ``shard``
         counts from this process's first). ``start`` skips the epoch's
-        first index batches without gathering them (a mid-epoch resume)."""
+        first index batches without gathering them (a mid-epoch resume).
+        Each batch passes the five stages (module docstring)."""
         bs = self.per_shard_batch
-        for idx, mask in itertools.islice(self.epoch_index_batches(epoch), start, None):
-            if shard is not None:
-                idx = idx[shard * bs:(shard + 1) * bs]
-                mask = mask[shard * bs:(shard + 1) * bs]
-            images, labels = self.gather(idx)
-            yield {
-                "image": np.ascontiguousarray(images),
-                "label": np.ascontiguousarray(labels),
-                "mask": mask,
-            }
+        index = itertools.islice(self.epoch_index_batches(epoch), start, None)
+        span = self.telemetry.span
+        while True:
+            with span("data/index"):
+                pair = next(index, None)
+                if pair is not None and shard is not None:
+                    idx, mask = pair
+                    pair = idx[shard * bs:(shard + 1) * bs], mask[shard * bs:(shard + 1) * bs]
+            if pair is None:
+                return
+            idx, mask = pair
+            with span("data/gather"):
+                images, labels = self.gather(idx)
+            with span("data/collate"):
+                batch = {"image": images, "label": labels, "mask": mask}
+            with span("data/shard"):
+                batch = {k: np.ascontiguousarray(v) for k, v in batch.items()}
+            self.telemetry.count("loader/batches")
+            yield batch
 
     def __len__(self):
         return self.steps_per_epoch

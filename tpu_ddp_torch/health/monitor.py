@@ -20,11 +20,13 @@ The monitor never raises into the train loop: it returns the policy verdict
 ("halt" | "skip_step" | "warn") and the trainer acts on it (the skip itself
 already happened in the step, ``HealthConfig.skip_nonfinite``).
 
-Not ported yet: the telemetry mirror (the JAX monitor's ``health/*`` gauges
-and its ``health/nonfinite_steps``, ``health/loss_spikes`` and
-``health/skipped_steps`` counters, and the ``health_anomaly`` instant
-event). It comes with the telemetry slice; until then the counts are this
-object's attributes and the footer record's.
+With ``telemetry=`` the monitor mirrors each step into it as the JAX
+monitor does (:215-245): the ``health/<key>`` gauges (loss, grad, param and
+update norms, update ratio, compression error), the counters
+``health/nonfinite_steps``, ``health/skipped_steps`` (under ``skip_step``)
+and ``health/loss_spikes``, and a ``health_anomaly`` instant an anomaly.
+The file names and incarnations are the telemetry package's grammar
+(``sink_file_name``, ``next_incarnation``).
 
 numpy and stdlib only.
 """
@@ -32,7 +34,7 @@ numpy and stdlib only.
 from __future__ import annotations
 
 import collections
-import glob
+import functools
 import json
 import logging
 import math
@@ -43,32 +45,18 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 
 from tpu_ddp_torch.health.summarize import HEALTH_SCHEMA_VERSION
+from tpu_ddp_torch.telemetry import next_incarnation as _next_incarnation
+from tpu_ddp_torch.telemetry import sink_file_name
 
 log = logging.getLogger(__name__)
 
 POLICIES = ("warn", "skip_step", "halt")
 
 
-def sink_file_name(prefix: str, process_index: int, incarnation: int = 0,
-                   ext: str = "jsonl") -> str:
-    """The JAX package's sink naming grammar (``tpu_ddp/telemetry``
-    ``sink_file_name``): ``<prefix>-p<i>[.i<k>].<ext>``, unstamped for
-    incarnation 0."""
-    suffix = f".i{incarnation}" if incarnation else ""
-    return f"{prefix}-p{process_index}{suffix}.{ext}"
-
-
-def next_incarnation(run_dir: str, process_index: int) -> int:
-    """The first incarnation whose health file for ``process_index`` is not
-    in ``run_dir`` yet: a resumed run in the same dir writes a new file and
-    keeps the earlier life's record (the JAX package numbers incarnations
-    from its trace files, which the port does not write yet)."""
-    taken = {os.path.basename(p) for p in
-             glob.glob(os.path.join(run_dir, f"health-p{process_index}*.jsonl"))}
-    k = 0
-    while sink_file_name("health", process_index, k) in taken:
-        k += 1
-    return k
+#: ``next_incarnation(run_dir, process_index)`` of the health records: one
+#: past the newest ``health-p<i>[.i<k>].jsonl`` of the rank, so a resumed run
+#: writes a new file and keeps the earlier life's record
+next_incarnation = functools.partial(_next_incarnation, prefix="health")
 
 
 class SpikeDetector:
@@ -126,12 +114,16 @@ class HealthMonitor:
         max_dumps: int = 1,
         run_meta: Optional[dict] = None,
         incarnation: int = 0,
+        telemetry=None,
     ):
         if policy not in POLICIES:
             raise ValueError(
                 f"unknown health policy {policy!r}; valid policies: "
                 f"{', '.join(POLICIES)}"
             )
+        if telemetry is None:
+            from tpu_ddp_torch.telemetry import NULL as telemetry
+        self.telemetry = telemetry
         self.policy = policy
         self.per_layer_stride = per_layer_stride
         self.process_index = process_index
@@ -217,16 +209,33 @@ class HealthMonitor:
         self._write(record)
         self.history.append({k: v for k, v in record.items() if k != "per_layer"})
 
+        tel = self.telemetry
+        for key in ("loss", "grad_norm", "param_norm", "update_norm",
+                    "update_ratio", "compress_error_norm"):
+            if key in host and math.isfinite(host[key]):
+                tel.gauge(f"health/{key}").set(host[key])
+
         if anomaly is None:
             return "ok"
         self.anomaly_count += 1
         if nonfinite:
             self.nonfinite_steps += 1
+            tel.count("health/nonfinite_steps")
+            if self.policy == "skip_step":
+                # the step's guard already discarded this update
+                tel.count("health/skipped_steps")
         else:
             self.spike_steps += 1
+            tel.count("health/loss_spikes")
         dump_path = None
         if self.dumps_written < self.max_dumps:
             dump_path = self._dump(step, anomaly, host, batch_provider)
+        tel.instant(
+            "health_anomaly", step=step, reason=anomaly,
+            loss=host.get("loss"), grad_norm=host.get("grad_norm"),
+            policy=self.policy,
+            **({"dump": dump_path} if dump_path else {}),
+        )
         log.warning(
             "health anomaly at step %d: %s (loss=%g grad_norm=%g "
             "update_ratio=%g) -> policy %s%s",

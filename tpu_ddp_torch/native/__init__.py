@@ -2,9 +2,10 @@
 
 Counterpart of ``tpu_ddp/native/__init__.py`` (``decode_normalize`` :133,
 ``gather_rows`` :157). The C++ sources here are the port's own copies
-(``cifar_codec.cpp``, ``prefetcher.cpp``, ``parallel_for.h``); the
+(``cifar_codec.cpp``, ``prefetcher.cpp``, ``parallel_for.h``) and
+``blake2b.h``, which the JAX package has no counterpart of; the
 prefetcher's C ABI differs from the JAX package's: its slot buffers are the
-caller's (``native/prefetch.py``).
+caller's, and it can digest the rows it gathers (``native/prefetch.py``).
 
 The library is built with ``g++`` at first use, not at import, into
 ``build/tpu_ddp_torch/libcifar_codec-<hash>.so`` at the root of the
@@ -36,17 +37,17 @@ from tpu_ddp_torch.ops._build import BUILD_DIR
 
 HERE = Path(__file__).resolve().parent
 SOURCES = ("cifar_codec.cpp", "prefetcher.cpp")
-HEADERS = ("parallel_for.h",)
+HEADERS = ("parallel_for.h", "blake2b.h")
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
-ABI_VERSION = 3
+ABI_VERSION = 4
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_P, _I, _LL, _ULL = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint64
 #: C function -> (restype, argtypes)
 FUNCTIONS = {
     "cifar_decode_normalize": (None, [_P, _P, _LL, _P, _P]),
     "gather_rows_f32": (None, [_P, _P, _P, _LL, _LL]),
     "gather_rows_i32": (None, [_P, _P, _P, _LL, _LL]),
-    "bp_create": (_P, [_I, _P, _P, _LL, _LL]),
+    "bp_create": (_P, [_I, _P, _P, _P, _LL, _LL, _LL, _ULL]),
     "bp_submit": (_I, [_P, _P, _P, _P, _LL, _LL, _LL]),
     "bp_acquire": (_I, [_P]),
     "bp_release": (None, [_P, _I]),

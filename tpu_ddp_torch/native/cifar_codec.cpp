@@ -69,6 +69,7 @@ void gather_rows_i32(const int32_t* src, const int64_t* idx, int32_t* dst,
 }
 
 // v3: the prefetcher's slots are the caller's buffers (bp_create)
-int cifar_codec_abi_version() { return 3; }
+// v4: bp_create takes the rows' digest buffers and key
+int cifar_codec_abi_version() { return 4; }
 
 }  // extern "C"

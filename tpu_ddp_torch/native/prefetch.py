@@ -19,13 +19,20 @@ has finished: on the card, after the CUDA event recorded behind the copy;
 on the CPU, after a copy (``torch.from_numpy`` and ``torch.as_tensor``
 alias host memory, so a step that kept the view would read the next
 gather's rows).
+
+Digests: given ``digest_seed``, the C++ gather also writes each row's keyed
+BLAKE2b digest of the slot's image and label rows (``blake2b.h``), and
+``row_digests(slot, n)`` reads them, with the same lifetime as the slot's
+rows. ``datapath/audit.py::xor_row_digests`` folds a batch's into the
+digest that ``batch_digest`` computes from the rows, so the trainer's data
+audit hashes nothing on the training thread.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,10 +57,12 @@ class BatchPrefetcher:
     ``submit(idx)`` enqueues a gather of rows ``idx`` (at most
     ``max_batch``); ``acquire()`` returns ``(images, labels, slot)`` for the
     oldest submission, as CPU tensors viewing the slot. ``depth`` is the
-    number of slots."""
+    number of slots; ``digest_seed`` (module docstring) keys the rows'
+    digests, None for none."""
 
     def __init__(self, images: np.ndarray, labels: np.ndarray, *,
-                 max_batch: int, depth: int = 3, pin_memory: bool = False):
+                 max_batch: int, depth: int = 3, pin_memory: bool = False,
+                 digest_seed: Optional[int] = None):
         if depth < 1:
             raise ValueError(f"prefetcher depth must be >= 1, got {depth}")
         self.images = np.ascontiguousarray(images)
@@ -69,8 +78,16 @@ class BatchPrefetcher:
         self._dtypes = (_torch_dtype(self.images.dtype), _torch_dtype(self.labels.dtype))
         ptrs = [(ctypes.c_void_p * depth)(*(s[i].data_ptr() for i in range(depth)))
                 for s in self._slots]
+        self._digests = None
+        dig_ptrs, key = None, 0
+        if digest_seed is not None:
+            self._digests = np.zeros((depth, max_batch, 8), np.uint8)
+            dig_ptrs = (ctypes.c_void_p * depth)(
+                *(self._digests[i].ctypes.data for i in range(depth)))
+            key = int(digest_seed) & 0xFFFFFFFFFFFFFFFF     # batch_digest's key
         self._lib = native.lib()
-        self._h = self._lib.bp_create(depth, ptrs[0], ptrs[1], caps[0], caps[1])
+        self._h = self._lib.bp_create(depth, ptrs[0], ptrs[1], dig_ptrs, caps[0], caps[1],
+                                      max_batch * 8, key)
         if not self._h:
             raise RuntimeError("bp_create failed")
         self._sizes: collections.deque = collections.deque()
@@ -99,6 +116,13 @@ class BatchPrefetcher:
                                         self._dtypes, (self.images, self.labels)):
             views.append(buf[slot, :n * row].view(dtype).view((n,) + arr.shape[1:]))
         return views[0], views[1], slot
+
+    def row_digests(self, slot: int, n: int) -> np.ndarray:
+        """The 8 digest bytes of each of the ``n`` rows in ``slot``, a
+        ``(n, 8)`` view valid until ``release(slot)``."""
+        if self._digests is None:
+            raise RuntimeError("row_digests on a prefetcher built without digest_seed")
+        return self._digests[slot, :n]
 
     def release(self, slot: int) -> None:
         self._lib.bp_release(self._h, slot)

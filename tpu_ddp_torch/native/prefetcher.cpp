@@ -10,9 +10,13 @@
 // allocates as pinned (page-locked) host memory when the run is on the
 // card, so the host-to-device copy out of a slot can be asynchronous on a
 // copy stream. The ring never allocates, frees or pins them; the caller
-// keeps them alive until bp_destroy has returned. And a job under 1 MiB is
+// keeps them alive until bp_destroy has returned. A job under 1 MiB is
 // gathered by the worker alone, without the per-job thread fan-out (on a
 // host with many cores the JAX package's ring starts up to a thread a row).
+// And given digest buffers, the gather also writes each row's keyed
+// BLAKE2b digest (blake2b.h) of the slot's image and label rows, so that
+// the batch digests of the telemetry's data audit are hashed here and not
+// on the training thread.
 //
 // Contract (enforced on the Python side, tpu_ddp_torch/native/prefetch.py):
 //   submit(idx) -> blocks for a free slot, enqueues a gather job
@@ -32,11 +36,13 @@
 #include <thread>
 #include <vector>
 
+#include "blake2b.h"
 #include "parallel_for.h"
 
 namespace {
 
 using tpu_ddp_native::parallel_for;
+using tpu_ddp_native::row_digest;
 
 // the Python gather_rows' NATIVE_GATHER_MIN_BYTES
 constexpr int64_t kFanOutMinBytes = int64_t(1) << 20;
@@ -54,8 +60,11 @@ struct Prefetcher {
   int n_slots;
   int64_t img_capacity;  // bytes per slot
   int64_t lbl_capacity;
+  int64_t dig_capacity;  // 0: no digests
+  uint64_t digest_key;
   std::vector<uint8_t*> img_bufs;  // the caller's slot buffers
   std::vector<uint8_t*> lbl_bufs;
+  std::vector<uint8_t*> dig_bufs;  // 8 bytes a row, or none
 
   std::mutex m;
   std::condition_variable cv_job;   // worker waits for jobs
@@ -68,11 +77,14 @@ struct Prefetcher {
   std::thread worker;
 
   Prefetcher(int slots, void* const* img_slots, void* const* lbl_slots,
-             int64_t img_cap, int64_t lbl_cap)
-      : n_slots(slots), img_capacity(img_cap), lbl_capacity(lbl_cap) {
+             void* const* dig_slots, int64_t img_cap, int64_t lbl_cap,
+             int64_t dig_cap, uint64_t key)
+      : n_slots(slots), img_capacity(img_cap), lbl_capacity(lbl_cap),
+        dig_capacity(dig_slots ? dig_cap : 0), digest_key(key) {
     for (int s = 0; s < n_slots; ++s) {
       img_bufs.push_back(static_cast<uint8_t*>(img_slots[s]));
       lbl_bufs.push_back(static_cast<uint8_t*>(lbl_slots[s]));
+      dig_bufs.push_back(dig_slots ? static_cast<uint8_t*>(dig_slots[s]) : nullptr);
       free_slots.push_back(s);
     }
     worker = std::thread([this] { run(); });
@@ -101,6 +113,7 @@ struct Prefetcher {
       }
       uint8_t* img_dst = img_bufs[job.slot];
       uint8_t* lbl_dst = lbl_bufs[job.slot];
+      uint8_t* dig_dst = dig_bufs[job.slot];
       const int64_t n = static_cast<int64_t>(job.idx.size());
       const int64_t irb = job.img_row_bytes;
       const int64_t lrb = job.lbl_row_bytes;
@@ -111,6 +124,10 @@ struct Prefetcher {
                       static_cast<size_t>(irb));
           std::memcpy(lbl_dst + j * lrb, job.lbl_src + idx[j] * lrb,
                       static_cast<size_t>(lrb));
+          if (dig_dst) {
+            row_digest(digest_key, img_dst + j * irb, static_cast<size_t>(irb),
+                       lbl_dst + j * lrb, static_cast<size_t>(lrb), dig_dst + 8 * j);
+          }
         }
       };
       // below kFanOutMinBytes the worker copies alone: starting the threads
@@ -132,7 +149,8 @@ struct Prefetcher {
              const int64_t* idx, int64_t n_idx, int64_t img_row_bytes,
              int64_t lbl_row_bytes) {
     if (n_idx * img_row_bytes > img_capacity ||
-        n_idx * lbl_row_bytes > lbl_capacity) {
+        n_idx * lbl_row_bytes > lbl_capacity ||
+        (dig_capacity && n_idx * 8 > dig_capacity)) {
       return -2;  // batch larger than the slot buffers
     }
     int slot;
@@ -177,13 +195,17 @@ struct Prefetcher {
 
 extern "C" {
 
-// img_slots / lbl_slots: n_slots buffers of img_capacity_bytes and
-// lbl_capacity_bytes each, owned by the caller.
+// img_slots / lbl_slots / dig_slots: n_slots buffers of img_capacity_bytes,
+// lbl_capacity_bytes and dig_capacity_bytes each, owned by the caller.
+// dig_slots may be null (no digests); else each gathered row's 8 digest
+// bytes, keyed with digest_key (row_digest), go to its slot's buffer.
 void* bp_create(int n_slots, void* const* img_slots, void* const* lbl_slots,
-                int64_t img_capacity_bytes, int64_t lbl_capacity_bytes) {
+                void* const* dig_slots, int64_t img_capacity_bytes,
+                int64_t lbl_capacity_bytes, int64_t dig_capacity_bytes,
+                uint64_t digest_key) {
   if (n_slots < 1) return nullptr;
-  return new Prefetcher(n_slots, img_slots, lbl_slots, img_capacity_bytes,
-                        lbl_capacity_bytes);
+  return new Prefetcher(n_slots, img_slots, lbl_slots, dig_slots, img_capacity_bytes,
+                        lbl_capacity_bytes, dig_capacity_bytes, digest_key);
 }
 
 int bp_submit(void* h, const void* img_src, const void* lbl_src,

@@ -67,7 +67,22 @@ grid (``parallel/mesh.py``: the JAX package's ``axis=DATA_AXIS``), as
 ``--zero1`` and ``--grad-compress`` do under sequence parallelism and
 ``--parallelism fsdp`` does. With no group a call runs over every rank.
 
-Not ported yet: the telemetry hop hook (``_RING_HOP_HOOK``, ``_emit_hop``).
+The hop hook (the JAX ``set_ring_hop_hook`` :35-60 and its call in the
+ring :255-268 and :305-312): ``set_ring_hop_hook(hook)`` installs a
+process-wide ``hook(probe, *, kind, dtype, axis, hop, n_hops, wire_bytes)``
+(None clears it; the previous hook is returned), which the compressed
+gradient ring calls once a hop on each rank: ``kind`` is
+"ring-reduce-scatter" or "ring-all-reduce", ``dtype`` the wire's ("f32",
+"bf16" or "s8"), ``hop`` counts from 1 to ``n_hops`` (the all-reduce's
+gather phase is its last hop, n of n), ``wire_bytes`` the bytes a rank sent
+(``chunk_wire_bytes`` summed over the leaves; n - 1 messages for the
+gather phase), and ``probe`` the first element of the bare dequantized
+chunk (the gather phase's: of the result), a 0-d tensor left on the device.
+The probe is read from the received message itself (``_hop_probe``), so
+K3's fused dequantize-and-add runs as it does without a hook and the
+result is the same bit for bit. Ring attention's ring calls no hook, as
+the JAX package emits hops from the gradient ring alone. The ``HopMonitor`` that
+installs a hook comes with ``comms/``, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -78,6 +93,29 @@ import torch
 import torch.distributed as dist
 
 from tpu_ddp_torch.parallel.runtime import rank, world_size
+
+
+_RING_HOP_HOOK = None
+
+#: ring wire mode -> the dtype token the hop's payload carries
+_MODE_WIRE_DTYPE = {"f32": "f32", "bf16": "bf16", "int8": "s8"}
+
+
+def set_ring_hop_hook(hook):
+    """Install (or clear, with None) the process-wide ring hop hook
+    (module docstring); returns the previous hook."""
+    global _RING_HOP_HOOK
+    prev = _RING_HOP_HOOK
+    _RING_HOP_HOOK = hook
+    return prev
+
+
+def _emit_hop(probe: torch.Tensor, *, kind: str, mode: str, axis: str, hop: int,
+              n_hops: int, wire_bytes: int) -> None:
+    hook = _RING_HOP_HOOK       # read at call time: a cleared hook goes quiet
+    if hook is not None:
+        hook(probe, kind=kind, dtype=_MODE_WIRE_DTYPE.get(mode, mode), axis=axis,
+             hop=hop, n_hops=n_hops, wire_bytes=int(wire_bytes))
 
 
 def _staged(tensor: torch.Tensor) -> bool:
@@ -616,10 +654,22 @@ def _dequant_hop(msg: torch.Tensor, layout: FlatLayout, mode: str, kernels: bool
     return fq.segment_dequant_plain(msg, layout, mode, out, **where)
 
 
+def _hop_probe(msg: torch.Tensor, layout: FlatLayout, mode: str) -> torch.Tensor:
+    """The first element of the received ``msg``'s bare dequantized chunk of
+    leaf 0, as ``dequantize_chunk`` (and K3 without its add) computes it:
+    ``q[0] * scale[0]`` in int8, ``q[0]`` as float32 otherwise. A 0-d
+    tensor on ``msg``'s device."""
+    p = layout.payload(msg, mode)[0]
+    q = p["q"][0].to(torch.float32)
+    return q * p["scale"][0] if mode == "int8" else q
+
+
 def _reduce_scatter_hops(x: torch.Tensor, layout: FlatLayout, mode: str,
                          kernels: bool, err: Optional[torch.Tensor],
                          row: Optional[torch.Tensor] = None,
-                         group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+                         group: Optional[dist.ProcessGroup] = None, *,
+                         kind: str = "ring-reduce-scatter", total_hops: int = 0,
+                         axis: str = "data") -> torch.Tensor:
     """The N-1 hops of the ring over every leaf of the leaf-major ``x`` at
     once, one message a hop. Hop ``step`` sends chunk ``(idx - 1 - step)
     mod n`` of every leaf and adds the received one to this rank's own
@@ -628,7 +678,9 @@ def _reduce_scatter_hops(x: torch.Tensor, layout: FlatLayout, mode: str,
     per-leaf ring. The running sums go to a new leaf-major ``acc`` (``x``
     is only read); the last hop's, this rank's chunk of every leaf, to
     ``row`` (the shard layout) when given, else to ``acc``. The ranks and
-    places are ``group``'s (None: all). Returns ``acc``."""
+    places are ``group``'s (None: all). Each hop calls the hop hook when
+    one is installed (module docstring; ``kind``, ``total_hops`` and
+    ``axis`` are its keywords). Returns ``acc``."""
     n, idx = group_size(group), group_rank(group)
     acc = torch.empty_like(x)
     src = x
@@ -637,7 +689,12 @@ def _reduce_scatter_hops(x: torch.Tensor, layout: FlatLayout, mode: str,
         got = exchange(msg, (idx + 1) % n, (idx - 1) % n, group)
         c = (idx - 2 - step) % n
         last = row is not None and step == n - 2
-        _dequant_hop(got, layout, mode, kernels, row if last else acc,
+        out = row if last else acc
+        if _RING_HOP_HOOK is not None:
+            _emit_hop(_hop_probe(got, layout, mode), kind=kind, mode=mode, axis=axis,
+                      hop=step + 1, n_hops=total_hops or n - 1,
+                      wire_bytes=layout.msg_bytes(mode))
+        _dequant_hop(got, layout, mode, kernels, out,
                      add=x, add_chunk=c, out_chunk=c, to_rows=last)
         src = acc
     return acc
@@ -693,10 +750,16 @@ def ring_all_reduce_flat(x: torch.Tensor, layout: FlatLayout, *, mode: str = "f3
     err = (torch.empty_like(x) if lossy else
            torch.zeros_like(x) if with_error else None)
     e = err if lossy else None
-    acc = _reduce_scatter_hops(x, layout, mode, kernels, e, group=group)
+    acc = _reduce_scatter_hops(x, layout, mode, kernels, e, group=group,
+                               kind="ring-all-reduce", total_hops=n)
     msg = _quant_hop(acc, layout, group_rank(group), mode, kernels, e)
     out = torch.empty_like(x)
     _dequant_hop(all_gather_bytes(msg, group), layout, mode, kernels, out)
+    if _RING_HOP_HOOK is not None:
+        # the gather phase is the ring's last hop (n of n): each rank
+        # receives the other n - 1 ranks' messages
+        _emit_hop(out[0].clone(), kind="ring-all-reduce", mode=mode, axis="data", hop=n,
+                  n_hops=n, wire_bytes=(n - 1) * layout.msg_bytes(mode))
     return out, err
 
 

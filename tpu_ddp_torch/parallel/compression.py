@@ -206,6 +206,33 @@ class GradCompressor:
                                  n_shards, config.block)
         self._pad: Dict[torch.device, torch.Tensor] = {}
 
+    def accounting(self) -> dict:
+        """Static per-step per-rank wire-byte accounting (the JAX
+        ``GradCompressor.accounting``, key for key): what the ring moves in
+        this mode against the same ring in f32. ``all_reduce`` covers the
+        replicated sync (the n - 1 reduce-scatter hops and the all-gather
+        phase's n - 1 chunks), ``reduce_scatter`` the ZeRO composition (the
+        params' all-gather is not the ring's)."""
+        n = self.n_shards
+        mode, block = self.config.mode, self.config.block
+        rs_wire = rs_base = 0
+        for slot in self.slots.values():
+            chunk = slot.padded // n
+            rs_wire += (n - 1) * chunk_wire_bytes(chunk, mode, block)
+            rs_base += (n - 1) * chunk * 4
+        return {
+            "mode": mode,
+            "block": block,
+            "n_shards": n,
+            "error_feedback": self.config.error_feedback,
+            "all_reduce_bytes_on_wire_per_device": int(2 * rs_wire),
+            "all_reduce_bytes_f32_per_device": int(2 * rs_base),
+            "reduce_scatter_bytes_on_wire_per_device": int(rs_wire),
+            "reduce_scatter_bytes_f32_per_device": int(rs_base),
+            "compression_ratio": (round(2 * rs_base / (2 * rs_wire), 2)
+                                  if rs_wire else None),
+        }
+
     # ---- flat update space ----------------------------------------------
 
     def _flat(self, tree: Tree) -> torch.Tensor:

@@ -154,8 +154,45 @@ evaluation go through its layout as for the other families (the params
 gathered over the pipeline); ``--aux-weight`` weighs the MoE ViT's
 load-balance loss in every family, dp included.
 
-Not ported yet: telemetry (and the health gauges, ``data/*`` spans and
-data digests it carries) and the elastic supervisor.
+Telemetry (``--telemetry-dir``, ``--telemetry-sinks``,
+``--telemetry-snapshot-steps``, ``--watchdog-deadline``,
+``--watchdog-abort``, ``--no-data-digests``; the JAX trainer's :664-725,
+:850-882, :1488-1631, :1648-1730 and :1964-2511; ``telemetry/``): with a
+run dir each rank writes ``trace-p<rank>[.i<k>].jsonl`` (the run header
+first: ``run_id``, ``quality_digest``, the incarnation, the config, torch's
+and CUDA's versions, the card, strategy, mesh and git identity) and the
+Chrome trace, and rank 0 prints the phase table at ``close()``. Every step
+family shares the loop, so every step carries the same spans:
+``data_wait`` and ``h2d`` around the regions ``data_seconds`` times,
+``compiled_step`` around the step's dispatch (``steps=K`` for a fused
+group; the name is the JAX package's, for an eager step here), and
+``device_sync``, which waits for the step's work on the stream it ran on
+(an event recorded behind the step: the copy stream's next batch is not
+waited for). That fence is made only under telemetry; without it the loop
+makes no host read it did not make before. The counters ``train/steps``
+and ``train/images`` advance a step, a ``counters_snapshot`` (with the
+goodput gauges) lands every ``telemetry_snapshot_steps``; each epoch's end
+has ``epoch_metrics_fetch`` and ``eval`` spans, the eval gauges and
+instant, ``train/steps_per_sec``, ``train/images_per_sec_per_chip``, the
+``comm/*`` wire counters under ``--grad-compress``, the memory gauges
+(``metrics/memory.py``) and a counters record; ``train/mfu``
+(``metrics/mfu.py``, also ``metrics["mfu"]``) at the end, on a card with a
+known peak. ``--watchdog-deadline`` beats the hang watchdog a step (its
+heartbeat file under the run dir); each rank also writes
+``data-p<rank>[.i<k>].jsonl``, a digest of every batch it trains
+(``datapath/audit.py``; on the native ring hashed row by row in its gather
+thread), unless ``--no-data-digests``. The health monitor writes into the
+run dir when no ``--health-dir`` is given, and mirrors its stats into the
+telemetry; the checkpointer and the loaders emit theirs.
+``record_final_eval`` folds the CLI's final evaluation into the final
+snapshot, which ``close()`` writes before it closes the sinks.
+
+Not ported yet: the JAX objects the trainer builds around a telemetry run
+dir (:726-871), which come with their modules: the elastic supervisor, the
+monitor exporter, the profiler's capture manager, the data-path stage
+monitor, the memory sampler (``memtrack``), chaos injection and the comms
+hop monitor (so the watchdog's hang bundle, which reads ``comms/``, is not
+written either).
 """
 
 from __future__ import annotations
@@ -185,8 +222,10 @@ from tpu_ddp_torch.data.cifar10 import (
 )
 from tpu_ddp_torch.data.download import ensure_dataset
 from tpu_ddp_torch.data.loader import ShardedBatchLoader, step_groups
+from tpu_ddp_torch.datapath.audit import xor_row_digests
 from tpu_ddp_torch.health.monitor import POLICIES as HEALTH_POLICIES
-from tpu_ddp_torch.health.monitor import HealthMonitor, next_incarnation
+from tpu_ddp_torch.health.monitor import HealthMonitor
+from tpu_ddp_torch.health.monitor import next_incarnation as health_incarnation
 from tpu_ddp_torch.health.stats import HealthConfig, HealthFeed
 from tpu_ddp_torch.metrics.logging import MetricLogger
 from tpu_ddp_torch.metrics.timing import Throughput
@@ -206,6 +245,17 @@ from tpu_ddp_torch.parallel.mesh import create_mesh
 from tpu_ddp_torch.parallel.mesh import resolve as resolve_mesh
 from tpu_ddp_torch.parallel.zero import DATA_AXIS, Zero1Partition, Zero3Partition
 from tpu_ddp_torch.runtime import resolve_device, set_float32_precision
+from tpu_ddp_torch.telemetry import (
+    DEFAULT_SINKS,
+    EVAL_POINT_SCHEMA_VERSION,
+    RUN_META_SCHEMA_VERSION,
+    HangWatchdog,
+    build_telemetry,
+    config_digest,
+    git_provenance,
+    next_incarnation,
+    quality_digest,
+)
 from tpu_ddp_torch.train.finetune import load_pretrained_for_finetune
 from tpu_ddp_torch.train.losses import binary_cross_entropy_with_logits, cross_entropy_loss
 from tpu_ddp_torch.train.optim import decay_mask, freeze_all_but, make_optimizer
@@ -313,8 +363,32 @@ class TrainConfig:
     grad_accum_steps: int = 1             # >1: K microbatches a step
     plot_curves: Optional[str] = None     # loss-curve PNG at the end
     dump_predictions: Optional[str] = None  # predictions JSON after the eval
+    telemetry_dir: Optional[str] = None   # run dir of the trace sinks; None: off
+    telemetry_sinks: str = DEFAULT_SINKS  # comma-separated subset
+    telemetry_snapshot_steps: int = 50    # >0: a counters snapshot every N steps
+    watchdog_deadline_seconds: float = 0.0  # >0: the hang watchdog's deadline
+    watchdog_abort: bool = False          # exit HANG_EXIT_CODE after the dump
+    data_digests: bool = True             # data-p<rank>.jsonl under telemetry
 
     def __post_init__(self):
+        valid_sinks = tuple(DEFAULT_SINKS.split(","))
+        for name in (self.telemetry_sinks or "").split(","):
+            name = name.strip()
+            if name and name not in valid_sinks:
+                raise ValueError(
+                    f"unknown telemetry sink {name!r}; valid sinks: "
+                    f"{', '.join(valid_sinks)}"
+                )
+        if self.telemetry_snapshot_steps < 0:
+            raise ValueError(
+                "telemetry_snapshot_steps must be >= 0, got "
+                f"{self.telemetry_snapshot_steps}"
+            )
+        if self.watchdog_abort and self.watchdog_deadline_seconds <= 0:
+            raise ValueError(
+                "--watchdog-abort needs --watchdog-deadline > 0: there "
+                "is no hang detector to escalate from"
+            )
         if self.health not in ("off", "on"):
             raise ValueError(
                 f"unknown health mode {self.health!r}; valid modes: off, on")
@@ -498,12 +572,14 @@ class Trainer:
         self.parallelism = infer_parallelism(c.mesh, c.parallelism)
         self.strategy_line = None     # the line a family printed (pp's schedule)
         sizes = dict(c.mesh or default_mesh_sizes(self.parallelism))
+        self.mesh_sizes = resolve_mesh(sizes, self.world_size)
         if self.parallelism == "dp":
-            resolve_mesh(sizes, self.world_size)
             self.mesh, self.data_size, self.data_index = None, self.world_size, self.rank
         else:
             self.mesh = create_mesh(sizes)
             self.data_size, self.data_index = self.mesh.data_size, self.mesh.data_index
+        # telemetry first: the loaders and checkpointers emit into it
+        self._init_telemetry()
         if train_data is None:
             train_data, test_data = load_dataset(c)
         elif test_data is None:
@@ -519,11 +595,12 @@ class Trainer:
             *train_data, world_size=self.data_size,
             per_shard_batch=c.per_shard_batch, shuffle=c.shuffle,
             reshuffle_each_epoch=c.reshuffle_each_epoch, seed=c.seed,
-            process_index=self.data_index, process_count=self.data_size)
+            process_index=self.data_index, process_count=self.data_size,
+            telemetry=self.telemetry)
         self.test_loader = ShardedBatchLoader(
             *test_data, world_size=self.data_size,
             per_shard_batch=c.per_shard_batch, shuffle=False,
-            exclude_sampler_pad=True)
+            exclude_sampler_pad=True, telemetry=self.telemetry)
         model = build_model(c)
         if self.mesh is not None:
             self._check_strategy(model)
@@ -574,18 +651,23 @@ class Trainer:
         if c.health != "off":
             health = HealthConfig(per_layer=c.health_per_layer_stride > 0,
                                   skip_nonfinite=c.health_policy == "skip_step")
-            if not c.health_dir:
+            if not (c.health_dir or c.telemetry_dir):
                 log.warning(
-                    "health=on without --health-dir: detection and the %r "
-                    "policy are active, but no health JSONL or anomaly dumps "
-                    "will be written", c.health_policy)
+                    "health=on with neither health_dir nor telemetry_dir:"
+                    " detection and the %r policy are active, but no "
+                    "health JSONL or anomaly dumps will be written",
+                    c.health_policy)
+            # a life's health file takes its trace's incarnation; without a
+            # trace, one past the health files already in the dir
             self.health_monitor = HealthMonitor(
-                run_dir=c.health_dir, policy=c.health_policy,
+                run_dir=c.health_dir or c.telemetry_dir, policy=c.health_policy,
                 per_layer_stride=c.health_per_layer_stride,
+                telemetry=self.telemetry,
                 process_index=self.rank, window=c.health_window,
                 spike_threshold=c.health_spike_threshold,
                 run_meta=dataclasses.asdict(c),
-                incarnation=next_incarnation(c.health_dir, self.rank) if c.health_dir else 0)
+                incarnation=(self.incarnation if c.telemetry_dir
+                             else health_incarnation(c.health_dir, self.rank)))
             self.health_feed = HealthFeed(self.health_monitor, lag=c.health_policy != "halt")
         if self.mesh is None:
             self._init_steps(loss_fn, health)
@@ -593,6 +675,15 @@ class Trainer:
             self.predict_step = make_predict_step()
         else:
             self._init_strategy_steps(model, loss_fn, health)
+        # the ring's static wire bytes a step, for the comm/* counters: the
+        # reduce-scatter under ZeRO, the whole all-reduce otherwise
+        self._comm_bytes_per_step = None
+        if self.compress is not None:
+            acct = self.compress.accounting()
+            key = "reduce_scatter" if c.zero1 or c.zero3 else "all_reduce"
+            self._comm_bytes_per_step = (acct[f"{key}_bytes_on_wire_per_device"],
+                                         acct[f"{key}_bytes_f32_per_device"])
+        self._watchdog = None
         self.history = {"train_loss": [], "step_loss": [], "epoch": []}
         self._prefetcher = None       # the native ring, built at first use
         self._copy_stream = None
@@ -606,10 +697,11 @@ class Trainer:
         self.save_ms = []             # [step, wait, ms] a save (``_save``)
         self._best_acc = float("-inf")
         if c.checkpoint_dir:
-            self.checkpointer = Checkpointer(c.checkpoint_dir)
+            self.checkpointer = Checkpointer(c.checkpoint_dir, telemetry=self.telemetry)
             if c.keep_best:
                 best_dir = os.path.join(c.checkpoint_dir, "best")
-                self.best_checkpointer = Checkpointer(best_dir, max_to_keep=1)
+                self.best_checkpointer = Checkpointer(best_dir, max_to_keep=1,
+                                                      telemetry=self.telemetry)
                 meta = os.path.join(best_dir, "metadata.json")
                 if c.resume and os.path.isfile(meta):
                     # a torn metadata file resets the best to unset, with a
@@ -624,6 +716,42 @@ class Trainer:
                 self._restore(self.checkpointer.restore())
                 self.resumed_step = int(self.state.step)
                 self.logger.log_text(f"resumed from step {self.resumed_step}")
+
+    def _init_telemetry(self) -> None:
+        """The run header, the ``Telemetry`` of ``--telemetry-dir`` (the
+        inert ``NULL`` without one) and the data-digest writer (the JAX
+        trainer's :664-725 and :850-882; module docstring)."""
+        c = self.config
+        snapshot = dataclasses.asdict(c)
+        # which life of the run this is: one past the traces in the dir
+        self.incarnation = next_incarnation(c.telemetry_dir, self.rank)
+        cuda = self.device.type == "cuda"
+        self.run_meta = {
+            "run_meta_schema_version": RUN_META_SCHEMA_VERSION,
+            "run_id": config_digest(snapshot),
+            "quality_digest": quality_digest(snapshot, data_size=self.data_size),
+            "incarnation": self.incarnation,
+            "config": snapshot,
+            "torch_version": torch.__version__,
+            "cuda_version": torch.version.cuda,
+            "device_kind": torch.cuda.get_device_name(self.device) if cuda else "cpu",
+            "strategy": self.parallelism,
+            "mesh": dict(self.mesh_sizes),
+            "n_devices": self.world_size,
+            "process_count": self.world_size,
+            **git_provenance(),
+        }
+        self.telemetry = build_telemetry(
+            c.telemetry_dir, c.telemetry_sinks, process_index=self.rank,
+            run_meta=self.run_meta, incarnation=self.incarnation)
+        self._data_digests = None
+        if c.telemetry_dir and c.data_digests:
+            from tpu_ddp_torch.datapath.audit import DataDigestWriter
+
+            self._data_digests = DataDigestWriter(
+                c.telemetry_dir, process_index=self.rank, incarnation=self.incarnation,
+                seed=c.seed, run_id=self.run_meta["run_id"],
+                global_batch=c.per_shard_batch * self.data_size)
 
     def _init_steps(self, loss_fn, health) -> None:
         """``train_step``, and ``multi_step`` (the fused K-step call) under
@@ -811,12 +939,11 @@ class Trainer:
         rows. The staged prefetcher takes precedence, then the native ring,
         then the synchronous path (the JAX ``_epoch_stream``)."""
         c = self.config
-        loader = self.train_loader
         if c.prefetch_batches > 0:
             from tpu_ddp_torch.datapath.prefetch import BackgroundPrefetcher
 
-            pf = BackgroundPrefetcher(lambda: loader.epoch_batches(start=start),
-                                      depth=c.prefetch_batches)
+            pf = BackgroundPrefetcher(lambda: self._digested_batches(start),
+                                      depth=c.prefetch_batches, telemetry=self.telemetry)
             try:
                 yield from self._host_batch_stream(pf, K)
             finally:
@@ -825,7 +952,19 @@ class Trainer:
         if c.prefetch_depth > 0:
             yield from self._prefetched_stream(K, c.prefetch_depth, start)
             return
-        yield from self._host_batch_stream(loader.epoch_batches(start=start), K)
+        yield from self._host_batch_stream(self._digested_batches(start), K)
+
+    def _digested_batches(self, start: int):
+        """The train loader's batches of the epoch from index batch
+        ``start`` on, each one's content digest recorded against its global
+        step under telemetry (the JAX ``_digested_batches`` :1488-1502; on
+        the staged prefetcher's thread under ``--prefetch-batches``)."""
+        loader = self.train_loader
+        base = (max(loader._epoch, 1) - 1) * loader.steps_per_epoch + start
+        for i, batch in enumerate(loader.epoch_batches(start=start)):
+            if self._data_digests is not None:
+                self._data_digests.record(base + i, batch)
+            yield batch
 
     def _host_batch_stream(self, batches, K: int):
         """The consuming half of the synchronous and staged paths: draw host
@@ -833,15 +972,18 @@ class Trainer:
         it) and copy them to the device (``h2d``), K-step groups stacked."""
         it = step_groups(batches, K)
         clock = time.perf_counter
+        span = self.telemetry.span
         while True:
             t0 = clock()
-            item = next(it, None)
+            with span("data_wait"):
+                item = next(it, None)
             t1 = clock()
             self.data_seconds["data_wait"] += t1 - t0
             if item is None:
                 return
             kind, batch = item
-            dev = self.to_device(batch)
+            with span("h2d"):
+                dev = self.to_device(batch)
             self.data_seconds["h2d"] += clock() - t1
             yield kind, dev, int(batch["mask"].sum())
 
@@ -865,31 +1007,39 @@ class Trainer:
             from tpu_ddp_torch.native.prefetch import BatchPrefetcher
 
             # depth + 1 slots: depth in flight and the one being consumed
+            # with digests on, the gather thread hashes the rows it copies
             self._prefetcher = BatchPrefetcher(
                 loader.images, loader.labels, max_batch=K * loader.local_batch,
-                depth=depth + 1, pin_memory=cuda)
+                depth=depth + 1, pin_memory=cuda,
+                digest_seed=None if self._data_digests is None else self.config.seed)
             if cuda:
                 self._copy_stream = torch.cuda.Stream(self.device)
         pf = self._prefetcher
         img_tail, lbl_tail = loader.images.shape[1:], loader.labels.shape[1:]
         clock = time.perf_counter
+        span, digests = self.telemetry.span, self._data_digests
+        # the global step of the epoch's first batch (digest anchors)
+        step_base = (max(loader._epoch, 1) - 1) * loader.steps_per_epoch
 
         def submissions():
             index = itertools.islice(loader.epoch_index_batches(), start, None)
-            pending = []
+            pending, seq = [], start
             for idx, mask in index:
                 if K <= 1:
-                    yield "single", idx, mask
+                    yield "single", idx, mask, seq
+                    seq += 1
                     continue
                 pending.append((idx, mask))
                 if len(pending) == K:
                     yield ("stacked", np.concatenate([i for i, _ in pending]),
-                           np.stack([m for _, m in pending]))
+                           np.stack([m for _, m in pending]), seq)
+                    seq += K
                     pending = []
             for idx, mask in pending:
-                yield "single", idx, mask
+                yield "single", idx, mask, seq
+                seq += 1
 
-        in_flight = deque()          # (kind, mask) a submission, FIFO
+        in_flight = deque()          # (kind, mask, seq) a submission, FIFO
         held = []                    # [(slot, event)] copies not yet known done
 
         def release_held():
@@ -899,39 +1049,48 @@ class Trainer:
             held.clear()
 
         def emit():
-            kind, mask = in_flight.popleft()
+            kind, mask, seq = in_flight.popleft()
             t0 = clock()
-            img, lbl, slot = pf.acquire()
-            t1 = clock()
+            with span("data_wait"):
+                img, lbl, slot = pf.acquire()
+            self.data_seconds["data_wait"] += clock() - t0
             if kind == "stacked":
                 img = img.view((K, -1) + img_tail)
                 lbl = lbl.view((K, -1) + lbl_tail)
-            if cuda:
-                step_stream = torch.cuda.current_stream(self.device)
-                with torch.cuda.stream(self._copy_stream):
-                    dev_img = img.to(self.device, non_blocking=True)
-                    dev_lbl = lbl.to(self.device, non_blocking=True)
-                    event = torch.cuda.Event()
-                    event.record(self._copy_stream)
-                step_stream.wait_event(event)
-                # allocated on the copy stream, used on the step's
-                dev_img.record_stream(step_stream)
-                dev_lbl.record_stream(step_stream)
-                held.append((slot, event))
-            else:
-                dev_img, dev_lbl = img.clone(), lbl.clone()
-                pf.release(slot)
-            dev = {"image": dev_img, "label": dev_lbl,
-                   "mask": torch.as_tensor(mask).to(self.device, non_blocking=True)}
-            self.data_seconds["data_wait"] += t1 - t0
+            if digests is not None:
+                # the slot's row digests, before the slot can go back to
+                # the ring: one XOR of the mask-true rows a step
+                masks = mask if kind == "stacked" else [mask]
+                rows = pf.row_digests(slot, np.size(mask)).reshape(len(masks), -1, 8)
+                for k, (dg, mk) in enumerate(zip(rows, masks)):
+                    digests.record_digest(step_base + seq + k, *xor_row_digests(dg, mk))
+            t1 = clock()
+            with span("h2d"):
+                if cuda:
+                    step_stream = torch.cuda.current_stream(self.device)
+                    with torch.cuda.stream(self._copy_stream):
+                        dev_img = img.to(self.device, non_blocking=True)
+                        dev_lbl = lbl.to(self.device, non_blocking=True)
+                        event = torch.cuda.Event()
+                        event.record(self._copy_stream)
+                    step_stream.wait_event(event)
+                    # allocated on the copy stream, used on the step's
+                    dev_img.record_stream(step_stream)
+                    dev_lbl.record_stream(step_stream)
+                    held.append((slot, event))
+                else:
+                    dev_img, dev_lbl = img.clone(), lbl.clone()
+                    pf.release(slot)
+                dev = {"image": dev_img, "label": dev_lbl,
+                       "mask": torch.as_tensor(mask).to(self.device, non_blocking=True)}
             self.data_seconds["h2d"] += clock() - t1
             return kind, dev, int(mask.sum())
 
         try:
-            for kind, idx, mask in submissions():
+            for kind, idx, mask, seq in submissions():
                 release_held()
                 pf.submit(idx)
-                in_flight.append((kind, mask))
+                in_flight.append((kind, mask, seq))
                 if len(in_flight) > depth:
                     yield emit()
             while in_flight:
@@ -999,14 +1158,18 @@ class Trainer:
         # steady state: every epoch after the first one this run trains
         # (which pays the kernel build and cuDNN's first-call setup); a
         # 1-epoch run times it all
-        throughput = Throughput(self.device)
+        tel = self.telemetry
+        throughput = Throughput(self.device, tel.registry if tel.enabled else None)
         timed_steps = 0
         metrics, out = {}, {}
+        self._start_telemetry()
         for epoch in range(first_epoch, c.epochs + 1):
             timed = epoch > first_epoch or c.epochs == first_epoch
             if timed:
                 throughput.start()
+            epoch_t0 = time.perf_counter()
             self.train_loader.set_epoch(epoch)
+            tel.current_step = host_step
             step_losses = []
             n_steps = 0                   # steps this run trained this epoch
             stream = self._epoch_stream(K, skip if epoch == first_epoch else 0)
@@ -1018,10 +1181,15 @@ class Trainer:
                     break
                 dn = K if kind == "stacked" else 1
                 step = self.multi_step if kind == "stacked" else self.train_step
-                self.state, metrics = step(self.state, dev_batch)
+                with tel.span("compiled_step", **({"steps": K} if kind == "stacked" else {})):
+                    self.state, metrics = step(self.state, dev_batch)
                 step_losses.append(metrics["loss"].reshape(-1))
                 host_step += dn
                 n_steps += dn
+                if tel.enabled:
+                    self._traced_step(metrics["loss"], host_step, dn, n_real)
+                if self._watchdog is not None:
+                    self._watchdog.beat(host_step)
                 if (self.health_monitor is not None and self.health_feed.push(
                         host_step - dn, metrics.pop("health"), dev_batch) == "halt"):
                     # the stats are the same on every rank, so is the
@@ -1045,8 +1213,9 @@ class Trainer:
             if self.health_monitor is not None:
                 self.health_feed.flush()
             # one sync an epoch
-            losses = (torch.cat(step_losses).cpu().numpy() if step_losses
-                      else np.zeros(0, np.float32))
+            with tel.span("epoch_metrics_fetch", epoch=epoch):
+                losses = (torch.cat(step_losses).cpu().numpy() if step_losses
+                          else np.zeros(0, np.float32))
             if timed:
                 throughput.stop()
             self.history["step_loss"].extend(float(x) for x in losses)
@@ -1056,6 +1225,7 @@ class Trainer:
                     + ("saving final checkpoint" if self.checkpointer else
                        "no --checkpoint-dir, progress will NOT survive"))
                 out["preempted"] = True
+                tel.instant("preempt_drain", step=host_step)
                 break
             if self._health_halted is not None:
                 self.logger.log_text(
@@ -1063,6 +1233,7 @@ class Trainer:
                     "'halt': stopping training"
                     + (" (saving final checkpoint)" if self.checkpointer else ""))
                 out["health_halted"] = True
+                tel.instant("health_halt_drain", step=self._health_halted)
                 break                             # the drain of a preemption
             mean_loss = float(np.mean(losses))
             self.history["epoch"].append(epoch)
@@ -1075,7 +1246,9 @@ class Trainer:
                 if self.checkpointer and epoch % c.checkpoint_every_epochs in (0, 1):
                     self._save(host_step)
             if c.eval_each_epoch:
-                acc, loss = self.evaluate()
+                with tel.span("eval", epoch=epoch):
+                    acc, loss = self.evaluate()
+                self._traced_eval(acc, loss, epoch)
                 self.history.setdefault("test_loss", []).append(loss)
                 if self.with_accuracy:   # no accuracy for multi-hot targets
                     self.logger.log(host_step, test_accuracy=acc, test_loss=loss)
@@ -1084,6 +1257,8 @@ class Trainer:
                         self._save_best(acc)
                 else:
                     self.logger.log(host_step, test_loss=loss)
+            if tel.enabled:
+                self._traced_epoch(time.perf_counter() - epoch_t0, n_steps, throughput)
         total = time.time() - start
         self.logger.log_text(f"training time: {total:.3f} seconds")
         self._final_checkpoint(host_step)
@@ -1101,6 +1276,13 @@ class Trainer:
             f"steady-state images/sec/{per}: {ips:.1f} "
             f"({throughput.images} images in {throughput.seconds:.3f} s)")
         trained = max(int(self.state.step) - first_step, 1)
+        out["mfu"] = self._compute_mfu(timed_steps, throughput.seconds)
+        if tel.enabled:
+            from tpu_ddp_torch.metrics.mfu import record_mfu
+
+            if throughput.seconds:
+                tel.gauge("train/images_per_sec_per_chip").set(ips)
+            record_mfu(tel.registry, out["mfu"])
         out.update({"total_seconds": total, "steps": int(self.state.step),
                     "images_per_sec_per_chip": ips,
                     "steady_step_ms": throughput.seconds / max(timed_steps, 1) * 1e3,
@@ -1119,6 +1301,7 @@ class Trainer:
         if self.checkpointer is None:
             return
         if agree_any(self._force_abort):
+            self.telemetry.instant("force_abort_drain", step=int(self.state.step))
             prev = self.checkpointer.latest_step()
             self.logger.log_text(
                 "force-abort: skipping the final checkpoint ("
@@ -1149,18 +1332,161 @@ class Trainer:
         bad = bool(torch.stack([(~torch.isfinite(p)).any() for p in params.values()]).any())
         return not (agree_any(bad) if self.layout.split else bad)
 
+    # ---- telemetry ---------------------------------------------------------
+
+    def _start_telemetry(self) -> None:
+        """At the start of ``_run_loop``: the goodput baseline and its
+        ``counters_baseline`` record (the registry is process-wide, so the
+        gauges measure against it), and the hang watchdog under
+        ``--watchdog-deadline`` (the JAX :1980-2016)."""
+        c, tel = self.config, self.telemetry
+        reg = tel.registry
+        self._goodput_baseline = {
+            "wall": time.time(),
+            "compiled": reg.histogram("phase/compiled_step").sum,
+            "sync": reg.histogram("phase/device_sync").sum,
+        }
+        if tel.enabled:
+            tel.emit_counters(name="counters_baseline")
+        if c.watchdog_deadline_seconds > 0 and self._watchdog is None:
+            self._watchdog = HangWatchdog(
+                c.watchdog_deadline_seconds, heartbeat_dir=c.telemetry_dir,
+                process_index=self.rank, telemetry=tel,
+                abort_on_hang=c.watchdog_abort).start()
+
+    def _traced_step(self, loss: torch.Tensor, host_step: int, dn: int, n_real: int) -> None:
+        """A traced step's tail (the JAX :2143-2165): the ``device_sync``
+        fence, the step counters and the periodic snapshot."""
+        tel = self.telemetry
+        with tel.span("device_sync"):
+            if loss.is_cuda:
+                # the step's own work on the stream it ran on: an event
+                # behind it, not a synchronize of every stream
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(loss.device))
+                done.synchronize()
+        tel.current_step = host_step
+        tel.count("train/steps", dn)
+        tel.count("train/images", n_real)
+        every = self.config.telemetry_snapshot_steps
+        if every and host_step // every > (host_step - dn) // every:
+            self._update_goodput_gauges()
+            tel.emit_counters(name="counters_snapshot")
+
+    def _traced_eval(self, acc: float, loss: float, epoch: int) -> None:
+        """An epoch's eval gauges and eval point (the JAX :2332-2350)."""
+        tel = self.telemetry
+        if not tel.enabled:
+            return
+        tel.gauge("eval/test_loss").set(loss)
+        if self.with_accuracy:
+            tel.gauge("eval/test_accuracy").set(acc)
+        tel.instant("eval", step=int(self.state.step),
+                    eval_schema_version=EVAL_POINT_SCHEMA_VERSION, epoch=epoch,
+                    test_loss=loss, **({"test_accuracy": acc} if self.with_accuracy else {}))
+
+    def _traced_epoch(self, seconds: float, n_steps: int, throughput: Throughput) -> None:
+        """An epoch's end under telemetry (the JAX :2384-2408): the rate
+        gauges, the ``comm/*`` wire counters, the memory and goodput gauges,
+        and a counters record."""
+        from tpu_ddp_torch.metrics.memory import record_memory_gauges
+
+        tel = self.telemetry
+        if seconds > 0 and n_steps:
+            tel.gauge("train/steps_per_sec").set(n_steps / seconds)
+            if throughput.seconds:
+                tel.gauge("train/images_per_sec_per_chip").set(
+                    throughput.images_per_sec_per_chip)
+        if self._comm_bytes_per_step is not None and n_steps:
+            wire, base = self._comm_bytes_per_step
+            tel.count("comm/grad_bytes_on_wire", n_steps * wire)
+            tel.count("comm/grad_bytes_uncompressed", n_steps * base)
+        record_memory_gauges(tel.registry, self.device)
+        self._update_goodput_gauges()
+        tel.emit_counters()
+
+    def _update_goodput_gauges(self) -> None:
+        """The share of this life's wall time spent in the steps
+        (``compiled_step`` and ``device_sync`` span time), against the run's
+        baseline (the JAX ``_update_goodput_gauges`` :2485-2511; no compile
+        term: the port compiles no step)."""
+        base = getattr(self, "_goodput_baseline", None)
+        if base is None:
+            return
+        tel = self.telemetry
+        reg = tel.registry
+        elapsed = time.time() - base["wall"]
+        if elapsed <= 0:
+            return
+        productive = ((reg.histogram("phase/compiled_step").sum - base["compiled"])
+                      + (reg.histogram("phase/device_sync").sum - base["sync"]))
+        productive = min(max(productive, 0.0), elapsed)
+        tel.gauge("goodput/fraction").set(productive / elapsed)
+        tel.gauge("goodput/productive_seconds").set(productive)
+        tel.gauge("goodput/elapsed_seconds").set(elapsed)
+
+    def _compute_mfu(self, steps: int, seconds: float) -> Optional[float]:
+        """MFU of the timed epochs (the JAX ``_compute_mfu`` :2558-2583),
+        or None: gated on a known peak before the FLOPs are counted. A rank
+        of a model group is charged its share of its data shard's rows
+        (``metrics/mfu.py``)."""
+        from tpu_ddp_torch.metrics.mfu import flops_per_step, mfu, peak_flops_per_chip
+
+        if not steps or seconds <= 0 or peak_flops_per_chip(self.device) is None:
+            return None
+        c = self.config
+        full = dataclasses.replace(c, attention="full", sync_bn=False)
+        try:
+            flops = flops_per_step(lambda: build_model(full), c.per_shard_batch,
+                                   num_classes=c.num_classes, loss=c.loss,
+                                   share=self.data_size / self.world_size)
+        except Exception:
+            log.warning("MFU not computed: the FLOP count of %r on the meta device "
+                        "failed", c.model, exc_info=True)
+            return None
+        return mfu(flops, steps / seconds, self.device)
+
+    def record_final_eval(self, *, accuracy=None, loss=None) -> None:
+        """Mirror the end-of-run evaluation into telemetry gauges
+        (``eval/final_test_*``, and ``eval/best_test_accuracy`` under
+        ``--keep-best``) and the final eval point, so the final counters
+        snapshot ``close()`` writes carries them (the JAX
+        ``record_final_eval`` :1704-1730). No-op without telemetry."""
+        tel = self.telemetry
+        if not tel.enabled:
+            return
+        if accuracy is not None:
+            tel.gauge("eval/final_test_accuracy").set(accuracy)
+        if loss is not None:
+            tel.gauge("eval/final_test_loss").set(loss)
+        if self._best_acc != float("-inf"):
+            tel.gauge("eval/best_test_accuracy").set(self._best_acc)
+        tel.instant(
+            "eval", step=int(self.state.step),
+            eval_schema_version=EVAL_POINT_SCHEMA_VERSION, final=True,
+            **({"test_loss": loss} if loss is not None else {}),
+            **({"test_accuracy": accuracy} if accuracy is not None else {}))
+
     def close(self) -> None:
-        """Stop the native prefetcher, finish in-flight saves and close the
-        metric sinks and the health record."""
+        """Stop the native prefetcher and the watchdog, finish in-flight
+        saves, close the metric sinks, the health record and the digest
+        sink, then the telemetry sinks (the final counters snapshot, the
+        Chrome trace, the phase table). Idempotent."""
         if self._prefetcher is not None:
             self._prefetcher.close()
             self._prefetcher = None
+        if self._watchdog is not None:
+            self._watchdog.stop()
+            self._watchdog = None
         for ck in (self.checkpointer, self.best_checkpointer):
             if ck is not None:
                 ck.close()
         if self.health_monitor is not None:
             self.health_monitor.close()
+        if self._data_digests is not None:
+            self._data_digests.close()
         self.logger.close()
+        self.telemetry.close()
 
     def _eval_params(self):
         """The weights evaluation reads in place of the model's: the EMA
