@@ -127,7 +127,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     --nproc-per-node 2 -- python -m tpu_ddp_torch.cli.train --device cuda
     --dist-backend gloo --synthetic-data --kernels --grad-compress int8
     --grad-compress-error-feedback --eval-each-epoch``, NetResDeep at full
-    width, batch 32 a rank, SGD lr 1e-2, 2 epochs of 50 steps, both ranks
+    width, batch 32 a rank, SGD lr 1e-2, 2 epochs of 25 steps, both ranks
     sharing the card. Losses finite and falling; launches exact on each rank
     (K1 1, K2 2 and K3 2 a step, nothing else); the ring's wire calls one
     exchange and one all-gather a step; params bitwise equal on both ranks
@@ -147,7 +147,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     the port; whether each equals K3 to the bit is printed).
 14. ``--zero1`` on three ranks: NetResDeep ``--zero1 --kernels`` through
     the launcher, three ranks sharing the card over gloo, the recipe and 2
-    x 50 steps a rank of phase 12 (at three ranks seven of its nine leaves
+    x 25 steps a rank of phase 12 (at three ranks seven of its nine leaves
     pad, so the mask runs on the path), in float32 and with ``--grad-compress
     int8 --grad-compress-error-feedback``; plain DP on three ranks beside
     them. Each: the step count, finite and falling losses, params bitwise
@@ -155,6 +155,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     K3 2 a step, and the ring's two exchanges). All three under deterministic
     cuDNN: the first 5 steps of zero1 and of plain DP within ``rtol=1e-5`` at
     three ranks (``rtol=1e-4`` at other rank counts, under ``--nccl``).
+    Phases 14 and 15 run in one three-rank job, which also takes phase 17's
+    cut at three ranks (``rank_change_runs``).
 15. ViT-S/4 ``--zero1 --kernels --attention flash --optimizer adamw --lr 1e-3
     --weight-decay 0.05 --grad-clip-norm 1.0 --ema-decay 0.999`` on three
     ranks over gloo, one epoch of 20 steps, and the same without
@@ -177,8 +179,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     per-step counts, both steps verified by their manifests. One rank in
     this process (``--kernels``), SIGTERMed as it takes batch 35: it drains
     there, saves, and ``--resume`` ends bitwise where the uninterrupted run
-    ends, K1 once a resumed step. A checkpoint cut at three ranks resumes
-    at two with finite, falling losses. Then the host-clock times of save
+    ends, K1 once a resumed step. A checkpoint cut at three ranks (in phase
+    14's job) resumes at two (in this phase's two-rank job) with finite,
+    falling losses. Then the host-clock times of save
     initiation (device to host), commit (write, fsync, manifest), manifest
     verification and restore, and the sizes, of NetResDeep's state and of
     ViT-B/16 at 224 with AdamW state, each after one step on the card.
@@ -394,6 +397,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     (d) ``skip_step`` under ``--zero3 --grad-compress int8`` at two ranks,
     rank 0's fifth batch all NaN: the step skipped on both, each rank's
     state (shards, slots, counts, buffers, residual) bitwise across it.
+    (c)'s two-rank resume and (d) run in one two-rank job, (d) first.
 25. Sequence parallelism (``--parallelism sp``, ring attention). (a) The
     ring on four gloo ranks sharing the card in one job, as two rings of 2
     and then one ring of 4: ``ring_flash_attention`` (K4 a forward hop, K5
@@ -510,6 +514,29 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     step as without a hook, each rank's ``trace-p<rank>.jsonl``, the
     summary sink on rank 0 alone. ``python3 chip_smoke.py --phase 28`` runs
     it alone.
+29. The run-dir readers (``run_phase29``: ``tpu_ddp_torch/ledger``,
+    ``curves``, ``registry``, ``analysis/regress.py``, through
+    ``tpu_ddp_torch.cli.main``), on what the card wrote, in a scratch
+    directory under ``build/``. (a) NetResDeep at full width ``--kernels
+    --telemetry-dir D --health on --checkpoint-steps 5``, two epochs of 10
+    steps at batch 32, under deterministic cuDNN, in a child process
+    (``--life-child``) SIGKILLed as it takes batch 8, once its step-5
+    checkpoint has committed; then ``--resume`` to the end in this process.
+    ``goodput D --json``: two lives, killed then clean, 3 replayed steps,
+    the category seconds summing to ``elapsed_s`` within 1e-6 s, the compile
+    category at 0 s, a checkpoint; K1's launches in each life equal the
+    steps it trained (8 and 15). (b) ``curves D --json``: each of the 20
+    steps exactly once, finite. (c) The same recipe and seed without
+    ``--kernels``, uninterrupted: ``curves diff D D_plain`` passes with a
+    trajectory drift of 0.0 (K1 is bitwise its plain version and the resume
+    bitwise the uninterrupted run). (d) The ledger, curve and ``trace
+    summarize --json`` of both runs recorded into a registry: ``registry
+    list`` and ``registry trend`` exit 0; ``bench compare --against`` the
+    registry (``--allow-dirty``: the copy has no git identity) of D's
+    ledger exits 0, D_plain's ledger against D's exits 1, naming the kill's
+    restart gap, replayed steps and ``killed`` exit. Prints the goodput,
+    the category seconds, the curve's points and each reader command's host
+    seconds. ``python3 chip_smoke.py --phase 29`` runs it alone.
 
 Phase 2 also builds the native data-path library (``tpu_ddp_torch/native``)
 with g++ from the checkout. The NetResDeep phases before 17 keep their
@@ -1585,7 +1612,7 @@ QUANT_BLOCKS = [1, 64, 256, 1000, 4096]   # 4096: one thread block a scale block
 RING_LEAVES = [math.prod(s) for s in NETRESDEEP_LEAVES] + [1 << 22]
 #: steps an epoch a rank of phases 12 and 14 (100 until phase 17 came:
 #: the launches, not the steps, take most of their time)
-DP_STEPS_PER_EPOCH = 50
+DP_STEPS_PER_EPOCH = 25
 DP_LOSS_ATOL = 0.05
 VIT_B16_LEAVES = 151
 
@@ -2271,22 +2298,30 @@ def short_args(args, nproc, steps):
     return out
 
 
-def phase_zero1_dp(tmp, n=ZERO1_RANKS, backend="gloo"):
+ZERO1_DP_CASES = (("zero1", False, True), ("zero1_int8_ef", True, True),
+                  ("plain_dp", False, False))
+
+
+def zero1_dp_runs(n=ZERO1_RANKS, backend="gloo"):
+    """Phase 14's ``(name, args)`` runs (``ZERO1_DP_CASES``) at ``n`` ranks."""
+    return [(name, dp_args(compress, n, backend) + (["--zero1"] if zero1 else []))
+            for name, compress, zero1 in ZERO1_DP_CASES]
+
+
+def phase_zero1_dp(tmp, n=ZERO1_RANKS, backend="gloo", jobs=None):
     """Phase 14: NetResDeep ``--zero1 --kernels`` on n ranks (three sharing
     the card over gloo), plain float32 and with the int8 ring and error
     feedback, and plain DP on n ranks beside them, all under cuDNN's
     deterministic algorithms (cuDNN's default backward sums in a
     run-dependent order), so that the first steps of zero1 and of plain DP
     are held to ``ZERO1_RTOL`` at three ranks and ``ZERO1_RTOL_OTHER`` at
-    other rank counts (the ``--nccl`` mode)."""
+    other rank counts (the ``--nccl`` mode). ``jobs``: the runs' results
+    when a larger job already ran them (``launch_dp_runs``)."""
     runs = {}
-    cases = (("zero1", False, True), ("zero1_int8_ef", True, True),
-             ("plain_dp", False, False))
-    jobs = launch_dp_runs(tmp, [(name, dp_args(compress, n, backend)
-                                 + (["--zero1"] if zero1 else []))
-                                for name, compress, zero1 in cases],
-                          n, phase="14", deterministic=True)
-    for name, compress, zero1 in cases:
+    if jobs is None:
+        jobs = launch_dp_runs(tmp, zero1_dp_runs(n, backend), n, phase="14",
+                              deterministic=True)
+    for name, compress, zero1 in ZERO1_DP_CASES:
         metrics, same = jobs[name]
         per_step = (zero1_launches(n, compress) if zero1 else {"fused_update": 1})
         check_run(name, metrics, same, 2 * DP_STEPS_PER_EPOCH, per_step)
@@ -2331,17 +2366,26 @@ def vit_zero1_args(zero1):
     return vit_layout_args("zero1" if zero1 else None)
 
 
-def phase_zero1_vit(tmp):
+VIT_ZERO1_NAMES = {True: "vit_zero1", False: "vit_replicated"}
+
+
+def zero1_vit_runs():
+    """Phase 15's ``(name, args)`` runs."""
+    return [(VIT_ZERO1_NAMES[z], vit_zero1_args(z)) for z in (True, False)]
+
+
+def phase_zero1_vit(tmp, jobs=None):
     """Phase 15: ViT-S/4 ``--zero1`` with flash attention, AdamW, decay,
     clipping and EMA on three ranks over gloo (every branch of K1 under the
     mask), against the same run without ``--zero1``; both under cuDNN's
-    deterministic algorithms (the patch embed's convolution)."""
+    deterministic algorithms (the patch embed's convolution). ``jobs``: the
+    runs' results when a larger job already ran them."""
     runs = {}
-    names = {True: "vit_zero1", False: "vit_replicated"}
-    jobs = launch_dp_runs(tmp, [(names[z], vit_zero1_args(z)) for z in (True, False)],
-                          ZERO1_RANKS, phase="15", deterministic=True)
+    if jobs is None:
+        jobs = launch_dp_runs(tmp, zero1_vit_runs(), ZERO1_RANKS, phase="15",
+                              deterministic=True)
     for zero1 in (True, False):
-        name = names[zero1]
+        name = VIT_ZERO1_NAMES[zero1]
         metrics, same = jobs[name]
         steps, evals = metrics[0]["steps"], metrics[0]["eval_batches"]
         check_run(name, metrics, same, VIT_ZERO1_STEPS,
@@ -2405,7 +2449,7 @@ def check_manifests(ck, steps):
         fail(f"a checkpoint step does not verify against its manifest: {verdicts}")
 
 
-def phase_checkpoint_dp(tmp, nproc=2, backend="gloo"):
+def phase_checkpoint_dp(tmp, nproc=2, backend="gloo", then=()):
     """Phase 17: NetResDeep ``--kernels --zero1 --grad-compress int8
     --grad-compress-error-feedback`` on ``nproc`` ranks under cuDNN's
     deterministic algorithms: two epochs uninterrupted, then one epoch with
@@ -2414,7 +2458,9 @@ def phase_checkpoint_dp(tmp, nproc=2, backend="gloo"):
     losses and final params must be bitwise the uninterrupted run's, the
     replicas bitwise equal, its launches exactly its steps times phase 14's
     per-step counts, and its checkpoints verify. Prints each save's time on
-    the training thread of the cut and the resumed run."""
+    the training thread of the cut and the resumed run. ``then``: more
+    ``(name, args)`` runs for the same job, after these; returns their
+    results."""
     args = ckpt_args(nproc, backend)
     ck = os.path.join(tmp, f"ckpt{nproc}")
     runs = {}
@@ -2422,8 +2468,8 @@ def phase_checkpoint_dp(tmp, nproc=2, backend="gloo"):
              ("cut", with_epochs(args, 1, "--checkpoint-dir", ck,
                                  "--checkpoint-steps", str(CKPT_EVERY))),
              ("resumed", with_epochs(args, 2, "--checkpoint-dir", ck, "--resume")))
-    jobs = launch_dp_runs(tmp, [(f"ckpt_{name}{nproc}", a) for name, a in cases], nproc,
-                          phase="17", deterministic=True)
+    jobs = launch_dp_runs(tmp, [(f"ckpt_{name}{nproc}", a) for name, a in cases]
+                          + list(then), nproc, phase="17", deterministic=True)
     for name, _ in cases:
         label = f"ckpt_{name}{nproc}"
         runs[name] = (*jobs[label], rank_weights(tmp, label, nproc))
@@ -2454,6 +2500,7 @@ def phase_checkpoint_dp(tmp, nproc=2, backend="gloo"):
                   f"(de-sharding collectives, device-to-host copy, and the commit when "
                   f"it waits): {saves}; steady-state step {m['steady_step_ms']:.4f} ms",
                   flush=True)
+    return {name: jobs[name] for name, _ in then}
 
 
 def patch_train_batches(n, change):
@@ -2554,18 +2601,23 @@ def phase_checkpoint_sigterm(tmp):
              f"{counts} (expected {want})")
 
 
-def phase_checkpoint_rank_change(tmp):
-    """Phase 17: a checkpoint cut at three ranks (phase 14's setting) resumes
-    at two on the same data: finite, falling losses, replicas bitwise equal."""
+def rank_change_runs(tmp):
+    """Phase 17's rank change as two ``(name, args)`` runs: the cut at three
+    ranks (phase 14's setting; it rides in the three-rank job of phases 14
+    and 15) and its resume at two ranks on the same data (in the two-rank
+    job of ``phase_checkpoint_dp``)."""
     n = ZERO1_RANKS
-    args = ckpt_args(n)
     ck = os.path.join(tmp, "ckpt_rank_change")
-    launch_dp(tmp, "ckpt_cut_three", with_epochs(args, 1, "--checkpoint-dir", ck), n,
-              phase="17")
-    metrics, same = launch_dp(tmp, "ckpt_three_to_two",
-                              with_epochs(ckpt_args(2, data_ranks=n), 3,
-                                          "--checkpoint-dir", ck, "--resume"), 2,
-                              phase="17")
+    return (("ckpt_cut_three", with_epochs(ckpt_args(n), 1, "--checkpoint-dir", ck)),
+            ("ckpt_three_to_two", with_epochs(ckpt_args(2, data_ranks=n), 3,
+                                              "--checkpoint-dir", ck, "--resume")))
+
+
+def phase_checkpoint_rank_change(resumed):
+    """Phase 17: the checkpoint cut at three ranks resumed at two
+    (``rank_change_runs``; ``resumed``: the two-rank run's results):
+    finite, falling losses, replicas bitwise equal."""
+    metrics, same = resumed
     losses = metrics[0]["step_losses"]
     first, last = sum(losses[:20]) / 20, sum(losses[-20:]) / 20
     print(f"  resumed at two ranks from step {CKPT_STEPS} of three: {len(losses)} steps, "
@@ -5119,40 +5171,32 @@ def phase_zero3(tmp, zero1_runs, n=ZERO1_RANKS, backend="gloo", serial=False):
 
 
 def phase_zero3_two(tmp, n=ZERO1_RANKS):
-    """Phase 24 (c) and (d) at two ranks over gloo: 24c's ``--zero3`` int8
-    checkpoint (``phase_zero3``'s at ``n`` ranks; its latest, the resumed
-    run's last step) resumed under ``--zero1`` (from that step, finite
-    losses, replicas bitwise, the data that of ``n`` ranks); then
-    ``skip_step`` under ``--zero3`` with rank 0's fifth batch all NaN: that
-    step skipped on both ranks, every rank's state (param shards, optimizer
-    slots and counts, BatchNorm buffers, residual) bitwise as before it,
-    replicas bitwise."""
+    """Phase 24 (c) and (d) at two ranks over gloo, in one job: ``skip_step``
+    under ``--zero3`` with rank 0's fifth batch all NaN (the job's first run,
+    so the process's fifth batch is its): that step skipped on both ranks,
+    every rank's state (param shards, optimizer slots and counts, BatchNorm
+    buffers, residual) bitwise as before it, replicas bitwise; then 24c's
+    ``--zero3`` int8 checkpoint (``phase_zero3``'s at ``n`` ranks; its latest,
+    the resumed run's last step) resumed under ``--zero1`` (from that step,
+    finite losses, replicas bitwise, the data that of ``n`` ranks)."""
     ck = os.path.join(tmp, f"zero3_ckpt{n}")
-    args = dp_args(True, 2) + ["--zero1"]
-    args[args.index("--synthetic-size") + 1] = str(n * 32 * DP_STEPS_PER_EPOCH)
-    args = [a for a in args if a != "--eval-each-epoch"]
-    metrics, same = launch_dp(tmp, "zero3_to_zero1_two",
-                              with_epochs(args, 3, "--checkpoint-dir", ck, "--resume"), 2,
-                              phase="24c", deterministic=True)
-    losses = metrics[0]["step_losses"]
-    want = 3 * (n * DP_STEPS_PER_EPOCH // 2) - 2 * DP_STEPS_PER_EPOCH
-    first, last = sum(losses[:20]) / 20, sum(losses[-20:]) / 20
-    print(f"  24c: the {n}-rank --zero3 checkpoint (step {2 * DP_STEPS_PER_EPOCH}) resumed "
-          f"under --zero1 at two ranks: {len(losses)} steps (expected {want}), mean loss "
-          f"of the first 20 {first:.4f}, last 20 {last:.4f}; replicas bitwise equal "
-          f"{same}", flush=True)
-    if not all(math.isfinite(x) for x in losses) or len(losses) != want or not same:
-        fail("24c: the --zero3 checkpoint did not resume under --zero1 at two ranks")
+    resume = dp_args(True, 2) + ["--zero1"]
+    resume[resume.index("--synthetic-size") + 1] = str(n * 32 * DP_STEPS_PER_EPOCH)
+    resume = [a for a in resume if a != "--eval-each-epoch"]
     run_dir = os.path.join(tmp, "zero3_health")
-    args = ["--device", "cuda", "--dist-backend", "gloo", "--synthetic-data",
+    skip = ["--device", "cuda", "--dist-backend", "gloo", "--synthetic-data",
             "--synthetic-size", str(2 * 32 * HEALTH_RANK_STEPS), "--epochs", "1",
             "--no-shuffle", "--kernels", "--zero3", "--grad-compress", "int8",
             "--grad-compress-error-feedback", "--n-chans1", "32", "--n-blocks", "10",
             "--batch-size", "32", "--lr", "1e-2", "--momentum", "0.9",
             "--log-every-epochs", "1", "--health", "on", "--health-policy", "skip_step",
             "--health-per-layer-stride", "5", "--health-dir", run_dir]
-    metrics, same = launch_dp(tmp, "zero3_skip", args, 2, phase="24d",
-                              deterministic=True, poison=HEALTH_POISON)
+    jobs = launch_dp_runs(
+        tmp, [("zero3_skip", skip),
+              ("zero3_to_zero1_two", with_epochs(resume, 3, "--checkpoint-dir", ck,
+                                                 "--resume"))],
+        2, phase="24c-d", deterministic=True, poison=HEALTH_POISON)
+    metrics, same = jobs["zero3_skip"]
     recs = [health_records(run_dir, r) for r in range(2)]
     bad = [[r["step"] for r in rec if not r["all_finite"]] for rec in recs]
     bits = [m["poisoned_step_bitwise"] for m in metrics]
@@ -5161,6 +5205,17 @@ def phase_zero3_two(tmp, n=ZERO1_RANKS):
           f"{metrics[0]['launches']}", flush=True)
     if bad != [[HEALTH_POISON]] * 2 or not all(bits) or not same:
         fail("24d: skip_step under --zero3 did not leave the state bitwise")
+    metrics, same = jobs["zero3_to_zero1_two"]
+    losses = metrics[0]["step_losses"]
+    # the n ranks' rows at two ranks: a padded last batch an epoch when odd
+    want = 3 * math.ceil(n * DP_STEPS_PER_EPOCH / 2) - 2 * DP_STEPS_PER_EPOCH
+    first, last = sum(losses[:20]) / 20, sum(losses[-20:]) / 20
+    print(f"  24c: the {n}-rank --zero3 checkpoint (step {2 * DP_STEPS_PER_EPOCH}) resumed "
+          f"under --zero1 at two ranks: {len(losses)} steps (expected {want}), mean loss "
+          f"of the first 20 {first:.4f}, last 20 {last:.4f}; replicas bitwise equal "
+          f"{same}", flush=True)
+    if not all(math.isfinite(x) for x in losses) or len(losses) != want or not same:
+        fail("24c: the --zero3 checkpoint did not resume under --zero1 at two ranks")
 
 
 #: phase 25: sequence parallelism. (a) the ring at 2 and 4 gloo ranks sharing
@@ -6513,6 +6568,220 @@ def run_phase28(smi):
     print(f"phase 28 took {time.perf_counter() - t28:.1f} s", flush=True)
 
 
+#: phase 29: NetResDeep's steps an epoch (two epochs at batch 32), the
+#: checkpoint cadence (--checkpoint-steps) and the batch the first life is
+#: SIGKILLed at: after the step-RD_CKPT save, before the step-2 RD_CKPT one
+RD_STEPS, RD_CKPT, RD_KILL = 10, 5, 8
+
+
+def rd_args(run_dir, kernels=True):
+    """A phase-29 run: NetResDeep at full width, two epochs of ``RD_STEPS``
+    steps at batch 32, ``--telemetry-dir run_dir --health on``, a checkpoint
+    every ``RD_CKPT`` steps under ``run_dir/ckpt``."""
+    return ["--device", "cuda", "--synthetic-data", "--synthetic-size", str(32 * RD_STEPS),
+            "--epochs", "2", "--batch-size", "32", "--log-every-epochs", "1",
+            *(["--kernels"] if kernels else []), "--telemetry-dir", run_dir,
+            "--health", "on", "--checkpoint-dir", os.path.join(run_dir, "ckpt"),
+            "--checkpoint-steps", str(RD_CKPT)]
+
+
+def life_child(out_path, kill_at, args):
+    """``chip_smoke.py --life-child OUT N ARGS...``: the train CLI's ``run``
+    under cuDNN's deterministic algorithms; as the train loop takes batch N
+    (``patch_train_batches``) and once the step-``RD_CKPT`` checkpoint has
+    committed, writes the launch counts so far and the steps trained to
+    OUT, then waits to be SIGKILLed."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from tpu_ddp_torch import ops
+    from tpu_ddp_torch.checkpoint.manifest import latest_verified_step
+    from tpu_ddp_torch.cli import train as cli
+
+    torch.backends.cudnn.deterministic = True
+    ck = args[args.index("--checkpoint-dir") + 1]
+
+    def change(images):
+        deadline = time.monotonic() + 120
+        while latest_verified_step(ck)[0] != RD_CKPT:
+            if time.monotonic() > deadline:
+                fail(f"29a: the step-{RD_CKPT} checkpoint never committed")
+            time.sleep(0.005)
+        torch.cuda.synchronize()
+        with open(out_path + ".tmp", "w") as f:
+            json.dump({"launches": ops.launch_counts(), "steps": kill_at}, f)
+        os.replace(out_path + ".tmp", out_path)
+        while True:
+            time.sleep(60)
+
+    patch_train_batches(kill_at, change)
+    ops.reset_launch_counts()
+    cli.run(args)
+    fail("29a: the first life ran to its end")
+
+
+def read_back(argv):
+    """``tpu_ddp_torch.cli.main.main(argv)`` in this process: (exit code,
+    standard output, host seconds)."""
+    import contextlib
+    import io
+
+    from tpu_ddp_torch.cli.main import main as cli_main
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    return rc, out.getvalue(), time.perf_counter() - t0
+
+
+def phase_run_dir_readers(tmp, smi):
+    """Phase 29: the run-dir readers on what the card wrote. (a) NetResDeep
+    ``--kernels`` (``rd_args``) in a child process, SIGKILLed as it takes
+    batch ``RD_KILL`` after its step-``RD_CKPT`` checkpoint committed, then
+    ``--resume``d to the end in this process, both under deterministic
+    cuDNN: ``goodput --json`` gives two lives, killed then clean,
+    ``RD_KILL - RD_CKPT`` replayed steps, categories that sum to the
+    elapsed seconds within 1e-6 s and a checkpoint; K1's launches in each
+    life are the steps it trained. (b) ``curves --json``: each of the
+    ``2 RD_STEPS`` steps once. (c) The same recipe and seed without
+    ``--kernels``, uninterrupted: ``curves diff`` passes with a drift of
+    0.0. (d) The ledger, curve and ``trace summarize --json`` of both runs
+    recorded into a registry; ``registry list`` and ``trend`` exit 0;
+    ``bench compare --against`` the registry (``--allow-dirty``: the copy
+    has no git identity) of the incident's ledger exits 0 (its own entry),
+    and the plain run's ledger against the incident's exits 1
+    (``tests/test_torch_cli_main.py::test_registry_and_compare_flow``)."""
+    import signal
+
+    import torch
+
+    from tpu_ddp_torch.telemetry import reset_default_registry
+
+    run_dir, plain_dir = os.path.join(tmp, "incident"), os.path.join(tmp, "plain")
+    marker = os.path.join(tmp, "life0.json")
+    args = rd_args(run_dir)
+    print(f"phase 29 ({smi}): tpu_ddp_torch.cli.train {' '.join(args)}, SIGKILLed at "
+          f"batch {RD_KILL}, then --resume; the same without --kernels", flush=True)
+    child = subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                              "--life-child", marker, str(RD_KILL), *args], cwd=ROOT)
+    try:
+        deadline = time.monotonic() + 300
+        while not os.path.isfile(marker):
+            if child.poll() is not None:
+                fail(f"29a: the first life exited with {child.returncode} before its kill")
+            if time.monotonic() > deadline:
+                fail("29a: the first life never reached its kill point")
+            time.sleep(0.01)
+        os.kill(child.pid, signal.SIGKILL)
+        child.wait()
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    with open(marker) as f:
+        life0 = json.load(f)
+    torch.backends.cudnn.deterministic = True
+    try:
+        reset_default_registry()
+        _, resumed = counted_run(args + ["--resume"])
+        reset_default_registry()
+        _, plain = counted_run(rd_args(plain_dir, kernels=False))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    lives = [life0["launches"], resumed["launches"]]
+    for i, launches in enumerate(lives):
+        print(f"  life {i}: launches {launches}", flush=True)
+    if {k: v for k, v in plain["launches"].items() if v}:
+        fail(f"29c: the plain run launched {plain['launches']}")
+
+    times = {}
+
+    def cli(label, argv, want):
+        rc, out, seconds = read_back(argv)
+        times.setdefault(label, []).append(seconds)
+        if rc != want:
+            fail(f"29: tpu-ddp-torch {' '.join(argv)} exited {rc}, expected {want}:\n{out}")
+        return out
+
+    art = json.loads(cli("goodput", ["goodput", run_dir, "--json"], 0))
+    led = art["ledger"]
+    incs = led["incarnations"]
+    print(f"  goodput {led['goodput_fraction']:.6f} of {led['elapsed_s']:.6f} s; checkpoints "
+          f"{led['checkpoint']}; category seconds {json.dumps(led['category_seconds'])}",
+          flush=True)
+    print(f"  lives: {[(e['exit'], e['steps'], e['first_step'], e['executed_through'], e['replayed_steps']) for e in incs]}",
+          flush=True)
+    if [e["exit"] for e in incs] != ["killed", "clean"]:
+        fail(f"29a: lives {[e['exit'] for e in incs]}, expected killed then clean")
+    if led["replayed_steps"] != RD_KILL - RD_CKPT:
+        fail(f"29a: {led['replayed_steps']} replayed steps, expected {RD_KILL - RD_CKPT}")
+    if abs(sum(led["category_seconds"].values()) - led["elapsed_s"]) > 1e-6:
+        fail("29a: the categories do not sum to the elapsed seconds")
+    if led["checkpoint"]["count"] < 1 or led["category_seconds"]["compile"] != 0.0:
+        fail(f"29a: checkpoints {led['checkpoint']}, compile "
+             f"{led['category_seconds']['compile']}")
+    if [e["steps"] for e in incs] != [RD_KILL, 2 * RD_STEPS - RD_CKPT]:
+        fail(f"29a: the lives trained {[e['steps'] for e in incs]} steps")
+    for i, (e, launches) in enumerate(zip(incs, lives)):
+        if {k: v for k, v in launches.items() if v} != {"fused_update": e["steps"]}:
+            fail(f"29a: life {i} trained {e['steps']} steps, launches {launches}")
+    cli("goodput_text", ["goodput", run_dir], 0)
+
+    curve = json.loads(cli("curves", ["curves", run_dir, "--json"], 0))["curve"]
+    print(f"  curve: {json.dumps(list(zip(curve['steps'], curve['loss'])))}", flush=True)
+    if curve["steps"] != list(range(2 * RD_STEPS)) or curve["incarnations"] != 2:
+        fail(f"29b: curve steps {curve['steps']}, lives {curve['incarnations']}")
+    if not all(math.isfinite(v) for v in curve["loss"]):
+        fail("29b: a non-finite loss in the curve")
+
+    diff = json.loads(cli("curves_diff", ["curves", "diff", run_dir, plain_dir, "--json"], 0))
+    print(f"  curves diff: {diff['verdict']}, drift {diff['max_loss_drift']}, raw "
+          f"{diff['raw_max_loss_drift']}, final eval loss delta "
+          f"{diff['final_eval_loss_delta']}, steps {diff['steps_compared']}", flush=True)
+    if diff["verdict"] != "pass" or diff["max_loss_drift"] != 0.0 \
+            or diff["raw_max_loss_drift"] != 0.0:
+        fail(f"29c: curves diff {diff}")
+
+    reg = os.path.join(tmp, "registry")
+    ledgers = {}
+    for name, d in (("incident", run_dir), ("plain", plain_dir)):
+        for kind, argv in (("goodput", ["goodput", d, "--json"]),
+                           ("curves", ["curves", d, "--json"]),
+                           ("trace", ["trace", "summarize", d, "--json"])):
+            path = os.path.join(tmp, f"{name}_{kind}.json")
+            with open(path, "w") as f:
+                f.write(cli(f"{kind}_json", argv, 0))
+            if kind == "goodput":
+                ledgers[name] = path
+            cli("registry_record", ["registry", "--registry", reg, "record", path], 0)
+    cli("registry_list", ["registry", "--registry", reg, "list"], 0)
+    cli("registry_trend", ["registry", "--registry", reg, "trend"], 0)
+    cli("bench_compare_against", ["bench", "compare", "--against", reg, "--allow-dirty",
+                                  ledgers["incident"]], 0)
+    out = cli("bench_compare", ["bench", "compare", ledgers["plain"], ledgers["incident"]], 1)
+    if not all(k in out for k in ("badput/restart_gap", "badput/replayed", "exits/killed")):
+        fail(f"29d: bench compare did not name the kill's badput:\n{out}")
+    print("  reader host seconds: " + "; ".join(
+        f"{k} {' '.join(f'{x:.4f}' for x in v)}" for k, v in times.items()), flush=True)
+
+
+def run_phase29(smi):
+    """Phase 29 on one card (``phase_run_dir_readers``), in a scratch
+    directory under ``build/``."""
+    import shutil
+    import tempfile
+
+    t29 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
+    try:
+        phase_run_dir_readers(tmp, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 29 took {time.perf_counter() - t29:.1f} s", flush=True)
+
+
 def phase27_nccl_main(nproc):
     """``python3 chip_smoke.py --nccl N --phase 27`` on a machine with N
     cards: phase 27's job alone at N ranks, one card each, over NCCL (pp
@@ -6557,6 +6826,25 @@ def phase28_main():
     native.build()
     run_phase28(smi)
     print(f"chip_smoke --phase 28: ok ({smi})", flush=True)
+
+
+def phase29_main():
+    """``python3 chip_smoke.py --phase 29``: the kernels built, then phase 29
+    alone on one card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
+    sys.path.insert(0, ROOT)
+    from tpu_ddp_torch import native
+    from tpu_ddp_torch.ops import _build
+
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    _build.build()
+    native.build()
+    run_phase29(smi)
+    print(f"chip_smoke --phase 29: ok ({smi})", flush=True)
 
 
 def nccl_main(nproc):
@@ -6608,6 +6896,8 @@ def main():
         return lm_rank_child(sys.argv[2], sys.argv[3])
     if sys.argv[1:2] == ["--sp-ring-child"]:
         return sp_ring_child(sys.argv[2])
+    if sys.argv[1:2] == ["--life-child"]:
+        return life_child(sys.argv[2], int(sys.argv[3]), sys.argv[4:])
     if sys.argv[1:2] == ["--nccl"]:
         if sys.argv[3:5] == ["--phase", "26"]:
             return phase26_main(int(sys.argv[2]))
@@ -6620,6 +6910,8 @@ def main():
         return phase27_main()
     if sys.argv[1:3] == ["--phase", "28"]:
         return phase28_main()
+    if sys.argv[1:3] == ["--phase", "29"]:
+        return phase29_main()
     import shutil
     import tempfile
 
@@ -6676,13 +6968,17 @@ def main():
         stamp("phases 10-11")
         dp_runs = phase_dp_main_path(tmp)
         stamp("phase 12")
-        zero1_runs = phase_zero1_dp(tmp)
-        zero1_runs.update(phase_zero1_vit(tmp))
+        # phases 14, 15 and 17's cut at three ranks in one three-rank job
+        cut_three, three_to_two = rank_change_runs(tmp)
+        jobs = launch_dp_runs(tmp, zero1_dp_runs() + zero1_vit_runs() + [cut_three],
+                              ZERO1_RANKS, phase="14, 15 and 17", deterministic=True)
+        zero1_runs = phase_zero1_dp(tmp, jobs=jobs)
+        zero1_runs.update(phase_zero1_vit(tmp, jobs=jobs))
         stamp("phases 14-15")
         t17 = time.perf_counter()
-        phase_checkpoint_dp(tmp)
+        resumed = phase_checkpoint_dp(tmp, then=[three_to_two])
         phase_checkpoint_sigterm(tmp)
-        phase_checkpoint_rank_change(tmp)
+        phase_checkpoint_rank_change(resumed[three_to_two[0]])
         checkpoint_timing(tmp, smi)
         print(f"phase 17 took {time.perf_counter() - t17:.1f} s", flush=True)
         t18 = time.perf_counter()
@@ -6769,6 +7065,7 @@ def main():
     run_phase26(smi)
     run_phase27(smi)
     run_phase28(smi)
+    run_phase29(smi)
     print_accounting()
     rows += phase_lm_timing(results, flash_results, lm_runs["flash"]["launches"])
     stamp("phase 18d")

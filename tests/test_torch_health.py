@@ -229,14 +229,14 @@ def test_a_second_life_in_the_same_dir_keeps_the_first_record(tmp_path):
 
 
 def test_health_cli_entry(tmp_path, capsys):
-    from tpu_ddp_torch.health.__main__ import main
+    from tpu_ddp_torch.cli.main import main
 
     mon = HealthMonitor(run_dir=str(tmp_path))
     mon.on_step(0, _fake_stats())
     mon.close()
-    assert main([str(tmp_path)]) == 0
+    assert main(["health", str(tmp_path)]) == 0
     assert "steps: 1" in capsys.readouterr().out
-    assert main([str(tmp_path / "missing")]) == 2
+    assert main(["health", str(tmp_path / "missing")]) == 2
 
 
 # -- the trainer end to end ----------------------------------------------

@@ -233,14 +233,14 @@ def test_summarizer_equals_jax_and_tolerates_a_torn_line(tmp_path):
 
 
 def test_summarize_entry_point(tmp_path, capsys):
-    from tpu_ddp_torch.telemetry.__main__ import main
+    from tpu_ddp_torch.cli.main import main
 
     _write_trace(tmp_path / "trace-p0.jsonl", [("compiled_step", 0.01)] * 5)
-    assert main(["summarize", str(tmp_path)]) == 0
+    assert main(["trace", "summarize", str(tmp_path)]) == 0
     assert "compiled_step" in capsys.readouterr().out
-    assert main(["summarize", "--json", str(tmp_path)]) == 0
+    assert main(["trace", "summarize", "--json", str(tmp_path)]) == 0
     assert json.loads(capsys.readouterr().out)["type"] == "trace_summary"
-    assert main(["summarize", str(tmp_path / "nope")]) == 2
+    assert main(["trace", "summarize", str(tmp_path / "nope")]) == 2
 
 
 class _Capture:

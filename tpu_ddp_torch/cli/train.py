@@ -292,7 +292,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "health-p<rank>.jsonl (under --health-dir), with a "
                         "loss-spike detector and a one-shot anomaly dump to "
                         "<dir>/anomalies/. Read back with `python -m "
-                        "tpu_ddp_torch.health DIR`")
+                        "tpu_ddp_torch.cli.main health DIR`")
     p.add_argument("--health-policy",
                    choices=["warn", "skip_step", "halt"], default="warn",
                    help="on an anomaly: warn (log + dump), skip_step "
@@ -319,7 +319,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "per-rank schema-versioned JSONL trace + Chrome "
                         "trace_event JSON (Perfetto-loadable) + terminal "
                         "phase summary; read back with `python -m "
-                        "tpu_ddp_torch.telemetry summarize DIR`. Adds a "
+                        "tpu_ddp_torch.cli.main trace summarize DIR`. Adds a "
                         "per-step device fence for phase attribution")
     p.add_argument("--telemetry-sinks", default="jsonl,chrome,summary",
                    metavar="LIST",

@@ -11,7 +11,7 @@ Counterpart of ``tpu_ddp/health/`` (``docs/health.md``), in three layers:
   median + MAD loss-spike detector, the one-shot anomaly dump
   (``run_dir/anomalies/step_<n>/``) with the offending batch and recent
   history, and the policy verdict. numpy and stdlib.
-- ``summarize``: the read-back half, ``python -m tpu_ddp_torch.health
+- ``summarize``: the read-back half, ``python -m tpu_ddp_torch.cli.main health
   DIR``. Stdlib only.
 
 The exports are those of the JAX package, loaded lazily so the summary

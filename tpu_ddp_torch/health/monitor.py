@@ -6,7 +6,7 @@ Counterpart of ``tpu_ddp/health/monitor.py`` (``SpikeDetector`` :46,
 ``HealthMonitor`` a rank, which
 
 - appends a schema-versioned record a step to ``health-p<rank>.jsonl`` in
-  the run dir (read back by ``python -m tpu_ddp_torch.health DIR``), the
+  the run dir (read back by ``python -m tpu_ddp_torch.cli.main health DIR``), the
   JAX package's records to the key;
 - runs the divergence detector: any non-finite sentinel, or a loss above
   ``median + threshold * MAD`` of the rolling window;

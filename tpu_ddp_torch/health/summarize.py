@@ -1,4 +1,4 @@
-"""Render a run dir's numerics-health record: ``python -m tpu_ddp_torch.health DIR``.
+"""Render a run dir's numerics-health record: ``python -m tpu_ddp_torch.cli.main health DIR``.
 
 Counterpart of ``tpu_ddp/health/summarize.py`` (the JAX CLI's ``tpu-ddp
 health``, ``tpu_ddp/cli/main.py:19``). Reads the ``health-p*.jsonl`` files

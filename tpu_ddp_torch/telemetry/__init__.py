@@ -10,7 +10,7 @@ checkpoint manager, the health monitor and the launcher emit into one
 
 - ``jsonl``: schema-versioned JSON Lines (``trace-p<rank>.jsonl``), flushed
   a line at a time, the run header first; read back by ``python -m
-  tpu_ddp_torch.telemetry summarize DIR``.
+  tpu_ddp_torch.cli.main trace summarize DIR``.
 - ``chrome``: Chrome trace_event JSON (``trace-p<rank>.trace.json``),
   loadable in Perfetto.
 - ``summary``: the per-phase duration table, printed at the end by rank 0.

@@ -6,7 +6,7 @@ same events. Three in-tree sinks, all stdlib-only:
 - ``JsonlTraceSink`` — schema-versioned JSON Lines, one record per event,
   flushed line-by-line so a crash (or a watchdog SIGKILL) loses at most the
   event being written. This is the canonical on-disk format that
-  ``python -m tpu_ddp_torch.telemetry summarize`` reads.
+  ``python -m tpu_ddp_torch.cli.main trace summarize`` reads.
 - ``ChromeTraceSink`` — Chrome ``trace_event`` JSON (the
   ``{"traceEvents": [...]}`` object form), loadable in Perfetto
   (https://ui.perfetto.dev) or ``chrome://tracing``. Spans become complete

@@ -1,7 +1,7 @@
 """Aggregate a JSONL trace into per-phase percentiles.
 
 Counterpart of ``tpu_ddp/telemetry/summarize.py``; backs ``python -m
-tpu_ddp_torch.telemetry summarize DIR [--json]``. Reads the
+tpu_ddp_torch.cli.main trace summarize DIR [--json]``. Reads the
 schema-versioned JSONL trace(s) a run wrote (``trace-p*.jsonl``), buckets
 span durations by phase name, and renders the same table the terminal
 summary sink prints live. ``--json`` emits the same aggregation as a

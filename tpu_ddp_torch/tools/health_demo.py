@@ -12,7 +12,7 @@ policy:
 2. the monitor writes the one-shot anomaly dump (``DIR/anomalies/step_*/``
    with the stats, the history and the offending batch) and training goes
    on: the later steps are finite again;
-3. the run dir renders with ``python -m tpu_ddp_torch.health DIR``.
+3. the run dir renders with ``python -m tpu_ddp_torch.cli.main health DIR``.
 
 Exits non-zero if any of those is missing.
 """
@@ -94,7 +94,7 @@ def main(argv=None) -> int:
     if ok:
         print(f"[health-demo] OK: NaN batch detected and skipped, training "
               f"recovered with finite params; inspect with: python -m "
-              f"tpu_ddp_torch.health {args.dir}")
+              f"tpu_ddp_torch.cli.main health {args.dir}")
     return 0 if ok else 1
 
 
