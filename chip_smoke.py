@@ -512,8 +512,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     and the gather phase), ``wire_bytes`` the hop's ``chunk_wire_bytes``
     over NetResDeep's leaves (n - 1 of them for the gather), K2 and K3 n a
     step as without a hook, each rank's ``trace-p<rank>.jsonl``, the
-    summary sink on rank 0 alone. ``python3 chip_smoke.py --phase 28`` runs
-    it alone.
+    summary sink on rank 0 alone; the job also runs ``--monitor-port -1
+    --monitor-bind 127.0.0.1``, which phase 30c reads. ``python3
+    chip_smoke.py --phase 28`` runs it alone.
 29. The run-dir readers (``run_phase29``: ``tpu_ddp_torch/ledger``,
     ``curves``, ``registry``, ``analysis/regress.py``, through
     ``tpu_ddp_torch.cli.main``), on what the card wrote, in a scratch
@@ -537,6 +538,32 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     restart gap, replayed steps and ``killed`` exit. Prints the goodput,
     the category seconds, the curve's points and each reader command's host
     seconds. ``python3 chip_smoke.py --phase 29`` runs it alone.
+30. The live observatories (``run_phase30``: ``tpu_ddp_torch/monitor``,
+    ``profiler``, ``memtrack``), in a scratch directory under ``build/``.
+    (a) NetResDeep at full width ``--kernels --telemetry-dir D
+    --monitor-port -1 --monitor-bind 127.0.0.1 --watchdog-deadline 60
+    --profile-steps 4:8 --profile-dir P``, three epochs of 12 steps at batch
+    32, in a child process (``--obs-child``) held at step 27 while this
+    process reads ``exporter-p0.json``, GETs ``/metrics`` five times
+    (``train_steps_total`` 27 and a ``memory_d<i>_bytes_in_use`` above 0),
+    ``/healthz`` (ok) and POSTs ``/profile?steps=3`` (200, and 429 a second
+    time). After the run: two bundles (config 4..8, http 27..30), each with
+    folded stacks and a ``torch.profiler`` trace naming K1's
+    ``fused_update_kernel`` once a window step; P's trace of epoch 2 with 12
+    and the ``profiler_trace_written`` instant; K1 36 in 36 steps;
+    ``mem-p0.jsonl``'s ``memory_stats`` records with ``bytes_in_use`` <=
+    ``peak_bytes_in_use`` <= the card's memory; ``watch D --once --json``,
+    ``mem D --json`` and ``profile D`` exit 0. Prints the scrapes' ms, the
+    step p50 (``compiled_step`` + ``device_sync``) in the windows, in the
+    traced epoch and outside both, the memory sample's ms, each bundle's
+    bytes and its parts' ms. (b) A child (``--oom-child``), started first and
+    running beside (a)'s, capped at 2% of the card, trains a batch of 4,096
+    that cannot fit: it exits 1 with
+    ``torch.OutOfMemoryError``, leaves ``oom/step_0-p0/``, ``goodput
+    --json`` books its life ``oom`` and ``mem`` exits 1. (c) In phase 28c's
+    job: each rank's ``exporter-p<rank>.json`` on its own port, ``watch
+    --once --json`` over both ranks. ``python3 chip_smoke.py --phase 30``
+    runs (a), (b) and 28c's job alone.
 
 Phase 2 also builds the native data-path library (``tpu_ddp_torch/native``)
 with g++ from the checkout. The NetResDeep phases before 17 keep their
@@ -6483,8 +6510,6 @@ def phase_telemetry(tmp, smi):
     ranks with the int8 ring and a counting hop hook."""
     import torch
 
-    from tpu_ddp_torch.parallel.compression import chunk_wire_bytes
-
     torch.backends.cudnn.deterministic = True
     runs = []
     try:
@@ -6521,12 +6546,23 @@ def phase_telemetry(tmp, smi):
           + " / ".join(f"{m['mfu']:.6f}" for k, m, _ in vit if k != "off"), flush=True)
     fence_cost("ViT-S/4 flash batch 32", vit, smi)
     stamp("phase 28b")
+    tel_ranks(tmp, smi)
+    return runs, vit
+
+
+def tel_ranks(tmp, smi):
+    """Phase 28c (module docstring) and its observatory checks, 30c: each
+    rank's ``exporter-p<rank>.json`` on its own port, and ``watch --once
+    --json`` over the run dir with both ranks."""
+    from tpu_ddp_torch.parallel.compression import chunk_wire_bytes
+
     # (c) two gloo ranks, the int8 ring with a counting hop hook in each
     run_dir = os.path.join(tmp, "ranks")
     args = ["--device", "cuda", "--dist-backend", "gloo", "--synthetic-data",
             "--synthetic-size", str(2 * 32 * TEL_RANK_STEPS), "--epochs", "2", "--kernels",
             "--batch-size", "32", "--grad-compress", "int8", "--log-every-epochs", "1",
-            "--telemetry-dir", run_dir]
+            "--telemetry-dir", run_dir, "--monitor-port", "-1", "--monitor-bind",
+            "127.0.0.1"]
     metrics, same = launch_dp_runs(tmp, [("tel_ranks", args)], 2, phase="28c",
                                    extra=["--hop-hook"])["tel_ranks"]
     n = 2
@@ -6550,7 +6586,16 @@ def phase_telemetry(tmp, smi):
             fail(f"28c: no trace-p{r}.jsonl")
     if not same:
         fail("28c: the ranks' weights differ")
-    return runs, vit
+    ports = []
+    for r in range(n):
+        with open(os.path.join(run_dir, f"exporter-p{r}.json")) as f:
+            ports.append(json.load(f)["port"])
+    rc, text, _ = read_back(["watch", run_dir, "--once", "--json"])
+    hosts = [h["host"] for h in json.loads(text)["snapshot"]["hosts"]] if rc in (0, 1) else None
+    print(f"  30c ({smi}): exporter ports {ports}; watch --once exit {rc}, hosts {hosts}",
+          flush=True)
+    if len(set(ports)) != n or rc or hosts != list(range(n)):
+        fail(f"30c: exporter ports {ports}, watch exit {rc} over hosts {hosts}")
 
 
 def run_phase28(smi):
@@ -6782,6 +6827,366 @@ def run_phase29(smi):
     print(f"phase 29 took {time.perf_counter() - t29:.1f} s", flush=True)
 
 
+#: phase 30: three epochs of OBS_STEPS steps at batch 32; the config
+#: capture window (--profile-steps A:B), the step at which the child holds
+#: for the parent's requests, the live window's steps (POST /profile) and
+#: the number of timed /metrics scrapes
+OBS_STEPS, OBS_WINDOW, OBS_GATE, OBS_LIVE, OBS_SCRAPES = 12, (4, 8), 27, 3, 5
+#: phase 30b: the child's memory cap (a fraction of the card) and its batch,
+#: whose first step's activations (about 1.6 MB a row) cannot fit
+OOM_FRACTION, OOM_BATCH = 0.02, 4096
+#: phase 30a: a memory sample and the parts of it its child times apart
+MEMTRACK_PARTS = (("MemorySampler", "sample"), ("sampler", "sample_devices"),
+                  ("sampler", "host_rss_bytes"), ("MemorySampler", "_write"),
+                  ("sampler", "publish_memory_gauges"))
+K1_KERNEL = "fused_update_kernel"
+
+
+def obs_args(run_dir, profile_dir):
+    """Phase 30a's run: NetResDeep at full width ``--kernels``, three
+    epochs of ``OBS_STEPS`` steps at batch 32, every observatory on."""
+    return ["--device", "cuda", "--synthetic-data", "--synthetic-size", str(32 * OBS_STEPS),
+            "--epochs", "3", "--batch-size", "32", "--log-every-epochs", "1", "--kernels",
+            "--telemetry-dir", run_dir, "--monitor-port", "-1", "--monitor-bind",
+            "127.0.0.1", "--watchdog-deadline", "60", "--profile-steps",
+            f"{OBS_WINDOW[0]}:{OBS_WINDOW[1]}", "--profile-dir", profile_dir]
+
+
+def obs_child(out_path, args):
+    """``chip_smoke.py --obs-child OUT ARGS...``: the train CLI's ``run``,
+    held in the capture manager's ``on_step`` at step ``OBS_GATE`` (after
+    the step's heartbeat, outside every span) from writing ``OUT.ready``
+    until the parent writes ``OUT.go``; every memory sample timed, and its
+    parts apart (``MEMTRACK_PARTS``). Writes the launch counts, the metrics
+    and the seconds to OUT."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from tpu_ddp_torch import ops
+    from tpu_ddp_torch.cli import train as cli
+    from tpu_ddp_torch.memtrack import sampler as memtrack
+    from tpu_ddp_torch.profiler.capture import CaptureManager
+
+    on_step = CaptureManager.on_step
+    seconds = {name: [] for _, name in MEMTRACK_PARTS}
+
+    def timing(owner, name):
+        inner = getattr(owner, name)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return inner(*a, **kw)
+            finally:
+                seconds[name].append(time.perf_counter() - t0)
+
+        setattr(owner, name, timed)
+
+    def held(self, step):
+        if step == OBS_GATE:
+            open(out_path + ".ready", "w").close()
+            deadline = time.monotonic() + 120
+            while not os.path.exists(out_path + ".go"):
+                if time.monotonic() > deadline:
+                    fail("30a: the parent never released the child")
+                time.sleep(0.005)
+        return on_step(self, step)
+
+    CaptureManager.on_step = held
+    for owner, name in MEMTRACK_PARTS:
+        timing(memtrack.MemorySampler if owner == "MemorySampler" else memtrack, name)
+    ops.reset_launch_counts()
+    _, metrics = cli.run(args)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    metrics["launches"] = ops.launch_counts()
+    metrics["memtrack_s"] = seconds
+    with open(out_path + ".tmp", "w") as f:
+        json.dump(metrics, f)
+    os.replace(out_path + ".tmp", out_path)
+
+
+def oom_child(args):
+    """``chip_smoke.py --oom-child ARGS...``: this process capped at
+    ``OOM_FRACTION`` of the card, then the train CLI on ``args`` (a batch
+    that cannot fit). Returns only if the run ends without the allocator
+    failing."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from tpu_ddp_torch.cli import train as cli
+
+    torch.cuda.set_per_process_memory_fraction(OOM_FRACTION, 0)
+    cli.run(args)
+    fail("30b: the capped run did not run out of memory")
+
+
+def http_call(method, url, timeout=10):
+    """(status, body, seconds) of one HTTP request; an error status is a
+    result, not an exception."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=b"" if method == "POST" else None, method=method)
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            code, body = resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read().decode()
+    return code, body, time.perf_counter() - t0
+
+
+def k1_kernels(trace_path):
+    """K1's kernel events in a ``torch.profiler`` Chrome trace."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(1 for e in events
+               if e.get("cat") == "kernel" and K1_KERNEL in e.get("name", ""))
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, n))
+               for d, _, names in os.walk(path) for n in names)
+
+
+def step_ms(run_dir):
+    """{span step: ms of its ``compiled_step`` + ``device_sync``} from
+    ``trace-p0.jsonl``."""
+    out = {}
+    for r in trace_records(run_dir):
+        if r["type"] == "span" and r["name"] in ("compiled_step", "device_sync"):
+            out[r["step"]] = out.get(r["step"], 0.0) + r["dur_s"] * 1e3
+    return out
+
+
+def phase_observatories(tmp, smi):
+    """Phase 30 (a) and (b) (module docstring). (b)'s capped child starts
+    first and runs beside (a)'s: it fails its first step while (a)'s child
+    is still starting, so the two share only their start-up, which is most
+    of the phase's time."""
+    oom_dir = os.path.join(tmp, "oom")
+    oom_args = ["--device", "cuda", "--synthetic-data", "--synthetic-size", str(OOM_BATCH),
+                "--epochs", "1", "--batch-size", str(OOM_BATCH), "--kernels",
+                "--telemetry-dir", oom_dir, "--telemetry-sinks", "jsonl"]
+    print(f"phase 30b: tpu_ddp_torch.cli.train {' '.join(oom_args)} capped at {OOM_FRACTION} "
+          "of the card, in a child beside 30a's", flush=True)
+    oom_log = os.path.join(tmp, "oom.log")
+    with open(oom_log, "w") as log:
+        oom = subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--oom-child", *oom_args],
+            cwd=ROOT, stdout=subprocess.DEVNULL, stderr=log)
+    try:
+        phase_observed_child(tmp, smi)
+        rc = oom.wait(timeout=300)
+    finally:
+        if oom.poll() is None:
+            oom.kill()
+            oom.wait()
+    check_oom_child(oom_dir, oom_log, rc)
+
+
+def phase_observed_child(tmp, smi):
+    """Phase 30a (module docstring)."""
+    import statistics
+
+    import torch
+
+    from tpu_ddp_torch.profiler.capture import list_bundles, read_bundle_meta
+
+    run_dir, prof_dir = os.path.join(tmp, "obs"), os.path.join(tmp, "obs_profile")
+    out = os.path.join(tmp, "obs.json")
+    args = obs_args(run_dir, prof_dir)
+    print(f"phase 30a ({smi}): tpu_ddp_torch.cli.train {' '.join(args)} in a child; "
+          f"held at step {OBS_GATE} for /metrics, /healthz and POST "
+          f"/profile?steps={OBS_LIVE}", flush=True)
+    child = subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                              "--obs-child", out, *args], cwd=ROOT)
+    try:
+        deadline = time.monotonic() + 300
+        while not os.path.isfile(out + ".ready"):
+            if child.poll() is not None:
+                fail(f"30a: the child exited with {child.returncode} before step {OBS_GATE}")
+            if time.monotonic() > deadline:
+                fail(f"30a: the child never reached step {OBS_GATE}")
+            time.sleep(0.01)
+        with open(os.path.join(run_dir, "exporter-p0.json")) as f:
+            base = f"http://127.0.0.1:{json.load(f)['port']}"
+        scrapes = [http_call("GET", base + "/metrics") for _ in range(OBS_SCRAPES)]
+        health = http_call("GET", base + "/healthz")
+        armed = http_call("POST", f"{base}/profile?steps={OBS_LIVE}")
+        again = http_call("POST", f"{base}/profile?steps={OBS_LIVE}")
+        open(out + ".go", "w").close()
+        rc = child.wait(timeout=300)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if rc:
+        fail(f"30a: the child exited with {rc}")
+    text = scrapes[-1][1]
+    steps_line = re.search(r"^tpu_ddp_train_steps_total\{[^}]*\} (\S+)$", text, re.M)
+    gauges = [float(v) for v in re.findall(
+        r"^tpu_ddp_memory_d\d+_bytes_in_use\{[^}]*\} (\S+)$", text, re.M)]
+    print(f"  30a /metrics: {[c for c, *_ in scrapes]}, train_steps_total "
+          f"{steps_line.group(1) if steps_line else None}, memory_d<i>_bytes_in_use {gauges}; "
+          f"/healthz {health[0]} {health[1]}; POST /profile {armed[0]} {armed[1]}, again "
+          f"{again[0]}", flush=True)
+    if any(c != 200 for c, *_ in scrapes) or not steps_line \
+            or float(steps_line.group(1)) != OBS_GATE or not gauges or min(gauges) <= 0:
+        fail("30a: /metrics lacks train_steps_total at the held step or a memory gauge > 0")
+    if health[0] != 200 or json.loads(health[1])["status"] != "ok":
+        fail(f"30a: /healthz {health[0]} {health[1]}")
+    if armed[0] != 200 or again[0] != 429:
+        fail(f"30a: POST /profile {armed[0]}, a second {again[0]} (expected 200, 429)")
+    with open(out) as f:
+        metrics = json.load(f)
+    steps = 3 * OBS_STEPS
+    if metrics["steps"] != steps or metrics["launches"]["fused_update"] != steps:
+        fail(f"30a: {metrics['steps']} steps, launches {metrics['launches']}")
+
+    bundles = list_bundles(run_dir)
+    want = [("config", OBS_WINDOW[0], OBS_WINDOW[1]), ("http", OBS_GATE, OBS_GATE + OBS_LIVE)]
+    got = [(b["trigger"], b["start_step"], b["end_step"]) for b in bundles]
+    if got != want:
+        fail(f"30a: bundles {got}, expected {want}")
+    windows = []
+    for b in bundles:
+        meta = read_bundle_meta(b["path"])
+        device = meta["sources"]["device"]
+        folded = os.path.getsize(os.path.join(b["path"], "host_stacks.folded"))
+        if "trace_dir" not in device:
+            fail(f"30a: bundle {b['path']} has no device trace: {device}")
+        n_k1 = k1_kernels(os.path.join(b["path"], "device", "trace.json"))
+        print(f"  30a bundle {os.path.basename(b['path'])} ({b['trigger']}): window "
+              f"{meta['window']}, host samples {meta['sources']['host']['samples']}, "
+              f"folded {folded} B, K1 kernels in the device trace {n_k1}, bundle "
+              f"{dir_bytes(b['path'])} B", flush=True)
+        if not folded or n_k1 != meta["window"]["steps"]:
+            fail(f"30a: {b['path']}: folded stacks {folded} B, {n_k1} K1 kernels for "
+                 f"{meta['window']['steps']} steps")
+        windows.append(range(meta["window"]["start_step"], meta["window"]["end_step"]))
+    written = [r for r in trace_records(run_dir)
+               if r["type"] == "instant" and r["name"] == "profiler_trace_written"]
+    epoch_trace = os.path.join(prof_dir, "trace.json")
+    n_epoch = k1_kernels(epoch_trace) if os.path.isfile(epoch_trace) else None
+    print(f"  30a --profile-dir: {[r['attrs'] for r in written]}, K1 kernels {n_epoch}, "
+          f"{dir_bytes(prof_dir)} B", flush=True)
+    if len(written) != 1 or written[0]["attrs"]["epoch"] != 2 or n_epoch != OBS_STEPS:
+        fail(f"30a: the epoch trace: {written}, K1 kernels {n_epoch}")
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    with open(os.path.join(run_dir, "mem-p0.jsonl")) as f:
+        mem = [json.loads(line) for line in f][1:]
+    devs = [d for r in mem for d in r["devices"]]
+    print(f"  30a mem-p0.jsonl: {len(mem)} records over {steps} steps, bytes_in_use "
+          f"{min(d['bytes_in_use'] for d in devs)}..{max(d['bytes_in_use'] for d in devs)}, "
+          f"peak {max(d['peak_bytes_in_use'] for d in devs)}, limit {total}", flush=True)
+    if not mem or any(d["source"] != "memory_stats" or d["bytes_limit"] != total
+                      or not 0 < d["bytes_in_use"] <= d["peak_bytes_in_use"] <= total
+                      for d in devs):
+        fail("30a: mem-p0.jsonl lacks memory_stats records within the card's memory")
+    for argv in (["watch", run_dir, "--once", "--json"], ["mem", run_dir, "--json"],
+                 ["profile", run_dir]):
+        rc, text, seconds = read_back(argv)
+        print(f"  30a tpu-ddp-torch {argv[0]}: exit {rc}, {seconds:.4f} s", flush=True)
+        if rc:
+            fail(f"30a: tpu-ddp-torch {' '.join(argv)} exited {rc}:\n{text[-2000:]}")
+        if argv[0] == "watch":
+            report = json.loads(text)
+            if [h["host"] for h in report["snapshot"]["hosts"]] != [0] \
+                    or len(report["profiles"]) != 2:
+                fail(f"30a: watch saw hosts {report['snapshot']['hosts']}, "
+                     f"{len(report['profiles'])} bundles")
+
+    per_step = step_ms(run_dir)
+    in_window = [v for s, v in per_step.items() if any(s in w for w in windows)]
+    first_window = [v for s, v in per_step.items() if s in windows[0]]
+    epoch2 = [v for s, v in per_step.items() if OBS_STEPS <= s < 2 * OBS_STEPS]
+    outside = [v for s, v in per_step.items() if s > 0 and not any(s in w for w in windows)
+               and not OBS_STEPS <= s < 2 * OBS_STEPS]
+    parts = metrics["memtrack_s"]
+    samples = parts["sample"]
+    print(f"  30a ({smi}): /metrics scrape ms "
+          + " / ".join(f"{x[2] * 1e3:.3f}" for x in scrapes)
+          + f"; step ms (compiled_step + device_sync) p50 in the capture windows "
+          f"{statistics.median(in_window):.4f} (the first, with the process's first "
+          f"torch.profiler session, {statistics.median(first_window):.4f}), in the "
+          f"--profile-dir epoch {statistics.median(epoch2):.4f}, outside both "
+          f"{statistics.median(outside):.4f}; memory sample ms median "
+          f"{statistics.median(samples) * 1e3:.4f} ("
+          + ", ".join(f"{name} {statistics.median(v) * 1e3:.4f}" for name, v in parts.items()
+                      if name != "sample" and v)
+          + f") over {len(samples)} samples in {steps} steps "
+          f"({sum(samples) / steps * 1e3:.4f} ms a step)", flush=True)
+    stamp("phase 30a")
+
+
+
+def check_oom_child(oom_dir, oom_log, rc):
+    """Phase 30b's checks of the capped child that exited with ``rc``
+    (module docstring)."""
+    with open(oom_log) as f:
+        stderr = f.read()
+    tail = stderr.strip().splitlines()[-1:] or [""]
+    print(f"  30b: exit {rc}, {tail[0][:300]}", flush=True)
+    bundles = sorted(os.listdir(os.path.join(oom_dir, "oom"))) \
+        if os.path.isdir(os.path.join(oom_dir, "oom")) else []
+    # 1: the re-raised exception's own exit, not a signal in the teardown
+    if rc != 1 or "OutOfMemoryError" not in stderr or bundles != ["step_0-p0"]:
+        fail(f"30b: exit {rc}, postmortems {bundles}:\n{stderr[-3000:]}")
+    with open(os.path.join(oom_dir, "oom", "step_0-p0", "meta.json")) as f:
+        meta = json.load(f)
+    rc, text, _ = read_back(["goodput", oom_dir, "--json"])
+    exits = [e["exit"] for e in json.loads(text)["ledger"]["incarnations"]] if not rc else None
+    rc_mem, mem_text, _ = read_back(["mem", oom_dir, "--json"])
+    samples = json.loads(mem_text)["oom"][0]["n_samples"] if rc_mem == 1 else None
+    print(f"  30b postmortem: {meta['error_type']}, {meta['n_samples']} memory samples; "
+          f"goodput exit {rc}, lives {exits}; mem exit {rc_mem}", flush=True)
+    if meta["error_type"] != "OutOfMemoryError" or rc or exits != ["oom"] \
+            or rc_mem != 1 or samples != meta["n_samples"]:
+        fail("30b: the OOM was not classified oom")
+    stamp("phase 30b")
+
+
+def run_phase30(smi, ranks=False):
+    """Phase 30 (a) and (b) on one card, in a scratch directory; with
+    ``ranks``, phase 28c's two-rank job too (``tel_ranks``), whose checks
+    hold 30c (in the whole smoke it runs in phase 28)."""
+    import shutil
+    import tempfile
+
+    t30 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
+    try:
+        phase_observatories(tmp, smi)
+        if ranks:
+            tel_ranks(tmp, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 30 took {time.perf_counter() - t30:.1f} s", flush=True)
+
+
+def phase30_main():
+    """``python3 chip_smoke.py --phase 30``: the kernels built, then phase 30
+    alone on one card, 28c's two-rank job included."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
+    sys.path.insert(0, ROOT)
+    from tpu_ddp_torch import native
+    from tpu_ddp_torch.ops import _build
+
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    _build.build()
+    native.build()
+    run_phase30(smi, ranks=True)
+    print(f"chip_smoke --phase 30: ok ({smi})", flush=True)
+
+
 def phase27_nccl_main(nproc):
     """``python3 chip_smoke.py --nccl N --phase 27`` on a machine with N
     cards: phase 27's job alone at N ranks, one card each, over NCCL (pp
@@ -6898,6 +7303,10 @@ def main():
         return sp_ring_child(sys.argv[2])
     if sys.argv[1:2] == ["--life-child"]:
         return life_child(sys.argv[2], int(sys.argv[3]), sys.argv[4:])
+    if sys.argv[1:2] == ["--obs-child"]:
+        return obs_child(sys.argv[2], sys.argv[3:])
+    if sys.argv[1:2] == ["--oom-child"]:
+        return oom_child(sys.argv[2:])
     if sys.argv[1:2] == ["--nccl"]:
         if sys.argv[3:5] == ["--phase", "26"]:
             return phase26_main(int(sys.argv[2]))
@@ -6912,6 +7321,8 @@ def main():
         return phase28_main()
     if sys.argv[1:3] == ["--phase", "29"]:
         return phase29_main()
+    if sys.argv[1:3] == ["--phase", "30"]:
+        return phase30_main()
     import shutil
     import tempfile
 
@@ -7066,6 +7477,7 @@ def main():
     run_phase27(smi)
     run_phase28(smi)
     run_phase29(smi)
+    run_phase30(smi)
     print_accounting()
     rows += phase_lm_timing(results, flash_results, lm_runs["flash"]["launches"])
     stamp("phase 18d")

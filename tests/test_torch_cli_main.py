@@ -1,6 +1,6 @@
 """The port's umbrella CLI (``python -m tpu_ddp_torch.cli.main``, the
 ``tpu-ddp-torch`` script) against the JAX package's ``tpu-ddp``: the
-subcommand set is the JAX one less the eleven whose modules are not ported
+subcommand set is the JAX one less the eight whose modules are not ported
 yet; each shared subcommand gives the JAX exit code and, apart from the
 command's name and the trace summary's version line, the JAX output on the
 same run dirs; the read-back subcommands import neither torch nor numpy.
@@ -25,8 +25,7 @@ from tpu_ddp.cli.main import main as jax_main
 from tpu_ddp_torch.cli.main import main as port_main
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NOT_PORTED = {"elastic", "watch", "profile", "diagnose", "mem", "analyze", "lint", "tune",
-              "comms", "ops", "data"}
+NOT_PORTED = {"elastic", "diagnose", "analyze", "lint", "tune", "comms", "ops", "data"}
 RECIPE = dict(epochs=2, eval_each_epoch=True)
 
 
@@ -57,7 +56,7 @@ def test_subcommands_are_the_jax_ones_less_the_unported(capsys):
     assert NOT_PORTED <= jax_
     assert port == jax_ - NOT_PORTED
     assert port == {"train", "launch", "trace", "health", "goodput", "curves", "registry",
-                    "bench"}
+                    "bench", "watch", "profile", "mem"}
     with pytest.raises(SystemExit) as exit_:
         port_main(["diagnose", "x"])
     assert exit_.value.code == 2
@@ -150,6 +149,9 @@ READ_BACK = {
     "curves_diff": ["curves", "diff", "{inc}", "{plain}"],
     "registry": ["registry", "--registry", "{tmp}/reg", "trend"],
     "bench_compare": ["bench", "compare", "{tmp}/a.json", "{tmp}/a.json"],
+    "watch": ["watch", "{inc}", "--once", "--json", "--no-alerts-file"],
+    "profile": ["profile", "{tmp}/prof", "--no-ops"],
+    "mem": ["mem", "{inc}", "--json", "--no-plan"],
 }
 
 _PROBE = """
@@ -164,7 +166,13 @@ sys.exit(rc)
 
 @pytest.mark.parametrize("case", sorted(READ_BACK))
 def test_read_back_commands_import_no_torch(dirs, tmp_path, case):
+    from tpu_ddp_torch.profiler.capture import CaptureManager
+
     (tmp_path / "a.json").write_text(json.dumps({"metric": "m", "value": 1.0}))
+    capture = CaptureManager(str(tmp_path / "prof"), device_trace=False)
+    capture.arm_window(1, 2)
+    for step in (1, 2):
+        capture.on_step(step)
     argv = [a.format(inc=dirs["incident"], plain=dirs["plain"], tmp=tmp_path)
             for a in READ_BACK[case]]
     out = subprocess.run([sys.executable, "-c", _PROBE, json.dumps(argv)], cwd=ROOT,

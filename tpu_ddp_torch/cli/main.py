@@ -31,10 +31,19 @@ subcommands whose modules the port has:
 - ``tpu-ddp-torch bench compare old.json new.json`` — structured diff of
   two artifacts; exits 1 on regressions. ``--against <registry>``
   auto-selects the baseline from the perf registry.
+- ``tpu-ddp-torch watch <run_dir>`` — the live fleet monitor over a run
+  dir's per-rank files: per-rank steps/sec and phase p50s, straggler and
+  lost-host flags, the alert rules; ``--once --json`` for scripts (exit 1
+  while an alert fires).
+- ``tpu-ddp-torch profile <run_dir>`` — the capture bundles under
+  ``profiles/``: trigger provenance, host top stacks, the straggler diff.
+- ``tpu-ddp-torch mem <run_dir>`` — the memory record: timeline, measured
+  high-water against the limit, OOM postmortems (exit 1 when one exists);
+  ``--json`` is the registry's ``memtrack`` artifact.
 
-The JAX CLI's ``elastic``, ``watch``, ``profile``, ``diagnose``, ``mem``,
-``analyze``, ``lint``, ``tune``, ``comms``, ``ops`` and ``data`` come with
-their modules (ROADMAP.md, section 1).
+The JAX CLI's ``elastic``, ``diagnose``, ``analyze``, ``lint``, ``tune``,
+``comms``, ``ops`` and ``data`` come with their modules (ROADMAP.md,
+section 1).
 
 Every subcommand but ``train`` and ``launch`` is stdlib-only end to end: it
 imports neither torch nor numpy, so a run dir is read on any host, one
@@ -88,6 +97,20 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         from tpu_ddp_torch.cli.launch import main as launch_main
 
         return launch_main(argv[1:])
+    # watch, profile and mem own their argparse surfaces and are
+    # stdlib-only (the joins the JAX ones make through jax are notes here)
+    if argv[:1] == ["watch"]:
+        from tpu_ddp_torch.monitor.watch import main as watch_main
+
+        return watch_main(argv[1:])
+    if argv[:1] == ["profile"]:
+        from tpu_ddp_torch.profiler.report import main as profile_main
+
+        return profile_main(argv[1:])
+    if argv[:1] == ["mem"]:
+        from tpu_ddp_torch.memtrack.report import main as mem_main
+
+        return mem_main(argv[1:])
     # goodput is stdlib-only end to end (pure file archaeology)
     if argv[:1] == ["goodput"]:
         from tpu_ddp_torch.ledger.report import main as goodput_main
@@ -137,10 +160,28 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                                      "or a health file")
     health.set_defaults(func=_health_summarize)
     sub.add_parser(
+        "watch",
+        help="live fleet monitor over a run dir: per-host steps/sec + "
+             "phase p50s, straggler/lost-host flags, alert rules "
+             "(tpu-ddp-torch watch --help)",
+    )
+    sub.add_parser(
+        "profile",
+        help="render anomaly-profiler capture bundles: host top stacks, "
+             "per-op attribution, straggler diff "
+             "(tpu-ddp-torch profile --help)",
+    )
+    sub.add_parser(
         "goodput",
         help="cross-incarnation goodput/badput ledger + Young–Daly "
              "checkpoint-interval advisor over a run dir "
              "(tpu-ddp-torch goodput --help)",
+    )
+    sub.add_parser(
+        "mem",
+        help="memory truth loop over a run dir: live device-memory "
+             "timeline, measured-vs-planned reconciliation, OOM "
+             "postmortems (tpu-ddp-torch mem --help)",
     )
     sub.add_parser(
         "curves",

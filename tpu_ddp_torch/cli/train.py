@@ -22,7 +22,12 @@ SIGINT has saved its checkpoint and skips the final evaluation;
 and its flags (the JAX :237-252, :273-285, :387-391) turn the trainer's
 telemetry on; the sinks close after the final evaluation is recorded
 (``Trainer.record_final_eval``, the JAX :629), so the trace is a whole run
-record. Started by
+record. The live observatories' flags (the JAX :218-270:
+``--profile-dir``, ``--profile-steps``, ``--profile-window-steps``,
+``--profile-host-hz``, ``--monitor-port``, ``--monitor-bind``,
+``--monitor-allow-remote-trigger``) reach the trainer's capture manager,
+epoch trace and exporter; ``mem_sample_steps`` is a config field with no
+flag, as in JAX. Started by
 ``python -m tpu_ddp_torch.cli.launch``, it joins the launcher's process
 group first and trains data-parallel over the ranks (``--dist-backend``,
 a flag the JAX CLI does not need: one JAX process drives every device).
@@ -344,6 +349,42 @@ def build_parser() -> argparse.ArgumentParser:
                    action="store_false", default=True,
                    help="skip the per-step batch-content digest sink "
                         "(data-p<i>.jsonl) under --telemetry-dir")
+    p.add_argument("--profile-dir", default=None,
+                   help="emit a torch.profiler trace (Chrome trace JSON, "
+                        "Perfetto-loadable) for one steady-state epoch")
+    p.add_argument("--profile-steps", default=None, metavar="A:B",
+                   help="arm an anomaly-profiler capture window over "
+                        "global steps (A, B]: host stack sampling + "
+                        "device trace + measured phases, bundled under "
+                        "<telemetry-dir>/profiles/ and read back with "
+                        "`tpu-ddp-torch profile`. Windows can also be armed "
+                        "on a LIVE run: POST /profile?steps=N to "
+                        "--monitor-port, or the capture_profile alert "
+                        "action on `tpu-ddp-torch watch`")
+    p.add_argument("--profile-window-steps", type=int, default=8,
+                   metavar="N",
+                   help="window length (steps) for live-triggered "
+                        "captures (POST /profile or alert-armed)")
+    p.add_argument("--profile-host-hz", type=float, default=97.0,
+                   metavar="HZ",
+                   help="host stack sampler rate inside a capture window")
+    p.add_argument("--monitor-port", type=int, default=0, metavar="PORT",
+                   help="per-rank live monitor HTTP endpoint: /metrics "
+                        "(OpenMetrics, labeled with run id/strategy/"
+                        "mesh/rank), /snapshot.json, /healthz (watchdog "
+                        "heartbeat freshness). 0 = disabled, -1 = "
+                        "ephemeral port (recorded in exporter-p<i>.json "
+                        "under --telemetry-dir). See `tpu-ddp-torch watch`")
+    p.add_argument("--monitor-bind", default="0.0.0.0", metavar="ADDR",
+                   help="monitor endpoint bind address. The endpoint is "
+                        "UNauthenticated and /snapshot.json serves the "
+                        "run config — bind 127.0.0.1 (and scrape via a "
+                        "tunnel) on untrusted networks")
+    p.add_argument("--monitor-allow-remote-trigger", action="store_true",
+                   help="accept POST /profile from non-loopback peers "
+                        "(default: loopback-only — the endpoint is "
+                        "unauthenticated, and this route mutates run "
+                        "behavior)")
     return p
 
 
@@ -449,6 +490,13 @@ def config_from_args(args) -> TrainConfig:
         watchdog_deadline_seconds=args.watchdog_deadline,
         watchdog_abort=args.watchdog_abort,
         data_digests=args.data_digests,
+        profile_dir=args.profile_dir,
+        profile_steps=args.profile_steps,
+        profile_window_steps=args.profile_window_steps,
+        profile_host_hz=args.profile_host_hz,
+        monitor_port=args.monitor_port,
+        monitor_bind=args.monitor_bind,
+        monitor_allow_remote_trigger=args.monitor_allow_remote_trigger,
     )
 
 

@@ -11,9 +11,9 @@ dump location. The records are those of the JAX package (schema version
 Stdlib only, like the JAX module. The JAX module borrows its record loop
 (``telemetry/summarize.py::read_records``), its percentiles
 (``telemetry/registry.py::Histogram``) and its skew line
-(``monitor/aggregate.py::host_skew``) from other JAX modules; the port has
-none of them yet, so this module keeps its own copies
-(``read_records``, ``_Percentiles``, ``host_skew``).
+(``monitor/aggregate.py::host_skew``) from other JAX modules; it takes the
+skew line from the port's ``monitor/aggregate.py`` and keeps its own
+copies of the other two (``read_records``, ``_Percentiles``).
 """
 
 from __future__ import annotations
@@ -22,7 +22,6 @@ import glob
 import json
 import math
 import os
-import statistics
 from typing import Dict, Iterable, List, Optional
 
 #: Version of the health-record JSONL schema (the JAX package's).
@@ -100,18 +99,6 @@ class _Percentiles:
         return vals[rank]
 
 
-def host_skew(p50_by_host: Dict[int, float]) -> Optional[dict]:
-    """Largest per-host deviation of a p50 from the fleet median; None with
-    fewer than two reporting hosts."""
-    vals = {h: v for h, v in p50_by_host.items() if isinstance(v, (int, float))}
-    if len(vals) < 2:
-        return None
-    med = statistics.median(vals.values())
-    worst = max(vals, key=lambda h: abs(vals[h] - med))
-    return {"median": med, "max_delta": abs(vals[worst] - med), "host": worst,
-            "value": vals[worst]}
-
-
 def read_health_records(paths: Iterable[str]) -> List[dict]:
     return read_records(paths, schema_version=HEALTH_SCHEMA_VERSION, kind="health")
 
@@ -179,6 +166,8 @@ def summarize_health(path: str) -> str:
         v = r.get("grad_norm")
         if isinstance(v, (int, float)) and math.isfinite(v):
             per_host.setdefault(r.get("pid", 0), _Percentiles()).record(v)
+    from tpu_ddp_torch.monitor.aggregate import host_skew
+
     skew = host_skew({pid: h.percentile(50) for pid, h in per_host.items() if h.count})
     if skew:
         lines.append(

@@ -18,7 +18,6 @@ from __future__ import annotations
 import glob
 import json
 import os
-import statistics
 from typing import Dict, Iterable, List, Optional
 
 from tpu_ddp_torch.telemetry.events import SCHEMA_VERSION, SPAN
@@ -130,7 +129,7 @@ def last_counters(records: Iterable[dict]) -> Dict[int, dict]:
 def per_host_phase_p50(records: Iterable[dict],
                        phase: str) -> Dict[int, float]:
     """{pid: p50 seconds} of one phase's span durations — the input of
-    the multi-rank skew line (:func:`host_skew`)."""
+    the multi-rank skew line (``monitor/aggregate.py::host_skew``)."""
     by_host: Dict[int, Histogram] = {}
     for rec in records:
         if rec.get("type") != SPAN or rec.get("name") != phase:
@@ -297,24 +296,6 @@ def _read_json(path: str) -> Optional[dict]:
     return rec if isinstance(rec, dict) else None
 
 
-def host_skew(p50_by_host: Dict[int, float]) -> Optional[dict]:
-    """Max per-rank p50 deviation from the fleet median (the JAX
-    ``monitor/aggregate.py::host_skew``); None with fewer than two
-    reporting ranks."""
-    vals = {h: v for h, v in p50_by_host.items()
-            if isinstance(v, (int, float))}
-    if len(vals) < 2:
-        return None
-    med = statistics.median(vals.values())
-    worst = max(vals, key=lambda h: abs(vals[h] - med))
-    return {
-        "median": med,
-        "max_delta": abs(vals[worst] - med),
-        "host": worst,
-        "value": vals[worst],
-    }
-
-
 def format_comms_measured(measured: dict) -> List[str]:
     """The measured comms block: exposed (non-overlapped) comm share vs
     the comm-stripped twin, plus each host's last-window achieved
@@ -386,6 +367,8 @@ def summarize(path: str) -> str:
     lines += ["", format_phase_table(phases)]
     # several ranks: one skew line per loop phase with >= 2 reporting
     # ranks — the post-hoc twin of the live monitor's straggler verdict
+    from tpu_ddp_torch.monitor.aggregate import host_skew
+
     for phase in ("compiled_step", "data_wait"):
         skew = host_skew(per_host_phase_p50(records, phase))
         if skew:

@@ -187,11 +187,30 @@ telemetry; the checkpointer and the loaders emit theirs.
 ``record_final_eval`` folds the CLI's final evaluation into the final
 snapshot, which ``close()`` writes before it closes the sinks.
 
+The live observatories (``--monitor-port``, ``--monitor-bind``,
+``--monitor-allow-remote-trigger``, ``--profile-dir``, ``--profile-steps``,
+``--profile-window-steps``, ``--profile-host-hz`` and the
+``mem_sample_steps`` field; the JAX trainer's :763-790, :830-846,
+:1645-1683, :1885-1925, :2017-2048, :2075-2082, :2184-2195 and
+:2243-2268): with a run dir the trainer builds the profiler's capture
+manager (``profiler/capture.py``; ``--profile-steps A:B`` arms its window)
+and the memory sampler (``memtrack/sampler.py``, ``mem-p<rank>.jsonl``).
+``run`` starts the rank's HTTP exporter (``monitor/exporter.py``: a bind
+failure is a warning); after each call's watchdog beat the capture
+manager opens or closes its window and the sampler takes its reading.
+``--profile-dir`` traces the first steady epoch with ``torch.profiler``
+and emits ``profiler_trace_written``; one profiler session runs at a time,
+so a capture window that overlaps it degrades to a note, as in the JAX
+package. An allocation failure in ``run`` (``torch.cuda.OutOfMemoryError``
+included) takes one last memory sample, writes
+``oom/step_<n>-p<rank>/``, counts ``memory/oom_events``, emits the
+``oom_abort`` instant and re-raises (``_handle_possible_oom``). ``close``
+stops the exporter and writes an open window as a truncated bundle.
+
 Not ported yet: the JAX objects the trainer builds around a telemetry run
-dir (:726-871), which come with their modules: the elastic supervisor, the
-monitor exporter, the profiler's capture manager, the data-path stage
-monitor, the memory sampler (``memtrack``), chaos injection and the comms
-hop monitor (so the watchdog's hang bundle, which reads ``comms/``, is not
+dir (:726-871) that come with modules still to port: the elastic
+supervisor, the data-path stage monitor, chaos injection and the comms hop
+monitor (so the watchdog's hang bundle, which reads ``comms/``, is not
 written either).
 """
 
@@ -369,6 +388,20 @@ class TrainConfig:
     watchdog_deadline_seconds: float = 0.0  # >0: the hang watchdog's deadline
     watchdog_abort: bool = False          # exit HANG_EXIT_CODE after the dump
     data_digests: bool = True             # data-p<rank>.jsonl under telemetry
+    profile_dir: Optional[str] = None     # torch.profiler trace of ONE steady
+                                          # epoch (the first after the first)
+    profile_steps: Optional[str] = None   # "A:B": a capture window over global
+                                          # steps (A, B] into
+                                          # <telemetry_dir>/profiles/
+    profile_window_steps: int = 8         # live-triggered windows' length
+    profile_host_hz: float = 97.0         # the host stack sampler's rate
+    monitor_port: int = 0                 # >0: the rank's HTTP endpoint on this
+                                          # port; -1: ephemeral (written to
+                                          # exporter-p<rank>.json); 0: off
+    monitor_bind: str = "0.0.0.0"         # the endpoint's bind address
+    monitor_allow_remote_trigger: bool = False  # POST /profile from any peer
+    mem_sample_steps: int = 1             # >0: the memory sampler's stride
+                                          # (mem-p<rank>.jsonl under telemetry)
 
     def __post_init__(self):
         valid_sinks = tuple(DEFAULT_SINKS.split(","))
@@ -410,6 +443,29 @@ class TrainConfig:
             raise ValueError(
                 "--checkpoint-steps needs --checkpoint-dir: there is "
                 "nowhere to save the step-cadence checkpoints"
+            )
+        if self.monitor_port < -1 or self.monitor_port > 65535:
+            raise ValueError(
+                f"monitor_port must be -1 (ephemeral), 0 (disabled), or "
+                f"a TCP port, got {self.monitor_port}"
+            )
+        from tpu_ddp_torch.profiler.capture import parse_profile_steps
+
+        # raises on a malformed window spec — at parse time, not step A
+        parse_profile_steps(self.profile_steps)
+        if self.profile_steps and not self.telemetry_dir:
+            raise ValueError(
+                "--profile-steps needs --telemetry-dir: the capture "
+                "bundle is written under <telemetry_dir>/profiles/"
+            )
+        if self.profile_window_steps < 1:
+            raise ValueError(
+                "profile_window_steps must be >= 1, got "
+                f"{self.profile_window_steps}"
+            )
+        if self.profile_host_hz <= 0:
+            raise ValueError(
+                f"profile_host_hz must be > 0, got {self.profile_host_hz}"
             )
         if self.loss not in ("ce", "bce"):
             raise ValueError(f"unknown loss {self.loss!r}")
@@ -684,8 +740,10 @@ class Trainer:
             self._comm_bytes_per_step = (acct[f"{key}_bytes_on_wire_per_device"],
                                          acct[f"{key}_bytes_f32_per_device"])
         self._watchdog = None
+        self._init_observatories()
         self.history = {"train_loss": [], "step_loss": [], "epoch": []}
         self._prefetcher = None       # the native ring, built at first use
+        self._stream = None           # the epoch's batch stream while it runs
         self._copy_stream = None
         self.data_seconds = {"data_wait": 0.0, "h2d": 0.0}
         self.eval_batches = 0  # eval steps run so far (every evaluate call)
@@ -752,6 +810,41 @@ class Trainer:
                 c.telemetry_dir, process_index=self.rank, incarnation=self.incarnation,
                 seed=c.seed, run_id=self.run_meta["run_id"],
                 global_batch=c.per_shard_batch * self.data_size)
+
+    def _init_observatories(self) -> None:
+        """The objects the JAX trainer builds around a telemetry run dir
+        for the live observatories (its :763-790 and :830-846): the
+        profiler's capture manager (armed by ``--profile-steps``, ``POST
+        /profile`` or the ``capture_profile`` alert action) and the
+        memory sampler, each exactly when ``--telemetry-dir`` is set; the
+        ``--profile-dir`` directory, made now so a bad path fails before
+        training. The exporter starts in ``run``."""
+        c = self.config
+        self._exporter = None
+        self._epoch_tracing = False   # --profile-dir's session is running
+        self._last_host_step = 0      # the step an OOM postmortem is stamped
+        if c.profile_dir:
+            os.makedirs(c.profile_dir, exist_ok=True)
+        self._capture = self._memtrack = None
+        if not c.telemetry_dir:
+            return
+        from tpu_ddp_torch.memtrack.sampler import MemorySampler
+        from tpu_ddp_torch.profiler.capture import CaptureManager, parse_profile_steps
+
+        self._capture = CaptureManager(
+            c.telemetry_dir, process_index=self.rank,
+            window_steps=c.profile_window_steps, host_hz=c.profile_host_hz,
+            telemetry=self.telemetry, run_meta=self.run_meta,
+            cuda=self.device.type == "cuda")
+        window = parse_profile_steps(c.profile_steps)
+        if window:
+            self._capture.arm_window(*window)
+        if c.mem_sample_steps > 0:
+            self._memtrack = MemorySampler(
+                c.telemetry_dir, process_index=self.rank,
+                incarnation=self.incarnation, telemetry=self.telemetry,
+                every=c.mem_sample_steps, run_meta=self.run_meta,
+                device=self.device)
 
     def _init_steps(self, loss_fn, health) -> None:
         """``train_step``, and ``multi_step`` (the fused K-step call) under
@@ -1131,9 +1224,56 @@ class Trainer:
             old_handlers = {}
         try:
             return self._run_loop()
+        except Exception as e:
+            # an allocation failure writes its postmortem bundle and the
+            # oom_abort instant (the ledger's `oom` exit) before the
+            # re-raise; any other exception passes untouched
+            self._handle_possible_oom(e)
+            raise
         finally:
             for sig, handler in old_handlers.items():
                 signal.signal(sig, handler)
+
+    def _handle_possible_oom(self, exc: BaseException) -> None:
+        """Classify and document an allocation-failure death (the JAX
+        ``_handle_possible_oom`` :1885-1925): one last memory sample, the
+        postmortem bundle under ``<telemetry_dir>/oom/``, the
+        ``memory/oom_events`` counter and the ``oom_abort`` instant. Never
+        raises: forensics must not mask the original exception."""
+        try:
+            from tpu_ddp_torch.memtrack.postmortem import (
+                is_resource_exhausted,
+                write_postmortem,
+            )
+
+            if not is_resource_exhausted(exc):
+                return
+            c = self.config
+            step = int(self._last_host_step or 0)
+            samples = []
+            if self._memtrack is not None:
+                try:
+                    # one last reading at death: allocator statistics are
+                    # host-side reads, still served when the card is full
+                    self._memtrack.sample(step)
+                except Exception:
+                    pass
+                samples = self._memtrack.recent()
+            path = None
+            if c.telemetry_dir:
+                path = write_postmortem(
+                    c.telemetry_dir, step=step, process_index=self.rank,
+                    incarnation=self.incarnation, error=exc, samples=samples,
+                    config_snapshot=dataclasses.asdict(c), run_meta=self.run_meta)
+            tel = self.telemetry
+            if tel.enabled:
+                tel.count("memory/oom_events")
+                tel.instant("oom_abort", step=step, bundle=path, error=str(exc)[:300])
+            log.error("allocation failure at step %d (%s); %s", step, type(exc).__name__,
+                      (f"postmortem bundle -> {path}" if path else
+                       "no --telemetry-dir, postmortem bundle NOT written"))
+        except Exception:
+            pass
 
     def _run_loop(self) -> dict:
         c = self.config
@@ -1163,8 +1303,12 @@ class Trainer:
         timed_steps = 0
         metrics, out = {}, {}
         self._start_telemetry()
+        # --profile-dir traces the first steady epoch (the JAX :2075-2082):
+        # the second this run trains; a one-epoch run traces what it has
+        profile_epoch = min(first_epoch + 1, c.epochs) if c.profile_dir else None
         for epoch in range(first_epoch, c.epochs + 1):
             timed = epoch > first_epoch or c.epochs == first_epoch
+            traced_epoch = epoch == profile_epoch and self._start_epoch_trace()
             if timed:
                 throughput.start()
             epoch_t0 = time.perf_counter()
@@ -1172,7 +1316,7 @@ class Trainer:
             tel.current_step = host_step
             step_losses = []
             n_steps = 0                   # steps this run trained this epoch
-            stream = self._epoch_stream(K, skip if epoch == first_epoch else 0)
+            stream = self._stream = self._epoch_stream(K, skip if epoch == first_epoch else 0)
             for kind, dev_batch, n_real in stream:
                 # one rank drains at a call boundary; several agree at the
                 # epoch's end first, or a rank would block in the next
@@ -1186,10 +1330,18 @@ class Trainer:
                 step_losses.append(metrics["loss"].reshape(-1))
                 host_step += dn
                 n_steps += dn
+                self._last_host_step = host_step
                 if tel.enabled:
                     self._traced_step(metrics["loss"], host_step, dn, n_real)
                 if self._watchdog is not None:
                     self._watchdog.beat(host_step)
+                # after the beat, in the JAX order (:2184-2195): the capture
+                # window opens and closes on call boundaries, then the
+                # memory sample (host-side allocator reads, no sync)
+                if self._capture is not None:
+                    self._capture.on_step(host_step)
+                if self._memtrack is not None:
+                    self._memtrack.on_step(host_step)
                 if (self.health_monitor is not None and self.health_feed.push(
                         host_step - dn, metrics.pop("health"), dev_batch) == "halt"):
                     # the stats are the same on every rank, so is the
@@ -1218,6 +1370,10 @@ class Trainer:
                           else np.zeros(0, np.float32))
             if timed:
                 throughput.stop()
+            if traced_epoch:
+                # the fetch above waited for the epoch's steps; stopping
+                # here covers a drain during the traced epoch too
+                self._stop_epoch_trace(epoch)
             self.history["step_loss"].extend(float(x) for x in losses)
             if agree_any(self._preempted):
                 self.logger.log_text(
@@ -1337,8 +1493,9 @@ class Trainer:
     def _start_telemetry(self) -> None:
         """At the start of ``_run_loop``: the goodput baseline and its
         ``counters_baseline`` record (the registry is process-wide, so the
-        gauges measure against it), and the hang watchdog under
-        ``--watchdog-deadline`` (the JAX :1980-2016)."""
+        gauges measure against it), the hang watchdog under
+        ``--watchdog-deadline`` (the JAX :1980-2016) and the monitor
+        exporter under ``--monitor-port`` (:2017-2048)."""
         c, tel = self.config, self.telemetry
         reg = tel.registry
         self._goodput_baseline = {
@@ -1353,6 +1510,62 @@ class Trainer:
                 c.watchdog_deadline_seconds, heartbeat_dir=c.telemetry_dir,
                 process_index=self.rank, telemetry=tel,
                 abort_on_hang=c.watchdog_abort).start()
+        if c.monitor_port and self._exporter is None:
+            self._start_exporter()
+
+    def _start_exporter(self) -> None:
+        """The rank's live scrape endpoint (``monitor/exporter.py``). A bind
+        failure (the port taken) is a warning, as in the JAX trainer:
+        observability must never take down the training it observes."""
+        from tpu_ddp_torch.monitor.exporter import MonitorExporter
+
+        c = self.config
+        try:
+            self._exporter = MonitorExporter(
+                registry=self.telemetry.registry, run_meta=self.run_meta,
+                port=max(c.monitor_port, 0), host=c.monitor_bind,
+                process_index=self.rank, watchdog_provider=lambda: self._watchdog,
+                run_dir=c.telemetry_dir,
+                profile_trigger=(self._capture.request
+                                 if self._capture is not None else None),
+                allow_remote_trigger=c.monitor_allow_remote_trigger,
+            ).start()
+            log.info("monitor exporter on port %d (/metrics /snapshot.json /healthz)",
+                     self._exporter.port)
+        except OSError as e:
+            log.warning("monitor exporter failed to bind port %s: %s (continuing "
+                        "without the live endpoint)", c.monitor_port, e)
+
+    def _start_epoch_trace(self) -> bool:
+        """Arm ``--profile-dir``'s ``torch.profiler`` session for this
+        epoch; False, with a warning, when it cannot start (a capture
+        window's session already running: one at a time)."""
+        from tpu_ddp_torch.profiler.device import start_device_trace
+
+        note = start_device_trace(self.config.profile_dir, cuda=self.device.type == "cuda")
+        if note is not None:
+            log.warning("--profile-dir: no epoch trace (%s)", note)
+        self._epoch_tracing = note is None
+        return self._epoch_tracing
+
+    def _stop_epoch_trace(self, epoch: int) -> None:
+        """Write the epoch's trace into ``--profile-dir`` and say where:
+        the ``profiler_trace_written`` instant under telemetry, else a log
+        line (the JAX :2243-2268)."""
+        from tpu_ddp_torch.profiler.device import stop_device_trace
+
+        c, tel = self.config, self.telemetry
+        self._epoch_tracing = False
+        t0 = time.perf_counter()
+        note = stop_device_trace()
+        dump_seconds = time.perf_counter() - t0
+        if note is not None:
+            log.warning("--profile-dir: %s", note)
+        elif tel.enabled:
+            tel.instant("profiler_trace_written", path=os.path.abspath(c.profile_dir),
+                        epoch=epoch, dump_seconds=round(dump_seconds, 3))
+        else:
+            self.logger.log_text(f"profiler trace -> {c.profile_dir}")
 
     def _traced_step(self, loss: torch.Tensor, host_step: int, dn: int, n_real: int) -> None:
         """A traced step's tail (the JAX :2143-2165): the ``device_sync``
@@ -1468,19 +1681,40 @@ class Trainer:
             **({"test_accuracy": accuracy} if accuracy is not None else {}))
 
     def close(self) -> None:
-        """Stop the native prefetcher and the watchdog, finish in-flight
-        saves, close the metric sinks, the health record and the digest
-        sink, then the telemetry sinks (the final counters snapshot, the
-        Chrome trace, the phase table). Idempotent."""
+        """Stop the native prefetcher, the monitor exporter, the capture
+        manager (it writes an open window as a truncated bundle) and the
+        watchdog, finish in-flight saves, close the memory record, the
+        metric sinks, the health record and the digest sink, then the
+        telemetry sinks (the final counters snapshot, the Chrome trace, the
+        phase table). Idempotent."""
+        if self._stream is not None:
+            # a run that raised mid-epoch left its stream open: its gathers
+            # go back to the ring before the ring closes
+            self._stream.close()
+            self._stream = None
         if self._prefetcher is not None:
             self._prefetcher.close()
             self._prefetcher = None
+        if self._exporter is not None:
+            self._exporter.close()
+            self._exporter = None
+        if self._capture is not None:
+            # a window still open when the run ends is written as a
+            # truncated bundle: a preempted run's capture is evidence too
+            self._capture.close()
+        if self._epoch_tracing:          # the run raised in the traced epoch
+            from tpu_ddp_torch.profiler.device import stop_device_trace
+
+            self._epoch_tracing = False
+            stop_device_trace()
         if self._watchdog is not None:
             self._watchdog.stop()
             self._watchdog = None
         for ck in (self.checkpointer, self.best_checkpointer):
             if ck is not None:
                 ck.close()
+        if self._memtrack is not None:
+            self._memtrack.close()
         if self.health_monitor is not None:
             self.health_monitor.close()
         if self._data_digests is not None:
