@@ -507,8 +507,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     ``TEL_VIT_STEPS`` steps an epoch: K4-K6's launches unchanged by
     telemetry, MFU and the three arms' steady ms printed. (c) two gloo
     ranks sharing the card through the launcher, ``--grad-compress int8
-    --kernels --telemetry-dir``, a counting hop hook in each rank
-    (``rank_child``'s ``--hop-hook``): n hop calls a step (the ring's n - 1
+    --kernels --telemetry-dir`` under deterministic cuDNN, a counting hop
+    hook in each rank (``rank_child``'s ``--hop-hook``): n hop calls a step (the ring's n - 1
     and the gather phase), ``wire_bytes`` the hop's ``chunk_wire_bytes``
     over NetResDeep's leaves (n - 1 of them for the gather), K2 and K3 n a
     step as without a hook, each rank's ``trace-p<rank>.jsonl``, the
@@ -564,6 +564,39 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     job: each rank's ``exporter-p<rank>.json`` on its own port, ``watch
     --once --json`` over both ranks. ``python3 chip_smoke.py --phase 30``
     runs (a), (b) and 28c's job alone.
+31. The comms and data-path observatories and chaos injection
+    (``tpu_ddp_torch/comms``, ``datapath``, ``chaos``; ``phase31_checks``),
+    (a) and (b) in phase 28c's two-rank job. (a) 28c's run again with
+    ``--comms-monitor --prefetch-batches 2 --watchdog-deadline 4 --chaos``:
+    a ``comm_stall`` of 6 s on rank 0's first ring hop of step 3 (past the
+    deadline, no abort) and a 1.5 s ``data_stall`` on the gather from step
+    5: each rank leaves ``comms-health-p<r>.json``, ``data-health-p<r>.json``
+    and a hang bundle naming ``ring-all-reduce``/``s8``/``data``; the run
+    finishes, K1 1, K2 2 and K3 2 a step a rank, both faults fired once, the
+    losses and weights bitwise 28c's; the step p50 against 28c's. (b)
+    ``tpu-ddp-torch comms bench`` on the job's group (``rank_child``'s
+    ``--comms-bench``): all-reduce f32 and the f32 and int8 rings at 2**16
+    and 2**20 elements a rank, K2 and K3 counted exactly; ``registry
+    record`` takes the artifact as ``comms``, ``watch --once
+    --comms-baseline`` reads both ranks' comms views; prints the α-β lines.
+    (c) In this process: ``data bench --device cuda`` with the real h2d
+    copy, the stage monitor's five writes a batch timed alone, and ``data
+    report`` on (a)'s run dir naming the gather dominant. (d) In 28c's job
+    (``phase31_cost``), the monitors priced end to end: 32 steps of the
+    two-rank int8 run on the synchronous loader in four arms, each twice
+    (A B C D D C B A): without the stage monitor, with it (every telemetry
+    run's default), with ``--comms-monitor`` too, and the same with the
+    hook handed no probe to read; launches exact in each; prints each
+    arm's step period, the three differences and the hook's ms inside the
+    live step. ``python3 chip_smoke.py --phase 31`` runs it alone with
+    28c's job.
+
+Launcher jobs carry several runs each (``launch_dp_runs``; a run's own
+``rank_child`` options let unlike runs share a job): phase 26's three-rank
+run rides phases 14, 15 and 17's job, its two-rank run phase 27's, and 19d,
+21b and 22e share one; the smoke prints each job's start-up seconds (launch
+to the last rank's process group) and, at the end, the jobs and child
+processes it started (``print_jobs``).
 
 Phase 2 also builds the native data-path library (``tpu_ddp_torch/native``)
 with g++ from the checkout. The NetResDeep phases before 17 keep their
@@ -1936,6 +1969,7 @@ def phase_ring_on_card(tmp):
           "gloo, K2/K3 vs plain versions; one step's ring over all leaves", flush=True)
     out = os.path.join(tmp, "ring")
     os.makedirs(out)
+    OTHER_CHILDREN[0] += 2
     spawn(ring_rank, 2, out, init_file=os.path.join(out, "rdzv"), timeout=600)
     res = []
     for r in range(2):
@@ -2003,12 +2037,18 @@ SERIAL = "_serial"
 
 
 def rank_child(out_dir, args):
-    """One rank of phases 12, 14, 15, 17, 19d, 21b, 22e and 24, started by
-    the launcher: ``[--deterministic] [--poison-batch N] --run NAME ARGS...
-    [--run NAME ARGS...]``. Joins the process group once and trains each
-    run in turn on it, as the train CLI's ``run`` would (under cuDNN's
-    deterministic algorithms with ``--deterministic``), the launch,
-    wire-call and block-gather counts zeroed just before each; writes each
+    """One rank of phases 12, 14, 15, 17, 19d, 21b, 22e, 24, 26, 27, 28c and
+    31, started by the launcher: ``[--deterministic] [--poison-batch N]
+    [--hop-hook] --run NAME [OPTIONS] ARGS... [--run NAME [OPTIONS]
+    ARGS...]``. The options before the first ``--run`` hold for every run;
+    a run's own OPTIONS (``run_options``: ``--deterministic``,
+    ``--poison-batch N``, ``--hop-hook``, ``--comms-bench``) add to them for
+    that run alone, so unlike runs share one job. Joins the process group
+    once and trains each run in turn on it, as the train CLI's ``run``
+    would (under cuDNN's deterministic algorithms with ``--deterministic``),
+    the launch, wire-call and block-gather counts zeroed just before each;
+    a ``--comms-bench`` run instead calls ``tpu-ddp-torch comms bench ARGS``
+    on the same group and writes its exit code and launches. Writes each
     run's counts, metrics and final weights (under ``--zero3`` gathered:
     every rank takes part) to ``out_dir/NAME``. The metrics also carry the
     device memory allocated just before each train step after the first
@@ -2024,7 +2064,15 @@ def rank_child(out_dir, args):
     (``Trainer.model_state``, a collective) before each step and after the
     last, into ``out_dir/NAME/states.pt`` from rank 0. Each run's metrics
     carry the line its strategy printed (``strategy_line``: pp's schedule). Each run's metrics also carry
-    the param and optimizer-state bytes this rank holds (``held_bytes``)."""
+    the param and optimizer-state bytes this rank holds (``held_bytes``).
+    With ``--hop-hook`` a counting hop hook is installed just before the
+    run's trainer is built and cleared after it (a ``--comms-monitor``
+    trainer installs its own and clears it at its close). With
+    ``--cycle-monitors`` (phase 31d) a ``--comms-monitor`` run switches its
+    monitors step by step (``MonitorCycle``): the arm of each step and the
+    hop hook's ms by arm go into its metrics (``cycle_arms``,
+    ``hop_ms_by_arm``). Each run's metrics carry the host clock at each
+    train step's call (``step_starts``, s)."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -2035,13 +2083,14 @@ def rank_child(out_dir, args):
     from tpu_ddp_torch.tools.ring_compare import wire_counter
     from tpu_ddp_torch.train.trainer import Trainer
 
+    job = {"deterministic": False, "poison": None, "hop_hook": False}
     if args[:1] == ["--deterministic"]:
-        torch.backends.cudnn.deterministic = True
+        job["deterministic"] = True
         args = args[1:]
-    poisoned = None
     if args[:1] == ["--poison-batch"]:
-        poisoned = int(args[1])
-        poison_batch(poisoned, rank=0)
+        # job-wide: the job's train batches counted over all its runs
+        job["poison"] = int(args[1])
+        poison_batch(job["poison"], rank=0)
         args = args[2:]
     sp_lm = sp_lm_zero1 = None
     if args[:1] == ["--then-sp-lm"]:
@@ -2054,12 +2103,14 @@ def rank_child(out_dir, args):
     if args[:1] == ["--save-states"]:
         keep_states = args[1].split(",")
         args = args[2:]
-    hops = None
     if args[:1] == ["--hop-hook"]:
-        hops = []
-        collectives.set_ring_hop_hook(lambda probe, **kw: hops.append(
-            [kw["kind"], kw["dtype"], kw["hop"], kw["n_hops"], kw["wire_bytes"]]))
+        job["hop_hook"] = True
         args = args[1:]
+    hops = []
+
+    def count_hop(probe, **kw):
+        hops.append([kw["kind"], kw["dtype"], kw["hop"], kw["n_hops"], kw["wire_bytes"]])
+
     gathers = [0]
     issue = collectives.BlockGather._issue
 
@@ -2075,31 +2126,48 @@ def rank_child(out_dir, args):
         i = j
     rank = int(os.environ["RANK"])
     wire = wire_counter()
-    parsed = [(name, cli.build_parser().parse_args(a)) for name, a in runs]
-    first = cli.config_from_args(parsed[0][1])
+    runs = [(name, *run_options(a, job)) for name, a in runs]
+    parsed = [(name, opts, a if opts["comms_bench"] else cli.build_parser().parse_args(a))
+              for name, opts, a in runs]
+    first = next(cli.config_from_args(ns) for _, opts, ns in parsed if not opts["comms_bench"])
     runtime.initialize_distributed(first.device, first.dist_backend)
+    mark_started(out_dir)
     try:
-        for name, ns in parsed:
+        for name, opts, ns in parsed:
+            torch.backends.cudnn.deterministic = opts["deterministic"]
+            out = os.path.join(out_dir, name)
+            if opts["comms_bench"]:
+                comms_bench_run(out, rank, ns)
+                continue
             config = cli.config_from_args(ns)
             reset_default_registry()
-            if hops is not None:
-                hops.clear()
+            hops.clear()
             wire.update(dict.fromkeys(wire, 0))
             gathers[0] = 0
+            poisoned = opts["poison"]
+            undo = poison_batch(poisoned, rank=0) if opts["own_poison"] else None
+            if opts["hop_hook"]:
+                collectives.set_ring_hop_hook(count_hop)
             ops.reset_launch_counts()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            t_run = time.perf_counter()
             trainer = Trainer(config)
             if name.endswith(SERIAL):
                 trainer.zero1.prefetch = False
+            cycle = MonitorCycle(trainer, collectives) if opts["cycle_monitors"] else None
             between, bits, inner = [], {}, trainer.train_step
+            starts = []
             kept = [] if name in keep_states else None
             # a weak reference: the trainer holds this function, and a cycle
             # would keep the run's state alive into the next run's memory
             owner = weakref.ref(trainer)
 
             def watched(state, batch, inner=inner, between=between, bits=bits, kept=kept,
-                        owner=owner):
+                        owner=owner, starts=starts, cycle=cycle):
+                starts.append(time.perf_counter())
+                if cycle is not None:
+                    cycle.step(len(starts) - 1)
                 if kept is not None:
                     kept.append({k: v.to("cpu", copy=True)
                                  for k, v in owner().model_state().items()})
@@ -2117,7 +2185,12 @@ def rank_child(out_dir, args):
                 metrics = cli._run_and_report(ns, config, trainer)
             finally:
                 trainer.close()
+                if opts["hop_hook"]:
+                    collectives.set_ring_hop_hook(None)
+                if undo is not None:
+                    undo()
             torch.cuda.synchronize()
+            metrics["run_seconds"] = time.perf_counter() - t_run
             metrics["launches"] = ops.launch_counts()
             metrics["wire_calls"] = dict(wire)
             metrics["block_gathers"] = gathers[0]
@@ -2126,12 +2199,14 @@ def rank_child(out_dir, args):
             metrics["strategy_line"] = trainer.strategy_line
             metrics["summary_sink"] = any(isinstance(s, TerminalSummarySink)
                                           for s in trainer.telemetry.sinks)
-            if hops is not None:
+            if opts["hop_hook"]:
                 metrics["hop_calls"] = list(hops)
+            metrics["step_starts"] = starts
+            if cycle is not None:
+                metrics["cycle_arms"], metrics["hop_ms_by_arm"] = cycle.arms, cycle.hop_ms
             metrics.update(held_bytes(trainer))
             if bits:
                 metrics["poisoned_step_bitwise"] = same_state(bits["before"], bits["after"])
-            out = os.path.join(out_dir, name)
             with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
                 json.dump(metrics, f)
             torch.save({k: v.cpu() for k, v in trainer.model_state().items()},
@@ -2147,6 +2222,136 @@ def rank_child(out_dir, args):
             sp_lm_zero1_runs(os.path.join(out_dir, "sp_lm_zero1"), sp_lm_zero1)
     finally:
         runtime.shutdown()
+
+
+#: rank_child's per-run options and the arguments each takes
+RUN_OPTIONS = {"--deterministic": 0, "--poison-batch": 1, "--hop-hook": 0, "--comms-bench": 0,
+               "--cycle-monitors": 0}
+
+#: 31d's arms: neither monitor, the stage monitor alone, both, and both
+#: with the hop hook handed no probe to read; the order a run cycles
+#: through them, one step each
+P31_ARMS = ("bare", "stages", "hops", "hops_no_probe")
+P31_CYCLE = (0, 1, 2, 3, 3, 2, 1, 0)
+
+
+class MonitorCycle:
+    """Phase 31d inside one ``--comms-monitor`` run: before train step k
+    (``step``) the arm ``P31_ARMS[P31_CYCLE[k % 8]]`` sets the loader's
+    observer (the trainer's stage monitor, or None for ``bare``) and the
+    ring's hop hook (the trainer's ``HopMonitor.on_hop`` behind a timer
+    for the two ``hops`` arms, else none). Step k's ring and the load of
+    batch k + 1 both run under step k's arm, so the period from step k's
+    call to step k + 1's is that arm's. ``hop_ms``: ``[k, ms]`` a hook call
+    by arm. The trainer's close clears the hook."""
+
+    def __init__(self, trainer, collectives):
+        self.collectives, self.loader = collectives, trainer.train_loader
+        self.monitor = trainer._datapath
+        self.hook = collectives.set_ring_hop_hook(None)
+        if self.hook is None or self.monitor is None:
+            fail("--cycle-monitors needs --comms-monitor and --telemetry-dir")
+        self.k, self.arm, self.arms = None, None, []
+        self.hop_ms = {arm: [] for arm in P31_ARMS[2:]}
+
+    def step(self, k):
+        self.k, self.arm = k, P31_ARMS[P31_CYCLE[k % len(P31_CYCLE)]]
+        self.arms.append(self.arm)
+        self.loader.observer = None if self.arm == "bare" else self.monitor
+        self.collectives.set_ring_hop_hook(self.timed if self.arm in self.hop_ms else None)
+
+    def timed(self, probe, **kw):
+        t0 = time.perf_counter()
+        self.hook(None if self.arm == "hops_no_probe" else probe, **kw)
+        self.hop_ms[self.arm].append([self.k, (time.perf_counter() - t0) * 1e3])
+
+
+def run_options(args, job):
+    """``(options, rest)``: a run's leading ``RUN_OPTIONS`` on top of the
+    job's (``job``: ``deterministic``, ``poison``, ``hop_hook``), and its
+    remaining arguments (the train CLI's, or ``comms bench``'s). A run's own
+    ``--poison-batch N`` poisons its own N-th batch (``own_poison``); the
+    job's counts the batches of the whole job, as it always has."""
+    opts = dict(job, comms_bench=False, own_poison=False, cycle_monitors=False)
+    while args and args[0] in RUN_OPTIONS:
+        flag, value = args[0], args[1:1 + RUN_OPTIONS[args[0]]]
+        args = args[1 + RUN_OPTIONS[flag]:]
+        if flag == "--poison-batch":
+            opts["poison"], opts["own_poison"] = int(value[0]), True
+        else:
+            opts[flag[2:].replace("-", "_")] = True
+    return opts, args
+
+
+def comms_bench_run(out, rank, argv):
+    """A ``--comms-bench`` run of ``rank_child``: ``tpu-ddp-torch comms
+    bench ARGV`` on the job's process group, its launches counted from 0;
+    writes ``{"rc", "launches"}`` and an empty weights file for
+    ``launch_dp_runs``."""
+    import torch
+
+    from tpu_ddp_torch import ops
+    from tpu_ddp_torch.comms.cli import main as comms_main
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = comms_main(["bench", *argv])
+    torch.cuda.synchronize()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump({"rc": rc, "launches": ops.launch_counts(),
+                   "seconds": time.perf_counter() - t0}, f)
+    torch.save({}, os.path.join(out, f"rank{rank}.pt"))
+
+
+#: every launcher job of this run: (phase, ranks, start-up s, wall s); and
+#: the child processes started without the launcher
+JOBS = []
+OTHER_CHILDREN = [0]
+
+
+def mark_started(out_dir):
+    """A rank child's marker, once its process group is up:
+    ``out_dir/started-rank<r>`` holding the wall time (``smoke_job``)."""
+    with open(os.path.join(out_dir, f"started-rank{os.environ.get('RANK', '0')}"), "w") as f:
+        f.write(repr(time.time()))
+
+
+def smoke_job(argv, nproc, phase, out_dir):
+    """``chip_smoke.py ARGV`` through the launcher on ``nproc`` ranks, each
+    of which marks ``out_dir`` once its group is up (``mark_started``);
+    records the job's start-up seconds (launch to the last rank's group up)
+    and wall seconds in ``JOBS``, and prints them. Returns the exit code."""
+    from tpu_ddp_torch.cli.launch import run_job
+
+    t0, c0 = time.time(), time.perf_counter()
+    rc = run_job([sys.executable, os.path.abspath(__file__), *argv], nproc_per_node=nproc)
+    wall = time.perf_counter() - c0
+    marks = []
+    for r in range(nproc):
+        try:
+            with open(os.path.join(out_dir, f"started-rank{r}")) as f:
+                marks.append(float(f.read()))
+        except (OSError, ValueError):
+            pass
+    startup = max(marks) - t0 if len(marks) == nproc else None
+    JOBS.append((phase, nproc, startup, wall))
+    print(f"  launcher job {len(JOBS)} (phase {phase}): {nproc} ranks, start-up "
+          + (f"{startup:.2f} s" if startup is not None else "not measured (a rank did not "
+             "start)") + f", {wall:.2f} s in all", flush=True)
+    return rc
+
+
+def print_jobs():
+    """The run's launcher jobs, their child processes and start-ups."""
+    ranks = sum(n for _, n, _, _ in JOBS)
+    ups = [s for _, _, s, _ in JOBS if s is not None]
+    print(f"launcher jobs: {len(JOBS)} ({ranks} rank processes), other child processes: "
+          f"{OTHER_CHILDREN[0]}; start-up s by job: "
+          + ", ".join(f"{p}: {s:.2f}" if s is not None else f"{p}: -"
+                      for p, _, s, _ in JOBS)
+          + f"; start-up total {sum(ups):.1f} s, job wall total "
+          f"{sum(w for _, _, _, w in JOBS):.1f} s", flush=True)
 
 
 def held_bytes(trainer):
@@ -2165,34 +2370,38 @@ def held_bytes(trainer):
 
 def launch_dp_runs(tmp, runs, nproc, phase="12", deterministic=False, poison=None,
                    extra=()):
-    """The ``(name, args)`` runs through the launcher on ``nproc`` ranks, one
-    after another in one job (``rank_child``: one process start and one
-    process group for all of them), under deterministic cuDNN, and with rank
-    0's ``poison``-th batch all NaN (``poison_batch``) when asked. Returns
-    ``{name: (every rank's metrics, whether the ranks' weights are bitwise
-    equal)}``. ``extra``: more of ``rank_child``'s options."""
+    """The ``(name, args)`` or ``(name, args, options)`` runs through the
+    launcher on ``nproc`` ranks, one after another in one job
+    (``rank_child``: one process start and one process group for all of
+    them), under deterministic cuDNN, and with rank 0's ``poison``-th batch
+    all NaN (``poison_batch``) when asked; a run's ``options`` are
+    ``rank_child``'s per-run ones (``run_options``). Returns ``{name:
+    (every rank's metrics, whether the ranks' weights are bitwise
+    equal)}``. ``extra``: more of ``rank_child``'s job-wide options."""
     import torch
-
-    from tpu_ddp_torch.cli.launch import run_job
 
     how = ", deterministic cuDNN" if deterministic else ""
     if poison is not None:
         how += f", rank 0's batch {poison} all NaN"
     argv = []
-    for name, args in runs:
+    os.makedirs(tmp, exist_ok=True)
+    for name, args, *options in runs:
+        options = options[0] if options else []
         os.makedirs(os.path.join(tmp, name))
-        print(f"phase {phase}{how}: python -m tpu_ddp_torch.cli.launch --nproc-per-node "
-              f"{nproc} -- python -m tpu_ddp_torch.cli.train {' '.join(args)}", flush=True)
-        argv += ["--run", name, *args]
-    rc = run_job([sys.executable, os.path.abspath(__file__), "--rank-child", tmp,
-                  *(["--deterministic"] if deterministic else []),
-                  *(["--poison-batch", str(poison)] if poison is not None else []), *extra,
-                  *argv],
-                 nproc_per_node=nproc)
+        what = ("tpu_ddp_torch.cli.main comms bench" if "--comms-bench" in options
+                else "tpu_ddp_torch.cli.train")
+        print(f"phase {phase}{how}{' ' + ' '.join(options) if options else ''}: python -m "
+              f"tpu_ddp_torch.cli.launch --nproc-per-node {nproc} -- python -m {what} "
+              f"{' '.join(args)}", flush=True)
+        argv += ["--run", name, *options, *args]
+    rc = smoke_job(["--rank-child", tmp,
+                    *(["--deterministic"] if deterministic else []),
+                    *(["--poison-batch", str(poison)] if poison is not None else []), *extra,
+                    *argv], nproc, phase, tmp)
     if rc:
         fail(f"the {nproc}-rank job exited with {rc}")
     out = {}
-    for name, _ in runs:
+    for name, *_ in runs:
         metrics = []
         for r in range(nproc):
             with open(os.path.join(tmp, name, f"rank{r}.json")) as f:
@@ -2201,12 +2410,6 @@ def launch_dp_runs(tmp, runs, nproc, phase="12", deterministic=False, poison=Non
         out[name] = (metrics, all(torch.equal(weights[0][k], w[k])
                                   for w in weights[1:] for k in w))
     return out
-
-
-def launch_dp(tmp, name, args, nproc, phase="12", deterministic=False, poison=None):
-    """One run through ``launch_dp_runs``: (every rank's metrics, whether the
-    ranks' weights are bitwise equal)."""
-    return launch_dp_runs(tmp, [(name, args)], nproc, phase, deterministic, poison)[name]
 
 
 def phase_dp_main_path(tmp, nproc=2, backend="gloo"):
@@ -3206,6 +3409,7 @@ def lm_rank_child(out_dir, backend):
     from tpu_ddp_torch.train.optim import decay_mask, make_optimizer
 
     runtime.initialize_distributed("cuda", backend)
+    mark_started(out_dir)
     try:
         rank, world = runtime.rank(), runtime.world_size()
         device = runtime.rank_device("cuda", backend)
@@ -3250,15 +3454,12 @@ def phase_lm_ranks(tmp, nproc=LM_RANKS, backend="gloo"):
     launcher (two sharing the card over gloo; one card each over NCCL)."""
     import torch
 
-    from tpu_ddp_torch.cli.launch import run_job
-
     out = os.path.join(tmp, f"lm_{nproc}_{backend}")
     os.makedirs(out)
     print(f"phase 18c: LM-default (T = {LM_RANK_SEQ}, {LM_RANK_ROWS} rows a rank) "
           f"--kernels --zero1 int8 + error feedback, flash attention, on {nproc} "
           f"ranks over {backend}, {LM_RANK_STEPS} steps", flush=True)
-    rc = run_job([sys.executable, os.path.abspath(__file__), "--lm-rank-child", out,
-                  backend], nproc_per_node=nproc)
+    rc = smoke_job(["--lm-rank-child", out, backend], nproc, "18c", out)
     if rc:
         fail(f"the {nproc}-rank LM run exited with {rc}")
     metrics = []
@@ -3512,12 +3713,9 @@ def phase_finetune(tmp, smi):
     return runs
 
 
-def phase_finetune_ranks(tmp, nproc=FT_RANKS, backend="gloo"):
-    """Phase 19 (d): ResNet-18 at CIFAR-100 widths fine-tuned from a file
-    with ``--zero1 --grad-compress int8 --grad-compress-error-feedback
-    --freeze head --kernels`` on ``nproc`` ranks (two sharing the card over
-    gloo; one card each over NCCL), under deterministic cuDNN: replicas
-    bitwise, frozen params the file's, launches and wire calls exact."""
+def ft_ranks_spec(tmp, nproc=FT_RANKS, backend="gloo"):
+    """Phase 19 (d)'s run ``(name, args, options)`` for ``launch_dp_runs``,
+    and the params of the file it fine-tunes from (written into ``tmp``)."""
     import torch
 
     from tpu_ddp_torch.models import MODEL_REGISTRY
@@ -3534,8 +3732,22 @@ def phase_finetune_ranks(tmp, nproc=FT_RANKS, backend="gloo"):
                    "--pretrained-dir", path, "--dist-backend", backend,
                    classes=FT_PRETRAIN_CLASSES, model="resnet18",
                    steps_per_epoch=FT_RANK_STEPS_PER_EPOCH, nproc=nproc)
-    label = f"ft_ranks{nproc}_{backend}"
-    metrics, same = launch_dp(tmp, label, args, nproc, phase="19d", deterministic=True)
+    return (f"ft_ranks{nproc}_{backend}", args, ["--deterministic"]), params
+
+
+def phase_finetune_ranks(tmp, nproc=FT_RANKS, backend="gloo", runs=None):
+    """Phase 19 (d): ResNet-18 at CIFAR-100 widths fine-tuned from a file
+    with ``--zero1 --grad-compress int8 --grad-compress-error-feedback
+    --freeze head --kernels`` on ``nproc`` ranks (two sharing the card over
+    gloo; one card each over NCCL), under deterministic cuDNN: replicas
+    bitwise, frozen params the file's, launches and wire calls exact.
+    ``runs``: the results of a job that ran it already
+    (``variant_ranks_runs``); without them it runs in a job of its own."""
+    run, params = ft_ranks_spec(tmp, nproc, backend)
+    label = run[0]
+    if runs is None:
+        runs = launch_dp_runs(tmp, [run], nproc, phase="19d")
+    metrics, same = runs[label]
     weights = rank_weights(tmp, label, nproc)
     steps = FT_EPOCHS * FT_RANK_STEPS_PER_EPOCH
     want = {name: 0 for name in metrics[0]["launches"]}
@@ -3561,6 +3773,15 @@ def phase_finetune_ranks(tmp, nproc=FT_RANKS, backend="gloo"):
     if not all(math.isfinite(x) for x in losses):
         fail("the ranks' fine-tune losses are not finite")
     return metrics
+
+
+def variant_ranks_runs(tmp):
+    """Phases 19d, 21b and 22e's two-rank runs in one job, each with its
+    own ``rank_child`` options (one process start for the three); their
+    checks read the results later (``phase_finetune_ranks``,
+    ``phase_health_ranks``, ``phase_scan_ranks`` with ``runs``)."""
+    runs = [ft_ranks_spec(tmp)[0], health_ranks_spec(tmp)[0], scan_ranks_spec()]
+    return launch_dp_runs(tmp, runs, 2, phase="19d, 21b and 22e")
 
 
 def phase_finetune_timing(results, runs):
@@ -4280,13 +4501,9 @@ def phase_health_skip(tmp):
         fail("21a: the health records of the K1 and plain runs differ")
 
 
-def phase_health_ranks(tmp, nproc=2, backend="gloo"):
-    """Phase 21b: two ranks through the launcher, ``--kernels --zero1
-    --grad-compress int8`` without error feedback (K2's error pass runs for
-    health alone), ``skip_step``, rank 0's fifth batch all NaN: both ranks'
-    health files equal, the same step skipped on both, replicas bitwise,
-    ``compress_error_norm`` finite and above 0 on the healthy steps,
-    launches and the ring's wire calls exact."""
+def health_ranks_spec(tmp, nproc=2, backend="gloo"):
+    """Phase 21b's run ``(name, args, options)`` for ``launch_dp_runs``
+    (rank 0's ``HEALTH_POISON``-th batch all NaN), and its health dir."""
     run_dir = os.path.join(tmp, "health_ranks")
     args = ["--device", "cuda", "--dist-backend", backend, "--synthetic-data",
             "--synthetic-size", str(nproc * 32 * HEALTH_RANK_STEPS), "--epochs", "1",
@@ -4295,8 +4512,21 @@ def phase_health_ranks(tmp, nproc=2, backend="gloo"):
             "--momentum", "0.9", "--log-every-epochs", "1", "--health", "on",
             "--health-policy", "skip_step", "--health-per-layer-stride", "5",
             "--health-dir", run_dir]
-    metrics, same = launch_dp(tmp, "health_ranks_out", args, nproc, phase="21b",
-                              poison=HEALTH_POISON)
+    return ("health_ranks_out", args, ["--poison-batch", str(HEALTH_POISON)]), run_dir
+
+
+def phase_health_ranks(tmp, nproc=2, backend="gloo", runs=None):
+    """Phase 21b: two ranks through the launcher, ``--kernels --zero1
+    --grad-compress int8`` without error feedback (K2's error pass runs for
+    health alone), ``skip_step``, rank 0's fifth batch all NaN: both ranks'
+    health files equal, the same step skipped on both, replicas bitwise,
+    ``compress_error_norm`` finite and above 0 on the healthy steps,
+    launches and the ring's wire calls exact. ``runs``: as
+    ``phase_finetune_ranks``'."""
+    run, run_dir = health_ranks_spec(tmp, nproc, backend)
+    if runs is None:
+        runs = launch_dp_runs(tmp, [run], nproc, phase="21b")
+    metrics, same = runs[run[0]]
     recs = [health_records(run_dir, r) for r in range(nproc)]
     bad = [[r["step"] for r in rec if not r["all_finite"]] for rec in recs]
     errs = [r["compress_error_norm"] for r in recs[0] if r["all_finite"]]
@@ -4648,12 +4878,20 @@ def phase_dump_predictions(tmp):
         fail("22d: the dump does not hold the test set's predictions and accuracy")
 
 
-def phase_scan_ranks(tmp, nproc=2, backend="gloo"):
-    """Phase 22e: two ranks through the launcher, ``--steps-per-call 4``
-    over the int8 ring with error feedback (module docstring)."""
+def scan_ranks_spec(nproc=2, backend="gloo"):
+    """Phase 22e's run ``(name, args)`` for ``launch_dp_runs``."""
     args = short_args(dp_args(True, nproc, backend), nproc, P22_RANK_STEPS)
-    args += ["--steps-per-call", "4"]
-    metrics, same = launch_dp(tmp, "scan_ranks", args, nproc, phase="22e")
+    return "scan_ranks", args + ["--steps-per-call", "4"]
+
+
+def phase_scan_ranks(tmp, nproc=2, backend="gloo", runs=None):
+    """Phase 22e: two ranks through the launcher, ``--steps-per-call 4``
+    over the int8 ring with error feedback (module docstring). ``runs``: as
+    ``phase_finetune_ranks``'."""
+    run = scan_ranks_spec(nproc, backend)
+    if runs is None:
+        runs = launch_dp_runs(tmp, [run], nproc, phase="22e")
+    metrics, same = runs[run[0]]
     check_run("22e", metrics, same, P22_RANK_STEPS, dp_launches(nproc))
     wire = {k: v * P22_RANK_STEPS for k, v in ring_wire_calls(nproc, True, False).items()}
     for r, m in enumerate(metrics):
@@ -4813,6 +5051,7 @@ def sync_bn_child(out_dir, args):
     rank = int(os.environ["RANK"])
     base = cli.config_from_args(cli.build_parser().parse_args(args))
     runtime.initialize_distributed(base.device, base.dist_backend)
+    mark_started(out_dir)
     out = {}
     try:
         for label, sync in (("sync", True), ("local", False)):
@@ -4851,7 +5090,6 @@ def phase_sync_bn(tmp, smi, nproc=2):
 
     from tpu_ddp_torch import ops
     from tpu_ddp_torch.cli import train as cli
-    from tpu_ddp_torch.cli.launch import run_job
     from tpu_ddp_torch.train.trainer import Trainer
 
     def bn_args(batch, *extra):
@@ -4866,8 +5104,7 @@ def phase_sync_bn(tmp, smi, nproc=2):
     print(f"phase 23b, deterministic cuDNN: python -m tpu_ddp_torch.cli.launch "
           f"--nproc-per-node {nproc} -- python -m tpu_ddp_torch.cli.train {' '.join(args)} "
           "with and without --sync-bn", flush=True)
-    rc = run_job([sys.executable, os.path.abspath(__file__), "--sync-bn-child", out, *args],
-                 nproc_per_node=nproc)
+    rc = smoke_job(["--sync-bn-child", out, *args], nproc, "23b", out)
     if rc:
         fail(f"23b: the {nproc}-rank run exited with {rc}")
     ranks = []
@@ -5372,6 +5609,7 @@ def sp_ring_child(out_dir):
     )
 
     runtime.initialize_distributed("cuda", "gloo")
+    mark_started(out_dir)
     try:
         world = runtime.world_size()
         # every rank builds every layout's groups, in the same order
@@ -5478,13 +5716,11 @@ def sp_ring_child(out_dir):
 def phase_sp_ring(tmp, smi):
     """Phase 25 (a): ``sp_ring_child`` on ``max(SP_RINGS)`` ranks sharing
     the card: its rings of each size in turn, in one job."""
-    from tpu_ddp_torch.cli.launch import run_job
 
     world = max(SP_RINGS)
     out = os.path.join(tmp, "sp_ring")
     os.makedirs(out)
-    rc = run_job([sys.executable, os.path.abspath(__file__), "--sp-ring-child", out],
-                 nproc_per_node=world)
+    rc = smoke_job(["--sp-ring-child", out], world, "25a", out)
     if rc:
         fail(f"phase 25a: the {world}-rank ring job exited with {rc}")
     ranks = []
@@ -5905,7 +6141,7 @@ def check_gspmd_run(label, metrics, same, base, flash, smi, same_state=None):
         fail(f"26 {label}: replicas differ or a loss is not finite")
 
 
-def phase_gspmd(tmp, smi, base=None, nproc=4, backend="gloo"):
+def phase_gspmd(tmp, smi, base=None, nproc=4, backend="gloo", shared=None):
     """Phase 26: (a) ViT-S/4 ``--parallelism sp --mesh data=2,sequence=2
     --sp-flash --kernels`` replicated, with ``--zero1`` and with
     ``--grad-compress int8 --grad-compress-error-feedback``, then the
@@ -5917,7 +6153,11 @@ def phase_gspmd(tmp, smi, base=None, nproc=4, backend="gloo"):
     (data=2, model=2). The ranks share the card over gloo (or have a card
     each under ``--nccl``: the 4-rank job alone); ``base``: the one-rank
     baselines ``{"vit", "cnn"}`` (``gspmd_one_rank``), None under
-    ``--nccl``."""
+    ``--nccl``. ``shared``: the results of ``tp_vit_m3`` and ``fsdp_vit``
+    from the jobs of other phases they rode (``gspmd_shared_runs``: the
+    whole smoke runs them in phase 14's three-rank job and phase 27's
+    two-rank job); without them, and with ``base``, they run in a three-
+    and a two-rank job of their own."""
     phase_flash_vs_plain(TP_FLASH_CASES, "phase 26 (tensor-parallel ranks' heads)")
     sp = lambda *extra: sp_vit_args(nproc, backend, 2, *extra, steps=GSPMD_STEPS)  # noqa: E731
     jobs = {nproc: [("sp_replicated", sp()), ("sp_zero1", sp("--zero1")),
@@ -5926,10 +6166,9 @@ def phase_gspmd(tmp, smi, base=None, nproc=4, backend="gloo"):
                     ("tp_vit_m2", gspmd_args(backend, "vit", "tp", "data=2,model=2")),
                     ("fsdp_tp_vit", gspmd_args(backend, "vit", "fsdp_tp", "data=2,model=2")),
                     ("tp_cnn", gspmd_args(backend, "cnn", "tp", "data=2,model=2"))]}
-    if base is not None:
-        jobs[3] = [("tp_vit_m3", gspmd_args(backend, "vit", "tp", "data=1,model=3"))]
-        jobs[2] = [("fsdp_vit", gspmd_args(backend, "vit", "fsdp", "data=2"))]
-    runs = {}
+    if base is not None and shared is None:
+        jobs.update({n: [run] for n, run in gspmd_shared_runs(backend).items()})
+    runs = dict(shared or {})
     for n, job in jobs.items():
         extra = (["--then-sp-lm-zero1", "2", "--save-states", "tp_cnn"] if n == nproc
                  else [])
@@ -6010,8 +6249,16 @@ def phase_gspmd(tmp, smi, base=None, nproc=4, backend="gloo"):
     return runs
 
 
-def run_phase26(smi):
-    """Phase 26 on one card: the one-rank baselines, then ``phase_gspmd``."""
+def gspmd_shared_runs(backend="gloo"):
+    """``{ranks: (name, args)}``: phase 26's runs at three and two ranks
+    (``phase_gspmd``'s ``shared``)."""
+    return {3: ("tp_vit_m3", gspmd_args(backend, "vit", "tp", "data=1,model=3")),
+            2: ("fsdp_vit", gspmd_args(backend, "vit", "fsdp", "data=2"))}
+
+
+def run_phase26(smi, shared=None):
+    """Phase 26 on one card: the one-rank baselines, then ``phase_gspmd``
+    (``shared``: its runs that rode other phases' jobs)."""
     import shutil
     import tempfile
 
@@ -6026,7 +6273,7 @@ def run_phase26(smi):
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
     try:
-        phase_gspmd(tmp, smi, base26)
+        phase_gspmd(tmp, smi, base26, shared=shared)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 26 took {time.perf_counter() - t26:.1f} s", flush=True)
@@ -6175,22 +6422,30 @@ def moe_one_rank(model, smi):
     return metrics
 
 
-def phase_pp_ep(tmp, smi, backend="gloo", nproc=2):
+def pp_ep_job(tmp, backend="gloo", nproc=2, more=()):
+    """Phase 27a's and 27c's runs (and the ``more`` runs of other phases)
+    in one job into ``tmp/pp`` (one process start); returns
+    ``launch_dp_runs``' results."""
+    return launch_dp_runs(
+        os.path.join(tmp, "pp"), [(f"pp_{sched}", pp_args(sched, backend, nproc=nproc))
+                                  for sched in ("gpipe", "1f1b")]
+        + [("ep", moe_args("vit_moe_s4", EP_STEPS, "ep", backend, nproc))] + list(more),
+        nproc, phase="27a, 27c" + (" and 26" if more else ""), deterministic=True,
+        extra=["--save-states", "pp_gpipe,pp_1f1b,ep"])
+
+
+def phase_pp_ep(tmp, smi, backend="gloo", nproc=2, runs=None):
     """Phase 27 (module docstring): (a) pp, (b) the MoE ViT on one rank,
     (c) ep. At ``nproc`` ranks other than two (``--nccl N --phase 27``) the
     job alone: pp on ``data=N/2,pipeline=2`` and ep on ``data=1,expert=N``,
-    without (b) and the kernel checks."""
+    without (b) and the kernel checks. ``runs``: ``pp_ep_job``'s results
+    when the job ran already (into ``tmp``)."""
     import torch
 
     if nproc == 2:
         phase_flash_vs_plain(PP_FLASH_CASES, "phase 27a (pp microbatch)")
-    # one job for 27a's runs and 27c's (one process start)
-    runs = launch_dp_runs(
-        os.path.join(tmp, "pp"), [(f"pp_{sched}", pp_args(sched, backend, nproc=nproc))
-                                  for sched in ("gpipe", "1f1b")]
-        + [("ep", moe_args("vit_moe_s4", EP_STEPS, "ep", backend, nproc))],
-        nproc, phase="27a, 27c", deterministic=True,
-        extra=["--save-states", "pp_gpipe,pp_1f1b,ep"])
+    if runs is None:
+        runs = pp_ep_job(tmp, backend, nproc)
     one = {}
     for sched in ("gpipe", "1f1b"):
         metrics, same = runs[f"pp_{sched}"]
@@ -6285,18 +6540,22 @@ def ep_check(runs, base, smi, nproc, backend, tmp):
     return metrics
 
 
-def run_phase27(smi):
-    """Phase 27 on one card (``phase_pp_ep``), in a scratch directory."""
+def run_phase27(smi, tmp=None, runs=None):
+    """Phase 27 on one card (``phase_pp_ep``), in a scratch directory, or
+    on ``pp_ep_job``'s ``runs`` already in ``tmp``."""
     import shutil
     import tempfile
 
     t27 = time.perf_counter()
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
-    try:
-        phase_pp_ep(tmp, smi)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    if tmp is not None:
+        phase_pp_ep(tmp, smi, runs=runs)
+    else:
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
+        try:
+            phase_pp_ep(tmp, smi)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 27 took {time.perf_counter() - t27:.1f} s", flush=True)
 
 
@@ -6546,25 +6805,37 @@ def phase_telemetry(tmp, smi):
           + " / ".join(f"{m['mfu']:.6f}" for k, m, _ in vit if k != "off"), flush=True)
     fence_cost("ViT-S/4 flash batch 32", vit, smi)
     stamp("phase 28b")
-    tel_ranks(tmp, smi)
+    tel_ranks(tmp, smi, with31=True)
     return runs, vit
 
 
-def tel_ranks(tmp, smi):
-    """Phase 28c (module docstring) and its observatory checks, 30c: each
-    rank's ``exporter-p<rank>.json`` on its own port, and ``watch --once
-    --json`` over the run dir with both ranks."""
-    from tpu_ddp_torch.parallel.compression import chunk_wire_bytes
-
-    # (c) two gloo ranks, the int8 ring with a counting hop hook in each
-    run_dir = os.path.join(tmp, "ranks")
-    args = ["--device", "cuda", "--dist-backend", "gloo", "--synthetic-data",
+def tel_rank_args(run_dir):
+    """Phase 28c's run: two gloo ranks, NetResDeep at full width, the int8
+    ring, ``TEL_RANK_STEPS`` steps an epoch, traced into ``run_dir``."""
+    return ["--device", "cuda", "--dist-backend", "gloo", "--synthetic-data",
             "--synthetic-size", str(2 * 32 * TEL_RANK_STEPS), "--epochs", "2", "--kernels",
             "--batch-size", "32", "--grad-compress", "int8", "--log-every-epochs", "1",
-            "--telemetry-dir", run_dir, "--monitor-port", "-1", "--monitor-bind",
-            "127.0.0.1"]
-    metrics, same = launch_dp_runs(tmp, [("tel_ranks", args)], 2, phase="28c",
-                                   extra=["--hop-hook"])["tel_ranks"]
+            "--telemetry-dir", run_dir]
+
+
+def tel_ranks(tmp, smi, with31=False):
+    """Phase 28c (module docstring) and its observatory checks, 30c: each
+    rank's ``exporter-p<rank>.json`` on its own port, and ``watch --once
+    --json`` over the run dir with both ranks. With ``with31``, phase 31's
+    (a) and (b) ride the same job (``phase31_runs``) and are checked after
+    28c (``phase31_checks``)."""
+    from tpu_ddp_torch.parallel.compression import chunk_wire_bytes
+
+    # (c) two gloo ranks, the int8 ring with a counting hop hook in each,
+    # under deterministic cuDNN (phase 31a's losses are held to this run's)
+    run_dir = os.path.join(tmp, "ranks")
+    args = tel_rank_args(run_dir) + ["--monitor-port", "-1", "--monitor-bind", "127.0.0.1"]
+    more = phase31_runs(tmp) if with31 else []
+    t0 = time.perf_counter()
+    jobs = launch_dp_runs(tmp, [("tel_ranks", args, ["--deterministic", "--hop-hook"])]
+                          + more, 2, phase="28c" + (" and 31" if with31 else ""))
+    job_s = time.perf_counter() - t0
+    metrics, same = jobs["tel_ranks"]
     n = 2
     msg = sum(chunk_wire_bytes((math.prod(sh) + (-math.prod(sh)) % n) // n, "int8", 256)
               for sh in NETRESDEEP_LEAVES)
@@ -6596,10 +6867,282 @@ def tel_ranks(tmp, smi):
           flush=True)
     if len(set(ports)) != n or rc or hosts != list(range(n)):
         fail(f"30c: exporter ports {ports}, watch exit {rc} over hosts {hosts}")
+    if with31:
+        phase31_checks(tmp, smi, jobs, job_s)
+
+
+# ---- phase 31: the comms and data-path observatories and chaos injection
+
+#: 31a: the monitored run's watchdog deadline; the comm_stall on rank 0 at
+#: P31_STALL_STEP (its delay past the deadline); the stage-targeted
+#: data_stall on the gather at P31_DATA_STEP (shorter than the deadline)
+P31_DEADLINE, P31_STALL_S, P31_STALL_STEP = 4.0, 6.0, 3
+P31_DATA_S, P31_DATA_STEP = 1.5, 5
+#: 31b: comms bench's kinds, payload sizes (elements a rank) and reps
+P31_KINDS = ("all-reduce", "ring-all-reduce", "ring-reduce-scatter")
+P31_SIZES, P31_REPS = (65536, 1048576), 5
+#: 31b: K2 (= K3) launches a ring call at two ranks in int8: the
+#: all-reduce's hop and gather phase, the reduce-scatter's hop
+P31_RING_QUANTS = {"ring-all-reduce": 2, "ring-reduce-scatter": 1}
+
+
+#: 31d: the monitors' cost end to end: NetResDeep's two-rank int8 run on
+#: the synchronous loader (``--prefetch-depth 0``: the stage monitor's
+#: writes on the training thread), no faults, P31_COST_STEPS steps in one
+#: epoch, its arms switched step by step (``MonitorCycle``); two such
+#: runs; the first P31_COST_WARM steps left out
+P31_COST_STEPS, P31_COST_WARM, P31_COST_RUNS = 72, 8, 2
+
+
+def phase31_cost_runs(tmp):
+    """31d's runs for 28c's job, each traced into its own run dir."""
+    return [(f"cost_{i}", [
+        "--device", "cuda", "--dist-backend", "gloo", "--synthetic-data",
+        "--synthetic-size", str(2 * 32 * P31_COST_STEPS), "--epochs", "1", "--kernels",
+        "--batch-size", "32", "--grad-compress", "int8", "--log-every-epochs", "1",
+        "--prefetch-depth", "0", "--comms-monitor", "--telemetry-dir",
+        os.path.join(tmp, "cost", f"cost_{i}")], ["--cycle-monitors"])
+        for i in range(1, P31_COST_RUNS + 1)]
+
+
+def phase31_cost(smi, jobs):
+    """31d's checks and lines: each run's launches exact (K1 1, K2 2, K3 2
+    a step a rank) and two hook calls in each ``hops`` step; each arm's
+    step period (rank 0's host clock from a step's call to the next's),
+    run by run and pooled; the differences that price the stage monitor,
+    the hop monitor and the probe's read; the hook's own ms inside the
+    live step with and without the probe (both ranks)."""
+    import statistics
+
+    periods = {arm: [] for arm in P31_ARMS}
+    hop_ms = {arm: [] for arm in P31_ARMS[2:]}
+    seconds = 0.0
+    for i in range(1, P31_COST_RUNS + 1):
+        name = f"cost_{i}"
+        metrics, same = jobs[name]
+        for r, m in enumerate(metrics):
+            steps = m["steps"]
+            want = {**{k: 0 for k in m["launches"]}, "fused_update": steps,
+                    "fused_quant": 2 * steps, "fused_dequant": 2 * steps}
+            calls = {arm: len(v) for arm, v in m["hop_ms_by_arm"].items()}
+            if (m["launches"] != want or not same or steps != P31_COST_STEPS
+                    or calls != {arm: 2 * m["cycle_arms"].count(arm) for arm in hop_ms}):
+                fail(f"31d {name} rank {r}: {steps} steps, launches {m['launches']}, hook "
+                     f"calls {calls}, replicas {same}")
+            for arm in hop_ms:
+                hop_ms[arm] += [ms for k, ms in m["hop_ms_by_arm"][arm] if k >= P31_COST_WARM]
+        t, arms = metrics[0]["step_starts"], metrics[0]["cycle_arms"]
+        for arm in P31_ARMS:
+            periods[arm].append([(t[k + 1] - t[k]) * 1e3 for k in range(
+                P31_COST_WARM, len(t) - 1) if arms[k] == arm])
+        seconds += metrics[0]["run_seconds"]
+    med = {arm: statistics.median([p for run in runs for p in run])
+           for arm, runs in periods.items()}
+    print(f"  31d monitors' cost ({smi}; two gloo ranks, int8 ring, --prefetch-depth 0, "
+          f"{P31_COST_RUNS} runs of {P31_COST_STEPS} steps, the arms switched step by step, "
+          f"from step {P31_COST_WARM + 1}; step periods on rank 0's host clock, ms, each "
+          "run's median / the pooled median over n): "
+          + "; ".join(f"{arm} " + " / ".join(f"{statistics.median(run):.3f}" for run in runs)
+                      + f" / {med[arm]:.3f} over {sum(map(len, runs))}"
+                      for arm, runs in periods.items()), flush=True)
+    print(f"  31d: the stage monitor {med['stages'] - med['bare']:+.3f} ms a step "
+          f"(stages - bare), the hop monitor {med['hops'] - med['stages']:+.3f} ms (hops - "
+          f"stages), the probe's read {med['hops'] - med['hops_no_probe']:+.3f} ms (hops - "
+          f"hops_no_probe); the hook in the live step, p50: "
+          f"{statistics.median(hop_ms['hops']):.4f} ms reading the probe "
+          f"({len(hop_ms['hops'])} calls), {statistics.median(hop_ms['hops_no_probe']):.4f} "
+          f"ms without ({len(hop_ms['hops_no_probe'])}); the runs {seconds:.1f} s",
+          flush=True)
+    return seconds
+
+
+def phase31_paths(tmp):
+    """Phase 31's run dir, chaos spec and comms bench artifact under ``tmp``."""
+    return (os.path.join(tmp, "chaos_run"), os.path.join(tmp, "chaos.json"),
+            os.path.join(tmp, "comms-bench.json"))
+
+
+def phase31_runs(tmp):
+    """Phase 31 (a) and (b)'s runs for 28c's job: (a) 28c's run with
+    ``--comms-monitor --prefetch-batches 2`` (the staged path, whose stages
+    the observer hears), a short ``--watchdog-deadline`` and ``--chaos``: a
+    ``comm_stall`` on rank 0 past the deadline (no abort) and a
+    stage-targeted ``data_stall`` on the gather; (b) ``comms bench`` over
+    the job's two ranks."""
+    run_dir, spec, bench = phase31_paths(tmp)
+    with open(spec, "w") as f:
+        json.dump({"chaos_schema_version": 1, "seed": 0, "faults": [
+            {"kind": "comm_stall", "step": P31_STALL_STEP, "delay_s": P31_STALL_S,
+             "hops": 1, "process_index": 0},
+            {"kind": "data_stall", "step": P31_DATA_STEP, "stage": "gather",
+             "stall_s": P31_DATA_S, "process_index": 0}]}, f)
+    monitored = tel_rank_args(run_dir) + [
+        "--comms-monitor", "--prefetch-batches", "2", "--watchdog-deadline",
+        str(P31_DEADLINE), "--chaos", spec]
+    bench_args = ["--device", "cuda", "--dist-backend", "gloo", "--mesh", "data=2",
+                  "--kinds", ",".join(P31_KINDS), "--dtypes", "f32", "--ring-modes",
+                  "f32,int8", "--sizes", ",".join(map(str, P31_SIZES)), "--reps",
+                  str(P31_REPS), "--out", bench]
+    return [("chaos_monitored", monitored, ["--deterministic"]),
+            ("comms_bench", bench_args, ["--comms-bench"]), *phase31_cost_runs(tmp)]
+
+
+def phase31_checks(tmp, smi, jobs, job_s):
+    """Phase 31 (a) and (b)'s checks on 28c's job (module docstring), then
+    (c) in this process."""
+    import torch
+
+    t31 = time.perf_counter()
+    run_dir, _, bench = phase31_paths(tmp)
+    twin_dir = os.path.join(tmp, "ranks")
+    n = 2
+    # (a) the monitored, faulted run against 28c's
+    metrics, same = jobs["chaos_monitored"]
+    twin, _ = jobs["tel_ranks"]
+    for r, m in enumerate(metrics):
+        steps = m["steps"]
+        want = {**{k: 0 for k in m["launches"]}, "fused_update": steps,
+                "fused_quant": n * steps, "fused_dequant": n * steps}
+        if m["launches"] != want:
+            fail(f"31a rank {r}: launches {m['launches']}, expected {want}")
+        if m["step_losses"] != twin[r]["step_losses"]:
+            fail(f"31a rank {r}: losses {m['step_losses']} differ from 28c's "
+                 f"{twin[r]['step_losses']}")
+        for name in (f"comms-health-p{r}.json", f"data-health-p{r}.json",
+                     f"hang-forensics-p{r}.json", f"hang-p{r}.log"):
+            if not os.path.isfile(os.path.join(run_dir, name)):
+                fail(f"31a: no {name} in the monitored run's dir")
+        with open(os.path.join(run_dir, f"hang-forensics-p{r}.json")) as f:
+            bundle = json.load(f)
+        suspect = bundle.get("suspect_collective") or {}
+        got = (suspect.get("key"), suspect.get("kind"), suspect.get("dtype"),
+               suspect.get("axis"))
+        print(f"  31a rank {r} ({smi}): {steps} steps; launches {m['launches']}; hang "
+              f"bundle: suspect collective {got} from {suspect.get('source')} (hop "
+              f"{suspect.get('hop')}/{suspect.get('n_hops')}), suspect stage "
+              f"{bundle.get('suspect_stage')}, last step {bundle.get('last_step')}", flush=True)
+        if got != ("ring-all-reduce/s8/data", "ring-all-reduce", "s8", "data"):
+            fail(f"31a rank {r}: the hang bundle names {got}")
+    weights = [torch.load(os.path.join(d, f"rank{r}.pt")) for d in
+               (os.path.join(tmp, "chaos_monitored"), os.path.join(tmp, "tel_ranks"))
+               for r in range(n)]
+    bitwise = all(torch.equal(weights[0][k], w[k]) for w in weights[1:] for k in w)
+    with open(os.path.join(run_dir, "chaos-state.json")) as f:
+        fired = json.load(f)["fired"]
+    with open(os.path.join(run_dir, "data-health-p0.json")) as f:
+        stages = sorted(json.load(f)["stages"])
+    p50 = {}
+    for label, d in (("28c", twin_dir), ("31a", run_dir)):
+        # the second epoch's steps: past the first steps' set-up and the stall
+        ms = sorted(v for k, v in step_ms(d).items() if k > TEL_RANK_STEPS)
+        p50[label] = ms[len(ms) // 2]
+    print(f"  31a ({smi}): weights bitwise 28c's on both ranks {bitwise}; losses bitwise "
+          f"28c's; chaos faults fired {fired}; data-health stages {stages}; step p50 over "
+          f"the second epoch's {TEL_RANK_STEPS} steps (compiled_step + device_sync, rank 0) "
+          f"monitored {p50['31a']:.3f} ms against 28c's {p50['28c']:.3f} ms "
+          f"({p50['31a'] / p50['28c']:.3f}x; too few steps to price the monitors: 31d "
+          "does)", flush=True)
+    if not (same and bitwise) or sorted(fired) != [0, 1] or "gather" not in stages:
+        fail(f"31a: replicas {same}, bitwise 28c's {bitwise}, fired {fired}, stages {stages}")
+    # (b) comms bench in the same job
+    bm, _ = jobs["comms_bench"]
+    k23 = (P31_REPS + 1) * len(P31_SIZES) * sum(P31_RING_QUANTS.values())
+    for r, m in enumerate(bm):
+        want = {**{k: 0 for k in m["launches"]}, "fused_quant": k23, "fused_dequant": k23}
+        if m["rc"] or m["launches"] != want:
+            fail(f"31b rank {r}: exit {m['rc']}, launches {m['launches']}, expected {want}")
+    with open(bench) as f:
+        art = json.load(f)["comms"]
+    print(f"  31b comms bench ({smi}; two gloo ranks sharing the card, the wire through "
+          f"host memory): {bm[0]['seconds']:.2f} s, launches a rank {bm[0]['launches']}; "
+          f"chip {art['chip']}, mesh {art['mesh']}", flush=True)
+    for key, link in sorted(art["links"].items()):
+        print(f"    {key}: alpha {link['alpha_s'] * 1e6:.1f} us, beta "
+              f"{link['beta_bytes_per_s'] / 1e6:.1f} MB/s, achieved "
+              f"{link['achieved_bw_bytes_per_s'] / 1e6:.1f} MB/s", flush=True)
+    reg = os.path.join(tmp, "registry31")
+    rc, text, _ = read_back(["registry", "--registry", reg, "record", bench])
+    rc2, listed, _ = read_back(["registry", "--registry", reg, "list", "--json"])
+    kinds = [e["artifact_kind"] for e in json.loads(listed)["entries"]] if not rc2 else None
+    rc3, text3, _ = read_back(["watch", run_dir, "--once", "--json", "--no-alerts-file",
+                               "--comms-baseline", bench])
+    watched = json.loads(text3) if rc3 in (0, 1) else {}
+    views = [h.get("comms") for h in watched.get("snapshot", {}).get("hosts", [])]
+    alerts = sorted({a["rule"] for a in watched.get("alerts", [])})
+    print(f"  31b registry record exit {rc}, kinds {kinds}; watch --once --comms-baseline "
+          f"exit {rc3}, hosts' comms views on axes "
+          f"{[sorted((v or {}).get('axis_bw', {})) for v in views]}, alerts {alerts}",
+          flush=True)
+    if rc or kinds != ["comms"] or rc3 not in (0, 1) or len(views) != n or not all(
+            v and "data" in v.get("axis_bw", {}) for v in views):
+        fail("31b: the registry or watch did not read the comms bench artifact")
+    cost_s = phase31_cost(smi, jobs)
+    stamp("phase 31 (a), (b), (d)")
+    phase31_in_process(tmp, smi, run_dir)
+    own = (time.perf_counter() - t31 + metrics[0]["run_seconds"] + bm[0]["seconds"]
+           + cost_s)
+    print(f"phase 31 took {own:.1f} s beyond 28c's run (31a's run "
+          f"{metrics[0]['run_seconds']:.1f} s, 31b's {bm[0]['seconds']:.1f} s, 31d's "
+          f"{cost_s:.1f} s, the checks and (c) {time.perf_counter() - t31:.1f} s; 28c's run "
+          f"{twin[0]['run_seconds']:.1f} s; the shared job {job_s:.1f} s in all)", flush=True)
+
+
+def monitor_cost(tmp, smi, batches=200):
+    """Phase 31c: the stage monitor's host cost alone, on this host's
+    clock: a batch's five stage entries and exits through a
+    ``StageMonitor`` (each entry a forced atomic write); the median. 31d
+    prices both monitors inside live steps."""
+    import statistics
+
+    from tpu_ddp_torch.datapath.stages import HOST_STAGES, StageMonitor
+
+    d = os.path.join(tmp, "monitor_cost")
+    os.makedirs(d)
+    stages = StageMonitor(d)
+    per_batch = []
+    for _ in range(batches):
+        t0 = time.perf_counter()
+        for stage in HOST_STAGES:
+            stages.stage_enter(stage)
+            stages.stage_exit(stage, 1e-4, 4096)
+        per_batch.append((time.perf_counter() - t0) * 1e3)
+    print(f"  31c stage monitor alone ({smi}, host clock, median of {batches}): "
+          f"{statistics.median(per_batch):.4f} ms a batch (five stages)", flush=True)
+
+
+def phase31_in_process(tmp, smi, run_dir):
+    """Phase 31 (c) in the smoke's process: ``data bench --device cuda``
+    with the real h2d copy, and ``data report`` on (a)'s run dir, whose
+    stalled gather must be the dominant stage."""
+    art_path = os.path.join(tmp, "data-bench.json")
+    rc, _, secs = read_back(["data", "bench", "--device", "cuda", "--reps", "5", "--out",
+                             art_path])
+    if rc:
+        fail(f"31c: data bench exited {rc}")
+    with open(art_path) as f:
+        data = json.load(f)["data"]
+    print(f"  31c data bench ({smi}, {secs:.2f} s; batch {data['per_shard_batch']}, "
+          f"device {data['device_kind']}): "
+          + ", ".join(f"{k} {v['seconds_per_batch'] * 1e3:.4f} ms"
+                      for k, v in data["stages"].items())
+          + f"; {data['per_image_s'] * 1e6:.3f} us an image; skipped {data['skipped']}",
+          flush=True)
+    if "h2d" not in data["stages"] or data["skipped"]:
+        fail(f"31c: data bench's stages {sorted(data['stages'])}, skipped {data['skipped']}")
+    monitor_cost(tmp, smi)
+    rc, text, _ = read_back(["data", "report", run_dir, "--json"])
+    rec = json.loads(text) if rc == 0 else {}
+    print(f"  31c data report on 31a's run dir: exit {rc}, dominant stage "
+          f"{rec.get('dominant_stage')}, per-stage p50 ms "
+          + ", ".join(f"{k} {v['p50_s'] * 1e3:.4f}" for k, v in rec.get("stages", {}).items())
+          + f"; verdict {rec.get('verdict')}", flush=True)
+    if rc or rec.get("dominant_stage") != "gather":
+        fail(f"31c: data report exit {rc}, dominant stage {rec.get('dominant_stage')}")
 
 
 def run_phase28(smi):
-    """Phase 28 on one card (``phase_telemetry``), in a scratch directory."""
+    """Phase 28 on one card (``phase_telemetry``), in a scratch directory,
+    phase 31 riding 28c's job."""
     import shutil
     import tempfile
 
@@ -6708,6 +7251,7 @@ def phase_run_dir_readers(tmp, smi):
     args = rd_args(run_dir)
     print(f"phase 29 ({smi}): tpu_ddp_torch.cli.train {' '.join(args)}, SIGKILLed at "
           f"batch {RD_KILL}, then --resume; the same without --kernels", flush=True)
+    OTHER_CHILDREN[0] += 1
     child = subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
                               "--life-child", marker, str(RD_KILL), *args], cwd=ROOT)
     try:
@@ -6973,6 +7517,7 @@ def phase_observatories(tmp, smi):
           "of the card, in a child beside 30a's", flush=True)
     oom_log = os.path.join(tmp, "oom.log")
     with open(oom_log, "w") as log:
+        OTHER_CHILDREN[0] += 1
         oom = subprocess.Popen(
             [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--oom-child", *oom_args],
             cwd=ROOT, stdout=subprocess.DEVNULL, stderr=log)
@@ -7000,6 +7545,7 @@ def phase_observed_child(tmp, smi):
     print(f"phase 30a ({smi}): tpu_ddp_torch.cli.train {' '.join(args)} in a child; "
           f"held at step {OBS_GATE} for /metrics, /healthz and POST "
           f"/profile?steps={OBS_LIVE}", flush=True)
+    OTHER_CHILDREN[0] += 1
     child = subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
                               "--obs-child", out, *args], cwd=ROOT)
     try:
@@ -7187,6 +7733,34 @@ def phase30_main():
     print(f"chip_smoke --phase 30: ok ({smi})", flush=True)
 
 
+def phase31_main():
+    """``python3 chip_smoke.py --phase 31``: the kernels built, then phase
+    31 alone on one card, with 28c's two-rank job it rides."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
+    sys.path.insert(0, ROOT)
+    from tpu_ddp_torch import native
+    from tpu_ddp_torch.ops import _build
+
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    _build.build()
+    native.build()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
+    try:
+        tel_ranks(tmp, smi, with31=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print_jobs()
+    print(f"chip_smoke --phase 31: ok ({smi})", flush=True)
+
+
 def phase27_nccl_main(nproc):
     """``python3 chip_smoke.py --nccl N --phase 27`` on a machine with N
     cards: phase 27's job alone at N ranks, one card each, over NCCL (pp
@@ -7323,6 +7897,8 @@ def main():
         return phase29_main()
     if sys.argv[1:3] == ["--phase", "30"]:
         return phase30_main()
+    if sys.argv[1:3] == ["--phase", "31"]:
+        return phase31_main()
     import shutil
     import tempfile
 
@@ -7379,10 +7955,12 @@ def main():
         stamp("phases 10-11")
         dp_runs = phase_dp_main_path(tmp)
         stamp("phase 12")
-        # phases 14, 15 and 17's cut at three ranks in one three-rank job
+        # phases 14, 15, 17's cut and 26's model=3 run at three ranks in one
+        # three-rank job
         cut_three, three_to_two = rank_change_runs(tmp)
-        jobs = launch_dp_runs(tmp, zero1_dp_runs() + zero1_vit_runs() + [cut_three],
-                              ZERO1_RANKS, phase="14, 15 and 17", deterministic=True)
+        jobs = launch_dp_runs(tmp, zero1_dp_runs() + zero1_vit_runs() + [cut_three]
+                              + [gspmd_shared_runs()[ZERO1_RANKS]], ZERO1_RANKS,
+                              phase="14, 15, 17 and 26", deterministic=True)
         zero1_runs = phase_zero1_dp(tmp, jobs=jobs)
         zero1_runs.update(phase_zero1_vit(tmp, jobs=jobs))
         stamp("phases 14-15")
@@ -7405,9 +7983,12 @@ def main():
         torch.backends.cudnn.deterministic = True
         try:
             ft_runs = phase_finetune(tmp, smi)
-            phase_finetune_ranks(tmp)
         finally:
             torch.backends.cudnn.deterministic = False
+        # 19d, 21b and 22e in one two-rank job, checked in their phases
+        variant_tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
+        variants = variant_ranks_runs(variant_tmp)
+        phase_finetune_ranks(variant_tmp, runs=variants)
         print(f"phase 19 (a)-(d) took {time.perf_counter() - t19:.1f} s", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -7425,7 +8006,7 @@ def main():
     tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
     try:
         phase_health_skip(tmp)
-        phase_health_ranks(tmp)
+        phase_health_ranks(variant_tmp, runs=variants)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_health_cost(lm_tokens_32k, smi)
@@ -7439,9 +8020,10 @@ def main():
     try:
         phase_augment_resume(tmp)
         phase_dump_predictions(tmp)
-        phase_scan_ranks(tmp)
+        phase_scan_ranks(variant_tmp, runs=variants)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(variant_tmp, ignore_errors=True)
     print(f"phase 22 took {time.perf_counter() - t22:.1f} s", flush=True)
     t23 = time.perf_counter()
     phase_data_path(smi)
@@ -7473,11 +8055,19 @@ def main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 25 took {time.perf_counter() - t25:.1f} s", flush=True)
-    run_phase26(smi)
-    run_phase27(smi)
+    # 27's two-rank job carries 26's fsdp run; 26's model=3 run rode 14's job
+    tmp27 = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
+    try:
+        pp_runs = pp_ep_job(tmp27, more=[gspmd_shared_runs()[2]])
+        run_phase26(smi, shared={"tp_vit_m3": jobs["tp_vit_m3"],
+                                 "fsdp_vit": pp_runs["fsdp_vit"]})
+        run_phase27(smi, tmp27, pp_runs)
+    finally:
+        shutil.rmtree(tmp27, ignore_errors=True)
     run_phase28(smi)
     run_phase29(smi)
     run_phase30(smi)
+    print_jobs()
     print_accounting()
     rows += phase_lm_timing(results, flash_results, lm_runs["flash"]["launches"])
     stamp("phase 18d")

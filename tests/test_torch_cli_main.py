@@ -1,6 +1,6 @@
 """The port's umbrella CLI (``python -m tpu_ddp_torch.cli.main``, the
 ``tpu-ddp-torch`` script) against the JAX package's ``tpu-ddp``: the
-subcommand set is the JAX one less the eight whose modules are not ported
+subcommand set is the JAX one less the six whose modules are not ported
 yet; each shared subcommand gives the JAX exit code and, apart from the
 command's name and the trace summary's version line, the JAX output on the
 same run dirs; the read-back subcommands import neither torch nor numpy.
@@ -25,7 +25,7 @@ from tpu_ddp.cli.main import main as jax_main
 from tpu_ddp_torch.cli.main import main as port_main
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NOT_PORTED = {"elastic", "diagnose", "analyze", "lint", "tune", "comms", "ops", "data"}
+NOT_PORTED = {"elastic", "diagnose", "analyze", "lint", "tune", "ops"}
 RECIPE = dict(epochs=2, eval_each_epoch=True)
 
 
@@ -56,7 +56,7 @@ def test_subcommands_are_the_jax_ones_less_the_unported(capsys):
     assert NOT_PORTED <= jax_
     assert port == jax_ - NOT_PORTED
     assert port == {"train", "launch", "trace", "health", "goodput", "curves", "registry",
-                    "bench", "watch", "profile", "mem"}
+                    "bench", "watch", "profile", "mem", "comms", "data"}
     with pytest.raises(SystemExit) as exit_:
         port_main(["diagnose", "x"])
     assert exit_.value.code == 2
@@ -152,6 +152,9 @@ READ_BACK = {
     "watch": ["watch", "{inc}", "--once", "--json", "--no-alerts-file"],
     "profile": ["profile", "{tmp}/prof", "--no-ops"],
     "mem": ["mem", "{inc}", "--json", "--no-plan"],
+    "comms_calibrate": ["comms", "calibrate", "--chip", "cpu", "{tmp}/a.json"],
+    "data_audit": ["data", "audit", "{inc}"],
+    "data_report": ["data", "report", "{inc}", "--json"],
 }
 
 _PROBE = """

@@ -71,8 +71,8 @@ def test_the_jax_summarizer_reads_the_port_run_dir(runs):
     jax_ = summarize_json(str(tmp / "jax"))
     assert set(port["phases"]) >= STEP_PHASES | {"h2d", "epoch_metrics_fetch", "eval",
                                                  "checkpoint"}
-    # the port's loader has no augment stage: augmentation runs in the step
-    assert set(port["phases"]) == set(jax_["phases"]) - {"data/augment"}
+    # the port's loader runs the JAX loader's five stages, augment included
+    assert set(port["phases"]) == set(jax_["phases"])
     assert set(whole["phases"]) == set(port["phases"]) | {"checkpoint_restore"}
     assert port["run_meta"]["strategy"] == jax_["run_meta"]["strategy"] == "dp"
 

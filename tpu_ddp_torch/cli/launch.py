@@ -21,8 +21,9 @@ reads. As in the JAX launcher:
   local_rank.
 
 When the command asks for ``--kernels`` on ``cuda`` (no ``--device cpu``),
-the launcher builds the port's CUDA libraries once before it spawns, so the
-ranks find them built. With ``--telemetry-dir`` the launcher writes the
+or is a ``comms bench`` there (its int8 rings launch K2/K3), the launcher
+builds the port's CUDA libraries once before it spawns, so no two ranks
+race to build them. With ``--telemetry-dir`` the launcher writes the
 job's lifecycle into ``launch-n<node>.jsonl`` there (the JAX
 ``_job_telemetry`` :126-146 and its events :160-245): ``job_start``, a
 ``child_spawn`` and a ``child_exit`` a rank, ``signal_forwarded`` and
@@ -122,9 +123,11 @@ def runs_on_cpu(cmd: Sequence[str]) -> bool:
 
 
 def wants_kernel_build(cmd: Sequence[str]) -> bool:
-    """Whether ``cmd`` runs the port's CUDA kernels: ``--kernels`` without
-    ``--device cpu``."""
-    return "--kernels" in cmd and not runs_on_cpu(cmd)
+    """Whether ``cmd`` runs the port's CUDA kernels: ``--kernels``, or a
+    ``comms bench``, without ``--device cpu``."""
+    cmd = list(cmd)
+    bench = any(a == "comms" and b == "bench" for a, b in zip(cmd, cmd[1:]))
+    return ("--kernels" in cmd or bench) and not runs_on_cpu(cmd)
 
 
 def _job_telemetry(telemetry_dir: Optional[str], node_rank: int):

@@ -40,14 +40,21 @@ subcommands whose modules the port has:
 - ``tpu-ddp-torch mem <run_dir>`` — the memory record: timeline, measured
   high-water against the limit, OOM postmortems (exit 1 when one exists);
   ``--json`` is the registry's ``memtrack`` artifact.
+- ``tpu-ddp-torch comms bench|calibrate|exposure|forensics`` — the comms
+  observatory: the collective microbenchmarks over the ranks and their
+  α-β link model, a hung run's suspect collective (``exposure`` refuses by
+  name in the port).
+- ``tpu-ddp-torch data bench|audit|report`` — the data-path observatory:
+  the per-stage loader microbenchmarks, the cross-life batch digest
+  audit, a run's per-stage ``data_wait`` verdict.
 
-The JAX CLI's ``elastic``, ``diagnose``, ``analyze``, ``lint``, ``tune``,
-``comms``, ``ops`` and ``data`` come with their modules (ROADMAP.md,
-section 1).
+The JAX CLI's ``elastic``, ``diagnose``, ``analyze``, ``lint``, ``tune`` and
+``ops`` come with their modules (ROADMAP.md, section 1).
 
-Every subcommand but ``train`` and ``launch`` is stdlib-only end to end: it
-imports neither torch nor numpy, so a run dir is read on any host, one
-without CUDA or torch included. ``train`` and ``launch`` import lazily.
+Every subcommand but ``train``, ``launch``, ``comms bench`` and ``data
+bench`` is stdlib-only end to end: it imports neither torch nor numpy, so a
+run dir is read on any host, one without CUDA or torch included. The four
+import lazily.
 """
 
 from __future__ import annotations
@@ -126,6 +133,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         from tpu_ddp_torch.registry.cli import main as registry_main
 
         return registry_main(argv[1:])
+    # comms and data own their argparse surfaces; their bench commands
+    # import torch lazily, the rest are stdlib-only
+    if argv[:1] == ["comms"]:
+        from tpu_ddp_torch.comms.cli import main as comms_main
+
+        return comms_main(argv[1:])
+    if argv[:1] == ["data"]:
+        from tpu_ddp_torch.datapath.cli import main as data_main
+
+        return data_main(argv[1:])
     if argv[:2] == ["bench", "compare"]:
         from tpu_ddp_torch.analysis.regress import main as compare_main
 
@@ -194,6 +211,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         help="cross-run perf results archive: record artifacts with "
              "provenance, trend-detect drift, diff entries "
              "(tpu-ddp-torch registry --help)",
+    )
+    sub.add_parser(
+        "comms",
+        help="measured collective microbenchmarks, alpha-beta link "
+             "calibration and stuck-collective forensics "
+             "(tpu-ddp-torch comms --help)",
+    )
+    sub.add_parser(
+        "data",
+        help="per-stage loader microbenchmarks, batch-provenance audit "
+             "and measured input-pipeline attribution "
+             "(tpu-ddp-torch data --help)",
     )
     bench = sub.add_parser("bench", help="bench artifact tools")
     bench_sub = bench.add_subparsers(dest="bench_command", required=True)

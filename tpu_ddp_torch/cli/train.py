@@ -27,7 +27,8 @@ record. The live observatories' flags (the JAX :218-270:
 ``--profile-host-hz``, ``--monitor-port``, ``--monitor-bind``,
 ``--monitor-allow-remote-trigger``) reach the trainer's capture manager,
 epoch trace and exporter; ``mem_sample_steps`` is a config field with no
-flag, as in JAX. Started by
+flag, as in JAX. ``--chaos SPEC.JSON`` and ``--comms-monitor`` (the JAX
+:287-301) turn on fault injection and the ring's hop monitor. Started by
 ``python -m tpu_ddp_torch.cli.launch``, it joins the launcher's process
 group first and trains data-parallel over the ranks (``--dist-backend``,
 a flag the JAX CLI does not need: one JAX process drives every device).
@@ -345,6 +346,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="escalate a watchdog firing: after the stack dump, "
                         "exit the wedged process with code 113 so a "
                         "supervisor can restart it")
+    p.add_argument("--chaos", default=None, metavar="SPEC.JSON",
+                   help="deterministic fault injection: step-triggered "
+                        "kill-host / hang / checkpoint-corrupt / "
+                        "save-io-flake / data-stall faults on configured "
+                        "hosts, seeded and fire-once per logical run "
+                        "(state in --telemetry-dir) — the elastic "
+                        "runtime's CI harness (docs/resilience.md)")
+    p.add_argument("--comms-monitor", action="store_true",
+                   help="instrument the quantized ring collectives with "
+                        "a per-hop host callback: live per-axis achieved "
+                        "bandwidth + the in-flight collective land in "
+                        "comms-health-p<host>.json (under "
+                        "--telemetry-dir), and a watchdog hang writes a "
+                        "forensics bundle naming the suspect collective "
+                        "(docs/comms.md). Changes the traced program, so "
+                        "it refuses --lint-on-start")
     p.add_argument("--no-data-digests", dest="data_digests",
                    action="store_false", default=True,
                    help="skip the per-step batch-content digest sink "
@@ -497,6 +514,8 @@ def config_from_args(args) -> TrainConfig:
         monitor_port=args.monitor_port,
         monitor_bind=args.monitor_bind,
         monitor_allow_remote_trigger=args.monitor_allow_remote_trigger,
+        chaos_spec=args.chaos,
+        comms_monitor=args.comms_monitor,
     )
 
 

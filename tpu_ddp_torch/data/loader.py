@@ -23,13 +23,18 @@ The gather goes through ``native.gather_rows`` (the JAX loader's
 groups of K for ``--steps-per-call`` (the JAX trainer's ``_epoch_stream``,
 :1439-1531). The host prefetchers that run ahead of the step are
 ``native/prefetch.py`` and ``datapath/prefetch.py``; ``Trainer`` drives
-them. ``epoch_batches`` runs the JAX loader's stages (:223-280: index,
-gather, collate, shard), each batch's in a ``data/<stage>`` span of
-``telemetry=`` (a ``Telemetry``; the inert ``NULL`` by default), and counts
-``loader/batches``. It has no ``data/augment`` span: the port's
-augmentation runs inside the step. ``gather_seconds`` counts the time
-spent in the gather. The JAX loader's stage observer (``observer=``,
-``datapath/stages.py``) is not ported yet.
+them. ``epoch_batches`` runs the JAX loader's five stages (:223-280:
+index, gather, augment, collate, shard; ``datapath/stages.py``), each
+batch's in a ``data/<stage>`` span of ``telemetry=`` (a ``Telemetry``; the
+inert ``NULL`` by default), and counts ``loader/batches``. ``augment`` runs
+the optional ``host_augment(images, labels)`` hook, a passthrough without
+one (the trainer augments inside the step). The stage observer
+(``observer=``, the JAX :101 and :223-237; ``datapath/stages.py``'s
+``StageMonitor``) hears ``stage_enter(stage)`` inside each stage's span,
+before its body, and ``stage_exit(stage, seconds, nbytes)`` after it, the
+seconds taken around the span, so the span, the report and a chaos stall
+in ``stage_enter`` all show the same time. ``gather_seconds`` counts the
+time spent in the gather.
 """
 
 from __future__ import annotations
@@ -37,11 +42,23 @@ from __future__ import annotations
 import itertools
 import math
 import time
-from typing import Dict, Iterable, Iterator, Optional
+from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 
 from tpu_ddp_torch import native
+
+
+def _out_nbytes(out) -> int:
+    """Bytes a stage produced: the throughput denominator the stage
+    observer hears (a dict batch, an (a, b) tuple, or a bare array)."""
+    if out is None:
+        return 0
+    if isinstance(out, dict):
+        return sum(int(getattr(v, "nbytes", 0)) for v in out.values())
+    if isinstance(out, tuple):
+        return sum(int(getattr(v, "nbytes", 0)) for v in out)
+    return int(getattr(out, "nbytes", 0))
 
 
 def shard_indices(n: int, world_size: int, *, shuffle: bool, seed: int = 0,
@@ -70,9 +87,11 @@ class ShardedBatchLoader:
                  seed: int = 0, drop_last: bool = False,
                  exclude_sampler_pad: bool = False,
                  process_index: int = 0, process_count: int = 1,
-                 telemetry=None):
+                 telemetry=None, observer=None,
+                 host_augment: Optional[Callable] = None):
         """exclude_sampler_pad: also mask the sampler's wrap-pad duplicates
-        (True for eval, so metrics count every sample once)."""
+        (True for eval, so metrics count every sample once). observer and
+        host_augment: module docstring."""
         if len(images) != len(labels):
             raise ValueError(f"{len(images)} images but {len(labels)} labels")
         if world_size % process_count:
@@ -93,6 +112,8 @@ class ShardedBatchLoader:
         if telemetry is None:
             from tpu_ddp_torch.telemetry import NULL as telemetry
         self.telemetry = telemetry
+        self.observer = observer
+        self.host_augment = host_augment
         self._epoch = 0
         per_shard = math.ceil(len(images) / world_size)
         if drop_last:
@@ -152,6 +173,45 @@ class ShardedBatchLoader:
         self.gather_seconds += time.perf_counter() - t0
         return out
 
+    # -- the staged pipeline body: one method a named stage, so the
+    # -- microbenchmark (``datapath/microbench.py``) times the live code --
+
+    def _run_stage(self, stage: str, fn, *args):
+        """One stage: its ``data/<stage>`` span and the observer's report
+        (module docstring)."""
+        obs = self.observer
+        t0 = time.perf_counter()
+        with self.telemetry.span(f"data/{stage}"):
+            if obs is not None:
+                obs.stage_enter(stage)
+            out = fn(*args)
+        if obs is not None:
+            obs.stage_exit(stage, time.perf_counter() - t0, _out_nbytes(out))
+        return out
+
+    def _stage_index(self, it, shard: Optional[int] = None) -> Optional[tuple]:
+        pair = next(it, None)
+        if pair is not None and shard is not None:
+            bs = self.per_shard_batch
+            idx, mask = pair
+            pair = idx[shard * bs:(shard + 1) * bs], mask[shard * bs:(shard + 1) * bs]
+        return pair
+
+    def _stage_augment(self, images: np.ndarray,
+                       labels: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        if self.host_augment is None:
+            return images, labels
+        return self.host_augment(images, labels)
+
+    def _stage_collate(self, images: np.ndarray, labels: np.ndarray,
+                       mask: np.ndarray) -> Dict[str, np.ndarray]:
+        return {"image": images, "label": labels, "mask": mask}
+
+    def _stage_shard(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        # contiguous C-order rows for the h2d copy: the same arrays back
+        # when the gather already made them contiguous
+        return {k: np.ascontiguousarray(v) for k, v in batch.items()}
+
     def epoch_batches(self, epoch: Optional[int] = None,
                       shard: Optional[int] = None,
                       start: int = 0) -> Iterator[Dict[str, np.ndarray]]:
@@ -160,24 +220,16 @@ class ShardedBatchLoader:
         counts from this process's first). ``start`` skips the epoch's
         first index batches without gathering them (a mid-epoch resume).
         Each batch passes the five stages (module docstring)."""
-        bs = self.per_shard_batch
-        index = itertools.islice(self.epoch_index_batches(epoch), start, None)
-        span = self.telemetry.span
+        it = itertools.islice(self.epoch_index_batches(epoch), start, None)
         while True:
-            with span("data/index"):
-                pair = next(index, None)
-                if pair is not None and shard is not None:
-                    idx, mask = pair
-                    pair = idx[shard * bs:(shard + 1) * bs], mask[shard * bs:(shard + 1) * bs]
+            pair = self._run_stage("index", self._stage_index, it, shard)
             if pair is None:
                 return
             idx, mask = pair
-            with span("data/gather"):
-                images, labels = self.gather(idx)
-            with span("data/collate"):
-                batch = {"image": images, "label": labels, "mask": mask}
-            with span("data/shard"):
-                batch = {k: np.ascontiguousarray(v) for k, v in batch.items()}
+            images, labels = self._run_stage("gather", self.gather, idx)
+            images, labels = self._run_stage("augment", self._stage_augment, images, labels)
+            batch = self._run_stage("collate", self._stage_collate, images, labels, mask)
+            batch = self._run_stage("shard", self._stage_shard, batch)
             self.telemetry.count("loader/batches")
             yield batch
 

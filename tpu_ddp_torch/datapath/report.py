@@ -2,7 +2,7 @@
 section.
 
 Counterpart of ``tpu_ddp/datapath/report.py`` (``datapath_measured``,
-``format_datapath_measured``). Reads a run dir's JSONL traces and
+``format_datapath_measured``, ``report_run`` :199). Reads a run dir's JSONL traces and
 decomposes the trainer's ``data_wait`` into the loader's stage spans
 (``data/<stage>``, ``data/loader.py``) and the staged prefetcher's queue
 gauges (``datapath/prefetch_*``, ``datapath/prefetch.py``):
@@ -14,18 +14,14 @@ gauges (``datapath/prefetch_*``, ``datapath/prefetch.py``):
 - the native ring (the default ``--prefetch-depth 2``): no stage runs in
   Python, so there is no evidence and the section is empty.
 
-Stdlib-only. The JAX package's ``data report`` CLI and stage monitor
-(``datapath/stages.py``) are not ported yet.
+``report_run`` is ``tpu-ddp-torch data report``'s record. Stdlib-only.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, List
 
-#: the loader's stages in pipeline order, and the host ones (the JAX
-#: ``datapath/stages.py`` ``STAGES`` and ``HOST_STAGES``)
-STAGES = ("index", "gather", "augment", "collate", "shard", "h2d")
-HOST_STAGES = STAGES[:-1]
+from tpu_ddp_torch.datapath.stages import HOST_STAGES, STAGES
 
 #: |1 - coverage| beyond this flags the decomposition as not accounting
 #: for the wait (eval-loader spans and first-batch effects both skew the
@@ -194,3 +190,19 @@ def format_datapath_measured(d: Dict[str, Any]) -> List[str]:
             lines.append("  prefetch queue: " + ", ".join(parts))
     lines.append(f"  verdict: {d.get('verdict')}")
     return lines
+
+
+def report_run(path: str) -> Dict[str, Any]:
+    """``tpu-ddp-torch data report``'s machine record for a run dir."""
+    d = datapath_measured(path)
+    if not d:
+        return {
+            "run_dir": path,
+            "ok": False,
+            "error": (
+                "no staged data-path evidence (no data/<stage> spans or "
+                "datapath/prefetch_* counters) — the staged pipeline runs "
+                "with --prefetch-batches N or --prefetch-depth 0"
+            ),
+        }
+    return {"run_dir": path, "ok": True, **d}

@@ -26,11 +26,11 @@ Stdlib-only end to end (no torch import): ledgers are computed wherever
 the run dir lands. See ``docs/goodput.md``.
 
 The port's copy of ``tpu_ddp/ledger/``, reading the port's run dirs and
-the JAX package's alike. Three joins wait for modules not ported yet: the
-``compile`` category stays in the taxonomy at 0 s (nothing in the port
-compiles a step, so no ``jax/compile_seconds`` is written), a ``hang``
-life carries no hang-forensics note until ``comms/`` is ported, and the
-``stall`` row names no ``likely_cause`` until ``diagnose/`` is. The
+the JAX package's alike. The ``compile`` category stays in the taxonomy
+at 0 s (nothing in the port compiles a step, so no
+``jax/compile_seconds`` is written), and the ``stall`` row names no
+``likely_cause`` until ``diagnose/`` is ported; a ``hang`` life carries the
+hang bundle's suspect collective in its notes (``comms/forensics.py``). The
 ledger's identity carries ``torch_version`` for ``jax_version``.
 """
 

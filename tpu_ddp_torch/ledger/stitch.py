@@ -278,10 +278,25 @@ def stitch_run(run_dir: str) -> StitchedRun:
                 owner = inc
         if owner is not None and wall > (owner.end_wall or 0.0):
             owner.end_wall = wall
-    # a hang incarnation stays classified ``hang``; the JAX ledger adds the
-    # hang-forensics bundle's suspect collective here
-    # (``tpu_ddp/comms/forensics.py``), which waits for ``comms/`` in the
-    # port: the port's watchdog writes no bundle yet
+    # a hang incarnation carries its stuck-collective evidence when the
+    # run had --comms-monitor: the hang-forensics bundle (or the raw comms
+    # health files) name the ring that wedged, and the note surfaces in
+    # the goodput report beside the badput that hang caused
+    hangs = [i for i in anchored if i.exit == "hang"]
+    if hangs:
+        from tpu_ddp_torch.comms.forensics import suspect_from_files
+
+        try:
+            suspect = suspect_from_files(run_dir)
+        except Exception:
+            suspect = None
+        if suspect:
+            # forensics files are overwritten a life, so like the
+            # heartbeat they belong to the NEWEST hang incarnation
+            hangs[-1].notes.append(
+                f"incarnation {hangs[-1].index}: hang forensics suspect "
+                f"collective {suspect.get('key')} "
+                f"(evidence: {suspect.get('source')})")
     meta = next((i.run_meta for i in anchored if i.run_meta), None)
     return StitchedRun(run_dir=run_dir, incarnations=anchored,
                        run_meta=meta)

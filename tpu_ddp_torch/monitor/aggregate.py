@@ -20,10 +20,10 @@ heartbeat age, the memory gauges, and the two fleet verdicts:
 **stragglers** (per-host ``compiled_step``/``data_wait`` p50 more than
 ``k × MAD`` above the fleet median) and **lost hosts** (stale heartbeat).
 
-``comms_host_view`` and ``datapath_host_view`` read the JAX package's
-``comms-health-p<i>.json`` and ``data-health-p<i>.json``, whose writers
-(the comms hop monitor and the data-path stage monitor) the port does not
-have yet: on a port run dir those views are empty. Stdlib-only.
+``comms_host_view`` and ``datapath_host_view`` read the
+``comms-health-p<i>.json`` and ``data-health-p<i>.json`` files that the
+comms hop monitor (``comms/forensics.py``, under ``--comms-monitor``) and
+the data-path stage monitor (``datapath/stages.py``) write. Stdlib-only.
 """
 
 from __future__ import annotations

@@ -17,10 +17,12 @@ host's exporter, rate-limited to ``MonitorConfig.max_auto_profiles`` per
 run and edge-triggered like the alerts themselves).
 
 COM001 and DAT001 judge the live comms-health and data-health files
-against a ``comms bench`` / ``data bench`` baseline artifact. Neither the
-writers of those files nor the bench commands are in the port yet, so a
-configured baseline is refused with a warning and the two rules stay
-quiet. Stdlib-only.
+(``comms/forensics.py``'s ``HopMonitor``, ``datapath/stages.py``'s
+``StageMonitor``) against a ``comms bench`` / ``data bench`` baseline
+artifact (``--comms-baseline``, ``--data-baseline``), read through
+``comms/model.py::axis_baselines`` and ``datapath/model.py::stage_baselines``;
+an unreadable baseline disables its rule with a warning, as in JAX.
+Stdlib-only.
 """
 
 from __future__ import annotations
@@ -230,17 +232,37 @@ class AlertEngine:
         # disabled: no baseline, or an unreadable/baseline-less file —
         # the engine must keep watching either way)
         self._comms_baselines: Dict[str, float] = {}
-        # DAT001's benched per-stage throughput reference, same contract
-        self._data_baselines: Dict[str, float] = {}
-        # the baselines' readers come with comms/ and datapath/'s bench
-        # (module docstring): until then a configured baseline disables
-        # its rule, as an unreadable one does in the JAX package
-        for rule, path in (("COM001", self.config.comms_baseline),
-                           ("DAT001", self.config.data_baseline)):
-            if path:
+        if self.config.comms_baseline:
+            try:
+                with open(self.config.comms_baseline) as f:
+                    art = json.load(f)
+            except (OSError, json.JSONDecodeError):
                 log.warning(
-                    "%s disabled: the port cannot read the baseline "
-                    "artifact at %r yet", rule, path)
+                    "COM001 disabled: could not read the comms baseline "
+                    "artifact at %r", self.config.comms_baseline)
+                art = None
+            if isinstance(art, dict):
+                from tpu_ddp_torch.comms.model import axis_baselines
+
+                self._comms_baselines = axis_baselines(
+                    art.get("comms") if isinstance(art.get("comms"), dict)
+                    else art)
+        # DAT001's benched per-stage throughput reference, same contract
+        # as the comms baseline above ({} = rule disabled)
+        self._data_baselines: Dict[str, float] = {}
+        if self.config.data_baseline:
+            try:
+                with open(self.config.data_baseline) as f:
+                    art = json.load(f)
+            except (OSError, json.JSONDecodeError):
+                log.warning(
+                    "DAT001 disabled: could not read the data baseline "
+                    "artifact at %r", self.config.data_baseline)
+                art = None
+            if isinstance(art, dict):
+                from tpu_ddp_torch.datapath.model import stage_baselines
+
+                self._data_baselines = stage_baselines(art)
 
     # -- rule evaluation --------------------------------------------------
 

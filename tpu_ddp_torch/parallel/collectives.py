@@ -7,9 +7,10 @@ Counterpart of ``tpu_ddp/parallel/collectives.py`` (``_quant`` :168,
 runs over a ``torch.distributed`` process group (the default one, or a group
 of the rank grid: "Groups" below); each rank is one process.
 
-Every call that moves bytes between ranks goes through one of four helpers
+Every call that moves bytes between ranks goes through one of five helpers
 here (``post``, which ``exchange`` and ``exchange_async`` call,
-``all_gather_bytes``, ``_all_reduce_flat``, ``reduce_scatter_sum``). Under the
+``all_gather_bytes``, ``_all_reduce_flat``, ``reduce_scatter_sum``, and
+``all_to_all``, which only the comms microbenchmark calls). Under the
 ``gloo`` backend, which sends no CUDA tensor point to point, they stage
 CUDA tensors through pinned host buffers: copy to the host, send, receive,
 copy back to the card. Only wire bytes take that route; every quantize,
@@ -81,8 +82,8 @@ chunk (the gather phase's: of the result), a 0-d tensor left on the device.
 The probe is read from the received message itself (``_hop_probe``), so
 K3's fused dequantize-and-add runs as it does without a hook and the
 result is the same bit for bit. Ring attention's ring calls no hook, as
-the JAX package emits hops from the gradient ring alone. The ``HopMonitor`` that
-installs a hook comes with ``comms/``, which is not ported yet.
+the JAX package emits hops from the gradient ring alone. The trainer's
+``--comms-monitor`` installs ``comms/forensics.py``'s ``HopMonitor.on_hop``.
 """
 
 from __future__ import annotations
@@ -237,6 +238,24 @@ def all_gather_bytes(buf: torch.Tensor,
     else:
         dist.all_gather_into_tensor(out, buf, group=group)
     return out.view(n, buf.numel())
+
+
+def all_to_all(x: torch.Tensor,
+               group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """The 1-D ``x`` cut into n equal chunks in rank order, chunk j sent to
+    the rank at place j of ``group`` (None: all); returns the n chunks
+    received, in the senders' order (one ``all_to_all_single``; the
+    comms microbenchmark's all-to-all)."""
+    out = torch.empty_like(x)
+    if _staged(x):
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        send = _to_host(x)
+        torch.cuda.current_stream(x.device).synchronize()
+        dist.all_to_all_single(host, send, group=group)
+        out.copy_(host, non_blocking=True)
+    else:
+        dist.all_to_all_single(out, x.contiguous(), group=group)
+    return out
 
 
 def _all_reduce_flat(tensors: Sequence[torch.Tensor],

@@ -18,9 +18,9 @@ emitting nothing. Two mechanisms:
   re-arms it — so a long stall doesn't spam the log.
 
 Stdlib-only and torch-free: the watchdog must keep functioning precisely
-when the CUDA runtime is the thing that hung. The JAX trainer's hang bundle
-(``on_hang`` writing ``comms.forensics``' record) waits for the port's
-``comms/``: the port's trainer passes no ``on_hang``.
+when the CUDA runtime is the thing that hung. Under a run dir the trainer's
+``on_hang`` writes the hang bundle (``comms/forensics.py::write_hang_bundle``)
+before any abort.
 """
 
 from __future__ import annotations

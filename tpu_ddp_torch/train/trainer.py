@@ -207,11 +207,22 @@ included) takes one last memory sample, writes
 ``oom_abort`` instant and re-raises (``_handle_possible_oom``). ``close``
 stops the exporter and writes an open window as a truncated bundle.
 
-Not ported yet: the JAX objects the trainer builds around a telemetry run
-dir (:726-871) that come with modules still to port: the elastic
-supervisor, the data-path stage monitor, chaos injection and the comms hop
-monitor (so the watchdog's hang bundle, which reads ``comms/``, is not
-written either).
+Forensics and chaos (the JAX trainer's :790-871, :1657-1679, :1990-2016
+and :2172-2184): with a run dir the trainer builds, before the loaders,
+``chaos/inject.py``'s ``ChaosInjector`` under ``--chaos SPEC.JSON`` (its
+``save_fault_hook`` is the checkpointer's ``fault_hook``), then under
+``--comms-monitor`` ``comms/forensics.py``'s ``HopMonitor`` with the
+injector's ``comm_stall_hook`` as its fault hook (installed as the ring's
+hop hook, ``parallel/collectives.py::set_ring_hop_hook``, as the last act
+of ``__init__``, so a failed build leaves no hook behind), then
+``datapath/stages.py``'s ``StageMonitor`` (``data-health-p<rank>.json``)
+with the injector's ``data_stall_hook``, the train loader's ``observer``.
+After each call's watchdog beat the injector's ``on_step`` runs (so a
+``hang`` fault blocks the next beat), then both monitors take the step.
+The watchdog's ``on_hang`` writes ``hang-forensics-p<rank>.json``
+(``comms/forensics.py::write_hang_bundle``) whenever there is a run dir.
+``close`` clears the hop hook before it closes the hop monitor, and closes
+the stage monitor. The elastic supervisor is not ported yet.
 """
 
 from __future__ import annotations
@@ -251,7 +262,7 @@ from tpu_ddp_torch.metrics.timing import Throughput
 from tpu_ddp_torch.models import MODEL_REGISTRY, NetResDeep
 from tpu_ddp_torch.models.layers import DTYPES as COMPUTE_DTYPES
 from tpu_ddp_torch.parallel.compression import MODES as COMPRESS_MODES
-from tpu_ddp_torch.parallel.collectives import all_gather_bytes
+from tpu_ddp_torch.parallel.collectives import all_gather_bytes, set_ring_hop_hook
 from tpu_ddp_torch.parallel.compression import GradCompression, GradCompressor
 from tpu_ddp_torch.parallel.runtime import (
     agree_any,
@@ -301,6 +312,17 @@ from tpu_ddp_torch.train.steps import (
 )
 
 log = logging.getLogger(__name__)
+
+#: the JAX ``validate``'s refusal of ``--comms-monitor`` with
+#: ``--lint-on-start``; the port has no ``--lint-on-start`` until the lint
+#: is ported (ROADMAP section 1 item 2), so no guard raises it yet
+COMMS_MONITOR_LINT_REFUSAL = (
+    "--comms-monitor does not compose with "
+    "--lint-on-start: the per-hop host callback is a "
+    "deliberate host transfer inside the step, which "
+    "the lint's host-transfer rule would (correctly) "
+    "refuse"
+)
 
 
 @dataclasses.dataclass
@@ -402,6 +424,8 @@ class TrainConfig:
     monitor_allow_remote_trigger: bool = False  # POST /profile from any peer
     mem_sample_steps: int = 1             # >0: the memory sampler's stride
                                           # (mem-p<rank>.jsonl under telemetry)
+    chaos_spec: Optional[str] = None      # --chaos SPEC.JSON: fault injection
+    comms_monitor: bool = False           # the ring's hop monitor
 
     def __post_init__(self):
         valid_sinks = tuple(DEFAULT_SINKS.split(","))
@@ -422,6 +446,44 @@ class TrainConfig:
                 "--watchdog-abort needs --watchdog-deadline > 0: there "
                 "is no hang detector to escalate from"
             )
+        if self.comms_monitor:
+            if not self.telemetry_dir:
+                raise ValueError(
+                    "--comms-monitor needs --telemetry-dir: the per-axis "
+                    "health records and the hang-forensics suspect live "
+                    "in the run dir"
+                )
+        if self.chaos_spec:
+            if not self.telemetry_dir:
+                raise ValueError(
+                    "--chaos needs --telemetry-dir: the fire-once fault "
+                    "state lives in the run dir (and an unobserved "
+                    "chaos run proves nothing)"
+                )
+            from tpu_ddp_torch.chaos.inject import load_spec
+
+            # parse and validate NOW: a typo'd fault spec must refuse the
+            # launch, not detonate at its trigger step
+            spec = load_spec(self.chaos_spec)
+            if any(f.get("kind") == "comm_stall" for f in spec["faults"]) \
+                    and not self.comms_monitor:
+                raise ValueError(
+                    "chaos spec contains a comm_stall fault but "
+                    "--comms-monitor is off: the stall fires from the "
+                    "per-hop callback seam, so without the monitor the "
+                    "fault can never trigger"
+                )
+            if any(f.get("kind") == "data_stall" and f.get("stage")
+                   for f in spec["faults"]) \
+                    and self.prefetch_depth > 0 \
+                    and self.prefetch_batches <= 0:
+                raise ValueError(
+                    "chaos spec contains a stage-targeted data_stall "
+                    "fault but the staged loader pipeline is off: the "
+                    "stall fires from the per-stage observer seam, which "
+                    "runs only with --prefetch-batches N or "
+                    "--prefetch-depth 0"
+                )
         if self.health not in ("off", "on"):
             raise ValueError(
                 f"unknown health mode {self.health!r}; valid modes: off, on")
@@ -634,8 +696,10 @@ class Trainer:
         else:
             self.mesh = create_mesh(sizes)
             self.data_size, self.data_index = self.mesh.data_size, self.mesh.data_index
-        # telemetry first: the loaders and checkpointers emit into it
+        # telemetry first: the loaders and checkpointers emit into it; the
+        # forensics next, so the train loader is born with its observer
         self._init_telemetry()
+        self._init_forensics()
         if train_data is None:
             train_data, test_data = load_dataset(c)
         elif test_data is None:
@@ -652,7 +716,7 @@ class Trainer:
             per_shard_batch=c.per_shard_batch, shuffle=c.shuffle,
             reshuffle_each_epoch=c.reshuffle_each_epoch, seed=c.seed,
             process_index=self.data_index, process_count=self.data_size,
-            telemetry=self.telemetry)
+            telemetry=self.telemetry, observer=self._datapath)
         self.test_loader = ShardedBatchLoader(
             *test_data, world_size=self.data_size,
             per_shard_batch=c.per_shard_batch, shuffle=False,
@@ -755,7 +819,9 @@ class Trainer:
         self.save_ms = []             # [step, wait, ms] a save (``_save``)
         self._best_acc = float("-inf")
         if c.checkpoint_dir:
-            self.checkpointer = Checkpointer(c.checkpoint_dir, telemetry=self.telemetry)
+            self.checkpointer = Checkpointer(
+                c.checkpoint_dir, telemetry=self.telemetry,
+                fault_hook=self._chaos.save_fault_hook if self._chaos is not None else None)
             if c.keep_best:
                 best_dir = os.path.join(c.checkpoint_dir, "best")
                 self.best_checkpointer = Checkpointer(best_dir, max_to_keep=1,
@@ -774,6 +840,10 @@ class Trainer:
                 self._restore(self.checkpointer.restore())
                 self.resumed_step = int(self.state.step)
                 self.logger.log_text(f"resumed from step {self.resumed_step}")
+        if self._comms_monitor is not None:
+            # installed last: an __init__ that raises leaves no process-wide
+            # hook writing through a monitor that no close will clear
+            set_ring_hop_hook(self._comms_monitor.on_hop)
 
     def _init_telemetry(self) -> None:
         """The run header, the ``Telemetry`` of ``--telemetry-dir`` (the
@@ -810,6 +880,36 @@ class Trainer:
                 c.telemetry_dir, process_index=self.rank, incarnation=self.incarnation,
                 seed=c.seed, run_id=self.run_meta["run_id"],
                 global_batch=c.per_shard_batch * self.data_size)
+
+    def _init_forensics(self) -> None:
+        """The chaos injector, the ring's hop monitor and the loader's stage
+        monitor, in the JAX order (:790-871; module docstring). The hop
+        monitor's ``n_devices`` is 1: a rank drives one card, and its hook
+        hears only its own hops."""
+        c = self.config
+        self._chaos = self._comms_monitor = self._datapath = None
+        if c.chaos_spec:
+            from tpu_ddp_torch.chaos.inject import ChaosInjector
+
+            self._chaos = ChaosInjector(
+                c.chaos_spec, c.telemetry_dir, process_index=self.rank,
+                checkpoint_dir=c.checkpoint_dir, telemetry=self.telemetry)
+        if c.comms_monitor:
+            from tpu_ddp_torch.comms.forensics import HopMonitor
+
+            self._comms_monitor = HopMonitor(
+                c.telemetry_dir, process_index=self.rank, n_devices=1,
+                fault_hook=(self._chaos.comm_stall_hook
+                            if self._chaos is not None else None),
+                telemetry=self.telemetry)
+        if c.telemetry_dir:
+            from tpu_ddp_torch.datapath.stages import StageMonitor
+
+            self._datapath = StageMonitor(
+                c.telemetry_dir, process_index=self.rank,
+                stall_hook=(self._chaos.data_stall_hook
+                            if self._chaos is not None else None),
+                telemetry=self.telemetry)
 
     def _init_observatories(self) -> None:
         """The objects the JAX trainer builds around a telemetry run dir
@@ -1335,6 +1435,15 @@ class Trainer:
                     self._traced_step(metrics["loss"], host_step, dn, n_real)
                 if self._watchdog is not None:
                     self._watchdog.beat(host_step)
+                # after the beat (the JAX :2172-2184): an injected hang
+                # blocks here, so the beat above is the last one; the
+                # monitors stamp the step on their next records
+                if self._chaos is not None:
+                    self._chaos.on_step(host_step)
+                if self._comms_monitor is not None:
+                    self._comms_monitor.set_step(host_step)
+                if self._datapath is not None:
+                    self._datapath.set_step(host_step)
                 # after the beat, in the JAX order (:2184-2195): the capture
                 # window opens and closes on call boundaries, then the
                 # memory sample (host-side allocator reads, no sync)
@@ -1506,9 +1615,19 @@ class Trainer:
         if tel.enabled:
             tel.emit_counters(name="counters_baseline")
         if c.watchdog_deadline_seconds > 0 and self._watchdog is None:
+            on_hang = None
+            if c.telemetry_dir:
+                # the hang bundle names the suspect collective and loader
+                # stage; written before the abort, after which there is
+                # no process left to ask
+                from tpu_ddp_torch.comms.forensics import write_hang_bundle
+
+                def on_hang(dump: str, _dir=c.telemetry_dir, _p=self.rank) -> None:
+                    write_hang_bundle(_dir, process_index=_p, dump_text=dump)
+
             self._watchdog = HangWatchdog(
                 c.watchdog_deadline_seconds, heartbeat_dir=c.telemetry_dir,
-                process_index=self.rank, telemetry=tel,
+                process_index=self.rank, telemetry=tel, on_hang=on_hang,
                 abort_on_hang=c.watchdog_abort).start()
         if c.monitor_port and self._exporter is None:
             self._start_exporter()
@@ -1710,6 +1829,14 @@ class Trainer:
         if self._watchdog is not None:
             self._watchdog.stop()
             self._watchdog = None
+        if self._comms_monitor is not None:
+            # clear the hop hook BEFORE closing: a later ring must not
+            # write through a closed monitor
+            set_ring_hop_hook(None)
+            self._comms_monitor.close()
+            self._comms_monitor = None
+        if self._datapath is not None:
+            self._datapath.close()
         for ck in (self.checkpointer, self.best_checkpointer):
             if ck is not None:
                 ck.close()
