@@ -397,7 +397,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     (d) ``skip_step`` under ``--zero3 --grad-compress int8`` at two ranks,
     rank 0's fifth batch all NaN: the step skipped on both, each rank's
     state (shards, slots, counts, buffers, residual) bitwise across it.
-    (c)'s two-rank resume and (d) run in one two-rank job, (d) first.
+    (c)'s two-rank resume and (d) ride phase 27's two-rank job (each run
+    its own options: (d) poisons its own fifth batch), checked after it.
 25. Sequence parallelism (``--parallelism sp``, ring attention). (a) The
     ring on four gloo ranks sharing the card in one job, as two rings of 2
     and then one ring of 4: ``ring_flash_attention`` (K4 a forward hop, K5
@@ -590,6 +591,35 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     arm's step period, the three differences and the hook's ms inside the
     live step. ``python3 chip_smoke.py --phase 31`` runs it alone with
     28c's job.
+32. The diagnose engine and the elastic supervisor
+    (``tpu_ddp_torch/diagnose``, ``elastic``; ``run_phase32``). (a) In a
+    child process (``--elastic-run``), ``python -m tpu_ddp_torch.cli.main
+    elastic train --backoff-base 0 -- ARGS`` with phase 29's recipe and
+    steps at two gloo ranks sharing the card: NetResDeep at full width
+    ``--kernels --grad-compress int8 --n-devices 2 --global-batch-size 64
+    --telemetry-dir D --checkpoint-dir C --checkpoint-steps 5 --chaos``, a
+    ``kill_host`` at step 8 on each rank reporting one survivor. Each life
+    runs as the supervisor starts it (the launcher for two ranks, one
+    process for one), each rank an ``--elastic-life`` child that records
+    its launch counts and exit code (through ``os._exit`` too). The
+    supervisor exits 0 without importing torch; ``elastic.jsonl`` reads
+    launch, restart, exit, the restart ``killed`` with ``n_devices`` 1,
+    ``resume_step`` 5 and DIA004 (``lost_host``); the second life ran
+    ``--n-devices 1 --resume``; life 0 K1 8, K2 16 and K3 16 a rank (exit
+    137), life 1 K1 15 and no K2 or K3 (the ring at one rank hands the
+    gradient back). ``goodput D --json``: killed then clean, 3 replayed
+    steps, the categories summing to ``elapsed_s`` within 1e-6 s, the stall
+    attributed where stall seconds are booked; ``diagnose D --json`` exits
+    1 naming DIA004 with ``devices`` 1 (every verdict printed); ``watch D
+    --once --json`` carries diagnose's top verdict as ``likely_cause``.
+    Each life's start-up is printed beside the launcher jobs'. (b) In this
+    process, on run dirs kept from earlier phases (``keep_dir``): ``watch
+    --once --comms-baseline`` on 31a's run dir with 31b's bench (its
+    ``alerts.jsonl`` written), then ``diagnose`` naming DIA002 on
+    ``ring-all-reduce/s8/data`` and no DIA001; on 30b's OOM, DIA003; on
+    29's killed and resumed run, whatever it says. Each reader's host
+    seconds printed. ``python3 chip_smoke.py --phase 32`` runs it alone,
+    with 28c's job (31 riding it), 30b's child and phase 29.
 
 Launcher jobs carry several runs each (``launch_dp_runs``; a run's own
 ``rank_child`` options let unlike runs share a job): phase 26's three-rank
@@ -2340,6 +2370,25 @@ def smoke_job(argv, nproc, phase, out_dir):
           + (f"{startup:.2f} s" if startup is not None else "not measured (a rank did not "
              "start)") + f", {wall:.2f} s in all", flush=True)
     return rc
+
+
+#: what phase 32 (b) reads of earlier phases, moved out of their scratch
+#: directories before those go (``keep_dir``) in a run that goes on to
+#: phase 32 (``KEEPING``): label -> path
+KEPT = {}
+KEEPING = [False]
+KEEP_ROOT = os.path.join(ROOT, "build", f"chip_smoke-keep-{os.getpid()}")
+
+
+def keep_dir(label, path):
+    """Move ``path`` (a run dir or a file) to ``KEEP_ROOT/label`` for phase
+    32 (b), which removes ``KEEP_ROOT``; nothing in a run without phase
+    32."""
+    import shutil
+
+    if KEEPING[0]:
+        os.makedirs(KEEP_ROOT, exist_ok=True)
+        KEPT[label] = shutil.move(path, os.path.join(KEEP_ROOT, label))
 
 
 def print_jobs():
@@ -5434,32 +5483,37 @@ def phase_zero3(tmp, zero1_runs, n=ZERO1_RANKS, backend="gloo", serial=False):
     return out
 
 
-def phase_zero3_two(tmp, n=ZERO1_RANKS):
-    """Phase 24 (c) and (d) at two ranks over gloo, in one job: ``skip_step``
-    under ``--zero3`` with rank 0's fifth batch all NaN (the job's first run,
-    so the process's fifth batch is its): that step skipped on both ranks,
-    every rank's state (param shards, optimizer slots and counts, BatchNorm
-    buffers, residual) bitwise as before it, replicas bitwise; then 24c's
-    ``--zero3`` int8 checkpoint (``phase_zero3``'s at ``n`` ranks; its latest,
-    the resumed run's last step) resumed under ``--zero1`` (from that step,
-    finite losses, replicas bitwise, the data that of ``n`` ranks)."""
+def zero3_two_runs(tmp, n=ZERO1_RANKS):
+    """Phase 24 (c) and (d)'s runs at two ranks over gloo, for phase 27's
+    two-rank job (deterministic cuDNN): ``skip_step`` under ``--zero3`` with
+    its own fifth batch all NaN on rank 0, and ``phase_zero3``'s ``n``-rank
+    ``--zero3`` int8 checkpoint under ``tmp`` resumed under ``--zero1``."""
     ck = os.path.join(tmp, f"zero3_ckpt{n}")
     resume = dp_args(True, 2) + ["--zero1"]
     resume[resume.index("--synthetic-size") + 1] = str(n * 32 * DP_STEPS_PER_EPOCH)
     resume = [a for a in resume if a != "--eval-each-epoch"]
-    run_dir = os.path.join(tmp, "zero3_health")
     skip = ["--device", "cuda", "--dist-backend", "gloo", "--synthetic-data",
             "--synthetic-size", str(2 * 32 * HEALTH_RANK_STEPS), "--epochs", "1",
             "--no-shuffle", "--kernels", "--zero3", "--grad-compress", "int8",
             "--grad-compress-error-feedback", "--n-chans1", "32", "--n-blocks", "10",
             "--batch-size", "32", "--lr", "1e-2", "--momentum", "0.9",
             "--log-every-epochs", "1", "--health", "on", "--health-policy", "skip_step",
-            "--health-per-layer-stride", "5", "--health-dir", run_dir]
-    jobs = launch_dp_runs(
-        tmp, [("zero3_skip", skip),
-              ("zero3_to_zero1_two", with_epochs(resume, 3, "--checkpoint-dir", ck,
-                                                 "--resume"))],
-        2, phase="24c-d", deterministic=True, poison=HEALTH_POISON)
+            "--health-per-layer-stride", "5", "--health-dir",
+            os.path.join(tmp, "zero3_health")]
+    return [("zero3_skip", skip, ["--poison-batch", str(HEALTH_POISON)]),
+            ("zero3_to_zero1_two", with_epochs(resume, 3, "--checkpoint-dir", ck, "--resume"))]
+
+
+def phase_zero3_two(tmp, jobs, n=ZERO1_RANKS):
+    """Phase 24 (c) and (d)'s checks on ``zero3_two_runs(tmp, n)`` (``jobs``:
+    the two-rank job they rode): ``skip_step`` under ``--zero3``: the
+    poisoned step skipped on both ranks, every rank's state (param shards,
+    optimizer slots and counts, BatchNorm buffers, residual) bitwise as
+    before it, replicas bitwise; 24c's ``--zero3`` int8 checkpoint (its
+    latest, the resumed run's last step) resumed under ``--zero1`` at two
+    ranks (from that step, finite losses, replicas bitwise, the data that of
+    ``n`` ranks)."""
+    run_dir = os.path.join(tmp, "zero3_health")
     metrics, same = jobs["zero3_skip"]
     recs = [health_records(run_dir, r) for r in range(2)]
     bad = [[r["step"] for r in rec if not r["all_finite"]] for rec in recs]
@@ -6422,15 +6476,15 @@ def moe_one_rank(model, smi):
     return metrics
 
 
-def pp_ep_job(tmp, backend="gloo", nproc=2, more=()):
-    """Phase 27a's and 27c's runs (and the ``more`` runs of other phases)
-    in one job into ``tmp/pp`` (one process start); returns
+def pp_ep_job(tmp, backend="gloo", nproc=2, more=(), also=None):
+    """Phase 27a's and 27c's runs (and the ``more`` runs of the phases
+    ``also`` names) in one job into ``tmp/pp`` (one process start); returns
     ``launch_dp_runs``' results."""
     return launch_dp_runs(
         os.path.join(tmp, "pp"), [(f"pp_{sched}", pp_args(sched, backend, nproc=nproc))
                                   for sched in ("gpipe", "1f1b")]
         + [("ep", moe_args("vit_moe_s4", EP_STEPS, "ep", backend, nproc))] + list(more),
-        nproc, phase="27a, 27c" + (" and 26" if more else ""), deterministic=True,
+        nproc, phase="27a, 27c" + (f" and {also}" if also else ""), deterministic=True,
         extra=["--save-states", "pp_gpipe,pp_1f1b,ep"])
 
 
@@ -7079,6 +7133,8 @@ def phase31_checks(tmp, smi, jobs, job_s):
     cost_s = phase31_cost(smi, jobs)
     stamp("phase 31 (a), (b), (d)")
     phase31_in_process(tmp, smi, run_dir)
+    keep_dir("31a", run_dir)
+    keep_dir("31b", bench)
     own = (time.perf_counter() - t31 + metrics[0]["run_seconds"] + bm[0]["seconds"]
            + cost_s)
     print(f"phase 31 took {own:.1f} s beyond 28c's run (31a's run "
@@ -7353,6 +7409,7 @@ def phase_run_dir_readers(tmp, smi):
         fail(f"29d: bench compare did not name the kill's badput:\n{out}")
     print("  reader host seconds: " + "; ".join(
         f"{k} {' '.join(f'{x:.4f}' for x in v)}" for k, v in times.items()), flush=True)
+    keep_dir("29", run_dir)
 
 
 def run_phase29(smi):
@@ -7504,22 +7561,28 @@ def step_ms(run_dir):
     return out
 
 
+def oom_args(oom_dir):
+    """Phase 30b's run: a batch of ``OOM_BATCH`` that cannot fit, traced
+    into ``oom_dir``."""
+    return ["--device", "cuda", "--synthetic-data", "--synthetic-size", str(OOM_BATCH),
+            "--epochs", "1", "--batch-size", str(OOM_BATCH), "--kernels",
+            "--telemetry-dir", oom_dir, "--telemetry-sinks", "jsonl"]
+
+
 def phase_observatories(tmp, smi):
     """Phase 30 (a) and (b) (module docstring). (b)'s capped child starts
     first and runs beside (a)'s: it fails its first step while (a)'s child
     is still starting, so the two share only their start-up, which is most
     of the phase's time."""
     oom_dir = os.path.join(tmp, "oom")
-    oom_args = ["--device", "cuda", "--synthetic-data", "--synthetic-size", str(OOM_BATCH),
-                "--epochs", "1", "--batch-size", str(OOM_BATCH), "--kernels",
-                "--telemetry-dir", oom_dir, "--telemetry-sinks", "jsonl"]
-    print(f"phase 30b: tpu_ddp_torch.cli.train {' '.join(oom_args)} capped at {OOM_FRACTION} "
+    args = oom_args(oom_dir)
+    print(f"phase 30b: tpu_ddp_torch.cli.train {' '.join(args)} capped at {OOM_FRACTION} "
           "of the card, in a child beside 30a's", flush=True)
     oom_log = os.path.join(tmp, "oom.log")
     with open(oom_log, "w") as log:
         OTHER_CHILDREN[0] += 1
         oom = subprocess.Popen(
-            [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--oom-child", *oom_args],
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--oom-child", *args],
             cwd=ROOT, stdout=subprocess.DEVNULL, stderr=log)
     try:
         phase_observed_child(tmp, smi)
@@ -7529,6 +7592,7 @@ def phase_observatories(tmp, smi):
             oom.kill()
             oom.wait()
     check_oom_child(oom_dir, oom_log, rc)
+    keep_dir("30b", oom_dir)
 
 
 def phase_observed_child(tmp, smi):
@@ -7714,6 +7778,337 @@ def run_phase30(smi, ranks=False):
     print(f"phase 30 took {time.perf_counter() - t30:.1f} s", flush=True)
 
 
+# ---- phase 32: the diagnose engine and the elastic supervisor ----------------
+
+#: 32a: phase 29's recipe and steps (two epochs of RD_STEPS steps, a checkpoint
+#: every RD_CKPT) at a global batch of P32_BATCH over P32_RANKS gloo ranks
+#: sharing the card; both ranks lost at step P32_KILL, one survivor reported
+P32_RANKS, P32_BATCH, P32_KILL = 2, 64, RD_KILL
+
+
+def p32_args(run_dir, spec):
+    """Phase 32a's train args: NetResDeep at full width ``--kernels
+    --grad-compress int8``, ``--n-devices P32_RANKS --global-batch-size
+    P32_BATCH``, traced into ``run_dir`` with its checkpoints under
+    ``run_dir/ckpt``, the chaos spec ``spec``."""
+    return ["--device", "cuda", "--dist-backend", "gloo", "--synthetic-data",
+            "--synthetic-size", str(P32_BATCH * RD_STEPS), "--epochs", "2",
+            "--n-devices", str(P32_RANKS), "--global-batch-size", str(P32_BATCH),
+            "--log-every-epochs", "1", "--kernels", "--grad-compress", "int8",
+            "--telemetry-dir", run_dir, "--health", "on", "--checkpoint-dir",
+            os.path.join(run_dir, "ckpt"), "--checkpoint-steps", str(RD_CKPT),
+            "--chaos", spec]
+
+
+def elastic_run_child(out_dir, argv):
+    """``chip_smoke.py --elastic-run DIR ARGV...``: the umbrella CLI's
+    ``main(ARGV)`` (``elastic train ...``), the supervisor's lives each rank
+    an ``--elastic-life DIR`` child in place of ``-m tpu_ddp_torch.cli.train``
+    (the launcher, when the life has ranks, runs as it would); prints
+    whether this process imported torch."""
+    sys.path.insert(0, ROOT)
+    real_run = subprocess.run
+
+    def run(cmd, *args, **kwargs):
+        cmd = list(cmd)
+        at = cmd.index("tpu_ddp_torch.cli.train")
+        cmd[at - 1:at + 1] = [os.path.join(ROOT, "chip_smoke.py"), "--elastic-life", out_dir]
+        return real_run(cmd, *args, **kwargs)
+
+    subprocess.run = run
+    from tpu_ddp_torch.cli.main import main as cli_main
+
+    rc = cli_main(argv)
+    print(f"elastic supervisor process: exit {rc}, imported torch "
+          f"{'torch' in sys.modules}, numpy {'numpy' in sys.modules}", flush=True)
+    sys.exit(rc)
+
+
+def elastic_life_child(out_dir, args):
+    """``chip_smoke.py --elastic-life DIR ARGS...``: one rank of a supervised
+    life, the train CLI's ``run(ARGS)`` with the launch counts zeroed just
+    before; writes the counts, the rank and the exit code to
+    ``DIR/life-<pid>.json`` as it exits, through ``os._exit`` (a
+    ``kill_host`` fault's exit) too."""
+    sys.path.insert(0, ROOT)
+    from tpu_ddp_torch import ops
+    from tpu_ddp_torch.cli import train as cli
+
+    path = os.path.join(out_dir, f"life-{os.getpid()}.json")
+    real_exit = os._exit
+
+    def record(code):
+        with open(path, "w") as f:
+            json.dump({"rank": int(os.environ.get("RANK", "0")), "code": code, "args": args,
+                       "launches": ops.launch_counts()}, f)
+
+    def exit_(code):
+        record(code)
+        real_exit(code)
+
+    os._exit = exit_
+    ops.reset_launch_counts()
+    try:
+        cli.run(args)
+    except BaseException:
+        record(1)
+        raise
+    record(0)
+
+
+def life_startups(run_dir, records):
+    """Each supervised life's (start-up s, wall s): from its ``launch`` or
+    ``restart`` record to the newest of its ranks' trace headers, and to the
+    next record."""
+    from tpu_ddp_torch.ledger.stitch import discover_incarnations
+
+    out = []
+    families = dict(discover_incarnations(run_dir))
+    for i, rec in enumerate(records[:-1]):
+        heads = []
+        for path in families.get(rec["incarnation"], {}).values():
+            with open(path) as f:
+                heads.append(json.loads(f.readline())["epoch_unix"])
+        out.append((max(heads) - rec["wall_time"] if heads else None,
+                    records[i + 1]["wall_time"] - rec["wall_time"]))
+    return out
+
+
+def phase_elastic(tmp, smi):
+    """Phase 32a (module docstring)."""
+    import glob
+    import signal
+
+    from tpu_ddp_torch.elastic.recovery import read_decisions
+
+    run_dir, lives_dir = os.path.join(tmp, "elastic_run"), os.path.join(tmp, "lives")
+    spec = os.path.join(tmp, "host_loss.json")
+    os.makedirs(lives_dir)
+    with open(spec, "w") as f:
+        json.dump({"chaos_schema_version": 1, "seed": 0, "faults": [
+            {"kind": "kill_host", "step": P32_KILL, "survivors": 1, "process_index": r}
+            for r in range(P32_RANKS)]}, f)
+    argv = ["elastic", "train", "--backoff-base", "0", "--", *p32_args(run_dir, spec)]
+    print(f"phase 32a ({smi}): python -m tpu_ddp_torch.cli.main {' '.join(argv)}, with "
+          f"kill_host at step {P32_KILL} on both ranks (survivors 1); each rank an "
+          "--elastic-life child", flush=True)
+    OTHER_CHILDREN[0] += 1
+    log_path = os.path.join(tmp, "elastic.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                                 "--elastic-run", lives_dir, *argv], cwd=ROOT, stdout=log,
+                                stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            fail("32a: the supervised run did not end within 600 s")
+    wall = time.perf_counter() - t0
+    with open(log_path) as f:
+        text = f.read()
+    for line in text.splitlines():
+        if line.startswith(("[elastic]", "elastic supervisor process")):
+            print(f"  {line}", flush=True)
+    if rc or "imported torch False, numpy False" not in text:
+        fail(f"32a: the supervisor exited {rc}:\n{text[-6000:]}")
+    records = read_decisions(run_dir)
+    events = [r["event"] for r in records]
+    restart = records[1] if events == ["launch", "restart", "exit"] else {}
+    diag = restart.get("diagnose") or {}
+    print(f"  32a elastic.jsonl: {events}; the restart: {restart.get('exit_class')}, attempt "
+          f"{restart.get('attempt')}, backoff {restart.get('backoff_s')} s, plan "
+          f"{json.dumps(restart.get('plan'))}, recovery {json.dumps(restart.get('recovery'))}, "
+          f"diagnose {diag.get('rule')} {json.dumps(diag.get('suspect'))}: "
+          f"{diag.get('message')}", flush=True)
+    if (not restart or restart["exit_class"] != "killed" or restart["plan"]["n_devices"] != 1
+            or (restart.get("recovery") or {}).get("resume_step") != RD_CKPT
+            or diag.get("rule") != "DIA004"
+            or (diag.get("suspect") or {}).get("kind") != "lost_host"):
+        fail(f"32a: the decision log {records}")
+    lives = []
+    for path in sorted(glob.glob(os.path.join(lives_dir, "life-*.json"))):
+        with open(path) as f:
+            lives.append(json.load(f))
+    first = sorted((x for x in lives if "--resume" not in x["args"]), key=lambda x: x["rank"])
+    second = [x for x in lives if "--resume" in x["args"]]
+    if [x["rank"] for x in first] != list(range(P32_RANKS)) or len(second) != 1:
+        fail(f"32a: the lives' ranks {[(x['rank'], x['args'][-3:]) for x in lives]}")
+    from tpu_ddp_torch.elastic.supervisor import child_flag_value
+
+    if (second[0]["args"][-3:] != ["--n-devices", "1", "--resume"]
+            or child_flag_value(first[0]["args"], "--n-devices") != str(P32_RANKS)):
+        fail(f"32a: the lives ran {first[0]['args']} and {second[0]['args']}")
+    zero = {k: 0 for k in first[0]["launches"]}
+    resumed = 2 * RD_STEPS - RD_CKPT
+    for i, (label, ranks, want, code) in enumerate((
+            ("life 0", first, {**zero, **{k: v * P32_KILL for k, v in
+                                          dp_launches(P32_RANKS).items()}}, 137),
+            ("life 1", second, {**zero, "fused_update": resumed}, 0))):
+        for x in ranks:
+            print(f"  32a {label} rank {x['rank']}: exit {x['code']}, launches "
+                  f"{x['launches']}", flush=True)
+            if x["launches"] != want or x["code"] != code:
+                fail(f"32a {label} rank {x['rank']}: exit {x['code']}, launches "
+                     f"{x['launches']}, expected {code} and {want}")
+    ups = life_startups(run_dir, records)
+    for i, (up, life_wall) in enumerate(ups):
+        JOBS.append((f"32a life {i}", P32_RANKS if i == 0 else 1, up, life_wall))
+        print(f"  launcher job {len(JOBS)} (phase 32a life {i}, "
+              + ("through the launcher" if i == 0 else "one process") + f"): start-up "
+              + (f"{up:.2f} s" if up is not None else "not measured")
+              + f" (its decision record to its ranks' last trace header), {life_wall:.2f} s "
+              "to the next record", flush=True)
+
+    times = {}
+
+    def cli(label, argv, want):
+        rc, out, seconds = read_back(argv)
+        times.setdefault(label, []).append(seconds)
+        if rc not in want:
+            fail(f"32a: tpu-ddp-torch {' '.join(argv)} exited {rc}:\n{out}")
+        return rc, out
+
+    led = json.loads(cli("goodput", ["goodput", run_dir, "--json"], (0,))[1])["ledger"]
+    incs = led["incarnations"]
+    cats = led["category_seconds"]
+    print(f"  32a goodput {led['goodput_fraction']:.6f} of {led['elapsed_s']:.6f} s; lives "
+          f"{[(e['exit'], e['steps'], e['first_step'], e['executed_through']) for e in incs]}"
+          f"; replayed {led['replayed_steps']}; restart gap {cats['restart_gap']:.6f} s; "
+          f"category seconds {json.dumps(cats)}; stall attribution "
+          f"{json.dumps(led.get('stall_attribution'))}", flush=True)
+    if ([e["exit"] for e in incs] != ["killed", "clean"]
+            or [e["steps"] for e in incs] != [P32_KILL, resumed]
+            or led["replayed_steps"] != P32_KILL - RD_CKPT
+            or abs(sum(cats.values()) - led["elapsed_s"]) > 1e-6
+            or (cats["stall"] > 1e-9) != ("stall_attribution" in led)):
+        fail("32a: the goodput ledger of the supervised run")
+    rc, out = cli("diagnose", ["diagnose", run_dir, "--json"], (1,))
+    verdicts = json.loads(out)["diagnose"]["verdicts"]
+    for v in verdicts:
+        print(f"  32a diagnose: {v['rule']} {json.dumps(v['suspect'])}: {v['message']} "
+              f"(cost {v['cost_s']}, share {v['share']})", flush=True)
+    if not any(v["rule"] == "DIA004" and v["suspect"].get("devices") == 1 for v in verdicts):
+        fail("32a: diagnose does not name the lost host")
+    report = json.loads(cli("watch", ["watch", run_dir, "--once", "--json",
+                                      "--no-alerts-file"], (0, 1))[1])
+    cause = report["likely_cause"] or {}
+    print(f"  32a watch --once likely cause: {cause.get('rule')}: {cause.get('message')}",
+          flush=True)
+    if (cause.get("rule"), cause.get("message")) != (verdicts[0]["rule"],
+                                                     verdicts[0]["message"]):
+        fail("32a: watch's likely cause is not diagnose's top verdict")
+    print(f"  32a: the supervised run {wall:.1f} s; reader host seconds: " + "; ".join(
+        f"{k} {' '.join(f'{x:.4f}' for x in v)}" for k, v in times.items()), flush=True)
+
+
+def phase_diagnose_readers(smi):
+    """Phase 32b (module docstring): ``diagnose`` in this process on the run
+    dirs phases 31a, 30b and 29 wrote (``KEPT``)."""
+    times = {}
+
+    def diagnose(label, run_dir):
+        rc, out, seconds = read_back(["diagnose", run_dir, "--json"])
+        times.setdefault(label, []).append(seconds)
+        art = json.loads(out)["diagnose"] if rc in (0, 1) else {}
+        verdicts = art.get("verdicts", [])
+        loaded = sorted(n for n, src in art.get("sources", {}).items() if src["ok"])
+        print(f"  32b {label} ({smi}): diagnose exit {rc}, {seconds:.4f} s; sources {loaded}; "
+              + ("; ".join(f"{v['rule']} {json.dumps(v['suspect'])}: {v['message']}"
+                           for v in verdicts) or "no suspect"), flush=True)
+        return rc, verdicts
+
+    rc, out, seconds = read_back(["watch", KEPT["31a"], "--once", "--json",
+                                  "--comms-baseline", KEPT["31b"]])
+    times["watch"] = [seconds]
+    alerts = sorted({(a["rule"], a["host"]) for a in json.loads(out)["alerts"]
+                     if a["state"] == "firing"}) if rc in (0, 1) else None
+    print(f"  32b 31a: watch --once --comms-baseline (writing alerts.jsonl) exit {rc}, "
+          f"firing {alerts}", flush=True)
+    rc, verdicts = diagnose("31a", KEPT["31a"])
+    rules = [v["rule"] for v in verdicts]
+    ring = [v["suspect"].get("collective") for v in verdicts if v["rule"] == "DIA002"]
+    if rc != 1 or ring != ["ring-all-reduce/s8/data"] or "DIA001" in rules:
+        fail(f"32b: diagnose on 31a's run dir gave {rules}")
+    rc, verdicts = diagnose("30b", KEPT["30b"])
+    if rc != 1 or "DIA003" not in [v["rule"] for v in verdicts]:
+        fail("32b: diagnose on 30b's OOM did not name DIA003")
+    rc, _ = diagnose("29", KEPT["29"])
+    if rc not in (0, 1):
+        fail(f"32b: diagnose on 29's run dir exited {rc}")
+    print("  32b reader host seconds: " + "; ".join(
+        f"{k} {' '.join(f'{x:.4f}' for x in v)}" for k, v in times.items()), flush=True)
+
+
+def run_phase32(smi):
+    """Phase 32 on one card: (a) in a scratch directory under ``build/``,
+    then (b) on the run dirs kept from phases 31a, 30b and 29, which it
+    removes."""
+    import shutil
+    import tempfile
+
+    t32 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
+    try:
+        phase_elastic(tmp, smi)
+        stamp("phase 32a")
+        phase_diagnose_readers(smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(KEEP_ROOT, ignore_errors=True)
+    print(f"phase 32 took {time.perf_counter() - t32:.1f} s", flush=True)
+
+
+def phase_oom_alone(tmp):
+    """Phase 30b's capped child alone (``phase_observatories`` runs it
+    beside 30a's)."""
+    oom_dir = os.path.join(tmp, "oom")
+    oom_log = os.path.join(tmp, "oom.log")
+    with open(oom_log, "w") as log:
+        OTHER_CHILDREN[0] += 1
+        rc = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--oom-child",
+             *oom_args(oom_dir)], cwd=ROOT, stdout=subprocess.DEVNULL, stderr=log,
+            timeout=300).returncode
+    check_oom_child(oom_dir, oom_log, rc)
+    keep_dir("30b", oom_dir)
+
+
+def phase32_main():
+    """``python3 chip_smoke.py --phase 32``: the kernels built, then the runs
+    32 (b) reads (28c's job with 31 riding it, 30b's capped child and phase
+    29), then phase 32, on one card."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
+    sys.path.insert(0, ROOT)
+    from tpu_ddp_torch import native
+    from tpu_ddp_torch.ops import _build
+
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    _build.build()
+    native.build()
+    KEEPING[0] = True
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
+    try:
+        tel_ranks(tmp, smi, with31=True)
+        phase_oom_alone(tmp)
+        run_phase29(smi)
+        run_phase32(smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(KEEP_ROOT, ignore_errors=True)
+    print_jobs()
+    print(f"chip_smoke --phase 32: ok ({smi})", flush=True)
+
+
 def phase30_main():
     """``python3 chip_smoke.py --phase 30``: the kernels built, then phase 30
     alone on one card, 28c's two-rank job included."""
@@ -7881,6 +8276,10 @@ def main():
         return obs_child(sys.argv[2], sys.argv[3:])
     if sys.argv[1:2] == ["--oom-child"]:
         return oom_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--elastic-run"]:
+        return elastic_run_child(sys.argv[2], sys.argv[3:])
+    if sys.argv[1:2] == ["--elastic-life"]:
+        return elastic_life_child(sys.argv[2], sys.argv[3:])
     if sys.argv[1:2] == ["--nccl"]:
         if sys.argv[3:5] == ["--phase", "26"]:
             return phase26_main(int(sys.argv[2]))
@@ -7899,6 +8298,8 @@ def main():
         return phase30_main()
     if sys.argv[1:3] == ["--phase", "31"]:
         return phase31_main()
+    if sys.argv[1:3] == ["--phase", "32"]:
+        return phase32_main()
     import shutil
     import tempfile
 
@@ -8038,13 +8439,15 @@ def main():
     phase_cv(smi)
     print(f"phase 23 took {time.perf_counter() - t23:.1f} s", flush=True)
     t24 = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
+    # 24c-d's two-rank runs ride phase 27's job: tmp24 (24c's checkpoint)
+    # lives until then
+    tmp24 = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
     try:
-        phase_zero3(tmp, zero1_runs)
-        phase_zero3_two(tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    print(f"phase 24 took {time.perf_counter() - t24:.1f} s", flush=True)
+        phase_zero3(tmp24, zero1_runs)
+    except BaseException:
+        shutil.rmtree(tmp24, ignore_errors=True)
+        raise
+    print(f"phase 24 (a)-(c) took {time.perf_counter() - t24:.1f} s", flush=True)
     t25 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
     try:
@@ -8058,15 +8461,21 @@ def main():
     # 27's two-rank job carries 26's fsdp run; 26's model=3 run rode 14's job
     tmp27 = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
     try:
-        pp_runs = pp_ep_job(tmp27, more=[gspmd_shared_runs()[2]])
+        pp_runs = pp_ep_job(tmp27, more=[gspmd_shared_runs()[2], *zero3_two_runs(tmp24)],
+                            also="24c-d and 26")
+        phase_zero3_two(tmp24, pp_runs)
+        stamp("phase 24c-d")
         run_phase26(smi, shared={"tp_vit_m3": jobs["tp_vit_m3"],
                                  "fsdp_vit": pp_runs["fsdp_vit"]})
         run_phase27(smi, tmp27, pp_runs)
     finally:
         shutil.rmtree(tmp27, ignore_errors=True)
+        shutil.rmtree(tmp24, ignore_errors=True)
+    KEEPING[0] = True
     run_phase28(smi)
     run_phase29(smi)
     run_phase30(smi)
+    run_phase32(smi)
     print_jobs()
     print_accounting()
     rows += phase_lm_timing(results, flash_results, lm_runs["flash"]["launches"])

@@ -1,6 +1,6 @@
 """The port's umbrella CLI (``python -m tpu_ddp_torch.cli.main``, the
 ``tpu-ddp-torch`` script) against the JAX package's ``tpu-ddp``: the
-subcommand set is the JAX one less the six whose modules are not ported
+subcommand set is the JAX one less the four whose modules are not ported
 yet; each shared subcommand gives the JAX exit code and, apart from the
 command's name and the trace summary's version line, the JAX output on the
 same run dirs; the read-back subcommands import neither torch nor numpy.
@@ -25,7 +25,7 @@ from tpu_ddp.cli.main import main as jax_main
 from tpu_ddp_torch.cli.main import main as port_main
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NOT_PORTED = {"elastic", "diagnose", "analyze", "lint", "tune", "ops"}
+NOT_PORTED = {"analyze", "lint", "tune", "ops"}
 RECIPE = dict(epochs=2, eval_each_epoch=True)
 
 
@@ -55,10 +55,10 @@ def test_subcommands_are_the_jax_ones_less_the_unported(capsys):
     port, jax_ = _subcommands(port_main, capsys), _subcommands(jax_main, capsys)
     assert NOT_PORTED <= jax_
     assert port == jax_ - NOT_PORTED
-    assert port == {"train", "launch", "trace", "health", "goodput", "curves", "registry",
-                    "bench", "watch", "profile", "mem", "comms", "data"}
+    assert port == {"train", "launch", "elastic", "trace", "health", "goodput", "curves",
+                    "registry", "bench", "watch", "profile", "mem", "diagnose", "comms", "data"}
     with pytest.raises(SystemExit) as exit_:
-        port_main(["diagnose", "x"])
+        port_main(["lint", "x"])
     assert exit_.value.code == 2
 
 
@@ -91,6 +91,9 @@ def _argv(case, dirs, tmp):
         "registry_list_empty": ["registry", "--registry", missing, "list"],
         "registry_trend_empty": ["registry", "--registry", missing, "trend"],
         "bench_compare_one_path": ["bench", "compare", missing],
+        "diagnose": ["diagnose", inc],
+        "diagnose_json": ["diagnose", plain, "--json"],
+        "diagnose_missing": ["diagnose", missing],
     }[case]
 
 
@@ -98,7 +101,8 @@ EXIT_CODES = {"trace_summarize": 0, "trace_summarize_json": 0, "trace_summarize_
               "health": 0, "health_missing": 2, "goodput": 0, "goodput_json": 0,
               "goodput_missing": 2, "curves": 0, "curves_stride": 0, "curves_missing": 2,
               "curves_diff": 0, "curves_diff_missing": 2, "registry_list_empty": 0,
-              "registry_trend_empty": 0, "bench_compare_one_path": 2}
+              "registry_trend_empty": 0, "bench_compare_one_path": 2, "diagnose": 0,
+              "diagnose_json": 0, "diagnose_missing": 2}
 
 
 def _versionless(text):
@@ -155,12 +159,17 @@ READ_BACK = {
     "comms_calibrate": ["comms", "calibrate", "--chip", "cpu", "{tmp}/a.json"],
     "data_audit": ["data", "audit", "{inc}"],
     "data_report": ["data", "report", "{inc}", "--json"],
+    "diagnose": ["diagnose", "{inc}", "--json"],
+    "elastic_help": ["elastic", "--help"],
 }
 
 _PROBE = """
 import json, sys
 from tpu_ddp_torch.cli.main import main
-rc = main(json.loads(sys.argv[1]))
+try:
+    rc = main(json.loads(sys.argv[1]))
+except SystemExit as e:
+    rc = e.code
 sys.stdout.flush()
 print("IMPORTED", [m for m in ("torch", "numpy") if m in sys.modules])
 sys.exit(rc)

@@ -42,13 +42,17 @@ Determinism contract: faults are keyed by list position (``fault id``),
 trigger on ``(process_index, step)``, and fire ONCE PER LOGICAL RUN: fired
 ids persist in ``<run_dir>/chaos-state.json`` across restarts, so a
 ``--resume`` life replaying past the trigger step does not re-fire the kill
-and crash-loop a supervisor. The corruption's byte and bit are drawn from
+and crash-loop a supervisor. The ranks of a run share that file: each save
+merges this rank's state into the file's under an exclusive lock
+(``chaos-state.json.lock``), so two ranks firing at one step both leave
+their ids (the JAX injector, one process a host, rewrites the file whole). The corruption's byte and bit are drawn from
 ``random.Random(seed ^ fault_id)``. Stdlib-only: the injector must work
 when torch is the thing being broken.
 """
 
 from __future__ import annotations
 
+import fcntl
 import json
 import logging
 import os
@@ -222,10 +226,21 @@ class ChaosInjector:
 
     def _save_state(self) -> None:
         os.makedirs(self.run_dir, exist_ok=True)
-        tmp = f"{self._state_path}.tmp.{os.getpid()}"
-        with open(tmp, "w") as f:
-            json.dump(self._state, f)
-        os.replace(tmp, self._state_path)
+        with open(f"{self._state_path}.lock", "a") as lock:
+            # the ranks share the file: merge under the lock, or of two
+            # faults firing at one step on two ranks only the last
+            # writer's id survives, and the other re-fires on resume
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            disk = self._load_state()
+            mine = self._state
+            mine["fired"] = disk["fired"] + [
+                i for i in mine["fired"] if i not in disk["fired"]]
+            for key in ("flake_remaining", "stall_remaining"):
+                mine[key] = {**disk[key], **mine[key]}
+            tmp = f"{self._state_path}.tmp.{os.getpid()}"
+            with open(tmp, "w") as f:
+                json.dump(mine, f)
+            os.replace(tmp, self._state_path)
 
     def _fired(self, fault_id: int) -> bool:
         return fault_id in self._state["fired"]

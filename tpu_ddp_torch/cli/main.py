@@ -7,6 +7,11 @@ subcommands whose modules the port has:
 - ``tpu-ddp-torch train ...``   — the training CLI (``tpu_ddp_torch.cli.train``)
 - ``tpu-ddp-torch launch ...``  — the multi-process launcher
   (``tpu_ddp_torch.cli.launch``)
+- ``tpu-ddp-torch elastic train ...`` — the supervised restart loop: each
+  death classified from the run dir's trace, per-failure-class restart
+  budgets with backoff, a re-mesh to the surviving devices, the resume
+  from the newest verified checkpoint, every decision in ``elastic.jsonl``
+  (``tpu_ddp_torch.elastic.supervisor``).
 - ``tpu-ddp-torch trace summarize <run_dir>`` — aggregate a telemetry JSONL
   trace into per-phase percentiles (p50/p95/max) and the final
   counters/gauges snapshot.
@@ -40,6 +45,11 @@ subcommands whose modules the port has:
 - ``tpu-ddp-torch mem <run_dir>`` — the memory record: timeline, measured
   high-water against the limit, OOM postmortems (exit 1 when one exists);
   ``--json`` is the registry's ``memtrack`` artifact.
+- ``tpu-ddp-torch diagnose <run_dir>`` — the cross-observatory root cause:
+  every artifact family of the run dir joined into one evidence table and
+  judged by the DIA001-DIA009 rules, ranked by goodput cost, with
+  citations (exit 0 no suspect, 1 a verdict, 2 a refusal); ``--json`` is
+  the registry's ``diagnose`` artifact.
 - ``tpu-ddp-torch comms bench|calibrate|exposure|forensics`` — the comms
   observatory: the collective microbenchmarks over the ranks and their
   α-β link model, a hung run's suspect collective (``exposure`` refuses by
@@ -48,13 +58,13 @@ subcommands whose modules the port has:
   the per-stage loader microbenchmarks, the cross-life batch digest
   audit, a run's per-stage ``data_wait`` verdict.
 
-The JAX CLI's ``elastic``, ``diagnose``, ``analyze``, ``lint``, ``tune`` and
-``ops`` come with their modules (ROADMAP.md, section 1).
+The JAX CLI's ``analyze``, ``lint``, ``tune`` and ``ops`` come with their
+modules (ROADMAP.md, section 1).
 
 Every subcommand but ``train``, ``launch``, ``comms bench`` and ``data
 bench`` is stdlib-only end to end: it imports neither torch nor numpy, so a
 run dir is read on any host, one without CUDA or torch included. The four
-import lazily.
+import lazily; ``elastic``'s lives import torch in their own processes.
 """
 
 from __future__ import annotations
@@ -104,6 +114,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         from tpu_ddp_torch.cli.launch import main as launch_main
 
         return launch_main(argv[1:])
+    # elastic is stdlib-only: the supervisor must not import torch (it
+    # outlives the runtime it supervises); the lives it execs are where
+    # torch lives
+    if argv[:1] == ["elastic"]:
+        from tpu_ddp_torch.elastic.supervisor import main as elastic_main
+
+        return elastic_main(argv[1:])
     # watch, profile and mem own their argparse surfaces and are
     # stdlib-only (the joins the JAX ones make through jax are notes here)
     if argv[:1] == ["watch"]:
@@ -123,6 +140,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         from tpu_ddp_torch.ledger.report import main as goodput_main
 
         return goodput_main(argv[1:])
+    # diagnose is stdlib-only end to end (cross-observatory file
+    # archaeology + the causal rule registry)
+    if argv[:1] == ["diagnose"]:
+        from tpu_ddp_torch.diagnose.cli import main as diagnose_main
+
+        return diagnose_main(argv[1:])
     # curves is stdlib-only end to end (file archaeology + band math)
     if argv[:1] == ["curves"]:
         from tpu_ddp_torch.curves.report import main as curves_main
@@ -156,6 +179,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     sub.add_parser("train", help="run the trainer (tpu-ddp-torch train --help)")
     sub.add_parser("launch", help="multi-process launcher "
                                   "(tpu-ddp-torch launch --help)")
+    sub.add_parser(
+        "elastic",
+        help="supervised elastic training: restart loop with failure-"
+             "class budgets, re-mesh to survivors, verified-checkpoint "
+             "recovery, elastic.jsonl decision log "
+             "(tpu-ddp-torch elastic --help)",
+    )
     trace = sub.add_parser("trace", help="telemetry trace tools")
     trace_sub = trace.add_subparsers(dest="trace_command", required=True)
     summ = trace_sub.add_parser(
@@ -199,6 +229,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         help="memory truth loop over a run dir: live device-memory "
              "timeline, measured-vs-planned reconciliation, OOM "
              "postmortems (tpu-ddp-torch mem --help)",
+    )
+    sub.add_parser(
+        "diagnose",
+        help="cross-observatory root-cause verdict for a run dir: "
+             "every artifact family joined into one ranked, cited "
+             "incident report (tpu-ddp-torch diagnose --help)",
     )
     sub.add_parser(
         "curves",

@@ -10,12 +10,13 @@ Counterpart of ``tpu_ddp/comms/``:
 - ``model``: fit per-(chip, axis, kind, dtype) α-β link models from the
   sweeps and assemble them from artifact files and the registry;
 - ``forensics``: name the suspect in-flight collective when the watchdog
-  declares a hang, from the ring hop hook's health files.
+  declares a hang, from the ring hop hook's health files;
+- ``exposure``: read a run dir's exposed-comm record (a JAX run's).
 
 CLI: ``tpu-ddp-torch comms bench|calibrate|forensics`` (``comms/cli.py``).
-The JAX ``exposure`` leg times a recorded program against a one-device
-twin through ``analysis/explain``, which the port does not have; its
-command refuses by name.
+The JAX ``exposure`` leg that measures the record times a recorded program
+against a one-device twin through ``analysis/explain``, which the port does
+not have; its command refuses by name.
 """
 
 from tpu_ddp_torch.comms.model import (  # noqa: F401

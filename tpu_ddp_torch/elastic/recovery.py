@@ -1,10 +1,9 @@
 """Verified-checkpoint recovery + the elastic decision log.
 
 The port's copy of ``tpu_ddp/elastic/recovery.py``, with the same
-``elastic.jsonl`` schema: the goodput ledger reads the decision log. The
-supervisor that writes it (``supervisor.py``, ``policy.py``,
-``remesh.py``), and the capacity file it reads (``read_capacity``), are
-not ported yet.
+``elastic.jsonl`` schema and capacity file: the supervisor
+(``supervisor.py``) writes the decision log and reads the capacity file,
+the goodput ledger joins the log.
 
 Two supervisor-side concerns, both stdlib-only file archaeology:
 
@@ -108,3 +107,23 @@ def read_decisions(run_dir: str) -> List[dict]:
     except OSError:
         pass
     return out
+
+
+def read_capacity(path: Optional[str],
+                  default: Optional[int] = None) -> Optional[int]:
+    """The scheduler's surviving-device count from a capacity file
+    (``{"devices": N}`` — the chaos harness's kill_host writes one; a
+    real deployment points ``--capacity-file`` at its scheduler's
+    signal). ``default`` when the file is absent/unreadable — absence
+    means "nobody reported a loss", not "zero devices"."""
+    if not path:
+        return default
+    try:
+        with open(path) as f:
+            record = json.load(f)
+    except (OSError, ValueError):
+        return default
+    devices = record.get("devices") if isinstance(record, dict) else None
+    if isinstance(devices, int) and devices >= 1:
+        return devices
+    return default

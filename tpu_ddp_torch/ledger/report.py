@@ -95,12 +95,16 @@ def ledger_json(ledger: RunLedger,
 
 
 def _stall_attribution(run_dir: str) -> Optional[dict]:
-    """The ``stall`` bucket's cause: the JAX ledger takes the top diagnose
-    verdict (``tpu_ddp/diagnose/rules.py::likely_cause``) here. ``diagnose/``
-    is not ported yet, so the port names no cause; the stall seconds are
-    booked all the same."""
-    del run_dir
-    return None
+    """The ``stall`` bucket's cause: the top diagnose verdict (DIA rule
+    registry, docs/diagnose.md) when one exists. Report-only — the
+    taxonomy's sum-to-elapsed identity is untouched; this merely NAMES
+    what the already-booked stall seconds were."""
+    try:
+        from tpu_ddp_torch.diagnose.rules import likely_cause
+
+        return likely_cause(run_dir)
+    except Exception:
+        return None
 
 
 def _data_wait_note(run_dir: str) -> str:

@@ -11,10 +11,11 @@ engine runs inside the watcher, so watching a run is also what *writes*
 ``--once --json`` emits one schema-versioned report (snapshot + alerts)
 and exits; the exit code is 1 when any alert is firing.
 
-Two joins of the JAX watch wait for modules the port does not have yet:
-``--roofline`` (the predicted step time, ``analysis/explain.py``) gives
-the JAX degrade note, and ``--once`` leaves out ``likely_cause`` (the
-``diagnose/`` rule registry). Stdlib-only: no torch, no numpy.
+``--once`` also joins the top verdict of the diagnose rule registry
+(``likely_cause``). One join of the JAX watch waits for a module the port
+does not have yet: ``--roofline`` (the predicted step time,
+``analysis/explain.py``) gives the JAX degrade note. Stdlib-only: no
+torch, no numpy.
 """
 
 from __future__ import annotations
@@ -263,6 +264,14 @@ def render_report(report: dict) -> str:
             f"{snap.get('run_dir')}`"
         )
 
+    # the diagnose join (--once only): one line naming the likely
+    # root cause from the DIA rule registry (docs/diagnose.md)
+    if "likely_cause" in report:
+        from tpu_ddp_torch.diagnose.report import render_likely_cause
+
+        lines.append("")
+        lines.append(render_likely_cause(report["likely_cause"]))
+
     series = snap.get("loss_series") or []
     if series:
         from tpu_ddp_torch.health.summarize import sparkline
@@ -417,6 +426,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         report = build_report(aggregator, engine)
         if rl is not None:
             _join_roofline(report, rl)
+        # one-shot mode reads a static run dir, so the full diagnose
+        # join is affordable: a single "likely cause" row from the DIA
+        # rule registry (docs/diagnose.md); None = no suspect
+        from tpu_ddp_torch.diagnose.rules import likely_cause
+
+        report["likely_cause"] = likely_cause(args.path)
         print(json.dumps(report, indent=1) if args.json
               else render_report(report))
         return 1 if report["alerts"] else 0

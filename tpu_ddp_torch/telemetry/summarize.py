@@ -20,6 +20,8 @@ import json
 import os
 from typing import Dict, Iterable, List, Optional
 
+from tpu_ddp_torch.comms.exposure import EXPOSURE_FILENAME
+from tpu_ddp_torch.comms.forensics import HEALTH_PREFIX
 from tpu_ddp_torch.telemetry.events import SCHEMA_VERSION, SPAN
 from tpu_ddp_torch.telemetry.registry import Histogram
 from tpu_ddp_torch.telemetry.sinks import format_phase_table
@@ -27,10 +29,6 @@ from tpu_ddp_torch.telemetry.sinks import format_phase_table
 #: bump on any breaking change to the ``summarize --json`` shape
 TRACE_SUMMARY_SCHEMA_VERSION = 1
 
-#: the measured comms evidence's files (the JAX ``comms/exposure.py``
-#: ``EXPOSURE_FILENAME`` and ``comms/forensics.py`` ``HEALTH_PREFIX``)
-EXPOSURE_FILENAME = "comms-exposure.json"
-HEALTH_PREFIX = "comms-health"
 
 
 def find_trace_files(path: str) -> List[str]:
@@ -272,7 +270,7 @@ def comms_measured(path: str) -> dict:
     """The run dir's MEASURED comms evidence: the exposed-comm record and
     the hop monitor's per-rank health files, as the JAX package's comms
     tools write them. Empty dict when the target is a bare trace file or
-    the run left no comms evidence (the port writes none yet)."""
+    the run left no comms evidence."""
     out: dict = {}
     if not os.path.isdir(path):
         return out

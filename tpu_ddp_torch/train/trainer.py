@@ -222,7 +222,9 @@ After each call's watchdog beat the injector's ``on_step`` runs (so a
 The watchdog's ``on_hang`` writes ``hang-forensics-p<rank>.json``
 (``comms/forensics.py::write_hang_bundle``) whenever there is a run dir.
 ``close`` clears the hop hook before it closes the hop monitor, and closes
-the stage monitor. The elastic supervisor is not ported yet.
+the stage monitor. ``tpu-ddp-torch elastic train`` supervises the CLI's
+runs (``elastic/supervisor.py``): a life it restarts resumes with
+``--resume`` at the surviving ``--n-devices``.
 """
 
 from __future__ import annotations
