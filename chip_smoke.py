@@ -359,7 +359,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     third epoch's device busy ms and idle share; the two gathers alone over
     200 batches. (b)
     ``--sync-bn --kernels`` on two gloo ranks sharing the card through the
-    launcher (``--sync-bn-child``), 2 epochs of 5 steps at 32 rows a rank,
+    launcher (in phase 12's job, ``rank_child --then-sync-bn``), 2 epochs of 5 steps at 32 rows a rank,
     against one rank at batch 64 on the same data order (each step's 64 rows
     are the same set), stepped from the very state the two ranks started
     each step from (the two runs' rounding differs, as the convolutions at 32
@@ -621,10 +621,39 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     seconds printed. ``python3 chip_smoke.py --phase 32`` runs it alone,
     with 28c's job (31 riding it), 30b's child and phase 29.
 
+33. The chip table, the roofline, ``ops`` and ``analyze``
+    (``tpu_ddp_torch/analysis/roofline.py``, ``anatomy.py``, ``explain.py``,
+    ``ops/model.py``, ``microbench.py``, ``cli.py``). (a) In this process
+    (``phase_ops_bench``): ``ops bench --device cuda`` at 65,536 and 2**24
+    elements, 3 repetitions: K2, K3 (with ``add_to``) and K1 (AdamW, clip,
+    EMA on one 2-D leaf) bitwise their plain versions, each launched exactly
+    2 x 32 times (the parity call, the warm call, 3 x 10 timed), each row's
+    kernel and plain ms printed; ``--corrupt fused_quant`` exits 1 naming
+    it; ``ops calibrate --chip h100`` on the artifact reads all three
+    lines. (b) ``analyze --strategy dp`` of NetResDeep at full width,
+    batch 32, ``--kernels``, and of LM-32k bf16 with flash attention (B x T
+    = 4 x 4,096, ``--kernels``), each as rank 0 of a fake group of two on
+    the card (``phase_analyze_static``), against the h100 row; then the
+    same program timed over 20 steps: the predicted step may not exceed the
+    measured one, and flops, bytes, the terms, bound, predicted, measured
+    and the timed steps' launches are printed. (c) ``analyze`` and ``watch
+    --roofline --once`` on phase 28c's traced run dir (the step rebuilt on
+    the card against a fake group of two): fingerprint ``grad_compress``
+    OK, predicted against the measured step (dispatch + device wait). (d)
+    In 28c's job: 28c's run records its first step's collectives
+    (``--record-step``), which equal the static inventory and program order
+    of (c); ``comms exposure`` runs last in the job over its two ranks
+    (``--comms-exposure``), its share in [0, 1] and joined by (c)'s
+    ``analyze``. ``python3 chip_smoke.py --phase 33`` runs it alone, with
+    28c's job.
+
 Launcher jobs carry several runs each (``launch_dp_runs``; a run's own
 ``rank_child`` options let unlike runs share a job): phase 26's three-rank
-run rides phases 14, 15 and 17's job, its two-rank run phase 27's, and 19d,
-21b and 22e share one; the smoke prints each job's start-up seconds (launch
+run rides phases 14, 15 and 17's three-rank job, phases 12 and 17's
+two-rank runs (17's three-rank cut resumed at two among them) share one
+job with 18c's LM ranks and 23b's sync-BN ranks after them (``rank_child
+--then-lm``, ``--then-sync-bn``), 26's
+two-rank run rides phase 27's, and 19d, 21b and 22e share one; the smoke prints each job's start-up seconds (launch
 to the last rank's process group) and, at the end, the jobs and child
 processes it started (``print_jobs``).
 
@@ -2067,18 +2096,24 @@ SERIAL = "_serial"
 
 
 def rank_child(out_dir, args):
-    """One rank of phases 12, 14, 15, 17, 19d, 21b, 22e, 24, 26, 27, 28c and
-    31, started by the launcher: ``[--deterministic] [--poison-batch N]
+    """One rank of phases 12, 14, 15, 17, 18c, 19d, 21b, 22e, 23b, 24, 26, 27,
+    28c, 31 and 33, started by the launcher: ``[--deterministic] [--poison-batch N]
     [--hop-hook] --run NAME [OPTIONS] ARGS... [--run NAME [OPTIONS]
     ARGS...]``. The options before the first ``--run`` hold for every run;
     a run's own OPTIONS (``run_options``: ``--deterministic``,
-    ``--poison-batch N``, ``--hop-hook``, ``--comms-bench``) add to them for
+    ``--poison-batch N``, ``--hop-hook``, ``--comms-bench``,
+    ``--comms-exposure``, ``--record-step``, ``--cycle-monitors``) add to them for
     that run alone, so unlike runs share one job. Joins the process group
     once and trains each run in turn on it, as the train CLI's ``run``
     would (under cuDNN's deterministic algorithms with ``--deterministic``),
     the launch, wire-call and block-gather counts zeroed just before each;
     a ``--comms-bench`` run instead calls ``tpu-ddp-torch comms bench ARGS``
-    on the same group and writes its exit code and launches. Writes each
+    on the same group and writes its exit code and launches, and a
+    ``--comms-exposure`` run (the job's last: it leaves the group)
+    ``tpu-ddp-torch comms exposure ARGS``. With ``--record-step`` a run's
+    first train step runs under the collective recorder
+    (``parallel/collectives.py::record_collectives``), its inventory and
+    program order into the metrics (``recorded_step``). Writes each
     run's counts, metrics and final weights (under ``--zero3`` gathered:
     every rank takes part) to ``out_dir/NAME``. The metrics also carry the
     device memory allocated just before each train step after the first
@@ -2089,7 +2124,9 @@ def rank_child(out_dir, args):
     blocks without the prefetch. ``--then-sp-lm D`` runs phase 25c's LM
     steps on the same group after the runs (``sp_lm_runs``, data axis D),
     into ``out_dir/sp_lm``; ``--then-sp-lm-zero1 D`` phase 26a's
-    (``sp_lm_zero1_runs``), into ``out_dir/sp_lm_zero1``; ``--save-states
+    (``sp_lm_zero1_runs``), into ``out_dir/sp_lm_zero1``; ``--then-lm DIR``
+    phase 18c's (``lm_ranks_run``), into DIR; ``--then-sync-bn DIR`` then
+    phase 23b's (``sync_bn_runs``), into DIR; ``--save-states
     NAME[,NAME...]`` saves each named run's whole model state
     (``Trainer.model_state``, a collective) before each step and after the
     last, into ``out_dir/NAME/states.pt`` from rank 0. Each run's metrics
@@ -2129,6 +2166,13 @@ def rank_child(out_dir, args):
     if args[:1] == ["--then-sp-lm-zero1"]:
         sp_lm_zero1 = int(args[1])
         args = args[2:]
+    then_lm = then_sync_bn = None
+    if args[:1] == ["--then-lm"]:
+        then_lm = args[1]
+        args = args[2:]
+    if args[:1] == ["--then-sync-bn"]:
+        then_sync_bn = args[1]
+        args = args[2:]
     keep_states = ()
     if args[:1] == ["--save-states"]:
         keep_states = args[1].split(",")
@@ -2157,9 +2201,13 @@ def rank_child(out_dir, args):
     rank = int(os.environ["RANK"])
     wire = wire_counter()
     runs = [(name, *run_options(a, job)) for name, a in runs]
-    parsed = [(name, opts, a if opts["comms_bench"] else cli.build_parser().parse_args(a))
+    raw = ("comms_bench", "comms_exposure")
+    parsed = [(name, opts, a if any(opts[k] for k in raw) else cli.build_parser().parse_args(a))
               for name, opts, a in runs]
-    first = next(cli.config_from_args(ns) for _, opts, ns in parsed if not opts["comms_bench"])
+    if any(opts["comms_exposure"] for _, opts, _ in parsed[:-1]):
+        fail("a --comms-exposure run leaves the process group: it must be the job's last")
+    first = next(cli.config_from_args(ns) for _, opts, ns in parsed
+                 if not any(opts[k] for k in raw))
     runtime.initialize_distributed(first.device, first.dist_backend)
     mark_started(out_dir)
     try:
@@ -2168,6 +2216,9 @@ def rank_child(out_dir, args):
             out = os.path.join(out_dir, name)
             if opts["comms_bench"]:
                 comms_bench_run(out, rank, ns)
+                continue
+            if opts["comms_exposure"]:
+                comms_exposure_run(out, rank, ns)
                 continue
             config = cli.config_from_args(ns)
             reset_default_registry()
@@ -2187,14 +2238,15 @@ def rank_child(out_dir, args):
                 trainer.zero1.prefetch = False
             cycle = MonitorCycle(trainer, collectives) if opts["cycle_monitors"] else None
             between, bits, inner = [], {}, trainer.train_step
-            starts = []
+            starts, recorded = [], []
             kept = [] if name in keep_states else None
             # a weak reference: the trainer holds this function, and a cycle
             # would keep the run's state alive into the next run's memory
             owner = weakref.ref(trainer)
 
             def watched(state, batch, inner=inner, between=between, bits=bits, kept=kept,
-                        owner=owner, starts=starts, cycle=cycle):
+                        owner=owner, starts=starts, cycle=cycle, recorded=recorded,
+                        record=opts["record_step"]):
                 starts.append(time.perf_counter())
                 if cycle is not None:
                     cycle.step(len(starts) - 1)
@@ -2205,6 +2257,13 @@ def rank_child(out_dir, args):
                 calls = len(between) - 1
                 if calls == poisoned:
                     bits["before"] = state_bits(state)
+                if record and calls == 0:
+                    # phase 33d: the real step's collectives, as the recorder
+                    # books them for the anatomy
+                    with collectives.record_collectives("data") as booked:
+                        out = inner(state, batch)
+                    recorded.extend(booked)
+                    return out
                 out = inner(state, batch)
                 if calls == poisoned:
                     bits["after"] = state_bits(state)
@@ -2232,6 +2291,15 @@ def rank_child(out_dir, args):
             if opts["hop_hook"]:
                 metrics["hop_calls"] = list(hops)
             metrics["step_starts"] = starts
+            if opts["record_step"]:
+                from tpu_ddp_torch.analysis.anatomy import collective_schedule, inventory
+
+                metrics["recorded_step"] = {
+                    "inventory": {c.key(): dict(count=c.count, payload_bytes=c.payload_bytes,
+                                                wire_bytes=c.wire_bytes,
+                                                group_size=c.group_size)
+                                  for c in inventory(recorded)},
+                    "program_order": [c.key() for c in collective_schedule(recorded)]}
             if cycle is not None:
                 metrics["cycle_arms"], metrics["hop_ms_by_arm"] = cycle.arms, cycle.hop_ms
             metrics.update(held_bytes(trainer))
@@ -2250,13 +2318,17 @@ def rank_child(out_dir, args):
             sp_lm_runs(os.path.join(out_dir, "sp_lm"), sp_lm)
         if sp_lm_zero1 is not None:
             sp_lm_zero1_runs(os.path.join(out_dir, "sp_lm_zero1"), sp_lm_zero1)
+        if then_lm is not None:
+            lm_ranks_run(then_lm, torch.distributed.get_backend())
+        if then_sync_bn is not None:
+            sync_bn_runs(then_sync_bn)
     finally:
         runtime.shutdown()
 
 
 #: rank_child's per-run options and the arguments each takes
 RUN_OPTIONS = {"--deterministic": 0, "--poison-batch": 1, "--hop-hook": 0, "--comms-bench": 0,
-               "--cycle-monitors": 0}
+               "--cycle-monitors": 0, "--comms-exposure": 0, "--record-step": 0}
 
 #: 31d's arms: neither monitor, the stage monitor alone, both, and both
 #: with the hop hook handed no probe to read; the order a run cycles
@@ -2302,7 +2374,8 @@ def run_options(args, job):
     remaining arguments (the train CLI's, or ``comms bench``'s). A run's own
     ``--poison-batch N`` poisons its own N-th batch (``own_poison``); the
     job's counts the batches of the whole job, as it always has."""
-    opts = dict(job, comms_bench=False, own_poison=False, cycle_monitors=False)
+    opts = dict(job, comms_bench=False, own_poison=False, cycle_monitors=False,
+                comms_exposure=False, record_step=False)
     while args and args[0] in RUN_OPTIONS:
         flag, value = args[0], args[1:1 + RUN_OPTIONS[args[0]]]
         args = args[1 + RUN_OPTIONS[flag]:]
@@ -2327,6 +2400,27 @@ def comms_bench_run(out, rank, argv):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rc = comms_main(["bench", *argv])
+    torch.cuda.synchronize()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump({"rc": rc, "launches": ops.launch_counts(),
+                   "seconds": time.perf_counter() - t0}, f)
+    torch.save({}, os.path.join(out, f"rank{rank}.pt"))
+
+
+def comms_exposure_run(out, rank, argv):
+    """A ``--comms-exposure`` run of ``rank_child`` (phase 33d): ``tpu-ddp-torch
+    comms exposure ARGV`` over the job's ranks, which leaves the group (so
+    the job's last run); writes ``{"rc", "launches", "seconds"}`` and an
+    empty weights file for ``launch_dp_runs``."""
+    import torch
+
+    from tpu_ddp_torch import ops
+    from tpu_ddp_torch.comms.cli import main as comms_main
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = comms_main(["exposure", *argv])
     torch.cuda.synchronize()
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump({"rc": rc, "launches": ops.launch_counts(),
@@ -2438,6 +2532,7 @@ def launch_dp_runs(tmp, runs, nproc, phase="12", deterministic=False, poison=Non
         options = options[0] if options else []
         os.makedirs(os.path.join(tmp, name))
         what = ("tpu_ddp_torch.cli.main comms bench" if "--comms-bench" in options
+                else "tpu_ddp_torch.cli.main comms exposure" if "--comms-exposure" in options
                 else "tpu_ddp_torch.cli.train")
         print(f"phase {phase}{how}{' ' + ' '.join(options) if options else ''}: python -m "
               f"tpu_ddp_torch.cli.launch --nproc-per-node {nproc} -- python -m {what} "
@@ -2461,10 +2556,17 @@ def launch_dp_runs(tmp, runs, nproc, phase="12", deterministic=False, poison=Non
     return out
 
 
-def phase_dp_main_path(tmp, nproc=2, backend="gloo"):
+def dp_main_runs(nproc=2, backend="gloo"):
+    """Phase 12's two runs for a job: the int8 ring and plain DP."""
+    return [("int8" if c else "plain", dp_args(c, nproc, backend)) for c in (True, False)]
+
+
+def phase_dp_main_path(tmp, nproc=2, backend="gloo", jobs=None):
+    """Phase 12's checks on its runs (``dp_main_runs``), from ``jobs`` when
+    they rode another job, else from a job of their own."""
     runs = {}
-    jobs = launch_dp_runs(tmp, [("int8" if c else "plain", dp_args(c, nproc, backend))
-                                for c in (True, False)], nproc)
+    if jobs is None:
+        jobs = launch_dp_runs(tmp, dp_main_runs(nproc, backend), nproc)
     for compress in (True, False):
         metrics, same = jobs["int8" if compress else "plain"]
         m = metrics[0]
@@ -2728,7 +2830,25 @@ def check_manifests(ck, steps):
         fail(f"a checkpoint step does not verify against its manifest: {verdicts}")
 
 
-def phase_checkpoint_dp(tmp, nproc=2, backend="gloo", then=()):
+def checkpoint_dp_cases(tmp, nproc=2, backend="gloo"):
+    """Phase 17's three runs, ``(case, run name, args)``: uninterrupted, cut
+    after epoch 1 with a save every CKPT_EVERY steps, and resumed."""
+    args = ckpt_args(nproc, backend)
+    ck = os.path.join(tmp, f"ckpt{nproc}")
+    return [(name, f"ckpt_{name}{nproc}", a) for name, a in (
+        ("full", with_epochs(args, 2)),
+        ("cut", with_epochs(args, 1, "--checkpoint-dir", ck, "--checkpoint-steps",
+                            str(CKPT_EVERY))),
+        ("resumed", with_epochs(args, 2, "--checkpoint-dir", ck, "--resume")))]
+
+
+def checkpoint_dp_runs(tmp, nproc=2, backend="gloo"):
+    """Phase 17's runs for another job, each under deterministic cuDNN."""
+    return [(label, a, ["--deterministic"])
+            for _, label, a in checkpoint_dp_cases(tmp, nproc, backend)]
+
+
+def phase_checkpoint_dp(tmp, nproc=2, backend="gloo", then=(), jobs=None):
     """Phase 17: NetResDeep ``--kernels --zero1 --grad-compress int8
     --grad-compress-error-feedback`` on ``nproc`` ranks under cuDNN's
     deterministic algorithms: two epochs uninterrupted, then one epoch with
@@ -2739,18 +2859,16 @@ def phase_checkpoint_dp(tmp, nproc=2, backend="gloo", then=()):
     per-step counts, and its checkpoints verify. Prints each save's time on
     the training thread of the cut and the resumed run. ``then``: more
     ``(name, args)`` runs for the same job, after these; returns their
-    results."""
-    args = ckpt_args(nproc, backend)
+    results. ``jobs``: the results of a job the runs rode
+    (``checkpoint_dp_runs``, ``then`` among them), else they run in a job
+    of their own."""
     ck = os.path.join(tmp, f"ckpt{nproc}")
     runs = {}
-    cases = (("full", with_epochs(args, 2)),
-             ("cut", with_epochs(args, 1, "--checkpoint-dir", ck,
-                                 "--checkpoint-steps", str(CKPT_EVERY))),
-             ("resumed", with_epochs(args, 2, "--checkpoint-dir", ck, "--resume")))
-    jobs = launch_dp_runs(tmp, [(f"ckpt_{name}{nproc}", a) for name, a in cases]
-                          + list(then), nproc, phase="17", deterministic=True)
-    for name, _ in cases:
-        label = f"ckpt_{name}{nproc}"
+    cases = checkpoint_dp_cases(tmp, nproc, backend)
+    if jobs is None:
+        jobs = launch_dp_runs(tmp, [(label, a) for _, label, a in cases] + list(then),
+                              nproc, phase="17", deterministic=True)
+    for name, label, _ in cases:
         runs[name] = (*jobs[label], rank_weights(tmp, label, nproc))
     full, resumed = runs["full"], runs["resumed"]
     per_step = zero1_launches(nproc, True)
@@ -2779,7 +2897,7 @@ def phase_checkpoint_dp(tmp, nproc=2, backend="gloo", then=()):
                   f"(de-sharding collectives, device-to-host copy, and the commit when "
                   f"it waits): {saves}; steady-state step {m['steady_step_ms']:.4f} ms",
                   flush=True)
-    return {name: jobs[name] for name, _ in then}
+    return {name: jobs[name] for name, *_ in then}
 
 
 def patch_train_batches(n, change):
@@ -3440,14 +3558,28 @@ def phase_lm_decode(model, tokens):
 
 
 def lm_rank_child(out_dir, backend):
-    """Phase 18 (c) on one rank, started by the launcher: LM-default at
-    T = 256 with flash attention, ``LM_RANK_ROWS`` rows a rank, AdamW lr
+    """Phase 18 (c) on one rank, started by the launcher in a job of its
+    own (``--nccl N``): joins the group, runs ``lm_ranks_run``, leaves."""
+    sys.path.insert(0, ROOT)
+    from tpu_ddp_torch.parallel import runtime
+
+    runtime.initialize_distributed("cuda", backend)
+    mark_started(out_dir)
+    try:
+        lm_ranks_run(out_dir, backend)
+    finally:
+        runtime.shutdown()
+
+
+def lm_ranks_run(out_dir, backend):
+    """Phase 18 (c) on one rank of the process group that is up: LM-default
+    at T = 256 with flash attention, ``LM_RANK_ROWS`` rows a rank, AdamW lr
     1e-3 through K1, ZeRO-1 with the int8 ring and error feedback (K2/K3),
     ``LM_RANK_STEPS`` steps with the launch counts zeroed just before;
-    writes the counts, the ring's wire calls, the losses and the weights."""
+    writes the counts, the ring's wire calls, the losses and the weights
+    (``rank_child --then-lm`` runs it after a job's runs)."""
     import torch
 
-    sys.path.insert(0, ROOT)
     from tpu_ddp_torch import ops
     from tpu_ddp_torch.models import CausalTransformerLM
     from tpu_ddp_torch.parallel import runtime
@@ -3457,60 +3589,65 @@ def lm_rank_child(out_dir, backend):
     from tpu_ddp_torch.train import create_lm_train_state, make_lm_train_step
     from tpu_ddp_torch.train.optim import decay_mask, make_optimizer
 
-    runtime.initialize_distributed("cuda", backend)
-    mark_started(out_dir)
-    try:
-        rank, world = runtime.rank(), runtime.world_size()
-        device = runtime.rank_device("cuda", backend)
-        model = CausalTransformerLM(seq_len=LM_RANK_SEQ, use_flash=True,
-                                    generator=torch.Generator().manual_seed(0))
-        params = dict(model.named_parameters())
-        tx = make_optimizer(lr=1e-3, optimizer="adamw", kernels=True,
-                            zero1_axis=DATA_AXIS, decay_mask=decay_mask(params))
-        part = Zero1Partition(tx, params, world)
-        state = create_lm_train_state(model, tx, device, zero1=part)
-        comp = GradCompressor(GradCompression(mode="int8", block=QUANT_BLOCK,
-                                              error_feedback=True, kernels=True),
-                              state.params(), world)
-        part.set_compression(comp)
-        state.grad_residual = comp.init_residual(device)
-        step = make_lm_train_step(tx, compress=comp, zero1=part)
-        rows = slice(rank * LM_RANK_ROWS, (rank + 1) * LM_RANK_ROWS)
-        tokens = torch.from_numpy(lm_tokens(LM_RANK_STEPS, world * LM_RANK_ROWS,
-                                            LM_RANK_SEQ, 256)[:, rows]).to(device)
-        wire = wire_counter()
-        losses = []
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        for i in range(LM_RANK_STEPS):
-            state, metrics = step(state, {"tokens": tokens[i]})
-            losses.append(metrics["loss"])
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) / LM_RANK_STEPS * 1e3
-        out = {"launches": ops.launch_counts(), "wire_calls": wire,
-               "losses": [float(x) for x in losses], "step_ms": step_ms}
-        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-            json.dump(out, f)
-        torch.save({k: v.cpu() for k, v in state.model.state_dict().items()},
-                   os.path.join(out_dir, f"rank{rank}.pt"))
-    finally:
-        runtime.shutdown()
+    torch.backends.cudnn.deterministic = False
+    rank, world = runtime.rank(), runtime.world_size()
+    device = runtime.rank_device("cuda", backend)
+    model = CausalTransformerLM(seq_len=LM_RANK_SEQ, use_flash=True,
+                                generator=torch.Generator().manual_seed(0))
+    params = dict(model.named_parameters())
+    tx = make_optimizer(lr=1e-3, optimizer="adamw", kernels=True,
+                        zero1_axis=DATA_AXIS, decay_mask=decay_mask(params))
+    part = Zero1Partition(tx, params, world)
+    state = create_lm_train_state(model, tx, device, zero1=part)
+    comp = GradCompressor(GradCompression(mode="int8", block=QUANT_BLOCK,
+                                          error_feedback=True, kernels=True),
+                          state.params(), world)
+    part.set_compression(comp)
+    state.grad_residual = comp.init_residual(device)
+    step = make_lm_train_step(tx, compress=comp, zero1=part)
+    rows = slice(rank * LM_RANK_ROWS, (rank + 1) * LM_RANK_ROWS)
+    tokens = torch.from_numpy(lm_tokens(LM_RANK_STEPS, world * LM_RANK_ROWS,
+                                        LM_RANK_SEQ, 256)[:, rows]).to(device)
+    wire = wire_counter()
+    losses = []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(LM_RANK_STEPS):
+        state, metrics = step(state, {"tokens": tokens[i]})
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / LM_RANK_STEPS * 1e3
+    out = {"launches": ops.launch_counts(), "wire_calls": wire,
+           "losses": [float(x) for x in losses], "step_ms": step_ms}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.save({k: v.cpu() for k, v in state.model.state_dict().items()},
+               os.path.join(out_dir, f"rank{rank}.pt"))
 
 
-def phase_lm_ranks(tmp, nproc=LM_RANKS, backend="gloo"):
-    """Phase 18 (c): ``lm_rank_child`` on ``nproc`` ranks through the
-    launcher (two sharing the card over gloo; one card each over NCCL)."""
-    import torch
-
+def lm_ranks_dir(tmp, nproc=LM_RANKS, backend="gloo"):
+    """Phase 18 (c)'s output directory under ``tmp``, made and announced:
+    the argument of ``rank_child --then-lm`` for a job that carries it."""
     out = os.path.join(tmp, f"lm_{nproc}_{backend}")
     os.makedirs(out)
     print(f"phase 18c: LM-default (T = {LM_RANK_SEQ}, {LM_RANK_ROWS} rows a rank) "
           f"--kernels --zero1 int8 + error feedback, flash attention, on {nproc} "
           f"ranks over {backend}, {LM_RANK_STEPS} steps", flush=True)
-    rc = smoke_job(["--lm-rank-child", out, backend], nproc, "18c", out)
-    if rc:
-        fail(f"the {nproc}-rank LM run exited with {rc}")
+    return out
+
+
+def phase_lm_ranks(tmp, nproc=LM_RANKS, backend="gloo", out=None):
+    """Phase 18 (c): ``lm_ranks_run`` on ``nproc`` ranks (two sharing the
+    card over gloo; one card each over NCCL), read from ``out`` when it
+    rode another job (``lm_ranks_dir``), else in a job of its own."""
+    import torch
+
+    if out is None:
+        out = lm_ranks_dir(tmp, nproc, backend)
+        rc = smoke_job(["--lm-rank-child", out, backend], nproc, "18c", out)
+        if rc:
+            fail(f"the {nproc}-rank LM run exited with {rc}")
     metrics = []
     for r in range(nproc):
         with open(os.path.join(out, f"rank{r}.json")) as f:
@@ -5079,17 +5216,26 @@ def phase_data_path(smi):
     return runs
 
 
-def sync_bn_child(out_dir, args):
-    """One rank of phase 23b, started by the launcher: the train CLI's
-    config of ``args`` trained twice on the one process group, with and
+def sync_bn_args(nproc, batch, *extra):
+    """Phase 23b's train CLI arguments: ``nproc`` ranks' data at ``batch``
+    rows a rank."""
+    return ["--device", "cuda", *extra, "--synthetic-data", "--synthetic-size",
+            str(nproc * 32 * P23_BN_STEPS), "--epochs", "2", "--kernels", "--n-chans1",
+            "32", "--n-blocks", "10", "--batch-size", str(batch), "--lr", "1e-2",
+            "--log-every-epochs", "1"]
+
+
+def sync_bn_runs(out_dir):
+    """Phase 23b on one rank of the process group that is up: the train
+    CLI's config of ``sync_bn_args`` trained twice on the group, with and
     without ``--sync-bn``, under deterministic cuDNN, the launch and sync-BN
     counts zeroed just before each; writes the metrics and each run's
-    final weights to ``out_dir``."""
+    final weights to ``out_dir`` (``rank_child --then-sync-bn`` runs it
+    after a job's runs)."""
     import dataclasses
 
     import torch
 
-    sys.path.insert(0, ROOT)
     from tpu_ddp_torch import ops
     from tpu_ddp_torch.cli import train as cli
     from tpu_ddp_torch.models.resnet import SYNC_BN_COLLECTIVES
@@ -5097,65 +5243,52 @@ def sync_bn_child(out_dir, args):
     from tpu_ddp_torch.train.trainer import Trainer
 
     torch.backends.cudnn.deterministic = True
-    rank = int(os.environ["RANK"])
+    rank = runtime.rank()
+    args = sync_bn_args(runtime.world_size(), 32, "--dist-backend", "gloo")
     base = cli.config_from_args(cli.build_parser().parse_args(args))
-    runtime.initialize_distributed(base.device, base.dist_backend)
-    mark_started(out_dir)
     out = {}
-    try:
-        for label, sync in (("sync", True), ("local", False)):
-            trainer = Trainer(dataclasses.replace(base, sync_bn=sync))
-            states, inner = [], trainer.train_step
+    for label, sync in (("sync", True), ("local", False)):
+        trainer = Trainer(dataclasses.replace(base, sync_bn=sync))
+        states, inner = [], trainer.train_step
 
-            def watched(state, batch, inner=inner, states=states):
-                states.append({k: v.to("cpu", copy=True)
-                               for k, v in state.model.state_dict().items()})
-                return inner(state, batch)
-
-            trainer.train_step = watched      # the state each step starts from
-            torch.cuda.synchronize()
-            ops.reset_launch_counts()
-            SYNC_BN_COLLECTIVES.clear()
-            m = trainer.run()
-            torch.cuda.synchronize()
-            m["launches"] = ops.launch_counts()
-            m["sync_bn"] = dict(SYNC_BN_COLLECTIVES)
+        def watched(state, batch, inner=inner, states=states):
             states.append({k: v.to("cpu", copy=True)
-                           for k, v in trainer.state.model.state_dict().items()})
-            torch.save(states, os.path.join(out_dir, f"{label}_rank{rank}.pt"))
-            trainer.close()
-            out[label] = m
-    finally:
-        runtime.shutdown()
+                           for k, v in state.model.state_dict().items()})
+            return inner(state, batch)
+
+        trainer.train_step = watched      # the state each step starts from
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        SYNC_BN_COLLECTIVES.clear()
+        m = trainer.run()
+        torch.cuda.synchronize()
+        m["launches"] = ops.launch_counts()
+        m["sync_bn"] = dict(SYNC_BN_COLLECTIVES)
+        states.append({k: v.to("cpu", copy=True)
+                       for k, v in trainer.state.model.state_dict().items()})
+        torch.save(states, os.path.join(out_dir, f"{label}_rank{rank}.pt"))
+        trainer.close()
+        out[label] = m
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
 
 
-def phase_sync_bn(tmp, smi, nproc=2):
+def phase_sync_bn(out, smi, nproc=2):
     """Phase 23b: ``--sync-bn --kernels`` on two gloo ranks sharing the card
     against one rank at batch 64 on the same data order, and the same two
-    ranks without ``--sync-bn`` (module docstring)."""
+    ranks without ``--sync-bn`` (module docstring). The two ranks ran in
+    phase 12's job (``rank_child --then-sync-bn``) and wrote ``out``."""
     import torch
 
     from tpu_ddp_torch import ops
     from tpu_ddp_torch.cli import train as cli
     from tpu_ddp_torch.train.trainer import Trainer
 
-    def bn_args(batch, *extra):
-        return ["--device", "cuda", *extra, "--synthetic-data", "--synthetic-size",
-                str(nproc * 32 * P23_BN_STEPS), "--epochs", "2", "--kernels", "--n-chans1",
-                "32", "--n-blocks", "10", "--batch-size", str(batch), "--lr", "1e-2",
-                "--log-every-epochs", "1"]
-
-    args, one = bn_args(32, "--dist-backend", "gloo"), bn_args(32 * nproc)
-    out = os.path.join(tmp, "sync_bn")
-    os.makedirs(out)
-    print(f"phase 23b, deterministic cuDNN: python -m tpu_ddp_torch.cli.launch "
-          f"--nproc-per-node {nproc} -- python -m tpu_ddp_torch.cli.train {' '.join(args)} "
-          "with and without --sync-bn", flush=True)
-    rc = smoke_job(["--sync-bn-child", out, *args], nproc, "23b", out)
-    if rc:
-        fail(f"23b: the {nproc}-rank run exited with {rc}")
+    args = sync_bn_args(nproc, 32, "--dist-backend", "gloo")
+    one = sync_bn_args(nproc, 32 * nproc)
+    print(f"phase 23b, deterministic cuDNN (in phase 12's job): python -m "
+          f"tpu_ddp_torch.cli.launch --nproc-per-node {nproc} -- python -m "
+          f"tpu_ddp_torch.cli.train {' '.join(args)} with and without --sync-bn", flush=True)
     ranks = []
     for r in range(nproc):
         with open(os.path.join(out, f"rank{r}.json")) as f:
@@ -6859,7 +6992,7 @@ def phase_telemetry(tmp, smi):
           + " / ".join(f"{m['mfu']:.6f}" for k, m, _ in vit if k != "off"), flush=True)
     fence_cost("ViT-S/4 flash batch 32", vit, smi)
     stamp("phase 28b")
-    tel_ranks(tmp, smi, with31=True)
+    tel_ranks(tmp, smi, with31=True, with33=True)
     return runs, vit
 
 
@@ -6872,12 +7005,14 @@ def tel_rank_args(run_dir):
             "--telemetry-dir", run_dir]
 
 
-def tel_ranks(tmp, smi, with31=False):
+def tel_ranks(tmp, smi, with31=False, with33=False):
     """Phase 28c (module docstring) and its observatory checks, 30c: each
     rank's ``exporter-p<rank>.json`` on its own port, and ``watch --once
     --json`` over the run dir with both ranks. With ``with31``, phase 31's
     (a) and (b) ride the same job (``phase31_runs``) and are checked after
-    28c (``phase31_checks``)."""
+    28c (``phase31_checks``); with ``with33``, 28c's run records its first
+    step's collectives and ``comms exposure`` runs last in the job, and
+    phase 33 (c) and (d) read them (``phase33_joins``)."""
     from tpu_ddp_torch.parallel.compression import chunk_wire_bytes
 
     # (c) two gloo ranks, the int8 ring with a counting hop hook in each,
@@ -6885,9 +7020,14 @@ def tel_ranks(tmp, smi, with31=False):
     run_dir = os.path.join(tmp, "ranks")
     args = tel_rank_args(run_dir) + ["--monitor-port", "-1", "--monitor-bind", "127.0.0.1"]
     more = phase31_runs(tmp) if with31 else []
+    if with33:
+        more.append(("exposure", [run_dir, "--device", "cuda", "--dist-backend", "gloo",
+                                  "--reps", str(P33_EXPOSURE_REPS)], ["--comms-exposure"]))
     t0 = time.perf_counter()
-    jobs = launch_dp_runs(tmp, [("tel_ranks", args, ["--deterministic", "--hop-hook"])]
-                          + more, 2, phase="28c" + (" and 31" if with31 else ""))
+    jobs = launch_dp_runs(tmp, [("tel_ranks", args, ["--deterministic", "--hop-hook"]
+                                 + (["--record-step"] if with33 else []))]
+                          + more, 2, phase="28c" + (" and 31" if with31 else "")
+                          + (" and 33" if with33 else ""))
     job_s = time.perf_counter() - t0
     metrics, same = jobs["tel_ranks"]
     n = 2
@@ -6923,6 +7063,8 @@ def tel_ranks(tmp, smi, with31=False):
         fail(f"30c: exporter ports {ports}, watch exit {rc} over hosts {hosts}")
     if with31:
         phase31_checks(tmp, smi, jobs, job_s)
+    if with33:
+        phase33_joins(tmp, smi, jobs, run_dir)
 
 
 # ---- phase 31: the comms and data-path observatories and chaos injection
@@ -8075,6 +8217,236 @@ def phase_oom_alone(tmp):
     keep_dir("30b", oom_dir)
 
 
+# ---- phase 33: the chip table, the roofline, ops bench/calibrate and analyze ----
+
+#: 33a: ops bench's element counts (2**24: the K2/K3 rows' size) and reps
+P33_SIZES, P33_REPS = (65536, 1 << 24), 3
+#: 33b: the two full-width steps analyzed (``analyze``'s flags), each timed
+#: over P33_TIMED steps after P33_WARM
+P33_STEPS = {
+    "NetResDeep dp --kernels": dict(model_name="netresdeep", per_shard_batch=32, kernels=True),
+    "LM-32k bf16 flash": dict(model_name="lm_32k", per_shard_batch=4, seq_len=4096,
+                              compute_dtype="bfloat16", attention="flash", kernels=True),
+}
+P33_WARM, P33_TIMED = 3, 20
+#: 33b: the analyzed programs' ranks (the dp fingerprint needs a group: rank
+#: 0 runs on the card against a fake group of two, as analyze does)
+P33_RANKS = 2
+#: 33d: comms exposure's timed steps a program
+P33_EXPOSURE_REPS = 5
+
+
+def read_back_err(argv):
+    """``read_back`` with standard error captured too: (exit code, out, err)."""
+    import contextlib
+    import io
+
+    from tpu_ddp_torch.cli.main import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def phase_ops_bench(tmp, smi):
+    """Phase 33a: ``ops bench --device cuda`` over K2, K3 and K1 at
+    ``P33_SIZES``, parity bitwise and every launch counted; ``--corrupt
+    fused_quant`` exits 1 naming it; ``ops calibrate --chip h100`` on the
+    artifact reads the three kernels' lines."""
+    from tpu_ddp_torch import ops
+    from tpu_ddp_torch.ops.microbench import calls_per_point
+
+    path = os.path.join(tmp, "ops-bench.json")
+    ops.reset_launch_counts()
+    rc, _, secs = read_back(["ops", "bench", "--device", "cuda", "--sizes",
+                             ",".join(map(str, P33_SIZES)), "--reps", str(P33_REPS),
+                             "--out", path])
+    counts = ops.launch_counts()
+    with open(path) as f:
+        art = json.load(f)["ops"]
+    want = len(P33_SIZES) * calls_per_point(P33_REPS)
+    print(f"  33a ops bench ({smi}, {secs:.2f} s; {art['device_kind']}, backend "
+          f"{art['backend']}): exit {rc}, parity_ok {art['parity_ok']}, launches "
+          f"K1 {counts['fused_update']}, K2 {counts['fused_quant']}, K3 "
+          f"{counts['fused_dequant']} (each {want}: {len(P33_SIZES)} sizes x "
+          f"{calls_per_point(P33_REPS)} calls)", flush=True)
+    for row in art["sweeps"]:
+        print(f"    {row['kernel']:<14} n={row['elements']:<9} kernel "
+              f"{row['fused_s'] * 1e3:.4f} ms  plain {row['xla_s'] * 1e3:.4f} ms  "
+              f"x{row['xla_s'] / row['fused_s']:.2f}  parity "
+              f"{'ok' if row['parity_ok'] else 'FAIL'}", flush=True)
+    if rc or not art["parity_ok"] or art["skipped"] or art["chip"] != "h100":
+        fail(f"33a: ops bench exit {rc}, parity {art['parity_failures']}, skipped "
+             f"{art['skipped']}, chip {art['chip']}")
+    k123 = ("fused_update", "fused_quant", "fused_dequant")
+    if counts != {**{k: 0 for k in counts}, **{k: want for k in k123}}:
+        fail(f"33a: launches {counts}, expected {want} each of {k123}")
+    rc, _, err = read_back_err(["ops", "bench", "--device", "cuda", "--sizes", "65536,131072",
+                                "--reps", "1", "--kernels", "fused_quant",
+                                "--corrupt", "fused_quant"])
+    print(f"  33a --corrupt fused_quant: exit {rc}: {err.strip()[:120]}", flush=True)
+    if rc != 1 or "for kernel(s) fused_quant " not in err:
+        fail(f"33a: --corrupt fused_quant exited {rc}: {err[-300:]}")
+    rc, text, _ = read_back(["ops", "calibrate", "--chip", "h100", path, "--json"])
+    model = json.loads(text) if rc == 0 else {}
+    print(f"  33a ops calibrate --chip h100: exit {rc}, chip {model.get('chip')}, "
+          f"kernels {sorted(model.get('kernels', {}))}", flush=True)
+    if rc or sorted(model.get("kernels", {})) != sorted(k123):
+        fail(f"33a: ops calibrate exit {rc}, {model}")
+
+
+def phase_analyze_static(tmp, smi):
+    """Phase 33b: ``analyze`` static of the two full-width steps of
+    ``P33_STEPS`` on the card (rank 0 of a fake group of ``P33_RANKS``),
+    against the h100 row; then the same program timed over ``P33_TIMED``
+    steps: the predicted step may not exceed the measured one."""
+    import torch
+
+    from tpu_ddp_torch import ops
+    from tpu_ddp_torch.analysis.anatomy import fake_world
+    from tpu_ddp_torch.analysis.explain import prepare_strategy_program
+
+    for label, kw in P33_STEPS.items():
+        flags = ["--model", kw["model_name"], "--batch-size", str(kw["per_shard_batch"]),
+                 "--kernels"]
+        for key, flag in (("seq_len", "--seq-len"), ("compute_dtype", "--compute-dtype"),
+                          ("attention", "--attention")):
+            if key in kw:
+                flags += [flag, str(kw[key])]
+        path = os.path.join(tmp, "analyze.json")
+        t0 = time.perf_counter()
+        rc, _, err = read_back_err(["analyze", "--strategy", "dp", "--n-devices",
+                                    str(P33_RANKS), "--device", "cuda", "--json", path, *flags])
+        secs = time.perf_counter() - t0
+        if rc:
+            fail(f"33b {label}: analyze exited {rc}: {err[-300:]}")
+        with open(path) as f:
+            art = json.load(f)
+        a, rl = art["anatomy"], art["roofline"]
+        with fake_world(P33_RANKS):
+            prog = prepare_strategy_program("dp", n_devices=P33_RANKS, device="cuda", **kw)
+            try:
+                for _ in range(P33_WARM):
+                    prog.step()
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                t1 = time.perf_counter()
+                for _ in range(P33_TIMED):
+                    prog.step()
+                torch.cuda.synchronize()
+                measured = (time.perf_counter() - t1) / P33_TIMED
+                launches = {k: v for k, v in ops.launch_counts().items() if v}
+            finally:
+                if prog.close is not None:
+                    prog.close()
+        predicted = rl["predicted_step_s"]
+        print(f"  33b {label} ({smi}; analyze {secs:.2f} s): flops {a['flops']:.4e}, bytes "
+              f"{a['bytes_accessed']:.4e}, argument {a['argument_bytes']} B, temp "
+              f"{a['temp_bytes']} B, collectives {a['inventory']}; roofline {rl['chip']}: "
+              f"compute {rl['compute_s'] * 1e3:.4f} ms, hbm {rl['hbm_s'] * 1e3:.4f} ms, ici "
+              f"{rl['ici_s'] * 1e3:.4f} ms, bound {rl['bound']}, predicted "
+              f"{predicted * 1e3:.4f} ms; measured {measured * 1e3:.4f} ms a step "
+              f"({P33_TIMED} steps), roofline_fraction {predicted / measured:.4f}; launches "
+              f"over the timed steps {launches}", flush=True)
+        if rl["chip"] != "h100" or not predicted or predicted > measured \
+                or not art["fingerprint"]["ok"]:
+            fail(f"33b {label}: chip {rl['chip']}, predicted {predicted} s against measured "
+                 f"{measured} s, fingerprint {art['fingerprint']}")
+        if launches.get("fused_update") != P33_TIMED:
+            fail(f"33b {label}: K1 launches {launches}, expected {P33_TIMED}")
+
+
+def phase33_joins(tmp, smi, jobs, run_dir):
+    """Phase 33 (c) and (d) on 28c's job: ``analyze`` and ``watch --roofline
+    --once`` on 28c's traced run dir (the step rebuilt on the card against a
+    fake group of two); the analyzed inventory and program order equal what
+    the recorder booked in the real step on rank 0; ``comms exposure`` ran
+    last in the job, its share in [0, 1] and joined by ``analyze``."""
+    path = os.path.join(tmp, "analyze-28c.json")
+    rc, _, err = read_back_err(["analyze", run_dir, "--device", "cuda", "--json", path])
+    if rc:
+        fail(f"33c: analyze on 28c's run dir exited {rc}: {err[-300:]}")
+    with open(path) as f:
+        art = json.load(f)
+    a, rl, m = art["anatomy"], art["roofline"], art["measured"]
+    rc_w, text, _ = read_back(["watch", run_dir, "--once", "--roofline", "--json"])
+    watched = json.loads(text).get("roofline", {}) if rc_w in (0, 1) else {}
+    print(f"  33c analyze 28c ({smi}): {a['strategy']} {a['inventory']}, roofline "
+          f"{rl['chip']} bound {rl['bound']} predicted {rl['predicted_step_s'] * 1e3:.4f} ms; "
+          f"measured step p50 {m['step_p50_s'] * 1e3:.4f} ms (dispatch "
+          f"{m['phases']['compiled_step']['per_step_p50_s'] * 1e3:.4f} ms), roofline_fraction "
+          f"{m.get('roofline_fraction')}, mfu {m.get('mfu')}, exposed comm share "
+          f"{m.get('measured_comm_share')}; watch --roofline exit {rc_w}: {watched}",
+          flush=True)
+    if (not art["fingerprint"]["ok"] or rl["chip"] != "h100" or "note" in watched
+            or not watched.get("predicted_step_s") or not watched.get("roofline_fraction")):
+        fail(f"33c: fingerprint {art['fingerprint']}, chip {rl['chip']}, watch {watched}")
+    real = jobs["tel_ranks"][0][0]["recorded_step"]
+    print(f"  33d static two-rank int8 inventory == the real step's (rank 0): "
+          f"{a['inventory'] == real['inventory']}, program order {a['program_order']}",
+          flush=True)
+    if a["inventory"] != real["inventory"] or a["program_order"] != real["program_order"]:
+        fail(f"33d: static {a['inventory']} {a['program_order']}, real {real}")
+    exposure = jobs["exposure"][0]
+    with open(os.path.join(run_dir, "comms-exposure.json")) as f:
+        rec = json.load(f)
+    print(f"  33d comms exposure ({smi}; exit {[e['rc'] for e in exposure]}, "
+          f"{exposure[0]['seconds']:.2f} s): full {rec['t_full_s'] * 1e3:.4f} ms, twin "
+          f"{rec['t_stripped_s'] * 1e3:.4f} ms, exposed {rec['exposed_comm_s'] * 1e3:.4f} ms, "
+          f"share {rec['measured_comm_share']:.4f}; K1/K2/K3 {exposure[0]['launches']}",
+          flush=True)
+    if any(e["rc"] for e in exposure) or not 0.0 <= rec["measured_comm_share"] <= 1.0 \
+            or m.get("measured_comm_share") != rec["measured_comm_share"]:
+        fail(f"33d: exposure {exposure}, record {rec}")
+
+
+def run_phase33(smi):
+    """Phase 33 (a) and (b) on one card, in a scratch directory."""
+    import shutil
+    import tempfile
+
+    t33 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
+    try:
+        phase_ops_bench(tmp, smi)
+        stamp("phase 33a")
+        phase_analyze_static(tmp, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 33 (a), (b) took {time.perf_counter() - t33:.1f} s", flush=True)
+
+
+def phase33_main():
+    """``python3 chip_smoke.py --phase 33``: the kernels built, then 28c's
+    job (31 and 33's runs riding it) with 33 (c) and (d), then 33 (a) and
+    (b), on one card."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
+    sys.path.insert(0, ROOT)
+    from tpu_ddp_torch import native
+    from tpu_ddp_torch.ops import _build
+
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    _build.build()
+    native.build()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
+    try:
+        tel_ranks(tmp, smi, with31=True, with33=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    run_phase33(smi)
+    print_jobs()
+    print(f"chip_smoke --phase 33: ok ({smi})", flush=True)
+
+
 def phase32_main():
     """``python3 chip_smoke.py --phase 32``: the kernels built, then the runs
     32 (b) reads (28c's job with 31 riding it, 30b's capped child and phase
@@ -8264,8 +8636,6 @@ def nccl_main(nproc):
 def main():
     if sys.argv[1:2] == ["--rank-child"]:
         return rank_child(sys.argv[2], sys.argv[3:])
-    if sys.argv[1:2] == ["--sync-bn-child"]:
-        return sync_bn_child(sys.argv[2], sys.argv[3:])
     if sys.argv[1:2] == ["--lm-rank-child"]:
         return lm_rank_child(sys.argv[2], sys.argv[3])
     if sys.argv[1:2] == ["--sp-ring-child"]:
@@ -8300,6 +8670,8 @@ def main():
         return phase31_main()
     if sys.argv[1:3] == ["--phase", "32"]:
         return phase32_main()
+    if sys.argv[1:3] == ["--phase", "33"]:
+        return phase33_main()
     import shutil
     import tempfile
 
@@ -8354,19 +8726,27 @@ def main():
     try:
         phase_ring_on_card(tmp)
         stamp("phases 10-11")
-        dp_runs = phase_dp_main_path(tmp)
-        stamp("phase 12")
         # phases 14, 15, 17's cut and 26's model=3 run at three ranks in one
-        # three-rank job
+        # three-rank job; then phases 12 and 17 (17's three-rank cut resumed
+        # at two among them) in one two-rank job
         cut_three, three_to_two = rank_change_runs(tmp)
         jobs = launch_dp_runs(tmp, zero1_dp_runs() + zero1_vit_runs() + [cut_three]
                               + [gspmd_shared_runs()[ZERO1_RANKS]], ZERO1_RANKS,
                               phase="14, 15, 17 and 26", deterministic=True)
+        then = [(*three_to_two, ["--deterministic"])]
+        lm_out = lm_ranks_dir(tmp)
+        # 23b's two ranks last in the job; their files live until phase 23
+        bn_out = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
+        two = launch_dp_runs(tmp, dp_main_runs() + checkpoint_dp_runs(tmp) + then, 2,
+                             phase="12, 17, 18c and 23b",
+                             extra=["--then-lm", lm_out, "--then-sync-bn", bn_out])
+        dp_runs = phase_dp_main_path(tmp, jobs=two)
+        stamp("phase 12")
         zero1_runs = phase_zero1_dp(tmp, jobs=jobs)
         zero1_runs.update(phase_zero1_vit(tmp, jobs=jobs))
         stamp("phases 14-15")
         t17 = time.perf_counter()
-        resumed = phase_checkpoint_dp(tmp, then=[three_to_two])
+        resumed = phase_checkpoint_dp(tmp, then=then, jobs=two)
         phase_checkpoint_sigterm(tmp)
         phase_checkpoint_rank_change(resumed[three_to_two[0]])
         checkpoint_timing(tmp, smi)
@@ -8378,7 +8758,7 @@ def main():
         phase_lm_decode(lm_model, lm_tokens_32k[-1])
         del lm_model, lm_tokens_32k
         torch.cuda.empty_cache()
-        phase_lm_ranks(tmp)
+        phase_lm_ranks(tmp, out=lm_out)
         print(f"phase 18 (a)-(c) took {time.perf_counter() - t18:.1f} s", flush=True)
         t19 = time.perf_counter()
         torch.backends.cudnn.deterministic = True
@@ -8429,11 +8809,10 @@ def main():
     t23 = time.perf_counter()
     phase_data_path(smi)
     stamp("phase 23a")
-    tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
     try:
-        phase_sync_bn(tmp, smi)
+        phase_sync_bn(bn_out, smi)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(bn_out, ignore_errors=True)
     stamp("phase 23b")
     phase_lamb(smi)
     phase_cv(smi)
@@ -8476,6 +8855,7 @@ def main():
     run_phase29(smi)
     run_phase30(smi)
     run_phase32(smi)
+    run_phase33(smi)
     print_jobs()
     print_accounting()
     rows += phase_lm_timing(results, flash_results, lm_runs["flash"]["launches"])

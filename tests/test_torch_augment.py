@@ -19,6 +19,7 @@ against the JAX package's ``tpu_ddp/data/augment.py`` and its train step.
   ``rtol=1e-5``, params and BatchNorm buffers ``atol=2e-6``.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -32,6 +32,7 @@ the param update's relative L2 distance at most 0.03 (measured 0.004 and
 0.009), BatchNorm running stats ``atol=1e-4`` (float32 from bfloat16
 activations; measured 2e-5)."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import math
 import os
 

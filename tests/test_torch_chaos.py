@@ -14,6 +14,7 @@ JAX package's (``tpu_ddp/chaos/inject.py``), the JAX tests' hand-built cases
   corrupted step by name and ``restore`` falls back to the older one.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import json
 import os
 

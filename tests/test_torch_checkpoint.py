@@ -21,6 +21,7 @@ checkpoint layouts, against the JAX package.
     JSONL records' keys against the JAX logger's, and the entry points.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import json
 import logging
 import os

@@ -4,6 +4,7 @@ is no GPU. The launcher runs it on two CPU ranks, ends the job with a
 failing rank's code, and imports neither torch nor jax; the compression
 flags are validated with the JAX package's messages."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import math
 import os
 import re

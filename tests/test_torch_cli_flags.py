@@ -12,6 +12,7 @@ the same error). Telemetry adds ``--telemetry-dir``, ``--telemetry-sinks``,
 and ``--no-data-digests`` (the same checks; each reaches ``TrainConfig``)
 and the launcher's ``--telemetry-dir``."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import argparse
 
 import pytest

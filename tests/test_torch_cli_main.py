@@ -11,6 +11,7 @@ killed at step 7 and resumed, and the same recipe uninterrupted without
 ``chip_smoke.py`` phase 29 (d), and fixes its exit codes.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import json
 import os
 import re
@@ -25,7 +26,7 @@ from tpu_ddp.cli.main import main as jax_main
 from tpu_ddp_torch.cli.main import main as port_main
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NOT_PORTED = {"analyze", "lint", "tune", "ops"}
+NOT_PORTED = {"lint", "tune"}
 RECIPE = dict(epochs=2, eval_each_epoch=True)
 
 
@@ -56,7 +57,8 @@ def test_subcommands_are_the_jax_ones_less_the_unported(capsys):
     assert NOT_PORTED <= jax_
     assert port == jax_ - NOT_PORTED
     assert port == {"train", "launch", "elastic", "trace", "health", "goodput", "curves",
-                    "registry", "bench", "watch", "profile", "mem", "diagnose", "comms", "data"}
+                    "registry", "bench", "watch", "profile", "mem", "diagnose", "comms", "data",
+                    "analyze", "ops"}
     with pytest.raises(SystemExit) as exit_:
         port_main(["lint", "x"])
     assert exit_.value.code == 2

@@ -11,6 +11,7 @@ wrappers take their plain versions). Error-feedback telescoping is held to
 ``atol 1e-4`` over 6 rounds, as in ``tests/test_compression.py``.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import functools
 
 import jax

@@ -20,6 +20,7 @@ the oracle (its hand-built cases from ``tests/test_comms.py``):
   both goodput ledgers book the life ``hang`` with the suspect in its notes.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import contextlib
 import io
 import json
@@ -120,11 +121,15 @@ def test_comms_model_for_chip_as_jax(tmp_path):
     port_rec = port_model.model_from_comms_record(json.load(open(arts[0]))["comms"])
     jax_rec = jax_model.model_from_comms_record(json.load(open(arts[0]))["comms"])
     assert port_rec.links_json() == jax_rec.links_json() and port_rec.chip == jax_rec.chip
-    # the port's own chip table: the H100 of metrics/mfu.py
+    # the one chip table (analysis/roofline.py): the H100, and the JAX rows,
+    # where no evidence applies, as the JAX model answers
     assert port_model.comms_model_for_chip("h100", sources=arts).links_json() == {
         "all-gather/f32/data": {**link, "samples": 4}}
-    with pytest.raises(ValueError, match="unknown chip"):
-        port_model.comms_model_for_chip("v5e", sources=arts)
+    v5e = [mod.comms_model_for_chip("v5e", sources=arts) for mod in (port_model, jax_model)]
+    assert [(m.chip, bool(m), m.links_json()) for m in v5e] == [("v5e", False, {})] * 2
+    for mod in (port_model, jax_model):
+        with pytest.raises(ValueError, match="unknown chip"):
+            mod.comms_model_for_chip("not-a-chip", sources=arts)
 
 
 #: hop sequences: (kind, dtype, axis, hop, n_hops, wire_bytes), or a step
@@ -292,8 +297,9 @@ def test_comms_cli_exit_codes_as_jax(tmp_path):
     from tpu_ddp.comms.cli import main as jax_comms
     from tpu_ddp_torch.cli.main import main as port_main
 
-    rc, out, err = _cli(port_main, ["comms", "exposure", str(tmp_path)])
-    assert rc == 2 and "comms exposure: not in the port" in err and not out
+    # a dir with no trace: refused (exit 2), as the JAX exposure refuses it
+    rc, out, err = _cli(port_main, ["comms", "exposure", str(tmp_path), "--device", "cpu"])
+    assert rc == 2 and err.startswith("tpu-ddp-torch comms exposure: ") and not out
     hung = str(tmp_path / "hung")
     os.makedirs(hung)
     _feed(port_forensics, hung, HOPS["in_flight"], [])

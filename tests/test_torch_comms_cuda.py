@@ -9,6 +9,7 @@ without them; run it on a GPU machine with
     python -m pytest --noconftest -m cuda tests/test_torch_comms_cuda.py -q
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import json
 import os
 

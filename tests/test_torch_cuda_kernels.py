@@ -17,6 +17,7 @@ forward ``atol=2e-5``, gradients ``atol=5e-5``, ``rtol=1e-4``, and their
 bfloat16 kernels to two bf16 units of each row's largest value
 (``assert_bf16_rows``)."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import numpy as np
 import pytest
 import torch

@@ -13,6 +13,7 @@ with a drift of exactly 0.0. The CRV rules are held on hand-built curves
 (the JAX ``tests/test_curves.py`` cases), not on training trajectories.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import dataclasses
 import json
 import math

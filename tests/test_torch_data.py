@@ -1,6 +1,7 @@
 """The port's data layer against the JAX package's: the same seed gives
 bit-identical arrays, sampler indices, batches and masks."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import numpy as np
 import pytest
 

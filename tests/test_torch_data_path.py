@@ -8,6 +8,7 @@ stream closed early leaves the ring empty for the next epoch. Also
 ``--log-every-steps``, ``--n-devices`` and the prefetch flags' checks
 (the JAX ``TrainConfig`` messages)."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import os
 import re
 import subprocess

@@ -17,6 +17,7 @@ against the JAX package's, which is the oracle:
   resumed port run, and a mutated digest fails closed naming its step.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import contextlib
 import io
 import json

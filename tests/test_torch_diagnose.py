@@ -22,6 +22,7 @@ The outputs differ in the command's name (``tpu-ddp-torch`` for
 ``tpu-ddp``) and in DIA003's action, which names the port's own levers.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import contextlib
 import glob
 import io

@@ -6,6 +6,7 @@ extraction, a corrupt tarball fetched again, the non-zero local rank's wait,
 CIFAR-100, and the end-to-end real-data gate on a tiny model. What the port
 fetches and loads is the JAX package's, bit for bit."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import hashlib
 import io
 import json

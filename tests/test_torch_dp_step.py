@@ -25,6 +25,7 @@ Tolerances (as ``tests/test_torch_train_step.py`` and
   ``correct`` exactly, ``loss_sum`` ``rtol 1e-5`` against one device.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import jax
 import numpy as np
 import pytest

@@ -26,6 +26,7 @@ The outputs differ in the command's name (``tpu-ddp-torch`` for
 ``tpu-ddp``) and in DIA003's action.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import dataclasses
 import json
 import os

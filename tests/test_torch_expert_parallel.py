@@ -30,6 +30,7 @@ equal to the bit; under ep each rank holds ``w_up`` as ``(E / ep, C, H)``,
 its rows of the whole, and the router whole and equal on every rank.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import jax
 import numpy as np
 import pytest

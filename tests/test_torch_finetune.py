@@ -15,6 +15,7 @@ must come out bitwise ``p + 0.0`` of what went in; the new loaders bitwise
 the JAX package's; export and import round-trip bitwise.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import math
 import pickle
 import re

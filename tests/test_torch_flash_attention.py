@@ -17,6 +17,7 @@ Tolerances are those of ``tests/test_ops.py``: forward ``atol=2e-5``
 (``5e-5``/``rtol=5e-5`` for the sharp logits), gradients ``atol=5e-5``,
 ``rtol=1e-4``."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import functools
 import importlib
 

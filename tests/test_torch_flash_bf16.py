@@ -18,6 +18,7 @@ sides: ``atol=2e-5``, ``tests/test_ops.py``'s forward tolerance.
 within ``atol=1e-5`` of JAX's, its bfloat16 gradients within
 ``bf16_atol``."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import functools
 import importlib
 import math

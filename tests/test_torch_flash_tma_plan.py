@@ -18,6 +18,7 @@ interpret mode on the same numpy inputs (of each output's largest value,
 and for dk and dv of each key row's), while the same storage read at its
 padded width would take the scale of the wrong D."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import importlib
 import math
 

@@ -26,6 +26,7 @@ package's too), and a step's ring makes n wire calls (n - 1 under the
 reduce-scatter alone).
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import functools
 
 import jax

@@ -13,6 +13,7 @@ and helpers are ``tests/test_torch_tensor_parallel.py``'s: losses within
 ``atol=1e-5, rtol=1e-4``, every rank's equal to the bit.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import pytest
 
 from test_torch_tensor_parallel import check_case, run_build

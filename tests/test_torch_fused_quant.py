@@ -14,6 +14,7 @@ and the sum apart. Blocks 1, 16 and 64 are not multiples of the TPU's 128
 lanes, so the JAX package serves them through its reference.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,7 @@ Tolerance ``rtol=3e-6, atol=1e-7`` (the one of test_fused_kernels.py's
 interpret test): XLA:CPU may contract a multiply and an add into one FMA
 where torch rounds twice, and its pow/cos/sum orders differ by an ulp."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import jax
 import numpy as np
 import pytest

@@ -15,6 +15,7 @@
 * The updates ``apply`` returns are views of one buffer, and the batch is
   kept across steps while the same tensors come back."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import bisect
 import math
 

@@ -14,6 +14,7 @@ to the JAX step's with the tolerances and helpers of
 ``tests/test_torch_tensor_parallel.py``.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import pytest
 
 from test_torch_tensor_parallel import check_case, run_build

@@ -18,6 +18,7 @@ tpu_ddp_torch.cli.train ...``), as a user starts them (the JAX
 Each run's losses are finite and its final test accuracy is printed.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import json
 import os
 import subprocess

@@ -13,6 +13,7 @@ running stats, Adam's moments and the EMA shadow within the tolerances of
 that is rounding noise).
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import pytest
 
 from test_torch_tensor_parallel import check_case, run_build

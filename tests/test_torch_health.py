@@ -21,6 +21,7 @@ trainer on the CPU.
   ``--health*`` flag.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import json
 import math
 import os

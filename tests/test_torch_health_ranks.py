@@ -26,6 +26,7 @@ versions on the CPU), ``skip_nonfinite`` and the per-layer norms on.
   as before it; the step after is finite; replicas end bitwise equal.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import jax
 import numpy as np
 import pytest

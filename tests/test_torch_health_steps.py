@@ -25,6 +25,7 @@ numpy batches.
   noise, ``tests/test_torch_lm_steps.py``) the same way, stats and bits.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import jax
 import numpy as np
 import pytest

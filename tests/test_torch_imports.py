@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``tpu_ddp_torch`` and not
 ``chip_smoke.py`` imports JAX, Flax, optax, orbax or the JAX package."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import ast
 from pathlib import Path
 
@@ -30,3 +31,26 @@ def test_port_files_exist():
 def test_no_jax_import(path):
     bad = sorted(set(_imported_roots(path)) & FORBIDDEN)
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+PORT_TESTS = sorted((ROOT / "tests").glob("test_torch_*.py"))
+
+
+def _first_import(path: Path):
+    """The first import statement of ``path`` after its docstring and any
+    ``from __future__`` line."""
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if isinstance(node, ast.ImportFrom) and node.module == "__future__":
+            continue
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            return node
+    return None
+
+
+@pytest.mark.parametrize("path", PORT_TESTS, ids=lambda p: p.name)
+def test_port_tests_cap_torch_threads_first(path):
+    """Every port test file imports ``tests/torch_threads.py`` before
+    anything else: one torch thread a process, spawned ranks included."""
+    node = _first_import(path)
+    assert isinstance(node, ast.Import) and [a.name for a in node.names] == ["torch_threads"], (
+        f"{path.name} must import torch_threads first")

@@ -6,6 +6,7 @@ validation sets that together cover the train split, each on its own
 ``Trainer`` with no checkpoint, with each fold's health record in its own
 directory."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import numpy as np
 import pytest
 

@@ -7,6 +7,7 @@ cases), within ``rtol 1e-5, atol 1e-6``. Then one NetResDeep training step
 through the trainer against the JAX train step with lamb, and the
 refusals: ``--kernels`` (K1 has no lamb branch) and ``--zero1``."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

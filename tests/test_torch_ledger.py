@@ -10,6 +10,7 @@ then clean), a clean port run, a port run whose first life hung past the
 watchdog's deadline before it died, and one clean run of the JAX trainer.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import os
 import shutil
 

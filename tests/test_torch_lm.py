@@ -24,6 +24,7 @@ against the Flax model (``tpu_ddp/models/lm.py``).
   pairs: the ``True`` entries of the port's causal visibility matrix.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import math
 import sys
 from pathlib import Path

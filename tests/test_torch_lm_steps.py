@@ -28,6 +28,7 @@ both with ``kernels=True`` (K1's plain version on the CPU). Tolerances are
 * every case's replicas end bitwise equal.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import jax
 import numpy as np
 import pytest

@@ -5,6 +5,7 @@ ports: ``reshuffle_each_epoch=False`` (``--faithful-epoch-order``),
 equal to the bit. The port's one-process-a-rank slicing ``(rank, world)``
 gives each rank exactly the rows ``shard=rank`` cut from the global batch."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import numpy as np
 import pytest
 

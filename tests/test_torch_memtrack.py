@@ -18,6 +18,7 @@ package's (``tpu_ddp/memtrack/``) on the same inputs:
 - ``quality_digest``: unchanged by the eight new config fields.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import contextlib
 import dataclasses
 import io

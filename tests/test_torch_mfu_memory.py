@@ -14,6 +14,7 @@ less the gauges the JAX package derives from accounting its live arrays
 ``memory/peak_bytes_in_use_max``): the port writes ``memory/host_rss_bytes``
 alone there."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import dataclasses
 import logging
 import types

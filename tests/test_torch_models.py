@@ -5,6 +5,7 @@ carried across by ``tpu_ddp_torch.checkpoint.convert``.
 Tolerance ``rtol=atol=1e-5``: the two frameworks run different float32
 convolution algorithms on the CPU, so sums are taken in other orders."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import jax
 import numpy as np
 import pytest

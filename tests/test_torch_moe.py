@@ -23,6 +23,7 @@ weights (``checkpoint/convert.py::from_jax``) on the same numpy inputs.
   moves by up to lr either way, ``tests/test_torch_vit.py``.)
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

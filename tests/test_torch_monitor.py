@@ -15,6 +15,7 @@ package's (``tpu_ddp/monitor/``) on the same inputs, all exact:
   each guard's message against the JAX ``TrainConfig.validate``.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import contextlib
 import dataclasses
 import io

@@ -6,6 +6,7 @@ index checks, multi-hot labels and the slot-reuse hazard (ported from
 file's fallback cases have no counterpart). The ring's pinned slots on the
 card: ``tests/test_torch_native_cuda.py``."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import numpy as np
 import pytest
 import torch

@@ -6,6 +6,7 @@ Skips without a GPU; on the card (no JAX there):
     python -m pytest --noconftest -m cuda tests/test_torch_native_cuda.py -q
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import numpy as np
 import pytest
 import torch

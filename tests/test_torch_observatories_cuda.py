@@ -7,6 +7,7 @@ them; run them on a GPU machine with
     python -m pytest --noconftest -m cuda tests/test_torch_observatories_cuda.py -q
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import json
 import os
 

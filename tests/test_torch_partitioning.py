@@ -6,6 +6,7 @@ NetResDeep and ResNet-18 templates, with the shapes
 layout is computed for each rank index in turn.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import jax
 import numpy as np
 import pytest

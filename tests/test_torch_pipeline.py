@@ -35,6 +35,7 @@ third as above); health norms within
 fails its replication check under a clip).
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

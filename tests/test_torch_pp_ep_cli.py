@@ -19,6 +19,7 @@ trainer runs on two gloo CPU ranks.
   ViT under ep at ``expert=2`` one epoch with ``aux_loss`` in its metrics.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import numpy as np
 import pytest
 import torch

@@ -11,6 +11,7 @@ and skips without them; run it on a GPU machine with
 
 (``chip_smoke.py`` phase 27 drives the pp and ep paths at full width.)"""
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import pytest
 import torch
 

@@ -17,6 +17,7 @@
   mAP. ``--plot-curves`` and ``--viz-predictions`` write their PNGs.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import json
 import math
 import os

@@ -17,6 +17,7 @@ test_second_sigterm_skips_final_checkpoint``).
     job resumes from that step.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import json
 import os
 import re

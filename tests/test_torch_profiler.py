@@ -17,6 +17,7 @@ package's (``tpu_ddp/profiler/``) on the same inputs, all exact:
   trace and its ``profiler_trace_written`` instant.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import json
 import os
 import threading
@@ -108,7 +109,11 @@ def test_per_op_attribution_falls_back_to_the_card():
     assert port["model_step_s"] == pytest.approx(
         1e9 / 989.4e12 + 2e8 / 3.35e12 + 1.8e6 / 4.5e11, rel=1e-12)
     assert pd.chip_spec("NVIDIA H100 80GB HBM3").key == "h100"
-    assert pd.attribution_for_bundle({})["note"].startswith("per-op attribution unavailable")
+    # a bundle whose program cannot be rebuilt (fused steps a call) keeps
+    # the JAX degrade shape
+    fused = {"run_meta": {"strategy": "dp", "mesh": {"data": 1},
+                          "config": {"device": "cpu", "steps_per_call": 4}}}
+    assert pd.attribution_for_bundle(fused)["note"].startswith("per-op attribution unavailable")
 
 
 def _drive(cm, tel, steps):
@@ -249,7 +254,10 @@ def test_profile_no_ops_on_the_port_run_as_jax(run, tmp_path, capsys):
         == out_j.replace(jax_json, "J")
     assert json.load(open(port_json)) == json.load(open(jax_json))
     assert "trigger: config" in out_p and "device trace -> device/" in out_p
-    # the per-op join is the JAX degrade shape in the port
+    # the per-op join: the recorded step rebuilt and run once on the device
+    # the run recorded, here the CPU (it attributes against the h100, with
+    # the JAX fallback note)
     rp, out_p = _profile(pr.main, [run_dir, "--host", "0"], capsys)
-    assert rp == 0 and "per-op attribution: note: per-op attribution unavailable" in out_p
+    assert rp == 0 and "per-op attribution (measured " in out_p
+    assert "per-op attribution unavailable" not in out_p and "hbm traffic" in out_p
     assert _profile(pr.main, [str(tmp_path)], capsys)[0] == 2

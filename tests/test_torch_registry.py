@@ -12,6 +12,7 @@ on the CPU (``tests/torch_readers.py``); the rest are the JAX
 ``tests/test_registry.py`` families, built by hand.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import copy
 import json
 import os

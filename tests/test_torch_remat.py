@@ -18,6 +18,7 @@
 * ``--remat --compute-dtype bfloat16`` on the CLI, on the CPU.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import math
 
 import jax

@@ -9,6 +9,7 @@ Tolerance ``rtol=atol=1e-5`` on logits and stats: the two frameworks run
 different float32 convolution algorithms on the CPU, so sums are taken in
 other orders (``tests/test_torch_models.py``'s bound)."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import jax
 import numpy as np
 import pytest

@@ -21,6 +21,7 @@ from the JAX trainer's checkpoint.
     bound for the two frameworks' CPU convolutions).
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import logging
 import math
 

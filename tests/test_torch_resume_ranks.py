@@ -19,6 +19,7 @@
     state restored exactly.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import math
 import os
 

@@ -21,6 +21,7 @@ Also ``ring_shift`` by +1 and -1 against the JAX ``ring_shift``, and
 ``sequence_sharded_attention``.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import numpy as np
 import pytest
 import torch

@@ -17,6 +17,7 @@ Each rank launches K4, K5 and K6 n times a pass, ``s + 1`` times under
 ``causal`` (s: its place on the ring). ``chip_smoke.py`` phase 25a holds
 the ring at the ViT's and the LM-32k's full shapes."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import pytest
 import torch
 

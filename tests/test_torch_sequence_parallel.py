@@ -28,6 +28,7 @@ the CPU; the JAX flash ring takes its jnp tile there):
   pass them, pp takes the ViT and ep refuses it.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import dataclasses
 
 import jax

@@ -22,6 +22,7 @@ port K4-K6's plain versions).
   last rank's last position masked (its target is the wrapped first token).
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import jax
 import numpy as np
 import pytest

@@ -26,6 +26,7 @@ and ``tests/test_torch_sp_lm.py`` hold to the JAX SP steps:
   the uncut run, its checkpoint in the replicated layout.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import numpy as np
 import pytest
 import torch

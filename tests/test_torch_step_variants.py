@@ -25,6 +25,7 @@ batches, the last rows masked.
   accumulation; ``steps_per_call`` is clamped to the epoch's length.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import jax
 import numpy as np
 import pytest

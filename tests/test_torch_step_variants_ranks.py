@@ -26,6 +26,7 @@ numpy batches.
   ``GradCompressor`` in ``tests/test_torch_flat_ring.py``.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import jax
 import numpy as np
 import pytest

@@ -18,6 +18,7 @@ word, and checkpoints portable across dp, tp, fsdp and fsdp_tp.
   epochs' count.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import dataclasses
 import warnings
 

@@ -12,6 +12,7 @@ differ from the JAX run by more than that tolerance, which shows the sync
 ran. At one rank, sync BN sends nothing and trains bitwise the unsynced
 model."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import jax
 import numpy as np
 import pytest

@@ -6,6 +6,7 @@ percentiles on the same seeded samples; the naming grammar and
 sink's message; the summarizer's text and JSON on the same run dirs; and the
 hang watchdog's contract (``tests/test_telemetry.py``'s), its abort included."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import io
 import json
 import os

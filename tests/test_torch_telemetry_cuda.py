@@ -6,6 +6,7 @@ NVIDIA GPU and nvcc and skip without them; run them on a GPU machine with
     python -m pytest --noconftest -m cuda tests/test_torch_telemetry_cuda.py -q
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import json
 
 import pytest

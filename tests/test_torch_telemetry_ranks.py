@@ -11,6 +11,7 @@ writes ``trace-p<rank>``, the JAX summarizer's skew line reads both, rank 0
 alone prints the phase table, and the launcher's ``launch-n0.jsonl`` holds
 a spawn and an exit a rank."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import functools
 import json
 import os

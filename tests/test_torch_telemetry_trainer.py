@@ -12,6 +12,7 @@ Then one short run a step family (fused, accumulating, ``--zero1``,
 this process (a mesh of size-1 axes runs the family's step), carries the
 three step phases and ``train/steps``."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import json
 import os
 

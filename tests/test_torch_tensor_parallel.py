@@ -36,6 +36,7 @@ scales to steps of up to ``lr`` (``tests/test_torch_vit.py``), is held to
 spread unevenly over them).
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import jax
 import numpy as np
 import pytest

@@ -9,6 +9,7 @@ and running stats ``atol=1e-5, rtol=1e-4``) and the helpers are
 ``tests/test_torch_tensor_parallel.py``'s.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import pytest
 
 from test_torch_tensor_parallel import check_case, run_build

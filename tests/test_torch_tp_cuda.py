@@ -15,6 +15,7 @@ none); losses within ``rtol=1e-5`` and the gathered params within
 ``atol=1e-5, rtol=1e-4`` of the plain run's; both ranks' params equal to
 the bit. ``chip_smoke.py`` phase 26 runs the families at full width."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import pytest
 import torch
 

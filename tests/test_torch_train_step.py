@@ -7,6 +7,7 @@ Tolerances: per-step loss ``rtol=1e-5``; params and BatchNorm stats after
 step 3 ``atol=1e-5`` (different float32 convolution algorithms on the CPU
 sum in other orders)."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import jax
 import numpy as np
 import pytest

@@ -21,6 +21,7 @@ data path and accumulation, on one CPU rank (the JAX trainer's
   run's only as BatchNorm's microbatch statistics make them differ.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import json
 import math
 import os

@@ -26,6 +26,7 @@ whole: ViT training with ``--attention flash``.
 * The CLI drives ``--model vit_s4 --attention flash`` on the CPU, and
   ``--attention flash`` on NetResDeep raises."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import math
 
 import jax

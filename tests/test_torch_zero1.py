@@ -39,6 +39,7 @@ run outside shard_map (``Zero1Partition``'s layout and ``accounting``,
     rank, where zero1 has no pad, against the replicated trainer.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import math
 import os
 import re

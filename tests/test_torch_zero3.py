@@ -39,6 +39,7 @@ heads, 7 classes): the 7-element head bias pads at every rank count, the
     guards with the JAX messages.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import jax
 import numpy as np
 import pytest

@@ -23,6 +23,7 @@ NaN in rank 0's rows.
   storage, each shard holds ``padded / 3`` elements.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a process)
 import numpy as np
 import pytest
 import torch

@@ -1,11 +1,15 @@
-"""Deviceless analysis of recorded artifacts.
+"""Analysis of a train step and of recorded artifacts.
 
-The port's ``analysis`` holds ``regress`` alone (``tpu-ddp-torch bench
-compare``, the gate the perf registry shares). The JAX package's ``hlo``,
-``lint``, ``explain`` and ``roofline`` read XLA's compiled programs; their
-counterparts come with the port's static analysis.
+Counterpart of ``tpu_ddp/analysis``: ``regress`` (``tpu-ddp-torch bench
+compare``, the gate the perf registry shares), ``roofline`` (the one chip
+table and the roofline, stdlib-only), ``anatomy`` (the step anatomy of one
+step that really runs: the counterpart of the JAX ``hlo``, which reads
+XLA's compiled program) and ``explain`` (``tpu-ddp-torch analyze``). The
+graph lint of JAX ``lint`` comes later. Only ``regress`` and ``roofline``
+load here; ``anatomy`` and ``explain`` import torch and are imported by
+name.
 """
 
-from tpu_ddp_torch.analysis import regress
+from tpu_ddp_torch.analysis import regress, roofline
 
-__all__ = ["regress"]
+__all__ = ["regress", "roofline"]

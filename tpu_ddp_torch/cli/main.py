@@ -52,19 +52,28 @@ subcommands whose modules the port has:
   the registry's ``diagnose`` artifact.
 - ``tpu-ddp-torch comms bench|calibrate|exposure|forensics`` — the comms
   observatory: the collective microbenchmarks over the ranks and their
-  α-β link model, a hung run's suspect collective (``exposure`` refuses by
-  name in the port).
+  α-β link model, a recorded run's exposed comm share against its
+  one-rank twin, a hung run's suspect collective.
 - ``tpu-ddp-torch data bench|audit|report`` — the data-path observatory:
   the per-stage loader microbenchmarks, the cross-life batch digest
   audit, a run's per-stage ``data_wait`` verdict.
+- ``tpu-ddp-torch ops bench|calibrate`` — the hand-written kernels K1-K3
+  against their plain versions with a bit-parity gate (exit 1 names a
+  failing kernel; the registry's ``ops`` artifact), and the per-chip
+  kernel cost model.
+- ``tpu-ddp-torch analyze [run_dir]`` — the step anatomy of one step that
+  runs (FLOPs, bytes, the collective inventory in program order) on the
+  chip roofline, the strategy's collective fingerprint, and in run-dir
+  mode the join against the run's measured phases.
 
-The JAX CLI's ``analyze``, ``lint``, ``tune`` and ``ops`` come with their
-modules (ROADMAP.md, section 1).
+The JAX CLI's ``lint`` and ``tune`` come with their modules (ROADMAP.md,
+section 1).
 
-Every subcommand but ``train``, ``launch``, ``comms bench`` and ``data
-bench`` is stdlib-only end to end: it imports neither torch nor numpy, so a
-run dir is read on any host, one without CUDA or torch included. The four
-import lazily; ``elastic``'s lives import torch in their own processes.
+Every subcommand but ``train``, ``launch``, ``analyze``, ``ops``, ``comms
+bench`` and ``comms exposure``, ``data bench`` and ``watch --roofline`` is
+stdlib-only end to end: it imports neither torch nor numpy, so a run dir is
+read on any host, one without CUDA or torch included. Those import torch
+lazily; ``elastic``'s lives import torch in their own processes.
 """
 
 from __future__ import annotations
@@ -170,6 +179,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         from tpu_ddp_torch.analysis.regress import main as compare_main
 
         return compare_main(argv[2:])
+    # analyze and ops own their argparse surfaces and import torch lazily
+    if argv[:1] == ["analyze"]:
+        from tpu_ddp_torch.analysis.explain import main as analyze_main
+
+        return analyze_main(argv[1:])
+    if argv[:1] == ["ops"]:
+        from tpu_ddp_torch.ops.cli import main as ops_main
+
+        return ops_main(argv[1:])
 
     ap = argparse.ArgumentParser(
         prog="tpu-ddp-torch",
@@ -259,6 +277,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         help="per-stage loader microbenchmarks, batch-provenance audit "
              "and measured input-pipeline attribution "
              "(tpu-ddp-torch data --help)",
+    )
+    sub.add_parser(
+        "analyze",
+        help="step anatomy on the chip roofline + collective "
+             "fingerprint, optionally joined with a run dir's measured "
+             "phases (tpu-ddp-torch analyze --help)",
+    )
+    sub.add_parser(
+        "ops",
+        help="kernel microbenchmarks against the plain versions with a "
+             "bit-parity gate, and the per-chip kernel cost model "
+             "(tpu-ddp-torch ops --help)",
     )
     bench = sub.add_parser("bench", help="bench artifact tools")
     bench_sub = bench.add_subparsers(dest="bench_command", required=True)

@@ -13,12 +13,14 @@ exit codes (0, 1 a finding, 2 a refusal):
   ``--mesh`` names the rank grid's axes (``data=2``).
 - ``calibrate`` — assemble the per-chip link model from artifact files and
   registry evidence. Wrong-chip evidence is ignored by construction.
-- ``exposure`` — refused by name (exit 2): it times a recorded program
-  against its one-device twin through ``analysis/explain``, which the port
-  does not have.
+- ``exposure`` — time a recorded dp-family program over the launched
+  ranks against its one-rank twin (``comms/exposure.py``) and land the
+  measured exposed comm share in the run dir; run it under the launcher
+  with the recorded rank count (rank 0 prints and writes), with the port's
+  ``--device`` and ``--dist-backend``.
 - ``forensics`` — read a hung run's suspect collective and check it
-  against the recorded program's collective schedule (which the port
-  cannot rebuild: ``comms/forensics.py::join_schedule``).
+  against the recorded program's collective schedule
+  (``comms/forensics.py::join_schedule``).
 """
 
 from __future__ import annotations
@@ -153,11 +155,38 @@ def _cmd_calibrate(args) -> int:
 
 
 def _cmd_exposure(args) -> int:
-    print(f"tpu-ddp-torch comms exposure: not in the port: it times the "
-          f"recorded program of {args.run_dir} against its one-device twin "
-          "through analysis/explain, which the port does not have "
-          "(ROADMAP.md section 1)", file=sys.stderr)
-    return 2
+    from tpu_ddp_torch.comms.exposure import measure_exposure, write_exposure
+    from tpu_ddp_torch.parallel import runtime
+
+    try:
+        runtime.initialize_distributed(args.device, args.dist_backend)
+        rec = measure_exposure(args.run_dir, reps=args.reps, device=args.device)
+    except (OSError, ValueError) as e:
+        runtime.shutdown()
+        print(f"tpu-ddp-torch comms exposure: {e}", file=sys.stderr)
+        return 2
+    if rec is None:                   # a rank other than 0
+        return 0
+    if not args.no_write:
+        write_exposure(args.run_dir, rec)
+    if args.json:
+        print(json.dumps(rec, indent=2, sort_keys=True))
+        return 0
+    share = rec["measured_comm_share"]
+    print(f"comms exposure: {rec['strategy']} on {rec['n_devices']} "
+          f"devices ({rec['device_kind']})")
+    print(f"  full step      {rec['t_full_s'] * 1e3:8.2f} ms")
+    print(f"  stripped twin  {rec['t_stripped_s'] * 1e3:8.2f} ms")
+    print(f"  exposed comm   {rec['exposed_comm_s'] * 1e3:8.2f} ms "
+          f"({share:.1%} of the step)" if share is not None else
+          "  exposed comm   n/a")
+    if rec.get("telemetry_step_p50_s"):
+        print(f"  (run's own telemetry step p50: "
+              f"{rec['telemetry_step_p50_s'] * 1e3:.2f} ms)")
+    if not args.no_write:
+        print(f"  -> {args.run_dir}/comms-exposure.json "
+              "(analyze/summarize will join it)")
+    return 0
 
 
 def _cmd_forensics(args) -> int:
@@ -310,6 +339,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                    help="print only; do not land comms-exposure.json "
                         "in the run dir")
     e.add_argument("--json", action="store_true")
+    e.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="the ranks' device (default cuda: a GPU is "
+                        "required unless --device cpu)")
+    e.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                   help="the process group's backend (default: nccl on "
+                        "cuda, gloo on cpu)")
     e.set_defaults(fn=_cmd_exposure)
 
     f = sub.add_parser(

@@ -27,12 +27,13 @@ the card to hold the hop's bytes, so the monitor times hops the card has
 finished. On the card that read synchronises the stream once a hop.
 
 :func:`join_schedule` rebuilds the recorded program's collective schedule
-in the JAX package (through its ``analysis/explain``); the port has no such
-program to rebuild, so it returns None, the JAX answer for a program that
-cannot be rebuilt here.
+through the shared analyze path (``analysis/explain.py``: the step rebuilt
+at the recorded config and run once, its collectives in program order);
+torch loads there and only there. None when the program cannot be rebuilt,
+as in JAX.
 
-Stdlib-only: the supervisor, ledger and monitor side read these files
-without torch.
+Stdlib-only otherwise: the supervisor, ledger and monitor side read these
+files without torch.
 """
 
 from __future__ import annotations
@@ -331,7 +332,15 @@ def match_program_order(suspect: Optional[dict],
 
 
 def join_schedule(run_dir: str, devices=None) -> Optional[List[str]]:
-    """The recorded run's program-order collective schedule: None in the
-    port, which has no compiled program to rebuild (module docstring)."""
-    del run_dir, devices
-    return None
+    """The recorded run's program-order collective schedule, rebuilt
+    through the shared analyze path (torch loads here and only here), on
+    the device the run recorded (``devices``: None, or that device). None
+    when the program cannot be rebuilt here."""
+    try:
+        from tpu_ddp_torch.analysis.explain import anatomy_for_run_meta, read_run_meta
+
+        meta = read_run_meta(run_dir)
+        anatomy = anatomy_for_run_meta(meta, devices)
+        return list(anatomy.program_order or [])
+    except Exception:
+        return None

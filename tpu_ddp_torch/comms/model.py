@@ -17,9 +17,8 @@ positive, so a fitted model is monotone in payload by construction.
 ``comms bench --json`` artifact files plus registry entries of kind
 ``"comms"``, filtered to the requested chip kind (a CPU host's links say
 nothing about an H100), merged per link key by the median. The chip lookup,
-``_chip_key``, is the port's own table in place of the JAX
-``analysis.roofline.chip_spec`` (:222): the H100 of ``metrics/mfu.py`` and
-the CPU host.
+``_chip_key``, reads ``analysis/roofline.py::chip_spec``, as the JAX one
+does (:222).
 
 Stdlib-only. The measured side lives in ``comms/microbench.py``.
 """
@@ -220,22 +219,15 @@ def axis_baselines(rec: Mapping) -> Dict[str, float]:
 # ---- assembling a model from evidence (the calibration side) -------------
 
 
-#: lowercased ``device_kind`` substring -> chip key, the first hit wins
-#: (the H100 row of ``metrics/mfu.py``; a CPU host, whose device kind is
-#: "cpu", has no peak but its links are still its own)
-CHIP_KINDS = (("h100", "h100"), ("cpu", "cpu"))
-
-
 def _chip_key(device_kind: Optional[str]) -> Optional[str]:
     """The chip key of a device kind string or of a key itself
-    ("NVIDIA H100 80GB HBM3" -> "h100"); None when unknown."""
-    if not device_kind:
-        return None
-    text = str(device_kind).lower()
-    for pattern, key in CHIP_KINDS:
-        if pattern in text:
-            return key
-    return None
+    ("NVIDIA H100 80GB HBM3" -> "h100"), through the one chip table
+    (``analysis/roofline.py::chip_spec``, as JAX ``comms/model.py:222``);
+    None when unknown."""
+    from tpu_ddp_torch.analysis.roofline import chip_spec
+
+    spec = chip_spec(device_kind)
+    return spec.key if spec else None
 
 
 def _links_from_comms_record(rec: Mapping,

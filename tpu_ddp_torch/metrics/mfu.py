@@ -19,34 +19,23 @@ second:
   optimizer's elementwise work and ``--remat``'s recompute are not counted
   (XLA's count of the whole step has both). A rank of a model group (sp, tp, pp, ep) is charged its
   group's share of its data shard's rows.
-- **Peak** (``peak_flops_per_chip``): the dense bfloat16 tensor-core rate
-  of the card, whatever the compute dtype, as the JAX package quotes MFU
-  against the bfloat16 peak. The table has one row, the H100 SXM; any
-  other device, the CPU included, gives None, and then no ``train/mfu``
-  gauge is written.
+- **Peak** (``peak_flops_per_chip``, re-exported from
+  ``analysis/roofline.py`` as the JAX module re-exports it): the dense
+  bfloat16 tensor-core rate of the card, whatever the compute dtype, as the
+  JAX package quotes MFU against the bfloat16 peak. The chip table's card
+  is the H100 SXM; the CPU, and a card the table does not hold, give None,
+  and then no ``train/mfu`` gauge is written.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-#: ``torch.cuda.get_device_name()`` -> dense bfloat16 tensor-core FLOP/s
-#: (NVIDIA's H100 SXM data sheet: 989.4 TFLOP/s without sparsity)
-PEAK_BF16_FLOPS = {"NVIDIA H100 80GB HBM3": 989.4e12}
+from tpu_ddp_torch.analysis.roofline import CHIP_SPECS, peak_flops_per_chip  # noqa: F401
 
-
-def peak_flops_per_chip(device=None) -> Optional[float]:
-    """The bfloat16 peak of ``device`` (a ``torch.device`` or its string;
-    default: the current CUDA device when there is one), None on the CPU
-    and on a card the table does not hold."""
-    import torch
-
-    if device is not None and torch.device(device).type != "cuda":
-        return None
-    if not torch.cuda.is_available():
-        return None
-    index = None if device is None else torch.device(device).index
-    return PEAK_BF16_FLOPS.get(torch.cuda.get_device_name(index))
+#: ``torch.cuda.get_device_name()`` -> dense bfloat16 tensor-core FLOP/s of
+#: the card, read from the one chip table (``analysis/roofline.py``)
+PEAK_BF16_FLOPS = {CHIP_SPECS["h100"].description: CHIP_SPECS["h100"].peak_bf16_flops}
 
 
 def flops_per_step(build, rows: int, *, image_size: int = 32, num_classes: int = 10,

@@ -12,10 +12,12 @@ engine runs inside the watcher, so watching a run is also what *writes*
 and exits; the exit code is 1 when any alert is firing.
 
 ``--once`` also joins the top verdict of the diagnose rule registry
-(``likely_cause``). One join of the JAX watch waits for a module the port
-does not have yet: ``--roofline`` (the predicted step time,
-``analysis/explain.py``) gives the JAX degrade note. Stdlib-only: no
-torch, no numpy.
+(``likely_cause``). ``--roofline`` joins the predicted step time of the
+recorded program (``analysis/explain.py``: the step rebuilt and run once)
+against the fleet's measured step, which in the port is the p50 of a
+step's dispatch plus its device wait (``compiled_step`` + ``device_sync``).
+Stdlib-only but for ``--roofline``, which imports torch, as the JAX watch
+imports jax there alone.
 """
 
 from __future__ import annotations
@@ -96,21 +98,42 @@ def build_report(aggregator: FleetAggregator, engine: AlertEngine,
 # -- roofline join --------------------------------------------------------
 
 def roofline_view(run_dir: str) -> Dict[str, object]:
-    """The predicted per-step time of the recorded run: the JAX watch
-    rebuilds the program through ``analysis/explain.py``, which the port
-    does not have yet, so this is the JAX degrade shape (a ``note``); the
-    dashboard keeps rendering."""
-    del run_dir
-    return {"note": "roofline join unavailable: the port has no anatomy "
-                    "rebuild of a recorded run (analysis/ is not ported)"}
+    """Predicted per-step time + per-device flops for the recorded run,
+    via the analyze rebuild (on the device the run recorded; its kind is
+    ``rebuilt_on``), attributed against the chip the run recorded. Any
+    failure (no torch, anonymous trace, un-rebuildable program, a card
+    run read where there is no card) returns a ``note`` instead — the
+    dashboard must keep rendering."""
+    try:
+        from tpu_ddp_torch.analysis.explain import anatomy_for_run_meta, read_run_meta
+        from tpu_ddp_torch.analysis.roofline import chip_spec, roofline
+
+        meta = read_run_meta(run_dir)
+        anatomy = anatomy_for_run_meta(meta)
+        kind = meta.get("device_kind") or anatomy.device_kind
+        rl = roofline(anatomy, kind)
+        spec = chip_spec(kind)
+        return {
+            "predicted_step_s": rl.predicted_step_s,
+            "bound": rl.bound,
+            "chip": rl.chip,
+            "rebuilt_on": anatomy.device_kind,
+            "flops_per_step_device": anatomy.flops,
+            "peak_bf16_flops": spec.peak_bf16_flops if spec else None,
+        }
+    except Exception as e:  # degrade, never take the dashboard down
+        return {"note": f"roofline join unavailable: {e}"}
 
 
 def _join_roofline(report: dict, rl: Dict[str, object]) -> None:
     """Fold measured fleet p50 step time against the prediction into
     ``report['roofline']`` (fraction achieved + MFU when computable)."""
     out = dict(rl)
-    step_s = ((report["snapshot"].get("fleet") or {})
-              .get("phase_p50_s") or {}).get("compiled_step")
+    phases = (report["snapshot"].get("fleet") or {}).get("phase_p50_s") or {}
+    # the port's step: its dispatch and the wait for the card behind it
+    step_s = phases.get("compiled_step")
+    if step_s and phases.get("device_sync"):
+        step_s += phases["device_sync"]
     pred = rl.get("predicted_step_s")
     if step_s and pred:
         out["measured_step_p50_s"] = step_s

@@ -3,13 +3,16 @@
 Counterpart of ``tpu_ddp/ops/__init__.py`` (``KERNELS`` :52,
 ``kernel_available`` :95). ``KERNELS`` maps a name to its wrapper, its plain
 PyTorch version, its source and the ``_build`` library built from it, the
-TPU kernel it replaces and the strategies whose step runs it; the callables are dotted ``module:attr`` strings that
-``resolve`` imports on demand.
+TPU kernel it replaces, the strategies whose step runs it (the analyzer's
+labels, ``analysis/explain.py::run_strategy_label``) and, for a kernel a
+switch turns on, what it fuses (``hint``); the callables are dotted
+``module:attr`` strings that ``resolve`` imports on demand.
 
 There is no fail-closed switch here: a wrapper given CUDA tensors launches
 its kernel or raises. ``kernel_available`` only reports whether the build
 loads. ``LAUNCHES`` counts the launches of each kernel, so that a run can
-show its main path went through them.
+show its main path went through them. ``kernel_hints`` is the JAX
+``kernel_hints`` (:98), the analyzer's "kernel candidates".
 """
 
 from __future__ import annotations
@@ -20,6 +23,11 @@ import importlib
 #: kernel name -> launches since the last ``reset_launch_counts``
 LAUNCHES: collections.Counter = collections.Counter()
 
+#: the analyzer's strategy labels: dp's layout variants, and the families
+#: that shard compute
+_DP_LABELS = ("dp", "zero1", "zero3", "grad_compress", "grad_compress_bf16")
+_SHARDED_LABELS = ("sp", "fsdp", "tp", "fsdp_tp", "pp")
+
 KERNELS = {
     "fused_update": {
         "wrapper": "tpu_ddp_torch.ops.fused_update:fused_update_",
@@ -28,7 +36,9 @@ KERNELS = {
         "source": "tpu_ddp_torch/ops/csrc/fused_update.cu",
         "library": "fused_update",
         "replaces": "tpu_ddp/ops/fused_update.py:165",
-        "strategies": ("dp", "sp", "fsdp", "tp", "fsdp_tp", "pp", "ep"),
+        "strategies": _DP_LABELS + _SHARDED_LABELS + ("ep",),
+        "hint": ("optimizer update tail (clip + moments + param update "
+                 "+ EMA) in one HBM pass over every leaf"),
     },
     # the three kernels of flash attention (tpu_ddp/ops/flash_attention.py)
     "flash_attention_fwd": {
@@ -38,7 +48,8 @@ KERNELS = {
         "source": "tpu_ddp_torch/ops/csrc/flash_forward.cu",
         "library": "flash_forward",
         "replaces": "tpu_ddp/ops/flash_attention.py:108",
-        "strategies": ("dp", "sp", "fsdp", "tp", "fsdp_tp", "pp"),
+        "strategies": _DP_LABELS + _SHARDED_LABELS,
+        "hint": None,
     },
     "flash_attention_dq": {
         "wrapper": "tpu_ddp_torch.ops.flash_attention:flash_dq",
@@ -47,7 +58,8 @@ KERNELS = {
         "source": "tpu_ddp_torch/ops/csrc/flash_attention.cu",
         "library": "flash_attention",
         "replaces": "tpu_ddp/ops/flash_attention.py:327",
-        "strategies": ("dp", "sp", "fsdp", "tp", "fsdp_tp", "pp"),
+        "strategies": _DP_LABELS + _SHARDED_LABELS,
+        "hint": None,
     },
     "flash_attention_dkv": {
         "wrapper": "tpu_ddp_torch.ops.flash_attention:flash_dkv",
@@ -56,7 +68,8 @@ KERNELS = {
         "source": "tpu_ddp_torch/ops/csrc/flash_attention.cu",
         "library": "flash_attention",
         "replaces": "tpu_ddp/ops/flash_attention.py:366",
-        "strategies": ("dp", "sp", "fsdp", "tp", "fsdp_tp", "pp"),
+        "strategies": _DP_LABELS + _SHARDED_LABELS,
+        "hint": None,
     },
     # their bfloat16 kernels (bf16 q, k, v and dO: the JAX kernels under
     # --compute-dtype bfloat16), in the same sources, all three on TMA, an
@@ -68,7 +81,8 @@ KERNELS = {
         "source": "tpu_ddp_torch/ops/csrc/flash_forward.cu",
         "library": "flash_forward",
         "replaces": "tpu_ddp/ops/flash_attention.py:108",
-        "strategies": ("dp", "sp", "fsdp", "tp", "fsdp_tp", "pp"),
+        "strategies": _DP_LABELS + _SHARDED_LABELS,
+        "hint": None,
     },
     "flash_attention_dq_bf16": {
         "wrapper": "tpu_ddp_torch.ops.flash_attention:flash_dq",
@@ -77,7 +91,8 @@ KERNELS = {
         "source": "tpu_ddp_torch/ops/csrc/flash_attention.cu",
         "library": "flash_attention",
         "replaces": "tpu_ddp/ops/flash_attention.py:327",
-        "strategies": ("dp", "sp", "fsdp", "tp", "fsdp_tp", "pp"),
+        "strategies": _DP_LABELS + _SHARDED_LABELS,
+        "hint": None,
     },
     "flash_attention_dkv_bf16": {
         "wrapper": "tpu_ddp_torch.ops.flash_attention:flash_dkv",
@@ -86,7 +101,8 @@ KERNELS = {
         "source": "tpu_ddp_torch/ops/csrc/flash_attention.cu",
         "library": "flash_attention",
         "replaces": "tpu_ddp/ops/flash_attention.py:366",
-        "strategies": ("dp", "sp", "fsdp", "tp", "fsdp_tp", "pp"),
+        "strategies": _DP_LABELS + _SHARDED_LABELS,
+        "hint": None,
     },
     # the int8 quantize and dequantize of the compressed gradient ring
     # (tpu_ddp/ops/fused_quant.py)
@@ -97,7 +113,8 @@ KERNELS = {
         "source": "tpu_ddp_torch/ops/csrc/fused_quant.cu",
         "library": "fused_quant",
         "replaces": "tpu_ddp/ops/fused_quant.py:58",
-        "strategies": ("dp", "sp"),
+        "strategies": ("grad_compress", "sp"),
+        "hint": "ring-hop block-scaled int8 quantize of every leaf in one pass",
     },
     "fused_dequant": {
         "wrapper": "tpu_ddp_torch.ops.fused_quant:fused_dequant",
@@ -106,7 +123,9 @@ KERNELS = {
         "source": "tpu_ddp_torch/ops/csrc/fused_quant.cu",
         "library": "fused_quant",
         "replaces": "tpu_ddp/ops/fused_quant.py:104",
-        "strategies": ("dp", "sp"),
+        "strategies": ("grad_compress", "sp"),
+        "hint": ("ring-hop int8 dequantize fused with the carry "
+                 "accumulate (one read of each operand)"),
     },
 }
 
@@ -136,6 +155,23 @@ def kernel_available(name: str) -> bool:
     return True
 
 
+def kernel_hints(strategy: str) -> list:
+    """"kernel candidate" annotations for ``analyze``: which switch-level
+    kernels (those with a ``hint``; the flash kernels are model-level, as
+    in JAX) apply to this strategy's step, whether their build loads here
+    (``kernel_available``; no fallback: without it the plain version
+    runs), and what they fuse. Sorted by name."""
+    hints = []
+    for name in sorted(KERNELS):
+        entry = KERNELS[name]
+        if entry["hint"] is None or strategy not in entry["strategies"]:
+            continue
+        available = kernel_available(name)
+        hints.append({"kernel": name, "available": available,
+                      "backend": "cuda" if available else None, "hint": entry["hint"]})
+    return hints
+
+
 def reset_launch_counts() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
@@ -145,5 +181,5 @@ def launch_counts() -> dict:
     return {name: LAUNCHES[name] for name in KERNELS}
 
 
-__all__ = ["KERNELS", "LAUNCHES", "resolve", "kernel_available",
+__all__ = ["KERNELS", "LAUNCHES", "resolve", "kernel_available", "kernel_hints",
            "reset_launch_counts", "launch_counts"]

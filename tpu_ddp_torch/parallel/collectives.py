@@ -84,10 +84,27 @@ K3's fused dequantize-and-add runs as it does without a hook and the
 result is the same bit for bit. Ring attention's ring calls no hook, as
 the JAX package emits hops from the gradient ring alone. The trainer's
 ``--comms-monitor`` installs ``comms/forensics.py``'s ``HopMonitor.on_hop``.
+
+The recorder (``record_collectives``): while one is open, every collective
+a helper here issues over more than one rank is booked, in program order,
+as the JAX step anatomy inventories a compiled step's collectives
+(``tpu_ddp/analysis/hlo.py``): its kind (``all-reduce``, ``all-gather``,
+``reduce-scatter``, ``all-to-all``, and ``collective-permute`` for each
+buffer a ``post`` sends, so ``exchange``, ``exchange_async`` and the ring's
+hops too), its dtype as the JAX HLO names it (``f32``, ``bf16``, ``s8``...;
+the ring's wire message, carried as bytes, books as its wire mode's dtype,
+``s8`` for int8), its axis (the rank grid's name for the group,
+``parallel/mesh.py::axis_of``), its group size, its payload bytes (the
+all-gather's whole result, as JAX scales the operand by the group) and the
+group's ranks. ``analysis/anatomy.py`` builds the inventory from it. A
+collective over one rank moves nothing and is not booked, as XLA elides
+it. The drain's vote (``parallel/runtime.py::agree_any``) is not a step
+collective and is not booked.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -97,6 +114,8 @@ from tpu_ddp_torch.parallel.runtime import rank, world_size
 
 
 _RING_HOP_HOOK = None
+#: the open recorder: (its list of calls, the default group's axis), or None
+_RECORDER = None
 
 #: ring wire mode -> the dtype token the hop's payload carries
 _MODE_WIRE_DTYPE = {"f32": "f32", "bf16": "bf16", "int8": "s8"}
@@ -117,6 +136,48 @@ def _emit_hop(probe: torch.Tensor, *, kind: str, mode: str, axis: str, hop: int,
     if hook is not None:
         hook(probe, kind=kind, dtype=_MODE_WIRE_DTYPE.get(mode, mode), axis=axis,
              hop=hop, n_hops=n_hops, wire_bytes=int(wire_bytes))
+
+
+#: torch dtype -> the dtype token the JAX HLO text uses
+_HLO_DTYPE = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16",
+              torch.float64: "f64", torch.int8: "s8", torch.uint8: "u8",
+              torch.int16: "s16", torch.int32: "s32", torch.int64: "s64",
+              torch.bool: "pred"}
+
+
+@contextlib.contextmanager
+def record_collectives(world_axis: str = "data"):
+    """Book every collective issued inside the ``with`` (module docstring)
+    into the list it yields, one dict a call: ``kind``, ``dtype``,
+    ``axis``, ``group_size``, ``payload_bytes``, ``ranks`` (the group's,
+    global), ``src`` (this rank) and ``peer`` (a permute's destination,
+    global; else None).
+    ``world_axis`` names the default group (None): ``data`` for dp."""
+    global _RECORDER
+    prev, calls = _RECORDER, []
+    _RECORDER = (calls, world_axis)
+    try:
+        yield calls
+    finally:
+        _RECORDER = prev
+
+
+def _book(kind: str, t: torch.Tensor, group, *, wire: Optional[str] = None,
+          payload: Optional[int] = None, peer: Optional[int] = None) -> None:
+    """Book one collective into the open recorder, if any."""
+    rec = _RECORDER
+    if rec is None:
+        return
+    n = group_size(group)
+    if n <= 1:
+        return
+    from tpu_ddp_torch.parallel.mesh import axis_of
+
+    rec[0].append({
+        "kind": kind, "dtype": wire or _HLO_DTYPE.get(t.dtype, str(t.dtype)),
+        "axis": axis_of(group, rec[1]), "group_size": n,
+        "payload_bytes": int(t.numel() * t.element_size() if payload is None else payload),
+        "ranks": group_ranks(group), "src": rank(), "peer": peer})
 
 
 def _staged(tensor: torch.Tensor) -> bool:
@@ -167,7 +228,8 @@ class Exchange:
 
 def post(sends: Sequence[Tuple[torch.Tensor, int, int]],
          recvs: Sequence[Tuple[torch.Tensor, int, int]],
-         group: Optional[dist.ProcessGroup] = None) -> Exchange:
+         group: Optional[dist.ProcessGroup] = None, *,
+         wire: Optional[str] = None) -> Exchange:
     """Post the sends ``(buf, dst, tag)`` and the receives ``(like, src,
     tag)`` (a buffer shaped as ``like`` from ``src``) as one
     ``batch_isend_irecv`` over ``group``'s ranks, either list possibly
@@ -175,8 +237,11 @@ def post(sends: Sequence[Tuple[torch.Tensor, int, int]],
     in ``recvs``' order. Under gloo, CUDA buffers are staged through pinned
     host memory (module docstring). The pipeline's hops
     (``parallel/pipeline.py``) post a send and a receive in each direction;
-    ``exchange_async`` is the case of one peer each way."""
+    ``exchange_async`` is the case of one peer each way. ``wire`` names
+    the dtype the recorder books the sends as (the ring's message)."""
     ranks = group_ranks(group)
+    for b, dst, _ in sends:
+        _book("collective-permute", b, group, wire=wire, peer=ranks[dst])
     outs = [torch.empty_like(like) for like, _, _ in recvs]
     bufs = [b.contiguous() for b, _, _ in sends]
     wires = outs
@@ -193,20 +258,22 @@ def post(sends: Sequence[Tuple[torch.Tensor, int, int]],
 
 
 def exchange_async(bufs: Sequence[torch.Tensor], dst: int, src: int,
-                   group: Optional[dist.ProcessGroup] = None) -> Exchange:
+                   group: Optional[dist.ProcessGroup] = None, *,
+                   wire: Optional[str] = None) -> Exchange:
     """Post the sends of ``bufs`` to ``dst`` and the receives of
     same-shaped buffers from ``src`` (ranks in ``group``; None: the default
     group) as one ``batch_isend_irecv``, the i-th buffer under tag i, and
     return the handle (module docstring). The buffers must be contiguous."""
     return post([(b, dst, i) for i, b in enumerate(bufs)],
-                [(b, src, i) for i, b in enumerate(bufs)], group)
+                [(b, src, i) for i, b in enumerate(bufs)], group, wire=wire)
 
 
 def exchange(buf: torch.Tensor, dst: int, src: int,
-             group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+             group: Optional[dist.ProcessGroup] = None, *,
+             wire: Optional[str] = None) -> torch.Tensor:
     """Send ``buf`` to rank ``dst`` and return the same-shaped buffer
     received from ``src`` (ranks in ``group``; one ``batch_isend_irecv``)."""
-    return exchange_async([buf], dst, src, group).wait()[0]
+    return exchange_async([buf], dst, src, group, wire=wire).wait()[0]
 
 
 def ring_shift(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None,
@@ -224,10 +291,12 @@ def ring_shift(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None,
 
 
 def all_gather_bytes(buf: torch.Tensor,
-                     group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+                     group: Optional[dist.ProcessGroup] = None, *,
+                     wire: Optional[str] = None) -> torch.Tensor:
     """``(n, len(buf))``: every rank's ``buf``, in rank order (the n ranks
-    of ``group``; None: all)."""
+    of ``group``; None: all). ``wire`` as in ``post``."""
     n = group_size(group)
+    _book("all-gather", buf, group, wire=wire, payload=n * buf.numel() * buf.element_size())
     out = torch.empty(n * buf.numel(), dtype=buf.dtype, device=buf.device)
     if _staged(buf):
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
@@ -246,6 +315,7 @@ def all_to_all(x: torch.Tensor,
     the rank at place j of ``group`` (None: all); returns the n chunks
     received, in the senders' order (one ``all_to_all_single``; the
     comms microbenchmark's all-to-all)."""
+    _book("all-to-all", x, group)
     out = torch.empty_like(x)
     if _staged(x):
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
@@ -263,6 +333,7 @@ def _all_reduce_flat(tensors: Sequence[torch.Tensor],
     """The SUM over the ranks of ``group`` (None: all) of the
     concatenation of ``tensors``, with ONE all-reduce."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
+    _book("all-reduce", flat, group)
     if _staged(flat):
         host = _to_host(flat)
         torch.cuda.current_stream(flat.device).synchronize()
@@ -279,6 +350,7 @@ def reduce_scatter_sum(x: torch.Tensor,
     ``group`` (None: all) of the 1-D ``x``, cut into n equal chunks in rank
     order (one ``reduce_scatter_tensor``)."""
     n = group_size(group)
+    _book("reduce-scatter", x, group)
     out = torch.empty(x.numel() // n, dtype=x.dtype, device=x.device)
     if _staged(x):
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
@@ -337,6 +409,7 @@ class BlockGather:
             self._work[k] = (row.view(1, -1), None, None)
             return
         out = torch.empty(self.n * row.numel(), dtype=row.dtype, device=row.device)
+        _book("all-gather", row, self.group, payload=out.numel() * out.element_size())
         if _staged(row):
             if self._host is None:
                 self._host = _to_host(self.flat)
@@ -705,7 +778,8 @@ def _reduce_scatter_hops(x: torch.Tensor, layout: FlatLayout, mode: str,
     src = x
     for step in range(n - 1):
         msg = _quant_hop(src, layout, (idx - 1 - step) % n, mode, kernels, err)
-        got = exchange(msg, (idx + 1) % n, (idx - 1) % n, group)
+        got = exchange(msg, (idx + 1) % n, (idx - 1) % n, group,
+                       wire=_MODE_WIRE_DTYPE[mode])
         c = (idx - 2 - step) % n
         last = row is not None and step == n - 2
         out = row if last else acc
@@ -773,7 +847,8 @@ def ring_all_reduce_flat(x: torch.Tensor, layout: FlatLayout, *, mode: str = "f3
                                kind="ring-all-reduce", total_hops=n)
     msg = _quant_hop(acc, layout, group_rank(group), mode, kernels, e)
     out = torch.empty_like(x)
-    _dequant_hop(all_gather_bytes(msg, group), layout, mode, kernels, out)
+    _dequant_hop(all_gather_bytes(msg, group, wire=_MODE_WIRE_DTYPE[mode]), layout, mode,
+                 kernels, out)
     if _RING_HOP_HOOK is not None:
         # the gather phase is the ring's last hop (n of n): each rank
         # receives the other n - 1 ranks' messages

@@ -19,6 +19,8 @@ sequence-parallel and GSPMD families as it was.
 each axis, every rank calling ``new_group`` for every group in the same
 order (``torch.distributed`` requires it), and keeps this rank's five.
 With no process group up (one process) they are None and every axis is 1.
+``axis_of`` names the axis of a group it built (the collective recorder's
+axis, ``parallel/collectives.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
+import weakref
 from typing import Dict, Optional
 
 import torch.distributed as dist
@@ -130,6 +133,19 @@ class Mesh:
         return self.experts
 
 
+#: each group ``create_mesh`` built -> its axis; a group dropped (its world
+#: destroyed, its mesh gone) drops out
+_GROUP_AXES = weakref.WeakKeyDictionary()
+
+
+def axis_of(group: Optional[dist.ProcessGroup], world_axis: str = "data") -> str:
+    """The axis name of ``group``: ``world_axis`` for the default group
+    (None), the axis ``create_mesh`` built it for, else "unknown"."""
+    if group is None:
+        return world_axis
+    return _GROUP_AXES.get(group, "unknown")
+
+
 #: the Mesh field each axis's group is kept in
 _GROUP_FIELD = {SEQUENCE_AXIS: "ring", DATA_AXIS: "column", MODEL_AXIS: "tensor",
                 PIPELINE_AXIS: "pipe", EXPERT_AXIS: "experts"}
@@ -163,6 +179,8 @@ def create_mesh(sizes: Optional[Dict[str, int]] = None) -> Mesh:
         for rest in itertools.product(*(range(shape[a]) for a in others)):
             coords = dict(zip(others, rest))
             group = dist.new_group([at({**coords, axis: i}) for i in range(shape[axis])])
+            if isinstance(group, dist.ProcessGroup):
+                _GROUP_AXES[group] = axis
             if all(coords[a] == mine[a] for a in others):
                 setattr(mesh, _GROUP_FIELD[axis], group)
     return mesh

@@ -120,6 +120,21 @@ def agree_any(flag: bool) -> bool:
     return bool(t.item())
 
 
+#: what gloo's transport says when the rank across a pair is gone
+_PEER_GONE = ("Connection closed by peer", "Connection reset by peer",
+              "gloo/transport")
+
+
+def peer_lost(exc: BaseException) -> bool:
+    """Whether ``exc`` is a collective failing because another rank is
+    gone: any ``torch.distributed`` error (``DistBackendError``, which
+    NCCL raises, and its kin), or the plain ``RuntimeError`` that gloo's
+    TCP transport raises on a closed or reset pair."""
+    if isinstance(exc, getattr(dist, "DistError", ())):
+        return True
+    return isinstance(exc, RuntimeError) and any(s in str(exc) for s in _PEER_GONE)
+
+
 def barrier() -> None:
     """Every rank waits for the others (a no-op at one rank)."""
     if world_size() > 1:

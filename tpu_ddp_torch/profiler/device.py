@@ -23,19 +23,30 @@ The port's copy of ``tpu_ddp/profiler/device.py``. Two independent halves:
   peak, memory traffic at the memory rate, and each collective bucket's
   wire bytes at the interconnect rate) and distributes the window's
   measured per-step span time across the rows in proportion. Pure
-  arithmetic over the record and the chip table below.
+  arithmetic over the record and the chip table of
+  ``analysis/roofline.py``.
 
-``attribution_for_bundle`` needs the anatomy of the recorded program,
-which the JAX package rebuilds through ``analysis/explain.py``; the port
-has no counterpart of it yet, so it returns the JAX degrade shape,
-``{"note": "per-op attribution unavailable: ..."}``.
+``attribution_for_bundle`` takes the anatomy of the recorded program
+from ``analysis/explain.py::anatomy_for_run_meta`` (the step rebuilt at
+the bundle's recorded config and run once); a program that cannot be
+rebuilt gives the JAX degrade shape, ``{"note": "per-op attribution
+unavailable: ..."}``.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, Optional
+
+# the one chip table, as the JAX module imports it (its :97): the JAX rows
+# and the port's h100, re-exported for the readers of this module
+from tpu_ddp_torch.analysis.roofline import (  # noqa: F401
+    CHIP_SPECS,
+    _KIND_PATTERNS,
+    ChipSpec,
+    chip_spec,
+)
 
 log = logging.getLogger(__name__)
 
@@ -45,68 +56,6 @@ ATTRIBUTION_SCHEMA_VERSION = 1
 #: chip the attribution falls back to when the recorded device kind has
 #: no published peak (the CPU) and no --chip was passed: the port's card
 _FALLBACK_CHIP = "h100"
-
-
-class ChipSpec(NamedTuple):
-    """A chip's published rates (the JAX ``analysis/roofline.py::ChipSpec``
-    fields)."""
-
-    key: str
-    description: str
-    peak_bf16_flops: Optional[float]   # FLOP/s per chip, dense bf16
-    hbm_bytes: Optional[int]
-    hbm_bw: Optional[float]            # bytes/s per chip
-    ici_bw: Optional[float]            # one-way bytes/s of the interconnect
-    ici_links: int = 0
-
-
-#: the JAX package's table (its TPU chips, read when a bundle names one or
-#: ``--chip`` asks for one) and the port's card: NVIDIA's H100 SXM data
-#: sheet, 989.4 TFLOP/s dense bf16, 80 GB at 3.35 TB/s, NVLink 4 at
-#: 450 GB/s a direction over 18 links
-CHIP_SPECS: Dict[str, ChipSpec] = {
-    "h100": ChipSpec("h100", "NVIDIA H100 80GB HBM3", 989.4e12,
-                     80_000_000_000, 3.35e12, 4.5e11, 18),
-    "v6e": ChipSpec("v6e", "TPU v6e (Trillium)", 918e12,
-                    32_000_000_000, 1.64e12, 9.0e10, 4),
-    "v5p": ChipSpec("v5p", "TPU v5p", 459e12,
-                    95_000_000_000, 2.765e12, 9.0e10, 6),
-    "v5e": ChipSpec("v5e", "TPU v5e", 197e12,
-                    16_000_000_000, 8.1e11, 4.5e10, 4),
-    "v4": ChipSpec("v4", "TPU v4", 275e12,
-                   32 * 1024**3, 1.228e12, 4.5e10, 6),
-    "v3": ChipSpec("v3", "TPU v3", 123e12,
-                   32 * 1024**3, 9.0e11, 2.0e10, 4),
-    "v2": ChipSpec("v2", "TPU v2", 45e12,
-                   16 * 1024**3, 7.0e11, 1.5e10, 4),
-    "cpu": ChipSpec("cpu", "CPU host (no published peak)",
-                    None, None, None, None, 0),
-}
-
-#: substring patterns over a lowercased device kind, first hit wins (the
-#: JAX ``_KIND_PATTERNS`` with the card first)
-_KIND_PATTERNS = (
-    ("h100", "h100"),
-    ("v6e", "v6e"), ("v6 lite", "v6e"), ("trillium", "v6e"),
-    ("v5p", "v5p"), ("v5e", "v5e"), ("v5 lite", "v5e"),
-    ("v5litepod", "v5e"), ("v5", "v5p"),
-    ("v4", "v4"), ("v3", "v3"), ("v2", "v2"),
-    ("cpu", "cpu"),
-)
-
-
-def chip_spec(kind_or_key: Optional[str]) -> Optional[ChipSpec]:
-    """A chip spec from a short key ("h100", "v5e") or a device-kind
-    string ("NVIDIA H100 80GB HBM3"); None if unknown."""
-    if not kind_or_key:
-        return None
-    text = kind_or_key.lower()
-    if text in CHIP_SPECS:
-        return CHIP_SPECS[text]
-    for pattern, key in _KIND_PATTERNS:
-        if pattern in text:
-            return CHIP_SPECS[key]
-    return None
 
 
 # -- device trace arming ---------------------------------------------------
@@ -239,26 +188,38 @@ def per_op_attribution(anatomy, measured_step_s: Optional[float],
 
 
 def measured_step_from_meta(meta: dict) -> Optional[float]:
-    """The window's measured per-STEP compiled span time from a bundle's
-    ``measured_phases`` (total compiled time / optimizer steps covered:
-    right under ``--steps-per-call``, where a span covers K steps)."""
+    """The window's measured per-STEP time from a bundle's
+    ``measured_phases`` (total time / optimizer steps covered: right
+    under ``--steps-per-call``, where a span covers K steps). The port's
+    step is its dispatch (``compiled_step``) plus the wait for the card
+    behind it (``device_sync``); the JAX one is ``compiled_step`` alone."""
     phases = meta.get("measured_phases") or {}
     compiled = phases.get("compiled_step") or {}
     total = compiled.get("total_s")
     steps = (meta.get("window") or {}).get("steps")
     if not isinstance(total, (int, float)) or not steps:
         return None
+    sync = (phases.get("device_sync") or {}).get("total_s")
+    if isinstance(sync, (int, float)):
+        total += sync
     return total / steps
 
 
 def attribution_for_bundle(meta: dict,
                            chip: Optional[str] = None) -> dict:
-    """The per-op table of a bundle: the JAX package rebuilds the recorded
-    program's anatomy from the bundle's run metadata
-    (``analysis/explain.py::anatomy_for_run_meta``). The port has no such
-    rebuild yet, so this is the JAX degrade shape; the report keeps
-    rendering."""
-    del meta, chip
-    return {"note": "per-op attribution unavailable: the port has no "
-                    "anatomy rebuild of a recorded run (analysis/ is not "
-                    "ported)"}
+    """Rebuild the recorded program from the bundle's run metadata (the
+    ``anatomy_for_run_meta`` path, on the device the run recorded) and
+    attribute the window's measured step time per op; ``rebuilt_on``
+    names that device's kind. Any failure — no torch, a program the
+    rebuild can't reproduce, a card run read where there is no card —
+    returns ``{"note": ...}``: the report must keep rendering."""
+    run_meta = meta.get("run_meta") or {}
+    measured = measured_step_from_meta(meta)
+    try:
+        from tpu_ddp_torch.analysis.explain import anatomy_for_run_meta
+
+        anatomy = anatomy_for_run_meta(run_meta)
+        return {**per_op_attribution(anatomy, measured, chip),
+                "rebuilt_on": anatomy.device_kind}
+    except Exception as e:  # degrade, never take the report down
+        return {"note": f"per-op attribution unavailable: {e}"}

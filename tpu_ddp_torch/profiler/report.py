@@ -199,7 +199,9 @@ def render_ops(ops: dict) -> List[str]:
         + (_fmt_s(measured) + "/step" if measured else "n/a")
         + (f" = {vs:.1f}x the roofline model"
            if isinstance(vs, (int, float)) else "")
-        + f", chip {ops.get('chip')}):"
+        + f", chip {ops.get('chip')}"
+        + (f", rebuilt on {ops['rebuilt_on']}" if ops.get("rebuilt_on") else "")
+        + "):"
     ]
     header = (f"  {'op':<34} {'model':>10} {'share':>6} "
               f"{'attributed':>11}")

@@ -56,6 +56,9 @@ class Telemetry:
         self.clock = clock or Clock()
         self.current_step: Optional[int] = None
         self._closed = False
+        # whether ``close`` writes ``run_end``: False once ``peer_lost``
+        # marks a life that ends because a collective lost its peer
+        self._ends_clean = True
         # high-rate window taps (the anomaly profiler's capture manager):
         # each listener sees every span's (name, dur_s) as it closes —
         # how a capture window measures its own per-phase times without
@@ -173,6 +176,14 @@ class Telemetry:
 
     # -- lifecycle --------------------------------------------------------
 
+    def peer_lost(self) -> None:
+        """Mark this life as ended by a lost peer: ``close`` then writes
+        no ``run_end``, so the ledger books the life ``killed`` (``hang``
+        when the watchdog fired). A port rank is one process, so it can
+        outlive a rank that died; a JAX life owns every device and never
+        does, which is why the JAX ``close`` has no such case."""
+        self._ends_clean = False
+
     def close(self) -> None:
         if self._closed:
             return
@@ -181,7 +192,8 @@ class Telemetry:
             # clean-shutdown marker: the fleet aggregator uses it to tell
             # an ENDED host (trace goes quiet because the run finished)
             # from a LOST one (trace goes quiet because the host died)
-            self.instant("run_end")
+            if self._ends_clean:
+                self.instant("run_end")
             self.emit_counters()
         for sink in self.sinks:
             try:

@@ -42,6 +42,12 @@ trainer builds it so). Evaluation and prediction run the plain module on
 the params gathered over the pipeline once a pass (the JAX
 ``prepare_eval``), each rank on its data shard's rows, the counts summed
 over the data group.
+
+``MODE_AXIS`` (the JAX :60) names each family's sharded non-data axis.
+``build_step_program`` builds the train step of a ``TrainConfig`` as a run
+builds it, through a ``Trainer`` over this process's group, with its first
+batch on the device: the step ``analysis/explain.py`` and ``comms
+exposure`` run (the counterpart of the JAX ``build_abstract_step``).
 """
 
 from __future__ import annotations
@@ -62,6 +68,15 @@ from tpu_ddp_torch.parallel.mesh import (
 from tpu_ddp_torch.train.losses import cross_entropy_loss
 
 PARALLELISMS = ("dp", "fsdp", "tp", "fsdp_tp", "pp", "sp", "ep")
+
+#: strategy -> the sharded non-data mesh axis (the JAX ``MODE_AXIS``)
+MODE_AXIS = {
+    "tp": MODEL_AXIS,
+    "fsdp_tp": MODEL_AXIS,
+    "pp": PIPELINE_AXIS,
+    "sp": SEQUENCE_AXIS,
+    "ep": EXPERT_AXIS,
+}
 
 # Which mesh axis (other than data) each inferred mode keys on.
 _AXIS_TO_MODE = {
@@ -353,3 +368,35 @@ def _pp_strategy(state, tx, mesh: Mesh, *, loss_fn: Callable, compute_accuracy: 
                                              group=mesh.data_group(), model=plain),
                     predict_step=make_predict_step(model=plain),
                     layout=StateLayout(tp=layout), line=line)
+
+
+@dataclasses.dataclass
+class StepProgram:
+    """A run's train step and its first batch (``build_step_program``):
+    ``step()`` runs one optimizer step in place and returns its metrics;
+    ``close()`` releases the trainer."""
+
+    trainer: object
+    batch: dict
+
+    def step(self) -> dict:
+        t = self.trainer
+        t.state, metrics = t.train_step(t.state, self.batch)
+        return metrics
+
+    def close(self) -> None:
+        self.trainer.close()
+
+
+def build_step_program(config, *, model: Optional[torch.nn.Module] = None) -> StepProgram:
+    """The train step of ``config`` (a ``TrainConfig``) built as a run
+    builds it, by a ``Trainer`` over this process's group (``model``: one
+    to train in place of the config's), with its loader's first batch of
+    epoch 1 on the device."""
+    from tpu_ddp_torch.train.trainer import Trainer
+
+    trainer = Trainer(config, model=model)
+    loader = trainer.train_loader
+    loader.set_epoch(1)
+    batch = next(iter(loader.epoch_batches()))
+    return StepProgram(trainer, trainer.to_device(batch))

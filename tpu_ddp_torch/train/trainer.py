@@ -270,6 +270,7 @@ from tpu_ddp_torch.parallel.runtime import (
     agree_any,
     barrier,
     is_primary_process,
+    peer_lost,
     rank,
     world_size,
 )
@@ -673,10 +674,13 @@ def load_dataset(c: TrainConfig):
 
 
 class Trainer:
-    def __init__(self, config: TrainConfig, *, train_data=None, test_data=None):
+    def __init__(self, config: TrainConfig, *, train_data=None, test_data=None,
+                 model: Optional[torch.nn.Module] = None):
         """``train_data``/``test_data``: ``(images, labels)`` that replace the
         configured dataset's splits (the JAX trainer's); the test split
-        defaults to ``train_data`` when only that is given."""
+        defaults to ``train_data`` when only that is given. ``model``: a
+        model to train in place of ``build_model(config)`` (the analyzer's
+        small per-family models, ``analysis/explain.py``)."""
         c = self.config = config
         self.device = resolve_device(c.device)
         set_float32_precision()
@@ -723,7 +727,7 @@ class Trainer:
             *test_data, world_size=self.data_size,
             per_shard_batch=c.per_shard_batch, shuffle=False,
             exclude_sampler_pad=True, telemetry=self.telemetry)
-        model = build_model(c)
+        model = build_model(c) if model is None else model
         if self.mesh is not None:
             self._check_strategy(model)
         params = dict(model.named_parameters())
@@ -1329,8 +1333,12 @@ class Trainer:
         except Exception as e:
             # an allocation failure writes its postmortem bundle and the
             # oom_abort instant (the ledger's `oom` exit) before the
-            # re-raise; any other exception passes untouched
+            # re-raise; a collective that lost its peer closes the trace
+            # without `run_end` (the ledger's `killed`); any other
+            # exception passes untouched
             self._handle_possible_oom(e)
+            if peer_lost(e):
+                self.telemetry.peer_lost()
             raise
         finally:
             for sig, handler in old_handlers.items():
