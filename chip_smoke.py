@@ -646,6 +646,35 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     (``--comms-exposure``), its share in [0, 1] and joined by (c)'s
     ``analyze``. ``python3 chip_smoke.py --phase 33`` runs it alone, with
     28c's job.
+34. The graph lint and the memory planner (``tpu_ddp_torch/analysis/lint.py``,
+    ``tools/memplan.py``, the plan side of ``memtrack/``). (a) In this
+    process: ``lint --strategy all --device cuda --kernels --json`` (float32,
+    the tiny per-family models as rank 0 of a fake group of eight): every
+    program and the source tier clean, exit 0, no KRN001; each program's
+    K1-K6 launches exact (``P34_LINT_LAUNCHES``); then ``dp``, ``zero1``,
+    ``fsdp`` and ``sp`` of ViT-S/4 in bfloat16 with ``--attention flash``,
+    each clean with K1 once and K4-K6 bf16 ``P34_FLASH_LAUNCHES`` times;
+    a dp step with its update made out of place trips exactly DON001, one
+    with an ``.item()`` in its loss exactly XFR001. (b) ``memplan`` on the
+    card (``P34_PLANS``: NetResDeep f32 at batch 32, ResNet-50 bf16 at 256,
+    ViT-S/4 flash, LM-32k bf16 flash, NetResDeep ``--zero1`` and ``--zero3``
+    at four ranks, all ``--kernels``): each plan's ``est_peak_bytes``
+    beside the allocator's peak of a steady step of the same program (its
+    third), run outside the planner; the non-flash plans also on the CPU
+    (the live-tensor tracker), the difference printed. (c) One rank,
+    NetResDeep ``--kernels`` under deterministic cuDNN with and without
+    ``--lint-on-start``: losses and weights bitwise, K1 exactly once a
+    step, the preflight's own launches apart; in 28c's job a two-rank int8
+    run with ``--lint-on-start`` (``lint_ranks``): K1 once, K2 and K3
+    twice a step a rank, exactly, each rank's losses bitwise 28c's;
+    ``--comms-monitor --lint-on-start`` refused with the JAX message. (d)
+    ``mem`` on phase 30b's OOM run dir: the bundle's ``plan.json`` and the
+    measured-over-planned ratio; then ``mem`` on a copy of that dir with
+    this process capped as 30b's child was, where the rebuilt step runs out
+    of memory again: exit 1, the plan's verdict (``fits`` false, the bytes
+    reached a lower bound), no traceback. ``python3
+    chip_smoke.py --phase 34`` runs it alone, with 28c's job and 30b's
+    capped child.
 
 Launcher jobs carry several runs each (``launch_dp_runs``; a run's own
 ``rank_child`` options let unlike runs share a job): phase 26's three-rank
@@ -2097,7 +2126,7 @@ SERIAL = "_serial"
 
 def rank_child(out_dir, args):
     """One rank of phases 12, 14, 15, 17, 18c, 19d, 21b, 22e, 23b, 24, 26, 27,
-    28c, 31 and 33, started by the launcher: ``[--deterministic] [--poison-batch N]
+    28c, 31, 33 and 34, started by the launcher: ``[--deterministic] [--poison-batch N]
     [--hop-hook] --run NAME [OPTIONS] ARGS... [--run NAME [OPTIONS]
     ARGS...]``. The options before the first ``--run`` hold for every run;
     a run's own OPTIONS (``run_options``: ``--deterministic``,
@@ -6992,7 +7021,7 @@ def phase_telemetry(tmp, smi):
           + " / ".join(f"{m['mfu']:.6f}" for k, m, _ in vit if k != "off"), flush=True)
     fence_cost("ViT-S/4 flash batch 32", vit, smi)
     stamp("phase 28b")
-    tel_ranks(tmp, smi, with31=True, with33=True)
+    tel_ranks(tmp, smi, with31=True, with33=True, with34=True)
     return runs, vit
 
 
@@ -7005,14 +7034,23 @@ def tel_rank_args(run_dir):
             "--telemetry-dir", run_dir]
 
 
-def tel_ranks(tmp, smi, with31=False, with33=False):
+def lint_rank_args():
+    """Phase 34c's two-rank run in 28c's job: 28c's recipe, untraced, with
+    the graph lint's preflight."""
+    return tel_rank_args("")[:-2] + ["--lint-on-start"]
+
+
+def tel_ranks(tmp, smi, with31=False, with33=False, with34=False):
     """Phase 28c (module docstring) and its observatory checks, 30c: each
     rank's ``exporter-p<rank>.json`` on its own port, and ``watch --once
     --json`` over the run dir with both ranks. With ``with31``, phase 31's
     (a) and (b) ride the same job (``phase31_runs``) and are checked after
     28c (``phase31_checks``); with ``with33``, 28c's run records its first
     step's collectives and ``comms exposure`` runs last in the job, and
-    phase 33 (c) and (d) read them (``phase33_joins``)."""
+    phase 33 (c) and (d) read them (``phase33_joins``); with ``with34``,
+    phase 34c's ``--lint-on-start`` run rides the job too (before the
+    exposure run, which leaves the group) and is checked
+    (``phase34_ranks``)."""
     from tpu_ddp_torch.parallel.compression import chunk_wire_bytes
 
     # (c) two gloo ranks, the int8 ring with a counting hop hook in each,
@@ -7020,6 +7058,8 @@ def tel_ranks(tmp, smi, with31=False, with33=False):
     run_dir = os.path.join(tmp, "ranks")
     args = tel_rank_args(run_dir) + ["--monitor-port", "-1", "--monitor-bind", "127.0.0.1"]
     more = phase31_runs(tmp) if with31 else []
+    if with34:
+        more.append(("lint_ranks", lint_rank_args(), ["--deterministic"]))
     if with33:
         more.append(("exposure", [run_dir, "--device", "cuda", "--dist-backend", "gloo",
                                   "--reps", str(P33_EXPOSURE_REPS)], ["--comms-exposure"]))
@@ -7027,7 +7067,7 @@ def tel_ranks(tmp, smi, with31=False, with33=False):
     jobs = launch_dp_runs(tmp, [("tel_ranks", args, ["--deterministic", "--hop-hook"]
                                  + (["--record-step"] if with33 else []))]
                           + more, 2, phase="28c" + (" and 31" if with31 else "")
-                          + (" and 33" if with33 else ""))
+                          + (" and 33" if with33 else "") + (" and 34" if with34 else ""))
     job_s = time.perf_counter() - t0
     metrics, same = jobs["tel_ranks"]
     n = 2
@@ -7065,6 +7105,8 @@ def tel_ranks(tmp, smi, with31=False, with33=False):
         phase31_checks(tmp, smi, jobs, job_s)
     if with33:
         phase33_joins(tmp, smi, jobs, run_dir)
+    if with34:
+        phase34_ranks(smi, jobs)
 
 
 # ---- phase 31: the comms and data-path observatories and chaos injection
@@ -8183,10 +8225,10 @@ def phase_diagnose_readers(smi):
         f"{k} {' '.join(f'{x:.4f}' for x in v)}" for k, v in times.items()), flush=True)
 
 
-def run_phase32(smi):
+def run_phase32(smi, drop_kept=True):
     """Phase 32 on one card: (a) in a scratch directory under ``build/``,
     then (b) on the run dirs kept from phases 31a, 30b and 29, which it
-    removes."""
+    removes (``drop_kept``; phase 34 (d) reads 30b's after it)."""
     import shutil
     import tempfile
 
@@ -8198,7 +8240,8 @@ def run_phase32(smi):
         phase_diagnose_readers(smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-        shutil.rmtree(KEEP_ROOT, ignore_errors=True)
+        if drop_kept:
+            shutil.rmtree(KEEP_ROOT, ignore_errors=True)
     print(f"phase 32 took {time.perf_counter() - t32:.1f} s", flush=True)
 
 
@@ -8415,6 +8458,381 @@ def run_phase33(smi):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 33 (a), (b) took {time.perf_counter() - t33:.1f} s", flush=True)
+
+
+# ---- phase 34: the graph lint and the memory planner -------------------------
+
+#: 34a: the strategies of ``lint --strategy all`` (``analysis/explain.py``) and
+#: each program's kernel launches in its one linted step, float32 with
+#: ``--kernels``, as rank 0 of a fake group of P34_RANKS: K1 once, and the
+#: int8 ring's K2 and K3 once a hop (P34_RANKS a step)
+P34_RANKS = 8
+P34_STRATEGIES = ("dp", "zero1", "zero3", "grad_compress", "sp", "fsdp", "tp", "fsdp_tp",
+                  "pp", "ep")
+P34_LINT_LAUNCHES = {s: {"fused_update": 1, **({"fused_quant": P34_RANKS,
+                                               "fused_dequant": P34_RANKS}
+                                              if s == "grad_compress" else {})}
+                     for s in P34_STRATEGIES}
+#: 34a: ViT-S/4 (depth 6) in bfloat16 with flash attention: K4-K6 bf16 once a
+#: block, twice under sp (a ring of two: once a hop), and K1 once
+P34_FLASH = ("dp", "zero1", "fsdp", "sp")
+P34_FLASH_LAUNCHES = {s: {"fused_update": 1, **{k: 6 * (2 if s == "sp" else 1) for k in (
+    "flash_attention_fwd_bf16", "flash_attention_dq_bf16", "flash_attention_dkv_bf16")}}
+    for s in P34_FLASH}
+#: 34b: the planned configurations (``memplan``'s flags, all ``--kernels``)
+P34_PLANS = {
+    "NetResDeep f32 b32": dict(model_name="netresdeep", per_shard_batch=32,
+                               compute_dtype="float32"),
+    "ResNet-50 bf16 b256": dict(model_name="resnet50", per_shard_batch=256,
+                                compute_dtype="bfloat16"),
+    "ViT-S/4 flash b32": dict(model_name="vit_s4", per_shard_batch=32,
+                              compute_dtype="float32", attention="flash"),
+    "LM-32k bf16 flash": dict(model_name="lm_32k", per_shard_batch=4, seq_len=4096,
+                              compute_dtype="bfloat16", attention="flash"),
+    "NetResDeep --zero1 x4": dict(model_name="netresdeep", per_shard_batch=32,
+                                  compute_dtype="float32", zero1=True, n_devices=4),
+    "NetResDeep --zero3 x4": dict(model_name="netresdeep", per_shard_batch=32,
+                                  compute_dtype="float32", zero3=True, n_devices=4),
+}
+#: 34b: the real steps run before the one whose peak is read
+P34_WARM = 2
+#: 34b: est_peak_bytes over a real step's allocator peak must lie in
+#: (low, high]: the planner runs the same program's first step, whose peak
+#: read 0.9608-0.9987 of a steady step's on the H100 (ViT-S/4 flash the
+#: lowest); a plan that missed a tenth of the step's memory, or counted a
+#: buffer the step does not hold, fails
+P34_EST_OVER_REAL = (0.9, 1.02)
+#: 34c: the one-rank runs' steps an epoch (two epochs)
+P34_STEPS = 10
+
+
+def counted_lints():
+    """``analysis/lint.py::lint_strategy`` wrapped to count each program's
+    launches (zeroed just before, read just after); returns the record
+    ``{strategy: launches}`` and the function that puts it back."""
+    import torch
+
+    import tpu_ddp_torch.analysis.lint as lint
+    from tpu_ddp_torch import ops
+
+    inner, per = lint.lint_strategy, {}
+
+    def counted(strategy, **kw):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        out = inner(strategy, **kw)
+        torch.cuda.synchronize()
+        per[strategy] = {k: v for k, v in ops.launch_counts().items() if v}
+        return out
+
+    lint.lint_strategy = counted
+
+    def restore():
+        lint.lint_strategy = inner
+
+    return per, restore
+
+
+def phase_lint(tmp, smi):
+    """Phase 34a (module docstring)."""
+    import tpu_ddp_torch.analysis.lint as lint
+    from tpu_ddp_torch.tools.lint_demo import chatty_loss
+
+    path = os.path.join(tmp, "lint.json")
+    per, restore = counted_lints()
+    try:
+        t0 = time.perf_counter()
+        rc, out, err = read_back_err(["lint", "--strategy", "all", "--device", "cuda",
+                                      "--kernels", "--n-devices", str(P34_RANKS),
+                                      "--json", path])
+        secs = time.perf_counter() - t0
+        with open(path) as f:
+            art = json.load(f)["programs"]
+        print(f"  34a lint --strategy all --device cuda --kernels ({smi}; {secs:.2f} s): "
+              f"exit {rc}", flush=True)
+        for name, rec in art.items():
+            print(f"    {name:<14} rule_counts {rec['rule_counts']}"
+                  + (f", launches {per[name]}" if name in per else ""), flush=True)
+        if rc or any(rec["rule_counts"] for rec in art.values()) \
+                or set(art) != set(P34_STRATEGIES) | {"source", "kernels"}:
+            fail(f"34a: lint --strategy all exited {rc}: {out[-2000:]} {err[-500:]}")
+        if per != P34_LINT_LAUNCHES:
+            fail(f"34a: launches {per}, expected {P34_LINT_LAUNCHES}")
+        per.clear()
+        for strategy in P34_FLASH:
+            t0 = time.perf_counter()
+            rc, out, err = read_back_err([
+                "lint", "--strategy", strategy, "--device", "cuda", "--kernels",
+                "--n-devices", str(P34_RANKS), "--model", "vit_s4", "--compute-dtype",
+                "bfloat16", "--attention", "flash", "--no-source"])
+            print(f"  34a lint {strategy} ViT-S/4 bf16 --attention flash ({smi}; "
+                  f"{time.perf_counter() - t0:.2f} s): exit {rc}, launches "
+                  f"{per.get(strategy)}", flush=True)
+            if rc:
+                fail(f"34a: lint {strategy} bf16 flash exited {rc}: {out[-2000:]} "
+                     f"{err[-500:]}")
+        if per != P34_FLASH_LAUNCHES:
+            fail(f"34a: bf16 flash launches {per}, expected {P34_FLASH_LAUNCHES}")
+    finally:
+        restore()
+    for label, kw, want in (("an out-of-place update", {"in_place": False}, "DON001"),
+                            ("an .item() in the loss", {"loss_fn": chatty_loss}, "XFR001")):
+        findings, _ = lint.lint_strategy("dp", device="cuda", kernels=True,
+                                         n_devices=P34_RANKS, **kw)
+        rules = sorted({f.rule for f in findings})
+        print(f"  34a planted {label} on the card: {rules}: "
+              f"{findings[0].message[:160] if findings else ''}", flush=True)
+        if rules != [want]:
+            fail(f"34a: {label} tripped {rules}, not exactly {want}")
+
+
+def real_peak(strategy, kw):
+    """The allocator's peak over one steady step (the ``P34_WARM + 1``-th)
+    of ``strategy``'s program built as ``memplan`` builds it, run without
+    the planner's pass; bytes."""
+    import contextlib
+
+    import torch
+
+    from tpu_ddp_torch.analysis.anatomy import fake_world
+    from tpu_ddp_torch.analysis.explain import prepare_strategy_program
+
+    n = kw.get("n_devices", 1)
+    prog_kw = {k: v for k, v in kw.items() if k not in ("zero1", "zero3", "n_devices")}
+    with fake_world(n) if n > 1 else contextlib.nullcontext():
+        prog = prepare_strategy_program(strategy, n_devices=n, device="cuda",
+                                        kernels=True, **prog_kw)
+        try:
+            for _ in range(P34_WARM):
+                prog.step()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            prog.step()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            if prog.close is not None:
+                prog.close()
+    del prog
+    torch.cuda.empty_cache()
+    return peak
+
+
+def phase_memplan(smi):
+    """Phase 34b (module docstring)."""
+    from tpu_ddp_torch.tools.memplan import plan
+
+    for label, kw in P34_PLANS.items():
+        args = {k: v for k, v in kw.items() if k not in ("model_name", "per_shard_batch")}
+        strategy = "zero3" if kw.get("zero3") else "zero1" if kw.get("zero1") else "dp"
+        t0 = time.perf_counter()
+        rep = plan(kw["model_name"], kw["per_shard_batch"], remat=False, device="cuda",
+                   kernels=True, **args)
+        secs = time.perf_counter() - t0
+        pd, tr = rep["per_device"], rep["tracked"]
+        peak = real_peak(strategy, kw)
+        print(f"  34b memplan {label} ({smi}; {secs:.2f} s): argument {pd['argument_bytes']}, "
+              f"temp {pd['temp_bytes']}, output {pd['output_bytes']}, est_peak "
+              f"{pd['est_peak_bytes']} B (hbm_fraction {rep['hbm_fraction']}, fits "
+              f"{rep['fits']}); a real step's allocator peak {peak} B, est/real "
+              f"{pd['est_peak_bytes'] / peak:.4f}; the tracker on the card: est_peak "
+              f"{tr['est_peak_bytes']} B; donation {rep['donation']}; top "
+              f"{[(b['name'], b['bytes']) for b in rep['top_buffers'][:3]]}"
+              + (f"; zero1 {rep['zero1']}" if rep["zero1"] else "")
+              + (f"; zero3 {rep['zero3']}" if rep["zero3"] else ""), flush=True)
+        if rep["fits"] is not True or rep["source"] != "allocator" \
+                or rep["donation"]["undonated_output_bytes"] \
+                or not P34_EST_OVER_REAL[0] < pd["est_peak_bytes"] / peak \
+                <= P34_EST_OVER_REAL[1]:
+            fail(f"34b: {label}: {rep}, real peak {peak}")
+        if kw.get("attention") == "flash":
+            continue
+        t0 = time.perf_counter()
+        cpu = plan(kw["model_name"], kw["per_shard_batch"], remat=False, device="cpu",
+                   kernels=True, **args)
+        cpd = cpu["per_device"]
+        print(f"    the CPU tracker's plan ({time.perf_counter() - t0:.2f} s): argument "
+              f"{cpd['argument_bytes']}, temp {cpd['temp_bytes']}, est_peak "
+              f"{cpd['est_peak_bytes']} B; against the card's: "
+              f"{cpd['est_peak_bytes'] - pd['est_peak_bytes']:+d} B "
+              f"({cpd['est_peak_bytes'] / pd['est_peak_bytes']:.4f}x)", flush=True)
+
+
+def phase_lint_on_start(tmp, smi):
+    """Phase 34c's one-rank runs and the refusal (module docstring)."""
+    import torch
+
+    from tpu_ddp_torch.train.trainer import COMMS_MONITOR_LINT_REFUSAL, TrainConfig
+
+    args = ["--device", "cuda", "--synthetic-data", "--synthetic-size",
+            str(32 * P34_STEPS), "--epochs", "2", "--kernels", "--batch-size", "32",
+            "--n-chans1", "32", "--n-blocks", "10", "--log-every-epochs", "1"]
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain_t, plain = counted_run(args)
+        t0 = time.perf_counter()
+        lint_t, linted = counted_run(args + ["--lint-on-start"])
+        secs = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = False
+    a, b = plain_t.model_state(), lint_t.model_state()
+    same_w = set(a) == set(b) and all(same_bits(a[k], b[k]) for k in a)
+    same_l = plain["step_losses"] == linted["step_losses"]
+    steps = linted["steps"]
+    want = {**{k: 0 for k in linted["launches"]}, "fused_update": steps}
+    print(f"  34c one rank --lint-on-start ({smi}; {secs:.2f} s): {steps} steps, losses "
+          f"bitwise {same_l}, weights bitwise {same_w}; launches {linted['launches']} "
+          f"(without the flag {plain['launches']}); the preflight's own "
+          f"{ {k: v for k, v in lint_t.preflight_launches.items() if v} }", flush=True)
+    if not (same_l and same_w) or linted["launches"] != want or plain["launches"] != want \
+            or lint_t.preflight_launches.get("fused_update") != 1:
+        fail("34c: --lint-on-start changed the one-rank run or its launches")
+    try:
+        TrainConfig(device="cuda", synthetic_data=True, comms_monitor=True,
+                    lint_on_start=True, telemetry_dir=tmp)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    print(f"  34c --comms-monitor --lint-on-start: refused: {refused}", flush=True)
+    if refused != COMMS_MONITOR_LINT_REFUSAL:
+        fail(f"34c: the refusal was {refused!r}")
+
+
+def phase34_ranks(smi, jobs):
+    """Phase 34c's two-rank ``--lint-on-start`` run in 28c's job: K1 once,
+    K2 and K3 twice a step a rank, exactly (the preflight's launches are
+    put back), the ranks' weights bitwise, and each rank's losses bitwise
+    those of 28c's run, the same recipe without the flag (its tracing and
+    hop hook change no loss: phase 31a holds its losses to 28c's too)."""
+    metrics, same = jobs["lint_ranks"]
+    base = jobs["tel_ranks"][0]
+    for r, m in enumerate(metrics):
+        steps = m["steps"]
+        want = {**{k: 0 for k in m["launches"]}, "fused_update": steps,
+                "fused_quant": 2 * steps, "fused_dequant": 2 * steps}
+        print(f"  34c rank {r} int8 --lint-on-start ({smi}): {steps} steps, launches "
+              f"{ {k: v for k, v in m['launches'].items() if v} }; losses as 28c's "
+              f"traced run: {m['step_losses'] == base[r]['step_losses']}", flush=True)
+        if m["launches"] != want:
+            fail(f"34c rank {r}: launches {m['launches']}, expected {want}")
+        if m["step_losses"] != base[r]["step_losses"]:
+            fail(f"34c rank {r}: the --lint-on-start losses {m['step_losses']} are not "
+                 f"28c's {base[r]['step_losses']}")
+    if not same:
+        fail("34c: the --lint-on-start ranks' weights differ")
+
+
+def phase_oom_plan(smi):
+    """Phase 34d: ``mem`` on phase 30b's OOM run dir: the bundle's
+    ``plan.json`` (written by ``attach_plan``, the recorded step rebuilt on
+    the card) and the measured-over-planned ratio."""
+    oom_dir = KEPT["30b"]
+    t0 = time.perf_counter()
+    rc, text, _ = read_back(["mem", oom_dir, "--json"])
+    secs = time.perf_counter() - t0
+    art = json.loads(text) if rc in (0, 1) else {}
+    mem = art.get("mem") or {}
+    bundle = (art.get("oom") or [{}])[0]
+    plan = bundle.get("plan") or {}
+    has_file = os.path.isfile(os.path.join(oom_dir, "oom", "step_0-p0", "plan.json"))
+    print(f"  34d mem on 30b's OOM run dir ({smi}; {secs:.2f} s): exit {rc}, plan.json "
+          f"{has_file}: argument {plan.get('argument_bytes')}, temp "
+          f"{plan.get('temp_bytes')}, peak {plan.get('peak_bytes')} B, top "
+          f"{[(b['name'], b['bytes']) for b in plan.get('top_buffers', [])[:3]]}; measured "
+          f"high-water {mem.get('measured_high_water_bytes')} B, measured/planned "
+          f"{mem.get('measured_over_planned')}; notes {mem.get('notes')}", flush=True)
+    if rc != 1 or not has_file or not plan.get("peak_bytes") \
+            or not isinstance(mem.get("measured_over_planned"), float):
+        fail(f"34d: mem exit {rc}, {art}")
+    oom_rebuild(oom_dir, smi)
+
+
+def oom_rebuild(oom_dir, smi):
+    """Phase 34d's second half: ``mem`` on a copy of 30b's run dir without
+    its ``plan.json``, this process capped at ``OOM_FRACTION`` of the card
+    as 30b's child was, so the rebuilt step runs out of memory as the run
+    did: the plan is the verdict, and ``mem`` exits 1 with its report."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    copy = os.path.join(tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(
+        ROOT, "build")), "run")
+    shutil.copytree(oom_dir, copy, ignore=shutil.ignore_patterns("plan.json"))
+    torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(OOM_FRACTION, 0)
+    try:
+        t0 = time.perf_counter()
+        rc, text, _ = read_back(["mem", copy, "--json"])
+        secs = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, 0)
+        shutil.rmtree(os.path.dirname(copy), ignore_errors=True)
+    art = json.loads(text) if rc in (0, 1) else {}
+    plan = (art.get("oom") or [{}])[0].get("plan") or {}
+    low = plan.get("peak_lower_bound_bytes")
+    print(f"  34d mem capped at {OOM_FRACTION} of the card, the rebuild out of memory "
+          f"({smi}; {secs:.2f} s): exit {rc}, fits {plan.get('fits')}, peak "
+          f"{plan.get('peak_bytes')}, lower bound {low} B; note {plan.get('note')!r}; "
+          f"mem notes {(art.get('mem') or {}).get('notes')}", flush=True)
+    if rc != 1 or plan.get("fits") is not False or plan.get("peak_bytes") is not None \
+            or not isinstance(low, int) or low <= 0:
+        fail(f"34d: mem under the cap exited {rc}: {art}")
+
+
+def run_phase34(smi):
+    """Phase 34 (a)-(d) on one card, in a scratch directory; (d) reads 30b's
+    kept run dir, and removes what was kept."""
+    import shutil
+    import tempfile
+
+    t34 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
+    try:
+        phase_lint(tmp, smi)
+        stamp("phase 34a")
+        phase_memplan(smi)
+        stamp("phase 34b")
+        phase_lint_on_start(tmp, smi)
+        stamp("phase 34c")
+        phase_oom_plan(smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(KEEP_ROOT, ignore_errors=True)
+    print(f"phase 34 (a)-(d) took {time.perf_counter() - t34:.1f} s", flush=True)
+
+
+def phase34_main():
+    """``python3 chip_smoke.py --phase 34``: the kernels built, then 28c's
+    job (34c's two-rank run riding it) and 30b's capped child, then phase
+    34, on one card."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
+    sys.path.insert(0, ROOT)
+    from tpu_ddp_torch import native
+    from tpu_ddp_torch.ops import _build
+
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    _build.build()
+    native.build()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    KEEPING[0] = True
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(ROOT, "build"))
+    try:
+        tel_ranks(tmp, smi, with34=True)
+        phase_oom_alone(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    run_phase34(smi)
+    print_jobs()
+    print(f"chip_smoke --phase 34: ok ({smi})", flush=True)
 
 
 def phase33_main():
@@ -8672,6 +9090,8 @@ def main():
         return phase32_main()
     if sys.argv[1:3] == ["--phase", "33"]:
         return phase33_main()
+    if sys.argv[1:3] == ["--phase", "34"]:
+        return phase34_main()
     import shutil
     import tempfile
 
@@ -8854,8 +9274,9 @@ def main():
     run_phase28(smi)
     run_phase29(smi)
     run_phase30(smi)
-    run_phase32(smi)
+    run_phase32(smi, drop_kept=False)
     run_phase33(smi)
+    run_phase34(smi)
     print_jobs()
     print_accounting()
     rows += phase_lm_timing(results, flash_results, lm_runs["flash"]["launches"])

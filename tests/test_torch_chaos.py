@@ -121,15 +121,16 @@ def test_config_guards_as_jax(tmp_path, case):
 
 
 def test_lint_refusal_message_as_jax(tmp_path):
-    """The port keeps the JAX refusal of --comms-monitor with
-    --lint-on-start word for word, for the day the lint is ported."""
+    """The port refuses --comms-monitor with --lint-on-start as the JAX
+    package does, word for word."""
     from tpu_ddp.train.trainer import TrainConfig as JaxConfig
-    from tpu_ddp_torch.train.trainer import COMMS_MONITOR_LINT_REFUSAL
+    from tpu_ddp_torch.train.trainer import COMMS_MONITOR_LINT_REFUSAL, TrainConfig
 
-    jax_ = _outcome(lambda: JaxConfig(
-        synthetic_data=True, comms_monitor=True, lint_on_start=True,
-        telemetry_dir=str(tmp_path / "run")).validate())
-    assert jax_ == ("refused", COMMS_MONITOR_LINT_REFUSAL)
+    kw = dict(synthetic_data=True, comms_monitor=True, lint_on_start=True,
+              telemetry_dir=str(tmp_path / "run"))
+    jax_ = _outcome(lambda: JaxConfig(**kw).validate())
+    port = _outcome(lambda: TrainConfig(device="cpu", **kw) and None)
+    assert port == jax_ == ("refused", COMMS_MONITOR_LINT_REFUSAL)
 
 
 def _pair(tmp_path, faults, **kw):

@@ -1,6 +1,6 @@
 """The port's umbrella CLI (``python -m tpu_ddp_torch.cli.main``, the
 ``tpu-ddp-torch`` script) against the JAX package's ``tpu-ddp``: the
-subcommand set is the JAX one less the four whose modules are not ported
+subcommand set is the JAX one less ``tune``, whose module is not ported
 yet; each shared subcommand gives the JAX exit code and, apart from the
 command's name and the trace summary's version line, the JAX output on the
 same run dirs; the read-back subcommands import neither torch nor numpy.
@@ -26,7 +26,7 @@ from tpu_ddp.cli.main import main as jax_main
 from tpu_ddp_torch.cli.main import main as port_main
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NOT_PORTED = {"lint", "tune"}
+NOT_PORTED = {"tune"}
 RECIPE = dict(epochs=2, eval_each_epoch=True)
 
 
@@ -58,9 +58,9 @@ def test_subcommands_are_the_jax_ones_less_the_unported(capsys):
     assert port == jax_ - NOT_PORTED
     assert port == {"train", "launch", "elastic", "trace", "health", "goodput", "curves",
                     "registry", "bench", "watch", "profile", "mem", "diagnose", "comms", "data",
-                    "analyze", "ops"}
+                    "analyze", "ops", "lint"}
     with pytest.raises(SystemExit) as exit_:
-        port_main(["lint", "x"])
+        port_main(["tune", "x"])
     assert exit_.value.code == 2
 
 

@@ -19,7 +19,7 @@ package's (``tpu_ddp/diagnose/``), run side by side on the same run dirs:
   gather, before and after a watcher wrote its ``alerts.jsonl``.
 
 The outputs differ in the command's name (``tpu-ddp-torch`` for
-``tpu-ddp``) and in DIA003's action, which names the port's own levers.
+``tpu-ddp``; DIA003's action names ``tpu-ddp-torch-memplan``).
 """
 
 import torch_threads  # noqa: F401  (first: one torch thread a process)
@@ -122,8 +122,7 @@ def test_rule_registry_as_jax():
     assert list(port_rules.RULES) == list(jax_rules.RULES) == [f"DIA00{i}" for i in range(1, 10)]
     for rule, spec in port_rules.RULES.items():
         assert spec["title"] == jax_rules.RULES[rule]["title"]
-        if rule != "DIA003":
-            assert jax_names(spec["action"]) == jax_rules.RULES[rule]["action"]
+        assert jax_names(spec["action"]) == jax_rules.RULES[rule]["action"]
     assert port_evidence.SOURCE_NAMES == jax_evidence.SOURCE_NAMES
     assert port_evidence.DIAG_SCHEMA_VERSION == jax_evidence.DIAG_SCHEMA_VERSION == 1
 

@@ -14,7 +14,9 @@ package's (``tpu_ddp/memtrack/``) on the same inputs:
   standing for ``jax_version``); and one whose step raises
   ``torch.cuda.OutOfMemoryError`` at step 3: its ``oom/step_2-p0/`` bundle,
   ``memory/oom_events`` and ``oom_abort``, the life both packages'
-  ``goodput`` book as ``oom``, and ``mem``'s exit 1;
+  ``goodput`` book as ``oom``, and ``mem``'s exit 1; the plan side of the
+  clean run's join (the recorded step rebuilt on the CPU, the JAX plan's
+  keys; ``tests/test_torch_memplan.py`` holds the plan itself);
 - ``quality_digest``: unchanged by the eight new config fields.
 """
 
@@ -138,7 +140,10 @@ def test_postmortem_read_by_both(tmp_path, writer):
         m.pop("wall_time")
     assert port == jax_
     assert port[0]["error_type"] == "OutOfMemoryError" and port[0]["samples"][0]["step"] == 7
+    # a run_meta with no config is a card run (the TrainConfig default):
+    # without a card its plan's rebuild is refused, and the bundle untouched
     assert pp.attach_plan(path) is None
+    assert not os.path.exists(os.path.join(path, "plan.json"))
 
 
 @pytest.mark.parametrize("fracs,config", [([0.5, 0.5, 0.95, 0.5], {}),
@@ -184,10 +189,15 @@ def test_the_cpu_memory_record_read_by_both(dirs):
     assert port["high_water_bytes"] is None and port["hosts"][0]["source"] == "none"
     assert port["hosts"][0]["samples"] == len(mem)
     rec = pr.reconcile(clean)
-    assert rec["planned"] is None and rec["measured_high_water_bytes"] is None
-    assert rec["notes"] == [
-        "static plan unavailable: the port has no static plan of a recorded run yet "
-        "(analysis/ and tools/memplan.py are not ported)", pr.CPU_DEGRADATION_NOTE]
+    # the plan side: the recorded step rebuilt on the CPU it recorded
+    # (memtrack/postmortem.py::plan_for_run_meta), the JAX plan's keys; the
+    # CPU record has no measured device bytes, so the ratio is undefined
+    planned = rec["planned"]
+    assert set(planned) == {"argument_bytes", "temp_bytes", "output_bytes", "peak_bytes",
+                            "top_buffers"}
+    assert planned["peak_bytes"] == planned["argument_bytes"] + planned["temp_bytes"] > 0
+    assert rec["measured_high_water_bytes"] is None and rec["measured_over_planned"] is None
+    assert rec["notes"] == [pr.CPU_DEGRADATION_NOTE]
     assert not rec["calibratable"] and rec["chip"] == "cpu"
 
 

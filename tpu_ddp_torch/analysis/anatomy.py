@@ -29,6 +29,18 @@ no HLO) takes the same record from one step run eagerly:
   batch), after it, and the peak above the former. They are None on the
   CPU, as the memory record's CPU case is.
 
+For the graph lint (``analysis/lint.py``) the same pass also books the
+dtype and bytes of every matmul and convolution result (``PRODUCT_OPS``),
+every device-to-host copy and host read the step's own code issues
+(``_local_scalar_dense``: ``.item()``, ``bool(t)``; a ``_to_copy`` or
+``copy_`` from the card to the host, gloo's wire staging left out:
+``parallel/collectives.py::on_wire``), and, with ``track_memory``, the
+bytes of the tensors alive through the step (the memory planner's CPU
+figures, ``tools/memplan.py``, where no allocator counts them): each
+storage the step's ops create or the step started with is counted until
+it is freed (a ``weakref.finalize`` on its storage), and the live bytes'
+peak and the largest storages alive at it are kept.
+
 A step of N ranks is analyzed in one process by running rank 0's step
 against a process group that does not communicate (``fake_world``:
 ``torch.distributed``'s fake backend): its collectives return at once, so
@@ -112,11 +124,13 @@ class ScheduledCollective:
 
 def collective_schedule(calls: Sequence[dict]) -> List[ScheduledCollective]:
     """The recorder's calls (``parallel/collectives.py::record_collectives``)
-    as the linearized schedule, one entry a call."""
+    as the linearized schedule, one entry a call: ``groups`` every group of
+    the call's axis (the JAX HLO's replica groups), or the call's own group
+    where the record has no set."""
     return [ScheduledCollective(
         index=i, kind=c["kind"], dtype=c["dtype"], axis=c["axis"],
         group_size=c["group_size"], payload_bytes=c["payload_bytes"],
-        groups=[tuple(c["ranks"])],
+        groups=[tuple(g) for g in c.get("groups") or [c["ranks"]]],
         pairs=None if c.get("peer") is None else [(c["src"], c["peer"])])
         for i, c in enumerate(calls)]
 
@@ -224,15 +238,66 @@ def world_axis(mesh: Dict[str, int]) -> str:
     return live[0] if len(live) == 1 else ("all" if live else "unknown")
 
 
-def _counting_mode():
+#: the aten ops whose results DTY001 reads: the matmuls and convolutions
+#: (the JAX ``dot_general`` and ``conv_general_dilated``), backward too
+PRODUCT_OPS = frozenset({"mm", "addmm", "bmm", "baddbmm", "addbmm", "convolution",
+                         "_convolution", "convolution_backward", "cudnn_convolution",
+                         "_scaled_mm"})
+
+
+def _dtype_token(dtype) -> str:
+    """``torch.float32`` -> ``float32`` (the JAX dtype names)."""
+    return str(dtype).replace("torch.", "")
+
+
+class _LiveBytes:
+    """The tensors alive through a step, by storage (module docstring):
+    ``live`` bytes now, their ``peak`` and the largest storages at it;
+    ``start`` the bytes its owner counted before the step."""
+
+    def __init__(self, top: int):
+        self.live = self.peak = self.start = 0
+        self.top = top
+        self.at_peak: List[dict] = []
+        self._rows: Dict[int, dict] = {}     # id(storage) -> its row
+
+    def _freed(self, key: int) -> None:
+        row = self._rows.pop(key, None)
+        if row is not None:
+            self.live -= row["bytes"]
+
+    def add(self, t, op: str, name: Optional[str] = None) -> None:
+        """Count ``t``'s storage from now until it is freed (once); its row
+        names the op that made it (``name``: what it is, default the op)."""
+        import weakref
+
+        st = t.untyped_storage()
+        nbytes = st.nbytes()
+        if not nbytes or id(st) in self._rows:
+            return
+        self._rows[id(st)] = {"name": name or op, "op": op, "dtype": _dtype_token(t.dtype),
+                              "shape": list(t.shape), "bytes": int(nbytes)}
+        weakref.finalize(st, self._freed, id(st))
+        self.live += nbytes
+        if self.live > self.peak:
+            self.peak = self.live
+            self.at_peak = sorted(self._rows.values(), key=lambda r: -r["bytes"])[:self.top]
+
+
+def _counting_mode(live: Optional[_LiveBytes] = None):
     """A dispatch mode over every aten op the step runs: its FLOPs by
     ``torch.utils.flop_counter``'s formulas (the ops ``FlopCounterMode``
     counts: matmuls, convolutions, attention), the bytes of its tensor
-    operands and results (views excluded), and its name."""
+    operands and results (views excluded), its name, the lint's records
+    (``products``: each ``PRODUCT_OPS`` result's op, dtype and bytes;
+    ``host``: each host read and device-to-host copy, module docstring)
+    and, given ``live``, the storages of its results."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_leaves
     from torch.utils.flop_counter import flop_registry
+
+    from tpu_ddp_torch.parallel.collectives import on_wire
 
     class Counter(TorchDispatchMode):
         def __init__(self):
@@ -240,31 +305,54 @@ def _counting_mode():
             self.flops = 0
             self.bytes = 0
             self.ops: Dict[str, int] = {}
+            self.products: List[Tuple[str, str, int]] = []
+            self.host: List[str] = []
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
             out = func(*args, **kwargs)
             packet = func.overloadpacket
-            self.ops[packet.__name__] = self.ops.get(packet.__name__, 0) + 1
+            name = packet.__name__
+            self.ops[name] = self.ops.get(name, 0) + 1
             formula = flop_registry.get(packet)
             if formula is not None:
                 self.flops += formula(*args, **kwargs, out_val=out)
+            results = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
             if not getattr(func, "is_view", False):
-                for t in tree_leaves((args, kwargs, out)):
+                for t in tree_leaves((args, kwargs)):
                     if isinstance(t, torch.Tensor):
                         self.bytes += t.numel() * t.element_size()
+                for t in results:
+                    self.bytes += t.numel() * t.element_size()
+                    if live is not None:
+                        live.add(t, name)
+            if name in PRODUCT_OPS:
+                self.products += [(name, _dtype_token(t.dtype), t.numel() * t.element_size())
+                                  for t in results]
+            if name == "_local_scalar_dense":
+                self.host.append(f"{name} on {args[0].device.type} (a host read: "
+                                 ".item(), bool(), int() or float() of a tensor)")
+            elif name in ("_to_copy", "copy_", "copy") and not on_wire():
+                src = args[1] if name != "_to_copy" else args[0]
+                dst = out if name != "copy_" else args[0]
+                if (isinstance(src, torch.Tensor) and isinstance(dst, torch.Tensor)
+                        and src.device.type != "cpu" and dst.device.type == "cpu"):
+                    self.host.append(f"{name} {src.device.type} -> cpu of "
+                                     f"{src.numel() * src.element_size()} B")
             return out
 
     return Counter()
 
 
 def count_step(step: Callable[[], object], *, world: str = "data",
-               device=None) -> dict:
+               device=None, live: Optional[_LiveBytes] = None) -> dict:
     """Run ``step()`` once under the collective recorder and the counting
     mode (module docstring). Returns ``flops``, ``bytes_accessed``,
-    ``hlo_ops``, ``calls`` (the recorder's) and the allocator's
-    ``argument_bytes``, ``output_bytes`` and ``temp_bytes`` (None off the
-    card)."""
+    ``hlo_ops``, ``calls`` (the recorder's), the lint's ``products`` and
+    ``host`` records, and the allocator's ``argument_bytes``,
+    ``output_bytes`` and ``temp_bytes`` (None off the card). ``live`` (a
+    ``_LiveBytes`` already holding the step's arguments) also tracks the
+    bytes alive through the step."""
     import torch
 
     from tpu_ddp_torch.parallel.collectives import record_collectives
@@ -275,7 +363,7 @@ def count_step(step: Callable[[], object], *, world: str = "data",
         torch.cuda.synchronize(device)
         arg = torch.cuda.memory_allocated(device)
         torch.cuda.reset_peak_memory_stats(device)
-    counter = _counting_mode()
+    counter = _counting_mode(live)
     with record_collectives(world) as calls, counter:
         step()
     if cuda:
@@ -285,6 +373,7 @@ def count_step(step: Callable[[], object], *, world: str = "data",
     return {"flops": float(counter.flops) or None,
             "bytes_accessed": float(counter.bytes) or None,
             "hlo_ops": dict(sorted(counter.ops.items())), "calls": list(calls),
+            "products": list(counter.products), "host": list(counter.host),
             "argument_bytes": arg, "output_bytes": out, "temp_bytes": temp}
 
 

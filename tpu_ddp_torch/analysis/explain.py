@@ -178,7 +178,13 @@ class StrategyProgram:
     ``step()`` runs one optimizer step in place (what
     ``anatomy.count_step`` counts), ``close()`` (None: nothing to release)
     releases the trainer. ``mesh`` is the rank grid's axis sizes,
-    ``n_devices`` their product (the group's size)."""
+    ``n_devices`` their product (the group's size). The graph lint's
+    inputs (``analysis/lint.py``): ``leaves()`` the rank's state by
+    section (``params``, ``opt_state``, ``batch_stats``, ``step``: each
+    leaf's tensor, whole-leaf element count and whether the layout cuts
+    it; ``train/state.py::StateLayout.leaves``), ``batch`` the step's
+    batch on the device, and ``zero`` the ZeRO partition (None without
+    one)."""
 
     strategy: str
     parallelism: str
@@ -190,6 +196,9 @@ class StrategyProgram:
     per_shard_batch: int
     device: Any
     close: Any = None
+    leaves: Any = None
+    batch: Any = None
+    zero: Any = None
 
     @property
     def device_kind(self) -> str:
@@ -221,12 +230,14 @@ def _mesh_for(strategy: str, n_devices: int, axis_size: Optional[int]) -> Dict[s
 def _lm_program(strategy: str, model_name: str, *, per_shard_batch: int, seq_len: int,
                 compute_dtype: str, attention: str, kernels: bool, device):
     """The causal LM's DP step (``train/lm_steps.py``, AdamW lr 1e-3 as
-    the LM's recipe) and its one batch of random tokens."""
+    the LM's recipe), its state's leaves (``StateLayout.leaves``) and its
+    one batch of random tokens."""
     import torch
 
     from tpu_ddp_torch.models import CausalTransformerLM
     from tpu_ddp_torch.train import create_lm_train_state, make_lm_train_step
     from tpu_ddp_torch.train.optim import make_optimizer
+    from tpu_ddp_torch.train.state import StateLayout
 
     if strategy != "dp":
         raise ValueError(f"--model {model_name} analyzes the LM's dp step only, "
@@ -247,7 +258,7 @@ def _lm_program(strategy: str, model_name: str, *, per_shard_batch: int, seq_len
         holder[0], metrics = step(holder[0], batch)
         return metrics
 
-    return run
+    return run, (lambda: StateLayout().leaves(holder[0])), batch
 
 
 def strategy_config(strategy: str, *, mesh: Dict[str, int], model: str,
@@ -255,7 +266,8 @@ def strategy_config(strategy: str, *, mesh: Dict[str, int], model: str,
                     grad_accum_steps: int = 1, remat: bool = False,
                     compress_mode: str = "int8", compress_block: int = 256,
                     n_microbatches: int = 2, kernels: bool = False,
-                    attention: str = "full"):
+                    attention: str = "full", momentum: float = 0.9,
+                    ema_decay: float = 0.0, num_classes: int = 10):
     """The ``TrainConfig`` of a static strategy (the JAX
     ``prepare_strategy_program``'s recipe: SGD lr 0.1, momentum 0.9;
     ``grad_compress`` without error feedback), on synthetic data of one
@@ -266,9 +278,11 @@ def strategy_config(strategy: str, *, mesh: Dict[str, int], model: str,
     parallelism = {"zero1": "dp", "zero3": "dp", "grad_compress": "dp"}.get(
         strategy, strategy)
     return TrainConfig(
+        sp_flash=strategy == "sp" and attention == "flash",
         device=device, synthetic_data=True,
         synthetic_size=per_shard_batch * mesh["data"], epochs=1,
-        per_shard_batch=per_shard_batch, lr=1e-1, momentum=0.9,
+        per_shard_batch=per_shard_batch, lr=1e-1, momentum=momentum,
+        ema_decay=ema_decay, num_classes=num_classes,
         kernels=kernels, zero1=strategy == "zero1", zero3=strategy == "zero3",
         grad_compress=compress_mode if strategy == "grad_compress" else "none",
         grad_compress_block=compress_block, parallelism=parallelism,
@@ -297,10 +311,17 @@ def prepare_strategy_program(
     kernels: bool = False,
     attention: str = "full",
     seq_len: int = 4096,
+    momentum: float = 0.9,
+    ema_decay: float = 0.0,
+    loss_fn=None,
+    in_place: bool = True,
 ) -> StrategyProgram:
     """Build the strategy's step (module docstring) over the process group
     that is up, which must hold ``n_devices`` ranks (one process: 1).
-    ``model``: a model object in place of the tiny one or ``model_name``."""
+    ``model``: a model object in place of the tiny one or ``model_name``.
+    ``loss_fn`` and ``in_place`` are the graph lint's injected faults (a
+    loss in place of the config's; a step that updates out of place:
+    ``train/strategy.py::StepProgram``)."""
     import torch
 
     from tpu_ddp_torch.parallel.runtime import world_size
@@ -322,24 +343,36 @@ def prepare_strategy_program(
                   n_devices=n_devices, compute_dtype=compute_dtype,
                   per_shard_batch=per_shard_batch, device=dev)
     if model_name in LM_MODELS:
-        run = _lm_program(strategy, model_name, per_shard_batch=per_shard_batch,
-                          seq_len=seq_len, compute_dtype=compute_dtype,
-                          attention=attention, kernels=kernels, device=dev)
-        return StrategyProgram(step=run, model_name=model_name, **common)
+        if loss_fn is not None or not in_place:
+            raise ValueError(f"--model {model_name}: no injected fault in the LM's step")
+        run, leaves, batch = _lm_program(
+            strategy, model_name, per_shard_batch=per_shard_batch, seq_len=seq_len,
+            compute_dtype=compute_dtype, attention=attention, kernels=kernels, device=dev)
+        return StrategyProgram(step=run, model_name=model_name, leaves=leaves, batch=batch,
+                               **common)
     dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[compute_dtype]
     config_model = model_name
     if model is None and not model_name:
         model, model_name = _tiny_model(strategy, num_classes, dtype)
         config_model = _TINY_CONFIG_MODEL[model_name]
+        if attention == "flash":       # build_model's binding, for the tiny model
+            if not hasattr(model, "attention_impl"):
+                raise ValueError(f"--attention flash needs an attention model (ViT "
+                                 f"family); {strategy}'s {model_name} has none")
+            from tpu_ddp_torch.ops.flash_attention import flash_attention
+
+            model.attention_impl = flash_attention
     cfg = strategy_config(
         strategy, mesh=mesh, model=config_model or "netresdeep",
         per_shard_batch=per_shard_batch, compute_dtype=compute_dtype, device=device,
         grad_accum_steps=grad_accum_steps, remat=remat, compress_mode=compress_mode,
         compress_block=compress_block, n_microbatches=n_microbatches, kernels=kernels,
-        attention=attention)
-    prog = build_step_program(cfg, model=model)
+        attention=attention, momentum=momentum, ema_decay=ema_decay,
+        num_classes=num_classes)
+    prog = build_step_program(cfg, model=model, loss_fn=loss_fn, in_place=in_place)
     return StrategyProgram(step=prog.step, model_name=model_name or "custom",
-                           close=prog.close, **common)
+                           close=prog.close, leaves=prog.leaves, batch=prog.batch,
+                           zero=prog.trainer.layout.zero, **common)
 
 
 def _anatomy_of(prog: StrategyProgram, strategy_label: str) -> StepAnatomy:
@@ -452,34 +485,43 @@ def anatomy_for_run_meta(meta: dict, device: Optional[str] = None) -> StepAnatom
     recorded (``run_meta_config``) as rank 0 of a group of the recorded
     size, and take its anatomy. Raises for programs the rebuild cannot
     reproduce: refusing beats mis-attributing."""
-    from tpu_ddp_torch.analysis.anatomy import (
-        anatomy_from_counts,
-        count_step,
-        fake_world,
-        world_axis,
-    )
-    from tpu_ddp_torch.runtime import resolve_device
-    from tpu_ddp_torch.train.strategy import build_step_program
+    from tpu_ddp_torch.analysis.anatomy import fake_world
 
-    cfg = run_meta_config(meta, device)
+    prog_mesh = run_meta_mesh(meta)
+    with fake_world(prog_mesh[1]) if prog_mesh[1] > 1 else contextlib.nullcontext():
+        return _anatomy_of(program_for_run_meta(meta, device), run_strategy_label(meta))
+
+
+def run_meta_mesh(meta: dict) -> tuple:
+    """``(mesh, n_devices)`` of a recorded run: its axis sizes and their
+    product, the ranks its step is rebuilt for."""
     mesh = {a: int(s) for a, s in (meta.get("mesh") or {}).items()}
     n = 1
     for s in mesh.values():
         n *= s
-    dev = resolve_device(cfg.device)
-    with fake_world(n) if n > 1 else contextlib.nullcontext():
-        prog = build_step_program(cfg)
-        try:
-            counts = count_step(prog.step, world=world_axis(mesh), device=dev)
-        finally:
-            prog.close()
-    import torch
+    return mesh, n
 
-    kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    return anatomy_from_counts(
-        counts, strategy=run_strategy_label(meta), model=cfg.model,
-        device_kind=kind, mesh=mesh, per_shard_batch=cfg.per_shard_batch,
-        compute_dtype=cfg.compute_dtype)
+
+def program_for_run_meta(meta: dict, device: Optional[str] = None) -> StrategyProgram:
+    """The recorded run's step (``run_meta_config``: its ``TrainConfig``
+    rebuilt on the device it recorded, which raises for a program the
+    rebuild does not reproduce) as a :class:`StrategyProgram` over the
+    process group that is up, which must hold the recorded rank count
+    (``run_meta_mesh``; ``anatomy.fake_world`` for a static rebuild). The
+    unit ``analyze``'s run-dir mode and the memory plan of a recorded run
+    (``memtrack/postmortem.py::plan_for_run_meta``) run once."""
+    from tpu_ddp_torch.runtime import resolve_device
+    from tpu_ddp_torch.train.strategy import build_step_program
+
+    cfg = run_meta_config(meta, device)
+    mesh, n = run_meta_mesh(meta)
+    prog = build_step_program(cfg)
+    return StrategyProgram(
+        strategy=run_strategy_label(meta), parallelism=meta.get("strategy", "dp"),
+        step=prog.step, mesh=mesh, n_devices=n, model_name=cfg.model,
+        compute_dtype=cfg.compute_dtype, per_shard_batch=cfg.per_shard_batch,
+        device=resolve_device(cfg.device), close=prog.close, leaves=prog.leaves,
+        batch=prog.batch, zero=prog.trainer.layout.zero)
 
 
 # -- run-dir metadata + measured-phase join -------------------------------

@@ -65,15 +65,24 @@ subcommands whose modules the port has:
   runs (FLOPs, bytes, the collective inventory in program order) on the
   chip roofline, the strategy's collective fingerprint, and in run-dir
   mode the join against the run's measured phases.
+- ``tpu-ddp-torch lint [--strategy all]`` — the graph lint over one step
+  of every strategy that runs: in-place state (DON001), widening in bf16
+  programs (DTY001), replication (SHD001), collective order and
+  participation (COL001), host transfers (XFR001), the source's recompile
+  hazards (RCP001) and, with ``--kernels`` on the card, kernel capability
+  (KRN001); exit 1 on an error finding, ``--json`` the artifact ``bench
+  compare`` gates per rule (``tpu_ddp_torch.analysis.lint``).
 
-The JAX CLI's ``lint`` and ``tune`` come with their modules (ROADMAP.md,
-section 1).
+The JAX CLI's ``tune`` comes with its module (ROADMAP.md, section 1).
 
-Every subcommand but ``train``, ``launch``, ``analyze``, ``ops``, ``comms
-bench`` and ``comms exposure``, ``data bench`` and ``watch --roofline`` is
-stdlib-only end to end: it imports neither torch nor numpy, so a run dir is
-read on any host, one without CUDA or torch included. Those import torch
-lazily; ``elastic``'s lives import torch in their own processes.
+Every subcommand but ``train``, ``launch``, ``analyze``, ``lint``, ``ops``,
+``comms bench`` and ``comms exposure``, ``data bench``, ``watch
+--roofline`` and ``mem`` is stdlib-only end to end: it imports neither
+torch nor numpy, so a run dir is read on any host, one without CUDA or
+torch included. Those import torch lazily (``mem`` only to rebuild the
+static plan of a run: stdlib-only under ``--no-plan`` or with a bundle's
+``plan.json`` present); ``elastic``'s lives import torch in their own
+processes.
 """
 
 from __future__ import annotations
@@ -179,11 +188,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         from tpu_ddp_torch.analysis.regress import main as compare_main
 
         return compare_main(argv[2:])
-    # analyze and ops own their argparse surfaces and import torch lazily
+    # analyze, lint and ops own their argparse surfaces and import torch
+    # lazily
     if argv[:1] == ["analyze"]:
         from tpu_ddp_torch.analysis.explain import main as analyze_main
 
         return analyze_main(argv[1:])
+    if argv[:1] == ["lint"]:
+        from tpu_ddp_torch.analysis.lint import main as lint_main
+
+        return lint_main(argv[1:])
     if argv[:1] == ["ops"]:
         from tpu_ddp_torch.ops.cli import main as ops_main
 
@@ -283,6 +297,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         help="step anatomy on the chip roofline + collective "
              "fingerprint, optionally joined with a run dir's measured "
              "phases (tpu-ddp-torch analyze --help)",
+    )
+    sub.add_parser(
+        "lint",
+        help="graph lint over one step of every strategy that runs: "
+             "in-place state, dtype widening, replication, collective "
+             "order, host transfers, recompile hazards, kernel "
+             "capability (tpu-ddp-torch lint --help)",
     )
     sub.add_parser(
         "ops",

@@ -28,7 +28,9 @@ record. The live observatories' flags (the JAX :218-270:
 ``--monitor-allow-remote-trigger``) reach the trainer's capture manager,
 epoch trace and exporter; ``mem_sample_steps`` is a config field with no
 flag, as in JAX. ``--chaos SPEC.JSON`` and ``--comms-monitor`` (the JAX
-:287-301) turn on fault injection and the ring's hop monitor. Started by
+:287-301) turn on fault injection and the ring's hop monitor;
+``--lint-on-start`` (the JAX :332) lints the run's step before the first
+(``Trainer.lint_preflight``). Started by
 ``python -m tpu_ddp_torch.cli.launch``, it joins the launcher's process
 group first and trains data-parallel over the ranks (``--dist-backend``,
 a flag the JAX CLI does not need: one JAX process drives every device).
@@ -353,6 +355,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "hosts, seeded and fire-once per logical run "
                         "(state in --telemetry-dir) — the elastic "
                         "runtime's CI harness (docs/resilience.md)")
+    p.add_argument("--lint-on-start", action="store_true",
+                   help="preflight: run the graph lint (in-place state / "
+                        "dtype / sharding / collective-order / host-"
+                        "transfer rules, tpu_ddp_torch/analysis/lint.py) "
+                        "over one step of this run's program (its state put "
+                        "back after it) and refuse to launch on a finding, "
+                        "on every rank")
     p.add_argument("--comms-monitor", action="store_true",
                    help="instrument the quantized ring collectives with "
                         "a per-hop host callback: live per-axis achieved "
@@ -516,6 +525,7 @@ def config_from_args(args) -> TrainConfig:
         monitor_allow_remote_trigger=args.monitor_allow_remote_trigger,
         chaos_spec=args.chaos,
         comms_monitor=args.comms_monitor,
+        lint_on_start=args.lint_on_start,
     )
 
 

@@ -1,9 +1,9 @@
 """The causal rule registry behind ``tpu-ddp-torch diagnose`` (DIA001..).
 
-The port's copy of ``tpu_ddp/diagnose/rules.py``, rule for rule. DIA003's
-action names the port's own levers (the JAX one names its memory planner,
-which the port does not have); DIA005 counts ``jax/cache/*`` counters, so
-it judges JAX run dirs only: a port run writes none.
+The port's copy of ``tpu_ddp/diagnose/rules.py``, rule for rule; DIA003's
+action names the port's memory planner (``tpu-ddp-torch-memplan``) as the
+JAX one names its own. DIA005 counts ``jax/cache/*`` counters, so it
+judges JAX run dirs only: a port run writes none.
 
 A throughput-collapse decision tree over the cross-observatory
 evidence table (``evidence.py``): each rule inspects only loaded
@@ -43,9 +43,8 @@ RULES: Dict[str, Dict[str, str]] = {
     },
     "DIA003": {
         "title": "HBM pressure / fragmentation",
-        "action": "shrink the footprint: --remat, a smaller per-shard "
-                  "batch, or --zero1/--zero3 to shard state (tpu-ddp-torch "
-                  "mem reads the measured high-water)",
+        "action": "re-price with tpu-ddp-torch-memplan: --remat, a smaller "
+                  "per-shard batch, or --zero1/--zero3 to shard state",
     },
     "DIA004": {
         "title": "straggler / lost host",

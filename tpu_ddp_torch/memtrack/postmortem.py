@@ -20,12 +20,17 @@ bundle layout and ``meta.json`` keys:
 - the trainer also emits an ``oom_abort`` trace instant, which
   ``ledger/stitch.py`` classifies as the ``oom`` exit.
 
-The plan side of a bundle (the JAX ``attach_plan``: the static peak and
-the largest buffers of the recorded program's compiled HLO, rebuilt at
-report time through ``analysis/explain.py`` and ``tools/memplan.py``) has
-no counterpart in the port yet: :func:`plan_for_run_meta` raises and
-:func:`attach_plan` returns None, the JAX functions' answers where the
-rebuild cannot run.
+The plan side of a bundle (the JAX ``attach_plan``) is rebuilt at report
+time: :func:`plan_for_run_meta` runs the recorded step once on the device
+the run recorded (``analysis/explain.py::program_for_run_meta``, the
+``analyze`` rule: a card run read where there is no card raises its
+refusal, the JAX "plan rebuild skipped" case) under the memory planner's
+measurement (``tools/memplan.py``): the allocator's bytes on the card, the
+live-tensor tracker's on the CPU, and the largest tensors alive at the
+step's peak (``top_buffers``, the counterpart of the JAX
+``largest_buffers``, which reads XLA's buffer assignment).
+:func:`attach_plan` writes it as ``plan.json``, atomically. Only the
+rebuild imports torch.
 """
 
 from __future__ import annotations
@@ -171,22 +176,101 @@ def list_postmortems(run_dir: str) -> List[dict]:
 # -- plan attachment (report-time) ----------------------------------------
 
 def plan_for_run_meta(meta: dict, k: int = 10) -> dict:
-    """The static memory plan of a recorded run: the JAX package rebuilds
-    the recorded program (``analysis/explain.py::compiled_for_run_meta``)
-    and reads its memory analysis. The port has no such rebuild yet, so
-    this raises, as the JAX function does where the rebuild cannot run."""
-    del meta, k
-    raise ValueError("the port has no static plan of a recorded run yet "
-                     "(analysis/ and tools/memplan.py are not ported)")
+    """The memory plan of a recorded run: memplan's peak (arguments +
+    temps, per device) and the ``k`` largest tensors alive at the step's
+    peak, from the run's RECORDED program run once (module docstring).
+    Raises ``ValueError`` with the analyze refusal for a program the
+    rebuild does not reproduce, or a card run where there is no card.
+
+    A rebuild that runs out of device memory (as the run it plans may
+    have) is memplan's verdict, not a crash: ``fits`` False, the byte
+    keys None, the most the allocator held during the rebuild, when it
+    failed, in ``peak_lower_bound_bytes`` (None off the card), a ``note``,
+    and the largest tensors the tracker had seen alive."""
+    import contextlib
+
+    import torch
+
+    from tpu_ddp_torch.analysis.anatomy import fake_world
+    from tpu_ddp_torch.analysis.explain import program_for_run_meta, run_meta_mesh
+    from tpu_ddp_torch.analysis.lint import audit_program
+    from tpu_ddp_torch.tools.memplan import live_arguments
+
+    _, n = run_meta_mesh(meta)
+    live = None
+
+    def rebuild():
+        nonlocal live
+        with fake_world(n) if n > 1 else contextlib.nullcontext():
+            prog = program_for_run_meta(meta)
+            try:
+                live = live_arguments(prog, k)
+                return audit_program(prog, live=live)
+            finally:
+                prog.close()
+
+    if torch.cuda.is_initialized():
+        torch.cuda.reset_peak_memory_stats()     # the lower bound is the rebuild's
+    try:
+        audit = rebuild()
+    except torch.cuda.OutOfMemoryError:
+        audit = None
+    if audit is None:
+        # the rebuilt state is out of scope here, so the cache can go back
+        cuda = torch.cuda.is_initialized()
+        reached = torch.cuda.max_memory_allocated() if cuda else None
+        if cuda:
+            torch.cuda.empty_cache()
+        return {
+            "argument_bytes": None,
+            "temp_bytes": None,
+            "output_bytes": None,
+            "peak_bytes": None,
+            "top_buffers": list(live.at_peak) if live is not None else [],
+            "fits": False,
+            "peak_lower_bound_bytes": reached,
+            "note": ("the rebuilt step ran out of device memory"
+                     + (f": {reached} B allocated when it failed, a lower "
+                        "bound of the step's peak" if reached is not None else "")),
+        }
+    a = audit.anatomy
+    if a.argument_bytes is not None:      # the card's allocator
+        arg, temp, out = a.argument_bytes, a.temp_bytes, a.output_bytes
+    else:                                 # the CPU's tracker
+        arg, temp, out = live.start, live.peak - live.start, live.live
+    return {
+        "argument_bytes": int(arg),
+        "temp_bytes": int(temp),
+        "output_bytes": int(out),
+        "peak_bytes": int(arg + temp),   # memplan's steady-state convention
+        "top_buffers": list(live.at_peak),
+    }
 
 
 def attach_plan(bundle_dir: str, k: int = 10) -> Optional[dict]:
-    """A bundle's static plan, ``plan.json``: an existing one is returned
-    (a bundle the JAX package planned); else None, the JAX answer when
-    the plan cannot be rebuilt here."""
-    del k
+    """Compute the bundle's plan from its recorded ``run_meta`` and write
+    it as ``plan.json`` (idempotent: an existing plan is returned, not
+    recomputed; a rebuild that ran out of memory writes its verdict).
+    Returns None, the bundle untouched, when the rebuild is refused here
+    (``plan_for_run_meta``'s ``ValueError``)."""
+    plan_path = os.path.join(bundle_dir, "plan.json")
+    if os.path.isfile(plan_path):
+        try:
+            with open(plan_path) as f:
+                return json.load(f)
+        except (OSError, json.JSONDecodeError):
+            pass
     try:
-        with open(os.path.join(bundle_dir, "plan.json")) as f:
-            return json.load(f)
+        with open(os.path.join(bundle_dir, "run_meta.json")) as f:
+            meta = json.load(f)
     except (OSError, json.JSONDecodeError):
         return None
+    try:
+        plan = plan_for_run_meta(meta, k)
+    except ValueError:
+        return None
+    tmp = f"{plan_path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(plan, f, indent=1)
+    os.replace(tmp, plan_path)
+    return plan

@@ -3,11 +3,13 @@
 The port's copy of ``tpu_ddp/memtrack/reconcile.py``. Reading the mem
 record (``find_mem_files``, ``read_mem_records``, ``measured_summary``) is
 the JAX code. :func:`reconcile` joins the measured high-water against the
-static plan of the recorded program; the port has no plan yet
-(``memtrack/postmortem.py::plan_for_run_meta``), so its planned side is
-None with the note saying why, and the measured side is whole. A CPU run's
-record has no device bytes at all (``memtrack/sampler.py``), which the
-join notes too. Stdlib-only.
+plan of the recorded program: an OOM bundle's ``plan.json`` when the run
+dir holds one (the same program's plan), else the rebuild
+(``memtrack/postmortem.py::plan_for_run_meta``: one step on the device the
+run recorded, the one step that imports torch); a rebuild refused here
+degrades to a note, as in JAX. A CPU run's record has no device bytes at
+all (``memtrack/sampler.py``), so its ratio is undefined, which the join
+notes too. Stdlib-only but the rebuild.
 """
 
 from __future__ import annotations
@@ -215,6 +217,18 @@ def read_run_meta(run_dir: str) -> dict:
         "metadata header, or the trace is hand-rolled)")
 
 
+def _bundle_plan(run_dir: str) -> Optional[dict]:
+    """The first OOM bundle's ``plan.json`` under ``run_dir``, None
+    without one (``memtrack/postmortem.py::attach_plan`` writes it)."""
+    for path in sorted(glob.glob(os.path.join(run_dir, "oom", "*", "plan.json"))):
+        try:
+            with open(path) as f:
+                return json.load(f)
+        except (OSError, json.JSONDecodeError):
+            continue
+    return None
+
+
 def reconcile(run_dir: str, *, chip: Optional[str] = None,
               expect_strategy: Optional[str] = None,
               measured: Optional[dict] = None) -> dict:
@@ -243,13 +257,16 @@ def reconcile(run_dir: str, *, chip: Optional[str] = None,
             f"{run_dir}: recorded strategy is {strategy!r}, not "
             f"{expect_strategy!r} — refusing the join (the plan would "
             "price a different program than was measured)")
-    planned = None
-    try:
-        from tpu_ddp_torch.memtrack.postmortem import plan_for_run_meta
+    planned = _bundle_plan(run_dir)
+    if planned is None:
+        try:
+            from tpu_ddp_torch.memtrack.postmortem import plan_for_run_meta
 
-        planned = plan_for_run_meta(meta)
-    except Exception as e:
-        notes.append(f"static plan unavailable: {e}")
+            planned = plan_for_run_meta(meta)
+        except Exception as e:
+            notes.append(f"static plan unavailable: {e}")
+    if planned and planned.get("note"):
+        notes.append(f"static plan: {planned['note']}")
     device_kind = meta.get("device_kind")
     chip_key = None
     hbm_bytes = measured["bytes_limit"]

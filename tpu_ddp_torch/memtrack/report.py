@@ -10,11 +10,14 @@ postmortem bundle.
 ``--json`` emits the schema-versioned, registry-recordable artifact
 (``"type": "memtrack"``, ``registry/store.py``): the measured high-water
 gates through ``bench compare`` as a size, and a fresh ``oom_count``
-gates exactly. The planned side waits for the port's static plan
-(``memtrack/postmortem.py``), so its fields are null with a note.
+gates exactly. The planned side is the recorded program's plan
+(``memtrack/postmortem.py::plan_for_run_meta``, each OOM bundle's
+``plan.json`` written first by ``attach_plan``): its rebuild runs the
+step once and imports torch; ``mem`` is stdlib-only under ``--no-plan`` or
+with a bundle's ``plan.json`` present.
 
 Exit codes: 0 clean, 1 when the run recorded an OOM postmortem, 2
-unusable run dir. Stdlib-only, with or without ``--no-plan``.
+unusable run dir.
 """
 
 from __future__ import annotations
@@ -157,7 +160,12 @@ def render(art: dict) -> str:
     planned = mem.get("planned")
     header = f"{'measured vs planned':<34} {'bytes':>14}"
     lines += [header, "-" * len(header)]
-    if planned:
+    if planned and planned.get("peak_bytes") is None:
+        # the rebuild's out-of-memory verdict (postmortem.plan_for_run_meta)
+        low = planned.get("peak_lower_bound_bytes")
+        lines.append(f"{'planned peak':<34} {'DOES NOT FIT':>14}")
+        lines.append(f"{'  at least':<34} {low if low is not None else '-':>14}")
+    elif planned:
         lines.append(f"{'planned peak (args+temp)':<34} "
                      f"{planned['peak_bytes']:>14}")
         lines.append(f"{'  arguments':<34} "
@@ -225,8 +233,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="refuse the join unless the recorded strategy "
                          "matches (the analyze join contract)")
     ap.add_argument("--no-plan", action="store_true",
-                    help="skip the static-plan join (the port's plan "
-                         "side is a note until its rebuild lands)")
+                    help="skip the static-plan join (the rebuild of the "
+                         "recorded step, the one part of mem that imports "
+                         "torch)")
     ap.add_argument("--json", action="store_true",
                     help="emit the schema-versioned artifact "
                          "(perf-registry-recordable; gate with "

@@ -85,12 +85,18 @@ def top_k_stable(probs: torch.Tensor, k: int):
     return values[..., :k], indices[..., :k]
 
 
+def one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """float32 ``(..., n)`` rows with a 1 at ``idx`` and 0 elsewhere, an
+    index outside ``[0, n)`` a zero row (``jax.nn.one_hot``'s). A
+    comparison on the device: ``F.one_hot`` reads its indices' range back
+    to the host (two ``.item()`` a call), a host sync inside the step."""
+    return (idx.unsqueeze(-1) == torch.arange(n, device=idx.device)).to(torch.float32)
+
+
 def _slots(pos: torch.Tensor, capacity: int) -> torch.Tensor:
     """``one_hot(pos, capacity)`` with a -1 or an out-of-range position a
     zero row (``jax.nn.one_hot``'s)."""
-    ok = (pos >= 0) & (pos < capacity)
-    idx = torch.where(ok, pos, torch.zeros_like(pos)).long()
-    return F.one_hot(idx, capacity).to(torch.float32) * ok[..., None].to(torch.float32)
+    return one_hot(pos.long(), capacity)
 
 
 class MoEMlp(nn.Module):
@@ -120,13 +126,13 @@ class MoEMlp(nn.Module):
         topk_p, topk_i = top_k_stable(probs, K)
         gates = topk_p if K == 1 else topk_p / torch.clamp_min(
             topk_p.sum(dim=-1, keepdim=True), 1e-9)
-        mask0 = F.one_hot(topk_i[..., 0], E).to(torch.float32)
+        mask0 = one_hot(topk_i[..., 0], E)
         frac, mean_prob = mask0.mean(dim=1), probs.mean(dim=1)  # (B, E)
         self.aux_loss = E * torch.mean(torch.sum(frac * mean_prob, dim=-1))
         dispatch = combine = None
         count = torch.zeros((B, 1, E), dtype=torch.float32, device=x.device)
         for j in range(K):                  # choice-major slots
-            mask_j = F.one_hot(topk_i[..., j], E).to(torch.float32)
+            mask_j = one_hot(topk_i[..., j], E)
             pos_j = torch.where(mask_j > 0, torch.cumsum(mask_j, dim=1) - 1.0 + count,
                                 torch.full_like(mask_j, -1.0))
             disp_j = _slots(pos_j.to(torch.int32), capacity)   # (B, T, E, Cap)

@@ -95,11 +95,22 @@ hops too), its dtype as the JAX HLO names it (``f32``, ``bf16``, ``s8``...;
 the ring's wire message, carried as bytes, books as its wire mode's dtype,
 ``s8`` for int8), its axis (the rank grid's name for the group,
 ``parallel/mesh.py::axis_of``), its group size, its payload bytes (the
-all-gather's whole result, as JAX scales the operand by the group) and the
-group's ranks. ``analysis/anatomy.py`` builds the inventory from it. A
-collective over one rank moves nothing and is not booked, as XLA elides
-it. The drain's vote (``parallel/runtime.py::agree_any``) is not a step
-collective and is not booked.
+all-gather's whole result, as JAX scales the operand by the group), the
+group's ranks and the ranks of every group of its axis
+(``parallel/mesh.py::axis_groups``: the set the JAX HLO's replica groups
+list). A ZeRO-3 block gather (``BlockGather``) books its block's index and
+whether the next block's gather was in flight when the block was first
+used. ``analysis/anatomy.py`` builds the inventory from it, and
+``analysis/lint.py`` its participation and prefetch checks. A collective
+over one rank moves nothing and is not booked, as XLA elides it. The
+drain's vote (``parallel/runtime.py::agree_any``) is not a step collective
+and is not booked.
+
+Gloo's host staging (``_to_host``: a CUDA tensor copied to pinned host
+memory for the wire) is the transport, not the step: while it copies,
+``on_wire()`` is true, so the lint's host-transfer rule, which books every
+device-to-host copy inside a step, leaves it out, as XLA's collectives
+never show as host transfers either.
 """
 
 from __future__ import annotations
@@ -116,6 +127,8 @@ from tpu_ddp_torch.parallel.runtime import rank, world_size
 _RING_HOP_HOOK = None
 #: the open recorder: (its list of calls, the default group's axis), or None
 _RECORDER = None
+#: how many wire stagings are copying now (``_to_host``; ``on_wire``)
+_WIRE = [0]
 
 #: ring wire mode -> the dtype token the hop's payload carries
 _MODE_WIRE_DTYPE = {"f32": "f32", "bf16": "bf16", "int8": "s8"}
@@ -150,8 +163,9 @@ def record_collectives(world_axis: str = "data"):
     """Book every collective issued inside the ``with`` (module docstring)
     into the list it yields, one dict a call: ``kind``, ``dtype``,
     ``axis``, ``group_size``, ``payload_bytes``, ``ranks`` (the group's,
-    global), ``src`` (this rank) and ``peer`` (a permute's destination,
-    global; else None).
+    global), ``groups`` (every group of its axis, global), ``src`` (this
+    rank) and ``peer`` (a permute's destination, global; else None); a
+    ZeRO-3 block gather also ``block`` and ``next_in_flight``.
     ``world_axis`` names the default group (None): ``data`` for dp."""
     global _RECORDER
     prev, calls = _RECORDER, []
@@ -163,21 +177,34 @@ def record_collectives(world_axis: str = "data"):
 
 
 def _book(kind: str, t: torch.Tensor, group, *, wire: Optional[str] = None,
-          payload: Optional[int] = None, peer: Optional[int] = None) -> None:
-    """Book one collective into the open recorder, if any."""
+          payload: Optional[int] = None, peer: Optional[int] = None,
+          block: Optional[int] = None) -> Optional[dict]:
+    """Book one collective into the open recorder, if any; returns its
+    record (None when nothing is booked)."""
     rec = _RECORDER
     if rec is None:
-        return
+        return None
     n = group_size(group)
     if n <= 1:
-        return
-    from tpu_ddp_torch.parallel.mesh import axis_of
+        return None
+    from tpu_ddp_torch.parallel.mesh import axis_groups, axis_of
 
-    rec[0].append({
+    call = {
         "kind": kind, "dtype": wire or _HLO_DTYPE.get(t.dtype, str(t.dtype)),
         "axis": axis_of(group, rec[1]), "group_size": n,
         "payload_bytes": int(t.numel() * t.element_size() if payload is None else payload),
-        "ranks": group_ranks(group), "src": rank(), "peer": peer})
+        "ranks": group_ranks(group), "groups": axis_groups(group), "src": rank(),
+        "peer": peer}
+    if block is not None:
+        call.update(block=block, next_in_flight=None)
+    rec[0].append(call)
+    return call
+
+
+def on_wire() -> bool:
+    """Whether a wire staging is copying a tensor to the host now (module
+    docstring)."""
+    return _WIRE[0] > 0
 
 
 def _staged(tensor: torch.Tensor) -> bool:
@@ -188,7 +215,11 @@ def _staged(tensor: torch.Tensor) -> bool:
 
 def _to_host(t: torch.Tensor) -> torch.Tensor:
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
+    _WIRE[0] += 1
+    try:
+        host.copy_(t, non_blocking=True)
+    finally:
+        _WIRE[0] -= 1
     return host
 
 
@@ -394,6 +425,7 @@ class BlockGather:
         self.issued = self.waited = 0    # blocks issued, waited for (prefixes)
         self._work: Dict[int, tuple] = {}
         self._host: Optional[torch.Tensor] = None
+        self._booked: Dict[int, dict] = {}   # the recorder's record of each gather
 
     def start(self) -> None:
         if self.prefetch and self.widths:
@@ -409,7 +441,10 @@ class BlockGather:
             self._work[k] = (row.view(1, -1), None, None)
             return
         out = torch.empty(self.n * row.numel(), dtype=row.dtype, device=row.device)
-        _book("all-gather", row, self.group, payload=out.numel() * out.element_size())
+        call = _book("all-gather", row, self.group, payload=out.numel() * out.element_size(),
+                     block=k)
+        if call is not None:
+            self._booked[k] = call
         if _staged(row):
             if self._host is None:
                 self._host = _to_host(self.flat)
@@ -437,6 +472,9 @@ class BlockGather:
             last = min(j + 1 if self.prefetch else j, len(self.widths) - 1)
             while self.issued <= last:
                 self._issue(self.issued)
+            if j in self._booked:     # block j's first use: is j+1's gather out?
+                self._booked.pop(j)["next_in_flight"] = (
+                    self.issued > j + 1 or j == len(self.widths) - 1)
             done.append((j, self._finish(j)))
             self.waited = j + 1
         return done

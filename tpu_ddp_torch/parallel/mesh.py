@@ -20,7 +20,9 @@ each axis, every rank calling ``new_group`` for every group in the same
 order (``torch.distributed`` requires it), and keeps this rank's five.
 With no process group up (one process) they are None and every axis is 1.
 ``axis_of`` names the axis of a group it built (the collective recorder's
-axis, ``parallel/collectives.py``).
+axis, ``parallel/collectives.py``), and ``axis_groups`` the ranks of every
+group of that axis, the set the recorder books for the lint's
+participation check (``analysis/lint.py``, COL001).
 """
 
 from __future__ import annotations
@@ -133,9 +135,10 @@ class Mesh:
         return self.experts
 
 
-#: each group ``create_mesh`` built -> its axis; a group dropped (its world
-#: destroyed, its mesh gone) drops out
-_GROUP_AXES = weakref.WeakKeyDictionary()
+#: each group ``create_mesh`` built -> (its axis, the global ranks of every
+#: group of that axis, in the order they were built); a group dropped (its
+#: world destroyed, its mesh gone) drops out
+_GROUPS = weakref.WeakKeyDictionary()
 
 
 def axis_of(group: Optional[dist.ProcessGroup], world_axis: str = "data") -> str:
@@ -143,7 +146,19 @@ def axis_of(group: Optional[dist.ProcessGroup], world_axis: str = "data") -> str
     (None), the axis ``create_mesh`` built it for, else "unknown"."""
     if group is None:
         return world_axis
-    return _GROUP_AXES.get(group, "unknown")
+    return _GROUPS[group][0] if group in _GROUPS else "unknown"
+
+
+def axis_groups(group: Optional[dist.ProcessGroup]) -> list:
+    """The global ranks of every group of ``group``'s axis, one tuple a
+    group (every rank builds them all, ``create_mesh``): all ranks for the
+    default group (None), ``group``'s own ranks alone for a group the mesh
+    did not build."""
+    if group is None:
+        return [tuple(range(dist.get_world_size() if dist.is_initialized() else 1))]
+    if group in _GROUPS:
+        return list(_GROUPS[group][1])
+    return [tuple(dist.get_process_group_ranks(group))]
 
 
 #: the Mesh field each axis's group is kept in
@@ -176,11 +191,16 @@ def create_mesh(sizes: Optional[Dict[str, int]] = None) -> Mesh:
     # every rank builds every group, the axes in this order
     for axis in (SEQUENCE_AXIS, DATA_AXIS, MODEL_AXIS, PIPELINE_AXIS, EXPERT_AXIS):
         others = [a for a in AXIS_ORDER if a != axis]
+        built, members = [], []
         for rest in itertools.product(*(range(shape[a]) for a in others)):
             coords = dict(zip(others, rest))
-            group = dist.new_group([at({**coords, axis: i}) for i in range(shape[axis])])
+            ranks = [at({**coords, axis: i}) for i in range(shape[axis])]
+            group = dist.new_group(ranks)
+            members.append(tuple(ranks))
             if isinstance(group, dist.ProcessGroup):
-                _GROUP_AXES[group] = axis
+                built.append(group)
             if all(coords[a] == mine[a] for a in others):
                 setattr(mesh, _GROUP_FIELD[axis], group)
+        for group in built:
+            _GROUPS[group] = (axis, tuple(members))
     return mesh

@@ -195,6 +195,47 @@ class StateLayout:
         else its leaves."""
         return state.param_shards if scattered(self.zero) else state.params()
 
+    def _global_numel(self, name: str, t: torch.Tensor, zero_cut: bool) -> tuple:
+        """``(numel, cut)``: the elements of leaf ``name``'s whole tensor,
+        of which this rank holds ``t``, and whether the layout cuts it
+        (over the data group by ZeRO when ``zero_cut``, over the model or
+        expert group by ``tp``)."""
+        numel, cut = t.numel(), False
+        if zero_cut and self.zero is not None and name in self.zero.param_slots:
+            numel, cut = self.zero.param_slots[name].size, self.zero.n_shards > 1
+        cuts = getattr(self.tp, "layout", None) or {}
+        if name in cuts and self.tp.size > 1:
+            _, idx = cuts[name]
+            numel = numel // len(idx[self.tp.index]) * sum(len(i) for i in idx)
+            cut = True
+        return numel, cut
+
+    def leaves(self, state: TrainState) -> list:
+        """Every tensor of this rank's state, by section: ``(section, name,
+        tensor, global numel, cut)``, the sections ``params`` (the shards
+        under ZeRO-3), ``opt_state`` (each slot's leaves as ``<slot>/<name>``
+        and the counts), ``batch_stats`` (the module's buffers) and
+        ``step``; ``global numel`` is the whole leaf's element count and
+        ``cut`` whether the layout splits it over ranks (a pipeline stage
+        holds its blocks whole). The graph lint's state
+        (``analysis/lint.py``: DON001, SHD001)."""
+        out = []
+        for name, t in self.local_params(state).items():
+            out.append(("params", name, t, *self._global_numel(name, t, scattered(self.zero))))
+        opt = state.opt_state
+        for slot in SLOTS:
+            for name, t in (getattr(opt, slot) or {}).items():
+                out.append(("opt_state", f"{slot}/{name}", t,
+                            *self._global_numel(name, t, True)))
+        for slot in COUNTS:
+            if getattr(opt, slot) is not None:
+                out.append(("opt_state", slot, getattr(opt, slot),
+                            getattr(opt, slot).numel(), False))
+        for name, t in state.model.named_buffers():
+            out.append(("batch_stats", name, t, *self._global_numel(name, t, False)))
+        out.append(("step", "step", state.step, state.step.numel(), False))
+        return out
+
 
 def checkpoint_state(step: int, model_state: Dict[str, torch.Tensor],
                      opt_state: OptState,

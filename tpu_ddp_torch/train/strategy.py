@@ -374,29 +374,51 @@ def _pp_strategy(state, tx, mesh: Mesh, *, loss_fn: Callable, compute_accuracy: 
 class StepProgram:
     """A run's train step and its first batch (``build_step_program``):
     ``step()`` runs one optimizer step in place and returns its metrics;
-    ``close()`` releases the trainer."""
+    ``leaves()`` is the rank's state by section
+    (``train/state.py::StateLayout.leaves``); ``close()`` releases the
+    trainer. ``in_place=False`` is the graph lint's injected fault
+    (``analysis/lint.py``, DON001): the step then leaves its new params,
+    optimizer state and BatchNorm statistics in fresh tensors, as an
+    out-of-place update (``p.data = new``) would, and the old ones are
+    freed after it."""
 
     trainer: object
     batch: dict
+    in_place: bool = True
 
     def step(self) -> dict:
         t = self.trainer
         t.state, metrics = t.train_step(t.state, self.batch)
+        if not self.in_place:
+            with torch.no_grad():
+                for section, name, leaf, _, _ in self.leaves():
+                    if section in ("params", "batch_stats"):
+                        leaf.data = leaf.data.clone()
+                opt = t.state.opt_state
+                for slot in ("trace", "mu", "nu", "ema"):
+                    if getattr(opt, slot):
+                        setattr(opt, slot, {n: v.clone() for n, v in getattr(opt, slot).items()})
         return metrics
+
+    def leaves(self) -> list:
+        return self.trainer.layout.leaves(self.trainer.state)
 
     def close(self) -> None:
         self.trainer.close()
 
 
-def build_step_program(config, *, model: Optional[torch.nn.Module] = None) -> StepProgram:
+def build_step_program(config, *, model: Optional[torch.nn.Module] = None,
+                       loss_fn: Optional[Callable] = None,
+                       in_place: bool = True) -> StepProgram:
     """The train step of ``config`` (a ``TrainConfig``) built as a run
     builds it, by a ``Trainer`` over this process's group (``model``: one
-    to train in place of the config's), with its loader's first batch of
-    epoch 1 on the device."""
+    to train in place of the config's; ``loss_fn``: a loss in place of
+    the config's), with its loader's first batch of epoch 1 on the device;
+    ``in_place`` as ``StepProgram``'s."""
     from tpu_ddp_torch.train.trainer import Trainer
 
-    trainer = Trainer(config, model=model)
+    trainer = Trainer(config, model=model, loss_fn=loss_fn)
     loader = trainer.train_loader
     loader.set_epoch(1)
     batch = next(iter(loader.epoch_batches()))
-    return StepProgram(trainer, trainer.to_device(batch))
+    return StepProgram(trainer, trainer.to_device(batch), in_place)

@@ -239,7 +239,7 @@ import signal
 import time
 import warnings
 from collections import deque
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -293,6 +293,8 @@ from tpu_ddp_torch.train.finetune import load_pretrained_for_finetune
 from tpu_ddp_torch.train.losses import binary_cross_entropy_with_logits, cross_entropy_loss
 from tpu_ddp_torch.train.optim import decay_mask, freeze_all_but, make_optimizer
 from tpu_ddp_torch.train.state import (
+    COUNTS,
+    SLOTS,
     StateLayout,
     checkpoint_state,
     copy_opt_state_,
@@ -317,8 +319,7 @@ from tpu_ddp_torch.train.steps import (
 log = logging.getLogger(__name__)
 
 #: the JAX ``validate``'s refusal of ``--comms-monitor`` with
-#: ``--lint-on-start``; the port has no ``--lint-on-start`` until the lint
-#: is ported (ROADMAP section 1 item 2), so no guard raises it yet
+#: ``--lint-on-start`` (``TrainConfig.__post_init__``)
 COMMS_MONITOR_LINT_REFUSAL = (
     "--comms-monitor does not compose with "
     "--lint-on-start: the per-hop host callback is a "
@@ -429,6 +430,7 @@ class TrainConfig:
                                           # (mem-p<rank>.jsonl under telemetry)
     chaos_spec: Optional[str] = None      # --chaos SPEC.JSON: fault injection
     comms_monitor: bool = False           # the ring's hop monitor
+    lint_on_start: bool = False           # the graph lint over the run's step first
 
     def __post_init__(self):
         valid_sinks = tuple(DEFAULT_SINKS.split(","))
@@ -456,6 +458,8 @@ class TrainConfig:
                     "health records and the hang-forensics suspect live "
                     "in the run dir"
                 )
+            if self.lint_on_start:
+                raise ValueError(COMMS_MONITOR_LINT_REFUSAL)
         if self.chaos_spec:
             if not self.telemetry_dir:
                 raise ValueError(
@@ -675,12 +679,16 @@ def load_dataset(c: TrainConfig):
 
 class Trainer:
     def __init__(self, config: TrainConfig, *, train_data=None, test_data=None,
-                 model: Optional[torch.nn.Module] = None):
+                 model: Optional[torch.nn.Module] = None,
+                 loss_fn: Optional[Callable] = None):
         """``train_data``/``test_data``: ``(images, labels)`` that replace the
         configured dataset's splits (the JAX trainer's); the test split
         defaults to ``train_data`` when only that is given. ``model``: a
         model to train in place of ``build_model(config)`` (the analyzer's
-        small per-family models, ``analysis/explain.py``)."""
+        small per-family models, ``analysis/explain.py``). ``loss_fn``: a
+        loss ``(logits, labels, mask)`` in place of the config's (the
+        graph lint's planted host read, ``analysis/lint.py``; the JAX
+        builders' ``loss_fn``)."""
         c = self.config = config
         self.device = resolve_device(c.device)
         set_float32_precision()
@@ -765,12 +773,13 @@ class Trainer:
         if self.compress is not None and c.grad_compress_error_feedback:
             self.state.grad_residual = self.compress.init_residual(self.device)
         if c.loss == "bce":
-            loss_fn, self.with_accuracy = binary_cross_entropy_with_logits, False
+            default_loss, self.with_accuracy = binary_cross_entropy_with_logits, False
         else:
-            loss_fn, self.with_accuracy = cross_entropy_loss, True
+            default_loss, self.with_accuracy = cross_entropy_loss, True
             if c.label_smoothing:
-                loss_fn = functools.partial(cross_entropy_loss,
-                                            label_smoothing=c.label_smoothing)
+                default_loss = functools.partial(cross_entropy_loss,
+                                                 label_smoothing=c.label_smoothing)
+        loss_fn = loss_fn or default_loss
         self.health_monitor = None
         self._health_halted = None    # the step a halt verdict stopped at
         health = None
@@ -818,6 +827,7 @@ class Trainer:
         self.data_seconds = {"data_wait": 0.0, "h2d": 0.0}
         self.eval_batches = 0  # eval steps run so far (every evaluate call)
         self._preempted = self._force_abort = False
+        self.preflight_launches = {}  # kernel launches of lint_preflight's audits
 
         self.checkpointer = None
         self.best_checkpointer = None
@@ -1329,6 +1339,8 @@ class Trainer:
         except ValueError:  # not the main thread
             old_handlers = {}
         try:
+            if self.config.lint_on_start:
+                self.lint_preflight()
             return self._run_loop()
         except Exception as e:
             # an allocation failure writes its postmortem bundle and the
@@ -1343,6 +1355,124 @@ class Trainer:
         finally:
             for sig, handler in old_handlers.items():
                 signal.signal(sig, handler)
+
+    def _preflight_batch(self, stacked: int = 0) -> dict:
+        """A batch of the run's shapes and dtypes on the device (this rank's
+        ``per_shard_batch`` rows; ``stacked`` > 0: that many stacked, the
+        fused call's), made from a generator of its own: the loader is not
+        touched."""
+        gen = torch.Generator().manual_seed(0)
+        rows = self.config.per_shard_batch
+        lead = (stacked, rows) if stacked else (rows,)
+        images, labels = self.train_loader.images, self.train_loader.labels
+        batch = {
+            "image": torch.rand(lead + images.shape[1:], generator=gen).to(
+                torch.from_numpy(images[:1]).dtype),
+            "label": torch.zeros(lead + labels.shape[1:],
+                                 dtype=torch.from_numpy(labels[:1]).dtype),
+            "mask": torch.ones(lead, dtype=torch.bool)}
+        return self.to_device(batch)
+
+    def _audited(self, step, batch, label: str, program: str):
+        """Lint ``step`` over ``batch`` as this run's program ``label``
+        (``analysis/lint.py::lint_program``), every state tensor, the RNG
+        states and the launch counts put back after it."""
+        from tpu_ddp_torch import ops
+        from tpu_ddp_torch.analysis.explain import StrategyProgram
+        from tpu_ddp_torch.analysis.lint import lint_program
+
+        c = self.config
+
+        def run():
+            self.state, metrics = step(self.state, batch)
+            return metrics
+
+        prog = StrategyProgram(
+            strategy=label, parallelism=self.parallelism, step=run,
+            mesh=dict(self.mesh_sizes), n_devices=self.world_size, model_name=c.model,
+            compute_dtype=c.compute_dtype, per_shard_batch=c.per_shard_batch,
+            device=self.device, leaves=lambda: self.layout.leaves(self.state),
+            batch=batch, zero=self.layout.zero)
+        state, opt = self.state, self.state.opt_state
+        fields = {f: getattr(opt, f) for f in SLOTS + COUNTS}
+        residual, step_t = state.grad_residual, state.step
+        tensors = ([t for _, _, t, _, _ in self.layout.leaves(state)]
+                   + list((residual or {}).values()))
+        # the snapshot lies in host memory (pinned on the card), so the audit
+        # needs no device memory beyond the step's own
+        pin = self.device.type == "cuda"
+        held = [(t.data, t.untyped_storage().data_ptr(),
+                 torch.empty(t.shape, dtype=t.dtype, pin_memory=pin).copy_(t.detach()))
+                for t in tensors]
+        rng = torch.get_rng_state()
+        cuda_rng = torch.cuda.get_rng_state(self.device) if self.device.type == "cuda" else None
+        launches = ops.launch_counts()
+        try:
+            findings, _ = lint_program(prog, strategy=label, program=program)
+        finally:
+            # the run goes on with the very tensors it held, their values
+            # as before the audit (a step that replaced one, as an
+            # out-of-place update does, gets the old one back)
+            self.state, state.opt_state = state, opt
+            state.grad_residual, state.step = residual, step_t
+            for f, value in fields.items():
+                setattr(opt, f, value)
+            with torch.no_grad():
+                for t, (data, ptr, value) in zip(tensors, held):
+                    if t.untyped_storage().data_ptr() != ptr:
+                        t.data = data
+                    t.copy_(value)
+            del held
+            torch.set_rng_state(rng)
+            if cuda_rng is not None:
+                torch.cuda.set_rng_state(cuda_rng, self.device)
+            for name, n in ops.launch_counts().items():
+                self.preflight_launches[name] = (self.preflight_launches.get(name, 0)
+                                                 + n - launches[name])
+                ops.LAUNCHES[name] = launches[name]
+        return findings
+
+    def lint_preflight(self, *, raise_on_error: bool = True):
+        """The graph lint (``analysis/lint.py``) over THIS run's train step
+        (the JAX ``lint_preflight``, :1730-1812), under ``--steps-per-call``
+        its fused call too (``<label>+scan``), and KRN001 under
+        ``--kernels``; returns the findings. With ``raise_on_error`` (the
+        ``--lint-on-start`` path) an error finding on any rank refuses the
+        launch on every rank (``parallel/runtime.py::agree_any``: a rank
+        that went on would wait in its first collective).
+
+        The port's audit runs the step (the JAX one compiles it): once, on
+        a synthetic batch of the run's shapes (``_preflight_batch``), with
+        every state tensor, the error-feedback residual and the RNG states
+        snapshotted before (the tensors into host memory, pinned on the
+        card, so the audit holds no second copy of the state on the device)
+        and copied back in place after, so the run trains bitwise as it
+        would without the preflight. The preflight's
+        kernel launches are accounted apart: ``ops.LAUNCHES`` is put back
+        to its count before the audit and the preflight's launches are in
+        ``preflight_launches``."""
+        from tpu_ddp_torch.analysis.explain import run_strategy_label
+        from tpu_ddp_torch.analysis.lint import lint_kernels, render_findings
+
+        label = run_strategy_label(self.run_meta)
+        findings = self._audited(self.train_step, self._preflight_batch(), label, label)
+        if self.config.kernels:
+            findings = findings + lint_kernels(True, device=self.device, program=label)
+        if self.multi_step is not None:
+            findings = findings + self._audited(
+                self.multi_step, self._preflight_batch(self.steps_per_call), label,
+                f"{label}+scan")
+        if self.rank == 0 or findings:     # every rank that found one says so
+            print(render_findings(f"preflight ({label})", findings), flush=True)
+        errors = [f for f in findings if f.severity == "error"]
+        if agree_any(bool(errors)) and raise_on_error:
+            raise RuntimeError(
+                f"lint preflight refused the launch: {len(errors)} "
+                "error finding(s) in this rank's step"
+                + ("" if errors else " (none here; another rank's)")
+                + " (see above; the rule table and fix hints are in "
+                "tpu_ddp_torch/analysis/lint.py)")
+        return findings
 
     def _handle_possible_oom(self, exc: BaseException) -> None:
         """Classify and document an allocation-failure death (the JAX
